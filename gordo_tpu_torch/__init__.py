@@ -1,0 +1,30 @@
+"""
+gordo-tpu on PyTorch and CUDA: the port of ``gordo_tpu`` to one NVIDIA
+Hopper card, growing slice by slice beside the JAX package it mirrors.
+
+Module names follow ``gordo_tpu`` so each counterpart is easy to find;
+the code inside is PyTorch idiom (``nn.Module``s, tensor functions, an
+explicit ``device``). Every kernel that ``gordo_tpu`` wrote in Pallas for
+the TPU is a kernel written by hand for Hopper here (``csrc/``).
+
+Slice in place: serving one ``DiffBasedAnomalyDetector`` around a
+Transformer (``TransformerAutoEncoder`` / ``TransformerForecast``) over
+HTTP, with every attention call on the flash path going through the
+hand-written forward kernel (``ops/flash_attention.py``).
+
+Layer map:
+
+- ``gordo_tpu_torch.device``      — the device an entry point runs on
+- ``gordo_tpu_torch.ops``         — activations, windowing, kernels
+- ``gordo_tpu_torch.models``      — Transformer modules, estimators, detector
+- ``gordo_tpu_torch.parallel``    — chunked windowed predict
+- ``gordo_tpu_torch.serializer``  — the port's artifact format
+- ``gordo_tpu_torch.convert``     — carries Flax weights into a port artifact
+- ``gordo_tpu_torch.server``      — stdlib WSGI/JSON model server
+
+The package imports torch, numpy and the standard library only.
+"""
+
+from gordo_tpu_torch.device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"

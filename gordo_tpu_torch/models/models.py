@@ -1,0 +1,70 @@
+"""
+Concrete estimator classes (the port of ``gordo_tpu.models.models``):
+the windowed Transformer estimators, predict path.
+"""
+
+from typing import Callable, Union
+
+import numpy as np
+import torch
+
+from gordo_tpu_torch.models.core import BaseTorchEstimator, as_2d
+from gordo_tpu_torch.parallel.fleet import windowed_predict
+
+# register the factories on import
+from gordo_tpu_torch.models import factories  # noqa: F401
+
+
+class WindowedEstimator(BaseTorchEstimator):
+    """
+    Many-to-one windowed base (the counterpart of ``LSTMBaseEstimator``).
+    Samples are sliding windows of ``lookback_window`` rows; the target
+    row is offset by ``lookahead`` (0 = reconstruct the window's end,
+    1 = forecast the next step).
+    """
+
+    def __init__(
+        self,
+        kind: Union[Callable, str],
+        lookback_window: int = 1,
+        batch_size: int = 32,
+        **kwargs,
+    ) -> None:
+        kwargs["lookback_window"] = lookback_window
+        kwargs["batch_size"] = batch_size
+        super().__init__(kind, **kwargs)
+        self.lookback_window = lookback_window
+        self.batch_size = batch_size
+
+    @property
+    def lookahead(self) -> int:
+        raise NotImplementedError()
+
+    def predict(self, X, **kwargs) -> np.ndarray:
+        """
+        (n - lookback_window + 1 - lookahead, n_features_out) float32
+        predictions; row i predicts the window ending at
+        ``X[i + lookback_window - 1 + lookahead]``. The rows go to the
+        device once and the windows are gathered there.
+        """
+        module = self._fitted_module()
+        X = self._pad_active_input(as_2d(X))
+        Xd = torch.from_numpy(np.ascontiguousarray(X)).to(self.device_)
+        out = windowed_predict(module, Xd, self.lookback_window, self.lookahead)
+        return self._strip_pad_output(out.cpu().numpy())
+
+
+class TransformerAutoEncoder(WindowedEstimator):
+    """Transformer-encoder window reconstructor."""
+
+    @property
+    def lookahead(self) -> int:
+        return 0
+
+
+class TransformerForecast(WindowedEstimator):
+    """Transformer-encoder 1-step-ahead forecaster."""
+
+    @property
+    def lookahead(self) -> int:
+        return 1

@@ -1,0 +1,192 @@
+"""
+Transformer encoder for timeseries anomaly models (the port of
+``gordo_tpu.models.specs_seq``'s Transformer half), eval mode.
+
+Parameters live in float32; ``dtype`` is the compute type of the Linear
+layers (as Flax's ``Dense(dtype=...)``), while LayerNorm and the softmax
+stay in float32. Attention is pluggable: ``"dense"`` is the plain einsum
+path, ``"flash"`` the hand-written CUDA kernel of
+``gordo_tpu_torch.ops.flash_attention`` (its plain version on CPU
+tensors).
+
+Not ported yet: sequence sharding (``seq_axis``), rematerialisation and
+dropout (both act only in training: the training slice), and the TCN
+family.
+"""
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gordo_tpu_torch.ops.activations import resolve_activation
+from gordo_tpu_torch.ops.flash_attention import flash_attention
+
+ATTENTION_IMPLS = ("dense", "flash")
+
+#: Flax's LayerNorm epsilon (torch's default is 1e-5)
+LAYER_NORM_EPS = 1e-6
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None) -> torch.Tensor:
+    """Fixed sinusoidal positional encoding, (seq_len, d_model) float32."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / 10000.0 ** (dim / d_model)
+    enc = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
+    enc[:, 0::2] = torch.sin(angle)
+    enc[:, 1::2] = torch.cos(angle[:, : d_model // 2])
+    return enc
+
+
+def dense_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """
+    Plain dot-product attention over (batch, seq, heads, head_dim)
+    tensors; the softmax runs in float32 whatever the compute dtype.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * sm_scale
+    if causal:
+        q_len, k_len = scores.shape[-2], scores.shape[-1]
+        keep = torch.ones(q_len, k_len, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, torch.finfo(torch.float32).min)
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` over float32 parameters."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """Flax-style LayerNorm: eps 1e-6, computed and returned in float32."""
+
+    def __init__(self, d_model: int):
+        super().__init__(d_model, eps=LAYER_NORM_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """QKV projection + pluggable attention core + output projection."""
+
+    def __init__(
+        self,
+        d_model: int,
+        n_heads: int,
+        causal: bool = False,
+        attention_impl: str = "dense",
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        if d_model % n_heads:
+            raise ValueError(f"d_model={d_model} not divisible by n_heads={n_heads}")
+        if attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"Unknown attention_impl {attention_impl!r}; available: {ATTENTION_IMPLS}"
+            )
+        self.n_heads = n_heads
+        self.causal = causal
+        self.attention_impl = attention_impl
+        self.query = Dense(d_model, d_model, dtype)
+        self.key = Dense(d_model, d_model, dtype)
+        self.value = Dense(d_model, d_model, dtype)
+        self.out = Dense(d_model, d_model, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        batch, seq, d_model = x.shape
+        head_dim = d_model // self.n_heads
+
+        def proj(layer):
+            # a view: the kernel reads the heads through their strides
+            return layer(x).view(batch, seq, self.n_heads, head_dim)
+
+        q, k, v = proj(self.query), proj(self.key), proj(self.value)
+        attend = flash_attention if self.attention_impl == "flash" else dense_attention
+        out = attend(q, k, v, causal=self.causal)
+        return self.out(out.reshape(batch, seq, d_model))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LayerNorm encoder block: MHA + MLP, residual around each."""
+
+    def __init__(
+        self,
+        d_model: int,
+        n_heads: int,
+        ff_dim: int,
+        causal: bool = False,
+        attention_impl: str = "dense",
+        ff_func: str = "gelu",
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.norm1 = LayerNorm(d_model)
+        self.attn = MultiHeadSelfAttention(d_model, n_heads, causal, attention_impl, dtype)
+        self.norm2 = LayerNorm(d_model)
+        self.ff1 = Dense(d_model, ff_dim, dtype)
+        self.ff2 = Dense(ff_dim, d_model, dtype)
+        self.ff_func = resolve_activation(ff_func)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.ff2(self.ff_func(self.ff1(self.norm2(x))))
+
+
+class TransformerNet(nn.Module):
+    """
+    Encoder-only Transformer over a lookback window: embed sensors into
+    d_model, add sinusoidal positions, run n_layers blocks, and read the
+    final timestep through a Linear head. Input (batch, time, features),
+    output (batch, out_dim) float32.
+    """
+
+    def __init__(
+        self,
+        n_features: int,
+        d_model: int,
+        n_heads: int,
+        n_layers: int,
+        ff_dim: int,
+        out_dim: int,
+        causal: bool = True,
+        attention_impl: str = "dense",
+        out_func: str = "linear",
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.d_model = d_model
+        self.embed = Dense(n_features, d_model, dtype)
+        self.blocks = nn.ModuleList(
+            TransformerBlock(d_model, n_heads, ff_dim, causal, attention_impl, dtype=dtype)
+            for _ in range(n_layers)
+        )
+        self.norm = LayerNorm(d_model)
+        self.head = Dense(d_model, out_dim, dtype)
+        self.out_func = resolve_activation(out_func)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.embed(x)
+        h = h + sinusoidal_positions(x.shape[1], self.d_model, device=h.device).to(h.dtype)
+        for block in self.blocks:
+            h = block(h)
+        h = self.norm(h)[:, -1, :]
+        return self.out_func(self.head(h)).float()

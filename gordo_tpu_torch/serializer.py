@@ -1,0 +1,123 @@
+"""
+The port's artifact format (the counterpart of
+``gordo_tpu.serializer.serializer``, which pickles ``gordo_tpu`` objects).
+
+An artifact is a directory of three files:
+
+- ``definition.json``: the model definition, ``{"<class path>": kwargs}``
+  with the base estimator nested the same way, as the JAX package's
+  ``into_definition`` writes it (class paths name the port's classes);
+- ``params.npz``: every array the model needs, flat, by dotted name:
+  ``base_estimator.<state-dict key>`` for the weights,
+  ``scaler.center_``/``scaler.scale_`` for the target scaler, and the
+  fitted thresholds under their attribute names;
+- ``metadata.json``: the build metadata, with the JAX artifact's keys.
+
+Nothing is pickled, so loading an artifact runs no code from it. The
+three files are written into a sibling temporary directory which is
+then renamed into place, so a reader sees the whole artifact or none.
+"""
+
+import json
+import math
+import os
+import shutil
+from pathlib import Path
+from typing import Any, Dict, Union
+
+import numpy as np
+
+from gordo_tpu_torch.device import DeviceLike
+from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+from gordo_tpu_torch.models.models import TransformerAutoEncoder, TransformerForecast
+
+DEFINITION_FILENAME = "definition.json"
+PARAMS_FILENAME = "params.npz"
+METADATA_FILENAME = "metadata.json"
+
+#: the classes an artifact may name, by class name
+MODEL_CLASSES = {
+    cls.__name__: cls
+    for cls in (DiffBasedAnomalyDetector, TransformerAutoEncoder, TransformerForecast)
+}
+
+PathLike = Union[str, os.PathLike]
+
+
+def from_definition(definition: Dict[str, Any]):
+    """``{"<class path>": kwargs}`` -> an unfitted model; a nested
+    ``base_estimator`` definition is built the same way."""
+    if not isinstance(definition, dict) or len(definition) != 1:
+        raise ValueError(f"A definition has exactly one class path key: {definition!r}")
+    path, kwargs = next(iter(definition.items()))
+    name = path.rsplit(".", 1)[-1]
+    try:
+        cls = MODEL_CLASSES[name]
+    except KeyError:
+        raise ValueError(
+            f"{path!r} is not a model the port serves; known: {sorted(MODEL_CLASSES)}"
+        ) from None
+    kwargs = dict(kwargs or {})
+    if isinstance(kwargs.get("base_estimator"), dict):
+        kwargs["base_estimator"] = from_definition(kwargs["base_estimator"])
+    if hasattr(cls, "from_definition"):
+        return cls.from_definition(kwargs)
+    return cls(**kwargs)
+
+
+def _sanitize_nan(obj: Any) -> Any:
+    """NaN/Infinity floats -> None, so the JSON stays valid."""
+    if isinstance(obj, float):
+        return None if (math.isnan(obj) or math.isinf(obj)) else obj
+    if isinstance(obj, dict):
+        return {key: _sanitize_nan(value) for key, value in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_sanitize_nan(value) for value in obj]
+    return obj
+
+
+def dump(model, dest_dir: PathLike, metadata: Dict[str, Any]) -> Path:
+    """Write ``model`` and ``metadata`` as an artifact at ``dest_dir``,
+    replacing any artifact there as a whole."""
+    dest_dir = Path(dest_dir)
+    dest_dir.parent.mkdir(parents=True, exist_ok=True)
+    tmp_dir = dest_dir.parent / f".{dest_dir.name}.tmp-{os.getpid()}"
+    if tmp_dir.exists():
+        shutil.rmtree(tmp_dir)
+    tmp_dir.mkdir()
+    try:
+        with open(tmp_dir / DEFINITION_FILENAME, "w") as fh:
+            json.dump(model.into_definition(), fh, indent=1)
+        np.savez(tmp_dir / PARAMS_FILENAME, **model.state_arrays())
+        with open(tmp_dir / METADATA_FILENAME, "w") as fh:
+            json.dump(_sanitize_nan(metadata), fh, default=str)
+        if dest_dir.exists():
+            shutil.rmtree(dest_dir)
+        os.replace(tmp_dir, dest_dir)
+    except BaseException:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise
+    return dest_dir
+
+
+def load(source_dir: PathLike, device: DeviceLike = None):
+    """The model stored at ``source_dir``, its weights on ``device`` (the
+    card unless ``"cpu"`` is asked for)."""
+    source_dir = Path(source_dir)
+    definition_file = source_dir / DEFINITION_FILENAME
+    if not definition_file.is_file():
+        raise FileNotFoundError(f"No {DEFINITION_FILENAME} found in {source_dir}")
+    with open(definition_file) as fh:
+        model = from_definition(json.load(fh))
+    with np.load(source_dir / PARAMS_FILENAME, allow_pickle=False) as npz:
+        arrays = {name: npz[name] for name in npz.files}
+    return model.load_state_arrays(arrays, device)
+
+
+def load_metadata(source_dir: PathLike) -> Dict[str, Any]:
+    """The artifact's metadata dict."""
+    path = Path(source_dir) / METADATA_FILENAME
+    if not path.is_file():
+        raise FileNotFoundError(f"No {METADATA_FILENAME} found in {source_dir}")
+    with open(path) as fh:
+        return json.load(fh)

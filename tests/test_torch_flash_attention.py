@@ -1,0 +1,127 @@
+"""
+The port's flash-attention forward (gordo_tpu_torch.ops.flash_attention)
+against the JAX package's Pallas kernel, run as tests/test_seq_models.py
+runs it on the CPU (interpret mode), and against dense attention.
+
+On CPU tensors the wrapper runs its plain PyTorch version; the CUDA
+kernel itself is held against that plain version on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerance: atol 1e-5 in float32 — both sides compute the same softmax in
+float32 and differ only in summation order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gordo_tpu.models.specs_seq import dense_attention as jax_dense_attention
+from gordo_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+from gordo_tpu_torch import resolve_device
+from gordo_tpu_torch.models.specs_seq import dense_attention
+from gordo_tpu_torch.ops import flash_attention as fa
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+ATOL = 1e-5
+# a ragged sequence (37: not a tile multiple) and the served model's S and D
+SHAPES = [(2, 37, 2, 16), (32, 64, 4, 16)]
+
+
+def _qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+
+
+def _lse_reference(q, k, causal):
+    """log-sum-exp of the scaled scores in float64, (batch*heads, seq)."""
+    batch, seq, heads, head_dim = q.shape
+    scores = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k.astype(np.float64))
+    scores /= np.sqrt(head_dim)
+    if causal:
+        scores = np.where(np.tril(np.ones((seq, seq), dtype=bool)), scores, -np.inf)
+    peak = scores.max(axis=-1, keepdims=True)
+    lse = np.log(np.exp(scores - peak).sum(axis=-1)) + peak[..., 0]
+    return lse.reshape(batch * heads, seq)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_matches_jax_kernel(shape, causal):
+    q, k, v = _qkv(shape, seed=sum(shape) + causal)
+    want = np.asarray(
+        jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    )
+    before = fa.launch_counts[fa.KERNEL]
+    out, lse = fa.flash_attention_forward(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal
+    )
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL)
+    assert out.shape == shape and out.dtype == torch.float32
+    assert lse.shape == (shape[0] * shape[2], shape[1]) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), _lse_reference(q, k, causal), atol=ATOL)
+    # CPU tensors take the plain version: the kernel was never launched
+    assert fa.launch_counts[fa.KERNEL] == before
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_matches_dense_attention(shape, causal):
+    q, k, v = _qkv(shape, seed=7 + causal)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=causal).numpy()
+    np.testing.assert_allclose(out, dense_attention(tq, tk, tv, causal=causal).numpy(), atol=ATOL)
+    want = jax_dense_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(out, np.asarray(want), atol=ATOL)
+
+
+def test_flash_reads_strided_heads():
+    """The model hands the wrapper (batch, seq, heads, head_dim) views of
+    one projection; strided inputs give the contiguous result."""
+    q, k, v = _qkv((3, 20, 4, 16), seed=3)
+    wide = torch.from_numpy(np.concatenate([q, k, v], axis=-1))  # (3, 20, 4, 48)
+    tq, tk, tv = wide[..., :16], wide[..., 16:32], wide[..., 32:]
+    assert not tq.is_contiguous()
+    got = fa.flash_attention(tq, tk, tv, causal=True)
+    want = fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=0)
+
+
+def test_flash_rejects_mismatched_inputs():
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention(q, torch.zeros(1, 5, 2, 16), q)
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_attention(q, q.double(), q)
+
+
+def test_flash_has_no_path_off_cpu_and_cuda():
+    """Only CPU tensors take the plain version; any other device raises
+    rather than falling back."""
+    q = torch.zeros(1, 4, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="no path"):
+        fa.flash_attention(q, q, q)
+
+
+def test_reset_launch_counts():
+    fa.launch_counts[fa.KERNEL] += 3
+    fa.reset_launch_counts()
+    assert fa.launch_counts == {fa.KERNEL: 0}
+
+
+def test_resolve_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_sources_are_listed():
+    from gordo_tpu_torch.ops import _build
+
+    assert fa.KERNEL in _build.sources()
+    assert _build.library_path(fa.KERNEL).parent == _build.BUILD_DIR
