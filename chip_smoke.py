@@ -10,11 +10,15 @@ Phases, each raising on failure (no result line is printed then):
 2. build every CUDA kernel from ``gordo_tpu_torch/csrc`` with nvcc for
    sm_90a, one nvcc per source, all started together;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it and a few more, with its time beside
-   the plain version's, one PyTorch library call's (a yardstick only) and
-   the bound (the larger of bytes over 3.35 TB/s and operations over the
-   type's peak rate, published H100 SXM figures);
-4. end to end: the ``turbine-9900-transformer`` machine of
+   shapes the serving and training paths give it and a few more, with
+   its device time (torch.profiler; ``call_ms``: CUDA events around the
+   call, host gaps included) beside the plain version's, one PyTorch
+   library call's (a yardstick only) and the bound (the larger of bytes over 3.35 TB/s and
+   operations over the type's peak rate, published H100 SXM figures):
+   the flash forward, then the dq and dk/dv backward kernels; then the
+   gradient of a loss through the autograd Function on the card against
+   dense attention's on the card;
+4. serving: the ``turbine-9900-transformer`` machine of
    ``examples/config.yaml`` at full width with ``attention_impl: flash``
    (random weights from a numpy seed in the Flax layout, carried over by
    ``gordo_tpu_torch.convert``), served over HTTP by the port's server on
@@ -22,12 +26,25 @@ Phases, each raising on failure (no result line is printed then):
    with 8255 rows (one full 8192-window chunk); launch counts reset just
    before and read just after; model output held against the same
    artifact on the CPU;
-5. one JSON line of per-kernel numbers, then the result line.
+5. training: the same machine built by the port's ``ModelBuilder`` on the
+   card from its dataset span (2019-01-01 to 2019-06-01 at 10 minutes,
+   21 744 rows of seeded daily sinusoids plus noise) with the evaluation
+   defaults (TimeSeriesSplit(3) cross-validation with the four metrics,
+   thresholds, then the fit), 5 epochs where the config has 10 (the
+   build's eager steps are host-bound, and on a slow host 10 epochs took
+   265 s, over the phase's 3-minute budget); launch counts reset
+   just before and read just after (each backward kernel exactly
+   ``n_layers`` times per optimizer step); the artifact it writes served
+   over HTTP; one full-width training step on the card against the same
+   step on the CPU; step time, steps/s, CV and fit seconds (with
+   ``--profile``, a ``torch.profiler`` breakdown of 20 training steps);
+6. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result line when no CUDA card is available.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -66,6 +83,21 @@ DEFINITION = {
 CHUNK_WINDOWS = 8192
 # timed requests per (route, size); the first includes the model's load
 REPEATS = 5
+PROJECT = "plant-a-anomaly"
+# the machine's dataset span, 2019-01-01 to 2019-06-01 at 10 minutes
+TRAIN_START = datetime(2019, 1, 1, tzinfo=timezone.utc)
+TRAIN_ROWS = 151 * 144
+BATCH_SIZE = 32  # the fit's default
+# the evaluation's default metrics
+METRIC_NAMES = ("explained_variance_score", "r2_score", "mean_squared_error",
+                "mean_absolute_error")
+# epochs of the train phase, cut from the config's 10: the build's eager
+# steps are host-bound and the card's host speed varies about 3x; on a
+# slow host 10 epochs took 265 s of build, over the phase's 3-minute budget
+TRAIN_EPOCHS = 5
+# training steps timed (and, with --profile, traced) after the build
+TIMED_STEPS = 50
+PROFILED_STEPS = 20
 
 
 def log(*parts) -> None:
@@ -102,15 +134,40 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def attention_bound(shape, causal: bool, dtype_name: str, elem_bytes: int):
-    """(bound ms, "bytes" or "operations") for one forward call: q, k, v
-    read once, out and the float32 LSE written once; 4·head_dim operations
-    per (query, key) pair the mask keeps."""
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: the device time of every
+    kernel its ``reps`` calls launched (torch.profiler), over ``reps``.
+    Unlike CUDA events around a call, the host's gaps between launches do
+    not count, so a small kernel's own time shows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_rows(prof)[1] / 1e3 / reps
+
+
+def attention_bound(shape, causal: bool, dtype_name: str, elem_bytes: int,
+                    n_tensors: int, n_stats: int, dots: int):
+    """(bound ms, "bytes" or "operations") for one call of an attention
+    kernel: ``n_tensors`` (B, S, H, D) tensors and ``n_stats`` float32
+    (B·H, S) row statistics, each read or written once; ``dots`` dot
+    products of head_dim per (query, key) pair the mask keeps, 2
+    operations per multiply-add. The forward: 4 tensors (q, k, v in, out),
+    1 statistic (LSE), 2 dots (scores, p·v). dq: 6 tensors (q, k, v, O,
+    dO in, dq out), 2 statistics (LSE in, delta out), 3 dots (scores,
+    dO·v, ds·k). dk/dv: 6 tensors (q, k, v, dO in, dk, dv out), 2
+    statistics (LSE, delta), 4 dots (scores, dO·v, p·dO, ds·q)."""
     batch, seq, heads, head_dim = shape
-    n = batch * seq * heads * head_dim
-    moved = 4 * n * elem_bytes + batch * heads * seq * 4
+    moved = (n_tensors * batch * seq * heads * head_dim * elem_bytes
+             + n_stats * batch * heads * seq * 4)
     pairs = seq * (seq + 1) // 2 if causal else seq * seq
-    ops = 4 * head_dim * batch * heads * pairs
+    ops = 2 * dots * head_dim * batch * heads * pairs
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -122,6 +179,7 @@ def kernel_phase(torch, fa):
 
     cases = [
         ("model-shape", (8192, 64, 4, 16), True, torch.float32),
+        ("train-step", (BATCH_SIZE, 64, 4, 16), True, torch.float32),
         ("ragged-causal", (4, 1000, 2, 64), True, torch.float32),
         ("ragged-full", (4, 1000, 2, 64), False, torch.float32),
         ("head-dim-32", (16, 200, 2, 32), True, torch.float32),
@@ -141,15 +199,20 @@ def kernel_phase(torch, fa):
         err_lse = (lse - ref_lse).abs().max().item()
         dtype_name = str(dtype).replace("torch.", "")
         tol = TOLERANCE[dtype_name]
-        ms = time_ms(lambda: fa.flash_attention_forward(q, k, v, causal=causal))
-        plain_ms = time_ms(
+        def run():
+            return fa.flash_attention_forward(q, k, v, causal=causal)
+
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms, call_ms = device_ms(run), time_ms(run)
+        plain_ms = device_ms(
             lambda: fa.flash_attention_reference(q, k, v, causal=causal), reps=5
         )
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = time_ms(
+        library_ms = device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         )
-        bound_ms, bound_by = attention_bound(shape, causal, dtype_name, q.element_size())
+        bound_ms, bound_by = attention_bound(
+            shape, causal, dtype_name, q.element_size(), n_tensors=4, n_stats=1, dots=2
+        )
         row = {
             "case": name,
             "shape": list(shape),
@@ -159,6 +222,7 @@ def kernel_phase(torch, fa):
             "max_abs_err_lse": err_lse,
             "tolerance": tol,
             "ms": ms,
+            "call_ms": call_ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms,
             "bound_ms": bound_ms,
@@ -171,6 +235,139 @@ def kernel_phase(torch, fa):
         del q, k, v, out, lse, ref_out, ref_lse
         torch.cuda.empty_cache()
     return results
+
+
+# (case, shape (B, S, H, D), causal, dtype) of the backward kernels' checks
+BACKWARD_CASES = [
+    ("train-step", (BATCH_SIZE, 64, 4, 16), True, "float32"),
+    ("model-shape", (8192, 64, 4, 16), True, "float32"),
+    ("ragged-causal", (4, 1000, 2, 64), True, "float32"),
+    ("ragged-full", (4, 1000, 2, 64), False, "float32"),
+    ("head-dim-32", (16, 200, 2, 32), True, "float32"),
+    ("head-dim-128", (2, 300, 2, 128), False, "float32"),
+    ("train-step-bf16", (BATCH_SIZE, 64, 4, 16), True, "bfloat16"),
+]
+
+
+def backward_phase(torch, fa):
+    """Phase 3, backward: the dq and dk/dv kernels, each against its plain
+    version on the same inputs (the dk/dv pair both take the plain
+    delta). The library yardstick is the backward of
+    ``scaled_dot_product_attention`` through ``torch.autograd.grad``
+    (dq, dk and dv together), its forward timed apart and subtracted."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    results = []
+    for name, shape, causal, dtype_name in BACKWARD_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, d_out = (
+            torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)
+        )
+        out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+        scale = 1.0 / math.sqrt(shape[-1])
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
+        torch.cuda.synchronize()
+        ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
+            q, k, v, out, lse, d_out, causal, scale
+        )
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
+        torch.cuda.synchronize()
+        ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(
+            q, k, v, lse, ref_delta, d_out, causal, scale
+        )
+        errors = {
+            label: (got.float() - want.float()).abs().max().item()
+            for label, got, want in (
+                ("dq", dq, ref_dq), ("delta", delta, ref_delta),
+                ("dk", dk, ref_dk), ("dv", dv, ref_dv),
+            )
+        }
+        tol = TOLERANCE[dtype_name]
+        if not all(err <= tol for err in errors.values()):
+            raise AssertionError(f"backward kernels disagree with their plain versions: "
+                                 f"{name} {errors}")
+
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        d_out_t = d_out.transpose(1, 2)
+
+        def sdpa_forward():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        def sdpa_forward_backward():
+            torch.autograd.grad(sdpa_forward(), (qt, kt, vt), d_out_t)
+
+        library_ms = device_ms(sdpa_forward_backward) - device_ms(sdpa_forward)
+        timings = {
+            fa.KERNEL_DQ: (
+                lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal),
+                lambda: fa.flash_attention_bwd_dq_reference(
+                    q, k, v, out, lse, d_out, causal, scale),
+                3, ("dq", "delta"),
+            ),
+            fa.KERNEL_DKV: (
+                lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal),
+                lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, lse, ref_delta, d_out, causal, scale),
+                4, ("dk", "dv"),
+            ),
+        }
+        for kernel, (run, plain, dots, outputs) in timings.items():
+            bound_ms, bound_by = attention_bound(
+                shape, causal, dtype_name, q.element_size(), n_tensors=6, n_stats=2, dots=dots
+            )
+            row = {
+                "kernel": kernel,
+                "case": name,
+                "shape": list(shape),
+                "causal": causal,
+                "dtype": dtype_name,
+                "max_abs_err": max(errors[label] for label in outputs),
+                "errors": {label: errors[label] for label in outputs},
+                "tolerance": tol,
+                "ms": device_ms(run),
+                "call_ms": time_ms(run),
+                "plain_ms": device_ms(plain, reps=5),
+                "library_ms": library_ms,
+                "library_call": "scaled_dot_product_attention backward (dq, dk, dv)",
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            log("kernel-check", json.dumps(row))
+            results.append(row)
+        del q, k, v, d_out, out, lse, dq, delta, dk, dv, qt, kt, vt
+        del ref_dq, ref_delta, ref_dk, ref_dv
+        torch.cuda.empty_cache()
+    return results
+
+
+def gradient_phase(torch, fa):
+    """Phase 3, the repair: the gradient of a loss through the flash
+    autograd Function on the card equals dense attention's on the card,
+    through (batch, seq, heads, head_dim) views of one tensor as the
+    model feeds them."""
+    from gordo_tpu_torch.models.specs_seq import dense_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    report = {}
+    for causal in (True, False):
+        wide = torch.randn((BATCH_SIZE, 64, 4, 48), generator=gen, device="cuda")
+        wide.requires_grad_(True)
+        q, k, v = wide[..., :16], wide[..., 16:32], wide[..., 32:]
+        before = fa.launch_counts[fa.KERNEL_DQ]
+        fa.flash_attention(q, k, v, causal=causal).square().sum().backward()
+        torch.cuda.synchronize()
+        if fa.launch_counts[fa.KERNEL_DQ] != before + 1:
+            raise AssertionError("the flash Function's backward did not launch the dq kernel")
+        flash_grad = wide.grad.clone()
+        wide.grad = None
+        dense_attention(q, k, v, causal=causal).square().sum().backward()
+        err = (flash_grad - wide.grad).abs().max().item()
+        report["causal" if causal else "full"] = err
+        if not err <= TOLERANCE["float32"]:
+            raise AssertionError(f"flash and dense gradients differ on the card by {err}")
+    log("flash-vs-dense gradient max abs diff on the card", json.dumps(report))
+    return report
 
 
 def flax_layout_tree(rng, n_features, d_model, n_layers, ff_dim):
@@ -228,6 +425,25 @@ def post(url: str, payload: bytes):
     return json.loads(raw), seconds
 
 
+@contextlib.contextmanager
+def http_server(collection: str):
+    """The port's server over ``collection`` on the card, on a free local
+    port, for the ``with`` block; yields the machine's base URL."""
+    from gordo_tpu_torch.server.app import build_app
+    from gordo_tpu_torch.server.runner import make_http_server
+
+    app = build_app(collection)  # the card: no device argument
+    server = make_http_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_port}/gordo/v0/{PROJECT}/{MACHINE}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
 def block_array(block: dict, keys) -> "list":
     return [[block[label][key] for label in block] for key in keys]
 
@@ -237,8 +453,6 @@ def end_to_end_phase(torch, fa, profile: bool):
     import numpy as np
 
     from gordo_tpu_torch import convert, serializer
-    from gordo_tpu_torch.server.app import build_app
-    from gordo_tpu_torch.server.runner import make_http_server
 
     rng = np.random.default_rng(SEED)
     n_layers = BASE_ESTIMATOR["n_layers"]
@@ -261,7 +475,7 @@ def end_to_end_phase(torch, fa, profile: bool):
         "model": DEFINITION,
         "metadata": {"build_metadata": {"model": {"model_offset": lookback - 1}}},
         "runtime": {},
-        "project_name": "plant-a-anomaly",
+        "project_name": PROJECT,
         "evaluation": {},
     }
     report = {"requests": []}
@@ -271,13 +485,8 @@ def end_to_end_phase(torch, fa, profile: bool):
         convert.write_artifact(
             artifact, tree, DEFINITION, center, scale, thresholds, metadata
         )
-        app = build_app(collection)  # the card: no device argument
-        server = make_http_server(app, "127.0.0.1", 0)
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        base = f"http://127.0.0.1:{server.server_port}/gordo/v0/plant-a-anomaly/{MACHINE}"
         bodies = {n: sensor_body(rng, n) for n in (144, lookback - 1 + CHUNK_WINDOWS)}
-        try:
+        with http_server(collection) as base:
             with urllib.request.urlopen(f"{base}/metadata", timeout=60) as reply:
                 meta_reply = json.loads(reply.read())
             if meta_reply["metadata"]["name"] != MACHINE:
@@ -306,10 +515,6 @@ def end_to_end_phase(torch, fa, profile: bool):
                     report["requests"].append(row)
                     log("request", json.dumps(row))
             launches = fa.launch_counts[fa.KERNEL]
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=30)
 
         # what came out: shapes, finite values, and the card against the CPU
         cpu_model = serializer.load(artifact, device="cpu")
@@ -374,10 +579,27 @@ def anomaly_phases(torch, artifact, bodies):
     return phases
 
 
+def kernel_rows(prof):
+    """(rows of device microseconds by kernel, largest first; their sum)
+    from a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for event in prof.key_averages():
+        # kernels only: an operator's row repeats its kernels' device time,
+        # and a user annotation's (Optimizer.step) spans its whole region
+        if event.device_type != DeviceType.CUDA or getattr(event, "is_user_annotation", False):
+            continue
+        device_us = event.self_device_time_total
+        if device_us > 0:
+            rows.append({"name": event.key[:80], "count": event.count, "device_us": device_us})
+    rows.sort(key=lambda r: -r["device_us"])
+    return rows, sum(r["device_us"] for r in rows)
+
+
 def profile_predict(torch, artifact, bodies):
     """Device time by kernel for one 8192-window predict (torch.profiler)."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gordo_tpu_torch import serializer
@@ -392,27 +614,309 @@ def profile_predict(torch, artifact, bodies):
         model.predict(X)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for event in prof.key_averages():
-        # kernels only: an operator's row repeats its kernels' device time
-        if event.device_type != DeviceType.CUDA:
-            continue
-        device_us = event.self_device_time_total
-        if device_us > 0:
-            rows.append({"name": event.key[:80], "count": event.count, "device_us": device_us})
-    rows.sort(key=lambda r: -r["device_us"])
-    total_us = sum(r["device_us"] for r in rows)
+    rows, total_us = kernel_rows(prof)
     log("profile predict wall ms", wall_ms, "device ms", total_us / 1e3)
     for row in rows[:12]:
         log("profile", json.dumps(row))
     return {"wall_ms": wall_ms, "device_ms": total_us / 1e3, "kernels": rows[:20]}
 
 
+def sensor_rows(n_rows: int, seed: int):
+    """(rows, 3) float32 sensor data: a daily sinusoid per tag with its own
+    phase, level and amplitude, plus noise, from a numpy seed; and the
+    rows' 10-minute timestamps from the start of the machine's span."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_rows)[:, None]
+    phase = rng.uniform(0, 2 * np.pi, size=len(TAGS))
+    level = rng.uniform(-1.0, 1.0, size=len(TAGS))
+    amplitude = rng.uniform(0.5, 2.0, size=len(TAGS))
+    daily = np.sin(2 * np.pi * t / 144 + phase)
+    X = level + amplitude * daily + 0.1 * rng.normal(size=(n_rows, len(TAGS)))
+    index = [TRAIN_START + timedelta(minutes=10 * i) for i in range(n_rows)]
+    return X.astype(np.float32), index
+
+
+def optimizer_steps(n_rows: int, lookback: int, epochs: int) -> int:
+    """Optimizer steps of a full build on ``n_rows``: each of the
+    TimeSeriesSplit(3) folds' fits, then the fit on every row, each
+    ``ceil(windows / batch_size)`` steps an epoch."""
+    from gordo_tpu_torch.models.utils import TimeSeriesSplit
+    from gordo_tpu_torch.ops.windowing import num_windows
+
+    fits = [len(train) for train, _ in TimeSeriesSplit(n_splits=3).split(range(n_rows))]
+    fits.append(n_rows)
+    return epochs * sum(math.ceil(num_windows(n, lookback, 0) / BATCH_SIZE) for n in fits)
+
+
+def train_phase(torch, fa, profile: bool):
+    """Phase 5: build, calibrate and serve the machine through the port's
+    builder on the card, ``TRAIN_EPOCHS`` epochs; then one training step
+    card against CPU and the step timings."""
+    from gordo_tpu_torch.builder import ModelBuilder
+
+    epochs = TRAIN_EPOCHS
+    base = dict(BASE_ESTIMATOR, epochs=epochs)
+    n_layers, lookback = base["n_layers"], base["lookback_window"]
+    definition = {
+        "gordo_tpu.models.anomaly.DiffBasedAnomalyDetector": {
+            "base_estimator": {"gordo_tpu.models.TransformerAutoEncoder": base}
+        }
+    }
+    machine = {
+        "name": MACHINE,
+        "project_name": PROJECT,
+        "dataset": {
+            "tags": TAGS,
+            "train_start_date": TRAIN_START.isoformat(),
+            "train_end_date": "2019-06-01T00:00:00+00:00",
+            "resolution": "10T",
+        },
+        "model": definition,
+        "evaluation": {"seed": SEED},  # the evaluation defaults otherwise
+    }
+    X, index = sensor_rows(TRAIN_ROWS, SEED)
+    steps = optimizer_steps(len(X), lookback, epochs)
+    report = {"rows": len(X), "epochs": epochs, "optimizer_steps": steps}
+    with tempfile.TemporaryDirectory() as tmp:
+        collection = os.path.join(tmp, "1700000000001")
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, built = ModelBuilder(machine).build(
+            X, X, index=index, output_dir=os.path.join(collection, MACHINE)
+        )
+        torch.cuda.synchronize()
+        report["build_s"] = time.perf_counter() - t0
+        launches = dict(fa.launch_counts)
+        report["launches"] = launches
+        log("train launches", json.dumps(launches), "optimizer steps", steps)
+        for kernel in (fa.KERNEL_DQ, fa.KERNEL_DKV):
+            if launches[kernel] != n_layers * steps:
+                raise AssertionError(
+                    f"{kernel} launched {launches[kernel]} times in the build; "
+                    f"expected n_layers x optimizer steps = {n_layers * steps}"
+                )
+        if launches[fa.KERNEL] < n_layers * steps:
+            raise AssertionError(f"the forward kernel launched only {launches[fa.KERNEL]} times")
+
+        model_meta = built["metadata"]["build_metadata"]["model"]
+        history = model.base_estimator.history_
+        report.update(
+            cv_s=model_meta["cross_validation"]["cv_duration_sec"],
+            fit_s=model_meta["model_training_duration_sec"],
+            fit_steps=history["params"]["steps"] * epochs,
+            epoch_loss=history["loss"],
+            # the aggregate scorers' fold means (the per-tag ones are in --out)
+            scores={
+                name.replace("_", "-"): model_meta["cross_validation"]["scores"][
+                    name.replace("_", "-")]["fold-mean"]
+                for name in METRIC_NAMES
+            },
+        )
+        report["fit_steps_per_s"] = report["fit_steps"] / report["fit_s"]
+        report["build_steps_per_s"] = steps / (report["cv_s"] + report["fit_s"])
+        if not history["loss"][-1] < history["loss"][0]:
+            raise AssertionError(f"the fit's loss did not fall: {history['loss']}")
+        thresholds = {
+            "aggregate": model_meta["model_meta"]["aggregate-threshold"],
+            "features": model_meta["model_meta"]["feature-thresholds"],
+            "per_fold": model_meta["model_meta"]["aggregate-thresholds-per-fold"],
+        }
+        values = [thresholds["aggregate"], *thresholds["features"], *thresholds["per_fold"].values()]
+        if not all(math.isfinite(x) and x > 0 for x in values):
+            raise AssertionError(f"thresholds not finite and positive: {thresholds}")
+        report["thresholds"] = thresholds
+        if model_meta["model_offset"] != lookback - 1:
+            raise AssertionError(f"model_offset {model_meta['model_offset']}")
+        log("train", json.dumps({k: v for k, v in report.items() if k != "launches"}))
+
+        report["served"] = serve_trained(fa, collection, X, index, n_layers, lookback)
+    report["step_parity"] = step_parity(torch, X, base)
+    report["step_timing"] = time_train_steps(torch, X, base, profile)
+    return report
+
+
+def serve_trained(fa, collection: str, X, index, n_layers: int, lookback: int):
+    """The artifact the build wrote, served over HTTP on the card:
+    ``/anomaly/prediction`` at 144 rows answers with finite confidences."""
+    import numpy as np
+
+    stamps = [stamp.isoformat() for stamp in index[-144:]]
+    frame = {tag: dict(zip(stamps, X[-144:, j].tolist())) for j, tag in enumerate(TAGS)}
+    payload = json.dumps({"X": frame, "y": frame}).encode()
+    with http_server(collection) as base:
+        fa.reset_launch_counts()
+        reply, seconds = post(f"{base}/anomaly/prediction", payload)
+        launches = fa.launch_counts[fa.KERNEL]
+    data = reply["data"]
+    for key in ("total-anomaly-confidence", "anomaly-confidence"):
+        if key not in data:
+            raise AssertionError(f"the trained machine's reply has no {key!r}")
+    (confidence,) = data["total-anomaly-confidence"].values()
+    confidence = np.asarray(list(confidence.values()), dtype=np.float64)
+    if len(confidence) != 144 - lookback + 1 or not np.isfinite(confidence).all():
+        raise AssertionError(f"total-anomaly-confidence: {confidence}")
+    if launches != n_layers:
+        raise AssertionError(f"serving the trained machine launched the forward {launches} times")
+    served = {"seconds": seconds, "launches": launches,
+              "median_total_confidence": float(np.median(confidence))}
+    log("served trained artifact", json.dumps(served))
+    return served
+
+
+def _fresh_step(torch, X, base, device, seed):
+    """(module, optimizer, loss name, batch) for training steps of the
+    machine's full-width model on ``device`` from the seed's weights (the
+    same on every device): the first ``BATCH_SIZE`` windows of X."""
+    from gordo_tpu_torch.models import TransformerAutoEncoder
+    from gordo_tpu_torch.ops.windowing import gather_windows
+
+    estimator = TransformerAutoEncoder(**base, n_features=len(TAGS), n_features_out=len(TAGS))
+    spec = estimator._build_spec()
+    spec.module.load_state_dict(estimator._initial_state(spec, seed))
+    module = spec.module.to(device).train()
+    optimizer = spec.make_optimizer(module.parameters())
+    lookback = base["lookback_window"]
+    Xd = torch.from_numpy(X[: lookback - 1 + BATCH_SIZE]).to(device)
+    xb, yb = gather_windows(Xd, Xd, torch.arange(BATCH_SIZE, device=device), lookback, 0)
+    weights = torch.ones(BATCH_SIZE, device=device)
+    return module, optimizer, spec.loss, (xb, yb, weights)
+
+
+def step_parity(torch, X, base):
+    """One full-width training step (the machine's Adam) from the same
+    weights and batch on the card and on the CPU, dropout 0 (the two
+    devices' generators differ): the loss, every gradient and every
+    parameter after the step within 1e-4. The attention key biases are
+    held by their gradient only: it is 0 in exact arithmetic (a shift of
+    every key moves a query's scores by a constant, which the softmax
+    ignores), so each device's is rounding noise, which Adam's first step
+    turns into a step of up to the learning rate either way."""
+    from gordo_tpu_torch.models.core import train_step
+
+    base = dict(base, dropout=0.0)
+    outcome = {}
+    for device in ("cpu", "cuda"):
+        module, optimizer, loss_name, (xb, yb, w) = _fresh_step(torch, X, base, device, SEED)
+        loss = train_step(module, optimizer, loss_name, xb, yb, w).item() / BATCH_SIZE
+        outcome[device] = (
+            loss,
+            {n: p.grad.detach().cpu() for n, p in module.named_parameters()},
+            {n: p.detach().cpu() for n, p in module.named_parameters()},
+        )
+    (cpu_loss, cpu_grads, cpu_params), (card_loss, card_grads, card_params) = (
+        outcome["cpu"], outcome["cuda"]
+    )
+    grad_err = max((card_grads[n] - cpu_grads[n]).abs().max().item() for n in cpu_grads)
+    param_err = max(
+        (card_params[n] - cpu_params[n]).abs().max().item()
+        for n in cpu_params if not n.endswith("attn.key.bias")
+    )
+    key_bias_grad = max(
+        max(grads[n].abs().max().item() for n in grads if n.endswith("attn.key.bias"))
+        for grads in (cpu_grads, card_grads)
+    )
+    parity = {"loss_cpu": cpu_loss, "loss_card": card_loss,
+              "loss_err": abs(card_loss - cpu_loss), "max_grad_err": grad_err,
+              "max_param_err": param_err, "max_key_bias_grad": key_bias_grad}
+    log("train step card vs cpu", json.dumps(parity))
+    if not (parity["loss_err"] <= 1e-4 and grad_err <= 1e-4 and param_err <= 1e-4):
+        raise AssertionError(f"one training step differs between the card and the CPU: {parity}")
+    return parity
+
+
+def time_train_steps(torch, X, base, profile: bool):
+    """Host-clock training step times at full width on the card, dropout
+    on as configured: the median of ``TIMED_STEPS`` steps each ended by a
+    synchronise, and ``TIMED_STEPS`` steps back to back as the fit runs
+    them (one synchronise at the end). With ``profile``, a torch.profiler
+    trace of ``PROFILED_STEPS`` back-to-back steps: device time by kernel
+    and the device's idle share of the window."""
+    from gordo_tpu_torch.models.core import train_step
+
+    module, optimizer, loss_name, (xb, yb, w) = _fresh_step(torch, X, base, "cuda", SEED)
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def step():
+        return train_step(module, optimizer, loss_name, xb, yb, w, generator)
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    synced = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    back_to_back_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    timing = {"step_ms_median": statistics.median(synced),
+              "step_ms_back_to_back": back_to_back_ms,
+              "steps_per_s": 1e3 / back_to_back_ms}
+    log("train step timing", json.dumps(timing))
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows, total_us = kernel_rows(prof)
+        host = sorted(
+            ({"name": e.key[:80], "count": e.count, "self_cpu_us": e.self_cpu_time_total}
+             for e in prof.key_averages() if e.self_cpu_time_total > 0),
+            key=lambda r: -r["self_cpu_us"],
+        )
+        timing["profile"] = {
+            "steps": PROFILED_STEPS,
+            "wall_ms": wall_ms,
+            "device_ms": total_us / 1e3,
+            "device_idle_share": 1.0 - total_us / 1e3 / wall_ms,
+            "kernels": rows[:25],
+            "host_ops": host[:25],
+        }
+        log("profile train steps wall ms", wall_ms, "device ms", total_us / 1e3,
+            "idle share", timing["profile"]["device_idle_share"])
+        for row in rows[:15]:
+            log("profile", json.dumps(row))
+        for row in host[:15]:
+            log("profile host", json.dumps(row))
+    return timing
+
+
+def kernel_entry(kernel, source, replaces, check, launches_by_path):
+    """One kernel's object of the ``kernels`` line."""
+    return {
+        "name": kernel,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        "max_abs_err": check["max_abs_err"],
+        "ms": check["ms"],
+        "call_ms": check["call_ms"],
+        "plain_ms": check["plain_ms"],
+        "bound_ms": check["bound_ms"],
+        "bound_by": check["bound_by"],
+        "library_ms": check["library_ms"],
+        "shape": check["shape"],
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of gordo_tpu_torch on one card")
     parser.add_argument("--out", default=None, help="also write the numbers to this JSON file")
     parser.add_argument("--profile", action="store_true",
-                        help="add a torch.profiler breakdown of one 8192-window predict")
+                        help="add torch.profiler breakdowns of one 8192-window predict "
+                             "and of 20 training steps")
     args = parser.parse_args(argv)
 
     import torch
@@ -440,35 +944,42 @@ def main(argv=None) -> int:
         log(f"nvcc {name}:\n{text.strip()}")
 
     checks = kernel_phase(torch, fa)
-    launches, report = end_to_end_phase(torch, fa, args.profile)
-    if launches <= 0:
+    backward_checks = backward_phase(torch, fa)
+    gradients = gradient_phase(torch, fa)
+    serve_launches, report = end_to_end_phase(torch, fa, args.profile)
+    if serve_launches <= 0:
         raise AssertionError("the served path never launched flash_attention_fwd")
+    train = train_phase(torch, fa, args.profile)
 
-    model_case = checks[0]
+    def check(kernel, case, rows):
+        return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
+
+    fwd_paths = {"serve": serve_launches, "train": train["launches"][fa.KERNEL],
+                 "serve_trained": train["served"]["launches"]}
     kernels = {
         "kernels": [
-            {
-                "name": fa.KERNEL,
-                "route": "cuda",
-                "source": "gordo_tpu_torch/csrc/flash_attention_fwd.cu",
-                "replaces": "gordo_tpu/ops/flash_attention.py:72",
-                "launches": launches,
-                "max_abs_err": model_case["max_abs_err"],
-                "ms": model_case["ms"],
-                "plain_ms": model_case["plain_ms"],
-                "bound_ms": model_case["bound_ms"],
-                "bound_by": model_case["bound_by"],
-                "library_ms": model_case["library_ms"],
-            }
+            kernel_entry(fa.KERNEL, "gordo_tpu_torch/csrc/flash_attention_fwd.cu",
+                         "gordo_tpu/ops/flash_attention.py:72",
+                         check(fa.KERNEL, "model-shape", checks), fwd_paths),
+            kernel_entry(fa.KERNEL_DQ, "gordo_tpu_torch/csrc/flash_attention_bwd.cu",
+                         "gordo_tpu/ops/flash_attention.py:176",
+                         check(fa.KERNEL_DQ, "train-step", backward_checks),
+                         {"train": train["launches"][fa.KERNEL_DQ]}),
+            kernel_entry(fa.KERNEL_DKV, "gordo_tpu_torch/csrc/flash_attention_bwd.cu",
+                         "gordo_tpu/ops/flash_attention.py:213",
+                         check(fa.KERNEL_DKV, "train-step", backward_checks),
+                         {"train": train["launches"][fa.KERNEL_DKV]}),
         ]
     }
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(
-                {"card": card, "build_s": build_s, "checks": checks, "end_to_end": report,
-                 **kernels},
+                {"card": card, "build_s": build_s, "checks": checks,
+                 "backward_checks": backward_checks, "gradients": gradients,
+                 "end_to_end": report, "train": train, **kernels},
                 fh,
                 indent=1,
+                default=str,
             )
     log(card)
     log(json.dumps(kernels))

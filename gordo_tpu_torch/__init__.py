@@ -7,10 +7,12 @@ the code inside is PyTorch idiom (``nn.Module``s, tensor functions, an
 explicit ``device``). Every kernel that ``gordo_tpu`` wrote in Pallas for
 the TPU is a kernel written by hand for Hopper here (``csrc/``).
 
-Slice in place: serving one ``DiffBasedAnomalyDetector`` around a
-Transformer (``TransformerAutoEncoder`` / ``TransformerForecast``) over
-HTTP, with every attention call on the flash path going through the
-hand-written forward kernel (``ops/flash_attention.py``).
+Slices in place: building (cross-validation, thresholds, fit) and
+serving over HTTP one ``DiffBasedAnomalyDetector`` around a Transformer
+(``TransformerAutoEncoder`` / ``TransformerForecast``), with every
+attention call on the flash path going through the hand-written forward
+kernel and, in training, the two backward kernels
+(``ops/flash_attention.py``).
 
 Layer map:
 
@@ -18,6 +20,7 @@ Layer map:
 - ``gordo_tpu_torch.ops``         — activations, windowing, kernels
 - ``gordo_tpu_torch.models``      — Transformer modules, estimators, detector
 - ``gordo_tpu_torch.parallel``    — chunked windowed predict
+- ``gordo_tpu_torch.builder``     — builds one machine into an artifact
 - ``gordo_tpu_torch.serializer``  — the port's artifact format
 - ``gordo_tpu_torch.convert``     — carries Flax weights into a port artifact
 - ``gordo_tpu_torch.server``      — stdlib WSGI/JSON model server

@@ -1,0 +1,420 @@
+// Flash-attention backward for NVIDIA Hopper (sm_90a), plain C interface:
+// two kernels, one for dq and one for dk/dv.
+//
+// Replaces the two Pallas TPU kernels that _flash_backward_bhsd launches
+// in gordo_tpu/ops/flash_attention.py:
+//
+// - gordo_flash_attention_bwd_dq replaces _bwd_dq_kernel: for each query
+//   row, p = exp(s * q.k - LSE) over the keys the mask keeps, and
+//   dq = s * sum_k [p * (dO.v - delta)] k. It also computes
+//   delta = rowsum(dO * O), which the JAX wrapper computes outside any
+//   kernel, and writes it out for the dk/dv kernel.
+// - gordo_flash_attention_bwd_dkv replaces _bwd_dkv_kernel: for each key
+//   row, dv = sum_q p dO and dk = s * sum_q [p * (dO.v - delta)] q.
+//
+// s is sm_scale; it scales the scores, dq and dk, never dv. LSE and delta
+// are (batch*heads, seq) float32 with row b*heads + h, the forward
+// kernel's convention. The dk/dv kernel reads the delta the dq kernel
+// wrote, so the two run in that order on one stream.
+//
+// What bounds them on this card. Each kernel reads its inputs once and
+// writes its outputs once: dq reads q, k, v, O, dO and LSE and writes dq
+// and delta; dk/dv reads q, k, v, dO, LSE and delta and writes dk and dv.
+// That is six (batch, seq, heads, head_dim) tensors each, about 3.1 MB at
+// the training step's (32, 64, 4, 16) in float32 (under 1 us at
+// 3.35 TB/s) and 822 MB at the served scale (8192, 64, 4, 16): 0.25 ms.
+// The work is 3 (dq: scores, dO.v, ds.k) and 4 (dk/dv: scores, dO.v,
+// p.dO, ds.q) dot products of head_dim per kept (query, key) pair, 6.5
+// and 8.7 GFLOP at the served scale: 0.10 and 0.13 ms at the 67 TFLOP/s
+// fp32 rate. So both are bound by bytes, and at the training shape by
+// their launch. The design keeps every
+// intermediate (scores, probabilities, dS) out of device memory and
+// reads each row and tile from device memory once per block.
+//
+// Design (not a copy of the Pallas grid). On the TPU the accumulation
+// axis of the grid runs in order and carries VMEM scratch between steps.
+// Here one thread block owns a (batch*head, 64-row tile) pair and loops
+// over the other axis itself:
+//
+// - dq: the block owns 64 query rows and loops over key tiles; q, dO and
+//   the dq accumulator stay in registers with the row's LSE and delta;
+//   key/value tiles are staged in shared memory as fp32. Causal blocks
+//   stop at the tile's last query row.
+// - dk/dv: the block owns 64 key rows and loops over query tiles; k, v
+//   and the dk and dv accumulators stay in registers; query/dO tiles and
+//   their LSE and delta are staged in shared memory. Causal blocks start
+//   at the query tile holding the block's first key.
+//
+// A row is owned by head_dim/16 neighbouring threads, each holding 16 of
+// its head dims; dot products are summed with warp shuffles. Each output
+// element has one owner, so there are no atomics and no cross-block sum:
+// both kernels are deterministic. Rows past the sequence end compute on
+// a clamped copy (every thread takes part in the shuffles) and store
+// nothing; query rows past the end add nothing to dk/dv and keys past the
+// end have probability 0. No head-dim padding to 128 lanes and no
+// lane-broadcast statistics: those exist only for Mosaic's (8, 128)
+// tiling. Tensor cores (wgmma) and TMA are left for a later change; these
+// kernels run on the fp32 CUDA cores.
+//
+// Inputs are float32 or bfloat16 (dtype 0 / 1) with fp32 accumulation;
+// head_dim is 16, 32, 64 or 128; any sequence length; causal or full.
+// Strides are in elements, (batch, seq, head) for each tensor in the
+// order the entry point names; the head dim must be contiguous. The
+// kernels allocate nothing and run on the caller's stream. Each entry
+// point returns the CUDA error code of its launch (0 on success).
+
+#include <climits>
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSlice = 16;      // head dims held by one thread
+constexpr int kBlockRows = 64;  // rows a thread block owns
+
+// (batch, seq, head) element strides of one (batch, seq, heads, head_dim)
+// tensor
+struct Strides {
+  int64_t b, s, h;
+};
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* out;
+  const void* d_out;
+  const float* lse;
+  float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
+  int heads;
+  int seq;
+  int n_tiles;
+  float sm_scale;
+  int causal;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
+__device__ __forceinline__ const T* row_ptr(const void* base, const Strides& st, int b,
+                                            int pos, int h, int d0) {
+  return static_cast<const T*>(base) + b * st.b + static_cast<int64_t>(pos) * st.s +
+         h * st.h + d0;
+}
+
+template <typename T>
+__device__ __forceinline__ T* row_ptr(void* base, const Strides& st, int b, int pos,
+                                      int h, int d0) {
+  return static_cast<T*>(base) + b * st.b + static_cast<int64_t>(pos) * st.s +
+         h * st.h + d0;
+}
+
+// sum over the kTpr neighbouring threads that own one row
+template <int kTpr>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = kTpr / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBlockRows*(D / kSlice))
+    flash_bwd_dq_kernel(const Params p) {
+  constexpr int kTpr = D / kSlice;            // threads per query row
+  constexpr int kBlockK = D <= 32 ? 64 : 32;  // keys per shared tile
+  constexpr int kThreads = kBlockRows * kTpr;
+
+  __shared__ float k_tile[kBlockK][D];
+  __shared__ float v_tile[kBlockK][D];
+
+  const int bh = blockIdx.x / p.n_tiles;
+  const int qt = blockIdx.x - bh * p.n_tiles;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int row = threadIdx.x / kTpr;
+  const int d0 = (threadIdx.x - row * kTpr) * kSlice;
+  const int seq = p.seq;
+  const int qpos = qt * kBlockRows + row;
+  const int qc = min(qpos, seq - 1);
+
+  const T* q_row = row_ptr<T>(p.q, p.q_st, b, qc, h, d0);
+  const T* o_row = row_ptr<T>(p.out, p.o_st, b, qc, h, d0);
+  const T* do_row = row_ptr<T>(p.d_out, p.do_st, b, qc, h, d0);
+  float qr[kSlice];
+  float dor[kSlice];
+  float acc[kSlice];
+  float dot_o = 0.f;
+#pragma unroll
+  for (int i = 0; i < kSlice; ++i) {
+    qr[i] = to_float(q_row[i]);
+    dor[i] = to_float(do_row[i]);
+    dot_o = fmaf(dor[i], to_float(o_row[i]), dot_o);
+    acc[i] = 0.f;
+  }
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const float delta = row_sum<kTpr>(dot_o);
+  const float lse = p.lse[stat + qc];
+  if (qpos < seq && d0 == 0) p.delta[stat + qpos] = delta;
+
+  const int q_last = min(seq, (qt + 1) * kBlockRows) - 1;
+  const int k_end = p.causal ? q_last + 1 : seq;  // keys this tile needs
+  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
+  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
+
+  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int idx = threadIdx.x; idx < kBlockK * D; idx += kThreads) {
+      const int j = idx / D;
+      const int d = idx - j * D;
+      const int kpos = k0 + j;
+      float kv = 0.f, vv = 0.f;
+      if (kpos < seq) {
+        kv = to_float(k_head[static_cast<int64_t>(kpos) * p.k_st.s + d]);
+        vv = to_float(v_head[static_cast<int64_t>(kpos) * p.v_st.s + d]);
+      }
+      k_tile[j][d] = kv;
+      v_tile[j][d] = vv;
+    }
+    __syncthreads();
+
+    const int n = min(kBlockK, k_end - k0);  // uniform across the block
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < kSlice; ++i) {
+        s = fmaf(qr[i], k_tile[j][d0 + i], s);
+        dp = fmaf(dor[i], v_tile[j][d0 + i], dp);
+      }
+      s = row_sum<kTpr>(s);
+      dp = row_sum<kTpr>(dp);
+      // keys past the sequence end lie past k_end: only the causal mask
+      const bool keep = !p.causal || k0 + j <= qpos;
+      const float prob = keep ? expf(s * p.sm_scale - lse) : 0.f;
+      const float ds = prob * (dp - delta);
+#pragma unroll
+      for (int i = 0; i < kSlice; ++i) acc[i] = fmaf(ds, k_tile[j][d0 + i], acc[i]);
+    }
+  }
+
+  if (qpos < seq) {
+    T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, d0);
+#pragma unroll
+    for (int i = 0; i < kSlice; ++i) dq_row[i] = from_float<T>(acc[i] * p.sm_scale);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBlockRows*(D / kSlice))
+    flash_bwd_dkv_kernel(const Params p) {
+  constexpr int kTpr = D / kSlice;            // threads per key row
+  constexpr int kBlockQ = D <= 32 ? 64 : 32;  // queries per shared tile
+  constexpr int kThreads = kBlockRows * kTpr;
+
+  __shared__ float q_tile[kBlockQ][D];
+  __shared__ float do_tile[kBlockQ][D];
+  __shared__ float lse_tile[kBlockQ];
+  __shared__ float delta_tile[kBlockQ];
+
+  const int bh = blockIdx.x / p.n_tiles;
+  const int kt = blockIdx.x - bh * p.n_tiles;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int row = threadIdx.x / kTpr;
+  const int d0 = (threadIdx.x - row * kTpr) * kSlice;
+  const int seq = p.seq;
+  const int kpos = kt * kBlockRows + row;
+  const int kc = min(kpos, seq - 1);
+
+  const T* k_row = row_ptr<T>(p.k, p.k_st, b, kc, h, d0);
+  const T* v_row = row_ptr<T>(p.v, p.v_st, b, kc, h, d0);
+  float kr[kSlice];
+  float vr[kSlice];
+  float dk[kSlice];
+  float dv[kSlice];
+#pragma unroll
+  for (int i = 0; i < kSlice; ++i) {
+    kr[i] = to_float(k_row[i]);
+    vr[i] = to_float(v_row[i]);
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  // causal: queries before the block's first key see none of its keys
+  const int q_begin = p.causal ? (kt * kBlockRows / kBlockQ) * kBlockQ : 0;
+  const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
+  const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
+
+  for (int q0 = q_begin; q0 < seq; q0 += kBlockQ) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int idx = threadIdx.x; idx < kBlockQ * D; idx += kThreads) {
+      const int i = idx / D;
+      const int d = idx - i * D;
+      const int qpos = q0 + i;
+      float qv = 0.f, dov = 0.f;
+      if (qpos < seq) {
+        qv = to_float(q_head[static_cast<int64_t>(qpos) * p.q_st.s + d]);
+        dov = to_float(do_head[static_cast<int64_t>(qpos) * p.do_st.s + d]);
+      }
+      q_tile[i][d] = qv;
+      do_tile[i][d] = dov;
+    }
+    for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+      const int qpos = q0 + i;
+      lse_tile[i] = qpos < seq ? p.lse[stat + qpos] : 0.f;
+      delta_tile[i] = qpos < seq ? p.delta[stat + qpos] : 0.f;
+    }
+    __syncthreads();
+
+    // query rows past the sequence end are never visited
+    const int n = min(kBlockQ, seq - q0);  // uniform across the block
+#pragma unroll 2
+    for (int i = 0; i < n; ++i) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int t = 0; t < kSlice; ++t) {
+        s = fmaf(q_tile[i][d0 + t], kr[t], s);
+        dp = fmaf(do_tile[i][d0 + t], vr[t], dp);
+      }
+      s = row_sum<kTpr>(s);
+      dp = row_sum<kTpr>(dp);
+      const bool keep = !p.causal || kpos <= q0 + i;
+      const float prob = keep ? expf(s * p.sm_scale - lse_tile[i]) : 0.f;
+      const float ds = prob * (dp - delta_tile[i]);
+#pragma unroll
+      for (int t = 0; t < kSlice; ++t) {
+        dv[t] = fmaf(prob, do_tile[i][d0 + t], dv[t]);
+        dk[t] = fmaf(ds, q_tile[i][d0 + t], dk[t]);
+      }
+    }
+  }
+
+  if (kpos < seq) {
+    T* dk_row = row_ptr<T>(p.dk, p.dk_st, b, kpos, h, d0);
+    T* dv_row = row_ptr<T>(p.dv, p.dv_st, b, kpos, h, d0);
+#pragma unroll
+    for (int t = 0; t < kSlice; ++t) {
+      dk_row[t] = from_float<T>(dk[t] * p.sm_scale);
+      dv_row[t] = from_float<T>(dv[t]);
+    }
+  }
+}
+
+enum class Which { kDq, kDkv };
+
+template <Which W, typename T, int D>
+int launch(const Params& p, int64_t n_blocks, cudaStream_t stream) {
+  constexpr int kThreads = kBlockRows * (D / kSlice);
+  if constexpr (W == Which::kDq) {
+    flash_bwd_dq_kernel<T, D><<<static_cast<unsigned>(n_blocks), kThreads, 0, stream>>>(p);
+  } else {
+    flash_bwd_dkv_kernel<T, D><<<static_cast<unsigned>(n_blocks), kThreads, 0, stream>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <Which W, typename T>
+int dispatch_head_dim(int head_dim, const Params& p, int64_t n_blocks, cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return launch<W, T, 16>(p, n_blocks, stream);
+    case 32: return launch<W, T, 32>(p, n_blocks, stream);
+    case 64: return launch<W, T, 64>(p, n_blocks, stream);
+    case 128: return launch<W, T, 128>(p, n_blocks, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+Strides strides_at(const long long* strides, int tensor) {
+  return Strides{strides[3 * tensor], strides[3 * tensor + 1], strides[3 * tensor + 2]};
+}
+
+template <Which W>
+int run(Params& p, int batch, int seq, int heads, int head_dim, int dtype, void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.heads = heads;
+  p.seq = seq;
+  p.n_tiles = (seq + kBlockRows - 1) / kBlockRows;
+  const int64_t n_blocks = static_cast<int64_t>(batch) * heads * p.n_tiles;
+  if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return dispatch_head_dim<W, float>(head_dim, p, n_blocks, s);
+    case 1: return dispatch_head_dim<W, __nv_bfloat16>(head_dim, p, n_blocks, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// strides: (batch, seq, head) of q, k, v, out, d_out, dq, in that order
+extern "C" int gordo_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* out, const void* d_out,
+    const void* lse, void* delta, void* dq,
+    int batch, int seq, int heads, int head_dim, int dtype,
+    const long long* strides, float sm_scale, int causal, void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  p.d_out = d_out;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.dq = dq;
+  p.q_st = strides_at(strides, 0);
+  p.k_st = strides_at(strides, 1);
+  p.v_st = strides_at(strides, 2);
+  p.o_st = strides_at(strides, 3);
+  p.do_st = strides_at(strides, 4);
+  p.dq_st = strides_at(strides, 5);
+  p.sm_scale = sm_scale;
+  p.causal = causal;
+  return run<Which::kDq>(p, batch, seq, heads, head_dim, dtype, stream);
+}
+
+// strides: (batch, seq, head) of q, k, v, d_out, dk, dv, in that order
+extern "C" int gordo_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* d_out,
+    const void* lse, const void* delta, void* dk, void* dv,
+    int batch, int seq, int heads, int head_dim, int dtype,
+    const long long* strides, float sm_scale, int causal, void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.d_out = d_out;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = const_cast<float*>(static_cast<const float*>(delta));
+  p.dk = dk;
+  p.dv = dv;
+  p.q_st = strides_at(strides, 0);
+  p.k_st = strides_at(strides, 1);
+  p.v_st = strides_at(strides, 2);
+  p.do_st = strides_at(strides, 3);
+  p.dk_st = strides_at(strides, 4);
+  p.dv_st = strides_at(strides, 5);
+  p.sm_scale = sm_scale;
+  p.causal = causal;
+  return run<Which::kDkv>(p, batch, seq, heads, head_dim, dtype, stream);
+}

@@ -205,14 +205,11 @@ int dispatch_head_dim(int head_dim, const Params& p, int64_t n_blocks, cudaStrea
 
 }  // namespace
 
+// strides: (batch, seq, head) of q, k, v, out, in that order
 extern "C" int gordo_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int batch, int seq, int heads, int head_dim, int dtype,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh,
-    float sm_scale, int causal, void* stream) {
+    const long long* strides, float sm_scale, int causal, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -223,10 +220,10 @@ extern "C" int gordo_flash_attention_fwd(
   p.heads = heads;
   p.seq = seq;
   p.n_qtiles = (seq + kBlockQ - 1) / kBlockQ;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
+  p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
+  p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
+  p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
+  p.o_sb = strides[9]; p.o_ss = strides[10]; p.o_sh = strides[11];
   p.sm_scale = sm_scale;
   p.causal = causal;
   const int64_t n_blocks = static_cast<int64_t>(batch) * heads * p.n_qtiles;

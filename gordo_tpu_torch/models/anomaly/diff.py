@@ -1,21 +1,30 @@
 """
-DiffBasedAnomalyDetector, scoring half (the port of
-``gordo_tpu.models.anomaly.diff``): ``anomaly()`` and the confidence
-columns, in numpy.
+DiffBasedAnomalyDetector (the port of ``gordo_tpu.models.anomaly.diff``):
+``fit``, ``cross_validate`` (which derives the thresholds), ``anomaly()``
+and the confidence columns, in numpy around the base estimator.
 
-The fitted RobustScaler of the JAX detector becomes its two arrays,
-``(x - center_) / scale_``. Thresholds come with the artifact;
-``cross_validate`` (which derives them) arrives with the training slice.
+The JAX detector's RobustScaler becomes :class:`RobustScaling`, its two
+arrays ``center_`` and ``scale_`` fitted with scikit-learn's defaults.
+Cross-validation trains the folds one after another, each from the same
+seed's initial weights and with its own scaler fitted on its training
+targets (the JAX package's sequential path; its vmapped fold program is
+fleet work, so ``cv-fast-path`` is false here).
 """
 
+import time
 from datetime import timedelta
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
 from gordo_tpu_torch.device import DeviceLike
-from gordo_tpu_torch.models.core import BaseTorchEstimator
-from gordo_tpu_torch.models.utils import BlockFrame, Frame, make_base_dataframe
+from gordo_tpu_torch.models.core import BaseTorchEstimator, as_2d
+from gordo_tpu_torch.models.utils import (
+    BlockFrame,
+    Frame,
+    TimeSeriesSplit,
+    make_base_dataframe,
+)
 
 #: fitted thresholds an artifact may carry (None where absent)
 THRESHOLD_ATTRS = (
@@ -27,11 +36,24 @@ THRESHOLD_ATTRS = (
 
 
 class RobustScaling:
-    """A fitted ``sklearn.preprocessing.RobustScaler``'s transform."""
+    """``sklearn.preprocessing.RobustScaler`` with its defaults: the median
+    and the 25-75 interquartile range per column."""
 
-    def __init__(self, center: np.ndarray, scale: np.ndarray):
-        self.center_ = np.asarray(center)
-        self.scale_ = np.asarray(scale)
+    def __init__(self, center: Optional[np.ndarray] = None, scale: Optional[np.ndarray] = None):
+        self.center_ = None if center is None else np.asarray(center)
+        self.scale_ = None if scale is None else np.asarray(scale)
+
+    def fit(self, X) -> "RobustScaling":
+        """Median and IQR of each column of X (NaNs ignored); a scale
+        within ten machine epsilons of 0 becomes 1."""
+        X = np.asarray(X)
+        X = X.astype(X.dtype if X.dtype in (np.float32, np.float64) else np.float64)
+        self.center_ = np.nanmedian(X, axis=0)
+        q25, q75 = np.nanpercentile(X, (25.0, 75.0), axis=0)
+        scale = q75 - q25
+        scale[scale < 10 * np.finfo(scale.dtype).eps] = 1.0
+        self.scale_ = scale
+        return self
 
     def transform(self, X) -> np.ndarray:
         """``(X - center_) / scale_`` in X's float type, as sklearn does it
@@ -56,6 +78,32 @@ def rolling_median(values: np.ndarray, window: int) -> np.ndarray:
     return out
 
 
+def rolled_threshold(errors: np.ndarray, window: int):
+    """
+    The threshold statistic: the largest rolling-window minimum of an
+    error series (pandas' ``rolling(window).min().max()``), per column of
+    a 2-D ``errors``; NaN when the series is shorter than ``window``.
+    """
+    errors = np.asarray(errors, dtype=np.float64)
+    if len(errors) < window:
+        return np.full(errors.shape[1:], np.nan) if errors.ndim > 1 else float("nan")
+    windows = np.lib.stride_tricks.sliding_window_view(errors, window, axis=0)
+    peak = windows.min(axis=-1).max(axis=0)
+    return peak if errors.ndim > 1 else float(peak)
+
+
+def _per_fold_frame(by_fold: Dict[str, np.ndarray]) -> Dict[int, Dict[str, float]]:
+    """Per-fold per-tag thresholds in the layout of the JAX detector's
+    ``DataFrame.to_dict()``: {tag index: {fold label: value}}."""
+    if not by_fold:
+        return {}
+    n_tags = len(next(iter(by_fold.values())))
+    return {
+        j: {label: float(values[j]) for label, values in by_fold.items()}
+        for j in range(n_tags)
+    }
+
+
 class DiffBasedAnomalyDetector:
     def __init__(
         self,
@@ -69,6 +117,134 @@ class DiffBasedAnomalyDetector:
         self.scaler: Optional[RobustScaling] = None
         for attr in THRESHOLD_ATTRS:
             setattr(self, attr, None)
+
+    def clone(self) -> "DiffBasedAnomalyDetector":
+        """An unfitted detector of the same definition (sklearn's clone)."""
+        return DiffBasedAnomalyDetector(
+            self.base_estimator.clone(), self.require_thresholds, self.window
+        )
+
+    # -- fit and thresholds -------------------------------------------------
+    def fit(self, X, y, *, device: DeviceLike = None) -> "DiffBasedAnomalyDetector":
+        """Fit the base estimator, then the scaler on the targets (used
+        purely for error scaling)."""
+        self.base_estimator.fit(X, y, device=device)
+        self.scaler = RobustScaling().fit(as_2d(y))
+        return self
+
+    def _fold_errors(self, y_pred: np.ndarray, y_test: np.ndarray):
+        """Per-timestep test errors of one fitted fold: the aggregate
+        scaled-MSE series and the per-tag absolute errors."""
+        y_true = y_test[-len(y_pred):]
+        scale = self.scaler.transform
+        scaled_sq = (scale(y_pred) - scale(y_true)) ** 2
+        return scaled_sq.mean(axis=1), np.abs(y_pred - y_true)
+
+    def cross_validate(
+        self,
+        *,
+        X,
+        y,
+        cv=None,
+        scoring: Optional[Dict[str, Callable]] = None,
+        device: DeviceLike = None,
+    ) -> dict:
+        """
+        Cross-validate and derive the anomaly thresholds from the fold
+        models' test errors. Folds (``TimeSeriesSplit(3)`` by default)
+        train one after another, each a clone of this detector. Each
+        fold's test predictions are computed once; every ``scoring``
+        metric (``metric(y_true, y_pred)``) scores them, and the
+        thresholds come from them: per fold, aggregate =
+        ``rolled_threshold(scaled MSE, 6)`` and per tag =
+        ``rolled_threshold(MAE, 6)``, plus the same over ``window`` when
+        it is set; the final thresholds are the last fold's. Returns the
+        scikit-learn-shaped dict (``estimator``, ``fit_time``,
+        ``score_time``, ``test_<name>``).
+        """
+        X, y = as_2d(X), as_2d(y)
+        cv = cv if cv is not None else TimeSeriesSplit(n_splits=3)
+        scoring = scoring or {}
+        output: dict = {"estimator": [], "fit_time": [], "score_time": []}
+        output.update({f"test_{name}": [] for name in scoring})
+        agg_by_fold: Dict[str, float] = {}
+        tag_by_fold: Dict[str, np.ndarray] = {}
+        smooth_agg_by_fold: Dict[str, float] = {}
+        smooth_tag_by_fold: Dict[str, np.ndarray] = {}
+
+        for fold, (train_idx, test_idx) in enumerate(cv.split(X, y)):
+            start = time.perf_counter()
+            detector = self.clone().fit(X[train_idx], y[train_idx], device=device)
+            output["fit_time"].append(time.perf_counter() - start)
+            start = time.perf_counter()
+            y_pred = detector.predict(X[test_idx])
+            y_test = y[test_idx]
+            for name, metric in scoring.items():
+                output[f"test_{name}"].append(metric(y_test, y_pred))
+            output["score_time"].append(time.perf_counter() - start)
+            output["estimator"].append(detector)
+
+            label = f"fold-{fold}"
+            scaled_mse, mae = detector._fold_errors(y_pred, y_test)
+            agg_by_fold[label] = rolled_threshold(scaled_mse, 6)
+            tag_by_fold[label] = rolled_threshold(mae, 6)
+            if self.window is not None:
+                smooth_agg_by_fold[label] = rolled_threshold(scaled_mse, self.window)
+                smooth_tag_by_fold[label] = rolled_threshold(mae, self.window)
+
+        self.cv_fast_path_ = False
+        self.aggregate_thresholds_per_fold_ = agg_by_fold
+        self.feature_thresholds_per_fold_ = tag_by_fold
+        self.smooth_aggregate_thresholds_per_fold_ = smooth_agg_by_fold
+        self.smooth_feature_thresholds_per_fold_ = smooth_tag_by_fold
+
+        def last(by_fold):
+            return list(by_fold.values())[-1] if by_fold else None
+
+        self.aggregate_threshold_ = last(agg_by_fold)
+        self.feature_thresholds_ = last(tag_by_fold)
+        self.smooth_aggregate_threshold_ = last(smooth_agg_by_fold)
+        self.smooth_feature_thresholds_ = last(smooth_tag_by_fold)
+        return {
+            key: value if key == "estimator" else np.asarray(value)
+            for key, value in output.items()
+        }
+
+    def get_metadata(self) -> dict:
+        """The JAX detector's metadata keys: thresholds (final and per
+        fold, smoothed when ``window`` is set), ``window``,
+        ``cv-fast-path``, and the base estimator's metadata."""
+        metadata: dict = {}
+        if self.feature_thresholds_ is not None:
+            metadata["feature-thresholds"] = np.asarray(self.feature_thresholds_).tolist()
+        if self.aggregate_threshold_ is not None:
+            metadata["aggregate-threshold"] = float(self.aggregate_threshold_)
+        if hasattr(self, "feature_thresholds_per_fold_"):
+            metadata["feature-thresholds-per-fold"] = _per_fold_frame(
+                self.feature_thresholds_per_fold_
+            )
+        if hasattr(self, "aggregate_thresholds_per_fold_"):
+            metadata["aggregate-thresholds-per-fold"] = dict(self.aggregate_thresholds_per_fold_)
+        if self.window is not None:
+            metadata["window"] = self.window
+        if hasattr(self, "cv_fast_path_"):
+            metadata["cv-fast-path"] = bool(self.cv_fast_path_)
+        if self.smooth_feature_thresholds_ is not None:
+            metadata["smooth-feature-thresholds"] = np.asarray(
+                self.smooth_feature_thresholds_
+            ).tolist()
+        if self.smooth_aggregate_threshold_ is not None:
+            metadata["smooth-aggregate-threshold"] = float(self.smooth_aggregate_threshold_)
+        if hasattr(self, "smooth_feature_thresholds_per_fold_"):
+            metadata["smooth-feature-thresholds-per-fold"] = _per_fold_frame(
+                self.smooth_feature_thresholds_per_fold_
+            )
+        if hasattr(self, "smooth_aggregate_thresholds_per_fold_"):
+            metadata["smooth-aggregate-thresholds-per-fold"] = dict(
+                self.smooth_aggregate_thresholds_per_fold_
+            )
+        metadata.update(self.base_estimator.get_metadata())
+        return metadata
 
     # -- definition / weights ---------------------------------------------
     def into_definition(self) -> dict:

@@ -1,23 +1,40 @@
 """
-The estimator base (the port of ``gordo_tpu.models.core.BaseJaxEstimator``,
-predict half).
+The estimator base (the port of ``gordo_tpu.models.core.BaseJaxEstimator``).
 
 An estimator is named by ``kind`` (a registered factory) plus the factory
 keyword arguments, exactly as in the JAX package, so one definition dict
-describes a machine in either package. Its weights come in as a state
-dict of numpy arrays (``load_state_arrays``), from the port's artifact or
-from ``gordo_tpu_torch.convert``; ``fit`` arrives with the training slice.
+describes a machine in either package. Its weights come from ``fit``, or
+as a state dict of numpy arrays (``load_state_arrays``) from the port's
+artifact or from ``gordo_tpu_torch.convert``.
+
+``fit`` keeps the JAX fit's semantics (``gordo_tpu/models/core.py``):
+fixed-size batches over ``ceil(n_train / batch_size)`` steps with the
+ragged tail padded at weight 0, a shuffle (off by default for windowed
+models) that permutes every padded slot, each step's loss
+``Σ(per·w) / max(Σw, 1)`` plus the module's activity penalty, Keras
+``validation_split`` holding out the last windows before any shuffle,
+and the same ``history_``. PyTorch runs eagerly, so an epoch is a Python
+loop of steps; the host reads the loss once per epoch. Shuffles and
+dropout masks come from one ``torch.Generator`` on the training device,
+seeded with ``seed``; the initial weights from another on the CPU
+(:meth:`BaseTorchEstimator._initial_state`), so they do not depend on
+the device. Neither gives JAX's random numbers.
 """
 
 import copy
-from typing import Callable, Dict, Union
+import math
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.register import register_model_builder
-from gordo_tpu_torch.models.specs import ModelSpec
+from gordo_tpu_torch.models.specs import ModelSpec, flax_default_init_, per_sample_loss
+from gordo_tpu_torch.ops.windowing import gather_windows
+
+#: seed of a fit whose kwargs name none (the builder injects one)
+DEFAULT_SEED = 0
 
 #: fitted widths a padded-bucket artifact records beside its weights
 _WIDTH_ATTRS = ("n_active_features_", "n_active_features_out_")
@@ -51,9 +68,17 @@ class BaseTorchEstimator:
     def lookahead(self) -> int:
         return 0
 
+    @property
+    def _windowed(self) -> bool:
+        return False
+
     def __init__(self, kind: Union[str, Callable], **kwargs) -> None:
         self.kind = self.load_kind(kind)
         self.kwargs = kwargs
+
+    def clone(self) -> "BaseTorchEstimator":
+        """An unfitted estimator of the same definition (sklearn's clone)."""
+        return type(self)(self.kind, **copy.deepcopy(self.kwargs))
 
     # -- registry / definition protocol -----------------------------------
     @property
@@ -82,6 +107,10 @@ class BaseTorchEstimator:
         definition["kind"] = self.kind
         return {f"{type(self).__module__}.{type(self).__name__}": definition}
 
+    @classmethod
+    def extract_supported_fit_args(cls, kwargs) -> dict:
+        return {k: kwargs[k] for k in cls.supported_fit_args if k in kwargs}
+
     def _build_spec(self) -> ModelSpec:
         build_fn = register_model_builder.factories[self.registry_type][self.kind]
         factory_kwargs = {
@@ -93,6 +122,124 @@ class BaseTorchEstimator:
                 f"Factory {self.kind!r} returned {type(spec)}, expected ModelSpec"
             )
         return spec
+
+    # -- fit --------------------------------------------------------------
+    def _initial_state(self, spec: ModelSpec, seed: int) -> Dict[str, torch.Tensor]:
+        """The weights a fit with ``seed`` starts from: Flax's default
+        initialisation, drawn on the CPU from a generator seeded with
+        ``seed``."""
+        flax_default_init_(spec.module, torch.Generator().manual_seed(seed))
+        return spec.module.state_dict()
+
+    def fit(self, X, y, *, device: DeviceLike = None, **kwargs) -> "BaseTorchEstimator":
+        """
+        Train on (X, y) on ``device`` (the card unless ``"cpu"`` is asked
+        for). Fit arguments come from the estimator's kwargs, overridden
+        by ``kwargs``: ``epochs`` (1), ``batch_size`` (32), ``shuffle``
+        (False for windowed models), ``validation_split`` (0) and the
+        ``seed`` kwarg (0).
+        """
+        X, y = as_2d(X), as_2d(y)
+        self.kwargs.update({"n_features": X.shape[-1], "n_features_out": y.shape[-1]})
+        fit_args = self.extract_supported_fit_args(self.kwargs)
+        fit_args.update(kwargs)
+        epochs = int(fit_args.get("epochs", 1))
+        batch_size = int(fit_args.get("batch_size", 32))
+        shuffle = bool(fit_args.get("shuffle", not self._windowed))
+        seed = int(self.kwargs.get("seed", DEFAULT_SEED))
+        validation_split = float(fit_args.get("validation_split") or 0.0)
+        if not 0.0 <= validation_split < 1.0:
+            raise ValueError(f"validation_split must be in [0, 1), got {validation_split}")
+        if fit_args.get("callbacks"):
+            # training something other than what the config asked for
+            # would be worse than stopping here
+            raise NotImplementedError(
+                "Training callbacks are not ported yet (ROADMAP.md queue 1); "
+                "remove `callbacks` from the fit arguments"
+            )
+        device = resolve_device(device)
+
+        spec = self._build_spec()
+        lb = spec.lookback_window if spec.windowed else 1
+        la = self.lookahead if spec.windowed else 0
+        n_samples = len(X) - lb + 1 - la if spec.windowed else len(X)
+        if n_samples <= 0:
+            raise ValueError(
+                f"Not enough samples ({len(X)}) for lookback_window={lb}, lookahead={la}"
+            )
+        # Keras validation_split: the LAST windows are held out, before any
+        # shuffle
+        n_val = int(n_samples * validation_split)
+        n_train = n_samples - n_val
+        if n_train <= 0:
+            raise ValueError(
+                f"validation_split={validation_split} leaves no training "
+                f"samples (of {n_samples})"
+            )
+
+        module = spec.module
+        module.load_state_dict(self._initial_state(spec, seed))
+        module.to(device)
+        optimizer = spec.make_optimizer(module.parameters())
+        generator = torch.Generator(device=device).manual_seed(seed)
+
+        n_batches = max(1, math.ceil(n_train / batch_size))
+        n_pad = n_batches * batch_size
+        ids = torch.zeros(n_pad, dtype=torch.int64, device=device)
+        ids[:n_train] = torch.arange(n_train, device=device)
+        weights = torch.zeros(n_pad, dtype=torch.float32, device=device)
+        weights[:n_train] = 1.0
+        Xd = torch.from_numpy(np.ascontiguousarray(X)).to(device)
+        yd = torch.from_numpy(np.ascontiguousarray(y)).to(device)
+
+        def gather(sel):
+            if spec.windowed:
+                return gather_windows(Xd, yd, sel, lb, la)
+            return Xd[sel], yd[sel]
+
+        losses: list = []
+        val_losses: list = []
+        for _ in range(epochs):
+            module.train()
+            sel_all, w_all = ids, weights
+            if shuffle:
+                perm = torch.randperm(n_pad, generator=generator, device=device)
+                sel_all, w_all = ids[perm], weights[perm]
+            loss_sums = []
+            for step in range(n_batches):
+                part = slice(step * batch_size, (step + 1) * batch_size)
+                xb, yb = gather(sel_all[part])
+                loss_sums.append(
+                    train_step(module, optimizer, spec.loss, xb, yb, w_all[part], generator)
+                )
+            # one host read per epoch
+            losses.append((torch.stack(loss_sums).sum() / n_train).item())
+            if n_val:
+                val_losses.append(
+                    validation_loss(module, spec.loss, gather, n_train, n_samples, batch_size)
+                )
+        module.eval()
+
+        self.spec_ = spec
+        self.device_ = device
+        self.history_ = {
+            "loss": losses,
+            "params": {
+                "epochs": epochs,
+                "steps": n_batches,
+                "batch_size": batch_size,
+                "samples": n_train,
+                "metrics": ["loss"] + (["val_loss"] if n_val else []),
+            },
+        }
+        if n_val:
+            self.history_["val_loss"] = val_losses
+        self.n_features_ = X.shape[-1]
+        self.n_features_out_ = y.shape[-1]
+        return self
+
+    def get_metadata(self) -> dict:
+        return {"history": dict(self.history_)} if hasattr(self, "history_") else {}
 
     # -- weights ----------------------------------------------------------
     def load_state_arrays(
@@ -164,6 +311,52 @@ class BaseTorchEstimator:
 
     def __repr__(self):
         return f"{self.__class__.__name__}(kind={self.kind!r})"
+
+
+def train_step(
+    module: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    loss_name: str,
+    xb: torch.Tensor,
+    yb: torch.Tensor,
+    wb: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """
+    One optimizer step on a batch with per-sample weights ``wb``; the loss
+    is ``Σ(per·w) / max(Σw, 1)`` plus the module's activity penalty when
+    it returns ``(output, penalty)``. Returns ``Σ(per·w)``, detached, on
+    the device (no host sync).
+    """
+    out = module(xb, generator=generator)
+    out, penalty = out if isinstance(out, tuple) else (out, 0.0)
+    loss_sum = (per_sample_loss(loss_name, out, yb) * wb).sum()
+    loss = loss_sum / torch.clamp(wb.sum(), min=1.0) + penalty
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    return loss_sum.detach()
+
+
+@torch.no_grad()
+def validation_loss(
+    module: torch.nn.Module, loss_name: str, gather, n_train: int, n_samples: int,
+    batch_size: int,
+) -> float:
+    """Mean per-sample loss over the held-out samples ``[n_train,
+    n_samples)`` in eval mode, ``batch_size`` at a time."""
+    was_training = module.training
+    module.eval()
+    device = next(module.parameters()).device
+    total = torch.zeros((), device=device)
+    for start in range(n_train, n_samples, batch_size):
+        sel = torch.arange(start, min(start + batch_size, n_samples), device=device)
+        xb, yb = gather(sel)
+        out = module(xb)
+        out = out[0] if isinstance(out, tuple) else out
+        total += per_sample_loss(loss_name, out, yb).sum()
+    module.train(was_training)
+    return (total / (n_samples - n_train)).item()
 
 
 def as_2d(X, dtype=np.float32) -> np.ndarray:

@@ -2,9 +2,8 @@
 Transformer encoder factory (the port of
 ``gordo_tpu.models.factories.transformer``), registered under
 TransformerAutoEncoder / TransformerForecast with the same signature and
-defaults. ``dropout`` and the optimizer and loss arguments are accepted
-so that every JAX config loads; they act only in training, which comes
-with the training slice.
+defaults: ``dropout`` goes into the module, the optimizer arguments and
+``compile_kwargs["loss"]`` into the spec.
 """
 
 from typing import Any, Dict, Optional, Union
@@ -56,5 +55,13 @@ def transformer_model(
         attention_impl=attention_impl,
         out_func=out_func,
         dtype=resolve_dtype(dtype),
+        dropout=dropout,
     )
-    return ModelSpec(module=module, windowed=True, lookback_window=lookback_window)
+    return ModelSpec(
+        module=module,
+        optimizer=optimizer,
+        optimizer_kwargs=dict(optimizer_kwargs),
+        loss=dict(compile_kwargs).get("loss", "mse"),
+        windowed=True,
+        lookback_window=lookback_window,
+    )

@@ -1,6 +1,6 @@
 """
 Concrete estimator classes (the port of ``gordo_tpu.models.models``):
-the windowed Transformer estimators, predict path.
+the windowed Transformer estimators.
 """
 
 from typing import Callable, Union
@@ -8,7 +8,9 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
+from gordo_tpu_torch.device import DeviceLike
 from gordo_tpu_torch.models.core import BaseTorchEstimator, as_2d
+from gordo_tpu_torch.models.utils import explained_variance_score
 from gordo_tpu_torch.parallel.fleet import windowed_predict
 
 # register the factories on import
@@ -39,6 +41,30 @@ class WindowedEstimator(BaseTorchEstimator):
     @property
     def lookahead(self) -> int:
         raise NotImplementedError()
+
+    @property
+    def _windowed(self) -> bool:
+        return True
+
+    def fit(self, X, y, *, device: DeviceLike = None, **kwargs) -> "WindowedEstimator":
+        X, y = as_2d(X), as_2d(y)
+        if len(X) < self.lookback_window + self.lookahead:
+            raise ValueError(
+                f"Found {len(X)} timesteps; need at least "
+                f"lookback_window + lookahead = "
+                f"{self.lookback_window + self.lookahead}"
+            )
+        return super().fit(X, y, device=device, **kwargs)
+
+    def score(self, X, y, sample_weight=None) -> float:
+        """Explained variance of the predictions against y's tail."""
+        out = self.predict(X)
+        return explained_variance_score(as_2d(y)[-len(out):], out)
+
+    def get_metadata(self) -> dict:
+        metadata = super().get_metadata()
+        metadata["forecast_steps"] = self.lookahead
+        return metadata
 
     def predict(self, X, **kwargs) -> np.ndarray:
         """

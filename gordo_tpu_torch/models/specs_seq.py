@@ -1,17 +1,22 @@
 """
 Transformer encoder for timeseries anomaly models (the port of
-``gordo_tpu.models.specs_seq``'s Transformer half), eval mode.
+``gordo_tpu.models.specs_seq``'s Transformer half).
 
 Parameters live in float32; ``dtype`` is the compute type of the Linear
 layers (as Flax's ``Dense(dtype=...)``), while LayerNorm and the softmax
 stay in float32. Attention is pluggable: ``"dense"`` is the plain einsum
-path, ``"flash"`` the hand-written CUDA kernel of
-``gordo_tpu_torch.ops.flash_attention`` (its plain version on CPU
-tensors).
+path, ``"flash"`` the hand-written CUDA kernels of
+``gordo_tpu_torch.ops.flash_attention`` (forward, and dq and dk/dv in
+the backward; their plain versions on CPU tensors).
+
+Dropout sits where the JAX model has it (after the attention block's
+output projection, after the feed-forward block and after the
+embedding) and acts only in training mode (``module.train()``), with
+masks drawn from the ``generator`` handed to ``forward``: torch's own
+``F.dropout`` reads the global RNG, which a seeded fit must not.
 
 Not ported yet: sequence sharding (``seq_axis``), rematerialisation and
-dropout (both act only in training: the training slice), and the TCN
-family.
+the TCN family.
 """
 
 import math
@@ -61,6 +66,24 @@ def dense_attention(
         scores = scores.masked_fill(~keep, torch.finfo(torch.float32).min)
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def dropout(
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """
+    Flax's ``nn.Dropout``: in training, keep each element with probability
+    ``1 - rate`` and scale it by ``1 / (1 - rate)``; the identity
+    otherwise. The mask comes from ``generator`` (on x's device).
+    """
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs an explicit torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Linear):
@@ -137,8 +160,10 @@ class TransformerBlock(nn.Module):
         attention_impl: str = "dense",
         ff_func: str = "gelu",
         dtype=torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = LayerNorm(d_model)
         self.attn = MultiHeadSelfAttention(d_model, n_heads, causal, attention_impl, dtype)
         self.norm2 = LayerNorm(d_model)
@@ -146,9 +171,12 @@ class TransformerBlock(nn.Module):
         self.ff2 = Dense(ff_dim, d_model, dtype)
         self.ff_func = resolve_activation(ff_func)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.ff2(self.ff_func(self.ff1(self.norm2(x))))
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        x = x + dropout(self.attn(self.norm1(x)), self.dropout, self.training, generator)
+        h = self.ff2(self.ff_func(self.ff1(self.norm2(x))))
+        return x + dropout(h, self.dropout, self.training, generator)
 
 
 class TransformerNet(nn.Module):
@@ -156,7 +184,8 @@ class TransformerNet(nn.Module):
     Encoder-only Transformer over a lookback window: embed sensors into
     d_model, add sinusoidal positions, run n_layers blocks, and read the
     final timestep through a Linear head. Input (batch, time, features),
-    output (batch, out_dim) float32.
+    output (batch, out_dim) float32. ``generator`` draws the dropout
+    masks in training mode.
     """
 
     def __init__(
@@ -171,22 +200,29 @@ class TransformerNet(nn.Module):
         attention_impl: str = "dense",
         out_func: str = "linear",
         dtype=torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.d_model = d_model
+        self.dropout = dropout
         self.embed = Dense(n_features, d_model, dtype)
         self.blocks = nn.ModuleList(
-            TransformerBlock(d_model, n_heads, ff_dim, causal, attention_impl, dtype=dtype)
+            TransformerBlock(
+                d_model, n_heads, ff_dim, causal, attention_impl, dtype=dtype, dropout=dropout
+            )
             for _ in range(n_layers)
         )
         self.norm = LayerNorm(d_model)
         self.head = Dense(d_model, out_dim, dtype)
         self.out_func = resolve_activation(out_func)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         h = self.embed(x)
         h = h + sinusoidal_positions(x.shape[1], self.d_model, device=h.device).to(h.dtype)
+        h = dropout(h, self.dropout, self.training, generator)
         for block in self.blocks:
-            h = block(h)
+            h = block(h, generator)
         h = self.norm(h)[:, -1, :]
         return self.out_func(self.head(h)).float()

@@ -1,13 +1,17 @@
 """
 Model-layer helpers (the port of ``gordo_tpu.models.utils``), without
-pandas: a flat :class:`Frame` for request data and a :class:`BlockFrame`
-for the output frame, whose top-level blocks are the JAX package's
-two-level column groups (``start``, ``model-input``, ...).
+pandas or scikit-learn: a flat :class:`Frame` for request data and a
+:class:`BlockFrame` for the output frame, whose top-level blocks are the
+JAX package's two-level column groups (``start``, ``model-input``, ...);
+``metric_wrapper``; and, in numpy, the scikit-learn pieces the builder's
+evaluation uses: the four default regression metrics (``multioutput=
+"uniform_average"``) and ``TimeSeriesSplit``.
 """
 
 import dataclasses
+import functools
 from datetime import datetime, timedelta
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -101,3 +105,123 @@ def _second_level_labels(tags: Sequence[str], width: int) -> List[str]:
     if width == len(tags):
         return [str(tag) for tag in tags]
     return [str(i) for i in range(width)]
+
+
+def metric_wrapper(metric: Callable, scaler=None) -> Callable:
+    """
+    Adapt a metric to models whose output is shorter than the target
+    (window offset), optionally scaling y and the prediction first with a
+    fitted scaler's ``transform``.
+    """
+
+    @functools.wraps(metric)
+    def _wrapper(y_true, y_pred, *args, **kwargs):
+        if scaler:
+            y_true = scaler.transform(np.asarray(y_true))
+            y_pred = scaler.transform(np.asarray(y_pred))
+        return metric(y_true[-len(y_pred):], y_pred, *args, **kwargs)
+
+    return _wrapper
+
+
+def _columns(y_true, y_pred) -> Tuple[np.ndarray, np.ndarray]:
+    """Both as (rows, outputs) float64 arrays of one shape."""
+    y_true = np.asarray(y_true, dtype=np.float64)
+    y_pred = np.asarray(y_pred, dtype=np.float64)
+    if y_true.ndim == 1:
+        y_true = y_true.reshape(-1, 1)
+    if y_pred.ndim == 1:
+        y_pred = y_pred.reshape(-1, 1)
+    if y_true.shape != y_pred.shape:
+        raise ValueError(f"y_true {y_true.shape} and y_pred {y_pred.shape} differ")
+    return y_true, y_pred
+
+
+def _finite_ratio_score(numerator: np.ndarray, denominator: np.ndarray) -> float:
+    """``1 - numerator / denominator`` per output, 1 where both are 0 and 0
+    where only the denominator is (scikit-learn's ``force_finite``),
+    averaged over the outputs."""
+    scores = np.ones(len(numerator))
+    valid = (numerator != 0) & (denominator != 0)
+    scores[valid] = 1.0 - numerator[valid] / denominator[valid]
+    scores[(numerator != 0) & (denominator == 0)] = 0.0
+    return float(np.mean(scores))
+
+
+def explained_variance_score(y_true, y_pred) -> float:
+    y_true, y_pred = _columns(y_true, y_pred)
+    diff = y_true - y_pred
+    numerator = np.mean((diff - diff.mean(axis=0)) ** 2, axis=0)
+    denominator = np.mean((y_true - y_true.mean(axis=0)) ** 2, axis=0)
+    return _finite_ratio_score(numerator, denominator)
+
+
+def r2_score(y_true, y_pred) -> float:
+    y_true, y_pred = _columns(y_true, y_pred)
+    numerator = np.sum((y_true - y_pred) ** 2, axis=0)
+    denominator = np.sum((y_true - y_true.mean(axis=0)) ** 2, axis=0)
+    return _finite_ratio_score(numerator, denominator)
+
+
+def mean_squared_error(y_true, y_pred) -> float:
+    y_true, y_pred = _columns(y_true, y_pred)
+    return float(np.mean(np.mean((y_true - y_pred) ** 2, axis=0)))
+
+
+def mean_absolute_error(y_true, y_pred) -> float:
+    y_true, y_pred = _columns(y_true, y_pred)
+    return float(np.mean(np.mean(np.abs(y_pred - y_true), axis=0)))
+
+
+#: the metrics an evaluation config may name (scikit-learn's names)
+METRICS = {
+    fn.__name__: fn
+    for fn in (explained_variance_score, r2_score, mean_squared_error, mean_absolute_error)
+}
+
+
+class TimeSeriesSplit:
+    """
+    scikit-learn's ``TimeSeriesSplit``: ``n_splits`` folds whose test sets
+    are consecutive blocks of ``test_size`` rows (default
+    ``n_samples // (n_splits + 1)``) at the end, each trained on
+    everything before it (less ``gap`` rows, at most ``max_train_size``).
+    """
+
+    def __init__(
+        self,
+        n_splits: int = 5,
+        *,
+        max_train_size: Optional[int] = None,
+        test_size: Optional[int] = None,
+        gap: int = 0,
+    ):
+        self.n_splits = n_splits
+        self.max_train_size = max_train_size
+        self.test_size = test_size
+        self.gap = gap
+
+    def split(self, X, y=None) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        n_samples = len(X)
+        n_folds = self.n_splits + 1
+        test_size = self.test_size if self.test_size is not None else n_samples // n_folds
+        if n_folds > n_samples:
+            raise ValueError(
+                f"Cannot have number of folds={n_folds} greater than the "
+                f"number of samples={n_samples}."
+            )
+        if n_samples - self.gap - test_size * self.n_splits <= 0:
+            raise ValueError(
+                f"Too many splits={self.n_splits} for number of samples="
+                f"{n_samples} with test_size={test_size} and gap={self.gap}."
+            )
+        indices = np.arange(n_samples)
+        for test_start in range(n_samples - self.n_splits * test_size, n_samples, test_size):
+            train_end = test_start - self.gap
+            train_start = 0
+            if self.max_train_size and self.max_train_size < train_end:
+                train_start = train_end - self.max_train_size
+            yield (
+                indices[train_start:train_end],
+                indices[test_start : test_start + test_size],
+            )

@@ -1,23 +1,34 @@
 """
-Flash attention forward: the port of ``gordo_tpu.ops.flash_attention``'s
-forward pass (the Pallas ``_attn_kernel``) to a CUDA kernel written by
-hand for Hopper (``csrc/flash_attention_fwd.cu``).
+Flash attention, forward and backward: the port of
+``gordo_tpu.ops.flash_attention`` (the Pallas ``_attn_kernel``,
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` and the custom VJP around
+them) to CUDA kernels written by hand for Hopper
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
 
 Public layout is (batch, seq, heads, head_dim), as in the JAX package.
-The kernel reads q/k/v through their strides and writes ``out`` in the
-same layout, so the (batch*heads, seq, head_dim) transposes of the JAX
-wrapper are gone; the per-row log-sum-exp comes back as (batch*heads,
-seq) float32 with row ``b * heads + h``.
+The kernels read q/k/v/dO through their strides and write their outputs
+in the same layout, so the (batch*heads, seq, head_dim) transposes of the
+JAX wrapper are gone; the per-row log-sum-exp (and the backward's
+``delta = rowsum(dO * O)``) are (batch*heads, seq) float32 with row
+``b * heads + h``.
 
-- A CUDA tensor launches the kernel, or raises: there is no fallback.
-- A CPU tensor runs :func:`flash_attention_reference`, the plain PyTorch
-  version of the same function (the tests use it; so does
-  ``chip_smoke.py``, to hold the kernel against it on the card).
+- A CUDA tensor launches a kernel, or raises: there is no fallback.
+- A CPU tensor runs the plain PyTorch version of the same function
+  (``flash_attention_reference``, ``flash_attention_bwd_dq_reference``
+  and ``flash_attention_bwd_dkv_reference``;
+  ``flash_attention_backward_reference`` composes the two halves for the
+  tests). The tests use them; so does
+  ``chip_smoke.py``, to hold each kernel against its plain version on the
+  card. The plain versions compute in float32, or in float64 for float64
+  inputs (``gradcheck``); the kernels take float32 and bfloat16.
+
+:func:`flash_attention` is differentiable through
+:class:`FlashAttentionFunction`, which saves (q, k, v, out, lse) as the
+JAX custom VJP does. Its backward runs the dq kernel, which also writes
+delta, and then the dk/dv kernel, which reads it.
 
 ``launch_counts`` counts kernel launches, so a run can show that its
-attention went through the kernel. The backward kernels (``dq``,
-``dk``/``dv``) belong to the training slice; serving needs the forward
-only.
+attention went through the kernels.
 """
 
 import ctypes
@@ -27,16 +38,44 @@ from typing import Optional, Tuple
 import torch
 
 KERNEL = "flash_attention_fwd"
+KERNEL_DQ = "flash_attention_bwd_dq"
+KERNEL_DKV = "flash_attention_bwd_dkv"
+#: the CUDA source (``csrc/<name>.cu``) of each kernel
+SOURCES = {KERNEL: "flash_attention_fwd", KERNEL_DQ: "flash_attention_bwd",
+           KERNEL_DKV: "flash_attention_bwd"}
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last reset (compare-with-plain runs included)
-launch_counts = {KERNEL: 0}
+launch_counts = {KERNEL: 0, KERNEL_DQ: 0, KERNEL_DKV: 0}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _plain_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32, or float64 for float64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _causal_keep(seq: int, device) -> torch.Tensor:
+    return torch.ones(seq, seq, dtype=torch.bool, device=device).tril()
+
+
+def _scores(q, k, causal, sm_scale):
+    """(batch, heads, seq_q, seq_k) scaled scores in the plain type, the
+    causal mask's dropped pairs at -inf."""
+    acc = _plain_dtype(q.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * sm_scale
+    if causal:
+        scores = scores.masked_fill(~_causal_keep(q.shape[1], q.device), float("-inf"))
+    return scores
+
+
+def _default_scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
 
 
 def flash_attention_reference(
@@ -47,20 +86,72 @@ def flash_attention_reference(
     sm_scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """
-    Plain PyTorch attention in float32: (out in q's dtype, lse of shape
-    (batch*heads, seq) in float32). Materializes the (seq, seq) scores.
+    Plain PyTorch attention: (out in q's dtype, lse of shape
+    (batch*heads, seq)). Materializes the (seq, seq) scores.
     """
-    batch, seq, heads, head_dim = q.shape
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(head_dim)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
-    if causal:
-        keep = torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~keep, float("-inf"))
+    batch, seq, heads, _ = q.shape
+    scores = _scores(q, k, causal, _default_scale(q, sm_scale))
     lse = torch.logsumexp(scores, dim=-1)  # (batch, heads, seq)
     weights = torch.exp(scores - lse[..., None])
-    out = torch.einsum("bhqk,bkhd->bqhd", weights, v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, v.to(weights.dtype))
     return out.to(q.dtype), lse.reshape(batch * heads, seq)
+
+
+def _probabilities(q, k, lse, causal, sm_scale):
+    """p = exp(scores - lse), 0 where the mask drops the pair."""
+    batch, seq, heads, _ = q.shape
+    scores = _scores(q, k, causal, sm_scale)
+    return torch.exp(scores - lse.to(scores.dtype).reshape(batch, heads, seq, 1))
+
+
+def flash_attention_bwd_dq_reference(q, k, v, out, lse, d_out, causal, sm_scale):
+    """Plain version of the dq kernel: (dq in q's dtype, delta of shape
+    (batch*heads, seq) in the plain type), with ``delta = rowsum(dO * O)`` and
+    ``dq = sm_scale * [p * (dO.vᵀ - delta)] k``."""
+    batch, seq, heads, _ = q.shape
+    prob = _probabilities(q, k, lse, causal, sm_scale)
+    acc = prob.dtype
+    d_out = d_out.to(acc)
+    delta = (d_out * out.to(acc)).sum(-1).permute(0, 2, 1)  # (batch, heads, seq)
+    dp = torch.einsum("bqhd,bkhd->bhqk", d_out, v.to(acc))
+    ds = prob * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(acc)) * sm_scale
+    return dq.to(q.dtype), delta.reshape(batch * heads, seq)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, lse, delta, d_out, causal, sm_scale):
+    """Plain version of the dk/dv kernel: (dk, dv) in k's and v's dtypes,
+    ``dv = pᵀ dO`` and ``dk = sm_scale * [p * (dO.vᵀ - delta)]ᵀ q``."""
+    batch, seq, heads, _ = q.shape
+    prob = _probabilities(q, k, lse, causal, sm_scale)
+    acc = prob.dtype
+    d_out = d_out.to(acc)
+    dp = torch.einsum("bqhd,bkhd->bhqk", d_out, v.to(acc))
+    ds = prob * (dp - delta.to(acc).reshape(batch, heads, seq, 1))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc)) * sm_scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", prob, d_out)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """
+    Plain PyTorch backward of attention (the FlashAttention-2 formulas on
+    materialized scores): (dq, dk, dv) from the forward's residuals and
+    the output's gradient ``d_out``.
+    """
+    sm_scale = _default_scale(q, sm_scale)
+    dq, delta = flash_attention_bwd_dq_reference(q, k, v, out, lse, d_out, causal, sm_scale)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, lse, delta, d_out, causal, sm_scale)
+    return dq, dk, dv
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -75,6 +166,68 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v devices differ: {q.device}, {k.device}, {v.device}")
 
 
+def _check_kernel_inputs(q: torch.Tensor) -> None:
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"flash_attention kernels take float32 or bfloat16, got {q.dtype}"
+        )
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention kernels take head_dim in {HEAD_DIMS}, got {q.shape[-1]}"
+        )
+
+
+def _head_dim_contiguous(*tensors):
+    return [x if x.stride(-1) == 1 else x.contiguous() for x in tensors]
+
+
+def _stat_rows(q: torch.Tensor, stat: torch.Tensor) -> torch.Tensor:
+    """A (batch*heads, seq) float32 row statistic, contiguous, on q's device."""
+    batch, seq, heads, _ = q.shape
+    if stat.shape != (batch * heads, seq) or stat.device != q.device:
+        raise ValueError(
+            f"row statistic of shape {tuple(stat.shape)} on {stat.device}; "
+            f"expected ({batch * heads}, {seq}) on {q.device}"
+        )
+    return stat.float().contiguous()
+
+
+def _kernel_function(kernel: str, n_pointers: int):
+    """The entry point ``gordo_<kernel>``. Every kernel takes its tensor
+    pointers, (batch, seq, heads, head_dim, dtype), an array of each
+    tensor's (batch, seq, head) strides, sm_scale, causal and the stream."""
+    from gordo_tpu_torch.ops import _build
+
+    fn = getattr(_build.load(SOURCES[kernel]), f"gordo_{kernel}")
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * n_pointers + [i32] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, ptr]
+        fn.restype = i32
+    return fn
+
+
+def _call(kernel: str, fn, q: torch.Tensor, args) -> None:
+    """Run ``fn(*args, stream)`` on q's device and count the launch."""
+    with torch.cuda.device(q.device):
+        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed with CUDA error {err} "
+            f"(shape {tuple(q.shape)}, dtype {q.dtype})"
+        )
+    launch_counts[kernel] += 1
+
+
+def _shape_args(q: torch.Tensor):
+    return (*q.shape, _DTYPE_CODES[q.dtype])
+
+
+def _stride_array(*tensors):
+    values = [s for x in tensors for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
 def _launch(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -82,50 +235,27 @@ def _launch(
     causal: bool,
     sm_scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the CUDA kernel on CUDA tensors; raises on what it does not take."""
+    """Run the forward kernel on CUDA tensors; raises on what it does not take."""
+    _check_kernel_inputs(q)
     batch, seq, heads, head_dim = q.shape
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(
-            f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}"
-        )
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {head_dim}"
-        )
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    q, k, v = _head_dim_contiguous(q, k, v)
     out = torch.empty((batch, seq, heads, head_dim), dtype=q.dtype, device=q.device)
     lse = torch.empty((batch * heads, seq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    fn = _kernel_function()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            batch, seq, heads, head_dim, _DTYPE_CODES[q.dtype],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(sm_scale), int(bool(causal)), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"{KERNEL} launch failed with CUDA error {err} "
-            f"(shape {tuple(q.shape)}, dtype {q.dtype})"
-        )
-    launch_counts[KERNEL] += 1
+    fn = _kernel_function(KERNEL, 5)
+    _call(KERNEL, fn, q, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *_shape_args(q), _stride_array(q, k, v, out),
+        float(sm_scale), int(bool(causal)),
+    ))
     return out, lse
 
 
-def _kernel_function():
-    from gordo_tpu_torch.ops import _build
-
-    fn = _build.load(KERNEL).gordo_flash_attention_fwd
-    if fn.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = (
-            [ptr] * 5 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, i32, ptr]
-        )
-        fn.restype = i32
-    return fn
+def _device_path(name: str, q: torch.Tensor) -> str:
+    if q.device.type in ("cuda", "cpu"):
+        return q.device.type
+    raise ValueError(f"{name} has no path for device {q.device}")
 
 
 def flash_attention_forward(
@@ -140,13 +270,133 @@ def flash_attention_forward(
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     """
     _check_inputs(q, k, v)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cuda":
+    sm_scale = _default_scale(q, sm_scale)
+    if _device_path("flash_attention", q) == "cuda":
         return _launch(q, k, v, causal, sm_scale)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, sm_scale)
-    raise ValueError(f"flash_attention has no path for device {q.device}")
+    return flash_attention_reference(q, k, v, causal, sm_scale)
+
+
+def _check_like(q: torch.Tensor, **tensors) -> None:
+    for name, x in tensors.items():
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(
+                f"{name} is {tuple(x.shape)} {x.dtype} on {x.device}; expected "
+                f"q's {tuple(q.shape)} {q.dtype} on {q.device}"
+            )
+
+
+def flash_attention_bwd_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    (dq, delta): the dq kernel for CUDA tensors, its plain version for
+    CPU tensors. ``delta = rowsum(d_out * out)`` is (batch*heads, seq)
+    float32, the input the dk/dv half takes.
+    """
+    _check_inputs(q, k, v)
+    _check_like(q, out=out, d_out=d_out)
+    sm_scale = _default_scale(q, sm_scale)
+    if _device_path("flash_attention_bwd_dq", q) == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, out, lse, d_out, causal, sm_scale)
+    _check_kernel_inputs(q)
+    lse = _stat_rows(q, lse)
+    q, k, v, out, d_out = _head_dim_contiguous(q, k, v, out, d_out)
+    batch, seq, heads, _ = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((batch * heads, seq), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq, delta
+    fn = _kernel_function(KERNEL_DQ, 8)
+    _call(KERNEL_DQ, fn, q, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_shape_args(q), _stride_array(q, k, v, out, d_out, dq),
+        float(sm_scale), int(bool(causal)),
+    ))
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    d_out: torch.Tensor,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv): the dk/dv kernel for CUDA tensors, its plain version for
+    CPU tensors; ``delta`` is the dq half's."""
+    _check_inputs(q, k, v)
+    _check_like(q, d_out=d_out)
+    sm_scale = _default_scale(q, sm_scale)
+    if _device_path("flash_attention_bwd_dkv", q) == "cpu":
+        return flash_attention_bwd_dkv_reference(q, k, v, lse, delta, d_out, causal, sm_scale)
+    _check_kernel_inputs(q)
+    lse, delta = _stat_rows(q, lse), _stat_rows(q, delta)
+    q, k, v, d_out = _head_dim_contiguous(q, k, v, d_out)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    fn = _kernel_function(KERNEL_DKV, 8)
+    _call(KERNEL_DKV, fn, q, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_shape_args(q), _stride_array(q, k, v, d_out, dk, dv),
+        float(sm_scale), int(bool(causal)),
+    ))
+    return dk, dv
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """
+    (dq, dk, dv) from the forward's residuals and ``d_out``: the dq and
+    dk/dv kernels for CUDA tensors (two launches), their plain versions
+    for CPU tensors.
+    """
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal, sm_scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal, sm_scale)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its backward in the two backward kernels
+    (their plain version on CPU tensors): the port of the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        out, lse = flash_attention_forward(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, d_out, ctx.causal, ctx.sm_scale
+        )
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -159,6 +409,8 @@ def flash_attention(
     """
     Flash attention over (batch, seq, heads, head_dim) tensors — drop-in
     for ``gordo_tpu_torch.models.specs_seq.dense_attention`` and the
-    counterpart of ``gordo_tpu.ops.flash_attention.flash_attention``.
+    counterpart of ``gordo_tpu.ops.flash_attention.flash_attention``;
+    differentiable on both devices.
     """
-    return flash_attention_forward(q, k, v, causal, sm_scale)[0]
+    _check_inputs(q, k, v)
+    return FlashAttentionFunction.apply(q, k, v, causal, _default_scale(q, sm_scale))

@@ -41,3 +41,70 @@ def test_cuda_kernel_matches_plain_version(shape, causal, dtype, tol):
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,causal,dtype,tol",
+    [
+        ((32, 64, 4, 16), True, torch.float32, 1e-4),
+        ((3, 301, 2, 64), False, torch.float32, 1e-4),
+        ((3, 301, 2, 128), True, torch.float32, 1e-4),
+        ((8, 100, 2, 32), True, torch.bfloat16, 2e-2),
+    ],
+)
+def test_cuda_backward_kernels_match_plain_version(shape, causal, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, d_out = (
+        torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)
+    )
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    before = dict(fa.launch_counts)
+    got = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[fa.KERNEL_DQ] == before[fa.KERNEL_DQ] + 1
+    assert fa.launch_counts[fa.KERNEL_DKV] == before[fa.KERNEL_DKV] + 1
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == shape, name
+        assert (g.float() - w.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_flash_gradients_equal_dense(causal):
+    """The autograd Function on the card: a loss through the flash kernels
+    has dense attention's gradient, through strided views of one input."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gordo_tpu_torch.models.specs_seq import dense_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    wide = torch.randn((16, 64, 4, 48), generator=gen, device="cuda").requires_grad_(True)
+    q, k, v = wide[..., :16], wide[..., 16:32], wide[..., 32:]
+    before = fa.launch_counts[fa.KERNEL_DQ]
+    fa.flash_attention(q, k, v, causal=causal).square().sum().backward()
+    assert fa.launch_counts[fa.KERNEL_DQ] == before + 1
+    flash_grad = wide.grad.clone()
+    wide.grad = None
+    dense_attention(q, k, v, causal=causal).square().sum().backward()
+    assert (flash_grad - wide.grad).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_function_refuses_double_backward():
+    """The kernels' gradients are not differentiable: a second-order
+    request raises on the card as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (
+        torch.randn((2, 64, 4, 16), generator=gen, device="cuda").requires_grad_(True)
+        for _ in range(3)
+    )
+    loss = fa.flash_attention(q, k, v, causal=True).square().sum()
+    (dq,) = torch.autograd.grad(loss, q, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()

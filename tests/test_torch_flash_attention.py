@@ -106,9 +106,10 @@ def test_flash_has_no_path_off_cpu_and_cuda():
 
 
 def test_reset_launch_counts():
-    fa.launch_counts[fa.KERNEL] += 3
+    for step, name in enumerate((fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)):
+        fa.launch_counts[name] += 3 + step
     fa.reset_launch_counts()
-    assert fa.launch_counts == {fa.KERNEL: 0}
+    assert fa.launch_counts == {fa.KERNEL: 0, fa.KERNEL_DQ: 0, fa.KERNEL_DKV: 0}
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):
