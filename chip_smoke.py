@@ -15,9 +15,11 @@ Phases, each raising on failure (no result line is printed then):
    call, host gaps included) beside the plain version's, one PyTorch
    library call's (a yardstick only) and the bound (the larger of bytes over 3.35 TB/s and
    operations over the type's peak rate, published H100 SXM figures):
-   the flash forward, then the dq and dk/dv backward kernels; then the
-   gradient of a loss through the autograd Function on the card against
-   dense attention's on the card;
+   the flash forward, then the dq and dk/dv backward kernels, each also
+   on views one element into their memory (no 16-byte aligned row: the
+   kernels' element-by-element path); then the gradient of a loss
+   through the autograd Function on the card against dense attention's
+   on the card;
 4. serving: the ``turbine-9900-transformer`` machine of
    ``examples/config.yaml`` at full width with ``attention_impl: flash``
    (random weights from a numpy seed in the Flax layout, carried over by
@@ -173,6 +175,27 @@ def attention_bound(shape, causal: bool, dtype_name: str, elem_bytes: int,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def card_tensor(torch, gen, shape, dtype, misaligned: bool = False):
+    """A random (B, S, H, D) tensor on the card; ``misaligned``: a view one
+    element into its memory, so no row start is 16-byte aligned and the
+    kernels take their element-by-element path."""
+    if not misaligned:
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    flat = torch.randn(math.prod(shape) + 1, generator=gen, device="cuda").to(dtype)
+    return flat[1:].view(shape)
+
+
+def library_view(x):
+    """(B, H, S, D) view of a fresh copy of ``x`` for the library
+    yardstick: SDPA's kernels fault on a misaligned view, and
+    ``contiguous()`` keeps one whose strides are already contiguous."""
+    return x.clone().transpose(1, 2)
+
+
+# the misaligned case: (B, S, H, D) views one element into their memory
+MISALIGNED = "train-step-misaligned"
+
+
 def kernel_phase(torch, fa):
     """Phase 3: the flash forward kernel against its plain version."""
     import torch.nn.functional as F
@@ -185,12 +208,13 @@ def kernel_phase(torch, fa):
         ("head-dim-32", (16, 200, 2, 32), True, torch.float32),
         ("head-dim-128", (2, 300, 2, 128), False, torch.float32),
         ("model-shape-bf16", (8192, 64, 4, 16), True, torch.bfloat16),
+        (MISALIGNED, (BATCH_SIZE, 64, 4, 16), True, torch.float32),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
     for name, shape, causal, dtype in cases:
         q, k, v = (
-            torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3)
+            card_tensor(torch, gen, shape, dtype, name == MISALIGNED) for _ in range(3)
         )
         out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -202,7 +226,7 @@ def kernel_phase(torch, fa):
         def run():
             return fa.flash_attention_forward(q, k, v, causal=causal)
 
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        qt, kt, vt = (library_view(x) for x in (q, k, v))
         ms, call_ms = device_ms(run), time_ms(run)
         plain_ms = device_ms(
             lambda: fa.flash_attention_reference(q, k, v, causal=causal), reps=5
@@ -218,6 +242,7 @@ def kernel_phase(torch, fa):
             "shape": list(shape),
             "causal": causal,
             "dtype": dtype_name,
+            "rows_16b_aligned": fa.rows_16b_aligned(q, k, v, out),
             "max_abs_err": err_out,
             "max_abs_err_lse": err_lse,
             "tolerance": tol,
@@ -246,6 +271,7 @@ BACKWARD_CASES = [
     ("head-dim-32", (16, 200, 2, 32), True, "float32"),
     ("head-dim-128", (2, 300, 2, 128), False, "float32"),
     ("train-step-bf16", (BATCH_SIZE, 64, 4, 16), True, "bfloat16"),
+    (MISALIGNED, (BATCH_SIZE, 64, 4, 16), True, "float32"),
 ]
 
 
@@ -262,7 +288,7 @@ def backward_phase(torch, fa):
     for name, shape, causal, dtype_name in BACKWARD_CASES:
         dtype = getattr(torch, dtype_name)
         q, k, v, d_out = (
-            torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)
+            card_tensor(torch, gen, shape, dtype, name == MISALIGNED) for _ in range(4)
         )
         out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
         scale = 1.0 / math.sqrt(shape[-1])
@@ -288,8 +314,8 @@ def backward_phase(torch, fa):
             raise AssertionError(f"backward kernels disagree with their plain versions: "
                                  f"{name} {errors}")
 
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-        d_out_t = d_out.transpose(1, 2)
+        qt, kt, vt = (library_view(x).detach().requires_grad_(True) for x in (q, k, v))
+        d_out_t = library_view(d_out)
 
         def sdpa_forward():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -322,6 +348,7 @@ def backward_phase(torch, fa):
                 "shape": list(shape),
                 "causal": causal,
                 "dtype": dtype_name,
+                "rows_16b_aligned": fa.rows_16b_aligned(q, k, v, d_out),
                 "max_abs_err": max(errors[label] for label in outputs),
                 "errors": {label: errors[label] for label in outputs},
                 "tolerance": tol,

@@ -27,41 +27,58 @@
 // p.dO, ds.q) dot products of head_dim per kept (query, key) pair, 6.5
 // and 8.7 GFLOP at the served scale: 0.10 and 0.13 ms at the 67 TFLOP/s
 // fp32 rate. So both are bound by bytes, and at the training shape by
-// their launch. The design keeps every
-// intermediate (scores, probabilities, dS) out of device memory and
-// reads each row and tile from device memory once per block.
+// their launch and one block's dependent load-then-compute latency. Both
+// keep every intermediate (scores, probabilities, dS) out of device
+// memory. Each output element has one owner, so there are no atomics and
+// no cross-block sum: both kernels are deterministic.
 //
-// Design (not a copy of the Pallas grid). On the TPU the accumulation
-// axis of the grid runs in order and carries VMEM scratch between steps.
-// Here one thread block owns a (batch*head, 64-row tile) pair and loops
-// over the other axis itself:
+// dq (flash_bwd_dq_kernel, every head_dim): one block owns 64 query rows
+// of one (batch, head) and loops over key tiles; q, dO and the dq
+// accumulator stay in registers with the row's LSE and delta; key/value
+// tiles are staged in shared memory as fp32. A row is owned by
+// head_dim/16 neighbouring threads, each holding 16 of its head dims;
+// dot products are summed with warp shuffles. Causal blocks stop at the
+// tile's last query row.
 //
-// - dq: the block owns 64 query rows and loops over key tiles; q, dO and
-//   the dq accumulator stay in registers with the row's LSE and delta;
-//   key/value tiles are staged in shared memory as fp32. Causal blocks
-//   stop at the tile's last query row.
-// - dk/dv: the block owns 64 key rows and loops over query tiles; k, v
-//   and the dk and dv accumulators stay in registers; query/dO tiles and
-//   their LSE and delta are staged in shared memory. Causal blocks start
-//   at the query tile holding the block's first key.
+// dk/dv at head_dim 16 and 32 (flash_bwd_dkv_quad_kernel, the model's
+// head sizes): blocks of 4 warps own a run of key rows of one (batch,
+// head). Each lane holds R key rows times D/S of their head dims (k, v
+// and the dk and dv partials in registers; k prescaled so scores are in
+// log2 units, one exp2 a pair), the S lanes of a row's dims summing each
+// dot with one shuffle, and a quad of four lanes shares those keys: lane
+// `quad` walks queries quad, quad + 4, ... of each staged 64-query tile,
+// so a lane's serial chain is 16 queries, not 64. Every q and dO element
+// read from shared memory feeds R keys' multiply-adds (R = 2, S = 2 at
+// head_dim 16: half the shared-memory traffic per (query, key) pair of
+// one whole key row per lane, for one shuffle per dot). q, dO and the
+// (LSE, delta) pairs of a tile are staged in shared memory with 16-byte
+// cp.async copies when every row start is 16-byte aligned (mode bit 2,
+// decided by the caller), else element by element in the same kernel.
+// Causal blocks start at their first key's query and each warp at its
+// own first key's, so no warp walks queries the mask drops for all of
+// its keys. The quad's partials are merged once at the end by a
+// fixed-order butterfly reduce-scatter. Everything stays on the fp32
+// CUDA cores: TF32 would break the 1e-4 float32 tolerance, and the
+// served scale is bound by bytes.
 //
-// A row is owned by head_dim/16 neighbouring threads, each holding 16 of
-// its head dims; dot products are summed with warp shuffles. Each output
-// element has one owner, so there are no atomics and no cross-block sum:
-// both kernels are deterministic. Rows past the sequence end compute on
-// a clamped copy (every thread takes part in the shuffles) and store
-// nothing; query rows past the end add nothing to dk/dv and keys past the
-// end have probability 0. No head-dim padding to 128 lanes and no
-// lane-broadcast statistics: those exist only for Mosaic's (8, 128)
-// tiling. Tensor cores (wgmma) and TMA are left for a later change; these
-// kernels run on the fp32 CUDA cores.
+// dk/dv at head_dim 64 and 128 (flash_bwd_dkv_slice_kernel): one block
+// owns 64 key rows and loops over query tiles like the dq kernel, with
+// k, v and the dk and dv accumulators in registers; causal blocks start
+// at the query tile holding the block's first key.
+//
+// Rows past the sequence end store nothing; query rows past the end add
+// nothing to dk/dv and keys past the end have probability 0. No head-dim
+// padding to 128 lanes and no lane-broadcast statistics: those exist only
+// for Mosaic's (8, 128) tiling.
 //
 // Inputs are float32 or bfloat16 (dtype 0 / 1) with fp32 accumulation;
 // head_dim is 16, 32, 64 or 128; any sequence length; causal or full.
 // Strides are in elements, (batch, seq, head) for each tensor in the
-// order the entry point names; the head dim must be contiguous. The
-// kernels allocate nothing and run on the caller's stream. Each entry
-// point returns the CUDA error code of its launch (0 on success).
+// order the entry point names; the head dim must be contiguous. `mode` is
+// a bit set: 1 causal, 2 (dk/dv only) every row start of q, k, v, dO, dk
+// and dv 16-byte aligned. The kernels allocate nothing and run on the
+// caller's stream. Each entry point returns the CUDA error code of its
+// launch (0 on success).
 
 #include <climits>
 #include <cstdint>
@@ -69,10 +86,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr int kSlice = 16;      // head dims held by one thread
-constexpr int kBlockRows = 64;  // rows a thread block owns
+constexpr int kBlockRows = 64;  // rows a thread block owns (dq, general dk/dv)
 
 // (batch, seq, head) element strides of one (batch, seq, heads, head_dim)
 // tensor
@@ -97,23 +116,11 @@ struct Params {
   int n_tiles;
   float sm_scale;
   int causal;
+  int vec;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using flash::from_float;
+using flash::to_float;
 
 template <typename T>
 __device__ __forceinline__ const T* row_ptr(const void* base, const Strides& st, int b,
@@ -226,7 +233,7 @@ __global__ void __launch_bounds__(kBlockRows*(D / kSlice))
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kBlockRows*(D / kSlice))
-    flash_bwd_dkv_kernel(const Params p) {
+    flash_bwd_dkv_slice_kernel(const Params p) {
   constexpr int kTpr = D / kSlice;            // threads per key row
   constexpr int kBlockQ = D <= 32 ? 64 : 32;  // queries per shared tile
   constexpr int kThreads = kBlockRows * kTpr;
@@ -321,26 +328,207 @@ __global__ void __launch_bounds__(kBlockRows*(D / kSlice))
   }
 }
 
+template <typename T, int D, int R, int S, int kMinBlocks>
+__global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
+    flash_bwd_dkv_quad_kernel(const Params p) {
+  constexpr int kDims = D / S;  // head dims a lane holds
+  constexpr int kWarpKeys = R * (32 / (flash::kQuad * S));
+  constexpr int kKeys = flash::quad_rows<R, S>();
+  constexpr int kPitch = D + 16 / sizeof(T);  // padded row: 16-byte aligned, no bank conflicts
+  constexpr int kTile = flash::kPartnerTile;
+  __shared__ __align__(16) T k_tile[kKeys * kPitch];
+  __shared__ __align__(16) T v_tile[kKeys * kPitch];
+  __shared__ __align__(16) T q_tile[kTile * kPitch];
+  __shared__ __align__(16) T do_tile[kTile * kPitch];
+  __shared__ float2 stat_tile[kTile];  // (LSE in log2 units, delta) of each query
+
+  const int bh = blockIdx.x / p.n_tiles;
+  const int kt = blockIdx.x - bh * p.n_tiles;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int part = lane % S;                         // which kDims of each row
+  const int quad = (lane / S) & (flash::kQuad - 1);  // which queries of each tile
+  const int key0 = warp * kWarpKeys + (lane / (flash::kQuad * S)) * R;  // lane's keys: key0 + r
+  const int seq = p.seq;
+  const int k0 = kt * kKeys;
+  const bool vec = p.vec;
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+
+  flash::stage_rows<T, D, kPitch, kKeys, flash::kQuadThreads>(
+      k_tile, row_ptr<T>(p.k, p.k_st, b, 0, h, 0), p.k_st.s, k0, seq, vec);
+  flash::stage_rows<T, D, kPitch, kKeys, flash::kQuadThreads>(
+      v_tile, row_ptr<T>(p.v, p.v_st, b, 0, h, 0), p.v_st.s, k0, seq, vec);
+  const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
+  const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
+  // causal: queries before the block's first key see none of its keys, and
+  // queries before the warp's first key none of the warp's (all lanes of a
+  // warp walk the same queries)
+  const int q_begin = p.causal ? k0 : 0;
+  const int warp_q_first = p.causal ? k0 + warp * kWarpKeys : 0;
+
+  const float k_scale = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  float kr[R][kDims];
+  float vr[R][kDims];
+  float dk[R][kDims];
+  float dv[R][kDims];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) {
+      dk[r][d] = 0.f;
+      dv[r][d] = 0.f;
+    }
+  }
+
+  for (int q0 = q_begin; q0 < seq; q0 += kTile) {
+    if (q0 > q_begin) __syncthreads();  // every warp is done with the previous tile
+    flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(q_tile, q_head, p.q_st.s, q0, seq, vec);
+    flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(do_tile, do_head, p.do_st.s, q0, seq,
+                                                          vec);
+    for (int i = threadIdx.x; i < kTile; i += flash::kQuadThreads) {
+      const int qp = q0 + i;
+      stat_tile[i] = qp < seq ? make_float2(p.lse[stat + qp] * flash::kLog2e, p.delta[stat + qp])
+                              : make_float2(0.f, 0.f);
+    }
+    if (vec) flash::cp_async_wait_all();
+    __syncthreads();
+    if (q0 == q_begin) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int d = 0; d < kDims; d += 4) {
+          const int at = (key0 + r) * kPitch + part * kDims + d;
+          const float4 kv = flash::load4(k_tile + at);
+          const float4 vv = flash::load4(v_tile + at);
+          kr[r][d] = kv.x * k_scale;
+          kr[r][d + 1] = kv.y * k_scale;
+          kr[r][d + 2] = kv.z * k_scale;
+          kr[r][d + 3] = kv.w * k_scale;
+          vr[r][d] = vv.x;
+          vr[r][d + 1] = vv.y;
+          vr[r][d + 2] = vv.z;
+          vr[r][d + 3] = vv.w;
+        }
+      }
+    }
+    // queries quad + 4t of the tile, t in [t_begin, t_end) (uniform across the warp)
+    const int t_begin = max(0, warp_q_first - q0) / flash::kQuad;
+    const int t_end = min(flash::kPerLane, (seq - q0 + flash::kQuad - 1) / flash::kQuad);
+#pragma unroll 2
+    for (int t = t_begin; t < t_end; ++t) {
+      const int i = quad + t * flash::kQuad;
+      const T* q_row = q_tile + i * kPitch + part * kDims;
+      const T* do_row = do_tile + i * kPitch + part * kDims;
+      float4 qv[kDims / 4];
+      float4 ov[kDims / 4];
+#pragma unroll
+      for (int c = 0; c < kDims / 4; ++c) {
+        qv[c] = flash::load4(q_row + 4 * c);
+        ov[c] = flash::load4(do_row + 4 * c);
+      }
+      const float2 st = stat_tile[i];
+      const int qp = q0 + i;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 dp4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) {
+          s4.x = fmaf(qv[c].x, kr[r][4 * c], s4.x);
+          s4.y = fmaf(qv[c].y, kr[r][4 * c + 1], s4.y);
+          s4.z = fmaf(qv[c].z, kr[r][4 * c + 2], s4.z);
+          s4.w = fmaf(qv[c].w, kr[r][4 * c + 3], s4.w);
+          dp4.x = fmaf(ov[c].x, vr[r][4 * c], dp4.x);
+          dp4.y = fmaf(ov[c].y, vr[r][4 * c + 1], dp4.y);
+          dp4.z = fmaf(ov[c].z, vr[r][4 * c + 2], dp4.z);
+          dp4.w = fmaf(ov[c].w, vr[r][4 * c + 3], dp4.w);
+        }
+        const float score = flash::dim_sum<S>((s4.x + s4.y) + (s4.z + s4.w));
+        const float dp = flash::dim_sum<S>((dp4.x + dp4.y) + (dp4.z + dp4.w));
+        const bool keep = qp < seq && (!p.causal || k0 + key0 + r <= qp);
+        const float prob = keep ? exp2f(score - st.x) : 0.f;
+        const float ds = prob * (dp - st.y);
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) {
+          dv[r][4 * c] = fmaf(prob, ov[c].x, dv[r][4 * c]);
+          dv[r][4 * c + 1] = fmaf(prob, ov[c].y, dv[r][4 * c + 1]);
+          dv[r][4 * c + 2] = fmaf(prob, ov[c].z, dv[r][4 * c + 2]);
+          dv[r][4 * c + 3] = fmaf(prob, ov[c].w, dv[r][4 * c + 3]);
+          dk[r][4 * c] = fmaf(ds, qv[c].x, dk[r][4 * c]);
+          dk[r][4 * c + 1] = fmaf(ds, qv[c].y, dk[r][4 * c + 1]);
+          dk[r][4 * c + 2] = fmaf(ds, qv[c].z, dk[r][4 * c + 2]);
+          dk[r][4 * c + 3] = fmaf(ds, qv[c].w, dk[r][4 * c + 3]);
+        }
+      }
+    }
+  }
+
+  // merge the quad: a quarter of the lane's dims of each key row per lane
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float dk_out[kDims / 4];
+    float dv_out[kDims / 4];
+    flash::quad_reduce_scatter<kDims, S>(dk[r], dk_out, quad);
+    flash::quad_reduce_scatter<kDims, S>(dv[r], dv_out, quad);
+    const int kpos = k0 + key0 + r;
+    if (kpos < seq) {
+      const int d0 = part * kDims + quad * (kDims / 4);
+      flash::store_row<T, kDims / 4>(row_ptr<T>(p.dk, p.dk_st, b, kpos, h, d0), dk_out,
+                                     p.sm_scale, vec);
+      flash::store_row<T, kDims / 4>(row_ptr<T>(p.dv, p.dv_st, b, kpos, h, d0), dv_out, 1.f,
+                                     vec);
+    }
+  }
+}
+
+// (keys per lane, dim split, minimum blocks per SM) of the dk/dv quad kernel
+template <int D>
+struct DkvTiling;
+template <>
+struct DkvTiling<16> {
+  static constexpr int R = 2, S = 2, kMinBlocks = 4;
+};
+template <>
+struct DkvTiling<32> {
+  static constexpr int R = 2, S = 2, kMinBlocks = 2;
+};
+
 enum class Which { kDq, kDkv };
 
 template <Which W, typename T, int D>
-int launch(const Params& p, int64_t n_blocks, cudaStream_t stream) {
+int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
+  constexpr bool kQuadDkv = W == Which::kDkv && D <= 32;
+  if constexpr (kQuadDkv) {
+    constexpr int kRows = flash::quad_rows<DkvTiling<D>::R, DkvTiling<D>::S>();
+    p.n_tiles = (p.seq + kRows - 1) / kRows;
+  } else {
+    p.n_tiles = (p.seq + kBlockRows - 1) / kBlockRows;
+  }
+  const int64_t n_blocks = batch_heads * p.n_tiles;
+  if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned grid = static_cast<unsigned>(n_blocks);
   constexpr int kThreads = kBlockRows * (D / kSlice);
   if constexpr (W == Which::kDq) {
-    flash_bwd_dq_kernel<T, D><<<static_cast<unsigned>(n_blocks), kThreads, 0, stream>>>(p);
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
+  } else if constexpr (kQuadDkv) {
+    using Tile = DkvTiling<D>;
+    flash_bwd_dkv_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
+        <<<grid, flash::kQuadThreads, 0, stream>>>(p);
   } else {
-    flash_bwd_dkv_kernel<T, D><<<static_cast<unsigned>(n_blocks), kThreads, 0, stream>>>(p);
+    flash_bwd_dkv_slice_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <Which W, typename T>
-int dispatch_head_dim(int head_dim, const Params& p, int64_t n_blocks, cudaStream_t stream) {
+int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<W, T, 16>(p, n_blocks, stream);
-    case 32: return launch<W, T, 32>(p, n_blocks, stream);
-    case 64: return launch<W, T, 64>(p, n_blocks, stream);
-    case 128: return launch<W, T, 128>(p, n_blocks, stream);
+    case 16: return launch<W, T, 16>(p, batch_heads, stream);
+    case 32: return launch<W, T, 32>(p, batch_heads, stream);
+    case 64: return launch<W, T, 64>(p, batch_heads, stream);
+    case 128: return launch<W, T, 128>(p, batch_heads, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -350,29 +538,31 @@ Strides strides_at(const long long* strides, int tensor) {
 }
 
 template <Which W>
-int run(Params& p, int batch, int seq, int heads, int head_dim, int dtype, void* stream) {
+int run(Params& p, int batch, int seq, int heads, int head_dim, int dtype, int mode,
+        void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
   p.heads = heads;
   p.seq = seq;
-  p.n_tiles = (seq + kBlockRows - 1) / kBlockRows;
-  const int64_t n_blocks = static_cast<int64_t>(batch) * heads * p.n_tiles;
-  if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  p.causal = (mode & flash::kModeCausal) != 0;
+  p.vec = (mode & flash::kModeVec16) != 0;
+  const int64_t batch_heads = static_cast<int64_t>(batch) * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_head_dim<W, float>(head_dim, p, n_blocks, s);
-    case 1: return dispatch_head_dim<W, __nv_bfloat16>(head_dim, p, n_blocks, s);
+    case 0: return dispatch_head_dim<W, float>(head_dim, p, batch_heads, s);
+    case 1: return dispatch_head_dim<W, __nv_bfloat16>(head_dim, p, batch_heads, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// strides: (batch, seq, head) of q, k, v, out, d_out, dq, in that order
+// strides: (batch, seq, head) of q, k, v, out, d_out, dq, in that order;
+// mode: bit 1 causal (the dq kernel reads no other bit)
 extern "C" int gordo_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out, const void* d_out,
     const void* lse, void* delta, void* dq,
     int batch, int seq, int heads, int head_dim, int dtype,
-    const long long* strides, float sm_scale, int causal, void* stream) {
+    const long long* strides, float sm_scale, int mode, void* stream) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -389,16 +579,17 @@ extern "C" int gordo_flash_attention_bwd_dq(
   p.do_st = strides_at(strides, 4);
   p.dq_st = strides_at(strides, 5);
   p.sm_scale = sm_scale;
-  p.causal = causal;
-  return run<Which::kDq>(p, batch, seq, heads, head_dim, dtype, stream);
+  return run<Which::kDq>(p, batch, seq, heads, head_dim, dtype, mode & flash::kModeCausal,
+                         stream);
 }
 
-// strides: (batch, seq, head) of q, k, v, d_out, dk, dv, in that order
+// strides: (batch, seq, head) of q, k, v, d_out, dk, dv, in that order;
+// mode: bit 1 causal, bit 2 16-byte aligned rows
 extern "C" int gordo_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* d_out,
     const void* lse, const void* delta, void* dk, void* dv,
     int batch, int seq, int heads, int head_dim, int dtype,
-    const long long* strides, float sm_scale, int causal, void* stream) {
+    const long long* strides, float sm_scale, int mode, void* stream) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -415,6 +606,5 @@ extern "C" int gordo_flash_attention_bwd_dkv(
   p.dk_st = strides_at(strides, 4);
   p.dv_st = strides_at(strides, 5);
   p.sm_scale = sm_scale;
-  p.causal = causal;
-  return run<Which::kDkv>(p, batch, seq, heads, head_dim, dtype, stream);
+  return run<Which::kDkv>(p, batch, seq, heads, head_dim, dtype, mode, stream);
 }

@@ -1,0 +1,203 @@
+// Pieces shared by the quad-lane flash-attention kernels of
+// flash_attention_fwd.cu and flash_attention_bwd.cu (sm_90a): element
+// conversion, 16-byte asynchronous staging of row tiles into shared
+// memory with a scalar path for unaligned views, and the fixed-order
+// reductions over the four lanes ("quad") that share one row.
+//
+// A quad kernel gives each owned row (a query row in the forward, a key
+// row in dk/dv) to four neighbouring lanes; lane `quad` of the four walks
+// partner rows quad, quad + 4, quad + 8, ... of every staged partner
+// tile, and the four partial results are merged with shuffles in one
+// fixed order, so a launch is deterministic.
+
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace flash {
+
+// bits of the entry points' `mode` argument
+constexpr int kModeCausal = 1;  // drop pairs with key > query
+constexpr int kModeVec16 = 2;   // every row start is 16-byte aligned: stage with cp.async
+
+constexpr int kQuad = 4;          // lanes that share one row
+constexpr int kPartnerTile = 64;  // partner rows staged at a time
+constexpr int kPerLane = kPartnerTile / kQuad;
+constexpr int kQuadWarps = 4;  // warps per quad-kernel block
+constexpr int kQuadThreads = kQuadWarps * 32;
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// four consecutive shared-memory elements as floats (16-byte aligned for
+// float32, 8-byte for bfloat16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// store four floats to device memory as T: one 16-byte (float32) or
+// 8-byte (bfloat16) store when `vec`, else element by element
+__device__ __forceinline__ void store4(float* p, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+    p[3] = v.w;
+  }
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+  } else {
+    p[0] = __float2bfloat16(v.x);
+    p[1] = __float2bfloat16(v.y);
+    p[2] = __float2bfloat16(v.z);
+    p[3] = __float2bfloat16(v.w);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+// wait for every cp.async this thread issued (a __syncthreads must follow)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage rows [row0, row0 + kRows) of one head of a (batch, seq, heads, D)
+// tensor into `tile` (kRows x kPitch elements of T). Rows at or past
+// `end` are zero-filled without reading device memory, so a lane may
+// read any row of the tile. With `vec`, 16-byte cp.async copies (the
+// caller waits); else one element per thread.
+template <typename T, int D, int kPitch, int kRows, int kThreads>
+__device__ __forceinline__ void stage_rows(T* tile, const T* head, int64_t row_stride,
+                                           int row0, int end, bool vec) {
+  if (vec) {
+    constexpr int kElems = 16 / sizeof(T);    // elements per 16-byte chunk
+    constexpr int kChunks = D / kElems;       // chunks per row
+    for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
+      const int r = c / kChunks;
+      const int e = (c - r * kChunks) * kElems;
+      T* dst = tile + r * kPitch + e;
+      const int pos = row0 + r;
+      if (pos < end) {
+        cp_async16(dst, head + static_cast<int64_t>(pos) * row_stride + e);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  } else {
+    for (int c = threadIdx.x; c < kRows * D; c += kThreads) {
+      const int r = c / D;
+      const int e = c - r * D;
+      const int pos = row0 + r;
+      tile[r * kPitch + e] =
+          pos < end ? head[static_cast<int64_t>(pos) * row_stride + e] : from_float<T>(0.f);
+    }
+  }
+}
+
+// The lanes of a warp are laid out as (row group, quad, dim part), the
+// dim part fastest: a row's dims are split over S neighbouring lanes, and
+// the four quad lanes that share a row group sit S lanes apart.
+
+// rows a quad-kernel block owns: 4 warps of 32 / (4 S) groups of R rows
+template <int R, int S>
+__host__ __device__ constexpr int quad_rows() {
+  return kQuadWarps * R * (32 / (kQuad * S));
+}
+
+// sum of a dot product's S partial sums (the S lanes holding parts of one row)
+template <int S>
+__device__ __forceinline__ float dim_sum(float x) {
+  if constexpr (S >= 2) x += __shfl_xor_sync(0xffffffffu, x, 1);
+  if constexpr (S >= 4) x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+template <int S>
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, S));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2 * S));
+}
+
+template <int S>
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, S);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2 * S);
+}
+
+// Sum x[0..N) over the four lanes of a quad; lane `quad` ends with the
+// sums of elements [quad * N/4, (quad + 1) * N/4) in out. Two butterfly
+// steps (N/2 + N/4 shuffles), each element summed once in a fixed order.
+template <int N, int S>
+__device__ __forceinline__ void quad_reduce_scatter(const float (&x)[N], float (&out)[N / 4],
+                                                    int quad) {
+  constexpr int kHalf = N / 2;
+  constexpr int kQuarter = N / 4;
+  float part[kHalf];
+  const bool hi = quad & 2;
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) {
+    const float send = hi ? x[j] : x[j + kHalf];
+    const float keep = hi ? x[j + kHalf] : x[j];
+    part[j] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * S);
+  }
+  const bool odd = quad & 1;
+#pragma unroll
+  for (int j = 0; j < kQuarter; ++j) {
+    const float send = odd ? part[j] : part[j + kQuarter];
+    const float keep = odd ? part[j + kQuarter] : part[j];
+    out[j] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+  }
+}
+
+// store N consecutive values times `scale` to device memory as T: 16-byte
+// (float32) or 8-byte (bfloat16) stores when `vec` and N is a multiple of
+// 4, else element by element
+template <typename T, int N>
+__device__ __forceinline__ void store_row(T* p, const float (&v)[N], float scale, bool vec) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int d = 0; d < N; d += 4) {
+      store4(p + d, make_float4(v[d] * scale, v[d + 1] * scale, v[d + 2] * scale,
+                                v[d + 3] * scale), vec);
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < N; ++d) p[d] = from_float<T>(v[d] * scale);
+  }
+}
+
+}  // namespace flash

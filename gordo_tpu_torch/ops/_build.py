@@ -4,8 +4,8 @@ ctypes.
 
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into ``_build/<name>-<digest>.so``, where the digest covers
-the source and the flags, so an edited source never loads a stale
-library. The sources have a plain C interface (no PyTorch headers), which
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source never loads a stale library. The sources have a plain C interface (no PyTorch headers), which
 keeps a build to seconds. The build directory is listed in ``.gitignore``.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -68,11 +68,11 @@ def sources() -> List[str]:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Tuple[Path, str]:

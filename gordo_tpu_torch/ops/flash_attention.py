@@ -29,6 +29,12 @@ delta, and then the dk/dv kernel, which reads it.
 
 ``launch_counts`` counts kernel launches, so a run can show that its
 attention went through the kernels.
+
+Each kernel takes a ``mode`` bit set: :data:`MODE_CAUSAL`, and
+:data:`MODE_VEC16` when :func:`rows_16b_aligned` finds every row of its
+tensors 16-byte aligned, so the kernel may move rows with 16-byte copies;
+otherwise the same kernel moves them element by element. The decision is
+made here, per call, and is tested on the CPU.
 """
 
 import ctypes
@@ -45,6 +51,10 @@ SOURCES = {KERNEL: "flash_attention_fwd", KERNEL_DQ: "flash_attention_bwd",
            KERNEL_DKV: "flash_attention_bwd"}
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: bits of a kernel's ``mode`` argument
+MODE_CAUSAL = 1
+MODE_VEC16 = 2
+_VEC_BYTES = 16
 
 #: kernel launches since the last reset (compare-with-plain runs included)
 launch_counts = {KERNEL: 0, KERNEL_DQ: 0, KERNEL_DKV: 0}
@@ -195,7 +205,8 @@ def _stat_rows(q: torch.Tensor, stat: torch.Tensor) -> torch.Tensor:
 def _kernel_function(kernel: str, n_pointers: int):
     """The entry point ``gordo_<kernel>``. Every kernel takes its tensor
     pointers, (batch, seq, heads, head_dim, dtype), an array of each
-    tensor's (batch, seq, head) strides, sm_scale, causal and the stream."""
+    tensor's (batch, seq, head) strides, sm_scale, its mode bits and the
+    stream."""
     from gordo_tpu_torch.ops import _build
 
     fn = getattr(_build.load(SOURCES[kernel]), f"gordo_{kernel}")
@@ -219,6 +230,31 @@ def _call(kernel: str, fn, q: torch.Tensor, args) -> None:
     launch_counts[kernel] += 1
 
 
+def rows_16b_aligned(*tensors: torch.Tensor) -> bool:
+    """
+    Whether every (batch, seq, head) row of every (batch, seq, heads,
+    head_dim) tensor starts on a 16-byte boundary and spans whole 16-byte
+    chunks: each data pointer, each (batch, seq, head) stride in bytes and
+    the row's bytes are multiples of 16, with the head dim contiguous. A
+    float32 view is aligned when it starts a multiple of 4 elements into
+    aligned memory, a bfloat16 view a multiple of 8.
+    """
+    for x in tensors:
+        size = x.element_size()
+        if x.stride(-1) != 1 or x.data_ptr() % _VEC_BYTES or (x.shape[-1] * size) % _VEC_BYTES:
+            return False
+        if any((stride * size) % _VEC_BYTES for stride in x.stride()[:3]):
+            return False
+    return True
+
+
+def _mode(causal: bool, *tensors: torch.Tensor) -> int:
+    """The kernels' ``mode``: causal, and 16-byte rows when ``tensors``
+    (every tensor the kernel reads or writes row by row) allow them."""
+    vec = MODE_VEC16 if tensors and rows_16b_aligned(*tensors) else 0
+    return (MODE_CAUSAL if causal else 0) | vec
+
+
 def _shape_args(q: torch.Tensor):
     return (*q.shape, _DTYPE_CODES[q.dtype])
 
@@ -235,7 +271,7 @@ def _launch(
     causal: bool,
     sm_scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the forward kernel on CUDA tensors; raises on what it does not take."""
+    """Run the forward kernel; raises on what it does not take."""
     _check_kernel_inputs(q)
     batch, seq, heads, head_dim = q.shape
     q, k, v = _head_dim_contiguous(q, k, v)
@@ -247,7 +283,7 @@ def _launch(
     _call(KERNEL, fn, q, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         *_shape_args(q), _stride_array(q, k, v, out),
-        float(sm_scale), int(bool(causal)),
+        float(sm_scale), _mode(causal, q, k, v, out),
     ))
     return out, lse
 
@@ -305,6 +341,11 @@ def flash_attention_bwd_dq(
     sm_scale = _default_scale(q, sm_scale)
     if _device_path("flash_attention_bwd_dq", q) == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, out, lse, d_out, causal, sm_scale)
+    return _launch_dq(q, k, v, out, lse, d_out, causal, sm_scale)
+
+
+def _launch_dq(q, k, v, out, lse, d_out, causal: bool, sm_scale: float):
+    """Run the dq kernel; raises on what it does not take."""
     _check_kernel_inputs(q)
     lse = _stat_rows(q, lse)
     q, k, v, out, d_out = _head_dim_contiguous(q, k, v, out, d_out)
@@ -318,7 +359,7 @@ def flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         *_shape_args(q), _stride_array(q, k, v, out, d_out, dq),
-        float(sm_scale), int(bool(causal)),
+        float(sm_scale), _mode(causal),
     ))
     return dq, delta
 
@@ -340,6 +381,11 @@ def flash_attention_bwd_dkv(
     sm_scale = _default_scale(q, sm_scale)
     if _device_path("flash_attention_bwd_dkv", q) == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, lse, delta, d_out, causal, sm_scale)
+    return _launch_dkv(q, k, v, lse, delta, d_out, causal, sm_scale)
+
+
+def _launch_dkv(q, k, v, lse, delta, d_out, causal: bool, sm_scale: float):
+    """Run the dk/dv kernel; raises on what it does not take."""
     _check_kernel_inputs(q)
     lse, delta = _stat_rows(q, lse), _stat_rows(q, delta)
     q, k, v, d_out = _head_dim_contiguous(q, k, v, d_out)
@@ -352,7 +398,7 @@ def flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_shape_args(q), _stride_array(q, k, v, d_out, dk, dv),
-        float(sm_scale), int(bool(causal)),
+        float(sm_scale), _mode(causal, q, k, v, d_out, dk, dv),
     ))
     return dk, dv
 

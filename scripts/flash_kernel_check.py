@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""
+Quick card check of the flash kernels alone, without the serving and
+training phases of ``chip_smoke.py``.
+
+    python3 scripts/flash_kernel_check.py
+
+Builds the kernels, then for each case (contiguous tensors, head slices of
+one wider tensor, views one element into their memory) holds the forward
+and the dk/dv kernel against their plain versions, checks that two dk/dv
+launches agree bit for bit, and prints one JSON row per case with the
+device times (torch.profiler) of both kernels and of
+``scaled_dot_product_attention``. Exits non-zero if a case fails.
+"""
+
+import json
+import math
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+
+F32_TOL, BF16_TOL = 1e-4, 2e-2
+
+# (name, (B, S, H, D), causal, dtype name, layout)
+CASES = [
+    ("served", (8192, 64, 4, 16), True, "float32", "contiguous"),
+    ("train", (32, 64, 4, 16), True, "float32", "contiguous"),
+    ("ragged-16", (2, 37, 2, 16), False, "float32", "contiguous"),
+    ("ragged-16-causal", (3, 130, 2, 16), True, "float32", "contiguous"),
+    ("head-dim-32", (16, 200, 2, 32), True, "float32", "contiguous"),
+    ("head-dim-32-full", (3, 301, 2, 32), False, "float32", "contiguous"),
+    ("served-bf16", (8192, 64, 4, 16), True, "bfloat16", "contiguous"),
+    ("bf16-32", (8, 100, 2, 32), True, "bfloat16", "contiguous"),
+    ("train-misaligned", (32, 64, 4, 16), True, "float32", "misaligned"),
+    ("train-head-slices", (32, 64, 4, 16), True, "float32", "slices"),
+    ("bf16-32-misaligned", (8, 100, 2, 32), True, "bfloat16", "misaligned"),
+    ("bf16-16-misaligned", (8, 100, 2, 16), True, "bfloat16", "misaligned"),
+    ("head-dim-32-slices-full", (4, 77, 2, 32), False, "float32", "slices"),
+    ("head-dim-64", (4, 1000, 2, 64), True, "float32", "contiguous"),
+]
+
+
+def make(torch, gen, shape, dtype, layout):
+    if layout == "slices":
+        wide = torch.randn(shape[:-1] + (3 * shape[-1],), generator=gen, device="cuda")
+        return wide.to(dtype)[..., shape[-1]:2 * shape[-1]]
+    return cs.card_tensor(torch, gen, shape, dtype, layout == "misaligned")
+
+
+def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
+    dtype = getattr(torch, dtype_name)
+    q, k, v, d_out = (make(torch, gen, shape, dtype, layout) for _ in range(4))
+    tol = F32_TOL if dtype_name == "float32" else BF16_TOL
+    scale = 1.0 / math.sqrt(shape[-1])
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    _, ref_delta = fa.flash_attention_bwd_dq_reference(q, k, v, out, lse, d_out, causal, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
+    torch.cuda.synchronize()
+    ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(
+        q, k, v, lse, ref_delta, d_out, causal, scale
+    )
+    qt, kt, vt = (cs.library_view(x) for x in (q, k, v))
+    row = {
+        "case": name,
+        "shape": list(shape),
+        "causal": causal,
+        "dtype": dtype_name,
+        "rows_16b_aligned": fa.rows_16b_aligned(q, k, v),
+        "fwd_err": max((out.float() - ref_out.float()).abs().max().item(),
+                       (lse - ref_lse).abs().max().item()),
+        "dkv_err": max((dk.float() - ref_dk.float()).abs().max().item(),
+                       (dv.float() - ref_dv.float()).abs().max().item()),
+        "dkv_bitwise": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
+        "fwd_ms": cs.device_ms(lambda: fa.flash_attention_forward(q, k, v, causal=causal)),
+        "dkv_ms": cs.device_ms(
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
+        ),
+        "sdpa_ms": cs.device_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        ),
+    }
+    ok = row["fwd_err"] <= tol and row["dkv_err"] <= tol and row["dkv_bitwise"]
+    return row, ok
+
+
+def main() -> int:
+    import torch
+    import torch.nn.functional as F
+
+    from gordo_tpu_torch.ops import _build
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        print("flash_kernel_check: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line(), flush=True)
+    t0 = time.perf_counter()
+    for source, text in _build.build_all(_build.sources()).items():
+        print(f"nvcc {source} ({time.perf_counter() - t0:.1f} s):\n{text.strip()}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    failed = []
+    for case in CASES:
+        row, ok = check(torch, F, fa, gen, *case)
+        print(json.dumps(row), flush=True)
+        if not ok:
+            failed.append(row["case"])
+    print("failed: " + ", ".join(failed) if failed else "all cases passed")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

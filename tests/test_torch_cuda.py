@@ -27,6 +27,7 @@ torch.backends.cudnn.allow_tf32 = False
         ((3, 301, 2, 64), False, torch.float32, 1e-4),
         ((3, 301, 2, 128), True, torch.float32, 1e-4),
         ((8, 100, 2, 32), True, torch.bfloat16, 2e-2),
+        ((8192, 64, 4, 16), True, torch.float32, 1e-4),  # the served shape
     ],
 )
 def test_cuda_kernel_matches_plain_version(shape, causal, dtype, tol):
@@ -51,6 +52,7 @@ def test_cuda_kernel_matches_plain_version(shape, causal, dtype, tol):
         ((3, 301, 2, 64), False, torch.float32, 1e-4),
         ((3, 301, 2, 128), True, torch.float32, 1e-4),
         ((8, 100, 2, 32), True, torch.bfloat16, 2e-2),
+        ((8192, 64, 4, 16), True, torch.float32, 1e-4),  # the served scale
     ],
 )
 def test_cuda_backward_kernels_match_plain_version(shape, causal, dtype, tol):
@@ -70,6 +72,63 @@ def test_cuda_backward_kernels_match_plain_version(shape, causal, dtype, tol):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == shape, name
         assert (g.float() - w.float()).abs().max().item() <= tol, name
+
+
+def _misaligned(shape, dtype, gen):
+    """A (B, S, H, D) view one element into its memory: no row start is
+    16-byte aligned, so the kernels take their element-by-element path."""
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    return torch.randn(n + 1, generator=gen, device="cuda").to(dtype)[1:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,causal,dtype,tol",
+    [
+        ((32, 64, 4, 16), True, torch.float32, 1e-4),
+        ((3, 130, 2, 32), False, torch.float32, 1e-4),
+        ((8, 100, 2, 16), True, torch.bfloat16, 2e-2),
+    ],
+)
+def test_cuda_misaligned_views_match_plain_version(shape, causal, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, d_out = (_misaligned(shape, dtype, gen) for _ in range(4))
+    assert not fa.rows_16b_aligned(q)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    got = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= tol
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - w.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,dtype", [((32, 64, 4, 16), torch.float32), ((8192, 64, 4, 16), torch.float32),
+                    ((8, 100, 2, 32), torch.bfloat16)]
+)
+def test_cuda_kernels_are_deterministic(shape, dtype):
+    """Two launches on the same inputs give bitwise-equal outputs: each
+    output element has one owner, reduced in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, d_out = (
+        torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)
+    )
+    out, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    out2, lse2 = fa.flash_attention_forward(q, k, v, causal=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=True)
+    first = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=True)
+    second = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,111 @@
+"""
+The flash kernels' per-call plan, decided in Python: whether every row of
+every tensor a kernel moves row by row is 16-byte aligned
+(``rows_16b_aligned``), and the ``mode`` bits each wrapper hands its
+kernel. The kernels take the 16-byte path (cp.async staging, vector
+stores) only with ``MODE_VEC16``; any other view goes through the same
+kernel's element-by-element path. The kernels themselves run only on the
+card (tests/test_torch_cuda.py, chip_smoke.py); here a stand-in for the
+launch records the arguments the wrappers pass.
+"""
+
+import pytest
+import torch
+
+from gordo_tpu_torch.ops import flash_attention as fa
+
+SHAPE = (4, 64, 4, 16)
+
+
+def _offset_view(shape, dtype, offset):
+    """A (B, S, H, D) view starting ``offset`` elements into aligned memory."""
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_contiguous_tensors_take_the_16_byte_path(dtype):
+    q = torch.zeros(SHAPE, dtype=dtype)
+    assert q.data_ptr() % 16 == 0
+    assert fa.rows_16b_aligned(q, q.clone(), q.clone())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_slices_of_one_projection_are_aligned(dtype):
+    """The card test's q, k, v: ``wide[..., 16:32]`` views of one tensor,
+    row starts 16 elements apart."""
+    wide = torch.zeros(SHAPE[:3] + (48,), dtype=dtype)
+    q, k, v = wide[..., :16], wide[..., 16:32], wide[..., 32:]
+    assert not k.is_contiguous()
+    assert fa.rows_16b_aligned(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_element_offset_takes_the_scalar_path(dtype):
+    q = torch.zeros(SHAPE, dtype=dtype)
+    shifted = _offset_view(SHAPE, dtype, 1)
+    assert not fa.rows_16b_aligned(shifted)
+    assert not fa.rows_16b_aligned(q, q, shifted)
+
+
+@pytest.mark.parametrize(
+    "dtype,offset,aligned",
+    [
+        (torch.float32, 4, True),  # 16 bytes
+        (torch.float32, 2, False),  # 8 bytes
+        (torch.bfloat16, 8, True),  # bf16's granule: 8 elements, 16 bytes
+        (torch.bfloat16, 4, False),  # 8 bytes
+        (torch.bfloat16, 16, True),
+    ],
+)
+def test_alignment_granule_is_16_bytes(dtype, offset, aligned):
+    assert fa.rows_16b_aligned(_offset_view(SHAPE, dtype, offset)) is aligned
+
+
+@pytest.mark.parametrize("width,aligned", [(20, True), (18, False)])
+def test_row_strides_must_be_16_byte_multiples(width, aligned):
+    """A head stride of 20 floats (80 bytes) keeps every row aligned; one
+    of 18 (72 bytes) does not, though the first row is."""
+    q = torch.zeros(SHAPE[:3] + (width,))[..., :16]
+    assert fa.rows_16b_aligned(q) is aligned
+
+
+def test_mode_bits():
+    q = torch.zeros(SHAPE)
+    shifted = _offset_view(SHAPE, torch.float32, 1)
+    assert fa._mode(True, q) == fa.MODE_CAUSAL | fa.MODE_VEC16
+    assert fa._mode(False, q) == fa.MODE_VEC16
+    assert fa._mode(True, q, shifted) == fa.MODE_CAUSAL
+    # no tensors named: the kernel reads no 16-byte bit (the dq kernel)
+    assert fa._mode(True) == fa.MODE_CAUSAL
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """Stand in for the built kernels: record each launch's arguments."""
+    calls = []
+    monkeypatch.setattr(fa, "_kernel_function", lambda kernel, n_pointers: kernel)
+    monkeypatch.setattr(fa, "_call", lambda kernel, fn, q, args: calls.append((kernel, args)))
+    return calls
+
+
+def _inputs(offset, n=4):
+    return [_offset_view(SHAPE, torch.float32, offset) for _ in range(n)]
+
+
+@pytest.mark.parametrize("offset,vec", [(0, fa.MODE_VEC16), (1, 0)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wrappers_pass_the_plan_to_their_kernels(launches, offset, vec, causal):
+    q, k, v, d_out = _inputs(offset)
+    batch, seq, heads, _ = SHAPE
+    lse = torch.zeros(batch * heads, seq)
+    out, _ = fa._launch(q, k, v, causal, 0.25)
+    fa._launch_dq(q, k, v, out, lse, d_out, causal, 0.25)
+    fa._launch_dkv(q, k, v, lse, lse.clone(), d_out, causal, 0.25)
+    modes = {kernel: args[-1] for kernel, args in launches}
+    causal_bit = fa.MODE_CAUSAL if causal else 0
+    assert modes == {
+        fa.KERNEL: causal_bit | vec,
+        fa.KERNEL_DQ: causal_bit,  # the dq kernel stages element by element
+        fa.KERNEL_DKV: causal_bit | vec,
+    }
