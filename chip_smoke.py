@@ -273,12 +273,15 @@ BACKWARD_CASES = [
     ("train-step-bf16", (BATCH_SIZE, 64, 4, 16), True, "bfloat16"),
     (MISALIGNED, (BATCH_SIZE, 64, 4, 16), True, "float32"),
 ]
+# cases where two dq launches must agree bit for bit (dq and delta)
+BITWISE_CASES = ("train-step", MISALIGNED)
 
 
 def backward_phase(torch, fa):
     """Phase 3, backward: the dq and dk/dv kernels, each against its plain
     version on the same inputs (the dk/dv pair both take the plain
-    delta). The library yardstick is the backward of
+    delta); in ``BITWISE_CASES`` a second dq launch equals the first bit
+    for bit. The library yardstick is the backward of
     ``scaled_dot_product_attention`` through ``torch.autograd.grad``
     (dq, dk and dv together), its forward timed apart and subtracted."""
     import torch.nn.functional as F
@@ -293,6 +296,13 @@ def backward_phase(torch, fa):
         out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
         scale = 1.0 / math.sqrt(shape[-1])
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
+        bitwise = None
+        if name in BITWISE_CASES:
+            dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(dq, dq2) and torch.equal(delta, delta2))
+            if not bitwise:
+                raise AssertionError(f"two dq launches differ: {name}")
         torch.cuda.synchronize()
         ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
             q, k, v, out, lse, d_out, causal, scale
@@ -352,6 +362,7 @@ def backward_phase(torch, fa):
                 "max_abs_err": max(errors[label] for label in outputs),
                 "errors": {label: errors[label] for label in outputs},
                 "tolerance": tol,
+                "bitwise_repeat": bitwise if kernel == fa.KERNEL_DQ else None,
                 "ms": device_ms(run),
                 "call_ms": time_ms(run),
                 "plain_ms": device_ms(plain, reps=5),

@@ -4,11 +4,11 @@
 // memory with a scalar path for unaligned views, and the fixed-order
 // reductions over the four lanes ("quad") that share one row.
 //
-// A quad kernel gives each owned row (a query row in the forward, a key
-// row in dk/dv) to four neighbouring lanes; lane `quad` of the four walks
-// partner rows quad, quad + 4, quad + 8, ... of every staged partner
-// tile, and the four partial results are merged with shuffles in one
-// fixed order, so a launch is deterministic.
+// A quad kernel gives each owned row (a query row in the forward and dq,
+// a key row in dk/dv) to four neighbouring lanes; lane `quad` of the four
+// walks partner rows quad, quad + 4, quad + 8, ... of every staged
+// partner tile, and the four partial results are merged with shuffles in
+// one fixed order, so a launch is deterministic.
 
 #pragma once
 
@@ -46,8 +46,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// four consecutive shared-memory elements as floats (16-byte aligned for
-// float32, 8-byte for bfloat16)
+// four consecutive elements (shared or device memory) as floats, 16-byte
+// aligned for float32, 8-byte for bfloat16
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -180,6 +180,28 @@ __device__ __forceinline__ void quad_reduce_scatter(const float (&x)[N], float (
     const float send = odd ? part[j] : part[j + kQuarter];
     const float keep = odd ? part[j + kQuarter] : part[j];
     out[j] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+  }
+}
+
+// load N consecutive elements of T from device memory as floats: 16-byte
+// (float32) or 8-byte (bfloat16) loads when `vec` and N is a multiple of
+// 4, else element by element
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* p, float (&v)[N], bool vec) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int d = 0; d < N; d += 4) {
+      const float4 x = vec ? load4(p + d)
+                           : make_float4(to_float(p[d]), to_float(p[d + 1]),
+                                         to_float(p[d + 2]), to_float(p[d + 3]));
+      v[d] = x.x;
+      v[d + 1] = x.y;
+      v[d + 2] = x.z;
+      v[d + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < N; ++d) v[d] = to_float(p[d]);
   }
 }
 

@@ -359,7 +359,7 @@ def _launch_dq(q, k, v, out, lse, d_out, causal: bool, sm_scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         *_shape_args(q), _stride_array(q, k, v, out, d_out, dq),
-        float(sm_scale), _mode(causal),
+        float(sm_scale), _mode(causal, q, k, v, out, d_out, dq),
     ))
     return dq, delta
 

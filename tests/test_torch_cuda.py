@@ -124,7 +124,9 @@ def test_cuda_kernels_are_deterministic(shape, dtype):
     out, lse = fa.flash_attention_forward(q, k, v, causal=True)
     out2, lse2 = fa.flash_attention_forward(q, k, v, causal=True)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
-    _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=True)
+    dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=True)
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
     first = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=True)
     second = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=True)
     for a, b in zip(first, second):

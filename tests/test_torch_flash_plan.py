@@ -76,7 +76,7 @@ def test_mode_bits():
     assert fa._mode(True, q) == fa.MODE_CAUSAL | fa.MODE_VEC16
     assert fa._mode(False, q) == fa.MODE_VEC16
     assert fa._mode(True, q, shifted) == fa.MODE_CAUSAL
-    # no tensors named: the kernel reads no 16-byte bit (the dq kernel)
+    # no tensors named: no 16-byte bit
     assert fa._mode(True) == fa.MODE_CAUSAL
 
 
@@ -106,6 +106,25 @@ def test_wrappers_pass_the_plan_to_their_kernels(launches, offset, vec, causal):
     causal_bit = fa.MODE_CAUSAL if causal else 0
     assert modes == {
         fa.KERNEL: causal_bit | vec,
-        fa.KERNEL_DQ: causal_bit,  # the dq kernel stages element by element
+        fa.KERNEL_DQ: causal_bit | vec,
         fa.KERNEL_DKV: causal_bit | vec,
+    }
+
+
+@pytest.mark.parametrize("odd", ["out", "d_out"])
+def test_dq_needs_all_six_row_tensors_aligned(launches, odd):
+    """dq moves q, k, v, out, d_out and dq row by row: one of them one
+    element off takes dq's 16-byte bit away, while the forward, which
+    moves q, k, v and its own output, keeps it."""
+    q, k, v, d_out = _inputs(0)
+    rows = {"out": _offset_view(SHAPE, torch.float32, 0), "d_out": d_out}
+    rows[odd] = _offset_view(SHAPE, torch.float32, 1)
+    batch, seq, heads, _ = SHAPE
+    lse = torch.zeros(batch * heads, seq)
+    fa._launch(q, k, v, True, 0.25)
+    fa._launch_dq(q, k, v, rows["out"], lse, rows["d_out"], True, 0.25)
+    modes = {kernel: args[-1] for kernel, args in launches}
+    assert modes == {
+        fa.KERNEL: fa.MODE_CAUSAL | fa.MODE_VEC16,
+        fa.KERNEL_DQ: fa.MODE_CAUSAL,
     }
