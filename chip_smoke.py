@@ -17,7 +17,8 @@ Phases, each raising on failure (no result line is printed then):
    operations over the type's peak rate, published H100 SXM figures):
    the flash forward, then the dq and dk/dv backward kernels, each also
    on views one element into their memory (no 16-byte aligned row: the
-   kernels' element-by-element path); then the gradient of a loss
+   kernels' element-by-element path), two dq launches bitwise equal at
+   the training shape and on those views; then the gradient of a loss
    through the autograd Function on the card against dense attention's
    on the card;
 4. serving: the ``turbine-9900-transformer`` machine of

@@ -33,24 +33,29 @@
 // no cross-block sum: both kernels are deterministic.
 //
 // dq at head_dim 16 and 32 (flash_bwd_dq_quad_kernel, the model's head
-// sizes) has the forward quad kernel's layout. Blocks of 4 warps own a run
-// of query rows of one (batch, head). Each lane holds R query rows times
-// D/S of their head dims in registers: q (prescaled by sm_scale * log2 e,
-// so one exp2(score - LSE * log2 e) gives a pair's probability), dO and the
-// dq partials, with each row's LSE and delta. delta = rowsum(dO * O) is
-// summed before the key loop, and one lane of the row writes it. A quad
-// of four lanes shares those rows: lane `quad` walks keys quad, quad + 4,
-// ... of each staged 64-key tile, so a lane's serial chain is 16 keys, not
-// 64. Per key a lane reads the value row (for dO.v) and then the key row
-// (for the score and ds.k), so only one of them is live in registers.
-// Key and value tiles are staged in shared memory with 16-byte cp.async
-// copies when every row start of q, k, v, O, dO and dq is 16-byte aligned
-// (mode bit 2), else element by element in the same kernel; the q, dO and
-// O rows go straight to registers, 16 bytes a load under the same bit.
-// Causal blocks stop at their last row's key and each warp at its own last
-// row's, so no warp walks keys the mask drops for all of its rows. The
-// quad's partials are merged once by the fixed-order butterfly
-// reduce-scatter, and each lane stores a quarter of a row's dims.
+// sizes) replaces _bwd_dq_kernel (gordo_tpu/ops/flash_attention.py:176),
+// bound by bytes as above (0.25 ms at the served scale, under 1 us at the
+// training step), with the forward quad kernel's layout. Blocks of 4 warps
+// own a run of query rows of one (batch, head). Each lane holds R query
+// rows times D/S of their head dims in registers: q (prescaled by
+// sm_scale * log2 e, so one exp2(score - LSE * log2 e) gives a pair's
+// probability), dO and the dq partials, with each row's LSE and delta.
+// delta = rowsum(dO * O) is summed before the key loop, and one lane of
+// the row writes it. A quad of four lanes shares those rows: lane `quad`
+// walks keys quad, quad + 4, ... of each staged 64-key tile, so a lane's
+// serial chain is 16 keys, not 64. Per key a lane reads the value row (for
+// dO.v) and then the key row (for the score and ds.k), so only one of
+// them is live in registers. R = 1, S = 1 at head_dim 16 and R = 1, S = 2
+// at 32: the fastest tilings ptxas fits with no spill (117 and 148
+// registers in float32). Key and value tiles are staged in shared memory
+// with 16-byte cp.async copies when every row start of q, k, v, O, dO and
+// dq is 16-byte aligned (mode bit 2), else element by element in the same
+// kernel; the q, dO and O rows go straight to registers, 16 bytes a load
+// under the same bit. Causal blocks stop at their last row's key and each
+// warp at its own last row's, so no warp walks keys the mask drops for
+// all of its rows. The quad's partials are merged once by the fixed-order
+// butterfly reduce-scatter, and each lane stores a quarter of a row's
+// dims.
 //
 // dq at head_dim 64 and 128 (flash_bwd_dq_kernel): one block owns 64 query
 // rows of one (batch, head) and loops over key tiles; q, dO and the dq
@@ -134,8 +139,7 @@ struct Params {
   Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
   int heads;
   int seq;
-  int n_tiles;     // row tiles per (batch, head)
-  int64_t n_units; // (batch*head, row tile) units: batch*heads*n_tiles
+  int n_tiles;  // row tiles per (batch, head)
   float sm_scale;
   int causal;
   int vec;
@@ -505,12 +509,7 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
   }
 }
 
-// dq at head_dim 16 and 32. A unit is one (batch*head, kRows-query tile);
-// a block owns one unit, or with kPaired (sequences of at most one key
-// tile) two consecutive units, warp w taking row block w of the first
-// and row block 3 - w of the second so that under the causal mask every
-// warp walks the same number of keys.
-template <typename T, int D, int R, int S, int kMinBlocks, bool kPaired>
+template <typename T, int D, int R, int S, int kMinBlocks>
 __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
     flash_bwd_dq_quad_kernel(const Params p) {
   constexpr int kDims = D / S;  // head dims a lane holds
@@ -518,159 +517,136 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
   constexpr int kRows = flash::quad_rows<R, S>();
   constexpr int kPitch = D + 16 / sizeof(T);  // padded row: 16-byte aligned, no bank conflicts
   constexpr int kTile = flash::kPartnerTile;
-  constexpr int kUnits = kPaired ? 2 : 1;
-  __shared__ __align__(16) T k_tile[kUnits][kTile * kPitch];
-  __shared__ __align__(16) T v_tile[kUnits][kTile * kPitch];
+  __shared__ __align__(16) T k_tile[kTile * kPitch];
+  __shared__ __align__(16) T v_tile[kTile * kPitch];
 
+  const int bh = blockIdx.x / p.n_tiles;
+  const int qt = blockIdx.x - bh * p.n_tiles;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int part = lane % S;                         // which kDims of each row
   const int quad = (lane / S) & (flash::kQuad - 1);  // which keys of each tile
-  const int group_row = (lane / (flash::kQuad * S)) * R;  // lane's first row in its warp's block
+  const int q0 = qt * kRows;
+  // the lane's rows: row0 + r
+  const int row0 = q0 + warp * kWarpRows + (lane / (flash::kQuad * S)) * R;
   const int seq = p.seq;
   const bool vec = p.vec;
   const float q_scale = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  // keys the block needs, and keys the warp's rows need: all lanes of a
+  // warp walk the same keys, so causal work above a warp's rows is skipped
+  const int k_end = p.causal ? min(seq, q0 + kRows) : seq;
+  const int warp_k_end = p.causal ? min(seq, q0 + warp * kWarpRows + kWarpRows) : seq;
+  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
+  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
 
-  if constexpr (kPaired) {
-    // the sequence fits one key tile: stage both units' keys up front, so
-    // no barrier stands between a warp's two row blocks
+  flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(k_tile, k_head, p.k_st.s, 0, k_end,
+                                                              vec);
+  flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(v_tile, v_head, p.v_st.s, 0, k_end,
+                                                              vec);
+
+  // q (prescaled), dO, the row's LSE in log2 units and delta = rowsum(dO * O);
+  // rows past the sequence end compute on a clamped copy and store nothing
+  float qr[R][kDims];
+  float dor[R][kDims];
+  float acc[R][kDims];
+  float lse2[R];
+  float delta[R];
 #pragma unroll
-    for (int u = 0; u < kUnits; ++u) {
-      const int64_t unit = static_cast<int64_t>(blockIdx.x) * kUnits + u;
-      if (unit >= p.n_units) break;
-      const int bh = static_cast<int>(unit / p.n_tiles);
-      const int b = bh / p.heads;
-      const int h = bh - b * p.heads;
-      const int q0 = static_cast<int>(unit - static_cast<int64_t>(bh) * p.n_tiles) * kRows;
-      const int k_end = p.causal ? min(seq, q0 + kRows) : seq;
-      flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(
-          k_tile[u], row_ptr<T>(p.k, p.k_st, b, 0, h, 0), p.k_st.s, 0, k_end, vec);
-      flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(
-          v_tile[u], row_ptr<T>(p.v, p.v_st, b, 0, h, 0), p.v_st.s, 0, k_end, vec);
+  for (int r = 0; r < R; ++r) {
+    const int qc = min(row0 + r, seq - 1);
+    const int d0 = part * kDims;
+    float orow[kDims];
+    flash::load_row<T, kDims>(row_ptr<T>(p.q, p.q_st, b, qc, h, d0), qr[r], vec);
+    flash::load_row<T, kDims>(row_ptr<T>(p.d_out, p.do_st, b, qc, h, d0), dor[r], vec);
+    flash::load_row<T, kDims>(row_ptr<T>(p.out, p.o_st, b, qc, h, d0), orow, vec);
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) {
+      dot = fmaf(dor[r][d], orow[d], dot);
+      qr[r][d] *= q_scale;
+      acc[r][d] = 0.f;
+    }
+    delta[r] = flash::dim_sum<S>(dot);
+    lse2[r] = p.lse[stat + qc] * flash::kLog2e;
+    if (quad == 0 && part == 0 && row0 + r < seq) p.delta[stat + row0 + r] = delta[r];
+  }
+
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    if (k0 > 0) {
+      __syncthreads();  // every warp is done with the previous tile
+      flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(k_tile, k_head, p.k_st.s, k0,
+                                                                  k_end, vec);
+      flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(v_tile, v_head, p.v_st.s, k0,
+                                                                  k_end, vec);
+    }
+    if (vec) flash::cp_async_wait_all();
+    __syncthreads();
+    // keys quad + 4t of the tile, t < n (uniform across the warp)
+    const int n = min(flash::kPerLane, (warp_k_end - k0 + flash::kQuad - 1) / flash::kQuad);
+#pragma unroll 2
+    for (int t = 0; t < n; ++t) {
+      const int j = quad + t * flash::kQuad;
+      const int kpos = k0 + j;
+      // dO.v first and k after, so only one of the two rows is live at a time
+      float dp[R];
+      {
+        const T* v_row = v_tile + j * kPitch + part * kDims;
+        float4 vv[kDims / 4];
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) vv[c] = flash::load4(v_row + 4 * c);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float4 dp4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int c = 0; c < kDims / 4; ++c) {
+            dp4.x = fmaf(dor[r][4 * c], vv[c].x, dp4.x);
+            dp4.y = fmaf(dor[r][4 * c + 1], vv[c].y, dp4.y);
+            dp4.z = fmaf(dor[r][4 * c + 2], vv[c].z, dp4.z);
+            dp4.w = fmaf(dor[r][4 * c + 3], vv[c].w, dp4.w);
+          }
+          dp[r] = flash::dim_sum<S>((dp4.x + dp4.y) + (dp4.z + dp4.w));
+        }
+      }
+      const T* k_row = k_tile + j * kPitch + part * kDims;
+      float4 kv[kDims / 4];
+#pragma unroll
+      for (int c = 0; c < kDims / 4; ++c) kv[c] = flash::load4(k_row + 4 * c);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) {
+          s4.x = fmaf(qr[r][4 * c], kv[c].x, s4.x);
+          s4.y = fmaf(qr[r][4 * c + 1], kv[c].y, s4.y);
+          s4.z = fmaf(qr[r][4 * c + 2], kv[c].z, s4.z);
+          s4.w = fmaf(qr[r][4 * c + 3], kv[c].w, s4.w);
+        }
+        const float score = flash::dim_sum<S>((s4.x + s4.y) + (s4.z + s4.w));
+        const bool keep = kpos < seq && (!p.causal || kpos <= row0 + r);
+        const float ds = keep ? exp2f(score - lse2[r]) * (dp[r] - delta[r]) : 0.f;
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) {
+          acc[r][4 * c] = fmaf(ds, kv[c].x, acc[r][4 * c]);
+          acc[r][4 * c + 1] = fmaf(ds, kv[c].y, acc[r][4 * c + 1]);
+          acc[r][4 * c + 2] = fmaf(ds, kv[c].z, acc[r][4 * c + 2]);
+          acc[r][4 * c + 3] = fmaf(ds, kv[c].w, acc[r][4 * c + 3]);
+        }
+      }
     }
   }
 
-#pragma unroll 1
-  for (int u = 0; u < kUnits; ++u) {
-    const int64_t unit = static_cast<int64_t>(blockIdx.x) * kUnits + u;
-    if (unit >= p.n_units) break;  // uniform across the block
-    const int bh = static_cast<int>(unit / p.n_tiles);
-    const int b = bh / p.heads;
-    const int h = bh - b * p.heads;
-    const int q0 = static_cast<int>(unit - static_cast<int64_t>(bh) * p.n_tiles) * kRows;
-    const int64_t stat = static_cast<int64_t>(bh) * seq;
-    const int block_row = q0 + (u == 0 ? warp : flash::kQuadWarps - 1 - warp) * kWarpRows;
-    const int row0 = block_row + group_row;  // lane's rows: row0 + r
-    // keys the unit needs, and keys the warp's rows need: all lanes of a
-    // warp walk the same keys, so causal work above a warp's rows is skipped
-    const int k_end = p.causal ? min(seq, q0 + kRows) : seq;
-    const int warp_k_end = p.causal ? min(seq, block_row + kWarpRows) : seq;
-
-    // q (prescaled), dO, the row's LSE in log2 units and delta = rowsum(dO * O);
-    // rows past the sequence end compute on a clamped copy and store nothing
-    float qr[R][kDims];
-    float dor[R][kDims];
-    float acc[R][kDims];
-    float lse2[R];
-    float delta[R];
+  // merge the quad: a quarter of the lane's dims of each row per lane
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int qc = min(row0 + r, seq - 1);
-      const int d0 = part * kDims;
-      float orow[kDims];
-      flash::load_row<T, kDims>(row_ptr<T>(p.q, p.q_st, b, qc, h, d0), qr[r], vec);
-      flash::load_row<T, kDims>(row_ptr<T>(p.d_out, p.do_st, b, qc, h, d0), dor[r], vec);
-      flash::load_row<T, kDims>(row_ptr<T>(p.out, p.o_st, b, qc, h, d0), orow, vec);
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < kDims; ++d) {
-        dot = fmaf(dor[r][d], orow[d], dot);
-        qr[r][d] *= q_scale;
-        acc[r][d] = 0.f;
-      }
-      delta[r] = flash::dim_sum<S>(dot);
-      lse2[r] = p.lse[stat + qc] * flash::kLog2e;
-      if (quad == 0 && part == 0 && row0 + r < seq) p.delta[stat + row0 + r] = delta[r];
-    }
-
-    for (int k0 = 0; k0 < k_end; k0 += kTile) {
-      if constexpr (!kPaired) {
-        if (k0 > 0) __syncthreads();  // every warp is done with the previous tile
-        flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(
-            k_tile[0], row_ptr<T>(p.k, p.k_st, b, 0, h, 0), p.k_st.s, k0, k_end, vec);
-        flash::stage_rows<T, D, kPitch, kTile, flash::kQuadThreads>(
-            v_tile[0], row_ptr<T>(p.v, p.v_st, b, 0, h, 0), p.v_st.s, k0, k_end, vec);
-      }
-      if (!kPaired || u == 0) {
-        if (vec) flash::cp_async_wait_all();
-        __syncthreads();
-      }
-      const T* kt = k_tile[kPaired ? u : 0];
-      const T* vt = v_tile[kPaired ? u : 0];
-      // keys quad + 4t of the tile, t < n (uniform across the warp)
-      const int n = min(flash::kPerLane, (warp_k_end - k0 + flash::kQuad - 1) / flash::kQuad);
-#pragma unroll 2
-      for (int t = 0; t < n; ++t) {
-        const int j = quad + t * flash::kQuad;
-        const int kpos = k0 + j;
-        // dO.v first and k after, so only one of the two rows is live at a time
-        float dp[R];
-        {
-          const T* v_row = vt + j * kPitch + part * kDims;
-          float4 vv[kDims / 4];
-#pragma unroll
-          for (int c = 0; c < kDims / 4; ++c) vv[c] = flash::load4(v_row + 4 * c);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float4 dp4 = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-            for (int c = 0; c < kDims / 4; ++c) {
-              dp4.x = fmaf(dor[r][4 * c], vv[c].x, dp4.x);
-              dp4.y = fmaf(dor[r][4 * c + 1], vv[c].y, dp4.y);
-              dp4.z = fmaf(dor[r][4 * c + 2], vv[c].z, dp4.z);
-              dp4.w = fmaf(dor[r][4 * c + 3], vv[c].w, dp4.w);
-            }
-            dp[r] = flash::dim_sum<S>((dp4.x + dp4.y) + (dp4.z + dp4.w));
-          }
-        }
-        const T* k_row = kt + j * kPitch + part * kDims;
-        float4 kv[kDims / 4];
-#pragma unroll
-        for (int c = 0; c < kDims / 4; ++c) kv[c] = flash::load4(k_row + 4 * c);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-          for (int c = 0; c < kDims / 4; ++c) {
-            s4.x = fmaf(qr[r][4 * c], kv[c].x, s4.x);
-            s4.y = fmaf(qr[r][4 * c + 1], kv[c].y, s4.y);
-            s4.z = fmaf(qr[r][4 * c + 2], kv[c].z, s4.z);
-            s4.w = fmaf(qr[r][4 * c + 3], kv[c].w, s4.w);
-          }
-          const float score = flash::dim_sum<S>((s4.x + s4.y) + (s4.z + s4.w));
-          const bool keep = kpos < seq && (!p.causal || kpos <= row0 + r);
-          const float ds = keep ? exp2f(score - lse2[r]) * (dp[r] - delta[r]) : 0.f;
-#pragma unroll
-          for (int c = 0; c < kDims / 4; ++c) {
-            acc[r][4 * c] = fmaf(ds, kv[c].x, acc[r][4 * c]);
-            acc[r][4 * c + 1] = fmaf(ds, kv[c].y, acc[r][4 * c + 1]);
-            acc[r][4 * c + 2] = fmaf(ds, kv[c].z, acc[r][4 * c + 2]);
-            acc[r][4 * c + 3] = fmaf(ds, kv[c].w, acc[r][4 * c + 3]);
-          }
-        }
-      }
-    }
-
-    // merge the quad: a quarter of the lane's dims of each row per lane
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float dq_out[kDims / 4];
-      flash::quad_reduce_scatter<kDims, S>(acc[r], dq_out, quad);
-      if (row0 + r < seq) {
-        const int d0 = part * kDims + quad * (kDims / 4);
-        flash::store_row<T, kDims / 4>(row_ptr<T>(p.dq, p.dq_st, b, row0 + r, h, d0), dq_out,
-                                       p.sm_scale, vec);
-      }
+  for (int r = 0; r < R; ++r) {
+    float dq_out[kDims / 4];
+    flash::quad_reduce_scatter<kDims, S>(acc[r], dq_out, quad);
+    if (row0 + r < seq) {
+      const int d0 = part * kDims + quad * (kDims / 4);
+      flash::store_row<T, kDims / 4>(row_ptr<T>(p.dq, p.dq_st, b, row0 + r, h, d0), dq_out,
+                                     p.sm_scale, vec);
     }
   }
 }
@@ -685,16 +661,12 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
 #ifndef GORDO_DQ_TILING_32
 #define GORDO_DQ_TILING_32 123
 #endif
-#ifndef GORDO_DQ_PAIRED
-#define GORDO_DQ_PAIRED 0
-#endif
 template <int kDigits>
 struct TilingDigits {
   static constexpr int R = kDigits / 100, S = kDigits / 10 % 10, kMinBlocks = kDigits % 10;
 };
 template <int D>
 using DqTiling = TilingDigits<D == 16 ? GORDO_DQ_TILING_16 : GORDO_DQ_TILING_32>;
-constexpr bool kDqPaired = GORDO_DQ_PAIRED != 0;
 
 // (keys per lane, dim split, minimum blocks per SM) of the dk/dv quad kernel
 template <int D>
@@ -720,23 +692,13 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
     rows = flash::quad_rows<DkvTiling<D>::R, DkvTiling<D>::S>();
   }
   p.n_tiles = (p.seq + rows - 1) / rows;
-  p.n_units = batch_heads * p.n_tiles;
-  const bool paired =
-      W == Which::kDq && kQuadKernel && kDqPaired && p.seq <= flash::kPartnerTile;
-  const int64_t n_blocks = paired ? (p.n_units + 1) / 2 : p.n_units;
+  const int64_t n_blocks = batch_heads * p.n_tiles;
   if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   const unsigned grid = static_cast<unsigned>(n_blocks);
   constexpr int kThreads = kBlockRows * (D / kSlice);
   if constexpr (W == Which::kDq && kQuadKernel) {
     using Tile = DqTiling<D>;
-    if constexpr (kDqPaired) {
-      if (paired) {
-        flash_bwd_dq_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks, true>
-            <<<grid, flash::kQuadThreads, 0, stream>>>(p);
-        return static_cast<int>(cudaGetLastError());
-      }
-    }
-    flash_bwd_dq_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks, false>
+    flash_bwd_dq_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
         <<<grid, flash::kQuadThreads, 0, stream>>>(p);
   } else if constexpr (W == Which::kDq) {
     flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);

@@ -183,25 +183,21 @@ __device__ __forceinline__ void quad_reduce_scatter(const float (&x)[N], float (
   }
 }
 
-// load N consecutive elements of T from device memory as floats: 16-byte
-// (float32) or 8-byte (bfloat16) loads when `vec` and N is a multiple of
-// 4, else element by element
+// load N consecutive elements of T (N a multiple of 4) from device memory
+// as floats: 16-byte (float32) or 8-byte (bfloat16) loads when `vec`,
+// else element by element
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const T* p, float (&v)[N], bool vec) {
-  if constexpr (N % 4 == 0) {
+  static_assert(N % 4 == 0, "rows are loaded four elements at a time");
 #pragma unroll
-    for (int d = 0; d < N; d += 4) {
-      const float4 x = vec ? load4(p + d)
-                           : make_float4(to_float(p[d]), to_float(p[d + 1]),
-                                         to_float(p[d + 2]), to_float(p[d + 3]));
-      v[d] = x.x;
-      v[d + 1] = x.y;
-      v[d + 2] = x.z;
-      v[d + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int d = 0; d < N; ++d) v[d] = to_float(p[d]);
+  for (int d = 0; d < N; d += 4) {
+    const float4 x = vec ? load4(p + d)
+                         : make_float4(to_float(p[d]), to_float(p[d + 1]), to_float(p[d + 2]),
+                                       to_float(p[d + 3]));
+    v[d] = x.x;
+    v[d + 1] = x.y;
+    v[d + 2] = x.z;
+    v[d + 3] = x.w;
   }
 }
 

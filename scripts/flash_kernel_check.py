@@ -14,8 +14,8 @@ three kernels and of ``scaled_dot_product_attention``. Exits non-zero if
 a case fails.
 
 ``--dq-variants`` then rebuilds ``csrc/flash_attention_bwd.cu`` with each
-tiling and pairing of ``DQ_VARIANTS`` (``-D`` flags; the shipped build is
-the first), prints each build's ptxas lines for the dq quad kernel,
+dq tiling of ``DQ_VARIANTS`` (``-D`` flags; the shipped build is the
+first), prints each build's ptxas lines for the dq quad kernel,
 checks each variant as above at ``DQ_CASES`` and times its dq there, the
 variants in turns, ``DQ_ROUNDS`` rounds.
 """
@@ -62,8 +62,6 @@ DQ_VARIANTS = [
     ("16:224", ("-DGORDO_DQ_TILING_16=224",)),
     ("32:223", ("-DGORDO_DQ_TILING_32=223",)),
     ("32:124", ("-DGORDO_DQ_TILING_32=124",)),
-    ("shipped, paired", ("-DGORDO_DQ_PAIRED=1",)),
-    ("16:213, paired", ("-DGORDO_DQ_TILING_16=213", "-DGORDO_DQ_PAIRED=1")),
 ]
 DQ_CASES = [
     ("train", (32, 64, 4, 16), True, "float32", "contiguous"),
@@ -154,12 +152,12 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
 
 def dq_ptxas_lines(text):
     """One line per dq quad kernel instantiation in nvcc's ``-Xptxas -v``
-    output: its mangled template arguments (type, D, R, S, minimum blocks,
-    paired), registers, shared memory and spills."""
+    output: its mangled template arguments (type, D, R, S, minimum blocks),
+    registers, shared memory and spills."""
     lines = text.splitlines()
     keep = []
     for i, line in enumerate(lines):
-        match = re.search(r"flash_bwd_dq_quad_kernelI(\w+?)EEvNS", line)
+        match = re.search(r"flash_bwd_dq_quad_kernelI(\w+?)EvNS", line)
         if "Compiling entry function" in line and match:
             used = lines[i + 3].split(":", 1)[1].strip()
             keep.append(f"  {match.group(1)}: {used}; {lines[i + 2].strip()}")
