@@ -137,22 +137,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3, tries: int = 3) -> float:
     """Device milliseconds per call of ``fn``: the device time of every
     kernel its ``reps`` calls launched (torch.profiler), over ``reps``.
     Unlike CUDA events around a call, the host's gaps between launches do
-    not count, so a small kernel's own time shows."""
+    not count, so a small kernel's own time shows. Now and then a trace
+    misses some or all of its kernels (a kernel's count is then not a
+    multiple of ``reps``); it is taken again, up to ``tries`` times, and
+    then the time is ``time_ms``'s, which counts those gaps too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return kernel_rows(prof)[1] / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows, total_us = kernel_rows(prof)
+        if total_us > 0 and all(row["count"] % reps == 0 for row in rows):
+            return total_us / 1e3 / reps
+    print(f"device_ms: {tries} incomplete traces, timing with CUDA events", file=sys.stderr)
+    return time_ms(fn, reps, warmup=0)
 
 
 def attention_bound(shape, causal: bool, dtype_name: str, elem_bytes: int,

@@ -651,22 +651,18 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
   }
 }
 
-// The dq quad kernel's tiling at head_dim 16 and 32 as three digits: rows
-// per lane R, dim split S, minimum blocks per SM. The defaults below are
-// the shipped ones; scripts/flash_kernel_check.py --dq-variants rebuilds
-// this file with others (-D flags) to compare them on the card.
-#ifndef GORDO_DQ_TILING_16
-#define GORDO_DQ_TILING_16 114
-#endif
-#ifndef GORDO_DQ_TILING_32
-#define GORDO_DQ_TILING_32 123
-#endif
-template <int kDigits>
-struct TilingDigits {
-  static constexpr int R = kDigits / 100, S = kDigits / 10 % 10, kMinBlocks = kDigits % 10;
-};
+// (query rows per lane, dim split, minimum blocks per SM) of the dq quad
+// kernel: one row per lane is the fastest tiling ptxas fits without a spill
 template <int D>
-using DqTiling = TilingDigits<D == 16 ? GORDO_DQ_TILING_16 : GORDO_DQ_TILING_32>;
+struct DqTiling;
+template <>
+struct DqTiling<16> {
+  static constexpr int R = 1, S = 1, kMinBlocks = 4;
+};
+template <>
+struct DqTiling<32> {
+  static constexpr int R = 1, S = 2, kMinBlocks = 3;
+};
 
 // (keys per lane, dim split, minimum blocks per SM) of the dk/dv quad kernel
 template <int D>

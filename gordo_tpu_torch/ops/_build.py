@@ -21,7 +21,7 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -66,32 +66,29 @@ def sources() -> List[str]:
     return sorted(path.stem for path in CSRC_DIR.glob("*.cu"))
 
 
-def library_path(name: str, defines: Sequence[str] = ()) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` (with the extra
-    ``-D`` flags ``defines``) lives."""
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
     digest = hashlib.sha256()
     for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(path.read_bytes())
-    digest.update(" ".join((*NVCC_FLAGS, *defines)).encode())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str, defines: Sequence[str] = ()) -> Tuple[Path, str]:
+def build(name: str) -> Tuple[Path, str]:
     """
     Compile ``csrc/<name>.cu`` unless its library already exists; returns
-    (library path, compiler output). ``defines`` are extra ``-D`` flags
-    (``scripts/flash_kernel_check.py`` builds variants of a kernel with
-    them); the port loads only the plain build. The library is written
-    under a temporary name and renamed into place, so a concurrent loader
-    never sees a partial file.
+    (library path, compiler output). The library is written under a
+    temporary name and renamed into place, so a concurrent loader never
+    sees a partial file.
     """
-    target = library_path(name, defines)
+    target = library_path(name)
     if target.is_file():
         return target, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}-", suffix=".so")
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

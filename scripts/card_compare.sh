@@ -1,0 +1,43 @@
+#!/usr/bin/env bash
+# Times a parent tree of the port against a changed tree on one card, in
+# turns (parent, change, change, parent), so both see the same host and card.
+#
+#   rm -rf _checkout && mkdir -p _checkout/parent _checkout/change
+#   git archive <parent commit> | tar -x -C _checkout/parent
+#   git add -A && git archive "$(git write-tree)" | tar -x -C _checkout/change
+#   # then, from the repo root on the host with the card (~10 minutes):
+#   bash scripts/card_compare.sh _checkout/parent _checkout/change <out dir>
+#
+# Each tree is a checkout of the repo (for example a `git archive`). Writes
+# <out>/{parent1,change1,change2,parent2}.{json,log} from
+# `chip_smoke.py --out` and <out>/{parent,change}_kernel_check.txt from
+# `scripts/flash_kernel_check.py`, then runs the change's card tests.
+# Prints the card's name and power limit, each run's exit code and the
+# tail of its log. Exits non-zero if any run failed.
+set -u
+parent=$(realpath "$1")
+change=$(realpath "$2")
+out=$(realpath -m "$3")
+mkdir -p "$out"
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+python3 -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda)'
+status=0
+for run in "parent1:$parent" "change1:$change" "change2:$change" "parent2:$parent"; do
+  label=${run%%:*}
+  (cd "${run#*:}" && python3 chip_smoke.py --out "$out/$label.json") >"$out/$label.log" 2>&1
+  rc=$?
+  echo "$label rc=$rc"
+  tail -n 3 "$out/$label.log"
+  [ "$rc" -eq 0 ] || status=1
+done
+for run in "parent:$parent" "change:$change"; do
+  label=${run%%:*}
+  (cd "${run#*:}" && python3 scripts/flash_kernel_check.py) >"$out/${label}_kernel_check.txt" 2>&1
+  rc=$?
+  echo "$label kernel check rc=$rc"
+  tail -n 1 "$out/${label}_kernel_check.txt"
+  [ "$rc" -eq 0 ] || status=1
+done
+(cd "$change" && python3 -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py) 2>&1 | tail -n 2
+[ "${PIPESTATUS[0]}" -eq 0 ] || status=1
+exit "$status"

@@ -3,7 +3,7 @@
 Quick card check of the flash kernels alone, without the serving and
 training phases of ``chip_smoke.py``.
 
-    python3 scripts/flash_kernel_check.py [--dq-variants]
+    python3 scripts/flash_kernel_check.py
 
 Builds the kernels, then for each case (contiguous tensors, head slices of
 one wider tensor, views one element into their memory) holds the forward,
@@ -12,20 +12,11 @@ dq launches (dq and delta) and two dk/dv launches agree bit for bit, and
 prints one JSON row per case with the device times (torch.profiler) of the
 three kernels and of ``scaled_dot_product_attention``. Exits non-zero if
 a case fails.
-
-``--dq-variants`` then rebuilds ``csrc/flash_attention_bwd.cu`` with each
-dq tiling of ``DQ_VARIANTS`` (``-D`` flags; the shipped build is the
-first), prints each build's ptxas lines for the dq quad kernel,
-checks each variant as above at ``DQ_CASES`` and times its dq there, the
-variants in turns, ``DQ_ROUNDS`` rounds.
 """
 
-import argparse
-import ctypes
 import json
 import math
 import os
-import re
 import sys
 import time
 
@@ -53,28 +44,6 @@ CASES = [
     ("head-dim-64", (4, 1000, 2, 64), True, "float32", "contiguous"),
 ]
 
-# dq quad kernel builds: (label, nvcc -D flags). The tiling is three digits
-# (rows per lane, dim split, minimum blocks per SM) at head_dim 16 and 32.
-DQ_VARIANTS = [
-    ("shipped", ()),
-    ("16:213", ("-DGORDO_DQ_TILING_16=213",)),
-    ("16:214", ("-DGORDO_DQ_TILING_16=214",)),
-    ("16:224", ("-DGORDO_DQ_TILING_16=224",)),
-    ("32:223", ("-DGORDO_DQ_TILING_32=223",)),
-    ("32:124", ("-DGORDO_DQ_TILING_32=124",)),
-]
-DQ_CASES = [
-    ("train", (32, 64, 4, 16), True, "float32", "contiguous"),
-    ("served", (8192, 64, 4, 16), True, "float32", "contiguous"),
-    ("head-dim-32", (16, 200, 2, 32), True, "float32", "contiguous"),
-    ("head-dim-32-full", (3, 301, 2, 32), False, "float32", "contiguous"),
-    ("bf16-32", (8, 100, 2, 32), True, "bfloat16", "contiguous"),
-    ("train-bf16", (32, 64, 4, 16), True, "bfloat16", "contiguous"),
-    ("train-misaligned", (32, 64, 4, 16), True, "float32", "misaligned"),
-    ("ragged-16-causal", (3, 130, 2, 16), True, "float32", "contiguous"),
-]
-DQ_ROUNDS = 2
-
 
 def make(torch, gen, shape, dtype, layout):
     if layout == "slices":
@@ -87,35 +56,19 @@ def max_err(pairs):
     return max((got.float() - want.float()).abs().max().item() for got, want in pairs)
 
 
-def inputs(torch, fa, gen, shape, causal, dtype_name, layout):
-    """q, k, v, dO, the forward's (out, lse) and the plain dq and delta."""
+def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
     dtype = getattr(torch, dtype_name)
     q, k, v, d_out = (make(torch, gen, shape, dtype, layout) for _ in range(4))
-    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
-        q, k, v, out, lse, d_out, causal, 1.0 / math.sqrt(shape[-1])
-    )
-    return q, k, v, d_out, out, lse, ref_dq, ref_delta
-
-
-def check_dq(torch, fa, q, k, v, d_out, out, lse, causal, ref_dq, ref_delta):
-    """(max error of dq and delta, whether two launches agree bit for bit)."""
-    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
-    dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
-    torch.cuda.synchronize()
-    err = max_err([(dq, ref_dq), (delta, ref_delta)])
-    return err, bool(torch.equal(dq, dq2) and torch.equal(delta, delta2))
-
-
-def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
-    q, k, v, d_out, out, lse, ref_dq, ref_delta = inputs(
-        torch, fa, gen, shape, causal, dtype_name, layout
-    )
     tol = F32_TOL if dtype_name == "float32" else BF16_TOL
     scale = 1.0 / math.sqrt(shape[-1])
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
-    dq_err, dq_bitwise = check_dq(torch, fa, q, k, v, d_out, out, lse, causal, ref_dq, ref_delta)
+    ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
+        q, k, v, out, lse, d_out, causal, scale
+    )
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
+    dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
     torch.cuda.synchronize()
@@ -130,8 +83,8 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
         "dtype": dtype_name,
         "rows_16b_aligned": fa.rows_16b_aligned(q, k, v),
         "fwd_err": max_err([(out, ref_out), (lse, ref_lse)]),
-        "dq_err": dq_err,
-        "dq_bitwise": dq_bitwise,
+        "dq_err": max_err([(dq, ref_dq), (delta, ref_delta)]),
+        "dq_bitwise": bool(torch.equal(dq, dq2) and torch.equal(delta, delta2)),
         "dkv_err": max_err([(dk, ref_dk), (dv, ref_dv)]),
         "dkv_bitwise": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
         "fwd_ms": cs.device_ms(lambda: fa.flash_attention_forward(q, k, v, causal=causal)),
@@ -150,73 +103,7 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
     return row, ok
 
 
-def dq_ptxas_lines(text):
-    """One line per dq quad kernel instantiation in nvcc's ``-Xptxas -v``
-    output: its mangled template arguments (type, D, R, S, minimum blocks),
-    registers, shared memory and spills."""
-    lines = text.splitlines()
-    keep = []
-    for i, line in enumerate(lines):
-        match = re.search(r"flash_bwd_dq_quad_kernelI(\w+?)EvNS", line)
-        if "Compiling entry function" in line and match:
-            used = lines[i + 3].split(":", 1)[1].strip()
-            keep.append(f"  {match.group(1)}: {used}; {lines[i + 2].strip()}")
-    return "\n".join(keep)
-
-
-def dq_variants(torch, fa, _build, gen, shipped_nvcc_output):
-    """Each variant of DQ_VARIANTS checked and timed at DQ_CASES; returns
-    the failed (variant, case) labels."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    source = fa.SOURCES[fa.KERNEL_DQ]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(DQ_VARIANTS)) as pool:
-        built = list(pool.map(lambda v: _build.build(source, v[1]), DQ_VARIANTS))
-    print(f"dq variants built in {time.perf_counter() - t0:.1f} s", flush=True)
-    libraries = {}
-    for (label, _), (path, text) in zip(DQ_VARIANTS, built):
-        print(f"ptxas, dq variant {label}:\n{dq_ptxas_lines(text or shipped_nvcc_output)}",
-              flush=True)
-        libraries[label] = ctypes.CDLL(str(path))
-    plain = _build.load(source)
-    failed = []
-    try:
-        for name, shape, causal, dtype_name, layout in DQ_CASES:
-            tol = F32_TOL if dtype_name == "float32" else BF16_TOL
-            q, k, v, d_out, out, lse, ref_dq, ref_delta = inputs(
-                torch, fa, gen, shape, causal, dtype_name, layout
-            )
-
-            def run():
-                return fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
-
-            times = {label: [] for label in libraries}
-            for round_ in range(DQ_ROUNDS):
-                order = list(libraries) if round_ % 2 == 0 else list(reversed(libraries))
-                for label in order:
-                    _build._loaded[source] = libraries[label]
-                    if round_ == 0:
-                        err, bitwise = check_dq(torch, fa, q, k, v, d_out, out, lse, causal,
-                                                ref_dq, ref_delta)
-                        if not (err <= tol and bitwise):
-                            failed.append(f"{label} / {name}")
-                        print(json.dumps({"dq_variant": label, "case": name, "dq_err": err,
-                                          "dq_bitwise": bitwise}), flush=True)
-                    times[label].append(cs.device_ms(run))
-            print(json.dumps({"case": name, "shape": list(shape), "dtype": dtype_name,
-                              "layout": layout, "dq_ms_by_variant": times}), flush=True)
-    finally:
-        _build._loaded[source] = plain
-    return failed
-
-
 def main() -> int:
-    parser = argparse.ArgumentParser(description="Card check of the flash kernels alone")
-    parser.add_argument("--dq-variants", action="store_true",
-                        help="also build, check and time the dq kernel's DQ_VARIANTS")
-    args = parser.parse_args()
-
     import torch
     import torch.nn.functional as F
 
@@ -229,8 +116,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
     t0 = time.perf_counter()
-    nvcc_output = _build.build_all(_build.sources())
-    for source, text in nvcc_output.items():
+    for source, text in _build.build_all(_build.sources()).items():
         print(f"nvcc {source} ({time.perf_counter() - t0:.1f} s):\n{text.strip()}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     failed = []
@@ -239,8 +125,6 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         if not ok:
             failed.append(row["case"])
-    if args.dq_variants:
-        failed += dq_variants(torch, fa, _build, gen, nvcc_output[fa.SOURCES[fa.KERNEL_DQ]])
     print("failed: " + ", ".join(failed) if failed else "all cases passed")
     return 1 if failed else 0
 
