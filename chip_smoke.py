@@ -41,7 +41,21 @@ Phases, each raising on failure (no result line is printed then):
    over HTTP; one full-width training step on the card against the same
    step on the CPU; step time, steps/s, CV and fit seconds (with
    ``--profile``, a ``torch.profiler`` breakdown of 20 training steps);
-6. one JSON line of per-kernel numbers, then the result line.
+6. default pipeline: ``examples/config.yaml``'s ``pump-4130`` and
+   ``compressor-2201`` (MinMaxScaler + feedforward hourglass AutoEncoder,
+   1 epoch, batch 32, full width and span, no cut) each built by
+   ``python -m gordo_tpu_torch.cli build`` in a subprocess on the card
+   from its normalized JSON (fetch and resample, CV and thresholds, fit,
+   artifact); its row count held to the JAX data layer's (766, 10 975),
+   its fit on the card; the artifact served over HTTP on the card with the
+   machine's first 144 rows and all its rows, medians of 5, each reply
+   within 1e-5 of the same request on the CPU; fetch, CV and fit seconds
+   and steps/s (with ``--profile``, one fit traced: its device idle
+   share); no flash kernel launches on this path;
+7. one JSON line of per-kernel numbers, each time with the timer that
+   took it (``"profiler"``: device time; ``"events"``: CUDA events around
+   the calls, host gaps included, taken when three traces came back
+   incomplete), then the result line.
 
 Exits non-zero without a result line when no CUDA card is available.
 """
@@ -102,6 +116,86 @@ TRAIN_EPOCHS = 5
 TIMED_STEPS = 50
 PROFILED_STEPS = 20
 
+# examples/config.yaml's two default-pipeline machines (MinMaxScaler +
+# feedforward_hourglass AutoEncoder) as the workflow passes them to
+# `build`: the JSON of gordo_tpu.workflow's NormalizedConfig, which
+# tests/test_torch_cli.py pins; JSON, since the card's machine reads no YAML
+DEFAULT_MACHINES = json.loads(r"""{
+ "pump-4130": {
+  "name": "pump-4130",
+  "dataset": {"train_start_date": "2019-01-01T00:00:00+00:00",
+   "train_end_date": "2019-06-01T00:00:00+00:00", "tag_list": ["GRA-PUMP-TEMP 1",
+   "GRA-PUMP-PRES 2", "GRA-PUMP-FLOW 3"], "target_tag_list": ["GRA-PUMP-TEMP 1",
+   "GRA-PUMP-PRES 2", "GRA-PUMP-FLOW 3"], "data_provider": null, "resolution": "10T",
+   "row_filter": "", "aggregation_methods": "mean", "row_filter_buffer_size": 0,
+   "asset": null, "default_asset": null, "n_samples_threshold": 0, "low_threshold": -1000,
+   "high_threshold": 50000, "interpolation_method": "linear_interpolation",
+   "interpolation_limit": "8H", "filter_periods": {}, "type": "TimeSeriesDataset"},
+  "model": {"gordo_tpu.models.anomaly.DiffBasedAnomalyDetector": {"base_estimator":
+   {"sklearn.pipeline.Pipeline": {"steps": ["sklearn.preprocessing.MinMaxScaler",
+   {"gordo_tpu.models.AutoEncoder": {"kind": "feedforward_hourglass"}}]}}}},
+  "metadata": {"user_defined": {"global-metadata": {}, "machine-metadata": {}},
+   "build_metadata": {"model": {"model_offset": 0, "model_creation_date": null,
+   "model_builder_version": "0.1.0", "cross_validation": {"scores": {},
+   "cv_duration_sec": null, "splits": {}}, "model_training_duration_sec": null,
+   "model_meta": {}}, "dataset": {"query_duration_sec": null, "dataset_meta": {}}}},
+  "runtime": {"reporters": [], "server": {"resources": {"requests": {"memory": 1700,
+   "cpu": 2000}, "limits": {"memory": 2000, "cpu": 2000}}},
+   "prometheus_metrics_server": {"resources": {"requests": {"memory": 200, "cpu": 100},
+   "limits": {"memory": 1000, "cpu": 200}}},
+   "builder": {"resources": {"requests": {"memory": 4000, "cpu": 2000},
+   "limits": {"memory": 4000, "cpu": 2000}}, "remote_logging": {"enable": false},
+   "machines_per_pod": 30, "tpu": {"enable": false, "accelerator": "v5litepod-16"}},
+   "client": {"resources": {"requests": {"memory": 3500, "cpu": 100},
+   "limits": {"memory": 4000, "cpu": 2000}}, "max_instances": 30},
+   "influx": {"enable": true, "resources": {"requests": {"memory": 3660, "cpu": 530},
+   "limits": {"memory": 3660, "cpu": 10060}}}},
+  "project_name": "plant-a-anomaly",
+  "evaluation": {"cv_mode": "full_build",
+   "scoring_scaler": "sklearn.preprocessing.RobustScaler",
+   "metrics": ["explained_variance_score", "r2_score", "mean_squared_error",
+   "mean_absolute_error"]}
+ },
+ "compressor-2201": {
+  "name": "compressor-2201",
+  "dataset": {"train_start_date": "2019-02-01T00:00:00+00:00",
+   "train_end_date": "2019-07-01T00:00:00+00:00", "tag_list": ["GRA-COMP-TEMP 1",
+   "GRA-COMP-VIB 2"], "target_tag_list": ["GRA-COMP-TEMP 1", "GRA-COMP-VIB 2"],
+   "data_provider": null, "resolution": "2T", "row_filter": "",
+   "aggregation_methods": "mean", "row_filter_buffer_size": 0, "asset": null,
+   "default_asset": null, "n_samples_threshold": 0, "low_threshold": -1000,
+   "high_threshold": 50000, "interpolation_method": "linear_interpolation",
+   "interpolation_limit": "8H", "filter_periods": {}, "type": "TimeSeriesDataset"},
+  "model": {"gordo_tpu.models.anomaly.DiffBasedAnomalyDetector": {"base_estimator":
+   {"sklearn.pipeline.Pipeline": {"steps": ["sklearn.preprocessing.MinMaxScaler",
+   {"gordo_tpu.models.AutoEncoder": {"kind": "feedforward_hourglass"}}]}}}},
+  "metadata": {"user_defined": {"global-metadata": {}, "machine-metadata": {}},
+   "build_metadata": {"model": {"model_offset": 0, "model_creation_date": null,
+   "model_builder_version": "0.1.0", "cross_validation": {"scores": {},
+   "cv_duration_sec": null, "splits": {}}, "model_training_duration_sec": null,
+   "model_meta": {}}, "dataset": {"query_duration_sec": null, "dataset_meta": {}}}},
+  "runtime": {"reporters": [], "server": {"resources": {"requests": {"memory": 1700,
+   "cpu": 2000}, "limits": {"memory": 2000, "cpu": 2000}}},
+   "prometheus_metrics_server": {"resources": {"requests": {"memory": 200, "cpu": 100},
+   "limits": {"memory": 1000, "cpu": 200}}},
+   "builder": {"resources": {"requests": {"memory": 1000, "cpu": 2000},
+   "limits": {"memory": 4000, "cpu": 2000}}, "remote_logging": {"enable": false},
+   "machines_per_pod": 30, "tpu": {"enable": false, "accelerator": "v5litepod-16"}},
+   "client": {"resources": {"requests": {"memory": 3500, "cpu": 100},
+   "limits": {"memory": 4000, "cpu": 2000}}, "max_instances": 30},
+   "influx": {"enable": false, "resources": {"requests": {"memory": 3660, "cpu": 530},
+   "limits": {"memory": 3660, "cpu": 10060}}}},
+  "project_name": "plant-a-anomaly",
+  "evaluation": {"cv_mode": "full_build",
+   "scoring_scaler": "sklearn.preprocessing.RobustScaler",
+   "metrics": ["explained_variance_score", "r2_score", "mean_squared_error",
+   "mean_absolute_error"]}
+ }
+}""")
+# rows the JAX data layer gives each machine (tests/test_torch_data.py)
+DEFAULT_ROWS = {"pump-4130": 766, "compressor-2201": 10975}
+DEFAULT_COLLECTION = "1700000000002"
+
 
 def log(*parts) -> None:
     print(*parts, flush=True)
@@ -137,14 +231,16 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3, tries: int = 3) -> float:
-    """Device milliseconds per call of ``fn``: the device time of every
-    kernel its ``reps`` calls launched (torch.profiler), over ``reps``.
-    Unlike CUDA events around a call, the host's gaps between launches do
-    not count, so a small kernel's own time shows. Now and then a trace
-    misses some or all of its kernels (a kernel's count is then not a
-    multiple of ``reps``); it is taken again, up to ``tries`` times, and
-    then the time is ``time_ms``'s, which counts those gaps too."""
+def device_ms(fn, reps: int = 20, warmup: int = 3, tries: int = 3):
+    """(milliseconds per call of ``fn``, the timer that measured them).
+    With ``"profiler"``: the device time of every kernel its ``reps``
+    calls launched (torch.profiler), over ``reps``; unlike CUDA events
+    around a call, the host's gaps between launches do not count, so a
+    small kernel's own time shows. Now and then a trace misses some or all
+    of its kernels (a kernel's count is then not a multiple of ``reps``);
+    it is taken again, up to ``tries`` times, and then the time is
+    ``time_ms``'s, named ``"events"``: it counts those gaps too, so it is
+    not a device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,9 +254,9 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, tries: int = 3) -> float:
             torch.cuda.synchronize()
         rows, total_us = kernel_rows(prof)
         if total_us > 0 and all(row["count"] % reps == 0 for row in rows):
-            return total_us / 1e3 / reps
+            return total_us / 1e3 / reps, "profiler"
     print(f"device_ms: {tries} incomplete traces, timing with CUDA events", file=sys.stderr)
-    return time_ms(fn, reps, warmup=0)
+    return time_ms(fn, reps, warmup=0), "events"
 
 
 def attention_bound(shape, causal: bool, dtype_name: str, elem_bytes: int,
@@ -236,11 +332,11 @@ def kernel_phase(torch, fa):
             return fa.flash_attention_forward(q, k, v, causal=causal)
 
         qt, kt, vt = (library_view(x) for x in (q, k, v))
-        ms, call_ms = device_ms(run), time_ms(run)
-        plain_ms = device_ms(
+        (ms, ms_timer), call_ms = device_ms(run), time_ms(run)
+        plain_ms, plain_timer = device_ms(
             lambda: fa.flash_attention_reference(q, k, v, causal=causal), reps=5
         )
-        library_ms = device_ms(
+        library_ms, library_timer = device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         )
         bound_ms, bound_by = attention_bound(
@@ -256,9 +352,12 @@ def kernel_phase(torch, fa):
             "max_abs_err_lse": err_lse,
             "tolerance": tol,
             "ms": ms,
+            "ms_timer": ms_timer,
             "call_ms": call_ms,
             "plain_ms": plain_ms,
+            "plain_ms_timer": plain_timer,
             "library_ms": library_ms,
+            "library_ms_timer": library_timer,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
@@ -342,7 +441,11 @@ def backward_phase(torch, fa):
         def sdpa_forward_backward():
             torch.autograd.grad(sdpa_forward(), (qt, kt, vt), d_out_t)
 
-        library_ms = device_ms(sdpa_forward_backward) - device_ms(sdpa_forward)
+        (both_ms, both_timer), (forward_ms, forward_timer) = (
+            device_ms(sdpa_forward_backward), device_ms(sdpa_forward)
+        )
+        library_ms = both_ms - forward_ms
+        library_timer = "profiler" if both_timer == forward_timer == "profiler" else "events"
         timings = {
             fa.KERNEL_DQ: (
                 lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal),
@@ -361,6 +464,7 @@ def backward_phase(torch, fa):
             bound_ms, bound_by = attention_bound(
                 shape, causal, dtype_name, q.element_size(), n_tensors=6, n_stats=2, dots=dots
             )
+            (ms, ms_timer), (plain_ms, plain_timer) = device_ms(run), device_ms(plain, reps=5)
             row = {
                 "kernel": kernel,
                 "case": name,
@@ -372,10 +476,13 @@ def backward_phase(torch, fa):
                 "errors": {label: errors[label] for label in outputs},
                 "tolerance": tol,
                 "bitwise_repeat": bitwise if kernel == fa.KERNEL_DQ else None,
-                "ms": device_ms(run),
+                "ms": ms,
+                "ms_timer": ms_timer,
                 "call_ms": time_ms(run),
-                "plain_ms": device_ms(plain, reps=5),
+                "plain_ms": plain_ms,
+                "plain_ms_timer": plain_timer,
                 "library_ms": library_ms,
+                "library_ms_timer": library_timer,
                 "library_call": "scaled_dot_product_attention backward (dq, dk, dv)",
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
@@ -473,9 +580,9 @@ def post(url: str, payload: bytes):
 
 
 @contextlib.contextmanager
-def http_server(collection: str):
+def http_server(collection: str, machine: str = MACHINE):
     """The port's server over ``collection`` on the card, on a free local
-    port, for the ``with`` block; yields the machine's base URL."""
+    port, for the ``with`` block; yields ``machine``'s base URL."""
     from gordo_tpu_torch.server.app import build_app
     from gordo_tpu_torch.server.runner import make_http_server
 
@@ -484,7 +591,7 @@ def http_server(collection: str):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        yield f"http://127.0.0.1:{server.server_port}/gordo/v0/{PROJECT}/{MACHINE}"
+        yield f"http://127.0.0.1:{server.server_port}/gordo/v0/{PROJECT}/{machine}"
     finally:
         server.shutdown()
         server.server_close()
@@ -938,6 +1045,211 @@ def time_train_steps(torch, X, base, profile: bool):
     return timing
 
 
+def default_pipeline_phase(torch, fa, profile: bool):
+    """Phase 6: each default-pipeline machine built by the port's CLI on
+    the card (``python -m gordo_tpu_torch.cli build``, ``MACHINE`` its
+    normalized JSON: fetch and resample, TimeSeriesSplit(3) CV and
+    thresholds, fit, artifact), its row count against the JAX data
+    layer's, its fit on the card; then served over HTTP on the card with
+    the machine's own first 144 rows and all its rows, each reply held
+    against the same request to the same artifact on the CPU. The flash
+    counts are reset just before and read just after: this path has no
+    attention, so none may launch."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.models.utils import TimeSeriesSplit
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = {"startup": startup_probe(root)}
+    fa.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        collection = os.path.join(tmp, DEFAULT_COLLECTION)
+        for name, machine in DEFAULT_MACHINES.items():
+            artifact = os.path.join(collection, name)
+            env = dict(os.environ, MACHINE=json.dumps(machine), OUTPUT_DIR=artifact)
+            env.pop("GORDO_TPU_LAKE_DIR", None)
+            t0 = time.perf_counter()
+            built = subprocess.run(
+                [sys.executable, "-m", "gordo_tpu_torch.cli", "build"],
+                cwd=root, env=env, capture_output=True, text=True, timeout=300,
+            )
+            wall_s = time.perf_counter() - t0
+            if built.returncode != 0:
+                raise AssertionError(
+                    f"build {name} exited {built.returncode}:\n{built.stderr[-4000:]}"
+                )
+            if "model parameters on cuda" not in built.stderr:
+                raise AssertionError(f"build {name} did not fit on the card:\n{built.stderr}")
+            meta = serializer.load_metadata(artifact)["metadata"]["build_metadata"]
+            dataset_meta = meta["dataset"]["dataset_meta"]
+            rows = dataset_meta["tag_loading_metadata"]["aggregate_metadata"]["dropped_na_length"]
+            if rows != DEFAULT_ROWS[name]:
+                raise AssertionError(f"{name}: {rows} rows, the JAX data layer gives "
+                                     f"{DEFAULT_ROWS[name]}")
+            folds = [len(train) for train, _ in TimeSeriesSplit(n_splits=3).split(range(rows))]
+            steps = sum(math.ceil(n / BATCH_SIZE) for n in folds + [rows])  # 1 epoch each
+            model_meta = meta["model"]
+            row = {
+                "rows": rows,
+                "build_wall_s": wall_s,
+                "fetch_s": meta["dataset"]["query_duration_sec"],
+                "cv_s": model_meta["cross_validation"]["cv_duration_sec"],
+                "fit_s": model_meta["model_training_duration_sec"],
+                "optimizer_steps": steps,
+                "aggregate_threshold": model_meta["model_meta"]["aggregate-threshold"],
+            }
+            row["steps_per_s"] = steps / (row["cv_s"] + row["fit_s"])
+            row["fit_steps_per_s"] = math.ceil(rows / BATCH_SIZE) / row["fit_s"]
+            row["build_log"] = [line for line in built.stderr.splitlines()
+                                if "Fetched" in line or "Cross-validated" in line
+                                or "Fitted" in line]
+            log("default pipeline build", name, json.dumps(row))
+            thresholds = [row["aggregate_threshold"],
+                          *model_meta["model_meta"]["feature-thresholds"]]
+            if not all(math.isfinite(x) and x > 0 for x in thresholds):
+                raise AssertionError(f"{name}: thresholds not finite and positive: {model_meta}")
+            X, _, stamps = _get_dataset(machine["dataset"]).get_data()
+            row["requests"] = serve_default(torch, collection, name, X, stamps)
+            if profile:
+                row["fit_profile"] = profile_default_fit(torch, artifact, X)
+            report[name] = row
+        report["flash_launches"] = dict(fa.launch_counts)
+    if any(report["flash_launches"].values()):
+        raise AssertionError(f"the default pipeline launched flash kernels: {report}")
+    return report
+
+
+def startup_probe(root: str) -> dict:
+    """What a fresh build process pays before its steady state, timed in
+    a subprocess as the CLI runs: importing torch, the first CUDA
+    operation, importing the port, the first ``torch.optim`` optimizer
+    (its ``add_param_group`` imports ``torch._dynamo`` on first use), and
+    two 1-epoch fits of pump-4130's net on 64 rows (the first pays the
+    first launch of every kernel)."""
+    code = (
+        "import json, time\n"
+        "t0 = time.perf_counter()\n"
+        "import torch\n"
+        "t1 = time.perf_counter()\n"
+        "torch.zeros(1, device='cuda'); torch.cuda.synchronize()\n"
+        "t2 = time.perf_counter()\n"
+        "import numpy as np\n"
+        "from gordo_tpu_torch.models import AutoEncoder\n"
+        "t3 = time.perf_counter()\n"
+        "torch.optim.Adam([torch.zeros(1, requires_grad=True)])\n"
+        "t4 = time.perf_counter()\n"
+        "X = np.random.default_rng(0).random((64, 3))\n"
+        "fits = []\n"
+        "for _ in range(2):\n"
+        "    t = time.perf_counter()\n"
+        "    AutoEncoder('feedforward_hourglass').fit(X, X); torch.cuda.synchronize()\n"
+        "    fits.append(time.perf_counter() - t)\n"
+        "print(json.dumps({'import_torch_s': t1 - t0, 'first_cuda_op_s': t2 - t1,\n"
+        "                  'import_port_s': t3 - t2, 'first_optimizer_s': t4 - t3,\n"
+        "                  'first_fit_s': fits[0],\n"
+        "                  'second_fit_s': fits[1]}))\n"
+    )
+    t0 = time.perf_counter()
+    probe = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                           text=True, timeout=300)
+    if probe.returncode != 0:
+        raise AssertionError(f"start-up probe failed:\n{probe.stderr[-4000:]}")
+    result = json.loads(probe.stdout.strip().splitlines()[-1])
+    result["process_wall_s"] = time.perf_counter() - t0
+    log("build process start-up", json.dumps(result))
+    return result
+
+
+def serve_default(torch, collection: str, name: str, X, stamps):
+    """The default-pipeline artifact served over HTTP on the card:
+    ``/prediction`` and ``/anomaly/prediction`` with the first 144 rows
+    and with all rows, ``REPEATS`` each; every reply's numbers within
+    1e-5 of the same request to the same artifact on the CPU."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.builder.build_model import fitted_estimator
+    from gordo_tpu_torch.data.base import to_datetimes
+    from gordo_tpu_torch.server.app import GordoApp
+
+    tags = DEFAULT_MACHINES[name]["dataset"]["tag_list"]
+    keys = [stamp.isoformat() for stamp in to_datetimes(stamps.astype(np.int64))]
+    cpu_app = GordoApp(collection, device="cpu")
+    card_model = serializer.load(os.path.join(collection, name))
+    device = next(fitted_estimator(card_model).spec_.module.parameters()).device
+    if device.type != "cuda":
+        raise AssertionError(f"{name} loaded onto {device}, not the card")
+    rows = []
+    with http_server(collection, name) as base:
+        for n_rows in (144, len(X)):
+            frame = {tag: dict(zip(keys[:n_rows], X[:n_rows, j].tolist()))
+                     for j, tag in enumerate(tags)}
+            payload = json.dumps({"X": frame, "y": frame}).encode()
+            for route in ("prediction", "anomaly/prediction"):
+                times = []
+                for _ in range(REPEATS):
+                    reply, seconds = post(f"{base}/{route}", payload)
+                    times.append(seconds)
+                path = f"/gordo/v0/{PROJECT}/{name}/{route}"
+                cpu = cpu_app.dispatch("POST", path, lambda: payload)
+                if cpu.status != 200:
+                    raise AssertionError(f"{name} {route} on the CPU answered {cpu.status}")
+                diff = max_block_diff(reply["data"], cpu.payload["data"], n_rows)
+                result = {"route": route, "rows": n_rows, "median_s": statistics.median(times),
+                          "seconds": times, "max_abs_diff_card_vs_cpu": diff}
+                log("default pipeline request", name, json.dumps(result))
+                if not diff <= 1e-5:
+                    raise AssertionError(f"{name} {route}: card and CPU differ by {diff}")
+                rows.append(result)
+    return rows
+
+
+def max_block_diff(card: dict, cpu: dict, n_rows: int) -> float:
+    """Largest difference between two replies' numeric blocks, which must
+    have the same blocks, ``n_rows`` finite rows each."""
+    import numpy as np
+
+    if set(card) != set(cpu):
+        raise AssertionError(f"reply blocks differ: {sorted(set(card) ^ set(cpu))}")
+    worst = 0.0
+    for top, block in card.items():
+        if top in ("start", "end"):
+            continue
+        keys = list(block[next(iter(block))])
+        if len(keys) != n_rows:
+            raise AssertionError(f"{top}: {len(keys)} rows for {n_rows} posted")
+        got = np.asarray(block_array(block, keys), dtype=np.float64)
+        want = np.asarray(block_array(cpu[top], keys), dtype=np.float64)
+        if not np.isfinite(got).all():
+            raise AssertionError(f"non-finite values in {top}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    return worst
+
+
+def profile_default_fit(torch, artifact: str, X):
+    """torch.profiler over one fit of the machine's model on its rows on
+    the card (1 epoch, batch 32): wall and device time, idle share."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from gordo_tpu_torch import serializer
+
+    with open(os.path.join(artifact, serializer.DEFINITION_FILENAME)) as fh:
+        definition = json.load(fh)
+    model = serializer.from_definition(definition)
+    model.fit(X, X)  # warm-up: the first fit pays CUDA's start-up
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serializer.from_definition(definition).fit(X, X)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, total_us = kernel_rows(prof)
+    result = {"wall_ms": wall_ms, "device_ms": total_us / 1e3,
+              "device_idle_share": 1.0 - total_us / 1e3 / wall_ms, "kernels": rows[:10]}
+    log("profile default fit", json.dumps({k: v for k, v in result.items() if k != "kernels"}))
+    return result
+
+
 def kernel_entry(kernel, source, replaces, check, launches_by_path):
     """One kernel's object of the ``kernels`` line."""
     return {
@@ -949,11 +1261,14 @@ def kernel_entry(kernel, source, replaces, check, launches_by_path):
         "launches_by_path": launches_by_path,
         "max_abs_err": check["max_abs_err"],
         "ms": check["ms"],
+        "ms_timer": check["ms_timer"],
         "call_ms": check["call_ms"],
         "plain_ms": check["plain_ms"],
+        "plain_ms_timer": check["plain_ms_timer"],
         "bound_ms": check["bound_ms"],
         "bound_by": check["bound_by"],
         "library_ms": check["library_ms"],
+        "library_ms_timer": check["library_ms_timer"],
         "shape": check["shape"],
     }
 
@@ -997,12 +1312,14 @@ def main(argv=None) -> int:
     if serve_launches <= 0:
         raise AssertionError("the served path never launched flash_attention_fwd")
     train = train_phase(torch, fa, args.profile)
+    default_pipeline = default_pipeline_phase(torch, fa, args.profile)
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
 
     fwd_paths = {"serve": serve_launches, "train": train["launches"][fa.KERNEL],
-                 "serve_trained": train["served"]["launches"]}
+                 "serve_trained": train["served"]["launches"],
+                 "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL]}
     kernels = {
         "kernels": [
             kernel_entry(fa.KERNEL, "gordo_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1011,11 +1328,13 @@ def main(argv=None) -> int:
             kernel_entry(fa.KERNEL_DQ, "gordo_tpu_torch/csrc/flash_attention_bwd.cu",
                          "gordo_tpu/ops/flash_attention.py:176",
                          check(fa.KERNEL_DQ, "train-step", backward_checks),
-                         {"train": train["launches"][fa.KERNEL_DQ]}),
+                         {"train": train["launches"][fa.KERNEL_DQ],
+                          "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL_DQ]}),
             kernel_entry(fa.KERNEL_DKV, "gordo_tpu_torch/csrc/flash_attention_bwd.cu",
                          "gordo_tpu/ops/flash_attention.py:213",
                          check(fa.KERNEL_DKV, "train-step", backward_checks),
-                         {"train": train["launches"][fa.KERNEL_DKV]}),
+                         {"train": train["launches"][fa.KERNEL_DKV],
+                          "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL_DKV]}),
         ]
     }
     if args.out:
@@ -1023,7 +1342,8 @@ def main(argv=None) -> int:
             json.dump(
                 {"card": card, "build_s": build_s, "checks": checks,
                  "backward_checks": backward_checks, "gradients": gradients,
-                 "end_to_end": report, "train": train, **kernels},
+                 "end_to_end": report, "train": train,
+                 "default_pipeline": default_pipeline, **kernels},
                 fh,
                 indent=1,
                 default=str,

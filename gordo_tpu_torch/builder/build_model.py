@@ -1,15 +1,17 @@
 """
 ModelBuilder: the train-one-machine pipeline (the port of
-``gordo_tpu.builder.build_model``), from the point where the JAX builder
-has fetched its data.
+``gordo_tpu.builder.build_model``).
 
-The port has no data layer yet, so ``build`` takes X, y and their time
-index as arrays. From there it does what the JAX builder does: inject the
-evaluation seed into every estimator, cross-validate with per-tag and
-aggregate scorers (the anomaly detector derives its thresholds on the
-way), record the fold scores and splits, fit on all the data, measure
-the model's output offset, assemble the build metadata with the JAX
-keys, and write the port's artifact, which the port's server serves.
+``build`` fetches the machine's dataset through the port's data layer
+(``_get_dataset(machine["dataset"]).get_data()``), as the JAX builder
+does, or takes X, y and their time index as arrays. From there it does
+what the JAX builder does: inject the evaluation seed into every
+estimator, cross-validate with per-tag and aggregate scorers (the
+anomaly detector derives its thresholds on the way), record the fold
+scores and splits, fit on all the data, measure the model's output
+offset, assemble the build metadata with the JAX keys (the fetch's
+``query_duration_sec`` and ``dataset_meta`` among them), and write the
+port's artifact, which the port's server serves.
 
 A machine is a plain dict with the JAX ``Machine``'s keys (``name``,
 ``project_name``, ``model``, ``dataset``, ``evaluation``, ``metadata``,
@@ -20,6 +22,7 @@ JAX project config gives them: ``cv_mode: full_build``, a RobustScaler as
 """
 
 import copy
+import logging
 import time
 from datetime import datetime, timezone
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -27,10 +30,16 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from gordo_tpu_torch import __version__, serializer
-from gordo_tpu_torch.device import DeviceLike
+from gordo_tpu_torch.data import _get_dataset
+from gordo_tpu_torch.data.base import to_datetimes
+from gordo_tpu_torch.data.sensor_tag import tag_names
+from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.anomaly.diff import RobustScaling
 from gordo_tpu_torch.models.core import BaseTorchEstimator, as_2d
+from gordo_tpu_torch.models.pipeline import Pipeline
 from gordo_tpu_torch.models.utils import METRICS, TimeSeriesSplit, metric_wrapper
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_CV = {"sklearn.model_selection.TimeSeriesSplit": {"n_splits": 3}}
 DEFAULT_EVALUATION = {
@@ -73,9 +82,18 @@ def _inject_seed(model, seed: int) -> None:
     its config already pins one."""
     if isinstance(model, BaseTorchEstimator):
         model.kwargs.setdefault("seed", seed)
+    for _, step in getattr(model, "steps", ()):
+        _inject_seed(step, seed)
     base = getattr(model, "base_estimator", None)
     if base is not None:
         _inject_seed(base, seed)
+
+
+def fitted_estimator(model) -> BaseTorchEstimator:
+    """The torch estimator inside a model tree (detector, pipeline)."""
+    while not isinstance(model, BaseTorchEstimator):
+        model = model.steps[-1][1] if isinstance(model, Pipeline) else model.base_estimator
+    return model
 
 
 class ModelBuilder:
@@ -87,7 +105,8 @@ class ModelBuilder:
         dataset = machine["dataset"]
         if "tag_list" not in dataset:
             dataset["tag_list"] = dataset.pop("tags")
-        dataset.setdefault("target_tag_list", list(dataset["tag_list"]))
+        if not dataset.get("target_tag_list"):
+            dataset["target_tag_list"] = list(dataset["tag_list"])
         dataset.setdefault("resolution", "10T")
         machine["evaluation"] = {**DEFAULT_EVALUATION, **(machine.get("evaluation") or {})}
         machine.setdefault("runtime", {})
@@ -96,21 +115,34 @@ class ModelBuilder:
 
     def build(
         self,
-        X,
-        y,
+        X=None,
+        y=None,
         index: Optional[Sequence] = None,
         output_dir=None,
         device: DeviceLike = None,
     ) -> Tuple[Any, Dict[str, Any]]:
         """
-        (model, machine dict with ``metadata.build_metadata``) for data
-        X, y with row labels ``index`` (timestamps; row numbers when
-        None), training on ``device`` (the card unless ``"cpu"``). With
-        ``output_dir`` the artifact is written there, as
+        (model, machine dict with ``metadata.build_metadata``), training
+        on ``device`` (the card unless ``"cpu"``). With no X the data is
+        fetched through the machine's dataset; otherwise X, y are the data
+        and ``index`` their row labels (timestamps; row numbers when
+        None). With ``output_dir`` the artifact is written there, as
         ``<collection>/<machine name>``.
         """
-        X, y = as_2d(X), as_2d(y)
+        device = resolve_device(device)  # no card, no work
+        dataset_meta: Dict[str, Any] = {}
+        fetch_secs = None
+        if X is None:
+            dataset = _get_dataset(self.machine["dataset"])
+            start = time.perf_counter()
+            X, y, stamps = dataset.get_data()
+            fetch_secs = time.perf_counter() - start
+            dataset_meta = dataset.get_metadata()
+            index = to_datetimes(stamps.astype(np.int64))
+            logger.info("Fetched %d rows in %.3f s", len(X), fetch_secs)
+        X, y = as_2d(X, dtype=None), as_2d(y, dtype=None)
         index = list(range(len(X))) if index is None else list(index)
+        dataset_build = {"query_duration_sec": fetch_secs, "dataset_meta": dataset_meta}
         evaluation = self.machine["evaluation"]
         cv_mode = str(evaluation["cv_mode"]).lower()
         if cv_mode not in _CV_MODES:
@@ -124,14 +156,21 @@ class ModelBuilder:
         if cv_mode != "build_only":
             cv_meta = self._run_cross_validation(model, X, y, index, device)
         if cv_mode == "cross_val_only":
-            machine["metadata"]["build_metadata"] = _build_metadata(cv_meta)
+            machine["metadata"]["build_metadata"] = _build_metadata(cv_meta, dataset_build)
             return model, machine
 
         start = time.perf_counter()
         model.fit(X, y, device=device)
         fit_secs = time.perf_counter() - start
+        module = fitted_estimator(model).spec_.module
+        logger.info(
+            "Fitted in %.3f s; model parameters on %s",
+            fit_secs,
+            next(module.parameters()).device,
+        )
         machine["metadata"]["build_metadata"] = _build_metadata(
             cv_meta,
+            dataset_build,
             model_offset=len(X) - len(model.predict(X)),
             model_creation_date=str(datetime.now(timezone.utc).astimezone()),
             model_training_duration_sec=fit_secs,
@@ -145,18 +184,25 @@ class ModelBuilder:
         """Cross-validate with per-tag and aggregate scorers and package the
         fold scores and splits."""
         evaluation = self.machine["evaluation"]
+        dataset = self.machine["dataset"]
         scorers = self.build_metrics_dict(
             self.metrics_from_list(evaluation.get("metrics")),
-            self.machine["dataset"]["target_tag_list"],
+            tag_names(dataset["target_tag_list"]),
             y,
             _scoring_scaler(evaluation.get("scoring_scaler")),
         )
         splitter = _splitter(evaluation.get("cv", DEFAULT_CV))
         start = time.perf_counter()
         cv = model.cross_validate(X=X, y=y, cv=splitter, scoring=scorers, device=device)
+        cv_secs = time.perf_counter() - start
+        logger.info(
+            "Cross-validated in %.3f s; fold fits %s s",
+            cv_secs,
+            ", ".join(f"{secs:.3f}" for secs in cv["fit_time"]),
+        )
         return {
             "scores": {name: _fold_stats(cv[f"test_{name}"]) for name in scorers},
-            "cv_duration_sec": time.perf_counter() - start,
+            "cv_duration_sec": cv_secs,
             "splits": self.build_split_dict(index, splitter),
         }
 
@@ -233,13 +279,15 @@ def _fold_stats(fold_values: np.ndarray) -> Dict[str, float]:
 
 def _build_metadata(
     cross_validation: Dict[str, Any],
+    dataset: Dict[str, Any],
     model_offset: int = 0,
     model_creation_date: Optional[str] = None,
     model_training_duration_sec: Optional[float] = None,
     model_meta: Optional[dict] = None,
 ) -> Dict[str, Any]:
-    """The JAX ``BuildMetadata.to_dict()`` layout. The dataset half has no
-    fetch to time (the arrays come from the caller)."""
+    """The JAX ``BuildMetadata.to_dict()`` layout. ``dataset`` holds the
+    fetch's ``query_duration_sec`` and ``dataset_meta`` (None and empty
+    when the caller handed the arrays in)."""
     return {
         "model": {
             "model_offset": model_offset,
@@ -249,5 +297,5 @@ def _build_metadata(
             "model_training_duration_sec": model_training_duration_sec,
             "model_meta": model_meta or {},
         },
-        "dataset": {"query_duration_sec": None, "dataset_meta": {}},
+        "dataset": dataset,
     }

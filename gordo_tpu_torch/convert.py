@@ -1,11 +1,16 @@
 """
-Carries a JAX-built Transformer anomaly machine into a port artifact.
+Carries a JAX-built machine into a port artifact: a
+``DiffBasedAnomalyDetector`` around a Transformer estimator or around the
+default pipeline (``Pipeline(MinMaxScaler, AutoEncoder)``), or a bare
+``AutoEncoder``.
 
 Input is what a ``gordo_tpu`` artifact holds, as plain data: the Flax
 parameter tree as numpy arrays, the model definition dict, the fitted
-RobustScaler's ``center_``/``scale_``, the thresholds, and the metadata.
-(Reading those out of a JAX artifact unpickles ``gordo_tpu`` objects and
-so needs JAX; that step belongs to the caller.)
+scalers' arrays (the detector's RobustScaler ``center_``/``scale_``, each
+pipeline MinMaxScaler's ``data_min_``, ``data_max_``, ``data_range_``,
+``scale_`` and ``min_``), the thresholds, and the metadata. (Reading those
+out of a JAX artifact unpickles ``gordo_tpu`` objects and so needs JAX;
+that step belongs to the caller.)
 
 Weight mapping, Flax -> torch:
 
@@ -13,22 +18,25 @@ Weight mapping, Flax -> torch:
   kernels are transposed;
 - ``LayerNorm.scale`` is torch's ``.weight`` (the port's LayerNorm uses
   Flax's eps of 1e-6);
-- the tree ``{"params": {"embed", "TransformerBlock_<i>": {"LayerNorm_0",
-  "MultiHeadSelfAttention_0": {"query", "key", "value", "out"},
-  "LayerNorm_1", "Dense_0", "Dense_1"}, "LayerNorm_0", "head"}}`` maps
-  onto ``TransformerNet``'s ``embed``, ``blocks.<i>.{norm1, attn.*,
-  norm2, ff1, ff2}``, ``norm`` and ``head``.
+- a Transformer's tree ``{"params": {"embed", "TransformerBlock_<i>":
+  {"LayerNorm_0", "MultiHeadSelfAttention_0": {"query", "key", "value",
+  "out"}, "LayerNorm_1", "Dense_0", "Dense_1"}, "LayerNorm_0", "head"}}``
+  maps onto ``TransformerNet``'s ``embed``, ``blocks.<i>.{norm1, attn.*,
+  norm2, ff1, ff2}``, ``norm`` and ``head``;
+- a feedforward tree ``{"params": {"Dense_<i>"}}`` maps onto
+  ``FeedForwardNet``'s ``layers.<i>``.
 """
 
 import copy
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
 from gordo_tpu_torch import serializer
 from gordo_tpu_torch.device import DeviceLike
 from gordo_tpu_torch.models.anomaly.diff import THRESHOLD_ATTRS, DiffBasedAnomalyDetector
+from gordo_tpu_torch.models.pipeline import Pipeline
 
 _BLOCK_LAYERS = {
     "LayerNorm_0": "norm1",
@@ -77,74 +85,154 @@ def transformer_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return state
 
 
-def _unwrap(definition: Mapping[str, Any]) -> tuple:
+def feedforward_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A ``FeedForwardNet`` Flax parameter tree -> the port's state dict."""
+    tree = params.get("params", params)
+    state: Dict[str, np.ndarray] = {}
+    for name, leaves in tree.items():
+        if not name.startswith("Dense_"):
+            raise ValueError(f"Unexpected Flax module {name}")
+        state.update(_layer(leaves, f"layers.{int(name.rsplit('_', 1)[1])}"))
+    return state
+
+
+def _unwrap(definition) -> tuple:
+    """``"a.b.Name"`` or ``{"a.b.Name": kwargs}`` -> (Name, kwargs)."""
+    if isinstance(definition, str):
+        return definition.rsplit(".", 1)[-1], {}
     (path, kwargs), = definition.items()
     return path.rsplit(".", 1)[-1], dict(kwargs or {})
 
 
-def port_definition(
-    definition: Mapping[str, Any], state: Mapping[str, np.ndarray]
-) -> Dict[str, Any]:
+_TRANSFORMERS = ("TransformerAutoEncoder", "TransformerForecast")
+_FEEDFORWARD = ("AutoEncoder", "KerasAutoEncoder")
+
+
+def _port_estimator(name: str, kwargs: dict, state: Mapping[str, np.ndarray]) -> dict:
+    """An estimator's definition with its widths read off the weights
+    where it lacks them."""
+    kwargs = copy.deepcopy(kwargs)
+    if name in _TRANSFORMERS:
+        first, last = state["embed.weight"], state["head.weight"]
+    elif name in _FEEDFORWARD:
+        name = "AutoEncoder"
+        n_layers = len({key.split(".")[1] for key in state})
+        first, last = state["layers.0.weight"], state[f"layers.{n_layers - 1}.weight"]
+    else:
+        raise ValueError(f"No weight mapping for a {name}")
+    kwargs.setdefault("n_features", int(first.shape[1]))
+    kwargs.setdefault("n_features_out", int(last.shape[0]))
+    return {f"gordo_tpu_torch.models.{name}": kwargs}
+
+
+def port_definition(definition, state: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     """
-    A JAX ``DiffBasedAnomalyDetector(<Transformer estimator>)`` definition
-    (class paths of either package) -> the port's definition, with the
-    input and output widths read off the weights where it lacks them.
-    The JAX scaler definition is dropped: the port carries the fitted
-    scaler as arrays.
+    A JAX definition (class paths of either package) -> the port's. A
+    detector keeps ``require_thresholds`` and ``window`` and drops its
+    scaler's definition (the port carries the fitted scaler as arrays);
+    a pipeline keeps its steps and drops scikit-learn's ``memory``,
+    ``verbose`` and ``transform_input``; a MinMaxScaler keeps
+    ``feature_range`` and ``clip``.
     """
-    name, detector_kwargs = _unwrap(definition)
-    if name != "DiffBasedAnomalyDetector":
-        raise ValueError(f"Expected a DiffBasedAnomalyDetector definition, got {name}")
-    base_name, base_kwargs = _unwrap(detector_kwargs["base_estimator"])
-    base_kwargs = copy.deepcopy(base_kwargs)
-    base_kwargs.setdefault("n_features", int(state["embed.weight"].shape[1]))
-    base_kwargs.setdefault("n_features_out", int(state["head.weight"].shape[0]))
-    return {
-        "gordo_tpu_torch.models.anomaly.DiffBasedAnomalyDetector": {
-            "base_estimator": {f"gordo_tpu_torch.models.{base_name}": base_kwargs},
-            "require_thresholds": detector_kwargs.get("require_thresholds", True),
-            "window": detector_kwargs.get("window"),
+    name, kwargs = _unwrap(definition)
+    if name == "DiffBasedAnomalyDetector":
+        return {
+            "gordo_tpu_torch.models.anomaly.DiffBasedAnomalyDetector": {
+                "base_estimator": port_definition(kwargs["base_estimator"], state),
+                "require_thresholds": kwargs.get("require_thresholds", True),
+                "window": kwargs.get("window"),
+            }
         }
-    }
+    if name == "Pipeline":
+        steps = [step[1] if isinstance(step, (list, tuple)) else step for step in kwargs["steps"]]
+        return {
+            "gordo_tpu_torch.models.Pipeline": {
+                "steps": [port_definition(step, state) for step in steps]
+            }
+        }
+    if name == "MinMaxScaler":
+        return {
+            "gordo_tpu_torch.models.MinMaxScaler": {
+                key: kwargs[key] for key in ("feature_range", "clip") if key in kwargs
+            }
+        }
+    return _port_estimator(name, kwargs, state)
 
 
-def detector_from_flax(
+def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A Flax tree of either family -> the port's state dict."""
+    tree = params.get("params", params)
+    if all(name.startswith("Dense_") for name in tree):
+        return feedforward_state_dict(params)
+    return transformer_state_dict(params)
+
+
+def _model_arrays(model, state, pipeline_scalers: Sequence[Mapping[str, Any]]) -> dict:
+    """The arrays ``model.load_state_arrays`` takes, by the model's
+    structure: the net's state dict under the estimator's prefix, each
+    pipeline scaler's arrays under its step's."""
+    if isinstance(model, DiffBasedAnomalyDetector):
+        inner = _model_arrays(model.base_estimator, state, pipeline_scalers)
+        return {f"base_estimator.{k}": v for k, v in inner.items()}
+    if isinstance(model, Pipeline):
+        if len(pipeline_scalers) != len(model.steps) - 1:
+            raise ValueError(
+                f"{len(pipeline_scalers)} scalers given for a pipeline of "
+                f"{len(model.steps)} steps"
+            )
+        arrays = {
+            f"steps.{i}.{k}": np.asarray(v)
+            for i, scaler in enumerate(pipeline_scalers)
+            for k, v in scaler.items()
+        }
+        arrays.update({f"steps.{len(model.steps) - 1}.{k}": v for k, v in state.items()})
+        return arrays
+    return dict(state)
+
+
+def model_from_flax(
     params: Mapping[str, Any],
-    definition: Mapping[str, Any],
-    scaler_center: np.ndarray,
-    scaler_scale: np.ndarray,
-    thresholds: Mapping[str, Optional[Any]],
+    definition,
+    scaler_center: Optional[np.ndarray] = None,
+    scaler_scale: Optional[np.ndarray] = None,
+    thresholds: Optional[Mapping[str, Optional[Any]]] = None,
+    pipeline_scalers: Sequence[Mapping[str, Any]] = (),
     device: DeviceLike = None,
-) -> DiffBasedAnomalyDetector:
+):
     """
-    Assemble a port detector from a JAX machine's parts. ``thresholds``
-    maps the detector's threshold attribute names
-    (``aggregate_threshold_``, ``feature_thresholds_`` and the smoothed
-    pair) to values; absent or None ones stay unset.
+    Assemble a port model from a JAX machine's parts. A detector needs its
+    scaler's ``center_``/``scale_``; ``thresholds`` maps the detector's
+    threshold attribute names (``aggregate_threshold_``,
+    ``feature_thresholds_`` and the smoothed pair) to values, absent or
+    None ones staying unset. ``pipeline_scalers`` holds each MinMaxScaler
+    step's fitted arrays, in step order.
     """
-    state = transformer_state_dict(params)
-    detector = serializer.from_definition(port_definition(definition, state))
-    arrays = {f"base_estimator.{k}": v for k, v in state.items()}
-    arrays["scaler.center_"] = np.asarray(scaler_center)
-    arrays["scaler.scale_"] = np.asarray(scaler_scale)
-    for attr in THRESHOLD_ATTRS:
-        if thresholds.get(attr) is not None:
-            arrays[attr] = np.asarray(thresholds[attr], dtype=np.float64)
-    return detector.load_state_arrays(arrays, device)
+    state = state_dict_from_flax(params)
+    model = serializer.from_definition(port_definition(definition, state))
+    arrays = _model_arrays(model, state, pipeline_scalers)
+    if isinstance(model, DiffBasedAnomalyDetector):
+        arrays["scaler.center_"] = np.asarray(scaler_center)
+        arrays["scaler.scale_"] = np.asarray(scaler_scale)
+        for attr in THRESHOLD_ATTRS:
+            if (thresholds or {}).get(attr) is not None:
+                arrays[attr] = np.asarray(thresholds[attr], dtype=np.float64)
+    return model.load_state_arrays(arrays, device)
 
 
 def write_artifact(
     dest_dir,
     params: Mapping[str, Any],
-    definition: Mapping[str, Any],
-    scaler_center: np.ndarray,
-    scaler_scale: np.ndarray,
-    thresholds: Mapping[str, Optional[Any]],
-    metadata: Dict[str, Any],
+    definition,
+    scaler_center: Optional[np.ndarray] = None,
+    scaler_scale: Optional[np.ndarray] = None,
+    thresholds: Optional[Mapping[str, Optional[Any]]] = None,
+    metadata: Optional[Dict[str, Any]] = None,
+    pipeline_scalers: Sequence[Mapping[str, Any]] = (),
 ) -> Path:
-    """:func:`detector_from_flax`, written as a port artifact at
+    """:func:`model_from_flax`, written as a port artifact at
     ``dest_dir`` (assembled on the CPU: only arrays are written)."""
-    detector = detector_from_flax(
-        params, definition, scaler_center, scaler_scale, thresholds, device="cpu"
+    model = model_from_flax(
+        params, definition, scaler_center, scaler_scale, thresholds,
+        pipeline_scalers, device="cpu",
     )
-    return serializer.dump(detector, dest_dir, metadata)
+    return serializer.dump(model, dest_dir, metadata or {})

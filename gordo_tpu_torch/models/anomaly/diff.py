@@ -55,6 +55,9 @@ class RobustScaling:
         self.scale_ = scale
         return self
 
+    def __repr__(self):
+        return "RobustScaler()"
+
     def transform(self, X) -> np.ndarray:
         """``(X - center_) / scale_`` in X's float type, as sklearn does it
         (in place on a copy, so a float32 X stays float32)."""
@@ -129,7 +132,7 @@ class DiffBasedAnomalyDetector:
         """Fit the base estimator, then the scaler on the targets (used
         purely for error scaling)."""
         self.base_estimator.fit(X, y, device=device)
-        self.scaler = RobustScaling().fit(as_2d(y))
+        self.scaler = RobustScaling().fit(as_2d(y, dtype=None))
         return self
 
     def _fold_errors(self, y_pred: np.ndarray, y_test: np.ndarray):
@@ -162,7 +165,7 @@ class DiffBasedAnomalyDetector:
         scikit-learn-shaped dict (``estimator``, ``fit_time``,
         ``score_time``, ``test_<name>``).
         """
-        X, y = as_2d(X), as_2d(y)
+        X, y = as_2d(X, dtype=None), as_2d(y, dtype=None)
         cv = cv if cv is not None else TimeSeriesSplit(n_splits=3)
         scoring = scoring or {}
         output: dict = {"estimator": [], "fit_time": [], "score_time": []}
@@ -243,6 +246,9 @@ class DiffBasedAnomalyDetector:
             metadata["smooth-aggregate-thresholds-per-fold"] = dict(
                 self.smooth_aggregate_thresholds_per_fold_
             )
+        if not isinstance(self.base_estimator, BaseTorchEstimator):
+            # the JAX detector's description of a scikit-learn base
+            metadata.update(scaler=str(self.scaler), base_estimator=str(self.base_estimator))
         metadata.update(self.base_estimator.get_metadata())
         return metadata
 

@@ -39,6 +39,10 @@ DEFAULT_SEED = 0
 #: fitted widths a padded-bucket artifact records beside its weights
 _WIDTH_ATTRS = ("n_active_features_", "n_active_features_out_")
 
+#: rows per forward chunk of a row-wise (non-windowed) predict, as in the
+#: JAX package
+PREDICT_CHUNK_ROWS = 10000
+
 
 class NotFittedError(ValueError, AttributeError):
     """The estimator has no weights yet (sklearn's exception of that name)."""
@@ -241,6 +245,23 @@ class BaseTorchEstimator:
     def get_metadata(self) -> dict:
         return {"history": dict(self.history_)} if hasattr(self, "history_") else {}
 
+    @torch.inference_mode()
+    def predict(self, X, **kwargs) -> np.ndarray:
+        """
+        (rows, n_features_out) float32 outputs of a row-wise model, on the
+        device the weights are on, ``PREDICT_CHUNK_ROWS`` rows at a time.
+        """
+        module = self._fitted_module()
+        X = self._pad_active_input(as_2d(X))
+        outs = []
+        for start in range(0, len(X), PREDICT_CHUNK_ROWS):
+            xb = torch.from_numpy(np.ascontiguousarray(X[start : start + PREDICT_CHUNK_ROWS]))
+            out = module(xb.to(self.device_))
+            outs.append((out[0] if isinstance(out, tuple) else out).cpu().numpy())
+        if not outs:
+            return np.empty((0, self.n_features_out_), dtype=np.float32)
+        return self._strip_pad_output(np.concatenate(outs))
+
     # -- weights ----------------------------------------------------------
     def load_state_arrays(
         self, arrays: Dict[str, np.ndarray], device: DeviceLike = None
@@ -257,7 +278,7 @@ class BaseTorchEstimator:
                 setattr(self, attr, int(arrays.pop(attr)))
         spec = self._build_spec()
         spec.module.load_state_dict(
-            {name: torch.from_numpy(np.asarray(value)) for name, value in arrays.items()}
+            {name: torch.tensor(np.asarray(value)) for name, value in arrays.items()}
         )
         spec.module.to(device).eval()
         self.spec_ = spec
@@ -360,6 +381,10 @@ def validation_loss(
 
 
 def as_2d(X, dtype=np.float32) -> np.ndarray:
-    """Frame or array -> a (rows, features) array of ``dtype``."""
+    """Frame or array -> a (rows, features) array of ``dtype``; with
+    ``dtype=None`` float32 and float64 keep their type and anything else
+    becomes float64."""
     X = np.asarray(getattr(X, "values", X), dtype=dtype)
+    if dtype is None and X.dtype not in (np.float32, np.float64):
+        X = X.astype(np.float64)
     return X.reshape(len(X), 1) if X.ndim == 1 else X

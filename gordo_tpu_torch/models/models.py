@@ -1,6 +1,6 @@
 """
 Concrete estimator classes (the port of ``gordo_tpu.models.models``):
-the windowed Transformer estimators.
+the feedforward ``AutoEncoder`` and the windowed Transformer estimators.
 """
 
 from typing import Callable, Union
@@ -15,6 +15,17 @@ from gordo_tpu_torch.parallel.fleet import windowed_predict
 
 # register the factories on import
 from gordo_tpu_torch.models import factories  # noqa: F401
+
+
+class AutoEncoder(BaseTorchEstimator):
+    """Feedforward autoencoder, scored by the explained variance of its
+    reconstruction."""
+
+    def score(self, X, y, sample_weight=None) -> float:
+        return explained_variance_score(np.asarray(getattr(y, "values", y)), self.predict(X))
+
+    def transform(self, X) -> np.ndarray:
+        return self.predict(X)
 
 
 class WindowedEstimator(BaseTorchEstimator):

@@ -1,0 +1,165 @@
+"""
+The scikit-learn pieces of the default pipeline, as port code (the card's
+machine has no scikit-learn): :class:`Pipeline`, which chains
+transformers before a final estimator, and :class:`MinMaxScaler`.
+
+They are what ``gordo_tpu.serializer.from_definition`` builds from a
+config's ``sklearn.pipeline.Pipeline`` and ``sklearn.preprocessing.
+MinMaxScaler``. The scaler computes in numpy on the host, in float64 for
+float64 input as scikit-learn does; the estimator after it runs on the
+device it is fitted on. Fitted state is plain arrays (``state_arrays``),
+so an artifact holds no pickle.
+"""
+
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from gordo_tpu_torch.device import DeviceLike
+from gordo_tpu_torch.models.core import as_2d
+
+_SCALER_ATTRS = ("data_min_", "data_max_", "data_range_", "scale_", "min_")
+
+
+class MinMaxScaler:
+    """
+    ``sklearn.preprocessing.MinMaxScaler`` (scikit-learn 1.x): each column
+    mapped linearly from its fitted [min, max] onto ``feature_range``;
+    a column whose range is under ten machine epsilons gets scale 1.
+    ``copy`` is accepted for scikit-learn's signature; ``transform``
+    always works on a copy.
+    """
+
+    def __init__(
+        self, feature_range: Sequence[float] = (0, 1), copy: bool = True, clip: bool = False
+    ):
+        self.feature_range = tuple(feature_range)
+        self.clip = clip
+
+    def clone(self) -> "MinMaxScaler":
+        return MinMaxScaler(self.feature_range, clip=self.clip)
+
+    def fit(self, X, y=None) -> "MinMaxScaler":
+        low, high = self.feature_range
+        if low >= high:
+            raise ValueError(
+                f"Minimum of desired feature range must be smaller than maximum. "
+                f"Got {self.feature_range}."
+            )
+        X = as_2d(X, dtype=None)
+        data_min = np.nanmin(X, axis=0)
+        data_max = np.nanmax(X, axis=0)
+        data_range = data_max - data_min
+        safe_range = data_range.copy()
+        safe_range[safe_range < 10 * np.finfo(safe_range.dtype).eps] = 1.0
+        self.scale_ = (high - low) / safe_range
+        self.min_ = low - data_min * self.scale_
+        self.data_min_, self.data_max_, self.data_range_ = data_min, data_max, data_range
+        return self
+
+    def transform(self, X) -> np.ndarray:
+        """``X * scale_ + min_``, in place on a copy (so float32 stays
+        float32, as in scikit-learn)."""
+        X = as_2d(X, dtype=None).copy()
+        X *= self.scale_
+        X += self.min_
+        if self.clip:
+            np.clip(X, self.feature_range[0], self.feature_range[1], out=X)
+        return X
+
+    def fit_transform(self, X, y=None) -> np.ndarray:
+        return self.fit(X, y).transform(X)
+
+    def into_definition(self) -> dict:
+        return {
+            f"{type(self).__module__}.{type(self).__name__}": {
+                "feature_range": list(self.feature_range),
+                "clip": self.clip,
+            }
+        }
+
+    def state_arrays(self) -> Dict[str, np.ndarray]:
+        return {attr: np.asarray(getattr(self, attr)) for attr in _SCALER_ATTRS}
+
+    def load_state_arrays(
+        self, arrays: Dict[str, np.ndarray], device: DeviceLike = None
+    ) -> "MinMaxScaler":
+        for attr in _SCALER_ATTRS:
+            setattr(self, attr, np.asarray(arrays[attr]))
+        return self
+
+    def __repr__(self):
+        return f"MinMaxScaler(feature_range={self.feature_range}, clip={self.clip})"
+
+
+class Pipeline:
+    """
+    ``sklearn.pipeline.Pipeline``: ``steps`` is a list of (name,
+    transformer) pairs ending in the estimator. ``fit`` fits each
+    transformer on the output of the ones before it, then the estimator
+    on ``device``; ``predict``, ``transform`` and ``score`` pass X through
+    the fitted transformers first.
+    """
+
+    def __init__(self, steps: List[Tuple[str, Any]]):
+        self.steps = [tuple(step) for step in steps]
+
+    @property
+    def _final(self):
+        return self.steps[-1][1]
+
+    def _transform(self, X):
+        for _, step in self.steps[:-1]:
+            X = step.transform(X)
+        return X
+
+    def clone(self) -> "Pipeline":
+        return Pipeline([(name, step.clone()) for name, step in self.steps])
+
+    def fit(self, X, y, *, device: DeviceLike = None) -> "Pipeline":
+        for _, step in self.steps[:-1]:
+            X = step.fit_transform(X, y)
+        self._final.fit(X, y, device=device)
+        return self
+
+    def predict(self, X) -> np.ndarray:
+        return self._final.predict(self._transform(X))
+
+    def transform(self, X) -> np.ndarray:
+        return self._final.transform(self._transform(X))
+
+    def score(self, X, y, sample_weight=None) -> float:
+        return self._final.score(self._transform(X), y)
+
+    def get_metadata(self) -> dict:
+        """The estimator's metadata, as the JAX builder harvests it from a
+        pipeline's last step."""
+        return self._final.get_metadata()
+
+    def into_definition(self) -> dict:
+        return {
+            f"{type(self).__module__}.{type(self).__name__}": {
+                "steps": [step.into_definition() for _, step in self.steps]
+            }
+        }
+
+    def state_arrays(self) -> Dict[str, np.ndarray]:
+        return {
+            f"steps.{i}.{name}": value
+            for i, (_, step) in enumerate(self.steps)
+            for name, value in step.state_arrays().items()
+        }
+
+    def load_state_arrays(
+        self, arrays: Dict[str, np.ndarray], device: DeviceLike = None
+    ) -> "Pipeline":
+        for i, (_, step) in enumerate(self.steps):
+            prefix = f"steps.{i}."
+            step.load_state_arrays(
+                {k[len(prefix) :]: v for k, v in arrays.items() if k.startswith(prefix)},
+                device,
+            )
+        return self
+
+    def __repr__(self):
+        return f"Pipeline(steps={self.steps!r})"

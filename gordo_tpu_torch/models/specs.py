@@ -1,7 +1,8 @@
 """
 What a model factory returns (the port of ``gordo_tpu.models.specs``):
 :class:`ModelSpec`, ``resolve_dtype``, the optimizer map, the per-sample
-losses and Flax's default initialisation.
+losses, Flax's default initialisation, the :class:`Dense` layer and the
+feedforward family's :class:`FeedForwardNet`.
 
 A :class:`ModelSpec` is an ``nn.Module`` plus the window geometry and the
 training configuration (optimizer name and kwargs, loss name) the
@@ -21,7 +22,10 @@ import math
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from gordo_tpu_torch.ops.activations import resolve_activation
 
 _DTYPES = {
     "float32": torch.float32,
@@ -204,3 +208,58 @@ class ModelSpec:
 
     def make_optimizer(self, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
         return make_optimizer(self.optimizer, self.optimizer_kwargs, params)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` over float32 parameters."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class FeedForwardNet(nn.Module):
+    """
+    Dense encoder/decoder stack (the port of the JAX ``FeedForwardNet``):
+    ``layers[i]`` is the JAX module's ``Dense_i``, each followed by its
+    activation, then the output layer and ``out_func``. The layers whose
+    ``l1_flags`` entry is set add an L1 activity penalty of
+    ``l1 * sum(|activation|) / batch`` to the loss (the reference applies
+    it to every encoder layer after the first). Returns ``(output as
+    float32, penalty)``. It has no dropout, so ``forward`` ignores the
+    ``generator`` the fit loop hands every module.
+    """
+
+    def __init__(
+        self,
+        n_features: int,
+        layer_dims: Tuple[int, ...],
+        layer_funcs: Tuple[str, ...],
+        l1_flags: Tuple[bool, ...],
+        out_dim: int,
+        out_func: str = "linear",
+        l1: float = 1e-4,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        widths = (n_features, *layer_dims, out_dim)
+        self.layers = nn.ModuleList(
+            Dense(n_in, n_out, dtype) for n_in, n_out in zip(widths[:-1], widths[1:])
+        )
+        self.funcs = [resolve_activation(f) for f in (*layer_funcs, out_func)]
+        self.l1_flags = (*l1_flags, False)
+        self.l1 = l1
+
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        penalty = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer, func, flagged in zip(self.layers, self.funcs, self.l1_flags):
+            x = func(layer(x))
+            if flagged:
+                penalty = penalty + self.l1 * x.float().abs().sum() / x.shape[0]
+        return x.float(), penalty

@@ -23,9 +23,9 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from gordo_tpu_torch.models.specs import Dense
 from gordo_tpu_torch.ops.activations import resolve_activation
 from gordo_tpu_torch.ops.flash_attention import flash_attention
 
@@ -84,18 +84,6 @@ def dropout(
         return torch.zeros_like(x)
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-class Dense(nn.Linear):
-    """``nn.Linear`` computing in ``dtype`` over float32 parameters."""
-
-    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
-        super().__init__(in_features, out_features)
-        self.compute_dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class LayerNorm(nn.LayerNorm):

@@ -5,12 +5,16 @@ The port's artifact format (the counterpart of
 An artifact is a directory of three files:
 
 - ``definition.json``: the model definition, ``{"<class path>": kwargs}``
-  with the base estimator nested the same way, as the JAX package's
-  ``into_definition`` writes it (class paths name the port's classes);
+  with the base estimator and a pipeline's steps nested the same way, as
+  the JAX package's ``into_definition`` writes it (class paths name the
+  port's classes);
 - ``params.npz``: every array the model needs, flat, by dotted name:
-  ``base_estimator.<state-dict key>`` for the weights,
+  ``base_estimator.<state-dict key>`` for a detector's weights (a
+  pipeline's under ``base_estimator.steps.<i>.``, its scaler's fitted
+  ``scale_``, ``min_``, ... beside its estimator's state dict),
   ``scaler.center_``/``scaler.scale_`` for the target scaler, and the
-  fitted thresholds under their attribute names;
+  fitted thresholds under their attribute names; a bare estimator's
+  state dict keys unprefixed;
 - ``metadata.json``: the build metadata, with the JAX artifact's keys.
 
 Nothing is pickled, so loading an artifact runs no code from it. The
@@ -23,30 +27,62 @@ import math
 import os
 import shutil
 from pathlib import Path
-from typing import Any, Dict, Union
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 
 from gordo_tpu_torch.device import DeviceLike
 from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
-from gordo_tpu_torch.models.models import TransformerAutoEncoder, TransformerForecast
+from gordo_tpu_torch.models.models import (
+    AutoEncoder,
+    TransformerAutoEncoder,
+    TransformerForecast,
+)
+from gordo_tpu_torch.models.pipeline import MinMaxScaler, Pipeline
 
 DEFINITION_FILENAME = "definition.json"
 PARAMS_FILENAME = "params.npz"
 METADATA_FILENAME = "metadata.json"
 
-#: the classes an artifact may name, by class name
+#: the classes a definition may name, by the last part of its class path
+#: (``sklearn.pipeline.Pipeline``, ``gordo_tpu.models.AutoEncoder`` and the
+#: port's own paths alike)
 MODEL_CLASSES = {
     cls.__name__: cls
-    for cls in (DiffBasedAnomalyDetector, TransformerAutoEncoder, TransformerForecast)
+    for cls in (
+        DiffBasedAnomalyDetector,
+        TransformerAutoEncoder,
+        TransformerForecast,
+        AutoEncoder,
+        Pipeline,
+        MinMaxScaler,
+    )
 }
+# the reference's name of the feedforward estimator
+MODEL_CLASSES["KerasAutoEncoder"] = AutoEncoder
 
 PathLike = Union[str, os.PathLike]
 
 
-def from_definition(definition: Dict[str, Any]):
-    """``{"<class path>": kwargs}`` -> an unfitted model; a nested
-    ``base_estimator`` definition is built the same way."""
+def _pipeline_step(step) -> Tuple[str, Any]:
+    """A step definition, or a (name, definition) pair, -> (name, object);
+    an unnamed step is named ``step_<class name>``, as the JAX package
+    names it."""
+    if isinstance(step, (list, tuple)) and len(step) == 2:
+        name, definition = step
+        return name, from_definition(definition)
+    obj = from_definition(step)
+    return f"step_{type(obj).__name__}", obj
+
+
+def from_definition(definition: Union[str, Dict[str, Any]]):
+    """
+    ``"<class path>"`` or ``{"<class path>": kwargs}`` -> an unfitted
+    model; a nested ``base_estimator`` definition and a pipeline's
+    ``steps`` are built the same way.
+    """
+    if isinstance(definition, str):
+        definition = {definition: {}}
     if not isinstance(definition, dict) or len(definition) != 1:
         raise ValueError(f"A definition has exactly one class path key: {definition!r}")
     path, kwargs = next(iter(definition.items()))
@@ -58,8 +94,10 @@ def from_definition(definition: Dict[str, Any]):
             f"{path!r} is not a model the port serves; known: {sorted(MODEL_CLASSES)}"
         ) from None
     kwargs = dict(kwargs or {})
-    if isinstance(kwargs.get("base_estimator"), dict):
+    if isinstance(kwargs.get("base_estimator"), (dict, str)):
         kwargs["base_estimator"] = from_definition(kwargs["base_estimator"])
+    if "steps" in kwargs:
+        kwargs["steps"] = [_pipeline_step(step) for step in kwargs["steps"]]
     if hasattr(cls, "from_definition"):
         return cls.from_definition(kwargs)
     return cls(**kwargs)

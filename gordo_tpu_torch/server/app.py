@@ -24,6 +24,7 @@ import traceback
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from gordo_tpu_torch import __version__, serializer
+from gordo_tpu_torch.data.sensor_tag import tag_names
 from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.utils import make_base_dataframe
 from gordo_tpu_torch.server import utils as server_utils
@@ -176,8 +177,8 @@ class GordoApp:
     @staticmethod
     def _tags(metadata: dict) -> Tuple[List[str], List[str]]:
         dataset = metadata["dataset"]
-        tags = server_utils.tag_names(dataset["tag_list"])
-        targets = server_utils.tag_names(dataset.get("target_tag_list") or [])
+        tags = tag_names(dataset["tag_list"])
+        targets = tag_names(dataset.get("target_tag_list") or [])
         return tags, targets or tags
 
     def _extract(self, read_body, metadata: dict):

@@ -4,13 +4,13 @@ JSON only): frame <-> nested-dict bridges with the JAX server's wire
 format, input verification, X/y extraction and resolution parsing.
 """
 
-import re
 from datetime import datetime, timedelta
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from gordo_tpu_torch.models.utils import BlockFrame, Frame
+from gordo_tpu_torch.utils.compat import frequency_to_ns
 
 
 class ApiError(Exception):
@@ -139,42 +139,6 @@ def extract_X_y(
     return X, y
 
 
-def tag_names(tag_list: List[Any]) -> List[str]:
-    """Tag names from a metadata tag list (strings, dicts or pairs)."""
-    names = []
-    for tag in tag_list:
-        if isinstance(tag, dict):
-            names.append(tag["name"])
-        elif isinstance(tag, (list, tuple)):
-            names.append(tag[0])
-        else:
-            names.append(str(tag))
-    return names
-
-
-# legacy single/upper-case pandas alias -> modern alias (the JAX package's
-# gordo_tpu.utils.compat table)
-_LEGACY_ALIASES = {"T": "min", "MIN": "min", "H": "h", "S": "s", "L": "ms", "U": "us"}
-_UNITS = {
-    "d": timedelta(days=1),
-    "D": timedelta(days=1),
-    "h": timedelta(hours=1),
-    "min": timedelta(minutes=1),
-    "s": timedelta(seconds=1),
-    "ms": timedelta(milliseconds=1),
-    "us": timedelta(microseconds=1),
-}
-_FREQ_RE = re.compile(r"^\s*(\d*\.?\d*)\s*([a-zA-Z]+)\s*$")
-
-
 def resolution_to_timedelta(freq: str) -> timedelta:
     """A fixed pandas frequency alias ("10T", "10min", "8H", "1D") -> timedelta."""
-    match = _FREQ_RE.match(freq or "")
-    if not match:
-        raise ValueError(f"Unsupported resolution {freq!r}")
-    num, alias = match.groups()
-    if alias not in _UNITS:
-        alias = _LEGACY_ALIASES.get(alias.upper(), alias)
-    if alias not in _UNITS:
-        raise ValueError(f"Unsupported resolution {freq!r}")
-    return _UNITS[alias] * float(num or 1)
+    return timedelta(microseconds=frequency_to_ns(freq) / 1000)

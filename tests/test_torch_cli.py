@@ -1,0 +1,285 @@
+"""
+The slice end to end: ``python -m gordo_tpu_torch.cli build`` over a
+machine config of ``examples/config.yaml`` (the default pipeline), its
+exit codes, the artifact's metadata against the JAX build's, and the two
+servers' JSON on one converted default-pipeline artifact.
+
+Tolerances: server JSON values rtol 1e-4 / atol 1e-5 (float32 nets in
+another summation order), error bodies and everything not a float
+exactly; ``dataset_meta`` keys and row counts exactly.
+"""
+
+import copy
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+from werkzeug.test import Client
+
+import chip_smoke
+from gordo_tpu import serializer as jax_serializer
+from gordo_tpu.builder import ModelBuilder as JaxModelBuilder
+from gordo_tpu.machine import Machine
+from gordo_tpu.serializer import from_definition as jax_from_definition
+from gordo_tpu.server import build_app as jax_build_app
+from gordo_tpu.server import utils as jax_server_utils
+from gordo_tpu.workflow.config_elements.normalized_config import NormalizedConfig
+from gordo_tpu.workflow.workflow_generator import get_dict_from_yaml
+from gordo_tpu_torch import convert, serializer
+from gordo_tpu_torch.cli.cli import EXIT_CODES
+from gordo_tpu_torch.server.app import build_app
+from tests.test_torch_pipeline import default_model, jax_parts
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+PROJECT = "plant-a-anomaly"
+REVISION = "1700000000000"
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def example_machines():
+    """{name: the machine as the workflow passes it (JSON)} of
+    examples/config.yaml."""
+    config = get_dict_from_yaml(str(REPO_ROOT / "examples" / "config.yaml"))
+    machines = NormalizedConfig(config, project_name=PROJECT).machines
+    return {m.name: json.loads(json.dumps(m.to_dict(), default=str)) for m in machines}
+
+
+def run_build(machine, output_dir, *args, device="cpu"):
+    env = dict(os.environ, MACHINE=json.dumps(machine), OUTPUT_DIR=str(output_dir))
+    env.pop("GORDO_TPU_LAKE_DIR", None)
+    command = [sys.executable, "-m", "gordo_tpu_torch.cli", "build", *args]
+    if device:
+        command += ["--device", device]
+    return subprocess.run(
+        command, cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+
+
+def test_chip_smoke_machines_are_the_example_configs():
+    machines = example_machines()
+    assert set(chip_smoke.DEFAULT_MACHINES) == {"pump-4130", "compressor-2201"}
+    for name, machine in chip_smoke.DEFAULT_MACHINES.items():
+        assert machine == machines[name], name
+    assert chip_smoke.DEFAULT_ROWS == {"pump-4130": 766, "compressor-2201": 10975}
+
+
+@pytest.fixture(scope="module")
+def pump_builds(tmp_path_factory):
+    """(port build's completed process, its artifact dir, the JAX build's
+    machine dict) for pump-4130."""
+    machine = example_machines()["pump-4130"]
+    out = tmp_path_factory.mktemp("cli") / "pump-4130"
+    result = run_build(machine, out, "--print-cv-scores")
+    _, jax_machine = JaxModelBuilder(Machine.from_config(machine, project_name=PROJECT)).build()
+    return result, out, jax_machine.to_dict()
+
+
+def test_cli_build_writes_the_artifact(pump_builds):
+    result, out, _ = pump_builds
+    assert result.returncode == 0, result.stderr
+    assert sorted(os.listdir(out)) == ["definition.json", "metadata.json", "params.npz"]
+    assert "model parameters on cpu" in result.stderr
+    scores = [line for line in result.stdout.splitlines() if "=" in line]
+    assert any(line.startswith("explained-variance-score_fold-mean=") for line in scores)
+    model = serializer.load(out, device="cpu")
+    assert type(model.base_estimator).__name__ == "Pipeline"
+
+
+def test_cli_build_metadata_matches_jax_build(pump_builds):
+    _, out, jax_machine = pump_builds
+    got = serializer.load_metadata(out)["metadata"]["build_metadata"]
+    want = jax_machine["metadata"]["build_metadata"]
+    assert set(got) == set(want)
+    assert set(got["model"]) == set(want["model"])
+    assert set(got["dataset"]) == set(want["dataset"]) == {"query_duration_sec", "dataset_meta"}
+    assert got["dataset"]["query_duration_sec"] > 0
+    got_meta, want_meta = got["dataset"]["dataset_meta"], want["dataset"]["dataset_meta"]
+    assert list(got_meta) == list(want_meta)
+    assert got_meta["tag_loading_metadata"] == want_meta["tag_loading_metadata"]
+    assert got_meta["tag_loading_metadata"]["aggregate_metadata"]["dropped_na_length"] == 766
+    for key in ("train_start_date_actual", "train_end_date_actual"):
+        assert got_meta[key] == str(want_meta[key])
+    cv, jax_cv = got["model"]["cross_validation"], want["model"]["cross_validation"]
+    assert set(cv["scores"]) == set(jax_cv["scores"])
+    assert cv["splits"] == {k: str(v) if not isinstance(v, int) else v
+                            for k, v in jax_cv["splits"].items()}
+    assert set(got["model"]["model_meta"]) == set(want["model"]["model_meta"])
+    assert got["model"]["model_offset"] == want["model"]["model_offset"] == 0
+
+
+def _machine_with(**dataset_changes):
+    machine = copy.deepcopy(example_machines()["pump-4130"])
+    machine["dataset"].update(dataset_changes)
+    return machine
+
+
+@pytest.mark.parametrize(
+    "case,code,error",
+    [
+        ("insufficient-data", 80, "InsufficientDataError"),
+        ("bad-tag", 60, "SensorTagNormalizationError"),
+        ("no-card", 1, "RuntimeError"),
+    ],
+)
+def test_cli_build_exit_codes(case, code, error, tmp_path):
+    machine, device = _machine_with(), "cpu"
+    if case == "insufficient-data":
+        machine = _machine_with(n_samples_threshold=100_000)
+    elif case == "bad-tag":
+        machine = _machine_with(tag_list=["NO-ASSET-PREFIX 1"], target_tag_list=None)
+    else:
+        if torch.cuda.is_available():
+            pytest.skip("a card is present, so the default device works")
+        device = None  # the card, which this machine lacks
+    report = tmp_path / "report.json"
+    result = run_build(machine, tmp_path / "out", "--exceptions-reporter-file", str(report),
+                       device=device)
+    assert result.returncode == code, result.stderr
+    assert json.loads(report.read_text())["type"] == error
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_refuses_a_machine_that_is_not_json(tmp_path):
+    env = dict(os.environ, MACHINE="name: pump-4130\nmodel: {}", OUTPUT_DIR=str(tmp_path))
+    result = subprocess.run(
+        [sys.executable, "-m", "gordo_tpu_torch.cli", "build", "--device", "cpu"],
+        cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert result.returncode == 2
+    assert "MACHINE must be the machine's config as JSON" in result.stderr
+
+
+def test_exit_code_table_matches_jax():
+    from gordo_tpu.cli.cli import _exceptions_reporter
+
+    want = sorted(_exceptions_reporter._exit_codes.values())
+    assert sorted(EXIT_CODES.values()) == want == [1, 20, 30, 60, 70, 80, 81, 90]
+    assert {k.__name__ for k in EXIT_CODES} == {
+        k.__name__ for k in _exceptions_reporter._exit_codes
+    }
+
+
+# -- both servers on one converted default-pipeline artifact ---------------------
+
+TAGS = ["GRA-PUMP-TEMP 1", "GRA-PUMP-PRES 2", "GRA-PUMP-FLOW 3"]
+
+
+def _rows(n_rows, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_rows)[:, None]
+    wave = np.sin(2 * np.pi * t / 144 + np.arange(3))
+    return np.array([60.0, 4.0, 900.0]) + np.array([5.0, 0.5, 80.0]) * (
+        wave + 0.1 * rng.normal(size=(n_rows, 3))
+    )
+
+
+def _metadata(name, definition):
+    return {
+        "name": name,
+        "dataset": {"tag_list": TAGS, "target_tag_list": TAGS, "resolution": "10T"},
+        "model": definition,
+        "metadata": {"build_metadata": {"model": {"model_offset": 0}}},
+        "project_name": PROJECT,
+    }
+
+
+@pytest.fixture(scope="module")
+def clients(tmp_path_factory):
+    """(JAX client, port client): the default-pipeline detector
+    ``pipeline`` and the bare AutoEncoder ``bare``, fitted in JAX and
+    carried over."""
+    frame = pd.DataFrame(_rows(600, seed=1), columns=TAGS)
+    detector = jax_from_definition(default_model(epochs=2, seed=2))
+    detector.cross_validate(X=frame, y=frame)
+    detector.fit(frame, frame)
+    bare = jax_from_definition({"gordo_tpu.models.AutoEncoder": {"kind": "feedforward_hourglass",
+                                                                 "seed": 3}})
+    bare.fit(frame, frame)
+    root = tmp_path_factory.mktemp("servers")
+    jax_dir, port_dir = root / "jax" / REVISION, root / "port" / REVISION
+    for name, model in (("pipeline", detector), ("bare", bare)):
+        definition = jax_serializer.into_definition(model)
+        jax_serializer.dump(model, jax_dir / name, metadata=_metadata(name, definition))
+    parts = jax_parts(jax_serializer.load(jax_dir / "pipeline"))
+    convert.write_artifact(
+        port_dir / "pipeline", metadata=jax_serializer.load_metadata(jax_dir / "pipeline"),
+        **parts,
+    )
+    loaded_bare = jax_serializer.load(jax_dir / "bare")
+    convert.write_artifact(
+        port_dir / "bare", loaded_bare.params_, jax_serializer.into_definition(loaded_bare),
+        metadata=jax_serializer.load_metadata(jax_dir / "bare"),
+    )
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MODEL_COLLECTION_DIR", str(jax_dir))
+        jax_server_utils.clear_caches()
+        yield Client(jax_build_app()), Client(build_app(str(port_dir), device="cpu"))
+    jax_server_utils.clear_caches()
+
+
+def _body(n_rows, seed):
+    frame = pd.DataFrame(
+        _rows(n_rows, seed), columns=TAGS,
+        index=pd.date_range("2019-06-01", periods=n_rows, freq="10min", tz="UTC"),
+    )
+    data = jax_server_utils.dataframe_to_dict(frame)
+    return {"X": data, "y": data}
+
+
+def _post(client, machine, route, body):
+    reply = client.post(f"/gordo/v0/{PROJECT}/{machine}/{route}", json=body)
+    return reply.status_code, json.loads(reply.get_data())
+
+
+def _assert_same(got, want, path="body"):
+    if isinstance(want, dict):
+        assert isinstance(got, dict), path
+        assert set(got) == set(want), f"{path}: {sorted(set(got) ^ set(want))}"
+        for key in want:
+            _assert_same(got[key], want[key], f"{path}/{key}")
+    elif isinstance(want, float):
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL, err_msg=path)
+    else:
+        assert got == want, path
+
+
+@pytest.mark.parametrize("route", ["prediction", "anomaly/prediction"])
+@pytest.mark.parametrize("n_rows", [144, 1000])
+def test_servers_answer_alike_for_the_default_pipeline(clients, route, n_rows):
+    jax_client, port_client = clients
+    body = _body(n_rows, seed=n_rows)
+    want_status, want = _post(jax_client, "pipeline", route, body)
+    got_status, got = _post(port_client, "pipeline", route, body)
+    assert got_status == want_status == 200
+    assert set(got) == set(want) == {"data", "time-seconds", "revision"}
+    _assert_same(got["data"], want["data"])
+    assert len(got["data"]["model-output"][TAGS[0]]) == n_rows
+
+
+def test_servers_answer_alike_for_a_bare_autoencoder(clients):
+    jax_client, port_client = clients
+    body = _body(144, seed=7)
+    want_status, want = _post(jax_client, "bare", "prediction", body)
+    got_status, got = _post(port_client, "bare", "prediction", body)
+    assert got_status == want_status == 200
+    _assert_same(got["data"], want["data"])
+    want_status, want = _post(jax_client, "bare", "anomaly/prediction", body)
+    got_status, got = _post(port_client, "bare", "anomaly/prediction", body)
+    assert got_status == want_status == 422
+    prefix = "Model is not an AnomalyDetector, it is of type: "
+    assert want["message"].startswith(prefix) and got["message"].startswith(prefix)
+    assert got["message"].endswith("AutoEncoder'>") and want["message"].endswith("AutoEncoder'>")
+
+
+def test_servers_metadata_alike(clients):
+    jax_client, port_client = clients
+    path = f"/gordo/v0/{PROJECT}/pipeline/metadata"
+    got, want = (json.loads(c.get(path).get_data()) for c in (port_client, jax_client))
+    assert set(got) == set(want)
+    assert got["metadata"] == want["metadata"]

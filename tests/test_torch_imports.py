@@ -21,6 +21,7 @@ FORBIDDEN = [
     "yaml",
     "pyarrow",
     "dateutil",
+    "click",
 ]
 
 
@@ -44,5 +45,11 @@ def test_port_imports_no_jax_and_no_missing_libraries():
         check=True,
     )
     names, loaded = json.loads(result.stdout.strip().splitlines()[-1])
-    assert {"gordo_tpu_torch.builder.build_model", "gordo_tpu_torch.server.app"} <= set(names)
+    assert {
+        "gordo_tpu_torch.builder.build_model",
+        "gordo_tpu_torch.server.app",
+        "gordo_tpu_torch.cli.cli",
+        "gordo_tpu_torch.data.datasets",
+        "gordo_tpu_torch.models.pipeline",
+    } <= set(names)
     assert loaded == []
