@@ -17,10 +17,12 @@ Phases, each raising on failure (no result line is printed then):
    operations over the type's peak rate, published H100 SXM figures):
    the flash forward, then the dq and dk/dv backward kernels, each also
    on views one element into their memory (no 16-byte aligned row: the
-   kernels' element-by-element path), two dq launches bitwise equal at
-   the training shape and on those views; then the gradient of a loss
-   through the autograd Function on the card against dense attention's
-   on the card;
+   kernels' element-by-element path), at head_dim 64 and 128, at the JAX
+   package's long-context record (1, 8192, 4, 64) in float32 and bf16,
+   and at head_dims the wrappers pad (8 to 16, 48 to 64); two dq launches
+   bitwise equal at the training shape and on those views; then the
+   gradient of a loss through the autograd Function on the card against
+   dense attention's on the card, at head_dim 16, 64 and 48;
 4. serving: the ``turbine-9900-transformer`` machine of
    ``examples/config.yaml`` at full width with ``attention_impl: flash``
    (random weights from a numpy seed in the Flax layout, carried over by
@@ -299,6 +301,18 @@ def library_view(x):
 
 # the misaligned case: (B, S, H, D) views one element into their memory
 MISALIGNED = "train-step-misaligned"
+# cases of the forward and both backward phases: the JAX package's on-chip
+# long-context record (docs/performance.md: causal, batch 1, 4 heads,
+# head_dim 64), and head_dims the wrappers zero-pad to the next kernel
+# width (examples/long_context_training.py's 8 runs at 16, 48 at 64)
+WIDE_CASES = [
+    ("long-context-64", (1, 8192, 4, 64), True, "float32"),
+    ("long-context-64-bf16", (1, 8192, 4, 64), True, "bfloat16"),
+    ("padded-8", (32, 64, 4, 8), True, "float32"),
+    ("padded-48", (16, 200, 2, 48), True, "float32"),
+]
+# the cases each kernel's `wide` rows of the `kernels` line report
+WIDE_ROWS = ("head-dim-128", "long-context-64")
 
 
 def kernel_phase(torch, fa):
@@ -314,6 +328,7 @@ def kernel_phase(torch, fa):
         ("head-dim-128", (2, 300, 2, 128), False, torch.float32),
         ("model-shape-bf16", (8192, 64, 4, 16), True, torch.bfloat16),
         (MISALIGNED, (BATCH_SIZE, 64, 4, 16), True, torch.float32),
+        *((name, shape, causal, getattr(torch, dtype)) for name, shape, causal, dtype in WIDE_CASES),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
@@ -342,11 +357,13 @@ def kernel_phase(torch, fa):
         bound_ms, bound_by = attention_bound(
             shape, causal, dtype_name, q.element_size(), n_tensors=4, n_stats=1, dots=2
         )
+        width = shape[:-1] + (fa.kernel_width(shape[-1]),)
         row = {
             "case": name,
             "shape": list(shape),
             "causal": causal,
             "dtype": dtype_name,
+            "key_splits": fa.forward_splits(torch.empty(width, dtype=dtype, device="cuda"), causal),
             "rows_16b_aligned": fa.rows_16b_aligned(q, k, v, out),
             "max_abs_err": err_out,
             "max_abs_err_lse": err_lse,
@@ -380,6 +397,7 @@ BACKWARD_CASES = [
     ("head-dim-128", (2, 300, 2, 128), False, "float32"),
     ("train-step-bf16", (BATCH_SIZE, 64, 4, 16), True, "bfloat16"),
     (MISALIGNED, (BATCH_SIZE, 64, 4, 16), True, "float32"),
+    *WIDE_CASES,
 ]
 # cases where two dq launches must agree bit for bit (dq and delta)
 BITWISE_CASES = ("train-step", MISALIGNED)
@@ -499,27 +517,33 @@ def gradient_phase(torch, fa):
     """Phase 3, the repair: the gradient of a loss through the flash
     autograd Function on the card equals dense attention's on the card,
     through (batch, seq, heads, head_dim) views of one tensor as the
-    model feeds them."""
+    model feeds them: at the model's head_dim 16, at 64, and at 48, which
+    the Function pads to 64. Each backward launches dq and dk/dv once."""
     from gordo_tpu_torch.models.specs_seq import dense_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     report = {}
-    for causal in (True, False):
-        wide = torch.randn((BATCH_SIZE, 64, 4, 48), generator=gen, device="cuda")
-        wide.requires_grad_(True)
-        q, k, v = wide[..., :16], wide[..., 16:32], wide[..., 32:]
-        before = fa.launch_counts[fa.KERNEL_DQ]
-        fa.flash_attention(q, k, v, causal=causal).square().sum().backward()
-        torch.cuda.synchronize()
-        if fa.launch_counts[fa.KERNEL_DQ] != before + 1:
-            raise AssertionError("the flash Function's backward did not launch the dq kernel")
-        flash_grad = wide.grad.clone()
-        wide.grad = None
-        dense_attention(q, k, v, causal=causal).square().sum().backward()
-        err = (flash_grad - wide.grad).abs().max().item()
-        report["causal" if causal else "full"] = err
-        if not err <= TOLERANCE["float32"]:
-            raise AssertionError(f"flash and dense gradients differ on the card by {err}")
+    for head_dim in (16, 64, 48):
+        for causal in (True, False):
+            wide = torch.randn((BATCH_SIZE, 64, 4, 3 * head_dim), generator=gen, device="cuda")
+            wide.requires_grad_(True)
+            q, k, v = (wide[..., i * head_dim:(i + 1) * head_dim] for i in range(3))
+            before = dict(fa.launch_counts)
+            fa.flash_attention(q, k, v, causal=causal).square().sum().backward()
+            torch.cuda.synchronize()
+            for kernel in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV):
+                if fa.launch_counts[kernel] != before[kernel] + 1:
+                    raise AssertionError(f"the flash Function at head_dim {head_dim} did not "
+                                         f"launch {kernel} once")
+            flash_grad = wide.grad.clone()
+            wide.grad = None
+            dense_attention(q, k, v, causal=causal).square().sum().backward()
+            err = (flash_grad - wide.grad).abs().max().item()
+            label = "causal" if causal else "full"
+            report[label if head_dim == 16 else f"head-dim-{head_dim}-{label}"] = err
+            if not err <= TOLERANCE["float32"]:
+                raise AssertionError(f"flash and dense gradients differ on the card by {err} "
+                                     f"at head_dim {head_dim}")
     log("flash-vs-dense gradient max abs diff on the card", json.dumps(report))
     return report
 
@@ -1250,8 +1274,16 @@ def profile_default_fit(torch, artifact: str, X):
     return result
 
 
-def kernel_entry(kernel, source, replaces, check, launches_by_path):
-    """One kernel's object of the ``kernels`` line."""
+def wide_row(check):
+    """A head_dim 64/128 check row as the ``kernels`` line reports it."""
+    keys = ("case", "shape", "dtype", "ms", "ms_timer", "bound_ms", "bound_by", "plain_ms",
+            "plain_ms_timer", "library_ms", "library_ms_timer")
+    return {key: check[key] for key in keys}
+
+
+def kernel_entry(kernel, source, replaces, check, launches_by_path, wide_checks):
+    """One kernel's object of the ``kernels`` line; ``wide`` holds its
+    head_dim 128 and long-context head_dim 64 rows."""
     return {
         "name": kernel,
         "route": "cuda",
@@ -1270,6 +1302,7 @@ def kernel_entry(kernel, source, replaces, check, launches_by_path):
         "library_ms": check["library_ms"],
         "library_ms_timer": check["library_ms_timer"],
         "shape": check["shape"],
+        "wide": [wide_row(row) for row in wide_checks],
     }
 
 
@@ -1317,6 +1350,9 @@ def main(argv=None) -> int:
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
 
+    def wide(kernel, rows):
+        return [check(kernel, case, rows) for case in WIDE_ROWS]
+
     fwd_paths = {"serve": serve_launches, "train": train["launches"][fa.KERNEL],
                  "serve_trained": train["served"]["launches"],
                  "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL]}
@@ -1324,17 +1360,20 @@ def main(argv=None) -> int:
         "kernels": [
             kernel_entry(fa.KERNEL, "gordo_tpu_torch/csrc/flash_attention_fwd.cu",
                          "gordo_tpu/ops/flash_attention.py:72",
-                         check(fa.KERNEL, "model-shape", checks), fwd_paths),
+                         check(fa.KERNEL, "model-shape", checks), fwd_paths,
+                         wide(fa.KERNEL, checks)),
             kernel_entry(fa.KERNEL_DQ, "gordo_tpu_torch/csrc/flash_attention_bwd.cu",
                          "gordo_tpu/ops/flash_attention.py:176",
                          check(fa.KERNEL_DQ, "train-step", backward_checks),
                          {"train": train["launches"][fa.KERNEL_DQ],
-                          "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL_DQ]}),
+                          "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL_DQ]},
+                         wide(fa.KERNEL_DQ, backward_checks)),
             kernel_entry(fa.KERNEL_DKV, "gordo_tpu_torch/csrc/flash_attention_bwd.cu",
                          "gordo_tpu/ops/flash_attention.py:213",
                          check(fa.KERNEL_DKV, "train-step", backward_checks),
                          {"train": train["launches"][fa.KERNEL_DKV],
-                          "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL_DKV]}),
+                          "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL_DKV]},
+                         wide(fa.KERNEL_DKV, backward_checks)),
         ]
     }
     if args.out:

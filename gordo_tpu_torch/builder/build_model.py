@@ -22,6 +22,7 @@ JAX project config gives them: ``cv_mode: full_build``, a RobustScaler as
 """
 
 import copy
+import functools
 import logging
 import time
 from datetime import datetime, timezone
@@ -37,7 +38,7 @@ from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.anomaly.diff import RobustScaling
 from gordo_tpu_torch.models.core import BaseTorchEstimator, as_2d
 from gordo_tpu_torch.models.pipeline import Pipeline
-from gordo_tpu_torch.models.utils import METRICS, TimeSeriesSplit, metric_wrapper
+from gordo_tpu_torch.models.utils import METRICS, TimeSeriesSplit, cross_validate, metric_wrapper
 
 logger = logging.getLogger(__name__)
 
@@ -48,6 +49,8 @@ DEFAULT_EVALUATION = {
     "metrics": list(METRICS),
 }
 _CV_MODES = ("full_build", "cross_val_only", "build_only")
+# the cross-validation metadata of a build that did not cross-validate
+_EMPTY_CV: Dict[str, Any] = {"scores": {}, "cv_duration_sec": None, "splits": {}}
 
 
 def _class_name(definition) -> Tuple[str, dict]:
@@ -152,7 +155,7 @@ class ModelBuilder:
         _inject_seed(model, int(evaluation.get("seed", 0)))
         machine = copy.deepcopy(self.machine)
 
-        cv_meta = {"scores": {}, "cv_duration_sec": None, "splits": {}}
+        cv_meta = copy.deepcopy(_EMPTY_CV)
         if cv_mode != "build_only":
             cv_meta = self._run_cross_validation(model, X, y, index, device)
         if cv_mode == "cross_val_only":
@@ -182,7 +185,14 @@ class ModelBuilder:
 
     def _run_cross_validation(self, model, X, y, index, device) -> Dict[str, Any]:
         """Cross-validate with per-tag and aggregate scorers and package the
-        fold scores and splits."""
+        fold scores and splits: through the model's own ``cross_validate``
+        (the anomaly detector derives its thresholds on the way), else
+        :func:`~gordo_tpu_torch.models.utils.cross_validate`. A model with no
+        ``predict`` cannot be scored: its CV metadata stays empty, as in
+        the JAX builder."""
+        if not hasattr(model, "predict"):
+            logger.debug("Unable to score model; it has no 'predict' attribute")
+            return copy.deepcopy(_EMPTY_CV)
         evaluation = self.machine["evaluation"]
         dataset = self.machine["dataset"]
         scorers = self.build_metrics_dict(
@@ -192,8 +202,9 @@ class ModelBuilder:
             _scoring_scaler(evaluation.get("scoring_scaler")),
         )
         splitter = _splitter(evaluation.get("cv", DEFAULT_CV))
+        run = getattr(model, "cross_validate", None) or functools.partial(cross_validate, model)
         start = time.perf_counter()
-        cv = model.cross_validate(X=X, y=y, cv=splitter, scoring=scorers, device=device)
+        cv = run(X=X, y=y, cv=splitter, scoring=scorers, device=device)
         cv_secs = time.perf_counter() - start
         logger.info(
             "Cross-validated in %.3f s; fold fits %s s",

@@ -86,10 +86,25 @@
 // CUDA cores: TF32 would break the 1e-4 float32 tolerance, and the
 // served scale is bound by bytes.
 //
-// dk/dv at head_dim 64 and 128 (flash_bwd_dkv_slice_kernel): one block
-// owns 64 key rows and loops over query tiles like the dq kernel, with
-// k, v and the dk and dv accumulators in registers; causal blocks start
-// at the query tile holding the block's first key.
+// dk/dv at head_dim 64 and 128 (flash_bwd_dkv_wide_kernel): bound by
+// operations (4 dots of head_dim per kept pair: 69 GFLOP, 1.03 ms at the
+// fp32 rate, for the causal (1, 8192, 4, 64)) and by each block's serial
+// query walk at small grids. The quad layout of the head_dim 16/32 kernel
+// with wider rows: a key row's dims are split over S = 4 (head_dim 64) or
+// 8 (128) lanes, each lane owning R = 2 key rows (k, v and the dk, dv
+// partials of 16 dims each), so every q and dO element read from shared
+// memory feeds two keys' multiply-adds. q, dO, LSE and delta tiles (64
+// queries at head_dim 64, 32 at 128) pass through a two-stage ring in
+// dynamic shared memory: with mode bit 2 the 16-byte cp.async copies of
+// tile t + 1 (4-byte ones for LSE and delta) are in flight while the block
+// works on tile t; otherwise q and dO go element by element. Causal blocks
+// start at their first key's query and each warp at its own, and blocks
+// run the key tiles first to last across all heads, so the longest query
+// walks start first. ptxas fits both widths with no spill (248 and 255
+// registers in float32); the warps per block (4 at 64, 8 at 128) and the
+// tiles were chosen by timing on the card (scripts/flash_tiling_sweep.py,
+// PERF.md). The quad's partials are merged once by the fixed-order
+// butterfly, and each dk/dv element has one owner: no atomics.
 //
 // Rows past the sequence end store nothing; query rows past the end add
 // nothing to dk/dv and keys past the end have probability 0. No head-dim
@@ -101,8 +116,8 @@
 // Strides are in elements, (batch, seq, head) for each tensor in the
 // order the entry point names; the head dim must be contiguous. `mode` is
 // a bit set: 1 causal, 2 every row start of the six (batch, seq, heads,
-// head_dim) tensors of the entry point 16-byte aligned (read by the quad
-// kernels; the head_dim 64 and 128 kernels read bit 1 only). The kernels
+// head_dim) tensors of the entry point 16-byte aligned (read by every
+// kernel but the head_dim 64/128 dq kernel, which reads bit 1 only). The kernels
 // allocate nothing and run on the caller's stream. Each entry point
 // returns the CUDA error code of its launch (0 on success).
 
@@ -137,6 +152,7 @@ struct Params {
   void* dk;
   void* dv;
   Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
+  int batch_heads;
   int heads;
   int seq;
   int n_tiles;  // row tiles per (batch, head)
@@ -254,103 +270,6 @@ __global__ void __launch_bounds__(kBlockRows*(D / kSlice))
     T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, d0);
 #pragma unroll
     for (int i = 0; i < kSlice; ++i) dq_row[i] = from_float<T>(acc[i] * p.sm_scale);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kBlockRows*(D / kSlice))
-    flash_bwd_dkv_slice_kernel(const Params p) {
-  constexpr int kTpr = D / kSlice;            // threads per key row
-  constexpr int kBlockQ = D <= 32 ? 64 : 32;  // queries per shared tile
-  constexpr int kThreads = kBlockRows * kTpr;
-
-  __shared__ float q_tile[kBlockQ][D];
-  __shared__ float do_tile[kBlockQ][D];
-  __shared__ float lse_tile[kBlockQ];
-  __shared__ float delta_tile[kBlockQ];
-
-  const int bh = blockIdx.x / p.n_tiles;
-  const int kt = blockIdx.x - bh * p.n_tiles;
-  const int b = bh / p.heads;
-  const int h = bh - b * p.heads;
-  const int row = threadIdx.x / kTpr;
-  const int d0 = (threadIdx.x - row * kTpr) * kSlice;
-  const int seq = p.seq;
-  const int kpos = kt * kBlockRows + row;
-  const int kc = min(kpos, seq - 1);
-
-  const T* k_row = row_ptr<T>(p.k, p.k_st, b, kc, h, d0);
-  const T* v_row = row_ptr<T>(p.v, p.v_st, b, kc, h, d0);
-  float kr[kSlice];
-  float vr[kSlice];
-  float dk[kSlice];
-  float dv[kSlice];
-#pragma unroll
-  for (int i = 0; i < kSlice; ++i) {
-    kr[i] = to_float(k_row[i]);
-    vr[i] = to_float(v_row[i]);
-    dk[i] = 0.f;
-    dv[i] = 0.f;
-  }
-
-  const int64_t stat = static_cast<int64_t>(bh) * seq;
-  // causal: queries before the block's first key see none of its keys
-  const int q_begin = p.causal ? (kt * kBlockRows / kBlockQ) * kBlockQ : 0;
-  const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
-  const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
-
-  for (int q0 = q_begin; q0 < seq; q0 += kBlockQ) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = threadIdx.x; idx < kBlockQ * D; idx += kThreads) {
-      const int i = idx / D;
-      const int d = idx - i * D;
-      const int qpos = q0 + i;
-      float qv = 0.f, dov = 0.f;
-      if (qpos < seq) {
-        qv = to_float(q_head[static_cast<int64_t>(qpos) * p.q_st.s + d]);
-        dov = to_float(do_head[static_cast<int64_t>(qpos) * p.do_st.s + d]);
-      }
-      q_tile[i][d] = qv;
-      do_tile[i][d] = dov;
-    }
-    for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
-      const int qpos = q0 + i;
-      lse_tile[i] = qpos < seq ? p.lse[stat + qpos] : 0.f;
-      delta_tile[i] = qpos < seq ? p.delta[stat + qpos] : 0.f;
-    }
-    __syncthreads();
-
-    // query rows past the sequence end are never visited
-    const int n = min(kBlockQ, seq - q0);  // uniform across the block
-#pragma unroll 2
-    for (int i = 0; i < n; ++i) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int t = 0; t < kSlice; ++t) {
-        s = fmaf(q_tile[i][d0 + t], kr[t], s);
-        dp = fmaf(do_tile[i][d0 + t], vr[t], dp);
-      }
-      s = row_sum<kTpr>(s);
-      dp = row_sum<kTpr>(dp);
-      const bool keep = !p.causal || kpos <= q0 + i;
-      const float prob = keep ? expf(s * p.sm_scale - lse_tile[i]) : 0.f;
-      const float ds = prob * (dp - delta_tile[i]);
-#pragma unroll
-      for (int t = 0; t < kSlice; ++t) {
-        dv[t] = fmaf(prob, do_tile[i][d0 + t], dv[t]);
-        dk[t] = fmaf(ds, q_tile[i][d0 + t], dk[t]);
-      }
-    }
-  }
-
-  if (kpos < seq) {
-    T* dk_row = row_ptr<T>(p.dk, p.dk_st, b, kpos, h, d0);
-    T* dv_row = row_ptr<T>(p.dv, p.dv_st, b, kpos, h, d0);
-#pragma unroll
-    for (int t = 0; t < kSlice; ++t) {
-      dk_row[t] = from_float<T>(dk[t] * p.sm_scale);
-      dv_row[t] = from_float<T>(dv[t]);
-    }
   }
 }
 
@@ -489,6 +408,176 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
         }
       }
     }
+  }
+
+  // merge the quad: a quarter of the lane's dims of each key row per lane
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float dk_out[kDims / 4];
+    float dv_out[kDims / 4];
+    flash::quad_reduce_scatter<kDims, S>(dk[r], dk_out, quad);
+    flash::quad_reduce_scatter<kDims, S>(dv[r], dv_out, quad);
+    const int kpos = k0 + key0 + r;
+    if (kpos < seq) {
+      const int d0 = part * kDims + quad * (kDims / 4);
+      flash::store_row<T, kDims / 4>(row_ptr<T>(p.dk, p.dk_st, b, kpos, h, d0), dk_out,
+                                     p.sm_scale, vec);
+      flash::store_row<T, kDims / 4>(row_ptr<T>(p.dv, p.dv_st, b, kpos, h, d0), dv_out, 1.f,
+                                     vec);
+    }
+  }
+}
+
+// The dk/dv quad layout at head_dim 64 and 128, with more of the work in
+// flight: kWarps warps a block, the lane's k and v rows loaded straight
+// into registers, and q, dO, LSE and delta tiles of kTile queries staged
+// through a two-stage ring in dynamic shared memory, so the copies of
+// tile t + 1 run under the math on tile t.
+template <typename T, int D, int R, int S, int kWarps, int kTile, int kMinBlocks>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+    flash_bwd_dkv_wide_kernel(const Params p) {
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kDims = D / S;  // head dims a lane holds
+  constexpr int kWarpKeys = R * (32 / (flash::kQuad * S));
+  constexpr int kKeys = flash::quad_rows<R, S, kWarps>();
+  constexpr int kPitch = D + 16 / sizeof(T);  // padded row: 16-byte aligned, no bank conflicts
+  constexpr int kStage = kTile * kPitch;      // elements of one staged tile
+  constexpr int kLaneQueries = kTile / flash::kQuad;  // queries a lane walks per tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_ring = reinterpret_cast<T*>(smem);  // [2][kStage]
+  T* do_ring = q_ring + 2 * kStage;        // [2][kStage]
+  float* lse_ring = reinterpret_cast<float*>(do_ring + 2 * kStage);  // [2][kTile]
+  float* delta_ring = lse_ring + 2 * kTile;                          // [2][kTile]
+
+  // key tiles first to last across all heads: causal launches start with
+  // their longest query walks
+  const int kt = blockIdx.x / p.batch_heads;
+  const int bh = blockIdx.x - kt * p.batch_heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int part = lane % S;                         // which kDims of each row
+  const int quad = (lane / S) & (flash::kQuad - 1);  // which queries of each tile
+  const int key0 = warp * kWarpKeys + (lane / (flash::kQuad * S)) * R;  // lane's keys: key0 + r
+  const int seq = p.seq;
+  const int k0 = kt * kKeys;
+  const bool vec = p.vec;
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
+  const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
+  // causal: queries before the block's first key see none of its keys, and
+  // queries before the warp's first key none of the warp's (all lanes of a
+  // warp walk the same queries)
+  const int q_begin = p.causal ? k0 : 0;
+  const int warp_q_first = p.causal ? k0 + warp * kWarpKeys : 0;
+  const int n_tiles = (seq - q_begin + kTile - 1) / kTile;
+
+  // stage the query tile at q0 (past the sequence end: zeros) into ring stage `s`
+  auto stage = [&](int q0, int s) {
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(q_ring + s * kStage, q_head, p.q_st.s, q0,
+                                                     seq, vec);
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(do_ring + s * kStage, do_head, p.do_st.s,
+                                                     q0, seq, vec);
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+      const int qp = q0 + i;
+      if (qp < seq) {
+        flash::cp_async4(lse_ring + s * kTile + i, p.lse + stat + qp);
+        flash::cp_async4(delta_ring + s * kTile + i, p.delta + stat + qp);
+      } else {
+        lse_ring[s * kTile + i] = 0.f;
+        delta_ring[s * kTile + i] = 0.f;
+      }
+    }
+    flash::cp_async_commit();
+  };
+  stage(q_begin, 0);
+
+  // the lane's k (prescaled: scores in log2 units) and v rows; keys past
+  // the sequence end compute on a clamped copy and store nothing
+  const float k_scale = p.sm_scale * flash::kLog2e;
+  float kr[R][kDims];
+  float vr[R][kDims];
+  float dk[R][kDims];
+  float dv[R][kDims];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int kc = min(k0 + key0 + r, seq - 1);
+    flash::load_row<T, kDims>(row_ptr<T>(p.k, p.k_st, b, kc, h, part * kDims), kr[r], vec);
+    flash::load_row<T, kDims>(row_ptr<T>(p.v, p.v_st, b, kc, h, part * kDims), vr[r], vec);
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) {
+      kr[r][d] *= k_scale;
+      dk[r][d] = 0.f;
+      dv[r][d] = 0.f;
+    }
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = q_begin + t * kTile;
+    if (t + 1 < n_tiles) {
+      stage(q0 + kTile, (t + 1) & 1);  // the next tile into the other stage
+    } else {
+      flash::cp_async_commit();
+    }
+    flash::cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const T* q_tile = q_ring + (t & 1) * kStage;
+    const T* do_tile = do_ring + (t & 1) * kStage;
+    const float* lse_tile = lse_ring + (t & 1) * kTile;
+    const float* delta_tile = delta_ring + (t & 1) * kTile;
+    // queries quad + 4u of the tile, u in [u_begin, u_end) (uniform across the warp)
+    const int u_begin = max(0, warp_q_first - q0) / flash::kQuad;
+    const int u_end = min(kLaneQueries, (seq - q0 + flash::kQuad - 1) / flash::kQuad);
+#pragma unroll 2
+    for (int u = u_begin; u < u_end; ++u) {
+      const int i = quad + u * flash::kQuad;
+      const T* q_row = q_tile + i * kPitch + part * kDims;
+      const T* do_row = do_tile + i * kPitch + part * kDims;
+      float4 qv[kDims / 4];
+      float4 ov[kDims / 4];
+#pragma unroll
+      for (int c = 0; c < kDims / 4; ++c) {
+        qv[c] = flash::load4(q_row + 4 * c);
+        ov[c] = flash::load4(do_row + 4 * c);
+      }
+      const float lse2 = lse_tile[i] * flash::kLog2e;
+      const float delta = delta_tile[i];
+      const int qp = q0 + i;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 dp4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) {
+          s4.x = fmaf(qv[c].x, kr[r][4 * c], s4.x);
+          s4.y = fmaf(qv[c].y, kr[r][4 * c + 1], s4.y);
+          s4.z = fmaf(qv[c].z, kr[r][4 * c + 2], s4.z);
+          s4.w = fmaf(qv[c].w, kr[r][4 * c + 3], s4.w);
+          dp4.x = fmaf(ov[c].x, vr[r][4 * c], dp4.x);
+          dp4.y = fmaf(ov[c].y, vr[r][4 * c + 1], dp4.y);
+          dp4.z = fmaf(ov[c].z, vr[r][4 * c + 2], dp4.z);
+          dp4.w = fmaf(ov[c].w, vr[r][4 * c + 3], dp4.w);
+        }
+        const float score = flash::dim_sum<S>((s4.x + s4.y) + (s4.z + s4.w));
+        const float dp = flash::dim_sum<S>((dp4.x + dp4.y) + (dp4.z + dp4.w));
+        const bool keep = qp < seq && (!p.causal || k0 + key0 + r <= qp);
+        const float prob = keep ? exp2f(score - lse2) : 0.f;
+        const float ds = prob * (dp - delta);
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) {
+          dv[r][4 * c] = fmaf(prob, ov[c].x, dv[r][4 * c]);
+          dv[r][4 * c + 1] = fmaf(prob, ov[c].y, dv[r][4 * c + 1]);
+          dv[r][4 * c + 2] = fmaf(prob, ov[c].z, dv[r][4 * c + 2]);
+          dv[r][4 * c + 3] = fmaf(prob, ov[c].w, dv[r][4 * c + 3]);
+          dk[r][4 * c] = fmaf(ds, qv[c].x, dk[r][4 * c]);
+          dk[r][4 * c + 1] = fmaf(ds, qv[c].y, dk[r][4 * c + 1]);
+          dk[r][4 * c + 2] = fmaf(ds, qv[c].z, dk[r][4 * c + 2]);
+          dk[r][4 * c + 3] = fmaf(ds, qv[c].w, dk[r][4 * c + 3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
   // merge the quad: a quarter of the lane's dims of each key row per lane
@@ -676,6 +765,19 @@ struct DkvTiling<32> {
   static constexpr int R = 2, S = 2, kMinBlocks = 2;
 };
 
+// (keys per lane, dim split, warps per block, queries per staged tile,
+// minimum blocks per SM) of the dk/dv wide kernel
+template <int D>
+struct DkvWideTiling;
+template <>
+struct DkvWideTiling<64> {
+  static constexpr int R = 2, S = 4, kWarps = 4, kTile = 64, kMinBlocks = 2;
+};
+template <>
+struct DkvWideTiling<128> {
+  static constexpr int R = 2, S = 8, kWarps = 8, kTile = 32, kMinBlocks = 1;
+};
+
 enum class Which { kDq, kDkv };
 
 template <Which W, typename T, int D>
@@ -686,6 +788,9 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
     rows = flash::quad_rows<DqTiling<D>::R, DqTiling<D>::S>();
   } else if constexpr (kQuadKernel) {
     rows = flash::quad_rows<DkvTiling<D>::R, DkvTiling<D>::S>();
+  } else if constexpr (W == Which::kDkv) {
+    using Tile = DkvWideTiling<D>;
+    rows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
   }
   p.n_tiles = (p.seq + rows - 1) / rows;
   const int64_t n_blocks = batch_heads * p.n_tiles;
@@ -703,7 +808,15 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
     flash_bwd_dkv_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
         <<<grid, flash::kQuadThreads, 0, stream>>>(p);
   } else {
-    flash_bwd_dkv_slice_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
+    using Tile = DkvWideTiling<D>;
+    // q and dO tiles, then LSE and delta, each in two stages
+    constexpr int kSmem = 4 * Tile::kTile * (D + 16 / static_cast<int>(sizeof(T))) * sizeof(T) +
+                          4 * Tile::kTile * sizeof(float);
+    const auto kernel = flash_bwd_dkv_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps,
+                                                  Tile::kTile, Tile::kMinBlocks>;
+    static const cudaError_t smem_ok = flash::allow_dynamic_smem(kernel, kSmem);
+    if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
+    kernel<<<grid, Tile::kWarps * 32, kSmem, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -732,6 +845,8 @@ int run(Params& p, int batch, int seq, int heads, int head_dim, int dtype, int m
   p.causal = (mode & flash::kModeCausal) != 0;
   p.vec = (mode & flash::kModeVec16) != 0;
   const int64_t batch_heads = static_cast<int64_t>(batch) * heads;
+  if (batch_heads > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  p.batch_heads = static_cast<int>(batch_heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_head_dim<W, float>(head_dim, p, batch_heads, s);

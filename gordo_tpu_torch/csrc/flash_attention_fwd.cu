@@ -38,12 +38,35 @@
 // exp2. Everything stays on the fp32 CUDA cores: TF32 would break the
 // 1e-4 float32 tolerance, and the served shape is bound by bytes anyway.
 //
-// At head_dim 64 and 128 the general kernel (flash_fwd_slice_kernel)
-// runs: one block per (batch*head, 64-query tile), a row owned by D/16
-// threads each holding 16 of its head dims, key/value tiles staged in
-// shared memory as fp32, causal tiles stopping at the query tile's last
-// row. Neither kernel pads head_dim to 128 lanes or broadcasts row
-// statistics over lanes: those exist only for Mosaic's (8, 128) tiling.
+// At head_dim 64 and 128 (flash_fwd_wide_kernel) the work per (row, key)
+// pair is 4-8x larger and the grids are small (76 blocks at (2, 300, 2,
+// 128)), so the kernel is bound by operations and by the latency of each
+// block's serial key walk, not by bytes: the JAX package's long-context
+// case (1, 8192, 4, 64), causal, is 34 GFLOP against 34 MB, 0.51 ms at the
+// fp32 rate. It keeps the quad layout and adds what the wider rows need.
+// A row's dims are split over S = 4 (head_dim 64) or 8 (128) lanes, so a
+// lane holds 16 of them, and each lane owns R = 4 rows: every key or value
+// element read from shared memory feeds four multiply-adds, and each
+// (row, key) dot costs log2 S shuffles. Key and value tiles (64 keys at
+// head_dim 64, 32 at 128) pass through a two-stage ring in dynamic shared
+// memory: with mode bit 2 the 16-byte cp.async copies of tile t + 1 are in
+// flight while the block works on tile t, and otherwise the same ring is
+// filled element by element. q rows go from device memory straight to
+// registers. R, S, the warps per block (8 at 64, 4 at 128) and the tile
+// were chosen by timing tilings on the card (scripts/flash_tiling_sweep.py,
+// PERF.md): ptxas fits both widths at 254 registers in float32 with no
+// spill, one 8-warp or two 4-warp blocks per SM; R = 2 tilings (136-148
+// registers, three blocks per SM) ran slower. Blocks run the row tiles
+// last to first across all heads, so a causal launch starts with its
+// longest key walks. Where the row tiles alone leave the card's SMs idle,
+// the key axis is split across blocks (at most 8 splits, as many as keep
+// one wave; a causal launch counts half its blocks): each split writes its
+// rows unnormalised with their (max, sum) to a float32 scratch the caller
+// allocates, and flash_fwd_merge_kernel sums the splits in split order, so
+// a launch stays deterministic. Neither kernel pads head_dim to 128 lanes
+// or broadcasts row statistics over lanes: those exist only for Mosaic's
+// (8, 128) tiling; the wrapper pads a head_dim off 16/32/64/128 to the
+// next of them.
 //
 // Inputs are float32 or bfloat16 (dtype 0 / 1) with fp32 accumulation;
 // head_dim is 16, 32, 64 or 128; any sequence length. Strides are in
@@ -52,6 +75,7 @@
 // kernels allocate nothing and run on the caller's stream. The entry
 // point returns the CUDA error code of the launch (0 on success).
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -62,16 +86,17 @@
 
 namespace {
 
-constexpr int kSlice = 16;    // head dims held by one thread (general kernel)
-constexpr int kBlockQ = 64;   // query rows per block (general kernel)
-constexpr int kChunk = 16;    // keys per online-softmax update (general kernel)
-
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* out;
   float* lse;
+  // key splits (wide kernel): each split's unnormalised rows, then its
+  // (max, sum) pairs, in float32 (the caller's scratch)
+  float* ws;
+  int n_splits;
+  int batch_heads;
   int heads;
   int seq;
   int n_qtiles;
@@ -84,114 +109,238 @@ struct Params {
   int vec;
 };
 
-using flash::from_float;
-using flash::kNegInf;
-using flash::to_float;
+// The quad layout at head_dim 64 and 128, with more of the work in flight:
+// kWarps warps a block, lane rows loaded straight into registers, and key
+// and value tiles of kTile rows staged through a two-stage ring in dynamic
+// shared memory, so the copies of tile t + 1 run under the math on tile t.
+template <typename T, int D, int R, int S, int kWarps, int kTile, int kMinBlocks>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+    flash_fwd_wide_kernel(const Params p) {
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kDims = D / S;                          // head dims a lane holds
+  constexpr int kWarpRows = R * (32 / (flash::kQuad * S));
+  constexpr int kRows = flash::quad_rows<R, S, kWarps>();
+  constexpr int kPitch = D + 16 / sizeof(T);  // padded row: 16-byte aligned, no bank conflicts
+  constexpr int kStage = kTile * kPitch;      // elements of one staged tile
+  constexpr int kLaneKeys = kTile / flash::kQuad;  // keys a lane walks per tile
+  constexpr int kUpdate = kLaneKeys < 16 / R ? kLaneKeys : 16 / R;  // keys per softmax update
+  static_assert(kLaneKeys % kUpdate == 0, "a tile holds whole softmax updates");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_ring = reinterpret_cast<T*>(smem);  // [2][kStage]
+  T* v_ring = k_ring + 2 * kStage;         // [2][kStage]
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kBlockQ*(D / kSlice))
-    flash_fwd_slice_kernel(const Params p) {
-  constexpr int kTpr = D / kSlice;              // threads per query row
-  constexpr int kBlockK = D <= 32 ? 64 : 32;    // keys per shared tile
-  constexpr int kThreads = kBlockQ * kTpr;
-  static_assert(kBlockK % kChunk == 0, "key tile must hold whole chunks");
-
-  __shared__ float k_tile[kBlockK][D];
-  __shared__ float v_tile[kBlockK][D];
-
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  T* out = static_cast<T*>(p.out);
-
-  const int bh = blockIdx.x / p.n_qtiles;
-  const int qt = blockIdx.x - bh * p.n_qtiles;
+  // block = (row tile, batch*head, key split), split fastest; the row
+  // tiles run last to first across all heads, so causal launches start
+  // with their longest key walks
+  const int split = blockIdx.x % p.n_splits;
+  const int tile = blockIdx.x / p.n_splits;
+  const int bh = tile % p.batch_heads;
+  const int qt = p.n_qtiles - 1 - tile / p.batch_heads;
   const int b = bh / p.heads;
   const int h = bh - b * p.heads;
-  const int row = threadIdx.x / kTpr;
-  const int d0 = (threadIdx.x - row * kTpr) * kSlice;
-  const int qpos = qt * kBlockQ + row;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int part = lane % S;                         // which kDims of each row
+  const int quad = (lane / S) & (flash::kQuad - 1);  // which keys of each tile
+  const int row0 = warp * kWarpRows + (lane / (flash::kQuad * S)) * R;  // lane's rows: row0 + r
   const int seq = p.seq;
+  const int q0 = qt * kRows;
+  const bool vec = p.vec;
 
-  // rows past the sequence end compute on a clamped copy (every thread
-  // must take part in the shuffles) and store nothing
-  const T* q_row = q + b * p.q_sb + static_cast<int64_t>(min(qpos, seq - 1)) * p.q_ss +
-                   h * p.q_sh + d0;
-  float qr[kSlice];
-  float acc[kSlice];
-#pragma unroll
-  for (int i = 0; i < kSlice; ++i) {
-    qr[i] = to_float(q_row[i]);
-    acc[i] = 0.f;
+  const T* q_head = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k_head = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v_head = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  // keys the block needs, and keys the warp's rows need: all lanes of a
+  // warp walk the same keys, so causal work above a warp's rows is skipped
+  const int k_end = p.causal ? min(seq, q0 + kRows) : seq;
+  const int warp_k_end = p.causal ? min(seq, q0 + warp * kWarpRows + kWarpRows) : seq;
+  // this split's run of the block's key tiles
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const int split_tiles = (n_tiles + p.n_splits - 1) / p.n_splits;
+  const int t_begin = min(n_tiles, split * split_tiles);
+  const int t_end = min(n_tiles, t_begin + split_tiles);
+
+  if (t_begin < t_end) {
+    T* k_first = k_ring + (t_begin & 1) * kStage;
+    T* v_first = v_ring + (t_begin & 1) * kStage;
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(k_first, k_head, p.k_ss, t_begin * kTile,
+                                                     k_end, vec);
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(v_first, v_head, p.v_ss, t_begin * kTile,
+                                                     k_end, vec);
   }
-  float m = kNegInf;
-  float l = 0.f;
+  flash::cp_async_commit();
 
-  const int q_last = min(seq, (qt + 1) * kBlockQ) - 1;
-  const int k_end = p.causal ? q_last + 1 : seq;  // keys this tile needs
-  const T* k_head = k + b * p.k_sb + h * p.k_sh;
-  const T* v_head = v + b * p.v_sb + h * p.v_sh;
-
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = threadIdx.x; idx < kBlockK * D; idx += kThreads) {
-      const int j = idx / D;
-      const int d = idx - j * D;
-      const int kpos = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kpos < seq) {
-        kv = to_float(k_head[static_cast<int64_t>(kpos) * p.k_ss + d]);
-        vv = to_float(v_head[static_cast<int64_t>(kpos) * p.v_ss + d]);
-      }
-      k_tile[j][d] = kv;
-      v_tile[j][d] = vv;
+  // the lane's q rows (prescaled: scores in log2 units); rows past the
+  // sequence end compute on a clamped copy and store nothing
+  const float q_scale = p.sm_scale * flash::kLog2e;
+  float qr[R][kDims];
+  float acc[R][kDims];
+  float m[R];
+  float l[R];  // this lane's share of each row's sum
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qc = min(q0 + row0 + r, seq - 1);
+    flash::load_row<T, kDims>(q_head + static_cast<int64_t>(qc) * p.q_ss + part * kDims, qr[r],
+                              vec);
+    m[r] = flash::kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) {
+      qr[r][d] *= q_scale;
+      acc[r][d] = 0.f;
     }
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kTile;
+    if (t + 1 < t_end) {  // the next tile into the other stage
+      T* k_next = k_ring + ((t + 1) & 1) * kStage;
+      T* v_next = v_ring + ((t + 1) & 1) * kStage;
+      flash::stage_rows<T, D, kPitch, kTile, kThreads>(k_next, k_head, p.k_ss, k0 + kTile, k_end,
+                                                       vec);
+      flash::stage_rows<T, D, kPitch, kTile, kThreads>(v_next, v_head, p.v_ss, k0 + kTile, k_end,
+                                                       vec);
+    }
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();  // tile t has landed
     __syncthreads();
+    const T* k_tile = k_ring + (t & 1) * kStage;
+    const T* v_tile = v_ring + (t & 1) * kStage;
+    // keys quad + 4i of the tile, i < n (uniform across the warp)
+    const int n = min(kLaneKeys, (warp_k_end - k0 + flash::kQuad - 1) / flash::kQuad);
+#pragma unroll
+    for (int c0 = 0; c0 < kLaneKeys; c0 += kUpdate) {
+      if (c0 >= n) break;
+      float s[R][kUpdate];
+      float chunk_max[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) chunk_max[r] = flash::kNegInf;
+#pragma unroll
+      for (int i = 0; i < kUpdate; ++i) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r][i] = flash::kNegInf;
+        if (c0 + i < n) {
+          const int j = quad + (c0 + i) * flash::kQuad;
+          const T* k_row = k_tile + j * kPitch + part * kDims;
+          float dot[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) dot[r] = 0.f;
+#pragma unroll
+          for (int d = 0; d < kDims; d += 4) {
+            const float4 kv = flash::load4(k_row + d);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              dot[r] = fmaf(qr[r][d], kv.x, dot[r]);
+              dot[r] = fmaf(qr[r][d + 1], kv.y, dot[r]);
+              dot[r] = fmaf(qr[r][d + 2], kv.z, dot[r]);
+              dot[r] = fmaf(qr[r][d + 3], kv.w, dot[r]);
+            }
+          }
+          const int kpos = k0 + j;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float score = flash::dim_sum<S>(dot[r]);
+            if (kpos < seq && (!p.causal || kpos <= q0 + row0 + r)) s[r][i] = score;
+            chunk_max[r] = fmaxf(chunk_max[r], s[r][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float m_new = fmaxf(m[r], flash::quad_max<S>(chunk_max[r]));
+        const float alpha = exp2f(m[r] - m_new);
+        l[r] *= alpha;
+#pragma unroll
+        for (int d = 0; d < kDims; ++d) acc[r][d] *= alpha;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kUpdate; ++i) {
+        if (c0 + i < n) {
+          const T* v_row = v_tile + (quad + (c0 + i) * flash::kQuad) * kPitch + part * kDims;
+          float pr[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            pr[r] = s[r][i] == flash::kNegInf ? 0.f : exp2f(s[r][i] - m[r]);
+            l[r] += pr[r];
+          }
+#pragma unroll
+          for (int d = 0; d < kDims; d += 4) {
+            const float4 vv = flash::load4(v_row + d);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              acc[r][d] = fmaf(pr[r], vv.x, acc[r][d]);
+              acc[r][d + 1] = fmaf(pr[r], vv.y, acc[r][d + 1]);
+              acc[r][d + 2] = fmaf(pr[r], vv.z, acc[r][d + 2]);
+              acc[r][d + 3] = fmaf(pr[r], vv.w, acc[r][d + 3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
 
+  // merge the quad: each row's sum, and a quarter of the lane's dims per
+  // lane; with one split the row is done, else its partial row goes to
+  // the scratch for flash_fwd_merge_kernel
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * seq;
 #pragma unroll
-    for (int c0 = 0; c0 < kBlockK; c0 += kChunk) {
-      if (k0 + c0 >= k_end) break;  // uniform across the block
-      float s[kChunk];
-      float m_chunk = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < kSlice; ++i) dot = fmaf(qr[i], k_tile[c0 + j][d0 + i], dot);
-#pragma unroll
-        for (int off = kTpr / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        const int kpos = k0 + c0 + j;
-        const bool valid = kpos < seq && (!p.causal || kpos <= qpos);
-        s[j] = valid ? dot * p.sm_scale : kNegInf;
-        m_chunk = fmaxf(m_chunk, s[j]);
+  for (int r = 0; r < R; ++r) {
+    const float l_row = flash::quad_sum<S>(l[r]);  // one split: >= 1, the row's largest term is exp2(0)
+    float o[kDims / 4];
+    flash::quad_reduce_scatter<kDims, S>(acc[r], o, quad);
+    const int qpos = q0 + row0 + r;
+    if (qpos >= seq) continue;
+    const int d0 = part * kDims + quad * (kDims / 4);
+    const int64_t row = static_cast<int64_t>(bh) * seq + qpos;
+    if (p.n_splits == 1) {
+      T* o_row = static_cast<T*>(p.out) + b * p.o_sb + static_cast<int64_t>(qpos) * p.o_ss +
+                 h * p.o_sh + d0;
+      flash::store_row<T, kDims / 4>(o_row, o, 1.f / l_row, vec);
+      if (quad == 0 && part == 0) p.lse[row] = (m[r] + log2f(l_row)) * flash::kLn2;
+    } else {
+      const int64_t at = split * n_rows + row;
+      flash::store_row<float, kDims / 4>(p.ws + at * D + d0, o, 1.f, true);
+      if (quad == 0 && part == 0) {
+        reinterpret_cast<float2*>(p.ws + p.n_splits * n_rows * D)[at] = make_float2(m[r], l_row);
       }
-      const float m_new = fmaxf(m, m_chunk);
-      const float alpha = expf(m - m_new);
-#pragma unroll
-      for (int i = 0; i < kSlice; ++i) acc[i] *= alpha;
-      float p_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int kpos = k0 + c0 + j;
-        const bool valid = kpos < seq && (!p.causal || kpos <= qpos);
-        const float pj = valid ? expf(s[j] - m_new) : 0.f;
-        p_sum += pj;
-#pragma unroll
-        for (int i = 0; i < kSlice; ++i) acc[i] = fmaf(pj, v_tile[c0 + j][d0 + i], acc[i]);
-      }
-      l = l * alpha + p_sum;
-      m = m_new;
     }
   }
+}
 
-  if (qpos < seq) {
-    const float l_safe = l == 0.f ? 1.f : l;
-    T* o_row = out + b * p.o_sb + static_cast<int64_t>(qpos) * p.o_ss + h * p.o_sh + d0;
+// Merge the key splits of the wide kernel: one warp per (batch*head, row)
+// sums the splits' rows in split order, each weighted by exp2(its max -
+// the row's max), and writes the output row and its LSE.
+template <typename T, int D>
+__global__ void __launch_bounds__(128) flash_fwd_merge_kernel(const Params p) {
+  constexpr int kLaneDims = D / 32;
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * p.seq;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 4 + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const float2* stats = reinterpret_cast<const float2*>(p.ws + p.n_splits * n_rows * D);
+  float m_row = flash::kNegInf;
+  for (int s = 0; s < p.n_splits; ++s) m_row = fmaxf(m_row, stats[s * n_rows + row].x);
+  float l_row = 0.f;
+  float acc[kLaneDims] = {};
+  for (int s = 0; s < p.n_splits; ++s) {
+    const float2 st = stats[s * n_rows + row];
+    const float w = exp2f(st.x - m_row);  // 0 for a split that saw no key of the row
+    l_row = fmaf(w, st.y, l_row);
+    const float* part = p.ws + (s * n_rows + row) * D + lane * kLaneDims;
 #pragma unroll
-    for (int i = 0; i < kSlice; ++i) o_row[i] = from_float<T>(acc[i] / l_safe);
-    if (d0 == 0) p.lse[static_cast<int64_t>(bh) * seq + qpos] = m + logf(l_safe);
+    for (int d = 0; d < kLaneDims; ++d) acc[d] = fmaf(w, part[d], acc[d]);
   }
+  const int bh = static_cast<int>(row / p.seq);
+  const int qpos = static_cast<int>(row - static_cast<int64_t>(bh) * p.seq);
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  T* o_row = static_cast<T*>(p.out) + b * p.o_sb + static_cast<int64_t>(qpos) * p.o_ss +
+             h * p.o_sh + lane * kLaneDims;
+#pragma unroll
+  for (int d = 0; d < kLaneDims; ++d) o_row[d] = flash::from_float<T>(acc[d] / l_row);
+  if (lane == 0) p.lse[row] = (m_row + log2f(l_row)) * flash::kLn2;
 }
 
 template <typename T, int D, int R, int S, int kMinBlocks>
@@ -365,24 +514,95 @@ struct FwdTiling<32> {
   static constexpr int R = 2, S = 2, kMinBlocks = 4;
 };
 
+// (rows per lane, dim split, warps per block, keys per staged tile,
+// minimum blocks per SM) of the wide kernel
+template <int D>
+struct FwdWideTiling;
+template <>
+struct FwdWideTiling<64> {
+  static constexpr int R = 4, S = 4, kWarps = 8, kTile = 64, kMinBlocks = 1;
+};
+template <>
+struct FwdWideTiling<128> {
+  static constexpr int R = 4, S = 8, kWarps = 4, kTile = 32, kMinBlocks = 2;
+};
+
+// What a wide kernel's launches need to know about the card, found once
+// per kernel: the error of its set-up (dynamic shared memory, occupancy
+// query) and the blocks the card holds at once.
+struct WideSetup {
+  cudaError_t err;
+  int64_t wave;
+};
+
+template <typename T, int D>
+const WideSetup& wide_setup() {
+  using Tile = FwdWideTiling<D>;
+  constexpr int kSmem = 4 * Tile::kTile * (D + 16 / static_cast<int>(sizeof(T))) * sizeof(T);
+  static const WideSetup setup = [] {
+    const auto kernel =
+        flash_fwd_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>;
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = flash::allow_dynamic_smem(kernel, kSmem);
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Tile::kWarps * 32, kSmem);
+    }
+    return WideSetup{err, static_cast<int64_t>(sms) * std::max(per_sm, 1)};
+  }();
+  return setup;
+}
+
+// key splits of a wide-kernel launch: as many as keep the split blocks
+// within one wave of the card (every SM holding as many blocks as fit),
+// at most 8 and at most half the key tiles. A causal launch counts half
+// its blocks: its row tiles walk half the keys on average, and the
+// longest ones, which split most usefully, run first.
+constexpr int kMaxSplits = 8;
+
+template <typename T, int D>
+int wide_splits(int64_t wave, int64_t batch_heads, int seq, bool causal) {
+  using Tile = FwdWideTiling<D>;
+  constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
+  const int64_t blocks = batch_heads * ((seq + kRows - 1) / kRows);
+  const int64_t fill = (causal ? 2 * wave : wave) / blocks;
+  const int key_tiles = (seq + Tile::kTile - 1) / Tile::kTile;
+  return static_cast<int>(std::max<int64_t>(1, std::min<int64_t>({fill, key_tiles / 2, kMaxSplits})));
+}
+
 template <typename T, int D>
 int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
   if constexpr (D <= 32) {
     using Tile = FwdTiling<D>;
     constexpr int kRows = flash::quad_rows<Tile::R, Tile::S>();
     p.n_qtiles = (p.seq + kRows - 1) / kRows;
-  } else {
-    p.n_qtiles = (p.seq + kBlockQ - 1) / kBlockQ;
-  }
-  const int64_t n_blocks = batch_heads * p.n_qtiles;
-  if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const unsigned grid = static_cast<unsigned>(n_blocks);
-  if constexpr (D <= 32) {
-    using Tile = FwdTiling<D>;
+    const int64_t n_blocks = batch_heads * p.n_qtiles;
+    if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
     flash_fwd_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
-        <<<grid, flash::kQuadThreads, 0, stream>>>(p);
+        <<<static_cast<unsigned>(n_blocks), flash::kQuadThreads, 0, stream>>>(p);
   } else {
-    flash_fwd_slice_kernel<T, D><<<grid, kBlockQ * (D / kSlice), 0, stream>>>(p);
+    using Tile = FwdWideTiling<D>;
+    constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
+    constexpr int kSmem = 4 * Tile::kTile * (D + 16 / static_cast<int>(sizeof(T))) * sizeof(T);
+    const auto kernel =
+        flash_fwd_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>;
+    const WideSetup& setup = wide_setup<T, D>();
+    if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
+    p.n_splits = wide_splits<T, D>(setup.wave, batch_heads, p.seq, p.causal);
+    if (p.n_splits > 1 && p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    p.n_qtiles = (p.seq + kRows - 1) / kRows;
+    const int64_t n_blocks = batch_heads * p.n_qtiles * p.n_splits;
+    const int64_t n_rows = batch_heads * p.seq;
+    if (n_blocks > INT_MAX || (n_rows + 3) / 4 > INT_MAX) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    kernel<<<static_cast<unsigned>(n_blocks), Tile::kWarps * 32, kSmem, stream>>>(p);
+    if (p.n_splits > 1) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      flash_fwd_merge_kernel<T, D><<<static_cast<unsigned>((n_rows + 3) / 4), 128, 0, stream>>>(p);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -400,10 +620,41 @@ int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t
 
 }  // namespace
 
+namespace {
+
+template <typename T, int D>
+int splits_of(int64_t batch_heads, int seq, bool causal) {
+  const WideSetup& setup = wide_setup<T, D>();
+  if (setup.err != cudaSuccess) return -static_cast<int>(setup.err);
+  return wide_splits<T, D>(setup.wave, batch_heads, seq, causal);
+}
+
+}  // namespace
+
+// the key splits the launch of these shapes and mode takes: the float32
+// scratch it needs is n_splits * batch * heads * seq * (head_dim + 2)
+// elements when n_splits > 1 (none otherwise); minus the CUDA error code
+// when the card could not be queried
+extern "C" int gordo_flash_attention_fwd_splits(int batch, int seq, int heads, int head_dim,
+                                                int dtype, int mode) {
+  const int64_t batch_heads = static_cast<int64_t>(batch) * heads;
+  if (batch <= 0 || seq <= 0 || heads <= 0) return 1;
+  const bool causal = (mode & flash::kModeCausal) != 0;
+  const bool float32 = dtype == 0;
+  switch (head_dim) {
+    case 64: return float32 ? splits_of<float, 64>(batch_heads, seq, causal)
+                            : splits_of<__nv_bfloat16, 64>(batch_heads, seq, causal);
+    case 128: return float32 ? splits_of<float, 128>(batch_heads, seq, causal)
+                             : splits_of<__nv_bfloat16, 128>(batch_heads, seq, causal);
+    default: return 1;
+  }
+}
+
 // strides: (batch, seq, head) of q, k, v, out, in that order; mode: bit 1
-// causal, bit 2 16-byte aligned rows
+// causal, bit 2 16-byte aligned rows; workspace: the scratch
+// gordo_flash_attention_fwd_splits asks for (null when it asks for none)
 extern "C" int gordo_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* q, const void* k, const void* v, void* out, void* lse, void* workspace,
     int batch, int seq, int heads, int head_dim, int dtype,
     const long long* strides, float sm_scale, int mode, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -413,6 +664,8 @@ extern "C" int gordo_flash_attention_fwd(
   p.v = v;
   p.out = out;
   p.lse = static_cast<float*>(lse);
+  p.ws = static_cast<float*>(workspace);
+  p.n_splits = 1;
   p.heads = heads;
   p.seq = seq;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
@@ -423,6 +676,8 @@ extern "C" int gordo_flash_attention_fwd(
   p.causal = (mode & flash::kModeCausal) != 0;
   p.vec = (mode & flash::kModeVec16) != 0;
   const int64_t batch_heads = static_cast<int64_t>(batch) * heads;
+  if (batch_heads > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  p.batch_heads = static_cast<int>(batch_heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_head_dim<float>(head_dim, p, batch_heads, s);

@@ -95,6 +95,24 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+// one float32 (4 bytes) copied asynchronously
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+// close the group of cp.async copies issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight (a
+// __syncthreads must follow before other threads read the copies)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Stage rows [row0, row0 + kRows) of one head of a (batch, seq, heads, D)
 // tensor into `tile` (kRows x kPitch elements of T). Rows at or past
 // `end` are zero-filled without reading device memory, so a lane may
@@ -132,17 +150,27 @@ __device__ __forceinline__ void stage_rows(T* tile, const T* head, int64_t row_s
 // dim part fastest: a row's dims are split over S neighbouring lanes, and
 // the four quad lanes that share a row group sit S lanes apart.
 
-// rows a quad-kernel block owns: 4 warps of 32 / (4 S) groups of R rows
-template <int R, int S>
+// rows a quad-kernel block owns: 4 warps (kWarps in the wide kernels) of
+// 32 / (4 S) groups of R rows
+template <int R, int S, int kWarps = kQuadWarps>
 __host__ __device__ constexpr int quad_rows() {
-  return kQuadWarps * R * (32 / (kQuad * S));
+  return kWarps * R * (32 / (kQuad * S));
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory: a launch above 48 KB
+// is refused without this. The launchers call it once per kernel.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // sum of a dot product's S partial sums (the S lanes holding parts of one row)
 template <int S>
 __device__ __forceinline__ float dim_sum(float x) {
+  static_assert(S == 1 || S == 2 || S == 4 || S == 8, "a row's dims span 1, 2, 4 or 8 lanes");
   if constexpr (S >= 2) x += __shfl_xor_sync(0xffffffffu, x, 1);
   if constexpr (S >= 4) x += __shfl_xor_sync(0xffffffffu, x, 2);
+  if constexpr (S >= 8) x += __shfl_xor_sync(0xffffffffu, x, 4);
   return x;
 }
 

@@ -5,13 +5,14 @@ pandas or scikit-learn: a flat :class:`Frame` for request data and a
 JAX package's two-level column groups (``start``, ``model-input``, ...);
 ``metric_wrapper``; and, in numpy, the scikit-learn pieces the builder's
 evaluation uses: the four default regression metrics (``multioutput=
-"uniform_average"``) and ``TimeSeriesSplit``.
+"uniform_average"``), ``TimeSeriesSplit`` and ``cross_validate``.
 """
 
 import dataclasses
 import functools
+import time
 from datetime import datetime, timedelta
-from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -225,3 +226,45 @@ class TimeSeriesSplit:
                 indices[train_start:train_end],
                 indices[test_start : test_start + test_size],
             )
+
+
+def cross_validate(
+    estimator,
+    X,
+    y,
+    cv=None,
+    scoring: Optional[Dict[str, Callable]] = None,
+    device: Any = None,
+) -> dict:
+    """
+    scikit-learn's ``cross_validate(estimator, X, y, cv=cv, scoring=scoring,
+    return_estimator=True)`` as the JAX builder calls it for a model with no
+    ``cross_validate`` of its own. For each (train, test) split of ``cv``
+    (``TimeSeriesSplit(3)`` by default) an unfitted clone of ``estimator``
+    is fitted on the training rows on ``device``, predicts the test rows
+    once, and every ``scoring`` metric (``metric(y_true, y_pred)``) scores
+    that prediction; a windowed estimator predicts fewer rows, which
+    :func:`metric_wrapper` aligns to the last test rows, as scikit-learn's
+    scorers over the same wrapper do. Returns ``fit_time``, ``score_time``
+    and ``test_<name>`` arrays (one entry a fold) and the fitted clones
+    under ``estimator``.
+    """
+    X, y = np.asarray(X), np.asarray(y)
+    cv = cv if cv is not None else TimeSeriesSplit(n_splits=3)
+    scoring = scoring or {}
+    output: Dict[str, list] = {"estimator": [], "fit_time": [], "score_time": []}
+    output.update({f"test_{name}": [] for name in scoring})
+    for train_idx, test_idx in cv.split(X, y):
+        start = time.perf_counter()
+        fitted = estimator.clone().fit(X[train_idx], y[train_idx], device=device)
+        output["fit_time"].append(time.perf_counter() - start)
+        start = time.perf_counter()
+        y_pred = fitted.predict(X[test_idx])
+        for name, metric in scoring.items():
+            output[f"test_{name}"].append(metric(y[test_idx], y_pred))
+        output["score_time"].append(time.perf_counter() - start)
+        output["estimator"].append(fitted)
+    return {
+        name: values if name == "estimator" else np.asarray(values, dtype=np.float64)
+        for name, values in output.items()
+    }

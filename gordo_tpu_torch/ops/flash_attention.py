@@ -30,6 +30,17 @@ delta, and then the dk/dv kernel, which reads it.
 ``launch_counts`` counts kernel launches, so a run can show that its
 attention went through the kernels.
 
+The kernels run at head_dim 16, 32, 64 and 128 (:data:`HEAD_DIMS`). As the
+JAX wrapper pads head_dim to 128 lanes, every wrapper here zero-pads q, k,
+v (and O, dO) on the head axis to the next of those widths
+(:func:`kernel_width`: 8 and 12 run at 16, 24 at 32, 48 at 64, 96 at 128),
+keeps ``sm_scale`` at 1/sqrt(the caller's head_dim) unless the caller
+gives one, and slices out, dq, dk and dv back. Zero lanes add nothing to
+a score and give zero output and gradient, and LSE and delta are
+unchanged. The CPU path pads too, so the CPU tests run the same padding.
+Above 128 no kernel exists: a CUDA tensor raises, and a CPU tensor runs
+the plain version at its own width.
+
 Each kernel takes a ``mode`` bit set: :data:`MODE_CAUSAL`, and
 :data:`MODE_VEC16` when :func:`rows_16b_aligned` finds every row of its
 tensors 16-byte aligned, so the kernel may move rows with 16-byte copies;
@@ -38,6 +49,7 @@ made here, per call, and is tested on the CPU.
 """
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -181,10 +193,40 @@ def _check_kernel_inputs(q: torch.Tensor) -> None:
         raise ValueError(
             f"flash_attention kernels take float32 or bfloat16, got {q.dtype}"
         )
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention kernels take head_dim in {HEAD_DIMS}, got {q.shape[-1]}"
-        )
+
+
+def kernel_width(head_dim: int) -> int:
+    """The head_dim a kernel runs ``head_dim`` at: the next of
+    :data:`HEAD_DIMS`. Raises above the widest."""
+    for width in HEAD_DIMS:
+        if head_dim <= width:
+            return width
+    raise ValueError(
+        f"flash_attention kernels take head_dim up to {HEAD_DIMS[-1]} (zero-padded "
+        f"to the next of {HEAD_DIMS}), got {head_dim}: a head_dim 256 kernel is "
+        "still to come (ROADMAP.md queue 3)"
+    )
+
+
+def _width(q: torch.Tensor) -> int:
+    """The head_dim a call on q runs at: the kernel width, or on the CPU a
+    head_dim above the widest kernel as it is (the plain version takes any)."""
+    if q.device.type == "cpu" and q.shape[-1] > HEAD_DIMS[-1]:
+        return q.shape[-1]
+    return kernel_width(q.shape[-1])
+
+
+def _to_width(width: int, *tensors: torch.Tensor):
+    """Each (..., head_dim) tensor zero-padded on its last axis to ``width``."""
+    return [
+        x if x.shape[-1] == width else torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+        for x in tensors
+    ]
+
+
+def _heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """x's first ``head_dim`` lanes: a kernel-width result sliced back."""
+    return x if x.shape[-1] == head_dim else x[..., :head_dim]
 
 
 def _head_dim_contiguous(*tensors):
@@ -264,6 +306,33 @@ def _stride_array(*tensors):
     return (ctypes.c_longlong * len(values))(*values)
 
 
+def forward_splits(q: torch.Tensor, causal: bool) -> int:
+    """The key splits the forward kernel takes for q's shape on its card:
+    1, or more when its row tiles alone leave the card's SMs idle (head_dim
+    64 and 128); each split walks a run of the key tiles and a second
+    kernel merges their rows in a fixed order."""
+    return _splits(q.device.index or 0, *_shape_args(q), _mode(causal))
+
+
+@functools.lru_cache(maxsize=256)
+def _splits(device: int, *shape_and_mode: int) -> int:
+    """The kernel's own answer, asked once per (card, shape, dtype, mode):
+    a training loop asks with one shape every step."""
+    from gordo_tpu_torch.ops import _build
+
+    fn = _build.load(SOURCES[KERNEL]).gordo_flash_attention_fwd_splits
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        splits = fn(*shape_and_mode)
+    if splits < 1:
+        raise RuntimeError(
+            f"{KERNEL}: the split query failed with CUDA error {-splits} for {shape_and_mode}"
+        )
+    return splits
+
+
 def _launch(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -279,9 +348,17 @@ def _launch(
     lse = torch.empty((batch * heads, seq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    fn = _kernel_function(KERNEL, 5)
+    splits = forward_splits(q, causal)
+    # each split's unnormalised rows and (max, sum) pairs, merged by the kernel
+    workspace = None
+    if splits > 1:
+        workspace = torch.empty(
+            splits * batch * heads * seq * (head_dim + 2), dtype=torch.float32, device=q.device
+        )
+    fn = _kernel_function(KERNEL, 6)
     _call(KERNEL, fn, q, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        None if workspace is None else workspace.data_ptr(),
         *_shape_args(q), _stride_array(q, k, v, out),
         float(sm_scale), _mode(causal, q, k, v, out),
     ))
@@ -307,9 +384,13 @@ def flash_attention_forward(
     """
     _check_inputs(q, k, v)
     sm_scale = _default_scale(q, sm_scale)
-    if _device_path("flash_attention", q) == "cuda":
-        return _launch(q, k, v, causal, sm_scale)
-    return flash_attention_reference(q, k, v, causal, sm_scale)
+    path, head_dim = _device_path("flash_attention", q), q.shape[-1]
+    q, k, v = _to_width(_width(q), q, k, v)
+    if path == "cuda":
+        out, lse = _launch(q, k, v, causal, sm_scale)
+    else:
+        out, lse = flash_attention_reference(q, k, v, causal, sm_scale)
+    return _heads(out, head_dim), lse
 
 
 def _check_like(q: torch.Tensor, **tensors) -> None:
@@ -339,9 +420,13 @@ def flash_attention_bwd_dq(
     _check_inputs(q, k, v)
     _check_like(q, out=out, d_out=d_out)
     sm_scale = _default_scale(q, sm_scale)
-    if _device_path("flash_attention_bwd_dq", q) == "cpu":
-        return flash_attention_bwd_dq_reference(q, k, v, out, lse, d_out, causal, sm_scale)
-    return _launch_dq(q, k, v, out, lse, d_out, causal, sm_scale)
+    path, head_dim = _device_path("flash_attention_bwd_dq", q), q.shape[-1]
+    q, k, v, out, d_out = _to_width(_width(q), q, k, v, out, d_out)
+    if path == "cpu":
+        dq, delta = flash_attention_bwd_dq_reference(q, k, v, out, lse, d_out, causal, sm_scale)
+    else:
+        dq, delta = _launch_dq(q, k, v, out, lse, d_out, causal, sm_scale)
+    return _heads(dq, head_dim), delta
 
 
 def _launch_dq(q, k, v, out, lse, d_out, causal: bool, sm_scale: float):
@@ -379,9 +464,13 @@ def flash_attention_bwd_dkv(
     _check_inputs(q, k, v)
     _check_like(q, d_out=d_out)
     sm_scale = _default_scale(q, sm_scale)
-    if _device_path("flash_attention_bwd_dkv", q) == "cpu":
-        return flash_attention_bwd_dkv_reference(q, k, v, lse, delta, d_out, causal, sm_scale)
-    return _launch_dkv(q, k, v, lse, delta, d_out, causal, sm_scale)
+    path, head_dim = _device_path("flash_attention_bwd_dkv", q), q.shape[-1]
+    q, k, v, d_out = _to_width(_width(q), q, k, v, d_out)
+    if path == "cpu":
+        dk, dv = flash_attention_bwd_dkv_reference(q, k, v, lse, delta, d_out, causal, sm_scale)
+    else:
+        dk, dv = _launch_dkv(q, k, v, lse, delta, d_out, causal, sm_scale)
+    return _heads(dk, head_dim), _heads(dv, head_dim)
 
 
 def _launch_dkv(q, k, v, lse, delta, d_out, causal: bool, sm_scale: float):
@@ -425,24 +514,30 @@ def flash_attention_backward(
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its backward in the two backward kernels
-    (their plain version on CPU tensors): the port of the JAX custom VJP."""
+    (their plain version on CPU tensors): the port of the JAX custom VJP.
+    q, k and v are padded to the kernel width once, in the forward, and
+    saved so; the backward pads only dO."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        head_dim = q.shape[-1]
+        q, k, v = _to_width(_width(q), q, k, v)
         out, lse = flash_attention_forward(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.sm_scale = sm_scale
-        return out
+        ctx.head_dim = head_dim
+        return _heads(out, head_dim)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_out):
         q, k, v, out, lse = ctx.saved_tensors
+        (d_out,) = _to_width(q.shape[-1], d_out)
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, lse, d_out, ctx.causal, ctx.sm_scale
         )
-        return dq, dk, dv, None, None
+        return (*(_heads(g, ctx.head_dim) for g in (dq, dk, dv)), None, None)
 
 
 def flash_attention(

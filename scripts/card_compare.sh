@@ -9,9 +9,10 @@
 #   bash scripts/card_compare.sh _checkout/parent _checkout/change <out dir>
 #
 # Each tree is a checkout of the repo (for example a `git archive`). Writes
-# <out>/{parent1,change1,change2,parent2}.{json,log} from
-# `chip_smoke.py --out` and <out>/{parent,change}_kernel_check.txt from
-# `scripts/flash_kernel_check.py`, then runs the change's card tests.
+# <out>/{parent1,change1,change2,parent2}.{json,log} from each tree's own
+# `chip_smoke.py --out`, and <out>/{parent,change}_kernel_check.txt from
+# the change's `scripts/flash_kernel_check.py --root <tree>`, so both
+# trees' kernels run the same cases; then runs the change's card tests.
 # Prints the card's name and power limit, each run's exit code and the
 # tail of its log. Exits non-zero if any run failed.
 set -u
@@ -32,7 +33,8 @@ for run in "parent1:$parent" "change1:$change" "change2:$change" "parent2:$paren
 done
 for run in "parent:$parent" "change:$change"; do
   label=${run%%:*}
-  (cd "${run#*:}" && python3 scripts/flash_kernel_check.py) >"$out/${label}_kernel_check.txt" 2>&1
+  (cd "$change" && python3 scripts/flash_kernel_check.py --root "${run#*:}") \
+    >"$out/${label}_kernel_check.txt" 2>&1
   rc=$?
   echo "$label kernel check rc=$rc"
   tail -n 1 "$out/${label}_kernel_check.txt"

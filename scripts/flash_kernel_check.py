@@ -3,24 +3,31 @@
 Quick card check of the flash kernels alone, without the serving and
 training phases of ``chip_smoke.py``.
 
-    python3 scripts/flash_kernel_check.py
+    python3 scripts/flash_kernel_check.py [--root CHECKOUT]
 
 Builds the kernels, then for each case (contiguous tensors, head slices of
 one wider tensor, views one element into their memory) holds the forward,
 the dq and the dk/dv kernel against their plain versions, checks that two
-dq launches (dq and delta) and two dk/dv launches agree bit for bit, and
-prints one JSON row per case with the device times (torch.profiler) of the
-three kernels and of ``scaled_dot_product_attention``. Exits non-zero if
-a case fails.
+forward, two dq (dq and delta) and two dk/dv launches agree bit for bit,
+and prints one JSON row per case with the device times (torch.profiler)
+of the three kernels and of ``scaled_dot_product_attention``. Exits
+non-zero if a case fails.
+
+``--root`` times the port of another checkout (an older commit, for a
+comparison in one call) with this script's cases; a case whose shape that
+port's wrappers refuse (a head_dim it does not pad) is printed as
+refused, and fails only for this script's own checkout.
 """
 
+import argparse
 import json
 import math
 import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
 
 import chip_smoke as cs  # noqa: E402
 
@@ -42,6 +49,17 @@ CASES = [
     ("bf16-16-misaligned", (8, 100, 2, 16), True, "bfloat16", "misaligned"),
     ("head-dim-32-slices-full", (4, 77, 2, 32), False, "float32", "slices"),
     ("head-dim-64", (4, 1000, 2, 64), True, "float32", "contiguous"),
+    ("head-dim-64-full", (4, 1000, 2, 64), False, "float32", "contiguous"),
+    ("head-dim-128", (2, 300, 2, 128), False, "float32", "contiguous"),
+    ("head-dim-128-causal", (3, 301, 2, 128), True, "float32", "contiguous"),
+    ("long-context-64", (1, 8192, 4, 64), True, "float32", "contiguous"),
+    ("long-context-64-bf16", (1, 8192, 4, 64), True, "bfloat16", "contiguous"),
+    ("head-dim-64-slices", (4, 77, 2, 64), True, "float32", "slices"),
+    ("head-dim-64-misaligned", (3, 301, 2, 64), True, "float32", "misaligned"),
+    ("bf16-128-misaligned", (3, 131, 2, 128), False, "bfloat16", "misaligned"),
+    ("padded-8", (32, 64, 4, 8), True, "float32", "contiguous"),
+    ("padded-48", (16, 200, 2, 48), True, "float32", "contiguous"),
+    ("padded-96-full", (3, 150, 2, 96), False, "float32", "contiguous"),
 ]
 
 
@@ -62,6 +80,7 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
     tol = F32_TOL if dtype_name == "float32" else BF16_TOL
     scale = 1.0 / math.sqrt(shape[-1])
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    out2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
@@ -83,6 +102,7 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
         "dtype": dtype_name,
         "rows_16b_aligned": fa.rows_16b_aligned(q, k, v),
         "fwd_err": max_err([(out, ref_out), (lse, ref_lse)]),
+        "fwd_bitwise": bool(torch.equal(out, out2) and torch.equal(lse, lse2)),
         "dq_err": max_err([(dq, ref_dq), (delta, ref_delta)]),
         "dq_bitwise": bool(torch.equal(dq, dq2) and torch.equal(delta, delta2)),
         "dkv_err": max_err([(dk, ref_dk), (dv, ref_dv)]),
@@ -97,12 +117,24 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
     for label, fn in timed.items():
         # the timer beside each time: "events" is not a device time
         row[f"{label}_ms"], row[f"{label}_timer"] = cs.device_ms(fn)
+    for label, dots in (("fwd", 2), ("dq", 3), ("dkv", 4)):
+        n_tensors, n_stats = (4, 1) if label == "fwd" else (6, 2)
+        row[f"{label}_bound_ms"], row[f"{label}_bound_by"] = cs.attention_bound(
+            shape, causal, dtype_name, q.element_size(), n_tensors, n_stats, dots
+        )
     ok = (max(row["fwd_err"], row["dq_err"], row["dkv_err"]) <= tol
-          and row["dq_bitwise"] and row["dkv_bitwise"])
+          and row["fwd_bitwise"] and row["dq_bitwise"] and row["dkv_bitwise"])
     return row, ok
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
+    parser.add_argument("--root", default=HERE,
+                        help="the checkout whose port is checked (default: this one)")
+    root = os.path.realpath(parser.parse_args().root)
+    own = root == os.path.realpath(HERE)
+    sys.path.insert(0, root)
+
     import torch
     import torch.nn.functional as F
 
@@ -114,16 +146,21 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
+    print("port:", os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__))), flush=True)
     t0 = time.perf_counter()
     for source, text in _build.build_all(_build.sources()).items():
         print(f"nvcc {source} ({time.perf_counter() - t0:.1f} s):\n{text.strip()}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     failed = []
     for case in CASES:
-        row, ok = check(torch, F, fa, gen, *case)
+        try:
+            row, ok = check(torch, F, fa, gen, *case)
+        except ValueError as refused:  # the port's wrappers refuse the shape
+            row, ok = {"case": case[0], "shape": list(case[1]), "refused": str(refused)}, not own
         print(json.dumps(row), flush=True)
         if not ok:
             failed.append(row["case"])
+        torch.cuda.empty_cache()
     print("failed: " + ", ".join(failed) if failed else "all cases passed")
     return 1 if failed else 0
 

@@ -1,0 +1,195 @@
+#!/usr/bin/env python3
+"""
+Times tilings of the head_dim 64/128 flash forward and dk/dv kernels on
+one card, each against the same inputs, in one process.
+
+    python3 scripts/flash_tiling_sweep.py 'VARIANTS' [--out ROWS.jsonl]
+
+VARIANTS is JSON that maps a variant's name to the constants it changes, e.g.
+``{"shipped": {}, "r2": {"fwd64": [2, 4, 4, 64, 3]}, "nosplit":
+{"max_splits": 1}}``: ``fwd64``/``fwd128`` set ``FwdWideTiling<D>`` and
+``dkv64``/``dkv128`` ``DkvWideTiling<D>`` as (R, S, kWarps, kTile,
+kMinBlocks); ``max_splits`` sets the forward's ``kMaxSplits``. Each
+variant's sources are copied with those constants replaced and built
+with the port's nvcc flags (all variants at once), and nvcc's register
+and spill lines for the wide kernels are printed. Then, per case, every
+variant's forward and dk/dv run against the plain versions (1e-4 float32,
+2e-2 bf16), twice for a bitwise repeat, and are timed with
+``chip_smoke.device_ms`` beside ``scaled_dot_product_attention`` and the
+bound. Prints one JSON row per (case, variant); exits non-zero if a
+variant fails to build or disagrees.
+"""
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+CSRC = os.path.join(ROOT, "gordo_tpu_torch", "csrc")
+# each variant's sources and libraries, under the port's (git-ignored) build directory
+WORK = os.path.join(ROOT, "gordo_tpu_torch", "_build", "tiling_sweep")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+# (case, (B, S, H, D), causal, dtype, misaligned views)
+CASES = [
+    ("ragged-causal", (4, 1000, 2, 64), True, "float32", False),
+    ("ragged-full", (4, 1000, 2, 64), False, "float32", False),
+    ("head-dim-128", (2, 300, 2, 128), False, "float32", False),
+    ("head-dim-128-causal", (3, 301, 2, 128), True, "float32", False),
+    ("long-context-64", (1, 8192, 4, 64), True, "float32", False),
+    ("long-context-64-bf16", (1, 8192, 4, 64), True, "bfloat16", False),
+    ("head-dim-128-bf16", (2, 300, 2, 128), True, "bfloat16", False),
+    ("head-dim-64-misaligned", (3, 301, 2, 64), True, "float32", True),
+    ("small-64-causal", (1, 500, 1, 64), True, "float32", False),
+]
+STRUCTS = {"fwd": "FwdWideTiling", "dkv": "DkvWideTiling"}
+
+
+def variant_sources(spec: dict, out_dir: str) -> str:
+    """Copy the sources into ``out_dir`` with the variant's constants."""
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(CSRC):
+        with open(os.path.join(CSRC, name)) as fh:
+            text = fh.read()
+        for key, values in spec.items():
+            if key == "max_splits":
+                pattern, value = r"constexpr int kMaxSplits = \d+;", f"constexpr int kMaxSplits = {values};"
+            else:
+                struct, width = STRUCTS[key[:3]], int(key[3:])
+                pattern = r"(struct %s<%d> \{\n  static constexpr int )[^;]*;" % (struct, width)
+                value = r"\g<1>R = %d, S = %d, kWarps = %d, kTile = %d, kMinBlocks = %d;" % tuple(values)
+            text = re.sub(pattern, value, text)
+        with open(os.path.join(out_dir, name), "w") as fh:
+            fh.write(text)
+    return out_dir
+
+
+def nvcc(src_dir: str, stem: str):
+    from gordo_tpu_torch.ops import _build
+
+    target = os.path.join(src_dir, stem + ".so")
+    proc = subprocess.run(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", target, os.path.join(src_dir, stem + ".cu")],
+        capture_output=True, text=True,
+    )
+    if proc.returncode:
+        raise RuntimeError(proc.stdout + proc.stderr)
+    return target, proc.stdout + proc.stderr
+
+
+def wide_registers(text: str):
+    """(kernel, registers, spill store bytes) of each wide kernel nvcc built."""
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        found = re.search(r"Compiling entry function '\S*?(flash_\w+_wide_kernel\w*?)EEEv", line)
+        if found:
+            info = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", info)
+            spill = re.search(r"(\d+) bytes spill stores", info)
+            yield found.group(1), int(regs.group(1)), int(spill.group(1)) if spill else 0
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description="time tilings of the wide flash kernels")
+    parser.add_argument("variants", help='JSON: {"name": {"constant": value}}')
+    parser.add_argument("--out", help="also append the JSON rows to this file")
+    args = parser.parse_args()
+    variants = json.loads(args.variants)
+
+    import torch
+    import torch.nn.functional as F
+
+    from gordo_tpu_torch.ops import _build
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        print("flash_tiling_sweep: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line(), flush=True)
+    dirs = {name: variant_sources(spec, os.path.join(WORK, name)) for name, spec in variants.items()}
+    libs, failed = {}, []
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        futures = {(name, stem): pool.submit(nvcc, d, stem) for name, d in dirs.items()
+                   for stem in SOURCES}
+        for (name, stem), future in futures.items():
+            try:
+                libs[(name, stem)], text = future.result()
+            except RuntimeError as error:
+                print(f"nvcc failed for {name} {stem}:\n{error}", flush=True)
+                failed.append(name)
+                continue
+            for kernel, regs, spill in wide_registers(text):
+                print(json.dumps({"variant": name, "kernel": kernel, "registers": regs,
+                                  "spill_bytes": spill}), flush=True)
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for case, shape, causal, dtype_name, misaligned in CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, d_out = (cs.card_tensor(torch, gen, shape, dtype, misaligned) for _ in range(4))
+        scale = 1.0 / math.sqrt(shape[-1])
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+        _, ref_delta = fa.flash_attention_bwd_dq_reference(
+            q, k, v, ref_out, ref_lse, d_out, causal, scale)
+        ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(
+            q, k, v, ref_lse, ref_delta, d_out, causal, scale)
+        tol = cs.TOLERANCE[dtype_name]
+        qt, kt, vt = (cs.library_view(x) for x in (q, k, v))
+        sdpa_ms, _ = cs.device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+        for name in variants:
+            if name in failed:
+                continue
+            for stem in SOURCES:
+                _build._loaded[stem] = ctypes.CDLL(libs[(name, stem)])
+            fa._splits.cache_clear()  # each variant's library answers for itself
+
+            def fwd():
+                return fa.flash_attention_forward(q, k, v, causal=causal)
+
+            def dkv():
+                return fa.flash_attention_bwd_dkv(q, k, v, ref_lse, ref_delta, d_out, causal)
+
+            (out1, lse1), (out2, lse2) = fwd(), fwd()
+            dkv1, dkv2 = dkv(), dkv()
+            torch.cuda.synchronize()
+            row = {
+                "case": case, "variant": name, "shape": list(shape), "causal": causal,
+                "dtype": dtype_name, "key_splits": fa.forward_splits(q, causal),
+                "fwd_err": max((out1.float() - ref_out.float()).abs().max().item(),
+                               (lse1 - ref_lse).abs().max().item()),
+                "dkv_err": max((got.float() - want.float()).abs().max().item()
+                               for got, want in zip(dkv1, (ref_dk, ref_dv))),
+                "bitwise": bool(torch.equal(out1, out2) and torch.equal(lse1, lse2)
+                                and all(torch.equal(a, b) for a, b in zip(dkv1, dkv2))),
+                "sdpa_fwd_ms": sdpa_ms,
+            }
+            (row["fwd_ms"], row["fwd_timer"]), (row["dkv_ms"], row["dkv_timer"]) = (
+                cs.device_ms(fwd), cs.device_ms(dkv))
+            for label, n_tensors, n_stats, dots in (("fwd", 4, 1, 2), ("dkv", 6, 2, 4)):
+                row[f"{label}_bound_ms"], row[f"{label}_bound_by"] = cs.attention_bound(
+                    shape, causal, dtype_name, q.element_size(), n_tensors, n_stats, dots)
+            row["ok"] = row["fwd_err"] <= tol and row["dkv_err"] <= tol and row["bitwise"]
+            if not row["ok"]:
+                failed.append(name)
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del q, k, v, d_out, ref_out, ref_lse, ref_delta, ref_dk, ref_dv
+        torch.cuda.empty_cache()
+    if args.out:
+        with open(args.out, "a") as fh:
+            fh.writelines(json.dumps(row) + "\n" for row in rows)
+    print("failed: " + ", ".join(sorted(set(failed))) if failed else "all variants passed")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

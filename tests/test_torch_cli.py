@@ -113,6 +113,22 @@ def test_cli_build_metadata_matches_jax_build(pump_builds):
     assert got["model"]["model_offset"] == want["model"]["model_offset"] == 0
 
 
+@pytest.mark.parametrize("name", ["example-pump-0", "gordo-base-model"])
+def test_cli_builds_a_bare_autoencoder(name, tmp_path):
+    """A bare AutoEncoder (every machine of examples/machines_fleet.yaml, the
+    conftest gordo-base-model) cross-validates through the port's numpy
+    ``cross_validate``, as the JAX builder through scikit-learn's."""
+    from tests.test_torch_cross_validate import bare_machines
+
+    result = run_build(bare_machines()[name], tmp_path / name, "--print-cv-scores")
+    assert result.returncode == 0, result.stderr
+    assert "Cross-validated" in result.stderr
+    meta = serializer.load_metadata(tmp_path / name)["metadata"]["build_metadata"]["model"]
+    scores = meta["cross_validation"]["scores"]
+    assert scores and all({"fold-1", "fold-2", "fold-3"} <= set(s) for s in scores.values())
+    assert type(serializer.load(tmp_path / name, device="cpu")).__name__ == "AutoEncoder"
+
+
 def _machine_with(**dataset_changes):
     machine = copy.deepcopy(example_machines()["pump-4130"])
     machine["dataset"].update(dataset_changes)

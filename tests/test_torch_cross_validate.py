@@ -5,6 +5,15 @@ default metrics), ``DiffBasedAnomalyDetector.cross_validate`` and its
 thresholds, and the port's ``ModelBuilder`` from arrays to a served
 artifact.
 
+The builder's fallback for a model with no ``cross_validate`` of its own
+(a bare ``AutoEncoder`` or ``TransformerAutoEncoder``): the port's numpy
+``cross_validate`` against scikit-learn's over the JAX estimator, and
+whole builds of ``examples/machines_fleet.yaml``'s ``example-pump-0`` and
+the conftest ``gordo-base-model`` against the JAX builder's. Their fits
+shuffle with different generators (threefry against Philox), so the
+parity builds turn ``shuffle`` off; the CLI builds in
+``tests/test_torch_cli.py`` run the configs as they are.
+
 ``cross_validate`` parity: both detectors train every fold from the JAX
 init of the same seed (``solo_init_key``; the port gets it through
 ``_initial_state``) with dropout 0 and no shuffle, so the folds see the
@@ -14,30 +23,42 @@ schedule). Thresholds rtol 1e-3: float32 training in another summation
 order, through a rolling min/max of the fold errors.
 """
 
+import copy
 import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
 import pytest
 import torch
+import yaml
 from sklearn import metrics as sk_metrics
 from sklearn.model_selection import TimeSeriesSplit as SkTimeSeriesSplit
+from sklearn.model_selection import cross_validate as sk_cross_validate
+from sklearn.preprocessing import MinMaxScaler as SkMinMaxScaler
 from sklearn.preprocessing import RobustScaler
 from werkzeug.test import Client
 
 from gordo_tpu.builder.build_model import ModelBuilder as JaxModelBuilder
+from gordo_tpu.machine import Machine
 from gordo_tpu.machine.metadata import CrossValidationMetaData, ModelBuildMetadata
+from gordo_tpu.models import AutoEncoder as JaxAutoEncoder
 from gordo_tpu.models import TransformerAutoEncoder as JaxTransformerAutoEncoder
 from gordo_tpu.models.anomaly import DiffBasedAnomalyDetector as JaxDetector
 from gordo_tpu.models.core import solo_init_key
+from gordo_tpu.workflow.config_elements.normalized_config import NormalizedConfig
+from gordo_tpu.workflow.workflow_generator import get_dict_from_yaml
 from gordo_tpu_torch import serializer
 from gordo_tpu_torch.builder import ModelBuilder
 from gordo_tpu_torch.convert import transformer_state_dict
-from gordo_tpu_torch.models import TransformerAutoEncoder
+from gordo_tpu_torch.models import AutoEncoder, TransformerAutoEncoder
 from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector, RobustScaling
-from gordo_tpu_torch.models.utils import METRICS, TimeSeriesSplit, metric_wrapper
+from gordo_tpu_torch.models.pipeline import MinMaxScaler
+from gordo_tpu_torch.models.utils import METRICS, TimeSeriesSplit, cross_validate, metric_wrapper
 from gordo_tpu_torch.server.app import build_app
+from tests.conftest import CONFIG_STR, GORDO_BASE_TARGETS, GORDO_PROJECT
+from tests.test_torch_pipeline import _jax_initial_state as _feedforward_initial_state
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -315,3 +336,139 @@ def test_built_artifact_is_served_with_confidences(built):
     (confidence,) = data["total-anomaly-confidence"].values()
     confidence = np.asarray(list(confidence.values()), dtype=float)
     assert len(confidence) == 144 - LOOKBACK + 1 and np.isfinite(confidence).all()
+
+
+# -- bare models: the builder's cross_validate fallback ----------------------
+
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+
+
+def _workflow_json(config, project):
+    """{name: machine as the workflow passes it to ``build`` (JSON)}."""
+    machines = NormalizedConfig(config, project_name=project).machines
+    return {m.name: json.loads(json.dumps(m.to_dict(), default=str)) for m in machines}
+
+
+def bare_machines():
+    """``examples/machines_fleet.yaml``'s ``example-pump-0`` and the conftest
+    ``gordo-base-model``: bare feedforward AutoEncoders, as ``build`` gets them."""
+    fleet = get_dict_from_yaml(str(REPO_ROOT / "examples" / "machines_fleet.yaml"))
+    pump = next(m for m in fleet if m["name"] == "example-pump-0")
+    machines = _workflow_json({"machines": [pump]}, pump["project_name"])
+    base = _workflow_json(yaml.safe_load(CONFIG_STR), GORDO_PROJECT)[GORDO_BASE_TARGETS[0]]
+    machines[GORDO_BASE_TARGETS[0]] = base
+    return machines
+
+
+# (port class, JAX class, JAX init, kwargs, score rtol): the transformer's
+# scores take the detector tests' 1e-3 (float32 attention training in
+# another summation order)
+BARE_ESTIMATORS = {
+    "feedforward": (
+        AutoEncoder, JaxAutoEncoder, _feedforward_initial_state,
+        dict(kind="feedforward_hourglass", epochs=2, batch_size=16, shuffle=False, seed=3), 1e-4,
+    ),
+    "transformer": (
+        TransformerAutoEncoder, JaxTransformerAutoEncoder, _jax_initial_state, BASE, 1e-3,
+    ),
+}
+
+
+@pytest.mark.parametrize("family", sorted(BARE_ESTIMATORS))
+def test_cross_validate_matches_scikit_learn(family):
+    """The port's ``cross_validate`` on a bare estimator against
+    scikit-learn's over the JAX estimator with the JAX builder's scorers:
+    three folds, the same keys, and the same scores (the transformer's
+    windowed prediction aligned to the last test rows by ``metric_wrapper``
+    on both sides)."""
+    port_cls, jax_cls, initial_state, kwargs, rtol = BARE_ESTIMATORS[family]
+    X = _series(300, seed=10)
+    frame = pd.DataFrame(X, columns=TAGS)
+    jax_kwargs = dict(kwargs, attention_impl="dense") if family == "transformer" else kwargs
+    want = sk_cross_validate(
+        jax_cls(**jax_kwargs), frame, frame, cv=SkTimeSeriesSplit(n_splits=3),
+        scoring=JaxModelBuilder.build_metrics_dict(
+            JaxModelBuilder.metrics_from_list(None), frame, scaler=RobustScaler()
+        ),
+        return_estimator=True,
+    )
+    splits = []
+
+    class RecordingSplit(TimeSeriesSplit):
+        def split(self, X, y=None):
+            for train, test in super().split(X, y):
+                splits.append((train, test))
+                yield train, test
+
+    estimator = port_cls(**(dict(kwargs, attention_impl="flash") if family == "transformer"
+                            else kwargs))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_cls, "_initial_state", initial_state)
+        got = cross_validate(
+            estimator, X, X, cv=RecordingSplit(n_splits=3),
+            scoring=ModelBuilder.build_metrics_dict(
+                ModelBuilder.metrics_from_list(None), TAGS, X, RobustScaling()
+            ),
+            device="cpu",
+        )
+    assert set(got) == set(want)
+    for key in ("fit_time", "score_time"):
+        assert isinstance(got[key], np.ndarray) and got[key].shape == want[key].shape == (3,)
+    assert len(got["estimator"]) == 3 and estimator not in got["estimator"]
+    assert not hasattr(estimator, "spec_")  # each fold fits a clone
+    for (train, test), (want_train, want_test) in zip(
+        splits, SkTimeSeriesSplit(n_splits=3).split(X)
+    ):
+        np.testing.assert_array_equal(train, want_train)
+        np.testing.assert_array_equal(test, want_test)
+    for name in (key for key in want if key.startswith("test_")):
+        np.testing.assert_allclose(got[name], want[name], rtol=rtol, atol=rtol / 10, err_msg=name)
+
+
+@pytest.fixture(scope="module", params=sorted(bare_machines()))
+def bare_builds(request):
+    """(port build metadata, JAX build metadata) of one bare-model machine,
+    both fold fits and the final fit from the JAX init, shuffle off."""
+    machine = copy.deepcopy(bare_machines()[request.param])
+    (estimator,) = machine["model"].values()
+    estimator["shuffle"] = False
+    _, jax_machine = JaxModelBuilder(
+        Machine.from_config(machine, project_name=machine["project_name"])
+    ).build()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(AutoEncoder, "_initial_state", _feedforward_initial_state)
+        _, port_machine = ModelBuilder(machine).build(device="cpu")
+    return (port_machine["metadata"]["build_metadata"],
+            jax_machine.to_dict()["metadata"]["build_metadata"])
+
+
+def test_bare_model_build_cv_scores_match_jax(bare_builds):
+    got, want = (meta["model"]["cross_validation"] for meta in bare_builds)
+    assert set(got["scores"]) == set(want["scores"]) and got["scores"]
+    for name, stats in want["scores"].items():
+        assert set(got["scores"][name]) == set(stats)
+        assert {f"fold-{i}" for i in (1, 2, 3)} <= set(stats)
+        for stat, value in stats.items():
+            np.testing.assert_allclose(
+                got["scores"][name][stat], value, rtol=1e-4, err_msg=f"{name} {stat}"
+            )
+    got_splits, want_splits = (
+        {k: v if isinstance(v, int) else str(v) for k, v in splits.items()}
+        for splits in (got["splits"], want["splits"])
+    )
+    assert got_splits == want_splits and len(got_splits) == 3 * 6
+    assert got["cv_duration_sec"] > 0
+
+
+def test_model_without_predict_gets_empty_cv_metadata():
+    machine = bare_machines()[GORDO_BASE_TARGETS[0]]
+    X = _series(60, seed=11)
+    frame = pd.DataFrame(X, columns=TAGS)
+    want = JaxModelBuilder(
+        Machine.from_config(machine, project_name=machine["project_name"])
+    )._run_cross_validation(SkMinMaxScaler(), frame, frame).to_dict()
+    got = ModelBuilder(machine)._run_cross_validation(
+        MinMaxScaler(), X, X, list(range(len(X))), "cpu"
+    )
+    assert got == want == {"scores": {}, "cv_duration_sec": None, "splits": {}}

@@ -169,3 +169,111 @@ def test_cuda_function_refuses_double_backward():
     (dq,) = torch.autograd.grad(loss, q, create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable"):
         dq.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1000, 2, 64), (2, 300, 2, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_wide_kernels_are_deterministic(shape, causal):
+    """The head_dim 64 and 128 forward and dk/dv kernels: two launches give
+    bitwise-equal outputs (one owner per output element, the quad merged in
+    a fixed order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, d_out = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    out2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=causal)
+    first = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=causal)
+    second = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,width", [(8, 16), (12, 16), (24, 32), (48, 64), (96, 128)])
+def test_cuda_wrappers_pad_head_dim(head_dim, width, monkeypatch):
+    """A head_dim off the kernel widths launches each kernel once at the
+    next width, on zero-padded tensors, and comes back at its own width
+    equal to the plain version; so does the Function's gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    widths = []
+    for name in ("_launch", "_launch_dq", "_launch_dkv"):
+        launch = getattr(fa, name)
+
+        def spy(q, *args, _launch=launch):
+            widths.append(q.shape[-1])
+            return _launch(q, *args)
+
+        monkeypatch.setattr(fa, name, spy)
+    shape = (4, 77, 2, head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, d_out = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+    before = dict(fa.launch_counts)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    got = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=True)
+    torch.cuda.synchronize()
+    assert widths == [width] * 3
+    assert all(fa.launch_counts[n] == before[n] + 1 for n in before)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    assert out.shape == shape and (out - ref_out).abs().max().item() <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, d_out, causal=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == shape and (g - w).abs().max().item() <= 1e-4, name
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (fa.flash_attention(*leaves, causal=True) * d_out).sum().backward()
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        assert (leaf.grad - w).abs().max().item() <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_cuda_raises_above_head_dim_128():
+    """No kernel takes head_dim above 128 yet: the card raises and names the
+    queue; it never falls back to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, d_out = (torch.zeros((1, 8, 1, 160), device="cuda") for _ in range(4))
+    lse = torch.zeros((1, 8), device="cuda")
+    before = dict(fa.launch_counts)
+    calls = [
+        lambda: fa.flash_attention_forward(q, k, v),
+        lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, d_out),
+        lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, lse, d_out),
+        lambda: fa.flash_attention(q, k, v),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="ROADMAP.md queue 3"):
+            call()
+    assert fa.launch_counts == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,causal,dtype,tol",
+    [
+        ((2, 300, 2, 128), False, torch.float32, 1e-4),
+        ((2, 300, 2, 128), True, torch.float32, 1e-4),
+        ((1, 500, 1, 64), True, torch.float32, 1e-4),
+        ((1, 500, 1, 64), False, torch.bfloat16, 2e-2),
+    ],
+)
+def test_cuda_forward_key_splits_match_plain_version(shape, causal, dtype, tol):
+    """A grid under one wave of the card splits the key axis across blocks;
+    the merge kernel sums the splits in a fixed order: the result equals
+    the plain version and two launches are bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    assert fa.forward_splits(q, causal) > 1
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    out2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= tol

@@ -3,6 +3,9 @@ The port's flash-attention forward (gordo_tpu_torch.ops.flash_attention)
 against the JAX package's Pallas kernel, run as tests/test_seq_models.py
 runs it on the CPU (interpret mode), and against dense attention.
 
+Head_dims off the kernel widths are zero-padded to the next one on both
+devices, so the CPU tests run the padding the card runs.
+
 On CPU tensors the wrapper runs its plain PyTorch version; the CUDA
 kernel itself is held against that plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
@@ -26,8 +29,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 ATOL = 1e-5
-# a ragged sequence (37: not a tile multiple) and the served model's S and D
-SHAPES = [(2, 37, 2, 16), (32, 64, 4, 16)]
+# a ragged sequence (37: not a tile multiple) and the served model's S and
+# D; then head_dims the wrapper zero-pads to the next kernel width (8 and
+# 12 to 16, 48 to 64, 96 to 128), as the JAX wrapper pads to 128 lanes
+SHAPES = [(2, 37, 2, 16), (32, 64, 4, 16), (2, 37, 2, 8), (3, 29, 2, 12), (2, 37, 2, 48),
+          (2, 21, 1, 96)]
 
 
 def _qkv(shape, seed):
@@ -126,3 +132,22 @@ def test_kernel_sources_are_listed():
 
     assert fa.KERNEL in _build.sources()
     assert _build.library_path(fa.KERNEL).parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("head_dim,width", [(1, 16), (8, 16), (12, 16), (16, 16), (17, 32),
+                                            (24, 32), (33, 64), (48, 64), (64, 64),
+                                            (65, 128), (96, 128), (128, 128)])
+def test_kernel_width_pads_to_the_next_kernel(head_dim, width):
+    assert fa.kernel_width(head_dim) == width
+    q = torch.zeros(1, 3, 1, head_dim)
+    assert fa._width(q) == width
+
+
+def test_kernel_width_names_the_queue_above_128():
+    with pytest.raises(ValueError, match="ROADMAP.md queue 3"):
+        fa.kernel_width(129)
+    # the CPU runs the plain version at any width
+    q, k, v = _qkv((1, 5, 1, 160), seed=3)
+    out, lse = fa.flash_attention_forward(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert out.shape == (1, 5, 1, 160)
+    np.testing.assert_allclose(lse.numpy(), _lse_reference(q, k, False), atol=ATOL)

@@ -21,7 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from gordo_tpu.ops.flash_attention import _flash_backward_bhsd
+from gordo_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from gordo_tpu_torch.models.specs_seq import TransformerNet, dense_attention
 from gordo_tpu_torch.ops import flash_attention as fa
 
@@ -32,8 +35,11 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_num_threads(1)
 
 ATOL = 1e-5
-# a ragged sequence (37: not a tile multiple) and the training step's S, H, D
-SHAPES = [(2, 37, 2, 16), (4, 64, 4, 16)]
+# a ragged sequence (37: not a tile multiple) and the training step's S, H,
+# D; then head_dims the wrappers zero-pad to the next kernel width (8 and
+# 12 to 16, 48 to 64, 96 to 128)
+SHAPES = [(2, 37, 2, 16), (4, 64, 4, 16), (2, 37, 2, 8), (3, 29, 2, 12), (2, 37, 2, 48),
+          (2, 21, 1, 96)]
 
 
 def _inputs(shape, seed):
@@ -106,6 +112,26 @@ def test_function_gradcheck_float64(causal):
     assert torch.autograd.gradcheck(
         lambda a, b, c: fa.flash_attention(a, b, c, causal=causal), (q, k, v)
     )
+
+
+@pytest.mark.parametrize("head_dim", [8, 12, 48, 96])
+@pytest.mark.parametrize("causal", [False, True])
+def test_function_gradients_match_jax_grad_at_padded_head_dims(head_dim, causal):
+    """The Function pads q, k, v once to the kernel width and slices the
+    gradients back: dq, dk, dv of a loss equal ``jax.grad`` through the JAX
+    ``flash_attention`` (Pallas in interpret mode)."""
+    shape = (2, 23, 2, head_dim)
+    q, k, v, d_out = _inputs(shape, seed=head_dim + causal)
+
+    def jax_loss(a, b, c):
+        return (jax_flash_attention(a, b, c, causal=causal) * jnp.asarray(d_out.numpy())).sum()
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(*(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (fa.flash_attention(*leaves, causal=causal) * d_out).sum().backward()
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        assert leaf.grad.shape == shape
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=ATOL, err_msg=name)
 
 
 def test_function_refuses_double_backward():

@@ -84,6 +84,7 @@ def test_mode_bits():
 def launches(monkeypatch):
     """Stand in for the built kernels: record each launch's arguments."""
     calls = []
+    monkeypatch.setattr(fa, "forward_splits", lambda q, causal: 1)
     monkeypatch.setattr(fa, "_kernel_function", lambda kernel, n_pointers: kernel)
     monkeypatch.setattr(fa, "_call", lambda kernel, fn, q, args: calls.append((kernel, args)))
     return calls
@@ -128,3 +129,50 @@ def test_dq_needs_all_six_row_tensors_aligned(launches, odd):
         fa.KERNEL: fa.MODE_CAUSAL | fa.MODE_VEC16,
         fa.KERNEL_DQ: fa.MODE_CAUSAL,
     }
+
+
+@pytest.mark.parametrize("head_dim,width", [(8, 16), (12, 16), (24, 32), (48, 64), (96, 128)])
+def test_wrappers_launch_at_the_kernel_width(launches, monkeypatch, head_dim, width):
+    """On the card's path each wrapper and the Function launch at the next
+    kernel width with the caller's scale, 1/sqrt(head_dim), and hand back
+    tensors of the caller's head_dim."""
+    monkeypatch.setattr(fa, "_device_path", lambda name, q: "cuda")
+    shape = (2, 5, 3, head_dim)
+    q, k, v, d_out = (torch.randn(shape) for _ in range(4))
+    out, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=True)
+    assert all(x.shape == shape for x in (out, dq, dk, dv))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fa.flash_attention(*leaves, causal=True).sum().backward()
+    assert all(leaf.grad.shape == shape for leaf in leaves)
+    pointers = {fa.KERNEL: 6, fa.KERNEL_DQ: 8, fa.KERNEL_DKV: 8}
+    assert [kernel for kernel, _ in launches] == [fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV] * 2
+    for kernel, args in launches:
+        assert args[pointers[kernel] + 3] == width, kernel
+        assert args[-2] == pytest.approx(head_dim ** -0.5), kernel
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_forward_hands_its_kernel_the_split_scratch(launches, monkeypatch, splits):
+    """With key splits the forward passes a float32 scratch of splits x
+    batch x heads x seq x (head_dim + 2) elements (each split's rows and
+    row statistics), and none without."""
+    monkeypatch.setattr(fa, "forward_splits", lambda q, causal: splits)
+    sizes = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kwargs):
+        sizes.append(shape[0] if len(shape) == 1 else shape)
+        return empty(*shape, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    q, k, v, _ = _inputs(0)
+    fa._launch(q, k, v, True, 0.25)
+    (kernel, args), = launches
+    batch, seq, heads, head_dim = SHAPE
+    if splits == 1:
+        assert args[5] is None
+    else:
+        assert isinstance(args[5], int) and args[5] != 0
+        assert splits * batch * heads * seq * (head_dim + 2) in sizes

@@ -34,12 +34,12 @@ N_FEATURES, LOOKBACK = 3, 8
 SMALL = dict(d_model=16, n_heads=2, n_layers=2)
 
 
-def flax_params(attention_impl="dense", seed=0):
+def flax_params(attention_impl="dense", seed=0, widths=SMALL):
     """A small JAX TransformerNet's params, every leaf perturbed with
     numpy noise so biases and LayerNorm scales are not trivially 0/1."""
     module = JaxTransformerNet(
-        ff_dim=4 * SMALL["d_model"], out_dim=N_FEATURES, attention_impl=attention_impl,
-        **SMALL,
+        ff_dim=4 * widths["d_model"], out_dim=N_FEATURES, attention_impl=attention_impl,
+        **widths,
     )
     params = module.init(jax.random.PRNGKey(seed), jnp.zeros((1, LOOKBACK, N_FEATURES)))
     rng = np.random.default_rng(seed)
@@ -49,10 +49,10 @@ def flax_params(attention_impl="dense", seed=0):
     return module, params
 
 
-def port_net(attention_impl, params):
+def port_net(attention_impl, params, widths=SMALL):
     net = TransformerNet(
-        n_features=N_FEATURES, ff_dim=4 * SMALL["d_model"], out_dim=N_FEATURES,
-        attention_impl=attention_impl, **SMALL,
+        n_features=N_FEATURES, ff_dim=4 * widths["d_model"], out_dim=N_FEATURES,
+        attention_impl=attention_impl, **widths,
     )
     state = transformer_state_dict(params)
     net.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
@@ -85,6 +85,19 @@ def test_transformer_net_matches_flax(attention_impl):
     with torch.no_grad():
         got = port_net(attention_impl, params)(torch.from_numpy(x))
     assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_transformer_block_at_head_dim_8_matches_flax():
+    """d_model 32 over 4 heads (examples/long_context_training.py's head
+    size, 8) through attention_impl="flash": the wrapper pads each head to
+    the 16-wide kernel, and the block still equals the JAX one."""
+    widths = dict(d_model=32, n_heads=4, n_layers=1)
+    module, params = flax_params("flash", seed=2, widths=widths)
+    x = np.random.default_rng(3).normal(size=(16, LOOKBACK, N_FEATURES)).astype(np.float32)
+    want, _ = module.apply(params, jnp.asarray(x))
+    with torch.no_grad():
+        got = port_net("flash", params, widths)(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
