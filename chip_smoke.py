@@ -8,7 +8,8 @@ Phases, each raising on failure (no result line is printed then):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``gordo_tpu_torch/csrc`` with nvcc for
-   sm_90a, one nvcc per source, all started together;
+   sm_90a, one nvcc per source, all started together (each source's nvcc
+   seconds and the whole build's are printed);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it and a few more, with
    its device time (torch.profiler; ``call_ms``: CUDA events around the
@@ -17,12 +18,14 @@ Phases, each raising on failure (no result line is printed then):
    operations over the type's peak rate, published H100 SXM figures):
    the flash forward, then the dq and dk/dv backward kernels, each also
    on views one element into their memory (no 16-byte aligned row: the
-   kernels' element-by-element path), at head_dim 64 and 128, at the JAX
-   package's long-context record (1, 8192, 4, 64) in float32 and bf16,
-   and at head_dims the wrappers pad (8 to 16, 48 to 64); two dq launches
-   bitwise equal at the training shape and on those views; then the
+   kernels' element-by-element path), at head_dim 64, 128 and 256, at the
+   JAX package's long-context record (1, 8192, 4, 64) in float32 and
+   bf16, at head_dims the wrappers pad (8 to 16, 48 to 64, 200 to 256),
+   and in float16 and float64 (float32 sums inside the kernels, as in the
+   Pallas kernels); two dq launches bitwise equal at the training shape,
+   on those views and at a shape where dq splits its keys; then the
    gradient of a loss through the autograd Function on the card against
-   dense attention's on the card, at head_dim 16, 64 and 48;
+   dense attention's on the card, at head_dim 16, 64, 48 and 200;
 4. serving: the ``turbine-9900-transformer`` machine of
    ``examples/config.yaml`` at full width with ``attention_impl: flash``
    (random weights from a numpy seed in the Flax layout, carried over by
@@ -79,8 +82,12 @@ from datetime import datetime, timedelta, timezone
 SEED = 1234
 # published H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
-TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
+# float64 inputs: the kernels' operations are float32 (each element is
+# converted on load, as the Pallas kernels do), so the float32 rate
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12, "float64": 67e12}
+# float16: one rounding of outputs up to 8; float64: float32 sums in the
+# kernels against float64 in the plain versions
+TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3, "float64": 1e-5}
 
 # examples/config.yaml, machine turbine-9900-transformer, + attention_impl flash
 MACHINE = "turbine-9900-transformer"
@@ -303,16 +310,21 @@ def library_view(x):
 MISALIGNED = "train-step-misaligned"
 # cases of the forward and both backward phases: the JAX package's on-chip
 # long-context record (docs/performance.md: causal, batch 1, 4 heads,
-# head_dim 64), and head_dims the wrappers zero-pad to the next kernel
-# width (examples/long_context_training.py's 8 runs at 16, 48 at 64)
+# head_dim 64), head_dims the wrappers zero-pad to the next kernel width
+# (examples/long_context_training.py's 8 runs at 16, 48 at 64, 200 at
+# 256), the widest kernel, and the float16 and float64 element types
 WIDE_CASES = [
     ("long-context-64", (1, 8192, 4, 64), True, "float32"),
     ("long-context-64-bf16", (1, 8192, 4, 64), True, "bfloat16"),
     ("padded-8", (32, 64, 4, 8), True, "float32"),
     ("padded-48", (16, 200, 2, 48), True, "float32"),
+    ("head-dim-256", (2, 300, 2, 256), False, "float32"),
+    ("padded-200", (2, 512, 4, 200), True, "float32"),
+    ("fp16-64", (4, 1000, 2, 64), True, "float16"),
+    ("fp64-128", (2, 300, 2, 128), False, "float64"),
 ]
 # the cases each kernel's `wide` rows of the `kernels` line report
-WIDE_ROWS = ("head-dim-128", "long-context-64")
+WIDE_ROWS = ("head-dim-128", "head-dim-256", "long-context-64")
 
 
 def kernel_phase(torch, fa):
@@ -398,18 +410,23 @@ BACKWARD_CASES = [
     ("train-step-bf16", (BATCH_SIZE, 64, 4, 16), True, "bfloat16"),
     (MISALIGNED, (BATCH_SIZE, 64, 4, 16), True, "float32"),
     *WIDE_CASES,
+    # a grid far under one wave: dq splits its keys across blocks
+    ("dq-split-64", (1, 500, 1, 64), True, "float32"),
 ]
 # cases where two dq launches must agree bit for bit (dq and delta)
-BITWISE_CASES = ("train-step", MISALIGNED)
+BITWISE_CASES = ("train-step", MISALIGNED, "dq-split-64")
+# of those, the cases whose dq must split its keys
+SPLIT_CASES = ("dq-split-64",)
 
 
 def backward_phase(torch, fa):
     """Phase 3, backward: the dq and dk/dv kernels, each against its plain
     version on the same inputs (the dk/dv pair both take the plain
     delta); in ``BITWISE_CASES`` a second dq launch equals the first bit
-    for bit. The library yardstick is the backward of
-    ``scaled_dot_product_attention`` through ``torch.autograd.grad``
-    (dq, dk and dv together), its forward timed apart and subtracted."""
+    for bit, and in ``SPLIT_CASES`` dq splits its keys. The library
+    yardstick is the backward of ``scaled_dot_product_attention`` through
+    ``torch.autograd.grad`` (dq, dk and dv together), its forward timed
+    apart and subtracted."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -421,6 +438,10 @@ def backward_phase(torch, fa):
         )
         out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
         scale = 1.0 / math.sqrt(shape[-1])
+        width = shape[:-1] + (fa.kernel_width(shape[-1]),)
+        dq_splits = fa.dq_splits(torch.empty(width, dtype=dtype, device="cuda"), causal)
+        if name in SPLIT_CASES and dq_splits < 2:
+            raise AssertionError(f"dq did not split its keys: {name}")
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
         bitwise = None
         if name in BITWISE_CASES:
@@ -494,6 +515,7 @@ def backward_phase(torch, fa):
                 "errors": {label: errors[label] for label in outputs},
                 "tolerance": tol,
                 "bitwise_repeat": bitwise if kernel == fa.KERNEL_DQ else None,
+                "key_splits": dq_splits if kernel == fa.KERNEL_DQ else 1,
                 "ms": ms,
                 "ms_timer": ms_timer,
                 "call_ms": time_ms(run),
@@ -517,13 +539,14 @@ def gradient_phase(torch, fa):
     """Phase 3, the repair: the gradient of a loss through the flash
     autograd Function on the card equals dense attention's on the card,
     through (batch, seq, heads, head_dim) views of one tensor as the
-    model feeds them: at the model's head_dim 16, at 64, and at 48, which
-    the Function pads to 64. Each backward launches dq and dk/dv once."""
+    model feeds them: at the model's head_dim 16, at 64, at 48, which
+    the Function pads to 64, and at 200, which it pads to 256. Each
+    backward launches dq and dk/dv once."""
     from gordo_tpu_torch.models.specs_seq import dense_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     report = {}
-    for head_dim in (16, 64, 48):
+    for head_dim in (16, 64, 48, 200):
         for causal in (True, False):
             wide = torch.randn((BATCH_SIZE, 64, 4, 3 * head_dim), generator=gen, device="cuda")
             wide.requires_grad_(True)
@@ -1275,7 +1298,7 @@ def profile_default_fit(torch, artifact: str, X):
 
 
 def wide_row(check):
-    """A head_dim 64/128 check row as the ``kernels`` line reports it."""
+    """A head_dim 64/128/256 check row as the ``kernels`` line reports it."""
     keys = ("case", "shape", "dtype", "ms", "ms_timer", "bound_ms", "bound_by", "plain_ms",
             "plain_ms_timer", "library_ms", "library_ms_timer")
     return {key: check[key] for key in keys}
@@ -1283,7 +1306,7 @@ def wide_row(check):
 
 def kernel_entry(kernel, source, replaces, check, launches_by_path, wide_checks):
     """One kernel's object of the ``kernels`` line; ``wide`` holds its
-    head_dim 128 and long-context head_dim 64 rows."""
+    head_dim 128, head_dim 256 and long-context head_dim 64 rows."""
     return {
         "name": kernel,
         "route": "cuda",
@@ -1334,9 +1357,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     compiler_output = _build.build_all(_build.sources())
     build_s = time.perf_counter() - t0
+    for name, (text, seconds) in compiler_output.items():
+        log(f"nvcc {name} ({seconds:.1f} s):\n{text.strip()}")
     log("build seconds", build_s)
-    for name, text in compiler_output.items():
-        log(f"nvcc {name}:\n{text.strip()}")
 
     checks = kernel_phase(torch, fa)
     backward_checks = backward_phase(torch, fa)
@@ -1380,6 +1403,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as fh:
             json.dump(
                 {"card": card, "build_s": build_s, "checks": checks,
+                 "nvcc_s": {name: seconds for name, (_, seconds) in compiler_output.items()},
                  "backward_checks": backward_checks, "gradients": gradients,
                  "end_to_end": report, "train": train,
                  "default_pipeline": default_pipeline, **kernels},

@@ -29,8 +29,9 @@
 // fp32 rate. So both are bound by bytes, and at the training shape by
 // their launch and one block's dependent load-then-compute latency. Both
 // keep every intermediate (scores, probabilities, dS) out of device
-// memory. Each output element has one owner, so there are no atomics and
-// no cross-block sum: both kernels are deterministic.
+// memory. Each output element has one owner and there are no atomics;
+// where dq splits its keys across blocks, a second kernel sums the splits
+// in a fixed order: both kernels are deterministic.
 //
 // dq at head_dim 16 and 32 (flash_bwd_dq_quad_kernel, the model's head
 // sizes) replaces _bwd_dq_kernel (gordo_tpu/ops/flash_attention.py:176),
@@ -57,13 +58,35 @@
 // butterfly reduce-scatter, and each lane stores a quarter of a row's
 // dims.
 //
-// dq at head_dim 64 and 128 (flash_bwd_dq_kernel): one block owns 64 query
-// rows of one (batch, head) and loops over key tiles; q, dO and the dq
-// accumulator stay in registers with the row's LSE and delta; key/value
-// tiles are staged in shared memory as fp32. A row is owned by
-// head_dim/16 neighbouring threads, each holding 16 of its head dims;
-// dot products are summed with warp shuffles. Causal blocks stop at the
-// tile's last query row.
+// dq at head_dim 64, 128 and 256 (flash_bwd_dq_wide_kernel): bound by
+// operations (3 dots of head_dim per kept pair: 52 GFLOP, 0.77 ms at the
+// fp32 rate, for the causal (1, 8192, 4, 64)) and by each block's serial
+// key walk at small grids. The forward wide kernel's layout on query rows:
+// a row's dims are split over S lanes (4 at head_dim 64, 8 at 128 and 256)
+// and each lane owns R query rows (DqWideTiling) with q (prescaled by
+// sm_scale * log2 e, so one exp2(score - LSE * log2 e) gives a pair's
+// probability), dO and the dq partials in registers; delta = rowsum(dO *
+// O) is summed before the walk and written once per row. A quad of four
+// lanes splits each key tile (lane `quad` takes keys quad, quad + 4, ...),
+// and per key a lane reads the value row (dO.v) and then the key row
+// (score and ds.k), so one of the two is live at a time; every element
+// read from shared memory feeds R rows' multiply-adds. Key and value tiles
+// pass through a two-stage ring in dynamic shared memory: with mode bit 2
+// the 16-byte cp.async copies of tile t + 1 run under the math on tile t,
+// otherwise the same ring is filled element by element. Causal stops are
+// warp-uniform, and blocks run the row tiles last to first across all
+// heads, so a causal launch starts with its longest key walks. Where the
+// row tiles alone leave the card's SMs idle the key axis is split across
+// blocks, as the forward's is (flash::key_splits): each split writes its
+// unscaled float32 dq rows to a scratch the caller allocates, and
+// flash_bwd_dq_merge_kernel sums them in split order and writes s * dq in
+// T. The quad's partials are merged once by the fixed-order butterfly.
+// ptxas fits every width with no spill (212, 212 and 222 registers in
+// float32): one 8-warp block an SM at 64 and 128, two 4-warp blocks at
+// 256. The tilings were chosen by timing on the card
+// (scripts/flash_tiling_sweep.py, PERF.md): R = 4 rows at S = 8 ran 3-5%
+// faster in float32 at head_dim 64 and 25% slower in bf16, and tilings
+// capped at 128 registers spill.
 //
 // dk/dv at head_dim 16 and 32 (flash_bwd_dkv_quad_kernel, the model's
 // head sizes): blocks of 4 warps own a run of key rows of one (batch,
@@ -86,7 +109,7 @@
 // CUDA cores: TF32 would break the 1e-4 float32 tolerance, and the
 // served scale is bound by bytes.
 //
-// dk/dv at head_dim 64 and 128 (flash_bwd_dkv_wide_kernel): bound by
+// dk/dv at head_dim 64, 128 and 256 (flash_bwd_dkv_wide_kernel): bound by
 // operations (4 dots of head_dim per kept pair: 69 GFLOP, 1.03 ms at the
 // fp32 rate, for the causal (1, 8192, 4, 64)) and by each block's serial
 // query walk at small grids. The quad layout of the head_dim 16/32 kernel
@@ -103,36 +126,38 @@
 // walks start first. ptxas fits both widths with no spill (248 and 255
 // registers in float32); the warps per block (4 at 64, 8 at 128) and the
 // tiles were chosen by timing on the card (scripts/flash_tiling_sweep.py,
-// PERF.md). The quad's partials are merged once by the fixed-order
-// butterfly, and each dk/dv element has one owner: no atomics.
+// PERF.md). At head_dim 256 a key row spans S = 8 lanes of 32 dims and
+// a lane owns R = 1 key row (16-query tiles). The quad's partials are
+// merged once by the fixed-order butterfly, and each dk/dv element has
+// one owner: no atomics.
 //
 // Rows past the sequence end store nothing; query rows past the end add
 // nothing to dk/dv and keys past the end have probability 0. No head-dim
 // padding to 128 lanes and no lane-broadcast statistics: those exist only
 // for Mosaic's (8, 128) tiling.
 //
-// Inputs are float32 or bfloat16 (dtype 0 / 1) with fp32 accumulation;
-// head_dim is 16, 32, 64 or 128; any sequence length; causal or full.
-// Strides are in elements, (batch, seq, head) for each tensor in the
-// order the entry point names; the head dim must be contiguous. `mode` is
-// a bit set: 1 causal, 2 every row start of the six (batch, seq, heads,
-// head_dim) tensors of the entry point 16-byte aligned (read by every
-// kernel but the head_dim 64/128 dq kernel, which reads bit 1 only). The kernels
-// allocate nothing and run on the caller's stream. Each entry point
-// returns the CUDA error code of its launch (0 on success).
+// Inputs are float32, bfloat16, float16 or float64 (dtype 0 / 1 / 2 / 3),
+// each element converted to float32 on load and every sum in float32, as
+// the Pallas kernels do (a float64 tile is staged in shared memory as
+// float32); head_dim is 16, 32, 64, 128 or 256; any sequence length;
+// causal or full. Strides are in elements, (batch, seq, head) for each
+// tensor in the order the entry point names; the head dim must be
+// contiguous. `mode` is a bit set: 1 causal, 2 every row start of the six
+// (batch, seq, heads, head_dim) tensors of the entry point 16-byte
+// aligned. The kernels allocate nothing (dq's split scratch is the
+// caller's) and run on the caller's stream. Each entry point returns the
+// CUDA error code of its launch (0 on success).
 
 #include <climits>
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "flash_common.cuh"
 
 namespace {
-
-constexpr int kSlice = 16;      // head dims held by one thread
-constexpr int kBlockRows = 64;  // rows a thread block owns (head_dim 64 and 128 kernels)
 
 // (batch, seq, head) element strides of one (batch, seq, heads, head_dim)
 // tensor
@@ -152,6 +177,10 @@ struct Params {
   void* dk;
   void* dv;
   Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
+  // dq's key splits: each split's unscaled float32 dq rows (the caller's
+  // scratch, n_splits * batch * heads * seq * head_dim elements)
+  float* ws;
+  int n_splits;
   int batch_heads;
   int heads;
   int seq;
@@ -178,113 +207,19 @@ __device__ __forceinline__ T* row_ptr(void* base, const Strides& st, int b, int 
          h * st.h + d0;
 }
 
-// sum over the kTpr neighbouring threads that own one row
-template <int kTpr>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = kTpr / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kBlockRows*(D / kSlice))
-    flash_bwd_dq_kernel(const Params p) {
-  constexpr int kTpr = D / kSlice;            // threads per query row
-  constexpr int kBlockK = D <= 32 ? 64 : 32;  // keys per shared tile
-  constexpr int kThreads = kBlockRows * kTpr;
-
-  __shared__ float k_tile[kBlockK][D];
-  __shared__ float v_tile[kBlockK][D];
-
-  const int bh = blockIdx.x / p.n_tiles;
-  const int qt = blockIdx.x - bh * p.n_tiles;
-  const int b = bh / p.heads;
-  const int h = bh - b * p.heads;
-  const int row = threadIdx.x / kTpr;
-  const int d0 = (threadIdx.x - row * kTpr) * kSlice;
-  const int seq = p.seq;
-  const int qpos = qt * kBlockRows + row;
-  const int qc = min(qpos, seq - 1);
-
-  const T* q_row = row_ptr<T>(p.q, p.q_st, b, qc, h, d0);
-  const T* o_row = row_ptr<T>(p.out, p.o_st, b, qc, h, d0);
-  const T* do_row = row_ptr<T>(p.d_out, p.do_st, b, qc, h, d0);
-  float qr[kSlice];
-  float dor[kSlice];
-  float acc[kSlice];
-  float dot_o = 0.f;
-#pragma unroll
-  for (int i = 0; i < kSlice; ++i) {
-    qr[i] = to_float(q_row[i]);
-    dor[i] = to_float(do_row[i]);
-    dot_o = fmaf(dor[i], to_float(o_row[i]), dot_o);
-    acc[i] = 0.f;
-  }
-  const int64_t stat = static_cast<int64_t>(bh) * seq;
-  const float delta = row_sum<kTpr>(dot_o);
-  const float lse = p.lse[stat + qc];
-  if (qpos < seq && d0 == 0) p.delta[stat + qpos] = delta;
-
-  const int q_last = min(seq, (qt + 1) * kBlockRows) - 1;
-  const int k_end = p.causal ? q_last + 1 : seq;  // keys this tile needs
-  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
-  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
-
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = threadIdx.x; idx < kBlockK * D; idx += kThreads) {
-      const int j = idx / D;
-      const int d = idx - j * D;
-      const int kpos = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kpos < seq) {
-        kv = to_float(k_head[static_cast<int64_t>(kpos) * p.k_st.s + d]);
-        vv = to_float(v_head[static_cast<int64_t>(kpos) * p.v_st.s + d]);
-      }
-      k_tile[j][d] = kv;
-      v_tile[j][d] = vv;
-    }
-    __syncthreads();
-
-    const int n = min(kBlockK, k_end - k0);  // uniform across the block
-#pragma unroll 2
-    for (int j = 0; j < n; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < kSlice; ++i) {
-        s = fmaf(qr[i], k_tile[j][d0 + i], s);
-        dp = fmaf(dor[i], v_tile[j][d0 + i], dp);
-      }
-      s = row_sum<kTpr>(s);
-      dp = row_sum<kTpr>(dp);
-      // keys past the sequence end lie past k_end: only the causal mask
-      const bool keep = !p.causal || k0 + j <= qpos;
-      const float prob = keep ? expf(s * p.sm_scale - lse) : 0.f;
-      const float ds = prob * (dp - delta);
-#pragma unroll
-      for (int i = 0; i < kSlice; ++i) acc[i] = fmaf(ds, k_tile[j][d0 + i], acc[i]);
-    }
-  }
-
-  if (qpos < seq) {
-    T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, d0);
-#pragma unroll
-    for (int i = 0; i < kSlice; ++i) dq_row[i] = from_float<T>(acc[i] * p.sm_scale);
-  }
-}
-
 template <typename T, int D, int R, int S, int kMinBlocks>
 __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
     flash_bwd_dkv_quad_kernel(const Params p) {
+  using E = flash::staged_t<T>;
   constexpr int kDims = D / S;  // head dims a lane holds
   constexpr int kWarpKeys = R * (32 / (flash::kQuad * S));
   constexpr int kKeys = flash::quad_rows<R, S>();
-  constexpr int kPitch = D + 16 / sizeof(T);  // padded row: 16-byte aligned, no bank conflicts
+  constexpr int kPitch = D + 16 / sizeof(E);  // padded row: 16-byte aligned, no bank conflicts
   constexpr int kTile = flash::kPartnerTile;
-  __shared__ __align__(16) T k_tile[kKeys * kPitch];
-  __shared__ __align__(16) T v_tile[kKeys * kPitch];
-  __shared__ __align__(16) T q_tile[kTile * kPitch];
-  __shared__ __align__(16) T do_tile[kTile * kPitch];
+  __shared__ __align__(16) E k_tile[kKeys * kPitch];
+  __shared__ __align__(16) E v_tile[kKeys * kPitch];
+  __shared__ __align__(16) E q_tile[kTile * kPitch];
+  __shared__ __align__(16) E do_tile[kTile * kPitch];
   __shared__ float2 stat_tile[kTile];  // (LSE in log2 units, delta) of each query
 
   const int bh = blockIdx.x / p.n_tiles;
@@ -364,8 +299,8 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
 #pragma unroll 2
     for (int t = t_begin; t < t_end; ++t) {
       const int i = quad + t * flash::kQuad;
-      const T* q_row = q_tile + i * kPitch + part * kDims;
-      const T* do_row = do_tile + i * kPitch + part * kDims;
+      const E* q_row = q_tile + i * kPitch + part * kDims;
+      const E* do_row = do_tile + i * kPitch + part * kDims;
       float4 qv[kDims / 4];
       float4 ov[kDims / 4];
 #pragma unroll
@@ -428,7 +363,7 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
   }
 }
 
-// The dk/dv quad layout at head_dim 64 and 128, with more of the work in
+// The dk/dv quad layout at head_dim 64, 128 and 256, with more of the work in
 // flight: kWarps warps a block, the lane's k and v rows loaded straight
 // into registers, and q, dO, LSE and delta tiles of kTile queries staged
 // through a two-stage ring in dynamic shared memory, so the copies of
@@ -436,16 +371,17 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
 template <typename T, int D, int R, int S, int kWarps, int kTile, int kMinBlocks>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     flash_bwd_dkv_wide_kernel(const Params p) {
+  using E = flash::staged_t<T>;
   constexpr int kThreads = kWarps * 32;
   constexpr int kDims = D / S;  // head dims a lane holds
   constexpr int kWarpKeys = R * (32 / (flash::kQuad * S));
   constexpr int kKeys = flash::quad_rows<R, S, kWarps>();
-  constexpr int kPitch = D + 16 / sizeof(T);  // padded row: 16-byte aligned, no bank conflicts
+  constexpr int kPitch = D + 16 / sizeof(E);  // padded row: 16-byte aligned, no bank conflicts
   constexpr int kStage = kTile * kPitch;      // elements of one staged tile
   constexpr int kLaneQueries = kTile / flash::kQuad;  // queries a lane walks per tile
   extern __shared__ __align__(16) unsigned char smem[];
-  T* q_ring = reinterpret_cast<T*>(smem);  // [2][kStage]
-  T* do_ring = q_ring + 2 * kStage;        // [2][kStage]
+  E* q_ring = reinterpret_cast<E*>(smem);  // [2][kStage]
+  E* do_ring = q_ring + 2 * kStage;        // [2][kStage]
   float* lse_ring = reinterpret_cast<float*>(do_ring + 2 * kStage);  // [2][kTile]
   float* delta_ring = lse_ring + 2 * kTile;                          // [2][kTile]
 
@@ -522,8 +458,8 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     }
     flash::cp_async_wait<1>();  // tile t has landed
     __syncthreads();
-    const T* q_tile = q_ring + (t & 1) * kStage;
-    const T* do_tile = do_ring + (t & 1) * kStage;
+    const E* q_tile = q_ring + (t & 1) * kStage;
+    const E* do_tile = do_ring + (t & 1) * kStage;
     const float* lse_tile = lse_ring + (t & 1) * kTile;
     const float* delta_tile = delta_ring + (t & 1) * kTile;
     // queries quad + 4u of the tile, u in [u_begin, u_end) (uniform across the warp)
@@ -532,8 +468,8 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 #pragma unroll 2
     for (int u = u_begin; u < u_end; ++u) {
       const int i = quad + u * flash::kQuad;
-      const T* q_row = q_tile + i * kPitch + part * kDims;
-      const T* do_row = do_tile + i * kPitch + part * kDims;
+      const E* q_row = q_tile + i * kPitch + part * kDims;
+      const E* do_row = do_tile + i * kPitch + part * kDims;
       float4 qv[kDims / 4];
       float4 ov[kDims / 4];
 #pragma unroll
@@ -601,13 +537,14 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 template <typename T, int D, int R, int S, int kMinBlocks>
 __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
     flash_bwd_dq_quad_kernel(const Params p) {
+  using E = flash::staged_t<T>;
   constexpr int kDims = D / S;  // head dims a lane holds
   constexpr int kWarpRows = R * (32 / (flash::kQuad * S));
   constexpr int kRows = flash::quad_rows<R, S>();
-  constexpr int kPitch = D + 16 / sizeof(T);  // padded row: 16-byte aligned, no bank conflicts
+  constexpr int kPitch = D + 16 / sizeof(E);  // padded row: 16-byte aligned, no bank conflicts
   constexpr int kTile = flash::kPartnerTile;
-  __shared__ __align__(16) T k_tile[kTile * kPitch];
-  __shared__ __align__(16) T v_tile[kTile * kPitch];
+  __shared__ __align__(16) E k_tile[kTile * kPitch];
+  __shared__ __align__(16) E v_tile[kTile * kPitch];
 
   const int bh = blockIdx.x / p.n_tiles;
   const int qt = blockIdx.x - bh * p.n_tiles;
@@ -682,7 +619,7 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
       // dO.v first and k after, so only one of the two rows is live at a time
       float dp[R];
       {
-        const T* v_row = v_tile + j * kPitch + part * kDims;
+        const E* v_row = v_tile + j * kPitch + part * kDims;
         float4 vv[kDims / 4];
 #pragma unroll
         for (int c = 0; c < kDims / 4; ++c) vv[c] = flash::load4(v_row + 4 * c);
@@ -699,7 +636,7 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
           dp[r] = flash::dim_sum<S>((dp4.x + dp4.y) + (dp4.z + dp4.w));
         }
       }
-      const T* k_row = k_tile + j * kPitch + part * kDims;
+      const E* k_row = k_tile + j * kPitch + part * kDims;
       float4 kv[kDims / 4];
 #pragma unroll
       for (int c = 0; c < kDims / 4; ++c) kv[c] = flash::load4(k_row + 4 * c);
@@ -740,6 +677,206 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
   }
 }
 
+// dq at head_dim 64, 128 and 256: the quad layout on query rows with
+// kWarps warps a block, the lane's q, dO and O rows loaded straight into
+// registers, and key and value tiles of kTile rows staged through a
+// two-stage ring in dynamic shared memory, so the copies of tile t + 1 run
+// under the math on tile t. Split `split` of `n_splits` walks its run of
+// the block's key tiles.
+template <typename T, int D, int R, int S, int kWarps, int kTile, int kMinBlocks>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+    flash_bwd_dq_wide_kernel(const Params p) {
+  using E = flash::staged_t<T>;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kDims = D / S;  // head dims a lane holds
+  constexpr int kWarpRows = R * (32 / (flash::kQuad * S));
+  constexpr int kRows = flash::quad_rows<R, S, kWarps>();
+  constexpr int kPitch = D + 16 / sizeof(E);  // padded row: 16-byte aligned, no bank conflicts
+  constexpr int kStage = kTile * kPitch;      // elements of one staged tile
+  constexpr int kLaneKeys = kTile / flash::kQuad;  // keys a lane walks per tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* k_ring = reinterpret_cast<E*>(smem);  // [2][kStage]
+  E* v_ring = k_ring + 2 * kStage;         // [2][kStage]
+
+  // block = (row tile, batch*head, key split), split fastest; the row
+  // tiles run last to first across all heads, so causal launches start
+  // with their longest key walks
+  const int split = blockIdx.x % p.n_splits;
+  const int tile = blockIdx.x / p.n_splits;
+  const int bh = tile % p.batch_heads;
+  const int qt = p.n_tiles - 1 - tile / p.batch_heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int part = lane % S;                         // which kDims of each row
+  const int quad = (lane / S) & (flash::kQuad - 1);  // which keys of each tile
+  const int q0 = qt * kRows;
+  // the lane's rows: row0 + r
+  const int row0 = q0 + warp * kWarpRows + (lane / (flash::kQuad * S)) * R;
+  const int seq = p.seq;
+  const bool vec = p.vec;
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
+  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
+  // keys the block needs, and keys the warp's rows need: all lanes of a
+  // warp walk the same keys, so causal work above a warp's rows is skipped
+  const int k_end = p.causal ? min(seq, q0 + kRows) : seq;
+  const int warp_k_end = p.causal ? min(seq, q0 + warp * kWarpRows + kWarpRows) : seq;
+  // this split's run of the block's key tiles
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const int split_tiles = (n_tiles + p.n_splits - 1) / p.n_splits;
+  const int t_begin = min(n_tiles, split * split_tiles);
+  const int t_end = min(n_tiles, t_begin + split_tiles);
+
+  // stage the key tile at k0 into ring stage `s`
+  auto stage = [&](int k0, int s) {
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(k_ring + s * kStage, k_head, p.k_st.s, k0,
+                                                     k_end, vec);
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(v_ring + s * kStage, v_head, p.v_st.s, k0,
+                                                     k_end, vec);
+  };
+  if (t_begin < t_end) stage(t_begin * kTile, t_begin & 1);
+  flash::cp_async_commit();
+
+  // q (prescaled), dO, the row's LSE in log2 units and delta = rowsum(dO * O);
+  // rows past the sequence end compute on a clamped copy and store nothing
+  const float q_scale = p.sm_scale * flash::kLog2e;
+  float qr[R][kDims];
+  float dor[R][kDims];
+  float acc[R][kDims];
+  float lse2[R];
+  float delta[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qc = min(row0 + r, seq - 1);
+    const int d0 = part * kDims;
+    float orow[kDims];
+    flash::load_row<T, kDims>(row_ptr<T>(p.q, p.q_st, b, qc, h, d0), qr[r], vec);
+    flash::load_row<T, kDims>(row_ptr<T>(p.d_out, p.do_st, b, qc, h, d0), dor[r], vec);
+    flash::load_row<T, kDims>(row_ptr<T>(p.out, p.o_st, b, qc, h, d0), orow, vec);
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) {
+      dot = fmaf(dor[r][d], orow[d], dot);
+      qr[r][d] *= q_scale;
+      acc[r][d] = 0.f;
+    }
+    delta[r] = flash::dim_sum<S>(dot);
+    lse2[r] = p.lse[stat + qc] * flash::kLog2e;
+    if (split == 0 && quad == 0 && part == 0 && row0 + r < seq) {
+      p.delta[stat + row0 + r] = delta[r];
+    }
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kTile;
+    if (t + 1 < t_end) stage(k0 + kTile, (t + 1) & 1);  // the next tile into the other stage
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const E* k_tile = k_ring + (t & 1) * kStage;
+    const E* v_tile = v_ring + (t & 1) * kStage;
+    // keys quad + 4i of the tile, i < n (uniform across the warp)
+    const int n = min(kLaneKeys, (warp_k_end - k0 + flash::kQuad - 1) / flash::kQuad);
+#pragma unroll 2
+    for (int i = 0; i < n; ++i) {
+      const int j = quad + i * flash::kQuad;
+      const int kpos = k0 + j;
+      // dO.v first and k after, so only one of the two rows is live at a time
+      float dp[R];
+      {
+        const E* v_row = v_tile + j * kPitch + part * kDims;
+        float4 vv[kDims / 4];
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) vv[c] = flash::load4(v_row + 4 * c);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float4 dp4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int c = 0; c < kDims / 4; ++c) {
+            dp4.x = fmaf(dor[r][4 * c], vv[c].x, dp4.x);
+            dp4.y = fmaf(dor[r][4 * c + 1], vv[c].y, dp4.y);
+            dp4.z = fmaf(dor[r][4 * c + 2], vv[c].z, dp4.z);
+            dp4.w = fmaf(dor[r][4 * c + 3], vv[c].w, dp4.w);
+          }
+          dp[r] = flash::dim_sum<S>((dp4.x + dp4.y) + (dp4.z + dp4.w));
+        }
+      }
+      const E* k_row = k_tile + j * kPitch + part * kDims;
+      float4 kv[kDims / 4];
+#pragma unroll
+      for (int c = 0; c < kDims / 4; ++c) kv[c] = flash::load4(k_row + 4 * c);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) {
+          s4.x = fmaf(qr[r][4 * c], kv[c].x, s4.x);
+          s4.y = fmaf(qr[r][4 * c + 1], kv[c].y, s4.y);
+          s4.z = fmaf(qr[r][4 * c + 2], kv[c].z, s4.z);
+          s4.w = fmaf(qr[r][4 * c + 3], kv[c].w, s4.w);
+        }
+        const float score = flash::dim_sum<S>((s4.x + s4.y) + (s4.z + s4.w));
+        const bool keep = kpos < seq && (!p.causal || kpos <= row0 + r);
+        const float ds = keep ? exp2f(score - lse2[r]) * (dp[r] - delta[r]) : 0.f;
+#pragma unroll
+        for (int c = 0; c < kDims / 4; ++c) {
+          acc[r][4 * c] = fmaf(ds, kv[c].x, acc[r][4 * c]);
+          acc[r][4 * c + 1] = fmaf(ds, kv[c].y, acc[r][4 * c + 1]);
+          acc[r][4 * c + 2] = fmaf(ds, kv[c].z, acc[r][4 * c + 2]);
+          acc[r][4 * c + 3] = fmaf(ds, kv[c].w, acc[r][4 * c + 3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // merge the quad: a quarter of the lane's dims of each row per lane; with
+  // one split the row is done, else its partial row goes to the scratch
+  // for flash_bwd_dq_merge_kernel
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * seq;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float dq_out[kDims / 4];
+    flash::quad_reduce_scatter<kDims, S>(acc[r], dq_out, quad);
+    const int qpos = row0 + r;
+    if (qpos >= seq) continue;
+    const int d0 = part * kDims + quad * (kDims / 4);
+    if (p.n_splits == 1) {
+      flash::store_row<T, kDims / 4>(row_ptr<T>(p.dq, p.dq_st, b, qpos, h, d0), dq_out,
+                                     p.sm_scale, vec);
+    } else {
+      flash::store_row<float, kDims / 4>(p.ws + (split * n_rows + stat + qpos) * D + d0, dq_out,
+                                         1.f, true);
+    }
+  }
+}
+
+// Merge the key splits of the wide dq kernel: one warp per (batch*head,
+// row) sums the splits' rows in split order and writes s * dq.
+template <typename T, int D>
+__global__ void __launch_bounds__(128) flash_bwd_dq_merge_kernel(const Params p) {
+  constexpr int kLaneDims = D / 32;
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * p.seq;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 4 + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  float acc[kLaneDims] = {};
+  for (int s = 0; s < p.n_splits; ++s) {
+    const float* part = p.ws + (s * n_rows + row) * D + lane * kLaneDims;
+#pragma unroll
+    for (int d = 0; d < kLaneDims; ++d) acc[d] += part[d];
+  }
+  const int bh = static_cast<int>(row / p.seq);
+  const int qpos = static_cast<int>(row - static_cast<int64_t>(bh) * p.seq);
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, lane * kLaneDims);
+#pragma unroll
+  for (int d = 0; d < kLaneDims; ++d) dq_row[d] = from_float<T>(acc[d] * p.sm_scale);
+}
+
 // (query rows per lane, dim split, minimum blocks per SM) of the dq quad
 // kernel: one row per lane is the fastest tiling ptxas fits without a spill
 template <int D>
@@ -777,46 +914,116 @@ template <>
 struct DkvWideTiling<128> {
   static constexpr int R = 2, S = 8, kWarps = 8, kTile = 32, kMinBlocks = 1;
 };
+template <>
+struct DkvWideTiling<256> {
+  static constexpr int R = 1, S = 8, kWarps = 8, kTile = 16, kMinBlocks = 1;
+};
+
+// (query rows per lane, dim split, warps per block, keys per staged tile,
+// minimum blocks per SM) of the dq wide kernel
+template <int D>
+struct DqWideTiling;
+template <>
+struct DqWideTiling<64> {
+  static constexpr int R = 2, S = 4, kWarps = 8, kTile = 64, kMinBlocks = 1;
+};
+template <>
+struct DqWideTiling<128> {
+  static constexpr int R = 2, S = 8, kWarps = 8, kTile = 32, kMinBlocks = 1;
+};
+template <>
+struct DqWideTiling<256> {
+  static constexpr int R = 1, S = 8, kWarps = 4, kTile = 16, kMinBlocks = 2;
+};
+
+// dynamic shared memory of a wide dq block (key and value rings) and of a
+// wide dk/dv block (q and dO rings, then LSE and delta), two stages each
+template <typename T, int D>
+constexpr int dq_smem() {
+  using E = flash::staged_t<T>;
+  return 4 * DqWideTiling<D>::kTile * (D + 16 / static_cast<int>(sizeof(E))) *
+         static_cast<int>(sizeof(E));
+}
+
+template <typename T, int D>
+constexpr int dkv_smem() {
+  using E = flash::staged_t<T>;
+  constexpr int kTile = DkvWideTiling<D>::kTile;
+  return 4 * kTile * (D + 16 / static_cast<int>(sizeof(E))) * static_cast<int>(sizeof(E)) +
+         4 * kTile * static_cast<int>(sizeof(float));
+}
+
+template <typename T, int D>
+const flash::WideSetup& dq_setup() {
+  using Tile = DqWideTiling<D>;
+  static const flash::WideSetup setup = flash::wide_setup(
+      flash_bwd_dq_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>,
+      Tile::kWarps * 32, dq_smem<T, D>());
+  return setup;
+}
+
+template <typename T, int D>
+int dq_splits(int64_t wave, int64_t batch_heads, int seq, bool causal) {
+  using Tile = DqWideTiling<D>;
+  constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
+  return flash::key_splits(wave, batch_heads * ((seq + kRows - 1) / kRows),
+                           (seq + Tile::kTile - 1) / Tile::kTile, causal);
+}
 
 enum class Which { kDq, kDkv };
 
 template <Which W, typename T, int D>
 int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
-  constexpr bool kQuadKernel = D <= 32;  // the model's head sizes
-  int rows = kBlockRows;
-  if constexpr (kQuadKernel && W == Which::kDq) {
-    rows = flash::quad_rows<DqTiling<D>::R, DqTiling<D>::S>();
-  } else if constexpr (kQuadKernel) {
-    rows = flash::quad_rows<DkvTiling<D>::R, DkvTiling<D>::S>();
-  } else if constexpr (W == Which::kDkv) {
-    using Tile = DkvWideTiling<D>;
-    rows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
-  }
-  p.n_tiles = (p.seq + rows - 1) / rows;
-  const int64_t n_blocks = batch_heads * p.n_tiles;
-  if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const unsigned grid = static_cast<unsigned>(n_blocks);
-  constexpr int kThreads = kBlockRows * (D / kSlice);
-  if constexpr (W == Which::kDq && kQuadKernel) {
-    using Tile = DqTiling<D>;
-    flash_bwd_dq_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
-        <<<grid, flash::kQuadThreads, 0, stream>>>(p);
+  if constexpr (D <= 32) {  // the model's head sizes
+    constexpr int kRows = W == Which::kDq ? flash::quad_rows<DqTiling<D>::R, DqTiling<D>::S>()
+                                          : flash::quad_rows<DkvTiling<D>::R, DkvTiling<D>::S>();
+    p.n_tiles = (p.seq + kRows - 1) / kRows;
+    const int64_t n_blocks = batch_heads * p.n_tiles;
+    if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const unsigned grid = static_cast<unsigned>(n_blocks);
+    if constexpr (W == Which::kDq) {
+      using Tile = DqTiling<D>;
+      flash_bwd_dq_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
+          <<<grid, flash::kQuadThreads, 0, stream>>>(p);
+    } else {
+      using Tile = DkvTiling<D>;
+      flash_bwd_dkv_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
+          <<<grid, flash::kQuadThreads, 0, stream>>>(p);
+    }
   } else if constexpr (W == Which::kDq) {
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
-  } else if constexpr (kQuadKernel) {
-    using Tile = DkvTiling<D>;
-    flash_bwd_dkv_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
-        <<<grid, flash::kQuadThreads, 0, stream>>>(p);
+    using Tile = DqWideTiling<D>;
+    constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
+    const flash::WideSetup& setup = dq_setup<T, D>();
+    if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
+    p.n_splits = dq_splits<T, D>(setup.wave, batch_heads, p.seq, p.causal);
+    if (p.n_splits > 1 && p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    p.n_tiles = (p.seq + kRows - 1) / kRows;
+    const int64_t n_blocks = batch_heads * p.n_tiles * p.n_splits;
+    const int64_t n_rows = batch_heads * p.seq;
+    if (n_blocks > INT_MAX || (n_rows + 3) / 4 > INT_MAX) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    constexpr int kSmem = dq_smem<T, D>();
+    flash_bwd_dq_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>
+        <<<static_cast<unsigned>(n_blocks), Tile::kWarps * 32, kSmem, stream>>>(p);
+    if (p.n_splits > 1) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      flash_bwd_dq_merge_kernel<T, D>
+          <<<static_cast<unsigned>((n_rows + 3) / 4), 128, 0, stream>>>(p);
+    }
   } else {
     using Tile = DkvWideTiling<D>;
-    // q and dO tiles, then LSE and delta, each in two stages
-    constexpr int kSmem = 4 * Tile::kTile * (D + 16 / static_cast<int>(sizeof(T))) * sizeof(T) +
-                          4 * Tile::kTile * sizeof(float);
+    constexpr int kKeys = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
+    p.n_tiles = (p.seq + kKeys - 1) / kKeys;
+    const int64_t n_blocks = batch_heads * p.n_tiles;
+    if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
     const auto kernel = flash_bwd_dkv_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps,
                                                   Tile::kTile, Tile::kMinBlocks>;
+    constexpr int kSmem = dkv_smem<T, D>();
     static const cudaError_t smem_ok = flash::allow_dynamic_smem(kernel, kSmem);
     if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
-    kernel<<<grid, Tile::kWarps * 32, kSmem, stream>>>(p);
+    kernel<<<static_cast<unsigned>(n_blocks), Tile::kWarps * 32, kSmem, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -828,6 +1035,7 @@ int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t
     case 32: return launch<W, T, 32>(p, batch_heads, stream);
     case 64: return launch<W, T, 64>(p, batch_heads, stream);
     case 128: return launch<W, T, 128>(p, batch_heads, stream);
+    case 256: return launch<W, T, 256>(p, batch_heads, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -851,22 +1059,63 @@ int run(Params& p, int batch, int seq, int heads, int head_dim, int dtype, int m
   switch (dtype) {
     case 0: return dispatch_head_dim<W, float>(head_dim, p, batch_heads, s);
     case 1: return dispatch_head_dim<W, __nv_bfloat16>(head_dim, p, batch_heads, s);
+    case 2: return dispatch_head_dim<W, __half>(head_dim, p, batch_heads, s);
+    case 3: return dispatch_head_dim<W, double>(head_dim, p, batch_heads, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int D>
+int dq_splits_of(int64_t batch_heads, int seq, bool causal) {
+  const flash::WideSetup& setup = dq_setup<T, D>();
+  if (setup.err != cudaSuccess) return -static_cast<int>(setup.err);
+  return dq_splits<T, D>(setup.wave, batch_heads, seq, causal);
+}
+
+template <typename T>
+int dq_splits_for(int head_dim, int64_t batch_heads, int seq, bool causal) {
+  switch (head_dim) {
+    case 64: return dq_splits_of<T, 64>(batch_heads, seq, causal);
+    case 128: return dq_splits_of<T, 128>(batch_heads, seq, causal);
+    case 256: return dq_splits_of<T, 256>(batch_heads, seq, causal);
+    default: return 1;
   }
 }
 
 }  // namespace
 
+// the key splits the dq launch of these shapes and mode takes: the float32
+// scratch it needs is n_splits * batch * heads * seq * head_dim elements
+// when n_splits > 1 (none otherwise); minus the CUDA error code when the
+// card could not be queried or the dtype is unknown
+extern "C" int gordo_flash_attention_bwd_dq_splits(int batch, int seq, int heads, int head_dim,
+                                                   int dtype, int mode) {
+  const int64_t batch_heads = static_cast<int64_t>(batch) * heads;
+  if (batch <= 0 || seq <= 0 || heads <= 0) return 1;
+  const bool causal = (mode & flash::kModeCausal) != 0;
+  switch (dtype) {
+    case 0: return dq_splits_for<float>(head_dim, batch_heads, seq, causal);
+    case 1: return dq_splits_for<__nv_bfloat16>(head_dim, batch_heads, seq, causal);
+    case 2: return dq_splits_for<__half>(head_dim, batch_heads, seq, causal);
+    case 3: return dq_splits_for<double>(head_dim, batch_heads, seq, causal);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // dq and delta, replacing _bwd_dq_kernel (gordo_tpu/ops/flash_attention.py:176);
-// bound by bytes: q, k, v, out, d_out and lse in, dq and delta out.
+// q, k, v, out, d_out and lse in, dq and delta out.
 // strides: (batch, seq, head) of q, k, v, out, d_out, dq, in that order;
-// mode: bit 1 causal, bit 2 16-byte aligned rows of all six
+// mode: bit 1 causal, bit 2 16-byte aligned rows of all six; workspace:
+// the scratch gordo_flash_attention_bwd_dq_splits asks for (null when it
+// asks for none)
 extern "C" int gordo_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out, const void* d_out,
-    const void* lse, void* delta, void* dq,
+    const void* lse, void* delta, void* dq, void* workspace,
     int batch, int seq, int heads, int head_dim, int dtype,
     const long long* strides, float sm_scale, int mode, void* stream) {
   Params p = {};
+  p.ws = static_cast<float*>(workspace);
+  p.n_splits = 1;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -886,7 +1135,7 @@ extern "C" int gordo_flash_attention_bwd_dq(
 }
 
 // dk and dv, replacing _bwd_dkv_kernel (gordo_tpu/ops/flash_attention.py:213);
-// bound by bytes: q, k, v, d_out, lse and delta in, dk and dv out.
+// q, k, v, d_out, lse and delta in, dk and dv out.
 // strides: (batch, seq, head) of q, k, v, d_out, dk, dv, in that order;
 // mode: bit 1 causal, bit 2 16-byte aligned rows of all six
 extern "C" int gordo_flash_attention_bwd_dkv(

@@ -38,7 +38,7 @@
 // exp2. Everything stays on the fp32 CUDA cores: TF32 would break the
 // 1e-4 float32 tolerance, and the served shape is bound by bytes anyway.
 //
-// At head_dim 64 and 128 (flash_fwd_wide_kernel) the work per (row, key)
+// At head_dim 64, 128 and 256 (flash_fwd_wide_kernel) the work per (row, key)
 // pair is 4-8x larger and the grids are small (76 blocks at (2, 300, 2,
 // 128)), so the kernel is bound by operations and by the latency of each
 // block's serial key walk, not by bytes: the JAX package's long-context
@@ -65,11 +65,16 @@
 // allocates, and flash_fwd_merge_kernel sums the splits in split order, so
 // a launch stays deterministic. Neither kernel pads head_dim to 128 lanes
 // or broadcasts row statistics over lanes: those exist only for Mosaic's
-// (8, 128) tiling; the wrapper pads a head_dim off 16/32/64/128 to the
-// next of them.
+// (8, 128) tiling; the wrapper pads a head_dim off 16/32/64/128/256 to the
+// next of them. At head_dim 256 a row's dims span S = 8 lanes of 32 dims
+// each (the quad's four lanes times S fill the warp), so a lane holds R =
+// 2 rows and the block's ring holds 16-key tiles (66.5 KB in float32);
+// ptxas fits it at 231 registers in float32 with no spill.
 //
-// Inputs are float32 or bfloat16 (dtype 0 / 1) with fp32 accumulation;
-// head_dim is 16, 32, 64 or 128; any sequence length. Strides are in
+// Inputs are float32, bfloat16, float16 or float64 (dtype 0 / 1 / 2 / 3),
+// each element converted to float32 on load and every sum in float32, as
+// the Pallas kernel does; a float64 tile is staged in shared memory as
+// float32. head_dim is 16, 32, 64, 128 or 256; any sequence length. Strides are in
 // elements; the head dim must be contiguous. `mode` is a bit set: 1
 // causal, 2 every row start of q, k, v and out 16-byte aligned. The
 // kernels allocate nothing and run on the caller's stream. The entry
@@ -80,6 +85,7 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "flash_common.cuh"
@@ -109,25 +115,26 @@ struct Params {
   int vec;
 };
 
-// The quad layout at head_dim 64 and 128, with more of the work in flight:
+// The quad layout at head_dim 64, 128 and 256, with more of the work in flight:
 // kWarps warps a block, lane rows loaded straight into registers, and key
 // and value tiles of kTile rows staged through a two-stage ring in dynamic
 // shared memory, so the copies of tile t + 1 run under the math on tile t.
 template <typename T, int D, int R, int S, int kWarps, int kTile, int kMinBlocks>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     flash_fwd_wide_kernel(const Params p) {
+  using E = flash::staged_t<T>;
   constexpr int kThreads = kWarps * 32;
   constexpr int kDims = D / S;                          // head dims a lane holds
   constexpr int kWarpRows = R * (32 / (flash::kQuad * S));
   constexpr int kRows = flash::quad_rows<R, S, kWarps>();
-  constexpr int kPitch = D + 16 / sizeof(T);  // padded row: 16-byte aligned, no bank conflicts
+  constexpr int kPitch = D + 16 / sizeof(E);  // padded row: 16-byte aligned, no bank conflicts
   constexpr int kStage = kTile * kPitch;      // elements of one staged tile
   constexpr int kLaneKeys = kTile / flash::kQuad;  // keys a lane walks per tile
   constexpr int kUpdate = kLaneKeys < 16 / R ? kLaneKeys : 16 / R;  // keys per softmax update
   static_assert(kLaneKeys % kUpdate == 0, "a tile holds whole softmax updates");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* k_ring = reinterpret_cast<T*>(smem);  // [2][kStage]
-  T* v_ring = k_ring + 2 * kStage;         // [2][kStage]
+  E* k_ring = reinterpret_cast<E*>(smem);  // [2][kStage]
+  E* v_ring = k_ring + 2 * kStage;         // [2][kStage]
 
   // block = (row tile, batch*head, key split), split fastest; the row
   // tiles run last to first across all heads, so causal launches start
@@ -161,8 +168,8 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   const int t_end = min(n_tiles, t_begin + split_tiles);
 
   if (t_begin < t_end) {
-    T* k_first = k_ring + (t_begin & 1) * kStage;
-    T* v_first = v_ring + (t_begin & 1) * kStage;
+    E* k_first = k_ring + (t_begin & 1) * kStage;
+    E* v_first = v_ring + (t_begin & 1) * kStage;
     flash::stage_rows<T, D, kPitch, kTile, kThreads>(k_first, k_head, p.k_ss, t_begin * kTile,
                                                      k_end, vec);
     flash::stage_rows<T, D, kPitch, kTile, kThreads>(v_first, v_head, p.v_ss, t_begin * kTile,
@@ -194,8 +201,8 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * kTile;
     if (t + 1 < t_end) {  // the next tile into the other stage
-      T* k_next = k_ring + ((t + 1) & 1) * kStage;
-      T* v_next = v_ring + ((t + 1) & 1) * kStage;
+      E* k_next = k_ring + ((t + 1) & 1) * kStage;
+      E* v_next = v_ring + ((t + 1) & 1) * kStage;
       flash::stage_rows<T, D, kPitch, kTile, kThreads>(k_next, k_head, p.k_ss, k0 + kTile, k_end,
                                                        vec);
       flash::stage_rows<T, D, kPitch, kTile, kThreads>(v_next, v_head, p.v_ss, k0 + kTile, k_end,
@@ -204,8 +211,8 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     flash::cp_async_commit();
     flash::cp_async_wait<1>();  // tile t has landed
     __syncthreads();
-    const T* k_tile = k_ring + (t & 1) * kStage;
-    const T* v_tile = v_ring + (t & 1) * kStage;
+    const E* k_tile = k_ring + (t & 1) * kStage;
+    const E* v_tile = v_ring + (t & 1) * kStage;
     // keys quad + 4i of the tile, i < n (uniform across the warp)
     const int n = min(kLaneKeys, (warp_k_end - k0 + flash::kQuad - 1) / flash::kQuad);
 #pragma unroll
@@ -221,7 +228,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
         for (int r = 0; r < R; ++r) s[r][i] = flash::kNegInf;
         if (c0 + i < n) {
           const int j = quad + (c0 + i) * flash::kQuad;
-          const T* k_row = k_tile + j * kPitch + part * kDims;
+          const E* k_row = k_tile + j * kPitch + part * kDims;
           float dot[R];
 #pragma unroll
           for (int r = 0; r < R; ++r) dot[r] = 0.f;
@@ -257,7 +264,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 #pragma unroll
       for (int i = 0; i < kUpdate; ++i) {
         if (c0 + i < n) {
-          const T* v_row = v_tile + (quad + (c0 + i) * flash::kQuad) * kPitch + part * kDims;
+          const E* v_row = v_tile + (quad + (c0 + i) * flash::kQuad) * kPitch + part * kDims;
           float pr[R];
 #pragma unroll
           for (int r = 0; r < R; ++r) {
@@ -346,15 +353,16 @@ __global__ void __launch_bounds__(128) flash_fwd_merge_kernel(const Params p) {
 template <typename T, int D, int R, int S, int kMinBlocks>
 __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
     flash_fwd_quad_kernel(const Params p) {
+  using E = flash::staged_t<T>;
   constexpr int kDims = D / S;                          // head dims a lane holds
   constexpr int kWarpRows = R * (32 / (flash::kQuad * S));
   constexpr int kRows = flash::quad_rows<R, S>();
-  constexpr int kPitch = D + 16 / sizeof(T);  // padded row: 16-byte aligned, no bank conflicts
+  constexpr int kPitch = D + 16 / sizeof(E);  // padded row: 16-byte aligned, no bank conflicts
   constexpr int kTile = flash::kPartnerTile;
   constexpr int kUpdate = flash::kPerLane / R;  // keys a lane scores per softmax update
-  __shared__ __align__(16) T q_tile[kRows * kPitch];
-  __shared__ __align__(16) T k_tile[kTile * kPitch];
-  __shared__ __align__(16) T v_tile[kTile * kPitch];
+  __shared__ __align__(16) E q_tile[kRows * kPitch];
+  __shared__ __align__(16) E k_tile[kTile * kPitch];
+  __shared__ __align__(16) E v_tile[kTile * kPitch];
 
   const int bh = blockIdx.x / p.n_qtiles;
   const int qt = blockIdx.x - bh * p.n_qtiles;
@@ -425,7 +433,7 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
         for (int r = 0; r < R; ++r) s[r][i] = flash::kNegInf;
         if (c0 + i < n) {
           const int j = quad + (c0 + i) * flash::kQuad;
-          const T* k_row = k_tile + j * kPitch + part * kDims;
+          const E* k_row = k_tile + j * kPitch + part * kDims;
           float dot[R];
 #pragma unroll
           for (int r = 0; r < R; ++r) dot[r] = 0.f;
@@ -461,7 +469,7 @@ __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
 #pragma unroll
       for (int i = 0; i < kUpdate; ++i) {
         if (c0 + i < n) {
-          const T* v_row = v_tile + (quad + (c0 + i) * flash::kQuad) * kPitch + part * kDims;
+          const E* v_row = v_tile + (quad + (c0 + i) * flash::kQuad) * kPitch + part * kDims;
           float pr[R];
 #pragma unroll
           for (int r = 0; r < R; ++r) {
@@ -526,49 +534,35 @@ template <>
 struct FwdWideTiling<128> {
   static constexpr int R = 4, S = 8, kWarps = 4, kTile = 32, kMinBlocks = 2;
 };
-
-// What a wide kernel's launches need to know about the card, found once
-// per kernel: the error of its set-up (dynamic shared memory, occupancy
-// query) and the blocks the card holds at once.
-struct WideSetup {
-  cudaError_t err;
-  int64_t wave;
+template <>
+struct FwdWideTiling<256> {
+  static constexpr int R = 2, S = 8, kWarps = 8, kTile = 16, kMinBlocks = 1;
 };
 
+// dynamic shared memory of a wide-kernel block: the key and value rings,
+// two stages each
 template <typename T, int D>
-const WideSetup& wide_setup() {
-  using Tile = FwdWideTiling<D>;
-  constexpr int kSmem = 4 * Tile::kTile * (D + 16 / static_cast<int>(sizeof(T))) * sizeof(T);
-  static const WideSetup setup = [] {
-    const auto kernel =
-        flash_fwd_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>;
-    int device = 0, sms = 0, per_sm = 0;
-    cudaError_t err = flash::allow_dynamic_smem(kernel, kSmem);
-    if (err == cudaSuccess) err = cudaGetDevice(&device);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Tile::kWarps * 32, kSmem);
-    }
-    return WideSetup{err, static_cast<int64_t>(sms) * std::max(per_sm, 1)};
-  }();
-  return setup;
+constexpr int wide_smem() {
+  using E = flash::staged_t<T>;
+  return 4 * FwdWideTiling<D>::kTile * (D + 16 / static_cast<int>(sizeof(E))) *
+         static_cast<int>(sizeof(E));
 }
 
-// key splits of a wide-kernel launch: as many as keep the split blocks
-// within one wave of the card (every SM holding as many blocks as fit),
-// at most 8 and at most half the key tiles. A causal launch counts half
-// its blocks: its row tiles walk half the keys on average, and the
-// longest ones, which split most usefully, run first.
-constexpr int kMaxSplits = 8;
+template <typename T, int D>
+const flash::WideSetup& wide_setup() {
+  using Tile = FwdWideTiling<D>;
+  static const flash::WideSetup setup = flash::wide_setup(
+      flash_fwd_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>,
+      Tile::kWarps * 32, wide_smem<T, D>());
+  return setup;
+}
 
 template <typename T, int D>
 int wide_splits(int64_t wave, int64_t batch_heads, int seq, bool causal) {
   using Tile = FwdWideTiling<D>;
   constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
-  const int64_t blocks = batch_heads * ((seq + kRows - 1) / kRows);
-  const int64_t fill = (causal ? 2 * wave : wave) / blocks;
-  const int key_tiles = (seq + Tile::kTile - 1) / Tile::kTile;
-  return static_cast<int>(std::max<int64_t>(1, std::min<int64_t>({fill, key_tiles / 2, kMaxSplits})));
+  return flash::key_splits(wave, batch_heads * ((seq + kRows - 1) / kRows),
+                           (seq + Tile::kTile - 1) / Tile::kTile, causal);
 }
 
 template <typename T, int D>
@@ -584,10 +578,9 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
   } else {
     using Tile = FwdWideTiling<D>;
     constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
-    constexpr int kSmem = 4 * Tile::kTile * (D + 16 / static_cast<int>(sizeof(T))) * sizeof(T);
     const auto kernel =
         flash_fwd_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>;
-    const WideSetup& setup = wide_setup<T, D>();
+    const flash::WideSetup& setup = wide_setup<T, D>();
     if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
     p.n_splits = wide_splits<T, D>(setup.wave, batch_heads, p.seq, p.causal);
     if (p.n_splits > 1 && p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -597,6 +590,7 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
     if (n_blocks > INT_MAX || (n_rows + 3) / 4 > INT_MAX) {
       return static_cast<int>(cudaErrorInvalidConfiguration);
     }
+    constexpr int kSmem = wide_smem<T, D>();
     kernel<<<static_cast<unsigned>(n_blocks), Tile::kWarps * 32, kSmem, stream>>>(p);
     if (p.n_splits > 1) {
       const cudaError_t err = cudaGetLastError();
@@ -614,19 +608,26 @@ int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t
     case 32: return launch<T, 32>(p, batch_heads, stream);
     case 64: return launch<T, 64>(p, batch_heads, stream);
     case 128: return launch<T, 128>(p, batch_heads, stream);
+    case 256: return launch<T, 256>(p, batch_heads, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-
-namespace {
-
 template <typename T, int D>
 int splits_of(int64_t batch_heads, int seq, bool causal) {
-  const WideSetup& setup = wide_setup<T, D>();
+  const flash::WideSetup& setup = wide_setup<T, D>();
   if (setup.err != cudaSuccess) return -static_cast<int>(setup.err);
   return wide_splits<T, D>(setup.wave, batch_heads, seq, causal);
+}
+
+template <typename T>
+int splits_for(int head_dim, int64_t batch_heads, int seq, bool causal) {
+  switch (head_dim) {
+    case 64: return splits_of<T, 64>(batch_heads, seq, causal);
+    case 128: return splits_of<T, 128>(batch_heads, seq, causal);
+    case 256: return splits_of<T, 256>(batch_heads, seq, causal);
+    default: return 1;
+  }
 }
 
 }  // namespace
@@ -634,19 +635,18 @@ int splits_of(int64_t batch_heads, int seq, bool causal) {
 // the key splits the launch of these shapes and mode takes: the float32
 // scratch it needs is n_splits * batch * heads * seq * (head_dim + 2)
 // elements when n_splits > 1 (none otherwise); minus the CUDA error code
-// when the card could not be queried
+// when the card could not be queried or the dtype is unknown
 extern "C" int gordo_flash_attention_fwd_splits(int batch, int seq, int heads, int head_dim,
                                                 int dtype, int mode) {
   const int64_t batch_heads = static_cast<int64_t>(batch) * heads;
   if (batch <= 0 || seq <= 0 || heads <= 0) return 1;
   const bool causal = (mode & flash::kModeCausal) != 0;
-  const bool float32 = dtype == 0;
-  switch (head_dim) {
-    case 64: return float32 ? splits_of<float, 64>(batch_heads, seq, causal)
-                            : splits_of<__nv_bfloat16, 64>(batch_heads, seq, causal);
-    case 128: return float32 ? splits_of<float, 128>(batch_heads, seq, causal)
-                             : splits_of<__nv_bfloat16, 128>(batch_heads, seq, causal);
-    default: return 1;
+  switch (dtype) {
+    case 0: return splits_for<float>(head_dim, batch_heads, seq, causal);
+    case 1: return splits_for<__nv_bfloat16>(head_dim, batch_heads, seq, causal);
+    case 2: return splits_for<__half>(head_dim, batch_heads, seq, causal);
+    case 3: return splits_for<double>(head_dim, batch_heads, seq, causal);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -682,6 +682,8 @@ extern "C" int gordo_flash_attention_fwd(
   switch (dtype) {
     case 0: return dispatch_head_dim<float>(head_dim, p, batch_heads, s);
     case 1: return dispatch_head_dim<__nv_bfloat16>(head_dim, p, batch_heads, s);
+    case 2: return dispatch_head_dim<__half>(head_dim, p, batch_heads, s);
+    case 3: return dispatch_head_dim<double>(head_dim, p, batch_heads, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,16 @@
 // Pieces shared by the quad-lane flash-attention kernels of
 // flash_attention_fwd.cu and flash_attention_bwd.cu (sm_90a): element
 // conversion, 16-byte asynchronous staging of row tiles into shared
-// memory with a scalar path for unaligned views, and the fixed-order
-// reductions over the four lanes ("quad") that share one row.
+// memory with a scalar path for unaligned views, the fixed-order
+// reductions over the four lanes ("quad") that share one row, and the
+// key-split rule of the wide kernels.
+//
+// Element types are float32, bfloat16, float16 and float64, as the Pallas
+// kernels take them: every element is converted to float32 on load and
+// every sum is in float32 (the Pallas kernels' `.astype(jnp.float32)`);
+// outputs are rounded once to the input's type. A float64 tile is
+// converted to float32 as it is staged into shared memory (Staged<double>),
+// so its ring takes a float32 tile's room.
 //
 // A quad kernel gives each owned row (a query row in the forward and dq,
 // a key row in dk/dv) to four neighbouring lanes; lane `quad` of the four
@@ -12,9 +20,12 @@
 
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -34,6 +45,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(double x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -45,9 +58,30 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ double from_float<double>(float x) {
+  return static_cast<double>(x);
+}
+
+// the element type a tile of T is staged as in shared memory: T itself,
+// or float32 for float64
+template <typename T>
+struct Staged {
+  using type = T;
+};
+template <>
+struct Staged<double> {
+  using type = float;
+};
+template <typename T>
+using staged_t = typename Staged<T>::type;
 
 // four consecutive elements (shared or device memory) as floats, 16-byte
-// aligned for float32, 8-byte for bfloat16
+// aligned for float32 and float64, 8-byte for bfloat16 and float16
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -56,14 +90,32 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
                      __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float4 load4(const double* p) {
+  const double2 lo = *reinterpret_cast<const double2*>(p);
+  const double2 hi = *reinterpret_cast<const double2*>(p + 2);
+  return make_float4(static_cast<float>(lo.x), static_cast<float>(lo.y),
+                     static_cast<float>(hi.x), static_cast<float>(hi.y));
+}
 
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
-// store four floats to device memory as T: one 16-byte (float32) or
-// 8-byte (bfloat16) store when `vec`, else element by element
+__device__ __forceinline__ unsigned pack_half2(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// store four floats to device memory as T: one 16-byte (float32), two
+// 16-byte (float64) or one 8-byte (bfloat16, float16) store when `vec`,
+// else element by element
 __device__ __forceinline__ void store4(float* p, float4 v, bool vec) {
   if (vec) {
     *reinterpret_cast<float4*>(p) = v;
@@ -82,6 +134,27 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v, bool vec) {
     p[1] = __float2bfloat16(v.y);
     p[2] = __float2bfloat16(v.z);
     p[3] = __float2bfloat16(v.w);
+  }
+}
+__device__ __forceinline__ void store4(__half* p, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_half2(v.x, v.y), pack_half2(v.z, v.w));
+  } else {
+    p[0] = __float2half_rn(v.x);
+    p[1] = __float2half_rn(v.y);
+    p[2] = __float2half_rn(v.z);
+    p[3] = __float2half_rn(v.w);
+  }
+}
+__device__ __forceinline__ void store4(double* p, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<double2*>(p) = make_double2(v.x, v.y);
+    *reinterpret_cast<double2*>(p + 2) = make_double2(v.z, v.w);
+  } else {
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+    p[3] = v.w;
   }
 }
 
@@ -113,36 +186,50 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage rows [row0, row0 + kRows) of one head of a (batch, seq, heads, D)
-// tensor into `tile` (kRows x kPitch elements of T). Rows at or past
-// `end` are zero-filled without reading device memory, so a lane may
-// read any row of the tile. With `vec`, 16-byte cp.async copies (the
-// caller waits); else one element per thread.
-template <typename T, int D, int kPitch, int kRows, int kThreads>
-__device__ __forceinline__ void stage_rows(T* tile, const T* head, int64_t row_stride,
-                                           int row0, int end, bool vec) {
-  if (vec) {
-    constexpr int kElems = 16 / sizeof(T);    // elements per 16-byte chunk
-    constexpr int kChunks = D / kElems;       // chunks per row
-    for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-      const int r = c / kChunks;
-      const int e = (c - r * kChunks) * kElems;
-      T* dst = tile + r * kPitch + e;
-      const int pos = row0 + r;
-      if (pos < end) {
-        cp_async16(dst, head + static_cast<int64_t>(pos) * row_stride + e);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
+// one element of T as its staged type E: itself, or converted
+template <typename E, typename T>
+__device__ __forceinline__ E staged(T x) {
+  if constexpr (std::is_same_v<E, T>) {
+    return x;
   } else {
-    for (int c = threadIdx.x; c < kRows * D; c += kThreads) {
-      const int r = c / D;
-      const int e = c - r * D;
-      const int pos = row0 + r;
-      tile[r * kPitch + e] =
-          pos < end ? head[static_cast<int64_t>(pos) * row_stride + e] : from_float<T>(0.f);
+    return from_float<E>(to_float(x));
+  }
+}
+
+// Stage rows [row0, row0 + kRows) of one head of a (batch, seq, heads, D)
+// tensor of T into `tile` (kRows x kPitch elements of E, staged_t<T>).
+// Rows at or past `end` are zero-filled without reading device memory, so
+// a lane may read any row of the tile. With `vec` and E = T, 16-byte
+// cp.async copies (the caller waits); else one element per thread,
+// converted to E.
+template <typename T, int D, int kPitch, int kRows, int kThreads, typename E>
+__device__ __forceinline__ void stage_rows(E* tile, const T* head, int64_t row_stride,
+                                           int row0, int end, bool vec) {
+  static_assert(std::is_same_v<E, staged_t<T>>, "a tile of T is staged as staged_t<T>");
+  if constexpr (std::is_same_v<E, T>) {
+    if (vec) {
+      constexpr int kElems = 16 / sizeof(T);  // elements per 16-byte chunk
+      constexpr int kChunks = D / kElems;     // chunks per row
+      for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
+        const int r = c / kChunks;
+        const int e = (c - r * kChunks) * kElems;
+        T* dst = tile + r * kPitch + e;
+        const int pos = row0 + r;
+        if (pos < end) {
+          cp_async16(dst, head + static_cast<int64_t>(pos) * row_stride + e);
+        } else {
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      return;
     }
+  }
+  for (int c = threadIdx.x; c < kRows * D; c += kThreads) {
+    const int r = c / D;
+    const int e = c - r * D;
+    const int pos = row0 + r;
+    tile[r * kPitch + e] =
+        pos < end ? staged<E>(head[static_cast<int64_t>(pos) * row_stride + e]) : from_float<E>(0.f);
   }
 }
 
@@ -162,6 +249,40 @@ __host__ __device__ constexpr int quad_rows() {
 template <typename Kernel>
 inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// What a wide kernel's launches need to know about the card, found once
+// per kernel: the error of its set-up (dynamic shared memory, occupancy
+// query) and the blocks the card holds at once.
+struct WideSetup {
+  cudaError_t err;
+  int64_t wave;
+};
+
+template <typename Kernel>
+WideSetup wide_setup(Kernel kernel, int threads, int smem_bytes) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = allow_dynamic_smem(kernel, smem_bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem_bytes);
+  }
+  return WideSetup{err, static_cast<int64_t>(sms) * std::max(per_sm, 1)};
+}
+
+// Key splits of a wide-kernel launch of `blocks` row-tile blocks over
+// `key_tiles` key tiles: as many as keep the split blocks within one wave
+// of the card (every SM holding as many blocks as fit), at most 8 and at
+// most half the key tiles. A causal launch counts half its blocks: its
+// row tiles walk half the keys on average, and the longest ones, which
+// split most usefully, run first.
+constexpr int kMaxSplits = 8;
+
+inline int key_splits(int64_t wave, int64_t blocks, int key_tiles, bool causal) {
+  const int64_t fill = (causal ? 2 * wave : wave) / blocks;
+  return static_cast<int>(
+      std::max<int64_t>(1, std::min<int64_t>({fill, key_tiles / 2, kMaxSplits})));
 }
 
 // sum of a dot product's S partial sums (the S lanes holding parts of one row)

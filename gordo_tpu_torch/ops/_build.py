@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
@@ -103,13 +104,19 @@ def build(name: str) -> Tuple[Path, str]:
     return target, proc.stdout + proc.stderr
 
 
-def build_all(names: Iterable[str]) -> Dict[str, str]:
+def _timed_build(name: str) -> Tuple[str, float]:
+    start = time.perf_counter()
+    _, output = build(name)
+    return output, time.perf_counter() - start
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Tuple[str, float]]:
     """Compile several sources at once (one nvcc each, started together);
-    returns each source's compiler output."""
+    returns each source's (compiler output, seconds)."""
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        futures = {name: pool.submit(build, name) for name in names}
-        return {name: future.result()[1] for name, future in futures.items()}
+        futures = {name: pool.submit(_timed_build, name) for name in names}
+        return {name: future.result() for name, future in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

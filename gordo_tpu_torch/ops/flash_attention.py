@@ -20,7 +20,9 @@ JAX wrapper are gone; the per-row log-sum-exp (and the backward's
   tests). The tests use them; so does
   ``chip_smoke.py``, to hold each kernel against its plain version on the
   card. The plain versions compute in float32, or in float64 for float64
-  inputs (``gradcheck``); the kernels take float32 and bfloat16.
+  inputs (``gradcheck``). The kernels take float32, bfloat16, float16 and
+  float64 and, as the Pallas kernels do, convert each element to float32
+  on load and sum in float32, returning the input's dtype.
 
 :func:`flash_attention` is differentiable through
 :class:`FlashAttentionFunction`, which saves (q, k, v, out, lse) as the
@@ -30,16 +32,23 @@ delta, and then the dk/dv kernel, which reads it.
 ``launch_counts`` counts kernel launches, so a run can show that its
 attention went through the kernels.
 
-The kernels run at head_dim 16, 32, 64 and 128 (:data:`HEAD_DIMS`). As the
-JAX wrapper pads head_dim to 128 lanes, every wrapper here zero-pads q, k,
-v (and O, dO) on the head axis to the next of those widths
-(:func:`kernel_width`: 8 and 12 run at 16, 24 at 32, 48 at 64, 96 at 128),
-keeps ``sm_scale`` at 1/sqrt(the caller's head_dim) unless the caller
-gives one, and slices out, dq, dk and dv back. Zero lanes add nothing to
-a score and give zero output and gradient, and LSE and delta are
-unchanged. The CPU path pads too, so the CPU tests run the same padding.
-Above 128 no kernel exists: a CUDA tensor raises, and a CPU tensor runs
-the plain version at its own width.
+The kernels run at head_dim 16, 32, 64, 128 and 256 (:data:`HEAD_DIMS`).
+As the JAX wrapper pads head_dim to a multiple of 128 lanes, every wrapper
+here zero-pads q, k, v (and O, dO) on the head axis to the next of those
+widths (:func:`kernel_width`: 8 and 12 run at 16, 24 at 32, 48 at 64, 96
+at 128, 129-255 at 256), keeps ``sm_scale`` at 1/sqrt(the caller's
+head_dim) unless the caller gives one, and slices out, dq, dk and dv
+back. Zero lanes add nothing to a score and give zero output and
+gradient, and LSE and delta are unchanged. The CPU path pads too, so the
+CPU tests run the same padding. Above 256 no kernel exists: a CUDA
+tensor raises, and a CPU tensor runs the plain version at its own width.
+
+The forward and the dq kernel may split the key axis across blocks when
+a launch's row tiles alone leave the card's SMs idle (head_dim 64 and
+up): the kernel's C side answers how many splits a shape takes
+(:func:`forward_splits`, :func:`dq_splits`), and the wrapper allocates
+the float32 scratch the splits write before a second kernel merges them
+in a fixed order.
 
 Each kernel takes a ``mode`` bit set: :data:`MODE_CAUSAL`, and
 :data:`MODE_VEC16` when :func:`rows_16b_aligned` finds every row of its
@@ -61,8 +70,8 @@ KERNEL_DKV = "flash_attention_bwd_dkv"
 #: the CUDA source (``csrc/<name>.cu``) of each kernel
 SOURCES = {KERNEL: "flash_attention_fwd", KERNEL_DQ: "flash_attention_bwd",
            KERNEL_DKV: "flash_attention_bwd"}
-HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.float64: 3}
 #: bits of a kernel's ``mode`` argument
 MODE_CAUSAL = 1
 MODE_VEC16 = 2
@@ -191,7 +200,8 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def _check_kernel_inputs(q: torch.Tensor) -> None:
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(
-            f"flash_attention kernels take float32 or bfloat16, got {q.dtype}"
+            "flash_attention kernels take float32, bfloat16, float16 or float64, "
+            f"got {q.dtype}"
         )
 
 
@@ -203,8 +213,9 @@ def kernel_width(head_dim: int) -> int:
             return width
     raise ValueError(
         f"flash_attention kernels take head_dim up to {HEAD_DIMS[-1]} (zero-padded "
-        f"to the next of {HEAD_DIMS}), got {head_dim}: a head_dim 256 kernel is "
-        "still to come (ROADMAP.md queue 3)"
+        f"to the next of {HEAD_DIMS}), got {head_dim}: the JAX wrapper pads any "
+        "head_dim to a multiple of 128, and wider kernels are still to come "
+        "(ROADMAP.md queue 3)"
     )
 
 
@@ -279,7 +290,8 @@ def rows_16b_aligned(*tensors: torch.Tensor) -> bool:
     chunks: each data pointer, each (batch, seq, head) stride in bytes and
     the row's bytes are multiples of 16, with the head dim contiguous. A
     float32 view is aligned when it starts a multiple of 4 elements into
-    aligned memory, a bfloat16 view a multiple of 8.
+    aligned memory, a bfloat16 or float16 view a multiple of 8, a float64
+    view a multiple of 2.
     """
     for x in tensors:
         size = x.element_size()
@@ -309,18 +321,26 @@ def _stride_array(*tensors):
 def forward_splits(q: torch.Tensor, causal: bool) -> int:
     """The key splits the forward kernel takes for q's shape on its card:
     1, or more when its row tiles alone leave the card's SMs idle (head_dim
-    64 and 128); each split walks a run of the key tiles and a second
+    64 and up); each split walks a run of the key tiles and a second
     kernel merges their rows in a fixed order."""
-    return _splits(q.device.index or 0, *_shape_args(q), _mode(causal))
+    return _splits(KERNEL, q.device.index or 0, *_shape_args(q), _mode(causal))
+
+
+def dq_splits(q: torch.Tensor, causal: bool) -> int:
+    """The key splits the dq kernel takes for q's shape on its card, by the
+    forward's rule; each split writes its partial dq rows and a second
+    kernel sums them in split order."""
+    return _splits(KERNEL_DQ, q.device.index or 0, *_shape_args(q), _mode(causal))
 
 
 @functools.lru_cache(maxsize=256)
-def _splits(device: int, *shape_and_mode: int) -> int:
-    """The kernel's own answer, asked once per (card, shape, dtype, mode):
-    a training loop asks with one shape every step."""
+def _splits(kernel: str, device: int, *shape_and_mode: int) -> int:
+    """The kernel's own answer (``gordo_<kernel>_splits``), asked once per
+    (kernel, card, shape, dtype, mode): a training loop asks with one shape
+    every step."""
     from gordo_tpu_torch.ops import _build
 
-    fn = _build.load(SOURCES[KERNEL]).gordo_flash_attention_fwd_splits
+    fn = getattr(_build.load(SOURCES[kernel]), f"gordo_{kernel}_splits")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 6
         fn.restype = ctypes.c_int
@@ -328,7 +348,7 @@ def _splits(device: int, *shape_and_mode: int) -> int:
         splits = fn(*shape_and_mode)
     if splits < 1:
         raise RuntimeError(
-            f"{KERNEL}: the split query failed with CUDA error {-splits} for {shape_and_mode}"
+            f"{kernel}: the split query failed with CUDA error {-splits} for {shape_and_mode}"
         )
     return splits
 
@@ -434,15 +454,23 @@ def _launch_dq(q, k, v, out, lse, d_out, causal: bool, sm_scale: float):
     _check_kernel_inputs(q)
     lse = _stat_rows(q, lse)
     q, k, v, out, d_out = _head_dim_contiguous(q, k, v, out, d_out)
-    batch, seq, heads, _ = q.shape
+    batch, seq, heads, head_dim = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty((batch * heads, seq), dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, delta
-    fn = _kernel_function(KERNEL_DQ, 8)
+    splits = dq_splits(q, causal)
+    # each split's unscaled dq rows, summed by the merge kernel
+    workspace = None
+    if splits > 1:
+        workspace = torch.empty(
+            splits * batch * heads * seq * head_dim, dtype=torch.float32, device=q.device
+        )
+    fn = _kernel_function(KERNEL_DQ, 9)
     _call(KERNEL_DQ, fn, q, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        None if workspace is None else workspace.data_ptr(),
         *_shape_args(q), _stride_array(q, k, v, out, d_out, dq),
         float(sm_scale), _mode(causal, q, k, v, out, d_out, dq),
     ))

@@ -6,10 +6,12 @@ training phases of ``chip_smoke.py``.
     python3 scripts/flash_kernel_check.py [--root CHECKOUT]
 
 Builds the kernels, then for each case (contiguous tensors, head slices of
-one wider tensor, views one element into their memory) holds the forward,
-the dq and the dk/dv kernel against their plain versions, checks that two
-forward, two dq (dq and delta) and two dk/dv launches agree bit for bit,
-and prints one JSON row per case with the device times (torch.profiler)
+one wider tensor, views one element into their memory; float32, bfloat16,
+float16 and float64; head_dim 8 to 256, padded to the next kernel width)
+holds the forward, the dq and the dk/dv kernel against their plain
+versions (``chip_smoke.TOLERANCE``), checks that two forward, two dq (dq
+and delta) and two dk/dv launches agree bit for bit, and prints one JSON
+row per case with dq's key splits and the device times (torch.profiler)
 of the three kernels and of ``scaled_dot_product_attention``. Exits
 non-zero if a case fails.
 
@@ -30,8 +32,6 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 import chip_smoke as cs  # noqa: E402
-
-F32_TOL, BF16_TOL = 1e-4, 2e-2
 
 # (name, (B, S, H, D), causal, dtype name, layout)
 CASES = [
@@ -60,6 +60,18 @@ CASES = [
     ("padded-8", (32, 64, 4, 8), True, "float32", "contiguous"),
     ("padded-48", (16, 200, 2, 48), True, "float32", "contiguous"),
     ("padded-96-full", (3, 150, 2, 96), False, "float32", "contiguous"),
+    ("head-dim-256", (2, 300, 2, 256), False, "float32", "contiguous"),
+    ("head-dim-256-causal-bf16", (2, 257, 2, 256), True, "bfloat16", "contiguous"),
+    ("head-dim-256-misaligned", (1, 130, 2, 256), True, "float32", "misaligned"),
+    ("padded-200", (2, 512, 4, 200), True, "float32", "contiguous"),
+    ("dq-split-64", (1, 500, 1, 64), True, "float32", "contiguous"),
+    ("dq-split-128-slices", (1, 300, 2, 128), False, "float32", "slices"),
+    ("fp16-64", (4, 1000, 2, 64), True, "float16", "contiguous"),
+    ("fp16-16", (8, 100, 2, 16), True, "float16", "contiguous"),
+    ("fp16-32-misaligned", (8, 100, 2, 32), False, "float16", "misaligned"),
+    ("fp64-128", (2, 300, 2, 128), False, "float64", "contiguous"),
+    ("fp64-16-misaligned", (8, 100, 2, 16), True, "float64", "misaligned"),
+    ("fp64-256-causal", (1, 200, 2, 256), True, "float64", "contiguous"),
 ]
 
 
@@ -77,8 +89,9 @@ def max_err(pairs):
 def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
     dtype = getattr(torch, dtype_name)
     q, k, v, d_out = (make(torch, gen, shape, dtype, layout) for _ in range(4))
-    tol = F32_TOL if dtype_name == "float32" else BF16_TOL
+    tol = cs.TOLERANCE[dtype_name]
     scale = 1.0 / math.sqrt(shape[-1])
+    padded = torch.empty(shape[:-1] + (fa.kernel_width(shape[-1]),), dtype=dtype, device="cuda")
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
     out2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -101,6 +114,7 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
         "causal": causal,
         "dtype": dtype_name,
         "rows_16b_aligned": fa.rows_16b_aligned(q, k, v),
+        "dq_splits": fa.dq_splits(padded, causal) if hasattr(fa, "dq_splits") else None,
         "fwd_err": max_err([(out, ref_out), (lse, ref_lse)]),
         "fwd_bitwise": bool(torch.equal(out, out2) and torch.equal(lse, lse2)),
         "dq_err": max_err([(dq, ref_dq), (delta, ref_delta)]),
@@ -148,8 +162,10 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     print("port:", os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__))), flush=True)
     t0 = time.perf_counter()
-    for source, text in _build.build_all(_build.sources()).items():
-        print(f"nvcc {source} ({time.perf_counter() - t0:.1f} s):\n{text.strip()}", flush=True)
+    for source, built in _build.build_all(_build.sources()).items():
+        # a tree from before nvcc's seconds were returned gives its output alone
+        text, seconds = built if isinstance(built, tuple) else (built, time.perf_counter() - t0)
+        print(f"nvcc {source} ({seconds:.1f} s):\n{text.strip()}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     failed = []
     for case in CASES:

@@ -1,23 +1,24 @@
 #!/usr/bin/env python3
 """
-Times tilings of the head_dim 64/128 flash forward and dk/dv kernels on
-one card, each against the same inputs, in one process.
+Times tilings of the head_dim 64/128/256 flash forward, dq and dk/dv
+kernels on one card, each against the same inputs, in one process.
 
     python3 scripts/flash_tiling_sweep.py 'VARIANTS' [--out ROWS.jsonl]
 
 VARIANTS is JSON that maps a variant's name to the constants it changes, e.g.
 ``{"shipped": {}, "r2": {"fwd64": [2, 4, 4, 64, 3]}, "nosplit":
-{"max_splits": 1}}``: ``fwd64``/``fwd128`` set ``FwdWideTiling<D>`` and
-``dkv64``/``dkv128`` ``DkvWideTiling<D>`` as (R, S, kWarps, kTile,
-kMinBlocks); ``max_splits`` sets the forward's ``kMaxSplits``. Each
-variant's sources are copied with those constants replaced and built
-with the port's nvcc flags (all variants at once), and nvcc's register
-and spill lines for the wide kernels are printed. Then, per case, every
-variant's forward and dk/dv run against the plain versions (1e-4 float32,
-2e-2 bf16), twice for a bitwise repeat, and are timed with
-``chip_smoke.device_ms`` beside ``scaled_dot_product_attention`` and the
-bound. Prints one JSON row per (case, variant); exits non-zero if a
-variant fails to build or disagrees.
+{"max_splits": 1}}``: ``fwd<D>`` sets ``FwdWideTiling<D>``, ``dq<D>``
+``DqWideTiling<D>`` and ``dkv<D>`` ``DkvWideTiling<D>`` as (R, S, kWarps,
+kTile, kMinBlocks), for D of 64, 128 or 256; ``max_splits`` sets
+``kMaxSplits``, the forward's and dq's limit. Each variant's sources are
+copied with those constants replaced and built with the port's nvcc
+flags (all variants at once), and nvcc's register and spill lines for
+the wide kernels are printed. Then, per case, every variant's forward,
+dq and dk/dv run against the plain versions (``chip_smoke.TOLERANCE``),
+twice for a bitwise repeat, and are timed with ``chip_smoke.device_ms``
+beside ``scaled_dot_product_attention`` and the bound. Prints one JSON
+row per (case, variant); exits non-zero if a variant fails to build or
+disagrees.
 """
 
 import argparse
@@ -50,8 +51,10 @@ CASES = [
     ("head-dim-128-bf16", (2, 300, 2, 128), True, "bfloat16", False),
     ("head-dim-64-misaligned", (3, 301, 2, 64), True, "float32", True),
     ("small-64-causal", (1, 500, 1, 64), True, "float32", False),
+    ("head-dim-256", (2, 300, 2, 256), False, "float32", False),
+    ("head-dim-256-causal", (2, 1000, 2, 256), True, "float32", False),
 ]
-STRUCTS = {"fwd": "FwdWideTiling", "dkv": "DkvWideTiling"}
+STRUCTS = {"fwd": "FwdWideTiling", "dq": "DqWideTiling", "dkv": "DkvWideTiling"}
 
 
 def variant_sources(spec: dict, out_dir: str) -> str:
@@ -64,7 +67,8 @@ def variant_sources(spec: dict, out_dir: str) -> str:
             if key == "max_splits":
                 pattern, value = r"constexpr int kMaxSplits = \d+;", f"constexpr int kMaxSplits = {values};"
             else:
-                struct, width = STRUCTS[key[:3]], int(key[3:])
+                kernel, width = re.fullmatch(r"([a-z]+)(\d+)", key).groups()
+                struct, width = STRUCTS[kernel], int(width)
                 pattern = r"(struct %s<%d> \{\n  static constexpr int )[^;]*;" % (struct, width)
                 value = r"\g<1>R = %d, S = %d, kWarps = %d, kTile = %d, kMinBlocks = %d;" % tuple(values)
             text = re.sub(pattern, value, text)
@@ -138,7 +142,7 @@ def main() -> int:
         q, k, v, d_out = (cs.card_tensor(torch, gen, shape, dtype, misaligned) for _ in range(4))
         scale = 1.0 / math.sqrt(shape[-1])
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
-        _, ref_delta = fa.flash_attention_bwd_dq_reference(
+        ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
             q, k, v, ref_out, ref_lse, d_out, causal, scale)
         ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(
             q, k, v, ref_lse, ref_delta, d_out, causal, scale)
@@ -155,34 +159,44 @@ def main() -> int:
             def fwd():
                 return fa.flash_attention_forward(q, k, v, causal=causal)
 
+            def dq():
+                return fa.flash_attention_bwd_dq(q, k, v, ref_out, ref_lse, d_out, causal)
+
             def dkv():
                 return fa.flash_attention_bwd_dkv(q, k, v, ref_lse, ref_delta, d_out, causal)
 
             (out1, lse1), (out2, lse2) = fwd(), fwd()
+            dq1, dq2 = dq(), dq()
             dkv1, dkv2 = dkv(), dkv()
             torch.cuda.synchronize()
             row = {
                 "case": case, "variant": name, "shape": list(shape), "causal": causal,
                 "dtype": dtype_name, "key_splits": fa.forward_splits(q, causal),
+                "dq_splits": fa.dq_splits(q, causal),
                 "fwd_err": max((out1.float() - ref_out.float()).abs().max().item(),
                                (lse1 - ref_lse).abs().max().item()),
+                "dq_err": max((got.float() - want.float()).abs().max().item()
+                              for got, want in zip(dq1, (ref_dq, ref_delta))),
                 "dkv_err": max((got.float() - want.float()).abs().max().item()
                                for got, want in zip(dkv1, (ref_dk, ref_dv))),
                 "bitwise": bool(torch.equal(out1, out2) and torch.equal(lse1, lse2)
+                                and all(torch.equal(a, b) for a, b in zip(dq1, dq2))
                                 and all(torch.equal(a, b) for a, b in zip(dkv1, dkv2))),
                 "sdpa_fwd_ms": sdpa_ms,
             }
-            (row["fwd_ms"], row["fwd_timer"]), (row["dkv_ms"], row["dkv_timer"]) = (
-                cs.device_ms(fwd), cs.device_ms(dkv))
-            for label, n_tensors, n_stats, dots in (("fwd", 4, 1, 2), ("dkv", 6, 2, 4)):
+            for label, fn in (("fwd", fwd), ("dq", dq), ("dkv", dkv)):
+                row[f"{label}_ms"], row[f"{label}_timer"] = cs.device_ms(fn)
+            for label, n_tensors, n_stats, dots in (
+                    ("fwd", 4, 1, 2), ("dq", 6, 2, 3), ("dkv", 6, 2, 4)):
                 row[f"{label}_bound_ms"], row[f"{label}_bound_by"] = cs.attention_bound(
                     shape, causal, dtype_name, q.element_size(), n_tensors, n_stats, dots)
-            row["ok"] = row["fwd_err"] <= tol and row["dkv_err"] <= tol and row["bitwise"]
+            row["ok"] = (max(row["fwd_err"], row["dq_err"], row["dkv_err"]) <= tol
+                         and row["bitwise"])
             if not row["ok"]:
                 failed.append(name)
             print(json.dumps(row), flush=True)
             rows.append(row)
-        del q, k, v, d_out, ref_out, ref_lse, ref_delta, ref_dk, ref_dv
+        del q, k, v, d_out, ref_out, ref_lse, ref_dq, ref_delta, ref_dk, ref_dv
         torch.cuda.empty_cache()
     if args.out:
         with open(args.out, "a") as fh:

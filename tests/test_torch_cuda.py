@@ -7,7 +7,10 @@ machine that has only PyTorch: there, run it without the JAX-side
 conftest, ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
 Tolerances: 1e-4 in float32 (same softmax in float32, other summation
-order); 2e-2 in bf16 (one bf16 rounding of outputs of magnitude up to 2).
+order); 2e-2 in bf16 (one bf16 rounding of outputs of magnitude up to 2);
+5e-3 in float16 (one float16 rounding of outputs up to 8, both sides
+summing in float32); 1e-5 in float64 (the kernels sum in float32, as the
+Pallas kernels do, the plain version in float64).
 """
 
 import pytest
@@ -193,7 +196,8 @@ def test_cuda_wide_kernels_are_deterministic(shape, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,width", [(8, 16), (12, 16), (24, 32), (48, 64), (96, 128)])
+@pytest.mark.parametrize("head_dim,width", [(8, 16), (12, 16), (24, 32), (48, 64), (96, 128),
+                                            (200, 256)])
 def test_cuda_wrappers_pad_head_dim(head_dim, width, monkeypatch):
     """A head_dim off the kernel widths launches each kernel once at the
     next width, on zero-padded tensors, and comes back at its own width
@@ -232,11 +236,12 @@ def test_cuda_wrappers_pad_head_dim(head_dim, width, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_raises_above_head_dim_128():
-    """No kernel takes head_dim above 128 yet: the card raises and names the
-    queue; it never falls back to the plain version."""
+    """No kernel takes head_dim above 256 yet (129-256 run at 256): the
+    card raises at 257 and names the queue; it never falls back to the
+    plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    q, k, v, d_out = (torch.zeros((1, 8, 1, 160), device="cuda") for _ in range(4))
+    q, k, v, d_out = (torch.zeros((1, 8, 1, 257), device="cuda") for _ in range(4))
     lse = torch.zeros((1, 8), device="cuda")
     before = dict(fa.launch_counts)
     calls = [
@@ -277,3 +282,81 @@ def test_cuda_forward_key_splits_match_plain_version(shape, causal, dtype, tol):
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,causal,dtype,tol,split",
+    [
+        ((1, 500, 1, 64), True, torch.float32, 1e-4, True),
+        ((8, 1024, 4, 64), False, torch.float32, 1e-4, False),
+        ((1, 300, 1, 128), False, torch.float32, 1e-4, True),
+        ((16, 512, 8, 128), True, torch.float32, 1e-4, False),
+        ((1, 200, 1, 256), True, torch.float32, 1e-4, True),
+        ((4, 512, 8, 256), False, torch.float32, 1e-4, False),
+        ((1, 500, 1, 64), False, torch.bfloat16, 2e-2, True),
+        ((3, 301, 2, 128), True, torch.float16, 5e-3, True),
+        ((1, 130, 2, 256), False, torch.float64, 1e-5, True),
+    ],
+)
+def test_cuda_wide_dq_matches_plain_version(shape, causal, dtype, tol, split):
+    """The head_dim 64/128/256 dq kernel, with and without its key split,
+    against the plain version; two launches are bitwise equal (the merge
+    sums the splits in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, d_out = (
+        torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)
+    )
+    assert (fa.dq_splits(q, causal) > 1) == split
+    out, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    before = fa.launch_counts[fa.KERNEL_DQ]
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=causal)
+    dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[fa.KERNEL_DQ] == before + 2
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
+        q, k, v, out, lse, d_out, causal, shape[-1] ** -0.5
+    )
+    assert dq.dtype == dtype and dq.shape == shape
+    assert (dq.double() - ref_dq.double()).abs().max().item() <= tol
+    assert (delta.double() - ref_delta.double()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,causal,dtype,tol",
+    [
+        ((4, 257, 2, 64), True, torch.float16, 5e-3),
+        ((3, 150, 2, 256), True, torch.float16, 5e-3),
+        ((8, 100, 2, 16), False, torch.float16, 5e-3),
+        ((2, 130, 2, 16), True, torch.float64, 1e-5),
+        ((2, 300, 2, 128), False, torch.float64, 1e-5),
+        ((1, 77, 2, 200), True, torch.float64, 1e-5),
+        ((2, 300, 2, 256), False, torch.float32, 1e-4),
+        ((2, 129, 2, 256), True, torch.bfloat16, 2e-2),
+    ],
+)
+def test_cuda_float16_float64_and_width_256_match_plain_version(shape, causal, dtype, tol):
+    """All three kernels take float16 and float64 (float32 sums, outputs in
+    the input's dtype) and head_dim 256; each matches its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v, d_out = (
+        torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)
+    )
+    before = dict(fa.launch_counts)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    got = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+    assert all(fa.launch_counts[n] == before[n] + 1 for n in before)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    assert out.dtype == dtype and (out.double() - ref_out.double()).abs().max().item() <= tol
+    assert (lse.double() - ref_lse.double()).abs().max().item() <= tol
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == shape, name
+        assert (g.double() - w.double()).abs().max().item() <= tol, name

@@ -11,9 +11,14 @@ kernel itself is held against that plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerance: atol 1e-5 in float32 — both sides compute the same softmax in
-float32 and differ only in summation order.
+float32 and differ only in summation order. In float16, atol 2e-3: both
+sides convert to float32, accumulate in float32 and round the output to
+float16 once, so they differ by at most one float16 step of an output
+under 4. In float64 (JAX under ``jax.enable_x64``), atol 1e-5: the Pallas
+kernel accumulates in float32 where the plain path uses float64.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,11 +34,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 ATOL = 1e-5
+FLOAT16_ATOL = 2e-3
 # a ragged sequence (37: not a tile multiple) and the served model's S and
 # D; then head_dims the wrapper zero-pads to the next kernel width (8 and
-# 12 to 16, 48 to 64, 96 to 128), as the JAX wrapper pads to 128 lanes
+# 12 to 16, 48 to 64, 96 to 128, 200 to 256), as the JAX wrapper pads to a
+# multiple of 128 lanes, and the widest kernel's 256
 SHAPES = [(2, 37, 2, 16), (32, 64, 4, 16), (2, 37, 2, 8), (3, 29, 2, 12), (2, 37, 2, 48),
-          (2, 21, 1, 96)]
+          (2, 21, 1, 96), (2, 21, 1, 200), (1, 19, 2, 256)]
+# float16 and float64 cases: a kernel width of each kernel family and a
+# padded head_dim
+DTYPE_SHAPES = [(2, 37, 2, 16), (2, 29, 2, 64), (1, 19, 2, 200)]
 
 
 def _qkv(shape, seed):
@@ -70,6 +80,42 @@ def test_flash_forward_matches_jax_kernel(shape, causal):
     np.testing.assert_allclose(lse.numpy(), _lse_reference(q, k, causal), atol=ATOL)
     # CPU tensors take the plain version: the kernel was never launched
     assert fa.launch_counts[fa.KERNEL] == before
+
+
+@pytest.mark.parametrize("shape", DTYPE_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_float16_matches_jax_kernel(shape, causal):
+    """float16 in, float16 out on both sides, each accumulating in float32."""
+    q, k, v = (x.astype(np.float16) for x in _qkv(shape, seed=sum(shape) + 2 + causal))
+    want = np.asarray(
+        jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    )
+    assert want.dtype == np.float16
+    out, lse = fa.flash_attention_forward(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal
+    )
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(), want.astype(np.float32), atol=FLOAT16_ATOL)
+    np.testing.assert_allclose(lse.numpy(), _lse_reference(q, k, causal), atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", DTYPE_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_float64_matches_jax_kernel(shape, causal):
+    """float64 in, float64 out: JAX under x64 (float32 inside its kernel),
+    the plain version in float64."""
+    q, k, v = (x.astype(np.float64) for x in _qkv(shape, seed=sum(shape) + 4 + causal))
+    with jax.enable_x64(True):
+        want = np.asarray(
+            jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+        )
+    assert want.dtype == np.float64
+    out, lse = fa.flash_attention_forward(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal
+    )
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), _lse_reference(q, k, causal), atol=ATOL)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -136,7 +182,8 @@ def test_kernel_sources_are_listed():
 
 @pytest.mark.parametrize("head_dim,width", [(1, 16), (8, 16), (12, 16), (16, 16), (17, 32),
                                             (24, 32), (33, 64), (48, 64), (64, 64),
-                                            (65, 128), (96, 128), (128, 128)])
+                                            (65, 128), (96, 128), (128, 128),
+                                            (129, 256), (200, 256), (256, 256)])
 def test_kernel_width_pads_to_the_next_kernel(head_dim, width):
     assert fa.kernel_width(head_dim) == width
     q = torch.zeros(1, 3, 1, head_dim)
@@ -144,10 +191,13 @@ def test_kernel_width_pads_to_the_next_kernel(head_dim, width):
 
 
 def test_kernel_width_names_the_queue_above_128():
+    """Above the widest kernel (256 since head_dim 129-256 gained one) the
+    width raises and names the queue that holds the rest."""
     with pytest.raises(ValueError, match="ROADMAP.md queue 3"):
-        fa.kernel_width(129)
+        fa.kernel_width(257)
     # the CPU runs the plain version at any width
-    q, k, v = _qkv((1, 5, 1, 160), seed=3)
+    q, k, v = _qkv((1, 5, 1, 300), seed=3)
+    assert fa._width(torch.from_numpy(q)) == 300
     out, lse = fa.flash_attention_forward(*(torch.from_numpy(x) for x in (q, k, v)))
-    assert out.shape == (1, 5, 1, 160)
+    assert out.shape == (1, 5, 1, 300)
     np.testing.assert_allclose(lse.numpy(), _lse_reference(q, k, False), atol=ATOL)

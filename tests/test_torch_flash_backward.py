@@ -10,6 +10,12 @@ and the autograd Function around the three kernels.
 - ``gradcheck`` of the Function in float64.
 - The repair: gradients of a loss through ``attention_impl="flash"``
   equal those through ``"dense"`` (atol 1e-5, float32).
+- The Function's gradients against ``jax.grad`` through the JAX
+  ``flash_attention`` at head_dims the wrappers pad (up to 256, atol
+  1e-5), in float16 (atol 2e-3: both sides accumulate in float32 and
+  round each gradient to float16 once) and in float64 under
+  ``jax.enable_x64`` (atol 1e-5: the Pallas kernels accumulate in float32
+  where the plain path uses float64).
 
 On CPU tensors the wrappers run their plain versions; the CUDA kernels
 are held against those on the card by tests/test_torch_cuda.py and
@@ -114,7 +120,7 @@ def test_function_gradcheck_float64(causal):
     )
 
 
-@pytest.mark.parametrize("head_dim", [8, 12, 48, 96])
+@pytest.mark.parametrize("head_dim", [8, 12, 48, 96, 200, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_function_gradients_match_jax_grad_at_padded_head_dims(head_dim, causal):
     """The Function pads q, k, v once to the kernel width and slices the
@@ -132,6 +138,50 @@ def test_function_gradients_match_jax_grad_at_padded_head_dims(head_dim, causal)
     for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
         assert leaf.grad.shape == shape
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=ATOL, err_msg=name)
+
+
+def _jax_grads(q, k, v, d_out, causal):
+    """dq, dk, dv of sum(out * d_out) through the JAX ``flash_attention``."""
+
+    def loss(a, b, c):
+        return (jax_flash_attention(a, b, c, causal=causal) * jnp.asarray(d_out)).sum()
+
+    return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+
+
+def _torch_grads(q, k, v, d_out, causal):
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    (fa.flash_attention(*leaves, causal=causal) * torch.from_numpy(d_out)).sum().backward()
+    return [leaf.grad for leaf in leaves]
+
+
+# a kernel width of each kernel family and a padded head_dim
+DTYPE_SHAPES = [(2, 23, 2, 16), (2, 19, 2, 64), (1, 17, 2, 200)]
+
+
+@pytest.mark.parametrize("shape", DTYPE_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_function_gradients_match_jax_grad_in_float16(shape, causal):
+    q, k, v, d_out = (x.numpy().astype(np.float16) for x in _inputs(shape, seed=sum(shape) + causal))
+    want = _jax_grads(q, k, v, d_out, causal)
+    got = _torch_grads(q, k, v, d_out, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float16 and np.asarray(w).dtype == np.float16, name
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w).astype(np.float32),
+                                   atol=2e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", DTYPE_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_function_gradients_match_jax_grad_in_float64(shape, causal):
+    q, k, v, d_out = (x.numpy().astype(np.float64) for x in _inputs(shape, seed=sum(shape) + 2))
+    with jax.enable_x64(True):
+        want = _jax_grads(q, k, v, d_out, causal)
+        assert all(np.asarray(w).dtype == np.float64 for w in want)
+    got = _torch_grads(q, k, v, d_out, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float64, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, err_msg=name)
 
 
 def test_function_refuses_double_backward():

@@ -23,7 +23,7 @@ def _offset_view(shape, dtype, offset):
     return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])
 def test_contiguous_tensors_take_the_16_byte_path(dtype):
     q = torch.zeros(SHAPE, dtype=dtype)
     assert q.data_ptr() % 16 == 0
@@ -56,6 +56,12 @@ def test_one_element_offset_takes_the_scalar_path(dtype):
         (torch.bfloat16, 8, True),  # bf16's granule: 8 elements, 16 bytes
         (torch.bfloat16, 4, False),  # 8 bytes
         (torch.bfloat16, 16, True),
+        (torch.float16, 8, True),  # float16's granule: 8 elements
+        (torch.float16, 4, False),
+        (torch.float16, 2, False),
+        (torch.float64, 2, True),  # float64's granule: 2 elements
+        (torch.float64, 1, False),
+        (torch.float64, 3, False),
     ],
 )
 def test_alignment_granule_is_16_bytes(dtype, offset, aligned):
@@ -68,6 +74,38 @@ def test_row_strides_must_be_16_byte_multiples(width, aligned):
     of 18 (72 bytes) does not, though the first row is."""
     q = torch.zeros(SHAPE[:3] + (width,))[..., :16]
     assert fa.rows_16b_aligned(q) is aligned
+
+
+@pytest.mark.parametrize(
+    "dtype,width,aligned",
+    [
+        (torch.float16, 24, True),  # 48 bytes
+        (torch.float16, 20, False),  # 40 bytes
+        (torch.float64, 18, True),  # 144 bytes
+        (torch.float64, 17, False),  # 136 bytes
+    ],
+)
+def test_row_strides_of_2_and_8_byte_elements(dtype, width, aligned):
+    """The granule is 16 bytes whatever the element: a float16 head stride
+    of 24 elements and a float64 one of 18 keep every row aligned."""
+    q = torch.zeros(SHAPE[:3] + (width,), dtype=dtype)[..., :16]
+    assert fa.rows_16b_aligned(q) is aligned
+
+
+@pytest.mark.parametrize(
+    "dtype,code",
+    [(torch.float32, 0), (torch.bfloat16, 1), (torch.float16, 2), (torch.float64, 3)],
+)
+def test_kernels_take_four_dtypes(dtype, code):
+    q = torch.zeros(SHAPE, dtype=dtype)
+    fa._check_kernel_inputs(q)
+    assert fa._shape_args(q) == (*SHAPE, code)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.complex64])
+def test_kernels_refuse_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="float16 or float64"):
+        fa._check_kernel_inputs(torch.zeros(SHAPE, dtype=dtype))
 
 
 def test_mode_bits():
@@ -85,6 +123,7 @@ def launches(monkeypatch):
     """Stand in for the built kernels: record each launch's arguments."""
     calls = []
     monkeypatch.setattr(fa, "forward_splits", lambda q, causal: 1)
+    monkeypatch.setattr(fa, "dq_splits", lambda q, causal: 1)
     monkeypatch.setattr(fa, "_kernel_function", lambda kernel, n_pointers: kernel)
     monkeypatch.setattr(fa, "_call", lambda kernel, fn, q, args: calls.append((kernel, args)))
     return calls
@@ -131,7 +170,8 @@ def test_dq_needs_all_six_row_tensors_aligned(launches, odd):
     }
 
 
-@pytest.mark.parametrize("head_dim,width", [(8, 16), (12, 16), (24, 32), (48, 64), (96, 128)])
+@pytest.mark.parametrize("head_dim,width", [(8, 16), (12, 16), (24, 32), (48, 64), (96, 128),
+                                            (129, 256), (200, 256)])
 def test_wrappers_launch_at_the_kernel_width(launches, monkeypatch, head_dim, width):
     """On the card's path each wrapper and the Function launch at the next
     kernel width with the caller's scale, 1/sqrt(head_dim), and hand back
@@ -146,7 +186,7 @@ def test_wrappers_launch_at_the_kernel_width(launches, monkeypatch, head_dim, wi
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     fa.flash_attention(*leaves, causal=True).sum().backward()
     assert all(leaf.grad.shape == shape for leaf in leaves)
-    pointers = {fa.KERNEL: 6, fa.KERNEL_DQ: 8, fa.KERNEL_DKV: 8}
+    pointers = {fa.KERNEL: 6, fa.KERNEL_DQ: 9, fa.KERNEL_DKV: 8}
     assert [kernel for kernel, _ in launches] == [fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV] * 2
     for kernel, args in launches:
         assert args[pointers[kernel] + 3] == width, kernel
@@ -176,3 +216,33 @@ def test_forward_hands_its_kernel_the_split_scratch(launches, monkeypatch, split
     else:
         assert isinstance(args[5], int) and args[5] != 0
         assert splits * batch * heads * seq * (head_dim + 2) in sizes
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.float64])
+def test_dq_hands_its_kernel_the_split_scratch(launches, monkeypatch, splits, dtype):
+    """With key splits the dq kernel gets a float32 scratch of splits x
+    batch x heads x seq x head_dim elements (each split's unscaled dq
+    rows), whatever the element type, and none without."""
+    monkeypatch.setattr(fa, "dq_splits", lambda q, causal: splits)
+    sizes = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kwargs):
+        sizes.append((shape[0] if len(shape) == 1 else shape, kwargs.get("dtype")))
+        return empty(*shape, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    q, k, v, out, d_out = (torch.zeros(SHAPE, dtype=dtype) for _ in range(5))
+    batch, seq, heads, head_dim = SHAPE
+    lse = torch.zeros(batch * heads, seq)
+    fa._launch_dq(q, k, v, out, lse, d_out, True, 0.25)
+    (kernel, args), = launches
+    assert kernel == fa.KERNEL_DQ
+    scratch = (splits * batch * heads * seq * head_dim, torch.float32)
+    if splits == 1:
+        assert args[8] is None
+        assert scratch not in sizes
+    else:
+        assert isinstance(args[8], int) and args[8] != 0
+        assert scratch in sizes
