@@ -20,12 +20,14 @@ Phases, each raising on failure (no result line is printed then):
    on views one element into their memory (no 16-byte aligned row: the
    kernels' element-by-element path), at head_dim 64, 128 and 256, at the
    JAX package's long-context record (1, 8192, 4, 64) in float32 and
-   bf16, at head_dims the wrappers pad (8 to 16, 48 to 64, 200 to 256),
-   and in float16 and float64 (float32 sums inside the kernels, as in the
-   Pallas kernels); two dq launches bitwise equal at the training shape,
-   on those views and at a shape where dq splits its keys; then the
+   bf16, at head_dims the wrappers pad (8 to 16, 48 to 64, 200 to 256,
+   300 to 384), at 640, in float16 and float64 (float32 sums inside the
+   kernels, as in the Pallas kernels) and in bf16 and float16 at kernel
+   widths 64 and 128 (the tensor-core kernels); each call must run the
+   CUDA kernel its width and type route to (``expected_kernel``); two
+   dq and two dk/dv launches bitwise equal in ``BITWISE_CASES``; then the
    gradient of a loss through the autograd Function on the card against
-   dense attention's on the card, at head_dim 16, 64, 48 and 200;
+   dense attention's on the card, at head_dim 16, 64, 48, 200 and 300;
 4. serving: the ``turbine-9900-transformer`` machine of
    ``examples/config.yaml`` at full width with ``attention_impl: flash``
    (random weights from a numpy seed in the Flax layout, carried over by
@@ -57,10 +59,22 @@ Phases, each raising on failure (no result line is printed then):
    within 1e-5 of the same request on the CPU; fetch, CV and fit seconds
    and steps/s (with ``--profile``, one fit traced: its device idle
    share); no flash kernel launches on this path;
-7. one JSON line of per-kernel numbers, each time with the timer that
+7. models beyond the served machine's head size: the port's
+   TransformerNet at compute dtype bfloat16 over the JAX package's
+   long-context record (3 features, d_model 256, 4 heads of 64, 2 layers,
+   causal, one (1, 8192, 3) window) takes one forward + backward with
+   flash attention and the same step with dense attention on the card:
+   the tensor-core forward and dk/dv kernels and the wide dq kernel each
+   launch once a layer (counts reset just before, read just after), the
+   loss and every gradient agree within 16 bf16 steps, and both step
+   times are printed; then a float32 Transformer with 2 heads of 300
+   (run at 384: the rowwise kernels) the same way, within 1e-4;
+8. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
-   incomplete), then the result line.
+   incomplete): the quad and wide kernels under each entry point's name,
+   and the tensor-core and rowwise kernels each under its own, with its
+   launches on every path above; then the result line.
 
 Exits non-zero without a result line when no CUDA card is available.
 """
@@ -289,6 +303,25 @@ def attention_bound(shape, causal: bool, dtype_name: str, elem_bytes: int,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def expected_kernel(entry: str, dtype_name: str, width: int) -> str:
+    """The CUDA kernel (``<entry point>_<family>``, as
+    ``flash_attention.kernel_launches`` names it) a call at kernel width
+    ``width`` in ``dtype_name`` routes to: the quad kernels at 16 and 32;
+    at 64 and 128 the tensor-core kernels for the bfloat16/float16 forward
+    and dk/dv, else the wide kernels, as at 256; the rowwise kernels
+    above 256."""
+    if width <= 32:
+        family = "quad"
+    elif width > 256:
+        family = "rowwise"
+    elif (width in (64, 128) and dtype_name in ("bfloat16", "float16")
+          and not entry.endswith("_dq")):
+        family = "mma"
+    else:
+        family = "wide"
+    return f"{entry}_{family}"
+
+
 def card_tensor(torch, gen, shape, dtype, misaligned: bool = False):
     """A random (B, S, H, D) tensor on the card; ``misaligned``: a view one
     element into its memory, so no row start is 16-byte aligned and the
@@ -312,7 +345,10 @@ MISALIGNED = "train-step-misaligned"
 # long-context record (docs/performance.md: causal, batch 1, 4 heads,
 # head_dim 64), head_dims the wrappers zero-pad to the next kernel width
 # (examples/long_context_training.py's 8 runs at 16, 48 at 64, 200 at
-# 256), the widest kernel, and the float16 and float64 element types
+# 256, 300 at 384), the widest fixed-width kernel, run-time widths (300
+# and 640, the rowwise kernels), the float16 and float64 element types,
+# and bfloat16/float16 at kernel widths 64 and 128 (the tensor-core
+# forward and dk/dv kernels)
 WIDE_CASES = [
     ("long-context-64", (1, 8192, 4, 64), True, "float32"),
     ("long-context-64-bf16", (1, 8192, 4, 64), True, "bfloat16"),
@@ -322,9 +358,21 @@ WIDE_CASES = [
     ("padded-200", (2, 512, 4, 200), True, "float32"),
     ("fp16-64", (4, 1000, 2, 64), True, "float16"),
     ("fp64-128", (2, 300, 2, 128), False, "float64"),
+    ("bf16-128", (2, 300, 2, 128), False, "bfloat16"),
+    ("fp16-128", (2, 300, 2, 128), False, "float16"),
+    ("padded-48-bf16", (16, 200, 2, 48), True, "bfloat16"),
+    ("padded-48-fp16", (16, 200, 2, 48), True, "float16"),
+    ("head-dim-300", (2, 300, 2, 300), True, "float32"),
+    ("head-dim-300-bf16", (2, 300, 2, 300), True, "bfloat16"),
+    ("head-dim-640", (1, 256, 2, 640), False, "float32"),
+    ("head-dim-640-bf16", (1, 256, 2, 640), False, "bfloat16"),
 ]
 # the cases each kernel's `wide` rows of the `kernels` line report
 WIDE_ROWS = ("head-dim-128", "head-dim-256", "long-context-64")
+# the cases the tensor-core and the rowwise kernels' entries report: the
+# first is the entry's own row, the others its `wide` rows
+MMA_ROWS = ("long-context-64-bf16", "fp16-64", "bf16-128", "padded-48-bf16")
+ROWWISE_ROWS = ("head-dim-300", "head-dim-640", "head-dim-300-bf16")
 
 
 def kernel_phase(torch, fa):
@@ -348,12 +396,17 @@ def kernel_phase(torch, fa):
         q, k, v = (
             card_tensor(torch, gen, shape, dtype, name == MISALIGNED) for _ in range(3)
         )
+        dtype_name = str(dtype).replace("torch.", "")
+        before = dict(fa.kernel_launches)
         out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        ran = kernels_ran(fa, before)
+        want = expected_kernel(fa.KERNEL, dtype_name, fa.kernel_width(shape[-1]))
+        if ran != [want]:
+            raise AssertionError(f"{name}: the forward ran {ran}, expected {want}")
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
-        dtype_name = str(dtype).replace("torch.", "")
         tol = TOLERANCE[dtype_name]
         def run():
             return fa.flash_attention_forward(q, k, v, causal=causal)
@@ -372,6 +425,7 @@ def kernel_phase(torch, fa):
         width = shape[:-1] + (fa.kernel_width(shape[-1]),)
         row = {
             "case": name,
+            "cuda_kernel": want,
             "shape": list(shape),
             "causal": causal,
             "dtype": dtype_name,
@@ -413,8 +467,10 @@ BACKWARD_CASES = [
     # a grid far under one wave: dq splits its keys across blocks
     ("dq-split-64", (1, 500, 1, 64), True, "float32"),
 ]
-# cases where two dq launches must agree bit for bit (dq and delta)
-BITWISE_CASES = ("train-step", MISALIGNED, "dq-split-64")
+# cases where two dq launches (dq and delta) and two dk/dv launches must
+# agree bit for bit
+BITWISE_CASES = ("train-step", MISALIGNED, "dq-split-64", "long-context-64-bf16", "fp16-64",
+                 "bf16-128", "padded-48-fp16", "head-dim-300", "head-dim-640-bf16")
 # of those, the cases whose dq must split its keys
 SPLIT_CASES = ("dq-split-64",)
 
@@ -422,8 +478,9 @@ SPLIT_CASES = ("dq-split-64",)
 def backward_phase(torch, fa):
     """Phase 3, backward: the dq and dk/dv kernels, each against its plain
     version on the same inputs (the dk/dv pair both take the plain
-    delta); in ``BITWISE_CASES`` a second dq launch equals the first bit
-    for bit, and in ``SPLIT_CASES`` dq splits its keys. The library
+    delta), each the CUDA kernel its width and type route to; in
+    ``BITWISE_CASES`` a second dq and a second dk/dv launch equal the
+    first bit for bit, and in ``SPLIT_CASES`` dq splits its keys. The library
     yardstick is the backward of ``scaled_dot_product_attention`` through
     ``torch.autograd.grad`` (dq, dk and dv together), its forward timed
     apart and subtracted."""
@@ -442,20 +499,34 @@ def backward_phase(torch, fa):
         dq_splits = fa.dq_splits(torch.empty(width, dtype=dtype, device="cuda"), causal)
         if name in SPLIT_CASES and dq_splits < 2:
             raise AssertionError(f"dq did not split its keys: {name}")
+        before = dict(fa.kernel_launches)
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
-        bitwise = None
+        torch.cuda.synchronize()
+        ran = {fa.KERNEL_DQ: kernels_ran(fa, before)}
+        bitwise = {fa.KERNEL_DQ: None, fa.KERNEL_DKV: None}
         if name in BITWISE_CASES:
             dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal)
             torch.cuda.synchronize()
-            bitwise = bool(torch.equal(dq, dq2) and torch.equal(delta, delta2))
-            if not bitwise:
+            bitwise[fa.KERNEL_DQ] = bool(torch.equal(dq, dq2) and torch.equal(delta, delta2))
+            if not bitwise[fa.KERNEL_DQ]:
                 raise AssertionError(f"two dq launches differ: {name}")
-        torch.cuda.synchronize()
         ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
             q, k, v, out, lse, d_out, causal, scale
         )
+        before = dict(fa.kernel_launches)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
         torch.cuda.synchronize()
+        ran[fa.KERNEL_DKV] = kernels_ran(fa, before)
+        if name in BITWISE_CASES:
+            dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
+            torch.cuda.synchronize()
+            bitwise[fa.KERNEL_DKV] = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+            if not bitwise[fa.KERNEL_DKV]:
+                raise AssertionError(f"two dk/dv launches differ: {name}")
+        want = {entry: expected_kernel(entry, dtype_name, fa.kernel_width(shape[-1]))
+                for entry in ran}
+        if any(ran[entry] != [want[entry]] for entry in ran):
+            raise AssertionError(f"{name}: the backward ran {ran}, expected {want}")
         ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(
             q, k, v, lse, ref_delta, d_out, causal, scale
         )
@@ -506,6 +577,7 @@ def backward_phase(torch, fa):
             (ms, ms_timer), (plain_ms, plain_timer) = device_ms(run), device_ms(plain, reps=5)
             row = {
                 "kernel": kernel,
+                "cuda_kernel": want[kernel],
                 "case": name,
                 "shape": list(shape),
                 "causal": causal,
@@ -514,7 +586,7 @@ def backward_phase(torch, fa):
                 "max_abs_err": max(errors[label] for label in outputs),
                 "errors": {label: errors[label] for label in outputs},
                 "tolerance": tol,
-                "bitwise_repeat": bitwise if kernel == fa.KERNEL_DQ else None,
+                "bitwise_repeat": bitwise[kernel],
                 "key_splits": dq_splits if kernel == fa.KERNEL_DQ else 1,
                 "ms": ms,
                 "ms_timer": ms_timer,
@@ -535,18 +607,25 @@ def backward_phase(torch, fa):
     return results
 
 
+def kernels_ran(fa, before) -> list:
+    """The CUDA kernels launched since ``before`` (a copy of
+    ``fa.kernel_launches``)."""
+    return sorted(name for name, n in fa.kernel_launches.items() if n != before[name])
+
+
 def gradient_phase(torch, fa):
     """Phase 3, the repair: the gradient of a loss through the flash
     autograd Function on the card equals dense attention's on the card,
     through (batch, seq, heads, head_dim) views of one tensor as the
     model feeds them: at the model's head_dim 16, at 64, at 48, which
-    the Function pads to 64, and at 200, which it pads to 256. Each
-    backward launches dq and dk/dv once."""
+    the Function pads to 64, at 200, which it pads to 256, and at 300,
+    which it pads to 384 (the rowwise kernels). Each backward launches
+    dq and dk/dv once."""
     from gordo_tpu_torch.models.specs_seq import dense_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     report = {}
-    for head_dim in (16, 64, 48, 200):
+    for head_dim in (16, 64, 48, 200, 300):
         for causal in (True, False):
             wide = torch.randn((BATCH_SIZE, 64, 4, 3 * head_dim), generator=gen, device="cuda")
             wide.requires_grad_(True)
@@ -568,6 +647,138 @@ def gradient_phase(torch, fa):
                 raise AssertionError(f"flash and dense gradients differ on the card by {err} "
                                      f"at head_dim {head_dim}")
     log("flash-vs-dense gradient max abs diff on the card", json.dumps(report))
+    return report
+
+
+# Phase 7's models. The JAX package's on-chip long-context record
+# (docs/performance.md: a causal forward + backward at batch 1, 4 heads of
+# 64, seq 8192, bf16) as the port's TransformerNet at compute dtype
+# bfloat16: 3 features, d_model 256, 2 layers, ff 1024, one (1, 8192, 3)
+# window. Then a Transformer whose heads are wider than 256 (2 heads of
+# 300, run at 384), float32, 1 layer, a (4, 256, 3) batch of windows.
+MODEL_16BIT = dict(n_features=3, d_model=256, n_heads=4, n_layers=2, ff_dim=1024, out_dim=3,
+                   causal=True)
+WINDOW_16BIT = (1, 8192, 3)
+MODEL_WIDE_HEAD = dict(n_features=3, d_model=600, n_heads=2, n_layers=1, ff_dim=1200,
+                       out_dim=3, causal=True)
+WINDOW_WIDE_HEAD = (4, 256, 3)
+# flash against dense on the card: the loss and every gradient within 16
+# bf16 steps (2^-8 relative) of its largest magnitude in bfloat16 (each
+# path rounds at other places: the flash kernels round P and dS, dense
+# attention its scores, softmax and products; tests/test_torch_transformer.py
+# holds the CPU model to JAX at the same bound), within 1e-4 of it in
+# float32 (summation order)
+MODEL_STEPS_16BIT = 16
+MODEL_REL_FLOAT32 = 1e-4
+MODEL_TIMED_STEPS = 5
+
+
+def model_step_check(torch, fa, label, widths, window, dtype):
+    """One forward + backward of the port's TransformerNet (random weights
+    from the seed, ``attention_impl`` flash, then the same step dense),
+    a mean squared error against seeded targets: the launches of each
+    CUDA kernel in the flash step (counts reset just before, read just
+    after), the step times (host clock, synchronised, median of
+    ``MODEL_TIMED_STEPS``), and the largest difference of the loss and of
+    every gradient between the two, each over its largest magnitude. An
+    attention key bias's gradient is 0 in exact arithmetic (the softmax
+    ignores a shift of every key), so it is measured on the scale of its
+    layer's key weight gradient."""
+    import numpy as np
+
+    from gordo_tpu_torch.models.specs_seq import TransformerNet
+
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(rng.normal(size=window).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.normal(size=(window[0], widths["out_dim"])).astype(np.float32)).cuda()
+    torch.manual_seed(SEED)
+    state = TransformerNet(**widths, dtype=dtype).state_dict()
+    steps = {}
+    for impl in ("flash", "dense"):
+        net = TransformerNet(**widths, attention_impl=impl, dtype=dtype)
+        net.load_state_dict(state)
+        net = net.cuda().train()  # dropout 0: no generator needed
+
+        def step():
+            net.zero_grad(set_to_none=True)
+            loss = (net(x) - y).square().mean()
+            loss.backward()
+            return loss
+
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        loss = step()
+        torch.cuda.synchronize()
+        launches = {name: n for name, n in fa.kernel_launches.items() if n}
+        grads = {name: p.grad.detach().float().clone() for name, p in net.named_parameters()}
+        times = []
+        for _ in range(MODEL_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        steps[impl] = {"loss": loss.item(), "grads": grads, "launches": launches,
+                       "step_ms": statistics.median(times)}
+        del net
+    flash, dense = steps["flash"], steps["dense"]
+    if dense["launches"]:
+        raise AssertionError(f"{label}: the dense step launched flash kernels {dense['launches']}")
+
+    def scale_of(name):
+        if name.endswith("attn.key.bias"):
+            return dense["grads"][name[: -len("bias")] + "weight"].abs().max().item()
+        return dense["grads"][name].abs().max().item()
+
+    loss_rel = abs(flash["loss"] - dense["loss"]) / abs(dense["loss"])
+    grad_rel = {
+        name: (flash["grads"][name] - g).abs().max().item() / max(scale_of(name), 1e-30)
+        for name, g in dense["grads"].items()
+    }
+    worst = max(grad_rel, key=grad_rel.get)
+    result = {
+        "dtype": str(dtype).replace("torch.", ""),
+        "window": list(window),
+        "loss_flash": flash["loss"],
+        "loss_dense": dense["loss"],
+        "loss_rel_diff": loss_rel,
+        "max_grad_rel_diff": grad_rel[worst],
+        "max_grad_rel_diff_param": worst,
+        "step_ms_flash": flash["step_ms"],
+        "step_ms_dense": dense["step_ms"],
+        "launches": flash["launches"],
+    }
+    if dtype == torch.bfloat16:
+        limit = MODEL_STEPS_16BIT * 2.0 ** -8
+        result["loss_bf16_steps"] = loss_rel / 2.0 ** -8
+        result["max_grad_bf16_steps"] = grad_rel[worst] / 2.0 ** -8
+    else:
+        limit = MODEL_REL_FLOAT32
+    result["rel_tolerance"] = limit
+    log(label, json.dumps(result))
+    if not (loss_rel <= limit and grad_rel[worst] <= limit):
+        raise AssertionError(f"{label}: flash and dense steps differ beyond {limit}: {result}")
+    return result
+
+
+def model_phase(torch, fa):
+    """Phase 7: the 16-bit path and the wide-head path through the model a
+    user builds: the bf16 long-context Transformer runs the tensor-core
+    forward and dk/dv kernels (and the wide dq kernel) once per layer; the
+    float32 Transformer with heads of 300 runs the three rowwise kernels
+    once per layer."""
+    report = {}
+    for label, widths, window, dtype, kernels in (
+        ("bf16_model", MODEL_16BIT, WINDOW_16BIT, torch.bfloat16,
+         (f"{fa.KERNEL}_mma", f"{fa.KERNEL_DQ}_wide", f"{fa.KERNEL_DKV}_mma")),
+        ("wide_head_model", MODEL_WIDE_HEAD, WINDOW_WIDE_HEAD, torch.float32,
+         (f"{fa.KERNEL}_rowwise", f"{fa.KERNEL_DQ}_rowwise", f"{fa.KERNEL_DKV}_rowwise")),
+    ):
+        result = model_step_check(torch, fa, label, widths, window, dtype)
+        want = {name: widths["n_layers"] for name in kernels}
+        if result["launches"] != want:
+            raise AssertionError(f"{label} launched {result['launches']}, expected {want}")
+        report[label] = result
+        torch.cuda.empty_cache()
     return report
 
 
@@ -716,6 +927,7 @@ def end_to_end_phase(torch, fa, profile: bool):
                     report["requests"].append(row)
                     log("request", json.dumps(row))
             launches = fa.launch_counts[fa.KERNEL]
+            report["kernel_launches"] = dict(fa.kernel_launches)
 
         # what came out: shapes, finite values, and the card against the CPU
         cpu_model = serializer.load(artifact, device="cpu")
@@ -891,6 +1103,7 @@ def train_phase(torch, fa, profile: bool):
         report["build_s"] = time.perf_counter() - t0
         launches = dict(fa.launch_counts)
         report["launches"] = launches
+        report["kernel_launches"] = dict(fa.kernel_launches)
         log("train launches", json.dumps(launches), "optimizer steps", steps)
         for kernel in (fa.KERNEL_DQ, fa.KERNEL_DKV):
             if launches[kernel] != n_layers * steps:
@@ -950,6 +1163,7 @@ def serve_trained(fa, collection: str, X, index, n_layers: int, lookback: int):
         fa.reset_launch_counts()
         reply, seconds = post(f"{base}/anomaly/prediction", payload)
         launches = fa.launch_counts[fa.KERNEL]
+        kernel_launches = dict(fa.kernel_launches)
     data = reply["data"]
     for key in ("total-anomaly-confidence", "anomaly-confidence"):
         if key not in data:
@@ -960,7 +1174,7 @@ def serve_trained(fa, collection: str, X, index, n_layers: int, lookback: int):
         raise AssertionError(f"total-anomaly-confidence: {confidence}")
     if launches != n_layers:
         raise AssertionError(f"serving the trained machine launched the forward {launches} times")
-    served = {"seconds": seconds, "launches": launches,
+    served = {"seconds": seconds, "launches": launches, "kernel_launches": kernel_launches,
               "median_total_confidence": float(np.median(confidence))}
     log("served trained artifact", json.dumps(served))
     return served
@@ -1161,6 +1375,7 @@ def default_pipeline_phase(torch, fa, profile: bool):
                 row["fit_profile"] = profile_default_fit(torch, artifact, X)
             report[name] = row
         report["flash_launches"] = dict(fa.launch_counts)
+        report["kernel_launches"] = dict(fa.kernel_launches)
     if any(report["flash_launches"].values()):
         raise AssertionError(f"the default pipeline launched flash kernels: {report}")
     return report
@@ -1306,7 +1521,7 @@ def wide_row(check):
 
 def kernel_entry(kernel, source, replaces, check, launches_by_path, wide_checks):
     """One kernel's object of the ``kernels`` line; ``wide`` holds its
-    head_dim 128, head_dim 256 and long-context head_dim 64 rows."""
+    rows at the other cases it reports."""
     return {
         "name": kernel,
         "route": "cuda",
@@ -1369,36 +1584,52 @@ def main(argv=None) -> int:
         raise AssertionError("the served path never launched flash_attention_fwd")
     train = train_phase(torch, fa, args.profile)
     default_pipeline = default_pipeline_phase(torch, fa, args.profile)
+    models = model_phase(torch, fa)
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
 
-    def wide(kernel, rows):
-        return [check(kernel, case, rows) for case in WIDE_ROWS]
+    # each path's launches by CUDA kernel, counted from 0 just before it
+    paths = {"serve": report["kernel_launches"], "train": train["kernel_launches"],
+             "serve_trained": train["served"]["kernel_launches"],
+             "default_pipeline": default_pipeline["kernel_launches"],
+             **{label: models[label]["launches"] for label in models}}
 
-    fwd_paths = {"serve": serve_launches, "train": train["launches"][fa.KERNEL],
-                 "serve_trained": train["served"]["launches"],
-                 "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL]}
+    def entry(kernel, families, source, replaces, cases, rows):
+        """The ``kernels`` entry of ``kernel``'s CUDA kernels of
+        ``families``: launches on each path, the first case's numbers and
+        the other cases as its ``wide`` rows."""
+        names = [f"{kernel}_{family}" for family in families]
+        by_path = {path: sum(counts.get(name, 0) for name in names)
+                   for path, counts in paths.items()}
+        rows_of = [check(kernel, case, rows) for case in cases]
+        name = kernel if len(families) > 1 else names[0]
+        return kernel_entry(name, source, replaces, rows_of[0], by_path, rows_of[1:])
+
+    fwd_source = "gordo_tpu_torch/csrc/flash_attention_fwd.cu"
+    bwd_source = "gordo_tpu_torch/csrc/flash_attention_bwd.cu"
+    fwd_tpu, dq_tpu, dkv_tpu = ("gordo_tpu/ops/flash_attention.py:72",
+                                "gordo_tpu/ops/flash_attention.py:176",
+                                "gordo_tpu/ops/flash_attention.py:213")
+    earlier = ("quad", "wide")  # the kernels of PRs 1-7, reported under the entry's name
     kernels = {
         "kernels": [
-            kernel_entry(fa.KERNEL, "gordo_tpu_torch/csrc/flash_attention_fwd.cu",
-                         "gordo_tpu/ops/flash_attention.py:72",
-                         check(fa.KERNEL, "model-shape", checks), fwd_paths,
-                         wide(fa.KERNEL, checks)),
-            kernel_entry(fa.KERNEL_DQ, "gordo_tpu_torch/csrc/flash_attention_bwd.cu",
-                         "gordo_tpu/ops/flash_attention.py:176",
-                         check(fa.KERNEL_DQ, "train-step", backward_checks),
-                         {"train": train["launches"][fa.KERNEL_DQ],
-                          "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL_DQ]},
-                         wide(fa.KERNEL_DQ, backward_checks)),
-            kernel_entry(fa.KERNEL_DKV, "gordo_tpu_torch/csrc/flash_attention_bwd.cu",
-                         "gordo_tpu/ops/flash_attention.py:213",
-                         check(fa.KERNEL_DKV, "train-step", backward_checks),
-                         {"train": train["launches"][fa.KERNEL_DKV],
-                          "default_pipeline": default_pipeline["flash_launches"][fa.KERNEL_DKV]},
-                         wide(fa.KERNEL_DKV, backward_checks)),
+            entry(fa.KERNEL, earlier, fwd_source, fwd_tpu, ("model-shape", *WIDE_ROWS), checks),
+            entry(fa.KERNEL_DQ, earlier, bwd_source, dq_tpu, ("train-step", *WIDE_ROWS),
+                  backward_checks),
+            entry(fa.KERNEL_DKV, earlier, bwd_source, dkv_tpu, ("train-step", *WIDE_ROWS),
+                  backward_checks),
+            entry(fa.KERNEL, ("mma",), fwd_source, fwd_tpu, MMA_ROWS, checks),
+            entry(fa.KERNEL_DKV, ("mma",), bwd_source, dkv_tpu, MMA_ROWS, backward_checks),
+            entry(fa.KERNEL, ("rowwise",), fwd_source, fwd_tpu, ROWWISE_ROWS, checks),
+            entry(fa.KERNEL_DQ, ("rowwise",), bwd_source, dq_tpu, ROWWISE_ROWS, backward_checks),
+            entry(fa.KERNEL_DKV, ("rowwise",), bwd_source, dkv_tpu, ROWWISE_ROWS,
+                  backward_checks),
         ]
     }
+    for item in kernels["kernels"]:
+        if item["launches"] <= 0:
+            raise AssertionError(f"{item['name']} was launched on no path: {item}")
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(
@@ -1406,7 +1637,7 @@ def main(argv=None) -> int:
                  "nvcc_s": {name: seconds for name, (_, seconds) in compiler_output.items()},
                  "backward_checks": backward_checks, "gradients": gradients,
                  "end_to_end": report, "train": train,
-                 "default_pipeline": default_pipeline, **kernels},
+                 "default_pipeline": default_pipeline, "models": models, **kernels},
                 fh,
                 indent=1,
                 default=str,

@@ -131,6 +131,44 @@
 // merged once by the fixed-order butterfly, and each dk/dv element has
 // one owner: no atomics.
 //
+// dk/dv in bfloat16 and float16 at head_dim 64 and 128
+// (flash_bwd_dkv_mma_kernel) go to the tensor cores: on the CUDA cores the
+// long-context bf16 case took 2.84 ms against SDPA's whole backward of
+// 0.30 (PERF.md), and its four products' bound at the 989 TFLOP/s bf16
+// rate is 0.069 ms. A block of 4 warps owns 64 key rows, each warp 16.
+// q, dO, LSE and delta tiles (64 queries at 64, 32 at 128) pass through a
+// two-stage cp.async ring, rows padded by 16 bytes for ldmatrix. Per tile
+// each warp computes Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (mma.sync m16n8k16,
+// float32 accumulators; see flash_mma.cuh), Pᵀ = exp2(Sᵀ sm_scale log2 e
+// - LSE log2 e) from the saved LSE (ex2.approx) where the mask keeps the
+// pair, dSᵀ = Pᵀ (dPᵀ - delta), then dV += Pᵀ dO and dK += dSᵀ Q with Pᵀ
+// and dSᵀ in the registers that computed them as A operands (dO and Q by
+// ldmatrix.trans). As in the forward, Pᵀ and dSᵀ are each split into two
+// terms of the input type (head + tail) for those two products: rounded
+// once, as SDPA and FlashAttention do, they moved bf16 dk or dv by a
+// 1-ulp step of 0.031 at magnitudes of 4 and up, past the 2e-2 tolerance
+// of the plain version (which keeps them in float32). dK and dV stay in
+// float32 registers and are scaled and written once; each key row has
+// one owner and there are no atomics, so two launches are bitwise equal.
+// At head_dim 64 the warp's K and V fragments stay in registers for the
+// whole walk (246 registers in bf16, 248 in float16, no spill); at 128 dK
+// and dV take 128 registers a lane, so K and V are read from shared
+// memory each tile and the query tile is halved (254 registers in bf16,
+// 255 with a 16-byte spill in float16; a 16-query tile ran 19-23% slower,
+// scripts/flash_tiling_sweep.py). The causal start and the key-tile order
+// are the wide kernel's; a warp skips the tiles wholly before its first
+// key. float32 and float64 keep the wide kernel, and dq stays on the wide
+// kernel in every type (its tensor-core design is the next step).
+//
+// Any head_dim above 256 (flash_bwd_dq_rowwise_kernel and
+// flash_bwd_dkv_rowwise_kernel, the width a run-time argument): one warp
+// a row (a query row in dq, a key row in dk/dv), the row's vectors and
+// float32 accumulators in shared memory with the lanes striding over the
+// width, each pair's two dot products summed by warp shuffles, the other
+// side's rows staged 16 at a time as float32. The dk/dv block's 192 bytes
+// a lane of width make head_dim 1024 the widest (flash::kMaxRowwiseDim).
+// Written to be right, not fast (5-6x SDPA at (2, 300, 2, 300), PERF.md).
+//
 // Rows past the sequence end store nothing; query rows past the end add
 // nothing to dk/dv and keys past the end have probability 0. No head-dim
 // padding to 128 lanes and no lane-broadcast statistics: those exist only
@@ -139,23 +177,27 @@
 // Inputs are float32, bfloat16, float16 or float64 (dtype 0 / 1 / 2 / 3),
 // each element converted to float32 on load and every sum in float32, as
 // the Pallas kernels do (a float64 tile is staged in shared memory as
-// float32); head_dim is 16, 32, 64, 128 or 256; any sequence length;
-// causal or full. Strides are in elements, (batch, seq, head) for each
-// tensor in the order the entry point names; the head dim must be
-// contiguous. `mode` is a bit set: 1 causal, 2 every row start of the six
-// (batch, seq, heads, head_dim) tensors of the entry point 16-byte
-// aligned. The kernels allocate nothing (dq's split scratch is the
+// float32); head_dim is 16, 32, 64, 128, 256 or any width from 257 to
+// 1024; any sequence length; causal or full. Strides are in elements,
+// (batch, seq, head) for each tensor in the order the entry point names;
+// the head dim must be contiguous. `mode` is a bit set: 1 causal, 2 every
+// row start of the six (batch, seq, heads, head_dim) tensors of the entry
+// point 16-byte aligned (the rowwise kernels read element by element
+// either way). The kernels allocate nothing (dq's split scratch is the
 // caller's) and run on the caller's stream. Each entry point returns the
-// CUDA error code of its launch (0 on success).
+// CUDA error code of its launch (0 on success) and writes the family of
+// the kernel it launched (flash::kFamily*) to its last argument.
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -877,6 +919,399 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_merge_kernel(const Params p)
   for (int d = 0; d < kLaneDims; ++d) dq_row[d] = from_float<T>(acc[d] * p.sm_scale);
 }
 
+// dk/dv in bfloat16 and float16 at head_dim 64 and 128 on the tensor
+// cores: 4 warps of 16 key rows a block; q, dO, LSE and delta tiles of
+// kTile queries through a two-stage cp.async ring; per tile Sᵀ = K Qᵀ and
+// dPᵀ = V dOᵀ, then dV += Pᵀ dO and dK += dSᵀ Q, all by mma.sync.m16n8k16
+// with float32 accumulators (see flash_mma.cuh); Pᵀ and dSᵀ rounded to T
+// as A operands in place. kKeepKV: the warp's K and V fragments stay in
+// registers for the whole walk, else they are read from shared memory for
+// each tile (at head_dim 128 the registers go to dK and dV).
+constexpr int kMmaWarps = 4;
+constexpr int kMmaKeys = 16 * kMmaWarps;  // key rows a block owns
+
+template <typename T, int D, int kTile, bool kKeepKV, int kMinBlocks>
+__global__ void __launch_bounds__(kMmaWarps * 32, kMinBlocks)
+    flash_bwd_dkv_mma_kernel(const Params p) {
+  constexpr int kThreads = kMmaWarps * 32;
+  constexpr int kPitch = D + 8;  // 16 bytes of padding a row: ldmatrix rows on distinct banks
+  constexpr int kStage = kTile * kPitch;
+  constexpr int kKChunks = D / 16;    // 16-wide steps over head_dim in Sᵀ and dPᵀ
+  constexpr int kQTiles = kTile / 8;  // 8-query tiles of a staged tile
+  constexpr int kDTiles = D / 8;      // 8-wide dK and dV tiles
+  static_assert(kTile % 16 == 0 && D % 16 == 0, "whole 16 x 16 blocks");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_tile = reinterpret_cast<T*>(smem);   // [kMmaKeys][kPitch]
+  T* v_tile = k_tile + kMmaKeys * kPitch;   // [kMmaKeys][kPitch]
+  T* q_ring = v_tile + kMmaKeys * kPitch;   // [2][kStage]
+  T* do_ring = q_ring + 2 * kStage;         // [2][kStage]
+  float* lse_ring = reinterpret_cast<float*>(do_ring + 2 * kStage);  // [2][kTile]
+  float* delta_ring = lse_ring + 2 * kTile;                          // [2][kTile]
+
+  // key tiles first to last across all heads: causal launches start with
+  // their longest query walks
+  const int kt = blockIdx.x / p.batch_heads;
+  const int bh = blockIdx.x - kt * p.batch_heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;  // the lane's keys of the warp's 16: g and g + 8
+  const int t4 = lane & 3;  // the lane's columns of each 8-wide tile: 2 t4, 2 t4 + 1
+  const int seq = p.seq;
+  const int k0 = kt * kMmaKeys;
+  const int key_a = k0 + warp * 16 + g;
+  const bool vec = p.vec;
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
+  const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
+  // causal: queries before the block's first key see none of its keys,
+  // and a tile wholly before the warp's first key none of the warp's (a
+  // warp-uniform skip)
+  const int q_begin = p.causal ? k0 : 0;
+  const int warp_q_first = p.causal ? k0 + warp * 16 : 0;
+  const int n_tiles = (seq - q_begin + kTile - 1) / kTile;
+
+  // stage the query tile at q0 (past the sequence end: zeros) into ring stage `s`
+  auto stage = [&](int q0, int s) {
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(q_ring + s * kStage, q_head, p.q_st.s, q0,
+                                                     seq, vec);
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(do_ring + s * kStage, do_head, p.do_st.s,
+                                                     q0, seq, vec);
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+      const int qp = q0 + i;
+      if (qp < seq) {
+        flash::cp_async4(lse_ring + s * kTile + i, p.lse + stat + qp);
+        flash::cp_async4(delta_ring + s * kTile + i, p.delta + stat + qp);
+      } else {
+        lse_ring[s * kTile + i] = 0.f;
+        delta_ring[s * kTile + i] = 0.f;
+      }
+    }
+  };
+  flash::stage_rows<T, D, kPitch, kMmaKeys, kThreads>(
+      k_tile, row_ptr<T>(p.k, p.k_st, b, 0, h, 0), p.k_st.s, k0, seq, vec);
+  flash::stage_rows<T, D, kPitch, kMmaKeys, kThreads>(
+      v_tile, row_ptr<T>(p.v, p.v_st, b, 0, h, 0), p.v_st.s, k0, seq, vec);
+  stage(q_begin, 0);
+  flash::cp_async_commit();
+  flash::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t kf[kKeepKV ? kKChunks : 1][4];  // the warp's K and V rows as A fragments
+  uint32_t vf[kKeepKV ? kKChunks : 1][4];
+  if constexpr (kKeepKV) {
+#pragma unroll
+    for (int kc = 0; kc < kKChunks; ++kc) {
+      flash::ldmatrix_x4(kf[kc], flash::a_rows(k_tile, kPitch, warp * 16, kc * 16, lane));
+      flash::ldmatrix_x4(vf[kc], flash::a_rows(v_tile, kPitch, warp * 16, kc * 16, lane));
+    }
+  }
+
+  const float scale_log2 = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  float dk[kDTiles][4];
+  float dv[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = q_begin + t * kTile;
+    if (t + 1 < n_tiles) stage(q0 + kTile, (t + 1) & 1);  // the next tile into the other stage
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const T* q_tile = q_ring + (t & 1) * kStage;
+    const T* do_tile = do_ring + (t & 1) * kStage;
+    const float* lse_tile = lse_ring + (t & 1) * kTile;
+    const float* delta_tile = delta_ring + (t & 1) * kTile;
+    if (q0 + kTile > warp_q_first) {
+      // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, 16 keys x kTile queries each
+      float st[kQTiles][4];
+      float dpt[kQTiles][4];
+#pragma unroll
+      for (int j = 0; j < kQTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kc = 0; kc < kKChunks; ++kc) {
+        uint32_t ka[4];
+        uint32_t va[4];
+        if constexpr (kKeepKV) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ka[i] = kf[kc][i];
+            va[i] = vf[kc][i];
+          }
+        } else {
+          flash::ldmatrix_x4(ka, flash::a_rows(k_tile, kPitch, warp * 16, kc * 16, lane));
+          flash::ldmatrix_x4(va, flash::a_rows(v_tile, kPitch, warp * 16, kc * 16, lane));
+        }
+#pragma unroll
+        for (int np = 0; np < kQTiles / 2; ++np) {
+          uint32_t qb[4];
+          flash::ldmatrix_x4(qb, flash::b_rows(q_tile, kPitch, np * 16, kc * 16, lane));
+          flash::mma_16816<T>(st[2 * np], ka, qb[0], qb[1]);
+          flash::mma_16816<T>(st[2 * np + 1], ka, qb[2], qb[3]);
+          uint32_t ob[4];
+          flash::ldmatrix_x4(ob, flash::b_rows(do_tile, kPitch, np * 16, kc * 16, lane));
+          flash::mma_16816<T>(dpt[2 * np], va, ob[0], ob[1]);
+          flash::mma_16816<T>(dpt[2 * np + 1], va, ob[2], ob[3]);
+        }
+      }
+      // Pᵀ = exp2(Sᵀ - LSE) where the mask keeps the pair, dSᵀ = Pᵀ (dPᵀ - delta)
+#pragma unroll
+      for (int j = 0; j < kQTiles; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = 8 * j + 2 * t4 + c;
+          const int qpos = q0 + qi;
+          const float lse2 = lse_tile[qi] * flash::kLog2e;
+          const float delta = delta_tile[qi];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c;
+            const bool keep = qpos < seq && (!p.causal || key_a + 8 * r <= qpos);
+            const float pt = keep ? flash::exp2_approx(st[j][e] * scale_log2 - lse2) : 0.f;
+            dpt[j][e] = pt * (dpt[j][e] - delta);
+            st[j][e] = pt;
+          }
+        }
+      }
+      // dV += Pᵀ dO and dK += dSᵀ Q, Pᵀ and dSᵀ in place as A operands,
+      // each split into two terms of T (head + tail)
+#pragma unroll
+      for (int kc = 0; kc < kTile / 16; ++kc) {
+        uint32_t ph[4];
+        uint32_t pt[4];
+        uint32_t dh[4];
+        uint32_t dt[4];
+        flash::split_a<T>(ph, pt, st[2 * kc], st[2 * kc + 1]);
+        flash::split_a<T>(dh, dt, dpt[2 * kc], dpt[2 * kc + 1]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t ob[4];
+          flash::ldmatrix_x4_trans(ob, flash::bt_rows(do_tile, kPitch, kc * 16, dp * 16, lane));
+          flash::mma_16816<T>(dv[2 * dp], ph, ob[0], ob[1]);
+          flash::mma_16816<T>(dv[2 * dp + 1], ph, ob[2], ob[3]);
+          flash::mma_16816<T>(dv[2 * dp], pt, ob[0], ob[1]);
+          flash::mma_16816<T>(dv[2 * dp + 1], pt, ob[2], ob[3]);
+          uint32_t qb[4];
+          flash::ldmatrix_x4_trans(qb, flash::bt_rows(q_tile, kPitch, kc * 16, dp * 16, lane));
+          flash::mma_16816<T>(dk[2 * dp], dh, qb[0], qb[1]);
+          flash::mma_16816<T>(dk[2 * dp + 1], dh, qb[2], qb[3]);
+          flash::mma_16816<T>(dk[2 * dp], dt, qb[0], qb[1]);
+          flash::mma_16816<T>(dk[2 * dp + 1], dt, qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // each lane stores two columns of each 8-wide tile of its two key rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = key_a + 8 * r;
+    if (kpos >= seq) continue;
+    T* dk_row = row_ptr<T>(p.dk, p.dk_st, b, kpos, h, 0);
+    T* dv_row = row_ptr<T>(p.dv, p.dv_st, b, kpos, h, 0);
+#pragma unroll
+    for (int dt = 0; dt < kDTiles; ++dt) {
+      const int col = dt * 8 + 2 * t4;
+      const float k0v = dk[dt][2 * r] * p.sm_scale;
+      const float k1v = dk[dt][2 * r + 1] * p.sm_scale;
+      if (vec) {
+        *reinterpret_cast<uint32_t*>(dk_row + col) = flash::pack2<T>(k0v, k1v);
+        *reinterpret_cast<uint32_t*>(dv_row + col) =
+            flash::pack2<T>(dv[dt][2 * r], dv[dt][2 * r + 1]);
+      } else {
+        dk_row[col] = from_float<T>(k0v);
+        dk_row[col + 1] = from_float<T>(k1v);
+        dv_row[col] = from_float<T>(dv[dt][2 * r]);
+        dv_row[col + 1] = from_float<T>(dv[dt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dq at any head_dim above 256 (the width is a run-time argument): one warp
+// a query row, its q (prescaled), dO and float32 dq accumulator in shared
+// memory with the lanes striding over the width; each pair's two dot
+// products (score, dO.v) summed by warp shuffles; key and value rows
+// staged kRowTile at a time as float32. delta = rowsum(dO * O) is summed
+// first and written for the dk/dv kernel.
+template <typename T>
+__global__ void __launch_bounds__(flash::kRowThreads) flash_bwd_dq_rowwise_kernel(const Params p,
+                                                                                  int D) {
+  extern __shared__ __align__(16) float row_smem[];
+  float* k_tile = row_smem;                          // [kRowTile][D]
+  float* v_tile = k_tile + flash::kRowTile * D;      // [kRowTile][D]
+  float* q_rows = v_tile + flash::kRowTile * D;      // [kRowWarps][D]
+  float* do_rows = q_rows + flash::kRowWarps * D;    // [kRowWarps][D]
+  float* acc_rows = do_rows + flash::kRowWarps * D;  // [kRowWarps][D]
+  const int bh = blockIdx.x % p.batch_heads;
+  const int qt = p.n_tiles - 1 - blockIdx.x / p.batch_heads;  // last to first
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int seq = p.seq;
+  const int q0 = qt * flash::kRowWarps;
+  const int qpos = q0 + warp;
+  const int qc = min(qpos, seq - 1);  // a row past the end: a clamped copy, nothing stored
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const int k_end = p.causal ? min(seq, q0 + flash::kRowWarps) : seq;
+  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
+  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
+
+  float* q_row = q_rows + warp * D;
+  float* do_row = do_rows + warp * D;
+  float* acc = acc_rows + warp * D;
+  const float scale_log2 = p.sm_scale * flash::kLog2e;
+  const T* q_src = row_ptr<T>(p.q, p.q_st, b, qc, h, 0);
+  const T* do_src = row_ptr<T>(p.d_out, p.do_st, b, qc, h, 0);
+  const T* o_src = row_ptr<T>(p.out, p.o_st, b, qc, h, 0);
+  float dot = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    const float dov = to_float(do_src[d]);
+    dot = fmaf(dov, to_float(o_src[d]), dot);
+    q_row[d] = to_float(q_src[d]) * scale_log2;
+    do_row[d] = dov;
+    acc[d] = 0.f;
+  }
+  const float delta = flash::warp_sum(dot);
+  const float lse2 = p.lse[stat + qc] * flash::kLog2e;
+  if (lane == 0 && qpos < seq) p.delta[stat + qpos] = delta;
+
+  for (int k0 = 0; k0 < k_end; k0 += flash::kRowTile) {
+    __syncthreads();  // every warp is done with the previous tile
+    flash::stage_rows_float(k_tile, k_head, p.k_st.s, k0, k_end, D);
+    flash::stage_rows_float(v_tile, v_head, p.v_st.s, k0, k_end, D);
+    __syncthreads();
+    float ds[flash::kRowTile];
+#pragma unroll
+    for (int j = 0; j < flash::kRowTile; ++j) {
+      const float* k_row = k_tile + j * D;
+      const float* v_row = v_tile + j * D;
+      float s = 0.f;
+      float dp = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        s = fmaf(q_row[d], k_row[d], s);
+        dp = fmaf(do_row[d], v_row[d], dp);
+      }
+      s = flash::warp_sum(s);
+      dp = flash::warp_sum(dp);
+      const int kpos = k0 + j;
+      const bool keep = kpos < seq && (!p.causal || kpos <= qpos);
+      ds[j] = keep ? exp2f(s - lse2) * (dp - delta) : 0.f;
+    }
+    for (int d = lane; d < D; d += 32) {
+      float a = acc[d];
+#pragma unroll
+      for (int j = 0; j < flash::kRowTile; ++j) a = fmaf(ds[j], k_tile[j * D + d], a);
+      acc[d] = a;
+    }
+  }
+  if (qpos >= seq) return;
+  T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, 0);
+  for (int d = lane; d < D; d += 32) dq_row[d] = from_float<T>(acc[d] * p.sm_scale);
+}
+
+// dk/dv at any head_dim above 256: one warp a key row, its k (prescaled),
+// v and the float32 dk and dv accumulators in shared memory with the lanes
+// striding over the width; q and dO rows (with LSE and delta) staged
+// kRowTile at a time as float32.
+template <typename T>
+__global__ void __launch_bounds__(flash::kRowThreads) flash_bwd_dkv_rowwise_kernel(const Params p,
+                                                                                   int D) {
+  extern __shared__ __align__(16) float row_smem[];
+  float* q_tile = row_smem;                          // [kRowTile][D]
+  float* do_tile = q_tile + flash::kRowTile * D;     // [kRowTile][D]
+  float* k_rows = do_tile + flash::kRowTile * D;     // [kRowWarps][D]
+  float* v_rows = k_rows + flash::kRowWarps * D;     // [kRowWarps][D]
+  float* dk_rows = v_rows + flash::kRowWarps * D;    // [kRowWarps][D]
+  float* dv_rows = dk_rows + flash::kRowWarps * D;   // [kRowWarps][D]
+  float* lse_tile = dv_rows + flash::kRowWarps * D;  // [kRowTile], log2 units
+  float* delta_tile = lse_tile + flash::kRowTile;    // [kRowTile]
+  const int kt = blockIdx.x / p.batch_heads;  // first to last: the longest walks first
+  const int bh = blockIdx.x - kt * p.batch_heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int seq = p.seq;
+  const int k0 = kt * flash::kRowWarps;
+  const int kpos = k0 + warp;
+  const int kc = min(kpos, seq - 1);  // a row past the end: a clamped copy, nothing stored
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
+  const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
+
+  float* k_row = k_rows + warp * D;
+  float* v_row = v_rows + warp * D;
+  float* dk = dk_rows + warp * D;
+  float* dv = dv_rows + warp * D;
+  const float scale_log2 = p.sm_scale * flash::kLog2e;
+  const T* k_src = row_ptr<T>(p.k, p.k_st, b, kc, h, 0);
+  const T* v_src = row_ptr<T>(p.v, p.v_st, b, kc, h, 0);
+  for (int d = lane; d < D; d += 32) {
+    k_row[d] = to_float(k_src[d]) * scale_log2;
+    v_row[d] = to_float(v_src[d]);
+    dk[d] = 0.f;
+    dv[d] = 0.f;
+  }
+  for (int q0 = p.causal ? k0 : 0; q0 < seq; q0 += flash::kRowTile) {
+    __syncthreads();  // every warp is done with the previous tile
+    flash::stage_rows_float(q_tile, q_head, p.q_st.s, q0, seq, D);
+    flash::stage_rows_float(do_tile, do_head, p.do_st.s, q0, seq, D);
+    for (int i = threadIdx.x; i < flash::kRowTile; i += flash::kRowThreads) {
+      const int qp = q0 + i;
+      lse_tile[i] = qp < seq ? p.lse[stat + qp] * flash::kLog2e : 0.f;
+      delta_tile[i] = qp < seq ? p.delta[stat + qp] : 0.f;
+    }
+    __syncthreads();
+    float pr[flash::kRowTile];
+    float ds[flash::kRowTile];
+#pragma unroll
+    for (int i = 0; i < flash::kRowTile; ++i) {
+      const float* q_row = q_tile + i * D;
+      const float* do_row = do_tile + i * D;
+      float s = 0.f;
+      float dp = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        s = fmaf(q_row[d], k_row[d], s);
+        dp = fmaf(do_row[d], v_row[d], dp);
+      }
+      s = flash::warp_sum(s);
+      dp = flash::warp_sum(dp);
+      const int qpos = q0 + i;
+      const bool keep = qpos < seq && (!p.causal || kpos <= qpos);
+      pr[i] = keep ? exp2f(s - lse_tile[i]) : 0.f;
+      ds[i] = pr[i] * (dp - delta_tile[i]);
+    }
+    for (int d = lane; d < D; d += 32) {
+      float a = dk[d];
+      float c = dv[d];
+#pragma unroll
+      for (int i = 0; i < flash::kRowTile; ++i) {
+        a = fmaf(ds[i], q_tile[i * D + d], a);
+        c = fmaf(pr[i], do_tile[i * D + d], c);
+      }
+      dk[d] = a;
+      dv[d] = c;
+    }
+  }
+  if (kpos >= seq) return;
+  T* dk_row = row_ptr<T>(p.dk, p.dk_st, b, kpos, h, 0);
+  T* dv_row = row_ptr<T>(p.dv, p.dv_st, b, kpos, h, 0);
+  for (int d = lane; d < D; d += 32) {
+    dk_row[d] = from_float<T>(dk[d] * p.sm_scale);
+    dv_row[d] = from_float<T>(dv[d]);
+  }
+}
+
 // (query rows per lane, dim split, minimum blocks per SM) of the dq quad
 // kernel: one row per lane is the fastest tiling ptxas fits without a spill
 template <int D>
@@ -970,10 +1405,55 @@ int dq_splits(int64_t wave, int64_t batch_heads, int seq, bool causal) {
                            (seq + Tile::kTile - 1) / Tile::kTile, causal);
 }
 
+// bfloat16 and float16 dk/dv at head_dim 64 and 128 take the tensor
+// cores; float32 keeps the CUDA cores (TF32 would break its 1e-4
+// tolerance), and float64 is summed in float32 there as in the Pallas
+// kernel
+template <typename T, int D>
+constexpr bool kTensorCores =
+    (std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>) && (D == 64 || D == 128);
+
+// (queries per staged tile, K and V fragments kept in registers, minimum
+// blocks per SM) of the tensor-core dk/dv kernel: at head_dim 128 the
+// dK and dV accumulators take 128 registers a lane, so K and V are read
+// from shared memory and the query tile is halved
+template <int D>
+struct DkvMmaTiling;
+template <>
+struct DkvMmaTiling<64> {
+  static constexpr int kTile = 64, kMinBlocks = 2;
+  static constexpr bool kKeepKV = true;
+};
+template <>
+struct DkvMmaTiling<128> {
+  static constexpr int kTile = 32, kMinBlocks = 2;
+  static constexpr bool kKeepKV = false;
+};
+
+// dynamic shared memory of a tensor-core dk/dv block: its K and V rows,
+// the q and dO rings, then LSE and delta, two stages each
+template <typename T, int D>
+constexpr int dkv_mma_smem() {
+  constexpr int kTile = DkvMmaTiling<D>::kTile;
+  return (2 * kMmaKeys + 4 * kTile) * (D + 8) * static_cast<int>(sizeof(T)) +
+         4 * kTile * static_cast<int>(sizeof(float));
+}
+
+// dynamic shared memory of a rowwise block at head_dim D, all float32:
+// dq's key and value tiles and its warps' q, dO and dq rows; dk/dv's q
+// and dO tiles, its warps' k, v, dk and dv rows, and LSE and delta
+constexpr int dq_rowwise_smem(int D) {
+  return (2 * flash::kRowTile + 3 * flash::kRowWarps) * D * static_cast<int>(sizeof(float));
+}
+constexpr int dkv_rowwise_smem(int D) {
+  return ((2 * flash::kRowTile + 4 * flash::kRowWarps) * D + 2 * flash::kRowTile) *
+         static_cast<int>(sizeof(float));
+}
+
 enum class Which { kDq, kDkv };
 
 template <Which W, typename T, int D>
-int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
+int launch(Params& p, int64_t batch_heads, cudaStream_t stream, int* launched) {
   if constexpr (D <= 32) {  // the model's head sizes
     constexpr int kRows = W == Which::kDq ? flash::quad_rows<DqTiling<D>::R, DqTiling<D>::S>()
                                           : flash::quad_rows<DkvTiling<D>::R, DkvTiling<D>::S>();
@@ -990,6 +1470,7 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
       flash_bwd_dkv_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
           <<<grid, flash::kQuadThreads, 0, stream>>>(p);
     }
+    *launched = flash::kFamilyQuad;
   } else if constexpr (W == Which::kDq) {
     using Tile = DqWideTiling<D>;
     constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
@@ -1012,6 +1493,19 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
       flash_bwd_dq_merge_kernel<T, D>
           <<<static_cast<unsigned>((n_rows + 3) / 4), 128, 0, stream>>>(p);
     }
+    *launched = flash::kFamilyWide;
+  } else if constexpr (kTensorCores<T, D>) {
+    using Tile = DkvMmaTiling<D>;
+    p.n_tiles = (p.seq + kMmaKeys - 1) / kMmaKeys;
+    const int64_t n_blocks = batch_heads * p.n_tiles;
+    if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const auto kernel =
+        flash_bwd_dkv_mma_kernel<T, D, Tile::kTile, Tile::kKeepKV, Tile::kMinBlocks>;
+    constexpr int kSmem = dkv_mma_smem<T, D>();
+    static const cudaError_t smem_ok = flash::allow_dynamic_smem(kernel, kSmem);
+    if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
+    kernel<<<static_cast<unsigned>(n_blocks), kMmaWarps * 32, kSmem, stream>>>(p);
+    *launched = flash::kFamilyMma;
   } else {
     using Tile = DkvWideTiling<D>;
     constexpr int kKeys = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
@@ -1024,19 +1518,50 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
     static const cudaError_t smem_ok = flash::allow_dynamic_smem(kernel, kSmem);
     if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
     kernel<<<static_cast<unsigned>(n_blocks), Tile::kWarps * 32, kSmem, stream>>>(p);
+    *launched = flash::kFamilyWide;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// the rowwise kernels, any head_dim above 256 up to flash::kMaxRowwiseDim
 template <Which W, typename T>
-int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t stream) {
+int launch_rowwise(Params& p, int64_t batch_heads, int head_dim, cudaStream_t stream,
+                   int* launched) {
+  p.n_tiles = (p.seq + flash::kRowWarps - 1) / flash::kRowWarps;
+  const int64_t n_blocks = batch_heads * p.n_tiles;
+  if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned grid = static_cast<unsigned>(n_blocks);
+  if constexpr (W == Which::kDq) {
+    static const cudaError_t smem_ok = flash::allow_dynamic_smem(
+        flash_bwd_dq_rowwise_kernel<T>, dq_rowwise_smem(flash::kMaxRowwiseDim));
+    if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
+    flash_bwd_dq_rowwise_kernel<T>
+        <<<grid, flash::kRowThreads, dq_rowwise_smem(head_dim), stream>>>(p, head_dim);
+  } else {
+    static const cudaError_t smem_ok = flash::allow_dynamic_smem(
+        flash_bwd_dkv_rowwise_kernel<T>, dkv_rowwise_smem(flash::kMaxRowwiseDim));
+    if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
+    flash_bwd_dkv_rowwise_kernel<T>
+        <<<grid, flash::kRowThreads, dkv_rowwise_smem(head_dim), stream>>>(p, head_dim);
+  }
+  *launched = flash::kFamilyRowwise;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <Which W, typename T>
+int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t stream,
+                      int* launched) {
   switch (head_dim) {
-    case 16: return launch<W, T, 16>(p, batch_heads, stream);
-    case 32: return launch<W, T, 32>(p, batch_heads, stream);
-    case 64: return launch<W, T, 64>(p, batch_heads, stream);
-    case 128: return launch<W, T, 128>(p, batch_heads, stream);
-    case 256: return launch<W, T, 256>(p, batch_heads, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch<W, T, 16>(p, batch_heads, stream, launched);
+    case 32: return launch<W, T, 32>(p, batch_heads, stream, launched);
+    case 64: return launch<W, T, 64>(p, batch_heads, stream, launched);
+    case 128: return launch<W, T, 128>(p, batch_heads, stream, launched);
+    case 256: return launch<W, T, 256>(p, batch_heads, stream, launched);
+    default:
+      if (head_dim > 256 && head_dim <= flash::kMaxRowwiseDim) {
+        return launch_rowwise<W, T>(p, batch_heads, head_dim, stream, launched);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -1046,7 +1571,7 @@ Strides strides_at(const long long* strides, int tensor) {
 
 template <Which W>
 int run(Params& p, int batch, int seq, int heads, int head_dim, int dtype, int mode,
-        void* stream) {
+        void* stream, int* launched) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
   p.heads = heads;
   p.seq = seq;
@@ -1057,10 +1582,10 @@ int run(Params& p, int batch, int seq, int heads, int head_dim, int dtype, int m
   p.batch_heads = static_cast<int>(batch_heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_head_dim<W, float>(head_dim, p, batch_heads, s);
-    case 1: return dispatch_head_dim<W, __nv_bfloat16>(head_dim, p, batch_heads, s);
-    case 2: return dispatch_head_dim<W, __half>(head_dim, p, batch_heads, s);
-    case 3: return dispatch_head_dim<W, double>(head_dim, p, batch_heads, s);
+    case 0: return dispatch_head_dim<W, float>(head_dim, p, batch_heads, s, launched);
+    case 1: return dispatch_head_dim<W, __nv_bfloat16>(head_dim, p, batch_heads, s, launched);
+    case 2: return dispatch_head_dim<W, __half>(head_dim, p, batch_heads, s, launched);
+    case 3: return dispatch_head_dim<W, double>(head_dim, p, batch_heads, s, launched);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1107,12 +1632,13 @@ extern "C" int gordo_flash_attention_bwd_dq_splits(int batch, int seq, int heads
 // strides: (batch, seq, head) of q, k, v, out, d_out, dq, in that order;
 // mode: bit 1 causal, bit 2 16-byte aligned rows of all six; workspace:
 // the scratch gordo_flash_attention_bwd_dq_splits asks for (null when it
-// asks for none)
+// asks for none); launched: set to the kernel family launched
+// (flash::kFamily*)
 extern "C" int gordo_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out, const void* d_out,
     const void* lse, void* delta, void* dq, void* workspace,
     int batch, int seq, int heads, int head_dim, int dtype,
-    const long long* strides, float sm_scale, int mode, void* stream) {
+    const long long* strides, float sm_scale, int mode, void* stream, int* launched) {
   Params p = {};
   p.ws = static_cast<float*>(workspace);
   p.n_splits = 1;
@@ -1131,18 +1657,19 @@ extern "C" int gordo_flash_attention_bwd_dq(
   p.do_st = strides_at(strides, 4);
   p.dq_st = strides_at(strides, 5);
   p.sm_scale = sm_scale;
-  return run<Which::kDq>(p, batch, seq, heads, head_dim, dtype, mode, stream);
+  return run<Which::kDq>(p, batch, seq, heads, head_dim, dtype, mode, stream, launched);
 }
 
 // dk and dv, replacing _bwd_dkv_kernel (gordo_tpu/ops/flash_attention.py:213);
 // q, k, v, d_out, lse and delta in, dk and dv out.
 // strides: (batch, seq, head) of q, k, v, d_out, dk, dv, in that order;
-// mode: bit 1 causal, bit 2 16-byte aligned rows of all six
+// mode: bit 1 causal, bit 2 16-byte aligned rows of all six; launched:
+// set to the kernel family launched (flash::kFamily*)
 extern "C" int gordo_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* d_out,
     const void* lse, const void* delta, void* dk, void* dv,
     int batch, int seq, int heads, int head_dim, int dtype,
-    const long long* strides, float sm_scale, int mode, void* stream) {
+    const long long* strides, float sm_scale, int mode, void* stream, int* launched) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -1159,5 +1686,5 @@ extern "C" int gordo_flash_attention_bwd_dkv(
   p.dk_st = strides_at(strides, 4);
   p.dv_st = strides_at(strides, 5);
   p.sm_scale = sm_scale;
-  return run<Which::kDkv>(p, batch, seq, heads, head_dim, dtype, mode, stream);
+  return run<Which::kDkv>(p, batch, seq, heads, head_dim, dtype, mode, stream, launched);
 }

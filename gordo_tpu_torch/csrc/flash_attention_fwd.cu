@@ -71,24 +71,72 @@
 // 2 rows and the block's ring holds 16-key tiles (66.5 KB in float32);
 // ptxas fits it at 231 registers in float32 with no spill.
 //
+// bfloat16 and float16 at head_dim 64 and 128 (flash_fwd_mma_kernel) go
+// to the tensor cores: on the CUDA cores the long-context bf16 case took
+// 1.80 ms against SDPA's 0.12 (PERF.md), and its bound at the 989 TFLOP/s
+// bf16 rate is 0.035 ms. The design is FlashAttention-2's. A block of 4
+// warps owns 64 query rows, each warp 16; key and value tiles of 64 keys
+// pass through a two-stage cp.async ring (rows padded by 16 bytes, so the
+// eight rows of an ldmatrix fall on distinct banks). The warp's q rows
+// are loaded once as mma A fragments; S = Q Kᵀ is mma.sync m16n8k16 with
+// float32 accumulators (flash_mma.cuh), scaled by sm_scale * log2 e in
+// float32 (scores in log2 units, one ex2.approx a probability) and masked
+// where the mask drops a pair of the tile for the warp's rows (a
+// warp-uniform test); the online softmax keeps each row's max and sum in
+// float32 registers, reduced over the four lanes that hold the row. P stays in the
+// registers it was computed in, which are the A operand of O += P V (the
+// C layout of two neighbouring 8-column tiles is the A layout of their
+// 16 columns), and V comes in by ldmatrix.trans. P is not rounded once to
+// the input type, as SDPA and FlashAttention do: one rounding moved some
+// bf16 results by a 1-ulp step of 0.031 at magnitudes of 4 and up, past
+// the 2e-2 tolerance the plain version is held to (which keeps P in
+// float32, as the Pallas kernel does). So P is split into two terms of
+// the input type, head = round(P) and tail = round(P - head), and both
+// go through the tensor cores against the same V fragments: P is then
+// carried to about 16 bits (bf16) or 22 (float16) of mantissa, at the
+// cost of a third more products. From the wide kernel it keeps the
+// heavy-first block order, the warp-uniform causal stop (a warp skips the
+// tiles past its last row), the masked diagonal tile and the key split
+// with flash_fwd_merge_kernel for grids under one wave, writing the same
+// partial rows. ptxas: 156 / 219 registers at 64 / 128 in bf16 (167 / 215
+// in float16), no spill; two blocks an SM or more. 64-key tiles beat
+// 32-key ones at head_dim 128 on long sequences (scripts/flash_tiling_sweep.py). float32 keeps the wide kernel
+// (TF32 would break its 1e-4 tolerance), and float64 too.
+//
+// Any head_dim above 256 (flash_fwd_rowwise_kernel, the width a run-time
+// argument, as the JAX wrapper pads any head_dim to a multiple of 128):
+// one warp a query row, its q row (prescaled) and float32 accumulator in
+// shared memory with the lanes striding over the width, each score summed
+// by warp shuffles, key and value rows staged 16 at a time as float32. A
+// block of 4 rows takes 160 bytes of shared memory a lane of width, so
+// head_dim 1024 (160 KB) is the widest (flash::kMaxRowwiseDim, the
+// dk/dv kernel's limit). Bound by operations like the wide kernels; it is
+// written to be right, not fast (5x SDPA at (2, 300, 2, 300), PERF.md).
+//
 // Inputs are float32, bfloat16, float16 or float64 (dtype 0 / 1 / 2 / 3),
 // each element converted to float32 on load and every sum in float32, as
 // the Pallas kernel does; a float64 tile is staged in shared memory as
-// float32. head_dim is 16, 32, 64, 128 or 256; any sequence length. Strides are in
-// elements; the head dim must be contiguous. `mode` is a bit set: 1
-// causal, 2 every row start of q, k, v and out 16-byte aligned. The
-// kernels allocate nothing and run on the caller's stream. The entry
-// point returns the CUDA error code of the launch (0 on success).
+// float32. head_dim is 16, 32, 64, 128, 256 or any width from 257 to
+// 1024; any sequence length. Strides are in elements; the head dim must
+// be contiguous. `mode` is a bit set: 1 causal, 2 every row start of q,
+// k, v and out 16-byte aligned (the rowwise kernel reads element by
+// element either way). The kernels allocate nothing and run on the
+// caller's stream. The entry point returns the CUDA error code of the
+// launch (0 on success) and writes the family of the kernel it launched
+// (flash::kFamily*) to its last argument.
 
 #include <algorithm>
 #include <climits>
+#include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -350,6 +398,300 @@ __global__ void __launch_bounds__(128) flash_fwd_merge_kernel(const Params p) {
   if (lane == 0) p.lse[row] = (m_row + log2f(l_row)) * flash::kLn2;
 }
 
+// The bfloat16/float16 forward at head_dim 64 and 128 on the tensor cores:
+// 4 warps of 16 query rows a block, key and value tiles of kTile keys
+// through a two-stage cp.async ring, S = Q Kᵀ and O += P V by
+// mma.sync.m16n8k16 with float32 accumulators (see flash_mma.cuh), the
+// online softmax in float32 registers. Block order and key splits as in
+// flash_fwd_wide_kernel, whose partial-row format the splits write.
+constexpr int kMmaWarps = 4;
+constexpr int kMmaRows = 16 * kMmaWarps;  // query rows a block owns
+
+template <typename T, int D, int kTile, int kMinBlocks>
+__global__ void __launch_bounds__(kMmaWarps * 32, kMinBlocks)
+    flash_fwd_mma_kernel(const Params p) {
+  constexpr int kThreads = kMmaWarps * 32;
+  constexpr int kPitch = D + 8;  // 16 bytes of padding a row: ldmatrix rows on distinct banks
+  constexpr int kStage = kTile * kPitch;
+  constexpr int kKChunks = D / 16;    // 16-wide steps over head_dim in S = Q Kᵀ
+  constexpr int kNTiles = kTile / 8;  // 8-key score tiles of a staged tile
+  constexpr int kDTiles = D / 8;      // 8-wide output tiles
+  static_assert(kTile % 16 == 0 && D % 16 == 0, "whole 16 x 16 blocks");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_tile = reinterpret_cast<T*>(smem);  // [kMmaRows][kPitch]
+  T* k_ring = q_tile + kMmaRows * kPitch;  // [2][kStage]
+  T* v_ring = k_ring + 2 * kStage;         // [2][kStage]
+
+  // block = (row tile, batch*head, key split), split fastest; row tiles
+  // last to first across all heads (causal launches start with their
+  // longest key walks)
+  const int split = blockIdx.x % p.n_splits;
+  const int tile = blockIdx.x / p.n_splits;
+  const int bh = tile % p.batch_heads;
+  const int qt = p.n_qtiles - 1 - tile / p.batch_heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;  // the lane's rows of the warp's 16: g and g + 8
+  const int t4 = lane & 3;  // the lane's columns of each 8-wide tile: 2 t4, 2 t4 + 1
+  const int seq = p.seq;
+  const int q0 = qt * kMmaRows;
+  const int row_a = q0 + warp * 16 + g;
+  const bool vec = p.vec;
+
+  const T* q_head = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k_head = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v_head = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  // keys the block needs, and keys the warp's rows need (a causal warp
+  // skips the tiles past its last row, a warp-uniform branch)
+  const int k_end = p.causal ? min(seq, q0 + kMmaRows) : seq;
+  const int warp_k_end = p.causal ? min(seq, q0 + warp * 16 + 16) : seq;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const int split_tiles = (n_tiles + p.n_splits - 1) / p.n_splits;
+  const int t_begin = min(n_tiles, split * split_tiles);
+  const int t_end = min(n_tiles, t_begin + split_tiles);
+
+  auto stage = [&](int t) {
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(k_ring + (t & 1) * kStage, k_head, p.k_ss,
+                                                     t * kTile, k_end, vec);
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(v_ring + (t & 1) * kStage, v_head, p.v_ss,
+                                                     t * kTile, k_end, vec);
+  };
+  flash::stage_rows<T, D, kPitch, kMmaRows, kThreads>(q_tile, q_head, p.q_ss, q0, seq, vec);
+  if (t_begin < t_end) stage(t_begin);
+  flash::cp_async_commit();
+  flash::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[kKChunks][4];  // the warp's 16 q rows as A fragments, loaded once
+#pragma unroll
+  for (int kc = 0; kc < kKChunks; ++kc) {
+    flash::ldmatrix_x4(qa[kc], flash::a_rows(q_tile, kPitch, warp * 16, kc * 16, lane));
+  }
+
+  const float scale_log2 = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  float o[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
+  float l[2] = {0.f, 0.f};              // this lane's share of each row's sum
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kTile;
+    if (t + 1 < t_end) stage(t + 1);  // the next tile into the other stage
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const T* k_tile = k_ring + (t & 1) * kStage;
+    const T* v_tile = v_ring + (t & 1) * kStage;
+    if (k0 < warp_k_end) {
+      // S = Q Kᵀ, 16 rows x kTile keys
+      float s[kNTiles][4];
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kKChunks; ++kc) {
+#pragma unroll
+        for (int np = 0; np < kNTiles / 2; ++np) {
+          uint32_t kb[4];
+          flash::ldmatrix_x4(kb, flash::b_rows(k_tile, kPitch, np * 16, kc * 16, lane));
+          flash::mma_16816<T>(s[2 * np], qa[kc], kb[0], kb[1]);
+          flash::mma_16816<T>(s[2 * np + 1], qa[kc], kb[2], kb[3]);
+        }
+      }
+      // scale, and mask unless the mask keeps the whole tile for the
+      // warp's rows (a warp-uniform test); each row's tile max over the
+      // four lanes that hold it
+      const bool whole = k0 + kTile <= seq && (!p.causal || k0 + kTile <= q0 + warp * 16 + 1);
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (whole) {
+#pragma unroll
+        for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] *= scale_log2;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+            const bool keep = kpos < seq && (!p.causal || kpos <= row_a + (e >> 1) * 8);
+            s[j][e] = keep ? s[j][e] * scale_log2 : -INFINITY;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+        }
+      }
+      float base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        base[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+        const float alpha = flash::exp2_approx(m[r] - base[r]);
+        l[r] *= alpha;
+#pragma unroll
+        for (int dt = 0; dt < kDTiles; ++dt) {
+          o[dt][2 * r] *= alpha;
+          o[dt][2 * r + 1] *= alpha;
+        }
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = flash::exp2_approx(s[j][e] - base[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
+      }
+      // O += P V: P in place as the A operand, split into two terms of T
+      // (head + tail), each multiplied by the same V fragments
+#pragma unroll
+      for (int kc = 0; kc < kTile / 16; ++kc) {
+        uint32_t ph[4];
+        uint32_t pt[4];
+        flash::split_a<T>(ph, pt, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t vb[4];
+          flash::ldmatrix_x4_trans(vb, flash::bt_rows(v_tile, kPitch, kc * 16, dp * 16, lane));
+          flash::mma_16816<T>(o[2 * dp], ph, vb[0], vb[1]);
+          flash::mma_16816<T>(o[2 * dp + 1], ph, vb[2], vb[3]);
+          flash::mma_16816<T>(o[2 * dp], pt, vb[0], vb[1]);
+          flash::mma_16816<T>(o[2 * dp + 1], pt, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // each row's sum over its four lanes; with one split the row is done,
+  // else its unnormalised row and (max, sum) go to the scratch
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * seq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qpos = row_a + 8 * r;
+    if (qpos >= seq) continue;
+    const int64_t row = static_cast<int64_t>(bh) * seq + qpos;
+    if (p.n_splits == 1) {
+      const float inv = 1.f / l[r];  // >= 1: the row's largest term is exp2(0)
+      T* o_row = static_cast<T*>(p.out) + b * p.o_sb + static_cast<int64_t>(qpos) * p.o_ss +
+                 h * p.o_sh;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt) {
+        const int col = dt * 8 + 2 * t4;
+        const float x0 = o[dt][2 * r] * inv;
+        const float x1 = o[dt][2 * r + 1] * inv;
+        if (vec) {
+          *reinterpret_cast<uint32_t*>(o_row + col) = flash::pack2<T>(x0, x1);
+        } else {
+          o_row[col] = flash::from_float<T>(x0);
+          o_row[col + 1] = flash::from_float<T>(x1);
+        }
+      }
+      if (t4 == 0) p.lse[row] = (m[r] + log2f(l[r])) * flash::kLn2;
+    } else {
+      const int64_t at = split * n_rows + row;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt) {
+        *reinterpret_cast<float2*>(p.ws + at * D + dt * 8 + 2 * t4) =
+            make_float2(o[dt][2 * r], o[dt][2 * r + 1]);
+      }
+      if (t4 == 0) {
+        reinterpret_cast<float2*>(p.ws + p.n_splits * n_rows * D)[at] = make_float2(m[r], l[r]);
+      }
+    }
+  }
+}
+
+// The forward at any head_dim above 256 (the width is a run-time
+// argument): one warp a query row, the row (prescaled) and its float32
+// accumulator in shared memory with the lanes striding over the width,
+// each score's dot product summed by warp shuffles, key and value rows
+// staged kRowTile at a time as float32.
+template <typename T>
+__global__ void __launch_bounds__(flash::kRowThreads) flash_fwd_rowwise_kernel(const Params p,
+                                                                               int D) {
+  extern __shared__ __align__(16) float row_smem[];
+  float* k_tile = row_smem;                          // [kRowTile][D]
+  float* v_tile = k_tile + flash::kRowTile * D;      // [kRowTile][D]
+  float* q_rows = v_tile + flash::kRowTile * D;      // [kRowWarps][D]
+  float* acc_rows = q_rows + flash::kRowWarps * D;   // [kRowWarps][D]
+  const int bh = blockIdx.x % p.batch_heads;
+  const int qt = p.n_qtiles - 1 - blockIdx.x / p.batch_heads;  // last to first
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int seq = p.seq;
+  const int q0 = qt * flash::kRowWarps;
+  const int qpos = q0 + warp;
+  const T* q_head = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k_head = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v_head = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int k_end = p.causal ? min(seq, q0 + flash::kRowWarps) : seq;
+
+  // the warp's q row, prescaled (scores in log2 units); a row past the
+  // sequence end computes on a clamped copy and stores nothing
+  float* q_row = q_rows + warp * D;
+  float* acc = acc_rows + warp * D;
+  const float scale_log2 = p.sm_scale * flash::kLog2e;
+  const T* q_src = q_head + static_cast<int64_t>(min(qpos, seq - 1)) * p.q_ss;
+  for (int d = lane; d < D; d += 32) {
+    q_row[d] = flash::to_float(q_src[d]) * scale_log2;
+    acc[d] = 0.f;
+  }
+  float m = -INFINITY;
+  float l = 0.f;
+  for (int k0 = 0; k0 < k_end; k0 += flash::kRowTile) {
+    __syncthreads();  // every warp is done with the previous tile
+    flash::stage_rows_float(k_tile, k_head, p.k_ss, k0, k_end, D);
+    flash::stage_rows_float(v_tile, v_head, p.v_ss, k0, k_end, D);
+    __syncthreads();
+    float s[flash::kRowTile];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < flash::kRowTile; ++j) {
+      const float* k_row = k_tile + j * D;
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32) dot = fmaf(q_row[d], k_row[d], dot);
+      dot = flash::warp_sum(dot);
+      const int kpos = k0 + j;
+      s[j] = kpos < seq && (!p.causal || kpos <= qpos) ? dot : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float base = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = exp2f(m - base);
+    l *= alpha;
+    m = m_new;
+#pragma unroll
+    for (int j = 0; j < flash::kRowTile; ++j) {
+      s[j] = exp2f(s[j] - base);
+      l += s[j];
+    }
+    for (int d = lane; d < D; d += 32) {
+      float a = acc[d] * alpha;
+#pragma unroll
+      for (int j = 0; j < flash::kRowTile; ++j) a = fmaf(s[j], v_tile[j * D + d], a);
+      acc[d] = a;
+    }
+  }
+  if (qpos >= seq) return;
+  T* o_row = static_cast<T*>(p.out) + b * p.o_sb + static_cast<int64_t>(qpos) * p.o_ss +
+             h * p.o_sh;
+  const float inv = 1.f / l;  // >= 1: the row's largest term is exp2(0)
+  for (int d = lane; d < D; d += 32) o_row[d] = flash::from_float<T>(acc[d] * inv);
+  if (lane == 0) p.lse[static_cast<int64_t>(bh) * seq + qpos] = (m + log2f(l)) * flash::kLn2;
+}
+
 template <typename T, int D, int R, int S, int kMinBlocks>
 __global__ void __launch_bounds__(flash::kQuadThreads, kMinBlocks)
     flash_fwd_quad_kernel(const Params p) {
@@ -548,25 +890,66 @@ constexpr int wide_smem() {
          static_cast<int>(sizeof(E));
 }
 
+// bfloat16 and float16 at head_dim 64 and 128 take the tensor cores;
+// float32 keeps the CUDA cores (TF32 would break its 1e-4 tolerance), and
+// float64 is summed in float32 there as in the Pallas kernel
 template <typename T, int D>
-const flash::WideSetup& wide_setup() {
-  using Tile = FwdWideTiling<D>;
-  static const flash::WideSetup setup = flash::wide_setup(
-      flash_fwd_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>,
-      Tile::kWarps * 32, wide_smem<T, D>());
+constexpr bool kTensorCores =
+    (std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>) && (D == 64 || D == 128);
+
+// (keys per staged tile, minimum blocks per SM) of the tensor-core forward
+template <int D>
+struct FwdMmaTiling;
+template <>
+struct FwdMmaTiling<64> {
+  static constexpr int kTile = 64, kMinBlocks = 2;
+};
+template <>
+struct FwdMmaTiling<128> {
+  static constexpr int kTile = 64, kMinBlocks = 2;
+};
+
+// A kernel that may split its keys (head_dim 64 and up): the kernel, its
+// block's threads, dynamic shared memory, query rows and keys a staged
+// tile, and the family it reports.
+struct SplitLaunch {
+  void (*kernel)(Params);
+  int threads, smem, rows, tile, family;
+};
+
+template <typename T, int D>
+SplitLaunch split_launch() {
+  if constexpr (kTensorCores<T, D>) {
+    using Tile = FwdMmaTiling<D>;
+    return {flash_fwd_mma_kernel<T, D, Tile::kTile, Tile::kMinBlocks>, kMmaWarps * 32,
+            (kMmaRows + 4 * Tile::kTile) * (D + 8) * static_cast<int>(sizeof(T)), kMmaRows,
+            Tile::kTile, flash::kFamilyMma};
+  } else {
+    using Tile = FwdWideTiling<D>;
+    return {flash_fwd_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile,
+                                  Tile::kMinBlocks>,
+            Tile::kWarps * 32, wide_smem<T, D>(),
+            flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>(), Tile::kTile,
+            flash::kFamilyWide};
+  }
+}
+
+template <typename T, int D>
+const flash::WideSetup& split_setup() {
+  static const SplitLaunch k = split_launch<T, D>();
+  static const flash::WideSetup setup = flash::wide_setup(k.kernel, k.threads, k.smem);
   return setup;
 }
 
 template <typename T, int D>
-int wide_splits(int64_t wave, int64_t batch_heads, int seq, bool causal) {
-  using Tile = FwdWideTiling<D>;
-  constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
-  return flash::key_splits(wave, batch_heads * ((seq + kRows - 1) / kRows),
-                           (seq + Tile::kTile - 1) / Tile::kTile, causal);
+int split_count(int64_t wave, int64_t batch_heads, int seq, bool causal) {
+  const SplitLaunch k = split_launch<T, D>();
+  return flash::key_splits(wave, batch_heads * ((seq + k.rows - 1) / k.rows),
+                           (seq + k.tile - 1) / k.tile, causal);
 }
 
 template <typename T, int D>
-int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
+int launch(Params& p, int64_t batch_heads, cudaStream_t stream, int* launched) {
   if constexpr (D <= 32) {
     using Tile = FwdTiling<D>;
     constexpr int kRows = flash::quad_rows<Tile::R, Tile::S>();
@@ -575,49 +958,73 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream) {
     if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
     flash_fwd_quad_kernel<T, D, Tile::R, Tile::S, Tile::kMinBlocks>
         <<<static_cast<unsigned>(n_blocks), flash::kQuadThreads, 0, stream>>>(p);
+    *launched = flash::kFamilyQuad;
   } else {
-    using Tile = FwdWideTiling<D>;
-    constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
-    const auto kernel =
-        flash_fwd_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>;
-    const flash::WideSetup& setup = wide_setup<T, D>();
+    const SplitLaunch k = split_launch<T, D>();
+    const flash::WideSetup& setup = split_setup<T, D>();
     if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
-    p.n_splits = wide_splits<T, D>(setup.wave, batch_heads, p.seq, p.causal);
+    p.n_splits = split_count<T, D>(setup.wave, batch_heads, p.seq, p.causal);
     if (p.n_splits > 1 && p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    p.n_qtiles = (p.seq + kRows - 1) / kRows;
+    p.n_qtiles = (p.seq + k.rows - 1) / k.rows;
     const int64_t n_blocks = batch_heads * p.n_qtiles * p.n_splits;
     const int64_t n_rows = batch_heads * p.seq;
     if (n_blocks > INT_MAX || (n_rows + 3) / 4 > INT_MAX) {
       return static_cast<int>(cudaErrorInvalidConfiguration);
     }
-    constexpr int kSmem = wide_smem<T, D>();
-    kernel<<<static_cast<unsigned>(n_blocks), Tile::kWarps * 32, kSmem, stream>>>(p);
+    k.kernel<<<static_cast<unsigned>(n_blocks), k.threads, k.smem, stream>>>(p);
     if (p.n_splits > 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       flash_fwd_merge_kernel<T, D><<<static_cast<unsigned>((n_rows + 3) / 4), 128, 0, stream>>>(p);
     }
+    *launched = k.family;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// dynamic shared memory of a rowwise block at head_dim D: key and value
+// tiles, the warps' q rows and accumulators, all float32
+constexpr int rowwise_smem(int D) {
+  return (2 * flash::kRowTile + 2 * flash::kRowWarps) * D * static_cast<int>(sizeof(float));
+}
+
 template <typename T>
-int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t stream) {
+int launch_rowwise(Params& p, int64_t batch_heads, int head_dim, cudaStream_t stream,
+                   int* launched) {
+  static const cudaError_t smem_ok =
+      flash::allow_dynamic_smem(flash_fwd_rowwise_kernel<T>, rowwise_smem(flash::kMaxRowwiseDim));
+  if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
+  p.n_qtiles = (p.seq + flash::kRowWarps - 1) / flash::kRowWarps;
+  const int64_t n_blocks = batch_heads * p.n_qtiles;
+  if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  flash_fwd_rowwise_kernel<T><<<static_cast<unsigned>(n_blocks), flash::kRowThreads,
+                                rowwise_smem(head_dim), stream>>>(p, head_dim);
+  *launched = flash::kFamilyRowwise;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t stream,
+                      int* launched) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(p, batch_heads, stream);
-    case 32: return launch<T, 32>(p, batch_heads, stream);
-    case 64: return launch<T, 64>(p, batch_heads, stream);
-    case 128: return launch<T, 128>(p, batch_heads, stream);
-    case 256: return launch<T, 256>(p, batch_heads, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch<T, 16>(p, batch_heads, stream, launched);
+    case 32: return launch<T, 32>(p, batch_heads, stream, launched);
+    case 64: return launch<T, 64>(p, batch_heads, stream, launched);
+    case 128: return launch<T, 128>(p, batch_heads, stream, launched);
+    case 256: return launch<T, 256>(p, batch_heads, stream, launched);
+    default:
+      if (head_dim > 256 && head_dim <= flash::kMaxRowwiseDim) {
+        return launch_rowwise<T>(p, batch_heads, head_dim, stream, launched);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T, int D>
 int splits_of(int64_t batch_heads, int seq, bool causal) {
-  const flash::WideSetup& setup = wide_setup<T, D>();
+  const flash::WideSetup& setup = split_setup<T, D>();
   if (setup.err != cudaSuccess) return -static_cast<int>(setup.err);
-  return wide_splits<T, D>(setup.wave, batch_heads, seq, causal);
+  return split_count<T, D>(setup.wave, batch_heads, seq, causal);
 }
 
 template <typename T>
@@ -652,11 +1059,12 @@ extern "C" int gordo_flash_attention_fwd_splits(int batch, int seq, int heads, i
 
 // strides: (batch, seq, head) of q, k, v, out, in that order; mode: bit 1
 // causal, bit 2 16-byte aligned rows; workspace: the scratch
-// gordo_flash_attention_fwd_splits asks for (null when it asks for none)
+// gordo_flash_attention_fwd_splits asks for (null when it asks for none);
+// launched: set to the kernel family launched (flash::kFamily*)
 extern "C" int gordo_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, void* workspace,
     int batch, int seq, int heads, int head_dim, int dtype,
-    const long long* strides, float sm_scale, int mode, void* stream) {
+    const long long* strides, float sm_scale, int mode, void* stream, int* launched) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -680,10 +1088,10 @@ extern "C" int gordo_flash_attention_fwd(
   p.batch_heads = static_cast<int>(batch_heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_head_dim<float>(head_dim, p, batch_heads, s);
-    case 1: return dispatch_head_dim<__nv_bfloat16>(head_dim, p, batch_heads, s);
-    case 2: return dispatch_head_dim<__half>(head_dim, p, batch_heads, s);
-    case 3: return dispatch_head_dim<double>(head_dim, p, batch_heads, s);
+    case 0: return dispatch_head_dim<float>(head_dim, p, batch_heads, s, launched);
+    case 1: return dispatch_head_dim<__nv_bfloat16>(head_dim, p, batch_heads, s, launched);
+    case 2: return dispatch_head_dim<__half>(head_dim, p, batch_heads, s, launched);
+    case 3: return dispatch_head_dim<double>(head_dim, p, batch_heads, s, launched);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,9 +1,10 @@
-// Pieces shared by the quad-lane flash-attention kernels of
-// flash_attention_fwd.cu and flash_attention_bwd.cu (sm_90a): element
-// conversion, 16-byte asynchronous staging of row tiles into shared
-// memory with a scalar path for unaligned views, the fixed-order
-// reductions over the four lanes ("quad") that share one row, and the
-// key-split rule of the wide kernels.
+// Pieces shared by the flash-attention kernels of flash_attention_fwd.cu
+// and flash_attention_bwd.cu (sm_90a): element conversion, 16-byte
+// asynchronous staging of row tiles into shared memory with a scalar path
+// for unaligned views, the fixed-order reductions over the four lanes
+// ("quad") that share one row, the key-split rule of the wide kernels,
+// the kernel families an entry point reports, and the warp sum and
+// float32 staging of the run-time-width (rowwise) kernels.
 //
 // Element types are float32, bfloat16, float16 and float64, as the Pallas
 // kernels take them: every element is converted to float32 on load and
@@ -39,6 +40,24 @@ constexpr int kPartnerTile = 64;  // partner rows staged at a time
 constexpr int kPerLane = kPartnerTile / kQuad;
 constexpr int kQuadWarps = 4;  // warps per quad-kernel block
 constexpr int kQuadThreads = kQuadWarps * 32;
+
+// The kernel family an entry point launched, written to its `launched`
+// argument: the wrapper counts each family's launches apart.
+constexpr int kFamilyQuad = 0;     // head_dim 16 and 32
+constexpr int kFamilyWide = 1;     // 64, 128 and 256 on the CUDA cores
+constexpr int kFamilyMma = 2;      // 64 and 128 in bfloat16 and float16, tensor cores
+constexpr int kFamilyRowwise = 3;  // any head_dim above 256, up to kMaxRowwiseDim
+
+// The run-time-width (rowwise) kernels: one warp a row, kRowWarps rows a
+// block, partner rows staged kRowTile at a time, every row in shared
+// memory as float32. kMaxRowwiseDim is the widest head_dim whose rows fit
+// the block's shared memory (the dk/dv kernel's 192 * D + 128 bytes stay
+// under the 227 KB a block may take); the Python wrapper's MAX_HEAD_DIM
+// is the same number.
+constexpr int kRowWarps = 4;
+constexpr int kRowThreads = kRowWarps * 32;
+constexpr int kRowTile = 16;
+constexpr int kMaxRowwiseDim = 1024;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -293,6 +312,30 @@ __device__ __forceinline__ float dim_sum(float x) {
   if constexpr (S >= 4) x += __shfl_xor_sync(0xffffffffu, x, 2);
   if constexpr (S >= 8) x += __shfl_xor_sync(0xffffffffu, x, 4);
   return x;
+}
+
+// sum over the 32 lanes of a warp, every lane ending with it (a fixed
+// butterfly order, so a launch is deterministic)
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int offset = 16; offset >= 1; offset >>= 1) x += __shfl_xor_sync(0xffffffffu, x, offset);
+  return x;
+}
+
+// Stage kRowTile rows [row0, row0 + kRowTile) of one head (D elements of
+// T each) into `tile` as float32, kRowThreads threads a row; rows at or
+// past `end` are zero.
+template <typename T>
+__device__ __forceinline__ void stage_rows_float(float* tile, const T* head, int64_t row_stride,
+                                                 int row0, int end, int D) {
+#pragma unroll 4
+  for (int r = 0; r < kRowTile; ++r) {
+    const int pos = row0 + r;
+    const T* src = head + static_cast<int64_t>(pos) * row_stride;
+    for (int d = threadIdx.x; d < D; d += kRowThreads) {
+      tile[r * D + d] = pos < end ? to_float(src[d]) : 0.f;
+    }
+  }
 }
 
 template <int S>

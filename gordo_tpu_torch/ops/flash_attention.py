@@ -22,26 +22,45 @@ JAX wrapper are gone; the per-row log-sum-exp (and the backward's
   card. The plain versions compute in float32, or in float64 for float64
   inputs (``gradcheck``). The kernels take float32, bfloat16, float16 and
   float64 and, as the Pallas kernels do, convert each element to float32
-  on load and sum in float32, returning the input's dtype.
+  on load and sum in float32, returning the input's dtype. The
+  tensor-core kernels (bfloat16 and float16 at kernel width 64 and 128)
+  multiply in the input's type: they carry the probabilities P of P·V in
+  the forward, and Pᵀ and dSᵀ of Pᵀ·dO and dSᵀ·Q in dk/dv, as two terms
+  of that type (head + tail), where FlashAttention and PyTorch's SDPA
+  round them once; the plain versions keep them in float32, as the
+  Pallas kernel does on the CPU.
 
 :func:`flash_attention` is differentiable through
 :class:`FlashAttentionFunction`, which saves (q, k, v, out, lse) as the
 JAX custom VJP does. Its backward runs the dq kernel, which also writes
 delta, and then the dk/dv kernel, which reads it.
 
-``launch_counts`` counts kernel launches, so a run can show that its
-attention went through the kernels.
+``launch_counts`` counts kernel launches by entry point and
+``kernel_launches`` by the CUDA kernel each ran, so a run can show that
+its attention went through the kernels.
 
-The kernels run at head_dim 16, 32, 64, 128 and 256 (:data:`HEAD_DIMS`).
-As the JAX wrapper pads head_dim to a multiple of 128 lanes, every wrapper
-here zero-pads q, k, v (and O, dO) on the head axis to the next of those
-widths (:func:`kernel_width`: 8 and 12 run at 16, 24 at 32, 48 at 64, 96
-at 128, 129-255 at 256), keeps ``sm_scale`` at 1/sqrt(the caller's
-head_dim) unless the caller gives one, and slices out, dq, dk and dv
-back. Zero lanes add nothing to a score and give zero output and
-gradient, and LSE and delta are unchanged. The CPU path pads too, so the
-CPU tests run the same padding. Above 256 no kernel exists: a CUDA
-tensor raises, and a CPU tensor runs the plain version at its own width.
+The kernels run at head_dim 16, 32, 64, 128 and 256 (:data:`HEAD_DIMS`)
+and, through kernels that take the width at run time, at any multiple of
+128 up to :data:`MAX_HEAD_DIM`. As the JAX wrapper pads head_dim to a
+multiple of 128 lanes, every wrapper here zero-pads q, k, v (and O, dO)
+on the head axis to the kernel width (:func:`kernel_width`: 8 and 12 run
+at 16, 24 at 32, 48 at 64, 96 at 128, 129-255 at 256, 257-384 at 384, 640
+at 640), keeps ``sm_scale`` at 1/sqrt(the caller's head_dim) unless the
+caller gives one, and slices out, dq, dk and dv back. Zero lanes add
+nothing to a score and give zero output and gradient, and LSE and delta
+are unchanged. The CPU path pads too, so the CPU tests run the same
+padding. Above :data:`MAX_HEAD_DIM` no kernel's rows fit a block's
+shared memory: a CUDA tensor raises, and a CPU tensor runs the plain
+version at its own width.
+
+Which CUDA kernel an entry point runs depends on the width and the type:
+the quad-lane kernels at 16 and 32; at 64 and 128 the tensor-core
+kernels (``mma.sync``) for the bfloat16/float16 forward and dk/dv, and
+the CUDA-core "wide" kernels for float32, float64 and the dq of every
+type; the wide kernels at 256; the "rowwise" run-time-width kernels
+above 256. The kernel's C side reports the family it launched, and the
+wrapper counts it in :data:`kernel_launches` beside the entry point's
+own count in :data:`launch_counts`.
 
 The forward and the dq kernel may split the key axis across blocks when
 a launch's row tiles alone leave the card's SMs idle (head_dim 64 and
@@ -71,19 +90,39 @@ KERNEL_DKV = "flash_attention_bwd_dkv"
 SOURCES = {KERNEL: "flash_attention_fwd", KERNEL_DQ: "flash_attention_bwd",
            KERNEL_DKV: "flash_attention_bwd"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the widest head_dim a kernel takes: the run-time-width kernels keep
+#: every row of a block in shared memory (``flash::kMaxRowwiseDim``)
+MAX_HEAD_DIM = 1024
+#: above the widest of HEAD_DIMS, widths are padded to a multiple of this
+_LANE_PAD = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.float64: 3}
 #: bits of a kernel's ``mode`` argument
 MODE_CAUSAL = 1
 MODE_VEC16 = 2
 _VEC_BYTES = 16
 
-#: kernel launches since the last reset (compare-with-plain runs included)
+#: the kernel families an entry point reports (``flash::kFamily*``, in order)
+FAMILIES = ("quad", "wide", "mma", "rowwise")
+#: each entry point's kernels, by family (dq has no tensor-core kernel)
+KERNEL_FAMILIES = {
+    KERNEL: ("quad", "wide", "mma", "rowwise"),
+    KERNEL_DQ: ("quad", "wide", "rowwise"),
+    KERNEL_DKV: ("quad", "wide", "mma", "rowwise"),
+}
+
+#: kernel launches since the last reset, by entry point (compare-with-plain
+#: runs included)
 launch_counts = {KERNEL: 0, KERNEL_DQ: 0, KERNEL_DKV: 0}
+#: the same launches by the CUDA kernel that ran, ``<entry point>_<family>``
+kernel_launches = {
+    f"{entry}_{family}": 0 for entry, families in KERNEL_FAMILIES.items() for family in families
+}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, kernel_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _plain_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -207,22 +246,25 @@ def _check_kernel_inputs(q: torch.Tensor) -> None:
 
 def kernel_width(head_dim: int) -> int:
     """The head_dim a kernel runs ``head_dim`` at: the next of
-    :data:`HEAD_DIMS`. Raises above the widest."""
+    :data:`HEAD_DIMS`, or above the widest of them the next multiple of
+    128, as the JAX wrapper pads. Raises above :data:`MAX_HEAD_DIM`."""
     for width in HEAD_DIMS:
         if head_dim <= width:
             return width
+    if head_dim <= MAX_HEAD_DIM:
+        return -(-head_dim // _LANE_PAD) * _LANE_PAD
     raise ValueError(
-        f"flash_attention kernels take head_dim up to {HEAD_DIMS[-1]} (zero-padded "
-        f"to the next of {HEAD_DIMS}), got {head_dim}: the JAX wrapper pads any "
-        "head_dim to a multiple of 128, and wider kernels are still to come "
-        "(ROADMAP.md queue 3)"
+        f"flash_attention kernels take head_dim up to MAX_HEAD_DIM = {MAX_HEAD_DIM} "
+        f"(zero-padded to the next of {HEAD_DIMS}, then to a multiple of {_LANE_PAD}), "
+        f"got {head_dim}: a wider row does not fit a block's shared memory"
     )
 
 
 def _width(q: torch.Tensor) -> int:
     """The head_dim a call on q runs at: the kernel width, or on the CPU a
-    head_dim above the widest kernel as it is (the plain version takes any)."""
-    if q.device.type == "cpu" and q.shape[-1] > HEAD_DIMS[-1]:
+    head_dim above :data:`MAX_HEAD_DIM` as it is (the plain version takes
+    any)."""
+    if q.device.type == "cpu" and q.shape[-1] > MAX_HEAD_DIM:
         return q.shape[-1]
     return kernel_width(q.shape[-1])
 
@@ -258,28 +300,32 @@ def _stat_rows(q: torch.Tensor, stat: torch.Tensor) -> torch.Tensor:
 def _kernel_function(kernel: str, n_pointers: int):
     """The entry point ``gordo_<kernel>``. Every kernel takes its tensor
     pointers, (batch, seq, heads, head_dim, dtype), an array of each
-    tensor's (batch, seq, head) strides, sm_scale, its mode bits and the
-    stream."""
+    tensor's (batch, seq, head) strides, sm_scale, its mode bits, the
+    stream and where to write the family of the kernel it launched."""
     from gordo_tpu_torch.ops import _build
 
     fn = getattr(_build.load(SOURCES[kernel]), f"gordo_{kernel}")
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * n_pointers + [i32] * 5 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, ptr]
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, ptr,
+            ctypes.POINTER(ctypes.c_int)]
         fn.restype = i32
     return fn
 
 
 def _call(kernel: str, fn, q: torch.Tensor, args) -> None:
-    """Run ``fn(*args, stream)`` on q's device and count the launch."""
+    """Run ``fn(*args, stream, &family)`` on q's device and count the
+    launch, by entry point and by the kernel family it reports."""
+    family = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
-        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(family))
     if err != 0:
         raise RuntimeError(
             f"{kernel} launch failed with CUDA error {err} "
             f"(shape {tuple(q.shape)}, dtype {q.dtype})"
         )
+    kernel_launches[f"{kernel}_{FAMILIES[family.value]}"] += 1
     launch_counts[kernel] += 1
 
 

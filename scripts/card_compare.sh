@@ -12,7 +12,9 @@
 # <out>/{parent1,change1,change2,parent2}.{json,log} from each tree's own
 # `chip_smoke.py --out`, and <out>/{parent,change}_kernel_check.txt from
 # the change's `scripts/flash_kernel_check.py --root <tree>`, so both
-# trees' kernels run the same cases; then runs the change's card tests.
+# trees' kernels run the same cases, and <out>/kernel_check_compare.txt
+# with the two trees' kernel times side by side; then runs the change's
+# card tests.
 # Prints the card's name and power limit, each run's exit code and the
 # tail of its log. Exits non-zero if any run failed.
 set -u
@@ -40,6 +42,29 @@ for run in "parent:$parent" "change:$change"; do
   tail -n 1 "$out/${label}_kernel_check.txt"
   [ "$rc" -eq 0 ] || status=1
 done
+# both trees' kernel-check times side by side, case by case (a case the
+# parent refuses, such as a head_dim it does not take, prints as refused)
+python3 - "$out" <<'PY' | tee "$out/kernel_check_compare.txt"
+import json, sys
+rows = {}
+for label in ("parent", "change"):
+    with open(f"{sys.argv[1]}/{label}_kernel_check.txt") as fh:
+        for line in fh:
+            if line.startswith("{"):
+                row = json.loads(line)
+                rows.setdefault(row["case"], {})[label] = row
+for case, by_tree in rows.items():
+    cells = []
+    for label in ("parent", "change"):
+        row = by_tree.get(label, {})
+        if "refused" in row:
+            cells.append(f"{label} refused")
+        elif row:
+            cells.append(f"{label} fwd {row['fwd_ms']:.4f} dq {row['dq_ms']:.4f} "
+                         f"dkv {row['dkv_ms']:.4f}")
+    sdpa = by_tree.get("change", {}).get("sdpa_ms")
+    print(f"{case}: " + " | ".join(cells) + (f" | sdpa fwd {sdpa:.4f}" if sdpa else ""))
+PY
 (cd "$change" && python3 -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py) 2>&1 | tail -n 2
 [ "${PIPESTATUS[0]}" -eq 0 ] || status=1
 exit "$status"

@@ -7,13 +7,17 @@ training phases of ``chip_smoke.py``.
 
 Builds the kernels, then for each case (contiguous tensors, head slices of
 one wider tensor, views one element into their memory; float32, bfloat16,
-float16 and float64; head_dim 8 to 256, padded to the next kernel width)
+float16 and float64; head_dim 8 to 1024, padded to the next kernel width)
 holds the forward, the dq and the dk/dv kernel against their plain
 versions (``chip_smoke.TOLERANCE``), checks that two forward, two dq (dq
-and delta) and two dk/dv launches agree bit for bit, and prints one JSON
-row per case with dq's key splits and the device times (torch.profiler)
-of the three kernels and of ``scaled_dot_product_attention``. Exits
-non-zero if a case fails.
+and delta) and two dk/dv launches agree bit for bit and that each entry
+point ran the CUDA kernel its width and type route to
+(``chip_smoke.expected_kernel``: the tensor-core kernels for the
+bfloat16/float16 forward and dk/dv at 64 and 128, the rowwise kernels
+above 256), and prints one JSON row per case with the kernels that ran,
+dq's key splits and the device times (torch.profiler) of the three
+kernels and of ``scaled_dot_product_attention``. Exits non-zero if a
+case fails. ``--case NAME`` (repeatable) runs only the named cases.
 
 ``--root`` times the port of another checkout (an older commit, for a
 comparison in one call) with this script's cases; a case whose shape that
@@ -72,6 +76,31 @@ CASES = [
     ("fp64-128", (2, 300, 2, 128), False, "float64", "contiguous"),
     ("fp64-16-misaligned", (8, 100, 2, 16), True, "float64", "misaligned"),
     ("fp64-256-causal", (1, 200, 2, 256), True, "float64", "contiguous"),
+    # bfloat16 and float16 at kernel widths 64 and 128: the tensor-core
+    # forward and dk/dv kernels (dq stays on the wide kernel)
+    ("bf16-64", (4, 1000, 2, 64), True, "bfloat16", "contiguous"),
+    ("bf16-64-full", (4, 1000, 2, 64), False, "bfloat16", "contiguous"),
+    ("bf16-128", (2, 300, 2, 128), False, "bfloat16", "contiguous"),
+    ("fp16-128", (2, 300, 2, 128), False, "float16", "contiguous"),
+    ("fp16-128-causal", (3, 301, 2, 128), True, "float16", "contiguous"),
+    ("padded-48-bf16", (16, 200, 2, 48), True, "bfloat16", "contiguous"),
+    ("padded-48-fp16", (16, 200, 2, 48), True, "float16", "contiguous"),
+    ("padded-96-bf16-full", (3, 150, 2, 96), False, "bfloat16", "contiguous"),
+    ("bf16-64-misaligned", (3, 301, 2, 64), True, "bfloat16", "misaligned"),
+    ("fp16-64-slices", (4, 77, 2, 64), True, "float16", "slices"),
+    ("bf16-64-split", (1, 500, 1, 64), False, "bfloat16", "contiguous"),
+    ("fp16-128-split-causal", (1, 300, 2, 128), True, "float16", "contiguous"),
+    # above 256: the run-time-width (rowwise) kernels, at the JAX padding
+    ("head-dim-300", (2, 300, 2, 300), True, "float32", "contiguous"),
+    ("head-dim-300-bf16", (2, 300, 2, 300), True, "bfloat16", "contiguous"),
+    ("head-dim-300-fp16", (2, 300, 2, 300), True, "float16", "contiguous"),
+    ("head-dim-300-fp64", (1, 130, 2, 300), True, "float64", "contiguous"),
+    ("head-dim-640", (1, 256, 2, 640), False, "float32", "contiguous"),
+    ("head-dim-640-bf16", (1, 256, 2, 640), False, "bfloat16", "contiguous"),
+    ("head-dim-640-fp16", (1, 256, 2, 640), True, "float16", "contiguous"),
+    ("head-dim-640-fp64", (1, 128, 1, 640), True, "float64", "contiguous"),
+    ("head-dim-384-slices", (2, 50, 2, 384), False, "float32", "slices"),
+    ("head-dim-1024-misaligned", (1, 100, 1, 1024), True, "float32", "misaligned"),
 ]
 
 
@@ -92,6 +121,10 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
     tol = cs.TOLERANCE[dtype_name]
     scale = 1.0 / math.sqrt(shape[-1])
     padded = torch.empty(shape[:-1] + (fa.kernel_width(shape[-1]),), dtype=dtype, device="cuda")
+    # the CUDA kernel each entry point ran (a tree from before the per-kernel
+    # counts gives none)
+    counts = getattr(fa, "kernel_launches", {})
+    before = dict(counts)
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
     out2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -104,6 +137,7 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lse, ref_delta, d_out, causal)
     torch.cuda.synchronize()
+    ran = sorted(name for name in counts if counts[name] != before[name])
     ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(
         q, k, v, lse, ref_delta, d_out, causal, scale
     )
@@ -121,6 +155,7 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
         "dq_bitwise": bool(torch.equal(dq, dq2) and torch.equal(delta, delta2)),
         "dkv_err": max_err([(dk, ref_dk), (dv, ref_dv)]),
         "dkv_bitwise": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
+        "kernels": ran,
     }
     timed = {
         "fwd": lambda: fa.flash_attention_forward(q, k, v, causal=causal),
@@ -136,8 +171,12 @@ def check(torch, F, fa, gen, name, shape, causal, dtype_name, layout):
         row[f"{label}_bound_ms"], row[f"{label}_bound_by"] = cs.attention_bound(
             shape, causal, dtype_name, q.element_size(), n_tensors, n_stats, dots
         )
+    width = fa.kernel_width(shape[-1])
+    expected = sorted(cs.expected_kernel(entry, dtype_name, width)
+                      for entry in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV))
     ok = (max(row["fwd_err"], row["dq_err"], row["dkv_err"]) <= tol
-          and row["fwd_bitwise"] and row["dq_bitwise"] and row["dkv_bitwise"])
+          and row["fwd_bitwise"] and row["dq_bitwise"] and row["dkv_bitwise"]
+          and (not counts or ran == expected))
     return row, ok
 
 
@@ -145,7 +184,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose port is checked (default: this one)")
-    root = os.path.realpath(parser.parse_args().root)
+    parser.add_argument("--case", action="append", default=None,
+                        help="run only the named case (repeatable)")
+    args = parser.parse_args()
+    root = os.path.realpath(args.root)
     own = root == os.path.realpath(HERE)
     sys.path.insert(0, root)
 
@@ -169,6 +211,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     failed = []
     for case in CASES:
+        if args.case and case[0] not in args.case:
+            continue
         try:
             row, ok = check(torch, F, fa, gen, *case)
         except ValueError as refused:  # the port's wrappers refuse the shape

@@ -3,17 +3,21 @@
 Times tilings of the head_dim 64/128/256 flash forward, dq and dk/dv
 kernels on one card, each against the same inputs, in one process.
 
-    python3 scripts/flash_tiling_sweep.py 'VARIANTS' [--out ROWS.jsonl]
+    python3 scripts/flash_tiling_sweep.py 'VARIANTS' [--out ROWS.jsonl] [--case NAME ...]
 
 VARIANTS is JSON that maps a variant's name to the constants it changes, e.g.
 ``{"shipped": {}, "r2": {"fwd64": [2, 4, 4, 64, 3]}, "nosplit":
 {"max_splits": 1}}``: ``fwd<D>`` sets ``FwdWideTiling<D>``, ``dq<D>``
 ``DqWideTiling<D>`` and ``dkv<D>`` ``DkvWideTiling<D>`` as (R, S, kWarps,
-kTile, kMinBlocks), for D of 64, 128 or 256; ``max_splits`` sets
+kTile, kMinBlocks), for D of 64, 128 or 256; ``fwdmma<D>`` sets the
+tensor-core forward's ``FwdMmaTiling<D>`` as (kTile, kMinBlocks) and
+``dkvmma<D>`` the tensor-core dk/dv's ``DkvMmaTiling<D>`` as (kTile,
+kMinBlocks, kKeepKV), for D of 64 or 128; ``max_splits`` sets
 ``kMaxSplits``, the forward's and dq's limit. Each variant's sources are
 copied with those constants replaced and built with the port's nvcc
 flags (all variants at once), and nvcc's register and spill lines for
-the wide kernels are printed. Then, per case, every variant's forward,
+the wide and tensor-core kernels are printed. ``--case`` (repeatable)
+runs only the named cases. Then, per case, every variant's forward,
 dq and dk/dv run against the plain versions (``chip_smoke.TOLERANCE``),
 twice for a bitwise repeat, and are timed with ``chip_smoke.device_ms``
 beside ``scaled_dot_product_attention`` and the bound. Prints one JSON
@@ -53,8 +57,12 @@ CASES = [
     ("small-64-causal", (1, 500, 1, 64), True, "float32", False),
     ("head-dim-256", (2, 300, 2, 256), False, "float32", False),
     ("head-dim-256-causal", (2, 1000, 2, 256), True, "float32", False),
+    ("fp16-64", (4, 1000, 2, 64), True, "float16", False),
+    ("bf16-128-full", (2, 300, 2, 128), False, "bfloat16", False),
+    ("bf16-128-long", (1, 4096, 4, 128), True, "bfloat16", False),
 ]
-STRUCTS = {"fwd": "FwdWideTiling", "dq": "DqWideTiling", "dkv": "DkvWideTiling"}
+STRUCTS = {"fwd": "FwdWideTiling", "dq": "DqWideTiling", "dkv": "DkvWideTiling",
+           "fwdmma": "FwdMmaTiling", "dkvmma": "DkvMmaTiling"}
 
 
 def variant_sources(spec: dict, out_dir: str) -> str:
@@ -66,6 +74,15 @@ def variant_sources(spec: dict, out_dir: str) -> str:
         for key, values in spec.items():
             if key == "max_splits":
                 pattern, value = r"constexpr int kMaxSplits = \d+;", f"constexpr int kMaxSplits = {values};"
+            elif key.startswith(("fwdmma", "dkvmma")):
+                kernel, width = re.fullmatch(r"([a-z]+)(\d+)", key).groups()
+                struct, width = STRUCTS[kernel], int(width)
+                pattern = r"(struct %s<%d> \{\n  static constexpr int )[^;]*;" % (struct, width)
+                value = r"\g<1>kTile = %d, kMinBlocks = %d;" % tuple(values[:2])
+                if kernel == "dkvmma":
+                    text = re.sub(pattern + r"(\n  static constexpr bool kKeepKV = )\w+;",
+                                  value + r"\g<2>%s;" % ("true" if values[2] else "false"), text)
+                    continue
             else:
                 kernel, width = re.fullmatch(r"([a-z]+)(\d+)", key).groups()
                 struct, width = STRUCTS[kernel], int(width)
@@ -91,10 +108,12 @@ def nvcc(src_dir: str, stem: str):
 
 
 def wide_registers(text: str):
-    """(kernel, registers, spill store bytes) of each wide kernel nvcc built."""
+    """(kernel, registers, spill store bytes) of each wide and tensor-core
+    kernel nvcc built."""
     lines = text.splitlines()
     for i, line in enumerate(lines):
-        found = re.search(r"Compiling entry function '\S*?(flash_\w+_wide_kernel\w*?)EEEv", line)
+        found = re.search(r"Compiling entry function '\S*?(flash_\w+_(?:wide|mma)_kernel\w*?)EEEv",
+                          line)
         if found:
             info = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", info)
@@ -106,6 +125,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="time tilings of the wide flash kernels")
     parser.add_argument("variants", help='JSON: {"name": {"constant": value}}')
     parser.add_argument("--out", help="also append the JSON rows to this file")
+    parser.add_argument("--case", action="append", default=None,
+                        help="run only the named case (repeatable)")
     args = parser.parse_args()
     variants = json.loads(args.variants)
 
@@ -138,6 +159,8 @@ def main() -> int:
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     for case, shape, causal, dtype_name, misaligned in CASES:
+        if args.case and case not in args.case:
+            continue
         dtype = getattr(torch, dtype_name)
         q, k, v, d_out = (cs.card_tensor(torch, gen, shape, dtype, misaligned) for _ in range(4))
         scale = 1.0 / math.sqrt(shape[-1])

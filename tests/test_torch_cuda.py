@@ -236,12 +236,13 @@ def test_cuda_wrappers_pad_head_dim(head_dim, width, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_raises_above_head_dim_128():
-    """No kernel takes head_dim above 256 yet (129-256 run at 256): the
-    card raises at 257 and names the queue; it never falls back to the
-    plain version."""
+    """Every head_dim up to MAX_HEAD_DIM runs (above 256 at the next
+    multiple of 128); above it the card raises and names the limit; it
+    never falls back to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    q, k, v, d_out = (torch.zeros((1, 8, 1, 257), device="cuda") for _ in range(4))
+    head_dim = fa.MAX_HEAD_DIM + 1
+    q, k, v, d_out = (torch.zeros((1, 8, 1, head_dim), device="cuda") for _ in range(4))
     lse = torch.zeros((1, 8), device="cuda")
     before = dict(fa.launch_counts)
     calls = [
@@ -251,9 +252,116 @@ def test_cuda_raises_above_head_dim_128():
         lambda: fa.flash_attention(q, k, v),
     ]
     for call in calls:
-        with pytest.raises(ValueError, match="ROADMAP.md queue 3"):
+        with pytest.raises(ValueError, match=f"MAX_HEAD_DIM = {fa.MAX_HEAD_DIM}"):
             call()
     assert fa.launch_counts == before
+
+
+def _launched(before):
+    return sorted(name for name, n in fa.kernel_launches.items() if n != before[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,causal,dtype,tol",
+    [
+        ((4, 1000, 2, 64), True, torch.bfloat16, 2e-2),
+        ((4, 1000, 2, 64), False, torch.float16, 5e-3),
+        ((2, 300, 2, 128), False, torch.bfloat16, 2e-2),
+        ((3, 301, 2, 128), True, torch.float16, 5e-3),
+        ((16, 200, 2, 48), True, torch.bfloat16, 2e-2),  # padded to 64
+        ((3, 150, 2, 96), False, torch.float16, 5e-3),  # padded to 128
+        ((1, 500, 1, 64), False, torch.bfloat16, 2e-2),  # the forward splits its keys
+    ],
+)
+def test_cuda_tensor_core_kernels_match_plain_version(shape, causal, dtype, tol):
+    """bfloat16 and float16 at kernel widths 64 and 128 run the tensor-core
+    forward and dk/dv kernels (dq stays on the wide kernel): each within
+    the type's tolerance of the plain version, two dk/dv launches bitwise
+    equal (each key row has one owner, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, d_out = (
+        torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)
+    )
+    before = dict(fa.kernel_launches)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+    assert _launched(before) == [f"{fa.KERNEL_DKV}_mma", f"{fa.KERNEL_DQ}_wide",
+                                 f"{fa.KERNEL}_mma"]
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= tol
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.dtype == dtype and g.shape == shape, name
+        assert (g.float() - w.float()).abs().max().item() <= tol, name
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=causal)
+    first = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=causal)
+    second = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_cuda_float32_and_float64_keep_the_wide_kernels(dtype, head_dim):
+    """float32 and float64 stay on the CUDA cores at 64 and 128: TF32
+    would break their 1e-4 and 1e-5 tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, d_out = (torch.randn((2, 100, 2, head_dim), device="cuda").to(dtype)
+                      for _ in range(4))
+    before = dict(fa.kernel_launches)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=True)
+    torch.cuda.synchronize()
+    assert _launched(before) == [f"{entry}_wide"
+                                 for entry in (fa.KERNEL_DKV, fa.KERNEL_DQ, fa.KERNEL)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,causal,dtype,tol",
+    [
+        ((2, 300, 2, 300), True, torch.float32, 1e-4),
+        ((2, 300, 2, 300), True, torch.bfloat16, 2e-2),
+        ((2, 130, 2, 300), False, torch.float16, 5e-3),
+        ((1, 130, 2, 300), True, torch.float64, 1e-5),
+        ((1, 256, 2, 640), False, torch.float32, 1e-4),
+        ((1, 256, 2, 640), False, torch.bfloat16, 2e-2),
+        ((1, 100, 1, 1024), True, torch.float32, 1e-4),
+    ],
+)
+def test_cuda_rowwise_kernels_match_plain_version(shape, causal, dtype, tol):
+    """Above 256 the three rowwise kernels run at the JAX padding (300 at
+    384, 640 and 1024 as they are): each within its tolerance of the plain
+    version, two launches of each bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, d_out = (
+        torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)
+    )
+    before = dict(fa.kernel_launches)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    got = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+    assert _launched(before) == [f"{entry}_rowwise"
+                                 for entry in (fa.KERNEL_DKV, fa.KERNEL_DQ, fa.KERNEL)]
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    assert (out.double() - ref_out.double()).abs().max().item() <= tol
+    assert (lse.double() - ref_lse.double()).abs().max().item() <= tol
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == shape, name
+        assert (g.double() - w.double()).abs().max().item() <= tol, name
+    again = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

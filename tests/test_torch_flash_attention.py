@@ -160,8 +160,32 @@ def test_flash_has_no_path_off_cpu_and_cuda():
 def test_reset_launch_counts():
     for step, name in enumerate((fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)):
         fa.launch_counts[name] += 3 + step
+    fa.kernel_launches[f"{fa.KERNEL}_mma"] += 2
     fa.reset_launch_counts()
     assert fa.launch_counts == {fa.KERNEL: 0, fa.KERNEL_DQ: 0, fa.KERNEL_DKV: 0}
+    assert set(fa.kernel_launches.values()) == {0}
+
+
+def test_kernel_launches_name_every_kernel():
+    """One counter for each CUDA kernel an entry point may launch: the
+    quad, wide and rowwise kernels of all three, the tensor-core ones of
+    the forward and dk/dv."""
+    assert sorted(fa.kernel_launches) == sorted([
+        *(f"{entry}_{family}" for entry in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)
+          for family in ("quad", "wide", "rowwise")),
+        f"{fa.KERNEL}_mma", f"{fa.KERNEL_DKV}_mma",
+    ])
+
+
+def test_max_head_dim_is_the_kernels_limit():
+    """The wrapper's MAX_HEAD_DIM is the C side's flash::kMaxRowwiseDim, and
+    the limit the rowwise kernels' shared memory allows: the dk/dv block's
+    192 bytes a lane of width plus its LSE and delta fit 227 KB."""
+    from gordo_tpu_torch.ops import _build
+
+    header = (_build.CSRC_DIR / "flash_common.cuh").read_text()
+    assert f"constexpr int kMaxRowwiseDim = {fa.MAX_HEAD_DIM};" in header
+    assert 192 * fa.MAX_HEAD_DIM + 128 <= 232448
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):
@@ -183,7 +207,9 @@ def test_kernel_sources_are_listed():
 @pytest.mark.parametrize("head_dim,width", [(1, 16), (8, 16), (12, 16), (16, 16), (17, 32),
                                             (24, 32), (33, 64), (48, 64), (64, 64),
                                             (65, 128), (96, 128), (128, 128),
-                                            (129, 256), (200, 256), (256, 256)])
+                                            (129, 256), (200, 256), (256, 256),
+                                            (257, 384), (300, 384), (384, 384), (385, 512),
+                                            (640, 640), (1000, 1024), (1024, 1024)])
 def test_kernel_width_pads_to_the_next_kernel(head_dim, width):
     assert fa.kernel_width(head_dim) == width
     q = torch.zeros(1, 3, 1, head_dim)
@@ -191,13 +217,16 @@ def test_kernel_width_pads_to_the_next_kernel(head_dim, width):
 
 
 def test_kernel_width_names_the_queue_above_128():
-    """Above the widest kernel (256 since head_dim 129-256 gained one) the
-    width raises and names the queue that holds the rest."""
-    with pytest.raises(ValueError, match="ROADMAP.md queue 3"):
-        fa.kernel_width(257)
-    # the CPU runs the plain version at any width
-    q, k, v = _qkv((1, 5, 1, 300), seed=3)
-    assert fa._width(torch.from_numpy(q)) == 300
+    """Above 256 the width is the JAX wrapper's padding, the next multiple
+    of 128 (257 and 300 run at 384, 640 at 640), up to MAX_HEAD_DIM; above
+    that the width raises and names the limit."""
+    assert [fa.kernel_width(d) for d in (257, 300, 640)] == [384, 384, 640]
+    with pytest.raises(ValueError, match=f"MAX_HEAD_DIM = {fa.MAX_HEAD_DIM}"):
+        fa.kernel_width(fa.MAX_HEAD_DIM + 1)
+    # the CPU runs the plain version at any width, above the limit at its own
+    head_dim = fa.MAX_HEAD_DIM + 76
+    q, k, v = _qkv((1, 5, 1, head_dim), seed=3)
+    assert fa._width(torch.from_numpy(q)) == head_dim
     out, lse = fa.flash_attention_forward(*(torch.from_numpy(x) for x in (q, k, v)))
-    assert out.shape == (1, 5, 1, 300)
+    assert out.shape == (1, 5, 1, head_dim)
     np.testing.assert_allclose(lse.numpy(), _lse_reference(q, k, False), atol=ATOL)

@@ -11,8 +11,8 @@ and the autograd Function around the three kernels.
 - The repair: gradients of a loss through ``attention_impl="flash"``
   equal those through ``"dense"`` (atol 1e-5, float32).
 - The Function's gradients against ``jax.grad`` through the JAX
-  ``flash_attention`` at head_dims the wrappers pad (up to 256, atol
-  1e-5), in float16 (atol 2e-3: both sides accumulate in float32 and
+  ``flash_attention`` at head_dims the wrappers pad (up to 640: 300 runs
+  at 384 and 640 at itself, as in the JAX wrapper; atol 1e-5), in float16 (atol 2e-3: both sides accumulate in float32 and
   round each gradient to float16 once) and in float64 under
   ``jax.enable_x64`` (atol 1e-5: the Pallas kernels accumulate in float32
   where the plain path uses float64).
@@ -120,7 +120,7 @@ def test_function_gradcheck_float64(causal):
     )
 
 
-@pytest.mark.parametrize("head_dim", [8, 12, 48, 96, 200, 256])
+@pytest.mark.parametrize("head_dim", [8, 12, 48, 96, 200, 256, 300, 640])
 @pytest.mark.parametrize("causal", [False, True])
 def test_function_gradients_match_jax_grad_at_padded_head_dims(head_dim, causal):
     """The Function pads q, k, v once to the kernel width and slices the

@@ -9,6 +9,8 @@ card (tests/test_torch_cuda.py, chip_smoke.py); here a stand-in for the
 launch records the arguments the wrappers pass.
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -171,7 +173,8 @@ def test_dq_needs_all_six_row_tensors_aligned(launches, odd):
 
 
 @pytest.mark.parametrize("head_dim,width", [(8, 16), (12, 16), (24, 32), (48, 64), (96, 128),
-                                            (129, 256), (200, 256)])
+                                            (129, 256), (200, 256), (257, 384), (300, 384),
+                                            (640, 640)])
 def test_wrappers_launch_at_the_kernel_width(launches, monkeypatch, head_dim, width):
     """On the card's path each wrapper and the Function launch at the next
     kernel width with the caller's scale, 1/sqrt(head_dim), and hand back
@@ -246,3 +249,49 @@ def test_dq_hands_its_kernel_the_split_scratch(launches, monkeypatch, splits, dt
     else:
         assert isinstance(args[8], int) and args[8] != 0
         assert scratch in sizes
+
+
+@pytest.mark.parametrize("entry", [fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV])
+@pytest.mark.parametrize("family", fa.FAMILIES)
+def test_call_counts_the_kernel_family_the_entry_point_reports(monkeypatch, entry, family):
+    """The C entry point writes the family of the kernel it launched to its
+    last argument; ``_call`` counts the launch by entry point and by that
+    kernel, and refuses a family the entry point has no kernel of."""
+    import ctypes
+
+    def entry_point(*args):
+        ctypes.cast(args[-1], ctypes.POINTER(ctypes.c_int))[0] = fa.FAMILIES.index(family)
+        return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: Stream())
+    monkeypatch.setattr(fa, "launch_counts", dict(fa.launch_counts))
+    monkeypatch.setattr(fa, "kernel_launches", dict(fa.kernel_launches))
+    fa.reset_launch_counts()
+    q = torch.zeros(SHAPE)
+    if family not in fa.KERNEL_FAMILIES[entry]:
+        with pytest.raises(KeyError):
+            fa._call(entry, entry_point, q, ())
+        return
+    fa._call(entry, entry_point, q, ())
+    fa._call(entry, entry_point, q, ())
+    assert fa.launch_counts == {name: 2 if name == entry else 0 for name in fa.launch_counts}
+    assert fa.kernel_launches == {
+        name: 2 if name == f"{entry}_{family}" else 0 for name in fa.kernel_launches
+    }
+
+
+def test_call_raises_on_a_launch_error(monkeypatch):
+    """A refused launch raises with its CUDA error and counts nothing."""
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: Stream())
+    before = dict(fa.launch_counts), dict(fa.kernel_launches)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        fa._call(fa.KERNEL, lambda *args: 1, torch.zeros(SHAPE), ())
+    assert (fa.launch_counts, fa.kernel_launches) == before
