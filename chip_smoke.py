@@ -21,9 +21,10 @@ Phases, each raising on failure (no result line is printed then):
    kernels' element-by-element path), at head_dim 64, 128 and 256, at the
    JAX package's long-context record (1, 8192, 4, 64) in float32 and
    bf16, at head_dims the wrappers pad (8 to 16, 48 to 64, 200 to 256,
-   300 to 384), at 640, in float16 and float64 (float32 sums inside the
-   kernels, as in the Pallas kernels) and in bf16 and float16 at kernel
-   widths 64 and 128 (the tensor-core kernels); each call must run the
+   300 to 384, 1100 to 1152), at 640 and 2048, in float16 and float64
+   (float32 sums inside the kernels, as in the Pallas kernels) and in
+   bf16 and float16 at kernel widths 64 and 128 (the tensor-core
+   kernels); each call must run the
    CUDA kernel its width and type route to (``expected_kernel``); two
    dq and two dk/dv launches bitwise equal in ``BITWISE_CASES``; then the
    gradient of a loss through the autograd Function on the card against
@@ -64,17 +65,17 @@ Phases, each raising on failure (no result line is printed then):
    long-context record (3 features, d_model 256, 4 heads of 64, 2 layers,
    causal, one (1, 8192, 3) window) takes one forward + backward with
    flash attention and the same step with dense attention on the card:
-   the tensor-core forward and dk/dv kernels and the wide dq kernel each
-   launch once a layer (counts reset just before, read just after), the
-   loss and every gradient agree within 16 bf16 steps, and both step
-   times are printed; then a float32 Transformer with 2 heads of 300
-   (run at 384: the rowwise kernels) the same way, within 1e-4;
+   the tensor-core forward, dq and dk/dv kernels each launch once a
+   layer (counts reset just before, read just after), the loss and every
+   gradient agree within 16 bf16 steps, and both step times are printed;
+   then a float32 Transformer with 2 heads of 300 (run at 384: the sliced
+   forward and the rowwise dq and dk/dv) the same way, within 1e-4;
 8. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
-   and the tensor-core and rowwise kernels each under its own, with its
-   launches on every path above; then the result line.
+   and the tensor-core, sliced and rowwise kernels each under its own,
+   with its launches on every path above; then the result line.
 
 Exits non-zero without a result line when no CUDA card is available.
 """
@@ -307,15 +308,14 @@ def expected_kernel(entry: str, dtype_name: str, width: int) -> str:
     """The CUDA kernel (``<entry point>_<family>``, as
     ``flash_attention.kernel_launches`` names it) a call at kernel width
     ``width`` in ``dtype_name`` routes to: the quad kernels at 16 and 32;
-    at 64 and 128 the tensor-core kernels for the bfloat16/float16 forward
-    and dk/dv, else the wide kernels, as at 256; the rowwise kernels
-    above 256."""
+    at 64 and 128 the tensor-core kernels in bfloat16/float16, else the
+    wide kernels, as at 256; above 256 the width-sliced forward and the
+    rowwise dq and dk/dv kernels."""
     if width <= 32:
         family = "quad"
     elif width > 256:
-        family = "rowwise"
-    elif (width in (64, 128) and dtype_name in ("bfloat16", "float16")
-          and not entry.endswith("_dq")):
+        family = "sliced" if entry.endswith("_fwd") else "rowwise"
+    elif width in (64, 128) and dtype_name in ("bfloat16", "float16"):
         family = "mma"
     else:
         family = "wide"
@@ -345,10 +345,11 @@ MISALIGNED = "train-step-misaligned"
 # long-context record (docs/performance.md: causal, batch 1, 4 heads,
 # head_dim 64), head_dims the wrappers zero-pad to the next kernel width
 # (examples/long_context_training.py's 8 runs at 16, 48 at 64, 200 at
-# 256, 300 at 384), the widest fixed-width kernel, run-time widths (300
-# and 640, the rowwise kernels), the float16 and float64 element types,
-# and bfloat16/float16 at kernel widths 64 and 128 (the tensor-core
-# forward and dk/dv kernels)
+# 256, 300 at 384), the widest fixed-width kernel, run-time widths (300,
+# 640, and above the rowwise kernels' shared rows 1100 at 1152 and 2048:
+# the sliced forward, the rowwise dq and dk/dv), the float16 and float64
+# element types, and bfloat16/float16 at kernel widths 64 and 128 (the
+# tensor-core kernels)
 WIDE_CASES = [
     ("long-context-64", (1, 8192, 4, 64), True, "float32"),
     ("long-context-64-bf16", (1, 8192, 4, 64), True, "bfloat16"),
@@ -366,13 +367,16 @@ WIDE_CASES = [
     ("head-dim-300-bf16", (2, 300, 2, 300), True, "bfloat16"),
     ("head-dim-640", (1, 256, 2, 640), False, "float32"),
     ("head-dim-640-bf16", (1, 256, 2, 640), False, "bfloat16"),
+    ("head-dim-1100", (1, 128, 2, 1100), True, "float32"),
+    ("head-dim-2048-bf16", (1, 64, 1, 2048), False, "bfloat16"),
 ]
 # the cases each kernel's `wide` rows of the `kernels` line report
 WIDE_ROWS = ("head-dim-128", "head-dim-256", "long-context-64")
-# the cases the tensor-core and the rowwise kernels' entries report: the
-# first is the entry's own row, the others its `wide` rows
+# the cases the tensor-core, the sliced and the rowwise kernels' entries
+# report: the first is the entry's own row, the others its `wide` rows
 MMA_ROWS = ("long-context-64-bf16", "fp16-64", "bf16-128", "padded-48-bf16")
-ROWWISE_ROWS = ("head-dim-300", "head-dim-640", "head-dim-300-bf16")
+ROWWISE_ROWS = ("head-dim-300", "head-dim-640", "head-dim-300-bf16", "head-dim-1100",
+                "head-dim-2048-bf16")
 
 
 def kernel_phase(torch, fa):
@@ -464,15 +468,18 @@ BACKWARD_CASES = [
     ("train-step-bf16", (BATCH_SIZE, 64, 4, 16), True, "bfloat16"),
     (MISALIGNED, (BATCH_SIZE, 64, 4, 16), True, "float32"),
     *WIDE_CASES,
-    # a grid far under one wave: dq splits its keys across blocks
+    # grids far under one wave: dq splits its keys across blocks (the wide
+    # kernel in float32, the tensor-core one in bf16)
     ("dq-split-64", (1, 500, 1, 64), True, "float32"),
+    ("dq-split-64-bf16", (1, 500, 1, 64), True, "bfloat16"),
 ]
 # cases where two dq launches (dq and delta) and two dk/dv launches must
 # agree bit for bit
-BITWISE_CASES = ("train-step", MISALIGNED, "dq-split-64", "long-context-64-bf16", "fp16-64",
-                 "bf16-128", "padded-48-fp16", "head-dim-300", "head-dim-640-bf16")
+BITWISE_CASES = ("train-step", MISALIGNED, "dq-split-64", "dq-split-64-bf16",
+                 "long-context-64-bf16", "fp16-64", "bf16-128", "padded-48-fp16", "head-dim-300",
+                 "head-dim-640-bf16", "head-dim-1100", "head-dim-2048-bf16")
 # of those, the cases whose dq must split its keys
-SPLIT_CASES = ("dq-split-64",)
+SPLIT_CASES = ("dq-split-64", "dq-split-64-bf16")
 
 
 def backward_phase(torch, fa):
@@ -619,7 +626,7 @@ def gradient_phase(torch, fa):
     through (batch, seq, heads, head_dim) views of one tensor as the
     model feeds them: at the model's head_dim 16, at 64, at 48, which
     the Function pads to 64, at 200, which it pads to 256, and at 300,
-    which it pads to 384 (the rowwise kernels). Each backward launches
+    which it pads to 384 (the sliced and rowwise kernels). Each backward launches
     dq and dk/dv once."""
     from gordo_tpu_torch.models.specs_seq import dense_attention
 
@@ -763,15 +770,15 @@ def model_step_check(torch, fa, label, widths, window, dtype):
 def model_phase(torch, fa):
     """Phase 7: the 16-bit path and the wide-head path through the model a
     user builds: the bf16 long-context Transformer runs the tensor-core
-    forward and dk/dv kernels (and the wide dq kernel) once per layer; the
-    float32 Transformer with heads of 300 runs the three rowwise kernels
+    forward, dq and dk/dv kernels once per layer; the float32 Transformer
+    with heads of 300 runs the sliced forward and the rowwise dq and dk/dv
     once per layer."""
     report = {}
     for label, widths, window, dtype, kernels in (
         ("bf16_model", MODEL_16BIT, WINDOW_16BIT, torch.bfloat16,
-         (f"{fa.KERNEL}_mma", f"{fa.KERNEL_DQ}_wide", f"{fa.KERNEL_DKV}_mma")),
+         (f"{fa.KERNEL}_mma", f"{fa.KERNEL_DQ}_mma", f"{fa.KERNEL_DKV}_mma")),
         ("wide_head_model", MODEL_WIDE_HEAD, WINDOW_WIDE_HEAD, torch.float32,
-         (f"{fa.KERNEL}_rowwise", f"{fa.KERNEL_DQ}_rowwise", f"{fa.KERNEL_DKV}_rowwise")),
+         (f"{fa.KERNEL}_sliced", f"{fa.KERNEL_DQ}_rowwise", f"{fa.KERNEL_DKV}_rowwise")),
     ):
         result = model_step_check(torch, fa, label, widths, window, dtype)
         want = {name: widths["n_layers"] for name in kernels}
@@ -1620,8 +1627,9 @@ def main(argv=None) -> int:
             entry(fa.KERNEL_DKV, earlier, bwd_source, dkv_tpu, ("train-step", *WIDE_ROWS),
                   backward_checks),
             entry(fa.KERNEL, ("mma",), fwd_source, fwd_tpu, MMA_ROWS, checks),
+            entry(fa.KERNEL_DQ, ("mma",), bwd_source, dq_tpu, MMA_ROWS, backward_checks),
             entry(fa.KERNEL_DKV, ("mma",), bwd_source, dkv_tpu, MMA_ROWS, backward_checks),
-            entry(fa.KERNEL, ("rowwise",), fwd_source, fwd_tpu, ROWWISE_ROWS, checks),
+            entry(fa.KERNEL, ("sliced",), fwd_source, fwd_tpu, ROWWISE_ROWS, checks),
             entry(fa.KERNEL_DQ, ("rowwise",), bwd_source, dq_tpu, ROWWISE_ROWS, backward_checks),
             entry(fa.KERNEL_DKV, ("rowwise",), bwd_source, dkv_tpu, ROWWISE_ROWS,
                   backward_checks),

@@ -58,7 +58,8 @@
 // butterfly reduce-scatter, and each lane stores a quarter of a row's
 // dims.
 //
-// dq at head_dim 64, 128 and 256 (flash_bwd_dq_wide_kernel): bound by
+// dq at head_dim 64 and 128 in float32 and float64, and at 256 in every
+// type (flash_bwd_dq_wide_kernel): bound by
 // operations (3 dots of head_dim per kept pair: 52 GFLOP, 0.77 ms at the
 // fp32 rate, for the causal (1, 8192, 4, 64)) and by each block's serial
 // key walk at small grids. The forward wide kernel's layout on query rows:
@@ -157,17 +158,47 @@
 // 255 with a 16-byte spill in float16; a 16-query tile ran 19-23% slower,
 // scripts/flash_tiling_sweep.py). The causal start and the key-tile order
 // are the wide kernel's; a warp skips the tiles wholly before its first
-// key. float32 and float64 keep the wide kernel, and dq stays on the wide
-// kernel in every type (its tensor-core design is the next step).
+// key. float32 and float64 keep the wide kernel.
+//
+// dq in bfloat16 and float16 at head_dim 64 and 128
+// (flash_bwd_dq_mma_kernel) goes to the tensor cores too: on the CUDA
+// cores the long-context bf16 case took 2.37 ms against SDPA's whole
+// backward of 0.30 (PERF.md), and its three products' bound at the 989
+// TFLOP/s bf16 rate is 0.052 ms. The dk/dv kernel's design on query rows:
+// a block of 4 warps owns 64 query rows, each warp 16, staged once and
+// loaded as A fragments that stay in registers for the whole walk.
+// delta = rowsum(dO * O) is summed first in float32, two lanes a row, and
+// written once per row. Key and value tiles (64 keys at head_dim 64; 32 at
+// 128, where the dQ accumulators take 64 registers a lane) pass through a
+// two-stage cp.async ring, rows padded by 16 bytes for ldmatrix. Per tile each warp computes S = Q Kᵀ and dP = dO Vᵀ (mma.sync
+// m16n8k16, float32 accumulators), P = exp2(S sm_scale log2 e - LSE log2
+// e) from the saved LSE (ex2.approx) where the mask keeps the pair, dS =
+// P (dP - delta), then dQ += dS K with dS in the registers that computed
+// it as the A operand (rounded once to the input type) and K by
+// ldmatrix.trans. Carrying dS as a head and a tail term, as dk/dv carries
+// Pᵀ and dSᵀ, cut the largest bf16 error from 0.0156 to 0.0039 (tolerance
+// 2e-2) at 5-20% more time, and no case needed it (PERF.md). ptxas: 218
+// registers at head_dim 64, 240 at 128, no spill. From the wide kernel it keeps the warp-uniform causal
+// stop, the heavy-first block order and the key split for grids under one
+// wave (unscaled float32 rows summed in split order by
+// flash_bwd_dq_merge_kernel); no atomics, so two launches are bitwise
+// equal.
 //
 // Any head_dim above 256 (flash_bwd_dq_rowwise_kernel and
-// flash_bwd_dkv_rowwise_kernel, the width a run-time argument): one warp
-// a row (a query row in dq, a key row in dk/dv), the row's vectors and
-// float32 accumulators in shared memory with the lanes striding over the
-// width, each pair's two dot products summed by warp shuffles, the other
-// side's rows staged 16 at a time as float32. The dk/dv block's 192 bytes
-// a lane of width make head_dim 1024 the widest (flash::kMaxRowwiseDim).
-// Written to be right, not fast (5-6x SDPA at (2, 300, 2, 300), PERF.md).
+// flash_bwd_dkv_rowwise_kernel, the width a run-time argument, no upper
+// limit): one warp a row (a query row in dq, a key row in dk/dv), each
+// pair's two dot products summed over the lanes striding over the width
+// and then by warp shuffles, the other side's rows staged 16 at a time as
+// float32. Up to flash::kMaxSharedRowDim (1024: the dk/dv block's 192
+// bytes a lane of width fill 192 KB) the row's vectors and float32
+// accumulators sit in shared memory. Above it the kernels stream: the
+// partner rows are staged 256 columns at a time (32 KB a block whatever
+// the width), first over every chunk for the dot products, then over
+// every chunk again for the accumulation; the warp's own rows are read
+// from their tensors and its accumulators live in a float32 scratch the
+// caller allocates (batch * heads * seq rows of head_dim for dq, 2
+// head_dim for dk/dv). Written to be right, not fast (5-6x SDPA at (2,
+// 300, 2, 300), PERF.md).
 //
 // Rows past the sequence end store nothing; query rows past the end add
 // nothing to dk/dv and keys past the end have probability 0. No head-dim
@@ -177,14 +208,15 @@
 // Inputs are float32, bfloat16, float16 or float64 (dtype 0 / 1 / 2 / 3),
 // each element converted to float32 on load and every sum in float32, as
 // the Pallas kernels do (a float64 tile is staged in shared memory as
-// float32); head_dim is 16, 32, 64, 128, 256 or any width from 257 to
-// 1024; any sequence length; causal or full. Strides are in elements,
+// float32); head_dim is 16, 32, 64, 128, 256 or any multiple of 32 above
+// 256; any sequence length; causal or full. Strides are in elements,
 // (batch, seq, head) for each tensor in the order the entry point names;
 // the head dim must be contiguous. `mode` is a bit set: 1 causal, 2 every
 // row start of the six (batch, seq, heads, head_dim) tensors of the entry
 // point 16-byte aligned (the rowwise kernels read element by element
-// either way). The kernels allocate nothing (dq's split scratch is the
-// caller's) and run on the caller's stream. Each entry point returns the
+// either way). The kernels allocate nothing (dq's split scratch and the
+// streamed rowwise kernels' accumulators are the caller's) and run on the
+// caller's stream. Each entry point returns the
 // CUDA error code of its launch (0 on success) and writes the family of
 // the kernel it launched (flash::kFamily*) to its last argument.
 
@@ -1136,21 +1168,237 @@ __global__ void __launch_bounds__(kMmaWarps * 32, kMinBlocks)
   }
 }
 
+// dq in bfloat16 and float16 at head_dim 64 and 128 on the tensor cores:
+// 4 warps of 16 query rows a block, key and value tiles of kTile keys
+// through a two-stage cp.async ring; per tile S = Q Kᵀ and dP = dO Vᵀ,
+// then dQ += dS K, all by mma.sync.m16n8k16 with float32 accumulators
+// (see flash_mma.cuh); the warp's Q and dO fragments stay in registers for
+// the whole walk, and dS is the A operand in place, rounded once to T.
+// Split `split` of `n_splits` walks its run of the block's key tiles, as
+// in flash_bwd_dq_wide_kernel, whose partial rows its splits write.
+constexpr int kMmaRows = 16 * kMmaWarps;  // query rows a dq block owns
+
+template <typename T, int D, int kTile, int kMinBlocks>
+__global__ void __launch_bounds__(kMmaWarps * 32, kMinBlocks)
+    flash_bwd_dq_mma_kernel(const Params p) {
+  constexpr int kThreads = kMmaWarps * 32;
+  constexpr int kPitch = D + 8;  // 16 bytes of padding a row: ldmatrix rows on distinct banks
+  constexpr int kStage = kTile * kPitch;
+  constexpr int kKChunks = D / 16;    // 16-wide steps over head_dim in S and dP
+  constexpr int kNTiles = kTile / 8;  // 8-key tiles of a staged tile
+  constexpr int kDTiles = D / 8;      // 8-wide dQ tiles
+  static_assert(kTile % 16 == 0 && D % 16 == 0, "whole 16 x 16 blocks");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_tile = reinterpret_cast<T*>(smem);   // [kMmaRows][kPitch]
+  T* do_tile = q_tile + kMmaRows * kPitch;  // [kMmaRows][kPitch]
+  T* k_ring = do_tile + kMmaRows * kPitch;  // [2][kStage]
+  T* v_ring = k_ring + 2 * kStage;          // [2][kStage]
+
+  // block = (row tile, batch*head, key split), split fastest; row tiles
+  // last to first across all heads (causal launches start with their
+  // longest key walks)
+  const int split = blockIdx.x % p.n_splits;
+  const int tile = blockIdx.x / p.n_splits;
+  const int bh = tile % p.batch_heads;
+  const int qt = p.n_tiles - 1 - tile / p.batch_heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;  // the lane's rows of the warp's 16: g and g + 8
+  const int t4 = lane & 3;  // the lane's columns of each 8-wide tile: 2 t4, 2 t4 + 1
+  const int seq = p.seq;
+  const int q0 = qt * kMmaRows;
+  const int row_a = q0 + warp * 16 + g;
+  const bool vec = p.vec;
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
+  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
+  // keys the block needs, and keys the warp's rows need (a causal warp
+  // skips the tiles past its last row, a warp-uniform branch)
+  const int k_end = p.causal ? min(seq, q0 + kMmaRows) : seq;
+  const int warp_k_end = p.causal ? min(seq, q0 + warp * 16 + 16) : seq;
+  // this split's run of the block's key tiles
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const int split_tiles = (n_tiles + p.n_splits - 1) / p.n_splits;
+  const int t_begin = min(n_tiles, split * split_tiles);
+  const int t_end = min(n_tiles, t_begin + split_tiles);
+
+  auto stage = [&](int t) {
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(k_ring + (t & 1) * kStage, k_head, p.k_st.s,
+                                                     t * kTile, k_end, vec);
+    flash::stage_rows<T, D, kPitch, kTile, kThreads>(v_ring + (t & 1) * kStage, v_head, p.v_st.s,
+                                                     t * kTile, k_end, vec);
+  };
+  // the block's q and dO rows (past the sequence end: zeros)
+  flash::stage_rows<T, D, kPitch, kMmaRows, kThreads>(
+      q_tile, row_ptr<T>(p.q, p.q_st, b, 0, h, 0), p.q_st.s, q0, seq, vec);
+  flash::stage_rows<T, D, kPitch, kMmaRows, kThreads>(
+      do_tile, row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0), p.do_st.s, q0, seq, vec);
+  if (t_begin < t_end) stage(t_begin);
+  flash::cp_async_commit();
+  flash::cp_async_wait<0>();
+  __syncthreads();
+
+  // delta = rowsum(dO * O) in float32, two lanes a row (lane 2r + half
+  // sums half the dims of the warp's row r), written once per row; then
+  // each lane takes its rows g and g + 8, with their LSE in log2 units
+  float delta[2];
+  float lse2[2];
+  {
+    const int r = warp * 16 + (lane >> 1);
+    const int half = lane & 1;
+    const int qc = min(q0 + r, seq - 1);
+    const T* o_row = row_ptr<T>(p.out, p.o_st, b, qc, h, half * (D / 2));
+    const T* d_row = do_tile + r * kPitch + half * (D / 2);
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < D / 2; d += 8) {
+      float ov[8];
+      float dv[8];
+      flash::load_row<T, 8>(o_row + d, ov, vec);
+      flash::load_row<T, 8>(d_row + d, dv, true);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dot = fmaf(dv[e], ov[e], dot);
+    }
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    if (split == 0 && half == 0 && q0 + r < seq) p.delta[stat + q0 + r] = dot;
+    delta[0] = __shfl_sync(0xffffffffu, dot, 2 * g);
+    delta[1] = __shfl_sync(0xffffffffu, dot, 2 * g + 16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) lse2[i] = p.lse[stat + min(row_a + 8 * i, seq - 1)] * flash::kLog2e;
+  }
+  uint32_t qa[kKChunks][4];  // the warp's Q and dO rows as A fragments, loaded once
+  uint32_t da[kKChunks][4];
+#pragma unroll
+  for (int kc = 0; kc < kKChunks; ++kc) {
+    flash::ldmatrix_x4(qa[kc], flash::a_rows(q_tile, kPitch, warp * 16, kc * 16, lane));
+    flash::ldmatrix_x4(da[kc], flash::a_rows(do_tile, kPitch, warp * 16, kc * 16, lane));
+  }
+
+  const float scale_log2 = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  float dq[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kTile;
+    if (t + 1 < t_end) stage(t + 1);  // the next tile into the other stage
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const T* k_tile = k_ring + (t & 1) * kStage;
+    const T* v_tile = v_ring + (t & 1) * kStage;
+    if (k0 < warp_k_end) {
+      // S = Q Kᵀ and dP = dO Vᵀ, 16 rows x kTile keys each
+      float st[kNTiles][4];
+      float dp[kNTiles][4];
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kc = 0; kc < kKChunks; ++kc) {
+#pragma unroll
+        for (int np = 0; np < kNTiles / 2; ++np) {
+          uint32_t kb[4];
+          flash::ldmatrix_x4(kb, flash::b_rows(k_tile, kPitch, np * 16, kc * 16, lane));
+          flash::mma_16816<T>(st[2 * np], qa[kc], kb[0], kb[1]);
+          flash::mma_16816<T>(st[2 * np + 1], qa[kc], kb[2], kb[3]);
+          uint32_t vb[4];
+          flash::ldmatrix_x4(vb, flash::b_rows(v_tile, kPitch, np * 16, kc * 16, lane));
+          flash::mma_16816<T>(dp[2 * np], da[kc], vb[0], vb[1]);
+          flash::mma_16816<T>(dp[2 * np + 1], da[kc], vb[2], vb[3]);
+        }
+      }
+      // P = exp2(S - LSE) where the mask keeps the pair (every pair of a
+      // tile the mask keeps whole for the warp's rows), dS = P (dP - delta)
+      const bool whole = k0 + kTile <= seq && (!p.causal || k0 + kTile <= q0 + warp * 16 + 1);
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float pr = flash::exp2_approx(st[j][e] * scale_log2 - lse2[r]);
+          if (!whole) {
+            const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+            const bool keep = kpos < seq && (!p.causal || kpos <= row_a + 8 * r);
+            pr = keep ? pr : 0.f;
+          }
+          st[j][e] = pr * (dp[j][e] - delta[r]);
+        }
+      }
+      // dQ += dS K: dS in place as the A operand, K by ldmatrix.trans
+#pragma unroll
+      for (int kc = 0; kc < kTile / 16; ++kc) {
+        uint32_t ds[4];
+        flash::pack_a<T>(ds, st[2 * kc], st[2 * kc + 1]);
+#pragma unroll
+        for (int dpi = 0; dpi < D / 16; ++dpi) {
+          uint32_t kb[4];
+          flash::ldmatrix_x4_trans(kb, flash::bt_rows(k_tile, kPitch, kc * 16, dpi * 16, lane));
+          flash::mma_16816<T>(dq[2 * dpi], ds, kb[0], kb[1]);
+          flash::mma_16816<T>(dq[2 * dpi + 1], ds, kb[2], kb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // each lane stores two columns of each 8-wide tile of its two rows: with
+  // one split s * dq in T, else the unscaled float32 row to the scratch
+  // for flash_bwd_dq_merge_kernel
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * seq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row_a + 8 * r;
+    if (qpos >= seq) continue;
+    if (p.n_splits == 1) {
+      T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, 0);
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt) {
+        const int col = dt * 8 + 2 * t4;
+        const float x0 = dq[dt][2 * r] * p.sm_scale;
+        const float x1 = dq[dt][2 * r + 1] * p.sm_scale;
+        if (vec) {
+          *reinterpret_cast<uint32_t*>(dq_row + col) = flash::pack2<T>(x0, x1);
+        } else {
+          dq_row[col] = from_float<T>(x0);
+          dq_row[col + 1] = from_float<T>(x1);
+        }
+      }
+    } else {
+      float* ws_row = p.ws + (split * n_rows + stat + qpos) * D;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt) {
+        *reinterpret_cast<float2*>(ws_row + dt * 8 + 2 * t4) =
+            make_float2(dq[dt][2 * r], dq[dt][2 * r + 1]);
+      }
+    }
+  }
+}
+
 // dq at any head_dim above 256 (the width is a run-time argument): one warp
-// a query row, its q (prescaled), dO and float32 dq accumulator in shared
-// memory with the lanes striding over the width; each pair's two dot
-// products (score, dO.v) summed by warp shuffles; key and value rows
+// a query row; each pair's two dot products (score, dO.v) summed over the
+// lanes striding over the width, then by warp shuffles; key and value rows
 // staged kRowTile at a time as float32. delta = rowsum(dO * O) is summed
-// first and written for the dk/dv kernel.
-template <typename T>
+// first and written for the dk/dv kernel. Up to flash::kMaxSharedRowDim
+// (!kStream) the warp's q (prescaled), dO and float32 dq accumulator sit
+// in shared memory and each partner tile is staged whole. Streamed, any
+// width: the partner rows are staged kRowChunk columns at a time, first
+// over every chunk for the dot products and then, last chunk first (it is
+// still staged), over every chunk for dq += ds k; q and dO are read from
+// their tensors and the accumulator is the row's slot of the caller's
+// float32 scratch (p.ws, batch * heads * seq rows of D). A lane walks the
+// same dims in the same order either way.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(flash::kRowThreads) flash_bwd_dq_rowwise_kernel(const Params p,
                                                                                   int D) {
   extern __shared__ __align__(16) float row_smem[];
-  float* k_tile = row_smem;                          // [kRowTile][D]
-  float* v_tile = k_tile + flash::kRowTile * D;      // [kRowTile][D]
-  float* q_rows = v_tile + flash::kRowTile * D;      // [kRowWarps][D]
-  float* do_rows = q_rows + flash::kRowWarps * D;    // [kRowWarps][D]
-  float* acc_rows = do_rows + flash::kRowWarps * D;  // [kRowWarps][D]
+  const int C = kStream ? flash::kRowChunk : D;  // columns of a staged partner chunk
+  float* k_tile = row_smem;                      // [kRowTile][C]
+  float* v_tile = k_tile + flash::kRowTile * C;  // [kRowTile][C]
   const int bh = blockIdx.x % p.batch_heads;
   const int qt = p.n_tiles - 1 - blockIdx.x / p.batch_heads;  // last to first
   const int b = bh / p.heads;
@@ -1166,52 +1414,106 @@ __global__ void __launch_bounds__(flash::kRowThreads) flash_bwd_dq_rowwise_kerne
   const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
   const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
 
-  float* q_row = q_rows + warp * D;
-  float* do_row = do_rows + warp * D;
-  float* acc = acc_rows + warp * D;
   const float scale_log2 = p.sm_scale * flash::kLog2e;
   const T* q_src = row_ptr<T>(p.q, p.q_st, b, qc, h, 0);
   const T* do_src = row_ptr<T>(p.d_out, p.do_st, b, qc, h, 0);
   const T* o_src = row_ptr<T>(p.out, p.o_st, b, qc, h, 0);
+  float* q_row = v_tile + flash::kRowTile * C + warp * D;  // unused when streamed
+  float* do_row = q_row + flash::kRowWarps * D;
+  // the warp's accumulator; streamed, a row past the end has none and adds nothing
+  float* acc = kStream ? p.ws + (stat + qc) * D : do_row + flash::kRowWarps * D;
+  const bool adds = !kStream || qpos < seq;
   float dot = 0.f;
   for (int d = lane; d < D; d += 32) {
     const float dov = to_float(do_src[d]);
     dot = fmaf(dov, to_float(o_src[d]), dot);
-    q_row[d] = to_float(q_src[d]) * scale_log2;
-    do_row[d] = dov;
-    acc[d] = 0.f;
+    if constexpr (!kStream) {
+      q_row[d] = to_float(q_src[d]) * scale_log2;
+      do_row[d] = dov;
+    }
+    if (adds) acc[d] = 0.f;
   }
   const float delta = flash::warp_sum(dot);
   const float lse2 = p.lse[stat + qc] * flash::kLog2e;
   if (lane == 0 && qpos < seq) p.delta[stat + qpos] = delta;
 
   for (int k0 = 0; k0 < k_end; k0 += flash::kRowTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    flash::stage_rows_float(k_tile, k_head, p.k_st.s, k0, k_end, D);
-    flash::stage_rows_float(v_tile, v_head, p.v_st.s, k0, k_end, D);
-    __syncthreads();
     float ds[flash::kRowTile];
+    if constexpr (!kStream) {
+      __syncthreads();  // every warp is done with the previous tile
+      flash::stage_rows_float(k_tile, k_head, p.k_st.s, k0, k_end, D);
+      flash::stage_rows_float(v_tile, v_head, p.v_st.s, k0, k_end, D);
+      __syncthreads();
 #pragma unroll
-    for (int j = 0; j < flash::kRowTile; ++j) {
-      const float* k_row = k_tile + j * D;
-      const float* v_row = v_tile + j * D;
-      float s = 0.f;
-      float dp = 0.f;
-      for (int d = lane; d < D; d += 32) {
-        s = fmaf(q_row[d], k_row[d], s);
-        dp = fmaf(do_row[d], v_row[d], dp);
+      for (int j = 0; j < flash::kRowTile; ++j) {
+        const float* k_row = k_tile + j * D;
+        const float* v_row = v_tile + j * D;
+        float s = 0.f;
+        float dp = 0.f;
+        for (int d = lane; d < D; d += 32) {
+          s = fmaf(q_row[d], k_row[d], s);
+          dp = fmaf(do_row[d], v_row[d], dp);
+        }
+        s = flash::warp_sum(s);
+        dp = flash::warp_sum(dp);
+        const int kpos = k0 + j;
+        const bool keep = kpos < seq && (!p.causal || kpos <= qpos);
+        ds[j] = keep ? exp2f(s - lse2) * (dp - delta) : 0.f;
       }
-      s = flash::warp_sum(s);
-      dp = flash::warp_sum(dp);
-      const int kpos = k0 + j;
-      const bool keep = kpos < seq && (!p.causal || kpos <= qpos);
-      ds[j] = keep ? exp2f(s - lse2) * (dp - delta) : 0.f;
-    }
-    for (int d = lane; d < D; d += 32) {
-      float a = acc[d];
+      for (int d = lane; d < D; d += 32) {
+        float a = acc[d];
 #pragma unroll
-      for (int j = 0; j < flash::kRowTile; ++j) a = fmaf(ds[j], k_tile[j * D + d], a);
-      acc[d] = a;
+        for (int j = 0; j < flash::kRowTile; ++j) a = fmaf(ds[j], k_tile[j * D + d], a);
+        acc[d] = a;
+      }
+    } else {
+      // the dot products over every chunk (each lane's dims in the order of
+      // one pass over the row), then dq += ds k over every chunk, last
+      // chunk first: it is still staged
+      float s[flash::kRowTile];
+      float dp[flash::kRowTile];
+#pragma unroll
+      for (int j = 0; j < flash::kRowTile; ++j) s[j] = dp[j] = 0.f;
+      int cw = C;
+      for (int c0 = 0; c0 < D; c0 += C) {
+        cw = min(C, D - c0);
+        __syncthreads();  // every warp is done with the staged rows
+        flash::stage_rows_float(k_tile, k_head + c0, p.k_st.s, k0, k_end, cw);
+        flash::stage_rows_float(v_tile, v_head + c0, p.v_st.s, k0, k_end, cw);
+        __syncthreads();
+        for (int d = lane; d < cw; d += 32) {
+          const float qv = to_float(q_src[c0 + d]) * scale_log2;
+          const float dov = to_float(do_src[c0 + d]);
+#pragma unroll
+          for (int j = 0; j < flash::kRowTile; ++j) {
+            s[j] = fmaf(qv, k_tile[j * cw + d], s[j]);
+            dp[j] = fmaf(dov, v_tile[j * cw + d], dp[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < flash::kRowTile; ++j) {
+        const float score = flash::warp_sum(s[j]);
+        const float dpj = flash::warp_sum(dp[j]);
+        const int kpos = k0 + j;
+        const bool keep = kpos < seq && (!p.causal || kpos <= qpos);
+        ds[j] = keep ? exp2f(score - lse2) * (dpj - delta) : 0.f;
+      }
+      for (int c0 = (D - 1) / C * C; c0 >= 0; c0 -= C) {
+        if (c0 + C < D) {
+          cw = C;
+          __syncthreads();
+          flash::stage_rows_float(k_tile, k_head + c0, p.k_st.s, k0, k_end, cw);
+          __syncthreads();
+        }
+        if (!adds) continue;
+        for (int d = lane; d < cw; d += 32) {
+          float a = acc[c0 + d];
+#pragma unroll
+          for (int j = 0; j < flash::kRowTile; ++j) a = fmaf(ds[j], k_tile[j * cw + d], a);
+          acc[c0 + d] = a;
+        }
+      }
     }
   }
   if (qpos >= seq) return;
@@ -1219,22 +1521,23 @@ __global__ void __launch_bounds__(flash::kRowThreads) flash_bwd_dq_rowwise_kerne
   for (int d = lane; d < D; d += 32) dq_row[d] = from_float<T>(acc[d] * p.sm_scale);
 }
 
-// dk/dv at any head_dim above 256: one warp a key row, its k (prescaled),
-// v and the float32 dk and dv accumulators in shared memory with the lanes
-// striding over the width; q and dO rows (with LSE and delta) staged
-// kRowTile at a time as float32.
-template <typename T>
+// dk/dv at any head_dim above 256: one warp a key row; q and dO rows (with
+// LSE and delta) staged kRowTile at a time as float32. Up to
+// flash::kMaxSharedRowDim (!kStream) the warp's k (prescaled), v and the
+// float32 dk and dv accumulators sit in shared memory; streamed, the
+// partner rows come kRowChunk columns at a time (the dot products over
+// every chunk, then dk and dv over every chunk, last first), k and v are
+// read from their tensors and dk, dv accumulate in the row's two slots of
+// the caller's float32 scratch (p.ws, batch * heads * seq rows of 2 D).
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(flash::kRowThreads) flash_bwd_dkv_rowwise_kernel(const Params p,
                                                                                    int D) {
   extern __shared__ __align__(16) float row_smem[];
-  float* q_tile = row_smem;                          // [kRowTile][D]
-  float* do_tile = q_tile + flash::kRowTile * D;     // [kRowTile][D]
-  float* k_rows = do_tile + flash::kRowTile * D;     // [kRowWarps][D]
-  float* v_rows = k_rows + flash::kRowWarps * D;     // [kRowWarps][D]
-  float* dk_rows = v_rows + flash::kRowWarps * D;    // [kRowWarps][D]
-  float* dv_rows = dk_rows + flash::kRowWarps * D;   // [kRowWarps][D]
-  float* lse_tile = dv_rows + flash::kRowWarps * D;  // [kRowTile], log2 units
-  float* delta_tile = lse_tile + flash::kRowTile;    // [kRowTile]
+  const int C = kStream ? flash::kRowChunk : D;  // columns of a staged partner chunk
+  float* q_tile = row_smem;                       // [kRowTile][C]
+  float* do_tile = q_tile + flash::kRowTile * C;  // [kRowTile][C]
+  float* lse_tile = do_tile + flash::kRowTile * C;  // [kRowTile], log2 units
+  float* delta_tile = lse_tile + flash::kRowTile;   // [kRowTile]
   const int kt = blockIdx.x / p.batch_heads;  // first to last: the longest walks first
   const int bh = blockIdx.x - kt * p.batch_heads;
   const int b = bh / p.heads;
@@ -1249,58 +1552,127 @@ __global__ void __launch_bounds__(flash::kRowThreads) flash_bwd_dkv_rowwise_kern
   const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
   const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
 
-  float* k_row = k_rows + warp * D;
-  float* v_row = v_rows + warp * D;
-  float* dk = dk_rows + warp * D;
-  float* dv = dv_rows + warp * D;
   const float scale_log2 = p.sm_scale * flash::kLog2e;
   const T* k_src = row_ptr<T>(p.k, p.k_st, b, kc, h, 0);
   const T* v_src = row_ptr<T>(p.v, p.v_st, b, kc, h, 0);
+  float* k_row = delta_tile + flash::kRowTile + warp * D;  // unused when streamed
+  float* v_row = k_row + flash::kRowWarps * D;
+  // the warp's accumulators; streamed, a row past the end has none and adds nothing
+  float* dk = kStream ? p.ws + (stat + kc) * 2 * D : v_row + flash::kRowWarps * D;
+  float* dv = kStream ? dk + D : dk + flash::kRowWarps * D;
+  const bool adds = !kStream || kpos < seq;
   for (int d = lane; d < D; d += 32) {
-    k_row[d] = to_float(k_src[d]) * scale_log2;
-    v_row[d] = to_float(v_src[d]);
-    dk[d] = 0.f;
-    dv[d] = 0.f;
+    if constexpr (!kStream) {
+      k_row[d] = to_float(k_src[d]) * scale_log2;
+      v_row[d] = to_float(v_src[d]);
+    }
+    if (adds) {
+      dk[d] = 0.f;
+      dv[d] = 0.f;
+    }
   }
   for (int q0 = p.causal ? k0 : 0; q0 < seq; q0 += flash::kRowTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    flash::stage_rows_float(q_tile, q_head, p.q_st.s, q0, seq, D);
-    flash::stage_rows_float(do_tile, do_head, p.do_st.s, q0, seq, D);
-    for (int i = threadIdx.x; i < flash::kRowTile; i += flash::kRowThreads) {
-      const int qp = q0 + i;
-      lse_tile[i] = qp < seq ? p.lse[stat + qp] * flash::kLog2e : 0.f;
-      delta_tile[i] = qp < seq ? p.delta[stat + qp] : 0.f;
-    }
-    __syncthreads();
     float pr[flash::kRowTile];
     float ds[flash::kRowTile];
-#pragma unroll
-    for (int i = 0; i < flash::kRowTile; ++i) {
-      const float* q_row = q_tile + i * D;
-      const float* do_row = do_tile + i * D;
-      float s = 0.f;
-      float dp = 0.f;
-      for (int d = lane; d < D; d += 32) {
-        s = fmaf(q_row[d], k_row[d], s);
-        dp = fmaf(do_row[d], v_row[d], dp);
+    if constexpr (!kStream) {
+      __syncthreads();  // every warp is done with the previous tile
+      flash::stage_rows_float(q_tile, q_head, p.q_st.s, q0, seq, D);
+      flash::stage_rows_float(do_tile, do_head, p.do_st.s, q0, seq, D);
+      for (int i = threadIdx.x; i < flash::kRowTile; i += flash::kRowThreads) {
+        const int qp = q0 + i;
+        lse_tile[i] = qp < seq ? p.lse[stat + qp] * flash::kLog2e : 0.f;
+        delta_tile[i] = qp < seq ? p.delta[stat + qp] : 0.f;
       }
-      s = flash::warp_sum(s);
-      dp = flash::warp_sum(dp);
-      const int qpos = q0 + i;
-      const bool keep = qpos < seq && (!p.causal || kpos <= qpos);
-      pr[i] = keep ? exp2f(s - lse_tile[i]) : 0.f;
-      ds[i] = pr[i] * (dp - delta_tile[i]);
-    }
-    for (int d = lane; d < D; d += 32) {
-      float a = dk[d];
-      float c = dv[d];
+      __syncthreads();
 #pragma unroll
       for (int i = 0; i < flash::kRowTile; ++i) {
-        a = fmaf(ds[i], q_tile[i * D + d], a);
-        c = fmaf(pr[i], do_tile[i * D + d], c);
+        const float* q_row = q_tile + i * D;
+        const float* do_row = do_tile + i * D;
+        float s = 0.f;
+        float dp = 0.f;
+        for (int d = lane; d < D; d += 32) {
+          s = fmaf(q_row[d], k_row[d], s);
+          dp = fmaf(do_row[d], v_row[d], dp);
+        }
+        s = flash::warp_sum(s);
+        dp = flash::warp_sum(dp);
+        const int qpos = q0 + i;
+        const bool keep = qpos < seq && (!p.causal || kpos <= qpos);
+        pr[i] = keep ? exp2f(s - lse_tile[i]) : 0.f;
+        ds[i] = pr[i] * (dp - delta_tile[i]);
       }
-      dk[d] = a;
-      dv[d] = c;
+      for (int d = lane; d < D; d += 32) {
+        float a = dk[d];
+        float c = dv[d];
+#pragma unroll
+        for (int i = 0; i < flash::kRowTile; ++i) {
+          a = fmaf(ds[i], q_tile[i * D + d], a);
+          c = fmaf(pr[i], do_tile[i * D + d], c);
+        }
+        dk[d] = a;
+        dv[d] = c;
+      }
+    } else {
+      // the dot products over every chunk, then dk += ds q and dv += p dO
+      // over every chunk, last chunk first: it is still staged
+      float s[flash::kRowTile];
+      float dp[flash::kRowTile];
+#pragma unroll
+      for (int i = 0; i < flash::kRowTile; ++i) s[i] = dp[i] = 0.f;
+      int cw = C;
+      for (int c0 = 0; c0 < D; c0 += C) {
+        cw = min(C, D - c0);
+        __syncthreads();  // every warp is done with the staged rows
+        flash::stage_rows_float(q_tile, q_head + c0, p.q_st.s, q0, seq, cw);
+        flash::stage_rows_float(do_tile, do_head + c0, p.do_st.s, q0, seq, cw);
+        if (c0 == 0) {
+          for (int i = threadIdx.x; i < flash::kRowTile; i += flash::kRowThreads) {
+            const int qp = q0 + i;
+            lse_tile[i] = qp < seq ? p.lse[stat + qp] * flash::kLog2e : 0.f;
+            delta_tile[i] = qp < seq ? p.delta[stat + qp] : 0.f;
+          }
+        }
+        __syncthreads();
+        for (int d = lane; d < cw; d += 32) {
+          const float kv = to_float(k_src[c0 + d]) * scale_log2;
+          const float vv = to_float(v_src[c0 + d]);
+#pragma unroll
+          for (int i = 0; i < flash::kRowTile; ++i) {
+            s[i] = fmaf(q_tile[i * cw + d], kv, s[i]);
+            dp[i] = fmaf(do_tile[i * cw + d], vv, dp[i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < flash::kRowTile; ++i) {
+        const float score = flash::warp_sum(s[i]);
+        const float dpi = flash::warp_sum(dp[i]);
+        const int qpos = q0 + i;
+        const bool keep = qpos < seq && (!p.causal || kpos <= qpos);
+        pr[i] = keep ? exp2f(score - lse_tile[i]) : 0.f;
+        ds[i] = pr[i] * (dpi - delta_tile[i]);
+      }
+      for (int c0 = (D - 1) / C * C; c0 >= 0; c0 -= C) {
+        if (c0 + C < D) {
+          cw = C;
+          __syncthreads();
+          flash::stage_rows_float(q_tile, q_head + c0, p.q_st.s, q0, seq, cw);
+          flash::stage_rows_float(do_tile, do_head + c0, p.do_st.s, q0, seq, cw);
+          __syncthreads();
+        }
+        if (!adds) continue;
+        for (int d = lane; d < cw; d += 32) {
+          float a = dk[c0 + d];
+          float c = dv[c0 + d];
+#pragma unroll
+          for (int i = 0; i < flash::kRowTile; ++i) {
+            a = fmaf(ds[i], q_tile[i * cw + d], a);
+            c = fmaf(pr[i], do_tile[i * cw + d], c);
+          }
+          dk[c0 + d] = a;
+          dv[c0 + d] = c;
+        }
+      }
     }
   }
   if (kpos >= seq) return;
@@ -1388,30 +1760,69 @@ constexpr int dkv_smem() {
          4 * kTile * static_cast<int>(sizeof(float));
 }
 
-template <typename T, int D>
-const flash::WideSetup& dq_setup() {
-  using Tile = DqWideTiling<D>;
-  static const flash::WideSetup setup = flash::wide_setup(
-      flash_bwd_dq_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>,
-      Tile::kWarps * 32, dq_smem<T, D>());
-  return setup;
-}
-
-template <typename T, int D>
-int dq_splits(int64_t wave, int64_t batch_heads, int seq, bool causal) {
-  using Tile = DqWideTiling<D>;
-  constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
-  return flash::key_splits(wave, batch_heads * ((seq + kRows - 1) / kRows),
-                           (seq + Tile::kTile - 1) / Tile::kTile, causal);
-}
-
-// bfloat16 and float16 dk/dv at head_dim 64 and 128 take the tensor
-// cores; float32 keeps the CUDA cores (TF32 would break its 1e-4
+// bfloat16 and float16 dq and dk/dv at head_dim 64 and 128 take the
+// tensor cores; float32 keeps the CUDA cores (TF32 would break its 1e-4
 // tolerance), and float64 is summed in float32 there as in the Pallas
 // kernel
 template <typename T, int D>
 constexpr bool kTensorCores =
     (std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>) && (D == 64 || D == 128);
+
+// (keys per staged tile, minimum blocks per SM) of the tensor-core dq
+// kernel, from the sweep (scripts/flash_tiling_sweep.py, PERF.md): at
+// head_dim 128 the dQ accumulators take 64 registers a lane, so the key
+// tile is halved to keep Q and dO in registers (240 registers, no spill):
+// 23-27% faster than 64-key tiles reading them from shared memory each
+// tile on small grids, within 2% either way at (1, 4096, 4, 128)
+template <int D>
+struct DqMmaTiling;
+template <>
+struct DqMmaTiling<64> {
+  static constexpr int kTile = 64, kMinBlocks = 2;
+};
+template <>
+struct DqMmaTiling<128> {
+  static constexpr int kTile = 32, kMinBlocks = 2;
+};
+
+// A dq kernel at head_dim 64 and up (it may split its keys): the kernel,
+// its block's threads, dynamic shared memory, query rows and keys a staged
+// tile, and the family it reports.
+struct DqLaunch {
+  void (*kernel)(Params);
+  int threads, smem, rows, tile, family;
+};
+
+template <typename T, int D>
+DqLaunch dq_launch() {
+  if constexpr (kTensorCores<T, D>) {
+    using Tile = DqMmaTiling<D>;
+    // the block's q and dO rows, then the key and value rings
+    return {flash_bwd_dq_mma_kernel<T, D, Tile::kTile, Tile::kMinBlocks>,
+            kMmaWarps * 32, (2 * kMmaRows + 4 * Tile::kTile) * (D + 8) * static_cast<int>(sizeof(T)),
+            kMmaRows, Tile::kTile, flash::kFamilyMma};
+  } else {
+    using Tile = DqWideTiling<D>;
+    return {flash_bwd_dq_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile,
+                                     Tile::kMinBlocks>,
+            Tile::kWarps * 32, dq_smem<T, D>(), flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>(),
+            Tile::kTile, flash::kFamilyWide};
+  }
+}
+
+template <typename T, int D>
+const flash::WideSetup& dq_setup() {
+  static const DqLaunch k = dq_launch<T, D>();
+  static const flash::WideSetup setup = flash::wide_setup(k.kernel, k.threads, k.smem);
+  return setup;
+}
+
+template <typename T, int D>
+int dq_splits(int64_t wave, int64_t batch_heads, int seq, bool causal) {
+  const DqLaunch k = dq_launch<T, D>();
+  return flash::key_splits(wave, batch_heads * ((seq + k.rows - 1) / k.rows),
+                           (seq + k.tile - 1) / k.tile, causal);
+}
 
 // (queries per staged tile, K and V fragments kept in registers, minimum
 // blocks per SM) of the tensor-core dk/dv kernel: at head_dim 128 the
@@ -1440,13 +1851,17 @@ constexpr int dkv_mma_smem() {
 }
 
 // dynamic shared memory of a rowwise block at head_dim D, all float32:
-// dq's key and value tiles and its warps' q, dO and dq rows; dk/dv's q
-// and dO tiles, its warps' k, v, dk and dv rows, and LSE and delta
-constexpr int dq_rowwise_smem(int D) {
-  return (2 * flash::kRowTile + 3 * flash::kRowWarps) * D * static_cast<int>(sizeof(float));
+// dq's key and value tiles (kRowChunk columns streamed, else D) and, not
+// streamed, its warps' q, dO and dq rows; dk/dv's q and dO tiles, LSE and
+// delta and, not streamed, its warps' k, v, dk and dv rows
+constexpr int dq_rowwise_smem(int D, bool stream) {
+  return (2 * flash::kRowTile * (stream ? flash::kRowChunk : D) +
+          (stream ? 0 : 3 * flash::kRowWarps * D)) *
+         static_cast<int>(sizeof(float));
 }
-constexpr int dkv_rowwise_smem(int D) {
-  return ((2 * flash::kRowTile + 4 * flash::kRowWarps) * D + 2 * flash::kRowTile) *
+constexpr int dkv_rowwise_smem(int D, bool stream) {
+  return (2 * flash::kRowTile * (stream ? flash::kRowChunk : D) + 2 * flash::kRowTile +
+          (stream ? 0 : 4 * flash::kRowWarps * D)) *
          static_cast<int>(sizeof(float));
 }
 
@@ -1472,28 +1887,25 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream, int* launched) {
     }
     *launched = flash::kFamilyQuad;
   } else if constexpr (W == Which::kDq) {
-    using Tile = DqWideTiling<D>;
-    constexpr int kRows = flash::quad_rows<Tile::R, Tile::S, Tile::kWarps>();
+    const DqLaunch k = dq_launch<T, D>();
     const flash::WideSetup& setup = dq_setup<T, D>();
     if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
     p.n_splits = dq_splits<T, D>(setup.wave, batch_heads, p.seq, p.causal);
     if (p.n_splits > 1 && p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    p.n_tiles = (p.seq + kRows - 1) / kRows;
+    p.n_tiles = (p.seq + k.rows - 1) / k.rows;
     const int64_t n_blocks = batch_heads * p.n_tiles * p.n_splits;
     const int64_t n_rows = batch_heads * p.seq;
     if (n_blocks > INT_MAX || (n_rows + 3) / 4 > INT_MAX) {
       return static_cast<int>(cudaErrorInvalidConfiguration);
     }
-    constexpr int kSmem = dq_smem<T, D>();
-    flash_bwd_dq_wide_kernel<T, D, Tile::R, Tile::S, Tile::kWarps, Tile::kTile, Tile::kMinBlocks>
-        <<<static_cast<unsigned>(n_blocks), Tile::kWarps * 32, kSmem, stream>>>(p);
+    k.kernel<<<static_cast<unsigned>(n_blocks), k.threads, k.smem, stream>>>(p);
     if (p.n_splits > 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       flash_bwd_dq_merge_kernel<T, D>
           <<<static_cast<unsigned>((n_rows + 3) / 4), 128, 0, stream>>>(p);
     }
-    *launched = flash::kFamilyWide;
+    *launched = k.family;
   } else if constexpr (kTensorCores<T, D>) {
     using Tile = DkvMmaTiling<D>;
     p.n_tiles = (p.seq + kMmaKeys - 1) / kMmaKeys;
@@ -1523,26 +1935,30 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream, int* launched) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the rowwise kernels, any head_dim above 256 up to flash::kMaxRowwiseDim
-template <Which W, typename T>
+// the rowwise kernels at any head_dim above 256: rows in shared memory up
+// to flash::kMaxSharedRowDim, streamed above it (the caller's scratch)
+template <Which W, typename T, bool kStream>
 int launch_rowwise(Params& p, int64_t batch_heads, int head_dim, cudaStream_t stream,
                    int* launched) {
+  if (kStream && p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   p.n_tiles = (p.seq + flash::kRowWarps - 1) / flash::kRowWarps;
   const int64_t n_blocks = batch_heads * p.n_tiles;
   if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   const unsigned grid = static_cast<unsigned>(n_blocks);
+  // the widest block each kernel takes: the shared rows at kMaxSharedRowDim, or the streamed chunks
+  constexpr int kDmax = kStream ? flash::kRowChunk : flash::kMaxSharedRowDim;
   if constexpr (W == Which::kDq) {
     static const cudaError_t smem_ok = flash::allow_dynamic_smem(
-        flash_bwd_dq_rowwise_kernel<T>, dq_rowwise_smem(flash::kMaxRowwiseDim));
+        flash_bwd_dq_rowwise_kernel<T, kStream>, dq_rowwise_smem(kDmax, kStream));
     if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
-    flash_bwd_dq_rowwise_kernel<T>
-        <<<grid, flash::kRowThreads, dq_rowwise_smem(head_dim), stream>>>(p, head_dim);
+    flash_bwd_dq_rowwise_kernel<T, kStream>
+        <<<grid, flash::kRowThreads, dq_rowwise_smem(head_dim, kStream), stream>>>(p, head_dim);
   } else {
     static const cudaError_t smem_ok = flash::allow_dynamic_smem(
-        flash_bwd_dkv_rowwise_kernel<T>, dkv_rowwise_smem(flash::kMaxRowwiseDim));
+        flash_bwd_dkv_rowwise_kernel<T, kStream>, dkv_rowwise_smem(kDmax, kStream));
     if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
-    flash_bwd_dkv_rowwise_kernel<T>
-        <<<grid, flash::kRowThreads, dkv_rowwise_smem(head_dim), stream>>>(p, head_dim);
+    flash_bwd_dkv_rowwise_kernel<T, kStream>
+        <<<grid, flash::kRowThreads, dkv_rowwise_smem(head_dim, kStream), stream>>>(p, head_dim);
   }
   *launched = flash::kFamilyRowwise;
   return static_cast<int>(cudaGetLastError());
@@ -1558,10 +1974,11 @@ int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t
     case 128: return launch<W, T, 128>(p, batch_heads, stream, launched);
     case 256: return launch<W, T, 256>(p, batch_heads, stream, launched);
     default:
-      if (head_dim > 256 && head_dim <= flash::kMaxRowwiseDim) {
-        return launch_rowwise<W, T>(p, batch_heads, head_dim, stream, launched);
+      if (head_dim <= 256 || head_dim % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+      if (head_dim <= flash::kMaxSharedRowDim) {
+        return launch_rowwise<W, T, false>(p, batch_heads, head_dim, stream, launched);
       }
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_rowwise<W, T, true>(p, batch_heads, head_dim, stream, launched);
   }
 }
 
@@ -1631,9 +2048,10 @@ extern "C" int gordo_flash_attention_bwd_dq_splits(int batch, int seq, int heads
 // q, k, v, out, d_out and lse in, dq and delta out.
 // strides: (batch, seq, head) of q, k, v, out, d_out, dq, in that order;
 // mode: bit 1 causal, bit 2 16-byte aligned rows of all six; workspace:
-// the scratch gordo_flash_attention_bwd_dq_splits asks for (null when it
-// asks for none); launched: set to the kernel family launched
-// (flash::kFamily*)
+// the scratch gordo_flash_attention_bwd_dq_splits asks for, or above
+// flash::kMaxSharedRowDim the float32 dq accumulators, batch * heads *
+// seq * head_dim elements (null when neither is asked for); launched: set
+// to the kernel family launched (flash::kFamily*)
 extern "C" int gordo_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out, const void* d_out,
     const void* lse, void* delta, void* dq, void* workspace,
@@ -1663,14 +2081,17 @@ extern "C" int gordo_flash_attention_bwd_dq(
 // dk and dv, replacing _bwd_dkv_kernel (gordo_tpu/ops/flash_attention.py:213);
 // q, k, v, d_out, lse and delta in, dk and dv out.
 // strides: (batch, seq, head) of q, k, v, d_out, dk, dv, in that order;
-// mode: bit 1 causal, bit 2 16-byte aligned rows of all six; launched:
-// set to the kernel family launched (flash::kFamily*)
+// mode: bit 1 causal, bit 2 16-byte aligned rows of all six; workspace:
+// above flash::kMaxSharedRowDim the float32 dk and dv accumulators, 2 *
+// batch * heads * seq * head_dim elements (null at narrower widths);
+// launched: set to the kernel family launched (flash::kFamily*)
 extern "C" int gordo_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* d_out,
-    const void* lse, const void* delta, void* dk, void* dv,
+    const void* lse, const void* delta, void* dk, void* dv, void* workspace,
     int batch, int seq, int heads, int head_dim, int dtype,
     const long long* strides, float sm_scale, int mode, void* stream, int* launched) {
   Params p = {};
+  p.ws = static_cast<float*>(workspace);
   p.q = q;
   p.k = k;
   p.v = v;

@@ -103,24 +103,46 @@
 // 32-key ones at head_dim 128 on long sequences (scripts/flash_tiling_sweep.py). float32 keeps the wide kernel
 // (TF32 would break its 1e-4 tolerance), and float64 too.
 //
-// Any head_dim above 256 (flash_fwd_rowwise_kernel, the width a run-time
-// argument, as the JAX wrapper pads any head_dim to a multiple of 128):
-// one warp a query row, its q row (prescaled) and float32 accumulator in
-// shared memory with the lanes striding over the width, each score summed
-// by warp shuffles, key and value rows staged 16 at a time as float32. A
-// block of 4 rows takes 160 bytes of shared memory a lane of width, so
-// head_dim 1024 (160 KB) is the widest (flash::kMaxRowwiseDim, the
-// dk/dv kernel's limit). Bound by operations like the wide kernels; it is
-// written to be right, not fast (5x SDPA at (2, 300, 2, 300), PERF.md).
+// Any head_dim above 256 (flash_fwd_sliced_kernel, the width a run-time
+// argument, as the JAX wrapper pads any head_dim to a multiple of 128; no
+// upper limit) is bound by operations like the wide kernels: (2, 300, 2,
+// 300) causal at 384 is 0.21 GFLOP, 3.2 us at the fp32 rate, against 4.8 MB.
+// The grid is (row tiles, slices of the output's width, batch*heads): a
+// block owns 32 query rows and 128 of their output columns, so a small
+// launch such as (2, 300, 2, 300) still fills 120 blocks, and a key split
+// through flash_fwd_merge_rows_kernel fills the rest of the wave. The
+// scores are summed over the whole width in 64-column chunks of q and of
+// a 64-key tile, staged through a two-stage cp.async ring (element by
+// element without mode bit 2); each of the block's 128 threads holds a 4
+// rows x 4 keys register tile of the scores (16 threads across a row's
+// keys, 8 down the rows), so a staged element feeds 4 multiply-adds, not
+// one as in a warp-per-row design. The online softmax runs in float32
+// registers in exp2 units, each row's max and sum over its 16 threads by
+// a fixed butterfly; P goes through shared memory and O += P V runs on the
+// slice's 128 value columns, staged while the scores are summed, each
+// thread holding 4 rows x 8 columns of O. Every slice recomputes the
+// scores, (slices + 1) / 2 times the pair work of one pass: 2x at 384, 3x
+// at 640, 8.5x at 2048. The sweep (scripts/flash_tiling_sweep.py, PERF.md)
+// kept 128-column slices: 64-column ones (more recomputed scores, less
+// work a block) ran 6-16% slower except at 2048, and a slice of 128
+// divides every padded width. 64-column chunks at two blocks an SM (216
+// registers, no spill) beat 32-column ones at three (168, a 28-byte
+// spill) by 1-20%, with half the barriers. 16-row blocks won 5-12% at (2,
+// 300, 2, 300) and 45% on the 32-block grid of (1, 64, 1, 2048), but lost
+// 16% at the phase-7 model's (4, 256, 2, 300) and 33% at (1, 256, 2, 640).
+// bfloat16 and float16
+// are staged in their own type and summed in float32 on the CUDA cores;
+// float64 is staged as float32. The old warp-per-row forward read both
+// operands of every multiply-add from shared memory and reached 1% of its
+// bound (PERF.md).
 //
 // Inputs are float32, bfloat16, float16 or float64 (dtype 0 / 1 / 2 / 3),
 // each element converted to float32 on load and every sum in float32, as
 // the Pallas kernel does; a float64 tile is staged in shared memory as
-// float32. head_dim is 16, 32, 64, 128, 256 or any width from 257 to
-// 1024; any sequence length. Strides are in elements; the head dim must
-// be contiguous. `mode` is a bit set: 1 causal, 2 every row start of q,
-// k, v and out 16-byte aligned (the rowwise kernel reads element by
-// element either way). The kernels allocate nothing and run on the
+// float32. head_dim is 16, 32, 64, 128, 256 or any multiple of 128 above
+// 256; any sequence length. Strides are in elements; the head dim must be
+// contiguous. `mode` is a bit set: 1 causal, 2 every row start of q, k, v
+// and out 16-byte aligned. The kernels allocate nothing and run on the
 // caller's stream. The entry point returns the CUDA error code of the
 // launch (0 on success) and writes the family of the kernel it launched
 // (flash::kFamily*) to its last argument.
@@ -611,85 +633,278 @@ __global__ void __launch_bounds__(kMmaWarps * 32, kMinBlocks)
   }
 }
 
-// The forward at any head_dim above 256 (the width is a run-time
-// argument): one warp a query row, the row (prescaled) and its float32
-// accumulator in shared memory with the lanes striding over the width,
-// each score's dot product summed by warp shuffles, key and value rows
-// staged kRowTile at a time as float32.
-template <typename T>
-__global__ void __launch_bounds__(flash::kRowThreads) flash_fwd_rowwise_kernel(const Params p,
-                                                                               int D) {
-  extern __shared__ __align__(16) float row_smem[];
-  float* k_tile = row_smem;                          // [kRowTile][D]
-  float* v_tile = k_tile + flash::kRowTile * D;      // [kRowTile][D]
-  float* q_rows = v_tile + flash::kRowTile * D;      // [kRowWarps][D]
-  float* acc_rows = q_rows + flash::kRowWarps * D;   // [kRowWarps][D]
-  const int bh = blockIdx.x % p.batch_heads;
-  const int qt = p.n_qtiles - 1 - blockIdx.x / p.batch_heads;  // last to first
+// The forward at any head_dim above 256 (the width D a run-time argument,
+// a multiple of kSlice): a block owns kRows query rows of one (batch,
+// head) and kSlice columns of their output, and walks its key tiles of
+// kKeys keys. The scores are summed over the whole width: kChunk-wide
+// chunks of the block's q rows and of the key tile pass through a
+// two-stage ring, and each thread holds a register tile of TM rows x TN
+// keys (rows ty + kRowGroups i, keys tx + 16 j), so a staged q element
+// feeds TN multiply-adds and a key element TM. The online softmax runs in
+// float32 registers in log2 units, each row's max and sum over the 16
+// threads that share it; P passes through shared memory, and O += P V
+// runs on the slice's columns of the value tile, staged while the scores
+// are summed. Block order (row tiles last to first) and key splits as in
+// flash_fwd_wide_kernel; the splits' partial rows go to
+// flash_fwd_merge_rows_kernel.
+template <typename T, int kRows, int kKeys, int kChunk, int kSlice, int kWarps, int kMinBlocks>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+    flash_fwd_sliced_kernel(const Params p, int D) {
+  using E = flash::staged_t<T>;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kLanes = 16;                     // threads across a row's keys and columns
+  constexpr int kRowGroups = kThreads / kLanes;  // threads down the row tile
+  constexpr int TM = kRows / kRowGroups;         // query rows a thread holds
+  constexpr int TN = kKeys / kLanes;             // keys a thread scores per tile
+  constexpr int TC = kSlice / (4 * kLanes);      // output float4s a thread holds per row
+  constexpr int kQPitch = kChunk + 16 / sizeof(E);  // padded rows: 16-byte aligned
+  constexpr int kVPitch = kSlice + 16 / sizeof(E);
+  constexpr int kPPitch = kKeys + 4;
+  constexpr int kStage = (kRows + kKeys) * kQPitch;  // a q chunk and a key chunk
+  static_assert(kRows % kRowGroups == 0 && kKeys % kLanes == 0 && kSlice % (4 * kLanes) == 0 &&
+                    kChunk % 4 == 0 && (kChunk * sizeof(E)) % 16 == 0,
+                "whole register tiles and 16-byte chunks");
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* ring = reinterpret_cast<E*>(smem);  // [2][kRows + kKeys][kQPitch]
+  E* v_tile = ring + 2 * kStage;         // [kKeys][kVPitch]
+  float* p_tile = reinterpret_cast<float*>(v_tile + kKeys * kVPitch);  // [kRows][kPPitch]
+
+  // block = (row tile, batch*head, slice, key split), split fastest, then
+  // the slice; the row tiles run last to first across all heads, so causal
+  // launches start with their longest key walks
+  const int n_slices = D / kSlice;
+  const int split = blockIdx.x % p.n_splits;
+  const int rest = blockIdx.x / p.n_splits;
+  const int slice = rest % n_slices;
+  const int tile = rest / n_slices;
+  const int bh = tile % p.batch_heads;
+  const int qt = p.n_qtiles - 1 - tile / p.batch_heads;
   const int b = bh / p.heads;
   const int h = bh - b * p.heads;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tx = threadIdx.x % kLanes;
+  const int ty = threadIdx.x / kLanes;
   const int seq = p.seq;
-  const int q0 = qt * flash::kRowWarps;
-  const int qpos = q0 + warp;
+  const int q0 = qt * kRows;
+  const bool vec = p.vec;
+
   const T* q_head = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k_head = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v_head = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int k_end = p.causal ? min(seq, q0 + flash::kRowWarps) : seq;
+  const T* v_head = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh + slice * kSlice;
+  const int k_end = p.causal ? min(seq, q0 + kRows) : seq;
+  // this split's run of the block's key tiles
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  const int split_tiles = (n_tiles + p.n_splits - 1) / p.n_splits;
+  const int t_begin = min(n_tiles, split * split_tiles);
+  const int t_end = min(n_tiles, t_begin + split_tiles);
+  const int n_chunks = D / kChunk;
 
-  // the warp's q row, prescaled (scores in log2 units); a row past the
-  // sequence end computes on a clamped copy and stores nothing
-  float* q_row = q_rows + warp * D;
-  float* acc = acc_rows + warp * D;
-  const float scale_log2 = p.sm_scale * flash::kLog2e;
-  const T* q_src = q_head + static_cast<int64_t>(min(qpos, seq - 1)) * p.q_ss;
-  for (int d = lane; d < D; d += 32) {
-    q_row[d] = flash::to_float(q_src[d]) * scale_log2;
-    acc[d] = 0.f;
+  // chunk c of the q rows and of key tile t into ring stage s
+  auto stage_qk = [&](int t, int c, int s) {
+    E* q_dst = ring + s * kStage;
+    flash::stage_rows<T, kChunk, kQPitch, kRows, kThreads>(q_dst, q_head + c * kChunk, p.q_ss, q0,
+                                                           seq, vec);
+    flash::stage_rows<T, kChunk, kQPitch, kKeys, kThreads>(
+        q_dst + kRows * kQPitch, k_head + c * kChunk, p.k_ss, t * kKeys, k_end, vec);
+  };
+
+  const float scale_log2 = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  float o[TM][4 * TC];
+  float m[TM];
+  float l[TM];  // this thread's share of each row's sum
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * TC; ++c) o[i][c] = 0.f;
   }
-  float m = -INFINITY;
-  float l = 0.f;
-  for (int k0 = 0; k0 < k_end; k0 += flash::kRowTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    flash::stage_rows_float(k_tile, k_head, p.k_ss, k0, k_end, D);
-    flash::stage_rows_float(v_tile, v_head, p.v_ss, k0, k_end, D);
+
+  if (t_begin < t_end) stage_qk(t_begin, 0, 0);
+  flash::cp_async_commit();
+  int it = 0;  // chunks walked: chunk `it` sits in ring stage it & 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kKeys;
+    // the slice's value columns of this tile (every thread is past the
+    // last tile's P V: the __syncthreads that ends it)
+    flash::stage_rows<T, kSlice, kVPitch, kKeys, kThreads>(v_tile, v_head, p.v_ss, k0, k_end, vec);
+    flash::cp_async_commit();
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+    }
+    for (int c = 0; c < n_chunks; ++c, ++it) {
+      // this chunk has landed (at c = 0 the value tile may still be in flight)
+      if (c == 0) {
+        flash::cp_async_wait<1>();
+      } else {
+        flash::cp_async_wait<0>();
+      }
+      __syncthreads();  // ... for every thread, and every thread is done with the other stage
+      if (c + 1 < n_chunks) {
+        stage_qk(t, c + 1, (it + 1) & 1);
+      } else if (t + 1 < t_end) {
+        stage_qk(t + 1, 0, (it + 1) & 1);
+      }
+      flash::cp_async_commit();
+      const E* q_chunk = ring + (it & 1) * kStage;
+      const E* k_chunk = q_chunk + kRows * kQPitch;
+#pragma unroll
+      for (int d = 0; d < kChunk; d += 4) {
+        float4 qv[TM];
+        float4 kv[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) qv[i] = flash::load4(q_chunk + (ty + kRowGroups * i) * kQPitch + d);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) kv[j] = flash::load4(k_chunk + (tx + kLanes * j) * kQPitch + d);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          }
+        }
+      }
+    }
+
+    // scale and mask (unless the mask keeps the whole tile), then the
+    // online softmax; P to shared memory
+    const bool whole = k0 + kKeys <= seq && (!p.causal || k0 + kKeys - 1 <= q0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int qpos = q0 + ty + kRowGroups * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int kpos = k0 + tx + kLanes * j;
+        const bool keep = whole || (kpos < seq && (!p.causal || kpos <= qpos));
+        s[i][j] = keep ? s[i][j] * scale_log2 : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int offset = 1; offset < kLanes; offset <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, offset));
+      }
+      const float m_new = fmaxf(m[i], mx);
+      const float base = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+      const float alpha = exp2f(m[i] - base);
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < 4 * TC; ++c) o[i][c] *= alpha;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float pr = exp2f(s[i][j] - base);
+        l[i] += pr;
+        p_tile[(ty + kRowGroups * i) * kPPitch + tx + kLanes * j] = pr;
+      }
+    }
+    flash::cp_async_wait<1>();  // the value tile has landed (the next tile's first chunk may not)
     __syncthreads();
-    float s[flash::kRowTile];
-    float mx = -INFINITY;
+    // O += P V on the slice's columns: this thread's TM rows x 4 TC columns
+#pragma unroll 2
+    for (int j = 0; j < kKeys; j += 4) {
+      float4 pv[TM];
 #pragma unroll
-    for (int j = 0; j < flash::kRowTile; ++j) {
-      const float* k_row = k_tile + j * D;
-      float dot = 0.f;
-      for (int d = lane; d < D; d += 32) dot = fmaf(q_row[d], k_row[d], dot);
-      dot = flash::warp_sum(dot);
-      const int kpos = k0 + j;
-      s[j] = kpos < seq && (!p.causal || kpos <= qpos) ? dot : -INFINITY;
-      mx = fmaxf(mx, s[j]);
+      for (int i = 0; i < TM; ++i) {
+        pv[i] = *reinterpret_cast<const float4*>(p_tile + (ty + kRowGroups * i) * kPPitch + j);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const E* v_row = v_tile + (j + jj) * kVPitch + 4 * tx;
+#pragma unroll
+        for (int c = 0; c < TC; ++c) {
+          const float4 vv = flash::load4(v_row + 4 * kLanes * c);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float pr = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y : jj == 2 ? pv[i].z : pv[i].w;
+            o[i][4 * c] = fmaf(pr, vv.x, o[i][4 * c]);
+            o[i][4 * c + 1] = fmaf(pr, vv.y, o[i][4 * c + 1]);
+            o[i][4 * c + 2] = fmaf(pr, vv.z, o[i][4 * c + 2]);
+            o[i][4 * c + 3] = fmaf(pr, vv.w, o[i][4 * c + 3]);
+          }
+        }
+      }
     }
-    const float m_new = fmaxf(m, mx);
-    const float base = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = exp2f(m - base);
-    l *= alpha;
-    m = m_new;
+    __syncthreads();  // every thread is done with P and the value tile
+  }
+
+  // each row's sum over its 16 threads (a fixed butterfly); with one
+  // split the rows are done, else the partial rows and (max, sum) go to
+  // the scratch for flash_fwd_merge_rows_kernel
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * seq;
+  const int col0 = slice * kSlice + 4 * tx;
 #pragma unroll
-    for (int j = 0; j < flash::kRowTile; ++j) {
-      s[j] = exp2f(s[j] - base);
-      l += s[j];
+  for (int i = 0; i < TM; ++i) {
+    float l_row = l[i];
+#pragma unroll
+    for (int offset = 1; offset < kLanes; offset <<= 1) {
+      l_row += __shfl_xor_sync(0xffffffffu, l_row, offset);
     }
-    for (int d = lane; d < D; d += 32) {
-      float a = acc[d] * alpha;
+    const int qpos = q0 + ty + kRowGroups * i;
+    if (qpos >= seq) continue;
+    const int64_t row = static_cast<int64_t>(bh) * seq + qpos;
+    if (p.n_splits == 1) {
+      const float inv = 1.f / l_row;  // >= 1: the row's largest term is exp2(0)
+      T* o_row = static_cast<T*>(p.out) + b * p.o_sb + static_cast<int64_t>(qpos) * p.o_ss +
+                 h * p.o_sh + col0;
 #pragma unroll
-      for (int j = 0; j < flash::kRowTile; ++j) a = fmaf(s[j], v_tile[j * D + d], a);
-      acc[d] = a;
+      for (int c = 0; c < TC; ++c) {
+        flash::store4(o_row + 4 * kLanes * c,
+                      make_float4(o[i][4 * c] * inv, o[i][4 * c + 1] * inv, o[i][4 * c + 2] * inv,
+                                  o[i][4 * c + 3] * inv),
+                      vec);
+      }
+      if (slice == 0 && tx == 0) p.lse[row] = (m[i] + log2f(l_row)) * flash::kLn2;
+    } else {
+      const int64_t at = split * n_rows + row;
+#pragma unroll
+      for (int c = 0; c < TC; ++c) {
+        flash::store4(p.ws + at * D + col0 + 4 * kLanes * c,
+                      make_float4(o[i][4 * c], o[i][4 * c + 1], o[i][4 * c + 2], o[i][4 * c + 3]),
+                      true);
+      }
+      if (slice == 0 && tx == 0) {
+        reinterpret_cast<float2*>(p.ws + p.n_splits * n_rows * D)[at] = make_float2(m[i], l_row);
+      }
     }
   }
-  if (qpos >= seq) return;
-  T* o_row = static_cast<T*>(p.out) + b * p.o_sb + static_cast<int64_t>(qpos) * p.o_ss +
-             h * p.o_sh;
-  const float inv = 1.f / l;  // >= 1: the row's largest term is exp2(0)
-  for (int d = lane; d < D; d += 32) o_row[d] = flash::from_float<T>(acc[d] * inv);
-  if (lane == 0) p.lse[static_cast<int64_t>(bh) * seq + qpos] = (m + log2f(l)) * flash::kLn2;
+}
+
+// Merge the key splits of the sliced forward (the width D at run time):
+// flash_fwd_merge_kernel's sums, one warp a row, the lanes striding over
+// the width.
+template <typename T>
+__global__ void __launch_bounds__(128) flash_fwd_merge_rows_kernel(const Params p, int D) {
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * p.seq;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 4 + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const float2* stats = reinterpret_cast<const float2*>(p.ws + p.n_splits * n_rows * D);
+  float m_row = flash::kNegInf;
+  for (int s = 0; s < p.n_splits; ++s) m_row = fmaxf(m_row, stats[s * n_rows + row].x);
+  float w[flash::kMaxSplits];
+  float l_row = 0.f;
+  for (int s = 0; s < p.n_splits; ++s) {
+    const float2 st = stats[s * n_rows + row];
+    w[s] = exp2f(st.x - m_row);  // 0 for a split that saw no key of the row
+    l_row = fmaf(w[s], st.y, l_row);
+  }
+  const int bh = static_cast<int>(row / p.seq);
+  const int qpos = static_cast<int>(row - static_cast<int64_t>(bh) * p.seq);
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  T* o_row = static_cast<T*>(p.out) + b * p.o_sb + static_cast<int64_t>(qpos) * p.o_ss + h * p.o_sh;
+  for (int d = lane; d < D; d += 32) {
+    float acc = 0.f;
+    for (int s = 0; s < p.n_splits; ++s) acc = fmaf(w[s], p.ws[(s * n_rows + row) * D + d], acc);
+    o_row[d] = flash::from_float<T>(acc / l_row);
+  }
+  if (lane == 0) p.lse[row] = (m_row + log2f(l_row)) * flash::kLn2;
 }
 
 template <typename T, int D, int R, int S, int kMinBlocks>
@@ -982,24 +1197,72 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream, int* launched) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dynamic shared memory of a rowwise block at head_dim D: key and value
-// tiles, the warps' q rows and accumulators, all float32
-constexpr int rowwise_smem(int D) {
-  return (2 * flash::kRowTile + 2 * flash::kRowWarps) * D * static_cast<int>(sizeof(float));
+// (query rows, keys a tile, head dims a staged chunk, output columns,
+// warps, minimum blocks per SM) of the sliced forward
+struct FwdSlicedTiling {
+  static constexpr int kRows = 32, kKeys = 64, kChunk = 64, kSlice = 128, kWarps = 4, kMinBlocks = 2;
+};
+
+template <typename T>
+auto sliced_kernel() {
+  using Tile = FwdSlicedTiling;
+  return flash_fwd_sliced_kernel<T, Tile::kRows, Tile::kKeys, Tile::kChunk, Tile::kSlice,
+                                 Tile::kWarps, Tile::kMinBlocks>;
+}
+
+// dynamic shared memory of a sliced block: the q and key chunk ring, the
+// value tile (staged type) and P (float32)
+template <typename T>
+constexpr int sliced_smem() {
+  using Tile = FwdSlicedTiling;
+  constexpr int kPad = 16 / static_cast<int>(sizeof(flash::staged_t<T>));
+  return (2 * (Tile::kRows + Tile::kKeys) * (Tile::kChunk + kPad) +
+          Tile::kKeys * (Tile::kSlice + kPad)) *
+             static_cast<int>(sizeof(flash::staged_t<T>)) +
+         Tile::kRows * (Tile::kKeys + 4) * static_cast<int>(sizeof(float));
 }
 
 template <typename T>
-int launch_rowwise(Params& p, int64_t batch_heads, int head_dim, cudaStream_t stream,
-                   int* launched) {
-  static const cudaError_t smem_ok =
-      flash::allow_dynamic_smem(flash_fwd_rowwise_kernel<T>, rowwise_smem(flash::kMaxRowwiseDim));
-  if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
-  p.n_qtiles = (p.seq + flash::kRowWarps - 1) / flash::kRowWarps;
-  const int64_t n_blocks = batch_heads * p.n_qtiles;
-  if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  flash_fwd_rowwise_kernel<T><<<static_cast<unsigned>(n_blocks), flash::kRowThreads,
-                                rowwise_smem(head_dim), stream>>>(p, head_dim);
-  *launched = flash::kFamilyRowwise;
+const flash::WideSetup& sliced_setup() {
+  static const flash::WideSetup setup =
+      flash::wide_setup(sliced_kernel<T>(), FwdSlicedTiling::kWarps * 32, sliced_smem<T>());
+  return setup;
+}
+
+template <typename T>
+int sliced_splits(int64_t wave, int64_t batch_heads, int seq, int head_dim, bool causal) {
+  using Tile = FwdSlicedTiling;
+  const int64_t blocks =
+      batch_heads * ((seq + Tile::kRows - 1) / Tile::kRows) * (head_dim / Tile::kSlice);
+  return flash::key_splits(wave, blocks, (seq + Tile::kKeys - 1) / Tile::kKeys, causal);
+}
+
+template <typename T>
+int launch_sliced(Params& p, int64_t batch_heads, int head_dim, cudaStream_t stream,
+                  int* launched) {
+  using Tile = FwdSlicedTiling;
+  if (head_dim % Tile::kSlice != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const flash::WideSetup& setup = sliced_setup<T>();
+  if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
+  p.n_splits = sliced_splits<T>(setup.wave, batch_heads, p.seq, head_dim, p.causal);
+  if (p.n_splits > 1 && p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_qtiles = (p.seq + Tile::kRows - 1) / Tile::kRows;
+  const int64_t n_blocks =
+      batch_heads * p.n_qtiles * (head_dim / Tile::kSlice) * static_cast<int64_t>(p.n_splits);
+  const int64_t n_rows = batch_heads * p.seq;
+  if (n_blocks > INT_MAX || (n_rows + 3) / 4 > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const auto kernel = sliced_kernel<T>();
+  kernel<<<static_cast<unsigned>(n_blocks), Tile::kWarps * 32, sliced_smem<T>(), stream>>>(
+      p, head_dim);
+  if (p.n_splits > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_merge_rows_kernel<T>
+        <<<static_cast<unsigned>((n_rows + 3) / 4), 128, 0, stream>>>(p, head_dim);
+  }
+  *launched = flash::kFamilySliced;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1013,9 +1276,7 @@ int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t
     case 128: return launch<T, 128>(p, batch_heads, stream, launched);
     case 256: return launch<T, 256>(p, batch_heads, stream, launched);
     default:
-      if (head_dim > 256 && head_dim <= flash::kMaxRowwiseDim) {
-        return launch_rowwise<T>(p, batch_heads, head_dim, stream, launched);
-      }
+      if (head_dim > 256) return launch_sliced<T>(p, batch_heads, head_dim, stream, launched);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1033,7 +1294,12 @@ int splits_for(int head_dim, int64_t batch_heads, int seq, bool causal) {
     case 64: return splits_of<T, 64>(batch_heads, seq, causal);
     case 128: return splits_of<T, 128>(batch_heads, seq, causal);
     case 256: return splits_of<T, 256>(batch_heads, seq, causal);
-    default: return 1;
+    default: {
+      if (head_dim <= 256 || head_dim % FwdSlicedTiling::kSlice != 0) return 1;
+      const flash::WideSetup& setup = sliced_setup<T>();
+      if (setup.err != cudaSuccess) return -static_cast<int>(setup.err);
+      return sliced_splits<T>(setup.wave, batch_heads, seq, head_dim, causal);
+    }
   }
 }
 

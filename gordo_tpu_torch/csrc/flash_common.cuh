@@ -4,7 +4,7 @@
 // for unaligned views, the fixed-order reductions over the four lanes
 // ("quad") that share one row, the key-split rule of the wide kernels,
 // the kernel families an entry point reports, and the warp sum and
-// float32 staging of the run-time-width (rowwise) kernels.
+// float32 staging of the run-time-width (rowwise) backward kernels.
 //
 // Element types are float32, bfloat16, float16 and float64, as the Pallas
 // kernels take them: every element is converted to float32 on load and
@@ -46,18 +46,22 @@ constexpr int kQuadThreads = kQuadWarps * 32;
 constexpr int kFamilyQuad = 0;     // head_dim 16 and 32
 constexpr int kFamilyWide = 1;     // 64, 128 and 256 on the CUDA cores
 constexpr int kFamilyMma = 2;      // 64 and 128 in bfloat16 and float16, tensor cores
-constexpr int kFamilyRowwise = 3;  // any head_dim above 256, up to kMaxRowwiseDim
+constexpr int kFamilyRowwise = 3;  // dq and dk/dv at any head_dim above 256
+constexpr int kFamilySliced = 4;   // the forward at any head_dim above 256
 
-// The run-time-width (rowwise) kernels: one warp a row, kRowWarps rows a
-// block, partner rows staged kRowTile at a time, every row in shared
-// memory as float32. kMaxRowwiseDim is the widest head_dim whose rows fit
-// the block's shared memory (the dk/dv kernel's 192 * D + 128 bytes stay
-// under the 227 KB a block may take); the Python wrapper's MAX_HEAD_DIM
-// is the same number.
+// The run-time-width (rowwise) backward kernels: one warp a row, kRowWarps
+// rows a block, partner rows staged kRowTile at a time as float32. Up to
+// kMaxSharedRowDim every row of the block sits in shared memory whole (the
+// dk/dv kernel's 192 * D + 128 bytes stay under the 227 KB a block may
+// take); above it the kernels stream: partner rows are staged kRowChunk
+// columns at a time, the warp's own rows are read from their tensors and
+// its float32 accumulators live in a scratch the caller allocates. The
+// Python wrapper's MAX_SHARED_ROW_DIM is the same number.
 constexpr int kRowWarps = 4;
 constexpr int kRowThreads = kRowWarps * 32;
 constexpr int kRowTile = 16;
-constexpr int kMaxRowwiseDim = 1024;
+constexpr int kMaxSharedRowDim = 1024;
+constexpr int kRowChunk = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;

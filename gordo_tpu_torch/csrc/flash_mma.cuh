@@ -122,6 +122,16 @@ __device__ __forceinline__ void split_a(uint32_t (&head)[4], uint32_t (&tail)[4]
   split2<T>(c1[2], c1[3], head[3], tail[3]);
 }
 
+// The same A fragment rounded once to T: one product on the tensor cores
+template <typename T>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack2<T>(c0[0], c0[1]);
+  a[1] = pack2<T>(c0[2], c0[3]);
+  a[2] = pack2<T>(c1[0], c1[1]);
+  a[3] = pack2<T>(c1[2], c1[3]);
+}
+
 // Row address of this lane for an ldmatrix.x4 of a 16 x 16 A block at
 // (row0, col0) of a tile with `pitch` elements a row: lanes 0-15 rows
 // 0-15 at col0, lanes 16-31 rows 0-15 at col0 + 8.

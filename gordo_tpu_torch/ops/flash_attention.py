@@ -27,8 +27,8 @@ JAX wrapper are gone; the per-row log-sum-exp (and the backward's
   multiply in the input's type: they carry the probabilities P of P·V in
   the forward, and Pᵀ and dSᵀ of Pᵀ·dO and dSᵀ·Q in dk/dv, as two terms
   of that type (head + tail), where FlashAttention and PyTorch's SDPA
-  round them once; the plain versions keep them in float32, as the
-  Pallas kernel does on the CPU.
+  round them once; dq's dS of dS·K is rounded once. The plain versions
+  keep them in float32, as the Pallas kernel does on the CPU.
 
 :func:`flash_attention` is differentiable through
 :class:`FlashAttentionFunction`, which saves (q, k, v, out, lse) as the
@@ -41,26 +41,28 @@ its attention went through the kernels.
 
 The kernels run at head_dim 16, 32, 64, 128 and 256 (:data:`HEAD_DIMS`)
 and, through kernels that take the width at run time, at any multiple of
-128 up to :data:`MAX_HEAD_DIM`. As the JAX wrapper pads head_dim to a
+128 above 256, with no upper limit. As the JAX wrapper pads head_dim to a
 multiple of 128 lanes, every wrapper here zero-pads q, k, v (and O, dO)
 on the head axis to the kernel width (:func:`kernel_width`: 8 and 12 run
 at 16, 24 at 32, 48 at 64, 96 at 128, 129-255 at 256, 257-384 at 384, 640
-at 640), keeps ``sm_scale`` at 1/sqrt(the caller's head_dim) unless the
-caller gives one, and slices out, dq, dk and dv back. Zero lanes add
-nothing to a score and give zero output and gradient, and LSE and delta
-are unchanged. The CPU path pads too, so the CPU tests run the same
-padding. Above :data:`MAX_HEAD_DIM` no kernel's rows fit a block's
-shared memory: a CUDA tensor raises, and a CPU tensor runs the plain
-version at its own width.
+at 640, 1025-1152 at 1152), keeps ``sm_scale`` at 1/sqrt(the caller's
+head_dim) unless the caller gives one, and slices out, dq, dk and dv
+back. Zero lanes add nothing to a score and give zero output and
+gradient, and LSE and delta are unchanged. The CPU path pads too, so the
+CPU tests run the padding the card runs.
 
 Which CUDA kernel an entry point runs depends on the width and the type:
 the quad-lane kernels at 16 and 32; at 64 and 128 the tensor-core
-kernels (``mma.sync``) for the bfloat16/float16 forward and dk/dv, and
-the CUDA-core "wide" kernels for float32, float64 and the dq of every
-type; the wide kernels at 256; the "rowwise" run-time-width kernels
-above 256. The kernel's C side reports the family it launched, and the
-wrapper counts it in :data:`kernel_launches` beside the entry point's
-own count in :data:`launch_counts`.
+kernels (``mma.sync``) for all three entry points in bfloat16/float16,
+and the CUDA-core "wide" kernels for float32 and float64; the wide
+kernels at 256; above 256 the width-sliced forward ("sliced") and the
+"rowwise" dq and dk/dv kernels. The rowwise kernels keep a block's rows
+in shared memory up to :data:`MAX_SHARED_ROW_DIM` and stream them above
+it, with their float32 accumulators in a scratch the wrapper allocates.
+The kernel's C side reports the family it launched, and the wrapper
+counts it in :data:`kernel_launches` beside the entry point's own count
+in :data:`launch_counts`. The C interface takes batch, seq, heads and
+head_dim (and batch * heads) as int32: a wider shape raises here.
 
 The forward and the dq kernel may split the key axis across blocks when
 a launch's row tiles alone leave the card's SMs idle (head_dim 64 and
@@ -90,9 +92,12 @@ KERNEL_DKV = "flash_attention_bwd_dkv"
 SOURCES = {KERNEL: "flash_attention_fwd", KERNEL_DQ: "flash_attention_bwd",
            KERNEL_DKV: "flash_attention_bwd"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: the widest head_dim a kernel takes: the run-time-width kernels keep
-#: every row of a block in shared memory (``flash::kMaxRowwiseDim``)
-MAX_HEAD_DIM = 1024
+#: the widest head_dim whose rows the rowwise dq and dk/dv kernels keep in
+#: shared memory (``flash::kMaxSharedRowDim``); wider rows stream, with
+#: the accumulators in a float32 scratch the wrapper allocates
+MAX_SHARED_ROW_DIM = 1024
+#: the C interface's int32 shape arguments
+_INT32_MAX = 2**31 - 1
 #: above the widest of HEAD_DIMS, widths are padded to a multiple of this
 _LANE_PAD = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.float64: 3}
@@ -102,11 +107,11 @@ MODE_VEC16 = 2
 _VEC_BYTES = 16
 
 #: the kernel families an entry point reports (``flash::kFamily*``, in order)
-FAMILIES = ("quad", "wide", "mma", "rowwise")
-#: each entry point's kernels, by family (dq has no tensor-core kernel)
+FAMILIES = ("quad", "wide", "mma", "rowwise", "sliced")
+#: each entry point's kernels, by family
 KERNEL_FAMILIES = {
-    KERNEL: ("quad", "wide", "mma", "rowwise"),
-    KERNEL_DQ: ("quad", "wide", "rowwise"),
+    KERNEL: ("quad", "wide", "mma", "sliced"),
+    KERNEL_DQ: ("quad", "wide", "mma", "rowwise"),
     KERNEL_DKV: ("quad", "wide", "mma", "rowwise"),
 }
 
@@ -242,31 +247,22 @@ def _check_kernel_inputs(q: torch.Tensor) -> None:
             "flash_attention kernels take float32, bfloat16, float16 or float64, "
             f"got {q.dtype}"
         )
+    batch, seq, heads, head_dim = q.shape
+    if max(batch * heads, seq, head_dim) > _INT32_MAX:
+        raise ValueError(
+            "flash_attention kernels take batch * heads, seq and head_dim as int32 "
+            f"(at most {_INT32_MAX}), got shape {tuple(q.shape)}"
+        )
 
 
 def kernel_width(head_dim: int) -> int:
     """The head_dim a kernel runs ``head_dim`` at: the next of
     :data:`HEAD_DIMS`, or above the widest of them the next multiple of
-    128, as the JAX wrapper pads. Raises above :data:`MAX_HEAD_DIM`."""
+    128, as the JAX wrapper pads."""
     for width in HEAD_DIMS:
         if head_dim <= width:
             return width
-    if head_dim <= MAX_HEAD_DIM:
-        return -(-head_dim // _LANE_PAD) * _LANE_PAD
-    raise ValueError(
-        f"flash_attention kernels take head_dim up to MAX_HEAD_DIM = {MAX_HEAD_DIM} "
-        f"(zero-padded to the next of {HEAD_DIMS}, then to a multiple of {_LANE_PAD}), "
-        f"got {head_dim}: a wider row does not fit a block's shared memory"
-    )
-
-
-def _width(q: torch.Tensor) -> int:
-    """The head_dim a call on q runs at: the kernel width, or on the CPU a
-    head_dim above :data:`MAX_HEAD_DIM` as it is (the plain version takes
-    any)."""
-    if q.device.type == "cpu" and q.shape[-1] > MAX_HEAD_DIM:
-        return q.shape[-1]
-    return kernel_width(q.shape[-1])
+    return -(-head_dim // _LANE_PAD) * _LANE_PAD
 
 
 def _to_width(width: int, *tensors: torch.Tensor):
@@ -451,7 +447,7 @@ def flash_attention_forward(
     _check_inputs(q, k, v)
     sm_scale = _default_scale(q, sm_scale)
     path, head_dim = _device_path("flash_attention", q), q.shape[-1]
-    q, k, v = _to_width(_width(q), q, k, v)
+    q, k, v = _to_width(kernel_width(q.shape[-1]), q, k, v)
     if path == "cuda":
         out, lse = _launch(q, k, v, causal, sm_scale)
     else:
@@ -487,7 +483,7 @@ def flash_attention_bwd_dq(
     _check_like(q, out=out, d_out=d_out)
     sm_scale = _default_scale(q, sm_scale)
     path, head_dim = _device_path("flash_attention_bwd_dq", q), q.shape[-1]
-    q, k, v, out, d_out = _to_width(_width(q), q, k, v, out, d_out)
+    q, k, v, out, d_out = _to_width(kernel_width(q.shape[-1]), q, k, v, out, d_out)
     if path == "cpu":
         dq, delta = flash_attention_bwd_dq_reference(q, k, v, out, lse, d_out, causal, sm_scale)
     else:
@@ -506,11 +502,13 @@ def _launch_dq(q, k, v, out, lse, d_out, causal: bool, sm_scale: float):
     if dq.numel() == 0:
         return dq, delta
     splits = dq_splits(q, causal)
-    # each split's unscaled dq rows, summed by the merge kernel
+    # each split's unscaled dq rows, summed by the merge kernel; above
+    # MAX_SHARED_ROW_DIM the rowwise kernel's float32 dq accumulators
+    layers = splits if splits > 1 else int(head_dim > MAX_SHARED_ROW_DIM)
     workspace = None
-    if splits > 1:
+    if layers:
         workspace = torch.empty(
-            splits * batch * heads * seq * head_dim, dtype=torch.float32, device=q.device
+            layers * batch * heads * seq * head_dim, dtype=torch.float32, device=q.device
         )
     fn = _kernel_function(KERNEL_DQ, 9)
     _call(KERNEL_DQ, fn, q, (
@@ -539,7 +537,7 @@ def flash_attention_bwd_dkv(
     _check_like(q, d_out=d_out)
     sm_scale = _default_scale(q, sm_scale)
     path, head_dim = _device_path("flash_attention_bwd_dkv", q), q.shape[-1]
-    q, k, v, d_out = _to_width(_width(q), q, k, v, d_out)
+    q, k, v, d_out = _to_width(kernel_width(q.shape[-1]), q, k, v, d_out)
     if path == "cpu":
         dk, dv = flash_attention_bwd_dkv_reference(q, k, v, lse, delta, d_out, causal, sm_scale)
     else:
@@ -556,10 +554,15 @@ def _launch_dkv(q, k, v, lse, delta, d_out, causal: bool, sm_scale: float):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    fn = _kernel_function(KERNEL_DKV, 8)
+    # above MAX_SHARED_ROW_DIM the rowwise kernel's float32 dk and dv accumulators
+    workspace = None
+    if q.shape[-1] > MAX_SHARED_ROW_DIM:
+        workspace = torch.empty(2 * q.numel(), dtype=torch.float32, device=q.device)
+    fn = _kernel_function(KERNEL_DKV, 9)
     _call(KERNEL_DKV, fn, q, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if workspace is None else workspace.data_ptr(),
         *_shape_args(q), _stride_array(q, k, v, d_out, dk, dv),
         float(sm_scale), _mode(causal, q, k, v, d_out, dk, dv),
     ))
@@ -595,7 +598,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float):
         head_dim = q.shape[-1]
-        q, k, v = _to_width(_width(q), q, k, v)
+        q, k, v = _to_width(kernel_width(q.shape[-1]), q, k, v)
         out, lse = flash_attention_forward(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal

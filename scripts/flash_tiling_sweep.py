@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """
-Times tilings of the head_dim 64/128/256 flash forward, dq and dk/dv
-kernels on one card, each against the same inputs, in one process.
+Times tilings of the flash forward, dq and dk/dv kernels on one card
+(head_dim 64/128/256, and the sliced forward above 256), each against the
+same inputs, in one process.
 
     python3 scripts/flash_tiling_sweep.py 'VARIANTS' [--out ROWS.jsonl] [--case NAME ...]
 
@@ -10,13 +11,15 @@ VARIANTS is JSON that maps a variant's name to the constants it changes, e.g.
 {"max_splits": 1}}``: ``fwd<D>`` sets ``FwdWideTiling<D>``, ``dq<D>``
 ``DqWideTiling<D>`` and ``dkv<D>`` ``DkvWideTiling<D>`` as (R, S, kWarps,
 kTile, kMinBlocks), for D of 64, 128 or 256; ``fwdmma<D>`` sets the
-tensor-core forward's ``FwdMmaTiling<D>`` as (kTile, kMinBlocks) and
+tensor-core forward's ``FwdMmaTiling<D>`` as (kTile, kMinBlocks),
 ``dkvmma<D>`` the tensor-core dk/dv's ``DkvMmaTiling<D>`` as (kTile,
-kMinBlocks, kKeepKV), for D of 64 or 128; ``max_splits`` sets
+kMinBlocks, kKeepKV) and ``dqmma<D>`` the tensor-core dq's
+``DqMmaTiling<D>`` as (kTile, kMinBlocks), for D of 64 or 128; ``fwdsliced`` sets the sliced forward's ``FwdSlicedTiling`` as
+(kRows, kKeys, kChunk, kSlice, kWarps, kMinBlocks); ``max_splits`` sets
 ``kMaxSplits``, the forward's and dq's limit. Each variant's sources are
 copied with those constants replaced and built with the port's nvcc
 flags (all variants at once), and nvcc's register and spill lines for
-the wide and tensor-core kernels are printed. ``--case`` (repeatable)
+the wide, tensor-core and sliced kernels are printed. ``--case`` (repeatable)
 runs only the named cases. Then, per case, every variant's forward,
 dq and dk/dv run against the plain versions (``chip_smoke.TOLERANCE``),
 twice for a bitwise repeat, and are timed with ``chip_smoke.device_ms``
@@ -60,9 +63,16 @@ CASES = [
     ("fp16-64", (4, 1000, 2, 64), True, "float16", False),
     ("bf16-128-full", (2, 300, 2, 128), False, "bfloat16", False),
     ("bf16-128-long", (1, 4096, 4, 128), True, "bfloat16", False),
+    ("head-dim-300", (2, 300, 2, 300), True, "float32", False),
+    ("head-dim-300-bf16", (2, 300, 2, 300), True, "bfloat16", False),
+    ("wide-head-model", (4, 256, 2, 300), True, "float32", False),  # chip_smoke's phase 7
+    ("head-dim-640", (1, 256, 2, 640), False, "float32", False),
+    ("head-dim-1100", (1, 128, 2, 1100), True, "float32", False),
+    ("head-dim-2048-bf16", (1, 64, 1, 2048), False, "bfloat16", False),
 ]
 STRUCTS = {"fwd": "FwdWideTiling", "dq": "DqWideTiling", "dkv": "DkvWideTiling",
-           "fwdmma": "FwdMmaTiling", "dkvmma": "DkvMmaTiling"}
+           "fwdmma": "FwdMmaTiling", "dkvmma": "DkvMmaTiling", "dqmma": "DqMmaTiling"}
+
 
 
 def variant_sources(spec: dict, out_dir: str) -> str:
@@ -74,7 +84,11 @@ def variant_sources(spec: dict, out_dir: str) -> str:
         for key, values in spec.items():
             if key == "max_splits":
                 pattern, value = r"constexpr int kMaxSplits = \d+;", f"constexpr int kMaxSplits = {values};"
-            elif key.startswith(("fwdmma", "dkvmma")):
+            elif key == "fwdsliced":
+                pattern = r"(struct FwdSlicedTiling \{\n  static constexpr int )[^;]*;"
+                value = (r"\g<1>kRows = %d, kKeys = %d, kChunk = %d, kSlice = %d, kWarps = %d, "
+                         r"kMinBlocks = %d;" % tuple(values))
+            elif key.startswith(("fwdmma", "dkvmma", "dqmma")):
                 kernel, width = re.fullmatch(r"([a-z]+)(\d+)", key).groups()
                 struct, width = STRUCTS[kernel], int(width)
                 pattern = r"(struct %s<%d> \{\n  static constexpr int )[^;]*;" % (struct, width)
@@ -108,12 +122,12 @@ def nvcc(src_dir: str, stem: str):
 
 
 def wide_registers(text: str):
-    """(kernel, registers, spill store bytes) of each wide and tensor-core
-    kernel nvcc built."""
+    """(kernel, registers, spill store bytes) of each wide, tensor-core and
+    sliced kernel nvcc built."""
     lines = text.splitlines()
     for i, line in enumerate(lines):
-        found = re.search(r"Compiling entry function '\S*?(flash_\w+_(?:wide|mma)_kernel\w*?)EEEv",
-                          line)
+        found = re.search(
+            r"Compiling entry function '\S*?(flash_\w+_(?:wide|mma|sliced)_kernel\w*?)EEEv", line)
         if found:
             info = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", info)

@@ -235,26 +235,35 @@ def test_cuda_wrappers_pad_head_dim(head_dim, width, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_raises_above_head_dim_128():
-    """Every head_dim up to MAX_HEAD_DIM runs (above 256 at the next
-    multiple of 128); above it the card raises and names the limit; it
-    never falls back to the plain version."""
+@pytest.mark.parametrize("head_dim", [1100, 2048])
+def test_cuda_raises_above_head_dim_128(head_dim):
+    """No head_dim limit is left on the card: 1100 (run at 1152) and 2048,
+    above MAX_SHARED_ROW_DIM, run through all three entry points and the
+    Function (the sliced forward, the streamed rowwise dq and dk/dv), each
+    launching its kernel once and agreeing with the plain version; nothing
+    falls back to it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    head_dim = fa.MAX_HEAD_DIM + 1
-    q, k, v, d_out = (torch.zeros((1, 8, 1, head_dim), device="cuda") for _ in range(4))
-    lse = torch.zeros((1, 8), device="cuda")
+    assert head_dim > fa.MAX_SHARED_ROW_DIM
+    shape = (1, 70, 2, head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, d_out = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
     before = dict(fa.launch_counts)
-    calls = [
-        lambda: fa.flash_attention_forward(q, k, v),
-        lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, d_out),
-        lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, lse, d_out),
-        lambda: fa.flash_attention(q, k, v),
-    ]
-    for call in calls:
-        with pytest.raises(ValueError, match=f"MAX_HEAD_DIM = {fa.MAX_HEAD_DIM}"):
-            call()
-    assert fa.launch_counts == before
+    out, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, d_out, causal=True)
+    torch.cuda.synchronize()
+    assert all(fa.launch_counts[n] == before[n] + 1 for n in before)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    assert (out - ref_out).abs().max().item() <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, d_out, causal=True)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.shape == shape and (g - w).abs().max().item() <= 1e-4, name
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (fa.flash_attention(*leaves, causal=True) * d_out).sum().backward()
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        assert (leaf.grad - w).abs().max().item() <= 1e-4, name
 
 
 def _launched(before):
@@ -276,9 +285,9 @@ def _launched(before):
 )
 def test_cuda_tensor_core_kernels_match_plain_version(shape, causal, dtype, tol):
     """bfloat16 and float16 at kernel widths 64 and 128 run the tensor-core
-    forward and dk/dv kernels (dq stays on the wide kernel): each within
-    the type's tolerance of the plain version, two dk/dv launches bitwise
-    equal (each key row has one owner, no atomics)."""
+    forward, dq and dk/dv kernels: each within the type's tolerance of the
+    plain version, two dk/dv launches bitwise equal (each key row has one
+    owner, no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -289,7 +298,7 @@ def test_cuda_tensor_core_kernels_match_plain_version(shape, causal, dtype, tol)
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
     dq, dk, dv = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
     torch.cuda.synchronize()
-    assert _launched(before) == [f"{fa.KERNEL_DKV}_mma", f"{fa.KERNEL_DQ}_wide",
+    assert _launched(before) == [f"{fa.KERNEL_DKV}_mma", f"{fa.KERNEL_DQ}_mma",
                                  f"{fa.KERNEL}_mma"]
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
@@ -334,12 +343,17 @@ def test_cuda_float32_and_float64_keep_the_wide_kernels(dtype, head_dim):
         ((1, 256, 2, 640), False, torch.float32, 1e-4),
         ((1, 256, 2, 640), False, torch.bfloat16, 2e-2),
         ((1, 100, 1, 1024), True, torch.float32, 1e-4),
+        ((1, 128, 2, 1100), True, torch.float32, 1e-4),
+        ((1, 96, 1, 1100), False, torch.bfloat16, 2e-2),
+        ((1, 64, 1, 2048), False, torch.float32, 1e-4),
+        ((1, 64, 1, 2048), True, torch.float16, 5e-3),
     ],
 )
 def test_cuda_rowwise_kernels_match_plain_version(shape, causal, dtype, tol):
-    """Above 256 the three rowwise kernels run at the JAX padding (300 at
-    384, 640 and 1024 as they are): each within its tolerance of the plain
-    version, two launches of each bitwise equal."""
+    """Above 256 the rowwise dq and dk/dv kernels (streamed above
+    MAX_SHARED_ROW_DIM) and the sliced forward run at the JAX padding (300
+    at 384, 1100 at 1152, 640, 1024 and 2048 as they are): each within its
+    tolerance of the plain version, two launches of each bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -350,8 +364,8 @@ def test_cuda_rowwise_kernels_match_plain_version(shape, causal, dtype, tol):
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
     got = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
     torch.cuda.synchronize()
-    assert _launched(before) == [f"{entry}_rowwise"
-                                 for entry in (fa.KERNEL_DKV, fa.KERNEL_DQ, fa.KERNEL)]
+    assert _launched(before) == [f"{fa.KERNEL_DKV}_rowwise", f"{fa.KERNEL_DQ}_rowwise",
+                                 f"{fa.KERNEL}_sliced"]
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     assert (out.double() - ref_out.double()).abs().max().item() <= tol
     assert (lse.double() - ref_lse.double()).abs().max().item() <= tol
@@ -431,6 +445,80 @@ def test_cuda_wide_dq_matches_plain_version(shape, causal, dtype, tol, split):
     assert dq.dtype == dtype and dq.shape == shape
     assert (dq.double() - ref_dq.double()).abs().max().item() <= tol
     assert (delta.double() - ref_delta.double()).abs().max().item() <= tol
+
+
+# the seven cases of test_cuda_tensor_core_kernels_match_plain_version,
+# then two whose dq splits its keys and two whose dq does not
+MMA_DQ_CASES = [
+    ((4, 1000, 2, 64), True, torch.bfloat16, 2e-2, None),
+    ((4, 1000, 2, 64), False, torch.float16, 5e-3, None),
+    ((2, 300, 2, 128), False, torch.bfloat16, 2e-2, None),
+    ((3, 301, 2, 128), True, torch.float16, 5e-3, None),
+    ((16, 200, 2, 48), True, torch.bfloat16, 2e-2, None),
+    ((3, 150, 2, 96), False, torch.float16, 5e-3, None),
+    ((1, 500, 1, 64), False, torch.bfloat16, 2e-2, None),
+    ((1, 500, 1, 64), True, torch.bfloat16, 2e-2, True),
+    ((1, 300, 1, 128), False, torch.float16, 5e-3, True),
+    ((8, 1024, 4, 64), False, torch.bfloat16, 2e-2, False),
+    ((16, 512, 8, 128), True, torch.float16, 5e-3, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,dtype,tol,split", MMA_DQ_CASES)
+def test_cuda_mma_dq_matches_plain_version(shape, causal, dtype, tol, split):
+    """The tensor-core dq kernel (bfloat16 and float16 at kernel widths 64
+    and 128), with and without its key split, against the plain version
+    (dq and delta); two launches are bitwise equal (no atomics, the merge
+    sums the splits in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, d_out = (
+        torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)
+    )
+    width = torch.empty(shape[:-1] + (fa.kernel_width(shape[-1]),), dtype=dtype, device="cuda")
+    if split is not None:
+        assert (fa.dq_splits(width, causal) > 1) == split
+    out, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    before = dict(fa.kernel_launches)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=causal)
+    dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, d_out, causal=causal)
+    torch.cuda.synchronize()
+    assert _launched(before) == [f"{fa.KERNEL_DQ}_mma"]
+    assert fa.kernel_launches[f"{fa.KERNEL_DQ}_mma"] == before[f"{fa.KERNEL_DQ}_mma"] + 2
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
+        q, k, v, out, lse, d_out, causal, shape[-1] ** -0.5
+    )
+    assert dq.dtype == dtype and dq.shape == shape
+    assert (dq.float() - ref_dq.float()).abs().max().item() <= tol
+    assert (delta - ref_delta).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,causal", [((2, 300, 2, 300), True), ((1, 256, 2, 640), False),
+                                          ((1, 128, 2, 1100), True), ((1, 64, 1, 2048), False)])
+def test_cuda_sliced_forward_matches_plain_version(shape, causal, dtype, tol):
+    """The width-sliced forward at every width above 256 (300 at 384, 1100
+    at 1152): within the type's tolerance of the plain version, two
+    launches bitwise equal (each output slice and row has one owner; the
+    key splits merge in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    before = dict(fa.kernel_launches)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    out2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _launched(before) == [f"{fa.KERNEL}_sliced"]
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == shape
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= tol
 
 
 @pytest.mark.cuda

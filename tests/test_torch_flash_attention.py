@@ -168,24 +168,29 @@ def test_reset_launch_counts():
 
 def test_kernel_launches_name_every_kernel():
     """One counter for each CUDA kernel an entry point may launch: the
-    quad, wide and rowwise kernels of all three, the tensor-core ones of
-    the forward and dk/dv."""
+    quad, wide and tensor-core kernels of all three, the width-sliced
+    forward and the rowwise dq and dk/dv."""
     assert sorted(fa.kernel_launches) == sorted([
         *(f"{entry}_{family}" for entry in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)
-          for family in ("quad", "wide", "rowwise")),
-        f"{fa.KERNEL}_mma", f"{fa.KERNEL_DKV}_mma",
+          for family in ("quad", "wide", "mma")),
+        f"{fa.KERNEL}_sliced", f"{fa.KERNEL_DQ}_rowwise", f"{fa.KERNEL_DKV}_rowwise",
     ])
 
 
 def test_max_head_dim_is_the_kernels_limit():
-    """The wrapper's MAX_HEAD_DIM is the C side's flash::kMaxRowwiseDim, and
-    the limit the rowwise kernels' shared memory allows: the dk/dv block's
-    192 bytes a lane of width plus its LSE and delta fit 227 KB."""
+    """No head_dim limit is left: MAX_SHARED_ROW_DIM, the C side's
+    flash::kMaxSharedRowDim, is the boundary between the rowwise kernels'
+    in-shared-memory path and their streamed one. Up to it the dk/dv
+    block's 192 bytes a lane of width plus its LSE and delta fit 227 KB;
+    above it a block stages 256 columns at a time, whatever the width."""
     from gordo_tpu_torch.ops import _build
 
     header = (_build.CSRC_DIR / "flash_common.cuh").read_text()
-    assert f"constexpr int kMaxRowwiseDim = {fa.MAX_HEAD_DIM};" in header
-    assert 192 * fa.MAX_HEAD_DIM + 128 <= 232448
+    assert f"constexpr int kMaxSharedRowDim = {fa.MAX_SHARED_ROW_DIM};" in header
+    assert 192 * fa.MAX_SHARED_ROW_DIM + 128 <= 232448
+    assert "constexpr int kRowChunk = 256;" in header
+    assert 2 * 16 * 256 * 4 + 128 <= 232448
+    assert fa.kernel_width(10**6) == 10**6 + 64
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):
@@ -209,24 +214,65 @@ def test_kernel_sources_are_listed():
                                             (65, 128), (96, 128), (128, 128),
                                             (129, 256), (200, 256), (256, 256),
                                             (257, 384), (300, 384), (384, 384), (385, 512),
-                                            (640, 640), (1000, 1024), (1024, 1024)])
-def test_kernel_width_pads_to_the_next_kernel(head_dim, width):
+                                            (640, 640), (1000, 1024), (1024, 1024),
+                                            (1025, 1152), (1100, 1152), (2048, 2048),
+                                            (3000, 3072)])
+def test_kernel_width_pads_to_the_next_kernel(head_dim, width, monkeypatch):
+    """The width a head_dim runs at, on the card and on the CPU alike: the
+    CPU's plain version gets the same zero-padded tensors."""
     assert fa.kernel_width(head_dim) == width
-    q = torch.zeros(1, 3, 1, head_dim)
-    assert fa._width(q) == width
+    widths = []
+    reference = fa.flash_attention_reference
+
+    def spy(q, *args):
+        widths.append(q.shape[-1])
+        return reference(q, *args)
+
+    monkeypatch.setattr(fa, "flash_attention_reference", spy)
+    out, _ = fa.flash_attention_forward(*(torch.zeros(1, 3, 1, head_dim) for _ in range(3)))
+    assert widths == [width] and out.shape == (1, 3, 1, head_dim)
 
 
 def test_kernel_width_names_the_queue_above_128():
     """Above 256 the width is the JAX wrapper's padding, the next multiple
-    of 128 (257 and 300 run at 384, 640 at 640), up to MAX_HEAD_DIM; above
-    that the width raises and names the limit."""
-    assert [fa.kernel_width(d) for d in (257, 300, 640)] == [384, 384, 640]
-    with pytest.raises(ValueError, match=f"MAX_HEAD_DIM = {fa.MAX_HEAD_DIM}"):
-        fa.kernel_width(fa.MAX_HEAD_DIM + 1)
-    # the CPU runs the plain version at any width, above the limit at its own
-    head_dim = fa.MAX_HEAD_DIM + 76
+    of 128 (257 and 300 run at 384, 640 at 640, 1025 at 1152, 2048 at
+    2048), with no upper limit; the CPU runs the plain version at that
+    padded width too, with the caller's LSE."""
+    assert [fa.kernel_width(d) for d in (257, 300, 640, 1025, 2048)] == [384, 384, 640, 1152,
+                                                                          2048]
+    head_dim = 1100
     q, k, v = _qkv((1, 5, 1, head_dim), seed=3)
-    assert fa._width(torch.from_numpy(q)) == head_dim
     out, lse = fa.flash_attention_forward(*(torch.from_numpy(x) for x in (q, k, v)))
     assert out.shape == (1, 5, 1, head_dim)
     np.testing.assert_allclose(lse.numpy(), _lse_reference(q, k, False), atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("width", [64, 128])
+def test_16_bit_dq_at_64_and_128_routes_to_the_tensor_cores(dtype, width):
+    """bfloat16 and float16 at kernel widths 64 and 128 run the tensor-core
+    kernel of every entry point, dq's included (chip_smoke.expected_kernel,
+    which the card checks hold every launch to); float32 and float64 keep
+    the wide kernels; above 256 the forward runs the sliced kernel and the
+    backward the rowwise ones."""
+    import chip_smoke
+
+    assert "mma" in fa.KERNEL_FAMILIES[fa.KERNEL_DQ]
+    for entry in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV):
+        assert chip_smoke.expected_kernel(entry, dtype, width) == f"{entry}_mma"
+        assert chip_smoke.expected_kernel(entry, "float32", width) == f"{entry}_wide"
+        assert chip_smoke.expected_kernel(entry, dtype, 256) == f"{entry}_wide"
+    assert chip_smoke.expected_kernel(fa.KERNEL, dtype, 1152) == f"{fa.KERNEL}_sliced"
+    assert "sliced" in fa.KERNEL_FAMILIES[fa.KERNEL]
+    for entry in (fa.KERNEL_DQ, fa.KERNEL_DKV):
+        assert chip_smoke.expected_kernel(entry, dtype, 1152) == f"{entry}_rowwise"
+        assert "rowwise" in fa.KERNEL_FAMILIES[entry]
+
+
+@pytest.mark.parametrize("shape", [(1, 1 << 31, 1, 16), (1 << 16, 4, 1 << 15, 16)])
+def test_kernels_refuse_shapes_past_int32(shape):
+    """The C interface takes batch * heads, seq and head_dim as int32: a
+    wider shape raises, naming it, before any launch."""
+    q = torch.empty(shape, device="meta")
+    with pytest.raises(ValueError, match="int32"):
+        fa._check_kernel_inputs(q)

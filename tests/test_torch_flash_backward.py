@@ -140,6 +140,39 @@ def test_function_gradients_match_jax_grad_at_padded_head_dims(head_dim, causal)
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=ATOL, err_msg=name)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_plain_path_matches_jax_above_1024(causal, monkeypatch):
+    """head_dim 1100, which the card runs at 1152 (the sliced forward, the
+    streamed rowwise dq and dk/dv): the CPU's padded plain path against the
+    JAX ``flash_attention`` (Pallas in interpret mode), the output and the
+    ``jax.grad`` gradients, float32, atol 1e-5."""
+    shape = (1, 19, 1, 1100)
+    q, k, v, d_out = _inputs(shape, seed=1100 + causal)
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    want_out = jax_flash_attention(jq, jk, jv, causal=causal)
+    widths = []
+    reference = fa.flash_attention_reference
+
+    def spy(x, *args):
+        widths.append(x.shape[-1])
+        return reference(x, *args)
+
+    monkeypatch.setattr(fa, "flash_attention_reference", spy)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=causal)
+    assert widths == [1152] and out.shape == shape
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=ATOL)
+
+    def jax_loss(a, b, c):
+        return (jax_flash_attention(a, b, c, causal=causal) * jnp.asarray(d_out.numpy())).sum()
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(jq, jk, jv)
+    (out * d_out).sum().backward()
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        assert leaf.grad.shape == shape
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=ATOL, err_msg=name)
+
+
 def _jax_grads(q, k, v, d_out, causal):
     """dq, dk, dv of sum(out * d_out) through the JAX ``flash_attention``."""
 

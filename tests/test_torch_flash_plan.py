@@ -174,7 +174,7 @@ def test_dq_needs_all_six_row_tensors_aligned(launches, odd):
 
 @pytest.mark.parametrize("head_dim,width", [(8, 16), (12, 16), (24, 32), (48, 64), (96, 128),
                                             (129, 256), (200, 256), (257, 384), (300, 384),
-                                            (640, 640)])
+                                            (640, 640), (1100, 1152), (2048, 2048)])
 def test_wrappers_launch_at_the_kernel_width(launches, monkeypatch, head_dim, width):
     """On the card's path each wrapper and the Function launch at the next
     kernel width with the caller's scale, 1/sqrt(head_dim), and hand back
@@ -189,7 +189,7 @@ def test_wrappers_launch_at_the_kernel_width(launches, monkeypatch, head_dim, wi
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     fa.flash_attention(*leaves, causal=True).sum().backward()
     assert all(leaf.grad.shape == shape for leaf in leaves)
-    pointers = {fa.KERNEL: 6, fa.KERNEL_DQ: 9, fa.KERNEL_DKV: 8}
+    pointers = {fa.KERNEL: 6, fa.KERNEL_DQ: 9, fa.KERNEL_DKV: 9}
     assert [kernel for kernel, _ in launches] == [fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV] * 2
     for kernel, args in launches:
         assert args[pointers[kernel] + 3] == width, kernel
@@ -295,3 +295,29 @@ def test_call_raises_on_a_launch_error(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         fa._call(fa.KERNEL, lambda *args: 1, torch.zeros(SHAPE), ())
     assert (fa.launch_counts, fa.kernel_launches) == before
+
+
+@pytest.mark.parametrize("head_dim,streamed", [(1024, False), (1152, True), (2048, True)])
+def test_rowwise_backward_gets_its_streamed_scratch(launches, monkeypatch, head_dim, streamed):
+    """Above MAX_SHARED_ROW_DIM the rowwise dq and dk/dv kernels stream: dq
+    gets a float32 scratch of batch x heads x seq x head_dim elements (its
+    accumulators) and dk/dv one of twice that; at or below it neither."""
+    sizes = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kwargs):
+        sizes.append((shape[0] if len(shape) == 1 else shape, kwargs.get("dtype")))
+        return empty(*shape, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    shape = (2, 5, 3, head_dim)
+    q, k, v, out, d_out = (torch.zeros(shape, dtype=torch.bfloat16) for _ in range(5))
+    lse = torch.zeros(2 * 3, 5)
+    fa._launch_dq(q, k, v, out, lse, d_out, True, 0.25)
+    fa._launch_dkv(q, k, v, lse, lse.clone(), d_out, True, 0.25)
+    (_, dq_args), (_, dkv_args) = launches
+    rows = 2 * 3 * 5 * head_dim
+    assert (dq_args[8] is not None) == streamed
+    assert (dkv_args[8] is not None) == streamed
+    assert ((rows, torch.float32) in sizes) == streamed
+    assert ((2 * rows, torch.float32) in sizes) == streamed
