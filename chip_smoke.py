@@ -68,13 +68,15 @@ Phases, each raising on failure (no result line is printed then):
    the tensor-core forward, dq and dk/dv kernels each launch once a
    layer (counts reset just before, read just after), the loss and every
    gradient agree within 16 bf16 steps, and both step times are printed;
-   then a float32 Transformer with 2 heads of 300 (run at 384: the sliced
-   forward and the rowwise dq and dk/dv) the same way, within 1e-4;
+   then a Transformer with 2 heads of 300 (run at 384: the sliced
+   forward and the tiled dq and dk/dv) the same way, in float32 within
+   1e-4 (the CUDA-core tiled kernels) and in bfloat16 within 16 bf16
+   steps (the tensor-core tiled kernels);
 8. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
-   and the tensor-core, sliced and rowwise kernels each under its own,
+   and the tensor-core, sliced and tiled kernels each under its own,
    with its launches on every path above; then the result line.
 
 Exits non-zero without a result line when no CUDA card is available.
@@ -310,12 +312,16 @@ def expected_kernel(entry: str, dtype_name: str, width: int) -> str:
     ``width`` in ``dtype_name`` routes to: the quad kernels at 16 and 32;
     at 64 and 128 the tensor-core kernels in bfloat16/float16, else the
     wide kernels, as at 256; above 256 the width-sliced forward and the
-    rowwise dq and dk/dv kernels."""
+    tiled dq and dk/dv kernels, on the tensor cores in bfloat16/float16."""
+    sixteen_bit = dtype_name in ("bfloat16", "float16")
     if width <= 32:
         family = "quad"
     elif width > 256:
-        family = "sliced" if entry.endswith("_fwd") else "rowwise"
-    elif width in (64, 128) and dtype_name in ("bfloat16", "float16"):
+        if entry.endswith("_fwd"):
+            family = "sliced"
+        else:
+            family = "tiled_mma" if sixteen_bit else "tiled"
+    elif width in (64, 128) and sixteen_bit:
         family = "mma"
     else:
         family = "wide"
@@ -346,10 +352,10 @@ MISALIGNED = "train-step-misaligned"
 # head_dim 64), head_dims the wrappers zero-pad to the next kernel width
 # (examples/long_context_training.py's 8 runs at 16, 48 at 64, 200 at
 # 256, 300 at 384), the widest fixed-width kernel, run-time widths (300,
-# 640, and above the rowwise kernels' shared rows 1100 at 1152 and 2048:
-# the sliced forward, the rowwise dq and dk/dv), the float16 and float64
-# element types, and bfloat16/float16 at kernel widths 64 and 128 (the
-# tensor-core kernels)
+# 640, 1100 at 1152 and 2048: the sliced forward, the tiled dq and dk/dv;
+# and (2, 2048, 4, 512) in bf16, a launch that fills the card), the
+# float16 and float64 element types, and bfloat16/float16 at kernel
+# widths 64 and 128 (the tensor-core kernels)
 WIDE_CASES = [
     ("long-context-64", (1, 8192, 4, 64), True, "float32"),
     ("long-context-64-bf16", (1, 8192, 4, 64), True, "bfloat16"),
@@ -369,14 +375,18 @@ WIDE_CASES = [
     ("head-dim-640-bf16", (1, 256, 2, 640), False, "bfloat16"),
     ("head-dim-1100", (1, 128, 2, 1100), True, "float32"),
     ("head-dim-2048-bf16", (1, 64, 1, 2048), False, "bfloat16"),
+    ("head-dim-512-bf16-long", (2, 2048, 4, 512), True, "bfloat16"),
 ]
 # the cases each kernel's `wide` rows of the `kernels` line report
 WIDE_ROWS = ("head-dim-128", "head-dim-256", "long-context-64")
-# the cases the tensor-core, the sliced and the rowwise kernels' entries
+# the cases the tensor-core, the sliced and the tiled kernels' entries
 # report: the first is the entry's own row, the others its `wide` rows
 MMA_ROWS = ("long-context-64-bf16", "fp16-64", "bf16-128", "padded-48-bf16")
-ROWWISE_ROWS = ("head-dim-300", "head-dim-640", "head-dim-300-bf16", "head-dim-1100",
-                "head-dim-2048-bf16")
+SLICED_ROWS = ("head-dim-300", "head-dim-640", "head-dim-300-bf16", "head-dim-1100",
+               "head-dim-2048-bf16", "head-dim-512-bf16-long")
+TILED_ROWS = ("head-dim-300", "head-dim-640", "head-dim-1100")
+TILED_MMA_ROWS = ("head-dim-300-bf16", "head-dim-640-bf16", "head-dim-2048-bf16",
+                  "head-dim-512-bf16-long")
 
 
 def kernel_phase(torch, fa):
@@ -503,7 +513,8 @@ def backward_phase(torch, fa):
         out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
         scale = 1.0 / math.sqrt(shape[-1])
         width = shape[:-1] + (fa.kernel_width(shape[-1]),)
-        dq_splits = fa.dq_splits(torch.empty(width, dtype=dtype, device="cuda"), causal)
+        padded = torch.empty(width, dtype=dtype, device="cuda")
+        dq_splits, dkv_splits = fa.dq_splits(padded, causal), fa.dkv_splits(padded, causal)
         if name in SPLIT_CASES and dq_splits < 2:
             raise AssertionError(f"dq did not split its keys: {name}")
         before = dict(fa.kernel_launches)
@@ -594,7 +605,8 @@ def backward_phase(torch, fa):
                 "errors": {label: errors[label] for label in outputs},
                 "tolerance": tol,
                 "bitwise_repeat": bitwise[kernel],
-                "key_splits": dq_splits if kernel == fa.KERNEL_DQ else 1,
+                # dq's key splits, dk/dv's query splits
+                "splits": dq_splits if kernel == fa.KERNEL_DQ else dkv_splits,
                 "ms": ms,
                 "ms_timer": ms_timer,
                 "call_ms": time_ms(run),
@@ -626,7 +638,7 @@ def gradient_phase(torch, fa):
     through (batch, seq, heads, head_dim) views of one tensor as the
     model feeds them: at the model's head_dim 16, at 64, at 48, which
     the Function pads to 64, at 200, which it pads to 256, and at 300,
-    which it pads to 384 (the sliced and rowwise kernels). Each backward launches
+    which it pads to 384 (the sliced and tiled kernels). Each backward launches
     dq and dk/dv once."""
     from gordo_tpu_torch.models.specs_seq import dense_attention
 
@@ -662,7 +674,8 @@ def gradient_phase(torch, fa):
 # 64, seq 8192, bf16) as the port's TransformerNet at compute dtype
 # bfloat16: 3 features, d_model 256, 2 layers, ff 1024, one (1, 8192, 3)
 # window. Then a Transformer whose heads are wider than 256 (2 heads of
-# 300, run at 384), float32, 1 layer, a (4, 256, 3) batch of windows.
+# 300, run at 384), 1 layer, a (4, 256, 3) batch of windows, in float32
+# and in bfloat16.
 MODEL_16BIT = dict(n_features=3, d_model=256, n_heads=4, n_layers=2, ff_dim=1024, out_dim=3,
                    causal=True)
 WINDOW_16BIT = (1, 8192, 3)
@@ -770,15 +783,18 @@ def model_step_check(torch, fa, label, widths, window, dtype):
 def model_phase(torch, fa):
     """Phase 7: the 16-bit path and the wide-head path through the model a
     user builds: the bf16 long-context Transformer runs the tensor-core
-    forward, dq and dk/dv kernels once per layer; the float32 Transformer
-    with heads of 300 runs the sliced forward and the rowwise dq and dk/dv
-    once per layer."""
+    forward, dq and dk/dv kernels once per layer; the Transformer with
+    heads of 300 runs the sliced forward and the tiled dq and dk/dv once
+    per layer: the CUDA-core ones in float32, the tensor-core ones in
+    bfloat16."""
     report = {}
     for label, widths, window, dtype, kernels in (
         ("bf16_model", MODEL_16BIT, WINDOW_16BIT, torch.bfloat16,
          (f"{fa.KERNEL}_mma", f"{fa.KERNEL_DQ}_mma", f"{fa.KERNEL_DKV}_mma")),
         ("wide_head_model", MODEL_WIDE_HEAD, WINDOW_WIDE_HEAD, torch.float32,
-         (f"{fa.KERNEL}_sliced", f"{fa.KERNEL_DQ}_rowwise", f"{fa.KERNEL_DKV}_rowwise")),
+         (f"{fa.KERNEL}_sliced", f"{fa.KERNEL_DQ}_tiled", f"{fa.KERNEL_DKV}_tiled")),
+        ("wide_head_bf16_model", MODEL_WIDE_HEAD, WINDOW_WIDE_HEAD, torch.bfloat16,
+         (f"{fa.KERNEL}_sliced", f"{fa.KERNEL_DQ}_tiled_mma", f"{fa.KERNEL_DKV}_tiled_mma")),
     ):
         result = model_step_check(torch, fa, label, widths, window, dtype)
         want = {name: widths["n_layers"] for name in kernels}
@@ -1629,9 +1645,12 @@ def main(argv=None) -> int:
             entry(fa.KERNEL, ("mma",), fwd_source, fwd_tpu, MMA_ROWS, checks),
             entry(fa.KERNEL_DQ, ("mma",), bwd_source, dq_tpu, MMA_ROWS, backward_checks),
             entry(fa.KERNEL_DKV, ("mma",), bwd_source, dkv_tpu, MMA_ROWS, backward_checks),
-            entry(fa.KERNEL, ("sliced",), fwd_source, fwd_tpu, ROWWISE_ROWS, checks),
-            entry(fa.KERNEL_DQ, ("rowwise",), bwd_source, dq_tpu, ROWWISE_ROWS, backward_checks),
-            entry(fa.KERNEL_DKV, ("rowwise",), bwd_source, dkv_tpu, ROWWISE_ROWS,
+            entry(fa.KERNEL, ("sliced",), fwd_source, fwd_tpu, SLICED_ROWS, checks),
+            entry(fa.KERNEL_DQ, ("tiled",), bwd_source, dq_tpu, TILED_ROWS, backward_checks),
+            entry(fa.KERNEL_DKV, ("tiled",), bwd_source, dkv_tpu, TILED_ROWS, backward_checks),
+            entry(fa.KERNEL_DQ, ("tiled_mma",), bwd_source, dq_tpu, TILED_MMA_ROWS,
+                  backward_checks),
+            entry(fa.KERNEL_DKV, ("tiled_mma",), bwd_source, dkv_tpu, TILED_MMA_ROWS,
                   backward_checks),
         ]
     }

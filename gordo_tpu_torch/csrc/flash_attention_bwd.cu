@@ -184,21 +184,75 @@
 // flash_bwd_dq_merge_kernel); no atomics, so two launches are bitwise
 // equal.
 //
-// Any head_dim above 256 (flash_bwd_dq_rowwise_kernel and
-// flash_bwd_dkv_rowwise_kernel, the width a run-time argument, no upper
-// limit): one warp a row (a query row in dq, a key row in dk/dv), each
-// pair's two dot products summed over the lanes striding over the width
-// and then by warp shuffles, the other side's rows staged 16 at a time as
-// float32. Up to flash::kMaxSharedRowDim (1024: the dk/dv block's 192
-// bytes a lane of width fill 192 KB) the row's vectors and float32
-// accumulators sit in shared memory. Above it the kernels stream: the
-// partner rows are staged 256 columns at a time (32 KB a block whatever
-// the width), first over every chunk for the dot products, then over
-// every chunk again for the accumulation; the warp's own rows are read
-// from their tensors and its accumulators live in a float32 scratch the
-// caller allocates (batch * heads * seq rows of head_dim for dq, 2
-// head_dim for dk/dv). Written to be right, not fast (5-6x SDPA at (2,
-// 300, 2, 300), PERF.md).
+// Any head_dim above 256 that is a multiple of 128 (the JAX wrapper's
+// padding; no upper limit), the width a run-time argument: the tiled
+// kernels. They replace _bwd_dq_kernel (gordo_tpu/ops/flash_attention.py:
+// 176) and _bwd_dkv_kernel (:213) there, and took the place of one-warp-
+// a-row kernels that read both operands of every multiply-add from shared
+// memory and summed each pair's dots by warp shuffles (7x SDPA's whole
+// backward in bf16 at (2, 300, 2, 300), PERF.md). They are bound by
+// operations: (2, 300, 2, 300) causal at 384 is 0.33 GFLOP for dq and
+// 0.44 for dk/dv, 4.9 and 6.5 us at the fp32 rate, against about 5.5 MB
+// of tensors; in bf16 the 989 TFLOP/s rate leaves them bound by bytes at
+// that size and by operations at (2, 2048, 4, 512) (0.052 and 0.069 ms).
+// A block owns a tile of rows (query rows in dq, key rows in dk/dv) and
+// one slice of its output columns, so a small launch still fills the card
+// (the grid is row tiles x slices x batch*heads, row tiles of dq last to
+// first and key tiles of dk/dv first to last, so causal launches start
+// with their longest walks, and grids under one wave split the partner
+// axis: dq's keys as the wide kernels split them, dk/dv's queries the same
+// way; each split writes unscaled float32 rows to the caller's scratch and
+// flash_bwd_dq_merge_rows_kernel / flash_bwd_dkv_merge_rows_kernel sum
+// them in split order). Per partner tile, the two score products (S = Q Kᵀ
+// and dP = dO Vᵀ, or Sᵀ and dPᵀ) are summed over the whole width in chunks
+// that pass through a two-stage cp.async ring, P and dS are formed from
+// the saved LSE and the delta, and the slice's accumulators take the
+// tile's share from the slice's columns of the partner rows, staged while
+// the scores are summed. Every slice recomputes the scores: (slices 2 D +
+// D) of work per kept pair for dq against 3 D, (slices 2 D + 2 D) for
+// dk/dv against 4 D, 2.3x and 2x at 384. Keeping a row tile's whole-width
+// float32 accumulators in shared memory instead (score once) does not fit
+// the widths above 640 at 32 or 64 rows a block, and the register slices
+// bound every width at one design. dq sums delta = rowsum(dO * O) for its
+// own rows from device memory (2 D reads a row) and one block a row, slice
+// 0 of split 0, writes it.
+// - float32 and float64 (flash_bwd_dq_tiled_kernel,
+//   flash_bwd_dkv_tiled_kernel, family `tiled`) stay on the CUDA cores:
+//   TF32 would break the 1e-4 tolerance, and float64 is staged as float32.
+//   128 threads hold register tiles of 4 rows x 4 keys (dq: 32 query rows,
+//   64-key tiles, 32-column chunks) or 4 keys x 2 queries (dk/dv: 32 key
+//   rows, 32-query tiles, 64-column chunks) of both score products, and a
+//   128-column slice of 4 rows x 8 columns a thread of each accumulator;
+//   dS (and Pᵀ) go through shared memory for the slice's products. Each chunk's dot
+//   products are summed apart and then added: one chain over the whole
+//   width moved the flash-vs-dense gradient at head_dim 300 to 1.1e-4,
+//   past its 1e-4 bound (dP - delta cancels when dO follows O), and the
+//   chunked sum keeps it at 5.7e-5, as the warp-shuffle sums had it.
+//   Rows that are not 16-byte aligned are staged by 4-byte cp.async copies
+//   in float32 (element by element in float64).
+// - bfloat16 and float16 (flash_bwd_dq_tiled_mma_kernel,
+//   flash_bwd_dkv_tiled_mma_kernel, family `tiled_mma`) run all four
+//   products on the tensor cores (mma.sync m16n8k16, float32
+//   accumulators, fragments by ldmatrix from 64-column chunks padded by 16
+//   bytes): a block is 4 warps of 16 rows (64 query rows or key rows), dq
+//   walks 64-key tiles with a 128-column slice (dS rounded once to the
+//   input type as the A operand of dQ += dS K), dk/dv 64-query tiles with
+//   a 64-column slice (two accumulators: 128 columns spilled 0.8 KB), Pᵀ
+//   and dSᵀ each carried as a head and a tail term of the input type for
+//   dV += Pᵀ dO and dK += dSᵀ Q, as the width-64/128 kernel carries them.
+// The tiles were chosen by timing on the card (scripts/flash_tiling_sweep.py,
+// PERF.md) at (2, 300, 2, 300), the phase-7 model's (4, 256, 2, 300), 640,
+// 1100, 2048 and (2, 2048, 4, 512). 64-column dk/dv chunks beat 32-column
+// ones by 4-9% in float32 at every case; 32-key float32 dq tiles were 15-19%
+// faster at 300 and 1100 but 13% slower at the phase-7 model's shape;
+// 128-column tensor-core chunks at one block an SM were 7-20% faster on
+// grids under one wave and 30-37% slower at (2, 2048, 4, 512), where two
+// blocks an SM fill the card; 32-key or 32-query tensor-core tiles and
+// 128-column tensor-core dk/dv slices (0.8 KB of spills) lost. ptxas
+// (registers, spill stores): dq 255 (8 bytes) float32, 234 float64, 254
+// bf16 and float16; dk/dv 254 float32, 246 float64, 254 (8 bytes) bf16,
+// 255 float16; two blocks an SM. No atomics: two launches are bitwise
+// equal.
 //
 // Rows past the sequence end store nothing; query rows past the end add
 // nothing to dk/dv and keys past the end have probability 0. No head-dim
@@ -208,15 +262,13 @@
 // Inputs are float32, bfloat16, float16 or float64 (dtype 0 / 1 / 2 / 3),
 // each element converted to float32 on load and every sum in float32, as
 // the Pallas kernels do (a float64 tile is staged in shared memory as
-// float32); head_dim is 16, 32, 64, 128, 256 or any multiple of 32 above
+// float32); head_dim is 16, 32, 64, 128, 256 or any multiple of 128 above
 // 256; any sequence length; causal or full. Strides are in elements,
 // (batch, seq, head) for each tensor in the order the entry point names;
 // the head dim must be contiguous. `mode` is a bit set: 1 causal, 2 every
 // row start of the six (batch, seq, heads, head_dim) tensors of the entry
-// point 16-byte aligned (the rowwise kernels read element by element
-// either way). The kernels allocate nothing (dq's split scratch and the
-// streamed rowwise kernels' accumulators are the caller's) and run on the
-// caller's stream. Each entry point returns the
+// point 16-byte aligned. The kernels allocate nothing (the split scratch
+// is the caller's) and run on the caller's stream. Each entry point returns the
 // CUDA error code of its launch (0 on success) and writes the family of
 // the kernel it launched (flash::kFamily*) to its last argument.
 
@@ -251,8 +303,9 @@ struct Params {
   void* dk;
   void* dv;
   Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
-  // dq's key splits: each split's unscaled float32 dq rows (the caller's
-  // scratch, n_splits * batch * heads * seq * head_dim elements)
+  // partner splits: each split's unscaled float32 dq rows, or above 256
+  // its dk and dv rows (the caller's scratch, n_splits * batch * heads *
+  // seq * head_dim elements, twice that for dk/dv)
   float* ws;
   int n_splits;
   int batch_heads;
@@ -1379,308 +1432,1044 @@ __global__ void __launch_bounds__(kMmaWarps * 32, kMinBlocks)
   }
 }
 
-// dq at any head_dim above 256 (the width is a run-time argument): one warp
-// a query row; each pair's two dot products (score, dO.v) summed over the
-// lanes striding over the width, then by warp shuffles; key and value rows
-// staged kRowTile at a time as float32. delta = rowsum(dO * O) is summed
-// first and written for the dk/dv kernel. Up to flash::kMaxSharedRowDim
-// (!kStream) the warp's q (prescaled), dO and float32 dq accumulator sit
-// in shared memory and each partner tile is staged whole. Streamed, any
-// width: the partner rows are staged kRowChunk columns at a time, first
-// over every chunk for the dot products and then, last chunk first (it is
-// still staged), over every chunk for dq += ds k; q and dO are read from
-// their tensors and the accumulator is the row's slot of the caller's
-// float32 scratch (p.ws, batch * heads * seq rows of D). A lane walks the
-// same dims in the same order either way.
-template <typename T, bool kStream>
-__global__ void __launch_bounds__(flash::kRowThreads) flash_bwd_dq_rowwise_kernel(const Params p,
-                                                                                  int D) {
-  extern __shared__ __align__(16) float row_smem[];
-  const int C = kStream ? flash::kRowChunk : D;  // columns of a staged partner chunk
-  float* k_tile = row_smem;                      // [kRowTile][C]
-  float* v_tile = k_tile + flash::kRowTile * C;  // [kRowTile][C]
-  const int bh = blockIdx.x % p.batch_heads;
-  const int qt = p.n_tiles - 1 - blockIdx.x / p.batch_heads;  // last to first
-  const int b = bh / p.heads;
-  const int h = bh - b * p.heads;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int seq = p.seq;
-  const int q0 = qt * flash::kRowWarps;
-  const int qpos = q0 + warp;
-  const int qc = min(qpos, seq - 1);  // a row past the end: a clamped copy, nothing stored
-  const int64_t stat = static_cast<int64_t>(bh) * seq;
-  const int k_end = p.causal ? min(seq, q0 + flash::kRowWarps) : seq;
-  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
-  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
+// Above head_dim 256 the width D is a run-time argument, a multiple of the
+// kernels' column slice. Each block owns a tile of rows (query rows in dq,
+// key rows in dk/dv) and one slice of their output columns, and walks the
+// partner tiles; per partner tile it sums the two score products over the
+// whole width, chunk by chunk through a two-stage ring, then adds the
+// partner tile's share to the slice's accumulators. See the file's note.
 
-  const float scale_log2 = p.sm_scale * flash::kLog2e;
-  const T* q_src = row_ptr<T>(p.q, p.q_st, b, qc, h, 0);
-  const T* do_src = row_ptr<T>(p.d_out, p.do_st, b, qc, h, 0);
-  const T* o_src = row_ptr<T>(p.out, p.o_st, b, qc, h, 0);
-  float* q_row = v_tile + flash::kRowTile * C + warp * D;  // unused when streamed
-  float* do_row = q_row + flash::kRowWarps * D;
-  // the warp's accumulator; streamed, a row past the end has none and adds nothing
-  float* acc = kStream ? p.ws + (stat + qc) * D : do_row + flash::kRowWarps * D;
-  const bool adds = !kStream || qpos < seq;
+// delta = rowsum(dO * O) of one query row over the whole width: each of the
+// kLanes threads of a row group sums 4 columns of every 4 kLanes, then a
+// fixed butterfly over the group gives every thread the row's sum
+template <typename T, int kLanes>
+__device__ __forceinline__ float row_delta(const T* o_row, const T* do_row, int D, int tx,
+                                           bool vec) {
   float dot = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float dov = to_float(do_src[d]);
-    dot = fmaf(dov, to_float(o_src[d]), dot);
-    if constexpr (!kStream) {
-      q_row[d] = to_float(q_src[d]) * scale_log2;
-      do_row[d] = dov;
-    }
-    if (adds) acc[d] = 0.f;
+  for (int d = 4 * tx; d < D; d += 4 * kLanes) {
+    float o[4];
+    float g[4];
+    flash::load_row<T, 4>(o_row + d, o, vec);
+    flash::load_row<T, 4>(do_row + d, g, vec);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dot = fmaf(g[e], o[e], dot);
   }
-  const float delta = flash::warp_sum(dot);
-  const float lse2 = p.lse[stat + qc] * flash::kLog2e;
-  if (lane == 0 && qpos < seq) p.delta[stat + qpos] = delta;
-
-  for (int k0 = 0; k0 < k_end; k0 += flash::kRowTile) {
-    float ds[flash::kRowTile];
-    if constexpr (!kStream) {
-      __syncthreads();  // every warp is done with the previous tile
-      flash::stage_rows_float(k_tile, k_head, p.k_st.s, k0, k_end, D);
-      flash::stage_rows_float(v_tile, v_head, p.v_st.s, k0, k_end, D);
-      __syncthreads();
 #pragma unroll
-      for (int j = 0; j < flash::kRowTile; ++j) {
-        const float* k_row = k_tile + j * D;
-        const float* v_row = v_tile + j * D;
-        float s = 0.f;
-        float dp = 0.f;
-        for (int d = lane; d < D; d += 32) {
-          s = fmaf(q_row[d], k_row[d], s);
-          dp = fmaf(do_row[d], v_row[d], dp);
-        }
-        s = flash::warp_sum(s);
-        dp = flash::warp_sum(dp);
-        const int kpos = k0 + j;
-        const bool keep = kpos < seq && (!p.causal || kpos <= qpos);
-        ds[j] = keep ? exp2f(s - lse2) * (dp - delta) : 0.f;
-      }
-      for (int d = lane; d < D; d += 32) {
-        float a = acc[d];
-#pragma unroll
-        for (int j = 0; j < flash::kRowTile; ++j) a = fmaf(ds[j], k_tile[j * D + d], a);
-        acc[d] = a;
-      }
-    } else {
-      // the dot products over every chunk (each lane's dims in the order of
-      // one pass over the row), then dq += ds k over every chunk, last
-      // chunk first: it is still staged
-      float s[flash::kRowTile];
-      float dp[flash::kRowTile];
-#pragma unroll
-      for (int j = 0; j < flash::kRowTile; ++j) s[j] = dp[j] = 0.f;
-      int cw = C;
-      for (int c0 = 0; c0 < D; c0 += C) {
-        cw = min(C, D - c0);
-        __syncthreads();  // every warp is done with the staged rows
-        flash::stage_rows_float(k_tile, k_head + c0, p.k_st.s, k0, k_end, cw);
-        flash::stage_rows_float(v_tile, v_head + c0, p.v_st.s, k0, k_end, cw);
-        __syncthreads();
-        for (int d = lane; d < cw; d += 32) {
-          const float qv = to_float(q_src[c0 + d]) * scale_log2;
-          const float dov = to_float(do_src[c0 + d]);
-#pragma unroll
-          for (int j = 0; j < flash::kRowTile; ++j) {
-            s[j] = fmaf(qv, k_tile[j * cw + d], s[j]);
-            dp[j] = fmaf(dov, v_tile[j * cw + d], dp[j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < flash::kRowTile; ++j) {
-        const float score = flash::warp_sum(s[j]);
-        const float dpj = flash::warp_sum(dp[j]);
-        const int kpos = k0 + j;
-        const bool keep = kpos < seq && (!p.causal || kpos <= qpos);
-        ds[j] = keep ? exp2f(score - lse2) * (dpj - delta) : 0.f;
-      }
-      for (int c0 = (D - 1) / C * C; c0 >= 0; c0 -= C) {
-        if (c0 + C < D) {
-          cw = C;
-          __syncthreads();
-          flash::stage_rows_float(k_tile, k_head + c0, p.k_st.s, k0, k_end, cw);
-          __syncthreads();
-        }
-        if (!adds) continue;
-        for (int d = lane; d < cw; d += 32) {
-          float a = acc[c0 + d];
-#pragma unroll
-          for (int j = 0; j < flash::kRowTile; ++j) a = fmaf(ds[j], k_tile[j * cw + d], a);
-          acc[c0 + d] = a;
-        }
-      }
-    }
+  for (int offset = 1; offset < kLanes; offset <<= 1) {
+    dot += __shfl_xor_sync(0xffffffffu, dot, offset);
   }
-  if (qpos >= seq) return;
-  T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, 0);
-  for (int d = lane; d < D; d += 32) dq_row[d] = from_float<T>(acc[d] * p.sm_scale);
+  return dot;
 }
 
-// dk/dv at any head_dim above 256: one warp a key row; q and dO rows (with
-// LSE and delta) staged kRowTile at a time as float32. Up to
-// flash::kMaxSharedRowDim (!kStream) the warp's k (prescaled), v and the
-// float32 dk and dv accumulators sit in shared memory; streamed, the
-// partner rows come kRowChunk columns at a time (the dot products over
-// every chunk, then dk and dv over every chunk, last first), k and v are
-// read from their tensors and dk, dv accumulate in the row's two slots of
-// the caller's float32 scratch (p.ws, batch * heads * seq rows of 2 D).
-template <typename T, bool kStream>
-__global__ void __launch_bounds__(flash::kRowThreads) flash_bwd_dkv_rowwise_kernel(const Params p,
-                                                                                   int D) {
-  extern __shared__ __align__(16) float row_smem[];
-  const int C = kStream ? flash::kRowChunk : D;  // columns of a staged partner chunk
-  float* q_tile = row_smem;                       // [kRowTile][C]
-  float* do_tile = q_tile + flash::kRowTile * C;  // [kRowTile][C]
-  float* lse_tile = do_tile + flash::kRowTile * C;  // [kRowTile], log2 units
-  float* delta_tile = lse_tile + flash::kRowTile;   // [kRowTile]
-  const int kt = blockIdx.x / p.batch_heads;  // first to last: the longest walks first
-  const int bh = blockIdx.x - kt * p.batch_heads;
+// component j (0-3) of a float4
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// acc[i][j] += the dot product of staged rows ty + kRowGroups i of `a` and
+// tx + 16 j of `b` over one kChunk-column chunk (16 threads across a row
+// group). The chunk's sum is taken apart and then added, so a
+// dot product over the whole width is a sum of per-chunk sums: over a
+// width of hundreds its rounding error stays near that of a pairwise sum
+// (dP - delta cancels heavily when dO follows O).
+template <int TM, int TN, int kRowGroups, int kChunk, int kPitch, typename E>
+__device__ __forceinline__ void chunk_dots(const E* a, const E* b, int ty, int tx,
+                                           float (&acc)[TM][TN]) {
+  constexpr int kLanes = 16;
+  float part[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < kChunk; d += 4) {
+    float4 av[TM];
+    float4 bv[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) av[i] = flash::load4(a + (ty + kRowGroups * i) * kPitch + d);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) bv[j] = flash::load4(b + (tx + kLanes * j) * kPitch + d);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        part[i][j] = fmaf(av[i].x, bv[j].x, part[i][j]);
+        part[i][j] = fmaf(av[i].y, bv[j].y, part[i][j]);
+        part[i][j] = fmaf(av[i].z, bv[j].z, part[i][j]);
+        part[i][j] = fmaf(av[i].w, bv[j].w, part[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
+  }
+}
+
+// dq above 256 on the CUDA cores (float32, and float64 staged as float32):
+// a block owns kRows query rows and kSlice of their dQ columns. Per key tile
+// of kKeys keys, S = Q Kᵀ and dP = dO Vᵀ are summed over the whole width in
+// kChunk-column chunks of q, dO, k and v through a two-stage ring, each
+// thread holding TM rows x TN keys of both (rows ty + kRowGroups i, keys tx
+// + kLanes j), so a staged element feeds TN or TM multiply-adds; dS = P (dP
+// - delta) goes through shared memory, and dQ += dS K runs on the slice's
+// key columns, staged while the scores are summed. Block order (row tiles
+// last to first) and key splits as in flash_bwd_dq_wide_kernel; the
+// splits' partial rows go to flash_bwd_dq_merge_rows_kernel.
+template <typename T, int kRows, int kKeys, int kChunk, int kSlice, int kWarps, int kMinBlocks>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+    flash_bwd_dq_tiled_kernel(const Params p, int D) {
+  using E = flash::staged_t<T>;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kLanes = 16;                     // threads across a row's keys and columns
+  constexpr int kRowGroups = kThreads / kLanes;  // threads down the row tile
+  constexpr int TM = kRows / kRowGroups;         // query rows a thread holds
+  constexpr int TN = kKeys / kLanes;             // keys a thread scores per tile
+  constexpr int TC = kSlice / (4 * kLanes);      // dQ float4s a thread holds per row
+  constexpr int kCPitch = kChunk + 16 / sizeof(E);  // padded rows: 16-byte aligned
+  constexpr int kKPitch = kSlice + 16 / sizeof(E);
+  constexpr int kSPitch = kKeys + 4;
+  constexpr int kStage = 2 * (kRows + kKeys) * kCPitch;  // q, dO, k and v chunks
+  static_assert(kRows % kRowGroups == 0 && kKeys % kLanes == 0 && kSlice % (4 * kLanes) == 0 &&
+                    (kChunk * sizeof(E)) % 16 == 0 && kKeys % 4 == 0,
+                "whole register tiles and 16-byte chunks");
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* ring = reinterpret_cast<E*>(smem);  // [2][q | dO (kRows each) | k | v (kKeys each)][kCPitch]
+  E* k_slice = ring + 2 * kStage;        // [kKeys][kKPitch]
+  float* ds_tile = reinterpret_cast<float*>(k_slice + kKeys * kKPitch);  // [kRows][kSPitch]
+
+  // block = (row tile, batch*head, slice, key split), split fastest, then
+  // the slice; row tiles last to first across all heads
+  const int n_slices = D / kSlice;
+  const int split = blockIdx.x % p.n_splits;
+  const int rest = blockIdx.x / p.n_splits;
+  const int slice = rest % n_slices;
+  const int tile = rest / n_slices;
+  const int bh = tile % p.batch_heads;
+  const int qt = p.n_tiles - 1 - tile / p.batch_heads;
   const int b = bh / p.heads;
   const int h = bh - b * p.heads;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tx = threadIdx.x % kLanes;
+  const int ty = threadIdx.x / kLanes;
   const int seq = p.seq;
-  const int k0 = kt * flash::kRowWarps;
-  const int kpos = k0 + warp;
-  const int kc = min(kpos, seq - 1);  // a row past the end: a clamped copy, nothing stored
+  const int q0 = qt * kRows;
+  const bool vec = p.vec;
   const int64_t stat = static_cast<int64_t>(bh) * seq;
   const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
   const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
+  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
+  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
+  const int k_end = p.causal ? min(seq, q0 + kRows) : seq;
+  // this split's run of the block's key tiles
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  const int split_tiles = (n_tiles + p.n_splits - 1) / p.n_splits;
+  const int t_begin = min(n_tiles, split * split_tiles);
+  const int t_end = min(n_tiles, t_begin + split_tiles);
+  const int n_chunks = D / kChunk;
 
-  const float scale_log2 = p.sm_scale * flash::kLog2e;
-  const T* k_src = row_ptr<T>(p.k, p.k_st, b, kc, h, 0);
-  const T* v_src = row_ptr<T>(p.v, p.v_st, b, kc, h, 0);
-  float* k_row = delta_tile + flash::kRowTile + warp * D;  // unused when streamed
-  float* v_row = k_row + flash::kRowWarps * D;
-  // the warp's accumulators; streamed, a row past the end has none and adds nothing
-  float* dk = kStream ? p.ws + (stat + kc) * 2 * D : v_row + flash::kRowWarps * D;
-  float* dv = kStream ? dk + D : dk + flash::kRowWarps * D;
-  const bool adds = !kStream || kpos < seq;
-  for (int d = lane; d < D; d += 32) {
-    if constexpr (!kStream) {
-      k_row[d] = to_float(k_src[d]) * scale_log2;
-      v_row[d] = to_float(v_src[d]);
-    }
-    if (adds) {
-      dk[d] = 0.f;
-      dv[d] = 0.f;
-    }
+  // chunk c of the q and dO rows and of key tile t's k and v rows into ring stage s
+  auto stage_chunk = [&](int t, int c, int s) {
+    E* dst = ring + s * kStage;
+    const int d0 = c * kChunk;
+    flash::stage_rows<T, kChunk, kCPitch, kRows, kThreads, true>(dst, q_head + d0, p.q_st.s, q0, seq,
+                                                           vec);
+    flash::stage_rows<T, kChunk, kCPitch, kRows, kThreads, true>(dst + kRows * kCPitch, do_head + d0,
+                                                           p.do_st.s, q0, seq, vec);
+    flash::stage_rows<T, kChunk, kCPitch, kKeys, kThreads, true>(
+        dst + 2 * kRows * kCPitch, k_head + d0, p.k_st.s, t * kKeys, k_end, vec);
+    flash::stage_rows<T, kChunk, kCPitch, kKeys, kThreads, true>(
+        dst + (2 * kRows + kKeys) * kCPitch, v_head + d0, p.v_st.s, t * kKeys, k_end, vec);
+  };
+  if (t_begin < t_end) stage_chunk(t_begin, 0, 0);
+  flash::cp_async_commit();
+
+  // delta and LSE (log2 units) of the thread's rows; a row past the end is
+  // a clamped copy and stores nothing. One block a row writes delta.
+  float delta[TM];
+  float lse2[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty + kRowGroups * i;
+    const int qc = min(q0 + r, seq - 1);
+    delta[i] = row_delta<T, kLanes>(row_ptr<T>(p.out, p.o_st, b, qc, h, 0),
+                                    row_ptr<T>(p.d_out, p.do_st, b, qc, h, 0), D, tx, vec);
+    lse2[i] = p.lse[stat + qc] * flash::kLog2e;
+    if (slice == 0 && split == 0 && tx == 0 && q0 + r < seq) p.delta[stat + q0 + r] = delta[i];
   }
-  for (int q0 = p.causal ? k0 : 0; q0 < seq; q0 += flash::kRowTile) {
-    float pr[flash::kRowTile];
-    float ds[flash::kRowTile];
-    if constexpr (!kStream) {
-      __syncthreads();  // every warp is done with the previous tile
-      flash::stage_rows_float(q_tile, q_head, p.q_st.s, q0, seq, D);
-      flash::stage_rows_float(do_tile, do_head, p.do_st.s, q0, seq, D);
-      for (int i = threadIdx.x; i < flash::kRowTile; i += flash::kRowThreads) {
-        const int qp = q0 + i;
-        lse_tile[i] = qp < seq ? p.lse[stat + qp] * flash::kLog2e : 0.f;
-        delta_tile[i] = qp < seq ? p.delta[stat + qp] : 0.f;
-      }
-      __syncthreads();
+
+  const float scale_log2 = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  float acc[TM][4 * TC];
 #pragma unroll
-      for (int i = 0; i < flash::kRowTile; ++i) {
-        const float* q_row = q_tile + i * D;
-        const float* do_row = do_tile + i * D;
-        float s = 0.f;
-        float dp = 0.f;
-        for (int d = lane; d < D; d += 32) {
-          s = fmaf(q_row[d], k_row[d], s);
-          dp = fmaf(do_row[d], v_row[d], dp);
-        }
-        s = flash::warp_sum(s);
-        dp = flash::warp_sum(dp);
-        const int qpos = q0 + i;
-        const bool keep = qpos < seq && (!p.causal || kpos <= qpos);
-        pr[i] = keep ? exp2f(s - lse_tile[i]) : 0.f;
-        ds[i] = pr[i] * (dp - delta_tile[i]);
-      }
-      for (int d = lane; d < D; d += 32) {
-        float a = dk[d];
-        float c = dv[d];
+  for (int i = 0; i < TM; ++i) {
 #pragma unroll
-        for (int i = 0; i < flash::kRowTile; ++i) {
-          a = fmaf(ds[i], q_tile[i * D + d], a);
-          c = fmaf(pr[i], do_tile[i * D + d], c);
+    for (int c = 0; c < 4 * TC; ++c) acc[i][c] = 0.f;
+  }
+
+  int it = 0;  // chunks walked: chunk `it` sits in ring stage it & 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kKeys;
+    // the slice's key columns of this tile (every thread is past the last
+    // tile's dS K: the __syncthreads that ends it)
+    flash::stage_rows<T, kSlice, kKPitch, kKeys, kThreads, true>(k_slice, k_head + slice * kSlice,
+                                                           p.k_st.s, k0, k_end, vec);
+    flash::cp_async_commit();
+    float s[TM][TN];
+    float dp[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
+    }
+    for (int c = 0; c < n_chunks; ++c, ++it) {
+      // this chunk has landed (at c = 0 the key slice may still be in flight)
+      if (c == 0) {
+        flash::cp_async_wait<1>();
+      } else {
+        flash::cp_async_wait<0>();
+      }
+      __syncthreads();  // ... for every thread, and every thread is done with the other stage
+      if (c + 1 < n_chunks) {
+        stage_chunk(t, c + 1, (it + 1) & 1);
+      } else if (t + 1 < t_end) {
+        stage_chunk(t + 1, 0, (it + 1) & 1);
+      }
+      flash::cp_async_commit();
+      const E* q_c = ring + (it & 1) * kStage;
+      const E* do_c = q_c + kRows * kCPitch;
+      const E* k_c = do_c + kRows * kCPitch;
+      const E* v_c = k_c + kKeys * kCPitch;
+      chunk_dots<TM, TN, kRowGroups, kChunk, kCPitch>(q_c, k_c, ty, tx, s);
+      chunk_dots<TM, TN, kRowGroups, kChunk, kCPitch>(do_c, v_c, ty, tx, dp);
+    }
+
+    // P = exp2(S - LSE) where the mask keeps the pair (every pair of a tile
+    // the mask keeps whole), dS = P (dP - delta), to shared memory
+    const bool whole = k0 + kKeys <= seq && (!p.causal || k0 + kKeys - 1 <= q0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = ty + kRowGroups * i;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int kpos = k0 + tx + kLanes * j;
+        const bool keep = whole || (kpos < seq && (!p.causal || kpos <= q0 + r));
+        const float pr = keep ? exp2f(s[i][j] * scale_log2 - lse2[i]) : 0.f;
+        ds_tile[r * kSPitch + tx + kLanes * j] = pr * (dp[i][j] - delta[i]);
+      }
+    }
+    flash::cp_async_wait<1>();  // the key slice has landed (the next tile's first chunk may not)
+    __syncthreads();
+    // dQ += dS K on the slice's columns: this thread's TM rows x 4 TC columns
+#pragma unroll 2
+    for (int j = 0; j < kKeys; j += 4) {
+      float4 dsv[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        dsv[i] = *reinterpret_cast<const float4*>(ds_tile + (ty + kRowGroups * i) * kSPitch + j);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const E* k_row = k_slice + (j + jj) * kKPitch + 4 * tx;
+#pragma unroll
+        for (int c = 0; c < TC; ++c) {
+          const float4 kv = flash::load4(k_row + 4 * kLanes * c);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float w = lane_of(dsv[i], jj);
+            acc[i][4 * c] = fmaf(w, kv.x, acc[i][4 * c]);
+            acc[i][4 * c + 1] = fmaf(w, kv.y, acc[i][4 * c + 1]);
+            acc[i][4 * c + 2] = fmaf(w, kv.z, acc[i][4 * c + 2]);
+            acc[i][4 * c + 3] = fmaf(w, kv.w, acc[i][4 * c + 3]);
+          }
         }
-        dk[d] = a;
-        dv[d] = c;
+      }
+    }
+    __syncthreads();  // every thread is done with dS and the key slice
+  }
+
+  // with one split s * dq in T, else the unscaled float32 row to the
+  // scratch for flash_bwd_dq_merge_rows_kernel
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * seq;
+  const int col0 = slice * kSlice + 4 * tx;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int qpos = q0 + ty + kRowGroups * i;
+    if (qpos >= seq) continue;
+    if (p.n_splits == 1) {
+      T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, col0);
+#pragma unroll
+      for (int c = 0; c < TC; ++c) {
+        flash::store4(dq_row + 4 * kLanes * c,
+                      make_float4(acc[i][4 * c] * p.sm_scale, acc[i][4 * c + 1] * p.sm_scale,
+                                  acc[i][4 * c + 2] * p.sm_scale, acc[i][4 * c + 3] * p.sm_scale),
+                      vec);
       }
     } else {
-      // the dot products over every chunk, then dk += ds q and dv += p dO
-      // over every chunk, last chunk first: it is still staged
-      float s[flash::kRowTile];
-      float dp[flash::kRowTile];
+      float* ws_row = p.ws + (split * n_rows + stat + qpos) * D + col0;
 #pragma unroll
-      for (int i = 0; i < flash::kRowTile; ++i) s[i] = dp[i] = 0.f;
-      int cw = C;
-      for (int c0 = 0; c0 < D; c0 += C) {
-        cw = min(C, D - c0);
-        __syncthreads();  // every warp is done with the staged rows
-        flash::stage_rows_float(q_tile, q_head + c0, p.q_st.s, q0, seq, cw);
-        flash::stage_rows_float(do_tile, do_head + c0, p.do_st.s, q0, seq, cw);
-        if (c0 == 0) {
-          for (int i = threadIdx.x; i < flash::kRowTile; i += flash::kRowThreads) {
-            const int qp = q0 + i;
-            lse_tile[i] = qp < seq ? p.lse[stat + qp] * flash::kLog2e : 0.f;
-            delta_tile[i] = qp < seq ? p.delta[stat + qp] : 0.f;
-          }
-        }
-        __syncthreads();
-        for (int d = lane; d < cw; d += 32) {
-          const float kv = to_float(k_src[c0 + d]) * scale_log2;
-          const float vv = to_float(v_src[c0 + d]);
-#pragma unroll
-          for (int i = 0; i < flash::kRowTile; ++i) {
-            s[i] = fmaf(q_tile[i * cw + d], kv, s[i]);
-            dp[i] = fmaf(do_tile[i * cw + d], vv, dp[i]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < flash::kRowTile; ++i) {
-        const float score = flash::warp_sum(s[i]);
-        const float dpi = flash::warp_sum(dp[i]);
-        const int qpos = q0 + i;
-        const bool keep = qpos < seq && (!p.causal || kpos <= qpos);
-        pr[i] = keep ? exp2f(score - lse_tile[i]) : 0.f;
-        ds[i] = pr[i] * (dpi - delta_tile[i]);
-      }
-      for (int c0 = (D - 1) / C * C; c0 >= 0; c0 -= C) {
-        if (c0 + C < D) {
-          cw = C;
-          __syncthreads();
-          flash::stage_rows_float(q_tile, q_head + c0, p.q_st.s, q0, seq, cw);
-          flash::stage_rows_float(do_tile, do_head + c0, p.do_st.s, q0, seq, cw);
-          __syncthreads();
-        }
-        if (!adds) continue;
-        for (int d = lane; d < cw; d += 32) {
-          float a = dk[c0 + d];
-          float c = dv[c0 + d];
-#pragma unroll
-          for (int i = 0; i < flash::kRowTile; ++i) {
-            a = fmaf(ds[i], q_tile[i * cw + d], a);
-            c = fmaf(pr[i], do_tile[i * cw + d], c);
-          }
-          dk[c0 + d] = a;
-          dv[c0 + d] = c;
-        }
+      for (int c = 0; c < TC; ++c) {
+        flash::store4(ws_row + 4 * kLanes * c,
+                      make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                                  acc[i][4 * c + 3]),
+                      true);
       }
     }
   }
-  if (kpos >= seq) return;
+}
+
+// dk/dv above 256 on the CUDA cores (float32, and float64 staged as
+// float32): a block owns kRows key rows and kSlice of their dK and dV
+// columns. Per query tile of kQueries queries, Sᵀ = K Qᵀ and dPᵀ = V dOᵀ are
+// summed over the whole width in kChunk-column chunks of k, v, q and dO
+// through a two-stage ring, each thread holding TM keys x TN queries of
+// both; Pᵀ and dSᵀ go through shared memory, and dV += Pᵀ dO and dK += dSᵀ Q
+// run on the slice's columns of the query tile, staged (with its LSE and
+// delta) while the scores are summed. Key tiles run first to last, causal
+// blocks start at their first key's query, and grids under one wave split
+// the query axis: each split writes its unscaled float32 dK and dV rows,
+// and flash_bwd_dkv_merge_rows_kernel sums them in split order.
+template <typename T, int kRows, int kQueries, int kChunk, int kSlice, int kWarps,
+          int kMinBlocks>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+    flash_bwd_dkv_tiled_kernel(const Params p, int D) {
+  using E = flash::staged_t<T>;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kLanes = 16;                     // threads across a row's queries and columns
+  constexpr int kRowGroups = kThreads / kLanes;  // threads down the key tile
+  constexpr int TM = kRows / kRowGroups;         // key rows a thread holds
+  constexpr int TN = kQueries / kLanes;          // queries a thread scores per tile
+  constexpr int TC = kSlice / (4 * kLanes);      // dK and dV float4s a thread holds per row
+  constexpr int kCPitch = kChunk + 16 / sizeof(E);
+  constexpr int kSPitch = kSlice + 16 / sizeof(E);
+  constexpr int kPPitch = kQueries + 4;
+  constexpr int kStage = 2 * (kRows + kQueries) * kCPitch;  // k, v, q and dO chunks
+  static_assert(kRows % kRowGroups == 0 && kQueries % kLanes == 0 &&
+                    kSlice % (4 * kLanes) == 0 && (kChunk * sizeof(E)) % 16 == 0 &&
+                    kQueries % 4 == 0,
+                "whole register tiles and 16-byte chunks");
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* ring = reinterpret_cast<E*>(smem);  // [2][k | v (kRows each) | q | dO (kQueries each)][kCPitch]
+  E* q_slice = ring + 2 * kStage;                 // [kQueries][kSPitch]
+  E* do_slice = q_slice + kQueries * kSPitch;     // [kQueries][kSPitch]
+  float* p_tile = reinterpret_cast<float*>(do_slice + kQueries * kSPitch);  // [kRows][kPPitch]
+  float* ds_tile = p_tile + kRows * kPPitch;      // [kRows][kPPitch]
+  float* lse_tile = ds_tile + kRows * kPPitch;    // [kQueries]
+  float* delta_tile = lse_tile + kQueries;        // [kQueries]
+
+  // block = (key tile, batch*head, slice, query split), split fastest,
+  // then the slice; key tiles first to last across all heads
+  const int n_slices = D / kSlice;
+  const int split = blockIdx.x % p.n_splits;
+  const int rest = blockIdx.x / p.n_splits;
+  const int slice = rest % n_slices;
+  const int tile = rest / n_slices;
+  const int kt = tile / p.batch_heads;
+  const int bh = tile - kt * p.batch_heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int tx = threadIdx.x % kLanes;
+  const int ty = threadIdx.x / kLanes;
+  const int seq = p.seq;
+  const int k0 = kt * kRows;
+  const bool vec = p.vec;
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
+  const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
+  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
+  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
+  // causal: queries before the block's first key see none of its keys
+  const int q_begin = p.causal ? k0 : 0;
+  // this split's run of the block's query tiles
+  const int n_tiles = (seq - q_begin + kQueries - 1) / kQueries;
+  const int split_tiles = (n_tiles + p.n_splits - 1) / p.n_splits;
+  const int t_begin = min(n_tiles, split * split_tiles);
+  const int t_end = min(n_tiles, t_begin + split_tiles);
+  const int n_chunks = D / kChunk;
+
+  // chunk c of the k and v rows and of query tile t's q and dO rows into ring stage s
+  auto stage_chunk = [&](int t, int c, int s) {
+    E* dst = ring + s * kStage;
+    const int d0 = c * kChunk;
+    const int q0 = q_begin + t * kQueries;
+    flash::stage_rows<T, kChunk, kCPitch, kRows, kThreads, true>(dst, k_head + d0, p.k_st.s, k0, seq,
+                                                           vec);
+    flash::stage_rows<T, kChunk, kCPitch, kRows, kThreads, true>(dst + kRows * kCPitch, v_head + d0,
+                                                           p.v_st.s, k0, seq, vec);
+    flash::stage_rows<T, kChunk, kCPitch, kQueries, kThreads, true>(
+        dst + 2 * kRows * kCPitch, q_head + d0, p.q_st.s, q0, seq, vec);
+    flash::stage_rows<T, kChunk, kCPitch, kQueries, kThreads, true>(
+        dst + (2 * kRows + kQueries) * kCPitch, do_head + d0, p.do_st.s, q0, seq, vec);
+  };
+  if (t_begin < t_end) stage_chunk(t_begin, 0, 0);
+  flash::cp_async_commit();
+
+  const float scale_log2 = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  float dk[TM][4 * TC];
+  float dv[TM][4 * TC];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4 * TC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  }
+
+  int it = 0;  // chunks walked: chunk `it` sits in ring stage it & 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int q0 = q_begin + t * kQueries;
+    // the slice's q and dO columns of this tile with its LSE and delta
+    // (every thread is past the last tile's products: the __syncthreads
+    // that ends it)
+    flash::stage_rows<T, kSlice, kSPitch, kQueries, kThreads, true>(q_slice, q_head + slice * kSlice,
+                                                              p.q_st.s, q0, seq, vec);
+    flash::stage_rows<T, kSlice, kSPitch, kQueries, kThreads, true>(do_slice, do_head + slice * kSlice,
+                                                              p.do_st.s, q0, seq, vec);
+    for (int i = threadIdx.x; i < kQueries; i += kThreads) {
+      const int qp = q0 + i;
+      if (qp < seq) {
+        flash::cp_async4(lse_tile + i, p.lse + stat + qp);
+        flash::cp_async4(delta_tile + i, p.delta + stat + qp);
+      } else {
+        lse_tile[i] = 0.f;
+        delta_tile[i] = 0.f;
+      }
+    }
+    flash::cp_async_commit();
+    float st[TM][TN];
+    float dpt[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) st[i][j] = dpt[i][j] = 0.f;
+    }
+    for (int c = 0; c < n_chunks; ++c, ++it) {
+      if (c == 0) {
+        flash::cp_async_wait<1>();
+      } else {
+        flash::cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (c + 1 < n_chunks) {
+        stage_chunk(t, c + 1, (it + 1) & 1);
+      } else if (t + 1 < t_end) {
+        stage_chunk(t + 1, 0, (it + 1) & 1);
+      }
+      flash::cp_async_commit();
+      const E* k_c = ring + (it & 1) * kStage;
+      const E* v_c = k_c + kRows * kCPitch;
+      const E* q_c = v_c + kRows * kCPitch;
+      const E* do_c = q_c + kQueries * kCPitch;
+      chunk_dots<TM, TN, kRowGroups, kChunk, kCPitch>(k_c, q_c, ty, tx, st);
+      chunk_dots<TM, TN, kRowGroups, kChunk, kCPitch>(v_c, do_c, ty, tx, dpt);
+    }
+    flash::cp_async_wait<1>();  // the slices, LSE and delta have landed
+    __syncthreads();
+    // Pᵀ = exp2(Sᵀ - LSE) where the mask keeps the pair, dSᵀ = Pᵀ (dPᵀ - delta)
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = ty + kRowGroups * i;
+      const int kpos = k0 + r;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int qi = tx + kLanes * j;
+        const int qpos = q0 + qi;
+        const bool keep = qpos < seq && (!p.causal || kpos <= qpos);
+        const float pt = keep ? exp2f(st[i][j] * scale_log2 - lse_tile[qi] * flash::kLog2e) : 0.f;
+        p_tile[r * kPPitch + qi] = pt;
+        ds_tile[r * kPPitch + qi] = pt * (dpt[i][j] - delta_tile[qi]);
+      }
+    }
+    __syncthreads();
+    // dV += Pᵀ dO, then dK += dSᵀ Q, on the slice's columns: this thread's
+    // TM keys x 4 TC columns of each (two passes: half the live registers)
+    auto accumulate = [&](const float* w_tile, const E* rows, float (&acc)[TM][4 * TC]) {
+#pragma unroll 2
+      for (int j = 0; j < kQueries; j += 4) {
+        float4 wv[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          wv[i] = *reinterpret_cast<const float4*>(w_tile + (ty + kRowGroups * i) * kPPitch + j);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const E* row = rows + (j + jj) * kSPitch + 4 * tx;
+#pragma unroll
+          for (int c = 0; c < TC; ++c) {
+            const float4 x = flash::load4(row + 4 * kLanes * c);
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              const float w = lane_of(wv[i], jj);
+              acc[i][4 * c] = fmaf(w, x.x, acc[i][4 * c]);
+              acc[i][4 * c + 1] = fmaf(w, x.y, acc[i][4 * c + 1]);
+              acc[i][4 * c + 2] = fmaf(w, x.z, acc[i][4 * c + 2]);
+              acc[i][4 * c + 3] = fmaf(w, x.w, acc[i][4 * c + 3]);
+            }
+          }
+        }
+      }
+    };
+    accumulate(p_tile, do_slice, dv);
+    accumulate(ds_tile, q_slice, dk);
+    __syncthreads();  // every thread is done with Pᵀ, dSᵀ and the slices
+  }
+
+  // with one split s * dk and dv in T, else the unscaled float32 rows to
+  // the scratch for flash_bwd_dkv_merge_rows_kernel
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * seq;
+  const int col0 = slice * kSlice + 4 * tx;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int kpos = k0 + ty + kRowGroups * i;
+    if (kpos >= seq) continue;
+    if (p.n_splits == 1) {
+      T* dk_row = row_ptr<T>(p.dk, p.dk_st, b, kpos, h, col0);
+      T* dv_row = row_ptr<T>(p.dv, p.dv_st, b, kpos, h, col0);
+#pragma unroll
+      for (int c = 0; c < TC; ++c) {
+        flash::store4(dk_row + 4 * kLanes * c,
+                      make_float4(dk[i][4 * c] * p.sm_scale, dk[i][4 * c + 1] * p.sm_scale,
+                                  dk[i][4 * c + 2] * p.sm_scale, dk[i][4 * c + 3] * p.sm_scale),
+                      vec);
+        flash::store4(dv_row + 4 * kLanes * c,
+                      make_float4(dv[i][4 * c], dv[i][4 * c + 1], dv[i][4 * c + 2],
+                                  dv[i][4 * c + 3]),
+                      vec);
+      }
+    } else {
+      float* ws_row = p.ws + (split * n_rows + stat + kpos) * 2 * D + col0;
+#pragma unroll
+      for (int c = 0; c < TC; ++c) {
+        flash::store4(ws_row + 4 * kLanes * c,
+                      make_float4(dk[i][4 * c], dk[i][4 * c + 1], dk[i][4 * c + 2],
+                                  dk[i][4 * c + 3]),
+                      true);
+        flash::store4(ws_row + D + 4 * kLanes * c,
+                      make_float4(dv[i][4 * c], dv[i][4 * c + 1], dv[i][4 * c + 2],
+                                  dv[i][4 * c + 3]),
+                      true);
+      }
+    }
+  }
+}
+
+// dq above 256 in bfloat16 and float16 on the tensor cores: 4 warps of 16
+// query rows a block (kMmaRows) and kSlice of their dQ columns. Per key
+// tile of kKeys keys, S = Q Kᵀ and dP = dO Vᵀ are summed over the whole
+// width in 64-column chunks of q, dO, k and v through a two-stage cp.async
+// ring (mma.sync m16n8k16, float32 accumulators, A fragments of each chunk's
+// q and dO rows by ldmatrix); P and dS = P (dP - delta) are formed in the
+// registers that summed them, and dQ += dS K runs on the slice's key
+// columns (staged while the scores are summed) with dS as the A operand in
+// place, rounded once to T, and K by ldmatrix.trans. delta = rowsum(dO * O)
+// is summed from device memory, two lanes a row. Block order and key
+// splits as in flash_bwd_dq_tiled_kernel.
+template <typename T, int kKeys, int kChunk, int kSlice, int kMinBlocks>
+__global__ void __launch_bounds__(kMmaWarps * 32, kMinBlocks)
+    flash_bwd_dq_tiled_mma_kernel(const Params p, int D) {
+  constexpr int kThreads = kMmaWarps * 32;
+  constexpr int kRows = kMmaRows;
+  constexpr int kCPitch = kChunk + 8;  // 16 bytes of padding a row: ldmatrix rows on distinct banks
+  constexpr int kKPitch = kSlice + 8;
+  constexpr int kStage = 2 * (kRows + kKeys) * kCPitch;  // q, dO, k and v chunks
+  constexpr int kNTiles = kKeys / 8;   // 8-key tiles of a key tile
+  constexpr int kDTiles = kSlice / 8;  // 8-wide dQ tiles of the slice
+  static_assert(kKeys % 16 == 0 && kSlice % 16 == 0 && kChunk % 16 == 0, "whole 16 x 16 blocks");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);  // [2][q | dO (kRows each) | k | v (kKeys each)][kCPitch]
+  T* k_slice = ring + 2 * kStage;        // [kKeys][kKPitch]
+
+  const int n_slices = D / kSlice;
+  const int split = blockIdx.x % p.n_splits;
+  const int rest = blockIdx.x / p.n_splits;
+  const int slice = rest % n_slices;
+  const int tile = rest / n_slices;
+  const int bh = tile % p.batch_heads;
+  const int qt = p.n_tiles - 1 - tile / p.batch_heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;  // the lane's rows of the warp's 16: g and g + 8
+  const int t4 = lane & 3;  // the lane's columns of each 8-wide tile: 2 t4, 2 t4 + 1
+  const int seq = p.seq;
+  const int q0 = qt * kRows;
+  const int row_a = q0 + warp * 16 + g;
+  const bool vec = p.vec;
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
+  const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
+  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
+  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
+  // keys the block needs, and keys the warp's rows need (a causal warp
+  // skips the tiles past its last row, a warp-uniform branch)
+  const int k_end = p.causal ? min(seq, q0 + kRows) : seq;
+  const int warp_k_end = p.causal ? min(seq, q0 + warp * 16 + 16) : seq;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  const int split_tiles = (n_tiles + p.n_splits - 1) / p.n_splits;
+  const int t_begin = min(n_tiles, split * split_tiles);
+  const int t_end = min(n_tiles, t_begin + split_tiles);
+  const int n_chunks = D / kChunk;
+
+  auto stage_chunk = [&](int t, int c, int s) {
+    T* dst = ring + s * kStage;
+    const int d0 = c * kChunk;
+    flash::stage_rows<T, kChunk, kCPitch, kRows, kThreads>(dst, q_head + d0, p.q_st.s, q0, seq,
+                                                           vec);
+    flash::stage_rows<T, kChunk, kCPitch, kRows, kThreads>(dst + kRows * kCPitch, do_head + d0,
+                                                           p.do_st.s, q0, seq, vec);
+    flash::stage_rows<T, kChunk, kCPitch, kKeys, kThreads>(
+        dst + 2 * kRows * kCPitch, k_head + d0, p.k_st.s, t * kKeys, k_end, vec);
+    flash::stage_rows<T, kChunk, kCPitch, kKeys, kThreads>(
+        dst + (2 * kRows + kKeys) * kCPitch, v_head + d0, p.v_st.s, t * kKeys, k_end, vec);
+  };
+  if (t_begin < t_end) stage_chunk(t_begin, 0, 0);
+  flash::cp_async_commit();
+
+  // delta = rowsum(dO * O) in float32, two lanes a row (lane 2r + half sums
+  // half the width of the warp's row r) from device memory, written by one
+  // block a row; then each lane takes its rows g and g + 8, with their LSE
+  // in log2 units
+  float delta[2];
+  float lse2[2];
+  {
+    const int r = warp * 16 + (lane >> 1);
+    const int half = lane & 1;
+    const int qc = min(q0 + r, seq - 1);
+    const T* o_row = row_ptr<T>(p.out, p.o_st, b, qc, h, half * (D / 2));
+    const T* d_row = row_ptr<T>(p.d_out, p.do_st, b, qc, h, half * (D / 2));
+    float dot = 0.f;
+    for (int d = 0; d < D / 2; d += 8) {
+      float ov[8];
+      float gv[8];
+      flash::load_row<T, 8>(o_row + d, ov, vec);
+      flash::load_row<T, 8>(d_row + d, gv, vec);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dot = fmaf(gv[e], ov[e], dot);
+    }
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    if (slice == 0 && split == 0 && half == 0 && q0 + r < seq) p.delta[stat + q0 + r] = dot;
+    delta[0] = __shfl_sync(0xffffffffu, dot, 2 * g);
+    delta[1] = __shfl_sync(0xffffffffu, dot, 2 * g + 16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) lse2[i] = p.lse[stat + min(row_a + 8 * i, seq - 1)] * flash::kLog2e;
+  }
+
+  const float scale_log2 = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  float dq[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+
+  int it = 0;  // chunks walked: chunk `it` sits in ring stage it & 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kKeys;
+    flash::stage_rows<T, kSlice, kKPitch, kKeys, kThreads>(k_slice, k_head + slice * kSlice,
+                                                           p.k_st.s, k0, k_end, vec);
+    flash::cp_async_commit();
+    const bool active = k0 < warp_k_end;
+    // S = Q Kᵀ and dP = dO Vᵀ, 16 rows x kKeys keys each
+    float st[kNTiles][4];
+    float dp[kNTiles][4];
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dp[j][e] = 0.f;
+    }
+    for (int c = 0; c < n_chunks; ++c, ++it) {
+      if (c == 0) {
+        flash::cp_async_wait<1>();
+      } else {
+        flash::cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (c + 1 < n_chunks) {
+        stage_chunk(t, c + 1, (it + 1) & 1);
+      } else if (t + 1 < t_end) {
+        stage_chunk(t + 1, 0, (it + 1) & 1);
+      }
+      flash::cp_async_commit();
+      if (!active) continue;
+      const T* q_c = ring + (it & 1) * kStage;
+      const T* do_c = q_c + kRows * kCPitch;
+      const T* k_c = do_c + kRows * kCPitch;
+      const T* v_c = k_c + kKeys * kCPitch;
+#pragma unroll
+      for (int kc = 0; kc < kChunk / 16; ++kc) {
+        uint32_t qa[4];
+        uint32_t da[4];
+        flash::ldmatrix_x4(qa, flash::a_rows(q_c, kCPitch, warp * 16, kc * 16, lane));
+        flash::ldmatrix_x4(da, flash::a_rows(do_c, kCPitch, warp * 16, kc * 16, lane));
+#pragma unroll
+        for (int np = 0; np < kNTiles / 2; ++np) {
+          uint32_t kb[4];
+          flash::ldmatrix_x4(kb, flash::b_rows(k_c, kCPitch, np * 16, kc * 16, lane));
+          flash::mma_16816<T>(st[2 * np], qa, kb[0], kb[1]);
+          flash::mma_16816<T>(st[2 * np + 1], qa, kb[2], kb[3]);
+          uint32_t vb[4];
+          flash::ldmatrix_x4(vb, flash::b_rows(v_c, kCPitch, np * 16, kc * 16, lane));
+          flash::mma_16816<T>(dp[2 * np], da, vb[0], vb[1]);
+          flash::mma_16816<T>(dp[2 * np + 1], da, vb[2], vb[3]);
+        }
+      }
+    }
+    flash::cp_async_wait<1>();  // the key slice has landed (the next tile's first chunk may not)
+    __syncthreads();
+    if (active) {
+      // P = exp2(S - LSE) where the mask keeps the pair (every pair of a
+      // tile the mask keeps whole for the warp's rows), dS = P (dP - delta)
+      const bool whole = k0 + kKeys <= seq && (!p.causal || k0 + kKeys <= q0 + warp * 16 + 1);
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float pr = flash::exp2_approx(st[j][e] * scale_log2 - lse2[r]);
+          if (!whole) {
+            const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+            const bool keep = kpos < seq && (!p.causal || kpos <= row_a + 8 * r);
+            pr = keep ? pr : 0.f;
+          }
+          st[j][e] = pr * (dp[j][e] - delta[r]);
+        }
+      }
+      // dQ += dS K on the slice's columns: dS in place as the A operand, K
+      // by ldmatrix.trans
+#pragma unroll
+      for (int kc = 0; kc < kKeys / 16; ++kc) {
+        uint32_t ds[4];
+        flash::pack_a<T>(ds, st[2 * kc], st[2 * kc + 1]);
+#pragma unroll
+        for (int dpi = 0; dpi < kSlice / 16; ++dpi) {
+          uint32_t kb[4];
+          flash::ldmatrix_x4_trans(kb, flash::bt_rows(k_slice, kKPitch, kc * 16, dpi * 16, lane));
+          flash::mma_16816<T>(dq[2 * dpi], ds, kb[0], kb[1]);
+          flash::mma_16816<T>(dq[2 * dpi + 1], ds, kb[2], kb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the key slice
+  }
+
+  // each lane stores two columns of each 8-wide tile of its two rows: with
+  // one split s * dq in T, else the unscaled float32 row to the scratch for
+  // flash_bwd_dq_merge_rows_kernel
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * seq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row_a + 8 * r;
+    if (qpos >= seq) continue;
+    if (p.n_splits == 1) {
+      T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, slice * kSlice);
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt) {
+        const int col = dt * 8 + 2 * t4;
+        const float x0 = dq[dt][2 * r] * p.sm_scale;
+        const float x1 = dq[dt][2 * r + 1] * p.sm_scale;
+        if (vec) {
+          *reinterpret_cast<uint32_t*>(dq_row + col) = flash::pack2<T>(x0, x1);
+        } else {
+          dq_row[col] = from_float<T>(x0);
+          dq_row[col + 1] = from_float<T>(x1);
+        }
+      }
+    } else {
+      float* ws_row = p.ws + (split * n_rows + stat + qpos) * D + slice * kSlice;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt) {
+        *reinterpret_cast<float2*>(ws_row + dt * 8 + 2 * t4) =
+            make_float2(dq[dt][2 * r], dq[dt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dk/dv above 256 in bfloat16 and float16 on the tensor cores: 4 warps of
+// 16 key rows a block (kMmaKeys) and kSlice of their dK and dV columns. Per
+// query tile of kQueries queries, Sᵀ = K Qᵀ and dPᵀ = V dOᵀ are summed over
+// the whole width in 64-column chunks of k, v, q and dO through a two-stage
+// cp.async ring; Pᵀ and dSᵀ are formed in the registers that summed them,
+// and dV += Pᵀ dO and dK += dSᵀ Q run on the slice's q and dO columns
+// (staged with the tile's LSE and delta while the scores are summed), Pᵀ
+// and dSᵀ each split into a head and a tail term of T as A operands in
+// place, dO and Q by ldmatrix.trans. Block order and query splits as in
+// flash_bwd_dkv_tiled_kernel.
+template <typename T, int kQueries, int kChunk, int kSlice, int kMinBlocks>
+__global__ void __launch_bounds__(kMmaWarps * 32, kMinBlocks)
+    flash_bwd_dkv_tiled_mma_kernel(const Params p, int D) {
+  constexpr int kThreads = kMmaWarps * 32;
+  constexpr int kRows = kMmaKeys;
+  constexpr int kCPitch = kChunk + 8;
+  constexpr int kSPitch = kSlice + 8;
+  constexpr int kStage = 2 * (kRows + kQueries) * kCPitch;  // k, v, q and dO chunks
+  constexpr int kQTiles = kQueries / 8;  // 8-query tiles of a query tile
+  constexpr int kDTiles = kSlice / 8;    // 8-wide dK and dV tiles of the slice
+  static_assert(kQueries % 16 == 0 && kSlice % 16 == 0 && kChunk % 16 == 0,
+                "whole 16 x 16 blocks");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);     // [2][k | v (kRows each) | q | dO (kQueries each)][kCPitch]
+  T* q_slice = ring + 2 * kStage;           // [kQueries][kSPitch]
+  T* do_slice = q_slice + kQueries * kSPitch;  // [kQueries][kSPitch]
+  float* lse_tile = reinterpret_cast<float*>(do_slice + kQueries * kSPitch);  // [kQueries]
+  float* delta_tile = lse_tile + kQueries;                                     // [kQueries]
+
+  const int n_slices = D / kSlice;
+  const int split = blockIdx.x % p.n_splits;
+  const int rest = blockIdx.x / p.n_splits;
+  const int slice = rest % n_slices;
+  const int tile = rest / n_slices;
+  const int kt = tile / p.batch_heads;
+  const int bh = tile - kt * p.batch_heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;  // the lane's keys of the warp's 16: g and g + 8
+  const int t4 = lane & 3;  // the lane's columns of each 8-wide tile: 2 t4, 2 t4 + 1
+  const int seq = p.seq;
+  const int k0 = kt * kRows;
+  const int key_a = k0 + warp * 16 + g;
+  const bool vec = p.vec;
+  const int64_t stat = static_cast<int64_t>(bh) * seq;
+  const T* q_head = row_ptr<T>(p.q, p.q_st, b, 0, h, 0);
+  const T* do_head = row_ptr<T>(p.d_out, p.do_st, b, 0, h, 0);
+  const T* k_head = row_ptr<T>(p.k, p.k_st, b, 0, h, 0);
+  const T* v_head = row_ptr<T>(p.v, p.v_st, b, 0, h, 0);
+  // causal: queries before the block's first key see none of its keys,
+  // and a tile wholly before the warp's first key none of the warp's (a
+  // warp-uniform skip)
+  const int q_begin = p.causal ? k0 : 0;
+  const int warp_q_first = p.causal ? k0 + warp * 16 : 0;
+  const int n_tiles = (seq - q_begin + kQueries - 1) / kQueries;
+  const int split_tiles = (n_tiles + p.n_splits - 1) / p.n_splits;
+  const int t_begin = min(n_tiles, split * split_tiles);
+  const int t_end = min(n_tiles, t_begin + split_tiles);
+  const int n_chunks = D / kChunk;
+
+  auto stage_chunk = [&](int t, int c, int s) {
+    T* dst = ring + s * kStage;
+    const int d0 = c * kChunk;
+    const int q0 = q_begin + t * kQueries;
+    flash::stage_rows<T, kChunk, kCPitch, kRows, kThreads>(dst, k_head + d0, p.k_st.s, k0, seq,
+                                                           vec);
+    flash::stage_rows<T, kChunk, kCPitch, kRows, kThreads>(dst + kRows * kCPitch, v_head + d0,
+                                                           p.v_st.s, k0, seq, vec);
+    flash::stage_rows<T, kChunk, kCPitch, kQueries, kThreads>(
+        dst + 2 * kRows * kCPitch, q_head + d0, p.q_st.s, q0, seq, vec);
+    flash::stage_rows<T, kChunk, kCPitch, kQueries, kThreads>(
+        dst + (2 * kRows + kQueries) * kCPitch, do_head + d0, p.do_st.s, q0, seq, vec);
+  };
+  if (t_begin < t_end) stage_chunk(t_begin, 0, 0);
+  flash::cp_async_commit();
+
+  const float scale_log2 = p.sm_scale * flash::kLog2e;  // scores in log2 units
+  float dk[kDTiles][4];
+  float dv[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+  }
+
+  int it = 0;  // chunks walked: chunk `it` sits in ring stage it & 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int q0 = q_begin + t * kQueries;
+    flash::stage_rows<T, kSlice, kSPitch, kQueries, kThreads>(q_slice, q_head + slice * kSlice,
+                                                              p.q_st.s, q0, seq, vec);
+    flash::stage_rows<T, kSlice, kSPitch, kQueries, kThreads>(do_slice, do_head + slice * kSlice,
+                                                              p.do_st.s, q0, seq, vec);
+    for (int i = threadIdx.x; i < kQueries; i += kThreads) {
+      const int qp = q0 + i;
+      if (qp < seq) {
+        flash::cp_async4(lse_tile + i, p.lse + stat + qp);
+        flash::cp_async4(delta_tile + i, p.delta + stat + qp);
+      } else {
+        lse_tile[i] = 0.f;
+        delta_tile[i] = 0.f;
+      }
+    }
+    flash::cp_async_commit();
+    const bool active = q0 + kQueries > warp_q_first;
+    // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, 16 keys x kQueries queries each
+    float st[kQTiles][4];
+    float dpt[kQTiles][4];
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    }
+    for (int c = 0; c < n_chunks; ++c, ++it) {
+      if (c == 0) {
+        flash::cp_async_wait<1>();
+      } else {
+        flash::cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (c + 1 < n_chunks) {
+        stage_chunk(t, c + 1, (it + 1) & 1);
+      } else if (t + 1 < t_end) {
+        stage_chunk(t + 1, 0, (it + 1) & 1);
+      }
+      flash::cp_async_commit();
+      if (!active) continue;
+      const T* k_c = ring + (it & 1) * kStage;
+      const T* v_c = k_c + kRows * kCPitch;
+      const T* q_c = v_c + kRows * kCPitch;
+      const T* do_c = q_c + kQueries * kCPitch;
+#pragma unroll
+      for (int kc = 0; kc < kChunk / 16; ++kc) {
+        uint32_t ka[4];
+        uint32_t va[4];
+        flash::ldmatrix_x4(ka, flash::a_rows(k_c, kCPitch, warp * 16, kc * 16, lane));
+        flash::ldmatrix_x4(va, flash::a_rows(v_c, kCPitch, warp * 16, kc * 16, lane));
+#pragma unroll
+        for (int np = 0; np < kQTiles / 2; ++np) {
+          uint32_t qb[4];
+          flash::ldmatrix_x4(qb, flash::b_rows(q_c, kCPitch, np * 16, kc * 16, lane));
+          flash::mma_16816<T>(st[2 * np], ka, qb[0], qb[1]);
+          flash::mma_16816<T>(st[2 * np + 1], ka, qb[2], qb[3]);
+          uint32_t ob[4];
+          flash::ldmatrix_x4(ob, flash::b_rows(do_c, kCPitch, np * 16, kc * 16, lane));
+          flash::mma_16816<T>(dpt[2 * np], va, ob[0], ob[1]);
+          flash::mma_16816<T>(dpt[2 * np + 1], va, ob[2], ob[3]);
+        }
+      }
+    }
+    flash::cp_async_wait<1>();  // the slices, LSE and delta have landed
+    __syncthreads();
+    if (active) {
+      // Pᵀ = exp2(Sᵀ - LSE) where the mask keeps the pair, dSᵀ = Pᵀ (dPᵀ - delta)
+#pragma unroll
+      for (int j = 0; j < kQTiles; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = 8 * j + 2 * t4 + c;
+          const int qpos = q0 + qi;
+          const float lse2 = lse_tile[qi] * flash::kLog2e;
+          const float delta = delta_tile[qi];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c;
+            const bool keep = qpos < seq && (!p.causal || key_a + 8 * r <= qpos);
+            const float pt = keep ? flash::exp2_approx(st[j][e] * scale_log2 - lse2) : 0.f;
+            dpt[j][e] = pt * (dpt[j][e] - delta);
+            st[j][e] = pt;
+          }
+        }
+      }
+      // dV += Pᵀ dO and dK += dSᵀ Q on the slice's columns, Pᵀ and dSᵀ in
+      // place as A operands, each split into two terms of T (head + tail)
+#pragma unroll
+      for (int kc = 0; kc < kQueries / 16; ++kc) {
+        uint32_t ph[4];
+        uint32_t pl[4];
+        uint32_t dh[4];
+        uint32_t dl[4];
+        flash::split_a<T>(ph, pl, st[2 * kc], st[2 * kc + 1]);
+        flash::split_a<T>(dh, dl, dpt[2 * kc], dpt[2 * kc + 1]);
+#pragma unroll
+        for (int dpi = 0; dpi < kSlice / 16; ++dpi) {
+          uint32_t ob[4];
+          flash::ldmatrix_x4_trans(ob, flash::bt_rows(do_slice, kSPitch, kc * 16, dpi * 16, lane));
+          flash::mma_16816<T>(dv[2 * dpi], ph, ob[0], ob[1]);
+          flash::mma_16816<T>(dv[2 * dpi + 1], ph, ob[2], ob[3]);
+          flash::mma_16816<T>(dv[2 * dpi], pl, ob[0], ob[1]);
+          flash::mma_16816<T>(dv[2 * dpi + 1], pl, ob[2], ob[3]);
+          uint32_t qb[4];
+          flash::ldmatrix_x4_trans(qb, flash::bt_rows(q_slice, kSPitch, kc * 16, dpi * 16, lane));
+          flash::mma_16816<T>(dk[2 * dpi], dh, qb[0], qb[1]);
+          flash::mma_16816<T>(dk[2 * dpi + 1], dh, qb[2], qb[3]);
+          flash::mma_16816<T>(dk[2 * dpi], dl, qb[0], qb[1]);
+          flash::mma_16816<T>(dk[2 * dpi + 1], dl, qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the slices
+  }
+
+  // each lane stores two columns of each 8-wide tile of its two key rows:
+  // with one split s * dk and dv in T, else the unscaled float32 rows to
+  // the scratch for flash_bwd_dkv_merge_rows_kernel
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * seq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = key_a + 8 * r;
+    if (kpos >= seq) continue;
+    if (p.n_splits == 1) {
+      T* dk_row = row_ptr<T>(p.dk, p.dk_st, b, kpos, h, slice * kSlice);
+      T* dv_row = row_ptr<T>(p.dv, p.dv_st, b, kpos, h, slice * kSlice);
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt) {
+        const int col = dt * 8 + 2 * t4;
+        const float k0v = dk[dt][2 * r] * p.sm_scale;
+        const float k1v = dk[dt][2 * r + 1] * p.sm_scale;
+        if (vec) {
+          *reinterpret_cast<uint32_t*>(dk_row + col) = flash::pack2<T>(k0v, k1v);
+          *reinterpret_cast<uint32_t*>(dv_row + col) =
+              flash::pack2<T>(dv[dt][2 * r], dv[dt][2 * r + 1]);
+        } else {
+          dk_row[col] = from_float<T>(k0v);
+          dk_row[col + 1] = from_float<T>(k1v);
+          dv_row[col] = from_float<T>(dv[dt][2 * r]);
+          dv_row[col + 1] = from_float<T>(dv[dt][2 * r + 1]);
+        }
+      }
+    } else {
+      float* ws_row = p.ws + (split * n_rows + stat + kpos) * 2 * D + slice * kSlice;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt) {
+        *reinterpret_cast<float2*>(ws_row + dt * 8 + 2 * t4) =
+            make_float2(dk[dt][2 * r], dk[dt][2 * r + 1]);
+        *reinterpret_cast<float2*>(ws_row + D + dt * 8 + 2 * t4) =
+            make_float2(dv[dt][2 * r], dv[dt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// Merge the key splits of the dq kernels above 256 (the width D at run
+// time): one warp a row sums the splits' rows in split order, the lanes
+// striding over the width, and writes s * dq.
+template <typename T>
+__global__ void __launch_bounds__(128) flash_bwd_dq_merge_rows_kernel(const Params p, int D) {
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * p.seq;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 4 + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const int bh = static_cast<int>(row / p.seq);
+  const int qpos = static_cast<int>(row - static_cast<int64_t>(bh) * p.seq);
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  T* dq_row = row_ptr<T>(p.dq, p.dq_st, b, qpos, h, 0);
+  for (int d = lane; d < D; d += 32) {
+    float acc = 0.f;
+    for (int s = 0; s < p.n_splits; ++s) acc += p.ws[(s * n_rows + row) * D + d];
+    dq_row[d] = from_float<T>(acc * p.sm_scale);
+  }
+}
+
+// Merge the query splits of the dk/dv kernels above 256: one warp a key
+// row sums the splits' dK and dV rows in split order and writes s * dk and
+// dv.
+template <typename T>
+__global__ void __launch_bounds__(128) flash_bwd_dkv_merge_rows_kernel(const Params p, int D) {
+  const int64_t n_rows = static_cast<int64_t>(p.batch_heads) * p.seq;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 4 + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const int bh = static_cast<int>(row / p.seq);
+  const int kpos = static_cast<int>(row - static_cast<int64_t>(bh) * p.seq);
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
   T* dk_row = row_ptr<T>(p.dk, p.dk_st, b, kpos, h, 0);
   T* dv_row = row_ptr<T>(p.dv, p.dv_st, b, kpos, h, 0);
   for (int d = lane; d < D; d += 32) {
-    dk_row[d] = from_float<T>(dk[d] * p.sm_scale);
-    dv_row[d] = from_float<T>(dv[d]);
+    float k_acc = 0.f;
+    float v_acc = 0.f;
+    for (int s = 0; s < p.n_splits; ++s) {
+      const float* part = p.ws + (s * n_rows + row) * 2 * D;
+      k_acc += part[d];
+      v_acc += part[D + d];
+    }
+    dk_row[d] = from_float<T>(k_acc * p.sm_scale);
+    dv_row[d] = from_float<T>(v_acc);
   }
 }
 
@@ -1760,13 +2549,14 @@ constexpr int dkv_smem() {
          4 * kTile * static_cast<int>(sizeof(float));
 }
 
-// bfloat16 and float16 dq and dk/dv at head_dim 64 and 128 take the
-// tensor cores; float32 keeps the CUDA cores (TF32 would break its 1e-4
-// tolerance), and float64 is summed in float32 there as in the Pallas
+// bfloat16 and float16 dq and dk/dv at head_dim 64 and 128, and above 256,
+// take the tensor cores; float32 keeps the CUDA cores (TF32 would break its
+// 1e-4 tolerance), and float64 is summed in float32 there as in the Pallas
 // kernel
+template <typename T>
+constexpr bool kSixteenBit = std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>;
 template <typename T, int D>
-constexpr bool kTensorCores =
-    (std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>) && (D == 64 || D == 128);
+constexpr bool kTensorCores = kSixteenBit<T> && (D == 64 || D == 128);
 
 // (keys per staged tile, minimum blocks per SM) of the tensor-core dq
 // kernel, from the sweep (scripts/flash_tiling_sweep.py, PERF.md): at
@@ -1850,21 +2640,6 @@ constexpr int dkv_mma_smem() {
          4 * kTile * static_cast<int>(sizeof(float));
 }
 
-// dynamic shared memory of a rowwise block at head_dim D, all float32:
-// dq's key and value tiles (kRowChunk columns streamed, else D) and, not
-// streamed, its warps' q, dO and dq rows; dk/dv's q and dO tiles, LSE and
-// delta and, not streamed, its warps' k, v, dk and dv rows
-constexpr int dq_rowwise_smem(int D, bool stream) {
-  return (2 * flash::kRowTile * (stream ? flash::kRowChunk : D) +
-          (stream ? 0 : 3 * flash::kRowWarps * D)) *
-         static_cast<int>(sizeof(float));
-}
-constexpr int dkv_rowwise_smem(int D, bool stream) {
-  return (2 * flash::kRowTile * (stream ? flash::kRowChunk : D) + 2 * flash::kRowTile +
-          (stream ? 0 : 4 * flash::kRowWarps * D)) *
-         static_cast<int>(sizeof(float));
-}
-
 enum class Which { kDq, kDkv };
 
 template <Which W, typename T, int D>
@@ -1935,32 +2710,143 @@ int launch(Params& p, int64_t batch_heads, cudaStream_t stream, int* launched) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the rowwise kernels at any head_dim above 256: rows in shared memory up
-// to flash::kMaxSharedRowDim, streamed above it (the caller's scratch)
-template <Which W, typename T, bool kStream>
-int launch_rowwise(Params& p, int64_t batch_heads, int head_dim, cudaStream_t stream,
-                   int* launched) {
-  if (kStream && p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  p.n_tiles = (p.seq + flash::kRowWarps - 1) / flash::kRowWarps;
-  const int64_t n_blocks = batch_heads * p.n_tiles;
-  if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const unsigned grid = static_cast<unsigned>(n_blocks);
-  // the widest block each kernel takes: the shared rows at kMaxSharedRowDim, or the streamed chunks
-  constexpr int kDmax = kStream ? flash::kRowChunk : flash::kMaxSharedRowDim;
-  if constexpr (W == Which::kDq) {
-    static const cudaError_t smem_ok = flash::allow_dynamic_smem(
-        flash_bwd_dq_rowwise_kernel<T, kStream>, dq_rowwise_smem(kDmax, kStream));
-    if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
-    flash_bwd_dq_rowwise_kernel<T, kStream>
-        <<<grid, flash::kRowThreads, dq_rowwise_smem(head_dim, kStream), stream>>>(p, head_dim);
+// Tilings of the kernels above head_dim 256, chosen by timing on the card
+// (scripts/flash_tiling_sweep.py, PERF.md). The CUDA-core dq kernel:
+// (query rows, keys a tile, head dims a staged chunk, dQ columns a block,
+// warps, minimum blocks per SM).
+struct DqTiledTiling {
+  static constexpr int kRows = 32, kKeys = 64, kChunk = 32, kSlice = 128, kWarps = 4, kMinBlocks = 2;
+};
+// The CUDA-core dk/dv kernel: (key rows, queries a tile, head dims a staged
+// chunk, dK and dV columns a block, warps, minimum blocks per SM).
+struct DkvTiledTiling {
+  static constexpr int kRows = 32, kQueries = 32, kChunk = 64, kSlice = 128, kWarps = 4, kMinBlocks = 2;
+};
+// The tensor-core dq kernel: (keys a tile, head dims a staged chunk, dQ
+// columns a block, minimum blocks per SM); 64 query rows a block.
+struct DqTiledMmaTiling {
+  static constexpr int kKeys = 64, kChunk = 64, kSlice = 128, kMinBlocks = 2;
+};
+// The tensor-core dk/dv kernel: (queries a tile, head dims a staged chunk,
+// dK and dV columns a block, minimum blocks per SM); 64 key rows a block.
+// Its two accumulators take 2 kSlice / 4 registers a lane.
+struct DkvTiledMmaTiling {
+  static constexpr int kQueries = 64, kChunk = 64, kSlice = 64, kMinBlocks = 2;
+};
+
+// A kernel above head_dim 256 (the width at run time): the kernel, its
+// block's threads and dynamic shared memory, the rows a block owns, the
+// partner rows of a tile, the output columns of a block, and the family it
+// reports.
+struct TiledLaunch {
+  void (*kernel)(Params, int);
+  int threads, smem, rows, tile, slice, family;
+};
+
+template <Which W, typename T>
+TiledLaunch tiled_launch() {
+  constexpr int kE = static_cast<int>(sizeof(flash::staged_t<T>));
+  constexpr int kPad = 16 / kE;  // elements of a 16-byte row pad
+  constexpr int kF = static_cast<int>(sizeof(float));
+  if constexpr (W == Which::kDq && kSixteenBit<T>) {
+    using Tile = DqTiledMmaTiling;
+    // the ring of q, dO, k and v chunks, then the key slice
+    return {flash_bwd_dq_tiled_mma_kernel<T, Tile::kKeys, Tile::kChunk, Tile::kSlice,
+                                          Tile::kMinBlocks>,
+            kMmaWarps * 32,
+            (4 * (kMmaRows + Tile::kKeys) * (Tile::kChunk + kPad) +
+             Tile::kKeys * (Tile::kSlice + kPad)) * kE,
+            kMmaRows, Tile::kKeys, Tile::kSlice, flash::kFamilyTiledMma};
+  } else if constexpr (W == Which::kDq) {
+    using Tile = DqTiledTiling;
+    // the ring, the key slice (staged type), then dS (float32)
+    return {flash_bwd_dq_tiled_kernel<T, Tile::kRows, Tile::kKeys, Tile::kChunk, Tile::kSlice,
+                                      Tile::kWarps, Tile::kMinBlocks>,
+            Tile::kWarps * 32,
+            (4 * (Tile::kRows + Tile::kKeys) * (Tile::kChunk + kPad) +
+             Tile::kKeys * (Tile::kSlice + kPad)) * kE +
+                Tile::kRows * (Tile::kKeys + 4) * kF,
+            Tile::kRows, Tile::kKeys, Tile::kSlice, flash::kFamilyTiled};
+  } else if constexpr (kSixteenBit<T>) {
+    using Tile = DkvTiledMmaTiling;
+    // the ring of k, v, q and dO chunks, the q and dO slices, LSE and delta
+    return {flash_bwd_dkv_tiled_mma_kernel<T, Tile::kQueries, Tile::kChunk, Tile::kSlice,
+                                           Tile::kMinBlocks>,
+            kMmaWarps * 32,
+            (4 * (kMmaKeys + Tile::kQueries) * (Tile::kChunk + kPad) +
+             2 * Tile::kQueries * (Tile::kSlice + kPad)) * kE +
+                2 * Tile::kQueries * kF,
+            kMmaKeys, Tile::kQueries, Tile::kSlice, flash::kFamilyTiledMma};
   } else {
-    static const cudaError_t smem_ok = flash::allow_dynamic_smem(
-        flash_bwd_dkv_rowwise_kernel<T, kStream>, dkv_rowwise_smem(kDmax, kStream));
-    if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
-    flash_bwd_dkv_rowwise_kernel<T, kStream>
-        <<<grid, flash::kRowThreads, dkv_rowwise_smem(head_dim, kStream), stream>>>(p, head_dim);
+    using Tile = DkvTiledTiling;
+    // the ring, the q and dO slices (staged type), Pᵀ and dSᵀ, LSE and delta
+    return {flash_bwd_dkv_tiled_kernel<T, Tile::kRows, Tile::kQueries, Tile::kChunk,
+                                       Tile::kSlice, Tile::kWarps, Tile::kMinBlocks>,
+            Tile::kWarps * 32,
+            (4 * (Tile::kRows + Tile::kQueries) * (Tile::kChunk + kPad) +
+             2 * Tile::kQueries * (Tile::kSlice + kPad)) * kE +
+                (2 * Tile::kRows * (Tile::kQueries + 4) + 2 * Tile::kQueries) * kF,
+            Tile::kRows, Tile::kQueries, Tile::kSlice, flash::kFamilyTiled};
   }
-  *launched = flash::kFamilyRowwise;
+}
+
+template <Which W, typename T>
+const flash::WideSetup& tiled_setup() {
+  static const TiledLaunch k = tiled_launch<W, T>();
+  static const flash::WideSetup setup = flash::wide_setup(k.kernel, k.threads, k.smem);
+  return setup;
+}
+
+// the partner splits (dq's keys, dk/dv's queries) of a launch above 256,
+// by the wide kernels' rule
+template <Which W, typename T>
+int tiled_splits(int64_t wave, int64_t batch_heads, int seq, int head_dim, bool causal) {
+  const TiledLaunch k = tiled_launch<W, T>();
+  const int64_t blocks = batch_heads * ((seq + k.rows - 1) / k.rows) * (head_dim / k.slice);
+  return flash::key_splits(wave, blocks, (seq + k.tile - 1) / k.tile, causal);
+}
+
+template <Which W, typename T>
+int tiled_splits_of(int64_t batch_heads, int seq, int head_dim, bool causal) {
+  if (head_dim <= 256 || head_dim % 128 != 0) return 1;
+  const flash::WideSetup& setup = tiled_setup<W, T>();
+  if (setup.err != cudaSuccess) return -static_cast<int>(setup.err);
+  return tiled_splits<W, T>(setup.wave, batch_heads, seq, head_dim, causal);
+}
+
+// dq or dk/dv at any head_dim above 256 that is a multiple of 128 (of every
+// tiling's chunk and slice); with splits, the merge kernel after it (the
+// caller's scratch)
+template <Which W, typename T>
+int launch_tiled(Params& p, int64_t batch_heads, int head_dim, cudaStream_t stream,
+                 int* launched) {
+  const TiledLaunch k = tiled_launch<W, T>();
+  if (head_dim % k.slice != 0 || head_dim % 128 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const flash::WideSetup& setup = tiled_setup<W, T>();
+  if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
+  p.n_splits = tiled_splits<W, T>(setup.wave, batch_heads, p.seq, head_dim, p.causal);
+  if (p.n_splits > 1 && p.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_tiles = (p.seq + k.rows - 1) / k.rows;
+  const int64_t n_blocks =
+      batch_heads * p.n_tiles * (head_dim / k.slice) * static_cast<int64_t>(p.n_splits);
+  const int64_t n_rows = batch_heads * p.seq;
+  if (n_blocks > INT_MAX || (n_rows + 3) / 4 > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  k.kernel<<<static_cast<unsigned>(n_blocks), k.threads, k.smem, stream>>>(p, head_dim);
+  if (p.n_splits > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned grid = static_cast<unsigned>((n_rows + 3) / 4);
+    if constexpr (W == Which::kDq) {
+      flash_bwd_dq_merge_rows_kernel<T><<<grid, 128, 0, stream>>>(p, head_dim);
+    } else {
+      flash_bwd_dkv_merge_rows_kernel<T><<<grid, 128, 0, stream>>>(p, head_dim);
+    }
+  }
+  *launched = k.family;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1974,11 +2860,8 @@ int dispatch_head_dim(int head_dim, Params& p, int64_t batch_heads, cudaStream_t
     case 128: return launch<W, T, 128>(p, batch_heads, stream, launched);
     case 256: return launch<W, T, 256>(p, batch_heads, stream, launched);
     default:
-      if (head_dim <= 256 || head_dim % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-      if (head_dim <= flash::kMaxSharedRowDim) {
-        return launch_rowwise<W, T, false>(p, batch_heads, head_dim, stream, launched);
-      }
-      return launch_rowwise<W, T, true>(p, batch_heads, head_dim, stream, launched);
+      if (head_dim <= 256) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_tiled<W, T>(p, batch_heads, head_dim, stream, launched);
   }
 }
 
@@ -2020,7 +2903,7 @@ int dq_splits_for(int head_dim, int64_t batch_heads, int seq, bool causal) {
     case 64: return dq_splits_of<T, 64>(batch_heads, seq, causal);
     case 128: return dq_splits_of<T, 128>(batch_heads, seq, causal);
     case 256: return dq_splits_of<T, 256>(batch_heads, seq, causal);
-    default: return 1;
+    default: return tiled_splits_of<Which::kDq, T>(batch_heads, seq, head_dim, causal);
   }
 }
 
@@ -2044,14 +2927,32 @@ extern "C" int gordo_flash_attention_bwd_dq_splits(int batch, int seq, int heads
   }
 }
 
+// the query splits the dk/dv launch of these shapes and mode takes (above
+// head_dim 256 only): the float32 scratch it needs is n_splits * batch *
+// heads * seq * 2 * head_dim elements when n_splits > 1 (none otherwise);
+// minus the CUDA error code when the card could not be queried or the
+// dtype is unknown
+extern "C" int gordo_flash_attention_bwd_dkv_splits(int batch, int seq, int heads, int head_dim,
+                                                    int dtype, int mode) {
+  const int64_t batch_heads = static_cast<int64_t>(batch) * heads;
+  if (batch <= 0 || seq <= 0 || heads <= 0) return 1;
+  const bool causal = (mode & flash::kModeCausal) != 0;
+  switch (dtype) {
+    case 0: return tiled_splits_of<Which::kDkv, float>(batch_heads, seq, head_dim, causal);
+    case 1: return tiled_splits_of<Which::kDkv, __nv_bfloat16>(batch_heads, seq, head_dim, causal);
+    case 2: return tiled_splits_of<Which::kDkv, __half>(batch_heads, seq, head_dim, causal);
+    case 3: return tiled_splits_of<Which::kDkv, double>(batch_heads, seq, head_dim, causal);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // dq and delta, replacing _bwd_dq_kernel (gordo_tpu/ops/flash_attention.py:176);
 // q, k, v, out, d_out and lse in, dq and delta out.
 // strides: (batch, seq, head) of q, k, v, out, d_out, dq, in that order;
 // mode: bit 1 causal, bit 2 16-byte aligned rows of all six; workspace:
-// the scratch gordo_flash_attention_bwd_dq_splits asks for, or above
-// flash::kMaxSharedRowDim the float32 dq accumulators, batch * heads *
-// seq * head_dim elements (null when neither is asked for); launched: set
-// to the kernel family launched (flash::kFamily*)
+// the scratch gordo_flash_attention_bwd_dq_splits asks for (null when it
+// asks for none); launched: set to the kernel family launched
+// (flash::kFamily*)
 extern "C" int gordo_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out, const void* d_out,
     const void* lse, void* delta, void* dq, void* workspace,
@@ -2082,9 +2983,9 @@ extern "C" int gordo_flash_attention_bwd_dq(
 // q, k, v, d_out, lse and delta in, dk and dv out.
 // strides: (batch, seq, head) of q, k, v, d_out, dk, dv, in that order;
 // mode: bit 1 causal, bit 2 16-byte aligned rows of all six; workspace:
-// above flash::kMaxSharedRowDim the float32 dk and dv accumulators, 2 *
-// batch * heads * seq * head_dim elements (null at narrower widths);
-// launched: set to the kernel family launched (flash::kFamily*)
+// the scratch gordo_flash_attention_bwd_dkv_splits asks for (null when it
+// asks for none); launched: set to the kernel family launched
+// (flash::kFamily*)
 extern "C" int gordo_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* d_out,
     const void* lse, const void* delta, void* dk, void* dv, void* workspace,
@@ -2092,6 +2993,7 @@ extern "C" int gordo_flash_attention_bwd_dkv(
     const long long* strides, float sm_scale, int mode, void* stream, int* launched) {
   Params p = {};
   p.ws = static_cast<float*>(workspace);
+  p.n_splits = 1;
   p.q = q;
   p.k = k;
   p.v = v;

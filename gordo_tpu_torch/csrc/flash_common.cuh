@@ -3,8 +3,7 @@
 // asynchronous staging of row tiles into shared memory with a scalar path
 // for unaligned views, the fixed-order reductions over the four lanes
 // ("quad") that share one row, the key-split rule of the wide kernels,
-// the kernel families an entry point reports, and the warp sum and
-// float32 staging of the run-time-width (rowwise) backward kernels.
+// and the kernel families an entry point reports.
 //
 // Element types are float32, bfloat16, float16 and float64, as the Pallas
 // kernels take them: every element is converted to float32 on load and
@@ -43,25 +42,13 @@ constexpr int kQuadThreads = kQuadWarps * 32;
 
 // The kernel family an entry point launched, written to its `launched`
 // argument: the wrapper counts each family's launches apart.
-constexpr int kFamilyQuad = 0;     // head_dim 16 and 32
-constexpr int kFamilyWide = 1;     // 64, 128 and 256 on the CUDA cores
-constexpr int kFamilyMma = 2;      // 64 and 128 in bfloat16 and float16, tensor cores
-constexpr int kFamilyRowwise = 3;  // dq and dk/dv at any head_dim above 256
-constexpr int kFamilySliced = 4;   // the forward at any head_dim above 256
+constexpr int kFamilyQuad = 0;      // head_dim 16 and 32
+constexpr int kFamilyWide = 1;      // 64, 128 and 256 on the CUDA cores
+constexpr int kFamilyMma = 2;       // 64 and 128 in bfloat16 and float16, tensor cores
+constexpr int kFamilyTiled = 3;     // dq and dk/dv above 256 on the CUDA cores
+constexpr int kFamilySliced = 4;    // the forward at any head_dim above 256
+constexpr int kFamilyTiledMma = 5;  // dq and dk/dv above 256 in bfloat16 and float16
 
-// The run-time-width (rowwise) backward kernels: one warp a row, kRowWarps
-// rows a block, partner rows staged kRowTile at a time as float32. Up to
-// kMaxSharedRowDim every row of the block sits in shared memory whole (the
-// dk/dv kernel's 192 * D + 128 bytes stay under the 227 KB a block may
-// take); above it the kernels stream: partner rows are staged kRowChunk
-// columns at a time, the warp's own rows are read from their tensors and
-// its float32 accumulators live in a scratch the caller allocates. The
-// Python wrapper's MAX_SHARED_ROW_DIM is the same number.
-constexpr int kRowWarps = 4;
-constexpr int kRowThreads = kRowWarps * 32;
-constexpr int kRowTile = 16;
-constexpr int kMaxSharedRowDim = 1024;
-constexpr int kRowChunk = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -224,11 +211,28 @@ __device__ __forceinline__ E staged(T x) {
 // Rows at or past `end` are zero-filled without reading device memory, so
 // a lane may read any row of the tile. With `vec` and E = T, 16-byte
 // cp.async copies (the caller waits); else one element per thread,
-// converted to E.
-template <typename T, int D, int kPitch, int kRows, int kThreads, typename E>
+// converted to E, or with kAsync4 a float32 element by a 4-byte cp.async
+// copy (the caller waits whether or not `vec`).
+template <typename T, int D, int kPitch, int kRows, int kThreads, bool kAsync4 = false,
+          typename E>
 __device__ __forceinline__ void stage_rows(E* tile, const T* head, int64_t row_stride,
                                            int row0, int end, bool vec) {
   static_assert(std::is_same_v<E, staged_t<T>>, "a tile of T is staged as staged_t<T>");
+  if constexpr (kAsync4 && std::is_same_v<E, float> && std::is_same_v<T, float>) {
+    if (!vec) {
+      for (int c = threadIdx.x; c < kRows * D; c += kThreads) {
+        const int r = c / D;
+        const int e = c - r * D;
+        const int pos = row0 + r;
+        if (pos < end) {
+          cp_async4(tile + r * kPitch + e, head + static_cast<int64_t>(pos) * row_stride + e);
+        } else {
+          tile[r * kPitch + e] = 0.f;
+        }
+      }
+      return;
+    }
+  }
   if constexpr (std::is_same_v<E, T>) {
     if (vec) {
       constexpr int kElems = 16 / sizeof(T);  // elements per 16-byte chunk
@@ -316,30 +320,6 @@ __device__ __forceinline__ float dim_sum(float x) {
   if constexpr (S >= 4) x += __shfl_xor_sync(0xffffffffu, x, 2);
   if constexpr (S >= 8) x += __shfl_xor_sync(0xffffffffu, x, 4);
   return x;
-}
-
-// sum over the 32 lanes of a warp, every lane ending with it (a fixed
-// butterfly order, so a launch is deterministic)
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int offset = 16; offset >= 1; offset >>= 1) x += __shfl_xor_sync(0xffffffffu, x, offset);
-  return x;
-}
-
-// Stage kRowTile rows [row0, row0 + kRowTile) of one head (D elements of
-// T each) into `tile` as float32, kRowThreads threads a row; rows at or
-// past `end` are zero.
-template <typename T>
-__device__ __forceinline__ void stage_rows_float(float* tile, const T* head, int64_t row_stride,
-                                                 int row0, int end, int D) {
-#pragma unroll 4
-  for (int r = 0; r < kRowTile; ++r) {
-    const int pos = row0 + r;
-    const T* src = head + static_cast<int64_t>(pos) * row_stride;
-    for (int d = threadIdx.x; d < D; d += kRowThreads) {
-      tile[r * D + d] = pos < end ? to_float(src[d]) : 0.f;
-    }
-  }
 }
 
 template <int S>

@@ -56,9 +56,11 @@ the quad-lane kernels at 16 and 32; at 64 and 128 the tensor-core
 kernels (``mma.sync``) for all three entry points in bfloat16/float16,
 and the CUDA-core "wide" kernels for float32 and float64; the wide
 kernels at 256; above 256 the width-sliced forward ("sliced") and the
-"rowwise" dq and dk/dv kernels. The rowwise kernels keep a block's rows
-in shared memory up to :data:`MAX_SHARED_ROW_DIM` and stream them above
-it, with their float32 accumulators in a scratch the wrapper allocates.
+"tiled" dq and dk/dv kernels, which own a tile of rows and one column
+slice of their outputs a block and recompute the scores over the whole
+width per slice: on the tensor cores in bfloat16/float16 ("tiled_mma",
+Pᵀ and dSᵀ of dk/dv as head + tail, dS of dq rounded once), on the CUDA
+cores in float32/float64 ("tiled"). None of them has a width limit.
 The kernel's C side reports the family it launched, and the wrapper
 counts it in :data:`kernel_launches` beside the entry point's own count
 in :data:`launch_counts`. The C interface takes batch, seq, heads and
@@ -66,10 +68,11 @@ head_dim (and batch * heads) as int32: a wider shape raises here.
 
 The forward and the dq kernel may split the key axis across blocks when
 a launch's row tiles alone leave the card's SMs idle (head_dim 64 and
-up): the kernel's C side answers how many splits a shape takes
-(:func:`forward_splits`, :func:`dq_splits`), and the wrapper allocates
-the float32 scratch the splits write before a second kernel merges them
-in a fixed order.
+up), and the dk/dv kernel its query axis above 256: the kernel's C side
+answers how many splits a shape takes (:func:`forward_splits`,
+:func:`dq_splits`, :func:`dkv_splits`), and the wrapper allocates the
+float32 scratch the splits write before a second kernel merges them in a
+fixed order.
 
 Each kernel takes a ``mode`` bit set: :data:`MODE_CAUSAL`, and
 :data:`MODE_VEC16` when :func:`rows_16b_aligned` finds every row of its
@@ -92,10 +95,6 @@ KERNEL_DKV = "flash_attention_bwd_dkv"
 SOURCES = {KERNEL: "flash_attention_fwd", KERNEL_DQ: "flash_attention_bwd",
            KERNEL_DKV: "flash_attention_bwd"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: the widest head_dim whose rows the rowwise dq and dk/dv kernels keep in
-#: shared memory (``flash::kMaxSharedRowDim``); wider rows stream, with
-#: the accumulators in a float32 scratch the wrapper allocates
-MAX_SHARED_ROW_DIM = 1024
 #: the C interface's int32 shape arguments
 _INT32_MAX = 2**31 - 1
 #: above the widest of HEAD_DIMS, widths are padded to a multiple of this
@@ -107,12 +106,12 @@ MODE_VEC16 = 2
 _VEC_BYTES = 16
 
 #: the kernel families an entry point reports (``flash::kFamily*``, in order)
-FAMILIES = ("quad", "wide", "mma", "rowwise", "sliced")
+FAMILIES = ("quad", "wide", "mma", "tiled", "sliced", "tiled_mma")
 #: each entry point's kernels, by family
 KERNEL_FAMILIES = {
     KERNEL: ("quad", "wide", "mma", "sliced"),
-    KERNEL_DQ: ("quad", "wide", "mma", "rowwise"),
-    KERNEL_DKV: ("quad", "wide", "mma", "rowwise"),
+    KERNEL_DQ: ("quad", "wide", "mma", "tiled", "tiled_mma"),
+    KERNEL_DKV: ("quad", "wide", "mma", "tiled", "tiled_mma"),
 }
 
 #: kernel launches since the last reset, by entry point (compare-with-plain
@@ -375,6 +374,14 @@ def dq_splits(q: torch.Tensor, causal: bool) -> int:
     return _splits(KERNEL_DQ, q.device.index or 0, *_shape_args(q), _mode(causal))
 
 
+def dkv_splits(q: torch.Tensor, causal: bool) -> int:
+    """The query splits the dk/dv kernel takes for q's shape on its card: 1
+    up to head_dim 256, and above it by the same rule; each split writes
+    its partial dk and dv rows and a second kernel sums them in split
+    order."""
+    return _splits(KERNEL_DKV, q.device.index or 0, *_shape_args(q), _mode(causal))
+
+
 @functools.lru_cache(maxsize=256)
 def _splits(kernel: str, device: int, *shape_and_mode: int) -> int:
     """The kernel's own answer (``gordo_<kernel>_splits``), asked once per
@@ -502,13 +509,11 @@ def _launch_dq(q, k, v, out, lse, d_out, causal: bool, sm_scale: float):
     if dq.numel() == 0:
         return dq, delta
     splits = dq_splits(q, causal)
-    # each split's unscaled dq rows, summed by the merge kernel; above
-    # MAX_SHARED_ROW_DIM the rowwise kernel's float32 dq accumulators
-    layers = splits if splits > 1 else int(head_dim > MAX_SHARED_ROW_DIM)
+    # each split's unscaled dq rows, summed by the merge kernel
     workspace = None
-    if layers:
+    if splits > 1:
         workspace = torch.empty(
-            layers * batch * heads * seq * head_dim, dtype=torch.float32, device=q.device
+            splits * batch * heads * seq * head_dim, dtype=torch.float32, device=q.device
         )
     fn = _kernel_function(KERNEL_DQ, 9)
     _call(KERNEL_DQ, fn, q, (
@@ -554,10 +559,11 @@ def _launch_dkv(q, k, v, lse, delta, d_out, causal: bool, sm_scale: float):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    # above MAX_SHARED_ROW_DIM the rowwise kernel's float32 dk and dv accumulators
+    splits = dkv_splits(q, causal)
+    # each split's unscaled dk and dv rows, summed by the merge kernel
     workspace = None
-    if q.shape[-1] > MAX_SHARED_ROW_DIM:
-        workspace = torch.empty(2 * q.numel(), dtype=torch.float32, device=q.device)
+    if splits > 1:
+        workspace = torch.empty(splits * 2 * q.numel(), dtype=torch.float32, device=q.device)
     fn = _kernel_function(KERNEL_DKV, 9)
     _call(KERNEL_DKV, fn, q, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),

@@ -13,10 +13,10 @@ versions (``chip_smoke.TOLERANCE``), checks that two forward, two dq (dq
 and delta) and two dk/dv launches agree bit for bit and that each entry
 point ran the CUDA kernel its width and type route to
 (``chip_smoke.expected_kernel``: the tensor-core kernels for
-bfloat16/float16 at 64 and 128, the width-sliced forward and the rowwise
+bfloat16/float16 at 64 and 128, the width-sliced forward and the tiled
 dq and dk/dv above 256), and prints one JSON row per case with the
-kernels that ran,
-dq's key splits and the device times (torch.profiler) of the three
+kernels that ran, dq's key splits and dk/dv's query splits and the
+device times (torch.profiler) of the three
 kernels and of ``scaled_dot_product_attention``. Exits non-zero if a
 case fails. ``--case NAME`` (repeatable) runs only the named cases.
 
@@ -92,7 +92,8 @@ CASES = [
     ("fp16-64-slices", (4, 77, 2, 64), True, "float16", "slices"),
     ("bf16-64-split", (1, 500, 1, 64), False, "bfloat16", "contiguous"),
     ("fp16-128-split-causal", (1, 300, 2, 128), True, "float16", "contiguous"),
-    # above 256: the run-time-width (rowwise) kernels, at the JAX padding
+    # above 256: the run-time-width kernels (the sliced forward, the tiled
+    # dq and dk/dv), at the JAX padding
     ("head-dim-300", (2, 300, 2, 300), True, "float32", "contiguous"),
     ("head-dim-300-bf16", (2, 300, 2, 300), True, "bfloat16", "contiguous"),
     ("head-dim-300-fp16", (2, 300, 2, 300), True, "float16", "contiguous"),
@@ -103,7 +104,6 @@ CASES = [
     ("head-dim-640-fp64", (1, 128, 1, 640), True, "float64", "contiguous"),
     ("head-dim-384-slices", (2, 50, 2, 384), False, "float32", "slices"),
     ("head-dim-1024-misaligned", (1, 100, 1, 1024), True, "float32", "misaligned"),
-    # above 1024: the sliced forward and the streamed rowwise dq and dk/dv
     ("head-dim-1100", (1, 128, 2, 1100), True, "float32", "contiguous"),
     ("head-dim-1100-bf16", (1, 128, 2, 1100), False, "bfloat16", "contiguous"),
     ("head-dim-1100-fp16", (1, 96, 1, 1100), True, "float16", "contiguous"),
@@ -112,6 +112,10 @@ CASES = [
     ("head-dim-2048-bf16", (1, 64, 1, 2048), False, "bfloat16", "contiguous"),
     ("head-dim-1152-misaligned", (1, 50, 2, 1152), True, "float32", "misaligned"),
     ("head-dim-3000-slices", (1, 40, 1, 3000), True, "float32", "slices"),
+    ("head-dim-384-bf16-misaligned", (1, 100, 2, 384), True, "bfloat16", "misaligned"),
+    ("head-dim-640-fp16-slices", (1, 90, 2, 640), False, "float16", "slices"),
+    # a launch above 256 that fills the card
+    ("head-dim-512-bf16-long", (2, 2048, 4, 512), True, "bfloat16", "contiguous"),
 ]
 
 
@@ -160,6 +164,7 @@ def check(torch, F, fa, gen, own, name, shape, causal, dtype_name, layout):
         "dtype": dtype_name,
         "rows_16b_aligned": fa.rows_16b_aligned(q, k, v),
         "dq_splits": fa.dq_splits(padded, causal) if hasattr(fa, "dq_splits") else None,
+        "dkv_splits": fa.dkv_splits(padded, causal) if hasattr(fa, "dkv_splits") else None,
         "fwd_err": max_err([(out, ref_out), (lse, ref_lse)]),
         "fwd_bitwise": bool(torch.equal(out, out2) and torch.equal(lse, lse2)),
         "dq_err": max_err([(dq, ref_dq), (delta, ref_delta)]),

@@ -15,11 +15,17 @@ tensor-core forward's ``FwdMmaTiling<D>`` as (kTile, kMinBlocks),
 ``dkvmma<D>`` the tensor-core dk/dv's ``DkvMmaTiling<D>`` as (kTile,
 kMinBlocks, kKeepKV) and ``dqmma<D>`` the tensor-core dq's
 ``DqMmaTiling<D>`` as (kTile, kMinBlocks), for D of 64 or 128; ``fwdsliced`` sets the sliced forward's ``FwdSlicedTiling`` as
-(kRows, kKeys, kChunk, kSlice, kWarps, kMinBlocks); ``max_splits`` sets
-``kMaxSplits``, the forward's and dq's limit. Each variant's sources are
+(kRows, kKeys, kChunk, kSlice, kWarps, kMinBlocks); above 256
+``dqtiled`` sets the CUDA-core dq's ``DqTiledTiling`` as (kRows, kKeys,
+kChunk, kSlice, kWarps, kMinBlocks), ``dkvtiled`` the CUDA-core dk/dv's
+``DkvTiledTiling`` as (kRows, kQueries, kChunk, kSlice, kWarps,
+kMinBlocks), ``dqtiledmma`` the tensor-core dq's ``DqTiledMmaTiling`` as
+(kKeys, kChunk, kSlice, kMinBlocks) and ``dkvtiledmma`` the tensor-core
+dk/dv's ``DkvTiledMmaTiling`` as (kQueries, kChunk, kSlice, kMinBlocks); ``max_splits``
+sets ``kMaxSplits``, the limit of every key or query split. Each variant's sources are
 copied with those constants replaced and built with the port's nvcc
 flags (all variants at once), and nvcc's register and spill lines for
-the wide, tensor-core and sliced kernels are printed. ``--case`` (repeatable)
+the wide, tensor-core, sliced and tiled kernels are printed. ``--case`` (repeatable)
 runs only the named cases. Then, per case, every variant's forward,
 dq and dk/dv run against the plain versions (``chip_smoke.TOLERANCE``),
 twice for a bitwise repeat, and are timed with ``chip_smoke.device_ms``
@@ -66,12 +72,25 @@ CASES = [
     ("head-dim-300", (2, 300, 2, 300), True, "float32", False),
     ("head-dim-300-bf16", (2, 300, 2, 300), True, "bfloat16", False),
     ("wide-head-model", (4, 256, 2, 300), True, "float32", False),  # chip_smoke's phase 7
+    ("wide-head-model-bf16", (4, 256, 2, 300), True, "bfloat16", False),
     ("head-dim-640", (1, 256, 2, 640), False, "float32", False),
     ("head-dim-1100", (1, 128, 2, 1100), True, "float32", False),
     ("head-dim-2048-bf16", (1, 64, 1, 2048), False, "bfloat16", False),
+    ("head-dim-512-bf16-long", (2, 2048, 4, 512), True, "bfloat16", False),
+    ("head-dim-1100-bf16", (1, 128, 2, 1100), False, "bfloat16", False),
 ]
 STRUCTS = {"fwd": "FwdWideTiling", "dq": "DqWideTiling", "dkv": "DkvWideTiling",
            "fwdmma": "FwdMmaTiling", "dkvmma": "DkvMmaTiling", "dqmma": "DqMmaTiling"}
+# the run-time-width tilings: (struct, its constants in order)
+RUNTIME_STRUCTS = {
+    "fwdsliced": ("FwdSlicedTiling", ("kRows", "kKeys", "kChunk", "kSlice", "kWarps",
+                                      "kMinBlocks")),
+    "dqtiled": ("DqTiledTiling", ("kRows", "kKeys", "kChunk", "kSlice", "kWarps", "kMinBlocks")),
+    "dkvtiled": ("DkvTiledTiling", ("kRows", "kQueries", "kChunk", "kSlice", "kWarps",
+                                    "kMinBlocks")),
+    "dqtiledmma": ("DqTiledMmaTiling", ("kKeys", "kChunk", "kSlice", "kMinBlocks")),
+    "dkvtiledmma": ("DkvTiledMmaTiling", ("kQueries", "kChunk", "kSlice", "kMinBlocks")),
+}
 
 
 
@@ -84,10 +103,11 @@ def variant_sources(spec: dict, out_dir: str) -> str:
         for key, values in spec.items():
             if key == "max_splits":
                 pattern, value = r"constexpr int kMaxSplits = \d+;", f"constexpr int kMaxSplits = {values};"
-            elif key == "fwdsliced":
-                pattern = r"(struct FwdSlicedTiling \{\n  static constexpr int )[^;]*;"
-                value = (r"\g<1>kRows = %d, kKeys = %d, kChunk = %d, kSlice = %d, kWarps = %d, "
-                         r"kMinBlocks = %d;" % tuple(values))
+            elif key in RUNTIME_STRUCTS:
+                struct, names = RUNTIME_STRUCTS[key]
+                pattern = r"(struct %s \{\n  static constexpr int )[^;]*;" % struct
+                value = r"\g<1>" + ", ".join(
+                    f"{name} = {int(v)}" for name, v in zip(names, values, strict=True)) + ";"
             elif key.startswith(("fwdmma", "dkvmma", "dqmma")):
                 kernel, width = re.fullmatch(r"([a-z]+)(\d+)", key).groups()
                 struct, width = STRUCTS[kernel], int(width)
@@ -122,12 +142,13 @@ def nvcc(src_dir: str, stem: str):
 
 
 def wide_registers(text: str):
-    """(kernel, registers, spill store bytes) of each wide, tensor-core and
-    sliced kernel nvcc built."""
+    """(kernel, registers, spill store bytes) of each wide, tensor-core,
+    sliced and tiled kernel nvcc built."""
     lines = text.splitlines()
     for i, line in enumerate(lines):
         found = re.search(
-            r"Compiling entry function '\S*?(flash_\w+_(?:wide|mma|sliced)_kernel\w*?)EEEv", line)
+            r"Compiling entry function '\S*?(flash_\w+_(?:wide|mma|sliced|tiled)_kernel\w*?)EEEv",
+            line)
         if found:
             info = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", info)
@@ -178,6 +199,9 @@ def main() -> int:
         dtype = getattr(torch, dtype_name)
         q, k, v, d_out = (cs.card_tensor(torch, gen, shape, dtype, misaligned) for _ in range(4))
         scale = 1.0 / math.sqrt(shape[-1])
+        # the splits are asked at the kernel width, as the wrappers ask
+        padded = torch.empty(shape[:-1] + (fa.kernel_width(shape[-1]),), dtype=dtype,
+                             device="cuda")
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
         ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(
             q, k, v, ref_out, ref_lse, d_out, causal, scale)
@@ -208,8 +232,9 @@ def main() -> int:
             torch.cuda.synchronize()
             row = {
                 "case": case, "variant": name, "shape": list(shape), "causal": causal,
-                "dtype": dtype_name, "key_splits": fa.forward_splits(q, causal),
-                "dq_splits": fa.dq_splits(q, causal),
+                "dtype": dtype_name, "key_splits": fa.forward_splits(padded, causal),
+                "dq_splits": fa.dq_splits(padded, causal),
+                "dkv_splits": fa.dkv_splits(padded, causal),
                 "fwd_err": max((out1.float() - ref_out.float()).abs().max().item(),
                                (lse1 - ref_lse).abs().max().item()),
                 "dq_err": max((got.float() - want.float()).abs().max().item()

@@ -237,14 +237,12 @@ def test_cuda_wrappers_pad_head_dim(head_dim, width, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim", [1100, 2048])
 def test_cuda_raises_above_head_dim_128(head_dim):
-    """No head_dim limit is left on the card: 1100 (run at 1152) and 2048,
-    above MAX_SHARED_ROW_DIM, run through all three entry points and the
-    Function (the sliced forward, the streamed rowwise dq and dk/dv), each
-    launching its kernel once and agreeing with the plain version; nothing
-    falls back to it."""
+    """No head_dim limit is left on the card: 1100 (run at 1152) and 2048
+    run through all three entry points and the Function (the sliced
+    forward, the tiled dq and dk/dv), each launching its kernel once and
+    agreeing with the plain version; nothing falls back to it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    assert head_dim > fa.MAX_SHARED_ROW_DIM
     shape = (1, 70, 2, head_dim)
     gen = torch.Generator(device="cuda").manual_seed(13)
     q, k, v, d_out = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
@@ -347,13 +345,15 @@ def test_cuda_float32_and_float64_keep_the_wide_kernels(dtype, head_dim):
         ((1, 96, 1, 1100), False, torch.bfloat16, 2e-2),
         ((1, 64, 1, 2048), False, torch.float32, 1e-4),
         ((1, 64, 1, 2048), True, torch.float16, 5e-3),
+        ((2, 2048, 4, 512), True, torch.bfloat16, 2e-2),  # a launch that fills the card
     ],
 )
-def test_cuda_rowwise_kernels_match_plain_version(shape, causal, dtype, tol):
-    """Above 256 the rowwise dq and dk/dv kernels (streamed above
-    MAX_SHARED_ROW_DIM) and the sliced forward run at the JAX padding (300
-    at 384, 1100 at 1152, 640, 1024 and 2048 as they are): each within its
-    tolerance of the plain version, two launches of each bitwise equal."""
+def test_cuda_tiled_kernels_match_plain_version(shape, causal, dtype, tol):
+    """Above 256 the tiled dq and dk/dv kernels (on the tensor cores in
+    bfloat16/float16, with key and query splits on small grids) and the
+    sliced forward run at the JAX padding (300 at 384, 1100 at 1152, 512,
+    640, 1024 and 2048 as they are): each within its tolerance of the plain
+    version, two launches of each bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -364,7 +364,8 @@ def test_cuda_rowwise_kernels_match_plain_version(shape, causal, dtype, tol):
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
     got = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal=causal)
     torch.cuda.synchronize()
-    assert _launched(before) == [f"{fa.KERNEL_DKV}_rowwise", f"{fa.KERNEL_DQ}_rowwise",
+    tiled = "tiled_mma" if dtype in (torch.bfloat16, torch.float16) else "tiled"
+    assert _launched(before) == [f"{fa.KERNEL_DKV}_{tiled}", f"{fa.KERNEL_DQ}_{tiled}",
                                  f"{fa.KERNEL}_sliced"]
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     assert (out.double() - ref_out.double()).abs().max().item() <= tol

@@ -169,28 +169,85 @@ def test_reset_launch_counts():
 def test_kernel_launches_name_every_kernel():
     """One counter for each CUDA kernel an entry point may launch: the
     quad, wide and tensor-core kernels of all three, the width-sliced
-    forward and the rowwise dq and dk/dv."""
+    forward, and the tiled dq and dk/dv on the CUDA cores and on the
+    tensor cores."""
     assert sorted(fa.kernel_launches) == sorted([
         *(f"{entry}_{family}" for entry in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)
           for family in ("quad", "wide", "mma")),
-        f"{fa.KERNEL}_sliced", f"{fa.KERNEL_DQ}_rowwise", f"{fa.KERNEL_DKV}_rowwise",
+        f"{fa.KERNEL}_sliced",
+        *(f"{entry}_{family}" for entry in (fa.KERNEL_DQ, fa.KERNEL_DKV)
+          for family in ("tiled", "tiled_mma")),
     ])
 
 
-def test_max_head_dim_is_the_kernels_limit():
-    """No head_dim limit is left: MAX_SHARED_ROW_DIM, the C side's
-    flash::kMaxSharedRowDim, is the boundary between the rowwise kernels'
-    in-shared-memory path and their streamed one. Up to it the dk/dv
-    block's 192 bytes a lane of width plus its LSE and delta fit 227 KB;
-    above it a block stages 256 columns at a time, whatever the width."""
+def test_families_match_the_c_side():
+    """``FAMILIES`` lists the kernel families in the order of the C side's
+    ``flash::kFamily*`` codes, which the entry points write back."""
+    import re
+
     from gordo_tpu_torch.ops import _build
 
     header = (_build.CSRC_DIR / "flash_common.cuh").read_text()
-    assert f"constexpr int kMaxSharedRowDim = {fa.MAX_SHARED_ROW_DIM};" in header
-    assert 192 * fa.MAX_SHARED_ROW_DIM + 128 <= 232448
-    assert "constexpr int kRowChunk = 256;" in header
-    assert 2 * 16 * 256 * 4 + 128 <= 232448
+    codes = {name: int(code) for name, code in
+             re.findall(r"constexpr int kFamily(\w+) = (\d+);", header)}
+    assert sorted(codes.values()) == list(range(len(fa.FAMILIES)))
+    for name, code in codes.items():
+        assert fa.FAMILIES[code].replace("_", "") == name.lower(), name
+
+
+# bytes of shared memory a block may take on the card (227 KB)
+_BLOCK_SMEM = 232448
+
+
+def _tiling(source: str, struct: str) -> dict:
+    """The constants of ``struct <struct> { static constexpr int ...; }`` in
+    a CUDA source of the port."""
+    import re
+
+    from gordo_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / source).read_text()
+    body = re.search(r"struct %s \{\n  static constexpr int ([^;]*);" % struct, text).group(1)
+    return {name: int(value) for name, value in
+            (item.split(" = ") for item in body.split(", "))}
+
+
+@pytest.mark.parametrize("struct,elem_bytes", [
+    ("DqTiledTiling", 4), ("DkvTiledTiling", 4),  # float32, and float64 staged as float32
+    ("DqTiledMmaTiling", 2), ("DkvTiledMmaTiling", 2),  # bfloat16 and float16
+])
+def test_max_head_dim_is_the_kernels_limit(struct, elem_bytes):
+    """No head_dim limit is left, and nothing streams: a block of the tiled
+    dq and dk/dv kernels above 256 holds a fixed number of rows and one
+    column slice of its outputs whatever the width, so its shared memory
+    (the two-stage chunk ring, the slice tiles, the float32 score tiles)
+    fits the 227 KB a block may take, at least twice over for the sweep's
+    two blocks an SM; the streamed rowwise constants are gone."""
+    from gordo_tpu_torch.ops import _build
+
+    header = (_build.CSRC_DIR / "flash_common.cuh").read_text()
+    assert "kMaxSharedRowDim" not in header and "kRowChunk" not in header
+    assert not hasattr(fa, "MAX_SHARED_ROW_DIM")
     assert fa.kernel_width(10**6) == 10**6 + 64
+    tile = _tiling("flash_attention_bwd.cu", struct)
+    pad = 16 // elem_bytes
+    if struct == "DqTiledTiling":
+        ring = 4 * (tile["kRows"] + tile["kKeys"]) * (tile["kChunk"] + pad) * elem_bytes
+        rest = (tile["kKeys"] * (tile["kSlice"] + pad) * elem_bytes
+                + tile["kRows"] * (tile["kKeys"] + 4) * 4)
+    elif struct == "DkvTiledTiling":
+        ring = 4 * (tile["kRows"] + tile["kQueries"]) * (tile["kChunk"] + pad) * elem_bytes
+        rest = (2 * tile["kQueries"] * (tile["kSlice"] + pad) * elem_bytes
+                + (2 * tile["kRows"] * (tile["kQueries"] + 4) + 2 * tile["kQueries"]) * 4)
+    elif struct == "DqTiledMmaTiling":  # 64 query rows a block
+        ring = 4 * (64 + tile["kKeys"]) * (tile["kChunk"] + pad) * elem_bytes
+        rest = tile["kKeys"] * (tile["kSlice"] + pad) * elem_bytes
+    else:  # 64 key rows a block
+        ring = 4 * (64 + tile["kQueries"]) * (tile["kChunk"] + pad) * elem_bytes
+        rest = 2 * tile["kQueries"] * (tile["kSlice"] + pad) * elem_bytes + 2 * tile["kQueries"] * 4
+    assert ring + rest <= _BLOCK_SMEM // 2, (struct, ring + rest)
+    # every padded width above 256 is a whole number of chunks and slices
+    assert 128 % tile["kSlice"] == 0 and 128 % tile["kChunk"] == 0
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):
@@ -254,7 +311,8 @@ def test_16_bit_dq_at_64_and_128_routes_to_the_tensor_cores(dtype, width):
     kernel of every entry point, dq's included (chip_smoke.expected_kernel,
     which the card checks hold every launch to); float32 and float64 keep
     the wide kernels; above 256 the forward runs the sliced kernel and the
-    backward the rowwise ones."""
+    backward the tiled ones, on the tensor cores in bfloat16/float16 and
+    on the CUDA cores in float32/float64."""
     import chip_smoke
 
     assert "mma" in fa.KERNEL_FAMILIES[fa.KERNEL_DQ]
@@ -265,8 +323,11 @@ def test_16_bit_dq_at_64_and_128_routes_to_the_tensor_cores(dtype, width):
     assert chip_smoke.expected_kernel(fa.KERNEL, dtype, 1152) == f"{fa.KERNEL}_sliced"
     assert "sliced" in fa.KERNEL_FAMILIES[fa.KERNEL]
     for entry in (fa.KERNEL_DQ, fa.KERNEL_DKV):
-        assert chip_smoke.expected_kernel(entry, dtype, 1152) == f"{entry}_rowwise"
-        assert "rowwise" in fa.KERNEL_FAMILIES[entry]
+        assert chip_smoke.expected_kernel(entry, dtype, 1152) == f"{entry}_tiled_mma"
+        assert chip_smoke.expected_kernel(entry, "float32", 384) == f"{entry}_tiled"
+        assert chip_smoke.expected_kernel(entry, "float64", 2048) == f"{entry}_tiled"
+        assert {"tiled", "tiled_mma"} <= set(fa.KERNEL_FAMILIES[entry])
+        assert "rowwise" not in fa.KERNEL_FAMILIES[entry]
 
 
 @pytest.mark.parametrize("shape", [(1, 1 << 31, 1, 16), (1 << 16, 4, 1 << 15, 16)])

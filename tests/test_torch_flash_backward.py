@@ -143,7 +143,7 @@ def test_function_gradients_match_jax_grad_at_padded_head_dims(head_dim, causal)
 @pytest.mark.parametrize("causal", [False, True])
 def test_padded_plain_path_matches_jax_above_1024(causal, monkeypatch):
     """head_dim 1100, which the card runs at 1152 (the sliced forward, the
-    streamed rowwise dq and dk/dv): the CPU's padded plain path against the
+    tiled dq and dk/dv): the CPU's padded plain path against the
     JAX ``flash_attention`` (Pallas in interpret mode), the output and the
     ``jax.grad`` gradients, float32, atol 1e-5."""
     shape = (1, 19, 1, 1100)

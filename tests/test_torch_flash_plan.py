@@ -126,6 +126,7 @@ def launches(monkeypatch):
     calls = []
     monkeypatch.setattr(fa, "forward_splits", lambda q, causal: 1)
     monkeypatch.setattr(fa, "dq_splits", lambda q, causal: 1)
+    monkeypatch.setattr(fa, "dkv_splits", lambda q, causal: 1)
     monkeypatch.setattr(fa, "_kernel_function", lambda kernel, n_pointers: kernel)
     monkeypatch.setattr(fa, "_call", lambda kernel, fn, q, args: calls.append((kernel, args)))
     return calls
@@ -297,11 +298,17 @@ def test_call_raises_on_a_launch_error(monkeypatch):
     assert (fa.launch_counts, fa.kernel_launches) == before
 
 
-@pytest.mark.parametrize("head_dim,streamed", [(1024, False), (1152, True), (2048, True)])
-def test_rowwise_backward_gets_its_streamed_scratch(launches, monkeypatch, head_dim, streamed):
-    """Above MAX_SHARED_ROW_DIM the rowwise dq and dk/dv kernels stream: dq
-    gets a float32 scratch of batch x heads x seq x head_dim elements (its
-    accumulators) and dk/dv one of twice that; at or below it neither."""
+@pytest.mark.parametrize("head_dim,dq_parts,dkv_parts",
+                         [(384, 1, 1), (1024, 1, 1), (1152, 3, 1), (2048, 1, 4), (640, 2, 2)])
+def test_backward_above_256_gets_the_split_scratch_it_asks_for(launches, monkeypatch, head_dim,
+                                                              dq_parts, dkv_parts):
+    """Above 256 nothing streams: the tiled dq and dk/dv kernels get a
+    scratch only when the C side's split query asks for splits, a float32
+    one of splits x batch x heads x seq x head_dim elements for dq (each
+    split's dq rows) and twice that for dk/dv (each split's dk and dv
+    rows), whatever the element type; without splits neither gets one."""
+    monkeypatch.setattr(fa, "dq_splits", lambda q, causal: dq_parts)
+    monkeypatch.setattr(fa, "dkv_splits", lambda q, causal: dkv_parts)
     sizes = []
     empty = torch.empty
 
@@ -317,7 +324,9 @@ def test_rowwise_backward_gets_its_streamed_scratch(launches, monkeypatch, head_
     fa._launch_dkv(q, k, v, lse, lse.clone(), d_out, True, 0.25)
     (_, dq_args), (_, dkv_args) = launches
     rows = 2 * 3 * 5 * head_dim
-    assert (dq_args[8] is not None) == streamed
-    assert (dkv_args[8] is not None) == streamed
-    assert ((rows, torch.float32) in sizes) == streamed
-    assert ((2 * rows, torch.float32) in sizes) == streamed
+    assert (dq_args[8] is not None) == (dq_parts > 1)
+    assert (dkv_args[8] is not None) == (dkv_parts > 1)
+    scratch = [size for size, dtype in sizes if dtype == torch.float32 and size != (6, 5)]
+    want = ([dq_parts * rows] if dq_parts > 1 else []) + (
+        [dkv_parts * 2 * rows] if dkv_parts > 1 else [])
+    assert scratch == want
