@@ -72,7 +72,20 @@ Phases, each raising on failure (no result line is printed then):
    forward and the tiled dq and dk/dv) the same way, in float32 within
    1e-4 (the CUDA-core tiled kernels) and in bfloat16 within 16 bf16
    steps (the tensor-core tiled kernels);
-8. one JSON line of per-kernel numbers, each time with the timer that
+8. recurrent machines: the JAX package's headline workload (bench.py's
+   50-tag LSTM autoencoder, lookback 64, encoder 128/64, decoder 64/128,
+   fused, batch 512) and a 50-tag ``GRUForecast(gru_hourglass)`` with its
+   unfused cells, each a ``DiffBasedAnomalyDetector`` built by
+   ``python -m gordo_tpu_torch.cli build`` in a subprocess on the card
+   (16 414 rows at 10 minutes, as the JAX data layer gives; 1 epoch where
+   bench.py trains 3), served over HTTP on the card with 144 rows and the
+   whole history (medians of 5), each reply within 1e-4 of the CPU's;
+   build, CV and fit seconds, steps/s, one training step's ms, and its
+   CUDA launches and the device's idle share over a torch.profiler window
+   of 3 steps (20 with ``--profile``, which adds the kernel breakdown);
+   one forward of the ``stacked`` schedule card against CPU; no flash
+   kernel launches on this path;
+9. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -221,6 +234,75 @@ DEFAULT_MACHINES = json.loads(r"""{
 # rows the JAX data layer gives each machine (tests/test_torch_data.py)
 DEFAULT_ROWS = {"pump-4130": 766, "compressor-2201": 10975}
 DEFAULT_COLLECTION = "1700000000002"
+
+# Phase 8's machines, as the workflow passes them to `build` (the JSON of
+# gordo_tpu.workflow's NormalizedConfig, which tests/test_torch_cli.py
+# pins; the 50 tags are filled in below): the JAX package's headline
+# workload (bench.py: a 50-tag LSTM autoencoder, lookback 64, encoder
+# 128/64, decoder 64/128, tanh, fused, the `layer` schedule bench.py runs
+# on the chip, batch 512, float32) as a DiffBasedAnomalyDetector machine,
+# and a GRU forecaster (gru_hourglass with its defaults: unfused cells,
+# dims 42/33/25/25/33/42) at the same lookback and batch. The data: 114
+# days at 10 minutes (16 414 rows) of a RandomDataProvider's seeded
+# samples, 16 400 a tag. A RandomDataset's provider draws 100-300 samples
+# a tag, which leaves no row with all 50 tags at this span. Epochs: 1, cut
+# from bench.py's 3 (on an H100 at 3 epochs the two builds took 47 and 69 s,
+# most of the phase's budget of about 2 minutes); widths, span and batch
+# are not cut.
+PLANT_TAGS = [f"GRA-TAG {i}" for i in range(1, 51)]
+_PLANT_DATASET = json.loads(r"""{"train_start_date": "2019-01-01T00:00:00+00:00",
+ "train_end_date": "2019-04-25T00:00:00+00:00", "data_provider": {"type": "RandomDataProvider",
+ "min_size": 16400, "max_size": 16400}, "resolution": "10T", "row_filter": "",
+ "aggregation_methods": "mean", "row_filter_buffer_size": 0, "asset": null,
+ "default_asset": null, "n_samples_threshold": 0, "low_threshold": -1000,
+ "high_threshold": 50000, "interpolation_method": "linear_interpolation",
+ "interpolation_limit": "8H", "filter_periods": {}, "type": "TimeSeriesDataset"}""")
+_PLANT_MACHINE = json.loads(r"""{
+ "metadata": {"user_defined": {"global-metadata": {}, "machine-metadata": {}},
+  "build_metadata": {"model": {"model_offset": 0, "model_creation_date": null,
+  "model_builder_version": "0.1.0", "cross_validation": {"scores": {},
+  "cv_duration_sec": null, "splits": {}}, "model_training_duration_sec": null,
+  "model_meta": {}}, "dataset": {"query_duration_sec": null, "dataset_meta": {}}}},
+ "runtime": {"reporters": [], "server": {"resources": {"requests": {"memory": 3000,
+  "cpu": 1000}, "limits": {"memory": 6000, "cpu": 2000}}},
+  "prometheus_metrics_server": {"resources": {"requests": {"memory": 200, "cpu": 100},
+  "limits": {"memory": 1000, "cpu": 200}}},
+  "builder": {"resources": {"requests": {"memory": 3900, "cpu": 1001},
+  "limits": {"memory": 3900, "cpu": 1001}}, "remote_logging": {"enable": false},
+  "machines_per_pod": 30, "tpu": {"enable": false, "accelerator": "v5litepod-16"}},
+  "client": {"resources": {"requests": {"memory": 3500, "cpu": 100},
+  "limits": {"memory": 4000, "cpu": 2000}}, "max_instances": 30},
+  "influx": {"enable": true, "resources": {"requests": {"memory": 3440, "cpu": 520},
+  "limits": {"memory": 3440, "cpu": 10040}}}},
+ "project_name": "plant-a-anomaly",
+ "evaluation": {"cv_mode": "full_build",
+  "scoring_scaler": "sklearn.preprocessing.RobustScaler",
+  "metrics": ["explained_variance_score", "r2_score", "mean_squared_error",
+  "mean_absolute_error"]}
+}""")
+_RECURRENT_ESTIMATORS = {
+    "lstm-plant-50": {"gordo_tpu.models.LSTMAutoEncoder": {
+        "kind": "lstm_model", "lookback_window": 64, "encoding_dim": [128, 64],
+        "encoding_func": ["tanh", "tanh"], "decoding_dim": [64, 128],
+        "decoding_func": ["tanh", "tanh"], "fused": True, "schedule": "layer",
+        "batch_size": 512, "epochs": 1}},
+    "gru-plant-50": {"gordo_tpu.models.GRUForecast": {
+        "kind": "gru_hourglass", "lookback_window": 64, "batch_size": 512, "epochs": 1}},
+}
+RECURRENT_MACHINES = {
+    name: {
+        "name": name,
+        "dataset": dict(_PLANT_DATASET, tag_list=PLANT_TAGS, target_tag_list=PLANT_TAGS),
+        "model": {"gordo_tpu.models.anomaly.DiffBasedAnomalyDetector": {
+            "base_estimator": estimator}},
+        **_PLANT_MACHINE,
+    }
+    for name, estimator in _RECURRENT_ESTIMATORS.items()
+}
+# rows the JAX data layer gives each (tests/test_torch_cli.py)
+RECURRENT_ROWS = 16414
+RECURRENT_COLLECTION = "1700000000003"
+RECURRENT_BATCH = 512
 
 
 def log(*parts) -> None:
@@ -1350,20 +1432,7 @@ def default_pipeline_phase(torch, fa, profile: bool):
         collection = os.path.join(tmp, DEFAULT_COLLECTION)
         for name, machine in DEFAULT_MACHINES.items():
             artifact = os.path.join(collection, name)
-            env = dict(os.environ, MACHINE=json.dumps(machine), OUTPUT_DIR=artifact)
-            env.pop("GORDO_TPU_LAKE_DIR", None)
-            t0 = time.perf_counter()
-            built = subprocess.run(
-                [sys.executable, "-m", "gordo_tpu_torch.cli", "build"],
-                cwd=root, env=env, capture_output=True, text=True, timeout=300,
-            )
-            wall_s = time.perf_counter() - t0
-            if built.returncode != 0:
-                raise AssertionError(
-                    f"build {name} exited {built.returncode}:\n{built.stderr[-4000:]}"
-                )
-            if "model parameters on cuda" not in built.stderr:
-                raise AssertionError(f"build {name} did not fit on the card:\n{built.stderr}")
+            wall_s, build_log = cli_build(root, machine, artifact)
             meta = serializer.load_metadata(artifact)["metadata"]["build_metadata"]
             dataset_meta = meta["dataset"]["dataset_meta"]
             rows = dataset_meta["tag_loading_metadata"]["aggregate_metadata"]["dropped_na_length"]
@@ -1384,16 +1453,15 @@ def default_pipeline_phase(torch, fa, profile: bool):
             }
             row["steps_per_s"] = steps / (row["cv_s"] + row["fit_s"])
             row["fit_steps_per_s"] = math.ceil(rows / BATCH_SIZE) / row["fit_s"]
-            row["build_log"] = [line for line in built.stderr.splitlines()
-                                if "Fetched" in line or "Cross-validated" in line
-                                or "Fitted" in line]
+            row["build_log"] = build_log
             log("default pipeline build", name, json.dumps(row))
             thresholds = [row["aggregate_threshold"],
                           *model_meta["model_meta"]["feature-thresholds"]]
             if not all(math.isfinite(x) and x > 0 for x in thresholds):
                 raise AssertionError(f"{name}: thresholds not finite and positive: {model_meta}")
             X, _, stamps = _get_dataset(machine["dataset"]).get_data()
-            row["requests"] = serve_default(torch, collection, name, X, stamps)
+            row["requests"] = serve_built(torch, collection, machine, X, stamps,
+                                          ("prediction", "anomaly/prediction"), 1e-5)
             if profile:
                 row["fit_profile"] = profile_default_fit(torch, artifact, X)
             report[name] = row
@@ -1402,6 +1470,28 @@ def default_pipeline_phase(torch, fa, profile: bool):
     if any(report["flash_launches"].values()):
         raise AssertionError(f"the default pipeline launched flash kernels: {report}")
     return report
+
+
+def cli_build(root: str, machine: dict, artifact: str):
+    """``python -m gordo_tpu_torch.cli build`` of ``machine`` into
+    ``artifact`` in a subprocess on the card: (wall seconds, the log's
+    fetch, cross-validation and fit lines). Raises unless it exits 0
+    having fitted on the card."""
+    name = machine["name"]
+    env = dict(os.environ, MACHINE=json.dumps(machine), OUTPUT_DIR=artifact)
+    env.pop("GORDO_TPU_LAKE_DIR", None)
+    t0 = time.perf_counter()
+    built = subprocess.run(
+        [sys.executable, "-m", "gordo_tpu_torch.cli", "build"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300,
+    )
+    wall_s = time.perf_counter() - t0
+    if built.returncode != 0:
+        raise AssertionError(f"build {name} exited {built.returncode}:\n{built.stderr[-4000:]}")
+    if "model parameters on cuda" not in built.stderr:
+        raise AssertionError(f"build {name} did not fit on the card:\n{built.stderr}")
+    return wall_s, [line for line in built.stderr.splitlines()
+                    if "Fetched" in line or "Cross-validated" in line or "Fitted" in line]
 
 
 def startup_probe(root: str) -> dict:
@@ -1445,11 +1535,11 @@ def startup_probe(root: str) -> dict:
     return result
 
 
-def serve_default(torch, collection: str, name: str, X, stamps):
-    """The default-pipeline artifact served over HTTP on the card:
-    ``/prediction`` and ``/anomaly/prediction`` with the first 144 rows
-    and with all rows, ``REPEATS`` each; every reply's numbers within
-    1e-5 of the same request to the same artifact on the CPU."""
+def serve_built(torch, collection: str, machine: dict, X, stamps, routes, tolerance: float):
+    """A built artifact served over HTTP on the card: each of ``routes``
+    with the machine's first 144 rows and with all its rows, ``REPEATS``
+    each; every reply's numbers within ``tolerance`` of the same request
+    to the same artifact on the CPU."""
     import numpy as np
 
     from gordo_tpu_torch import serializer
@@ -1457,33 +1547,37 @@ def serve_default(torch, collection: str, name: str, X, stamps):
     from gordo_tpu_torch.data.base import to_datetimes
     from gordo_tpu_torch.server.app import GordoApp
 
-    tags = DEFAULT_MACHINES[name]["dataset"]["tag_list"]
+    name, tags = machine["name"], machine["dataset"]["tag_list"]
     keys = [stamp.isoformat() for stamp in to_datetimes(stamps.astype(np.int64))]
     cpu_app = GordoApp(collection, device="cpu")
     card_model = serializer.load(os.path.join(collection, name))
     device = next(fitted_estimator(card_model).spec_.module.parameters()).device
     if device.type != "cuda":
         raise AssertionError(f"{name} loaded onto {device}, not the card")
+    metadata = serializer.load_metadata(os.path.join(collection, name))
+    offset = metadata["metadata"]["build_metadata"]["model"]["model_offset"]
     rows = []
     with http_server(collection, name) as base:
         for n_rows in (144, len(X)):
             frame = {tag: dict(zip(keys[:n_rows], X[:n_rows, j].tolist()))
                      for j, tag in enumerate(tags)}
             payload = json.dumps({"X": frame, "y": frame}).encode()
-            for route in ("prediction", "anomaly/prediction"):
+            for route in routes:
                 times = []
                 for _ in range(REPEATS):
                     reply, seconds = post(f"{base}/{route}", payload)
                     times.append(seconds)
                 path = f"/gordo/v0/{PROJECT}/{name}/{route}"
+                t0 = time.perf_counter()
                 cpu = cpu_app.dispatch("POST", path, lambda: payload)
+                cpu_s = time.perf_counter() - t0
                 if cpu.status != 200:
                     raise AssertionError(f"{name} {route} on the CPU answered {cpu.status}")
-                diff = max_block_diff(reply["data"], cpu.payload["data"], n_rows)
+                diff = max_block_diff(reply["data"], cpu.payload["data"], n_rows - offset)
                 result = {"route": route, "rows": n_rows, "median_s": statistics.median(times),
-                          "seconds": times, "max_abs_diff_card_vs_cpu": diff}
-                log("default pipeline request", name, json.dumps(result))
-                if not diff <= 1e-5:
+                          "seconds": times, "cpu_s": cpu_s, "max_abs_diff_card_vs_cpu": diff}
+                log("served", name, json.dumps(result))
+                if not diff <= tolerance:
                     raise AssertionError(f"{name} {route}: card and CPU differ by {diff}")
                 rows.append(result)
     return rows
@@ -1532,6 +1626,197 @@ def profile_default_fit(torch, artifact: str, X):
     result = {"wall_ms": wall_ms, "device_ms": total_us / 1e3,
               "device_idle_share": 1.0 - total_us / 1e3 / wall_ms, "kernels": rows[:10]}
     log("profile default fit", json.dumps({k: v for k, v in result.items() if k != "kernels"}))
+    return result
+
+
+def recurrent_phase(torch, fa, profile: bool):
+    """Phase 8: each recurrent machine built by the port's CLI on the card
+    (``python -m gordo_tpu_torch.cli build`` from its normalized JSON:
+    fetch and resample, TimeSeriesSplit(3) CV and thresholds, fit,
+    artifact), its row count against the JAX data layer's; then served
+    over HTTP on the card (``/anomaly/prediction`` with the first 144 rows
+    and with all rows, medians of ``REPEATS``), each reply within 1e-4 of
+    the same request on the CPU; one training step's time, launches and
+    (with ``profile``, over ``PROFILED_STEPS`` steps) device idle share;
+    then one forward of the stacked schedule at the LSTM's widths, card
+    against CPU. The flash counts are reset just before and read just
+    after: no flash kernel may launch on this path."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.models.utils import TimeSeriesSplit
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = {}
+    fa.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        collection = os.path.join(tmp, RECURRENT_COLLECTION)
+        for name, machine in RECURRENT_MACHINES.items():
+            artifact = os.path.join(collection, name)
+            wall_s, build_log = cli_build(root, machine, artifact)
+            meta = serializer.load_metadata(artifact)["metadata"]["build_metadata"]
+            dataset_meta = meta["dataset"]["dataset_meta"]
+            rows = dataset_meta["tag_loading_metadata"]["aggregate_metadata"]["dropped_na_length"]
+            if rows != RECURRENT_ROWS:
+                raise AssertionError(f"{name}: {rows} rows, the JAX data layer gives "
+                                     f"{RECURRENT_ROWS}")
+            (estimator,) = machine["model"]["gordo_tpu.models.anomaly.DiffBasedAnomalyDetector"][
+                "base_estimator"].values()
+            epochs, lookback = estimator["epochs"], estimator["lookback_window"]
+            model_meta = meta["model"]
+            offset = model_meta["model_offset"]
+            folds = [len(train) for train, _ in TimeSeriesSplit(n_splits=3).split(range(rows))]
+            fit_steps = epochs * math.ceil((rows - offset) / RECURRENT_BATCH)
+            steps = fit_steps + epochs * sum(
+                math.ceil((n - offset) / RECURRENT_BATCH) for n in folds)
+            row = {
+                "rows": rows,
+                "epochs": epochs,
+                "build_wall_s": wall_s,
+                "fetch_s": meta["dataset"]["query_duration_sec"],
+                "cv_s": model_meta["cross_validation"]["cv_duration_sec"],
+                "fit_s": model_meta["model_training_duration_sec"],
+                "optimizer_steps": steps,
+                "epoch_loss": model_meta["model_meta"]["history"]["loss"],
+                "explained_variance": model_meta["cross_validation"]["scores"][
+                    "explained-variance-score"]["fold-mean"],
+                "build_log": build_log,
+            }
+            row["steps_per_s"] = steps / (row["cv_s"] + row["fit_s"])
+            row["fit_steps_per_s"] = fit_steps / row["fit_s"]
+            log("recurrent build", name, json.dumps(row))
+            thresholds = [model_meta["model_meta"]["aggregate-threshold"],
+                          *model_meta["model_meta"]["feature-thresholds"]]
+            if not all(math.isfinite(x) and x > 0 for x in thresholds):
+                raise AssertionError(f"{name}: thresholds not finite and positive: {model_meta}")
+            lookahead = model_meta["model_meta"]["forecast_steps"]
+            if offset != lookback - 1 + lookahead:
+                raise AssertionError(f"{name}: model_offset {offset}, lookahead {lookahead}")
+            X, _, stamps = _get_dataset(machine["dataset"]).get_data()
+            t0 = time.perf_counter()
+            row["requests"] = serve_built(torch, collection, machine, X, stamps,
+                                          ("anomaly/prediction",), 1e-4)
+            row["serve_check_s"] = time.perf_counter() - t0
+            row["step"] = time_recurrent_steps(torch, machine, X, profile)
+            report[name] = row
+        report["stacked"] = stacked_forward_check(torch, X)
+        report["flash_launches"] = dict(fa.launch_counts)
+        report["kernel_launches"] = dict(fa.kernel_launches)
+    log("recurrent flash launches", json.dumps(report["flash_launches"]))
+    if any(report["flash_launches"].values()):
+        raise AssertionError(f"the recurrent path launched flash kernels: {report}")
+    return report
+
+
+def recurrent_batch(torch, estimator, X):
+    """(module, optimizer, loss name, batch) for training steps of the
+    estimator's net on the card from the seed's weights: its first
+    ``RECURRENT_BATCH`` windows of X."""
+    import numpy as np
+
+    from gordo_tpu_torch.ops.windowing import gather_windows
+
+    estimator.kwargs.update(n_features=X.shape[1], n_features_out=X.shape[1])
+    spec = estimator._build_spec()
+    spec.module.load_state_dict(estimator._initial_state(spec, SEED))
+    module = spec.module.to("cuda").train()
+    lookback, lookahead = spec.lookback_window, estimator.lookahead
+    rows = np.asarray(X[: lookback + lookahead - 1 + RECURRENT_BATCH], dtype=np.float32)
+    Xd = torch.from_numpy(rows).to("cuda")
+    xb, yb = gather_windows(Xd, Xd, torch.arange(RECURRENT_BATCH, device="cuda"), lookback,
+                            lookahead)
+    weights = torch.ones(RECURRENT_BATCH, device="cuda")
+    return module, spec.make_optimizer(module.parameters()), spec.loss, (xb, yb, weights)
+
+
+def time_recurrent_steps(torch, machine, X, profile: bool):
+    """Training steps of the machine's net at full width on the card: the
+    median host-clock time of 10 steps each ended by a synchronise, 10
+    back to back as the fit runs them, and a torch.profiler window of 3
+    steps (``PROFILED_STEPS`` with ``profile``): CUDA kernel launches a
+    step and the device's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.models.core import train_step
+
+    estimator = serializer.from_definition(machine["model"]).base_estimator
+    module, optimizer, loss_name, (xb, yb, w) = recurrent_batch(torch, estimator, X)
+
+    def step():
+        return train_step(module, optimizer, loss_name, xb, yb, w)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    synced = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    back_to_back_ms = (time.perf_counter() - t0) * 1e3 / 10
+    n_steps = PROFILED_STEPS if profile else 3
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, total_us = kernel_rows(prof)
+    timing = {
+        "batch": RECURRENT_BATCH,
+        "step_ms_median": statistics.median(synced),
+        "step_ms_back_to_back": back_to_back_ms,
+        "steps_per_s": 1e3 / back_to_back_ms,
+        "profiled_steps": n_steps,
+        "launches_per_step": sum(row["count"] for row in rows) / n_steps,
+        "profiled_wall_ms": wall_ms,
+        "device_ms": total_us / 1e3,
+        "device_idle_share": 1.0 - total_us / 1e3 / wall_ms,
+    }
+    log("recurrent step", machine["name"], json.dumps(timing))
+    if profile:
+        timing["kernels"] = rows[:25]
+        for row in rows[:10]:
+            log("profile", json.dumps(row))
+    return timing
+
+
+def stacked_forward_check(torch, X):
+    """One forward of the ``stacked`` schedule (LSTM and GRU cells, the
+    LSTM machine's widths: 50 tags, 128/64/64/128, lookback 64) over the
+    first ``RECURRENT_BATCH`` windows of X on the card, against the same
+    forward on the CPU from the same seeded weights: within 1e-4."""
+    import numpy as np
+
+    from gordo_tpu_torch.models.specs import LSTMNet, flax_default_init_
+
+    lookback = 64
+    rows = torch.from_numpy(np.asarray(X[: lookback - 1 + RECURRENT_BATCH], dtype=np.float32))
+    xb = rows.unfold(0, lookback, 1).transpose(1, 2).contiguous()  # (batch, lookback, tags)
+    result = {}
+    for cell in ("lstm", "gru"):
+        net = LSTMNet(X.shape[1], (128, 64, 64, 128), ("tanh",) * 4, X.shape[1], fused=True,
+                      cell=cell, schedule="stacked")
+        flax_default_init_(net, torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            cpu = net(xb)[0]
+            net.to("cuda")
+            net(xb.cuda())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = net(xb.cuda())[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        err = (card.cpu() - cpu).abs().max().item()
+        result[cell] = {"shape": list(xb.shape), "max_abs_err_card_vs_cpu": err, "card_ms": ms}
+        log("stacked forward", cell, json.dumps(result[cell]))
+        if not (torch.isfinite(card).all() and err <= 1e-4):
+            raise AssertionError(f"stacked {cell} forward: card and CPU differ by {err}")
     return result
 
 
@@ -1608,6 +1893,7 @@ def main(argv=None) -> int:
     train = train_phase(torch, fa, args.profile)
     default_pipeline = default_pipeline_phase(torch, fa, args.profile)
     models = model_phase(torch, fa)
+    recurrent = recurrent_phase(torch, fa, args.profile)
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -1616,6 +1902,7 @@ def main(argv=None) -> int:
     paths = {"serve": report["kernel_launches"], "train": train["kernel_launches"],
              "serve_trained": train["served"]["kernel_launches"],
              "default_pipeline": default_pipeline["kernel_launches"],
+             "recurrent": recurrent["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
     def entry(kernel, families, source, replaces, cases, rows):
@@ -1664,7 +1951,8 @@ def main(argv=None) -> int:
                  "nvcc_s": {name: seconds for name, (_, seconds) in compiler_output.items()},
                  "backward_checks": backward_checks, "gradients": gradients,
                  "end_to_end": report, "train": train,
-                 "default_pipeline": default_pipeline, "models": models, **kernels},
+                 "default_pipeline": default_pipeline, "models": models,
+                 "recurrent": recurrent, **kernels},
                 fh,
                 indent=1,
                 default=str,

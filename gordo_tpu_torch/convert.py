@@ -1,8 +1,8 @@
 """
 Carries a JAX-built machine into a port artifact: a
-``DiffBasedAnomalyDetector`` around a Transformer estimator or around the
-default pipeline (``Pipeline(MinMaxScaler, AutoEncoder)``), or a bare
-``AutoEncoder``.
+``DiffBasedAnomalyDetector`` around a Transformer, LSTM or GRU estimator
+or around the default pipeline (``Pipeline(MinMaxScaler, AutoEncoder)``),
+or a bare estimator.
 
 Input is what a ``gordo_tpu`` artifact holds, as plain data: the Flax
 parameter tree as numpy arrays, the model definition dict, the fitted
@@ -24,7 +24,16 @@ Weight mapping, Flax -> torch:
   maps onto ``TransformerNet``'s ``embed``, ``blocks.<i>.{norm1, attn.*,
   norm2, ff1, ff2}``, ``norm`` and ``head``;
 - a feedforward tree ``{"params": {"Dense_<i>"}}`` maps onto
-  ``FeedForwardNet``'s ``layers.<i>``.
+  ``FeedForwardNet``'s ``layers.<i>``;
+- a recurrent tree (``LSTMNet``, LSTM or GRU) maps its head ``Dense_0``
+  onto ``head`` and its layers onto ``layers.<i>``:
+  ``OptimizedLSTMCell_<i>``/``GRUCell_<i>``'s gate Denses (``ii``,
+  ``hf``, ``in``, ...) onto ``gates.<gate>``, ``FusedLSTMLayer_<i>``/
+  ``FusedGRULayer_<i>``'s ``input_proj`` onto ``input_proj`` and its
+  ``recurrent_*`` arrays as they are (the port keeps those in Flax's
+  (in, out) layout); the stacked schedule's ``input_proj_0`` and
+  ``input_kernel_<l>``, ``recurrent_kernel_<l>``, ... go under
+  ``stack.``, the arrays again as they are.
 """
 
 import copy
@@ -96,6 +105,36 @@ def feedforward_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return state
 
 
+_UNFUSED_LAYERS = ("OptimizedLSTMCell_", "GRUCell_")
+_RECURRENT_LAYERS = _UNFUSED_LAYERS + ("FusedLSTMLayer_", "FusedGRULayer_")
+
+
+def recurrent_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """An ``LSTMNet`` Flax parameter tree (any of its six layouts) -> the
+    port's state dict."""
+    tree = params.get("params", params)
+    state: Dict[str, np.ndarray] = {}
+    for name, leaves in tree.items():
+        if name == "Dense_0":
+            state.update(_layer(leaves, "head"))
+        elif name.startswith(_RECURRENT_LAYERS):
+            prefix = f"layers.{int(name.rsplit('_', 1)[1])}"
+            for sub, value in leaves.items():
+                if name.startswith(_UNFUSED_LAYERS):
+                    state.update(_layer(value, f"{prefix}.gates.{sub}"))
+                elif sub == "input_proj":
+                    state.update(_layer(value, f"{prefix}.input_proj"))
+                else:
+                    state[f"{prefix}.{sub}"] = np.asarray(value, dtype=np.float32)
+        elif name == "input_proj_0":
+            state.update(_layer(leaves, "stack.input_proj_0"))
+        elif name.startswith(("input_kernel_", "input_bias_", "recurrent_")):
+            state[f"stack.{name}"] = np.asarray(leaves, dtype=np.float32)
+        else:
+            raise ValueError(f"Unexpected Flax module {name}")
+    return state
+
+
 def _unwrap(definition) -> tuple:
     """``"a.b.Name"`` or ``{"a.b.Name": kwargs}`` -> (Name, kwargs)."""
     if isinstance(definition, str):
@@ -106,6 +145,16 @@ def _unwrap(definition) -> tuple:
 
 _TRANSFORMERS = ("TransformerAutoEncoder", "TransformerForecast")
 _FEEDFORWARD = ("AutoEncoder", "KerasAutoEncoder")
+#: the recurrent estimators by any of their names -> the port's class name
+_RECURRENT = {
+    **{name: name for name in ("LSTMAutoEncoder", "LSTMForecast", "GRUAutoEncoder",
+                               "GRUForecast")},
+    "KerasLSTMAutoEncoder": "LSTMAutoEncoder",
+    "KerasLSTMForecast": "LSTMForecast",
+}
+#: where a recurrent net's first layer keeps its (out, in) input weight
+_RECURRENT_INPUTS = ("layers.0.input_proj.weight", "layers.0.gates.ii.weight",
+                     "layers.0.gates.ir.weight", "stack.input_proj_0.weight")
 
 
 def _port_estimator(name: str, kwargs: dict, state: Mapping[str, np.ndarray]) -> dict:
@@ -118,6 +167,10 @@ def _port_estimator(name: str, kwargs: dict, state: Mapping[str, np.ndarray]) ->
         name = "AutoEncoder"
         n_layers = len({key.split(".")[1] for key in state})
         first, last = state["layers.0.weight"], state[f"layers.{n_layers - 1}.weight"]
+    elif name in _RECURRENT:
+        name = _RECURRENT[name]
+        first = next(state[key] for key in _RECURRENT_INPUTS if key in state)
+        last = state["head.weight"]
     else:
         raise ValueError(f"No weight mapping for a {name}")
     kwargs.setdefault("n_features", int(first.shape[1]))
@@ -160,11 +213,13 @@ def port_definition(definition, state: Mapping[str, np.ndarray]) -> Dict[str, An
 
 
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """A Flax tree of either family -> the port's state dict."""
+    """A Flax tree of any ported family -> the port's state dict."""
     tree = params.get("params", params)
     if all(name.startswith("Dense_") for name in tree):
         return feedforward_state_dict(params)
-    return transformer_state_dict(params)
+    if "embed" in tree:
+        return transformer_state_dict(params)
+    return recurrent_state_dict(params)
 
 
 def _model_arrays(model, state, pipeline_scalers: Sequence[Mapping[str, Any]]) -> dict:

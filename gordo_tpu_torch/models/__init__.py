@@ -4,7 +4,20 @@ the Pipeline and MinMaxScaler that take scikit-learn's place.
 """
 
 from .core import BaseTorchEstimator
-from .models import AutoEncoder, TransformerAutoEncoder, TransformerForecast, WindowedEstimator
+from .models import (
+    AutoEncoder,
+    GRUAutoEncoder,
+    GRUForecast,
+    KerasAutoEncoder,
+    KerasLSTMAutoEncoder,
+    KerasLSTMBaseEstimator,
+    KerasLSTMForecast,
+    LSTMAutoEncoder,
+    LSTMForecast,
+    TransformerAutoEncoder,
+    TransformerForecast,
+    WindowedEstimator,
+)
 from .pipeline import MinMaxScaler, Pipeline
 from .register import register_model_builder
 from .specs import ModelSpec
@@ -17,6 +30,14 @@ __all__ = [
     "WindowedEstimator",
     "TransformerAutoEncoder",
     "TransformerForecast",
+    "LSTMAutoEncoder",
+    "LSTMForecast",
+    "GRUAutoEncoder",
+    "GRUForecast",
+    "KerasAutoEncoder",
+    "KerasLSTMBaseEstimator",
+    "KerasLSTMAutoEncoder",
+    "KerasLSTMForecast",
     "register_model_builder",
     "ModelSpec",
 ]

@@ -1,6 +1,7 @@
 """
 Concrete estimator classes (the port of ``gordo_tpu.models.models``):
-the feedforward ``AutoEncoder`` and the windowed Transformer estimators.
+the feedforward ``AutoEncoder`` and the windowed Transformer, LSTM and
+GRU estimators, with the reference's ``Keras*`` class names as aliases.
 """
 
 from typing import Callable, Union
@@ -91,6 +92,38 @@ class WindowedEstimator(BaseTorchEstimator):
         return self._strip_pad_output(out.cpu().numpy())
 
 
+class LSTMAutoEncoder(WindowedEstimator):
+    """Stacked-LSTM window-end reconstructor."""
+
+    @property
+    def lookahead(self) -> int:
+        return 0
+
+
+class LSTMForecast(WindowedEstimator):
+    """Stacked-LSTM 1-step-ahead forecaster."""
+
+    @property
+    def lookahead(self) -> int:
+        return 1
+
+
+class GRUAutoEncoder(WindowedEstimator):
+    """Stacked-GRU window-end reconstructor."""
+
+    @property
+    def lookahead(self) -> int:
+        return 0
+
+
+class GRUForecast(WindowedEstimator):
+    """Stacked-GRU 1-step-ahead forecaster."""
+
+    @property
+    def lookahead(self) -> int:
+        return 1
+
+
 class TransformerAutoEncoder(WindowedEstimator):
     """Transformer-encoder window reconstructor."""
 
@@ -105,3 +138,10 @@ class TransformerForecast(WindowedEstimator):
     @property
     def lookahead(self) -> int:
         return 1
+
+
+# the reference's class names
+KerasAutoEncoder = AutoEncoder
+KerasLSTMBaseEstimator = WindowedEstimator
+KerasLSTMAutoEncoder = LSTMAutoEncoder
+KerasLSTMForecast = LSTMForecast

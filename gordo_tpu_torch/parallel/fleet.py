@@ -45,5 +45,7 @@ def windowed_predict(
     for start in range(0, n_out, batch_size):
         stop = min(start + batch_size, n_out)
         starts = torch.arange(start, stop, device=X.device)[:, None]
-        outs.append(module(X[starts + offsets]))
+        out = module(X[starts + offsets])
+        # a module may return (output, activity penalty)
+        outs.append(out[0] if isinstance(out, tuple) else out)
     return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -20,12 +20,17 @@ An artifact is a directory of three files:
 Nothing is pickled, so loading an artifact runs no code from it. The
 three files are written into a sibling temporary directory which is
 then renamed into place, so a reader sees the whole artifact or none.
+:func:`dumps` packs an artifact's three files into one gzipped tar (what
+the server's ``download-model`` route sends) and :func:`loads` reads a
+model back from those bytes.
 """
 
+import io
 import json
 import math
 import os
 import shutil
+import tarfile
 from pathlib import Path
 from typing import Any, Dict, Tuple, Union
 
@@ -35,6 +40,10 @@ from gordo_tpu_torch.device import DeviceLike
 from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 from gordo_tpu_torch.models.models import (
     AutoEncoder,
+    GRUAutoEncoder,
+    GRUForecast,
+    LSTMAutoEncoder,
+    LSTMForecast,
     TransformerAutoEncoder,
     TransformerForecast,
 )
@@ -43,6 +52,7 @@ from gordo_tpu_torch.models.pipeline import MinMaxScaler, Pipeline
 DEFINITION_FILENAME = "definition.json"
 PARAMS_FILENAME = "params.npz"
 METADATA_FILENAME = "metadata.json"
+ARTIFACT_FILES = (DEFINITION_FILENAME, PARAMS_FILENAME, METADATA_FILENAME)
 
 #: the classes a definition may name, by the last part of its class path
 #: (``sklearn.pipeline.Pipeline``, ``gordo_tpu.models.AutoEncoder`` and the
@@ -53,13 +63,22 @@ MODEL_CLASSES = {
         DiffBasedAnomalyDetector,
         TransformerAutoEncoder,
         TransformerForecast,
+        LSTMAutoEncoder,
+        LSTMForecast,
+        GRUAutoEncoder,
+        GRUForecast,
         AutoEncoder,
         Pipeline,
         MinMaxScaler,
     )
 }
-# the reference's name of the feedforward estimator
-MODEL_CLASSES["KerasAutoEncoder"] = AutoEncoder
+# the reference's names of the feedforward and LSTM estimators (an alias
+# is the same class, so it needs its own key)
+MODEL_CLASSES.update(
+    KerasAutoEncoder=AutoEncoder,
+    KerasLSTMAutoEncoder=LSTMAutoEncoder,
+    KerasLSTMForecast=LSTMForecast,
+)
 
 PathLike = Union[str, os.PathLike]
 
@@ -138,6 +157,13 @@ def dump(model, dest_dir: PathLike, metadata: Dict[str, Any]) -> Path:
     return dest_dir
 
 
+def _model(definition: Dict[str, Any], params_file, device: DeviceLike):
+    model = from_definition(definition)
+    with np.load(params_file, allow_pickle=False) as npz:
+        arrays = {name: npz[name] for name in npz.files}
+    return model.load_state_arrays(arrays, device)
+
+
 def load(source_dir: PathLike, device: DeviceLike = None):
     """The model stored at ``source_dir``, its weights on ``device`` (the
     card unless ``"cpu"`` is asked for)."""
@@ -146,10 +172,37 @@ def load(source_dir: PathLike, device: DeviceLike = None):
     if not definition_file.is_file():
         raise FileNotFoundError(f"No {DEFINITION_FILENAME} found in {source_dir}")
     with open(definition_file) as fh:
-        model = from_definition(json.load(fh))
-    with np.load(source_dir / PARAMS_FILENAME, allow_pickle=False) as npz:
-        arrays = {name: npz[name] for name in npz.files}
-    return model.load_state_arrays(arrays, device)
+        definition = json.load(fh)
+    return _model(definition, source_dir / PARAMS_FILENAME, device)
+
+
+def dumps(source_dir: PathLike) -> bytes:
+    """The artifact at ``source_dir`` as the bytes of one gzipped tar of
+    its three files. Not a pickle: :func:`loads` reads it back."""
+    source_dir = Path(source_dir)
+    buffer = io.BytesIO()
+    with tarfile.open(fileobj=buffer, mode="w:gz") as tar:
+        for name in ARTIFACT_FILES:
+            if not (source_dir / name).is_file():
+                raise FileNotFoundError(f"No {name} found in {source_dir}")
+            tar.add(source_dir / name, arcname=name)
+    return buffer.getvalue()
+
+
+def loads(data: bytes, device: DeviceLike = None):
+    """The model in an archive from :func:`dumps`, its weights on
+    ``device`` (the card unless ``"cpu"`` is asked for). Only the
+    artifact's three files are read; nothing is extracted to disk."""
+    files = {}
+    with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
+        for member in tar.getmembers():
+            if member.name in ARTIFACT_FILES and member.isfile():
+                files[member.name] = tar.extractfile(member).read()
+    missing = [name for name in ARTIFACT_FILES if name not in files]
+    if missing:
+        raise ValueError(f"Not a model archive: {missing} missing")
+    return _model(json.loads(files[DEFINITION_FILENAME]), io.BytesIO(files[PARAMS_FILENAME]),
+                  device)
 
 
 def load_metadata(source_dir: PathLike) -> Dict[str, Any]:

@@ -4,14 +4,20 @@ routes), a plain WSGI callable on the standard library and JSON:
 
 - ``GET  /healthcheck``
 - ``GET  /gordo/v0/<project>/models``
+- ``GET  /gordo/v0/<project>/revisions``
+- ``GET  /gordo/v0/<project>/expected-models``
 - ``GET  /gordo/v0/<project>/<name>/metadata`` (also ``…/healthcheck``)
+- ``GET  /gordo/v0/<project>/<name>/download-model``
 - ``POST /gordo/v0/<project>/<name>/prediction``
 - ``POST /gordo/v0/<project>/<name>/anomaly/prediction``
 
 Request and response bodies, status codes and error bodies are those of
 the JAX server; every JSON body and response carries the ``revision``
-served (the collection directory's name). Models load on first use onto
-the app's device and stay there.
+served. The served revision is the collection directory's name, or the
+sibling directory that a ``?revision=`` query or a ``revision`` header
+names (:func:`resolve_sibling_revision`; a name it refuses gets 410).
+Models load on first use onto the app's device and stay there, keyed by
+their real directory.
 """
 
 import json
@@ -21,7 +27,8 @@ import re
 import threading
 import timeit
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from urllib.parse import parse_qs
 
 from gordo_tpu_torch import __version__, serializer
 from gordo_tpu_torch.data.sensor_tag import tag_names
@@ -33,12 +40,14 @@ from gordo_tpu_torch.server.utils import ApiError
 logger = logging.getLogger(__name__)
 
 MODEL_COLLECTION_DIR_ENV_VAR = "MODEL_COLLECTION_DIR"
+EXPECTED_MODELS_ENV_VAR = "EXPECTED_MODELS"
 
 _STATUS_TEXT = {
     200: "OK",
     400: "BAD REQUEST",
     404: "NOT FOUND",
     405: "METHOD NOT ALLOWED",
+    410: "GONE",
     422: "UNPROCESSABLE ENTITY",
     500: "INTERNAL SERVER ERROR",
 }
@@ -49,8 +58,11 @@ _MACHINE = _PROJECT + r"/(?P<gordo_name>[^/]+)"
 _ROUTES = [
     ("GET", r"/healthcheck", "healthcheck"),
     ("GET", _PROJECT + r"/models", "models"),
+    ("GET", _PROJECT + r"/revisions", "revisions"),
+    ("GET", _PROJECT + r"/expected-models", "expected_models"),
     ("GET", _MACHINE + r"/metadata", "metadata"),
     ("GET", _MACHINE + r"/healthcheck", "metadata"),
+    ("GET", _MACHINE + r"/download-model", "download_model"),
     ("POST", _MACHINE + r"/prediction", "prediction"),
     ("POST", _MACHINE + r"/anomaly/prediction", "anomaly_prediction"),
 ]
@@ -79,6 +91,34 @@ def _json_response(payload: dict, status: int = 200) -> Response:
     return Response(status=status, mimetype="application/json", payload=payload)
 
 
+def resolve_sibling_revision(latest_dir: str, requested: str) -> Optional[str]:
+    """
+    The path of revision ``requested`` as a sibling of ``latest_dir``, or
+    None when the name is not servable (the JAX server's name policy):
+    dot names (staging directories and lifecycle state), names with a
+    path separator (they would traverse), a symlink sibling (an alias of
+    a revision, such as ``latest``), a loose file and a missing name.
+    """
+    if requested.startswith(".") or "/" in requested or "\\" in requested:
+        return None
+    candidate = os.path.join(latest_dir, "..", requested)
+    if os.path.islink(candidate):
+        return None
+    try:
+        os.listdir(candidate)
+    except (FileNotFoundError, NotADirectoryError):
+        return None
+    return candidate
+
+
+class Revision(NamedTuple):
+    """What one request serves: the revision's name and directory (None
+    for a name that cannot be served)."""
+
+    name: str
+    directory: Optional[str]
+
+
 class GordoApp:
     """WSGI application serving one collection of port artifacts."""
 
@@ -88,8 +128,9 @@ class GordoApp:
         self.device = resolve_device(device)
         self.collection_dir = collection_dir or os.environ[MODEL_COLLECTION_DIR_ENV_VAR]
         self.revision = os.path.basename(os.path.normpath(self.collection_dir))
-        self._models: Dict[str, Any] = {}
-        self._metadata: Dict[str, dict] = {}
+        # keyed by (real directory of the revision, model name)
+        self._models: Dict[Tuple[str, str], Any] = {}
+        self._metadata: Dict[Tuple[str, str], dict] = {}
         self._lock = threading.Lock()
 
     # -- WSGI plumbing -----------------------------------------------------
@@ -98,6 +139,8 @@ class GordoApp:
             environ.get("REQUEST_METHOD", "GET"),
             environ.get("PATH_INFO", "/") or "/",
             lambda: _read_body(environ),
+            query_string=environ.get("QUERY_STRING", ""),
+            revision=environ.get("HTTP_REVISION"),
         )
         headers = [
             ("Content-Type", response.mimetype),
@@ -108,13 +151,32 @@ class GordoApp:
         start_response(status, headers)
         return [response.body]
 
-    def dispatch(self, method: str, path: str, read_body: Callable[[], bytes]) -> Response:
+    def dispatch(
+        self,
+        method: str,
+        path: str,
+        read_body: Callable[[], bytes],
+        query_string: str = "",
+        revision: Optional[str] = None,
+    ) -> Response:
+        """One request: ``revision`` is the ``revision`` header's value; a
+        ``revision`` in ``query_string`` takes precedence over it."""
         view, url_args = self._match(method, path)
+        served = Revision(self.revision, self.collection_dir)
         try:
             if view is None:
                 response = url_args  # the 404/405 reply
             else:
-                response = getattr(self, f"view_{view}")(read_body, **url_args)
+                requested = parse_qs(query_string).get("revision", [None])[0] or revision
+                if requested:
+                    directory = resolve_sibling_revision(self.collection_dir, requested)
+                    served = Revision(requested, directory)
+                if served.directory is None:
+                    response = _json_response(
+                        {"error": f"Revision '{requested}' not found."}, 410
+                    )
+                else:
+                    response = getattr(self, f"view_{view}")(served, read_body, **url_args)
         except ApiError as exc:
             response = _json_response(exc.payload, exc.status)
         except Exception:
@@ -122,10 +184,12 @@ class GordoApp:
             response = _json_response(
                 {"error": "Something unexpected happened; check your input data"}, 500
             )
+        if served.directory is not None:  # a 410 names no revision
+            if response.payload is not None:
+                response.payload["revision"] = served.name
+            response.headers["revision"] = served.name
         if response.payload is not None:
-            response.payload["revision"] = self.revision
             response.body = json.dumps(response.payload, default=str).encode()
-        response.headers["revision"] = self.revision
         return response
 
     @staticmethod
@@ -142,36 +206,40 @@ class GordoApp:
         return None, _json_response({"error": f"No route for {path}"}, 404)
 
     # -- model/metadata loading --------------------------------------------
-    def _artifact_dir(self, name: str) -> str:
+    @staticmethod
+    def _artifact_dir(served: Revision, name: str) -> str:
         if name.startswith(".") or os.sep in name:
             raise ApiError({"error": f"Model '{name}' not found"}, 404)
-        return os.path.join(self.collection_dir, name)
+        return os.path.join(served.directory, name)
 
-    def _get_model(self, name: str):
+    @staticmethod
+    def _model_missing(served: Revision, name: str) -> ApiError:
+        return ApiError({"error": f"Model '{name}' not found in revision {served.name}"}, 404)
+
+    def _get_model(self, served: Revision, name: str):
+        key = (os.path.realpath(served.directory), name)
         with self._lock:
-            model = self._models.get(name)
+            model = self._models.get(key)
             if model is None:
                 try:
-                    model = serializer.load(self._artifact_dir(name), self.device)
+                    model = serializer.load(self._artifact_dir(served, name), self.device)
                 except FileNotFoundError:
-                    raise ApiError(
-                        {"error": f"Model '{name}' not found in revision {self.revision}"},
-                        404,
-                    ) from None
-                self._models[name] = model
+                    raise self._model_missing(served, name) from None
+                self._models[key] = model
         return model
 
-    def _get_metadata(self, name: str) -> dict:
+    def _get_metadata(self, served: Revision, name: str) -> dict:
+        key = (os.path.realpath(served.directory), name)
         with self._lock:
-            metadata = self._metadata.get(name)
+            metadata = self._metadata.get(key)
             if metadata is None:
                 try:
-                    metadata = serializer.load_metadata(self._artifact_dir(name))
+                    metadata = serializer.load_metadata(self._artifact_dir(served, name))
                 except FileNotFoundError:
                     raise ApiError(
                         {"error": f"Metadata for '{name}' not found"}, 404
                     ) from None
-                self._metadata[name] = metadata
+                self._metadata[key] = metadata
         return metadata
 
     @staticmethod
@@ -191,34 +259,76 @@ class GordoApp:
         return tags, target_tags, X, y
 
     # -- views -------------------------------------------------------------
-    def view_healthcheck(self, read_body) -> Response:
+    def view_healthcheck(self, served: Revision, read_body) -> Response:
         return Response(b"", 200)
 
-    def view_models(self, read_body, gordo_project: str) -> Response:
+    def view_models(self, served: Revision, read_body, gordo_project: str) -> Response:
         try:
             names = sorted(
                 name
-                for name in os.listdir(self.collection_dir)
+                for name in os.listdir(served.directory)
                 if not name.startswith(".")
-                and os.path.isdir(os.path.join(self.collection_dir, name))
+                and os.path.isdir(os.path.join(served.directory, name))
             )
         except FileNotFoundError:
             names = []
         return _json_response({"models": names})
 
-    def view_metadata(self, read_body, gordo_project: str, gordo_name: str) -> Response:
+    def view_revisions(self, served: Revision, read_body, gordo_project: str) -> Response:
+        """The sibling real directories of the served revision: no dot
+        entries, no symlinks, no files. ``latest`` is the app's own."""
+        parent = os.path.join(served.directory, "..")
+        try:
+            available = sorted(
+                name
+                for name in os.listdir(parent)
+                if not name.startswith(".")
+                and os.path.isdir(os.path.join(parent, name))
+                and not os.path.islink(os.path.join(parent, name))
+            )
+        except FileNotFoundError:
+            available = [self.revision]
+        return _json_response({"latest": self.revision, "available-revisions": available})
+
+    def view_expected_models(self, served: Revision, read_body, gordo_project: str) -> Response:
+        """``$EXPECTED_MODELS`` as a JSON list; ``[]`` when it is unset."""
+        return _json_response(
+            {"expected-models": json.loads(os.environ.get(EXPECTED_MODELS_ENV_VAR, "[]"))}
+        )
+
+    def view_metadata(
+        self, served: Revision, read_body, gordo_project: str, gordo_name: str
+    ) -> Response:
         return _json_response(
             {
                 "gordo-server-version": __version__,
-                "metadata": self._get_metadata(gordo_name),
+                "metadata": self._get_metadata(served, gordo_name),
                 "env": {MODEL_COLLECTION_DIR_ENV_VAR: self.collection_dir},
             }
         )
 
-    def view_prediction(self, read_body, gordo_project: str, gordo_name: str) -> Response:
+    def view_download_model(
+        self, served: Revision, read_body, gordo_project: str, gordo_name: str
+    ) -> Response:
+        """The model's artifact as one gzipped tar of its three files
+        (``serializer.dumps``; ``serializer.loads`` reads it back). The
+        JAX route sends a pickle; the port's artifacts are never pickled."""
+        try:
+            body = serializer.dumps(self._artifact_dir(served, gordo_name))
+        except FileNotFoundError:
+            raise self._model_missing(served, gordo_name) from None
+        response = Response(body, 200, mimetype="application/octet-stream")
+        response.headers["Content-Disposition"] = "attachment; filename=model.tar.gz"
+        return response
+
+    def view_prediction(
+        self, served: Revision, read_body, gordo_project: str, gordo_name: str
+    ) -> Response:
         start = timeit.default_timer()
-        model = self._get_model(gordo_name)
-        tags, target_tags, X, _ = self._extract(read_body, self._get_metadata(gordo_name))
+        model = self._get_model(served, gordo_name)
+        tags, target_tags, X, _ = self._extract(
+            read_body, self._get_metadata(served, gordo_name)
+        )
         try:
             output = model.predict(X)
         except ValueError as err:
@@ -243,11 +353,11 @@ class GordoApp:
         )
 
     def view_anomaly_prediction(
-        self, read_body, gordo_project: str, gordo_name: str
+        self, served: Revision, read_body, gordo_project: str, gordo_name: str
     ) -> Response:
         start = timeit.default_timer()
-        model = self._get_model(gordo_name)
-        metadata = self._get_metadata(gordo_name)
+        model = self._get_model(served, gordo_name)
+        metadata = self._get_metadata(served, gordo_name)
         _, _, X, y = self._extract(read_body, metadata)
         if y is None:
             return _json_response(

@@ -299,3 +299,112 @@ def test_servers_metadata_alike(clients):
     got, want = (json.loads(c.get(path).get_data()) for c in (port_client, jax_client))
     assert set(got) == set(want)
     assert got["metadata"] == want["metadata"]
+
+
+# -- the recurrent machines of chip_smoke.py's phase 8 ------------------------
+
+PLANT_TAGS = [f"GRA-TAG {i}" for i in range(1, 51)]
+PLANT_DATASET = f"""
+      type: TimeSeriesDataset
+      data_provider: {{type: RandomDataProvider, min_size: 16400, max_size: 16400}}
+      tags: {json.dumps(PLANT_TAGS)}
+      train_start_date: '2019-01-01T00:00:00+00:00'
+      train_end_date: '2019-04-25T00:00:00+00:00'"""
+RECURRENT_CONFIG = f"""
+machines:
+  - name: lstm-plant-50
+    dataset:{PLANT_DATASET}
+    model:
+      gordo_tpu.models.anomaly.DiffBasedAnomalyDetector:
+        base_estimator:
+          gordo_tpu.models.LSTMAutoEncoder:
+            kind: lstm_model
+            lookback_window: 64
+            encoding_dim: [128, 64]
+            encoding_func: [tanh, tanh]
+            decoding_dim: [64, 128]
+            decoding_func: [tanh, tanh]
+            fused: true
+            schedule: layer
+            batch_size: 512
+            epochs: 1
+  - name: gru-plant-50
+    dataset:{PLANT_DATASET}
+    model:
+      gordo_tpu.models.anomaly.DiffBasedAnomalyDetector:
+        base_estimator:
+          gordo_tpu.models.GRUForecast:
+            kind: gru_hourglass
+            lookback_window: 64
+            batch_size: 512
+            epochs: 1
+"""
+
+
+def test_chip_smoke_recurrent_machines_are_normalized_configs():
+    import yaml
+
+    config = yaml.safe_load(RECURRENT_CONFIG)
+    machines = NormalizedConfig(config, project_name=PROJECT).machines
+    want = {m.name: json.loads(json.dumps(m.to_dict(), default=str)) for m in machines}
+    assert chip_smoke.RECURRENT_MACHINES == want
+
+
+def test_chip_smoke_recurrent_rows_are_the_jax_data_layers():
+    from gordo_tpu.data import _get_dataset as jax_get_dataset
+    from gordo_tpu_torch.data import _get_dataset
+
+    dataset = chip_smoke.RECURRENT_MACHINES["lstm-plant-50"]["dataset"]
+    X, _, stamps = _get_dataset(dataset).get_data()
+    jax_X, _ = jax_get_dataset(copy.deepcopy(dataset)).get_data()
+    assert len(X) == len(jax_X) == chip_smoke.RECURRENT_ROWS
+    np.testing.assert_allclose(X, jax_X.to_numpy(), rtol=1e-12)
+    assert list(pd.to_datetime(stamps[[0, -1]], utc=True)) == list(jax_X.index[[0, -1]])
+
+
+def _small_recurrent_machine(name):
+    """A phase-8 machine cut for the CPU: 3 tags, 4 days, lookback 8, one
+    epoch, batch 64; the estimator's kind and widths as configured."""
+    machine = copy.deepcopy(chip_smoke.RECURRENT_MACHINES[name])
+    tags = PLANT_TAGS[:3]
+    machine["dataset"].update(
+        tag_list=tags, target_tag_list=tags, train_end_date="2019-01-05T00:00:00+00:00",
+        data_provider={"type": "RandomDataProvider", "min_size": 600, "max_size": 600},
+    )
+    (estimator,) = machine["model"]["gordo_tpu.models.anomaly.DiffBasedAnomalyDetector"][
+        "base_estimator"].values()
+    estimator.update(lookback_window=8, epochs=1, batch_size=64)
+    return machine
+
+
+@pytest.mark.parametrize("name", ["lstm-plant-50", "gru-plant-50"])
+def test_cli_builds_and_serves_a_recurrent_machine(name, tmp_path):
+    """The build CLI, the builder and the server take the recurrent
+    families with no branch of their own: a cut-down phase-8 machine
+    builds on the CPU, its artifact loads as the recurrent estimator, and
+    its anomaly frame answers over the port's app."""
+    machine = _small_recurrent_machine(name)
+    out = tmp_path / REVISION / name
+    result = run_build(machine, out)
+    assert result.returncode == 0, result.stderr
+    assert "model parameters on cpu" in result.stderr
+    meta = serializer.load_metadata(out)["metadata"]["build_metadata"]["model"]
+    lookahead = meta["model_meta"]["forecast_steps"]
+    assert lookahead == (1 if name.startswith("gru") else 0)
+    assert meta["model_offset"] == 8 - 1 + lookahead
+    assert meta["cross_validation"]["scores"]["explained-variance-score"]["fold-mean"] <= 1.0
+    model = serializer.load(out, device="cpu")
+    assert type(model.base_estimator).__name__ == (
+        "GRUForecast" if name.startswith("gru") else "LSTMAutoEncoder"
+    )
+    app = build_app(str(tmp_path / REVISION), device="cpu")
+    body = {"X": {tag: {f"2019-06-01T00:{i:02d}:00+00:00": float(i % 7) for i in range(30)}
+                  for tag in PLANT_TAGS[:3]}}
+    body["y"] = body["X"]
+    reply = app.dispatch("POST", f"/gordo/v0/{PROJECT}/{name}/anomaly/prediction",
+                         lambda: json.dumps(body).encode())
+    assert reply.status == 200, reply.payload
+    confidence = reply.payload["data"]["total-anomaly-confidence"]
+    (values,) = confidence.values()
+    assert len(values) == 30 - meta["model_offset"]
+    assert all(np.isfinite(v) for v in values.values())
