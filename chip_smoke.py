@@ -37,7 +37,9 @@ Phases, each raising on failure (no result line is printed then):
    with 8255 rows (one full 8192-window chunk); launch counts reset just
    before and read just after; model output held against the same
    artifact on the CPU;
-5. training: the same machine built by the port's ``ModelBuilder`` on the
+5. training: the same machine, read from ``examples/config.yaml`` through
+   the port's config layer (``get_dict_from_yaml``, ``NormalizedConfig``)
+   with ``attention_impl: flash``, built by the port's ``ModelBuilder`` on the
    card from its dataset span (2019-01-01 to 2019-06-01 at 10 minutes,
    21 744 rows of seeded daily sinusoids plus noise) with the evaluation
    defaults (TimeSeriesSplit(3) cross-validation with the four metrics,
@@ -51,10 +53,11 @@ Phases, each raising on failure (no result line is printed then):
    ``--profile``, a ``torch.profiler`` breakdown of 20 training steps);
 6. default pipeline: ``examples/config.yaml``'s ``pump-4130`` and
    ``compressor-2201`` (MinMaxScaler + feedforward hourglass AutoEncoder,
-   1 epoch, batch 32, full width and span, no cut) each built by
-   ``python -m gordo_tpu_torch.cli build`` in a subprocess on the card
-   from its normalized JSON (fetch and resample, CV and thresholds, fit,
-   artifact); its row count held to the JAX data layer's (766, 10 975),
+   1 epoch, batch 32, full width and span, no cut), read through the
+   port's config layer, each built by ``python -m gordo_tpu_torch.cli
+   build`` in a subprocess on the card from the normalized machine as
+   YAML text (fetch and resample, CV and thresholds, fit, artifact); its
+   row count held to the JAX data layer's (766, 10 975),
    its fit on the card; the artifact served over HTTP on the card with the
    machine's first 144 rows and all its rows, medians of 5, each reply
    within 1e-5 of the same request on the CPU; fetch, CV and fit seconds
@@ -85,7 +88,17 @@ Phases, each raising on failure (no result line is printed then):
    of 3 steps (20 with ``--profile``, which adds the kernel breakdown);
    one forward of the ``stacked`` schedule card against CPU; no flash
    kernel launches on this path;
-9. one JSON line of per-kernel numbers, each time with the timer that
+9. project build: ``PROJECT_CONFIG``, a YAML project of three machines
+   (a full-width ``TCNAutoEncoder`` detector over phase 8's 50-tag data,
+   1 epoch; a ``RawModelRegressor``; a detector over ``InfImputer``,
+   ``FunctionTransformer(multiply_by)``, ``MinMaxScaler`` and an
+   ``AutoEncoder``), built by the port's ``local_build`` on the card in
+   this process, each artifact served over HTTP on the card with 144 rows
+   and the whole history (medians of 5), each reply within 1e-4 (TCN) or
+   1e-5 of the CPU's; build, CV and fit seconds, the TCN's training step,
+   its launches and idle share over 3 profiled steps, its receptive
+   field; no flash kernel launches on this path;
+10. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -108,6 +121,7 @@ import threading
 import time
 import urllib.request
 from datetime import datetime, timedelta, timezone
+from typing import Optional
 
 SEED = 1234
 # published H100 SXM peaks (NVIDIA data sheet)
@@ -155,83 +169,11 @@ TRAIN_EPOCHS = 5
 TIMED_STEPS = 50
 PROFILED_STEPS = 20
 
-# examples/config.yaml's two default-pipeline machines (MinMaxScaler +
-# feedforward_hourglass AutoEncoder) as the workflow passes them to
-# `build`: the JSON of gordo_tpu.workflow's NormalizedConfig, which
-# tests/test_torch_cli.py pins; JSON, since the card's machine reads no YAML
-DEFAULT_MACHINES = json.loads(r"""{
- "pump-4130": {
-  "name": "pump-4130",
-  "dataset": {"train_start_date": "2019-01-01T00:00:00+00:00",
-   "train_end_date": "2019-06-01T00:00:00+00:00", "tag_list": ["GRA-PUMP-TEMP 1",
-   "GRA-PUMP-PRES 2", "GRA-PUMP-FLOW 3"], "target_tag_list": ["GRA-PUMP-TEMP 1",
-   "GRA-PUMP-PRES 2", "GRA-PUMP-FLOW 3"], "data_provider": null, "resolution": "10T",
-   "row_filter": "", "aggregation_methods": "mean", "row_filter_buffer_size": 0,
-   "asset": null, "default_asset": null, "n_samples_threshold": 0, "low_threshold": -1000,
-   "high_threshold": 50000, "interpolation_method": "linear_interpolation",
-   "interpolation_limit": "8H", "filter_periods": {}, "type": "TimeSeriesDataset"},
-  "model": {"gordo_tpu.models.anomaly.DiffBasedAnomalyDetector": {"base_estimator":
-   {"sklearn.pipeline.Pipeline": {"steps": ["sklearn.preprocessing.MinMaxScaler",
-   {"gordo_tpu.models.AutoEncoder": {"kind": "feedforward_hourglass"}}]}}}},
-  "metadata": {"user_defined": {"global-metadata": {}, "machine-metadata": {}},
-   "build_metadata": {"model": {"model_offset": 0, "model_creation_date": null,
-   "model_builder_version": "0.1.0", "cross_validation": {"scores": {},
-   "cv_duration_sec": null, "splits": {}}, "model_training_duration_sec": null,
-   "model_meta": {}}, "dataset": {"query_duration_sec": null, "dataset_meta": {}}}},
-  "runtime": {"reporters": [], "server": {"resources": {"requests": {"memory": 1700,
-   "cpu": 2000}, "limits": {"memory": 2000, "cpu": 2000}}},
-   "prometheus_metrics_server": {"resources": {"requests": {"memory": 200, "cpu": 100},
-   "limits": {"memory": 1000, "cpu": 200}}},
-   "builder": {"resources": {"requests": {"memory": 4000, "cpu": 2000},
-   "limits": {"memory": 4000, "cpu": 2000}}, "remote_logging": {"enable": false},
-   "machines_per_pod": 30, "tpu": {"enable": false, "accelerator": "v5litepod-16"}},
-   "client": {"resources": {"requests": {"memory": 3500, "cpu": 100},
-   "limits": {"memory": 4000, "cpu": 2000}}, "max_instances": 30},
-   "influx": {"enable": true, "resources": {"requests": {"memory": 3660, "cpu": 530},
-   "limits": {"memory": 3660, "cpu": 10060}}}},
-  "project_name": "plant-a-anomaly",
-  "evaluation": {"cv_mode": "full_build",
-   "scoring_scaler": "sklearn.preprocessing.RobustScaler",
-   "metrics": ["explained_variance_score", "r2_score", "mean_squared_error",
-   "mean_absolute_error"]}
- },
- "compressor-2201": {
-  "name": "compressor-2201",
-  "dataset": {"train_start_date": "2019-02-01T00:00:00+00:00",
-   "train_end_date": "2019-07-01T00:00:00+00:00", "tag_list": ["GRA-COMP-TEMP 1",
-   "GRA-COMP-VIB 2"], "target_tag_list": ["GRA-COMP-TEMP 1", "GRA-COMP-VIB 2"],
-   "data_provider": null, "resolution": "2T", "row_filter": "",
-   "aggregation_methods": "mean", "row_filter_buffer_size": 0, "asset": null,
-   "default_asset": null, "n_samples_threshold": 0, "low_threshold": -1000,
-   "high_threshold": 50000, "interpolation_method": "linear_interpolation",
-   "interpolation_limit": "8H", "filter_periods": {}, "type": "TimeSeriesDataset"},
-  "model": {"gordo_tpu.models.anomaly.DiffBasedAnomalyDetector": {"base_estimator":
-   {"sklearn.pipeline.Pipeline": {"steps": ["sklearn.preprocessing.MinMaxScaler",
-   {"gordo_tpu.models.AutoEncoder": {"kind": "feedforward_hourglass"}}]}}}},
-  "metadata": {"user_defined": {"global-metadata": {}, "machine-metadata": {}},
-   "build_metadata": {"model": {"model_offset": 0, "model_creation_date": null,
-   "model_builder_version": "0.1.0", "cross_validation": {"scores": {},
-   "cv_duration_sec": null, "splits": {}}, "model_training_duration_sec": null,
-   "model_meta": {}}, "dataset": {"query_duration_sec": null, "dataset_meta": {}}}},
-  "runtime": {"reporters": [], "server": {"resources": {"requests": {"memory": 1700,
-   "cpu": 2000}, "limits": {"memory": 2000, "cpu": 2000}}},
-   "prometheus_metrics_server": {"resources": {"requests": {"memory": 200, "cpu": 100},
-   "limits": {"memory": 1000, "cpu": 200}}},
-   "builder": {"resources": {"requests": {"memory": 1000, "cpu": 2000},
-   "limits": {"memory": 4000, "cpu": 2000}}, "remote_logging": {"enable": false},
-   "machines_per_pod": 30, "tpu": {"enable": false, "accelerator": "v5litepod-16"}},
-   "client": {"resources": {"requests": {"memory": 3500, "cpu": 100},
-   "limits": {"memory": 4000, "cpu": 2000}}, "max_instances": 30},
-   "influx": {"enable": false, "resources": {"requests": {"memory": 3660, "cpu": 530},
-   "limits": {"memory": 3660, "cpu": 10060}}}},
-  "project_name": "plant-a-anomaly",
-  "evaluation": {"cv_mode": "full_build",
-   "scoring_scaler": "sklearn.preprocessing.RobustScaler",
-   "metrics": ["explained_variance_score", "r2_score", "mean_squared_error",
-   "mean_absolute_error"]}
- }
-}""")
-# rows the JAX data layer gives each machine (tests/test_torch_data.py)
+# examples/config.yaml's default-pipeline machines (MinMaxScaler +
+# feedforward_hourglass AutoEncoder), read through the port's config
+# layer (example_machines, which tests/test_torch_cli.py pins against the
+# JAX package's NormalizedConfig), and the rows the JAX data layer gives
+# each (tests/test_torch_data.py)
 DEFAULT_ROWS = {"pump-4130": 766, "compressor-2201": 10975}
 DEFAULT_COLLECTION = "1700000000002"
 
@@ -302,7 +244,85 @@ RECURRENT_MACHINES = {
 # rows the JAX data layer gives each (tests/test_torch_cli.py)
 RECURRENT_ROWS = 16414
 RECURRENT_COLLECTION = "1700000000003"
-RECURRENT_BATCH = 512
+# timed whole-history requests of each phase-8 machine, cut from REPEATS:
+# each takes 5.5-8.7 s of host JSON on an H100's host, and at 5 the two
+# machines' serving took about 150 s of a 660 s run on a slow host
+RECURRENT_HISTORY_REPEATS = 3
+# training batch of the 50-tag plant machines (phases 8 and 9)
+PLANT_BATCH = 512
+
+# Phase 9's project, built in one process by the port's local_build:
+# - tcn-plant-50: a DiffBasedAnomalyDetector(TCNAutoEncoder) at the
+#   factory's full width (channels 64/64/64, kernel 3, dilations 1/2/4,
+#   dropout 0.1, relu) over phase 8's 50-tag plant data (16 414 rows at 10
+#   minutes) at lookback 64 and batch 512; 1 epoch, the cut phase 8 makes;
+# - raw-regressor: a RawModelRegressor with tests/test_models.py's spec
+#   (Dense 8 tanh, Dense 1) from the conftest dataset's 4 tags onto one;
+# - imputed-pump: a detector over InfImputer, FunctionTransformer
+#   (multiply_by, factor 2), MinMaxScaler and a feedforward hourglass
+#   AutoEncoder, on the conftest dataset.
+_CONFTEST_DATASET = """
+      type: RandomDataset
+      tags: [tag-0, tag-1, tag-2, tag-3]
+      train_start_date: '2019-01-01T00:00:00+00:00'
+      train_end_date: '2019-01-03T00:00:00+00:00'
+      asset: gra"""
+PROJECT_CONFIG = f"""
+machines:
+  - name: tcn-plant-50
+    dataset:
+      type: TimeSeriesDataset
+      data_provider: {{type: RandomDataProvider, min_size: 16400, max_size: 16400}}
+      tags: [{", ".join(PLANT_TAGS)}]
+      train_start_date: '2019-01-01T00:00:00+00:00'
+      train_end_date: '2019-04-25T00:00:00+00:00'
+    model:
+      gordo_tpu.models.anomaly.DiffBasedAnomalyDetector:
+        base_estimator:
+          gordo_tpu.models.TCNAutoEncoder:
+            kind: tcn_model
+            lookback_window: 64
+            channels: [64, 64, 64]
+            kernel_size: 3
+            dilations: [1, 2, 4]
+            dropout: 0.1
+            func: relu
+            batch_size: 512
+            epochs: 1
+  - name: raw-regressor
+    dataset:{_CONFTEST_DATASET}
+      target_tag_list: [tag-0]
+    model:
+      gordo_tpu.models.RawModelRegressor:
+        kind:
+          compile: {{loss: mse, optimizer: adam}}
+          spec:
+            layers:
+              - Dense: {{units: 8, activation: tanh}}
+              - Dense: {{units: 1}}
+  - name: imputed-pump
+    dataset:{_CONFTEST_DATASET}
+    model:
+      gordo_tpu.models.anomaly.DiffBasedAnomalyDetector:
+        base_estimator:
+          sklearn.pipeline.Pipeline:
+            steps:
+              - gordo_tpu.models.transformers.InfImputer
+              - sklearn.preprocessing.FunctionTransformer:
+                  func: gordo_tpu.models.transformer_funcs.general.multiply_by
+                  kw_args: {{factor: 2}}
+              - sklearn.preprocessing.MinMaxScaler
+              - gordo_tpu.models.AutoEncoder:
+                  kind: feedforward_hourglass
+"""
+# the routes each project machine is served on, and the card-against-CPU
+# bound of its replies
+PROJECT_SERVING = {
+    "tcn-plant-50": (("anomaly/prediction",), 1e-4),
+    "raw-regressor": (("prediction",), 1e-5),
+    "imputed-pump": (("prediction", "anomaly/prediction"), 1e-5),
+}
+PROJECT_COLLECTION = "1700000000004"
 
 
 def log(*parts) -> None:
@@ -1182,18 +1202,15 @@ def train_phase(torch, fa, profile: bool):
             "base_estimator": {"gordo_tpu.models.TransformerAutoEncoder": base}
         }
     }
-    machine = {
-        "name": MACHINE,
-        "project_name": PROJECT,
-        "dataset": {
-            "tags": TAGS,
-            "train_start_date": TRAIN_START.isoformat(),
-            "train_end_date": "2019-06-01T00:00:00+00:00",
-            "resolution": "10T",
-        },
-        "model": definition,
-        "evaluation": {"seed": SEED},  # the evaluation defaults otherwise
-    }
+    # the config's machine with the flash path, the cut epochs and the seed
+    machine = example_machines(
+        os.path.dirname(os.path.abspath(__file__)),
+        {MACHINE: {"model": definition, "evaluation": {"seed": SEED}}},
+    )[MACHINE]
+    if machine.evaluation.get("scoring_scaler") is None or [
+        tag.name for tag in machine.dataset.tag_list
+    ] != TAGS:
+        raise AssertionError(f"unexpected normalized machine: {machine}")
     X, index = sensor_rows(TRAIN_ROWS, SEED)
     steps = optimizer_steps(len(X), lookback, epochs)
     report = {"rows": len(X), "epochs": epochs, "optimizer_steps": steps}
@@ -1219,7 +1236,7 @@ def train_phase(torch, fa, profile: bool):
         if launches[fa.KERNEL] < n_layers * steps:
             raise AssertionError(f"the forward kernel launched only {launches[fa.KERNEL]} times")
 
-        model_meta = built["metadata"]["build_metadata"]["model"]
+        model_meta = built.to_dict()["metadata"]["build_metadata"]["model"]
         history = model.base_estimator.history_
         report.update(
             cv_s=model_meta["cross_validation"]["cv_duration_sec"],
@@ -1412,9 +1429,10 @@ def time_train_steps(torch, X, base, profile: bool):
 
 
 def default_pipeline_phase(torch, fa, profile: bool):
-    """Phase 6: each default-pipeline machine built by the port's CLI on
-    the card (``python -m gordo_tpu_torch.cli build``, ``MACHINE`` its
-    normalized JSON: fetch and resample, TimeSeriesSplit(3) CV and
+    """Phase 6: each default-pipeline machine of examples/config.yaml, read
+    through the port's config layer, built by the port's CLI on the card
+    (``python -m gordo_tpu_torch.cli build``, ``MACHINE`` the normalized
+    machine as YAML text: fetch and resample, TimeSeriesSplit(3) CV and
     thresholds, fit, artifact), its row count against the JAX data
     layer's, its fit on the card; then served over HTTP on the card with
     the machine's own first 144 rows and all its rows, each reply held
@@ -1427,10 +1445,12 @@ def default_pipeline_phase(torch, fa, profile: bool):
 
     root = os.path.dirname(os.path.abspath(__file__))
     report = {"startup": startup_probe(root)}
+    machines = example_machines(root)
     fa.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         collection = os.path.join(tmp, DEFAULT_COLLECTION)
-        for name, machine in DEFAULT_MACHINES.items():
+        for name in DEFAULT_ROWS:
+            machine = machines[name].to_dict()
             artifact = os.path.join(collection, name)
             wall_s, build_log = cli_build(root, machine, artifact)
             meta = serializer.load_metadata(artifact)["metadata"]["build_metadata"]
@@ -1472,13 +1492,53 @@ def default_pipeline_phase(torch, fa, profile: bool):
     return report
 
 
+def example_machines(root: str, patches: Optional[dict] = None) -> dict:
+    """{name: Machine} of examples/config.yaml, read and normalized by the
+    port's config layer (``get_dict_from_yaml``, ``NormalizedConfig``) as
+    the workflow normalizes them; ``patches`` maps a machine's name to
+    keys laid over its own block first."""
+    from gordo_tpu_torch.workflow.config_elements import NormalizedConfig
+    from gordo_tpu_torch.workflow.workflow_generator import get_dict_from_yaml
+
+    config = get_dict_from_yaml(os.path.join(root, "examples", "config.yaml"))
+    for block in config["machines"]:
+        block.update((patches or {}).get(block["name"], {}))
+    return {m.name: m for m in NormalizedConfig(config, project_name=PROJECT).machines}
+
+
+def yaml_text(value, indent: int = 0) -> str:
+    """``value`` (dicts, lists, strings, numbers, booleans, None) as block
+    YAML: strings double-quoted, floats always with a dot and a signed
+    exponent where they have one (YAML 1.1 reads ``1e-05`` as a string)."""
+    pad = " " * indent
+    if isinstance(value, (dict, list)) and value:
+        lines = []
+        items = value.items() if isinstance(value, dict) else ((None, v) for v in value)
+        for key, item in items:
+            head = f"{pad}{json.dumps(str(key))}:" if isinstance(value, dict) else f"{pad}-"
+            if isinstance(item, (dict, list)) and item:
+                lines.append(f"{head}\n{yaml_text(item, indent + 2)}")
+            else:
+                lines.append(f"{head} {yaml_text(item)}")
+        return "\n".join(lines)
+    if isinstance(value, float) and math.isfinite(value):
+        mantissa, _, exponent = repr(value).partition("e")
+        if exponent:
+            mantissa = mantissa if "." in mantissa else mantissa + ".0"
+            return f"{mantissa}e{exponent if exponent[0] in '+-' else '+' + exponent}"
+        return mantissa
+    if isinstance(value, float):
+        return ".nan" if math.isnan(value) else ("-.inf" if value < 0 else ".inf")
+    return json.dumps(value)
+
+
 def cli_build(root: str, machine: dict, artifact: str):
-    """``python -m gordo_tpu_torch.cli build`` of ``machine`` into
-    ``artifact`` in a subprocess on the card: (wall seconds, the log's
-    fetch, cross-validation and fit lines). Raises unless it exits 0
-    having fitted on the card."""
+    """``python -m gordo_tpu_torch.cli build`` of ``machine`` (``MACHINE``
+    its YAML text) into ``artifact`` in a subprocess on the card: (wall
+    seconds, the log's fetch, cross-validation and fit lines). Raises
+    unless it exits 0 having fitted on the card."""
     name = machine["name"]
-    env = dict(os.environ, MACHINE=json.dumps(machine), OUTPUT_DIR=artifact)
+    env = dict(os.environ, MACHINE=yaml_text(machine), OUTPUT_DIR=artifact)
     env.pop("GORDO_TPU_LAKE_DIR", None)
     t0 = time.perf_counter()
     built = subprocess.run(
@@ -1535,11 +1595,12 @@ def startup_probe(root: str) -> dict:
     return result
 
 
-def serve_built(torch, collection: str, machine: dict, X, stamps, routes, tolerance: float):
+def serve_built(torch, collection: str, machine: dict, X, stamps, routes, tolerance: float,
+                history_repeats: int = REPEATS):
     """A built artifact served over HTTP on the card: each of ``routes``
-    with the machine's first 144 rows and with all its rows, ``REPEATS``
-    each; every reply's numbers within ``tolerance`` of the same request
-    to the same artifact on the CPU."""
+    with the machine's first 144 rows (``REPEATS`` times) and with all its
+    rows (``history_repeats`` times); every reply's numbers within
+    ``tolerance`` of the same request to the same artifact on the CPU."""
     import numpy as np
 
     from gordo_tpu_torch import serializer
@@ -1564,7 +1625,7 @@ def serve_built(torch, collection: str, machine: dict, X, stamps, routes, tolera
             payload = json.dumps({"X": frame, "y": frame}).encode()
             for route in routes:
                 times = []
-                for _ in range(REPEATS):
+                for _ in range(REPEATS if n_rows == 144 else history_repeats):
                     reply, seconds = post(f"{base}/{route}", payload)
                     times.append(seconds)
                 path = f"/gordo/v0/{PROJECT}/{name}/{route}"
@@ -1590,15 +1651,25 @@ def max_block_diff(card: dict, cpu: dict, n_rows: int) -> float:
 
     if set(card) != set(cpu):
         raise AssertionError(f"reply blocks differ: {sorted(set(card) ^ set(cpu))}")
+    def columns(block: dict, labels, keys) -> "np.ndarray":
+        """The block's columns as rows of an array, each column checked to
+        carry exactly ``keys``, in order (a whole-history block has
+        millions of cells, so no lookup per cell)."""
+        if list(block) != labels:
+            raise AssertionError(f"{top}: columns {list(block)} against {labels}")
+        for label in labels:
+            if list(block[label]) != keys:
+                raise AssertionError(f"{top}/{label}: the rows' labels differ")
+        return np.asarray([list(block[label].values()) for label in labels], dtype=np.float64)
+
     worst = 0.0
     for top, block in card.items():
         if top in ("start", "end"):
             continue
-        keys = list(block[next(iter(block))])
+        labels, keys = list(block), list(block[next(iter(block))])
         if len(keys) != n_rows:
             raise AssertionError(f"{top}: {len(keys)} rows for {n_rows} posted")
-        got = np.asarray(block_array(block, keys), dtype=np.float64)
-        want = np.asarray(block_array(cpu[top], keys), dtype=np.float64)
+        got, want = columns(block, labels, keys), columns(cpu[top], labels, keys)
         if not np.isfinite(got).all():
             raise AssertionError(f"non-finite values in {top}")
         worst = max(worst, float(np.abs(got - want).max()))
@@ -1665,9 +1736,9 @@ def recurrent_phase(torch, fa, profile: bool):
             model_meta = meta["model"]
             offset = model_meta["model_offset"]
             folds = [len(train) for train, _ in TimeSeriesSplit(n_splits=3).split(range(rows))]
-            fit_steps = epochs * math.ceil((rows - offset) / RECURRENT_BATCH)
+            fit_steps = epochs * math.ceil((rows - offset) / PLANT_BATCH)
             steps = fit_steps + epochs * sum(
-                math.ceil((n - offset) / RECURRENT_BATCH) for n in folds)
+                math.ceil((n - offset) / PLANT_BATCH) for n in folds)
             row = {
                 "rows": rows,
                 "epochs": epochs,
@@ -1694,9 +1765,10 @@ def recurrent_phase(torch, fa, profile: bool):
             X, _, stamps = _get_dataset(machine["dataset"]).get_data()
             t0 = time.perf_counter()
             row["requests"] = serve_built(torch, collection, machine, X, stamps,
-                                          ("anomaly/prediction",), 1e-4)
+                                          ("anomaly/prediction",), 1e-4,
+                                          RECURRENT_HISTORY_REPEATS)
             row["serve_check_s"] = time.perf_counter() - t0
-            row["step"] = time_recurrent_steps(torch, machine, X, profile)
+            row["step"] = time_window_steps(torch, machine, X, profile)
             report[name] = row
         report["stacked"] = stacked_forward_check(torch, X)
         report["flash_launches"] = dict(fa.launch_counts)
@@ -1707,10 +1779,10 @@ def recurrent_phase(torch, fa, profile: bool):
     return report
 
 
-def recurrent_batch(torch, estimator, X):
-    """(module, optimizer, loss name, batch) for training steps of the
-    estimator's net on the card from the seed's weights: its first
-    ``RECURRENT_BATCH`` windows of X."""
+def window_batch(torch, estimator, X):
+    """(module, optimizer, loss name, batch) for training steps of a
+    windowed estimator's net on the card from the seed's weights: its
+    first ``PLANT_BATCH`` windows of X."""
     import numpy as np
 
     from gordo_tpu_torch.ops.windowing import gather_windows
@@ -1720,30 +1792,34 @@ def recurrent_batch(torch, estimator, X):
     spec.module.load_state_dict(estimator._initial_state(spec, SEED))
     module = spec.module.to("cuda").train()
     lookback, lookahead = spec.lookback_window, estimator.lookahead
-    rows = np.asarray(X[: lookback + lookahead - 1 + RECURRENT_BATCH], dtype=np.float32)
+    rows = np.asarray(X[: lookback + lookahead - 1 + PLANT_BATCH], dtype=np.float32)
     Xd = torch.from_numpy(rows).to("cuda")
-    xb, yb = gather_windows(Xd, Xd, torch.arange(RECURRENT_BATCH, device="cuda"), lookback,
+    xb, yb = gather_windows(Xd, Xd, torch.arange(PLANT_BATCH, device="cuda"), lookback,
                             lookahead)
-    weights = torch.ones(RECURRENT_BATCH, device="cuda")
+    weights = torch.ones(PLANT_BATCH, device="cuda")
     return module, spec.make_optimizer(module.parameters()), spec.loss, (xb, yb, weights)
 
 
-def time_recurrent_steps(torch, machine, X, profile: bool):
-    """Training steps of the machine's net at full width on the card: the
-    median host-clock time of 10 steps each ended by a synchronise, 10
-    back to back as the fit runs them, and a torch.profiler window of 3
-    steps (``PROFILED_STEPS`` with ``profile``): CUDA kernel launches a
-    step and the device's idle share of the window."""
+def time_window_steps(torch, machine, X, profile: bool):
+    """Training steps of a windowed machine's net (phases 8 and 9) at full
+    width on the card: the median host-clock time of 10 steps each ended
+    by a synchronise, 10 back to back as the fit runs them, and a
+    torch.profiler window of 3 steps (``PROFILED_STEPS`` with
+    ``profile``): CUDA kernel launches a step and the device's idle share
+    of the window. The window records CUDA activity only: kernels are
+    what it counts, and at 9000-16 000 launches a step the CPU operator
+    events took the host tens of seconds to parse."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from gordo_tpu_torch import serializer
     from gordo_tpu_torch.models.core import train_step
 
     estimator = serializer.from_definition(machine["model"]).base_estimator
-    module, optimizer, loss_name, (xb, yb, w) = recurrent_batch(torch, estimator, X)
+    module, optimizer, loss_name, (xb, yb, w) = window_batch(torch, estimator, X)
+    generator = torch.Generator(device="cuda").manual_seed(SEED)  # dropout masks
 
     def step():
-        return train_step(module, optimizer, loss_name, xb, yb, w)
+        return train_step(module, optimizer, loss_name, xb, yb, w, generator)
 
     for _ in range(3):
         step()
@@ -1760,15 +1836,17 @@ def time_recurrent_steps(torch, machine, X, profile: bool):
     torch.cuda.synchronize()
     back_to_back_ms = (time.perf_counter() - t0) * 1e3 / 10
     n_steps = PROFILED_STEPS if profile else 3
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, total_us = kernel_rows(prof)
+    if not rows:
+        raise AssertionError(f"{machine['name']}: the profiler recorded no CUDA kernel")
     timing = {
-        "batch": RECURRENT_BATCH,
+        "batch": PLANT_BATCH,
         "step_ms_median": statistics.median(synced),
         "step_ms_back_to_back": back_to_back_ms,
         "steps_per_s": 1e3 / back_to_back_ms,
@@ -1778,7 +1856,7 @@ def time_recurrent_steps(torch, machine, X, profile: bool):
         "device_ms": total_us / 1e3,
         "device_idle_share": 1.0 - total_us / 1e3 / wall_ms,
     }
-    log("recurrent step", machine["name"], json.dumps(timing))
+    log("training step", machine["name"], json.dumps(timing))
     if profile:
         timing["kernels"] = rows[:25]
         for row in rows[:10]:
@@ -1786,17 +1864,87 @@ def time_recurrent_steps(torch, machine, X, profile: bool):
     return timing
 
 
+def project_build_phase(torch, fa, profile: bool):
+    """Phase 9: ``PROJECT_CONFIG`` built by the port's ``local_build`` on
+    the card in this one process (read by the port's YAML reader,
+    normalized, then each machine fetched, cross-validated and fitted),
+    each artifact written and served over HTTP on the card on its
+    ``PROJECT_SERVING`` routes with its first 144 rows and all its rows
+    (medians of ``REPEATS``), every reply within its bound of the same
+    request on the CPU; the TCN's training step time, CUDA launches a step
+    and device idle share (``time_window_steps``) and its receptive field.
+    The flash counts are reset just before and read just after: no flash
+    kernel may launch on this path."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.builder.local_build import local_build
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.models.specs_seq import receptive_field
+
+    report = {}
+    fa.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        collection = os.path.join(tmp, PROJECT_COLLECTION)
+        machines = []
+        t0 = time.perf_counter()
+        for model, machine in local_build(PROJECT_CONFIG):
+            build_s = time.perf_counter() - t0
+            serializer.dump(model, os.path.join(collection, machine.name), machine.to_dict())
+            meta = machine.metadata.build_metadata
+            model_meta = meta.model.model_meta
+            row = {
+                "rows": meta.dataset.dataset_meta["tag_loading_metadata"]["aggregate_metadata"][
+                    "dropped_na_length"],
+                "build_s": build_s,
+                "fetch_s": meta.dataset.query_duration_sec,
+                "cv_s": meta.model.cross_validation.cv_duration_sec,
+                "fit_s": meta.model.model_training_duration_sec,
+                "model_offset": meta.model.model_offset,
+                "explained_variance": meta.model.cross_validation.scores[
+                    "explained-variance-score"]["fold-mean"],
+            }
+            thresholds = [model_meta.get("aggregate-threshold", 1.0),
+                          *model_meta.get("feature-thresholds", ())]
+            if not all(math.isfinite(x) and x > 0 for x in thresholds):
+                raise AssertionError(f"{machine.name}: thresholds not finite and positive")
+            log("project build", machine.name, json.dumps(row))
+            report[machine.name] = row
+            machines.append(machine.to_dict())
+            t0 = time.perf_counter()
+        if [m["name"] for m in machines] != list(PROJECT_SERVING):
+            raise AssertionError(f"built {[m['name'] for m in machines]}")
+        tcn = report["tcn-plant-50"]
+        if (tcn["rows"], tcn["model_offset"]) != (RECURRENT_ROWS, 63):
+            raise AssertionError(f"tcn-plant-50: {tcn}")
+        for machine in machines:
+            name = machine["name"]
+            X, _, stamps = _get_dataset(machine["dataset"]).get_data()
+            routes, bound = PROJECT_SERVING[name]
+            report[name]["requests"] = serve_built(torch, collection, machine, X, stamps, routes,
+                                                   bound)
+            if name == "tcn-plant-50":
+                tcn["step"] = time_window_steps(torch, machine, X, profile)
+                tcn["receptive_field"] = receptive_field(3, (1, 2, 4))
+                log("tcn receptive field", tcn["receptive_field"])
+        report["build_total_s"] = sum(report[m["name"]]["build_s"] for m in machines)
+        report["flash_launches"] = dict(fa.launch_counts)
+        report["kernel_launches"] = dict(fa.kernel_launches)
+    log("project build flash launches", json.dumps(report["flash_launches"]))
+    if any(report["flash_launches"].values()):
+        raise AssertionError(f"the project build launched flash kernels: {report}")
+    return report
+
+
 def stacked_forward_check(torch, X):
     """One forward of the ``stacked`` schedule (LSTM and GRU cells, the
     LSTM machine's widths: 50 tags, 128/64/64/128, lookback 64) over the
-    first ``RECURRENT_BATCH`` windows of X on the card, against the same
+    first ``PLANT_BATCH`` windows of X on the card, against the same
     forward on the CPU from the same seeded weights: within 1e-4."""
     import numpy as np
 
     from gordo_tpu_torch.models.specs import LSTMNet, flax_default_init_
 
     lookback = 64
-    rows = torch.from_numpy(np.asarray(X[: lookback - 1 + RECURRENT_BATCH], dtype=np.float32))
+    rows = torch.from_numpy(np.asarray(X[: lookback - 1 + PLANT_BATCH], dtype=np.float32))
     xb = rows.unfold(0, lookback, 1).transpose(1, 2).contiguous()  # (batch, lookback, tags)
     result = {}
     for cell in ("lstm", "gru"):
@@ -1884,16 +2032,26 @@ def main(argv=None) -> int:
         log(f"nvcc {name} ({seconds:.1f} s):\n{text.strip()}")
     log("build seconds", build_s)
 
-    checks = kernel_phase(torch, fa)
-    backward_checks = backward_phase(torch, fa)
-    gradients = gradient_phase(torch, fa)
-    serve_launches, report = end_to_end_phase(torch, fa, args.profile)
+    phase_s = {"build": build_s}
+
+    def timed(name, phase, *phase_args):
+        t0 = time.perf_counter()
+        result = phase(torch, fa, *phase_args)
+        phase_s[name] = time.perf_counter() - t0
+        log("phase", name, "seconds", phase_s[name])
+        return result
+
+    checks = timed("forward_kernels", kernel_phase)
+    backward_checks = timed("backward_kernels", backward_phase)
+    gradients = timed("gradients", gradient_phase)
+    serve_launches, report = timed("serve", end_to_end_phase, args.profile)
     if serve_launches <= 0:
         raise AssertionError("the served path never launched flash_attention_fwd")
-    train = train_phase(torch, fa, args.profile)
-    default_pipeline = default_pipeline_phase(torch, fa, args.profile)
-    models = model_phase(torch, fa)
-    recurrent = recurrent_phase(torch, fa, args.profile)
+    train = timed("train", train_phase, args.profile)
+    default_pipeline = timed("default_pipeline", default_pipeline_phase, args.profile)
+    models = timed("models", model_phase)
+    recurrent = timed("recurrent", recurrent_phase, args.profile)
+    project = timed("project_build", project_build_phase, args.profile)
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -1903,6 +2061,7 @@ def main(argv=None) -> int:
              "serve_trained": train["served"]["kernel_launches"],
              "default_pipeline": default_pipeline["kernel_launches"],
              "recurrent": recurrent["kernel_launches"],
+             "project_build": project["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
     def entry(kernel, families, source, replaces, cases, rows):
@@ -1947,12 +2106,12 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(
-                {"card": card, "build_s": build_s, "checks": checks,
+                {"card": card, "build_s": build_s, "phase_s": phase_s, "checks": checks,
                  "nvcc_s": {name: seconds for name, (_, seconds) in compiler_output.items()},
                  "backward_checks": backward_checks, "gradients": gradients,
                  "end_to_end": report, "train": train,
                  "default_pipeline": default_pipeline, "models": models,
-                 "recurrent": recurrent, **kernels},
+                 "recurrent": recurrent, "project_build": project, **kernels},
                 fh,
                 indent=1,
                 default=str,

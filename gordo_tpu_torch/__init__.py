@@ -15,21 +15,27 @@ kernel and, in training, the two backward kernels
 (``ops/flash_attention.py``); and the default pipeline
 (``Pipeline(MinMaxScaler, AutoEncoder)`` in the detector) built from a
 machine config by ``python -m gordo_tpu_torch.cli build``, its data
-fetched and resampled by the numpy data layer.
+fetched and resampled by the numpy data layer; the LSTM, GRU and TCN
+families, the raw regressor and the ``InfImputer`` and
+``FunctionTransformer`` steps; and the config layer, which reads the
+repo's YAML project configs without PyYAML and builds a whole project
+in one process (``builder.local_build``).
 
 Layer map:
 
 - ``gordo_tpu_torch.cli``         — ``build`` and ``run-server`` commands
+- ``gordo_tpu_torch.workflow``    — the YAML reader, project configs
+- ``gordo_tpu_torch.machine``     — the machine unit, validators, metadata
 - ``gordo_tpu_torch.device``      — the device an entry point runs on
 - ``gordo_tpu_torch.data``        — datasets, providers, resample and join
 - ``gordo_tpu_torch.ops``         — activations, windowing, kernels
 - ``gordo_tpu_torch.models``      — modules, estimators, pipeline, detector
 - ``gordo_tpu_torch.parallel``    — chunked windowed predict
-- ``gordo_tpu_torch.builder``     — builds one machine into an artifact
+- ``gordo_tpu_torch.builder``     — builds a machine, or a project, into artifacts
 - ``gordo_tpu_torch.serializer``  — the port's artifact format
 - ``gordo_tpu_torch.convert``     — carries Flax weights into a port artifact
 - ``gordo_tpu_torch.server``      — stdlib WSGI/JSON model server
-- ``gordo_tpu_torch.utils``       — frequency aliases
+- ``gordo_tpu_torch.utils``       — frequency aliases, ``capture_args``
 
 The package imports torch, numpy and the standard library only.
 """

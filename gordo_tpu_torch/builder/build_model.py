@@ -2,39 +2,43 @@
 ModelBuilder: the train-one-machine pipeline (the port of
 ``gordo_tpu.builder.build_model``).
 
-``build`` fetches the machine's dataset through the port's data layer
-(``_get_dataset(machine["dataset"]).get_data()``), as the JAX builder
-does, or takes X, y and their time index as arrays. From there it does
-what the JAX builder does: inject the evaluation seed into every
-estimator, cross-validate with per-tag and aggregate scorers (the
-anomaly detector derives its thresholds on the way), record the fold
-scores and splits, fit on all the data, measure the model's output
-offset, assemble the build metadata with the JAX keys (the fetch's
-``query_duration_sec`` and ``dataset_meta`` among them), and write the
-port's artifact, which the port's server serves.
+A machine is a :class:`~gordo_tpu_torch.machine.Machine`, or a dict that
+``Machine.from_dict`` turns into one. Its evaluation is read as the JAX
+builder reads it: ``scoring_scaler`` (None: unscaled scores),
+``metrics`` (None: the four defaults), ``cv`` (default
+``TimeSeriesSplit(n_splits=3)``) and ``seed`` (0); the builder merges no
+defaults of its own, so a machine built without project globals scores
+as the JAX ``build`` scores it.
 
-A machine is a plain dict with the JAX ``Machine``'s keys (``name``,
-``project_name``, ``model``, ``dataset``, ``evaluation``, ``metadata``,
-``runtime``). Evaluation keys a machine leaves out take the defaults a
-JAX project config gives them: ``cv_mode: full_build``, a RobustScaler as
-``scoring_scaler`` and the four default metrics; ``cv`` defaults to
-``TimeSeriesSplit(n_splits=3)``.
+``build`` fetches the machine's dataset through the port's data layer,
+as the JAX builder does, or takes X, y and their time index as arrays.
+From there it does what the JAX builder does: inject the evaluation seed
+into every estimator, cross-validate with per-tag and aggregate scorers
+(the anomaly detector derives its thresholds on the way), record the
+fold scores and splits, fit on all the data, measure the model's output
+offset, assemble the build metadata, and write the port's artifact with
+``Machine.to_dict()`` as its metadata, which the port's server serves.
 """
 
-import copy
 import functools
 import logging
 import time
 from datetime import datetime, timezone
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from gordo_tpu_torch import __version__, serializer
 from gordo_tpu_torch.data import _get_dataset
 from gordo_tpu_torch.data.base import to_datetimes
-from gordo_tpu_torch.data.sensor_tag import tag_names
 from gordo_tpu_torch.device import DeviceLike, resolve_device
+from gordo_tpu_torch.machine import Machine
+from gordo_tpu_torch.machine.metadata import (
+    BuildMetadata,
+    CrossValidationMetaData,
+    DatasetBuildMetadata,
+    ModelBuildMetadata,
+)
 from gordo_tpu_torch.models.anomaly.diff import RobustScaling
 from gordo_tpu_torch.models.core import BaseTorchEstimator, as_2d
 from gordo_tpu_torch.models.pipeline import Pipeline
@@ -43,14 +47,7 @@ from gordo_tpu_torch.models.utils import METRICS, TimeSeriesSplit, cross_validat
 logger = logging.getLogger(__name__)
 
 DEFAULT_CV = {"sklearn.model_selection.TimeSeriesSplit": {"n_splits": 3}}
-DEFAULT_EVALUATION = {
-    "cv_mode": "full_build",
-    "scoring_scaler": "sklearn.preprocessing.RobustScaler",
-    "metrics": list(METRICS),
-}
 _CV_MODES = ("full_build", "cross_val_only", "build_only")
-# the cross-validation metadata of a build that did not cross-validate
-_EMPTY_CV: Dict[str, Any] = {"scores": {}, "cv_duration_sec": None, "splits": {}}
 
 
 def _class_name(definition) -> Tuple[str, dict]:
@@ -100,21 +97,11 @@ def fitted_estimator(model) -> BaseTorchEstimator:
 
 
 class ModelBuilder:
-    def __init__(self, machine: Mapping[str, Any]):
-        machine = copy.deepcopy(dict(machine))
-        for key in ("name", "project_name", "model", "dataset"):
-            if key not in machine:
-                raise ValueError(f"A machine needs {key!r}")
-        dataset = machine["dataset"]
-        if "tag_list" not in dataset:
-            dataset["tag_list"] = dataset.pop("tags")
-        if not dataset.get("target_tag_list"):
-            dataset["target_tag_list"] = list(dataset["tag_list"])
-        dataset.setdefault("resolution", "10T")
-        machine["evaluation"] = {**DEFAULT_EVALUATION, **(machine.get("evaluation") or {})}
-        machine.setdefault("runtime", {})
-        machine["metadata"] = {"user_defined": {}, **(machine.get("metadata") or {})}
-        self.machine = machine
+    def __init__(self, machine: Union[Machine, Mapping[str, Any]]):
+        if not isinstance(machine, Machine):
+            machine = Machine.from_dict(dict(machine))
+        # a copy, so the caller's machine never changes
+        self.machine = Machine.unvalidated(**machine.to_dict())
 
     def build(
         self,
@@ -123,43 +110,43 @@ class ModelBuilder:
         index: Optional[Sequence] = None,
         output_dir=None,
         device: DeviceLike = None,
-    ) -> Tuple[Any, Dict[str, Any]]:
+    ) -> Tuple[Any, Machine]:
         """
-        (model, machine dict with ``metadata.build_metadata``), training
-        on ``device`` (the card unless ``"cpu"``). With no X the data is
-        fetched through the machine's dataset; otherwise X, y are the data
-        and ``index`` their row labels (timestamps; row numbers when
-        None). With ``output_dir`` the artifact is written there, as
+        (model, a copy of the machine with ``metadata.build_metadata``),
+        training on ``device`` (the card unless ``"cpu"``). With no X the
+        data is fetched through the machine's dataset; otherwise X, y are
+        the data and ``index`` their row labels (timestamps; row numbers
+        when None). With ``output_dir`` the artifact is written there, as
         ``<collection>/<machine name>``.
         """
         device = resolve_device(device)  # no card, no work
-        dataset_meta: Dict[str, Any] = {}
-        fetch_secs = None
+        dataset_build = DatasetBuildMetadata()
         if X is None:
-            dataset = _get_dataset(self.machine["dataset"])
+            dataset = _get_dataset(self.machine.dataset.to_dict())
             start = time.perf_counter()
             X, y, stamps = dataset.get_data()
-            fetch_secs = time.perf_counter() - start
-            dataset_meta = dataset.get_metadata()
+            dataset_build.query_duration_sec = time.perf_counter() - start
+            dataset_build.dataset_meta = dataset.get_metadata()
             index = to_datetimes(stamps.astype(np.int64))
-            logger.info("Fetched %d rows in %.3f s", len(X), fetch_secs)
+            logger.info("Fetched %d rows in %.3f s", len(X), dataset_build.query_duration_sec)
         X, y = as_2d(X, dtype=None), as_2d(y, dtype=None)
         index = list(range(len(X))) if index is None else list(index)
-        dataset_build = {"query_duration_sec": fetch_secs, "dataset_meta": dataset_meta}
-        evaluation = self.machine["evaluation"]
-        cv_mode = str(evaluation["cv_mode"]).lower()
+        evaluation = self.machine.evaluation
+        cv_mode = str(evaluation.get("cv_mode", "full_build")).lower()
         if cv_mode not in _CV_MODES:
             raise ValueError(f"cv_mode {cv_mode!r} is not one of {_CV_MODES}")
 
-        model = serializer.from_definition(self.machine["model"])
+        model = serializer.from_definition(self.machine.model)
         _inject_seed(model, int(evaluation.get("seed", 0)))
-        machine = copy.deepcopy(self.machine)
+        machine = Machine.unvalidated(**self.machine.to_dict())
 
-        cv_meta = copy.deepcopy(_EMPTY_CV)
+        cv_meta = CrossValidationMetaData()
         if cv_mode != "build_only":
             cv_meta = self._run_cross_validation(model, X, y, index, device)
         if cv_mode == "cross_val_only":
-            machine["metadata"]["build_metadata"] = _build_metadata(cv_meta, dataset_build)
+            machine.metadata.build_metadata = BuildMetadata(
+                model=ModelBuildMetadata(cross_validation=cv_meta), dataset=dataset_build
+            )
             return model, machine
 
         start = time.perf_counter()
@@ -171,19 +158,22 @@ class ModelBuilder:
             fit_secs,
             next(module.parameters()).device,
         )
-        machine["metadata"]["build_metadata"] = _build_metadata(
-            cv_meta,
-            dataset_build,
-            model_offset=len(X) - len(model.predict(X)),
-            model_creation_date=str(datetime.now(timezone.utc).astimezone()),
-            model_training_duration_sec=fit_secs,
-            model_meta=model.get_metadata(),
+        machine.metadata.build_metadata = BuildMetadata(
+            model=ModelBuildMetadata(
+                model_offset=len(X) - len(model.predict(X)),
+                model_creation_date=str(datetime.now(timezone.utc).astimezone()),
+                model_builder_version=__version__,
+                cross_validation=cv_meta,
+                model_training_duration_sec=fit_secs,
+                model_meta=model.get_metadata(),
+            ),
+            dataset=dataset_build,
         )
         if output_dir is not None:
-            serializer.dump(model, output_dir, machine)
+            serializer.dump(model, output_dir, machine.to_dict())
         return model, machine
 
-    def _run_cross_validation(self, model, X, y, index, device) -> Dict[str, Any]:
+    def _run_cross_validation(self, model, X, y, index, device) -> CrossValidationMetaData:
         """Cross-validate with per-tag and aggregate scorers and package the
         fold scores and splits: through the model's own ``cross_validate``
         (the anomaly detector derives its thresholds on the way), else
@@ -192,12 +182,11 @@ class ModelBuilder:
         the JAX builder."""
         if not hasattr(model, "predict"):
             logger.debug("Unable to score model; it has no 'predict' attribute")
-            return copy.deepcopy(_EMPTY_CV)
-        evaluation = self.machine["evaluation"]
-        dataset = self.machine["dataset"]
+            return CrossValidationMetaData()
+        evaluation = self.machine.evaluation
         scorers = self.build_metrics_dict(
             self.metrics_from_list(evaluation.get("metrics")),
-            tag_names(dataset["target_tag_list"]),
+            [tag.name for tag in self.machine.dataset.target_tag_list],
             y,
             _scoring_scaler(evaluation.get("scoring_scaler")),
         )
@@ -211,18 +200,18 @@ class ModelBuilder:
             cv_secs,
             ", ".join(f"{secs:.3f}" for secs in cv["fit_time"]),
         )
-        return {
-            "scores": {name: _fold_stats(cv[f"test_{name}"]) for name in scorers},
-            "cv_duration_sec": cv_secs,
-            "splits": self.build_split_dict(index, splitter),
-        }
+        return CrossValidationMetaData(
+            scores={name: _fold_stats(cv[f"test_{name}"]) for name in scorers},
+            cv_duration_sec=cv_secs,
+            splits=self.build_split_dict(index, splitter),
+        )
 
     @staticmethod
     def metrics_from_list(metric_list: Optional[List[str]] = None) -> List[Callable]:
         """Metric functions by name (a dotted path's last part, as in
         ``sklearn.metrics.r2_score``); the four defaults when None."""
         funcs = []
-        for path in metric_list or DEFAULT_EVALUATION["metrics"]:
+        for path in metric_list or list(METRICS):
             name = path.rsplit(".", 1)[-1]
             if name not in METRICS:
                 raise NotImplementedError(
@@ -286,27 +275,3 @@ def _fold_stats(fold_values: np.ndarray) -> Dict[str, float]:
     }
     summary.update({f"fold-{n}": float(v) for n, v in enumerate(values, 1)})
     return summary
-
-
-def _build_metadata(
-    cross_validation: Dict[str, Any],
-    dataset: Dict[str, Any],
-    model_offset: int = 0,
-    model_creation_date: Optional[str] = None,
-    model_training_duration_sec: Optional[float] = None,
-    model_meta: Optional[dict] = None,
-) -> Dict[str, Any]:
-    """The JAX ``BuildMetadata.to_dict()`` layout. ``dataset`` holds the
-    fetch's ``query_duration_sec`` and ``dataset_meta`` (None and empty
-    when the caller handed the arrays in)."""
-    return {
-        "model": {
-            "model_offset": model_offset,
-            "model_creation_date": model_creation_date,
-            "model_builder_version": __version__,
-            "cross_validation": cross_validation,
-            "model_training_duration_sec": model_training_duration_sec,
-            "model_meta": model_meta or {},
-        },
-        "dataset": dataset,
-    }

@@ -8,10 +8,12 @@ The port's command line (the counterpart of ``gordo_tpu.cli``'s
 
 ``build`` builds one machine (fetch and resample its dataset,
 cross-validate and derive the thresholds, fit) and writes the port's
-artifact to OUTPUT_DIR. MACHINE is the machine's normalized config as
-JSON (what the workflow passes as ``machines-json``); both fall back to
-the ``MACHINE`` and ``OUTPUT_DIR`` environment variables, and OUTPUT_DIR
-to ``/data``. Training runs on the card unless ``--device cpu`` is
+artifact to OUTPUT_DIR. MACHINE is the machine's config as YAML (JSON
+is YAML too), read by the port's YAML reader and taken as the JAX
+command takes it: ``Machine.from_config(machine, project_name=
+machine["project_name"])``, with no project globals of its own. Both
+fall back to the ``MACHINE`` and ``OUTPUT_DIR`` environment variables,
+and OUTPUT_DIR to ``/data``. Training runs on the card unless ``--device cpu`` is
 given. A failed build exits with the JAX command's code for the kind of
 failure (``EXIT_CODES``) and, with ``--exceptions-reporter-file``, leaves
 ``{"type", "message"}`` JSON there.
@@ -24,21 +26,16 @@ import os
 import re
 import sys
 import traceback
-from typing import Any, Dict, List, Optional
+from typing import List, Optional
 
 from gordo_tpu_torch.builder import ModelBuilder
 from gordo_tpu_torch.data import InsufficientDataError, SensorTagNormalizationError
 from gordo_tpu_torch.data.datasets import InsufficientDataAfterRowFilteringError
 from gordo_tpu_torch.data.providers import NoSuitableDataProviderError
+from gordo_tpu_torch.machine import Machine, ReporterException
+from gordo_tpu_torch.workflow.yaml_reader import safe_load
 
 logger = logging.getLogger(__name__)
-
-
-class ReporterException(Exception):
-    """A configured build reporter failed. The port has no reporters yet,
-    so a machine that configures any fails with this once its artifact
-    is written."""
-
 
 #: exception class -> exit code, the most derived registered class of a
 #: raised exception deciding (the JAX command's table)
@@ -77,9 +74,9 @@ def _write_report(path: str, exc: BaseException) -> None:
         traceback.print_exc()
 
 
-def score_strings(machine: Dict[str, Any]) -> List[str]:
+def score_strings(machine: Machine) -> List[str]:
     """CV scores as ``metric_fold=value`` lines (Katib's format)."""
-    scores = machine["metadata"]["build_metadata"]["model"]["cross_validation"]["scores"]
+    scores = machine.metadata.build_metadata.model.cross_validation.scores
     return [
         f"{metric.replace(' ', '-')}_{name.replace(' ', '-')}={value}"
         for metric, by_name in scores.items()
@@ -87,22 +84,12 @@ def score_strings(machine: Dict[str, Any]) -> List[str]:
     ]
 
 
-def _report(machine: Dict[str, Any]) -> None:
-    reporters = (machine.get("runtime") or {}).get("reporters") or []
-    if reporters:
-        raise ReporterException(
-            f"Build reporters are not ported yet (ROADMAP.md queue 1); {len(reporters)} "
-            "configured; the artifact was written"
-        )
-
-
 def build(args) -> int:
     try:
+        machine = Machine.from_config(args.machine, project_name=args.machine["project_name"])
         logger.info("Building, output will be at: %s", args.output_dir)
-        _, machine = ModelBuilder(args.machine).build(
-            output_dir=args.output_dir, device=args.device
-        )
-        _report(machine)
+        _, machine = ModelBuilder(machine).build(output_dir=args.output_dir, device=args.device)
+        machine.report()
         if args.print_cv_scores:
             for line in score_strings(machine):
                 print(line)
@@ -122,7 +109,7 @@ def _parser() -> argparse.ArgumentParser:
     build_cmd = commands.add_parser("build", help="build one machine into an artifact")
     build_cmd.add_argument(
         "machine", nargs="?", default=os.environ.get("MACHINE"),
-        help="the machine's config as JSON (default: $MACHINE)",
+        help="the machine's config as YAML or JSON (default: $MACHINE)",
     )
     build_cmd.add_argument(
         "output_dir", nargs="?", default=os.environ.get("OUTPUT_DIR", "/data"),
@@ -161,14 +148,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             "build needs MACHINE, as an argument or in the MACHINE environment variable"
         )
     try:
-        args.machine = json.loads(args.machine)
+        args.machine = safe_load(args.machine)
     except ValueError as err:
-        parser.error(
-            f"MACHINE must be the machine's config as JSON (the workflow's "
-            f"machines-json); it did not parse: {err}"
-        )
+        parser.error(f"MACHINE must be the machine's config as YAML; it did not parse: {err}")
     if not isinstance(args.machine, dict):
-        parser.error(f"MACHINE must be a JSON object, got {type(args.machine).__name__}")
+        parser.error(f"MACHINE must be a YAML mapping, got {type(args.machine).__name__}")
     return build(args)
 
 

@@ -1,14 +1,18 @@
 """
 Carries a JAX-built machine into a port artifact: a
-``DiffBasedAnomalyDetector`` around a Transformer, LSTM or GRU estimator
-or around the default pipeline (``Pipeline(MinMaxScaler, AutoEncoder)``),
-or a bare estimator.
+``DiffBasedAnomalyDetector`` around a Transformer, TCN, LSTM or GRU
+estimator or around a pipeline (``InfImputer``, ``FunctionTransformer``
+and ``MinMaxScaler`` steps before an ``AutoEncoder`` or a
+``RawModelRegressor``), or a bare estimator.
 
 Input is what a ``gordo_tpu`` artifact holds, as plain data: the Flax
 parameter tree as numpy arrays, the model definition dict, the fitted
-scalers' arrays (the detector's RobustScaler ``center_``/``scale_``, each
-pipeline MinMaxScaler's ``data_min_``, ``data_max_``, ``data_range_``,
-``scale_`` and ``min_``), the thresholds, and the metadata. (Reading those
+arrays of the scalers and steps (the detector's RobustScaler
+``center_``/``scale_``; each pipeline step's arrays as the port's step
+names them in ``state_arrays``: a MinMaxScaler's ``data_min_``,
+``data_max_``, ``data_range_``, ``scale_`` and ``min_``, an InfImputer's
+``posinf_fill_values`` and ``neginf_fill_values``, nothing for a
+FunctionTransformer), the thresholds, and the metadata. (Reading those
 out of a JAX artifact unpickles ``gordo_tpu`` objects and so needs JAX;
 that step belongs to the caller.)
 
@@ -33,7 +37,13 @@ Weight mapping, Flax -> torch:
   ``recurrent_*`` arrays as they are (the port keeps those in Flax's
   (in, out) layout); the stacked schedule's ``input_proj_0`` and
   ``input_kernel_<l>``, ``recurrent_kernel_<l>``, ... go under
-  ``stack.``, the arrays again as they are.
+  ``stack.``, the arrays again as they are;
+- a TCN tree ``{"params": {"TCNBlock_<i>": {"conv0", "conv1",
+  "residual_proj"}, "head"}}`` maps onto ``TCNNet``'s ``blocks.<i>.*``
+  and ``head``; Flax's ``Conv.kernel`` is (k, in, out) and torch's
+  weight (out, in, k);
+- a ``SequentialNet`` tree maps its ``Dense_<k>`` onto ``dense.<k>`` and
+  its ``OptimizedLSTMCell_<k>`` gate Denses onto ``lstm.<k>.gates.*``.
 """
 
 import copy
@@ -135,6 +145,40 @@ def recurrent_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return state
 
 
+def tcn_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A ``TCNNet`` Flax parameter tree -> the port's state dict."""
+    tree = params.get("params", params)
+    state: Dict[str, np.ndarray] = {}
+    for name, leaves in tree.items():
+        if name == "head":
+            state.update(_layer(leaves, "head"))
+        elif name.startswith("TCNBlock_"):
+            block = f"blocks.{int(name.rsplit('_', 1)[1])}"
+            for conv, conv_leaves in leaves.items():
+                kernel = np.asarray(conv_leaves["kernel"], dtype=np.float32)
+                state[f"{block}.{conv}.weight"] = np.ascontiguousarray(kernel.transpose(2, 1, 0))
+                state[f"{block}.{conv}.bias"] = np.asarray(conv_leaves["bias"], dtype=np.float32)
+        else:
+            raise ValueError(f"Unexpected Flax module {name}")
+    return state
+
+
+def sequential_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A ``SequentialNet`` Flax parameter tree -> the port's state dict."""
+    tree = params.get("params", params)
+    state: Dict[str, np.ndarray] = {}
+    for name, leaves in tree.items():
+        index = int(name.rsplit("_", 1)[1])
+        if name.startswith("Dense_"):
+            state.update(_layer(leaves, f"dense.{index}"))
+        elif name.startswith("OptimizedLSTMCell_"):
+            for gate, gate_leaves in leaves.items():
+                state.update(_layer(gate_leaves, f"lstm.{index}.gates.{gate}"))
+        else:
+            raise ValueError(f"Unexpected Flax module {name}")
+    return state
+
+
 def _unwrap(definition) -> tuple:
     """``"a.b.Name"`` or ``{"a.b.Name": kwargs}`` -> (Name, kwargs)."""
     if isinstance(definition, str):
@@ -144,7 +188,9 @@ def _unwrap(definition) -> tuple:
 
 
 _TRANSFORMERS = ("TransformerAutoEncoder", "TransformerForecast")
+_TCNS = ("TCNAutoEncoder", "TCNForecast")
 _FEEDFORWARD = ("AutoEncoder", "KerasAutoEncoder")
+_RAW = ("RawModelRegressor", "KerasRawModelRegressor")
 #: the recurrent estimators by any of their names -> the port's class name
 _RECURRENT = {
     **{name: name for name in ("LSTMAutoEncoder", "LSTMForecast", "GRUAutoEncoder",
@@ -163,6 +209,13 @@ def _port_estimator(name: str, kwargs: dict, state: Mapping[str, np.ndarray]) ->
     kwargs = copy.deepcopy(kwargs)
     if name in _TRANSFORMERS:
         first, last = state["embed.weight"], state["head.weight"]
+    elif name in _TCNS:
+        first, last = state["blocks.0.conv0.weight"], state["head.weight"]
+    elif name in _RAW:
+        name = "RawModelRegressor"
+        denses = sorted(int(key.split(".")[1]) for key in state if key.startswith("dense."))
+        first = state.get("dense.0.weight", state.get("lstm.0.gates.ii.weight"))
+        last = state[f"dense.{denses[-1]}.weight"]
     elif name in _FEEDFORWARD:
         name = "AutoEncoder"
         n_layers = len({key.split(".")[1] for key in state})
@@ -185,7 +238,8 @@ def port_definition(definition, state: Mapping[str, np.ndarray]) -> Dict[str, An
     scaler's definition (the port carries the fitted scaler as arrays);
     a pipeline keeps its steps and drops scikit-learn's ``memory``,
     ``verbose`` and ``transform_input``; a MinMaxScaler keeps
-    ``feature_range`` and ``clip``.
+    ``feature_range`` and ``clip``, an InfImputer its four arguments and
+    a FunctionTransformer its functions and their keyword arguments.
     """
     name, kwargs = _unwrap(definition)
     if name == "DiffBasedAnomalyDetector":
@@ -203,42 +257,70 @@ def port_definition(definition, state: Mapping[str, np.ndarray]) -> Dict[str, An
                 "steps": [port_definition(step, state) for step in steps]
             }
         }
-    if name == "MinMaxScaler":
-        return {
-            "gordo_tpu_torch.models.MinMaxScaler": {
-                key: kwargs[key] for key in ("feature_range", "clip") if key in kwargs
-            }
-        }
+    if name in _STEPS:
+        path, keys = _STEPS[name]
+        return {path: {key: kwargs[key] for key in keys if key in kwargs}}
     return _port_estimator(name, kwargs, state)
 
 
-def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """A Flax tree of any ported family -> the port's state dict."""
-    tree = params.get("params", params)
-    if all(name.startswith("Dense_") for name in tree):
-        return feedforward_state_dict(params)
-    if "embed" in tree:
+# pipeline steps before the estimator: the port's path and the arguments kept
+_STEPS = {
+    "MinMaxScaler": ("gordo_tpu_torch.models.MinMaxScaler", ("feature_range", "clip")),
+    "InfImputer": (
+        "gordo_tpu_torch.models.transformers.InfImputer",
+        ("inf_fill_value", "neg_inf_fill_value", "strategy", "delta"),
+    ),
+    "FunctionTransformer": (
+        "gordo_tpu_torch.models.FunctionTransformer",
+        ("func", "inverse_func", "kw_args", "inv_kw_args"),
+    ),
+}
+
+
+def _estimator_name(definition) -> str:
+    """The class name of the estimator inside a definition."""
+    name, kwargs = _unwrap(definition)
+    if name == "DiffBasedAnomalyDetector":
+        return _estimator_name(kwargs["base_estimator"])
+    if name == "Pipeline":
+        last = kwargs["steps"][-1]
+        return _estimator_name(last[1] if isinstance(last, (list, tuple)) else last)
+    return name
+
+
+def state_dict_from_flax(params: Mapping[str, Any], estimator: str) -> Dict[str, np.ndarray]:
+    """The Flax tree of an ``estimator`` (its class name) -> the port's
+    state dict."""
+    if estimator in _TRANSFORMERS:
         return transformer_state_dict(params)
-    return recurrent_state_dict(params)
+    if estimator in _TCNS:
+        return tcn_state_dict(params)
+    if estimator in _RAW:
+        return sequential_state_dict(params)
+    if estimator in _FEEDFORWARD:
+        return feedforward_state_dict(params)
+    if estimator in _RECURRENT:
+        return recurrent_state_dict(params)
+    raise ValueError(f"No weight mapping for a {estimator}")
 
 
-def _model_arrays(model, state, pipeline_scalers: Sequence[Mapping[str, Any]]) -> dict:
+def _model_arrays(model, state, pipeline_steps: Sequence[Mapping[str, Any]]) -> dict:
     """The arrays ``model.load_state_arrays`` takes, by the model's
     structure: the net's state dict under the estimator's prefix, each
-    pipeline scaler's arrays under its step's."""
+    pipeline step's arrays under its step's."""
     if isinstance(model, DiffBasedAnomalyDetector):
-        inner = _model_arrays(model.base_estimator, state, pipeline_scalers)
+        inner = _model_arrays(model.base_estimator, state, pipeline_steps)
         return {f"base_estimator.{k}": v for k, v in inner.items()}
     if isinstance(model, Pipeline):
-        if len(pipeline_scalers) != len(model.steps) - 1:
+        if len(pipeline_steps) != len(model.steps) - 1:
             raise ValueError(
-                f"{len(pipeline_scalers)} scalers given for a pipeline of "
+                f"{len(pipeline_steps)} steps' arrays given for a pipeline of "
                 f"{len(model.steps)} steps"
             )
         arrays = {
             f"steps.{i}.{k}": np.asarray(v)
-            for i, scaler in enumerate(pipeline_scalers)
-            for k, v in scaler.items()
+            for i, step in enumerate(pipeline_steps)
+            for k, v in step.items()
         }
         arrays.update({f"steps.{len(model.steps) - 1}.{k}": v for k, v in state.items()})
         return arrays
@@ -251,7 +333,7 @@ def model_from_flax(
     scaler_center: Optional[np.ndarray] = None,
     scaler_scale: Optional[np.ndarray] = None,
     thresholds: Optional[Mapping[str, Optional[Any]]] = None,
-    pipeline_scalers: Sequence[Mapping[str, Any]] = (),
+    pipeline_steps: Sequence[Mapping[str, Any]] = (),
     device: DeviceLike = None,
 ):
     """
@@ -259,12 +341,13 @@ def model_from_flax(
     scaler's ``center_``/``scale_``; ``thresholds`` maps the detector's
     threshold attribute names (``aggregate_threshold_``,
     ``feature_thresholds_`` and the smoothed pair) to values, absent or
-    None ones staying unset. ``pipeline_scalers`` holds each MinMaxScaler
-    step's fitted arrays, in step order.
+    None ones staying unset. ``pipeline_steps`` holds each step's fitted
+    arrays before the estimator, in step order (the module docstring
+    names them).
     """
-    state = state_dict_from_flax(params)
+    state = state_dict_from_flax(params, _estimator_name(definition))
     model = serializer.from_definition(port_definition(definition, state))
-    arrays = _model_arrays(model, state, pipeline_scalers)
+    arrays = _model_arrays(model, state, pipeline_steps)
     if isinstance(model, DiffBasedAnomalyDetector):
         arrays["scaler.center_"] = np.asarray(scaler_center)
         arrays["scaler.scale_"] = np.asarray(scaler_scale)
@@ -282,12 +365,12 @@ def write_artifact(
     scaler_scale: Optional[np.ndarray] = None,
     thresholds: Optional[Mapping[str, Optional[Any]]] = None,
     metadata: Optional[Dict[str, Any]] = None,
-    pipeline_scalers: Sequence[Mapping[str, Any]] = (),
+    pipeline_steps: Sequence[Mapping[str, Any]] = (),
 ) -> Path:
     """:func:`model_from_flax`, written as a port artifact at
     ``dest_dir`` (assembled on the CPU: only arrays are written)."""
     model = model_from_flax(
         params, definition, scaler_center, scaler_scale, thresholds,
-        pipeline_scalers, device="cpu",
+        pipeline_steps, device="cpu",
     )
     return serializer.dump(model, dest_dir, metadata or {})

@@ -149,10 +149,29 @@ def _gap_fill_steps(interpolation_limit: Optional[str], resolution_ns: int) -> O
 
 class GordoBaseDataset(abc.ABC):
     _metadata: Dict[Any, Any]
+    #: the constructor's arguments (``capture_args``)
+    _params: Dict[str, Any]
 
     @abc.abstractmethod
     def get_data(self):
         """(X, y, index) given the current state."""
+
+    def to_dict(self) -> dict:
+        """Every constructor argument, defaults included, and ``type``;
+        an argument with a ``to_dict`` (the provider) as its dict. As the
+        JAX dataset's ``to_dict``, so :meth:`from_dict` builds it again."""
+        params = dict(self._params)
+        params["type"] = type(self).__name__
+        for key, value in params.items():
+            if hasattr(value, "to_dict"):
+                params[key] = value.to_dict()
+        return params
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]) -> "GordoBaseDataset":
+        from gordo_tpu_torch.data import _get_dataset
+
+        return _get_dataset(config)
 
     @abc.abstractmethod
     def get_metadata(self) -> dict:

@@ -26,7 +26,9 @@ from gordo_tpu_torch.data.providers import (
     RandomDataProvider,
 )
 from gordo_tpu_torch.data.sensor_tag import SensorTag, TagSpec, normalize_sensor_tags
+from gordo_tpu_torch.machine.validators import ValidDatetime
 from gordo_tpu_torch.models.utils import Frame
+from gordo_tpu_torch.utils.utils import capture_args
 
 
 class InsufficientDataAfterRowFilteringError(InsufficientDataError):
@@ -79,7 +81,11 @@ def _describe(column: np.ndarray) -> Dict[str, float]:
 
 
 class TimeSeriesDataset(GordoBaseDataset):
+    train_start_date = ValidDatetime()
+    train_end_date = ValidDatetime()
+
     @compat
+    @capture_args
     def __init__(
         self,
         train_start_date: Union[datetime, str],
@@ -132,6 +138,13 @@ class TimeSeriesDataset(GordoBaseDataset):
         self.high_threshold = high_threshold
         self.interpolation_method = interpolation_method
         self.interpolation_limit = interpolation_limit
+
+    def to_dict(self) -> dict:
+        params = super().to_dict()
+        for key in ("train_start_date", "train_end_date"):
+            value = params.get(key)
+            params[key] = value.isoformat() if hasattr(value, "isoformat") else str(value)
+        return params
 
     def _fetch_joined(self) -> Frame:
         """Every needed tag, on one common grid."""
@@ -215,6 +228,7 @@ class RandomDataset(TimeSeriesDataset):
     """A TimeSeriesDataset that always reads from the random provider."""
 
     @compat
+    @capture_args
     def __init__(self, train_start_date, train_end_date, tag_list: list, **kwargs):
         kwargs.pop("data_provider", None)
         super().__init__(

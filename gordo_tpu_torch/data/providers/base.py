@@ -23,6 +23,10 @@ NOT_PORTED = (
 
 
 class GordoBaseDataProvider(abc.ABC):
+    #: the JAX package's module of the provider class (``to_dict``)
+    WIRE_MODULE: str
+    _params: dict
+
     @abc.abstractmethod
     def load_series(
         self,
@@ -36,6 +40,14 @@ class GordoBaseDataProvider(abc.ABC):
     @abc.abstractmethod
     def can_handle_tag(self, tag: SensorTag) -> bool:
         """Whether this provider can serve data for ``tag``."""
+
+    def to_dict(self) -> dict:
+        """The constructor arguments (``capture_args``) and ``type``, the
+        JAX package's class path: the machine dicts of both packages
+        carry that name, and :meth:`from_dict` reads it by its last part."""
+        params = dict(self._params)
+        params["type"] = f"gordo_tpu.data.providers.{self.WIRE_MODULE}.{type(self).__name__}"
+        return params
 
     @classmethod
     def from_dict(cls, config: dict) -> "GordoBaseDataProvider":

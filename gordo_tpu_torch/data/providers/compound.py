@@ -32,6 +32,8 @@ class DataLakeProvider(RandomDataProvider):
     """The legacy lake provider name; ``storename``, ``interactive`` and
     the other reference kwargs are accepted and ignored."""
 
+    WIRE_MODULE = "compound"
+
     def __init__(self, base_dir: Optional[str] = None, threads: int = 10, **kwargs):
         base_dir = base_dir or os.environ.get(LAKE_DIR_ENV_VAR)
         if base_dir:
@@ -46,3 +48,5 @@ class DataLakeProvider(RandomDataProvider):
             LAKE_DIR_ENV_VAR,
         )
         super().__init__()
+        # the arguments as given, for to_dict
+        self._params = {"base_dir": base_dir, "threads": threads, **kwargs}

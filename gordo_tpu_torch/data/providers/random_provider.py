@@ -18,6 +18,7 @@ import numpy as np
 from gordo_tpu_torch.data.base import TagSeries, to_ns
 from gordo_tpu_torch.data.providers.base import GordoBaseDataProvider
 from gordo_tpu_torch.data.sensor_tag import SensorTag
+from gordo_tpu_torch.utils.utils import capture_args
 
 _NS_PER_S = 1_000_000_000
 
@@ -25,6 +26,9 @@ _NS_PER_S = 1_000_000_000
 class RandomDataProvider(GordoBaseDataProvider):
     """Random series for any tag; the same inputs give the same outputs."""
 
+    WIRE_MODULE = "random_provider"
+
+    @capture_args
     def __init__(self, min_size: int = 100, max_size: int = 300, seed: int = 0, **kwargs):
         self.min_size = min_size
         self.max_size = max_size

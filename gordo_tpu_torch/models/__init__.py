@@ -1,6 +1,7 @@
 """
 Model layer: torch modules behind the JAX package's estimator API, and
-the Pipeline and MinMaxScaler that take scikit-learn's place.
+the Pipeline, MinMaxScaler and FunctionTransformer that take
+scikit-learn's place.
 """
 
 from .core import BaseTorchEstimator
@@ -12,13 +13,17 @@ from .models import (
     KerasLSTMAutoEncoder,
     KerasLSTMBaseEstimator,
     KerasLSTMForecast,
+    KerasRawModelRegressor,
     LSTMAutoEncoder,
     LSTMForecast,
+    RawModelRegressor,
+    TCNAutoEncoder,
+    TCNForecast,
     TransformerAutoEncoder,
     TransformerForecast,
     WindowedEstimator,
 )
-from .pipeline import MinMaxScaler, Pipeline
+from .pipeline import FunctionTransformer, MinMaxScaler, Pipeline
 from .register import register_model_builder
 from .specs import ModelSpec
 
@@ -26,10 +31,15 @@ __all__ = [
     "BaseTorchEstimator",
     "AutoEncoder",
     "MinMaxScaler",
+    "FunctionTransformer",
     "Pipeline",
     "WindowedEstimator",
     "TransformerAutoEncoder",
     "TransformerForecast",
+    "TCNAutoEncoder",
+    "TCNForecast",
+    "RawModelRegressor",
+    "KerasRawModelRegressor",
     "LSTMAutoEncoder",
     "LSTMForecast",
     "GRUAutoEncoder",

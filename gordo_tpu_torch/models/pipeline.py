@@ -1,22 +1,24 @@
 """
-The scikit-learn pieces of the default pipeline, as port code (the card's
+The scikit-learn pieces of the pipelines, as port code (the card's
 machine has no scikit-learn): :class:`Pipeline`, which chains
-transformers before a final estimator, and :class:`MinMaxScaler`.
+transformers before a final estimator, :class:`MinMaxScaler` and
+:class:`FunctionTransformer`.
 
 They are what ``gordo_tpu.serializer.from_definition`` builds from a
-config's ``sklearn.pipeline.Pipeline`` and ``sklearn.preprocessing.
-MinMaxScaler``. The scaler computes in numpy on the host, in float64 for
+config's ``sklearn.pipeline.Pipeline``, ``sklearn.preprocessing.
+MinMaxScaler`` and ``sklearn.preprocessing.FunctionTransformer``. The scaler computes in numpy on the host, in float64 for
 float64 input as scikit-learn does; the estimator after it runs on the
 device it is fitted on. Fitted state is plain arrays (``state_arrays``),
 so an artifact holds no pickle.
 """
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from gordo_tpu_torch.device import DeviceLike
 from gordo_tpu_torch.models.core import as_2d
+from gordo_tpu_torch.models.transformer_funcs import resolve_function
 
 _SCALER_ATTRS = ("data_min_", "data_max_", "data_range_", "scale_", "min_")
 
@@ -90,6 +92,75 @@ class MinMaxScaler:
 
     def __repr__(self):
         return f"MinMaxScaler(feature_range={self.feature_range}, clip={self.clip})"
+
+
+class FunctionTransformer:
+    """
+    ``sklearn.preprocessing.FunctionTransformer`` with ``validate`` off:
+    ``transform(X)`` is ``func(X, **kw_args)`` (the identity without a
+    ``func``). ``func`` and ``inverse_func`` are paths, resolved only
+    against the functions the port has
+    (:data:`~gordo_tpu_torch.models.transformer_funcs.FUNCTIONS`); any
+    other path raises ``ValueError``. ``inverse_func`` and the other
+    scikit-learn arguments are kept for the definition only: nothing in
+    a build or a request inverts a step. It fits nothing, so it has no
+    state arrays.
+    """
+
+    def __init__(
+        self,
+        func: Optional[str] = None,
+        inverse_func: Optional[str] = None,
+        validate: bool = False,
+        accept_sparse: bool = False,
+        check_inverse: bool = True,
+        feature_names_out=None,
+        kw_args: Optional[dict] = None,
+        inv_kw_args: Optional[dict] = None,
+    ):
+        if validate:
+            raise NotImplementedError("FunctionTransformer(validate=True) is not ported")
+        self.func, self.inverse_func = func, inverse_func
+        self.kw_args, self.inv_kw_args = kw_args, inv_kw_args
+        self._func = resolve_function(func) if func is not None else None
+        if inverse_func is not None:
+            resolve_function(inverse_func)  # the same refusal of unported paths
+
+    def clone(self) -> "FunctionTransformer":
+        return FunctionTransformer(
+            self.func, self.inverse_func, kw_args=self.kw_args, inv_kw_args=self.inv_kw_args
+        )
+
+    def fit(self, X, y=None) -> "FunctionTransformer":
+        return self
+
+    def transform(self, X):
+        X = getattr(X, "values", X)
+        return X if self._func is None else self._func(X, **(self.kw_args or {}))
+
+    def fit_transform(self, X, y=None):
+        return self.fit(X, y).transform(X)
+
+    def into_definition(self) -> dict:
+        return {
+            f"{type(self).__module__}.{type(self).__name__}": {
+                "func": self.func,
+                "inverse_func": self.inverse_func,
+                "kw_args": self.kw_args,
+                "inv_kw_args": self.inv_kw_args,
+            }
+        }
+
+    def state_arrays(self) -> Dict[str, np.ndarray]:
+        return {}
+
+    def load_state_arrays(
+        self, arrays: Dict[str, np.ndarray], device: DeviceLike = None
+    ) -> "FunctionTransformer":
+        return self
+
+    def __repr__(self):
+        return f"FunctionTransformer(func={self.func!r}, kw_args={self.kw_args!r})"
 
 
 class Pipeline:

@@ -213,9 +213,10 @@ def flax_raw_init_(module: nn.Module, generator: torch.Generator) -> None:
 
 def flax_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """
-    Flax's default initialisation for every Linear and LayerNorm in
-    ``module``, in place: Linear weights ``lecun_normal`` (``orthogonal()``
-    for a :class:`Dense` made with ``kernel_init="orthogonal"``), biases
+    Flax's default initialisation for every Linear, Conv1d and LayerNorm
+    in ``module``, in place: Linear weights ``lecun_normal`` (``orthogonal()``
+    for a :class:`Dense` made with ``kernel_init="orthogonal"``), Conv1d
+    weights ``lecun_normal`` over a fan-in of in x kernel size, biases
     0; LayerNorm scale 1 and bias 0; the parameters a recurrent layer
     holds itself as :func:`flax_raw_init_` says. Modules are visited in
     registration order, so a seed gives one set of weights.
@@ -228,12 +229,34 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Modu
                 lecun_normal_(sub.weight, generator)
             if sub.bias is not None:
                 nn.init.zeros_(sub.bias)
+        elif isinstance(sub, nn.Conv1d):
+            # Flax's fan_in of a kernel (k, in, out) is k * in
+            lecun_normal_(sub.weight.view(sub.weight.shape[0], -1), generator)
+            nn.init.zeros_(sub.bias)
         elif isinstance(sub, nn.LayerNorm):
             nn.init.ones_(sub.weight)
             nn.init.zeros_(sub.bias)
         elif isinstance(sub, _RAW_PARAM_LAYERS):
             flax_raw_init_(sub, generator)
     return module
+
+
+def dropout(
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """
+    Flax's ``nn.Dropout``: in training, keep each element with probability
+    ``1 - rate`` and scale it by ``1 / (1 - rate)``; the identity
+    otherwise. The mask comes from ``generator`` (on x's device).
+    """
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs an explicit torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @dataclasses.dataclass
@@ -677,3 +700,75 @@ class LSTMNet(nn.Module):
             h = x[-1]
         out = self.out_func(self.head(h)).float()
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
+
+
+#: SequentialNet's layer kinds
+SEQUENTIAL_KINDS = ("dense", "lstm", "dropout", "activation", "flatten")
+
+
+class SequentialNet(nn.Module):
+    """
+    A layer stack from a raw layer list (the port of the JAX
+    ``SequentialNet``, behind ``RawModelRegressor``): each entry is
+    ``(kind, ((name, value), ...))`` with kind ``"dense"`` (``units``,
+    ``activation``), ``"lstm"`` (``units``, ``activation``,
+    ``return_sequences``: Flax's ``OptimizedLSTMCell`` over the time
+    axis, the last step unless ``return_sequences``), ``"dropout"``
+    (``rate``), ``"activation"`` or ``"flatten"``. The k-th Dense is
+    ``dense.<k>`` (Flax's ``Dense_<k>``) and the k-th LSTM ``lstm.<k>``
+    (``OptimizedLSTMCell_<k>``).
+
+    Torch needs the widths up front where Flax infers them: the input is
+    (batch, n_features), or (batch, n_steps, n_features) when ``n_steps``
+    is given (an ``lstm`` layer needs that). Returns (output as float32,
+    penalty 0).
+    """
+
+    def __init__(self, n_features: int, layers, n_steps: Optional[int] = None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dense = nn.ModuleList()
+        self.lstm = nn.ModuleList()
+        self.plan = []  # (kind, module or None, kwargs)
+        steps, width = n_steps, n_features
+        for kind, frozen in layers:
+            kwargs = dict(frozen)
+            module = None
+            if kind == "dense":
+                module = Dense(width, int(kwargs["units"]), dtype)
+                self.dense.append(module)
+                width = int(kwargs["units"])
+            elif kind == "lstm":
+                if steps is None:
+                    raise ValueError("an lstm layer needs (batch, time, features) input")
+                module = OptimizedLSTMCell(
+                    width, int(kwargs["units"]), kwargs.get("activation", "tanh"), dtype
+                )
+                self.lstm.append(module)
+                width = int(kwargs["units"])
+                if not kwargs.get("return_sequences", False):
+                    steps = None
+            elif kind == "flatten":
+                width, steps = width * (steps or 1), None
+            elif kind not in SEQUENTIAL_KINDS:
+                raise ValueError(f"Unknown raw layer type {kind!r}")
+            self.plan.append((kind, module, kwargs))
+        self.out_features = width
+
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        for kind, module, kwargs in self.plan:
+            if kind == "dense":
+                x = resolve_activation(kwargs.get("activation", "linear"))(module(x))
+            elif kind == "lstm":
+                x = module(x.transpose(0, 1)).transpose(0, 1)
+                if not kwargs.get("return_sequences", False):
+                    x = x[:, -1, :]
+            elif kind == "dropout":
+                x = dropout(x, float(kwargs.get("rate", 0.5)), self.training, generator)
+            elif kind == "activation":
+                x = resolve_activation(kwargs.get("activation", "linear"))(x)
+            else:  # flatten
+                x = x.reshape(x.shape[0], -1)
+        return x.float(), torch.zeros((), dtype=torch.float32, device=x.device)

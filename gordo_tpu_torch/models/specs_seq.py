@@ -1,6 +1,6 @@
 """
-Transformer encoder for timeseries anomaly models (the port of
-``gordo_tpu.models.specs_seq``'s Transformer half).
+Transformer encoder and temporal convolutional network for timeseries
+anomaly models (the port of ``gordo_tpu.models.specs_seq``).
 
 Parameters live in float32; ``dtype`` is the compute type of the Linear
 layers (as Flax's ``Dense(dtype=...)``), while LayerNorm and the softmax
@@ -15,17 +15,23 @@ embedding) and acts only in training mode (``module.train()``), with
 masks drawn from the ``generator`` handed to ``forward``: torch's own
 ``F.dropout`` reads the global RNG, which a seeded fit must not.
 
-Not ported yet: sequence sharding (``seq_axis``), rematerialisation and
-the TCN family.
+The TCN (:class:`TCNNet`) is a stack of dilated causal convolution
+blocks: each convolution is ``F.conv1d`` with ``dilation=d`` after a
+left pad of ``(k-1)·d`` steps, as the JAX net's ``nn.Conv`` (``VALID``)
+after its ``jnp.pad``; the library convolution stands where the JAX
+package runs XLA's, outside any Pallas kernel.
+
+Not ported yet: sequence sharding (``seq_axis``) and rematerialisation.
 """
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from gordo_tpu_torch.models.specs import Dense
+from gordo_tpu_torch.models.specs import Dense, dropout
 from gordo_tpu_torch.ops.activations import resolve_activation
 from gordo_tpu_torch.ops.flash_attention import flash_attention
 
@@ -66,24 +72,6 @@ def dense_attention(
         scores = scores.masked_fill(~keep, torch.finfo(torch.float32).min)
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
-
-
-def dropout(
-    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]
-) -> torch.Tensor:
-    """
-    Flax's ``nn.Dropout``: in training, keep each element with probability
-    ``1 - rate`` and scale it by ``1 / (1 - rate)``; the identity
-    otherwise. The mask comes from ``generator`` (on x's device).
-    """
-    if not training or rate == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout in training mode needs an explicit torch.Generator")
-    if rate >= 1.0:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -214,3 +202,104 @@ class TransformerNet(nn.Module):
             h = block(h, generator)
         h = self.norm(h)[:, -1, :]
         return self.out_func(self.head(h)).float()
+
+
+class Conv(nn.Conv1d):
+    """Flax's ``nn.Conv`` over one axis, computing in ``dtype`` over
+    float32 parameters: input and weight cast to ``dtype``, the product
+    rounded to it, then the bias added in it. Channels first, (batch,
+    channels, time); no padding of its own (Flax's ``VALID``)."""
+
+    def __init__(self, n_in: int, n_out: int, kernel_size: int, dilation: int = 1,
+                 dtype=torch.float32):
+        super().__init__(n_in, n_out, kernel_size, dilation=dilation)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        out = F.conv1d(x.to(dt), self.weight.to(dt), dilation=self.dilation)
+        return out + self.bias.to(dt)[:, None]
+
+
+def _over_channels(func, h: torch.Tensor) -> torch.Tensor:
+    """An activation over a channels-first tensor, applied along its
+    channel axis (the last axis of the JAX net's layout)."""
+    return func(h.transpose(1, 2)).transpose(1, 2)
+
+
+class TCNBlock(nn.Module):
+    """
+    A dilated causal convolution block: twice (left pad, ``Conv``,
+    activation, dropout), plus a 1x1 ``residual_proj`` on the residual
+    where the channel counts differ; returns ``act(x + residual)``.
+    Channels first, (batch, channels, time).
+    """
+
+    def __init__(self, n_in: int, channels: int, kernel_size: int, dilation: int,
+                 dropout: float = 0.0, func: str = "relu", dtype=torch.float32):
+        super().__init__()
+        self.pad = (kernel_size - 1) * dilation
+        self.dropout = dropout
+        self.func = resolve_activation(func)
+        self.conv0 = Conv(n_in, channels, kernel_size, dilation, dtype)
+        self.conv1 = Conv(channels, channels, kernel_size, dilation, dtype)
+        if n_in != channels:
+            self.residual_proj = Conv(n_in, channels, 1, 1, dtype)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        residual = x
+        for conv in (self.conv0, self.conv1):
+            h = _over_channels(self.func, conv(F.pad(x, (self.pad, 0))))
+            x = dropout(h, self.dropout, self.training, generator)
+        if hasattr(self, "residual_proj"):
+            residual = self.residual_proj(residual)
+        return _over_channels(self.func, x + residual)
+
+
+class TCNNet(nn.Module):
+    """
+    Temporal convolutional network: :class:`TCNBlock` s with the given
+    channels and dilations, then a Dense ``head`` on the last timestep.
+    Input (batch, time, features); returns (output (batch, out_dim) as
+    float32, penalty 0). ``generator`` draws the dropout masks in
+    training mode.
+    """
+
+    def __init__(
+        self,
+        n_features: int,
+        channels: Tuple[int, ...],
+        kernel_size: int,
+        dilations: Tuple[int, ...],
+        out_dim: int,
+        dropout: float = 0.0,
+        func: str = "relu",
+        out_func: str = "linear",
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        widths = (n_features, *channels)
+        self.blocks = nn.ModuleList(
+            TCNBlock(n_in, ch, kernel_size, dil, dropout, func, dtype)
+            for n_in, ch, dil in zip(widths[:-1], widths[1:], dilations)
+        )
+        self.head = Dense(widths[-1], out_dim, dtype)
+        self.out_func = resolve_activation(out_func)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        h = x.transpose(1, 2)
+        for block in self.blocks:
+            h = block(h, generator)
+        out = self.out_func(self.head(h[:, :, -1])).float()
+        return out, torch.zeros((), dtype=torch.float32, device=out.device)
+
+
+def default_dilations(n_blocks: int) -> Tuple[int, ...]:
+    """The doubling schedule 1, 2, 4, ... for ``n_blocks`` blocks."""
+    return tuple(2 ** i for i in range(n_blocks))
+
+
+def receptive_field(kernel_size: int, dilations: Tuple[int, ...]) -> int:
+    """Timesteps the last output of a TCN stack sees (two convolutions a
+    block)."""
+    return 1 + 2 * (kernel_size - 1) * sum(dilations)

@@ -44,10 +44,14 @@ from gordo_tpu_torch.models.models import (
     GRUForecast,
     LSTMAutoEncoder,
     LSTMForecast,
+    RawModelRegressor,
+    TCNAutoEncoder,
+    TCNForecast,
     TransformerAutoEncoder,
     TransformerForecast,
 )
-from gordo_tpu_torch.models.pipeline import MinMaxScaler, Pipeline
+from gordo_tpu_torch.models.pipeline import FunctionTransformer, MinMaxScaler, Pipeline
+from gordo_tpu_torch.models.transformers import InfImputer
 
 DEFINITION_FILENAME = "definition.json"
 PARAMS_FILENAME = "params.npz"
@@ -63,21 +67,27 @@ MODEL_CLASSES = {
         DiffBasedAnomalyDetector,
         TransformerAutoEncoder,
         TransformerForecast,
+        TCNAutoEncoder,
+        TCNForecast,
         LSTMAutoEncoder,
         LSTMForecast,
         GRUAutoEncoder,
         GRUForecast,
         AutoEncoder,
+        RawModelRegressor,
         Pipeline,
         MinMaxScaler,
+        InfImputer,
+        FunctionTransformer,
     )
 }
-# the reference's names of the feedforward and LSTM estimators (an alias
-# is the same class, so it needs its own key)
+# the reference's names of the feedforward, LSTM and raw estimators (an
+# alias is the same class, so it needs its own key)
 MODEL_CLASSES.update(
     KerasAutoEncoder=AutoEncoder,
     KerasLSTMAutoEncoder=LSTMAutoEncoder,
     KerasLSTMForecast=LSTMForecast,
+    KerasRawModelRegressor=RawModelRegressor,
 )
 
 PathLike = Union[str, os.PathLike]

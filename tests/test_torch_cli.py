@@ -20,6 +20,7 @@ import numpy as np
 import pandas as pd
 import pytest
 import torch
+import yaml
 from werkzeug.test import Client
 
 import chip_smoke
@@ -62,10 +63,28 @@ def run_build(machine, output_dir, *args, device="cpu"):
 
 
 def test_chip_smoke_machines_are_the_example_configs():
-    machines = example_machines()
-    assert set(chip_smoke.DEFAULT_MACHINES) == {"pump-4130", "compressor-2201"}
-    for name, machine in chip_smoke.DEFAULT_MACHINES.items():
-        assert machine == machines[name], name
+    """chip_smoke.py reads examples/config.yaml through the port's config
+    layer; its machines equal the JAX package's normalized ones, and their
+    YAML text (what phase 6 hands ``build``) reads back to the same dict
+    through both the port's reader and PyYAML."""
+    from gordo_tpu.machine import MachineEncoder as JaxMachineEncoder
+    from gordo_tpu_torch.machine import MachineEncoder
+    from gordo_tpu_torch.workflow.yaml_reader import safe_load
+
+    want = {
+        m.name: json.loads(json.dumps(m.to_dict(), cls=JaxMachineEncoder))
+        for m in NormalizedConfig(
+            get_dict_from_yaml(str(REPO_ROOT / "examples" / "config.yaml")), project_name=PROJECT
+        ).machines
+    }
+    machines = chip_smoke.example_machines(str(REPO_ROOT))
+    assert list(machines) == list(want)
+    assert set(chip_smoke.DEFAULT_ROWS) < set(machines)
+    for name, machine in machines.items():
+        got = json.loads(json.dumps(machine.to_dict(), cls=MachineEncoder))
+        assert got == want[name], name
+        text = chip_smoke.yaml_text(got)
+        assert safe_load(text) == yaml.safe_load(text) == got
     assert chip_smoke.DEFAULT_ROWS == {"pump-4130": 766, "compressor-2201": 10975}
 
 
@@ -129,6 +148,52 @@ def test_cli_builds_a_bare_autoencoder(name, tmp_path):
     assert type(serializer.load(tmp_path / name, device="cpu")).__name__ == "AutoEncoder"
 
 
+def _raw_pump_yaml() -> str:
+    """examples/machines_fleet.yaml's example-pump-0 as YAML text on its
+    own, raw as the file has it (no project globals), with the fit's
+    shuffle off (threefry against Philox)."""
+    text = (REPO_ROOT / "examples" / "machines_fleet.yaml").read_text()
+    entry = text[text.index("- name: example-pump-0") : text.index("- name: example-pump-1")]
+    assert entry.endswith("      batch_size: 16\n")
+    return "  " + entry[2:] + "      shuffle: false\n"
+
+
+def test_cli_builds_a_raw_machine_as_the_jax_build_does(tmp_path, monkeypatch):
+    """A raw machine in MACHINE as YAML text is built as the JAX ``build``
+    builds it (``Machine.from_config(machine, project_name=machine[
+    "project_name"])``): no globals, so the default evaluation and
+    unscaled CV scores equal to the JAX build's (rtol 1e-4, both fits from
+    the JAX init), and the metadata's dataset (all 18 normalized keys)
+    and evaluation equal to JAX's."""
+    from gordo_tpu.machine import MachineEncoder as JaxMachineEncoder
+    from gordo_tpu_torch.cli import cli
+    from gordo_tpu_torch.models import AutoEncoder
+    from tests.test_torch_pipeline import _jax_initial_state
+
+    text = _raw_pump_yaml()
+    raw = yaml.safe_load(text)
+    _, jax_machine = JaxModelBuilder(
+        Machine.from_config(raw, project_name=raw["project_name"])
+    ).build()
+    want = json.loads(json.dumps(jax_machine.to_dict(), cls=JaxMachineEncoder))
+    out = tmp_path / "example-pump-0"
+    monkeypatch.setenv("MACHINE", text)
+    monkeypatch.setenv("OUTPUT_DIR", str(out))
+    monkeypatch.setattr(AutoEncoder, "_initial_state", _jax_initial_state)
+    assert cli.main(["build", "--device", "cpu"]) == 0
+    got = serializer.load_metadata(out)
+    assert got["evaluation"] == want["evaluation"] == {"cv_mode": "full_build"}
+    assert got["dataset"] == want["dataset"] and len(got["dataset"]) == 18
+    scores = got["metadata"]["build_metadata"]["model"]["cross_validation"]["scores"]
+    want_scores = want["metadata"]["build_metadata"]["model"]["cross_validation"]["scores"]
+    assert set(scores) == set(want_scores) and "mean-squared-error" in scores
+    for metric, stats in want_scores.items():
+        for stat, value in stats.items():
+            np.testing.assert_allclose(
+                scores[metric][stat], value, rtol=1e-4, atol=1e-7, err_msg=f"{metric} {stat}"
+            )
+
+
 def _machine_with(**dataset_changes):
     machine = copy.deepcopy(example_machines()["pump-4130"])
     machine["dataset"].update(dataset_changes)
@@ -161,14 +226,48 @@ def test_cli_build_exit_codes(case, code, error, tmp_path):
     assert not (tmp_path / "out").exists()
 
 
+# the conftest gordo-base-model as a raw machine in YAML
+BASE_MODEL_YAML = """
+name: gordo-base-model
+project_name: gordo-test
+dataset:
+  type: RandomDataset
+  tags: [tag-0, tag-1, tag-2, tag-3]   # a comment
+  train_start_date: '2019-01-01T00:00:00+00:00'
+  train_end_date: 2019-01-03T00:00:00+00:00
+  asset: gra
+model:
+  gordo_tpu.models.AutoEncoder:
+    kind: feedforward_hourglass
+    epochs: 1
+"""
+
+
 def test_cli_refuses_a_machine_that_is_not_json(tmp_path):
-    env = dict(os.environ, MACHINE="name: pump-4130\nmodel: {}", OUTPUT_DIR=str(tmp_path))
-    result = subprocess.run(
-        [sys.executable, "-m", "gordo_tpu_torch.cli", "build", "--device", "cpu"],
-        cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=120,
-    )
-    assert result.returncode == 2
-    assert "MACHINE must be the machine's config as JSON" in result.stderr
+    """MACHINE is YAML (JSON is YAML too), as in the JAX command: a
+    machine given as YAML text builds; text that does not parse, or that
+    is not a mapping, is a usage error (exit 2)."""
+
+    def build(machine, out):
+        env = dict(os.environ, MACHINE=machine, OUTPUT_DIR=str(out))
+        env.pop("GORDO_TPU_LAKE_DIR", None)
+        return subprocess.run(
+            [sys.executable, "-m", "gordo_tpu_torch.cli", "build", "--device", "cpu"],
+            cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=120,
+        )
+
+    result = build(BASE_MODEL_YAML, tmp_path / "base")
+    assert result.returncode == 0, result.stderr
+    assert sorted(os.listdir(tmp_path / "base")) == ["definition.json", "metadata.json",
+                                                     "params.npz"]
+    for machine, message in [
+        ("- name: pump-4130\n- model: {}", "MACHINE must be a YAML mapping, got list"),
+        ("name: [pump-4130", "MACHINE must be the machine's config as YAML; it did not parse"),
+    ]:
+        result = build(machine, tmp_path / "refused")
+        assert result.returncode == 2
+        assert message in result.stderr
+    assert not (tmp_path / "refused").exists()
 
 
 def test_exit_code_table_matches_jax():
@@ -408,3 +507,64 @@ def test_cli_builds_and_serves_a_recurrent_machine(name, tmp_path):
     (values,) = confidence.values()
     assert len(values) == 30 - meta["model_offset"]
     assert all(np.isfinite(v) for v in values.values())
+
+
+# -- chip_smoke.py's project build (phase 9) ----------------------------------
+
+
+def test_chip_smoke_project_config_normalizes_as_jax():
+    from gordo_tpu.machine import MachineEncoder as JaxMachineEncoder
+    from gordo_tpu_torch.machine import MachineEncoder
+    from gordo_tpu_torch.workflow.config_elements import NormalizedConfig as PortNormalizedConfig
+    from gordo_tpu_torch.workflow.yaml_reader import safe_load
+
+    text = chip_smoke.PROJECT_CONFIG
+    assert safe_load(text) == yaml.safe_load(text)
+    got = PortNormalizedConfig(safe_load(text), project_name="local-build").machines
+    want = NormalizedConfig(yaml.safe_load(text), project_name="local-build").machines
+    assert [m.name for m in got] == list(chip_smoke.PROJECT_SERVING)
+    for ours, theirs in zip(got, want):
+        assert json.loads(json.dumps(ours.to_dict(), cls=MachineEncoder)) == json.loads(
+            json.dumps(theirs.to_dict(), cls=JaxMachineEncoder)
+        )
+
+
+def test_chip_smoke_project_builds_and_serves_on_the_cpu(tmp_path):
+    """Phase 9 cut for the CPU: the TCN machine at 3 tags, 4 days,
+    lookback 8, batch 64 and channels 8/8/8; the other two as they are.
+    ``local_build`` builds all three in this process, and each artifact
+    answers its routes over the port's app."""
+    from gordo_tpu_torch.builder.local_build import local_build
+    from gordo_tpu_torch.data import _get_dataset
+
+    config = yaml.safe_load(chip_smoke.PROJECT_CONFIG)
+    tcn = config["machines"][0]
+    tcn["dataset"].update(
+        tags=PLANT_TAGS[:3], train_end_date="2019-01-05T00:00:00+00:00",
+        data_provider={"type": "RandomDataProvider", "min_size": 600, "max_size": 600},
+    )
+    (estimator,) = tcn["model"]["gordo_tpu.models.anomaly.DiffBasedAnomalyDetector"][
+        "base_estimator"].values()
+    estimator.update(lookback_window=8, batch_size=64, channels=[8, 8, 8])
+    collection = tmp_path / REVISION
+    built = []
+    for model, machine in local_build(chip_smoke.yaml_text(config), device="cpu"):
+        serializer.dump(model, collection / machine.name, machine.to_dict())
+        built.append(machine.to_dict())
+    assert [m["name"] for m in built] == list(chip_smoke.PROJECT_SERVING)
+    app = build_app(str(collection), device="cpu")
+    for machine in built:
+        name = machine["name"]
+        X, _, stamps = _get_dataset(machine["dataset"]).get_data()
+        keys = pd.to_datetime(stamps, utc=True).map(lambda t: t.isoformat())
+        frame = {tag: dict(zip(keys, X[:, j].tolist()))
+                 for j, tag in enumerate(machine["dataset"]["tag_list"])}
+        body = json.dumps({"X": frame, "y": frame}).encode()
+        for route in chip_smoke.PROJECT_SERVING[name][0]:
+            reply = app.dispatch("POST", f"/gordo/v0/{chip_smoke.PROJECT}/{name}/{route}",
+                                 lambda: body)
+            assert reply.status == 200, (name, route, reply.payload)
+            output = reply.payload["data"]["model-output"]
+            offset = machine["metadata"]["build_metadata"]["model"]["model_offset"]
+            assert list(output) == machine["dataset"]["target_tag_list"]
+            assert all(len(column) == len(X) - offset for column in output.values())

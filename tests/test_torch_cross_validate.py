@@ -298,7 +298,7 @@ def built(tmp_path_factory):
 
 def test_builder_metadata_has_the_jax_keys(built):
     X, index, _, model, machine = built
-    build_metadata = machine["metadata"]["build_metadata"]
+    build_metadata = machine.to_dict()["metadata"]["build_metadata"]
     assert set(build_metadata["model"]) == set(ModelBuildMetadata().to_dict())
     cv = build_metadata["model"]["cross_validation"]
     assert set(cv) == set(CrossValidationMetaData().to_dict())
@@ -313,7 +313,9 @@ def test_builder_metadata_has_the_jax_keys(built):
     meta = build_metadata["model"]["model_meta"]
     assert meta["cv-fast-path"] is False
     assert len(meta["aggregate-thresholds-per-fold"]) == 3
-    assert set(machine) >= {"name", "project_name", "dataset", "model", "evaluation", "metadata", "runtime"}
+    assert set(machine.to_dict()) == {
+        "name", "project_name", "dataset", "model", "evaluation", "metadata", "runtime"
+    }
 
 
 def test_built_artifact_is_served_with_confidences(built):
@@ -439,7 +441,7 @@ def bare_builds(request):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(AutoEncoder, "_initial_state", _feedforward_initial_state)
         _, port_machine = ModelBuilder(machine).build(device="cpu")
-    return (port_machine["metadata"]["build_metadata"],
+    return (port_machine.to_dict()["metadata"]["build_metadata"],
             jax_machine.to_dict()["metadata"]["build_metadata"])
 
 
@@ -470,5 +472,5 @@ def test_model_without_predict_gets_empty_cv_metadata():
     )._run_cross_validation(SkMinMaxScaler(), frame, frame).to_dict()
     got = ModelBuilder(machine)._run_cross_validation(
         MinMaxScaler(), X, X, list(range(len(X))), "cpu"
-    )
+    ).to_dict()
     assert got == want == {"scores": {}, "cv_duration_sec": None, "splits": {}}

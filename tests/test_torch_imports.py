@@ -51,5 +51,9 @@ def test_port_imports_no_jax_and_no_missing_libraries():
         "gordo_tpu_torch.cli.cli",
         "gordo_tpu_torch.data.datasets",
         "gordo_tpu_torch.models.pipeline",
+        "gordo_tpu_torch.workflow.yaml_reader",
+        "gordo_tpu_torch.workflow.config_elements.normalized_config",
+        "gordo_tpu_torch.machine.machine",
+        "gordo_tpu_torch.builder.local_build",
     } <= set(names)
     assert loaded == []

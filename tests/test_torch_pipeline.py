@@ -173,7 +173,7 @@ def jax_parts(detector):
         scaler_center=detector.scaler.center_,
         scaler_scale=detector.scaler.scale_,
         thresholds={k: None if v is None else np.asarray(v) for k, v in thresholds.items()},
-        pipeline_scalers=[{attr: getattr(scaler, attr) for attr in SCALER_ATTRS}],
+        pipeline_steps=[{attr: getattr(scaler, attr) for attr in SCALER_ATTRS}],
     )
 
 
