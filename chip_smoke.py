@@ -43,11 +43,12 @@ Phases, each raising on failure (no result line is printed then):
    card from its dataset span (2019-01-01 to 2019-06-01 at 10 minutes,
    21 744 rows of seeded daily sinusoids plus noise) with the evaluation
    defaults (TimeSeriesSplit(3) cross-validation with the four metrics,
-   thresholds, then the fit), 5 epochs where the config has 10 (the
-   build's eager steps are host-bound, and on a slow host 10 epochs took
-   265 s, over the phase's 3-minute budget); launch counts reset
-   just before and read just after (each backward kernel exactly
-   ``n_layers`` times per optimizer step); the artifact it writes served
+   its three folds trained at once as one fleet fit, thresholds, then the
+   fit), 5 epochs where the config has 10 (the build's eager steps are
+   host-bound, and on a slow host 10 epochs took 265 s, over the phase's
+   3-minute budget); launch counts reset just before and read just after
+   (each backward kernel exactly ``n_layers`` times per optimizer step, a
+   CV step launching once for all three folds); the artifact it writes served
    over HTTP; one full-width training step on the card against the same
    step on the CPU; step time, steps/s, CV and fit seconds (with
    ``--profile``, a ``torch.profiler`` breakdown of 20 training steps);
@@ -98,7 +99,21 @@ Phases, each raising on failure (no result line is printed then):
    1e-5 of the CPU's; build, CV and fit seconds, the TCN's training step,
    its launches and idle share over 3 profiled steps, its receptive
    field; no flash kernel launches on this path;
-10. one JSON line of per-kernel numbers, each time with the timer that
+10. fleet build: ``fleet_machines`` (four machines with the
+   Transformer's model at full width, each on its own tag names over the
+   config's span, 1 epoch where the config has 10; then
+   ``examples/machines_fleet.yaml``'s four feedforward machines as they
+   are) built by ``build-fleet`` in a subprocess on the card, in one
+   process and three buckets, each bucket's CV folds and final fit fleet
+   fits (the flash kernels under the machine axis, folded into their
+   batch); the build report clean; one Transformer machine served on
+   ``/anomaly/prediction`` and one feedforward machine on ``/prediction``
+   with 144 rows, each reply within 1e-4 of the CPU's; the vmapped flash
+   forward and backward against the plain version on a (2, 4, 64, 4, 16)
+   machine batch; 3 fleet steps card against CPU; fleet and solo step
+   times, launches a step and idle share; each bucket's CV and fit
+   seconds and the path's flash launches;
+11. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -323,6 +338,41 @@ PROJECT_SERVING = {
     "imputed-pump": (("prediction", "anomaly/prediction"), 1e-5),
 }
 PROJECT_COLLECTION = "1700000000004"
+
+# Phase 10's fleet, one YAML list built by `build-fleet` in one process:
+# FLEET_TRANSFORMERS machines with turbine-9900-transformer's model from
+# examples/config.yaml (the detector over TransformerAutoEncoder, 3 tags,
+# lookback 64, d_model 64, 4 heads of 16, 2 layers, causal, float32, with
+# attention_impl flash as phases 4-5 patch it), each on its own tag names
+# over the config's span (2019-01-01 to 2019-06-01 at 10 minutes: from a
+# random provider of 21 744 samples a tag the data layer gives 21 744 rows,
+# or 21 745 when a sample falls in the span's last bucket), FLEET_EPOCHS epoch where the config has 10 (a fleet build runs the
+# three CV folds and the final fit, and at the train phase's host speed
+# more epochs would take the phase past its share of the budget); then
+# examples/machines_fleet.yaml's four feedforward machines verbatim (two
+# buckets, no cut).
+FLEET_COLLECTION = "1700000000005"
+FLEET_TRANSFORMERS = 4
+FLEET_EPOCHS = 1
+FLEET_SAMPLES = 21744
+FLEET_ROWS = (21744, 21745)
+# the vmapped flash check: (machines, batch, seq, heads, head_dim)
+FLEET_FLASH_CASE = (2, 4, 64, 4, 16)
+# fleet steps of the Transformer bucket held card against CPU, and timed
+FLEET_PARITY_STEPS = 3
+FLEET_TIMED_STEPS = 20
+# runs `python -m gordo_tpu_torch.cli build-fleet`'s main in a subprocess
+# and writes the flash launches of that process (counted from 0 at its
+# start) to the file named first
+FLEET_DRIVER = (
+    "import json, sys\n"
+    "from gordo_tpu_torch.cli.cli import main\n"
+    "from gordo_tpu_torch.ops import flash_attention as fa\n"
+    "code = main(sys.argv[2:])\n"
+    "with open(sys.argv[1], 'w') as fh:\n"
+    "    json.dump(fa.kernel_launches, fh)\n"
+    "sys.exit(code)\n"
+)
 
 
 def log(*parts) -> None:
@@ -1177,15 +1227,16 @@ def sensor_rows(n_rows: int, seed: int):
 
 
 def optimizer_steps(n_rows: int, lookback: int, epochs: int) -> int:
-    """Optimizer steps of a full build on ``n_rows``: each of the
-    TimeSeriesSplit(3) folds' fits, then the fit on every row, each
-    ``ceil(windows / batch_size)`` steps an epoch."""
+    """Optimizer steps of a full build on ``n_rows``: the TimeSeriesSplit(3)
+    folds as one fleet fit (``ceil(windows of the largest fold /
+    batch_size)`` steps an epoch, each step all three folds at once), then
+    the fit on every row (``ceil(windows / batch_size)`` an epoch)."""
     from gordo_tpu_torch.models.utils import TimeSeriesSplit
     from gordo_tpu_torch.ops.windowing import num_windows
 
-    fits = [len(train) for train, _ in TimeSeriesSplit(n_splits=3).split(range(n_rows))]
-    fits.append(n_rows)
-    return epochs * sum(math.ceil(num_windows(n, lookback, 0) / BATCH_SIZE) for n in fits)
+    largest_fold = max(len(train) for train, _ in TimeSeriesSplit(n_splits=3).split(range(n_rows)))
+    return epochs * sum(math.ceil(num_windows(n, lookback, 0) / BATCH_SIZE)
+                        for n in (largest_fold, n_rows))
 
 
 def train_phase(torch, fa, profile: bool):
@@ -1557,9 +1608,10 @@ def cli_build(root: str, machine: dict, artifact: str):
 def startup_probe(root: str) -> dict:
     """What a fresh build process pays before its steady state, timed in
     a subprocess as the CLI runs: importing torch, the first CUDA
-    operation, importing the port, the first ``torch.optim`` optimizer
-    (its ``add_param_group`` imports ``torch._dynamo`` on first use), and
-    two 1-epoch fits of pump-4130's net on 64 rows (the first pays the
+    operation, importing the port, the port's first optimizer
+    (``gordo_tpu_torch.models.optim``; a ``torch.optim`` one imported
+    ``torch._dynamo`` on first use),
+    and two 1-epoch fits of pump-4130's net on 64 rows (the first pays the
     first launch of every kernel)."""
     code = (
         "import json, time\n"
@@ -1571,7 +1623,8 @@ def startup_probe(root: str) -> dict:
         "import numpy as np\n"
         "from gordo_tpu_torch.models import AutoEncoder\n"
         "t3 = time.perf_counter()\n"
-        "torch.optim.Adam([torch.zeros(1, requires_grad=True)])\n"
+        "from gordo_tpu_torch.models.specs import make_optimizer\n"
+        "make_optimizer('adam', {}, [torch.zeros(1, device='cuda', requires_grad=True)])\n"
         "t4 = time.perf_counter()\n"
         "X = np.random.default_rng(0).random((64, 3))\n"
         "fits = []\n"
@@ -1599,8 +1652,9 @@ def serve_built(torch, collection: str, machine: dict, X, stamps, routes, tolera
                 history_repeats: int = REPEATS):
     """A built artifact served over HTTP on the card: each of ``routes``
     with the machine's first 144 rows (``REPEATS`` times) and with all its
-    rows (``history_repeats`` times); every reply's numbers within
-    ``tolerance`` of the same request to the same artifact on the CPU."""
+    rows (``history_repeats`` times; none when 0); every reply's numbers
+    within ``tolerance`` of the same request to the same artifact on the
+    CPU."""
     import numpy as np
 
     from gordo_tpu_torch import serializer
@@ -1619,7 +1673,7 @@ def serve_built(torch, collection: str, machine: dict, X, stamps, routes, tolera
     offset = metadata["metadata"]["build_metadata"]["model"]["model_offset"]
     rows = []
     with http_server(collection, name) as base:
-        for n_rows in (144, len(X)):
+        for n_rows in ((144, len(X)) if history_repeats else (144,)):
             frame = {tag: dict(zip(keys[:n_rows], X[:n_rows, j].tolist()))
                      for j, tag in enumerate(tags)}
             payload = json.dumps({"X": frame, "y": frame}).encode()
@@ -1934,6 +1988,260 @@ def project_build_phase(torch, fa, profile: bool):
     return report
 
 
+def fleet_machines(root: str) -> list:
+    """Phase 10's YAML list (as Python values): the Transformer bucket,
+    each machine the config's normalized turbine-9900-transformer on its
+    own tag names (machine i: the config's three tag kinds numbered 3i+1
+    to 3i+3) and a random provider, then examples/machines_fleet.yaml as
+    it is."""
+    from gordo_tpu_torch.workflow.yaml_reader import safe_load
+
+    base = dict(BASE_ESTIMATOR, epochs=FLEET_EPOCHS)
+    definition = {"gordo_tpu.models.anomaly.DiffBasedAnomalyDetector": {
+        "base_estimator": {"gordo_tpu.models.TransformerAutoEncoder": base}}}
+    config = example_machines(
+        root, {MACHINE: {"model": definition, "evaluation": {"seed": SEED}}}
+    )[MACHINE].to_dict()
+    machines = []
+    for i in range(FLEET_TRANSFORMERS):
+        tags = [f"{tag.rsplit(' ', 1)[0]} {3 * i + j + 1}" for j, tag in enumerate(TAGS)]
+        dataset = dict(config["dataset"], tag_list=tags, target_tag_list=tags,
+                       data_provider={"type": "RandomDataProvider", "min_size": FLEET_SAMPLES,
+                                      "max_size": FLEET_SAMPLES})
+        machines.append(dict(config, name=f"{MACHINE}-{i}", dataset=dataset))
+    with open(os.path.join(root, "examples", "machines_fleet.yaml")) as fh:
+        machines.extend(safe_load(fh.read()))
+    return machines
+
+
+def fleet_flash_check(torch, fa):
+    """The three kernels under a machine axis on the card: vmapped flash
+    attention forward and backward on a ``FLEET_FLASH_CASE`` machine batch
+    (one launch of each kernel for all machines) against the plain
+    version run machine by machine on the card, within float32's 1e-4."""
+    from torch.func import vmap
+
+    m, b, s, h, d = FLEET_FLASH_CASE
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, d_out = (torch.randn((m, b, s, h, d), generator=gen, device="cuda")
+                      for _ in range(4))
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    fa.reset_launch_counts()
+    out = vmap(lambda x, y, z: fa.flash_attention(x, y, z, causal=True))(q, k, v)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), d_out)
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    scale = 1.0 / math.sqrt(d)
+    errs = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for i in range(m):
+        with torch.no_grad():
+            want, lse = fa.flash_attention_reference(q[i], k[i], v[i], True, scale)
+            grads = fa.flash_attention_backward_reference(q[i], k[i], v[i], want, lse, d_out[i],
+                                                          True, scale)
+        for name, got, ref in zip(errs, (out[i], dq[i], dk[i], dv[i]), (want, *grads)):
+            errs[name] = max(errs[name], (got.detach() - ref).abs().max().item())
+    result = {"shape": list(FLEET_FLASH_CASE), "launches": launches, "max_abs_err": errs}
+    log("vmapped flash", json.dumps(result))
+    if launches != {fa.KERNEL: 1, fa.KERNEL_DQ: 1, fa.KERNEL_DKV: 1}:
+        raise AssertionError(f"vmapped flash: one launch of each kernel expected: {launches}")
+    if not all(err <= TOLERANCE["float32"] for err in errs.values()):
+        raise AssertionError(f"vmapped flash differs from the plain version: {errs}")
+    return result
+
+
+def fleet_step_check(torch, fa, Xs):
+    """``FLEET_PARITY_STEPS`` fleet steps of the Transformer bucket at full
+    width (dropout 0) from the same initial weights on the card and on
+    the CPU: every parameter within 1e-4, the attention key biases aside
+    (their gradient is 0 in exact arithmetic, and Adam turns each
+    device's rounding noise into steps of up to the learning rate; see
+    ``step_parity``); each backward kernel launched once a layer a step."""
+    import numpy as np
+
+    from gordo_tpu_torch.models import TransformerAutoEncoder
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
+
+    base = dict(BASE_ESTIMATOR, dropout=0.0)
+    rows = base["lookback_window"] - 1 + FLEET_PARITY_STEPS * BATCH_SIZE
+    out = {}
+    for device in ("cpu", "cuda"):
+        estimator = TransformerAutoEncoder(**base, n_features=len(TAGS), n_features_out=len(TAGS))
+        spec = estimator._build_spec()
+        trainer = FleetTrainer(spec, device=device, seed=SEED)
+        params = trainer.stack_params([
+            {n: t.clone() for n, t in estimator._initial_state(spec, SEED + i).items()}
+            for i in range(len(Xs))
+        ])
+        data = StackedData.from_ragged([X[:rows] for X in Xs], [X[:rows] for X in Xs],
+                                       device=device)
+        fa.reset_launch_counts()
+        params, losses = trainer.fit(data, params=params, epochs=1, batch_size=BATCH_SIZE)
+        out[device] = ({n: t.detach().cpu() for n, t in params.items()}, losses,
+                       dict(fa.launch_counts), trainer.fit_telemetry_["steps_per_epoch"])
+    (cpu, cpu_loss, _, steps), (card, card_loss, launches, _) = out["cpu"], out["cuda"]
+    err = max((card[n] - cpu[n]).abs().max().item() for n in cpu if not n.endswith("key.bias"))
+    result = {"machines": len(Xs), "steps": steps, "max_param_err": err,
+              "max_loss_err": float(np.abs(card_loss - cpu_loss).max()), "launches": launches}
+    log("fleet steps card vs cpu", json.dumps(result))
+    n_layers = base["n_layers"]
+    if steps != FLEET_PARITY_STEPS or launches[fa.KERNEL_DQ] != n_layers * steps \
+            or launches[fa.KERNEL_DKV] != n_layers * steps:
+        raise AssertionError(f"fleet steps: {result}")
+    if not err <= 1e-4:
+        raise AssertionError(f"fleet steps differ between the card and the CPU: {result}")
+    return result
+
+
+def time_fleet_steps(torch, Xs):
+    """Host-clock training steps at the served machine's full width on the
+    card, batch 32: a fleet step of all the bucket's machines (a fit of
+    ``FLEET_TIMED_STEPS`` steps, over its steps) against a solo step of one
+    machine (``train_step``, the same count, one synchronise), each after a
+    warm-up; then a torch.profiler window (CUDA activity) over a 3-step
+    fleet fit: CUDA launches a step and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from gordo_tpu_torch.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.core import train_step
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
+
+    estimator = TransformerAutoEncoder(**BASE_ESTIMATOR, n_features=len(TAGS),
+                                       n_features_out=len(TAGS))
+    spec = estimator._build_spec()
+    trainer = FleetTrainer(spec, seed=SEED)
+    init = trainer.stack_params([
+        {n: t.clone() for n, t in estimator._initial_state(spec, SEED + i).items()}
+        for i in range(len(Xs))
+    ])
+    lookback = BASE_ESTIMATOR["lookback_window"]
+
+    def fleet_fit(steps):
+        rows = lookback - 1 + steps * BATCH_SIZE
+        data = StackedData.from_ragged([X[:rows] for X in Xs], [X[:rows] for X in Xs])
+        t0 = time.perf_counter()
+        trainer.fit(data, params=init, epochs=1, batch_size=BATCH_SIZE)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    fleet_fit(3)
+    fleet_ms = fleet_fit(FLEET_TIMED_STEPS)
+    module, optimizer, loss_name, (xb, yb, w) = _fresh_step(torch, Xs[0], BASE_ESTIMATOR, "cuda",
+                                                          SEED)
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    for _ in range(3):
+        train_step(module, optimizer, loss_name, xb, yb, w, generator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FLEET_TIMED_STEPS):
+        train_step(module, optimizer, loss_name, xb, yb, w, generator)
+    torch.cuda.synchronize()
+    solo_ms = (time.perf_counter() - t0) * 1e3 / FLEET_TIMED_STEPS
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fleet_fit(3)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, total_us = kernel_rows(prof)
+    if not rows:
+        raise AssertionError("fleet steps: the profiler recorded no CUDA kernel")
+    timing = {
+        "machines": len(Xs), "batch": BATCH_SIZE, "fleet_step_ms": fleet_ms,
+        "solo_step_ms": solo_ms, "fleet_ms_per_machine_step": fleet_ms / len(Xs),
+        "profiled_steps": 3, "launches_per_step": sum(r["count"] for r in rows) / 3,
+        "profiled_wall_ms": wall_ms, "device_ms": total_us / 1e3,
+        "device_idle_share": 1.0 - total_us / 1e3 / wall_ms,
+    }
+    log("fleet step timing", json.dumps(timing))
+    return timing
+
+
+def fleet_build_phase(torch, fa, profile: bool):
+    """Phase 10: ``fleet_machines`` built by ``build-fleet`` in a
+    subprocess on the card (the CLI's ``main``, with the process's flash
+    launches written out at its end): all eight machines in one process,
+    three buckets, each bucket's CV folds and final fit fleet fits; the
+    build report clean. Then one Transformer machine served on
+    ``/anomaly/prediction`` and one feedforward machine on ``/prediction``
+    (144 rows, medians of ``REPEATS``) from the output, each reply within
+    1e-4 of the same artifact served on the CPU; the vmapped flash check;
+    ``FLEET_PARITY_STEPS`` fleet steps card against CPU; fleet and solo
+    step times, launches a step and idle share."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    machines = fleet_machines(root)
+    report = {"machines": [m["name"] for m in machines]}
+    with tempfile.TemporaryDirectory() as tmp:
+        collection = os.path.join(tmp, FLEET_COLLECTION)
+        listing, counts = os.path.join(tmp, "machines.yaml"), os.path.join(tmp, "launches.json")
+        with open(listing, "w") as fh:
+            fh.write(yaml_text(machines) + "\n")
+        t0 = time.perf_counter()
+        # OUTPUT_DIR by the environment: with --machines-from, a lone
+        # positional binds to the MACHINES slot, as in the JAX command
+        built = subprocess.run(
+            [sys.executable, "-c", FLEET_DRIVER, counts, "build-fleet", "--machines-from",
+             listing, "--print-cv-scores"],
+            cwd=root, env=dict(os.environ, OUTPUT_DIR=collection), capture_output=True,
+            text=True, timeout=900,
+        )
+        report["build_s"] = time.perf_counter() - t0
+        log("fleet build seconds", report["build_s"])
+        if built.returncode != 0 or "FAILED" in built.stdout or "QUARANTINED" in built.stdout:
+            raise AssertionError(
+                f"build-fleet exited {built.returncode}:\n{built.stdout[-2000:]}\n"
+                f"{built.stderr[-4000:]}"
+            )
+        with open(counts) as fh:
+            report["kernel_launches"] = json.load(fh)
+        with open(os.path.join(collection, "build_report.json")) as fh:
+            build_report = json.load(fh)
+        with open(os.path.join(collection, "telemetry_report.json")) as fh:
+            telemetry = json.load(fh)
+        if (build_report["n_built"], build_report["n_failed"]) != (len(machines), 0):
+            raise AssertionError(f"build-fleet report: {build_report}")
+        report["buckets"] = [
+            {key: bucket[key] for key in ("machines", "n_timesteps_grid", "epochs",
+                                          "cv_duration_s", "fit_duration_s", "bucket_wall_s")}
+            | {"steps_per_epoch": bucket["fit"]["steps_per_epoch"]}
+            for bucket in telemetry["buckets"]
+        ]
+        for bucket in report["buckets"]:
+            log("fleet bucket", json.dumps(bucket))
+        if len(report["buckets"]) != 3:
+            raise AssertionError(f"expected 3 buckets: {report['buckets']}")
+        flash = {name: count for name, count in report["kernel_launches"].items() if count}
+        log("fleet build flash launches", json.dumps(flash))
+        if not all(report["kernel_launches"][f"{kernel}_quad"] > 0
+                   for kernel in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)):
+            raise AssertionError(f"build-fleet launched no flash kernel: {flash}")
+
+        served = {}
+        for name, routes in ((f"{MACHINE}-0", ("anomaly/prediction",)),
+                             ("example-pump-0", ("prediction",))):
+            metadata = serializer.load_metadata(os.path.join(collection, name))
+            model_meta = metadata["metadata"]["build_metadata"]["model"]["model_meta"]
+            if name.startswith(MACHINE):
+                thresholds = [model_meta["aggregate-threshold"], *model_meta["feature-thresholds"]]
+                if not (model_meta.get("cv-fleet-masks") is True
+                        and all(math.isfinite(x) and x > 0 for x in thresholds)):
+                    raise AssertionError(f"{name}: thresholds {model_meta}")
+            X, _, stamps = _get_dataset(metadata["dataset"]).get_data()
+            if name.startswith(MACHINE) and len(X) not in FLEET_ROWS:
+                raise AssertionError(f"{name}: {len(X)} rows, expected {FLEET_ROWS}")
+            served[name] = serve_built(torch, collection, metadata, X, stamps, routes, 1e-4,
+                                       history_repeats=0)
+        report["served"] = served
+        Xs = [np.asarray(_get_dataset(m["dataset"]).get_data()[0], dtype=np.float32)
+              for m in machines[:FLEET_TRANSFORMERS]]
+    report["vmapped_flash"] = fleet_flash_check(torch, fa)
+    report["step_parity"] = fleet_step_check(torch, fa, Xs)
+    report["step_timing"] = time_fleet_steps(torch, Xs)
+    return report
+
+
 def stacked_forward_check(torch, X):
     """One forward of the ``stacked`` schedule (LSTM and GRU cells, the
     LSTM machine's widths: 50 tags, 128/64/64/128, lookback 64) over the
@@ -2052,6 +2360,7 @@ def main(argv=None) -> int:
     models = timed("models", model_phase)
     recurrent = timed("recurrent", recurrent_phase, args.profile)
     project = timed("project_build", project_build_phase, args.profile)
+    fleet = timed("fleet_build", fleet_build_phase, args.profile)
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -2062,6 +2371,7 @@ def main(argv=None) -> int:
              "default_pipeline": default_pipeline["kernel_launches"],
              "recurrent": recurrent["kernel_launches"],
              "project_build": project["kernel_launches"],
+             "fleet_build": fleet["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
     def entry(kernel, families, source, replaces, cases, rows):
@@ -2111,7 +2421,8 @@ def main(argv=None) -> int:
                  "backward_checks": backward_checks, "gradients": gradients,
                  "end_to_end": report, "train": train,
                  "default_pipeline": default_pipeline, "models": models,
-                 "recurrent": recurrent, "project_build": project, **kernels},
+                 "recurrent": recurrent, "project_build": project, "fleet_build": fleet,
+                 **kernels},
                 fh,
                 indent=1,
                 default=str,

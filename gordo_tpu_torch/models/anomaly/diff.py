@@ -5,10 +5,18 @@ and the confidence columns, in numpy around the base estimator.
 
 The JAX detector's RobustScaler becomes :class:`RobustScaling`, its two
 arrays ``center_`` and ``scale_`` fitted with scikit-learn's defaults.
-Cross-validation trains the folds one after another, each from the same
-seed's initial weights and with its own scaler fitted on its training
-targets (the JAX package's sequential path; its vmapped fold program is
-fleet work, so ``cv-fast-path`` is false here).
+
+Cross-validation over a bare port estimator whose folds train on
+contiguous rows (``TimeSeriesSplit`` gives them) trains every fold at
+once, as one :class:`~gordo_tpu_torch.parallel.fleet.FleetTrainer` fit
+with the fold axis as the machine axis (``_fold_parallel_cv``, JAX's
+fast path): every fold starts from the solo seed's initial weights and
+gets its own scaler fitted on its training targets, and ``cv-fast-path``
+is true, as in JAX. Anything else (a ``Pipeline`` base, a callback with
+no fleet counterpart) trains the folds one after another, as JAX's
+sequential path does. Unlike JAX, a failing fold-parallel fit raises: it
+does not fall back to the sequential path, so a fault in the fleet
+trainer or its kernels cannot hide behind a slower build.
 """
 
 import time
@@ -18,7 +26,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from gordo_tpu_torch.device import DeviceLike
-from gordo_tpu_torch.models.core import BaseTorchEstimator, as_2d
+from gordo_tpu_torch.models.core import DEFAULT_SEED, BaseTorchEstimator, as_2d
 from gordo_tpu_torch.models.utils import (
     BlockFrame,
     Frame,
@@ -143,6 +151,85 @@ class DiffBasedAnomalyDetector:
         scaled_sq = (scale(y_pred) - scale(y_true)) ** 2
         return scaled_sq.mean(axis=1), np.abs(y_pred - y_true)
 
+    def _sequential_cv(self, X, y, cv, device):
+        """(fitted fold detector, fit seconds, test rows) of each fold, the
+        folds trained one after another, each a clone of this detector."""
+        for train_idx, test_idx in cv.split(X, y):
+            start = time.perf_counter()
+            detector = self.clone().fit(X[train_idx], y[train_idx], device=device)
+            yield detector, time.perf_counter() - start, test_idx
+
+    def _folds_batchable(self, X, y, cv) -> bool:
+        """Whether training the folds as one fleet fit keeps their
+        semantics: a bare port estimator, fit arguments the fleet trainer
+        takes exactly, and every fold's training rows one contiguous run
+        (windows need it)."""
+        from gordo_tpu_torch.models.callbacks import fleet_fit_kwargs
+
+        if not isinstance(self.base_estimator, BaseTorchEstimator):
+            return False
+        fit_args = self.base_estimator.extract_supported_fit_args(self.base_estimator.kwargs)
+        if fleet_fit_kwargs(fit_args) is None:
+            return False
+        try:
+            folds = list(cv.split(X, y))
+        except Exception:
+            return False
+        return all(
+            len(tr) > 0 and np.array_equal(tr, np.arange(tr[0], tr[-1] + 1)) for tr, _ in folds
+        )
+
+    def _fold_parallel_cv(self, X, y, cv, device):
+        """
+        (fitted fold detector, fit seconds, test rows) of each fold, every
+        fold trained at once: one :class:`FleetTrainer` fit with the fold
+        axis as the machine axis (ragged fold lengths as row weights),
+        each fold from the solo seed's initial weights (``_initial_state``)
+        and with its own scaler fitted on its training targets. The fit's
+        seconds are shared out evenly, as in JAX.
+        """
+        from gordo_tpu_torch.device import resolve_device
+        from gordo_tpu_torch.models.callbacks import fleet_fit_kwargs
+        from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
+
+        device = resolve_device(device)
+        folds = list(cv.split(X, y))
+        Xn, yn = np.asarray(X, dtype=np.float32), np.asarray(y, dtype=np.float32)
+        template = self.base_estimator.clone()
+        template.kwargs.update({"n_features": Xn.shape[1], "n_features_out": yn.shape[1]})
+        fit_args = template.extract_supported_fit_args(template.kwargs)
+        spec = template._build_spec()
+        seed = int(template.kwargs.get("seed", DEFAULT_SEED))
+        trainer = FleetTrainer(
+            spec, lookahead=template.lookahead if spec.windowed else 0, device=device, seed=seed
+        )
+        data = StackedData.from_ragged(
+            [Xn[tr] for tr, _ in folds], [yn[tr] for tr, _ in folds], device=device
+        )
+        params = trainer.stack_params([template._initial_state(spec, seed)] * len(folds))
+        start = time.perf_counter()
+        params, _ = trainer.fit(
+            data,
+            params=params,
+            epochs=int(fit_args.get("epochs", 1)),
+            batch_size=int(fit_args.get("batch_size", 32)),
+            shuffle=fit_args.get("shuffle"),
+            **fleet_fit_kwargs(fit_args),
+        )
+        fit_time = (time.perf_counter() - start) / len(folds)
+        for i, ((train_idx, test_idx), state) in enumerate(
+            zip(folds, trainer.unstack_all(params, len(folds)))
+        ):
+            estimator = self.base_estimator.clone()
+            estimator.kwargs.update(template.kwargs)
+            estimator._set_fitted(
+                estimator._build_spec(), state, device, Xn.shape[1], yn.shape[1],
+                history=dict(trainer.history_[i]),
+            )
+            detector = DiffBasedAnomalyDetector(estimator, self.require_thresholds, self.window)
+            detector.scaler = RobustScaling().fit(yn[train_idx])
+            yield detector, fit_time, test_idx
+
     def cross_validate(
         self,
         *,
@@ -155,7 +242,9 @@ class DiffBasedAnomalyDetector:
         """
         Cross-validate and derive the anomaly thresholds from the fold
         models' test errors. Folds (``TimeSeriesSplit(3)`` by default)
-        train one after another, each a clone of this detector. Each
+        train at once as one fleet fit when ``_folds_batchable`` allows it
+        (``cv_fast_path_``), else one after another, each a clone of this
+        detector. Each
         fold's test predictions are computed once; every ``scoring``
         metric (``metric(y_true, y_pred)``) scores them, and the
         thresholds come from them: per fold, aggregate =
@@ -168,6 +257,11 @@ class DiffBasedAnomalyDetector:
         X, y = as_2d(X, dtype=None), as_2d(y, dtype=None)
         cv = cv if cv is not None else TimeSeriesSplit(n_splits=3)
         scoring = scoring or {}
+        self.cv_fast_path_ = self._folds_batchable(X, y, cv)
+        if self.cv_fast_path_:
+            folds = self._fold_parallel_cv(X, y, cv, device)
+        else:
+            folds = self._sequential_cv(X, y, cv, device)
         output: dict = {"estimator": [], "fit_time": [], "score_time": []}
         output.update({f"test_{name}": [] for name in scoring})
         agg_by_fold: Dict[str, float] = {}
@@ -175,10 +269,8 @@ class DiffBasedAnomalyDetector:
         smooth_agg_by_fold: Dict[str, float] = {}
         smooth_tag_by_fold: Dict[str, np.ndarray] = {}
 
-        for fold, (train_idx, test_idx) in enumerate(cv.split(X, y)):
-            start = time.perf_counter()
-            detector = self.clone().fit(X[train_idx], y[train_idx], device=device)
-            output["fit_time"].append(time.perf_counter() - start)
+        for fold, (detector, fit_time, test_idx) in enumerate(folds):
+            output["fit_time"].append(fit_time)
             start = time.perf_counter()
             y_pred = detector.predict(X[test_idx])
             y_test = y[test_idx]
@@ -195,7 +287,6 @@ class DiffBasedAnomalyDetector:
                 smooth_agg_by_fold[label] = rolled_threshold(scaled_mse, self.window)
                 smooth_tag_by_fold[label] = rolled_threshold(mae, self.window)
 
-        self.cv_fast_path_ = False
         self.aggregate_thresholds_per_fold_ = agg_by_fold
         self.feature_thresholds_per_fold_ = tag_by_fold
         self.smooth_aggregate_thresholds_per_fold_ = smooth_agg_by_fold
@@ -216,7 +307,8 @@ class DiffBasedAnomalyDetector:
     def get_metadata(self) -> dict:
         """The JAX detector's metadata keys: thresholds (final and per
         fold, smoothed when ``window`` is set), ``window``,
-        ``cv-fast-path``, and the base estimator's metadata."""
+        ``cv-fast-path`` (or ``cv-fleet-masks`` from a fleet build), and
+        the base estimator's metadata."""
         metadata: dict = {}
         if self.feature_thresholds_ is not None:
             metadata["feature-thresholds"] = np.asarray(self.feature_thresholds_).tolist()
@@ -232,6 +324,9 @@ class DiffBasedAnomalyDetector:
             metadata["window"] = self.window
         if hasattr(self, "cv_fast_path_"):
             metadata["cv-fast-path"] = bool(self.cv_fast_path_)
+        if hasattr(self, "cv_fleet_masks_"):
+            # thresholds from a fleet build's fold masks
+            metadata["cv-fleet-masks"] = bool(self.cv_fleet_masks_)
         if self.smooth_feature_thresholds_ is not None:
             metadata["smooth-feature-thresholds"] = np.asarray(
                 self.smooth_feature_thresholds_

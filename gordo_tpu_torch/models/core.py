@@ -13,8 +13,11 @@ ragged tail padded at weight 0, a shuffle (off by default for windowed
 models) that permutes every padded slot, each step's loss
 ``Σ(per·w) / max(Σw, 1)`` plus the module's activity penalty, Keras
 ``validation_split`` holding out the last windows before any shuffle,
-and the same ``history_``. PyTorch runs eagerly, so an epoch is a Python
-loop of steps; the host reads the loss once per epoch. Shuffles and
+the Keras callbacks after each epoch (``EarlyStopping``,
+``TerminateOnNaN``), and the same ``history_``. The optimizer is optax's
+(``gordo_tpu_torch.models.optim``, the fleet trainer's too), bound to the
+module's parameters. PyTorch runs eagerly, so an epoch is a Python loop
+of steps; the host reads the loss once per epoch. Shuffles and
 dropout masks come from one ``torch.Generator`` on the training device,
 seeded with ``seed``; the initial weights from another on the CPU
 (:meth:`BaseTorchEstimator._initial_state`), so they do not depend on
@@ -22,6 +25,7 @@ the device. Neither gives JAX's random numbers.
 """
 
 import copy
+import logging
 import math
 from typing import Callable, Dict, Optional, Union
 
@@ -29,9 +33,12 @@ import numpy as np
 import torch
 
 from gordo_tpu_torch.device import DeviceLike, resolve_device
+from gordo_tpu_torch.models.optim import BoundOptimizer
 from gordo_tpu_torch.models.register import register_model_builder
 from gordo_tpu_torch.models.specs import ModelSpec, flax_default_init_, per_sample_loss
 from gordo_tpu_torch.ops.windowing import gather_windows
+
+logger = logging.getLogger(__name__)
 
 #: seed of a fit whose kwargs name none (the builder injects one)
 DEFAULT_SEED = 0
@@ -42,6 +49,36 @@ _WIDTH_ATTRS = ("n_active_features_", "n_active_features_out_")
 #: rows per forward chunk of a row-wise (non-windowed) predict, as in the
 #: JAX package
 PREDICT_CHUNK_ROWS = 10000
+
+
+def _materialize_callbacks(raw) -> list:
+    """
+    The fit argument ``callbacks`` as :class:`~gordo_tpu_torch.models.
+    callbacks.Callback` objects: objects as they are, definitions through
+    the serializer. A definition of a callback the port does not have,
+    or anything else, is dropped with a warning, as the JAX package
+    drops it.
+    """
+    if not raw:
+        return []
+    from gordo_tpu_torch.models.callbacks import Callback
+    from gordo_tpu_torch.serializer import callback_from_definition
+
+    out = []
+    for item in raw:
+        if isinstance(item, Callback):
+            out.append(item)
+        elif isinstance(item, (dict, str)):
+            try:
+                out.append(callback_from_definition(item))
+            except ValueError:
+                name = item if isinstance(item, str) else next(iter(item), "?")
+                logger.warning("Ignoring unsupported training callback %s", name)
+        else:
+            logger.warning(
+                "Ignoring unsupported training callback object %s", type(item).__name__
+            )
+    return out
 
 
 class NotFittedError(ValueError, AttributeError):
@@ -108,6 +145,15 @@ class BaseTorchEstimator:
 
     def into_definition(self) -> dict:
         definition = copy.copy(self.kwargs)
+        if definition.get("callbacks"):
+            from gordo_tpu_torch.models.callbacks import Callback
+            from gordo_tpu_torch.serializer import callback_into_definition
+
+            # callback objects as their definitions; definitions as given
+            definition["callbacks"] = [
+                callback_into_definition(cb) if isinstance(cb, Callback) else cb
+                for cb in definition["callbacks"]
+            ]
         definition["kind"] = self.kind
         return {f"{type(self).__module__}.{type(self).__name__}": definition}
 
@@ -140,8 +186,10 @@ class BaseTorchEstimator:
         Train on (X, y) on ``device`` (the card unless ``"cpu"`` is asked
         for). Fit arguments come from the estimator's kwargs, overridden
         by ``kwargs``: ``epochs`` (1), ``batch_size`` (32), ``shuffle``
-        (False for windowed models), ``validation_split`` (0) and the
-        ``seed`` kwarg (0).
+        (False for windowed models), ``validation_split`` (0),
+        ``callbacks`` (run after every epoch on its loss and validation
+        loss; ``history_`` holds the epochs that ran) and the ``seed``
+        kwarg (0).
         """
         X, y = as_2d(X), as_2d(y)
         self.kwargs.update({"n_features": X.shape[-1], "n_features_out": y.shape[-1]})
@@ -154,13 +202,7 @@ class BaseTorchEstimator:
         validation_split = float(fit_args.get("validation_split") or 0.0)
         if not 0.0 <= validation_split < 1.0:
             raise ValueError(f"validation_split must be in [0, 1), got {validation_split}")
-        if fit_args.get("callbacks"):
-            # training something other than what the config asked for
-            # would be worse than stopping here
-            raise NotImplementedError(
-                "Training callbacks are not ported yet (ROADMAP.md queue 1); "
-                "remove `callbacks` from the fit arguments"
-            )
+        callbacks = _materialize_callbacks(fit_args.get("callbacks"))
         device = resolve_device(device)
 
         spec = self._build_spec()
@@ -201,9 +243,12 @@ class BaseTorchEstimator:
                 return gather_windows(Xd, yd, sel, lb, la)
             return Xd[sel], yd[sel]
 
+        for cb in callbacks:
+            cb.on_train_begin()
+        params = dict(module.named_parameters())
         losses: list = []
         val_losses: list = []
-        for _ in range(epochs):
+        for epoch in range(epochs):
             module.train()
             sel_all, w_all = ids, weights
             if shuffle:
@@ -218,10 +263,23 @@ class BaseTorchEstimator:
                 )
             # one host read per epoch
             losses.append((torch.stack(loss_sums).sum() / n_train).item())
+            logs = {"loss": losses[-1]}
             if n_val:
                 val_losses.append(
                     validation_loss(module, spec.loss, gather, n_train, n_samples, batch_size)
                 )
+                logs["val_loss"] = val_losses[-1]
+            # every callback sees every epoch: one's stop must not hide the
+            # epoch from the others
+            if callbacks and any([cb.update(epoch, logs, params) for cb in callbacks]):
+                break
+        for cb in callbacks:
+            final = cb.finalize(params)
+            if final is not params:
+                with torch.no_grad():
+                    for name, value in final.items():
+                        params[name].copy_(value)
+            cb.best_params = None  # no snapshot outlives the fit
         module.eval()
 
         self.spec_ = spec
@@ -240,6 +298,27 @@ class BaseTorchEstimator:
             self.history_["val_loss"] = val_losses
         self.n_features_ = X.shape[-1]
         self.n_features_out_ = y.shape[-1]
+        return self
+
+    def _set_fitted(
+        self,
+        spec: ModelSpec,
+        state: Dict[str, np.ndarray],
+        device: torch.device,
+        n_features: int,
+        n_features_out: int,
+        history: Optional[dict] = None,
+    ) -> "BaseTorchEstimator":
+        """Take weights trained elsewhere (a fleet fit): ``state`` into
+        ``spec``'s module on ``device``, in eval mode."""
+        spec.module.load_state_dict({n: torch.as_tensor(np.asarray(v)) for n, v in state.items()})
+        spec.module.to(device).eval()
+        self.spec_ = spec
+        self.device_ = device
+        self.n_features_ = n_features
+        self.n_features_out_ = n_features_out
+        if history is not None:
+            self.history_ = history
         return self
 
     def get_metadata(self) -> dict:
@@ -336,7 +415,7 @@ class BaseTorchEstimator:
 
 def train_step(
     module: torch.nn.Module,
-    optimizer: torch.optim.Optimizer,
+    optimizer: BoundOptimizer,
     loss_name: str,
     xb: torch.Tensor,
     yb: torch.Tensor,

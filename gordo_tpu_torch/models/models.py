@@ -15,7 +15,7 @@ from gordo_tpu_torch.device import DeviceLike
 from gordo_tpu_torch.models.core import BaseTorchEstimator, as_2d
 from gordo_tpu_torch.models.specs import ModelSpec, SequentialNet, resolve_dtype, resolve_optimizer
 from gordo_tpu_torch.models.utils import explained_variance_score
-from gordo_tpu_torch.parallel.fleet import windowed_predict
+from gordo_tpu_torch.ops.windowing import windowed_predict
 
 # register the factories on import
 from gordo_tpu_torch.models import factories  # noqa: F401

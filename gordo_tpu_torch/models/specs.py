@@ -11,21 +11,21 @@ estimator needs.
 
 Optimizers keep the JAX package's Keras-style names and kwargs (``lr`` is
 ``learning_rate``, ``decay`` is ``weight_decay``, the learning rate
-defaults to 1e-3) and optax's semantics and defaults, built on
-``torch.optim``: optax's ``adam`` is ``torch.optim.Adam``'s update,
-``adamw`` is ``torch.optim.AdamW``'s with optax's weight decay of 1e-4
-(torch's default is 1e-2), and ``sgd`` is ``torch.optim.SGD`` with
-optax's momentum trace. The other names the JAX package knows raise.
+defaults to 1e-3) and optax's semantics and defaults: all ten names the
+JAX package knows, written as functions on tensors in
+``gordo_tpu_torch.models.optim`` (not ``torch.optim``), so the solo fit
+and the fleet trainer step with the same arithmetic.
 """
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gordo_tpu_torch.models.optim import OPTIMIZERS, BoundOptimizer, Optimizer
 from gordo_tpu_torch.ops.activations import resolve_activation
 
 _DTYPES = {
@@ -34,6 +34,13 @@ _DTYPES = {
     "float16": torch.float16,
     "float64": torch.float64,
 }
+
+
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``: x itself when it has it already. (``Tensor.to``
+    copies a tensor of the asked-for type under ``torch.func.vmap``, the
+    fleet trainer's machine axis, where it returns it outside.)"""
+    return x if x.dtype == dtype else x.to(dtype)
 
 
 def resolve_dtype(dtype) -> torch.dtype:
@@ -47,87 +54,42 @@ def resolve_dtype(dtype) -> torch.dtype:
     return dtype
 
 
-def _adam_kwargs(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
-                 mu_dtype=None, *, nesterov=False, **decay):
-    if eps_root or mu_dtype is not None or nesterov:
-        raise NotImplementedError(
-            "eps_root, mu_dtype and nesterov are not ported (ROADMAP.md queue 1)"
-        )
-    return dict(lr=learning_rate, betas=(b1, b2), eps=eps, **decay)
-
-
-def _adam(params, learning_rate, **kwargs) -> torch.optim.Optimizer:
-    return torch.optim.Adam(params, **_adam_kwargs(learning_rate, **kwargs))
-
-
-def _adamw(params, learning_rate, weight_decay=1e-4, mask=None, **kwargs):
-    if mask is not None:
-        raise NotImplementedError("adamw's mask is not ported (ROADMAP.md queue 1)")
-    return torch.optim.AdamW(
-        params, **_adam_kwargs(learning_rate, weight_decay=weight_decay, **kwargs)
-    )
-
-
-def _sgd(params, learning_rate, momentum=None, nesterov=False, accumulator_dtype=None):
-    if accumulator_dtype is not None:
-        raise NotImplementedError(
-            "sgd's accumulator_dtype is not ported (ROADMAP.md queue 1)"
-        )
-    # optax's trace: t = g + momentum * t, update = -lr * t (nesterov:
-    # g + momentum * t) — torch's SGD with dampening 0
-    return torch.optim.SGD(
-        params, lr=learning_rate, momentum=momentum or 0.0, nesterov=nesterov
-    )
-
-
-_OPTIMIZERS: Dict[str, Callable[..., torch.optim.Optimizer]] = {
-    "adam": _adam,
-    "adamw": _adamw,
-    "sgd": _sgd,
-}
-#: names the JAX package knows that the port does not have yet
-_NOT_PORTED = ("adadelta", "adagrad", "adamax", "lamb", "lion", "nadam", "rmsprop")
-
 # Keras optimizer-kwarg spellings -> optax spellings
 _OPT_KWARG_ALIASES = {"lr": "learning_rate", "decay": "weight_decay"}
 
 
 def resolve_optimizer(
     name: str, optimizer_kwargs: Optional[Dict[str, Any]] = None
-) -> Tuple[Callable[..., torch.optim.Optimizer], Dict[str, Any]]:
+) -> Tuple[Callable[..., Optimizer], Dict[str, Any]]:
     """
     (constructor, normalized kwargs) for a Keras-style optimizer config:
     aliases translated (lr -> learning_rate, ...) and the default learning
-    rate applied. The constructor takes the parameters first.
+    rate applied.
     """
     kwargs = dict(optimizer_kwargs or {})
     for old, new in _OPT_KWARG_ALIASES.items():
         if old in kwargs:
             kwargs[new] = kwargs.pop(old)
     kwargs.setdefault("learning_rate", 1e-3)
-    key = name.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"Optimizer {name!r} is not ported yet (ROADMAP.md queue 1); "
-            f"available: {sorted(_OPTIMIZERS)}"
-        )
     try:
-        return _OPTIMIZERS[key], kwargs
+        return OPTIMIZERS[name.lower()], kwargs
     except KeyError:
         raise ValueError(
-            f"Unknown optimizer {name!r}; available: {sorted(_OPTIMIZERS)}"
+            f"Unknown optimizer {name!r}; available: {sorted(OPTIMIZERS)}"
         ) from None
 
 
 def make_optimizer(
     name: str,
     optimizer_kwargs: Optional[Dict[str, Any]],
-    params: Iterable[torch.Tensor],
-) -> torch.optim.Optimizer:
-    """A ``torch.optim`` optimizer over ``params`` from a Keras-style name
-    and kwargs, with optax's semantics."""
+    params: Optional[Iterable[torch.Tensor]] = None,
+) -> Union[Optimizer, BoundOptimizer]:
+    """The optimizer of a Keras-style name and kwargs, with optax's
+    semantics (``gordo_tpu_torch.models.optim``); bound to ``params``
+    (stepped like a ``torch.optim`` optimizer) when they are given."""
     ctor, kwargs = resolve_optimizer(name, optimizer_kwargs)
-    return ctor(params, **kwargs)
+    optimizer = ctor(**kwargs)
+    return optimizer if params is None else optimizer.bind(params)
 
 
 def _huber(err: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
@@ -153,6 +115,20 @@ def per_sample_loss(loss: str, y_pred: torch.Tensor, y_true: torch.Tensor) -> to
     except KeyError:
         raise ValueError(f"Unknown loss {loss!r}; available: {sorted(_LOSSES)}") from None
     return elementwise(y_pred - y_true).mean(dim=-1)
+
+
+def masked_per_sample_loss(
+    loss: str, y_pred: torch.Tensor, y_true: torch.Tensor, feature_weight: torch.Tensor
+) -> torch.Tensor:
+    """:func:`per_sample_loss` with a {0, 1} weight per output column: the
+    mean runs over the real columns only, so a padded-bucket machine's
+    loss ignores its pad columns (the JAX function of this name)."""
+    try:
+        elementwise = _LOSSES[loss]
+    except KeyError:
+        raise ValueError(f"Unknown loss {loss!r}; available: {sorted(_LOSSES)}") from None
+    err = (y_pred - y_true) * feature_weight
+    return elementwise(err).sum(dim=-1) / torch.clamp(feature_weight.sum(), min=1.0)
 
 
 # std of a standard normal cut at +-2, which Flax divides out so that the
@@ -241,13 +217,14 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Modu
     return module
 
 
-def dropout(
-    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]
-) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, training: bool, generator) -> torch.Tensor:
     """
     Flax's ``nn.Dropout``: in training, keep each element with probability
     ``1 - rate`` and scale it by ``1 / (1 - rate)``; the identity
-    otherwise. The mask comes from ``generator`` (on x's device).
+    otherwise. The mask compares uniform draws with ``1 - rate``: drawn
+    from ``generator`` (a ``torch.Generator`` on x's device), or, under
+    the fleet trainer's ``vmap``, taken from a :class:`DropoutFeed` of
+    draws made outside it (``generator.uniform(x)``).
     """
     if not training or rate == 0.0:
         return x
@@ -255,8 +232,40 @@ def dropout(
         raise ValueError("dropout in training mode needs an explicit torch.Generator")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    if isinstance(generator, torch.Generator):
+        uniform = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        uniform = generator.uniform(x)
+    keep = uniform < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropoutFeed:
+    """
+    The dropout draws of one forward pass, made before it: ``uniform(x)``
+    hands out the next tensor of ``draws`` (each of x's shape), in the
+    order the module's dropout sites run. With ``draws=None`` the feed
+    records the shapes it is asked for (``shapes``) and hands out zeros:
+    a recording pass tells the fleet trainer what to draw, from its own
+    generator, for every machine at once.
+    """
+
+    def __init__(self, draws=None):
+        self.draws = None if draws is None else list(draws)
+        self.shapes = []
+
+    def uniform(self, x: torch.Tensor) -> torch.Tensor:
+        if self.draws is None:
+            self.shapes.append(tuple(x.shape))
+            return torch.zeros(x.shape, device=x.device)
+        if not self.draws:
+            raise RuntimeError("the module ran more dropout sites than were drawn for")
+        draw = self.draws.pop(0)
+        if tuple(draw.shape) != tuple(x.shape):
+            raise RuntimeError(
+                f"a dropout draw of shape {tuple(draw.shape)} for a site of shape {tuple(x.shape)}"
+            )
+        return draw
 
 
 @dataclasses.dataclass
@@ -272,7 +281,9 @@ class ModelSpec:
     windowed: bool = False
     lookback_window: int = 1
 
-    def make_optimizer(self, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
+    def make_optimizer(
+        self, params: Optional[Iterable[torch.Tensor]] = None
+    ) -> Union[Optimizer, BoundOptimizer]:
         return make_optimizer(self.optimizer, self.optimizer_kwargs, params)
 
 
@@ -295,8 +306,8 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        bias = None if self.bias is None else cast(self.bias, dt)
+        return F.linear(cast(x, dt), cast(self.weight, dt), bias)
 
 
 class FeedForwardNet(nn.Module):
@@ -338,8 +349,8 @@ class FeedForwardNet(nn.Module):
         for layer, func, flagged in zip(self.layers, self.funcs, self.l1_flags):
             x = func(layer(x))
             if flagged:
-                penalty = penalty + self.l1 * x.float().abs().sum() / x.shape[0]
-        return x.float(), penalty
+                penalty = penalty + self.l1 * cast(x, torch.float32).abs().sum() / x.shape[0]
+        return cast(x, torch.float32), penalty
 
 
 # -- the recurrent family ----------------------------------------------------
@@ -361,7 +372,7 @@ def lstm_cell_step(c, h, z_t, w_h, b_h, act, dtype):
     the cell state in float32. Shared by the fused layer and the stacked
     schedule.
     """
-    gates = (z_t + h.to(dtype) @ w_h + b_h).float()
+    gates = cast(z_t + cast(h, dtype) @ w_h + b_h, torch.float32)
     i, f, _, o = torch.sigmoid(gates).chunk(4, dim=-1)
     g = gates.chunk(4, dim=-1)[2]
     c = f * c + i * act(g)
@@ -375,11 +386,11 @@ def gru_cell_step(h, z_t, w_rz, w_n, b_n, act, dtype, h_dim: int):
     projected hidden state plus ``b_n``, ``h' = (1-z)·n + z·h``): the
     products in ``dtype``, the gate math in float32.
     """
-    hd = h.to(dtype)
-    rz = (z_t[..., : 2 * h_dim] + hd @ w_rz).float()
+    hd = cast(h, dtype)
+    rz = cast(z_t[..., : 2 * h_dim] + hd @ w_rz, torch.float32)
     r, zg = torch.sigmoid(rz).chunk(2, dim=-1)
-    hn = (hd @ w_n).float() + b_n
-    n = act(z_t[..., 2 * h_dim :].float() + r * hn)
+    hn = cast(hd @ w_n, torch.float32) + b_n
+    n = act(cast(z_t[..., 2 * h_dim :], torch.float32) + r * hn)
     return (1.0 - zg) * n + zg * h
 
 
@@ -417,13 +428,13 @@ class FusedLSTMLayer(nn.Module):
         t_dim, b_dim = x.shape[:2]
         dt = self.compute_dtype
         z = self.input_proj(x.reshape(t_dim * b_dim, -1)).view(t_dim, b_dim, -1)
-        w_h, b_h = self.recurrent_kernel.to(dt), self.recurrent_bias.to(dt)
+        w_h, b_h = cast(self.recurrent_kernel, dt), cast(self.recurrent_bias, dt)
         c = h = _zeros(b_dim, self.features, x)
         hs = []
         for z_t in z.unbind(0):
             c, h = lstm_cell_step(c, h, z_t, w_h, b_h, self.act, dt)
             hs.append(h)
-        return torch.stack(hs).to(dt)
+        return cast(torch.stack(hs), dt)
 
 
 class FusedGRULayer(nn.Module):
@@ -449,7 +460,7 @@ class FusedGRULayer(nn.Module):
         t_dim, b_dim = x.shape[:2]
         dt = self.compute_dtype
         z = self.input_proj(x.reshape(t_dim * b_dim, -1)).view(t_dim, b_dim, -1)
-        w_rz, w_n = self.recurrent_kernel_rz.to(dt), self.recurrent_kernel_n.to(dt)
+        w_rz, w_n = cast(self.recurrent_kernel_rz, dt), cast(self.recurrent_kernel_n, dt)
         h = _zeros(b_dim, self.features, x)
         hs = []
         for z_t in z.unbind(0):
@@ -457,7 +468,7 @@ class FusedGRULayer(nn.Module):
                 h, z_t, w_rz, w_n, self.recurrent_bias_n, self.act, dt, self.features
             )
             hs.append(h)
-        return torch.stack(hs).to(dt)
+        return cast(torch.stack(hs), dt)
 
 
 def _gate_denses(prefix: str, gates: str, biased: str, n_in: int, features: int, dtype,
@@ -473,10 +484,10 @@ def _gate_denses(prefix: str, gates: str, biased: str, n_in: int, features: int,
 def _cat_dense(x: torch.Tensor, denses, dt) -> torch.Tensor:
     """The Denses' outputs side by side, as one product in ``dt`` (each
     column as its own Dense computes it)."""
-    out = F.linear(x.to(dt), torch.cat([d.weight for d in denses]).to(dt))
+    out = F.linear(cast(x, dt), cast(torch.cat([d.weight for d in denses]), dt))
     if denses[0].bias is None:
         return out
-    return out + torch.cat([d.bias for d in denses]).to(dt)
+    return out + cast(torch.cat([d.bias for d in denses]), dt)
 
 
 class OptimizedLSTMCell(nn.Module):
@@ -507,12 +518,12 @@ class OptimizedLSTMCell(nn.Module):
         gates = self.gates
         z = _cat_dense(x.reshape(t_dim * b_dim, -1), [gates[f"i{g}"] for g in "ifgo"], dt)
         z = z.view(t_dim, b_dim, -1)
-        w_h = torch.cat([gates[f"h{g}"].weight for g in "ifgo"]).to(dt).T
-        b_h = torch.cat([gates[f"h{g}"].bias for g in "ifgo"]).to(dt)
+        w_h = cast(torch.cat([gates[f"h{g}"].weight for g in "ifgo"]), dt).T
+        b_h = cast(torch.cat([gates[f"h{g}"].bias for g in "ifgo"]), dt)
         c = h = _zeros(b_dim, self.features, x)
         hs = []
         for z_t in z.unbind(0):
-            pre = (h.to(dt) @ w_h + b_h) + z_t
+            pre = (cast(h, dt) @ w_h + b_h) + z_t
             i, f, _, o = _sigmoid(pre).chunk(4, dim=-1)
             c = f * c + i * self.act(pre.chunk(4, dim=-1)[2])
             h = o * self.act(c)
@@ -547,12 +558,12 @@ class GRUCell(nn.Module):
         gates = self.gates
         z = _cat_dense(x.reshape(t_dim * b_dim, -1), [gates[f"i{g}"] for g in "rzn"], dt)
         z = z.view(t_dim, b_dim, -1)
-        w_h = torch.cat([gates[f"h{g}"].weight for g in "rzn"]).to(dt).T
-        b_hn = gates["hn"].bias.to(dt)
+        w_h = cast(torch.cat([gates[f"h{g}"].weight for g in "rzn"]), dt).T
+        b_hn = cast(gates["hn"].bias, dt)
         h = _zeros(b_dim, h_dim, x)
         hs = []
         for z_t in z.unbind(0):
-            hw = h.to(dt) @ w_h
+            hw = cast(h, dt) @ w_h
             r, zg = _sigmoid(z_t[..., : 2 * h_dim] + hw[..., : 2 * h_dim]).chunk(2, -1)
             n = self.act(z_t[..., 2 * h_dim :] + r * (hw[..., 2 * h_dim :] + b_hn))
             h = (1.0 - zg) * n + zg * h
@@ -602,15 +613,15 @@ class StackedRecurrent(nn.Module):
         dt, dims, lstm = self.compute_dtype, self.dims, self.cell == "lstm"
         p = dict(self.named_parameters(recurse=False))
         z1 = self.input_proj_0(x.reshape(t_dim * b_dim, -1)).view(t_dim, b_dim, -1)
-        w_x = [p[f"input_kernel_{l}"].to(dt) for l in range(1, len(dims))]
+        w_x = [cast(p[f"input_kernel_{l}"], dt) for l in range(1, len(dims))]
         if lstm:
-            w_h = [p[f"recurrent_kernel_{l}"].to(dt) for l in range(len(dims))]
-            b_h = [p[f"recurrent_bias_{l}"].to(dt) for l in range(len(dims))]
+            w_h = [cast(p[f"recurrent_kernel_{l}"], dt) for l in range(len(dims))]
+            b_h = [cast(p[f"recurrent_bias_{l}"], dt) for l in range(len(dims))]
             carry = [(_zeros(b_dim, d, x), _zeros(b_dim, d, x)) for d in dims]
         else:
-            b_x = [p[f"input_bias_{l}"].to(dt) for l in range(1, len(dims))]
-            w_rz = [p[f"recurrent_kernel_rz_{l}"].to(dt) for l in range(len(dims))]
-            w_n = [p[f"recurrent_kernel_n_{l}"].to(dt) for l in range(len(dims))]
+            b_x = [cast(p[f"input_bias_{l}"], dt) for l in range(1, len(dims))]
+            w_rz = [cast(p[f"recurrent_kernel_rz_{l}"], dt) for l in range(len(dims))]
+            w_n = [cast(p[f"recurrent_kernel_n_{l}"], dt) for l in range(len(dims))]
             b_n = [p[f"recurrent_bias_n_{l}"] for l in range(len(dims))]
             carry = [_zeros(b_dim, d, x) for d in dims]
         for z1_t in z1.unbind(0):
@@ -627,7 +638,7 @@ class StackedRecurrent(nn.Module):
                     h = carry[layer] = gru_cell_step(
                         carry[layer], z_t, w_rz[layer], w_n[layer], b_n[layer], act, dt, d
                     )
-                inp = h.to(dt)
+                inp = cast(h, dt)
         return inp
 
 
@@ -698,7 +709,7 @@ class LSTMNet(nn.Module):
             for layer in self.layers:
                 x = layer(x)
             h = x[-1]
-        out = self.out_func(self.head(h)).float()
+        out = cast(self.out_func(self.head(h)), torch.float32)
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
 
@@ -771,4 +782,4 @@ class SequentialNet(nn.Module):
                 x = resolve_activation(kwargs.get("activation", "linear"))(x)
             else:  # flatten
                 x = x.reshape(x.shape[0], -1)
-        return x.float(), torch.zeros((), dtype=torch.float32, device=x.device)
+        return cast(x, torch.float32), torch.zeros((), dtype=torch.float32, device=x.device)

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gordo_tpu_torch.models.specs import Dense, dropout
+from gordo_tpu_torch.models.specs import Dense, cast, dropout
 from gordo_tpu_torch.ops.activations import resolve_activation
 from gordo_tpu_torch.ops.flash_attention import flash_attention
 
@@ -81,7 +81,7 @@ class LayerNorm(nn.LayerNorm):
         super().__init__(d_model, eps=LAYER_NORM_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+        return super().forward(cast(x, torch.float32))
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -196,12 +196,12 @@ class TransformerNet(nn.Module):
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
         h = self.embed(x)
-        h = h + sinusoidal_positions(x.shape[1], self.d_model, device=h.device).to(h.dtype)
+        h = h + cast(sinusoidal_positions(x.shape[1], self.d_model, device=h.device), h.dtype)
         h = dropout(h, self.dropout, self.training, generator)
         for block in self.blocks:
             h = block(h, generator)
         h = self.norm(h)[:, -1, :]
-        return self.out_func(self.head(h)).float()
+        return cast(self.out_func(self.head(h)), torch.float32)
 
 
 class Conv(nn.Conv1d):
@@ -217,8 +217,8 @@ class Conv(nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        out = F.conv1d(x.to(dt), self.weight.to(dt), dilation=self.dilation)
-        return out + self.bias.to(dt)[:, None]
+        out = F.conv1d(cast(x, dt), cast(self.weight, dt), dilation=self.dilation)
+        return out + cast(self.bias, dt)[:, None]
 
 
 def _over_channels(func, h: torch.Tensor) -> torch.Tensor:
@@ -290,7 +290,7 @@ class TCNNet(nn.Module):
         h = x.transpose(1, 2)
         for block in self.blocks:
             h = block(h, generator)
-        out = self.out_func(self.head(h[:, :, -1])).float()
+        out = cast(self.out_func(self.head(h[:, :, -1])), torch.float32)
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
 

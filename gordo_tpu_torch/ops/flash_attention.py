@@ -32,8 +32,11 @@ JAX wrapper are gone; the per-row log-sum-exp (and the backward's
 
 :func:`flash_attention` is differentiable through
 :class:`FlashAttentionFunction`, which saves (q, k, v, out, lse) as the
-JAX custom VJP does. Its backward runs the dq kernel, which also writes
-delta, and then the dk/dv kernel, which reads it.
+JAX custom VJP does. Its backward (:class:`FlashAttentionBackward`) runs
+the dq kernel, which also writes delta, and then the dk/dv kernel, which
+reads it. Both work under ``torch.func.vmap`` (the fleet trainer's
+machine axis): the vmapped axis is folded into the batch axis and the
+same kernels launch once on the folded tensors.
 
 ``launch_counts`` counts kernel launches by entry point and
 ``kernel_launches`` by the CUDA kernel each ran, so a run can show that
@@ -595,32 +598,115 @@ def flash_attention_backward(
     return dq, dk, dv
 
 
+def _batch_first(x: torch.Tensor, dim: Optional[int], size: int) -> torch.Tensor:
+    """A vmapped argument with its vmapped axis first (broadcast to
+    ``size`` when it has none)."""
+    if dim is None:
+        return x.expand(size, *x.shape)
+    return x.movedim(dim, 0)
+
+
+def _machine_slices(n: int, rows_per_machine: int):
+    """Slices of the vmapped axis whose folded launches keep batch * heads *
+    seq, and with it every kernel's 1-D grid, within int32."""
+    step = max(1, _INT32_MAX // max(1, rows_per_machine))
+    return [slice(start, min(start + step, n)) for start in range(0, n, step)]
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """(M, B, ...) -> (M * B, ...)."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its backward in the two backward kernels
     (their plain version on CPU tensors): the port of the JAX custom VJP.
-    q, k and v are padded to the kernel width once, in the forward, and
-    saved so; the backward pads only dO."""
+    Returns (out, lse); lse is not differentiable.
+
+    It works under ``torch.func`` transforms: the forward takes no ctx
+    (``setup_context`` saves q, k, v, out and lse), the backward is
+    :class:`FlashAttentionBackward`, itself vmappable, and under ``vmap``
+    both fold the vmapped axis into the batch axis, (M, B, S, H, D) ->
+    (M·B, S, H, D), launch the same kernels on the folded tensors and
+    unfold what they return, so a kernel never sees a batched tensor. A
+    fleet of M machines thus launches each kernel once for all of them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        head_dim = q.shape[-1]
-        q, k, v = _to_width(kernel_width(q.shape[-1]), q, k, v)
-        out, lse = flash_attention_forward(q, k, v, causal, sm_scale)
+    def forward(q, k, v, causal: bool, sm_scale: float):
+        return flash_attention_forward(q, k, v, causal, sm_scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, sm_scale = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.sm_scale = sm_scale
-        ctx.head_dim = head_dim
-        return _heads(out, head_dim)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, d_out):
+    def backward(ctx, d_out, _d_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        (d_out,) = _to_width(q.shape[-1], d_out)
-        dq, dk, dv = flash_attention_backward(
+        dq, dk, dv = FlashAttentionBackward.apply(
             q, k, v, out, lse, d_out, ctx.causal, ctx.sm_scale
         )
-        return (*(_heads(g, ctx.head_dim) for g in (dq, dk, dv)), None, None)
+        return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, sm_scale):
+        n = info.batch_size
+        q, k, v = (_batch_first(x, d, n) for x, d in zip((q, k, v), in_dims))
+        batch, seq, heads = q.shape[1], q.shape[2], q.shape[3]
+        outs, lses = [], []
+        for part in _machine_slices(n, batch * heads * seq):
+            out, lse = FlashAttentionFunction.apply(
+                _fold(q[part]), _fold(k[part]), _fold(v[part]), causal, sm_scale
+            )
+            outs.append(out.reshape(-1, batch, *out.shape[1:]))
+            lses.append(lse.reshape(-1, batch * heads, seq))
+        return (torch.cat(outs), torch.cat(lses)), (0, 0)
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """(dq, dk, dv) of flash attention from the forward's residuals and dO:
+    the dq kernel, which also writes delta, then the dk/dv kernel (their
+    plain versions on CPU tensors). q, k, v, out and dO are padded to the
+    kernel width once. Vmappable by the forward's folding rule; not
+    differentiable itself (no double backward)."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, d_out, causal: bool, sm_scale: float):
+        head_dim = q.shape[-1]
+        q, k, v, out, d_out = _to_width(kernel_width(head_dim), q, k, v, out, d_out)
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, d_out, causal, sm_scale)
+        return tuple(_heads(g, head_dim) for g in (dq, dk, dv))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "flash attention's gradients are once_differentiable: the backward kernels "
+            "have no backward of their own"
+        )
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, d_out, causal, sm_scale):
+        n = info.batch_size
+        q, k, v, out, lse, d_out = (
+            _batch_first(x, d, n) for x, d in zip((q, k, v, out, lse, d_out), in_dims)
+        )
+        batch, seq, heads = q.shape[1], q.shape[2], q.shape[3]
+        grads = []
+        for part in _machine_slices(n, batch * heads * seq):
+            folded = FlashAttentionBackward.apply(
+                _fold(q[part]), _fold(k[part]), _fold(v[part]), _fold(out[part]),
+                _fold(lse[part]), _fold(d_out[part]), causal, sm_scale,
+            )
+            grads.append([g.reshape(-1, batch, *g.shape[1:]) for g in folded])
+        return tuple(torch.cat(parts) for parts in zip(*grads)), (0, 0, 0)
 
 
 def flash_attention(
@@ -637,4 +723,5 @@ def flash_attention(
     differentiable on both devices.
     """
     _check_inputs(q, k, v)
-    return FlashAttentionFunction.apply(q, k, v, causal, _default_scale(q, sm_scale))
+    out, _ = FlashAttentionFunction.apply(q, k, v, causal, _default_scale(q, sm_scale))
+    return out

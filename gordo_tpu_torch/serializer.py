@@ -37,6 +37,7 @@ from typing import Any, Dict, Tuple, Union
 import numpy as np
 
 from gordo_tpu_torch.device import DeviceLike
+from gordo_tpu_torch.models.callbacks import Callback, EarlyStopping, TerminateOnNaN
 from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 from gordo_tpu_torch.models.models import (
     AutoEncoder,
@@ -90,7 +91,39 @@ MODEL_CLASSES.update(
     KerasRawModelRegressor=RawModelRegressor,
 )
 
+#: the training callbacks a model's ``callbacks`` fit argument may name,
+#: under any of these class path prefixes (the Keras ones of reference
+#: configs, the JAX package's and the port's)
+CALLBACK_CLASSES = {cls.__name__: cls for cls in (Callback, EarlyStopping, TerminateOnNaN)}
+CALLBACK_PREFIXES = (
+    "tensorflow.keras.callbacks.",
+    "keras.callbacks.",
+    "gordo_tpu.models.callbacks.",
+    "gordo_tpu_torch.models.callbacks.",
+)
+
 PathLike = Union[str, os.PathLike]
+
+
+def callback_from_definition(definition: Union[str, Dict[str, Any]]) -> Callback:
+    """``"<class path>"`` or ``{"<class path>": kwargs}`` of a training
+    callback -> the port's callback; ValueError for one it does not
+    have (e.g. ``ReduceLROnPlateau``)."""
+    if isinstance(definition, str):
+        definition = {definition: {}}
+    if not isinstance(definition, dict) or len(definition) != 1:
+        raise ValueError(f"A definition has exactly one class path key: {definition!r}")
+    path, kwargs = next(iter(definition.items()))
+    prefix, _, name = str(path).rpartition(".")
+    if prefix + "." not in CALLBACK_PREFIXES or name not in CALLBACK_CLASSES:
+        raise ValueError(f"{path!r} is not a training callback the port has")
+    return CALLBACK_CLASSES[name](**dict(kwargs or {}))
+
+
+def callback_into_definition(callback: Callback) -> Dict[str, Any]:
+    """The definition :func:`callback_from_definition` reads back."""
+    cls = type(callback)
+    return {f"{cls.__module__}.{cls.__name__}": callback.get_params()}
 
 
 def _pipeline_step(step) -> Tuple[str, Any]:

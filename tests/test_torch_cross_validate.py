@@ -17,10 +17,10 @@ parity builds turn ``shuffle`` off; the CLI builds in
 ``cross_validate`` parity: both detectors train every fold from the JAX
 init of the same seed (``solo_init_key``; the port gets it through
 ``_initial_state``) with dropout 0 and no shuffle, so the folds see the
-same batches. The JAX detector takes its sequential scikit-learn path,
-the port's only path (its vmapped fold program trains another masked
-schedule). Thresholds rtol 1e-3: float32 training in another summation
-order, through a rolling min/max of the fold errors.
+same batches. Both take their fold-parallel path (the folds as one fleet
+fit, ``cv-fast-path`` true), as a bare estimator's do.
+Thresholds rtol 1e-3: float32 training in another summation order,
+through a rolling min/max of the fold errors.
 """
 
 import copy
@@ -184,7 +184,6 @@ def cv_pair():
     jax_detector = JaxDetector(
         base_estimator=JaxTransformerAutoEncoder(attention_impl="dense", **BASE), window=12
     )
-    jax_detector._folds_batchable = lambda *args, **kwargs: False
     jax_scorers = JaxModelBuilder.build_metrics_dict(
         JaxModelBuilder.metrics_from_list(None), frame, scaler=RobustScaler()
     )
@@ -207,7 +206,8 @@ def cv_pair():
 
 def test_cross_validate_thresholds_match_jax(cv_pair):
     jax_detector, port_detector, _, _ = cv_pair
-    assert port_detector.cv_fast_path_ is False
+    assert port_detector.cv_fast_path_ is True
+    assert jax_detector.cv_fast_path_ is True
     for attr in ("aggregate_thresholds_per_fold_", "smooth_aggregate_thresholds_per_fold_"):
         got, want = getattr(port_detector, attr), getattr(jax_detector, attr)
         assert list(got) == list(want) == ["fold-0", "fold-1", "fold-2"]
@@ -242,7 +242,7 @@ def test_detector_metadata_matches_jax(cv_pair):
     jax_detector, port_detector, _, _ = cv_pair
     got, want = _jsonable(port_detector.get_metadata()), _jsonable(jax_detector.get_metadata())
     assert set(got) == set(want)
-    assert got["cv-fast-path"] is False
+    assert got["cv-fast-path"] is want["cv-fast-path"] is True
     for key in ("aggregate-thresholds-per-fold", "smooth-aggregate-thresholds-per-fold",
                 "feature-thresholds-per-fold", "smooth-feature-thresholds-per-fold"):
         assert set(got[key]) == set(want[key]), key
@@ -311,7 +311,7 @@ def test_builder_metadata_has_the_jax_keys(built):
     assert build_metadata["model"]["model_offset"] == LOOKBACK - 1
     assert model.base_estimator.kwargs["seed"] == 5  # the evaluation seed, injected
     meta = build_metadata["model"]["model_meta"]
-    assert meta["cv-fast-path"] is False
+    assert meta["cv-fast-path"] is True  # a bare estimator's folds train as one fleet fit
     assert len(meta["aggregate-thresholds-per-fold"]) == 3
     assert set(machine.to_dict()) == {
         "name", "project_name", "dataset", "model", "evaluation", "metadata", "runtime"

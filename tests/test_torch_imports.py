@@ -55,5 +55,10 @@ def test_port_imports_no_jax_and_no_missing_libraries():
         "gordo_tpu_torch.workflow.config_elements.normalized_config",
         "gordo_tpu_torch.machine.machine",
         "gordo_tpu_torch.builder.local_build",
+        "gordo_tpu_torch.builder.fleet_build",
+        "gordo_tpu_torch.models.optim",
+        "gordo_tpu_torch.models.callbacks",
+        "gordo_tpu_torch.parallel.fleet",
+        "gordo_tpu_torch.parallel.bucketing",
     } <= set(names)
     assert loaded == []
