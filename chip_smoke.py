@@ -44,9 +44,9 @@ Phases, each raising on failure (no result line is printed then):
    21 744 rows of seeded daily sinusoids plus noise) with the evaluation
    defaults (TimeSeriesSplit(3) cross-validation with the four metrics,
    its three folds trained at once as one fleet fit, thresholds, then the
-   fit), 5 epochs where the config has 10 (the build's eager steps are
-   host-bound, and on a slow host 10 epochs took 265 s, over the phase's
-   3-minute budget); launch counts reset just before and read just after
+   fit), 2 epochs where the config has 10 (the build's eager steps are
+   host-bound: on a slow host 10 epochs took 265 s, over the phase's
+   3-minute budget, and 5 took 108 s of a 639 s script); launch counts reset just before and read just after
    (each backward kernel exactly ``n_layers`` times per optimizer step, a
    CV step launching once for all three folds); the artifact it writes served
    over HTTP; one full-width training step on the card against the same
@@ -82,8 +82,10 @@ Phases, each raising on failure (no result line is printed then):
    unfused cells, each a ``DiffBasedAnomalyDetector`` built by
    ``python -m gordo_tpu_torch.cli build`` in a subprocess on the card
    (16 414 rows at 10 minutes, as the JAX data layer gives; 1 epoch where
-   bench.py trains 3), served over HTTP on the card with 144 rows and the
-   whole history (medians of 5), each reply within 1e-4 of the CPU's;
+   bench.py trains 3), served over HTTP on the card with 144 rows
+   (medians of 5) and the LSTM once with its whole history (the other
+   whole-history requests were cut to keep the script within 600 s),
+   each reply within 1e-4 of the CPU's;
    build, CV and fit seconds, steps/s, one training step's ms, and its
    CUDA launches and the device's idle share over a torch.profiler window
    of 3 steps (20 with ``--profile``, which adds the kernel breakdown);
@@ -95,7 +97,7 @@ Phases, each raising on failure (no result line is printed then):
    ``FunctionTransformer(multiply_by)``, ``MinMaxScaler`` and an
    ``AutoEncoder``), built by the port's ``local_build`` on the card in
    this process, each artifact served over HTTP on the card with 144 rows
-   and the whole history (medians of 5), each reply within 1e-4 (TCN) or
+   (medians of 5) and the whole history (once), each reply within 1e-4 (TCN) or
    1e-5 of the CPU's; build, CV and fit seconds, the TCN's training step,
    its launches and idle share over 3 profiled steps, its receptive
    field; no flash kernel launches on this path;
@@ -113,7 +115,28 @@ Phases, each raising on failure (no result line is printed then):
    machine batch; 3 fleet steps card against CPU; fleet and solo step
    times, launches a step and idle share; each bucket's CV and fit
    seconds and the path's flash launches;
-11. one JSON line of per-kernel numbers, each time with the timer that
+11. fleet serving: phase 10's collection served on the card by the
+   fleet routes: ``/anomaly/prediction/fleet`` for the four Transformers
+   (one group, one stacked forward: one flash forward launch a layer for
+   all four, against one a layer a machine for four solo requests, and no
+   backward launch) at 144 and 8255 rows, each machine's reply within
+   rtol 1e-4 / atol 1e-5 of its own ``/anomaly/prediction`` value by
+   value (the anomaly columns at that bound carried through the
+   detector's scaling and thresholds) and the reply within 1e-4 of the
+   CPU's; ``/prediction/fleet`` with all eight machines (two groups,
+   each scattered into its resident stack), a 3-of-4 subset (scattered)
+   and a 1-of-4 subset (a gathered copy), each within 1e-4 of the
+   CPU's; the path's launch counts take the fleet requests only; ``SERVE_CLIENTS`` concurrent clients coalesced by a batcher
+   (``BATCH_WAIT_MS``), each reply within 1e-6 of the unbatched one;
+   then ``build-fleet --precision auto`` of ``BF16_MACHINES`` (4032 rows,
+   1 epoch; the second computing in bfloat16) in a subprocess, each
+   served group taking the report's decision, replies within 2e-2 of the
+   CPU's, each group's flash forward counted by kernel and input type,
+   and the folded bf16 forward at the served shape against its plain
+   version; fleet and solo request times, one dispatch's device time,
+   a request's launches and idle share, requests a second batched and
+   not, bf16 against float32 request times;
+12. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -178,8 +201,9 @@ METRIC_NAMES = ("explained_variance_score", "r2_score", "mean_squared_error",
                 "mean_absolute_error")
 # epochs of the train phase, cut from the config's 10: the build's eager
 # steps are host-bound and the card's host speed varies about 3x; on a
-# slow host 10 epochs took 265 s of build, over the phase's 3-minute budget
-TRAIN_EPOCHS = 5
+# slow host 10 epochs took 265 s of build, over the phase's 3-minute
+# budget, and 5 took 108 s of a 639 s script once phase 11 came in
+TRAIN_EPOCHS = 2
 # training steps timed (and, with --profile, traced) after the build
 TIMED_STEPS = 50
 PROFILED_STEPS = 20
@@ -259,10 +283,15 @@ RECURRENT_MACHINES = {
 # rows the JAX data layer gives each (tests/test_torch_cli.py)
 RECURRENT_ROWS = 16414
 RECURRENT_COLLECTION = "1700000000003"
-# timed whole-history requests of each phase-8 machine, cut from REPEATS:
-# each takes 5.5-8.7 s of host JSON on an H100's host, and at 5 the two
-# machines' serving took about 150 s of a 660 s run on a slow host
-RECURRENT_HISTORY_REPEATS = 3
+# timed whole-history requests of the phase-8 machines, cut from REPEATS
+# each to 3, then to one request of the LSTM when phase 11 took the script
+# past 600 s: each takes 5.5-8.7 s of host JSON on an H100's host and its
+# CPU comparison 10-13 s, and the two machines' 3 with their CPU
+# comparisons took about 63 s of a 637 s run
+RECURRENT_HISTORY_REPEATS = {"lstm-plant-50": 1}
+# timed whole-history requests of phase 9's machines, cut from REPEATS for
+# the same reason (the TCN's take 7.5-8.6 s each)
+PROJECT_HISTORY_REPEATS = 1
 # training batch of the 50-tag plant machines (phases 8 and 9)
 PLANT_BATCH = 512
 
@@ -370,9 +399,30 @@ FLEET_DRIVER = (
     "from gordo_tpu_torch.ops import flash_attention as fa\n"
     "code = main(sys.argv[2:])\n"
     "with open(sys.argv[1], 'w') as fh:\n"
-    "    json.dump(fa.kernel_launches, fh)\n"
+    "    json.dump({'kernels': fa.kernel_launches, 'typed': fa.typed_launches}, fh)\n"
     "sys.exit(code)\n"
 )
+
+# Phase 11 serves phase 10's collection: the four Transformers at 144 rows
+# each and at the whole-history size of phase 4 (8255 rows), all eight
+# machines, a 3-of-4 and a 1-of-4 subset, SERVE_CLIENTS concurrent clients
+# batched (BATCH_WAIT_MS) and not; then `build-fleet --precision auto` of
+# BF16_MACHINES over BF16_DAYS days at 10 minutes (a random provider of
+# 4032 samples a tag, which the data layer makes 4030 and 4032 rows: a
+# tag's empty first buckets drop out; cut from the config's 151 days; 1
+# epoch where the config has 10, as phase 10 cuts): the config's model
+# (float32 layers) and the same model computing in bfloat16 (`dtype:
+# bfloat16`), one bucket each, served from the card
+SERVE_ROWS = (144, 8255)
+SERVE_CLIENTS = 8
+SERVE_ROUNDS = 3
+# timed 8255-row fleet requests (each with four whole-history frames of JSON)
+WHOLE_HISTORY_REPEATS = 2
+BATCH_WAIT_MS = 5.0
+BF16_COLLECTION = "1700000000006"
+BF16_DAYS = 28
+BF16_ROWS = (4024, 4033)  # the least and most rows a machine may have
+BF16_MACHINES = (f"{MACHINE}-bf16-0", f"{MACHINE}-bf16-1")
 
 
 def log(*parts) -> None:
@@ -1013,22 +1063,25 @@ def post(url: str, payload: bytes):
 
 
 @contextlib.contextmanager
-def http_server(collection: str, machine: str = MACHINE):
-    """The port's server over ``collection`` on the card, on a free local
-    port, for the ``with`` block; yields ``machine``'s base URL."""
+def http_server(collection: str, machine: str = MACHINE, app=None):
+    """The port's server over ``collection`` on the card (or ``app``), on a
+    free local port, for the ``with`` block; yields ``machine``'s base URL
+    (with ``machine=None`` the project's)."""
     from gordo_tpu_torch.server.app import build_app
     from gordo_tpu_torch.server.runner import make_http_server
 
-    app = build_app(collection)  # the card: no device argument
+    app = app or build_app(collection)  # the card: no device argument
     server = make_http_server(app, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        yield f"http://127.0.0.1:{server.server_port}/gordo/v0/{PROJECT}/{machine}"
+        base = f"http://127.0.0.1:{server.server_port}/gordo/v0/{PROJECT}"
+        yield base if machine is None else f"{base}/{machine}"
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+        app.catalog.stop()
 
 
 def block_array(block: dict, keys) -> "list":
@@ -1820,7 +1873,7 @@ def recurrent_phase(torch, fa, profile: bool):
             t0 = time.perf_counter()
             row["requests"] = serve_built(torch, collection, machine, X, stamps,
                                           ("anomaly/prediction",), 1e-4,
-                                          RECURRENT_HISTORY_REPEATS)
+                                          RECURRENT_HISTORY_REPEATS.get(name, 0))
             row["serve_check_s"] = time.perf_counter() - t0
             row["step"] = time_window_steps(torch, machine, X, profile)
             report[name] = row
@@ -1974,7 +2027,7 @@ def project_build_phase(torch, fa, profile: bool):
             X, _, stamps = _get_dataset(machine["dataset"]).get_data()
             routes, bound = PROJECT_SERVING[name]
             report[name]["requests"] = serve_built(torch, collection, machine, X, stamps, routes,
-                                                   bound)
+                                                   bound, PROJECT_HISTORY_REPEATS)
             if name == "tcn-plant-50":
                 tcn["step"] = time_window_steps(torch, machine, X, profile)
                 tcn["receptive_field"] = receptive_field(3, (1, 2, 4))
@@ -2154,7 +2207,7 @@ def time_fleet_steps(torch, Xs):
     return timing
 
 
-def fleet_build_phase(torch, fa, profile: bool):
+def fleet_build_phase(torch, fa, profile: bool, workdir: Optional[str] = None):
     """Phase 10: ``fleet_machines`` built by ``build-fleet`` in a
     subprocess on the card (the CLI's ``main``, with the process's flash
     launches written out at its end): all eight machines in one process,
@@ -2164,7 +2217,9 @@ def fleet_build_phase(torch, fa, profile: bool):
     (144 rows, medians of ``REPEATS``) from the output, each reply within
     1e-4 of the same artifact served on the CPU; the vmapped flash check;
     ``FLEET_PARITY_STEPS`` fleet steps card against CPU; fleet and solo
-    step times, launches a step and idle share."""
+    step times, launches a step and idle share. With ``workdir`` the
+    collection is built there and kept (``report["collection"]``: phase 11
+    serves it); else in a temporary directory."""
     import numpy as np
 
     from gordo_tpu_torch import serializer
@@ -2173,8 +2228,11 @@ def fleet_build_phase(torch, fa, profile: bool):
     root = os.path.dirname(os.path.abspath(__file__))
     machines = fleet_machines(root)
     report = {"machines": [m["name"] for m in machines]}
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.ExitStack() as stack:
+        tmp = workdir or stack.enter_context(tempfile.TemporaryDirectory())
         collection = os.path.join(tmp, FLEET_COLLECTION)
+        if workdir:
+            report["collection"] = collection
         listing, counts = os.path.join(tmp, "machines.yaml"), os.path.join(tmp, "launches.json")
         with open(listing, "w") as fh:
             fh.write(yaml_text(machines) + "\n")
@@ -2195,7 +2253,8 @@ def fleet_build_phase(torch, fa, profile: bool):
                 f"{built.stderr[-4000:]}"
             )
         with open(counts) as fh:
-            report["kernel_launches"] = json.load(fh)
+            launched = json.load(fh)
+        report["kernel_launches"], report["typed_launches"] = launched["kernels"], launched["typed"]
         with open(os.path.join(collection, "build_report.json")) as fh:
             build_report = json.load(fh)
         with open(os.path.join(collection, "telemetry_report.json")) as fh:
@@ -2240,6 +2299,488 @@ def fleet_build_phase(torch, fa, profile: bool):
     report["step_parity"] = fleet_step_check(torch, fa, Xs)
     report["step_timing"] = time_fleet_steps(torch, Xs)
     return report
+
+
+def frame_of(X, keys, tags, rows: slice) -> dict:
+    """``{tag: {stamp: value}}`` of rows ``rows`` of X."""
+    return {tag: dict(zip(keys[rows], X[rows, j].tolist())) for j, tag in enumerate(tags)}
+
+
+def block_rel_diff(got: dict, want: dict, rtol: float, atol: float) -> float:
+    """Largest |got - want| / (atol + rtol |want|) over two replies' numeric
+    blocks, at most 1 when every value is within the tolerance. Where it
+    is above 1, the worst value is logged."""
+    import numpy as np
+
+    if set(got) != set(want):
+        raise AssertionError(f"reply blocks differ: {sorted(set(got) ^ set(want))}")
+    worst, where = 0.0, None
+    for top, block in want.items():
+        if top in ("start", "end"):
+            continue
+        for label, column in block.items():
+            a = np.asarray(list(got[top][label].values()), dtype=np.float64)
+            b = np.asarray(list(column.values()), dtype=np.float64)
+            if list(got[top][label]) != list(column) or not np.isfinite(a).all():
+                raise AssertionError(f"{top}/{label}: rows or values differ")
+            ratio = np.abs(a - b) / (atol + rtol * np.abs(b))
+            i = int(ratio.argmax())
+            if ratio[i] > worst:
+                worst, where = float(ratio[i]), (top, label, i, float(a[i]), float(b[i]))
+    if worst > 1.0:
+        log("worst value", json.dumps(where), "ratio", worst)
+    return worst
+
+
+def anomaly_bound_ratios(got: dict, want: dict, detector, rtol: float, atol: float) -> dict:
+    """Largest |got - want| / bound, block by block, of two anomaly replies
+    of ``detector`` (the ``want`` reply's model output taken as the true
+    one), value by value. ``model-output`` is held at e = atol + rtol
+    |output|, and each anomaly column at e carried through the detector's
+    arithmetic: |output - y| keeps it, scaling divides it by the tag's
+    scale, a total (the mean square over tags) takes the mean of 2 |a| e +
+    e^2, and a confidence divides by its threshold; so a wrong scale or
+    threshold on one side shows as a ratio far above 1."""
+    import numpy as np
+
+    def arrays(reply):
+        return {top: np.asarray([list(column.values()) for column in block.values()],
+                                dtype=np.float64).T
+                for top, block in reply.items() if top not in ("start", "end")}
+
+    if set(got) != set(want):
+        raise AssertionError(f"reply blocks differ: {sorted(set(got) ^ set(want))}")
+    for top, block in want.items():
+        for label, column in block.items():
+            if top not in ("start", "end") and list(got[top][label]) != list(column):
+                raise AssertionError(f"{top}/{label}: rows differ")
+    if detector.window is not None:
+        raise AssertionError("no bound is derived here for a smoothed detector")
+    a, b = arrays(got), arrays(want)
+    e = atol + rtol * np.abs(b["model-output"])
+    e_scaled = e / np.asarray(detector.scaler.scale_, dtype=np.float64)
+
+    def total(flavor, err):
+        return (2 * b[f"tag-anomaly-{flavor}"] * err + err ** 2).mean(axis=1, keepdims=True)
+
+    bounds = {
+        "model-input": np.full_like(e, atol),
+        "model-output": e,
+        "tag-anomaly-unscaled": e,
+        "tag-anomaly-scaled": e_scaled,
+        "total-anomaly-unscaled": total("unscaled", e),
+        "total-anomaly-scaled": total("scaled", e_scaled),
+    }
+    if detector.feature_thresholds_ is not None:
+        bounds["anomaly-confidence"] = e_scaled / np.asarray(detector.feature_thresholds_)
+    if detector.aggregate_threshold_ is not None:
+        bounds["total-anomaly-confidence"] = (bounds["total-anomaly-scaled"]
+                                              / detector.aggregate_threshold_)
+    if set(b) != set(bounds):
+        raise AssertionError(f"blocks with no derived bound: {sorted(set(b) ^ set(bounds))}")
+    if not all(np.isfinite(x).all() for x in a.values()):
+        raise AssertionError("a reply holds values that are not finite")
+    return {top: float((np.abs(a[top] - b[top]) / bounds[top]).max()) for top in b}
+
+
+def post_all(url: str, payloads: list) -> list:
+    """Each payload POSTed to ``url`` from its own thread, all released at
+    once: [(reply, seconds)] in payload order."""
+    barrier = threading.Barrier(len(payloads))
+    out = [None] * len(payloads)
+
+    def run(i):
+        barrier.wait()
+        out[i] = post(url, payloads[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if any(item is None for item in out):
+        raise AssertionError(f"a concurrent POST to {url} failed")
+    return out
+
+
+def profile_window(torch, fn, reps: int = REPEATS, tries: int = 3):
+    """(wall ms, device ms, CUDA kernels launched), each a call, of
+    ``reps`` calls of ``fn`` under torch.profiler (CUDA activity of every
+    thread of the process). A trace now and then comes back with no
+    kernel; it is taken again, up to ``tries`` times, and then the device
+    numbers are None: not measured."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        rows, total_us = kernel_rows(prof)
+        if total_us > 0:
+            return wall_ms, total_us / 1e3 / reps, sum(r["count"] for r in rows) / reps
+    log(f"profile_window: {tries} traces with no kernel; device time not measured")
+    return wall_ms, None, None
+
+
+def bf16_machines(root: str) -> list:
+    """Phase 11's bf16 build: the first two of ``fleet_machines`` renamed,
+    over ``BF16_DAYS`` days; the second computing in bfloat16."""
+    machines = []
+    for i, machine in enumerate(fleet_machines(root)[:2]):
+        dataset = dict(machine["dataset"])
+        start = datetime.fromisoformat(str(dataset["train_start_date"]))
+        samples = BF16_DAYS * 144
+        dataset.update(train_end_date=(start + timedelta(days=BF16_DAYS)).isoformat(),
+                       data_provider={"type": "RandomDataProvider", "min_size": samples,
+                                      "max_size": samples})
+        model = json.loads(json.dumps(machine["model"]))
+        if i == 1:
+            (detector,) = model.values()
+            (base,) = detector["base_estimator"].values()
+            base["dtype"] = "bfloat16"
+        machines.append(dict(machine, name=BF16_MACHINES[i], dataset=dataset, model=model))
+    return machines
+
+
+def fleet_serve_phase(torch, fa, profile: bool, collection: str):
+    """Phase 11: phase 10's collection served by the fleet routes on the
+    card (``/anomaly/prediction/fleet`` for the four Transformers at each of
+    ``SERVE_ROWS``, each machine's reply against its own
+    ``/anomaly/prediction`` and the fleet reply against the CPU's; all
+    eight machines in two groups, a 3-of-4 and a 1-of-4 subset on
+    ``/prediction/fleet`` against the CPU), flash launches of a fleet
+    request against four solo ones (no backward kernel), coalescing of
+    ``SERVE_CLIENTS`` concurrent clients, and the bf16 build and serve;
+    times on the host clock, one dispatch's device time and a request's
+    launches and idle share by torch.profiler."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.data.base import to_datetimes
+    from gordo_tpu_torch.server.app import GordoApp, build_app
+    from gordo_tpu_torch.server.fleet_serving import fleet_scorer_from_models
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_layers = BASE_ESTIMATOR["n_layers"]
+    transformers = [f"{MACHINE}-{i}" for i in range(FLEET_TRANSFORMERS)]
+    names = transformers + [m["name"] for m in fleet_machines(root)[FLEET_TRANSFORMERS:]]
+    data = {}
+    for name in names:
+        metadata = serializer.load_metadata(os.path.join(collection, name))
+        X, _, stamps = _get_dataset(metadata["dataset"]).get_data()
+        keys = [stamp.isoformat() for stamp in to_datetimes(stamps.astype(np.int64))]
+        data[name] = (np.asarray(X), keys, metadata["dataset"]["tag_list"])
+
+    def machines_body(chosen, n_rows, anomaly, start=0):
+        body = {}
+        for name in chosen:
+            X, keys, tags = data[name]
+            frame = frame_of(X, keys, tags, slice(start, start + n_rows))
+            body[name] = {"X": frame, "y": frame} if anomaly else frame
+        return json.dumps({"machines": body}).encode()
+
+    report = {"requests": []}
+    cpu_app = GordoApp(collection, device="cpu", batch_wait_ms=0)
+
+    def cpu_reply(route, payload):
+        reply = cpu_app.dispatch("POST", f"/gordo/v0/{PROJECT}/{route}", lambda: payload)
+        if reply.status != 200:
+            raise AssertionError(f"{route} on the CPU answered {reply.status}")
+        return reply.payload["data"]
+
+    def against_cpu(label, route, payload, reply, chosen, tolerance=1e-4):
+        cpu = cpu_reply(route, payload)
+        diff = max(block_rel_diff(reply["data"][n], cpu[n], 0.0, tolerance) for n in chosen)
+        log("fleet served", label, "card vs cpu (x 1e-4)", diff)
+        if not diff <= 1.0:
+            raise AssertionError(f"{label}: card and CPU differ by {diff} x {tolerance}")
+        return diff * tolerance
+
+    sections, t_section = {}, [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        sections[name] = now - t_section[0]
+        t_section[0] = now
+
+    app = build_app(collection, batch_wait_ms=0)
+    with http_server(collection, None, app=app) as base:
+        anomaly_url, predict_url = f"{base}/anomaly/prediction/fleet", f"{base}/prediction/fleet"
+        payloads = {n_rows: machines_body(transformers, n_rows, True) for n_rows in SERVE_ROWS}
+        post(anomaly_url, payloads[144])  # loads the models and builds the scorer
+        ((scorer, _, _),) = app.catalog._fleet_scorers.values()
+        report["groups_all_eight"] = scorer.n_groups
+        if scorer.n_groups != 2:
+            raise AssertionError(f"all eight machines in {scorer.n_groups} groups, expected 2")
+        replies = {}
+        fa.reset_launch_counts()
+        # the main path, fleet requests only: counts from 0 just before,
+        # read just after
+        for n_rows in SERVE_ROWS:
+            times = []
+            for _ in range(REPEATS if n_rows == 144 else WHOLE_HISTORY_REPEATS):
+                replies[n_rows], seconds = post(anomaly_url, payloads[n_rows])
+                times.append(seconds)
+            section(f"anomaly_{n_rows}_rows")
+            row = {"route": "anomaly/prediction/fleet", "machines": len(transformers),
+                   "rows": n_rows, "median_s": statistics.median(times), "seconds": times,
+                   "card_vs_cpu": against_cpu(f"{n_rows} rows", "anomaly/prediction/fleet",
+                                              payloads[n_rows], replies[n_rows], transformers)}
+            report["requests"].append(row)
+            section(f"anomaly_{n_rows}_rows_cpu")
+        # every group in full, a subset that rounds up to the group (scattered
+        # into the resident stack) and one machine (a gathered copy, the
+        # machine axis floored at 2)
+        for label, chosen, source in (("all eight", names, {"resident": 2}),
+                                      ("3 of 4", transformers[:3], {"resident": 1}),
+                                      ("1 of 4", transformers[2:3], {"gathered": 1})):
+            payload = machines_body(chosen, 144, False)
+            before = scorer.dispatch_counts()
+            reply, seconds = post(predict_url, payload)
+            after = scorer.dispatch_counts()
+            dispatched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            if sorted(reply["data"]) != sorted(chosen):
+                raise AssertionError(f"{label}: replies for {sorted(reply['data'])}")
+            if dispatched != source:
+                raise AssertionError(f"{label}: dispatches {dispatched}, expected {source}")
+            row = {"route": "prediction/fleet", "label": label, "machines": len(chosen),
+                   "rows": 144, "seconds": seconds, "dispatches": dispatched,
+                   "card_vs_cpu": against_cpu(label, "prediction/fleet", payload, reply, chosen)}
+            report["requests"].append(row)
+            log("fleet request", json.dumps(row))
+        report["kernel_launches"] = dict(fa.kernel_launches)
+        report["typed_launches"] = dict(fa.typed_launches)
+        section("predict_subsets")
+
+        # each machine's fleet reply against its own /anomaly/prediction,
+        # value by value (anomaly_bound_ratios), outside the counted window
+        models = {n: serializer.load(os.path.join(collection, n)) for n in transformers}
+        for row in report["requests"][:len(SERVE_ROWS)]:
+            frames = json.loads(payloads[row["rows"]])["machines"]
+            ratios = {}
+            for name in transformers:
+                solo, _ = post(f"{base}/{name}/anomaly/prediction",
+                               json.dumps(frames[name]).encode())
+                mine = anomaly_bound_ratios(replies[row["rows"]]["data"][name], solo["data"],
+                                            models[name], 1e-4, 1e-5)
+                ratios = {k: max(v, ratios.get(k, 0.0)) for k, v in mine.items()}
+            row["vs_solo_ratio"] = ratios
+            log("fleet request", json.dumps(row))
+            if not max(ratios.values()) <= 1.0:
+                raise AssertionError(f"fleet and solo replies differ ({ratios}, "
+                                     f"{row['rows']} rows)")
+            section(f"vs_solo_{row['rows']}_rows")
+
+        # one fleet request against four solo ones: flash launches and times
+        before = dict(fa.launch_counts)
+        post(anomaly_url, payloads[144])
+        fleet_launches = {k: fa.launch_counts[k] - before[k] for k in before}
+        before = dict(fa.launch_counts)
+        solo_payloads = [json.dumps(json.loads(payloads[144])["machines"][n]).encode()
+                         for n in transformers]
+        for name, payload in zip(transformers, solo_payloads):
+            post(f"{base}/{name}/anomaly/prediction", payload)
+        solo_launches = {k: fa.launch_counts[k] - before[k] for k in before}
+        report["flash_launches"] = {"fleet_request": fleet_launches,
+                                    "four_solo_requests": solo_launches}
+        log("flash launches", json.dumps(report["flash_launches"]))
+        if fleet_launches != {fa.KERNEL: n_layers, fa.KERNEL_DQ: 0, fa.KERNEL_DKV: 0} \
+                or solo_launches[fa.KERNEL] != n_layers * len(transformers):
+            raise AssertionError(f"flash launches: {report['flash_launches']}")
+        fleet_s, solo_s = [], []
+        for _ in range(REPEATS):
+            fleet_s.append(post(anomaly_url, payloads[144])[1])
+            solo_s.append(sum(post(f"{base}/{n}/anomaly/prediction", p)[1]
+                              for n, p in zip(transformers, solo_payloads)))
+        fleet_scorer, _, _ = fleet_scorer_from_models(models)
+        inputs = {n: data[n][0][:144].astype(np.float32) for n in transformers}
+        fleet_scorer.predict(inputs)
+        dispatch = profile_window(torch, lambda: fleet_scorer.predict(inputs))
+        request = profile_window(torch, lambda: post(anomaly_url, payloads[144]))
+        report["timing"] = {
+            "fleet_request_median_s": statistics.median(fleet_s), "fleet_request_s": fleet_s,
+            "four_solo_requests_median_s": statistics.median(solo_s), "four_solo_s": solo_s,
+            "dispatch_wall_ms": dispatch[0], "dispatch_device_ms": dispatch[1],
+            "dispatch_launches": dispatch[2],
+            "request_wall_ms": request[0], "request_device_ms": request[1],
+            "request_launches": request[2],
+            "request_device_idle_share": (None if request[1] is None
+                                          else 1.0 - request[1] / request[0]),
+            "whole_history_request_median_s": report["requests"][1]["median_s"],
+        }
+        log("fleet timing", json.dumps(report["timing"]))
+        section("launches_and_timing")
+
+        # coalescing: SERVE_CLIENTS concurrent clients, batched and not
+        bodies = [machines_body(transformers, 144, True, start=144 * (i + 1))
+                  for i in range(SERVE_CLIENTS)]
+        unbatched = [post(anomaly_url, body)[0] for body in bodies]
+        batched_app = build_app(collection, batch_wait_ms=BATCH_WAIT_MS)
+        with http_server(collection, None, app=batched_app) as batched_base:
+            batched_url = f"{batched_base}/anomaly/prediction/fleet"
+            post(batched_url, bodies[0])
+            (batcher,) = batched_app.catalog._batchers.values()
+            stats0 = batcher.stats()
+            replies = post_all(batched_url, bodies)
+            stats1 = batcher.stats()
+            dispatches = stats1["dispatches_total"] - stats0["dispatches_total"]
+            worst = max(block_rel_diff(r["data"][n], u["data"][n], 0.0, 1e-6)
+                        for (r, _), u in zip(replies, unbatched) for n in transformers)
+            bitwise = all(r["data"] == u["data"] for (r, _), u in zip(replies, unbatched))
+            rates = {}
+            for label, url in (("unbatched", anomaly_url), ("batched", batched_url)):
+                t0 = time.perf_counter()
+                for _ in range(SERVE_ROUNDS):
+                    post_all(url, bodies)
+                rates[label] = SERVE_ROUNDS * SERVE_CLIENTS / (time.perf_counter() - t0)
+            stats2 = batcher.stats()
+        report["coalescing"] = {
+            "clients": SERVE_CLIENTS, "batch_wait_ms": BATCH_WAIT_MS, "dispatches": dispatches,
+            "max_abs_diff_vs_unbatched": worst * 1e-6, "bitwise_equal": bitwise,
+            "requests_per_s": rates,
+            "rounds_mean_batch_size": (stats2["requests_total"] - stats1["requests_total"])
+            / max(1, stats2["dispatches_total"] - stats1["dispatches_total"]),
+        }
+        log("coalescing", json.dumps(report["coalescing"]))
+        if not dispatches < SERVE_CLIENTS:
+            raise AssertionError(f"{SERVE_CLIENTS} concurrent requests, {dispatches} dispatches")
+        if not worst <= 1.0:
+            raise AssertionError(f"batched replies differ from unbatched by {worst} x 1e-6")
+
+        float32_times = [post(predict_url, machines_body(transformers[:1], 144, False))[1]
+                         for _ in range(REPEATS)]
+        section("coalescing")
+    report["bf16"] = bf16_serve(torch, fa, root, os.path.dirname(collection), float32_times)
+    section("bf16_build_and_serve")
+    report["section_s"] = sections
+    log("fleet serve sections", json.dumps(sections))
+    return report
+
+
+def bf16_serve(torch, fa, root: str, workdir: str, float32_times: list) -> dict:
+    """Phase 11's bf16 part: ``bf16_machines`` built by ``build-fleet
+    --precision auto`` in a subprocess on the card, each decision named by
+    the report and taken by the served group; replies against the CPU's
+    within bf16's tolerance; each group's flash forward counted by kernel
+    and input type; the folded bf16 forward at the served shape against
+    its plain version; each machine's request time against a float32
+    Transformer's (``float32_times``)."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.data.base import to_datetimes
+    from gordo_tpu_torch.server.app import GordoApp, build_app
+
+    machines = bf16_machines(root)
+    collection = os.path.join(workdir, BF16_COLLECTION)
+    listing, counts = os.path.join(workdir, "bf16.yaml"), os.path.join(workdir, "bf16.json")
+    with open(listing, "w") as fh:
+        fh.write(yaml_text(machines) + "\n")
+    t0 = time.perf_counter()
+    built = subprocess.run(
+        [sys.executable, "-c", FLEET_DRIVER, counts, "build-fleet", "--machines-from", listing,
+         "--precision", "auto"],
+        cwd=root, env=dict(os.environ, OUTPUT_DIR=collection), capture_output=True, text=True,
+        timeout=600,
+    )
+    result = {"build_s": time.perf_counter() - t0}
+    if built.returncode != 0 or "FAILED" in built.stdout or "QUARANTINED" in built.stdout:
+        raise AssertionError(f"bf16 build-fleet exited {built.returncode}:\n"
+                             f"{built.stdout[-2000:]}\n{built.stderr[-4000:]}")
+    with open(counts) as fh:
+        launched = json.load(fh)
+    result["build_launches"], result["build_typed_launches"] = launched["kernels"], launched["typed"]
+    with open(os.path.join(collection, "build_report.json")) as fh:
+        block = json.load(fh)["precision"]
+    result["report"] = block
+    decisions = {name: block["machines"][name]["precision"] for name in BF16_MACHINES}
+    log("bf16 build", json.dumps({k: result[k] for k in ("build_s", "report")}))
+    if block["mode"] != "auto" or "bf16" not in decisions.values():
+        raise AssertionError(f"bf16 build: no machine serves bf16: {block}")
+    n_layers = BASE_ESTIMATOR["n_layers"]
+    app, cpu_app = build_app(collection, batch_wait_ms=0), GordoApp(collection, device="cpu")
+    times, typed, served = {}, {}, {}
+    launches = dict.fromkeys(fa.kernel_launches, 0)
+    with http_server(collection, None, app=app) as base:
+        url = f"{base}/prediction/fleet"
+        for name in BF16_MACHINES:
+            metadata = serializer.load_metadata(os.path.join(collection, name))
+            X, _, stamps = _get_dataset(metadata["dataset"]).get_data()
+            if not BF16_ROWS[0] <= len(X) <= BF16_ROWS[1]:
+                raise AssertionError(f"{name}: {len(X)} rows, expected {BF16_ROWS}")
+            keys = [s.isoformat() for s in to_datetimes(stamps.astype(np.int64))]
+            frame = frame_of(np.asarray(X), keys, metadata["dataset"]["tag_list"], slice(0, 144))
+            payload = json.dumps({"machines": {name: frame}}).encode()
+            post(url, payload)
+            fa.reset_launch_counts()
+            reply, _ = post(url, payload)
+            typed[name] = dict(fa.typed_launches)
+            for kernel, count in fa.kernel_launches.items():
+                launches[kernel] += count
+            cpu = cpu_app.dispatch("POST", f"/gordo/v0/{PROJECT}/prediction/fleet", lambda: payload)
+            # within 2e-2 of the CPU's, relative above 1: the bfloat16 layers
+            # round on each device after their own summation order
+            served[name] = block_rel_diff(reply["data"][name], cpu.payload["data"][name],
+                                          TOLERANCE["bfloat16"], TOLERANCE["bfloat16"])
+            times[name] = [post(url, payload)[1] for _ in range(REPEATS)]
+        precisions = {}
+        for entry in app.catalog._fleet_scorers.values():
+            precisions.update(entry[0].group_precisions())
+    compute = {BF16_MACHINES[0]: "float32", BF16_MACHINES[1]: "bfloat16"}
+    result.update({
+        "decisions": decisions, "served_precisions": precisions, "typed_launches": typed,
+        "kernel_launches": launches,
+        "card_vs_cpu": served,
+        "median_s": {name: statistics.median(t) for name, t in times.items()},
+        "float32_transformer_median_s": statistics.median(float32_times),
+    })
+    log("bf16 serve", json.dumps({k: result[k] for k in (
+        "decisions", "served_precisions", "typed_launches", "card_vs_cpu", "median_s",
+        "float32_transformer_median_s")}))
+    if precisions != decisions:
+        raise AssertionError(f"served precisions {precisions} against the report's {decisions}")
+    for name, launches in typed.items():
+        want = {f"{fa.KERNEL}_quad_{compute[name]}": n_layers}
+        if launches != want:
+            raise AssertionError(f"{name}: flash launches {launches}, expected {want}")
+    if not all(diff <= 1.0 for diff in served.values()):
+        raise AssertionError(f"bf16 replies: card against CPU {served} x 2e-2")
+    result["folded_forward"] = folded_bf16_check(torch, fa)
+    return result
+
+
+def folded_bf16_check(torch, fa) -> dict:
+    """The flash forward under a machine axis in bfloat16 at the served
+    shape of a one-machine group (the machine axis floored at 2, 144 rows
+    padded to 256: 193 windows of 64, 4 heads of 16): one launch of the
+    quad kernel for both machines, within bf16's 2e-2 of the plain
+    version."""
+    from torch.func import vmap
+
+    lookback, heads = BASE_ESTIMATOR["lookback_window"], BASE_ESTIMATOR["n_heads"]
+    shape = (2, 256 - lookback + 1, lookback, heads, BASE_ESTIMATOR["d_model"] // heads)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        out = vmap(lambda x, y, z: fa.flash_attention(x, y, z, causal=True))(q, k, v)
+        torch.cuda.synchronize()
+        launches = dict(fa.typed_launches)
+        scale = 1.0 / math.sqrt(shape[-1])
+        err = max((out[i].float() - fa.flash_attention_reference(q[i], k[i], v[i], True, scale)[0]
+                   .float()).abs().max().item() for i in range(shape[0]))
+    result = {"shape": list(shape), "launches": launches, "max_abs_err": err}
+    log("folded bf16 flash forward", json.dumps(result))
+    if launches != {f"{fa.KERNEL}_quad_bfloat16": 1} or not err <= TOLERANCE["bfloat16"]:
+        raise AssertionError(f"folded bf16 forward: {result}")
+    return result
 
 
 def stacked_forward_check(torch, X):
@@ -2360,7 +2901,9 @@ def main(argv=None) -> int:
     models = timed("models", model_phase)
     recurrent = timed("recurrent", recurrent_phase, args.profile)
     project = timed("project_build", project_build_phase, args.profile)
-    fleet = timed("fleet_build", fleet_build_phase, args.profile)
+    with tempfile.TemporaryDirectory() as fleet_dir:
+        fleet = timed("fleet_build", fleet_build_phase, args.profile, fleet_dir)
+        fleet_serve = timed("fleet_serve", fleet_serve_phase, args.profile, fleet["collection"])
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -2372,6 +2915,9 @@ def main(argv=None) -> int:
              "recurrent": recurrent["kernel_launches"],
              "project_build": project["kernel_launches"],
              "fleet_build": fleet["kernel_launches"],
+             "fleet_serve": fleet_serve["kernel_launches"],
+             "bf16_fleet_build": fleet_serve["bf16"]["build_launches"],
+             "bf16_fleet_serve": fleet_serve["bf16"]["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
     def entry(kernel, families, source, replaces, cases, rows):
@@ -2422,6 +2968,7 @@ def main(argv=None) -> int:
                  "end_to_end": report, "train": train,
                  "default_pipeline": default_pipeline, "models": models,
                  "recurrent": recurrent, "project_build": project, "fleet_build": fleet,
+                 "fleet_serve": fleet_serve,
                  **kernels},
                 fh,
                 indent=1,

@@ -29,8 +29,9 @@ fit keeps its last finite weights and is named in ``quarantined_``.
 Left out, because the TPU-era builder does them for XLA: the program
 and compile caches, AOT export of serving programs, the device mesh and
 fleet padding to it, transfer prefetching, and the multi-worker ledger,
-resume, warm starts, bf16 calibration and fault injection (ROADMAP.md
-queue 1 items 5, 8 and 9).
+resume, warm starts and fault injection (ROADMAP.md queue 1 items 5, 8
+and 9). ``precision="bf16"``/``"auto"`` calibrates each bucket after its
+final fit (:meth:`FleetModelBuilder._calibrate_precision`).
 """
 
 import json
@@ -66,6 +67,12 @@ from gordo_tpu_torch.models.pipeline import Pipeline
 from gordo_tpu_torch.models.utils import METRICS, TimeSeriesSplit
 from gordo_tpu_torch.parallel.bucketing import get_policy, timestep_bucket
 from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
+from gordo_tpu_torch.parallel.precision import (
+    DEFAULT_PRECISION_TOLERANCE,
+    mae,
+    mae_parity,
+    resolve_precision,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -137,6 +144,15 @@ class FleetModelBuilder:
         (``gordo_tpu_torch.parallel.bucketing``).
     device
         Where the buckets train: the card unless ``"cpu"``.
+    precision
+        Inference precision: ``"float32"`` (default: no calibration),
+        ``"auto"`` (each machine serves bf16 when its bf16 predictions'
+        relative MAE delta is within ``precision_tolerance``, else
+        float32) or ``"bf16"`` (every machine serves bf16; a breach is
+        logged). Training is float32 in every mode
+        (``gordo_tpu_torch.parallel.precision``).
+    precision_tolerance
+        The calibration's relative MAE tolerance.
     """
 
     def __init__(
@@ -149,6 +165,8 @@ class FleetModelBuilder:
         fetch_timeout: Optional[float] = None,
         bucket_policy: Any = "exact",
         device: DeviceLike = None,
+        precision: str = "float32",
+        precision_tolerance: float = DEFAULT_PRECISION_TOLERANCE,
     ):
         if on_error not in ("raise", "skip"):
             raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
@@ -161,6 +179,10 @@ class FleetModelBuilder:
         self._policy = get_policy(bucket_policy)
         self.bucket_policy = self._policy.name
         self.device = resolve_device(device)
+        self.precision = resolve_precision(precision)
+        self.precision_tolerance = float(precision_tolerance)
+        #: per machine: {"precision", "mae_delta", "forced"}; empty for float32
+        self.precision_decisions_: Dict[str, dict] = {}
         self.plan_ = None
         self.build_failures_: List[dict] = []
         self.quarantined_: List[dict] = []
@@ -301,6 +323,7 @@ class FleetModelBuilder:
         build_start = time.perf_counter()
         started = str(datetime.now(timezone.utc).astimezone())
         self.build_failures_, self.quarantined_, self.bucket_reports_ = [], [], []
+        self.precision_decisions_ = {}
         self.plan_ = plans = self._policy.plan(self.machines)
         logger.info(
             "Fleet build: %d machines in %d buckets (policy=%s)",
@@ -327,7 +350,11 @@ class FleetModelBuilder:
             "n_quarantined": len(self.quarantined_),
             "failed": list(self.build_failures_),
             "quarantined": list(self.quarantined_),
-            "precision": {"mode": "float32", "tolerance": None, "machines": {}},
+            "precision": {
+                "mode": self.precision,
+                "tolerance": self.precision_tolerance,
+                "machines": {name: dict(rec) for name, rec in self.precision_decisions_.items()},
+            },
         }
         self.telemetry_report_ = {
             "kind": "fleet_build",
@@ -338,6 +365,7 @@ class FleetModelBuilder:
             "n_built": n_built,
             "n_buckets": n_buckets,
             "bucket_policy": self.bucket_policy,
+            "precision": self.precision,
             "models_per_hour": n_built / wall * 3600 if wall > 0 else None,
             "buckets": self.bucket_reports_,
             "on_error": self.on_error,
@@ -502,6 +530,12 @@ class FleetModelBuilder:
                 "finite params", names[i], epoch,
             )
 
+        precision_records: Dict[str, dict] = {}
+        if self.precision != "float32":
+            precision_records = self._calibrate_precision(
+                trainer, params, data, Xs, ys, estimators, names, out_widths, spec, lookahead
+            )
+
         host_params = trainer.unstack_all(params, len(fetched))
         offset = None
         out: Dict[str, Tuple[Any, Machine]] = {}
@@ -570,6 +604,8 @@ class FleetModelBuilder:
             "cv_fit": cv_telemetry,
             "fit": trainer.fit_telemetry_,
             "device": str(self.device),
+            "precision": self.precision,
+            **({"precision_decisions": precision_records} if precision_records else {}),
         })
         logger.info(
             "Bucket of %d machine(s) built in %.3f s (CV %.3f s, fit %.3f s, %d steps an epoch)",
@@ -577,6 +613,60 @@ class FleetModelBuilder:
             trainer.fit_telemetry_["steps_per_epoch"],
         )
         return out
+
+    def _calibrate_precision(
+        self,
+        trainer: FleetTrainer,
+        params: dict,
+        data: StackedData,
+        Xs: List[np.ndarray],
+        ys: List[np.ndarray],
+        estimators: List[BaseTorchEstimator],
+        names: List[str],
+        out_widths: List[int],
+        spec: Any,
+        lookahead: int,
+    ) -> Dict[str, dict]:
+        """
+        The bf16 calibration (JAX ``FleetModelBuilder._calibrate_precision``):
+        the bucket predicted once in float32 and once with weights and
+        inputs cast to bfloat16, each machine's MAE compared over its real
+        rows and active output columns, and the decision stamped on its
+        estimator (``precision_``, ``precision_mae_delta_``). ``auto``
+        serves bf16 within the tolerance and float32 beyond it; ``bf16``
+        serves bf16 and logs a breach.
+        """
+        preds32 = trainer.predict(params, data.X)
+        preds16 = trainer.predict(params, data.X, precision="bf16")
+        offset = spec.lookback_window - 1 + lookahead if spec.windowed else 0
+        records: Dict[str, dict] = {}
+        for i, name in enumerate(names):
+            n_out = max(0, len(Xs[i]) - offset)
+            cols = int(out_widths[i])
+            y_true = np.asarray(ys[i], dtype=np.float32)[offset: offset + n_out, :cols]
+            delta, within = mae_parity(mae(preds32[i, :n_out, :cols], y_true),
+                                       mae(preds16[i, :n_out, :cols], y_true),
+                                       self.precision_tolerance)
+            if self.precision == "bf16":
+                decided = "bf16"
+                if not within:
+                    logger.warning(
+                        "Machine %s: bf16 MAE delta %.4f exceeds tolerance %.4f but "
+                        "--precision bf16 overrides the fallback",
+                        name, delta, self.precision_tolerance,
+                    )
+            else:
+                decided = "bf16" if within else "float32"
+            estimators[i].precision_ = decided
+            estimators[i].precision_mae_delta_ = float(delta)
+            records[name] = {"precision": decided, "mae_delta": float(delta), "forced": False}
+        self.precision_decisions_.update(records)
+        n_bf16 = sum(rec["precision"] == "bf16" for rec in records.values())
+        logger.info(
+            "Precision calibration (%s, tolerance %s): %d of %d machine(s) serve bf16",
+            self.precision, self.precision_tolerance, n_bf16, len(records),
+        )
+        return records
 
     @staticmethod
     def _early_stopping_kwargs(fit_args: dict) -> dict:

@@ -129,8 +129,6 @@ UNPORTED_FLEET_OPTIONS = (
     ("--resume", "GORDO_FLEET_RESUME", None, "ROADMAP.md queue 1 item 8"),
     ("--aot-cache", "GORDO_AOT_CACHE", None,
      "ROADMAP.md queue 1 item 9: programs/ stays out of the port"),
-    ("--precision", "GORDO_PRECISION", "float32", "ROADMAP.md queue 1 item 5"),
-    ("--precision-tolerance", "GORDO_PRECISION_TOLERANCE", None, "ROADMAP.md queue 1 item 5"),
     ("--prefetch-depth", "GORDO_PREFETCH_DEPTH", "0", "ROADMAP.md queue 1 item 5"),
     ("--model-parameter", None, None, "ROADMAP.md queue 1 item 7"),
     ("--model-register-dir", "MODEL_REGISTER_DIR", None, "ROADMAP.md queue 1 item 7"),
@@ -186,6 +184,8 @@ def build_fleet(args) -> int:
             fetch_timeout=args.fetch_timeout,
             bucket_policy=args.bucket_policy,
             device=args.device,
+            precision=args.precision,
+            precision_tolerance=args.precision_tolerance,
         )
         logger.info("Fleet-building %d machines, output at: %s", len(machines), args.output_dir)
         for _, machine_out in builder.build(output_dir_base=args.output_dir):
@@ -259,6 +259,13 @@ def _parser() -> argparse.ArgumentParser:
     fleet.add_argument("--fetch-timeout", type=float,
                        default=_env_number("GORDO_FETCH_TIMEOUT", None, float),
                        help="seconds a machine's data fetch may take")
+    fleet.add_argument("--precision", choices=("float32", "bf16", "auto"),
+                       default=os.environ.get("GORDO_PRECISION", "float32"),
+                       help="inference precision: float32 (no calibration), auto (bf16 where a "
+                            "machine's MAE delta is within --precision-tolerance) or bf16")
+    fleet.add_argument("--precision-tolerance", type=float,
+                       default=_env_number("GORDO_PRECISION_TOLERANCE", 0.25, float),
+                       help="relative MAE tolerance of the bf16 calibration")
     fleet.add_argument("--print-cv-scores", action="store_true",
                        help="print each machine's CV scores as '<machine>: metric_fold=value'")
     fleet.add_argument(
@@ -312,6 +319,8 @@ def _build_fleet_command(parser: argparse.ArgumentParser, args) -> int:
         parser.error("--epoch-chunk must be >= 1 and --fetch-retries >= 0")
     if args.fetch_timeout is not None and args.fetch_timeout <= 0:
         parser.error("--fetch-timeout must be > 0")
+    if args.precision_tolerance < 0:
+        parser.error("--precision-tolerance must be >= 0")
     text = args.machines_config
     if args.machines_from is not None:
         with open(args.machines_from) as fh:

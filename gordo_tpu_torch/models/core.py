@@ -27,16 +27,19 @@ the device. Neither gives JAX's random numbers.
 import copy
 import logging
 import math
+import threading
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.optim import BoundOptimizer
 from gordo_tpu_torch.models.register import register_model_builder
-from gordo_tpu_torch.models.specs import ModelSpec, flax_default_init_, per_sample_loss
+from gordo_tpu_torch.models.specs import ModelSpec, cast, flax_default_init_, per_sample_loss
 from gordo_tpu_torch.ops.windowing import gather_windows
+from gordo_tpu_torch.parallel.precision import cast_params
 
 logger = logging.getLogger(__name__)
 
@@ -45,6 +48,9 @@ DEFAULT_SEED = 0
 
 #: fitted widths a padded-bucket artifact records beside its weights
 _WIDTH_ATTRS = ("n_active_features_", "n_active_features_out_")
+#: a calibrated build's serving precision and its measured MAE delta,
+#: recorded beside the weights when the build calibrated the machine
+_PRECISION_ATTRS = ("precision_", "precision_mae_delta_")
 
 #: rows per forward chunk of a row-wise (non-windowed) predict, as in the
 #: JAX package
@@ -328,15 +334,15 @@ class BaseTorchEstimator:
     def predict(self, X, **kwargs) -> np.ndarray:
         """
         (rows, n_features_out) float32 outputs of a row-wise model, on the
-        device the weights are on, ``PREDICT_CHUNK_ROWS`` rows at a time.
+        device the weights are on, ``PREDICT_CHUNK_ROWS`` rows at a time
+        (in bfloat16 weights for a bf16 machine, :meth:`_forward`).
         """
-        module = self._fitted_module()
+        forward = self._forward()
         X = self._pad_active_input(as_2d(X))
         outs = []
         for start in range(0, len(X), PREDICT_CHUNK_ROWS):
             xb = torch.from_numpy(np.ascontiguousarray(X[start : start + PREDICT_CHUNK_ROWS]))
-            out = module(xb.to(self.device_))
-            outs.append((out[0] if isinstance(out, tuple) else out).cpu().numpy())
+            outs.append(forward(xb.to(self.device_)).cpu().numpy())
         if not outs:
             return np.empty((0, self.n_features_out_), dtype=np.float32)
         return self._strip_pad_output(np.concatenate(outs))
@@ -355,6 +361,10 @@ class BaseTorchEstimator:
         for attr in _WIDTH_ATTRS:
             if attr in arrays:
                 setattr(self, attr, int(arrays.pop(attr)))
+        if "precision_" in arrays:
+            self.precision_ = str(arrays.pop("precision_"))
+            delta = arrays.pop("precision_mae_delta_", None)
+            self.precision_mae_delta_ = None if delta is None else float(delta)
         spec = self._build_spec()
         spec.module.load_state_dict(
             {name: torch.tensor(np.asarray(value)) for name, value in arrays.items()}
@@ -373,10 +383,36 @@ class BaseTorchEstimator:
             name: tensor.detach().cpu().numpy()
             for name, tensor in module.state_dict().items()
         }
-        for attr in _WIDTH_ATTRS:
+        for attr in _WIDTH_ATTRS + _PRECISION_ATTRS:
             if getattr(self, attr, None) is not None:
                 arrays[attr] = np.asarray(getattr(self, attr))
         return arrays
+
+    def _forward(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """
+        The fitted module as a function of its input, returning its output
+        (without an activity penalty). For a machine calibrated to bf16
+        (``precision_ == "bf16"``) it runs on the weights cast to bfloat16
+        (cast once and kept) with the input cast to bfloat16, and returns
+        float32: the JAX estimator's bf16 predict. ``functional_call``
+        swaps the module's weights for the call, so such calls take a lock.
+        """
+        module = self._fitted_module()
+        if getattr(self, "precision_", "float32") != "bf16":
+            return lambda x: first_output(module(x))
+        cached = self.__dict__.get("_bf16_weights")
+        if cached is None or cached[0] is not module:
+            cached = (module, cast_params(dict(module.state_dict()), torch.bfloat16),
+                      threading.Lock())
+            self._bf16_weights = cached
+        _, weights, lock = cached
+
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            with lock:
+                out = functional_call(module, weights, (cast(x, torch.bfloat16),))
+            return cast(first_output(out), torch.float32)
+
+        return forward
 
     def _fitted_module(self) -> torch.nn.Module:
         if not hasattr(self, "spec_"):
@@ -457,6 +493,12 @@ def validation_loss(
         total += per_sample_loss(loss_name, out, yb).sum()
     module.train(was_training)
     return (total / (n_samples - n_train)).item()
+
+
+def first_output(out):
+    """A module's output without the activity penalty some modules
+    return beside it."""
+    return out[0] if isinstance(out, tuple) else out
 
 
 def as_2d(X, dtype=np.float32) -> np.ndarray:

@@ -86,7 +86,10 @@ class WindowedEstimator(BaseTorchEstimator):
         (n - lookback_window + 1 - lookahead, n_features_out) float32
         predictions; row i predicts the window ending at
         ``X[i + lookback_window - 1 + lookahead]``. The rows go to the
-        device once and the windows are gathered there.
+        device once and the windows are gathered there. In float32
+        weights whatever the machine's ``precision_``, as the JAX windowed
+        predict (its fleet route serves a bf16 machine in bf16,
+        ``server/fleet_serving.py``).
         """
         module = self._fitted_module()
         X = self._pad_active_input(as_2d(X))

@@ -75,13 +75,17 @@ def dense_attention(
 
 
 class LayerNorm(nn.LayerNorm):
-    """Flax-style LayerNorm: eps 1e-6, computed and returned in float32."""
+    """Flax-style LayerNorm: eps 1e-6, computed and returned in float32
+    (its scale and bias too, as the JAX ``LayerNorm(dtype=float32)``
+    promotes bf16-served ones)."""
 
     def __init__(self, d_model: int):
         super().__init__(d_model, eps=LAYER_NORM_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(cast(x, torch.float32))
+        f32 = torch.float32
+        return F.layer_norm(cast(x, f32), self.normalized_shape, cast(self.weight, f32),
+                            cast(self.bias, f32), self.eps)
 
 
 class MultiHeadSelfAttention(nn.Module):

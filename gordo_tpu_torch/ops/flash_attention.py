@@ -38,9 +38,10 @@ reads it. Both work under ``torch.func.vmap`` (the fleet trainer's
 machine axis): the vmapped axis is folded into the batch axis and the
 same kernels launch once on the folded tensors.
 
-``launch_counts`` counts kernel launches by entry point and
-``kernel_launches`` by the CUDA kernel each ran, so a run can show that
-its attention went through the kernels.
+``launch_counts`` counts kernel launches by entry point,
+``kernel_launches`` by the CUDA kernel each ran and ``typed_launches``
+by that kernel and its input type, so a run can show that its attention
+went through the kernels, in which type.
 
 The kernels run at head_dim 16, 32, 64, 128 and 256 (:data:`HEAD_DIMS`)
 and, through kernels that take the width at run time, at any multiple of
@@ -87,7 +88,7 @@ made here, per call, and is tested on the CPU.
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -126,10 +127,16 @@ kernel_launches = {
 }
 
 
+#: the same launches by CUDA kernel and input type,
+#: ``<entry point>_<family>_<dtype>`` (``flash_attention_fwd_quad_bfloat16``)
+typed_launches: Dict[str, int] = {}
+
+
 def reset_launch_counts() -> None:
     for counts in (launch_counts, kernel_launches):
         for name in counts:
             counts[name] = 0
+    typed_launches.clear()
 
 
 def _plain_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -323,7 +330,10 @@ def _call(kernel: str, fn, q: torch.Tensor, args) -> None:
             f"{kernel} launch failed with CUDA error {err} "
             f"(shape {tuple(q.shape)}, dtype {q.dtype})"
         )
-    kernel_launches[f"{kernel}_{FAMILIES[family.value]}"] += 1
+    name = f"{kernel}_{FAMILIES[family.value]}"
+    kernel_launches[name] += 1
+    typed = f"{name}_{str(q.dtype).replace('torch.', '')}"
+    typed_launches[typed] = typed_launches.get(typed, 0) + 1
     launch_counts[kernel] += 1
 
 

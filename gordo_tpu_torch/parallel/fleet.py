@@ -60,11 +60,13 @@ from gordo_tpu_torch.models.optim import (
 from gordo_tpu_torch.models.specs import (
     DropoutFeed,
     ModelSpec,
+    cast,
     flax_default_init_,
     masked_per_sample_loss,
     per_sample_loss,
 )
 from gordo_tpu_torch.ops.windowing import DEFAULT_BATCH_SIZE, num_windows, windowed_predict
+from gordo_tpu_torch.parallel.precision import cast_params
 
 logger = logging.getLogger(__name__)
 
@@ -658,20 +660,26 @@ class FleetTrainer:
         self.quarantine_epoch_ = quarantine_epoch
 
     @torch.no_grad()
-    def predict(self, params: Tensors, X, batch_size: int = DEFAULT_BATCH_SIZE) -> np.ndarray:
+    def predict(self, params: Tensors, X, batch_size: int = DEFAULT_BATCH_SIZE,
+                precision: str = "float32") -> np.ndarray:
         """
         The fleet's forward pass: X (M, n, f) -> (M, n_out, f_out) float32,
         n_out = n - lookback + 1 - lookahead for windowed models, else n;
-        ``batch_size`` windows (or rows) of every machine at a time.
+        ``batch_size`` windows (or rows) of every machine at a time. With
+        ``precision="bf16"`` the weights and X are cast to bfloat16 first
+        and the outputs come back float32 (the calibration's bf16 pass).
         """
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         X = torch.as_tensor(X).to(self.device)
+        if precision == "bf16":
+            params = cast_params(params, torch.bfloat16)
+            X = X.to(torch.bfloat16)
         module = self.module.eval()
 
         def forward(p, xb):
             out = functional_call(module, p, (xb,))
-            return out[0] if isinstance(out, tuple) else out
+            return cast(out[0] if isinstance(out, tuple) else out, torch.float32)
 
         fn = vmap(forward)
         lb, la = self._windows()

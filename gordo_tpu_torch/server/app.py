@@ -1,8 +1,11 @@
 """
 The model server (the port of ``gordo_tpu.server.app``'s single-machine
-routes), a plain WSGI callable on the standard library and JSON:
+and fleet routes), a plain WSGI callable on the standard library and
+JSON:
 
 - ``GET  /healthcheck``
+- ``GET  /healthz`` (readiness: 503 and ``Retry-After`` while a batcher
+  is saturated or shedding)
 - ``GET  /gordo/v0/<project>/models``
 - ``GET  /gordo/v0/<project>/revisions``
 - ``GET  /gordo/v0/<project>/expected-models``
@@ -10,6 +13,13 @@ routes), a plain WSGI callable on the standard library and JSON:
 - ``GET  /gordo/v0/<project>/<name>/download-model``
 - ``POST /gordo/v0/<project>/<name>/prediction``
 - ``POST /gordo/v0/<project>/<name>/anomaly/prediction``
+- ``POST /gordo/v0/<project>/prediction/fleet`` and
+  ``POST /gordo/v0/<project>/anomaly/prediction/fleet``: JSON bodies
+  ``{"machines": {name: ...}}``, each architecture group of the named
+  machines scored by one stacked forward (``server/fleet_serving.py``);
+  with ``GORDO_BATCH_WAIT_MS`` above 0, concurrent fleet requests are
+  coalesced (``server/batching.py``). Multipart (parquet) bodies are
+  refused with a 400: the card's machine has no parquet reader.
 
 Request and response bodies, status codes and error bodies are those of
 the JAX server; every JSON body and response carries the ``revision``
@@ -17,7 +27,9 @@ served. The served revision is the collection directory's name, or the
 sibling directory that a ``?revision=`` query or a ``revision`` header
 names (:func:`resolve_sibling_revision`; a name it refuses gets 410).
 Models load on first use onto the app's device and stay there, keyed by
-their real directory.
+their real directory. Machines that the revision's ``build_report.json``
+records as failed or quarantined answer 409 on every prediction route,
+and ``/models`` lists them under ``unavailable``.
 """
 
 import json
@@ -30,26 +42,41 @@ import traceback
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 from urllib.parse import parse_qs
 
+import numpy as np
+
 from gordo_tpu_torch import __version__, serializer
 from gordo_tpu_torch.data.sensor_tag import tag_names
 from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.utils import make_base_dataframe
+from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+from gordo_tpu_torch.server import batching
 from gordo_tpu_torch.server import utils as server_utils
+from gordo_tpu_torch.server.catalog import ServingCatalog
 from gordo_tpu_torch.server.utils import ApiError
 
 logger = logging.getLogger(__name__)
 
 MODEL_COLLECTION_DIR_ENV_VAR = "MODEL_COLLECTION_DIR"
 EXPECTED_MODELS_ENV_VAR = "EXPECTED_MODELS"
+#: serving settings: (environment variable, type, default); an explicit
+#: argument of the app wins over the variable
+BATCH_WAIT_MS = ("GORDO_BATCH_WAIT_MS", float, 0.0)
+BATCH_QUEUE_LIMIT = ("GORDO_BATCH_QUEUE_LIMIT", int, 64)
+SCORER_CACHE_SIZE = ("GORDO_SCORER_CACHE_SIZE", int, 16)
+#: the streaming block of /healthz: the JAX server's session limits
+#: (streaming is not ported, so there are never sessions)
+STREAM_MAX_SESSIONS, STREAM_MAX_BACKLOG = 64, 8
 
 _STATUS_TEXT = {
     200: "OK",
     400: "BAD REQUEST",
     404: "NOT FOUND",
     405: "METHOD NOT ALLOWED",
+    409: "CONFLICT",
     410: "GONE",
     422: "UNPROCESSABLE ENTITY",
     500: "INTERNAL SERVER ERROR",
+    503: "SERVICE UNAVAILABLE",
 }
 
 _PROJECT = r"/gordo/v0/(?P<gordo_project>[^/]+)"
@@ -57,12 +84,15 @@ _MACHINE = _PROJECT + r"/(?P<gordo_name>[^/]+)"
 #: (method, path pattern, view name)
 _ROUTES = [
     ("GET", r"/healthcheck", "healthcheck"),
+    ("GET", r"/healthz", "healthz"),
     ("GET", _PROJECT + r"/models", "models"),
     ("GET", _PROJECT + r"/revisions", "revisions"),
     ("GET", _PROJECT + r"/expected-models", "expected_models"),
     ("GET", _MACHINE + r"/metadata", "metadata"),
     ("GET", _MACHINE + r"/healthcheck", "metadata"),
     ("GET", _MACHINE + r"/download-model", "download_model"),
+    ("POST", _PROJECT + r"/prediction/fleet", "fleet_prediction"),
+    ("POST", _PROJECT + r"/anomaly/prediction/fleet", "fleet_anomaly_prediction"),
     ("POST", _MACHINE + r"/prediction", "prediction"),
     ("POST", _MACHINE + r"/anomaly/prediction", "anomaly_prediction"),
 ]
@@ -111,6 +141,26 @@ def resolve_sibling_revision(latest_dir: str, requested: str) -> Optional[str]:
     return candidate
 
 
+def _setting(value, setting):
+    """An explicit value, else the environment variable's, else the default."""
+    env, kind, default = setting
+    if value is None:
+        raw = os.environ.get(env)
+        value = default if raw in (None, "") else raw
+    return kind(value)
+
+
+class Body:
+    """A request's body reader and its content type."""
+
+    def __init__(self, read: Callable[[], bytes], content_type: Optional[str] = None):
+        self._read = read
+        self.content_type = content_type or ""
+
+    def __call__(self) -> bytes:
+        return self._read()
+
+
 class Revision(NamedTuple):
     """What one request serves: the revision's name and directory (None
     for a name that cannot be served)."""
@@ -123,7 +173,12 @@ class GordoApp:
     """WSGI application serving one collection of port artifacts."""
 
     def __init__(
-        self, collection_dir: Optional[str] = None, device: DeviceLike = None
+        self,
+        collection_dir: Optional[str] = None,
+        device: DeviceLike = None,
+        batch_wait_ms: Optional[float] = None,
+        batch_queue_limit: Optional[int] = None,
+        scorer_cache_size: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         self.collection_dir = collection_dir or os.environ[MODEL_COLLECTION_DIR_ENV_VAR]
@@ -132,6 +187,11 @@ class GordoApp:
         self._models: Dict[Tuple[str, str], Any] = {}
         self._metadata: Dict[Tuple[str, str], dict] = {}
         self._lock = threading.Lock()
+        self.catalog = ServingCatalog(
+            scorer_cache_size=_setting(scorer_cache_size, SCORER_CACHE_SIZE),
+            batch_wait_s=_setting(batch_wait_ms, BATCH_WAIT_MS) / 1000.0,
+            batch_queue_limit=_setting(batch_queue_limit, BATCH_QUEUE_LIMIT),
+        )
 
     # -- WSGI plumbing -----------------------------------------------------
     def __call__(self, environ, start_response):
@@ -141,6 +201,7 @@ class GordoApp:
             lambda: _read_body(environ),
             query_string=environ.get("QUERY_STRING", ""),
             revision=environ.get("HTTP_REVISION"),
+            content_type=environ.get("CONTENT_TYPE"),
         )
         headers = [
             ("Content-Type", response.mimetype),
@@ -158,9 +219,11 @@ class GordoApp:
         read_body: Callable[[], bytes],
         query_string: str = "",
         revision: Optional[str] = None,
+        content_type: Optional[str] = None,
     ) -> Response:
         """One request: ``revision`` is the ``revision`` header's value; a
         ``revision`` in ``query_string`` takes precedence over it."""
+        read_body = Body(read_body, content_type)
         view, url_args = self._match(method, path)
         served = Revision(self.revision, self.collection_dir)
         try:
@@ -179,6 +242,17 @@ class GordoApp:
                     response = getattr(self, f"view_{view}")(served, read_body, **url_args)
         except ApiError as exc:
             response = _json_response(exc.payload, exc.status)
+        except batching.BatchQueueFull as exc:
+            response = _json_response(
+                {
+                    "error": str(exc),
+                    "queue_depth": exc.queue_depth,
+                    "queue_limit": exc.queue_limit,
+                    "retry_after_s": exc.retry_after_s,
+                },
+                503,
+            )
+            response.headers["Retry-After"] = str(exc.retry_after_s)
         except Exception:
             logger.error("Unhandled server error:\n%s", traceback.format_exc())
             response = _json_response(
@@ -258,21 +332,65 @@ class GordoApp:
         X, y = server_utils.extract_X_y(body, tags, target_tags)
         return tags, target_tags, X, y
 
+    # -- casualties --------------------------------------------------------
+    def _refuse_unavailable(self, served: Revision, names) -> None:
+        """409 when a requested machine is a casualty of the revision's
+        build (``build_report.json``), with the JAX server's body."""
+        unavailable = self.catalog.unavailable_machines(served.directory)
+        bad = {name: unavailable[name] for name in names if name in unavailable}
+        if bad:
+            raise ApiError(
+                {
+                    "error": "Machine(s) unavailable in this revision: "
+                    + ", ".join(f"{name} ({info['reason']})" for name, info in sorted(bad.items())),
+                    "unavailable": bad,
+                },
+                409,
+            )
+
     # -- views -------------------------------------------------------------
     def view_healthcheck(self, served: Revision, read_body) -> Response:
         return Response(b"", 200)
 
+    def view_healthz(self, served: Revision, read_body) -> Response:
+        """Readiness, the JAX server's body: 200 while the server can take
+        work; 503 with ``Retry-After`` while a batcher is saturated or has
+        just shed."""
+        stats = self.catalog.batcher_stats()
+        overloaded = [s for s in stats if s["saturated"] or s["shedding"]]
+        payload = {
+            "status": "overloaded" if overloaded else "ok",
+            "batching": {
+                "enabled": self.catalog.batch_wait_s > 0,
+                "batch_wait_ms": self.catalog.batch_wait_s * 1000.0,
+                "queue_limit": self.catalog.batch_queue_limit,
+                "batchers": len(stats),
+                "queue_depth": sum(s["queue_depth"] for s in stats),
+                "sheds_total": sum(s["sheds_total"] for s in stats),
+                "shedding": any(s["shedding"] for s in stats),
+            },
+            "streaming": {
+                "sessions": 0,
+                "max_sessions": STREAM_MAX_SESSIONS,
+                "max_backlog": STREAM_MAX_BACKLOG,
+                "backlog": 0,
+                "saturated_sessions": 0,
+            },
+        }
+        if not overloaded:
+            return _json_response(payload)
+        response = _json_response(payload, 503)
+        response.headers["Retry-After"] = str(max(s["retry_after_s"] for s in overloaded))
+        return response
+
     def view_models(self, served: Revision, read_body, gordo_project: str) -> Response:
-        try:
-            names = sorted(
-                name
-                for name in os.listdir(served.directory)
-                if not name.startswith(".")
-                and os.path.isdir(os.path.join(served.directory, name))
-            )
-        except FileNotFoundError:
-            names = []
-        return _json_response({"models": names})
+        """The revision's machines; casualties of its build are listed
+        under ``unavailable`` instead, with their reasons."""
+        unavailable = self.catalog.unavailable_machines(served.directory)
+        payload: Dict[str, Any] = {"models": list(self.catalog.servable_machines(served.directory))}
+        if unavailable:
+            payload["unavailable"] = unavailable
+        return _json_response(payload)
 
     def view_revisions(self, served: Revision, read_body, gordo_project: str) -> Response:
         """The sibling real directories of the served revision: no dot
@@ -325,6 +443,7 @@ class GordoApp:
         self, served: Revision, read_body, gordo_project: str, gordo_name: str
     ) -> Response:
         start = timeit.default_timer()
+        self._refuse_unavailable(served, [gordo_name])
         model = self._get_model(served, gordo_name)
         tags, target_tags, X, _ = self._extract(
             read_body, self._get_metadata(served, gordo_name)
@@ -356,6 +475,7 @@ class GordoApp:
         self, served: Revision, read_body, gordo_project: str, gordo_name: str
     ) -> Response:
         start = timeit.default_timer()
+        self._refuse_unavailable(served, [gordo_name])
         model = self._get_model(served, gordo_name)
         metadata = self._get_metadata(served, gordo_name)
         _, _, X, y = self._extract(read_body, metadata)
@@ -387,6 +507,199 @@ class GordoApp:
         )
 
 
+    # -- fleet routes --------------------------------------------------------
+    @staticmethod
+    def _fleet_request_machines(read_body) -> Optional[dict]:
+        """The body's ``machines`` mapping, or None when it has none."""
+        if read_body.content_type.startswith("multipart/"):
+            raise ApiError(
+                {
+                    "error": "Multipart (parquet) fleet bodies are not supported by this "
+                    'server; post JSON {"machines": {<name>: <frame>}}'
+                },
+                400,
+            )
+        try:
+            body = json.loads(read_body() or b"null")
+        except ValueError:
+            body = None
+        machines = body.get("machines") if isinstance(body, dict) else None
+        return machines if isinstance(machines, dict) and machines else None
+
+    @staticmethod
+    def _parse_fleet_frame(raw, columns: List[str]):
+        """A machine's posted frame (dict or list of rows), verified
+        against its columns."""
+        return server_utils.verify_dataframe(server_utils.dataframe_from_dict(raw), columns)
+
+    def _fleet_scorer(self, served: Revision) -> Tuple[tuple, tuple]:
+        """(the revision's servable machines, the (scorer, prefixes,
+        fallback) over all of them). One scorer a revision, whatever
+        machines a request names: each group's weights are stacked once,
+        a request for the whole group or a subset that rounds up to it
+        scatters into that stack, a smaller one gathers from it, and
+        requests for different machines coalesce in one batcher."""
+        servable = self.catalog.servable_machines(served.directory)
+        return servable, self.catalog.fleet_scorer(
+            served.directory, servable, lambda name: self._get_model(served, name)
+        )
+
+    def _fleet_predict(self, served: Revision, servable, scorer, inputs: dict) -> dict:
+        """One stacked scoring of ``inputs``: straight through the scorer
+        with batching off (no batcher is ever built), else through the
+        revision's batcher, whose drainer may coalesce it with concurrent
+        requests."""
+        if self.catalog.batch_wait_s <= 0:
+            return scorer.predict(inputs)
+        key = (os.path.realpath(served.directory), servable)
+        for _ in range(8):
+            try:
+                return self.catalog.batcher(key, scorer).submit(inputs).outputs
+            except batching.BatcherStopped:
+                continue  # the batcher was replaced between lookup and submit
+        raise RuntimeError(f"The batcher of revision {served.name!r} kept stopping")
+
+    def _fleet_inputs(self, served: Revision, names, machines, prefixes, fallback, anomaly):
+        """(X frames, y frames, scorer inputs, metadata) of a fleet body,
+        or the 400 reply of its first bad entry."""
+        frames, targets, inputs, meta = {}, {}, {}, {}
+        for name in names:
+            metadata = meta[name] = self._get_metadata(served, name)
+            tags, target_tags = self._tags(metadata)
+            raw = machines[name]
+            if anomaly:
+                if not isinstance(raw, dict) or "X" not in raw:
+                    return _json_response(
+                        {"error": f"Machine {name!r} entry must contain 'X'."}, 400
+                    )
+                if raw.get("y") is None:
+                    return _json_response(
+                        {
+                            "message": "Cannot perform anomaly without 'y' to compare "
+                            f"against (machine {name!r})."
+                        },
+                        400,
+                    )
+            try:
+                if anomaly:
+                    frames[name] = self._parse_fleet_frame(raw["X"], tags)
+                    targets[name] = self._parse_fleet_frame(raw["y"], target_tags)
+                else:
+                    frames[name] = self._parse_fleet_frame(raw, tags)
+            except (ValueError, ApiError) as err:
+                return _json_response({"error": f"Bad input for machine {name!r}: {err}"}, 400)
+            if name in fallback:
+                continue  # scored by its own predict
+            transformed = frames[name].values
+            for step in prefixes.get(name, []):
+                transformed = step.transform(transformed)
+            inputs[name] = np.asarray(transformed, dtype=np.float32)
+        return frames, targets, inputs, meta
+
+    def view_fleet_prediction(self, served: Revision, read_body, gordo_project: str) -> Response:
+        """Base predictions of several machines, each architecture group
+        scored by one stacked forward: ``{"machines": {name: X}}`` ->
+        ``{"data": {name: frame}}``."""
+        start = timeit.default_timer()
+        machines = self._fleet_request_machines(read_body)
+        if machines is None:
+            return _json_response(
+                {"error": "Body must contain a non-empty 'machines' mapping."}, 400
+            )
+        names = tuple(sorted(machines))
+        self._refuse_unavailable(served, names)
+        models = {name: self._get_model(served, name) for name in names}
+        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served)
+        parsed = self._fleet_inputs(served, names, machines, prefixes, fallback, anomaly=False)
+        if isinstance(parsed, Response):
+            return parsed
+        frames, _, inputs, meta = parsed
+        try:
+            outputs = self._fleet_predict(served, servable, scorer, inputs) if inputs else {}
+            for name in names:
+                if name not in outputs:  # no port estimator: its own predict
+                    outputs[name] = models[name].predict(frames[name])
+        except batching.BatchQueueFull:
+            raise
+        except ValueError as err:
+            return _json_response({"error": f"ValueError: {err}"}, 400)
+        except Exception:
+            logger.error("Fleet prediction failed:\n%s", traceback.format_exc())
+            return _json_response(
+                {"error": "Something unexpected happened; check your input data"}, 400
+            )
+        data = {}
+        for name in names:
+            tags, target_tags = self._tags(meta[name])
+            frame = make_base_dataframe(
+                tags=tags,
+                model_input=frames[name].values,
+                model_output=outputs[name],
+                target_tag_list=target_tags,
+                index=frames[name].index,
+            )
+            data[name] = server_utils.dataframe_to_dict(frame)
+        return _json_response(
+            {"data": data, "time-seconds": f"{timeit.default_timer() - start:.4f}"}
+        )
+
+    def view_fleet_anomaly_prediction(
+        self, served: Revision, read_body, gordo_project: str
+    ) -> Response:
+        """Anomaly frames of several detectors: ``{"machines": {name: {"X":
+        frame, "y": frame}}}``; the base estimators' outputs come from one
+        stacked forward a group and feed each detector's ``anomaly``. 422
+        when a requested model is not an anomaly detector."""
+        start = timeit.default_timer()
+        machines = self._fleet_request_machines(read_body)
+        if machines is None:
+            return _json_response(
+                {"error": "Body must contain a non-empty 'machines' mapping."}, 400
+            )
+        names = tuple(sorted(machines))
+        self._refuse_unavailable(served, names)
+        models = {name: self._get_model(served, name) for name in names}
+        non_anomaly = [n for n, m in models.items() if not isinstance(m, DiffBasedAnomalyDetector)]
+        if non_anomaly:
+            return _json_response(
+                {
+                    "message": "Models are not AnomalyDetectors: "
+                    + ", ".join(f"{n} ({type(models[n]).__name__})" for n in non_anomaly)
+                },
+                422,
+            )
+        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served)
+        parsed = self._fleet_inputs(served, names, machines, prefixes, fallback, anomaly=True)
+        if isinstance(parsed, Response):
+            return parsed
+        frames, targets, inputs, meta = parsed
+        data = {}
+        try:
+            outputs = self._fleet_predict(served, servable, scorer, inputs) if inputs else {}
+            for name in names:
+                frequency = server_utils.resolution_to_timedelta(
+                    meta[name]["dataset"].get("resolution", "10min")
+                )
+                # machines the scorer lacks run their own predict inside
+                kwargs = {"model_output": outputs[name]} if name in outputs else {}
+                frame = models[name].anomaly(
+                    frames[name], targets[name], frequency=frequency, **kwargs
+                )
+                data[name] = server_utils.dataframe_to_dict(frame)
+        except batching.BatchQueueFull:
+            raise
+        except ValueError as err:
+            return _json_response({"error": f"ValueError: {err}"}, 400)
+        except Exception:
+            logger.error("Fleet anomaly prediction failed:\n%s", traceback.format_exc())
+            return _json_response(
+                {"error": "Something unexpected happened; check your input data"}, 400
+            )
+        return _json_response(
+            {"data": data, "time-seconds": f"{timeit.default_timer() - start:.4f}"}
+        )
+
+
 def _read_body(environ) -> bytes:
     try:
         length = int(environ.get("CONTENT_LENGTH") or 0)
@@ -395,7 +708,11 @@ def _read_body(environ) -> bytes:
     return environ["wsgi.input"].read(length) if length > 0 else b""
 
 
-def build_app(collection_dir: Optional[str] = None, device: DeviceLike = None) -> GordoApp:
+def build_app(collection_dir: Optional[str] = None, device: DeviceLike = None,
+              **settings) -> GordoApp:
     """The WSGI app over ``collection_dir`` (default: ``$MODEL_COLLECTION_DIR``)
-    on ``device`` (the card unless ``"cpu"`` is asked for)."""
-    return GordoApp(collection_dir, device)
+    on ``device`` (the card unless ``"cpu"`` is asked for); ``settings``:
+    ``batch_wait_ms``, ``batch_queue_limit``, ``scorer_cache_size`` (else
+    ``GORDO_BATCH_WAIT_MS``, ``GORDO_BATCH_QUEUE_LIMIT``,
+    ``GORDO_SCORER_CACHE_SIZE``, else 0, 64 and 16)."""
+    return GordoApp(collection_dir, device, **settings)

@@ -1,0 +1,180 @@
+"""
+The serving catalog (the port of ``gordo_tpu.server.catalog``'s build
+report, fleet-scorer and batcher parts): per-process serving state for
+any number of revision directories, shared by every request thread.
+
+- ``build_report.json`` of a revision, cached by its mtime, and the
+  machines it records as casualties (:meth:`ServingCatalog.unavailable_machines`);
+- the fleet scorers, an LRU keyed by (real revision directory, machine
+  names) and bounded by ``scorer_cache_size``; the server asks for one
+  over a revision's servable machines, whatever subset a request names,
+  so each group's weights are stacked once;
+- the request batchers, one for each scorer key, rebuilt when the key's
+  scorer changed and stopped when evicted.
+
+Locks are held for dictionary reads and writes only, never while a scorer
+is built. Left out: shards, AOT program stores and streaming sessions
+(ROADMAP.md queue 1 items 8 and 9).
+"""
+
+import json
+import logging
+import os
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from gordo_tpu_torch.server import batching
+
+logger = logging.getLogger(__name__)
+
+#: the casualty record the fleet builder writes next to the artifacts
+BUILD_REPORT_FILENAME = "build_report.json"
+
+
+def _evict_lru(cache: Dict, size: int, on_evict: Optional[Callable] = None) -> None:
+    """Drop the oldest entries of an insertion-ordered dict down to ``size``."""
+    while len(cache) > max(1, size):
+        key = next(iter(cache))
+        value = cache.pop(key)
+        if on_evict is not None:
+            on_evict(value)
+
+
+class ServingCatalog:
+    def __init__(self, scorer_cache_size: int = 16, batch_wait_s: float = 0.0,
+                 batch_queue_limit: int = 64):
+        self.scorer_cache_size = int(scorer_cache_size)
+        self.batch_wait_s = float(batch_wait_s)
+        self.batch_queue_limit = int(batch_queue_limit)
+        # (realpath(revision dir), names) -> (scorer, prefixes, fallback)
+        self._fleet_scorers: Dict[tuple, tuple] = {}
+        self._fleet_scorers_lock = threading.Lock()
+        self._batchers: Dict[tuple, batching.RequestBatcher] = {}
+        self._batchers_lock = threading.Lock()
+        # realpath(report) -> (mtime, report)
+        self._build_reports: Dict[str, tuple] = {}
+        self._build_reports_lock = threading.Lock()
+
+    # -- casualties ----------------------------------------------------------
+    def build_report(self, collection_dir: str) -> dict:
+        """The revision's ``build_report.json`` ({} when there is none),
+        parsed again only when its mtime changes."""
+        path = os.path.join(collection_dir, BUILD_REPORT_FILENAME)
+        try:
+            mtime = os.path.getmtime(path)
+        except OSError:
+            return {}
+        key = os.path.realpath(path)
+        with self._build_reports_lock:
+            cached = self._build_reports.get(key)
+        if cached is not None and cached[0] == mtime:
+            return cached[1]
+        try:
+            with open(path) as fh:
+                report = json.load(fh)
+        except (OSError, ValueError):
+            logger.warning("Unreadable build report at %s; ignoring", path)
+            report = {}
+        with self._build_reports_lock:
+            self._build_reports[key] = (mtime, report)
+        return report
+
+    def unavailable_machines(self, collection_dir: str) -> Dict[str, dict]:
+        """The machines the build recorded as casualties: failed in a
+        phase (no usable artifact) or quarantined (an artifact of frozen
+        last finite weights), with their reasons."""
+        report = self.build_report(collection_dir)
+        out: Dict[str, dict] = {}
+        for record in report.get("failed") or []:
+            name = record.get("machine")
+            if name:
+                out[name] = {
+                    "reason": f"{record.get('phase', 'build')}_failed",
+                    "error": record.get("error"),
+                    "attempts": record.get("attempts"),
+                }
+        for record in report.get("quarantined") or []:
+            name = record.get("machine")
+            if name:
+                out[name] = {"reason": "quarantined", "epoch": record.get("epoch")}
+        return out
+
+    @staticmethod
+    def list_machines(collection_dir: str) -> List[str]:
+        """The revision's artifact directories (dot entries and loose
+        files are not machines)."""
+        try:
+            return sorted(
+                name
+                for name in os.listdir(collection_dir)
+                if not name.startswith(".") and os.path.isdir(os.path.join(collection_dir, name))
+            )
+        except FileNotFoundError:
+            return []
+
+    def servable_machines(self, collection_dir: str) -> Tuple[str, ...]:
+        """The revision's machines less its build's casualties."""
+        unavailable = self.unavailable_machines(collection_dir)
+        return tuple(n for n in self.list_machines(collection_dir) if n not in unavailable)
+
+    # -- fleet scorers -------------------------------------------------------
+    def fleet_scorer(
+        self,
+        collection_dir: str,
+        names: Tuple[str, ...],
+        load_model: Callable[[str], Any],
+    ) -> tuple:
+        """(scorer, prefixes, fallback) over ``names`` in this revision,
+        built on a miss from ``load_model`` of each name; a machine that
+        does not load is left out with a warning (a request naming it
+        meets its own error). Two first requests for one key may both
+        build; the last insert stays."""
+        from gordo_tpu_torch.server.fleet_serving import fleet_scorer_from_models
+
+        key = (os.path.realpath(collection_dir), tuple(names))
+        with self._fleet_scorers_lock:
+            cached = self._fleet_scorers.pop(key, None)
+            if cached is not None:
+                self._fleet_scorers[key] = cached  # most recently used
+                return cached
+        models = {}
+        for name in names:
+            try:
+                models[name] = load_model(name)
+            except Exception as err:
+                logger.warning("Fleet scorer of %s: leaving out %s (%s)", collection_dir, name, err)
+        built = fleet_scorer_from_models(models)
+        with self._fleet_scorers_lock:
+            self._fleet_scorers.pop(key, None)
+            self._fleet_scorers[key] = built
+            _evict_lru(self._fleet_scorers, self.scorer_cache_size)
+        return built
+
+    # -- batchers ------------------------------------------------------------
+    def batcher(self, key: tuple, scorer) -> batching.RequestBatcher:
+        """The live batcher of ``key``, rebuilt when the key's scorer
+        changed; as many as scorers are kept, an evicted one stopped."""
+        with self._batchers_lock:
+            existing = self._batchers.pop(key, None)
+            if existing is not None and existing.scorer is scorer and not existing.stopped:
+                self._batchers[key] = existing
+                return existing
+            if existing is not None:
+                existing.stop()
+            batcher = batching.RequestBatcher(scorer, self.batch_wait_s, self.batch_queue_limit)
+            self._batchers[key] = batcher
+            _evict_lru(self._batchers, self.scorer_cache_size, on_evict=lambda b: b.stop())
+            return batcher
+
+    def batcher_stats(self) -> List[dict]:
+        with self._batchers_lock:
+            batchers = list(self._batchers.values())
+        return [b.stats() for b in batchers]
+
+    def stop(self) -> None:
+        """Stop every batcher (the app is shutting down)."""
+        with self._batchers_lock:
+            batchers = list(self._batchers.values())
+            self._batchers.clear()
+        for b in batchers:
+            b.stop(join=True)

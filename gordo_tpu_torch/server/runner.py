@@ -5,6 +5,11 @@ thread per request.
     python -m gordo_tpu_torch.server.runner --collection-dir <dir> [--port 5555]
 
 ``--device cpu`` serves from the CPU; the default is the card.
+``--batch-wait-ms``, ``--queue-limit`` and ``--scorer-cache-size`` set
+the fleet routes' dynamic batching and scorer cache (defaults: the
+``GORDO_BATCH_WAIT_MS``, ``GORDO_BATCH_QUEUE_LIMIT`` and
+``GORDO_SCORER_CACHE_SIZE`` environment variables, else 0, 64 and 16;
+a wait of 0 turns batching off).
 """
 
 import argparse
@@ -43,11 +48,18 @@ def main(argv=None) -> None:
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=5555)
     parser.add_argument("--device", default=None)
+    parser.add_argument("--batch-wait-ms", type=float, default=None,
+                        help="longest wait of a fleet request for batch-mates (0: no batching)")
+    parser.add_argument("--queue-limit", type=int, default=None,
+                        help="batch capacity and admission bound of each batcher")
+    parser.add_argument("--scorer-cache-size", type=int, default=None,
+                        help="fleet scorers (and batchers) kept")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    server = make_http_server(
-        build_app(args.collection_dir, args.device), args.host, args.port
-    )
+    app = build_app(args.collection_dir, args.device, batch_wait_ms=args.batch_wait_ms,
+                    batch_queue_limit=args.queue_limit,
+                    scorer_cache_size=args.scorer_cache_size)
+    server = make_http_server(app, args.host, args.port)
     logger.info("Serving on %s:%d", args.host, server.server_port)
     try:
         server.serve_forever()

@@ -247,8 +247,8 @@ def test_on_error_raise_exits_with_the_failure(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "flag,value",
     [("--workers", "2"), ("--worker-id", "0"), ("--lease-ttl", "5"), ("--max-attempts", "2"),
-     ("--ledger-status", "x"), ("--resume", "1"), ("--aot-cache", "1"), ("--precision", "bf16"),
-     ("--precision-tolerance", "0.1"), ("--prefetch-depth", "2"), ("--model-parameter", "a,1"),
+     ("--ledger-status", "x"), ("--resume", "1"), ("--aot-cache", "1"),
+     ("--prefetch-depth", "2"), ("--model-parameter", "a,1"),
      ("--model-register-dir", "x"), ("--exceptions-report-level", "MESSAGE")],
 )
 def test_unported_options_name_their_roadmap_item(flag, value, capsys):

@@ -60,5 +60,9 @@ def test_port_imports_no_jax_and_no_missing_libraries():
         "gordo_tpu_torch.models.callbacks",
         "gordo_tpu_torch.parallel.fleet",
         "gordo_tpu_torch.parallel.bucketing",
+        "gordo_tpu_torch.parallel.precision",
+        "gordo_tpu_torch.server.fleet_serving",
+        "gordo_tpu_torch.server.batching",
+        "gordo_tpu_torch.server.catalog",
     } <= set(names)
     assert loaded == []
