@@ -136,12 +136,36 @@ Phases, each raising on failure (no result line is printed then):
    version; fleet and solo request times, one dispatch's device time,
    a request's launches and idle share, requests a second batched and
    not, bf16 against float32 request times;
-12. one JSON line of per-kernel numbers, each time with the timer that
+12. build options: seeded CSV files for ``turbine-9900-transformer``'s
+   three tags (5-minute samples over the config's span, with planted
+   spikes) in the file-system provider's layout; the machine (full width,
+   flash, 1 epoch where the config has 10) read from a YAML project
+   through the port's config layer with a ``row_filter`` and its buffer,
+   a median ``filter_periods``, ``aggregation_methods: max``, ``cv:
+   KFold(3, shuffle)``, a ``StandardScaler`` scoring scaler, six metrics
+   (the new ones among them) and ``scaler: StandardScaler`` on the
+   detector, built by ``python -m gordo_tpu_torch.cli build
+   --model-register-dir`` in a subprocess on the card, then built again:
+   a cache hit, no flash launch, the artifact untouched; a feedforward
+   machine with ``aggregation_methods: [mean, max]`` whose model string
+   is filled by ``--model-parameter``; the Transformer served on the card
+   with 144 rows, within 1e-4 of the CPU; pipelined transfers read only
+   after their copies (``parallel/transfer.py``), and four full-width
+   Transformers stepped by ``FleetTrainer`` at ``prefetch_depth`` 0 and 2,
+   bitwise equal, with the transfer counts and step ms; the served
+   Transformer (float32, dropout 0.1) and phase 7's bf16 long-context
+   net each stepped with ``remat`` off and on: the flash forward twice a
+   layer under remat, gradients within 1e-6 (float32) and 2^-7 (bf16) of
+   the plain step's, peak device memory and step ms;
+13. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
    and the tensor-core, sliced and tiled kernels each under its own,
    with its launches on every path above; then the result line.
+
+Phase 3 also times the quad forward at the folded shapes of phase 11's
+fleet requests (four machines' windows in one batch).
 
 Exits non-zero without a result line when no CUDA card is available.
 """
@@ -423,6 +447,72 @@ BF16_COLLECTION = "1700000000006"
 BF16_DAYS = 28
 BF16_ROWS = (4024, 4033)  # the least and most rows a machine may have
 BF16_MACHINES = (f"{MACHINE}-bf16-0", f"{MACHINE}-bf16-1")
+# the quad forward at phase 11's folded fleet-serve shapes: four machines'
+# windows in one batch, 144 rows padded to 256 (193 windows each) and 8255
+# rows padded to 16 384 (16 321 windows each)
+FLEET_SERVE_CASES = (("fleet-serve-144", (4 * 193, 64, 4, 16)),
+                     ("fleet-serve-8255", (4 * 16321, 64, 4, 16)))
+
+# Phase 12: the build options of a machine config. The Transformer
+# machine reads OPTIONS_SAMPLES_A_DAY samples a day of seeded daily
+# sinusoids plus noise a tag over the config's span (2019-01-01 to
+# 2019-06-01), written as CSV files in the file-system provider's layout
+# (<lake>/gra/<tag>/<tag>_2019.csv), with a spike planted every
+# OPTIONS_SPIKE_EVERY samples for the period filter to find, and builds 1
+# epoch where the config has 10 (each build of phase 12 cross-validates
+# with three folds trained one after another, KFold's training rows not
+# being one run); widths and span are the config's.
+OPTIONS_COLLECTION = "1700000000007"
+OPTIONS_SAMPLES_A_DAY = 288
+OPTIONS_SPIKE_EVERY = 4001
+OPTIONS_EPOCHS = 1
+OPTIONS_METRICS = ["explained_variance_score", "r2_score", "median_absolute_error", "max_error",
+                   "mean_absolute_percentage_error", "root_mean_squared_error"]
+OPTIONS_PROJECT = """
+machines:
+  - name: {name}
+    dataset:
+      type: TimeSeriesDataset
+      data_provider: {{type: FileSystemProvider, base_dir: "{lake}"}}
+      tags: [{tags}]
+      train_start_date: '2019-01-01T00:00:00+00:00'
+      train_end_date: '2019-06-01T00:00:00+00:00'
+      asset: gra
+      aggregation_methods: max
+      row_filter: "`GRA-TURB-SPEED 1` > -2.0 & `GRA-TURB-LOAD 3` < 0.45"
+      row_filter_buffer_size: 2
+      filter_periods: {{filter_method: median, window: 144, n_iqr: 5}}
+    model:
+      gordo_tpu.models.anomaly.DiffBasedAnomalyDetector:
+        scaler: sklearn.preprocessing.StandardScaler
+        base_estimator:
+          gordo_tpu.models.TransformerAutoEncoder:
+            kind: transformer_model
+            lookback_window: 64
+            d_model: 64
+            n_heads: 4
+            n_layers: 2
+            epochs: {epochs}
+            attention_impl: flash
+    evaluation:
+      cv: {{sklearn.model_selection.KFold: {{n_splits: 3, shuffle: true, random_state: 0}}}}
+      scoring_scaler: sklearn.preprocessing.StandardScaler
+      metrics: [{metrics}]
+"""
+# the feedforward machine: the same files, two aggregations a tag, and a
+# model template filled by --model-parameter
+OPTIONS_TEMPLATE = "gordo_tpu.models.AutoEncoder: {kind: '{{ kind }}', epochs: {{ epochs }}}"
+OPTIONS_PARAMETERS = ("kind,feedforward_hourglass", "epochs,1")
+# FleetTrainer at prefetch depth 0 and 2: four full-width Transformers on
+# ragged rows (the shorter machines' last steps gated), 3 epochs read one
+# at a time (a patience none runs out of), so every chunk after the first
+# stages its vector under the chunk before
+PREFETCH_STEPS = (20, 20, 19, 18)
+PREFETCH_EPOCHS = 3
+# remat against plain: float32 gradients within 1e-6 of their largest
+# magnitude (the recompute is the same arithmetic), bf16 within 2^-7
+REMAT_TOLERANCE = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+REMAT_TIMED_STEPS = 5
 
 
 def log(*parts) -> None:
@@ -603,6 +693,7 @@ def kernel_phase(torch, fa):
         ("head-dim-32", (16, 200, 2, 32), True, torch.float32),
         ("head-dim-128", (2, 300, 2, 128), False, torch.float32),
         ("model-shape-bf16", (8192, 64, 4, 16), True, torch.bfloat16),
+        *((name, shape, True, torch.float32) for name, shape in FLEET_SERVE_CASES),
         (MISALIGNED, (BATCH_SIZE, 64, 4, 16), True, torch.float32),
         *((name, shape, causal, getattr(torch, dtype)) for name, shape, causal, dtype in WIDE_CASES),
     ]
@@ -2817,6 +2908,327 @@ def stacked_forward_check(torch, X):
     return result
 
 
+def write_options_lake(lake: str) -> dict:
+    """Phase 12's CSV files: ``OPTIONS_SAMPLES_A_DAY`` samples a day a tag
+    over the config's span from ``sensor_rows``' generator (5-minute
+    samples at half its 10-minute step), a spike of +40 on the second tag
+    every ``OPTIONS_SPIKE_EVERY`` samples; in the file-system layout, one
+    file a tag and year. Returns {tag: samples}."""
+    rows = 151 * OPTIONS_SAMPLES_A_DAY
+    X, _ = sensor_rows(rows, SEED + 12)
+    X[::OPTIONS_SPIKE_EVERY, 1] += 40.0
+    step = timedelta(days=1) / OPTIONS_SAMPLES_A_DAY
+    stamps = [(TRAIN_START + i * step).isoformat() for i in range(rows)]
+    for j, tag in enumerate(TAGS):
+        folder = os.path.join(lake, "gra", tag)
+        os.makedirs(folder)
+        with open(os.path.join(folder, f"{tag}_2019.csv"), "w") as fh:
+            fh.write("Time,Value,Status\n")
+            fh.writelines(f"{t},{float(v)!r},0\n" for t, v in zip(stamps, X[:, j]))
+    return {tag: rows for tag in TAGS}
+
+
+def options_machines(lake: str):
+    """(the Transformer machine, read from ``OPTIONS_PROJECT`` by the port's
+    config layer, as the workflow hands it to ``build``; the feedforward
+    machine with a model template, as ``build`` takes a raw machine)."""
+    from gordo_tpu_torch.workflow.config_elements import NormalizedConfig
+    from gordo_tpu_torch.workflow.yaml_reader import safe_load
+
+    text = OPTIONS_PROJECT.format(
+        name=f"{MACHINE}-options", lake=lake, tags=", ".join(TAGS), epochs=OPTIONS_EPOCHS,
+        metrics=", ".join(OPTIONS_METRICS),
+    )
+    (transformer,) = NormalizedConfig(safe_load(text), project_name=PROJECT).machines
+    transformer = json.loads(json.dumps(transformer.to_dict(), default=str))
+    feedforward = {
+        "name": "pump-options-feedforward", "project_name": PROJECT,
+        "dataset": {"type": "TimeSeriesDataset", "tags": list(TAGS), "asset": "gra",
+                    "train_start_date": "2019-01-01T00:00:00+00:00",
+                    "train_end_date": "2019-06-01T00:00:00+00:00",
+                    "aggregation_methods": ["mean", "max"],
+                    "data_provider": {"type": "FileSystemProvider", "base_dir": lake}},
+        "model": OPTIONS_TEMPLATE,
+    }
+    return transformer, feedforward
+
+
+def driven_build(root: str, machine: dict, artifact: str, *args) -> dict:
+    """``build`` of ``machine`` into ``artifact`` with ``args``, through the
+    CLI's ``main`` in a subprocess on the card (``FLEET_DRIVER``, which
+    writes the process's flash launches): wall seconds, the launches and
+    the log's fetch, cache and fit lines. Raises unless it exits 0."""
+    with tempfile.NamedTemporaryFile("r", suffix=".json") as launches:
+        # both by the environment: a lone positional binds to MACHINE
+        env = dict(os.environ, MACHINE=yaml_text(machine), OUTPUT_DIR=artifact)
+        env.pop("GORDO_TPU_LAKE_DIR", None)
+        t0 = time.perf_counter()
+        built = subprocess.run(
+            [sys.executable, "-c", FLEET_DRIVER, launches.name, "build", *args],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600,
+        )
+        wall_s = time.perf_counter() - t0
+        if built.returncode != 0:
+            raise AssertionError(f"build {machine['name']} exited {built.returncode}:\n"
+                                 f"{built.stderr[-4000:]}")
+        counts = json.load(open(launches.name))
+    lines = [line for line in built.stderr.splitlines()
+             if any(key in line for key in ("Fetched", "Cross-validated", "Fitted", "Cache hit"))]
+    return {"wall_s": wall_s, "kernels": {k: n for k, n in counts["kernels"].items() if n},
+            "log": lines, "stderr": built.stderr}
+
+
+def transfer_order_check(torch):
+    """Pipelined transfers on the card read only after their copies: a
+    32 MiB array moved by ``device_put_sliced`` at depth 2 and used at
+    once, and eight rows walked by ``prefetch_iter`` at depth 2, each used
+    as it is yielded; every value bitwise the host's."""
+    import numpy as np
+
+    from gordo_tpu_torch.parallel import transfer
+
+    big = np.random.default_rng(SEED + 13).normal(size=(8, 1 << 20)).astype(np.float32)
+    moved = transfer.device_put_sliced(big, 2, plane="build", device="cuda")
+    doubled = (moved * 2).cpu().numpy()
+    rows_equal = [np.array_equal(row.cpu().numpy(), big[i]) for i, row in
+                  enumerate(transfer.prefetch_iter(list(big), depth=2, device="cuda"))]
+    result = {"sliced_equal": bool(np.array_equal(doubled, big * 2)), "rows_equal": rows_equal}
+    log("transfer order check", json.dumps(result))
+    if not (result["sliced_equal"] and all(rows_equal)):
+        raise AssertionError(f"a pipelined transfer was read before its copy: {result}")
+    return result
+
+
+def prefetch_fleet_check(torch):
+    """Four full-width Transformers stepped by ``FleetTrainer`` at
+    ``prefetch_depth`` 0 and 2 on the card (``PREFETCH_STEPS`` steps of
+    each machine an epoch, ``PREFETCH_EPOCHS`` epochs read one at a time),
+    after a warm-up fit: the parameters and losses bitwise equal, the
+    transfers by (plane, mode), and the host-clock ms a step (the stacking
+    and copy of the data included)."""
+    from gordo_tpu_torch.models import TransformerAutoEncoder
+    from gordo_tpu_torch.parallel import transfer
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
+
+    lookback = BASE_ESTIMATOR["lookback_window"]
+    Xs = [sensor_rows(lookback - 1 + steps * BATCH_SIZE - 3 * i, SEED + 20 + i)[0]
+          for i, steps in enumerate(PREFETCH_STEPS)]
+    runs = {}
+    # the first fit pays the first launch of every kernel: a warm-up, then
+    # each depth
+    for depth in (0, 0, 2):
+        estimator = TransformerAutoEncoder(**BASE_ESTIMATOR, n_features=len(TAGS),
+                                           n_features_out=len(TAGS))
+        spec = estimator._build_spec()
+        trainer = FleetTrainer(spec, seed=SEED, epoch_chunk=1, prefetch_depth=depth)
+        init = trainer.stack_params([
+            {n: t.clone() for n, t in estimator._initial_state(spec, SEED + i).items()}
+            for i in range(len(Xs))
+        ])
+        torch.cuda.synchronize()
+        transfer.reset_transfer_counts()
+        t0 = time.perf_counter()
+        data = StackedData.from_ragged(Xs, Xs, prefetch_depth=depth)
+        params, losses = trainer.fit(data, params=init, epochs=PREFETCH_EPOCHS,
+                                     batch_size=BATCH_SIZE, early_stopping_patience=100)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        steps = trainer.fit_telemetry_["steps_per_epoch"] * PREFETCH_EPOCHS
+        runs[depth] = ({n: t.detach().cpu() for n, t in params.items()}, losses,
+                       {f"{plane}/{mode}": n for (plane, mode), n in
+                        sorted(transfer.transfer_counts.items())}, wall_ms / steps)
+    (p0, l0, c0, ms0), (p2, l2, c2, ms2) = runs[0], runs[2]
+    result = {
+        "machines": len(Xs), "epochs": PREFETCH_EPOCHS,
+        "bitwise_equal": bool((l0 == l2).all() and all(torch.equal(p0[n], p2[n]) for n in p0)),
+        "transfers_depth_0": c0, "transfers_depth_2": c2,
+        "step_ms_depth_0": ms0, "step_ms_depth_2": ms2,
+    }
+    log("prefetch fleet steps", json.dumps(result))
+    want = {"build/prefetched": 9, "train/direct": 1, "train/prefetched": PREFETCH_EPOCHS - 1}
+    if not result["bitwise_equal"] or c0 or c2 != want:
+        raise AssertionError(f"prefetch depth 2 against 0: {result}, expected {want}")
+    return result
+
+
+def remat_step_check(torch, fa, label, net_for, window, dtype, expected):
+    """One forward + backward of a TransformerNet with ``remat`` off and on
+    (the same weights; dropout draws from generators of one seed): the
+    flash launches of each step by CUDA kernel (reset just before, read
+    just after), every gradient of the remat step against the plain
+    step's, each over its largest magnitude, peak device memory
+    (``torch.cuda.max_memory_allocated`` over the step) and the step's
+    host-clock ms (median of ``REMAT_TIMED_STEPS``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    x = torch.from_numpy(rng.normal(size=window).astype(np.float32)).cuda()
+    torch.manual_seed(SEED)
+    state = net_for(False).state_dict()
+    out_dim = state["head.weight"].shape[0]
+    y = torch.from_numpy(rng.normal(size=(window[0], out_dim)).astype(np.float32)).cuda()
+    runs = {}
+    for remat in (False, True):
+        net = net_for(remat)
+        net.load_state_dict(state)
+        net = net.cuda().train()
+
+        def step(seed=SEED):
+            generator = torch.Generator(device="cuda").manual_seed(seed)
+            net.zero_grad(set_to_none=True)
+            loss = (net(x, generator) - y).square().mean()
+            loss.backward()
+            return loss
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.reset_launch_counts()
+        loss = step()
+        torch.cuda.synchronize()
+        launches = {name: n for name, n in fa.kernel_launches.items() if n}
+        peak = torch.cuda.max_memory_allocated() - base
+        grads = {name: p.grad.detach().float().clone() for name, p in net.named_parameters()}
+        times = []
+        for _ in range(REMAT_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs[remat] = {"loss": loss.item(), "grads": grads, "launches": launches,
+                       "peak_bytes": peak, "step_ms": statistics.median(times)}
+        del net
+    plain, remat = runs[False], runs[True]
+    rel = {name: (remat["grads"][name] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+           for name, g in plain["grads"].items()}
+    worst = max(rel, key=rel.get)
+    dtype_name = str(dtype).replace("torch.", "")
+    result = {
+        "dtype": dtype_name, "window": list(window),
+        "launches_plain": plain["launches"], "launches_remat": remat["launches"],
+        "loss_plain": plain["loss"], "loss_remat": remat["loss"],
+        "max_grad_rel_diff": rel[worst], "max_grad_rel_diff_param": worst,
+        "tolerance": REMAT_TOLERANCE[dtype_name],
+        "max_memory_allocated_plain": plain["peak_bytes"],
+        "max_memory_allocated_remat": remat["peak_bytes"],
+        "step_ms_plain": plain["step_ms"], "step_ms_remat": remat["step_ms"],
+    }
+    log(label, json.dumps(result))
+    want_plain, want_remat = expected
+    if plain["launches"] != want_plain or remat["launches"] != want_remat:
+        raise AssertionError(f"{label}: launches {plain['launches']} / {remat['launches']}, "
+                             f"expected {want_plain} / {want_remat}")
+    if not rel[worst] <= REMAT_TOLERANCE[dtype_name]:
+        raise AssertionError(f"{label}: remat and plain gradients differ: {result}")
+    return result
+
+
+def build_options_phase(torch, fa, profile: bool):
+    """Phase 12: the build options of a machine config on the card (the
+    module docstring's phase 12); the path's flash launches are the first
+    Transformer build's."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.specs_seq import TransformerNet
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lake = os.path.join(tmp, "lake")
+        t0 = time.perf_counter()
+        report["csv_samples"] = write_options_lake(lake)
+        report["csv_write_s"] = time.perf_counter() - t0
+        transformer, feedforward = options_machines(lake)
+        collection = os.path.join(tmp, OPTIONS_COLLECTION)
+        register = os.path.join(tmp, "register")
+        artifact = os.path.join(collection, transformer["name"])
+        first = driven_build(root, transformer, artifact, "--model-register-dir", register)
+        files = {name: os.stat(os.path.join(artifact, name)).st_mtime_ns
+                 for name in sorted(os.listdir(artifact))}
+        again = driven_build(root, transformer, artifact, "--model-register-dir", register)
+        if any("Cache hit" in line for line in first["log"]) or not any(
+                "Cache hit" in line for line in again["log"]):
+            raise AssertionError(f"the register: first {first['log']}, again {again['log']}")
+        if again["kernels"] or {name: os.stat(os.path.join(artifact, name)).st_mtime_ns
+                                for name in sorted(os.listdir(artifact))} != files:
+            raise AssertionError(f"the cache hit launched {again['kernels']} or rewrote the "
+                                 "artifact")
+        if "model parameters on cuda" not in first["stderr"]:
+            raise AssertionError(f"the options build did not fit on the card:\n{first['stderr']}")
+        ff_artifact = os.path.join(collection, feedforward["name"])
+        ff = driven_build(root, feedforward, ff_artifact,
+                          *(arg for p in OPTIONS_PARAMETERS for arg in ("--model-parameter", p)))
+        metadata = serializer.load_metadata(artifact)["metadata"]
+        build_meta = metadata["build_metadata"]
+        dataset_meta = build_meta["dataset"]["dataset_meta"]
+        scores = build_meta["model"]["cross_validation"]["scores"]
+        dataset = _get_dataset(transformer["dataset"])
+        X, _, stamps = dataset.get_data()
+        joined = dataset.get_metadata()["tag_loading_metadata"]["aggregate_metadata"][
+            "joined_length"]
+        ff_meta = serializer.load_metadata(ff_artifact)["metadata"]
+        ff_columns = list(ff_meta["build_metadata"]["dataset"]["dataset_meta"]["x_hist"])
+        model = serializer.load(artifact, device="cpu")
+        report["transformer"] = {
+            "build_s": first["wall_s"], "cache_hit_build_s": again["wall_s"],
+            "build_kernels": first["kernels"], "cache_hit_kernels": again["kernels"],
+            "log": first["log"], "rows_joined": joined, "rows_built": len(X),
+            "filtered_periods": len(dataset_meta["filtered_periods"]["median"]),
+            "scaler": type(model.scaler).__name__,
+            "cv_splitter": "KFold", "cv_fast_path": metadata["build_metadata"]["model"][
+                "model_meta"].get("cv-fast-path"),
+            "scores": {name: scores[name]["fold-mean"] for name in scores
+                       if "-GRA-" not in name},
+        }
+        report["feedforward"] = {"build_s": ff["wall_s"], "kernels": ff["kernels"],
+                                 "columns": ff_columns,
+                                 "definition": json.load(open(os.path.join(
+                                     ff_artifact, "definition.json")))}
+        log("build options", json.dumps({k: v for k, v in report.items()}, default=str))
+        if not (len(X) < joined and report["transformer"]["filtered_periods"] > 0):
+            raise AssertionError(f"the row and period filters removed nothing: {report}")
+        if report["transformer"]["scaler"] != "StandardScaler" or not all(
+                f"{name.replace('_', '-')}" in scores for name in OPTIONS_METRICS):
+            raise AssertionError(f"the options did not reach the model: {report}")
+        if len(ff_columns) != 2 * len(TAGS) or ff["kernels"]:
+            raise AssertionError(f"the feedforward machine: {report['feedforward']}")
+        report["transformer"]["requests"] = serve_built(
+            torch, collection, transformer, X, stamps, ("anomaly/prediction",), 1e-4, 0)
+    report["transfer_order"] = transfer_order_check(torch)
+    report["prefetch"] = prefetch_fleet_check(torch)
+
+    served = TransformerAutoEncoder(**BASE_ESTIMATOR, n_features=len(TAGS),
+                                    n_features_out=len(TAGS))
+
+    def served_net(remat):
+        """The served machine's net (the factory's, dropout 0.1)."""
+        net = served._build_spec().module
+        net.remat = remat
+        return net
+
+    layers = BASE_ESTIMATOR["n_layers"]
+    quad = {f"{k}_quad": layers for k in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)}
+    report["remat_served"] = remat_step_check(
+        torch, fa, "remat served transformer", served_net,
+        (BATCH_SIZE, BASE_ESTIMATOR["lookback_window"], len(TAGS)), torch.float32,
+        (quad, dict(quad, **{f"{fa.KERNEL}_quad": 2 * layers})),
+    )
+    mma = {f"{k}_mma": MODEL_16BIT["n_layers"] for k in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)}
+    report["remat_bf16"] = remat_step_check(
+        torch, fa, "remat bf16 long-context net",
+        lambda remat: TransformerNet(**MODEL_16BIT, attention_impl="flash",
+                                     dtype=torch.bfloat16, remat=remat),
+        WINDOW_16BIT, torch.bfloat16,
+        (mma, dict(mma, **{f"{fa.KERNEL}_mma": 2 * MODEL_16BIT["n_layers"]})),
+    )
+    for key in ("remat_served", "remat_bf16"):
+        report[key]["kernel_launches"] = report[key]["launches_remat"]
+    report["kernel_launches"] = {
+        name: first["kernels"].get(name, 0) for name in fa.kernel_launches}
+    return report
+
+
 def wide_row(check):
     """A head_dim 64/128/256 check row as the ``kernels`` line reports it."""
     keys = ("case", "shape", "dtype", "ms", "ms_timer", "bound_ms", "bound_by", "plain_ms",
@@ -2904,6 +3316,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as fleet_dir:
         fleet = timed("fleet_build", fleet_build_phase, args.profile, fleet_dir)
         fleet_serve = timed("fleet_serve", fleet_serve_phase, args.profile, fleet["collection"])
+    options = timed("build_options", build_options_phase, args.profile)
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -2918,6 +3331,9 @@ def main(argv=None) -> int:
              "fleet_serve": fleet_serve["kernel_launches"],
              "bf16_fleet_build": fleet_serve["bf16"]["build_launches"],
              "bf16_fleet_serve": fleet_serve["bf16"]["kernel_launches"],
+             "build_options": options["kernel_launches"],
+             "remat_served": options["remat_served"]["kernel_launches"],
+             "remat_bf16": options["remat_bf16"]["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
     def entry(kernel, families, source, replaces, cases, rows):
@@ -2939,7 +3355,8 @@ def main(argv=None) -> int:
     earlier = ("quad", "wide")  # the kernels of PRs 1-7, reported under the entry's name
     kernels = {
         "kernels": [
-            entry(fa.KERNEL, earlier, fwd_source, fwd_tpu, ("model-shape", *WIDE_ROWS), checks),
+            entry(fa.KERNEL, earlier, fwd_source, fwd_tpu,
+                  ("model-shape", *(name for name, _ in FLEET_SERVE_CASES), *WIDE_ROWS), checks),
             entry(fa.KERNEL_DQ, earlier, bwd_source, dq_tpu, ("train-step", *WIDE_ROWS),
                   backward_checks),
             entry(fa.KERNEL_DKV, earlier, bwd_source, dkv_tpu, ("train-step", *WIDE_ROWS),
@@ -2968,7 +3385,7 @@ def main(argv=None) -> int:
                  "end_to_end": report, "train": train,
                  "default_pipeline": default_pipeline, "models": models,
                  "recurrent": recurrent, "project_build": project, "fleet_build": fleet,
-                 "fleet_serve": fleet_serve,
+                 "fleet_serve": fleet_serve, "build_options": options,
                  **kernels},
                 fh,
                 indent=1,

@@ -26,12 +26,18 @@ kind); ``"skip"`` records the casualty in ``build_failures_`` and builds
 the others. A machine that the non-finite guard quarantines in its final
 fit keeps its last finite weights and is named in ``quarantined_``.
 
+``prefetch_depth`` above 0 pipelines each bucket's host-to-device
+transfers (``gordo_tpu_torch.parallel.transfer``): the stacked data as
+sliced, staged copies and the trainer's next epoch chunk's vector; the
+artifacts are the same bits at every depth, and ``telemetry_report.json``
+counts the build's transfers by plane and mode.
+
 Left out, because the TPU-era builder does them for XLA: the program
 and compile caches, AOT export of serving programs, the device mesh and
-fleet padding to it, transfer prefetching, and the multi-worker ledger,
-resume, warm starts and fault injection (ROADMAP.md queue 1 items 5, 8
-and 9). ``precision="bf16"``/``"auto"`` calibrates each bucket after its
-final fit (:meth:`FleetModelBuilder._calibrate_precision`).
+fleet padding to it, and the multi-worker ledger, resume, warm starts
+and fault injection (ROADMAP.md queue 1 items 8 and 9).
+``precision="bf16"``/``"auto"`` calibrates each bucket after its final
+fit (:meth:`FleetModelBuilder._calibrate_precision`).
 """
 
 import json
@@ -56,16 +62,13 @@ from gordo_tpu_torch.machine.metadata import (
     DatasetBuildMetadata,
     ModelBuildMetadata,
 )
-from gordo_tpu_torch.models.anomaly.diff import (
-    DiffBasedAnomalyDetector,
-    RobustScaling,
-    rolled_threshold,
-)
+from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector, rolled_threshold
 from gordo_tpu_torch.models.callbacks import EarlyStopping
 from gordo_tpu_torch.models.core import BaseTorchEstimator, _materialize_callbacks, as_2d
 from gordo_tpu_torch.models.pipeline import Pipeline
-from gordo_tpu_torch.models.utils import METRICS, TimeSeriesSplit
+from gordo_tpu_torch.models.utils import DEFAULT_METRICS, METRICS, TimeSeriesSplit
 from gordo_tpu_torch.parallel.bucketing import get_policy, timestep_bucket
+from gordo_tpu_torch.parallel import transfer
 from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
 from gordo_tpu_torch.parallel.precision import (
     DEFAULT_PRECISION_TOLERANCE,
@@ -153,6 +156,9 @@ class FleetModelBuilder:
         (``gordo_tpu_torch.parallel.precision``).
     precision_tolerance
         The calibration's relative MAE tolerance.
+    prefetch_depth
+        Host-to-device transfer pipelining depth (module note); 0, the
+        default, copies as the builder always did.
     """
 
     def __init__(
@@ -167,6 +173,7 @@ class FleetModelBuilder:
         device: DeviceLike = None,
         precision: str = "float32",
         precision_tolerance: float = DEFAULT_PRECISION_TOLERANCE,
+        prefetch_depth: int = 0,
     ):
         if on_error not in ("raise", "skip"):
             raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
@@ -181,9 +188,11 @@ class FleetModelBuilder:
         self.device = resolve_device(device)
         self.precision = resolve_precision(precision)
         self.precision_tolerance = float(precision_tolerance)
+        self.prefetch_depth = transfer.clip_depth(prefetch_depth)
         #: per machine: {"precision", "mae_delta", "forced"}; empty for float32
         self.precision_decisions_: Dict[str, dict] = {}
         self.plan_ = None
+        self.transfers_: Dict[str, int] = {}
         self.build_failures_: List[dict] = []
         self.quarantined_: List[dict] = []
         self.bucket_reports_: List[dict] = []
@@ -325,6 +334,7 @@ class FleetModelBuilder:
         self.build_failures_, self.quarantined_, self.bucket_reports_ = [], [], []
         self.precision_decisions_ = {}
         self.plan_ = plans = self._policy.plan(self.machines)
+        transfers_before = dict(transfer.transfer_counts)
         logger.info(
             "Fleet build: %d machines in %d buckets (policy=%s)",
             len(self.machines), len(plans), self.bucket_policy,
@@ -332,6 +342,11 @@ class FleetModelBuilder:
         results: Dict[str, Tuple[Any, Machine]] = {}
         for plan in plans:
             results.update(self._build_bucket_entry(plan.machines, base))
+        self.transfers_ = {
+            f"{plane}/{mode}": n - transfers_before.get((plane, mode), 0)
+            for (plane, mode), n in sorted(transfer.transfer_counts.items())
+            if n != transfers_before.get((plane, mode), 0)
+        }
         self._finish(base, started, time.perf_counter() - build_start, len(results), len(plans))
         return [results[m.name] for m in self.machines if m.name in results]
 
@@ -366,6 +381,8 @@ class FleetModelBuilder:
             "n_buckets": n_buckets,
             "bucket_policy": self.bucket_policy,
             "precision": self.precision,
+            "prefetch_depth": self.prefetch_depth,
+            "transfers": dict(self.transfers_),
             "models_per_hour": n_built / wall * 3600 if wall > 0 else None,
             "buckets": self.bucket_reports_,
             "on_error": self.on_error,
@@ -486,7 +503,7 @@ class FleetModelBuilder:
         n_grid = timestep_bucket(max(len(X) for X in Xs))
         data = StackedData.from_ragged(
             Xs, ys, n_timesteps=n_grid, n_features=f_prog, n_features_out=f_out_prog,
-            device=self.device,
+            device=self.device, prefetch_depth=self.prefetch_depth,
         )
         fit_args = proto.extract_supported_fit_args(proto.kwargs)
         epochs = int(fit_args.get("epochs", 1))
@@ -495,7 +512,8 @@ class FleetModelBuilder:
         config_chunk = fit_args.get("epoch_chunk")
         epoch_chunk = max(1, int(self.epoch_chunk if config_chunk is None else config_chunk))
         trainer = FleetTrainer(
-            spec, lookahead=lookahead, epoch_chunk=epoch_chunk, device=self.device, seed=seeds[0]
+            spec, lookahead=lookahead, epoch_chunk=epoch_chunk, device=self.device,
+            seed=seeds[0], prefetch_depth=self.prefetch_depth,
         )
         # each machine starts from its own solo init: the same weights
         # whichever builder trains it
@@ -559,7 +577,7 @@ class FleetModelBuilder:
                 est.n_active_features_ = in_widths[i]
                 est.n_active_features_out_ = out_widths[i]
             if isinstance(model, DiffBasedAnomalyDetector):
-                model.scaler = RobustScaling().fit(as_2d(item["y"], dtype=None))
+                model.scaler.fit(as_2d(item["y"], dtype=None))
                 self._apply_thresholds(model, folds, i)
             if offset is None:
                 # window arithmetic, the same for the whole bucket: the
@@ -734,7 +752,7 @@ class FleetModelBuilder:
         splitter = TimeSeriesSplit(n_splits=n_splits)
         machine_folds = [list(splitter.split(np.zeros((len(X), 1)))) for X in Xs]
         n = len(Xs)
-        metrics = {name.replace("_", "-"): METRICS[name] for name in METRICS}
+        metrics = {name.replace("_", "-"): METRICS[name] for name in DEFAULT_METRICS}
         raw = [{name: [] for name in metrics} for _ in range(n)]
         splits: List[dict] = [{} for _ in range(n)]
         tag_thr: List[Optional[np.ndarray]] = [None] * n
@@ -765,7 +783,7 @@ class FleetModelBuilder:
                 for name, metric in metrics.items():
                     raw[i][name].append(float(metric(y_true, y_pred)))
                 if isinstance(model, DiffBasedAnomalyDetector):
-                    scaler = RobustScaling().fit(ys[i][train_idx])
+                    scaler = model.scaler.clone().fit(ys[i][train_idx])
                     scaled_mse = ((scaler.transform(y_pred) - scaler.transform(y_true)) ** 2).mean(
                         axis=1
                     )

@@ -3,11 +3,15 @@ The port's command line (the counterpart of ``gordo_tpu.cli``'s
 ``build``, ``build-fleet`` and ``run-server``), on argparse::
 
     python -m gordo_tpu_torch.cli build [MACHINE] [OUTPUT_DIR] [--device cpu]
+        [--model-register-dir DIR] [--model-parameter KEY,VALUE ...]
         [--print-cv-scores] [--exceptions-reporter-file FILE]
+        [--exceptions-report-level EXIT_CODE|TYPE|MESSAGE|TRACEBACK]
     python -m gordo_tpu_torch.cli build-fleet [MACHINES] [OUTPUT_DIR] [--device cpu]
         [--machines-from FILE] [--epoch-chunk K] [--on-error raise|skip]
         [--bucket-policy exact|padded] [--fetch-retries N] [--fetch-timeout S]
+        [--prefetch-depth N] [--model-parameter KEY,VALUE ...]
         [--print-cv-scores] [--exceptions-reporter-file FILE]
+        [--exceptions-report-level EXIT_CODE|TYPE|MESSAGE|TRACEBACK]
     python -m gordo_tpu_torch.cli run-server [--collection-dir DIR] [--device cpu] ...
 
 ``build`` builds one machine (fetch and resample its dataset,
@@ -18,9 +22,14 @@ command takes it: ``Machine.from_config(machine, project_name=
 machine["project_name"])``, with no project globals of its own. Both
 fall back to the ``MACHINE`` and ``OUTPUT_DIR`` environment variables,
 and OUTPUT_DIR to ``/data``. Training runs on the card unless ``--device cpu`` is
-given. A failed build exits with the JAX command's code for the kind of
-failure (``EXIT_CODES``) and, with ``--exceptions-reporter-file``, leaves
-``{"type", "message"}`` JSON there.
+given. ``--model-register-dir`` (``MODEL_REGISTER_DIR``) caches the build
+(``ModelBuilder``'s cache). A model config given as a string is a
+template: ``--model-parameter key,value`` fills its ``{{ key }}``
+variables first (:func:`expand_model`). A failed build exits with the
+JAX command's code for the kind of failure (``EXIT_CODES``) and, with
+``--exceptions-reporter-file``, leaves the report of
+``--exceptions-report-level`` there (``cli.exceptions_reporter``;
+``MESSAGE``, ``{"type", "message"}``, by default).
 
 ``build-fleet`` builds a YAML list of machines in one process with
 ``gordo_tpu_torch.builder.fleet_build.FleetModelBuilder`` (bucketed, each
@@ -29,13 +38,14 @@ bucket's CV folds and final fit one fleet fit) into
 list comes from the argument, ``MACHINES`` or ``--machines-from``, and
 OUTPUT_DIR from the argument or ``OUTPUT_DIR``. Exit codes and the
 ``FAILED <machine> (<phase>): ...`` and ``QUARANTINED <machine> at epoch
-<e> ...`` lines are the JAX command's. Its options that the port does not
-have yet (``UNPORTED_FLEET_OPTIONS``) are usage errors naming their
-ROADMAP.md item: none is ignored.
+<e> ...`` lines are the JAX command's. ``--prefetch-depth``
+(``GORDO_PREFETCH_DEPTH``, 0-8) pipelines each bucket's host-to-device
+transfers. Its options that the port does not have
+(``UNPORTED_FLEET_OPTIONS``) are usage errors naming their ROADMAP.md
+item or reason: none is ignored.
 """
 
 import argparse
-import json
 import logging
 import os
 import re
@@ -45,10 +55,12 @@ from typing import List, Optional
 
 from gordo_tpu_torch import serializer
 from gordo_tpu_torch.builder import ModelBuilder
+from gordo_tpu_torch.cli.exceptions_reporter import ExceptionsReporter, ReportLevel
 from gordo_tpu_torch.data import InsufficientDataError, SensorTagNormalizationError
 from gordo_tpu_torch.data.datasets import InsufficientDataAfterRowFilteringError
 from gordo_tpu_torch.data.providers import NoSuitableDataProviderError
 from gordo_tpu_torch.machine import Machine, ReporterException
+from gordo_tpu_torch.parallel import transfer
 from gordo_tpu_torch.workflow.yaml_reader import safe_load
 
 logger = logging.getLogger(__name__)
@@ -65,29 +77,72 @@ EXIT_CODES = {
     InsufficientDataAfterRowFilteringError: 81,
     ReporterException: 90,
 }
+_exceptions_reporter = ExceptionsReporter(EXIT_CODES.items())
 #: the termination message's budget (a 2024-byte message, less room for
 #: the JSON around it)
 MAX_MESSAGE_LEN = 2024 - 500
+#: a ``{{ name }}`` variable of a model template
+_TEMPLATE_VARIABLE = re.compile(r"\{\{\s*([A-Za-z_][A-Za-z0-9_]*)\s*\}\}")
 
 
 def exit_code(exc_type: type) -> int:
-    for klass in exc_type.__mro__:
-        if klass in EXIT_CODES:
-            return EXIT_CODES[klass]
-    return 1
+    return _exceptions_reporter.exception_exit_code(exc_type)
 
 
-def _write_report(path: str, exc: BaseException) -> None:
-    """``{"type", "message"}`` of ``exc`` as ASCII JSON at ``path``; a
-    failure to write is printed, never raised."""
-    message = re.sub(r"[^\x00-\x7F]", "?", str(exc))
-    if len(message) > MAX_MESSAGE_LEN:
-        message = message[: MAX_MESSAGE_LEN - 3] + "..."
-    try:
-        with open(path, "w") as fh:
-            json.dump({"type": type(exc).__name__, "message": message}, fh)
-    except OSError:
-        traceback.print_exc()
+def _report_failure(args) -> int:
+    """The current exception's traceback on stderr, its report at
+    ``--exceptions-report-level`` in ``--exceptions-reporter-file`` (if
+    given), and its exit code."""
+    traceback.print_exc()
+    exc_type, exc_value, exc_traceback = sys.exc_info()
+    if args.exceptions_reporter_file:
+        _exceptions_reporter.safe_report(
+            ReportLevel.get_by_name(args.exceptions_report_level, ReportLevel.EXIT_CODE),
+            exc_type, exc_value, exc_traceback, args.exceptions_reporter_file,
+            max_message_len=MAX_MESSAGE_LEN,
+        )
+    return exit_code(exc_type)
+
+
+def expand_model(model_config: str, model_parameters: dict):
+    """
+    A model config template with its ``{{ name }}`` variables filled from
+    ``model_parameters``, read as YAML (the JAX command renders it with
+    jinja2, which the card's machine lacks; variables are the part of
+    jinja2 a template needs). An undefined name raises the JAX command's
+    ``ValueError("Model parameter missing value!")``; any other jinja2
+    syntax (statements, comments, filters, expressions) raises
+    ``ValueError`` saying it is not rendered.
+    """
+    missing = [name for name in _TEMPLATE_VARIABLE.findall(model_config)
+               if name not in model_parameters]
+    if missing:
+        raise ValueError("Model parameter missing value!") from KeyError(missing[0])
+    rendered = _TEMPLATE_VARIABLE.sub(lambda m: str(model_parameters[m.group(1)]), model_config)
+    for opener in ("{{", "{%", "{#"):
+        if opener in rendered:
+            raise ValueError(
+                f"The model template uses jinja2 syntax beyond {{{{ name }}}} variables "
+                f"({opener!r} ...), which the port does not render"
+            )
+    logger.info("Expanded model config: %s", rendered)
+    return safe_load(rendered)
+
+
+def _expand(config: dict, model_parameter) -> None:
+    """Fill a string model config's variables in place, as the JAX command
+    does before it reads the machine."""
+    if model_parameter and isinstance(config.get("model"), str):
+        config["model"] = expand_model(config["model"], dict(model_parameter))
+
+
+def _key_value(text: str):
+    """``key,value`` -> (key, value); a missing comma is a usage error."""
+    if "," not in text:
+        raise argparse.ArgumentTypeError(
+            f"Expected 'key,value' (comma-separated), got {text!r}"
+        )
+    return tuple(text.split(",", 1))
 
 
 def score_strings(machine: Machine) -> List[str]:
@@ -102,22 +157,23 @@ def score_strings(machine: Machine) -> List[str]:
 
 def build(args) -> int:
     try:
+        _expand(args.machine, args.model_parameter)
         machine = Machine.from_config(args.machine, project_name=args.machine["project_name"])
         logger.info("Building, output will be at: %s", args.output_dir)
-        _, machine = ModelBuilder(machine).build(output_dir=args.output_dir, device=args.device)
+        _, machine = ModelBuilder(machine).build(
+            output_dir=args.output_dir, device=args.device,
+            model_register_dir=args.model_register_dir,
+        )
         machine.report()
         if args.print_cv_scores:
             for line in score_strings(machine):
                 print(line)
-    except Exception as exc:
-        traceback.print_exc()
-        if args.exceptions_reporter_file:
-            _write_report(args.exceptions_reporter_file, exc)
-        return exit_code(type(exc))
+    except Exception:
+        return _report_failure(args)
     return 0
 
 
-#: build-fleet options of the JAX command that the port does not have yet:
+#: build-fleet options of the JAX command that the port does not have:
 #: (flag, environment variable, value that asks for nothing the port
 #: lacks, where the work stands). Any other value is a usage error.
 UNPORTED_FLEET_OPTIONS = (
@@ -129,10 +185,10 @@ UNPORTED_FLEET_OPTIONS = (
     ("--resume", "GORDO_FLEET_RESUME", None, "ROADMAP.md queue 1 item 8"),
     ("--aot-cache", "GORDO_AOT_CACHE", None,
      "ROADMAP.md queue 1 item 9: programs/ stays out of the port"),
-    ("--prefetch-depth", "GORDO_PREFETCH_DEPTH", "0", "ROADMAP.md queue 1 item 5"),
-    ("--model-parameter", None, None, "ROADMAP.md queue 1 item 7"),
-    ("--model-register-dir", "MODEL_REGISTER_DIR", None, "ROADMAP.md queue 1 item 7"),
-    ("--exceptions-report-level", "EXCEPTIONS_REPORT_LEVEL", None, "ROADMAP.md queue 1 item 7"),
+    # the flag only: a build pod's MODEL_REGISTER_DIR is meant for `build`
+    ("--model-register-dir", None, None,
+     "ROADMAP.md queue 1 item 7: the JAX fleet builder takes it and caches nothing, "
+     "so the port refuses it rather than ignore it"),
 )
 
 
@@ -148,8 +204,6 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
         value = getattr(args, _dest(flag))
         if value is None and env is not None:
             value = os.environ.get(env)
-        if isinstance(value, list):
-            value = value or None
         if value is None or (allowed is not None and str(value).strip().lower() == allowed):
             continue
         parser.error(f"build-fleet {flag} is not ported yet ({item})")
@@ -172,6 +226,7 @@ def build_fleet(args) -> int:
     try:
         machines = []
         for config in args.machines_config:
+            _expand(config, args.model_parameter)
             machine = Machine.from_config(config, project_name=config["project_name"])
             # the definition with its defaults, as the JAX command stores it
             machine.model = serializer.from_definition(machine.model).into_definition()
@@ -186,6 +241,7 @@ def build_fleet(args) -> int:
             device=args.device,
             precision=args.precision,
             precision_tolerance=args.precision_tolerance,
+            prefetch_depth=args.prefetch_depth,
         )
         logger.info("Fleet-building %d machines, output at: %s", len(machines), args.output_dir)
         for _, machine_out in builder.build(output_dir_base=args.output_dir):
@@ -194,17 +250,32 @@ def build_fleet(args) -> int:
                 for line in score_strings(machine_out):
                     print(f"{machine_out.name}: {line}")
         _print_casualties(builder.build_failures_, builder.quarantined_)
-    except Exception as exc:
-        traceback.print_exc()
-        if args.exceptions_reporter_file:
-            _write_report(args.exceptions_reporter_file, exc)
-        return exit_code(type(exc))
+    except Exception:
+        return _report_failure(args)
     return 0
 
 
 def _env_number(name: str, default, cast):
     value = os.environ.get(name)
     return default if value in (None, "") else cast(value)
+
+
+def _add_report_options(command: argparse.ArgumentParser) -> None:
+    """The options of both build commands' failure report and model
+    template."""
+    command.add_argument(
+        "--model-parameter", type=_key_value, action="append", default=[],
+        help="key,value filling the {{ key }} variables of a string model config; repeatable",
+    )
+    command.add_argument(
+        "--exceptions-reporter-file", default=os.environ.get("EXCEPTIONS_REPORTER_FILE"),
+        help="write a failure's report here as JSON",
+    )
+    command.add_argument(
+        "--exceptions-report-level", type=str.upper, choices=ReportLevel.get_names(),
+        default=os.environ.get("EXCEPTIONS_REPORT_LEVEL", ReportLevel.MESSAGE.name).upper(),
+        help="detail of the failure report (default: MESSAGE)",
+    )
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -227,9 +298,10 @@ def _parser() -> argparse.ArgumentParser:
         help="print the CV scores as metric_fold=value lines",
     )
     build_cmd.add_argument(
-        "--exceptions-reporter-file", default=os.environ.get("EXCEPTIONS_REPORTER_FILE"),
-        help="write a failure's type and message here as JSON",
+        "--model-register-dir", default=os.environ.get("MODEL_REGISTER_DIR"),
+        help="the build cache's register: a build it holds is loaded, not trained again",
     )
+    _add_report_options(build_cmd)
     fleet = commands.add_parser(
         "build-fleet", help="build a YAML list of machines, a bucket at a time"
     )
@@ -266,16 +338,14 @@ def _parser() -> argparse.ArgumentParser:
     fleet.add_argument("--precision-tolerance", type=float,
                        default=_env_number("GORDO_PRECISION_TOLERANCE", 0.25, float),
                        help="relative MAE tolerance of the bf16 calibration")
+    fleet.add_argument("--prefetch-depth", type=int,
+                       default=_env_number("GORDO_PREFETCH_DEPTH", 0, int),
+                       help="host-to-device transfer pipelining depth, 0-8 (0: one plain copy)")
     fleet.add_argument("--print-cv-scores", action="store_true",
                        help="print each machine's CV scores as '<machine>: metric_fold=value'")
-    fleet.add_argument(
-        "--exceptions-reporter-file", default=os.environ.get("EXCEPTIONS_REPORTER_FILE"),
-        help="write a failure's type and message here as JSON",
-    )
+    _add_report_options(fleet)
     for flag, _, _, item in UNPORTED_FLEET_OPTIONS:
-        fleet.add_argument(flag, dest=_dest(flag), default=None,
-                           action="append" if flag == "--model-parameter" else "store",
-                           help=f"not ported yet ({item})")
+        fleet.add_argument(flag, dest=_dest(flag), default=None, help=f"not ported ({item})")
     for flag in ("--no-resume", "--no-aot-cache"):
         # what the port does anyway: nothing to refuse
         fleet.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -321,6 +391,8 @@ def _build_fleet_command(parser: argparse.ArgumentParser, args) -> int:
         parser.error("--fetch-timeout must be > 0")
     if args.precision_tolerance < 0:
         parser.error("--precision-tolerance must be >= 0")
+    if not 0 <= args.prefetch_depth <= transfer.MAX_PREFETCH_DEPTH:
+        parser.error(f"--prefetch-depth must be in 0..{transfer.MAX_PREFETCH_DEPTH}")
     text = args.machines_config
     if args.machines_from is not None:
         with open(args.machines_from) as fh:

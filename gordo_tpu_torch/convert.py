@@ -7,8 +7,10 @@ and ``MinMaxScaler`` steps before an ``AutoEncoder`` or a
 
 Input is what a ``gordo_tpu`` artifact holds, as plain data: the Flax
 parameter tree as numpy arrays, the model definition dict, the fitted
-arrays of the scalers and steps (the detector's RobustScaler
-``center_``/``scale_``; each pipeline step's arrays as the port's step
+arrays of the scalers and steps (the detector's scaler's, by the port
+scaler's names: a RobustScaler's ``center_``/``scale_``, a
+StandardScaler's ``mean_``, ``var_``, ``scale_``, ``n_samples_seen_``;
+each pipeline step's arrays as the port's step
 names them in ``state_arrays``: a MinMaxScaler's ``data_min_``,
 ``data_max_``, ``data_range_``, ``scale_`` and ``min_``, an InfImputer's
 ``posinf_fill_values`` and ``neginf_fill_values``, nothing for a
@@ -56,6 +58,7 @@ from gordo_tpu_torch import serializer
 from gordo_tpu_torch.device import DeviceLike
 from gordo_tpu_torch.models.anomaly.diff import THRESHOLD_ATTRS, DiffBasedAnomalyDetector
 from gordo_tpu_torch.models.pipeline import Pipeline
+from gordo_tpu_torch.models.preprocessing import SCALERS, scaler_from_definition
 
 _BLOCK_LAYERS = {
     "LayerNorm_0": "norm1",
@@ -234,8 +237,8 @@ def _port_estimator(name: str, kwargs: dict, state: Mapping[str, np.ndarray]) ->
 def port_definition(definition, state: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     """
     A JAX definition (class paths of either package) -> the port's. A
-    detector keeps ``require_thresholds`` and ``window`` and drops its
-    scaler's definition (the port carries the fitted scaler as arrays);
+    detector keeps its ``scaler`` definition (any of the four ported
+    scalers, with its arguments), ``require_thresholds`` and ``window``;
     a pipeline keeps its steps and drops scikit-learn's ``memory``,
     ``verbose`` and ``transform_input``; a MinMaxScaler keeps
     ``feature_range`` and ``clip``, an InfImputer its four arguments and
@@ -243,9 +246,12 @@ def port_definition(definition, state: Mapping[str, np.ndarray]) -> Dict[str, An
     """
     name, kwargs = _unwrap(definition)
     if name == "DiffBasedAnomalyDetector":
+        scaler = kwargs.get("scaler")
         return {
             "gordo_tpu_torch.models.anomaly.DiffBasedAnomalyDetector": {
                 "base_estimator": port_definition(kwargs["base_estimator"], state),
+                "scaler": None if scaler is None else scaler_from_definition(
+                    scaler).into_definition(),
                 "require_thresholds": kwargs.get("require_thresholds", True),
                 "window": kwargs.get("window"),
             }
@@ -335,10 +341,14 @@ def model_from_flax(
     thresholds: Optional[Mapping[str, Optional[Any]]] = None,
     pipeline_steps: Sequence[Mapping[str, Any]] = (),
     device: DeviceLike = None,
+    scaler_arrays: Optional[Mapping[str, np.ndarray]] = None,
 ):
     """
     Assemble a port model from a JAX machine's parts. A detector needs its
-    scaler's ``center_``/``scale_``; ``thresholds`` maps the detector's
+    scaler's fitted arrays: ``scaler_arrays`` by the port scaler's names
+    (:func:`scaler_arrays_from_sklearn` reads them off a fitted
+    scikit-learn scaler), or for the default RobustScaler its
+    ``center_``/``scale_``; ``thresholds`` maps the detector's
     threshold attribute names (``aggregate_threshold_``,
     ``feature_thresholds_`` and the smoothed pair) to values, absent or
     None ones staying unset. ``pipeline_steps`` holds each step's fitted
@@ -349,8 +359,10 @@ def model_from_flax(
     model = serializer.from_definition(port_definition(definition, state))
     arrays = _model_arrays(model, state, pipeline_steps)
     if isinstance(model, DiffBasedAnomalyDetector):
-        arrays["scaler.center_"] = np.asarray(scaler_center)
-        arrays["scaler.scale_"] = np.asarray(scaler_scale)
+        if scaler_arrays is None:
+            scaler_arrays = {"center_": scaler_center, "scale_": scaler_scale}
+        arrays.update({f"scaler.{k}": np.asarray(v) for k, v in scaler_arrays.items()
+                       if v is not None})
         for attr in THRESHOLD_ATTRS:
             if (thresholds or {}).get(attr) is not None:
                 arrays[attr] = np.asarray(thresholds[attr], dtype=np.float64)
@@ -366,11 +378,20 @@ def write_artifact(
     thresholds: Optional[Mapping[str, Optional[Any]]] = None,
     metadata: Optional[Dict[str, Any]] = None,
     pipeline_steps: Sequence[Mapping[str, Any]] = (),
+    scaler_arrays: Optional[Mapping[str, np.ndarray]] = None,
 ) -> Path:
     """:func:`model_from_flax`, written as a port artifact at
     ``dest_dir`` (assembled on the CPU: only arrays are written)."""
     model = model_from_flax(
         params, definition, scaler_center, scaler_scale, thresholds,
-        pipeline_steps, device="cpu",
+        pipeline_steps, device="cpu", scaler_arrays=scaler_arrays,
     )
     return serializer.dump(model, dest_dir, metadata or {})
+
+
+def scaler_arrays_from_sklearn(scaler) -> Dict[str, np.ndarray]:
+    """The fitted arrays of a scikit-learn scaler (a JAX detector's
+    ``scaler``) by the names the port scaler of its class stores."""
+    port = SCALERS[type(scaler).__name__]
+    return {name: np.asarray(getattr(scaler, name)) for name in port.ARRAYS
+            if getattr(scaler, name, None) is not None}

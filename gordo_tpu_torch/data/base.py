@@ -12,13 +12,20 @@ timestamps and float64 values. Resampling one tag:
    the left, counted from midnight (UTC) of the first timestamp's day
    (``origin="start_day"``), the last bin the one holding the last
    timestamp; each labelled by its left edge.
-3. **Aggregation.** The mean, skipping NaN; an empty bucket is NaN.
-   Other aggregations raise until they are ported.
+3. **Aggregation.** pandas' resample aggregations, skipping NaN:
+   ``mean``, ``max``, ``min``, ``median``, ``std`` (``ddof`` 1), ``first``
+   and ``last`` give NaN for an empty bucket (``std`` for a bucket of one
+   value too), ``sum`` and ``count`` give 0. A list of methods widens the
+   tag into one column a method, in the list's order, named as the JAX
+   frame's flattened ``(tag, method)`` columns (``"('tag', 'max')"``);
+   a single method keeps the tag's name. A callable raises: it waits in
+   ROADMAP.md queue 1 item 7.
 4. **Gap filling.** pandas' ``interpolate(limit=N)`` (linear over
-   positions) or ``ffill(limit=N)``, forward: the first N NaNs of each
-   run are filled (an interior run's on the line across the whole gap,
-   a trailing run's with the last value) and leading NaNs stay NaN.
-5. NaN buckets are dropped.
+   positions) or ``ffill(limit=N)``, forward, column by column: the first
+   N NaNs of each run are filled (an interior run's on the line across
+   the whole gap, a trailing run's with the last value) and leading NaNs
+   stay NaN.
+5. Buckets with a NaN left in any column are dropped.
 
 Tags are then inner-joined on their common buckets.
 """
@@ -27,7 +34,7 @@ import abc
 import dataclasses
 import functools
 from datetime import datetime, timedelta, timezone
-from typing import Any, Dict, Iterable, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -45,11 +52,13 @@ class InsufficientDataError(ValueError):
 @dataclasses.dataclass
 class TagSeries:
     """One tag's raw data: sorted int64 UTC nanosecond timestamps and
-    float64 values."""
+    float64 values; after a multi-method resample, (rows, methods) values
+    named by ``columns``."""
 
     name: str
     index: np.ndarray
     values: np.ndarray
+    columns: Optional[List[str]] = None
 
     def __len__(self) -> int:
         return len(self.index)
@@ -89,19 +98,68 @@ def _span_aligned(series: TagSeries, start: int, end: int) -> TagSeries:
     return TagSeries(series.name, np.concatenate(index), np.concatenate(values))
 
 
-def _mean_in_bin(bins: np.ndarray, values: np.ndarray, n_bins: int) -> np.ndarray:
-    """The mean of each bin's values (NaN already dropped); NaN for an
-    empty bin."""
+#: the ported aggregation methods
+AGGREGATIONS = ("mean", "max", "min", "median", "sum", "count", "std", "first", "last")
+
+
+def _aggregate(method: str, bins: np.ndarray, values: np.ndarray, n_bins: int) -> np.ndarray:
+    """One aggregation of each bin's values (NaN already dropped; bins
+    non-decreasing, values in time order within a bin)."""
     counts = np.bincount(bins, minlength=n_bins)
+    if method == "count":
+        return counts.astype(np.float64)
     sums = np.bincount(bins, weights=values, minlength=n_bins)
+    if method == "sum":
+        return sums
+    out = np.full(n_bins, np.nan)
+    filled = counts > 0
     with np.errstate(invalid="ignore", divide="ignore"):
-        return np.where(counts > 0, sums / counts, np.nan)
+        if method == "mean":
+            return np.where(filled, sums / counts, np.nan)
+        if method == "std":
+            mean = sums / np.maximum(counts, 1)
+            ssq = np.bincount(bins, weights=(values - mean[bins]) ** 2, minlength=n_bins)
+            many = counts > 1
+            out[many] = np.sqrt(ssq[many] / (counts[many] - 1))
+            return out
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])[filled]
+    ends = starts + counts[filled]
+    if method in ("max", "min"):
+        reduce = np.maximum if method == "max" else np.minimum
+        out[filled] = reduce.reduceat(values, starts) if len(values) else []
+    elif method == "first":
+        out[filled] = values[starts]
+    elif method == "last":
+        out[filled] = values[ends - 1]
+    elif method == "median":
+        ordered = values[np.lexsort((values, bins))]
+        c = counts[filled]
+        out[filled] = (ordered[starts + (c - 1) // 2] + ordered[starts + c // 2]) / 2
+    return out
 
 
-def _bucketize(series: TagSeries, resolution_ns: int):
-    """(bucket labels, bucket means): left-closed, left-labelled buckets
-    of ``resolution_ns`` counted from midnight UTC of the first
-    timestamp's day."""
+def checked_methods(aggregation_methods) -> List[str]:
+    """The methods asked for, checked against the ported ones."""
+    if callable(aggregation_methods):
+        raise NotImplementedError(
+            "A callable aggregation is not ported (ROADMAP.md queue 1 item 7); the port "
+            f"takes {list(AGGREGATIONS)} or a list of them"
+        )
+    methods = [aggregation_methods] if isinstance(aggregation_methods, str) else list(
+        aggregation_methods)
+    for method in methods:
+        if callable(method) or method not in AGGREGATIONS:
+            raise NotImplementedError(
+                f"Aggregation {method!r} is not ported (ROADMAP.md queue 1 item 7); the port "
+                f"takes {list(AGGREGATIONS)} or a list of them"
+            )
+    return methods
+
+
+def _bucketize(series: TagSeries, resolution_ns: int, methods: Sequence[str] = ("mean",)):
+    """(bucket labels, (buckets, methods) aggregates): left-closed,
+    left-labelled buckets of ``resolution_ns`` counted from midnight UTC
+    of the first timestamp's day."""
     order = np.argsort(series.index, kind="stable")
     index, values = series.index[order], series.values[order]
     first, last = int(index[0]), int(index[-1])
@@ -112,9 +170,11 @@ def _bucketize(series: TagSeries, resolution_ns: int):
     n_bins = (stop - start) // resolution_ns
     bins = (index - start) // resolution_ns
     valid = ~np.isnan(values)
-    means = _mean_in_bin(bins[valid], values[valid], n_bins)
+    aggregates = np.stack(
+        [_aggregate(method, bins[valid], values[valid], n_bins) for method in methods], axis=1
+    )
     labels = start + resolution_ns * np.arange(n_bins, dtype=np.int64)
-    return labels, means
+    return labels, aggregates
 
 
 def _fill_gaps(values: np.ndarray, method: str, limit: Optional[int]) -> np.ndarray:
@@ -217,13 +277,16 @@ class GordoBaseDataset(abc.ABC):
                 f"The following features are missing data: {empty_tags}"
             )
         index = functools.reduce(np.intersect1d, (s.index for s in resampled))
-        values = np.stack(
-            [s.values[np.searchsorted(s.index, index)] for s in resampled], axis=1
-        ).reshape(len(index), len(resampled))
+        blocks = [
+            s.values[np.searchsorted(s.index, index)].reshape(len(index), len(s.columns or [0]))
+            for s in resampled
+        ]
+        values = np.concatenate(blocks, axis=1) if blocks else np.zeros((len(index), 0))
+        columns = [name for s in resampled for name in (s.columns or [s.name])]
         tag_meta["aggregate_metadata"] = dict(
             joined_length=len(index), dropped_na_length=len(index)
         )
-        return Frame(values, [s.name for s in resampled], index)
+        return Frame(values, columns, index)
 
     @staticmethod
     def _resample(
@@ -243,18 +306,18 @@ class GordoBaseDataset(abc.ABC):
             raise ValueError(
                 "Interpolation method should be either linear_interpolation or ffill"
             )
-        if aggregation_methods != "mean":
-            raise NotImplementedError(
-                f"Aggregation {aggregation_methods!r} is not ported yet; the port "
-                "has the default, 'mean' (ROADMAP.md queue 1: other and "
-                "multi-method aggregation)"
-            )
+        methods = checked_methods(aggregation_methods)
         resolution_ns = frequency_to_ns(resolution)
         limit = _gap_fill_steps(interpolation_limit, resolution_ns)
         pinned = _span_aligned(
             series, to_ns(resampling_startpoint), to_ns(resampling_endpoint)
         )
-        labels, means = _bucketize(pinned, resolution_ns)
-        filled = _fill_gaps(means, interpolation_method, limit)
-        keep = ~np.isnan(filled)
-        return TagSeries(series.name, labels[keep], filled[keep])
+        labels, aggregates = _bucketize(pinned, resolution_ns, methods)
+        filled = np.stack(
+            [_fill_gaps(column, interpolation_method, limit) for column in aggregates.T], axis=1
+        )
+        keep = ~np.isnan(filled).any(axis=1)
+        if isinstance(aggregation_methods, str):
+            return TagSeries(series.name, labels[keep], filled[keep, 0])
+        return TagSeries(series.name, labels[keep], filled[keep],
+                         [str((series.name, method)) for method in methods])

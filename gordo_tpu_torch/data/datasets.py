@@ -2,8 +2,16 @@
 Datasets (the port of ``gordo_tpu.data.datasets``).
 
 ``TimeSeriesDataset``: fetch the tags, resample and join them onto one
-grid, keep the rows strictly inside the global bounds, and split X and y
-by the tag lists, recording the JAX dataset's metadata on the way.
+grid (with no ``resolution``, inner-join them on their raw timestamps, as
+the JAX dataset's ``pd.concat(join="inner")`` does), then the configured
+filters in the JAX dataset's order: the ``row_filter`` with its buffer
+(``filter_rows``), the global bounds (rows strictly inside them) and the
+noisy-period filter (``filter_periods``, its drop periods recorded as
+``filtered_periods``); each must leave more than ``n_samples_threshold``
+rows. X and y are then split by the tag lists, each tag's columns (one a
+method under a multi-method aggregation) in the list's order, recording
+the JAX dataset's metadata on the way, keyed by the columns' flattened
+names (``target_columns`` names y's).
 ``RandomDataset`` always reads from the random provider.
 
 ``get_data`` returns ``(X, y, index)``: float64 arrays and the rows'
@@ -17,9 +25,15 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from gordo_tpu_torch.data.base import GordoBaseDataset, InsufficientDataError, to_datetimes
-from gordo_tpu_torch.data.filter_periods import check_filter_periods
-from gordo_tpu_torch.data.filter_rows import check_row_filter
+from gordo_tpu_torch.data.base import (
+    GordoBaseDataset,
+    InsufficientDataError,
+    TagSeries,
+    checked_methods,
+    to_datetimes,
+)
+from gordo_tpu_torch.data.filter_periods import FilterPeriods
+from gordo_tpu_torch.data.filter_rows import filter_rows_mask
 from gordo_tpu_torch.data.providers import (
     DataLakeProvider,
     GordoBaseDataProvider,
@@ -124,20 +138,21 @@ class TimeSeriesDataset(GordoBaseDataset):
         elif isinstance(data_provider, dict):
             data_provider = GordoBaseDataProvider.from_dict(data_provider)
         self.data_provider = data_provider
-        if not resolution:
-            raise NotImplementedError(
-                "A dataset without a resolution (a join on raw timestamps) is "
-                "not ported yet (ROADMAP.md queue 1)"
-            )
-        check_row_filter(row_filter)
-        check_filter_periods(filter_periods)
         self.resolution = resolution
+        self.row_filter = row_filter
+        self.row_filter_buffer_size = row_filter_buffer_size
+        if resolution:
+            checked_methods(aggregation_methods)  # an unported one raises here, as configs load
         self.aggregation_methods = aggregation_methods
         self.n_samples_threshold = n_samples_threshold
         self.low_threshold = low_threshold
         self.high_threshold = high_threshold
         self.interpolation_method = interpolation_method
         self.interpolation_limit = interpolation_limit
+        self.filter_periods = (
+            FilterPeriods(granularity=resolution, **filter_periods) if filter_periods else None
+        )
+        self.target_columns: List[str] = []
 
     def to_dict(self) -> dict:
         params = super().to_dict()
@@ -154,6 +169,8 @@ class TimeSeriesDataset(GordoBaseDataset):
             train_end_date=self.train_end_date,
             tag_list=wanted,
         )
+        if not self.resolution:
+            return _join_raw(list(series))
         return self.join_timeseries(
             series,
             self.train_start_date,
@@ -164,11 +181,38 @@ class TimeSeriesDataset(GordoBaseDataset):
             interpolation_limit=self.interpolation_limit,
         )
 
+    def _apply_row_filter(self, data: Frame) -> Frame:
+        keep = filter_rows_mask(data.values, data.columns, self.row_filter,
+                                buffer_size=self.row_filter_buffer_size)
+        return Frame(data.values[keep], data.columns, data.index[keep])
+
     def _apply_global_bounds(self, data: Frame) -> Frame:
         inside = ((data.values > self.low_threshold) & (data.values < self.high_threshold)).all(
             axis=1
         )
         return Frame(data.values[inside], data.columns, data.index[inside])
+
+    def _apply_period_filter(self, data: Frame) -> Frame:
+        keep, dropped, _ = self.filter_periods.filter_data(data.values, data.index)
+        self._metadata["filtered_periods"] = dropped
+        return Frame(data.values[keep], data.columns, data.index[keep])
+
+    def _enabled_filters(self):
+        """(stage, filter, error class) of each configured filter, in the
+        JAX dataset's order."""
+        if self.row_filter:
+            yield "row filtering", self._apply_row_filter, InsufficientDataAfterRowFilteringError
+        if self.low_threshold is not None and self.high_threshold is not None:
+            yield ("global min/max filtering", self._apply_global_bounds,
+                   InsufficientDataAfterGlobalFilteringError)
+        if self.filter_periods:
+            yield "noisy-period filtering", self._apply_period_filter, InsufficientDataError
+
+    def _columns_of(self, tag: SensorTag) -> List[str]:
+        """The joined frame's columns of one tag."""
+        if not self.resolution or isinstance(self.aggregation_methods, str):
+            return [tag.name]
+        return [str((tag.name, method)) for method in checked_methods(self.aggregation_methods)]
 
     def _require_rows(self, data: Frame, error_cls: type, stage: str) -> None:
         """Every stage must leave more than ``n_samples_threshold`` rows."""
@@ -181,20 +225,20 @@ class TimeSeriesDataset(GordoBaseDataset):
     def get_data(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         data = self._fetch_joined()
         self._require_rows(data, InsufficientDataError, "resampling/joining")
-        if self.low_threshold is not None and self.high_threshold is not None:
-            data = self._apply_global_bounds(data)
-            self._require_rows(
-                data, InsufficientDataAfterGlobalFilteringError, "global min/max filtering"
-            )
+        for stage, apply, error_cls in self._enabled_filters():
+            data = apply(data)
+            self._require_rows(data, error_cls, stage)
 
-        def columns(tags: List[SensorTag]) -> np.ndarray:
-            return data.values[:, [data.columns.index(tag.name) for tag in tags]]
+        def columns(tags: List[SensorTag]) -> List[str]:
+            return [name for tag in tags for name in self._columns_of(tag)]
 
-        X, y = columns(self.tag_list), columns(self.target_tag_list)
+        names = columns(self.tag_list)
+        self.target_columns = columns(self.target_tag_list)
+        X = data.values[:, [data.columns.index(name) for name in names]]
+        y = data.values[:, [data.columns.index(name) for name in self.target_columns]]
         stamps = to_datetimes(data.index[[0, -1]])
         self._metadata["train_start_date_actual"] = stamps[0]
         self._metadata["train_end_date_actual"] = stamps[-1]
-        names = [tag.name for tag in self.tag_list]
         self._metadata["summary_statistics"] = {
             name: _describe(X[:, j]) for j, name in enumerate(names)
         }
@@ -222,6 +266,31 @@ class TimeSeriesDataset(GordoBaseDataset):
 
     def get_metadata(self) -> dict:
         return self._metadata.copy()
+
+
+def _join_raw(series: List[TagSeries]) -> Frame:
+    """Tags inner-joined on their raw timestamps, with no resampling (a
+    lone tag keeps its rows as they are, repeats too, as pandas' concat
+    of one series does)."""
+    if len(series) == 1:
+        only = series[0]
+        return Frame(np.asarray(only.values, dtype=np.float64)[:, None], [only.name],
+                     np.asarray(only.index, dtype=np.int64))
+    if any(len(np.unique(s.index)) != len(s.index) for s in series):
+        raise ValueError("Reindexing only valid with uniquely valued Index objects")
+    index = series[0].index
+    for other in series[1:]:
+        index = index[np.isin(index, other.index)]
+    values = np.stack([_at(s, index) for s in series], axis=1)
+    return Frame(values.reshape(len(index), len(series)), [s.name for s in series],
+                 np.asarray(index, dtype=np.int64))
+
+
+def _at(series: TagSeries, index: np.ndarray) -> np.ndarray:
+    """The series' values at timestamps it holds once each."""
+    order = np.argsort(series.index, kind="stable")
+    positions = order[np.searchsorted(series.index[order], index)]
+    return np.asarray(series.values, dtype=np.float64)[positions]
 
 
 class RandomDataset(TimeSeriesDataset):

@@ -1,14 +1,123 @@
 """
-Noisy-period filters (the counterpart of ``gordo_tpu.data.filter_periods``).
+Noisy-period filters (the port of ``gordo_tpu.data.filter_periods``), in
+numpy.
 
-The port carries only the default, no period filter.
+``filter_method: "median"`` flags a row when any tag leaves the band of
+its centred rolling median plus or minus ``n_iqr`` rolling
+interquartile ranges over ``window`` rows (pandas' ``rolling(window,
+center=True)``: no flag where the window does not fit). Flagged
+timestamps are grouped into drop periods, a gap of more than the
+dataset's resolution starting a new one, and every row inside a period
+is dropped; the periods are written to the dataset's metadata as the
+JAX dataset writes them (``{"median": [{"drop_start", "drop_end"}]}``,
+timestamps as ``str`` of an aware UTC datetime).
+
+``filter_method: "iforest"`` and ``"all"`` need an IsolationForest: they
+raise ``NotImplementedError`` until a numpy forest held to
+scikit-learn's on the same ``random_state`` is ported (ROADMAP.md queue
+1 item 7).
 """
 
+import logging
+from typing import Dict, List, Tuple
 
-def check_filter_periods(filter_periods) -> None:
-    """Raise for a non-empty ``filter_periods``: it is not ported yet."""
-    if filter_periods:
-        raise NotImplementedError(
-            f"filter_periods {filter_periods!r} is not ported yet (ROADMAP.md "
-            "queue 1: non-empty row_filter and filter_periods)"
-        )
+import numpy as np
+
+from gordo_tpu_torch.data.base import to_datetimes
+from gordo_tpu_torch.utils.compat import frequency_to_ns
+
+logger = logging.getLogger(__name__)
+
+
+class WrongFilterMethodType(TypeError):
+    pass
+
+
+def _stamp(ns: int) -> str:
+    """``str`` of a pandas UTC Timestamp at int nanoseconds."""
+    return str(to_datetimes(np.array([ns]))[0])
+
+
+def centred_rolling(values: np.ndarray, window: int, fn) -> np.ndarray:
+    """``fn`` over each centred window of ``window`` rows, column by
+    column (rows i - window//2 .. i + (window-1)//2); NaN where the window
+    does not fit, as pandas' ``rolling(window, center=True)``."""
+    values = np.asarray(values, dtype=np.float64)
+    out = np.full(values.shape, np.nan)
+    n = len(values)
+    if n >= window:
+        windows = np.lib.stride_tricks.sliding_window_view(values, window, axis=0)
+        first = window // 2
+        out[first : first + n - window + 1] = fn(windows)
+    return out
+
+
+class FilterPeriods:
+    def __init__(
+        self,
+        granularity: str,
+        filter_method: str = "median",
+        window: int = 144,
+        n_iqr: int = 5,
+        iforest_smooth: bool = False,
+        contamination: float = 0.03,
+    ):
+        if filter_method not in ("median", "iforest", "all"):
+            raise WrongFilterMethodType(
+                f"filter_method must be 'median', 'iforest' or 'all', got {filter_method!r}"
+            )
+        if filter_method != "median":
+            raise NotImplementedError(
+                f"filter_method {filter_method!r} needs an IsolationForest, which is not "
+                "ported: it waits for a numpy forest held to scikit-learn's on the same "
+                "random_state (ROADMAP.md queue 1 item 7); 'median' is ported"
+            )
+        self.granularity_ns = frequency_to_ns(granularity)
+        self.filter_method = filter_method
+        self._window = int(window)
+        self._n_iqr = n_iqr
+
+    def _rolling_median(self, values: np.ndarray) -> np.ndarray:
+        """Each row's outlier flag."""
+        median = centred_rolling(values, self._window, lambda w: np.median(w, axis=-1))
+        q75 = centred_rolling(values, self._window, lambda w: np.quantile(w, 0.75, axis=-1))
+        q25 = centred_rolling(values, self._window, lambda w: np.quantile(w, 0.25, axis=-1))
+        iqr = q75 - q25
+        high = median + self._n_iqr * iqr
+        low = median - self._n_iqr * iqr
+        with np.errstate(invalid="ignore"):
+            return ((values < low) | (values > high)).any(axis=1)
+
+    def filter_data(
+        self, values: np.ndarray, index: np.ndarray
+    ) -> Tuple[np.ndarray, Dict[str, List[dict]], Dict[str, np.ndarray]]:
+        """(rows kept, drop periods by method, each method's flags) for a
+        (rows, tags) table whose rows are at int64 UTC ns ``index``."""
+        index = np.asarray(index, dtype=np.int64)
+        flags = {"median": self._rolling_median(values)}
+        bounds = {method: _period_bounds(index[flag], self.granularity_ns)
+                  for method, flag in flags.items()}
+        periods = {
+            method: [{"drop_start": _stamp(lo), "drop_end": _stamp(hi)} for lo, hi in runs]
+            for method, runs in bounds.items()
+        }
+        keep = np.ones(len(index), dtype=bool)
+        for runs in bounds.values():
+            for lo, hi in runs:
+                keep &= ~((index >= lo) & (index <= hi))
+        if keep.all():
+            logger.info("No rows dropped")
+        else:
+            logger.info("Dropped %d rows", int((~keep).sum()))
+        return keep, periods, flags
+
+
+def _period_bounds(flagged: np.ndarray, gap_ns: int) -> List[Tuple[int, int]]:
+    """The (first, last) ns of each drop period: flagged timestamps (sorted)
+    grouped into runs, a gap of more than ``gap_ns`` starting a new one."""
+    if not len(flagged):
+        return []
+    breaks = np.flatnonzero(np.diff(flagged) > gap_ns)
+    starts = np.concatenate([[0], breaks + 1])
+    ends = np.concatenate([breaks, [len(flagged) - 1]])
+    return [(int(flagged[s]), int(flagged[e])) for s, e in zip(starts, ends)]

@@ -2,20 +2,27 @@
 Data providers: sources of raw tag series.
 
 - ``RandomDataProvider``: deterministic random series;
+- ``FileSystemProvider``: CSV files of a lake directory, a file per tag
+  (and year);
 - ``DataLakeProvider``: the provider of a config whose ``data_provider``
-  is null (random data when no lake directory is configured).
+  is null (the lake through the file-system provider; random data when
+  no lake directory is configured).
 """
 
 from .base import GordoBaseDataProvider
 from .compound import DataLakeProvider, NoSuitableDataProviderError
+from .filesystem import FileSystemProvider
 from .random_provider import RandomDataProvider
 
 #: the providers a config may name, by class name
-PROVIDERS = {cls.__name__: cls for cls in (RandomDataProvider, DataLakeProvider)}
+PROVIDERS = {
+    cls.__name__: cls for cls in (RandomDataProvider, FileSystemProvider, DataLakeProvider)
+}
 
 __all__ = [
     "GordoBaseDataProvider",
     "RandomDataProvider",
+    "FileSystemProvider",
     "DataLakeProvider",
     "NoSuitableDataProviderError",
     "PROVIDERS",

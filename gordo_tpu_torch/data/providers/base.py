@@ -12,14 +12,13 @@ from typing import Iterable, List
 from gordo_tpu_torch.data.base import TagSeries
 from gordo_tpu_torch.data.sensor_tag import SensorTag
 
-#: providers of the JAX package the port does not have yet
-NOT_PORTED = (
-    "FileSystemProvider",
-    "LongFormatProvider",
-    "ObjectStoreProvider",
-    "InfluxDataProvider",
-    "CompoundProvider",
-)
+#: providers of the JAX package the port does not have, and why
+NOT_PORTED = {
+    "LongFormatProvider": "it waits in ROADMAP.md queue 1 item 7",
+    "CompoundProvider": "it waits in ROADMAP.md queue 1 item 7",
+    "ObjectStoreProvider": "it needs fsspec, which the card's machine lacks",
+    "InfluxDataProvider": "it needs influxdb, which the card's machine lacks",
+}
 
 
 class GordoBaseDataProvider(abc.ABC):
@@ -58,10 +57,7 @@ class GordoBaseDataProvider(abc.ABC):
         type_path = config.pop("type", "RandomDataProvider")
         name = type_path.rsplit(".", 1)[-1]
         if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"Data provider {name!r} is not ported yet (ROADMAP.md queue 1: "
-                "file, object-store and Influx providers)"
-            )
+            raise NotImplementedError(f"Data provider {name!r} is not ported: {NOT_PORTED[name]}")
         try:
             provider = PROVIDERS[name]
         except KeyError:

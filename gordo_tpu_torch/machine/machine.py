@@ -42,8 +42,8 @@ _MACHINE_FIELDS = (
 
 
 class ReporterException(Exception):
-    """A configured build reporter failed. The port has no reporters yet,
-    so :meth:`Machine.report` raises this for a machine that configures
+    """A configured build reporter failed. The port has no reporters, so
+    :meth:`Machine.report` raises this for a machine that configures
     any."""
 
 
@@ -154,13 +154,15 @@ class Machine:
 
     def report(self):
         """Run the reporters configured under ``runtime.reporters``. None
-        is ported yet, so a machine that configures any raises
+        is ported, so a machine that configures any raises
         :class:`ReporterException` (the build command's exit code 90)."""
         reporters = self.runtime.get("reporters") or []
         if reporters:
             raise ReporterException(
-                f"Build reporters are not ported yet (ROADMAP.md queue 1); {len(reporters)} "
-                "configured; the artifact was written"
+                f"Build reporters are not ported ({len(reporters)} configured; the artifact "
+                "was written): the Postgres and MLflow reporters need psycopg2 and mlflow, "
+                "which the card's machine lacks, and SqliteReporter waits in ROADMAP.md "
+                "queue 1 item 7"
             )
 
 

@@ -1,6 +1,6 @@
 """
 Model layer: torch modules behind the JAX package's estimator API, and
-the Pipeline, MinMaxScaler and FunctionTransformer that take
+the Pipeline, the four scalers and FunctionTransformer that take
 scikit-learn's place.
 """
 
@@ -23,7 +23,8 @@ from .models import (
     TransformerForecast,
     WindowedEstimator,
 )
-from .pipeline import FunctionTransformer, MinMaxScaler, Pipeline
+from .pipeline import FunctionTransformer, Pipeline
+from .preprocessing import MaxAbsScaler, MinMaxScaler, RobustScaler, StandardScaler
 from .register import register_model_builder
 from .specs import ModelSpec
 
@@ -31,6 +32,9 @@ __all__ = [
     "BaseTorchEstimator",
     "AutoEncoder",
     "MinMaxScaler",
+    "MaxAbsScaler",
+    "RobustScaler",
+    "StandardScaler",
     "FunctionTransformer",
     "Pipeline",
     "WindowedEstimator",

@@ -3,18 +3,25 @@ DiffBasedAnomalyDetector (the port of ``gordo_tpu.models.anomaly.diff``):
 ``fit``, ``cross_validate`` (which derives the thresholds), ``anomaly()``
 and the confidence columns, in numpy around the base estimator.
 
-The JAX detector's RobustScaler becomes :class:`RobustScaling`, its two
-arrays ``center_`` and ``scale_`` fitted with scikit-learn's defaults.
+The error scaler is the ``scaler`` argument, as in JAX: any of the four
+scalers of :mod:`gordo_tpu_torch.models.preprocessing` (a definition
+such as ``sklearn.preprocessing.StandardScaler`` or ``{path: kwargs}`` is
+resolved), ``RobustScaler()`` by default. It is fitted on the targets
+and used only to scale errors; its fitted arrays are saved under
+``scaler.`` and its definition beside the base estimator's.
 
 Cross-validation over a bare port estimator whose folds train on
 contiguous rows (``TimeSeriesSplit`` gives them) trains every fold at
 once, as one :class:`~gordo_tpu_torch.parallel.fleet.FleetTrainer` fit
 with the fold axis as the machine axis (``_fold_parallel_cv``, JAX's
 fast path): every fold starts from the solo seed's initial weights and
-gets its own scaler fitted on its training targets, and ``cv-fast-path``
-is true, as in JAX. Anything else (a ``Pipeline`` base, a callback with
-no fleet counterpart) trains the folds one after another, as JAX's
-sequential path does. Unlike JAX, a failing fold-parallel fit raises: it
+gets its own clone of the configured scaler fitted on its training
+targets, and ``cv-fast-path`` is true, as in JAX. Anything else (a
+``Pipeline`` base, a callback with no fleet counterpart, ``KFold``'s
+prefix-and-suffix or ``ShuffleSplit``'s scattered training rows) trains
+the folds one after another, as JAX's sequential path does, each fold's
+estimator on its training rows in the splitter's order, joined across
+any gap, as the JAX estimators take them. Unlike JAX, a failing fold-parallel fit raises: it
 does not fall back to the sequential path, so a fault in the fleet
 trainer or its kernels cannot hide behind a slower build.
 """
@@ -27,11 +34,13 @@ import numpy as np
 
 from gordo_tpu_torch.device import DeviceLike
 from gordo_tpu_torch.models.core import DEFAULT_SEED, BaseTorchEstimator, as_2d
+from gordo_tpu_torch.models.preprocessing import RobustScaler, scaler_from_definition
 from gordo_tpu_torch.models.utils import (
     BlockFrame,
     Frame,
     TimeSeriesSplit,
     make_base_dataframe,
+    score_or_nan,
 )
 
 #: fitted thresholds an artifact may carry (None where absent)
@@ -41,39 +50,6 @@ THRESHOLD_ATTRS = (
     "smooth_aggregate_threshold_",
     "smooth_feature_thresholds_",
 )
-
-
-class RobustScaling:
-    """``sklearn.preprocessing.RobustScaler`` with its defaults: the median
-    and the 25-75 interquartile range per column."""
-
-    def __init__(self, center: Optional[np.ndarray] = None, scale: Optional[np.ndarray] = None):
-        self.center_ = None if center is None else np.asarray(center)
-        self.scale_ = None if scale is None else np.asarray(scale)
-
-    def fit(self, X) -> "RobustScaling":
-        """Median and IQR of each column of X (NaNs ignored); a scale
-        within ten machine epsilons of 0 becomes 1."""
-        X = np.asarray(X)
-        X = X.astype(X.dtype if X.dtype in (np.float32, np.float64) else np.float64)
-        self.center_ = np.nanmedian(X, axis=0)
-        q25, q75 = np.nanpercentile(X, (25.0, 75.0), axis=0)
-        scale = q75 - q25
-        scale[scale < 10 * np.finfo(scale.dtype).eps] = 1.0
-        self.scale_ = scale
-        return self
-
-    def __repr__(self):
-        return "RobustScaler()"
-
-    def transform(self, X) -> np.ndarray:
-        """``(X - center_) / scale_`` in X's float type, as sklearn does it
-        (in place on a copy, so a float32 X stays float32)."""
-        X = np.asarray(X)
-        X = X.astype(X.dtype if X.dtype in (np.float32, np.float64) else np.float64)
-        X -= self.center_
-        X /= self.scale_
-        return X
 
 
 def rolling_median(values: np.ndarray, window: int) -> np.ndarray:
@@ -119,20 +95,21 @@ class DiffBasedAnomalyDetector:
     def __init__(
         self,
         base_estimator: BaseTorchEstimator,
+        scaler=None,
         require_thresholds: bool = True,
         window: Optional[int] = None,
     ):
         self.base_estimator = base_estimator
+        self.scaler = RobustScaler() if scaler is None else scaler_from_definition(scaler)
         self.require_thresholds = require_thresholds
         self.window = window
-        self.scaler: Optional[RobustScaling] = None
         for attr in THRESHOLD_ATTRS:
             setattr(self, attr, None)
 
     def clone(self) -> "DiffBasedAnomalyDetector":
         """An unfitted detector of the same definition (sklearn's clone)."""
         return DiffBasedAnomalyDetector(
-            self.base_estimator.clone(), self.require_thresholds, self.window
+            self.base_estimator.clone(), self.scaler.clone(), self.require_thresholds, self.window
         )
 
     # -- fit and thresholds -------------------------------------------------
@@ -140,7 +117,7 @@ class DiffBasedAnomalyDetector:
         """Fit the base estimator, then the scaler on the targets (used
         purely for error scaling)."""
         self.base_estimator.fit(X, y, device=device)
-        self.scaler = RobustScaling().fit(as_2d(y, dtype=None))
+        self.scaler.fit(as_2d(y, dtype=None))
         return self
 
     def _fold_errors(self, y_pred: np.ndarray, y_test: np.ndarray):
@@ -226,8 +203,10 @@ class DiffBasedAnomalyDetector:
                 estimator._build_spec(), state, device, Xn.shape[1], yn.shape[1],
                 history=dict(trainer.history_[i]),
             )
-            detector = DiffBasedAnomalyDetector(estimator, self.require_thresholds, self.window)
-            detector.scaler = RobustScaling().fit(yn[train_idx])
+            detector = DiffBasedAnomalyDetector(
+                estimator, self.scaler.clone(), self.require_thresholds, self.window
+            )
+            detector.scaler.fit(yn[train_idx])
             yield detector, fit_time, test_idx
 
     def cross_validate(
@@ -275,7 +254,7 @@ class DiffBasedAnomalyDetector:
             y_pred = detector.predict(X[test_idx])
             y_test = y[test_idx]
             for name, metric in scoring.items():
-                output[f"test_{name}"].append(metric(y_test, y_pred))
+                output[f"test_{name}"].append(score_or_nan(metric, y_test, y_pred))
             output["score_time"].append(time.perf_counter() - start)
             output["estimator"].append(detector)
 
@@ -352,6 +331,7 @@ class DiffBasedAnomalyDetector:
         return {
             f"{type(self).__module__}.{type(self).__name__}": {
                 "base_estimator": self.base_estimator.into_definition(),
+                "scaler": self.scaler.into_definition(),
                 "require_thresholds": self.require_thresholds,
                 "window": self.window,
             }
@@ -362,8 +342,9 @@ class DiffBasedAnomalyDetector:
             f"base_estimator.{name}": value
             for name, value in self.base_estimator.state_arrays().items()
         }
-        arrays["scaler.center_"] = self.scaler.center_
-        arrays["scaler.scale_"] = self.scaler.scale_
+        arrays.update(
+            {f"scaler.{name}": value for name, value in self.scaler.state_arrays().items()}
+        )
         for attr in THRESHOLD_ATTRS:
             if getattr(self, attr) is not None:
                 arrays[attr] = np.asarray(getattr(self, attr))
@@ -377,7 +358,9 @@ class DiffBasedAnomalyDetector:
             {k[len(prefix) :]: v for k, v in arrays.items() if k.startswith(prefix)},
             device,
         )
-        self.scaler = RobustScaling(arrays["scaler.center_"], arrays["scaler.scale_"])
+        self.scaler.load_state_arrays(
+            {k[len("scaler."):]: v for k, v in arrays.items() if k.startswith("scaler.")}
+        )
         for attr in THRESHOLD_ATTRS:
             if attr in arrays:
                 value = np.asarray(arrays[attr])

@@ -1,98 +1,25 @@
 """
 The scikit-learn pieces of the pipelines, as port code (the card's
 machine has no scikit-learn): :class:`Pipeline`, which chains
-transformers before a final estimator, :class:`MinMaxScaler` and
-:class:`FunctionTransformer`.
+transformers before a final estimator, and :class:`FunctionTransformer`;
+the scalers a pipeline may hold are ``gordo_tpu_torch.models.
+preprocessing``'s.
 
 They are what ``gordo_tpu.serializer.from_definition`` builds from a
-config's ``sklearn.pipeline.Pipeline``, ``sklearn.preprocessing.
-MinMaxScaler`` and ``sklearn.preprocessing.FunctionTransformer``. The scaler computes in numpy on the host, in float64 for
-float64 input as scikit-learn does; the estimator after it runs on the
-device it is fitted on. Fitted state is plain arrays (``state_arrays``),
-so an artifact holds no pickle.
+config's ``sklearn.pipeline.Pipeline``, ``sklearn.preprocessing.*Scaler``
+and ``sklearn.preprocessing.FunctionTransformer``. A scaler computes in
+numpy on the host, in float64 for float64 input as scikit-learn does;
+the estimator after it runs on the device it is fitted on. Fitted state
+is plain arrays (``state_arrays``), so an artifact holds no pickle.
 """
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from gordo_tpu_torch.device import DeviceLike
-from gordo_tpu_torch.models.core import as_2d
+from gordo_tpu_torch.models.preprocessing import MinMaxScaler  # noqa: F401 (re-exported)
 from gordo_tpu_torch.models.transformer_funcs import resolve_function
-
-_SCALER_ATTRS = ("data_min_", "data_max_", "data_range_", "scale_", "min_")
-
-
-class MinMaxScaler:
-    """
-    ``sklearn.preprocessing.MinMaxScaler`` (scikit-learn 1.x): each column
-    mapped linearly from its fitted [min, max] onto ``feature_range``;
-    a column whose range is under ten machine epsilons gets scale 1.
-    ``copy`` is accepted for scikit-learn's signature; ``transform``
-    always works on a copy.
-    """
-
-    def __init__(
-        self, feature_range: Sequence[float] = (0, 1), copy: bool = True, clip: bool = False
-    ):
-        self.feature_range = tuple(feature_range)
-        self.clip = clip
-
-    def clone(self) -> "MinMaxScaler":
-        return MinMaxScaler(self.feature_range, clip=self.clip)
-
-    def fit(self, X, y=None) -> "MinMaxScaler":
-        low, high = self.feature_range
-        if low >= high:
-            raise ValueError(
-                f"Minimum of desired feature range must be smaller than maximum. "
-                f"Got {self.feature_range}."
-            )
-        X = as_2d(X, dtype=None)
-        data_min = np.nanmin(X, axis=0)
-        data_max = np.nanmax(X, axis=0)
-        data_range = data_max - data_min
-        safe_range = data_range.copy()
-        safe_range[safe_range < 10 * np.finfo(safe_range.dtype).eps] = 1.0
-        self.scale_ = (high - low) / safe_range
-        self.min_ = low - data_min * self.scale_
-        self.data_min_, self.data_max_, self.data_range_ = data_min, data_max, data_range
-        return self
-
-    def transform(self, X) -> np.ndarray:
-        """``X * scale_ + min_``, in place on a copy (so float32 stays
-        float32, as in scikit-learn)."""
-        X = as_2d(X, dtype=None).copy()
-        X *= self.scale_
-        X += self.min_
-        if self.clip:
-            np.clip(X, self.feature_range[0], self.feature_range[1], out=X)
-        return X
-
-    def fit_transform(self, X, y=None) -> np.ndarray:
-        return self.fit(X, y).transform(X)
-
-    def into_definition(self) -> dict:
-        return {
-            f"{type(self).__module__}.{type(self).__name__}": {
-                "feature_range": list(self.feature_range),
-                "clip": self.clip,
-            }
-        }
-
-    def state_arrays(self) -> Dict[str, np.ndarray]:
-        return {attr: np.asarray(getattr(self, attr)) for attr in _SCALER_ATTRS}
-
-    def load_state_arrays(
-        self, arrays: Dict[str, np.ndarray], device: DeviceLike = None
-    ) -> "MinMaxScaler":
-        for attr in _SCALER_ATTRS:
-            setattr(self, attr, np.asarray(arrays[attr]))
-        return self
-
-    def __repr__(self):
-        return f"MinMaxScaler(feature_range={self.feature_range}, clip={self.clip})"
-
 
 class FunctionTransformer:
     """

@@ -21,7 +21,23 @@ left pad of ``(k-1)·d`` steps, as the JAX net's ``nn.Conv`` (``VALID``)
 after its ``jnp.pad``; the library convolution stands where the JAX
 package runs XLA's, outside any Pallas kernel.
 
-Not ported yet: sequence sharding (``seq_axis``) and rematerialisation.
+``TransformerNet(remat=True)`` rematerialises each block, as the JAX
+net's ``nn.remat``: the block runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so only the
+block's input is kept for the backward pass and its internals (attention
+and feed-forward activations) are recomputed there; the flash forward
+runs a second time in each block's backward. The parameter names do not
+change, so either twin loads the other's weights. The recompute draws
+the same dropout masks as the forward: the block's generator (a
+``torch.Generator`` or a ``DropoutFeed``) is set back to its state at
+the block's entry for the recompute and restored after it, as JAX's
+``nn.remat`` replays its key (checkpoint's own RNG preservation covers
+only the global generators, which the port never draws from). No factory
+sets the flag; the JAX package reaches it only from long-context
+sequence sharding (ROADMAP.md queue 1 item 10).
+
+Not ported yet: sequence sharding (``seq_axis``, ROADMAP.md queue 1 item
+10).
 """
 
 import math
@@ -30,8 +46,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from gordo_tpu_torch.models.specs import Dense, cast, dropout
+from gordo_tpu_torch.models.specs import Dense, DropoutFeed, cast, dropout
 from gordo_tpu_torch.ops.activations import resolve_activation
 from gordo_tpu_torch.ops.flash_attention import flash_attention
 
@@ -159,13 +176,51 @@ class TransformerBlock(nn.Module):
         return x + dropout(h, self.dropout, self.training, generator)
 
 
+def _rng_state(generator):
+    """The state a block's recompute must start its dropout draws from."""
+    if isinstance(generator, torch.Generator):
+        return generator.get_state()
+    if isinstance(generator, DropoutFeed):
+        return None if generator.draws is None else list(generator.draws)
+    return None
+
+
+def _set_rng_state(generator, state) -> None:
+    if isinstance(generator, torch.Generator):
+        generator.set_state(state)
+    elif isinstance(generator, DropoutFeed) and state is not None:
+        generator.draws = list(state)
+
+
+def rematerialised(block: nn.Module, h: torch.Tensor, generator) -> torch.Tensor:
+    """``block(h, generator)`` under non-reentrant activation checkpointing,
+    its recompute replaying the dropout draws of the forward (module
+    docstring)."""
+    entry = _rng_state(generator)
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        if calls[0] == 1 or entry is None:
+            return block(x, generator)
+        after = _rng_state(generator)
+        _set_rng_state(generator, entry)
+        try:
+            return block(x, generator)
+        finally:
+            _set_rng_state(generator, after)
+
+    return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerNet(nn.Module):
     """
     Encoder-only Transformer over a lookback window: embed sensors into
     d_model, add sinusoidal positions, run n_layers blocks, and read the
     final timestep through a Linear head. Input (batch, time, features),
     output (batch, out_dim) float32. ``generator`` draws the dropout
-    masks in training mode.
+    masks in training mode. ``remat`` recomputes each block's internals
+    in the backward pass (module docstring).
     """
 
     def __init__(
@@ -181,10 +236,12 @@ class TransformerNet(nn.Module):
         out_func: str = "linear",
         dtype=torch.float32,
         dropout: float = 0.0,
+        remat: bool = False,
     ):
         super().__init__()
         self.d_model = d_model
         self.dropout = dropout
+        self.remat = remat
         self.embed = Dense(n_features, d_model, dtype)
         self.blocks = nn.ModuleList(
             TransformerBlock(
@@ -203,7 +260,10 @@ class TransformerNet(nn.Module):
         h = h + cast(sinusoidal_positions(x.shape[1], self.d_model, device=h.device), h.dtype)
         h = dropout(h, self.dropout, self.training, generator)
         for block in self.blocks:
-            h = block(h, generator)
+            if self.remat and torch.is_grad_enabled():
+                h = rematerialised(block, h, generator)
+            else:
+                h = block(h, generator)
         h = self.norm(h)[:, -1, :]
         return cast(self.out_func(self.head(h)), torch.float32)
 

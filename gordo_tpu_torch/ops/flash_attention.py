@@ -127,13 +127,18 @@ kernel_launches = {
 }
 
 
+#: calls of each entry point that ran its plain version, on CPU tensors
+#: (the CPU's counterpart of ``launch_counts``)
+plain_calls = {KERNEL: 0, KERNEL_DQ: 0, KERNEL_DKV: 0}
+
+
 #: the same launches by CUDA kernel and input type,
 #: ``<entry point>_<family>_<dtype>`` (``flash_attention_fwd_quad_bfloat16``)
 typed_launches: Dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, kernel_launches):
+    for counts in (launch_counts, kernel_launches, plain_calls):
         for name in counts:
             counts[name] = 0
     typed_launches.clear()
@@ -471,6 +476,7 @@ def flash_attention_forward(
     if path == "cuda":
         out, lse = _launch(q, k, v, causal, sm_scale)
     else:
+        plain_calls[KERNEL] += 1
         out, lse = flash_attention_reference(q, k, v, causal, sm_scale)
     return _heads(out, head_dim), lse
 
@@ -505,6 +511,7 @@ def flash_attention_bwd_dq(
     path, head_dim = _device_path("flash_attention_bwd_dq", q), q.shape[-1]
     q, k, v, out, d_out = _to_width(kernel_width(q.shape[-1]), q, k, v, out, d_out)
     if path == "cpu":
+        plain_calls[KERNEL_DQ] += 1
         dq, delta = flash_attention_bwd_dq_reference(q, k, v, out, lse, d_out, causal, sm_scale)
     else:
         dq, delta = _launch_dq(q, k, v, out, lse, d_out, causal, sm_scale)
@@ -557,6 +564,7 @@ def flash_attention_bwd_dkv(
     path, head_dim = _device_path("flash_attention_bwd_dkv", q), q.shape[-1]
     q, k, v, d_out = _to_width(kernel_width(q.shape[-1]), q, k, v, d_out)
     if path == "cpu":
+        plain_calls[KERNEL_DKV] += 1
         dk, dv = flash_attention_bwd_dkv_reference(q, k, v, lse, delta, d_out, causal, sm_scale)
     else:
         dk, dv = _launch_dkv(q, k, v, lse, delta, d_out, causal, sm_scale)

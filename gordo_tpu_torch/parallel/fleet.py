@@ -32,11 +32,18 @@ every machine are made outside the vmapped function and handed to the
 module through a :class:`~gordo_tpu_torch.models.specs.DropoutFeed`.
 Neither gives JAX's random numbers.
 
+``prefetch_depth`` above 0 pipelines the host-to-device transfers
+(``gordo_tpu_torch.parallel.transfer``), as the JAX trainer does:
+:class:`StackedData` moves X, y and the row weights as sliced, staged
+copies, and the trainer stages the next epoch chunk's vector (the
+chunk's per-step machine gates, which the optimizer takes when some
+machine's batch holds no real sample) while the current chunk's steps
+run. The values are the same bits at every depth.
+
 Left out, because they are XLA or TPU machinery the eager port has no
 use for: the program cache and its compile telemetry, buffer donation,
 the device mesh and fleet padding to it, scan unrolling,
-``broadcast_data`` sweeps, checkpoints, transfer prefetching and fault
-injection.
+``broadcast_data`` sweeps, checkpoints and fault injection.
 """
 
 import dataclasses
@@ -66,6 +73,7 @@ from gordo_tpu_torch.models.specs import (
     per_sample_loss,
 )
 from gordo_tpu_torch.ops.windowing import DEFAULT_BATCH_SIZE, num_windows, windowed_predict
+from gordo_tpu_torch.parallel import transfer
 from gordo_tpu_torch.parallel.precision import cast_params
 
 logger = logging.getLogger(__name__)
@@ -98,6 +106,7 @@ class StackedData:
         n_features: Optional[int] = None,
         n_features_out: Optional[int] = None,
         device: DeviceLike = None,
+        prefetch_depth: int = 0,
     ) -> "StackedData":
         """
         Stack per-machine (n_i, f_i) arrays on ``device`` (the card unless
@@ -105,6 +114,8 @@ class StackedData:
         ``n_timesteps`` grid), features and output features to the widest
         machine (or ``n_features``/``n_features_out``), and the machine
         axis to ``n_machines_padded`` with all-zero-weight machines.
+        ``prefetch_depth`` above 0 moves X, y and the weights as
+        ``transfer.device_put_sliced`` slices; 0 is one plain copy each.
         """
         if len(Xs) != len(ys) or not Xs:
             raise ValueError("from_ragged takes one y for each X, and at least one machine")
@@ -131,7 +142,12 @@ class StackedData:
         def put(a):
             return torch.from_numpy(a).to(device)
 
-        return cls(put(X), put(y), put(w), put(fw) if ragged_out else None)
+        fw = put(fw) if ragged_out else None
+        if prefetch_depth > 0:
+            X, y, w = (transfer.device_put_sliced(a, prefetch_depth, plane="build", device=device)
+                       for a in (X, y, w))
+            return cls(X, y, w, fw)
+        return cls(put(X), put(y), put(w), fw)
 
     @property
     def n_machines(self) -> int:
@@ -185,6 +201,9 @@ class FleetTrainer:
         Where the fleet trains: the card unless ``"cpu"``.
     seed
         Seed of the generator of shuffles and dropout draws.
+    prefetch_depth
+        Above 0, the next epoch chunk's vector is staged while the current
+        chunk runs (module docstring); 0 copies as the trainer always did.
     """
 
     def __init__(
@@ -196,8 +215,10 @@ class FleetTrainer:
         quarantine_nonfinite: bool = True,
         device: DeviceLike = None,
         seed: int = 0,
+        prefetch_depth: int = 0,
     ):
         self.spec = spec
+        self.prefetch_depth = transfer.clip_depth(prefetch_depth)
         self.lookahead = int(lookahead) if spec.windowed else 0
         self.epoch_chunk = max(1, int(epoch_chunk))
         self.quarantine_nonfinite = bool(quarantine_nonfinite)
@@ -349,12 +370,14 @@ class FleetTrainer:
         return torch.rand((m, n_samples), generator=self._generator, device=self.device)
 
     def _epoch(self, params, opt_state, X, y, wb_all, fm, n_batches, batch_size, shuffle, epoch,
-               real_samples):
+               real_samples, gates=None):
         """One epoch for every machine: (params, opt state, epoch loss (M,)).
         ``real_samples`` (host, (M,)) says which machines' batches hold a
         real sample: real samples come first, so batch s of machine m does
         when ``s * batch_size < real_samples[m]``, and only the steps where
-        some machine's does not pay for the optimizer's gate."""
+        some machine's does not pay for the optimizer's gate, copied to the
+        device at the step, or taken from ``gates`` ((n_batches, M) on the
+        device, staged ahead) when it is given."""
         m, n_samples = wb_all.shape
         device = wb_all.device
         real = wb_all > 0
@@ -393,9 +416,11 @@ class FleetTrainer:
             # a batch with no real sample must leave the machine as it was
             w_sum = wb.sum(dim=1)
             has_real = step * batch_size < real_samples
+            active = None
+            if not has_real.all():
+                active = gates[step] if gates is not None else torch.from_numpy(has_real).to(device)
             params, opt_state = self.optimizer.update(
-                grads, opt_state, {n: params[n].detach() for n in names},
-                active=None if has_real.all() else torch.from_numpy(has_real).to(device),
+                grads, opt_state, {n: params[n].detach() for n in names}, active=active,
             )
             loss_sums.append(loss_sum.detach())
             w_sums.append(w_sum)
@@ -539,15 +564,34 @@ class FleetTrainer:
         n_host_syncs = 1
         epochs_run = 0
         step_time = 0.0
+
+        def chunk_len(e0: int) -> int:
+            return min(self.epoch_chunk, epochs - e0) if early_stopping else epochs - e0
+
+        # an epoch chunk's vector: its per-step machine gates, (k, steps, M)
+        step_gates = (np.arange(n_batches)[:, None] * batch_size) < real_samples[None, :]
+
+        def chunk_vector(k: int) -> np.ndarray:
+            return np.repeat(step_gates[None], k, axis=0)
+
+        # the next chunk's vector, staged while this chunk runs, by (epoch, length)
+        staged: Dict[Tuple[int, int], transfer.Staged] = {}
         epoch = 0
         while epoch < epochs:
-            chunk = min(self.epoch_chunk, epochs - epoch) if early_stopping else epochs - epoch
+            chunk = chunk_len(epoch)
+            gates = None
+            if self.prefetch_depth > 0:
+                pending = staged.pop((epoch, chunk), None)
+                if pending is None:
+                    transfer.count_transfer("train", "direct")
+                    pending = transfer.stage(chunk_vector(chunk), self.device)
+                gates = pending.wait()
             chunk_rows: Dict[str, list] = {key: [] for key in rows}
             for e in range(epoch, epoch + chunk):
                 t0 = time.perf_counter()
                 new_params, new_opt, loss = self._epoch(
                     params, opt_state, X, y, wb_all, fm, n_batches, batch_size, shuffle, e,
-                    real_samples,
+                    real_samples, None if gates is None else gates[e - epoch],
                 )
                 step_time += time.perf_counter() - t0
                 keep = None
@@ -586,6 +630,13 @@ class FleetTrainer:
                     chunk_rows["active"].append(es["active"])
                 else:
                     chunk_rows["loss"].append(loss)
+            next_epoch = epoch + chunk
+            if self.prefetch_depth > 0 and next_epoch < epochs:
+                # the chunk's work is queued: stage the next chunk's vector
+                # now, so its copy runs under this chunk's kernels
+                key = (next_epoch, chunk_len(next_epoch))
+                staged[key] = transfer.stage(chunk_vector(key[1]), self.device)
+                transfer.count_transfer("train", "prefetched")
             # the host reads the chunk's rows at once: once a chunk with
             # early stopping, once a fit without
             fetched = {key: torch.stack(value).cpu().numpy() for key, value in chunk_rows.items()

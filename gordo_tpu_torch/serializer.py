@@ -11,8 +11,10 @@ An artifact is a directory of three files:
 - ``params.npz``: every array the model needs, flat, by dotted name:
   ``base_estimator.<state-dict key>`` for a detector's weights (a
   pipeline's under ``base_estimator.steps.<i>.``, its scaler's fitted
-  ``scale_``, ``min_``, ... beside its estimator's state dict),
-  ``scaler.center_``/``scaler.scale_`` for the target scaler, and the
+  ``scale_``, ``min_``, ... beside its estimator's state dict), the
+  detector's error scaler's fitted arrays under ``scaler.`` (a
+  RobustScaler's ``center_`` and ``scale_``, a StandardScaler's
+  ``mean_``, ``var_``, ``scale_`` and ``n_samples_seen_``, ...), and the
   fitted thresholds under their attribute names; a bare estimator's
   state dict keys unprefixed;
 - ``metadata.json``: the build metadata, with the JAX artifact's keys.
@@ -51,7 +53,8 @@ from gordo_tpu_torch.models.models import (
     TransformerAutoEncoder,
     TransformerForecast,
 )
-from gordo_tpu_torch.models.pipeline import FunctionTransformer, MinMaxScaler, Pipeline
+from gordo_tpu_torch.models.pipeline import FunctionTransformer, Pipeline
+from gordo_tpu_torch.models.preprocessing import SCALERS
 from gordo_tpu_torch.models.transformers import InfImputer
 
 DEFINITION_FILENAME = "definition.json"
@@ -77,11 +80,11 @@ MODEL_CLASSES = {
         AutoEncoder,
         RawModelRegressor,
         Pipeline,
-        MinMaxScaler,
         InfImputer,
         FunctionTransformer,
     )
 }
+MODEL_CLASSES.update(SCALERS)
 # the reference's names of the feedforward, LSTM and raw estimators (an
 # alias is the same class, so it needs its own key)
 MODEL_CLASSES.update(

@@ -53,7 +53,8 @@ from gordo_tpu_torch import serializer
 from gordo_tpu_torch.builder import ModelBuilder
 from gordo_tpu_torch.convert import transformer_state_dict
 from gordo_tpu_torch.models import AutoEncoder, TransformerAutoEncoder
-from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector, RobustScaling
+from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+from gordo_tpu_torch.models.preprocessing import RobustScaler as RobustScaling
 from gordo_tpu_torch.models.pipeline import MinMaxScaler
 from gordo_tpu_torch.models.utils import METRICS, TimeSeriesSplit, cross_validate, metric_wrapper
 from gordo_tpu_torch.server.app import build_app
@@ -144,7 +145,14 @@ def _metric_cases():
 @pytest.mark.parametrize("name", sorted(METRICS))
 def test_metrics_match_sklearn(name, case):
     y_true, y_pred = _metric_cases()[case]
-    want = getattr(sk_metrics, name)(y_true, y_pred)
+    try:
+        want = getattr(sk_metrics, name)(y_true, y_pred)
+    except ValueError as err:
+        # max_error of several outputs, a log metric of targets at or
+        # below -1: the port refuses them as scikit-learn does
+        with pytest.raises(ValueError, match=str(err).split(" when ")[0]):
+            METRICS[name](y_true, y_pred)
+        return
     np.testing.assert_allclose(METRICS[name](y_true, y_pred), want, rtol=1e-6, atol=1e-6)
 
 

@@ -251,11 +251,14 @@ def test_gap_fill_follows_pandas_forward_limit(method, want):
     np.testing.assert_allclose(_fill_gaps(values, method, 2), want)
 
 
-@pytest.mark.parametrize("aggregation", ["max", ["mean", "max"]])
+@pytest.mark.parametrize("aggregation", [np.mean, ["mean", "var"]])
 def test_other_aggregations_are_queued(aggregation):
+    """A callable, and a method outside the ported ones, name the queue
+    item they wait in (max, sum, lists of methods, ... are ported:
+    tests/test_torch_data_options.py)."""
     series = TagSeries("a", np.array([0, 60_000_000_000]), np.array([1.0, 2.0]))
     start = datetime(1970, 1, 1, tzinfo=UTC)
-    with pytest.raises(NotImplementedError, match="multi-method aggregation"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         GordoBaseDataset._resample(
             series, start, start + timedelta(hours=1), "10T", aggregation_methods=aggregation
         )
@@ -324,10 +327,11 @@ def test_insufficient_data_raises_like_jax():
 @pytest.mark.parametrize(
     "change,match",
     [
-        ({"row_filter": "`tag-0` > 0.5"}, "row_filter"),
-        ({"filter_periods": {"filter_method": "median"}}, "filter_periods"),
-        ({"data_provider": {"type": "FileSystemProvider", "base_dir": "/lake"}}, "providers"),
-        ({"resolution": None}, "resolution"),
+        ({"aggregation_methods": "var"}, "ROADMAP.md queue 1 item 7"),
+        ({"filter_periods": {"filter_method": "iforest"}}, "IsolationForest"),
+        ({"data_provider": {"type": "LongFormatProvider", "base_dir": "/lake"}},
+         "ROADMAP.md queue 1 item 7"),
+        ({"data_provider": {"type": "InfluxDataProvider"}}, "influxdb"),
     ],
 )
 def test_unported_dataset_options_raise(change, match):
@@ -336,11 +340,17 @@ def test_unported_dataset_options_raise(change, match):
         _get_dataset(config)
 
 
-def test_lake_directory_is_not_read_yet(monkeypatch):
-    monkeypatch.setenv(LAKE_DIR_ENV_VAR, "/lake")
+def test_lake_directory_is_not_read_yet(monkeypatch, tmp_path):
+    """A lake of parquet files is not read (no pyarrow on the card's
+    machine): the error says so; CSV lakes are read
+    (tests/test_torch_data_options.py)."""
+    monkeypatch.setenv(LAKE_DIR_ENV_VAR, str(tmp_path))
     config = dict(CONFTEST_DATASET, type="TimeSeriesDataset", data_provider=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _get_dataset(config)
+    dataset = _get_dataset(config)
+    for tag in dataset.tag_list:
+        (tmp_path / f"{tag.name}.parquet").write_bytes(b"PAR1")
+    with pytest.raises(NotImplementedError, match="pyarrow"):
+        dataset.get_data()
 
 
 def test_naive_dates_and_empty_windows_raise():

@@ -46,7 +46,8 @@ from gordo_tpu_torch.cli import cli
 from gordo_tpu_torch.data import _get_dataset
 from gordo_tpu_torch.machine import Machine
 from gordo_tpu_torch.models import AutoEncoder, TransformerAutoEncoder
-from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector, RobustScaling
+from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+from gordo_tpu_torch.models.preprocessing import RobustScaler as RobustScaling
 from gordo_tpu_torch.parallel import bucketing
 from gordo_tpu_torch.parallel.fleet import FleetTrainer
 from gordo_tpu_torch.workflow.config_elements import NormalizedConfig
@@ -248,8 +249,7 @@ def test_on_error_raise_exits_with_the_failure(tmp_path, monkeypatch):
     "flag,value",
     [("--workers", "2"), ("--worker-id", "0"), ("--lease-ttl", "5"), ("--max-attempts", "2"),
      ("--ledger-status", "x"), ("--resume", "1"), ("--aot-cache", "1"),
-     ("--prefetch-depth", "2"), ("--model-parameter", "a,1"),
-     ("--model-register-dir", "x"), ("--exceptions-report-level", "MESSAGE")],
+     ("--model-register-dir", "x")],
 )
 def test_unported_options_name_their_roadmap_item(flag, value, capsys):
     with pytest.raises(SystemExit) as exit_info:

@@ -32,7 +32,8 @@ from gordo_tpu_torch import serializer
 from gordo_tpu_torch.builder import ModelBuilder
 from gordo_tpu_torch.convert import feedforward_state_dict, model_from_flax
 from gordo_tpu_torch.models import AutoEncoder, MinMaxScaler, Pipeline
-from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector, RobustScaling
+from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+from gordo_tpu_torch.models.preprocessing import RobustScaler as RobustScaling
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_num_threads(1)
