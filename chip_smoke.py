@@ -157,7 +157,29 @@ Phases, each raising on failure (no result line is printed then):
    net each stepped with ``remat`` off and on: the flash forward twice a
    layer under remat, gradients within 1e-6 (float32) and 2^-7 (bf16) of
    the plain step's, peak device memory and step ms;
-13. one JSON line of per-kernel numbers, each time with the timer that
+13. lake and streaming: (a) ``turbine-9900-transformer`` (full width,
+   flash, 1 epoch where the config has 10) read from ``LAKE_PROJECT``
+   through the port's config layer and built by ``build`` in a
+   subprocess on the card from a seeded lake (two tags as long-format
+   CSV day partitions with restated samples and a stray partition, the
+   third in a file-system CSV directory, behind a ``CompoundProvider``),
+   with ``filter_method: all`` (the median and isolation-forest period
+   filters) and a ``SqliteReporter``: rows each provider read, held to
+   the written samples, rows kept, drop periods by method, the forest's
+   fit and score seconds, the build's flash launches and the sqlite row
+   against the machine's JSON; (b) phase 10's four Transformers streamed
+   over phase 11's 8255 whole-history rows by one session of the
+   ``stream/`` routes (a warming update, then 144-row updates): each
+   update's latency, rows copied to the card (the transfer counter: its
+   own rows only) and flash launches (one forward a layer when scored,
+   none when warming), the device idle share over a few updates
+   (torch.profiler), the streamed outputs against one
+   ``/prediction/fleet`` over the same rows within ``STREAM_RTOL``, the
+   resume contract (a closed session answers 409; reopened with its
+   window tail, it continues as the unbroken stream) and a ``latest``
+   symlink re-pointed mid-stream (the next update answers 409
+   ``revision_rolled``);
+14. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -513,6 +535,71 @@ PREFETCH_EPOCHS = 3
 # magnitude (the recompute is the same arithmetic), bf16 within 2^-7
 REMAT_TOLERANCE = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
 REMAT_TIMED_STEPS = 5
+# Phase 13a builds turbine-9900-transformer (full width, flash, 1 epoch
+# where the config has 10, as phase 12 cuts) from a lake: a long-format
+# CSV lake of day partitions holding two of its three tags (5-minute
+# samples over the config's span, phase 12's spikes), with LAKE_DUPLICATES
+# samples restated: the day's first file holds them off by LAKE_OFFSET and
+# a later file of the same day the true value (the last row wins), and a
+# partition dated LAKE_STRAY_DAY (outside the window and its day of slop)
+# holding in-window rows off by LAKE_OFFSET that must not be read; the
+# third tag in a file-system CSV directory, listed first in a
+# CompoundProvider (the long-format provider claims every tag of a
+# directory that holds data); both period filters (`filter_method: all`)
+# and a SqliteReporter
+LAKE_COLLECTION = "1700000000008"
+LAKE_DUPLICATES = 500
+LAKE_OFFSET = 500.0
+LAKE_STRAY_DAY = datetime(2019, 6, 10, tzinfo=timezone.utc)
+LAKE_PROJECT = """
+machines:
+  - name: {name}
+    dataset:
+      type: TimeSeriesDataset
+      data_provider:
+        type: CompoundProvider
+        providers:
+          - type: FileSystemProvider
+            base_dir: "{fs}"
+          - type: LongFormatProvider
+            base_dir: "{long}"
+      tags: [{tags}]
+      train_start_date: '2019-01-01T00:00:00+00:00'
+      train_end_date: '2019-06-01T00:00:00+00:00'
+      asset: gra
+      filter_periods:
+        filter_method: all
+    model:
+      gordo_tpu.models.anomaly.DiffBasedAnomalyDetector:
+        base_estimator:
+          gordo_tpu.models.TransformerAutoEncoder:
+            kind: transformer_model
+            lookback_window: 64
+            d_model: 64
+            n_heads: 4
+            n_layers: 2
+            epochs: {epochs}
+            attention_impl: flash
+    runtime:
+      reporters:
+        - gordo_tpu.reporters.postgres.SqliteReporter:
+            path: "{db}"
+"""
+# Phase 13b streams phase 10's four Transformers over phase 11's 8255
+# whole-history rows: a warming update of STREAM_FIRST rows (fewer than a
+# window), then updates of STREAM_UPDATE rows (the last one shorter);
+# STREAM_PROFILED updates from STREAM_PROFILE_AT run under torch.profiler
+# (and are left out of the latency figures); the resume check cuts a
+# second session after STREAM_RESUME_AT updates and continues it for
+# STREAM_RESUME_MORE; streamed outputs within STREAM_RTOL (relative to the
+# largest output) of one /prediction/fleet over the same rows
+STREAM_FIRST = 40
+STREAM_UPDATE = 144
+STREAM_PROFILE_AT = 10
+STREAM_PROFILED = 5
+STREAM_RESUME_AT = 11
+STREAM_RESUME_MORE = 5
+STREAM_RTOL = 1e-5
 
 
 def log(*parts) -> None:
@@ -3229,6 +3316,359 @@ def build_options_phase(torch, fa, profile: bool):
     return report
 
 
+def write_lake(root: str) -> dict:
+    """Phase 13a's lake under ``root``: ``long/`` (day partitions of
+    ``tag,time,value`` rows of the first two tags, the restated samples
+    and the stray partition of ``LAKE_PROJECT``'s note) and ``fs/`` (the
+    third tag, one file-system CSV file). Returns the directories and the
+    true samples, {tag: (int ns stamps, values)}."""
+    import numpy as np
+
+    from gordo_tpu_torch.data.base import to_ns
+
+    rows = 151 * OPTIONS_SAMPLES_A_DAY
+    X, _ = sensor_rows(rows, SEED + 13)
+    X[::OPTIONS_SPIKE_EVERY, 1] += 40.0
+    step = timedelta(days=1) / OPTIONS_SAMPLES_A_DAY
+    stamps = [TRAIN_START + i * step for i in range(rows)]
+    restated = set(np.random.default_rng(SEED + 13).choice(rows, LAKE_DUPLICATES, replace=False)
+                   .tolist())
+    long_dir, fs_dir = os.path.join(root, "long"), os.path.join(root, "fs")
+    for day in range(151):
+        date = TRAIN_START + timedelta(days=day)
+        folder = os.path.join(long_dir, f"{date.year:04d}", f"{date.month:02d}",
+                              f"{date.day:02d}")
+        os.makedirs(folder)
+        span = range(day * OPTIONS_SAMPLES_A_DAY, (day + 1) * OPTIONS_SAMPLES_A_DAY)
+        with open(os.path.join(folder, "a-readings.csv"), "w") as fh:
+            fh.write("tag,time,value\n")
+            for j, tag in enumerate(TAGS[:2]):
+                fh.writelines(
+                    f"{tag},{stamps[i].isoformat()},"
+                    f"{float(X[i, j]) + (LAKE_OFFSET if i in restated else 0.0)!r}\n"
+                    for i in span)
+        late = [i for i in span if i in restated]
+        if late:
+            with open(os.path.join(folder, "b-corrections.csv"), "w") as fh:
+                fh.write("Tag,Time,Value\n")
+                fh.writelines(f"{tag},{stamps[i].isoformat()},{float(X[i, j])!r}\n"
+                              for i in late for j, tag in enumerate(TAGS[:2]))
+    stray = os.path.join(long_dir, f"{LAKE_STRAY_DAY.year:04d}", f"{LAKE_STRAY_DAY.month:02d}",
+                         f"{LAKE_STRAY_DAY.day:02d}")
+    os.makedirs(stray)
+    with open(os.path.join(stray, "a-readings.csv"), "w") as fh:
+        fh.write("tag,time,value\n")
+        fh.writelines(f"{tag},{stamps[i].isoformat()},{LAKE_OFFSET}\n"
+                      for i in range(0, rows, 97) for tag in TAGS[:2])
+    os.makedirs(fs_dir)
+    with open(os.path.join(fs_dir, f"{TAGS[2]}.csv"), "w") as fh:
+        fh.write("Time,Value\n")
+        fh.writelines(f"{t.isoformat()},{float(v)!r}\n" for t, v in zip(stamps, X[:, 2]))
+    ns = np.asarray([to_ns(t) for t in stamps], dtype=np.int64)
+    return {"long": long_dir, "fs": fs_dir,
+            "truth": {tag: (ns, X[:, j].astype(np.float64)) for j, tag in enumerate(TAGS)}}
+
+
+def lake_build_check(root: str, workdir: str, device_args=()) -> dict:
+    """Phase 13a: the lake machine read through the port's config layer and
+    built by ``build`` in a subprocess on the card (``device_args`` for a
+    rehearsal elsewhere): rows each provider fetched (against the written
+    samples: the restated ones at their true values, the stray partition
+    unread), rows kept, drop periods by method, the forest's seconds, the
+    build's flash launches and the sqlite row against the machine's JSON."""
+    import sqlite3
+
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data.providers import FileSystemProvider, LongFormatProvider
+    from gordo_tpu_torch.data.sensor_tag import SensorTag
+    from gordo_tpu_torch.workflow.config_elements import NormalizedConfig
+    from gordo_tpu_torch.workflow.yaml_reader import safe_load
+
+    t0 = time.perf_counter()
+    lake = write_lake(os.path.join(workdir, "lake"))
+    report = {"lake_write_s": time.perf_counter() - t0}
+    db = os.path.join(workdir, "machines.db")
+    text = LAKE_PROJECT.format(name=f"{MACHINE}-lake", fs=lake["fs"], long=lake["long"],
+                               tags=", ".join(f'"{tag}"' for tag in TAGS), epochs=OPTIONS_EPOCHS,
+                               db=db)
+    (machine,) = NormalizedConfig(safe_load(text), project_name=PROJECT).machines
+    machine = json.loads(json.dumps(machine.to_dict(), default=str))
+    end = TRAIN_START + timedelta(days=151)
+    fetched = {}
+    t0 = time.perf_counter()
+    for provider, tags in ((LongFormatProvider(lake["long"]), TAGS[:2]),
+                           (FileSystemProvider(lake["fs"]), TAGS[2:])):
+        series = list(provider.load_series(TRAIN_START, end, [SensorTag(t, "gra") for t in tags]))
+        for tag, got in zip(tags, series):
+            ns, values = lake["truth"][tag]
+            if not (np.array_equal(got.index, ns) and np.allclose(got.values, values,
+                                                                   rtol=0, atol=1e-6)):
+                raise AssertionError(f"{type(provider).__name__} read {tag} wrong: "
+                                     f"{len(got)} of {len(ns)} samples")
+        fetched[type(provider).__name__] = sum(len(s) for s in series)
+    report["provider_read_s"] = time.perf_counter() - t0
+    report["rows_fetched"] = fetched
+    artifact = os.path.join(workdir, LAKE_COLLECTION, machine["name"])
+    built = driven_build(root, machine, artifact, *device_args)
+    metadata = serializer.load_metadata(artifact)
+    periods = metadata["metadata"]["build_metadata"]["dataset"]["dataset_meta"][
+        "filtered_periods"]
+    kept = [int(line.split("Fetched ")[1].split()[0]) for line in built["log"]
+            if "Fetched " in line]
+    forest = [line.split("Isolation forest: ")[1] for line in built["stderr"].splitlines()
+              if "Isolation forest: " in line]
+    with sqlite3.connect(db) as conn:
+        rows = conn.execute("SELECT name, dataset, model, metadata FROM machine").fetchall()
+    if len(rows) != 1 or rows[0][0] != machine["name"]:
+        raise AssertionError(f"the sqlite reporter wrote {[r[0] for r in rows]}")
+    report.update({
+        "build_s": built["wall_s"], "kernel_launches": built["kernels"],
+        "rows_kept": kept[0] if kept else None,
+        "drop_periods": {method: len(p) for method, p in periods.items()},
+        "forest": forest,
+        "sqlite_dataset_equal": json.loads(rows[0][1]) == metadata["dataset"],
+        "sqlite_model_equal": json.loads(rows[0][2]) == metadata["model"],
+        "sqlite_metadata_keys_equal": set(json.loads(rows[0][3])) == set(metadata["metadata"]),
+    })
+    log("lake build", json.dumps(report))
+    if sorted(report["drop_periods"]) != ["iforest", "median"] or not all(
+            report["drop_periods"].values()):
+        raise AssertionError(f"both period filters should drop periods: {report['drop_periods']}")
+    if not (report["sqlite_dataset_equal"] and report["sqlite_model_equal"]
+            and report["sqlite_metadata_keys_equal"]):
+        raise AssertionError(f"the sqlite row is not the machine's JSON: {report}")
+    if not forest or not kept:
+        raise AssertionError(f"the build log lacks the forest or fetch line: {built['log']}")
+    return report
+
+
+def request_json(url: str, body=None):
+    """(status, parsed JSON reply, seconds) of a POST of ``body`` as JSON,
+    whatever the status."""
+    import urllib.error
+
+    request = urllib.request.Request(
+        url, data=json.dumps(body).encode() if body is not None else b"",
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(request, timeout=600) as reply:
+            status, raw = reply.status, reply.read()
+    except urllib.error.HTTPError as err:
+        status, raw = err.code, err.read()
+    return status, json.loads(raw), time.perf_counter() - t0
+
+
+def stream_chunks(n_rows: int) -> list:
+    """(start, rows) of each streamed update over ``n_rows`` rows."""
+    chunks, start = [(0, STREAM_FIRST)], STREAM_FIRST
+    while start < n_rows:
+        chunks.append((start, min(STREAM_UPDATE, n_rows - start)))
+        start += STREAM_UPDATE
+    return chunks
+
+
+def stream_check(torch, fa, collection: str, device=None) -> dict:
+    """Phase 13b: phase 10's four Transformers streamed on the card
+    (``device`` for a rehearsal elsewhere) over phase 11's whole-history
+    rows (the module docstring): per update its latency, rows copied to
+    the device and flash launches; the streamed outputs against one
+    ``/prediction/fleet``; the device idle share over
+    ``STREAM_PROFILED`` updates; the resume contract; and a ``latest``
+    symlink rolled mid-stream."""
+    import shutil
+
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.data.base import to_datetimes
+    from gordo_tpu_torch.parallel import transfer
+    from gordo_tpu_torch.server.app import build_app
+
+    transformers = [f"{MACHINE}-{i}" for i in range(FLEET_TRANSFORMERS)]
+    n_rows, n_layers = SERVE_ROWS[1], BASE_ESTIMATOR["n_layers"]
+    lookback = BASE_ESTIMATOR["lookback_window"]
+    data = {}
+    for name in transformers:
+        metadata = serializer.load_metadata(os.path.join(collection, name))
+        X, _, stamps = _get_dataset(metadata["dataset"]).get_data()
+        keys = [stamp.isoformat() for stamp in to_datetimes(stamps.astype(np.int64))]
+        data[name] = (np.asarray(X, dtype=np.float64)[:n_rows], keys[:n_rows],
+                      metadata["dataset"]["tag_list"])
+    forward = [name for name in fa.kernel_launches if name.startswith(fa.KERNEL + "_")]
+
+    def launches():
+        return (sum(fa.kernel_launches[k] for k in forward),
+                sum(fa.launch_counts[k] for k in (fa.KERNEL_DQ, fa.KERNEL_DKV)))
+
+    def copied_rows():
+        return sum(n for (plane, _), n in transfer.transfer_rows.items() if plane == "stream")
+
+    def updates(start, k):
+        return {"updates": {n: {"rows": data[n][0][start:start + k].tolist(), "seq": start}
+                            for n in transformers}}
+
+    def output_rows(block):
+        return np.asarray([list(column.values()) for column in block.values()]).T
+
+    report = {}
+    app = build_app(collection, device=device, batch_wait_ms=0)
+    with http_server(collection, None, app=app) as base:
+        status, reply, seconds = request_json(f"{base}/prediction/fleet", {"machines": {
+            n: frame_of(X, keys, tags, slice(0, n_rows)) for n, (X, keys, tags) in data.items()}})
+        if status != 200:
+            raise AssertionError(f"/prediction/fleet answered {status}: {reply}")
+        one_shot = {n: output_rows(reply["data"][n]["model-output"]) for n in transformers}
+        report["one_shot_s"] = seconds
+
+        status, opened, _ = request_json(f"{base}/stream/open", {"machines": transformers})
+        if status != 201:
+            raise AssertionError(f"stream/open answered {status}: {opened}")
+        sid = opened["session"]
+        streamed = {n: [] for n in transformers}
+        rows_log, profiled = [], {}
+        fa.reset_launch_counts()
+        transfer.reset_transfer_counts()
+
+        def push(start, k):
+            before_launch, before_rows = launches(), copied_rows()
+            status, body, seconds = request_json(f"{base}/stream/{sid}/update", updates(start, k))
+            if status != 200:
+                raise AssertionError(f"update at row {start} answered {status}: {body}")
+            after_launch = launches()
+            scored = [len(body["scores"][n]["rows"]) for n in transformers]
+            for name in transformers:
+                streamed[name].extend(body["scores"][name]["rows"])
+            row = {"start": start, "rows": k, "seconds": seconds, "outputs": scored[0],
+                   "warming": body["scores"][transformers[0]]["warming"],
+                   "copied_rows": copied_rows() - before_rows,
+                   "forward_launches": after_launch[0] - before_launch[0],
+                   "backward_launches": after_launch[1] - before_launch[1]}
+            rows_log.append(row)
+            if row["copied_rows"] != len(transformers) * k:
+                raise AssertionError(f"update at row {start} copied {row['copied_rows']} rows, "
+                                     f"not its {len(transformers)} x {k}")
+            want = 0 if row["warming"] else n_layers
+            if row["forward_launches"] != want or row["backward_launches"]:
+                raise AssertionError(f"update at row {start}: {row}")
+
+        chunks = stream_chunks(n_rows)
+        for i, (start, k) in enumerate(chunks):
+            if i == STREAM_PROFILE_AT:
+                pending = iter(chunks[i:i + STREAM_PROFILED])
+                wall_ms, device_ms, kernels = profile_window(
+                    torch, lambda: push(*next(pending)), reps=STREAM_PROFILED, tries=1)
+                profiled = {"wall_ms": wall_ms, "device_ms": device_ms, "kernels": kernels,
+                            "idle_share": None if device_ms is None else 1 - device_ms / wall_ms}
+            elif not STREAM_PROFILE_AT < i < STREAM_PROFILE_AT + STREAM_PROFILED:
+                push(start, k)
+        stream_launches = dict(fa.kernel_launches)
+        server_root = base.split("/gordo/")[0]
+        with urllib.request.urlopen(f"{server_root}/healthz", timeout=60) as reply:
+            report["healthz_streaming"] = json.loads(reply.read())["streaming"]
+        if report["healthz_streaming"]["sessions"] != 1:
+            raise AssertionError(f"/healthz: {report['healthz_streaming']}")
+        diffs = {}
+        for name in transformers:
+            got = np.asarray(streamed[name], dtype=np.float64)
+            want = one_shot[name]
+            if got.shape != want.shape or got.shape[0] != n_rows - lookback + 1:
+                raise AssertionError(f"{name}: streamed {got.shape}, one-shot {want.shape}")
+            diffs[name] = float(np.abs(got - want).max() / np.abs(want).max())
+        timed = [r["seconds"] for j, r in enumerate(rows_log)
+                 if not r["warming"] and not STREAM_PROFILE_AT <= j < STREAM_PROFILE_AT
+                 + STREAM_PROFILED]
+        report.update({
+            "updates": len(rows_log), "rows": n_rows,
+            "update_median_ms": 1e3 * statistics.median(timed),
+            "update_p90_ms": 1e3 * float(np.percentile(timed, 90)),
+            "copied_rows_per_update": sorted({r["copied_rows"] for r in rows_log}),
+            "forward_launches_scored": sorted({r["forward_launches"] for r in rows_log
+                                               if not r["warming"]}),
+            "forward_launches_warming": [r["forward_launches"] for r in rows_log
+                                         if r["warming"]],
+            "max_rel_diff_vs_one_shot": max(diffs.values()),
+            "profiled": profiled, "kernel_launches": stream_launches,
+            "transfers": {f"{p}/{m}": n for (p, m), n in transfer.transfer_counts.items()},
+        })
+        if not report["max_rel_diff_vs_one_shot"] <= STREAM_RTOL:
+            raise AssertionError(f"streamed against one-shot: {diffs}")
+        request_json(f"{base}/stream/{sid}/close")
+
+        # the resume contract: a second session cut after STREAM_RESUME_AT updates
+        status, opened, _ = request_json(f"{base}/stream/open", {"machines": transformers})
+        sid = opened["session"]
+        resumed = {n: [] for n in transformers}
+        for start, k in chunks[:STREAM_RESUME_AT]:
+            status, body, _ = request_json(f"{base}/stream/{sid}/update", updates(start, k))
+            if status != 200:
+                raise AssertionError(f"the second session's update answered {status}: {body}")
+        cut = chunks[STREAM_RESUME_AT][0]
+        request_json(f"{base}/stream/{sid}/close")
+        status, gone, _ = request_json(f"{base}/stream/{sid}/update", updates(cut, STREAM_UPDATE))
+        if status != 409 or gone["stream_resume"]["reason"] != "unknown_session":
+            raise AssertionError(f"a closed session's update answered {status}: {gone}")
+        tail = cut - (lookback - 1)
+        status, opened, _ = request_json(f"{base}/stream/open", {"machines": {
+            n: {"resume": {"rows": data[n][0][tail:cut].tolist(), "seq": tail}}
+            for n in transformers}})
+        sid = opened["session"]
+        for start, k in chunks[STREAM_RESUME_AT:STREAM_RESUME_AT + STREAM_RESUME_MORE]:
+            status, body, _ = request_json(f"{base}/stream/{sid}/update", updates(start, k))
+            if status != 200:
+                raise AssertionError(f"the resumed session's update answered {status}: {body}")
+            for name in transformers:
+                resumed[name].extend(body["scores"][name]["rows"])
+        first = cut - lookback + 1
+        resume_diff = max(
+            float(np.abs(np.asarray(resumed[n]) - np.asarray(streamed[n][first:first + len(
+                resumed[n])])).max()) for n in transformers)
+        report["resume"] = {"cut_at_row": cut, "closed_answer": gone["stream_resume"],
+                            "outputs_after": len(resumed[transformers[0]]),
+                            "max_abs_diff_vs_unbroken": resume_diff}
+        if not resume_diff <= STREAM_RTOL * max(np.abs(one_shot[n]).max() for n in one_shot):
+            raise AssertionError(f"the resumed stream left the unbroken one: {report['resume']}")
+        request_json(f"{base}/stream/{sid}/close")
+
+    # the latest symlink rolled mid-stream
+    with tempfile.TemporaryDirectory() as revisions:
+        for rev in ("rev-a", "rev-b"):
+            for name in transformers:
+                shutil.copytree(os.path.join(collection, name), os.path.join(revisions, rev, name))
+        latest = os.path.join(revisions, "latest")
+        os.symlink(os.path.join(revisions, "rev-a"), latest)
+        rolled_app = build_app(latest, device=device, batch_wait_ms=0)
+        with http_server(latest, None, app=rolled_app) as base:
+            status, opened, _ = request_json(f"{base}/stream/open", {"machines": transformers})
+            sid = opened["session"]
+            for start, k in chunks[:2]:
+                request_json(f"{base}/stream/{sid}/update", updates(start, k))
+            swap = os.path.join(revisions, ".latest-swap")
+            os.symlink(os.path.join(revisions, "rev-b"), swap)
+            os.replace(swap, latest)
+            start, k = chunks[2]
+            status, rolled, _ = request_json(f"{base}/stream/{sid}/update", updates(start, k))
+        report["roll"] = {"status": status, "answer": rolled.get("stream_resume"),
+                          "revision": rolled.get("revision")}
+        if status != 409 or rolled["stream_resume"]["reason"] != "revision_rolled":
+            raise AssertionError(f"the update after the roll answered {status}: {rolled}")
+    log("streaming", json.dumps({k: v for k, v in report.items() if k != "kernel_launches"}))
+    log("streaming updates", json.dumps(rows_log))
+    return report
+
+
+def lake_stream_phase(torch, fa, profile: bool, collection: str):
+    """Phase 13: the lake build (13a) and the streaming sessions (13b)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as workdir:
+        report = {"lake_build": lake_build_check(root, workdir)}
+    report["stream"] = stream_check(torch, fa, collection)
+    return report
+
+
 def wide_row(check):
     """A head_dim 64/128/256 check row as the ``kernels`` line reports it."""
     keys = ("case", "shape", "dtype", "ms", "ms_timer", "bound_ms", "bound_by", "plain_ms",
@@ -3316,7 +3756,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as fleet_dir:
         fleet = timed("fleet_build", fleet_build_phase, args.profile, fleet_dir)
         fleet_serve = timed("fleet_serve", fleet_serve_phase, args.profile, fleet["collection"])
-    options = timed("build_options", build_options_phase, args.profile)
+        options = timed("build_options", build_options_phase, args.profile)
+        lake_stream = timed("lake_stream", lake_stream_phase, args.profile, fleet["collection"])
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -3334,6 +3775,8 @@ def main(argv=None) -> int:
              "build_options": options["kernel_launches"],
              "remat_served": options["remat_served"]["kernel_launches"],
              "remat_bf16": options["remat_bf16"]["kernel_launches"],
+             "lake_build": lake_stream["lake_build"]["kernel_launches"],
+             "stream": lake_stream["stream"]["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
     def entry(kernel, families, source, replaces, cases, rows):
@@ -3386,6 +3829,7 @@ def main(argv=None) -> int:
                  "default_pipeline": default_pipeline, "models": models,
                  "recurrent": recurrent, "project_build": project, "fleet_build": fleet,
                  "fleet_serve": fleet_serve, "build_options": options,
+                 "lake_stream": lake_stream,
                  **kernels},
                 fh,
                 indent=1,

@@ -12,18 +12,25 @@ is dropped; the periods are written to the dataset's metadata as the
 JAX dataset writes them (``{"median": [{"drop_start", "drop_end"}]}``,
 timestamps as ``str`` of an aware UTC datetime).
 
-``filter_method: "iforest"`` and ``"all"`` need an IsolationForest: they
-raise ``NotImplementedError`` until a numpy forest held to
-scikit-learn's on the same ``random_state`` is ported (ROADMAP.md queue
-1 item 7).
+``filter_method: "iforest"`` fits an isolation forest (``data/iforest.py``,
+scikit-learn's forest drawn exactly: 300 trees, ``max_samples`` the
+smaller of 1000 and the rows, ``contamination``, ``random_state`` 42)
+on the rows, or on their exponentially weighted means
+(``iforest_smooth``: pandas' ``ewm(halflife=6).mean()``), and flags the
+rows it predicts as outliers; each row's score, the negated decision
+function min-max scaled to [0, 1], goes with the flags. ``"all"`` runs
+both filters, and a row inside any method's period is dropped.
 """
 
 import logging
+import time
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 from gordo_tpu_torch.data.base import to_datetimes
+from gordo_tpu_torch.data.iforest import IsolationForest, ewm_mean
+from gordo_tpu_torch.models.preprocessing import MinMaxScaler
 from gordo_tpu_torch.utils.compat import frequency_to_ns
 
 logger = logging.getLogger(__name__)
@@ -66,16 +73,12 @@ class FilterPeriods:
             raise WrongFilterMethodType(
                 f"filter_method must be 'median', 'iforest' or 'all', got {filter_method!r}"
             )
-        if filter_method != "median":
-            raise NotImplementedError(
-                f"filter_method {filter_method!r} needs an IsolationForest, which is not "
-                "ported: it waits for a numpy forest held to scikit-learn's on the same "
-                "random_state (ROADMAP.md queue 1 item 7); 'median' is ported"
-            )
         self.granularity_ns = frequency_to_ns(granularity)
         self.filter_method = filter_method
         self._window = int(window)
         self._n_iqr = n_iqr
+        self._iforest_smooth = iforest_smooth
+        self._contamination = contamination
 
     def _rolling_median(self, values: np.ndarray) -> np.ndarray:
         """Each row's outlier flag."""
@@ -88,13 +91,44 @@ class FilterPeriods:
         with np.errstate(invalid="ignore"):
             return ((values < low) | (values > high)).any(axis=1)
 
+    def _train(self, values: np.ndarray) -> None:
+        t0 = time.perf_counter()
+        fit_data = ewm_mean(values, halflife=6) if self._iforest_smooth else values
+        self.isolationforest = IsolationForest(
+            n_estimators=300,
+            max_samples=min(1000, len(fit_data)),
+            contamination=self._contamination,
+            random_state=42,
+        )
+        self.model = self.isolationforest.fit(fit_data)
+        self.fit_seconds_ = time.perf_counter() - t0
+
+    def _predict(self, values: np.ndarray) -> np.ndarray:
+        """Each row's outlier flag; the rows' scaled scores are kept as
+        ``iforest_scores_``."""
+        t0 = time.perf_counter()
+        score = -self.model.decision_function(values)
+        self.iforest_scores_ = MinMaxScaler().fit(score.reshape(-1, 1)).transform(
+            score.reshape(-1, 1)).squeeze()
+        flags = self.model.predict(values) == -1
+        self.score_seconds_ = time.perf_counter() - t0
+        logger.info("Isolation forest: fit %.3f s (%d samples of %d rows), scored %d rows "
+                    "in %.3f s", self.fit_seconds_, self.model.max_samples_, len(values),
+                    len(values), self.score_seconds_)
+        return flags
+
     def filter_data(
         self, values: np.ndarray, index: np.ndarray
     ) -> Tuple[np.ndarray, Dict[str, List[dict]], Dict[str, np.ndarray]]:
         """(rows kept, drop periods by method, each method's flags) for a
         (rows, tags) table whose rows are at int64 UTC ns ``index``."""
         index = np.asarray(index, dtype=np.int64)
-        flags = {"median": self._rolling_median(values)}
+        flags = {}
+        if self.filter_method in ("median", "all"):
+            flags["median"] = self._rolling_median(values)
+        if self.filter_method in ("iforest", "all"):
+            self._train(values)
+            flags["iforest"] = self._predict(values)
         bounds = {method: _period_bounds(index[flag], self.granularity_ns)
                   for method, flag in flags.items()}
         periods = {

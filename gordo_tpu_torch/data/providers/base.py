@@ -14,8 +14,6 @@ from gordo_tpu_torch.data.sensor_tag import SensorTag
 
 #: providers of the JAX package the port does not have, and why
 NOT_PORTED = {
-    "LongFormatProvider": "it waits in ROADMAP.md queue 1 item 7",
-    "CompoundProvider": "it waits in ROADMAP.md queue 1 item 7",
     "ObjectStoreProvider": "it needs fsspec, which the card's machine lacks",
     "InfluxDataProvider": "it needs influxdb, which the card's machine lacks",
 }

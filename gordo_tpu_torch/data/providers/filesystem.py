@@ -9,12 +9,12 @@ and year, or one per tag, under a lake directory::
 (or the same directly under ``base_dir``). A file has the columns
 ``Time,Value[,Status]`` (any case; otherwise its first two columns are
 time and value), read with ``csv`` and numpy as pandas reads them: times
-ISO 8601 (naive ones are UTC), values that do not parse as numbers
-dropped with their rows, rows whose ``Status`` is not a good code (0 or
-192; or, with ``remove_status_codes``, rows whose status is listed)
-dropped. A tag's files are joined in year order, sorted stably by time,
-a repeated timestamp keeps its last row, and the rows in [start, end)
-are returned. Tags are read in a thread pool of ``threads``.
+ISO 8601 (naive ones are UTC), values as pandas' C parser reads them
+(values that are not numbers dropped with their rows), rows whose
+``Status`` is not a good code (0 or 192; or, with ``remove_status_codes``,
+rows whose status is listed) dropped. A tag's files are joined in year
+order, sorted stably by time, a repeated timestamp keeps its last row,
+and the rows in [start, end) are returned. Tags are read in a thread pool of ``threads``.
 
 The JAX provider prefers a ``.parquet`` file over a ``.csv`` one; the
 card's machine has no parquet reader (pyarrow), so a parquet file where
@@ -53,8 +53,77 @@ def _parse_time(text: str) -> int:
     return to_ns(stamp)
 
 
+#: 10**i as the C literals ``1e0`` .. ``1e308``
+_POWERS_OF_TEN = [float(f"1e{i}") for i in range(309)]
+
+
+def _xstrtod(text: str) -> Optional[float]:
+    """pandas' C parser's default float reading (``precise_xstrtod``):
+    up to 17 significant digits accumulated in float64, the rest counted
+    into the exponent, then one multiplication or division by a power of
+    ten. Not always the nearest float64 (``float`` is), so a CSV value
+    reads as pandas reads it. None for text it does not take."""
+    s = text.strip()
+    i, n = 0, len(s)
+    negative = False
+    if i < n and s[i] in "+-":
+        negative = s[i] == "-"
+        i += 1
+    number, exponent, n_digits = 0.0, 0, 0
+    while i < n and "0" <= s[i] <= "9":
+        if n_digits < 17:
+            number = number * 10.0 + (ord(s[i]) - 48)
+            n_digits += 1
+        else:
+            exponent += 1
+        i += 1
+    if i < n and s[i] == ".":
+        i += 1
+        n_decimals = 0
+        while n_digits < 17 and i < n and "0" <= s[i] <= "9":
+            number = number * 10.0 + (ord(s[i]) - 48)
+            n_digits += 1
+            n_decimals += 1
+            i += 1
+        while i < n and "0" <= s[i] <= "9":
+            i += 1
+        exponent -= n_decimals
+    if n_digits == 0:
+        return None
+    if negative:
+        number = -number
+    if i < n and s[i] in "eE":
+        j, exp_negative, power, exp_digits = i + 1, False, 0, 0
+        if j < n and s[j] in "+-":
+            exp_negative = s[j] == "-"
+            j += 1
+        while exp_digits < 17 and j < n and "0" <= s[j] <= "9":
+            power = power * 10 + ord(s[j]) - 48
+            exp_digits += 1
+            j += 1
+        if exp_digits:
+            exponent += -power if exp_negative else power
+            i = j
+    if i != n:
+        return None
+    if exponent > 308:
+        return -math.inf if negative else math.inf
+    if exponent > 0:
+        return number * _POWERS_OF_TEN[exponent]
+    if exponent < -308:
+        if exponent < -616:
+            return 0.0
+        return number / _POWERS_OF_TEN[-308 - exponent] / _POWERS_OF_TEN[308]
+    return number / _POWERS_OF_TEN[-exponent]
+
+
 def _number(text: str) -> float:
-    """pandas' ``to_numeric(errors="coerce")`` of one cell."""
+    """One cell as pandas' ``read_csv`` and ``to_numeric(errors="coerce")``
+    read it: its float parser's value, else what Python reads (``inf``,
+    ``nan``), else NaN."""
+    value = _xstrtod(text)
+    if value is not None:
+        return value
     try:
         return float(text)
     except (TypeError, ValueError):

@@ -25,6 +25,7 @@ from gordo_tpu_torch.machine.validators import (
     ValidModel,
     ValidUrlString,
 )
+from gordo_tpu_torch.reporters.base import ReporterException  # noqa: F401 (the CLI's exit 90)
 from gordo_tpu_torch.workflow.helpers import patch_dict
 
 logger = logging.getLogger(__name__)
@@ -39,12 +40,6 @@ _MACHINE_FIELDS = (
     "project_name",
     "evaluation",
 )
-
-
-class ReporterException(Exception):
-    """A configured build reporter failed. The port has no reporters, so
-    :meth:`Machine.report` raises this for a machine that configures
-    any."""
 
 
 def _as_dataset(value: Union[GordoBaseDataset, dict]) -> GordoBaseDataset:
@@ -153,17 +148,21 @@ class Machine:
         return hash((self.project_name, self.name))
 
     def report(self):
-        """Run the reporters configured under ``runtime.reporters``. None
-        is ported, so a machine that configures any raises
-        :class:`ReporterException` (the build command's exit code 90)."""
-        reporters = self.runtime.get("reporters") or []
-        if reporters:
-            raise ReporterException(
-                f"Build reporters are not ported ({len(reporters)} configured; the artifact "
-                "was written): the Postgres and MLflow reporters need psycopg2 and mlflow, "
-                "which the card's machine lacks, and SqliteReporter waits in ROADMAP.md "
-                "queue 1 item 7"
-            )
+        """Run every reporter configured under ``runtime.reporters``::
+
+            runtime:
+              reporters:
+                - gordo_tpu.reporters.postgres.SqliteReporter:
+                    path: /reports/machines.db
+
+        A reporter's failure raises :class:`ReporterException` (the build
+        command's exit code 90), after the artifact was written."""
+        from gordo_tpu_torch.reporters.base import BaseReporter
+
+        for config in self.runtime.get("reporters", []):
+            reporter = BaseReporter.from_dict(config)
+            logger.debug("Using reporter: %r", reporter)
+            reporter.report(self)
 
 
 class MachineEncoder(json.JSONEncoder):

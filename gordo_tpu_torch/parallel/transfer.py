@@ -1,7 +1,8 @@
 """
 Pipelined host-to-device transfer (the port of
-``gordo_tpu.parallel.transfer``) for the fleet builder's stacked data
-and the fleet trainer's per-chunk vectors.
+``gordo_tpu.parallel.transfer``) for the fleet builder's stacked data,
+the fleet trainer's per-chunk vectors and the rows of streamed updates
+(``streaming/window.py``).
 
 A transfer overlaps compute only if it is issued before the compute that
 hides it. :func:`prefetch_iter` walks a sequence of host arrays keeping
@@ -23,7 +24,8 @@ On the CPU a put is the plain ``.to(device)``.
 
 Transfers are counted by (plane, mode) in :data:`transfer_counts`
 (``prefetched`` = issued ahead of the consuming work, ``direct`` = on the
-critical path), the counter the JAX package keeps in its metrics
+critical path), and a stream's copied rows in :data:`transfer_rows`: the
+counter the JAX package keeps in its metrics
 registry; the port has no registry yet (ROADMAP.md queue 1 item 9), so
 the fleet builder's telemetry report reads this one. The knob is
 ``--prefetch-depth`` / ``GORDO_PREFETCH_DEPTH``, at most
@@ -45,6 +47,8 @@ MAX_PREFETCH_DEPTH = 8
 
 #: host-to-device transfers since the last reset, by (plane, mode)
 transfer_counts: Dict[Tuple[str, str], int] = {}
+#: rows those transfers carried, where the caller counts them (streams)
+transfer_rows: Dict[Tuple[str, str], int] = {}
 
 _side_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
@@ -66,16 +70,19 @@ def clip_depth(depth) -> int:
     return max(0, min(MAX_PREFETCH_DEPTH, int(depth)))
 
 
-def count_transfer(plane: str, mode: str, n: int = 1) -> None:
-    """Count ``n`` transfers of ``plane`` (build/train) issued in ``mode``
-    (prefetched/direct); the overlap ratio prefetched / total judges the
-    ``prefetch_depth`` knob."""
+def count_transfer(plane: str, mode: str, n: int = 1, rows: int = 0) -> None:
+    """Count ``n`` transfers of ``plane`` (build/train/stream) issued in
+    ``mode`` (prefetched/direct), carrying ``rows`` rows; the overlap
+    ratio prefetched / total judges the ``prefetch_depth`` knob."""
     if n > 0:
         transfer_counts[(plane, mode)] = transfer_counts.get((plane, mode), 0) + n
+    if rows > 0:
+        transfer_rows[(plane, mode)] = transfer_rows.get((plane, mode), 0) + rows
 
 
 def reset_transfer_counts() -> None:
     transfer_counts.clear()
+    transfer_rows.clear()
 
 
 class Staged:

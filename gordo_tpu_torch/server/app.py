@@ -5,7 +5,7 @@ JSON:
 
 - ``GET  /healthcheck``
 - ``GET  /healthz`` (readiness: 503 and ``Retry-After`` while a batcher
-  is saturated or shedding)
+  is saturated or shedding, or a stream session's backlog is saturated)
 - ``GET  /gordo/v0/<project>/models``
 - ``GET  /gordo/v0/<project>/revisions``
 - ``GET  /gordo/v0/<project>/expected-models``
@@ -20,12 +20,24 @@ JSON:
   with ``GORDO_BATCH_WAIT_MS`` above 0, concurrent fleet requests are
   coalesced (``server/batching.py``). Multipart (parquet) bodies are
   refused with a 400: the card's machine has no parquet reader.
+- ``POST /gordo/v0/<project>/stream/open``, ``…/stream/<id>/update`` and
+  ``…/stream/<id>/close``: streaming sessions (``streaming/``), whose
+  machines keep their window context on the device; an update's scores
+  come back inline, through the same stacked dispatch (and batcher) as
+  the fleet routes. A session the server no longer holds answers 409
+  with a ``stream_resume`` body (the client replays its window tail into
+  a new session); a saturated session or table answers 503 with
+  ``Retry-After``.
 
 Request and response bodies, status codes and error bodies are those of
 the JAX server; every JSON body and response carries the ``revision``
 served. The served revision is the collection directory's name, or the
 sibling directory that a ``?revision=`` query or a ``revision`` header
 names (:func:`resolve_sibling_revision`; a name it refuses gets 410).
+When the collection directory is a symlink (a ``latest`` link that a
+promotion re-points), it is resolved on every request: the first request
+after a re-point stops the batchers and expires the stream sessions of
+the other revisions (their next update answers 409 ``revision_rolled``).
 Models load on first use onto the app's device and stay there, keyed by
 their real directory. Machines that the revision's ``build_report.json``
 records as failed or quarantined answer 409 on every prediction route,
@@ -53,6 +65,7 @@ from gordo_tpu_torch.server import batching
 from gordo_tpu_torch.server import utils as server_utils
 from gordo_tpu_torch.server.catalog import ServingCatalog
 from gordo_tpu_torch.server.utils import ApiError
+from gordo_tpu_torch.streaming import session as stream_session
 
 logger = logging.getLogger(__name__)
 
@@ -63,12 +76,13 @@ EXPECTED_MODELS_ENV_VAR = "EXPECTED_MODELS"
 BATCH_WAIT_MS = ("GORDO_BATCH_WAIT_MS", float, 0.0)
 BATCH_QUEUE_LIMIT = ("GORDO_BATCH_QUEUE_LIMIT", int, 64)
 SCORER_CACHE_SIZE = ("GORDO_SCORER_CACHE_SIZE", int, 16)
-#: the streaming block of /healthz: the JAX server's session limits
-#: (streaming is not ported, so there are never sessions)
-STREAM_MAX_SESSIONS, STREAM_MAX_BACKLOG = 64, 8
+STREAM_MAX_SESSIONS = ("GORDO_STREAM_MAX_SESSIONS", int, stream_session.DEFAULT_MAX_SESSIONS)
+STREAM_MAX_BACKLOG = ("GORDO_STREAM_MAX_BACKLOG", int, stream_session.DEFAULT_MAX_BACKLOG)
+STREAM_IDLE_S = ("GORDO_STREAM_IDLE_S", float, stream_session.DEFAULT_IDLE_AFTER_S)
 
 _STATUS_TEXT = {
     200: "OK",
+    201: "CREATED",
     400: "BAD REQUEST",
     404: "NOT FOUND",
     405: "METHOD NOT ALLOWED",
@@ -93,6 +107,9 @@ _ROUTES = [
     ("GET", _MACHINE + r"/download-model", "download_model"),
     ("POST", _PROJECT + r"/prediction/fleet", "fleet_prediction"),
     ("POST", _PROJECT + r"/anomaly/prediction/fleet", "fleet_anomaly_prediction"),
+    ("POST", _PROJECT + r"/stream/open", "stream_open"),
+    ("POST", _PROJECT + r"/stream/(?P<stream_id>[^/]+)/update", "stream_update"),
+    ("POST", _PROJECT + r"/stream/(?P<stream_id>[^/]+)/close", "stream_close"),
     ("POST", _MACHINE + r"/prediction", "prediction"),
     ("POST", _MACHINE + r"/anomaly/prediction", "anomaly_prediction"),
 ]
@@ -179,10 +196,16 @@ class GordoApp:
         batch_wait_ms: Optional[float] = None,
         batch_queue_limit: Optional[int] = None,
         scorer_cache_size: Optional[int] = None,
+        stream_max_sessions: Optional[int] = None,
+        stream_max_backlog: Optional[int] = None,
+        stream_idle_s: Optional[float] = None,
     ):
         self.device = resolve_device(device)
+        # a directory, or a symlink resolved on every request
         self.collection_dir = collection_dir or os.environ[MODEL_COLLECTION_DIR_ENV_VAR]
-        self.revision = os.path.basename(os.path.normpath(self.collection_dir))
+        # the real directory the symlink pointed at when last resolved
+        self._served_latest: Optional[str] = None
+        self._served_latest_lock = threading.Lock()
         # keyed by (real directory of the revision, model name)
         self._models: Dict[Tuple[str, str], Any] = {}
         self._metadata: Dict[Tuple[str, str], dict] = {}
@@ -191,6 +214,10 @@ class GordoApp:
             scorer_cache_size=_setting(scorer_cache_size, SCORER_CACHE_SIZE),
             batch_wait_s=_setting(batch_wait_ms, BATCH_WAIT_MS) / 1000.0,
             batch_queue_limit=_setting(batch_queue_limit, BATCH_QUEUE_LIMIT),
+            stream_max_sessions=_setting(stream_max_sessions, STREAM_MAX_SESSIONS),
+            stream_max_backlog=_setting(stream_max_backlog, STREAM_MAX_BACKLOG),
+            stream_idle_after_s=_setting(stream_idle_s, STREAM_IDLE_S),
+            device=self.device,
         )
 
     # -- WSGI plumbing -----------------------------------------------------
@@ -225,14 +252,14 @@ class GordoApp:
         ``revision`` in ``query_string`` takes precedence over it."""
         read_body = Body(read_body, content_type)
         view, url_args = self._match(method, path)
-        served = Revision(self.revision, self.collection_dir)
+        served = current = self._current_revision()
         try:
             if view is None:
                 response = url_args  # the 404/405 reply
             else:
                 requested = parse_qs(query_string).get("revision", [None])[0] or revision
                 if requested:
-                    directory = resolve_sibling_revision(self.collection_dir, requested)
+                    directory = resolve_sibling_revision(current.directory, requested)
                     served = Revision(requested, directory)
                 if served.directory is None:
                     response = _json_response(
@@ -253,6 +280,21 @@ class GordoApp:
                 503,
             )
             response.headers["Retry-After"] = str(exc.retry_after_s)
+        except stream_session.StreamShed as exc:
+            response = _json_response({"error": str(exc), "retry_after_s": exc.retry_after_s},
+                                      503)
+            response.headers["Retry-After"] = str(exc.retry_after_s)
+        except stream_session.StreamGone as exc:
+            # the reconnect contract: the client replays its window tail
+            response = _json_response(
+                {
+                    "error": str(exc),
+                    "stream_resume": {"reason": exc.reason, "machines": exc.machines},
+                    "transient": True,
+                    "retry_after_s": 1,
+                },
+                409,
+            )
         except Exception:
             logger.error("Unhandled server error:\n%s", traceback.format_exc())
             response = _json_response(
@@ -265,6 +307,40 @@ class GordoApp:
         if response.payload is not None:
             response.body = json.dumps(response.payload, default=str).encode()
         return response
+
+    def _current_revision(self) -> Revision:
+        """The revision served unless a request names another: the
+        collection directory, or the directory its symlink points at now
+        (the trailing separator is stripped for the link check only)."""
+        directory = self.collection_dir
+        if os.path.islink(directory.rstrip(os.sep) or os.sep):
+            directory = os.path.realpath(directory)
+            self._note_revision_roll(directory)
+        return Revision(os.path.basename(os.path.normpath(directory)), directory)
+
+    def _note_revision_roll(self, latest_real: str) -> None:
+        """On the first request after the symlink was re-pointed, stop the
+        batchers and expire the stream sessions of other revisions (model
+        and scorer caches are keyed by the real directory, so the old
+        entries only age out)."""
+        with self._served_latest_lock:
+            previous = self._served_latest
+            if previous == latest_real:
+                return
+            # a request that resolved the link before a flip and gets here
+            # after a later one noted the new target is dropped: the served
+            # revision only moves forward
+            if previous is not None and os.path.realpath(self.collection_dir) != latest_real:
+                return
+            self._served_latest = latest_real
+        if previous is None:
+            return  # the first request of the process: nothing rolled
+        n_stopped = self.catalog.stop_stale_batchers(latest_real)
+        n_streams = self.catalog.expire_stale_streams(latest_real)
+        logger.info(
+            "Revision rolled: now serving %s as latest (was %s); %d stale batcher(s) stopped, "
+            "%d stream session(s) expired", latest_real, previous, n_stopped, n_streams,
+        )
 
     @staticmethod
     def _match(method: str, path: str) -> Tuple[Optional[str], Any]:
@@ -323,13 +399,17 @@ class GordoApp:
         targets = tag_names(dataset.get("target_tag_list") or [])
         return tags, targets or tags
 
+    @staticmethod
+    def _json_body(read_body):
+        """The request's JSON body, or None when it is not JSON."""
+        try:
+            return json.loads(read_body() or b"null")
+        except ValueError:
+            return None
+
     def _extract(self, read_body, metadata: dict):
         tags, target_tags = self._tags(metadata)
-        try:
-            body = json.loads(read_body() or b"null")
-        except ValueError:
-            body = None
-        X, y = server_utils.extract_X_y(body, tags, target_tags)
+        X, y = server_utils.extract_X_y(self._json_body(read_body), tags, target_tags)
         return tags, target_tags, X, y
 
     # -- casualties --------------------------------------------------------
@@ -355,9 +435,11 @@ class GordoApp:
     def view_healthz(self, served: Revision, read_body) -> Response:
         """Readiness, the JAX server's body: 200 while the server can take
         work; 503 with ``Retry-After`` while a batcher is saturated or has
-        just shed."""
+        just shed, or a stream session's backlog is saturated."""
         stats = self.catalog.batcher_stats()
         overloaded = [s for s in stats if s["saturated"] or s["shedding"]]
+        streams = self.catalog.stream_stats()
+        overloaded += [s for s in streams if s["saturated"]]
         payload = {
             "status": "overloaded" if overloaded else "ok",
             "batching": {
@@ -370,11 +452,11 @@ class GordoApp:
                 "shedding": any(s["shedding"] for s in stats),
             },
             "streaming": {
-                "sessions": 0,
-                "max_sessions": STREAM_MAX_SESSIONS,
-                "max_backlog": STREAM_MAX_BACKLOG,
-                "backlog": 0,
-                "saturated_sessions": 0,
+                "sessions": len(streams),
+                "max_sessions": self.catalog.streams.max_sessions,
+                "max_backlog": self.catalog.streams.max_backlog,
+                "backlog": sum(s["pending"] for s in streams),
+                "saturated_sessions": sum(s["saturated"] for s in streams),
             },
         }
         if not overloaded:
@@ -394,7 +476,9 @@ class GordoApp:
 
     def view_revisions(self, served: Revision, read_body, gordo_project: str) -> Response:
         """The sibling real directories of the served revision: no dot
-        entries, no symlinks, no files. ``latest`` is the app's own."""
+        entries, no symlinks, no files. ``latest`` is the revision the app
+        serves when none is named."""
+        latest = self._current_revision().name
         parent = os.path.join(served.directory, "..")
         try:
             available = sorted(
@@ -405,8 +489,8 @@ class GordoApp:
                 and not os.path.islink(os.path.join(parent, name))
             )
         except FileNotFoundError:
-            available = [self.revision]
-        return _json_response({"latest": self.revision, "available-revisions": available})
+            available = [latest]
+        return _json_response({"latest": latest, "available-revisions": available})
 
     def view_expected_models(self, served: Revision, read_body, gordo_project: str) -> Response:
         """``$EXPECTED_MODELS`` as a JSON list; ``[]`` when it is unset."""
@@ -519,10 +603,7 @@ class GordoApp:
                 },
                 400,
             )
-        try:
-            body = json.loads(read_body() or b"null")
-        except ValueError:
-            body = None
+        body = GordoApp._json_body(read_body)
         machines = body.get("machines") if isinstance(body, dict) else None
         return machines if isinstance(machines, dict) and machines else None
 
@@ -699,6 +780,177 @@ class GordoApp:
             {"data": data, "time-seconds": f"{timeit.default_timer() - start:.4f}"}
         )
 
+    # -- streaming sessions --------------------------------------------------
+    @staticmethod
+    def _stream_machines_spec(body) -> Optional[Dict[str, dict]]:
+        """An open body's ``machines`` as ``{name: spec}`` (a list means
+        empty specs; the mapping form carries ``resume`` blocks), or None
+        when it is missing, empty or malformed."""
+        spec = body.get("machines") if isinstance(body, dict) else None
+        if isinstance(spec, list) and spec:
+            return {str(name): {} for name in spec}
+        if isinstance(spec, dict) and spec:
+            normalized = {}
+            for name, entry in spec.items():
+                if entry is not None and not isinstance(entry, dict):
+                    return None
+                entry = entry or {}
+                if entry.get("resume") is not None and not isinstance(entry["resume"], dict):
+                    return None
+                normalized[str(name)] = entry
+            return normalized
+        return None
+
+    @staticmethod
+    def _stream_transform(steps: list) -> Callable[[np.ndarray], np.ndarray]:
+        """A machine's host prefix transformers as the fleet routes apply
+        them: raw rows as float64, each step, float32 last (the steps are
+        row-wise, so k rows alone transform as inside a larger frame)."""
+
+        def transform(rows: np.ndarray) -> np.ndarray:
+            out = np.asarray(rows, dtype="float64")
+            for step in steps:
+                out = step.transform(out)
+            return np.asarray(out, dtype="float32")
+
+        return transform
+
+    def view_stream_open(self, served: Revision, read_body, gordo_project: str) -> Response:
+        """Open a session over machines that stay resident on the device::
+
+            {"machines": ["m1", "m2"]}
+            {"machines": {"m1": {"resume": {"rows": [[...]], "seq": 40}}}}
+
+        A ``resume`` block is the reconnect contract: ``rows`` are the
+        client's replayed window tail (raw), ``seq`` the first one's index;
+        they rebuild the resident context and are never scored again. 201
+        with the session's id and each machine's cursor and geometry."""
+        spec = self._stream_machines_spec(self._json_body(read_body))
+        if spec is None:
+            return _json_response(
+                {"error": "Body must carry a non-empty 'machines' list or mapping."}, 400
+            )
+        names = tuple(sorted(spec))
+        self._refuse_unavailable(served, names)
+        models = {name: self._get_model(served, name) for name in names}
+        _, (scorer, prefixes, fallback) = self._fleet_scorer(served)
+        unstackable = [n for n in names if scorer is None or n in fallback
+                       or n not in scorer.names]
+        if unstackable:
+            return _json_response(
+                {
+                    "message": "Machine(s) cannot stream (no stacked estimator to keep a "
+                    "device-resident window for): " + ", ".join(unstackable)
+                },
+                422,
+            )
+        streams: Dict[str, stream_session.MachineStream] = {}
+        for name in names:
+            geometry = scorer.machine_geometry(name)
+            transform = self._stream_transform(prefixes.get(name, []))
+            stream = stream_session.MachineStream(
+                name,
+                lookback=geometry["lookback"],
+                lookahead=geometry["lookahead"],
+                n_features=geometry["n_features"],
+                transform=transform,
+                scaler=getattr(models[name], "scaler", None),
+                threshold=getattr(models[name], "aggregate_threshold_", None),
+                device=self.device,
+            )
+            resume = spec[name].get("resume")
+            if resume:
+                rows = np.asarray(resume.get("rows") or [], dtype="float64")
+                if len(rows) and rows.shape[-1] != geometry["n_features"]:
+                    return _json_response(
+                        {
+                            "error": f"Machine {name!r} resume rows carry {rows.shape[-1]} "
+                            f"feature column(s), expected {geometry['n_features']}"
+                        },
+                        400,
+                    )
+                stream.window.resume(
+                    transform(rows) if len(rows) else rows.reshape(0, geometry["n_features"]),
+                    int(resume.get("seq", 0)),
+                )
+            streams[name] = stream
+        session = stream_session.StreamSession(
+            stream_session.StreamSession.new_id(),
+            os.path.realpath(served.directory),
+            served.name,
+            streams,
+            max_backlog=self.catalog.streams.max_backlog,
+        )
+        self.catalog.streams.open(session)  # StreamShed: 503
+        return _json_response(
+            {
+                "session": session.id,
+                "machines": {
+                    name: {
+                        "seq": streams[name].window.seq,
+                        "tail_rows": streams[name].window.context_rows,
+                        "lookback": streams[name].window.lookback,
+                        "lookahead": streams[name].window.lookahead,
+                        "monitored": streams[name].monitorable,
+                    }
+                    for name in names
+                },
+            },
+            201,
+        )
+
+    def view_stream_update(
+        self, served: Revision, read_body, gordo_project: str, stream_id: str
+    ) -> Response:
+        """Push one update and score it::
+
+            {"updates": {"m1": {"rows": [[...]], "seq": 40[, "y": [[...]]]}}}
+
+        Each machine's outputs for its new rows come back inline (the
+        reply is the stream's backpressure). A session the server no
+        longer holds, a revision roll and a sequence gap answer the 409
+        resume contract; a saturated backlog 503 with ``Retry-After``."""
+        session = self.catalog.streams.require(stream_id)
+        if session.collection_dir != os.path.realpath(served.directory):
+            # the served revision moved: never score old windows with new weights
+            self.catalog.streams.close(stream_id)
+            raise stream_session.StreamGone("revision_rolled", session.names)
+        body = self._json_body(read_body)
+        updates = body.get("updates") if isinstance(body, dict) else None
+        if not isinstance(updates, dict) or not updates:
+            return _json_response({"error": "Body must carry a non-empty 'updates' mapping."},
+                                  400)
+        for name, payload in updates.items():
+            if not isinstance(payload, dict) or "rows" not in payload:
+                return _json_response(
+                    {"error": f"Update for machine {name!r} must carry 'rows'."}, 400
+                )
+        session.admit()  # StreamShed: 503
+        try:
+            servable, (scorer, _, _) = self._fleet_scorer(served)
+            try:
+                results = session.apply_update(
+                    updates,
+                    dispatch=lambda inputs: self._fleet_predict(served, servable, scorer, inputs),
+                )
+            except (KeyError, ValueError) as err:
+                return _json_response({"error": str(err)}, 400)
+            except stream_session.StreamGone:
+                # a gap ends this session: drop it now, so it neither holds
+                # its windows nor sheds the reconnect that replaces it
+                self.catalog.streams.close(stream_id)
+                raise
+        finally:
+            session.release()
+        return _json_response({"session": session.id, "scores": results})
+
+    def view_stream_close(
+        self, served: Revision, read_body, gordo_project: str, stream_id: str
+    ) -> Response:
+        """Close a session; closing an unknown or expired one succeeds too."""
+        session = self.catalog.streams.close(stream_id)
+        return _json_response({"session": stream_id, "closed": session is not None})
+
 
 def _read_body(environ) -> bytes:
     try:
@@ -712,7 +964,10 @@ def build_app(collection_dir: Optional[str] = None, device: DeviceLike = None,
               **settings) -> GordoApp:
     """The WSGI app over ``collection_dir`` (default: ``$MODEL_COLLECTION_DIR``)
     on ``device`` (the card unless ``"cpu"`` is asked for); ``settings``:
-    ``batch_wait_ms``, ``batch_queue_limit``, ``scorer_cache_size`` (else
-    ``GORDO_BATCH_WAIT_MS``, ``GORDO_BATCH_QUEUE_LIMIT``,
-    ``GORDO_SCORER_CACHE_SIZE``, else 0, 64 and 16)."""
+    ``batch_wait_ms``, ``batch_queue_limit``, ``scorer_cache_size``,
+    ``stream_max_sessions``, ``stream_max_backlog``, ``stream_idle_s``
+    (else ``GORDO_BATCH_WAIT_MS``, ``GORDO_BATCH_QUEUE_LIMIT``,
+    ``GORDO_SCORER_CACHE_SIZE``, ``GORDO_STREAM_MAX_SESSIONS``,
+    ``GORDO_STREAM_MAX_BACKLOG``, ``GORDO_STREAM_IDLE_S``, else 0, 64, 16,
+    64, 8 and 30)."""
     return GordoApp(collection_dir, device, **settings)

@@ -10,11 +10,14 @@ any number of revision directories, shared by every request thread.
   over a revision's servable machines, whatever subset a request names,
   so each group's weights are stacked once;
 - the request batchers, one for each scorer key, rebuilt when the key's
-  scorer changed and stopped when evicted.
+  scorer changed and stopped when evicted, or when the ``latest`` symlink
+  rolled to another revision (:meth:`ServingCatalog.stop_stale_batchers`);
+- the stream sessions (``streaming/session.py``), expired on such a roll
+  (:meth:`ServingCatalog.expire_stale_streams`).
 
 Locks are held for dictionary reads and writes only, never while a scorer
-is built. Left out: shards, AOT program stores and streaming sessions
-(ROADMAP.md queue 1 items 8 and 9).
+is built. Left out: shards and AOT program stores (ROADMAP.md queue 1
+items 8 and 9).
 """
 
 import json
@@ -23,7 +26,9 @@ import os
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from gordo_tpu_torch.device import DeviceLike
 from gordo_tpu_torch.server import batching
+from gordo_tpu_torch.streaming import session as stream_session
 
 logger = logging.getLogger(__name__)
 
@@ -42,10 +47,20 @@ def _evict_lru(cache: Dict, size: int, on_evict: Optional[Callable] = None) -> N
 
 class ServingCatalog:
     def __init__(self, scorer_cache_size: int = 16, batch_wait_s: float = 0.0,
-                 batch_queue_limit: int = 64):
+                 batch_queue_limit: int = 64,
+                 stream_max_sessions: int = stream_session.DEFAULT_MAX_SESSIONS,
+                 stream_max_backlog: int = stream_session.DEFAULT_MAX_BACKLOG,
+                 stream_idle_after_s: float = stream_session.DEFAULT_IDLE_AFTER_S,
+                 device: DeviceLike = "cpu"):
         self.scorer_cache_size = int(scorer_cache_size)
         self.batch_wait_s = float(batch_wait_s)
         self.batch_queue_limit = int(batch_queue_limit)
+        # stream windows live on the serving device, whose free memory
+        # governs how many sessions the table keeps
+        self.streams = stream_session.SessionManager(
+            max_sessions=stream_max_sessions, max_backlog=stream_max_backlog,
+            idle_after_s=stream_idle_after_s, device=device,
+        )
         # (realpath(revision dir), names) -> (scorer, prefixes, fallback)
         self._fleet_scorers: Dict[tuple, tuple] = {}
         self._fleet_scorers_lock = threading.Lock()
@@ -170,6 +185,27 @@ class ServingCatalog:
         with self._batchers_lock:
             batchers = list(self._batchers.values())
         return [b.stats() for b in batchers]
+
+    def stop_stale_batchers(self, keep_collection_dir: str) -> int:
+        """Stop and drop every batcher of another revision than
+        ``keep_collection_dir`` (a real path): the ``latest`` symlink
+        rolled. How many were stopped."""
+        with self._batchers_lock:
+            stale = [self._batchers.pop(key) for key in list(self._batchers)
+                     if key[0] != keep_collection_dir]
+        for batcher in stale:
+            batcher.stop()
+        return len(stale)
+
+    # -- stream sessions -----------------------------------------------------
+    def stream_stats(self) -> List[dict]:
+        return self.streams.stats()
+
+    def expire_stale_streams(self, keep_collection_dir: str) -> int:
+        """Expire every stream session of another revision: its next
+        update answers the resume contract, and the client opens a new
+        session on the revision now served."""
+        return self.streams.expire_stale(keep_collection_dir)
 
     def stop(self) -> None:
         """Stop every batcher (the app is shutting down)."""

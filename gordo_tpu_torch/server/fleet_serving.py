@@ -23,9 +23,13 @@ forward. Windowed models get raw rows and gather their windows on the
 device. Host prefix transformers (scalers) run per machine before this,
 in the server.
 
+A stream's update (``streaming/window.py``) is an entry like a one-shot
+request's array: its context stays on the device and only its new rows
+are copied, so a batch holding one is assembled on the device.
+
 Left out, because the TPU-era scorer does them for XLA: AOT executables
-and their program store, buffer donation and stream window updates
-(ROADMAP.md queue 1 items 8 and 9), and the metrics registry.
+and their program store and buffer donation (ROADMAP.md queue 1 item 9),
+and the metrics registry.
 """
 
 import threading
@@ -33,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call, vmap
 
@@ -229,24 +234,44 @@ class FleetScorer:
                     out[ridx][name] = value
         return out
 
-    def _prepare(self, group: dict, entries) -> Tuple[List[str], np.ndarray, List[int]]:
+    def _prepare(self, group: dict, entries):
         """(names, (entries, padded rows, group width) float32 batch,
-        output rows of each entry)."""
+        output rows of each entry, whether the batch is on the device).
+        An entry is a host array (a one-shot request) or a
+        :class:`~gordo_tpu_torch.streaming.window.WindowUpdate` (a stream:
+        its resident context and new rows, already on the device). With
+        no stream entry the batch is assembled on the host and copied
+        once; with one it is assembled on the device, each host entry
+        copied there (padding and stacking move bytes, so the batch holds
+        the same values either way)."""
+        from gordo_tpu_torch.streaming.window import WindowUpdate
+
         names = [name for _, name, _ in entries]
         lb, la, width = group["lookback"], group["lookahead"], group["n_features"]
+        on_device = any(isinstance(X, WindowUpdate) for _, _, X in entries)
         prepared = []
         for name, (_, _, X) in zip(names, entries):
             # the machine's real width: zero columns stand only for the
             # pad a padded bucket trained with
-            x = np.asarray(X, dtype=np.float32)
             n_real = group["in_cols"][name]
-            if x.ndim != 2 or x.shape[-1] != n_real:
-                raise ValueError(
-                    f"Machine {name!r} expects {n_real} feature column(s), got "
-                    f"{x.shape[-1] if x.ndim else 0}"
-                )
+            if isinstance(X, WindowUpdate):
+                if X.width != n_real:
+                    raise ValueError(
+                        f"Machine {name!r} expects {n_real} feature column(s), got {X.width}"
+                    )
+                x = X.materialize()  # the update's only host-to-device copy
+            else:
+                x = np.asarray(X, dtype=np.float32)
+                if x.ndim != 2 or x.shape[-1] != n_real:
+                    raise ValueError(
+                        f"Machine {name!r} expects {n_real} feature column(s), got "
+                        f"{x.shape[-1] if x.ndim else 0}"
+                    )
+                if on_device:
+                    x = torch.from_numpy(np.ascontiguousarray(x)).to(group["device"])
             if n_real < width:
-                x = np.pad(x, [(0, 0), (0, width - n_real)])
+                x = (F.pad(x, (0, width - n_real)) if on_device
+                     else np.pad(x, [(0, 0), (0, width - n_real)]))
             prepared.append(x)
         if group["windowed"]:
             for name, x in zip(names, prepared):
@@ -259,8 +284,11 @@ class FleetScorer:
         else:
             n_rows = [len(x) for x in prepared]
         max_rows = pow2_bucket(max(len(x) for x in prepared))
-        batch = np.stack([np.pad(x, [(0, max_rows - len(x)), (0, 0)]) for x in prepared])
-        return names, batch, n_rows
+        if on_device:
+            batch = torch.stack([F.pad(x, (0, 0, 0, max_rows - len(x))) for x in prepared])
+        else:
+            batch = np.stack([np.pad(x, [(0, max_rows - len(x)), (0, 0)]) for x in prepared])
+        return names, batch, n_rows, on_device
 
     def _select(self, group: dict, names: List[str]) -> Tuple[Tensors, List[int], int]:
         """(weights, the machine-axis row of each entry, machine bucket):
@@ -298,23 +326,32 @@ class FleetScorer:
 
     def _predict_entries(self, group: dict, entries) -> List[np.ndarray]:
         """One stacked forward for ``entries`` [(request index, name, X)]
-        of one group; outputs in entry order."""
-        names, batch, n_rows = self._prepare(group, entries)
+        of one group; outputs in entry order. A batch with stream entries
+        is cut on the device, so each entry's copy to the host is its own
+        outputs, not the padded batch."""
+        names, batch, n_rows, on_device = self._prepare(group, entries)
         with group["lock"]:
             params, rows, m = self._select(group, names)
-            full = np.zeros((m,) + batch.shape[1:], dtype=np.float32)
-            full[rows] = batch
-            outputs = self._forward(group, params, torch.from_numpy(full).to(group["device"]))
-        return [
-            outputs[row, : n_rows[i], : group["out_cols"][name]]
-            for i, (row, name) in enumerate(zip(rows, names))
-        ]
+            if on_device:
+                full = batch.new_zeros((m,) + tuple(batch.shape[1:]))
+                full[rows] = batch
+            else:
+                full = np.zeros((m,) + batch.shape[1:], dtype=np.float32)
+                full[rows] = batch
+                full = torch.from_numpy(full).to(group["device"])
+            outputs = self._forward(group, params, full)
+        cuts = [(row, n_rows[i], group["out_cols"][name])
+                for i, (row, name) in enumerate(zip(rows, names))]
+        if on_device:
+            return [outputs[row, :n, :cols].cpu().numpy() for row, n, cols in cuts]
+        outputs = outputs.cpu().numpy()
+        return [outputs[row, :n, :cols] for row, n, cols in cuts]
 
     @staticmethod
     @torch.inference_mode()
-    def _forward(group: dict, params: Tensors, batch: torch.Tensor) -> np.ndarray:
+    def _forward(group: dict, params: Tensors, batch: torch.Tensor) -> torch.Tensor:
         """The vmapped forward of (M, rows, width) inputs on the group's
-        device: (M, outputs, n_features_out) float32 on the host."""
+        device: (M, outputs, n_features_out) float32 there."""
         module = group["module"]
         bf16 = group["precision"] == "bf16"
         if group["windowed"]:
@@ -327,7 +364,7 @@ class FleetScorer:
                 x = cast(x, torch.bfloat16)
             return cast(first_output(functional_call(module, p, (x,))), torch.float32)
 
-        return vmap(one)(params, batch).cpu().numpy()
+        return vmap(one)(params, batch)
 
 
 def fleet_scorer_from_models(

@@ -328,9 +328,7 @@ def test_insufficient_data_raises_like_jax():
     "change,match",
     [
         ({"aggregation_methods": "var"}, "ROADMAP.md queue 1 item 7"),
-        ({"filter_periods": {"filter_method": "iforest"}}, "IsolationForest"),
-        ({"data_provider": {"type": "LongFormatProvider", "base_dir": "/lake"}},
-         "ROADMAP.md queue 1 item 7"),
+        ({"data_provider": {"type": "ObjectStoreProvider"}}, "fsspec"),
         ({"data_provider": {"type": "InfluxDataProvider"}}, "influxdb"),
     ],
 )

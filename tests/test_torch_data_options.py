@@ -169,8 +169,21 @@ def test_median_period_filter_matches_jax(window, n_iqr):
 
 @pytest.mark.parametrize("method", ["iforest", "all"])
 def test_isolation_forest_filter_names_its_roadmap_item(method):
-    with pytest.raises(NotImplementedError, match="IsolationForest.*ROADMAP.md queue 1 item 7"):
-        FilterPeriods(granularity="10T", filter_method=method)
+    """The forest methods are ported (they once raised naming their
+    roadmap item): flags, drop periods and kept rows equal to JAX's, the
+    scaled scores within 1e-12."""
+    frame = _noisy_frame()
+    jax_filter = JaxFilterPeriods(granularity="10T", filter_method=method)
+    want_data, want_periods, want_pred = jax_filter.filter_data(frame)
+    port_filter = FilterPeriods(granularity="10T", filter_method=method)
+    keep, periods, flags = port_filter.filter_data(frame.to_numpy(), _ns(frame.index))
+    assert set(flags) == set(want_pred)
+    for name, flag in flags.items():
+        np.testing.assert_array_equal(flag, want_pred[name]["pred"].to_numpy() == -1)
+    np.testing.assert_allclose(port_filter.iforest_scores_, want_pred["iforest"]["score"],
+                               rtol=0, atol=1e-12)
+    assert periods == want_periods and periods["iforest"]
+    np.testing.assert_array_equal(_ns(frame.index[keep]), _ns(want_data.index))
 
 
 def test_dataset_period_filter_matches_jax():

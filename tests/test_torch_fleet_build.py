@@ -55,6 +55,7 @@ from gordo_tpu_torch.workflow.workflow_generator import get_dict_from_yaml
 from gordo_tpu_torch.workflow.yaml_reader import safe_load
 from tests.conftest import CONFIG_STR, GORDO_SINGLE_TARGET
 from tests.test_torch_cross_validate import _jax_initial_state as _transformer_initial_state
+from tests.test_torch_fleet_env import clear_fleet_env, fleet_env  # noqa: F401
 from tests.test_torch_pipeline import _jax_initial_state as _feedforward_initial_state
 
 torch.set_num_threads(1)
@@ -164,6 +165,7 @@ def fleet_pair(tmp_path_factory):
     out = tmp_path_factory.mktemp("fleet") / "collection"
     text = open(FLEET_YAML).read()
     with pytest.MonkeyPatch.context() as mp:
+        clear_fleet_env(mp)
         mp.setattr(AutoEncoder, "_initial_state", _feedforward_initial_state)
         mp.setattr(FleetTrainer, "_shuffle_noise", _jax_shuffle_noise)
         code = cli.main(["build-fleet", text, str(out), "--device", "cpu"])
@@ -211,7 +213,8 @@ def _failing_fetch(original):
     return fetch
 
 
-def test_on_error_skip_matches_jax(tmp_path, monkeypatch, capsys):
+def test_on_error_skip_matches_jax(tmp_path, fleet_env, capsys):
+    monkeypatch = fleet_env
     """One machine's fetch fails: both commands exit 0, print the same
     FAILED line and record the same casualty in build_report.json."""
     text = open(FLEET_YAML).read()
@@ -238,7 +241,8 @@ def test_on_error_skip_matches_jax(tmp_path, monkeypatch, capsys):
         "example-compressor-0", "example-compressor-1", "example-pump-0"]
 
 
-def test_on_error_raise_exits_with_the_failure(tmp_path, monkeypatch):
+def test_on_error_raise_exits_with_the_failure(tmp_path, fleet_env):
+    monkeypatch = fleet_env
     text = open(FLEET_YAML).read()
     monkeypatch.setattr(FleetModelBuilder, "_fetch_one", _failing_fetch(FleetModelBuilder._fetch_one))
     code = cli.main(["build-fleet", text, str(tmp_path), "--device", "cpu", "--fetch-retries", "0"])
@@ -251,7 +255,7 @@ def test_on_error_raise_exits_with_the_failure(tmp_path, monkeypatch):
      ("--ledger-status", "x"), ("--resume", "1"), ("--aot-cache", "1"),
      ("--model-register-dir", "x")],
 )
-def test_unported_options_name_their_roadmap_item(flag, value, capsys):
+def test_unported_options_name_their_roadmap_item(flag, value, capsys, fleet_env):
     with pytest.raises(SystemExit) as exit_info:
         cli.main(["build-fleet", "[]", "/nonexistent", "--device", "cpu", flag, value])
     assert exit_info.value.code == 2
@@ -259,7 +263,8 @@ def test_unported_options_name_their_roadmap_item(flag, value, capsys):
     assert f"build-fleet {flag} is not ported yet (ROADMAP.md queue 1 item" in err
 
 
-def test_options_that_ask_for_what_the_port_does_pass(monkeypatch):
+def test_options_that_ask_for_what_the_port_does_pass(fleet_env):
+    monkeypatch = fleet_env
     parser = cli._parser()
     args = parser.parse_args(["build-fleet", "[]", "/x", "--precision", "float32",
                               "--prefetch-depth", "0", "--workers", "1", "--no-resume",

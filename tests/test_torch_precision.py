@@ -43,6 +43,7 @@ from gordo_tpu_torch.parallel.precision import (
     resolve_precision,
 )
 from gordo_tpu_torch.server.fleet_serving import FleetScorer
+from tests.test_torch_fleet_env import fleet_env  # noqa: F401
 from tests.test_torch_fleet_serving import jax_feedforward, jax_transformers, to_port
 
 torch.set_num_threads(1)
@@ -272,7 +273,7 @@ def test_default_build_runs_no_calibration_and_writes_the_same_artifacts(tmp_pat
             serializer.load(tmp_path / "default" / name, device="cpu")), "precision_")
 
 
-def test_report_precision_block_and_artifacts(tmp_path, jax_auto_build):
+def test_report_precision_block_and_artifacts(tmp_path, jax_auto_build, fleet_env):
     """``--precision auto`` through the CLI: the report's block has the
     JAX report's keys, and each artifact loads back with its decision."""
     text = json.dumps(CALIBRATION_CONFIGS[:3])
@@ -308,7 +309,7 @@ def test_bf16_mode_serves_bf16_and_logs_a_breach(caplog):
     assert {r["precision"] for r in auto.precision_decisions_.values()} == {"float32"}
 
 
-def test_build_fleet_precision_flags(capsys):
+def test_build_fleet_precision_flags(capsys, fleet_env):
     parser = cli._parser()
     args = parser.parse_args(["build-fleet", "[]", "/x", "--precision", "bf16",
                               "--precision-tolerance", "0.1"])

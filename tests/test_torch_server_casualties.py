@@ -20,6 +20,7 @@ from gordo_tpu.server import utils as jax_server_utils
 from gordo_tpu_torch.builder.fleet_build import FleetModelBuilder
 from gordo_tpu_torch.cli import cli
 from gordo_tpu_torch.server.app import build_app
+from tests.test_torch_fleet_env import clear_fleet_env
 
 PROJECT = "example-fleet"
 FAILED, QUARANTINED = "example-pump-1", "example-compressor-1"
@@ -43,6 +44,7 @@ def _casualty_fetch(original):
 def casualty_clients(tmp_path_factory):
     revision = tmp_path_factory.mktemp("casualties") / "1700000000000"
     with pytest.MonkeyPatch.context() as mp:
+        clear_fleet_env(mp)
         mp.setattr(FleetModelBuilder, "_fetch_one", _casualty_fetch(FleetModelBuilder._fetch_one))
         code = cli.main(["build-fleet", open("examples/machines_fleet.yaml").read(),
                          str(revision), "--device", "cpu", "--on-error", "skip",

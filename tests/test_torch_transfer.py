@@ -22,6 +22,7 @@ from gordo_tpu_torch.models import AutoEncoder
 from gordo_tpu_torch.parallel import transfer
 from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
 from tests.test_torch_fleet import FEEDFORWARD, SEEDS, _rows
+from tests.test_torch_fleet_env import fleet_env  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -139,7 +140,7 @@ FLEET = """
 """
 
 
-def test_build_fleet_prefetch_depth_2_is_taken_and_changes_no_bits(tmp_path):
+def test_build_fleet_prefetch_depth_2_is_taken_and_changes_no_bits(tmp_path, fleet_env):
     """Three machines of ragged lengths in one bucket: the stacked data
     moves in three slices of the machine axis (as in JAX, an axis no
     longer than the depth moves in one copy), and each of the four fleet
@@ -160,7 +161,7 @@ def test_build_fleet_prefetch_depth_2_is_taken_and_changes_no_bits(tmp_path):
                 np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
-def test_build_fleet_refuses_a_depth_above_the_ceiling(capsys):
+def test_build_fleet_refuses_a_depth_above_the_ceiling(capsys, fleet_env):
     with pytest.raises(SystemExit) as exit_info:
         cli.main(["build-fleet", "[]", "/nonexistent", "--device", "cpu",
                   "--prefetch-depth", "9"])
