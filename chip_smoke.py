@@ -179,7 +179,32 @@ Phases, each raising on failure (no result line is printed then):
    window tail, it continues as the unbroken stream) and a ``latest``
    symlink re-pointed mid-stream (the next update answers 409
    ``revision_rolled``);
-14. one JSON line of per-kernel numbers, each time with the timer that
+14. plane: (a) ``sweep`` of four learning rates (``PLANE_LRS``) on
+   phase 10's first Transformer (full width, flash, its 21 744 rows, 1
+   epoch where the config has 10) in this process: each trial's loss,
+   the three kernels' launches and step ms, and a one-machine fit at the
+   first rate on the card within 1e-4 of its trial; (c) two ``run-server``
+   replicas over one shard manifest and a ``run-router``, each a
+   subprocess (the replicas on the card), over phase 10's collection:
+   phase 11's 144- and 8255-row anomaly fleet requests of the four
+   Transformers through the router, bitwise equal to one unsharded
+   server's (phase 11's, in this process); each replica's launches
+   (counted in the replica) and fleet scorers within its shard; a
+   request sent straight to the wrong replica answers 421 naming the
+   owner; a stream (40 warming rows, one 144-row update) through the
+   router bitwise equal to the direct one; one replica killed: its
+   shard answers a transient 409 until ejected, then failover answers
+   every machine, bitwise again; latencies through the router and
+   direct, and the failover's seconds; (b) ``FleetTrainer`` on the four
+   Transformers (full width, dropout 0.1, each cut to its first 4096
+   rows: the phase's time budget) fitted 2 epochs unbroken and 1 epoch
+   with a checkpointer then resumed to 2 (where the config has 10):
+   bitwise equal, a torn newest checkpoint restoring the one before;
+   then ``build-fleet --resume`` over phase 10's directory in a
+   subprocess (all eight machines reused, no launch) and again with one
+   Transformer's artifact removed (only it rebuilt, 1 epoch as in phase
+   10; the other artifacts untouched), seconds and launches of each run;
+15. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -3669,6 +3694,497 @@ def lake_stream_phase(torch, fa, profile: bool, collection: str):
     return report
 
 
+# Phase 14, "plane": the sweep, resumed fits and builds, and the routed
+# plane, over phase 10's collection and data at full width. (a) `sweep`
+# of PLANE_LRS on turbine-9900-transformer-0 (phase 10's 21 744 rows),
+# PLANE_SWEEP_EPOCHS epoch where the config has 10; (b) FleetTrainer on
+# the four Transformers cut to their first PLANE_RESUME_ROWS rows (the
+# phase's time budget: 4 epochs in all), 2 epochs where the config has
+# 10, dropout PLANE_DROPOUT; then `build-fleet --resume` over phase 10's
+# directory as it is, and again with one Transformer's artifact removed
+# (its bucket trains 1 epoch, as phase 10's); (c) PLANE_REPLICAS
+# `run-server` replicas and a `run-router`, each a subprocess, over
+# phase 10's collection, with phase 11's 144- and 8255-row requests and
+# a phase 13 stream cut to PLANE_STREAM_ROWS rows
+PLANE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+PLANE_SWEEP_EPOCHS = 1
+PLANE_SWEEP_RTOL = 1e-4
+PLANE_RESUME_ROWS = 4096
+PLANE_DROPOUT = 0.1
+PLANE_REPLICAS = ("r0", "r1")
+PLANE_REBUILT = f"{MACHINE}-3"
+PLANE_STREAM_ROWS = STREAM_FIRST + STREAM_UPDATE
+PLANE_ROUTED_REPEATS = 5
+# runs `python -m gordo_tpu_torch.cli run-server`'s main in a subprocess;
+# on SIGUSR1 it writes that process's flash launches and the machines of
+# each fleet scorer its server built to the file named first
+REPLICA_DRIVER = (
+    "import json, signal, sys\n"
+    "from gordo_tpu_torch.cli.cli import main\n"
+    "from gordo_tpu_torch.ops import flash_attention as fa\n"
+    "from gordo_tpu_torch.server import runner\n"
+    "apps = []\n"
+    "build_app = runner.build_app\n"
+    "def capture(*args, **kwargs):\n"
+    "    apps.append(build_app(*args, **kwargs))\n"
+    "    return apps[-1]\n"
+    "runner.build_app = capture\n"
+    "def dump(*_):\n"
+    "    scorers = [list(key[1]) for app in apps for key in app.catalog._fleet_scorers]\n"
+    "    with open(sys.argv[1] + '.tmp', 'w') as fh:\n"
+    "        json.dump({'kernels': fa.kernel_launches, 'scorers': scorers}, fh)\n"
+    "    import os; os.replace(sys.argv[1] + '.tmp', sys.argv[1])\n"
+    "signal.signal(signal.SIGUSR1, dump)\n"
+    "sys.exit(main(sys.argv[2:]))\n"
+)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def wait_ready(url: str, process, seconds: float = 180.0) -> float:
+    """Seconds until ``url`` answers 200; raises if ``process`` exits or
+    the time runs out."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        if process.poll() is not None:
+            raise AssertionError(f"{url}: the process exited {process.returncode}")
+        try:
+            with urllib.request.urlopen(url, timeout=5) as reply:
+                if reply.status == 200:
+                    return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.25)
+    raise AssertionError(f"{url} not ready after {seconds} s")
+
+
+def replica_counts(process, path: str) -> dict:
+    """A replica's launches and scorers, asked for by SIGUSR1."""
+    import signal
+
+    if os.path.exists(path):
+        os.unlink(path)
+    process.send_signal(signal.SIGUSR1)
+    for _ in range(200):
+        if os.path.exists(path):
+            with open(path) as fh:
+                return json.load(fh)
+        time.sleep(0.05)
+    raise AssertionError(f"replica wrote no counts to {path}")
+
+
+def sweep_check(torch, fa, root: str, device=None) -> dict:
+    """Phase 14a: `sweep` of ``PLANE_LRS`` on phase 10's first Transformer
+    in this process (launches counted from 0 just before), and a
+    one-machine fit at the first rate held to its trial (``device``: the
+    card, unless a rehearsal names another)."""
+    device_args = ["--device", device] if device else []
+    import io
+
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.builder.fleet_build import _find_torch_estimator
+    from gordo_tpu_torch.cli import cli
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.models.specs import make_optimizer
+    from gordo_tpu_torch.parallel import sweep as sweep_module
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
+
+    machine = fleet_machines(root)[0]
+    telemetry = []
+    fit = sweep_module.HyperparamSweep.fit
+
+    def recording(self, *args, **kwargs):
+        result = fit(self, *args, **kwargs)
+        telemetry.append(self.trainer.fit_telemetry_)
+        return result
+
+    sweep_module.HyperparamSweep.fit = recording
+    out = io.StringIO()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            code = cli.main(["sweep", json.dumps(machine), "--param",
+                             "lr=" + ",".join(str(lr) for lr in PLANE_LRS),
+                             "--epochs", str(PLANE_SWEEP_EPOCHS), *device_args])
+    finally:
+        sweep_module.HyperparamSweep.fit = fit
+    seconds = time.perf_counter() - t0
+    launches = dict(fa.kernel_launches)
+    lines = out.getvalue().strip().splitlines()
+    log("sweep", *lines)
+    if code != 0 or len(lines) != len(PLANE_LRS) + 1:
+        raise AssertionError(f"sweep exited {code}: {lines}")
+    losses = {}
+    for line in lines[:-1]:
+        hp, loss = line.split(": ", 1)[1].rsplit(" loss=", 1)
+        losses[float(hp.split("=", 1)[1])] = float(loss)
+    (fit_telemetry,) = telemetry
+    steps = fit_telemetry["steps_per_epoch"] * fit_telemetry["epochs_run"]
+
+    # the solo fit at the first rate, as the command fits its trial
+    normalized = Machine.from_config(machine, project_name=machine["project_name"])
+    est = _find_torch_estimator(serializer.from_definition(normalized.model))
+    X, _, _ = _get_dataset(normalized.dataset.to_dict()).get_data()
+    X = np.asarray(X, dtype="float32")
+    est.kwargs.update({"n_features": X.shape[1], "n_features_out": X.shape[1]})
+    spec = est._build_spec()
+    lr = PLANE_LRS[0]
+    trainer = FleetTrainer(spec, lookahead=est.lookahead, seed=0, device=device,
+                           optimizer=make_optimizer(spec.optimizer, dict(
+                               spec.optimizer_kwargs, learning_rate=lr)))
+    t0 = time.perf_counter()
+    _, solo = trainer.fit(StackedData.from_ragged([X], [X], device=device), seeds=[0],
+                          epochs=PLANE_SWEEP_EPOCHS, batch_size=int(est.kwargs.get("batch_size", 32)))
+    solo_seconds = time.perf_counter() - t0
+    solo_loss = float(solo[-1, 0])
+    diff = abs(losses[lr] - solo_loss) / max(abs(solo_loss), 1e-12)
+    report = {
+        "losses": losses, "solo_loss": solo_loss, "trial0_vs_solo_rel": diff,
+        "seconds": seconds, "solo_seconds": solo_seconds, "steps": steps,
+        "step_ms": 1000.0 * fit_telemetry["epoch_loop_s"] / steps,
+        "solo_step_ms": 1000.0 * trainer.fit_telemetry_["epoch_loop_s"]
+        / (trainer.fit_telemetry_["steps_per_epoch"] * PLANE_SWEEP_EPOCHS),
+        "kernel_launches": launches,
+    }
+    log("sweep check", json.dumps({k: v for k, v in report.items() if k != "kernel_launches"}))
+    if not diff <= PLANE_SWEEP_RTOL:
+        raise AssertionError(f"trial at lr {lr}: {losses[lr]} against a solo fit's {solo_loss}")
+    if not all(launches[f"{k}_quad"] > 0 for k in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)):
+        raise AssertionError(f"the sweep launched no flash kernel: {launches}")
+    return report
+
+
+def resume_fit_check(torch, fa, collection: str, device=None) -> dict:
+    """Phase 14b, the fit: four Transformers (phase 10's data, cut to
+    ``PLANE_RESUME_ROWS`` rows) fitted 2 epochs unbroken, then 1 epoch
+    with a checkpointer and resumed to 2 (launches of these two counted);
+    bitwise equal; a torn newest checkpoint restores the one before."""
+    import numpy as np
+
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.models import TransformerAutoEncoder
+    from gordo_tpu_torch.parallel.checkpoint import FleetCheckpointer
+    from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
+
+    Xs = []
+    for i in range(FLEET_TRANSFORMERS):
+        metadata = serializer.load_metadata(os.path.join(collection, f"{MACHINE}-{i}"))
+        X = _get_dataset(metadata["dataset"]).get_data()[0]
+        Xs.append(np.asarray(X, dtype=np.float32)[:PLANE_RESUME_ROWS])
+    est = TransformerAutoEncoder(**dict(BASE_ESTIMATOR, dropout=PLANE_DROPOUT),
+                                 n_features=len(TAGS), n_features_out=len(TAGS))
+    data = StackedData.from_ragged(Xs, Xs, device=device)
+    seeds = [SEED + i for i in range(FLEET_TRANSFORMERS)]
+
+    def trainer():
+        return FleetTrainer(est._build_spec(), seed=SEED, device=device)
+
+    def synchronize():
+        if data.X.is_cuda:
+            torch.cuda.synchronize()
+
+    report = {}
+    t0 = time.perf_counter()
+    full, full_losses = trainer().fit(data, seeds=seeds, epochs=2, batch_size=BATCH_SIZE)
+    synchronize()
+    report["unbroken_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = FleetCheckpointer(os.path.join(tmp, "ckpt"))
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer().fit(data, seeds=seeds, epochs=1, batch_size=BATCH_SIZE, checkpointer=ckpt)
+        report["first_epoch_s"] = time.perf_counter() - t0
+        resumed_trainer = trainer()
+        t0 = time.perf_counter()
+        resumed, losses = resumed_trainer.fit(data, seeds=seeds, epochs=2, batch_size=BATCH_SIZE,
+                                              checkpointer=ckpt)
+        synchronize()
+        report["resumed_s"] = time.perf_counter() - t0
+        report["kernel_launches"] = dict(fa.kernel_launches)
+        report["resumed_from_epoch"] = resumed_trainer.fit_telemetry_["resumed_from_epoch"]
+        report["bitwise_equal"] = all(torch.equal(resumed[k], full[k]) for k in full)
+        report["losses_equal"] = bool(np.array_equal(losses, full_losses[1:]))
+        report["max_abs_diff"] = max(float((resumed[k] - full[k]).abs().max()) for k in full)
+        params_file = os.path.join(tmp, "ckpt", "1", "params.npz")
+        with open(params_file, "r+b") as fh:
+            fh.truncate(os.path.getsize(params_file) - 9)
+        # templates in the optimizer's view: the stack as one flat tensor
+        flat = {"flat": torch.cat([v.reshape(FLEET_TRANSFORMERS, -1) for v in full.values()], 1)}
+        _, _, fallback = ckpt.restore(flat, resumed_trainer.optimizer.init(
+            flat, n_machines=FLEET_TRANSFORMERS))
+        report["torn_newest_restored_epoch"] = fallback
+    log("resume fit", json.dumps({k: v for k, v in report.items() if k != "kernel_launches"}))
+    if not (report["bitwise_equal"] and report["losses_equal"]
+            and report["resumed_from_epoch"] == 1 and fallback == 0):
+        raise AssertionError(f"resumed fit: {report}")
+    return report
+
+
+def resume_build_check(collection: str, device=None) -> dict:
+    """Phase 14b, the builder: `build-fleet --resume` over phase 10's
+    collection (every machine reused, no launch), then with
+    ``PLANE_REBUILT``'s artifact removed (only it rebuilt; the others'
+    files untouched), each in a subprocess whose launches are counted."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    listing = os.path.join(os.path.dirname(collection), "machines.yaml")
+    counts = os.path.join(os.path.dirname(collection), "resume_launches.json")
+    n_machines = len(fleet_machines(root))
+    stamps = {name: os.path.getmtime(os.path.join(collection, name, "params.npz"))
+              for name in os.listdir(collection)
+              if os.path.isdir(os.path.join(collection, name)) and name != PLANE_REBUILT}
+    report = {}
+    for label, expected in (("all_current", (n_machines, 0)), ("one_removed",
+                                                                (n_machines - 1, 1))):
+        if label == "one_removed":
+            shutil.rmtree(os.path.join(collection, PLANE_REBUILT))
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", FLEET_DRIVER, counts, "build-fleet", "--machines-from",
+             listing, "--resume", *(["--device", device] if device else [])],
+            cwd=root, env=dict(os.environ, OUTPUT_DIR=collection), capture_output=True,
+            text=True, timeout=600,
+        )
+        seconds = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"build-fleet --resume exited {run.returncode}:\n"
+                                 f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+        with open(counts) as fh:
+            launches = json.load(fh)["kernels"]
+        with open(os.path.join(collection, "build_report.json")) as fh:
+            build_report = json.load(fh)
+        got = (build_report["n_resumed"], build_report["n_built"])
+        report[label] = {"seconds": seconds, "n_resumed": got[0], "n_built": got[1],
+                         "kernel_launches": launches}
+        log("resume build", label, json.dumps(report[label]))
+        if got != expected or build_report["n_failed"]:
+            raise AssertionError(f"build-fleet --resume ({label}): {build_report}")
+    if any(report["all_current"]["kernel_launches"].values()):
+        raise AssertionError(f"a resume that reused everything launched: {report}")
+    rebuilt = report["one_removed"]["kernel_launches"]
+    if not all(rebuilt[f"{k}_quad"] > 0 for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                                  "flash_attention_bwd_dkv")):
+        raise AssertionError(f"the rebuilt Transformer launched no flash kernel: {rebuilt}")
+    touched = [name for name, stamp in stamps.items()
+               if os.path.getmtime(os.path.join(collection, name, "params.npz")) != stamp]
+    if touched:
+        raise AssertionError(f"resume rewrote reused artifacts: {touched}")
+    report["kernel_launches"] = rebuilt
+    return report
+
+
+def routed_check(torch, fa, collection: str, device=None) -> dict:
+    """Phase 14c: ``PLANE_REPLICAS`` `run-server` replicas over one shard
+    manifest and a `run-router`, each a subprocess; phase 11's fleet
+    requests through the router bitwise against one unsharded server (in
+    this process, as phase 11's), each replica's forward launches and
+    scorers within its shard, a 421 from the wrong replica, a stream
+    through the router against a direct one, and a replica killed: its
+    shard transient until ejected, then failover, bitwise again."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.data.base import to_datetimes
+    from gordo_tpu_torch.router.ring import HashRing
+    from gordo_tpu_torch.server.app import build_app
+    from gordo_tpu_torch.server.catalog import write_shard_manifest
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_layers = BASE_ESTIMATOR["n_layers"]
+    transformers = [f"{MACHINE}-{i}" for i in range(FLEET_TRANSFORMERS)]
+    ring = HashRing(PLANE_REPLICAS)
+    shards = ring.partition(transformers)
+    data = {}
+    for name in transformers:
+        metadata = serializer.load_metadata(os.path.join(collection, name))
+        X, _, stamps = _get_dataset(metadata["dataset"]).get_data()
+        keys = [stamp.isoformat() for stamp in to_datetimes(stamps.astype(np.int64))]
+        data[name] = (np.asarray(X), keys, metadata["dataset"]["tag_list"])
+
+    def body(n_rows, start=0):
+        return {"machines": {n: {"X": frame_of(X, k, t, slice(start, start + n_rows)),
+                                 "y": frame_of(X, k, t, slice(start, start + n_rows))}
+                             for n, (X, k, t) in data.items()}}
+
+    report = {"shards": shards}
+    workdir = tempfile.mkdtemp(prefix="plane-")
+    manifest = write_shard_manifest(os.path.join(workdir, "manifest.json"), PLANE_REPLICAS)
+    ports = {rid: free_port() for rid in PLANE_REPLICAS}
+    router_port = free_port()
+    processes = {}
+    try:
+        t0 = time.perf_counter()
+        for rid in PLANE_REPLICAS:
+            processes[rid] = subprocess.Popen(
+                [sys.executable, "-c", REPLICA_DRIVER, os.path.join(workdir, f"{rid}.json"),
+                 "run-server", "--collection-dir", collection, "--host", "127.0.0.1",
+                 "--port", str(ports[rid]), "--batch-wait-ms", "0", "--shard-manifest",
+                 manifest, "--replica-id", rid, *(["--device", device] if device else [])],
+                cwd=root, stdout=subprocess.DEVNULL, stderr=open(
+                    os.path.join(workdir, f"{rid}.log"), "w"))
+        processes["router"] = subprocess.Popen(
+            [sys.executable, "-m", "gordo_tpu_torch.cli", "run-router", "--host", "127.0.0.1",
+             "--port", str(router_port), "--collection-dir", collection,
+             *[arg for rid in PLANE_REPLICAS
+               for arg in ("--replica", f"{rid}=http://127.0.0.1:{ports[rid]}")]],
+            cwd=root, stdout=subprocess.DEVNULL,
+            stderr=open(os.path.join(workdir, "router.log"), "w"))
+        for rid in PLANE_REPLICAS:
+            wait_ready(f"http://127.0.0.1:{ports[rid]}/healthz", processes[rid])
+        wait_ready(f"http://127.0.0.1:{router_port}/healthz", processes["router"])
+        report["start_s"] = time.perf_counter() - t0
+        log("plane up in", report["start_s"], "s; shards", json.dumps(shards))
+        routed = f"http://127.0.0.1:{router_port}/gordo/v0/{PROJECT}"
+
+        single = build_app(collection, device=device, batch_wait_ms=0)
+        with http_server(collection, None, app=single) as direct:
+            payloads = {n: json.dumps(body(n)).encode() for n in SERVE_ROWS}
+            want = {n: post(f"{direct}/anomaly/prediction/fleet", payloads[n])[0]["data"]
+                    for n in SERVE_ROWS}
+            before = {rid: replica_counts(processes[rid], os.path.join(workdir, f"{rid}.json"))
+                      ["kernels"] for rid in PLANE_REPLICAS}
+            latency = {}
+            for n_rows in SERVE_ROWS:
+                got, seconds = post(f"{routed}/anomaly/prediction/fleet", payloads[n_rows])
+                if got["data"] != want[n_rows]:
+                    worst = max(block_rel_diff(got["data"][m], want[n_rows][m], 0.0, 1.0)
+                                for m in transformers)
+                    raise AssertionError(f"{n_rows} rows through the router differ from one "
+                                         f"server by up to {worst}")
+                latency[n_rows] = {"routed_s": [seconds], "direct_s": []}
+            after = {rid: replica_counts(processes[rid], os.path.join(workdir, f"{rid}.json"))
+                     for rid in PLANE_REPLICAS}
+            # the main path, through the router: each replica's launches from 0
+            launches = {rid: {k: after[rid]["kernels"][k] - before[rid][k] for k in before[rid]}
+                        for rid in PLANE_REPLICAS}
+            report["replica_launches"] = launches
+            report["replica_scorers"] = {rid: after[rid]["scorers"] for rid in PLANE_REPLICAS}
+            report["kernel_launches"] = {k: sum(launches[rid][k] for rid in PLANE_REPLICAS)
+                                         for k in launches[PLANE_REPLICAS[0]]}
+            everything = [m["name"] for m in fleet_machines(root)]
+            for rid in PLANE_REPLICAS:
+                mine = ring.shard(everything, rid)
+                forward = sum(v for k, v in launches[rid].items() if k.startswith(fa.KERNEL + "_"))
+                backward = launches[rid][f"{fa.KERNEL_DQ}_quad"] + launches[rid][
+                    f"{fa.KERNEL_DKV}_quad"]
+                # at least one stacked forward a layer for each request its
+                # shard's Transformers are in, none for a shard without them
+                scorers = after[rid]["scorers"]
+                if (forward >= n_layers * len(SERVE_ROWS)) != (rid in shards) or backward \
+                        or not scorers or any(set(s) - mine for s in scorers):
+                    raise AssertionError(f"replica {rid}: {launches[rid]} launches, scorers "
+                                         f"{scorers}, shard {sorted(mine)}")
+            for n_rows in SERVE_ROWS:
+                for _ in range(PLANE_ROUTED_REPEATS - 1):
+                    latency[n_rows]["routed_s"].append(
+                        post(f"{routed}/anomaly/prediction/fleet", payloads[n_rows])[1])
+                for _ in range(PLANE_ROUTED_REPEATS):
+                    latency[n_rows]["direct_s"].append(
+                        post(f"{direct}/anomaly/prediction/fleet", payloads[n_rows])[1])
+                latency[n_rows]["routed_median_s"] = statistics.median(latency[n_rows]["routed_s"])
+                latency[n_rows]["direct_median_s"] = statistics.median(latency[n_rows]["direct_s"])
+            report["latency"] = latency
+            log("routed latency", json.dumps(latency))
+
+            # a machine sent straight to a replica that does not own it
+            name = transformers[0]
+            owner = ring.owner(name)
+            wrong = next(r for r in PLANE_REPLICAS if r != owner)
+            status, refused, _ = request_json(
+                f"http://127.0.0.1:{ports[wrong]}/gordo/v0/{PROJECT}/anomaly/prediction/fleet",
+                {"machines": {name: body(144)["machines"][name]}})
+            report["wrong_replica"] = {"status": status, "body": refused}
+            if status != 421 or refused["wrong_shard"] != {name: {"owner": owner}}:
+                raise AssertionError(f"the wrong replica answered {status}: {refused}")
+
+            # a stream through the router against a direct one
+            def stream(base):
+                status, opened, _ = request_json(f"{base}/stream/open", {"machines": transformers})
+                if status != 201:
+                    raise AssertionError(f"stream/open answered {status}: {opened}")
+                scores = []
+                for start, k in ((0, STREAM_FIRST), (STREAM_FIRST, STREAM_UPDATE)):
+                    status, got, seconds = request_json(
+                        f"{base}/stream/{opened['session']}/update",
+                        {"updates": {n: {"rows": data[n][0][start:start + k].tolist(),
+                                         "seq": start} for n in transformers}})
+                    if status != 200:
+                        raise AssertionError(f"stream update answered {status}: {got}")
+                    scores.append(got["scores"])
+                request_json(f"{base}/stream/{opened['session']}/close")
+                return scores, seconds
+
+            direct_stream, _ = stream(direct)
+            routed_stream, stream_s = stream(routed)
+            report["stream"] = {"bitwise_equal": routed_stream == direct_stream,
+                                "update_s": stream_s}
+            if routed_stream != direct_stream:
+                raise AssertionError("the stream through the router differs from the direct one")
+
+            # a replica dies: its shard transient until ejected, then failover
+            victim = max(shards, key=lambda rid: len(shards[rid]))
+            processes[victim].kill()
+            processes[victim].wait(timeout=30)
+            t0 = time.perf_counter()
+            statuses = []
+            for _ in range(6):
+                status, got, _ = request_json(f"{routed}/anomaly/prediction/fleet", body(144))
+                statuses.append(status)
+                if status == 200:
+                    break
+                if not (status == 409 and got.get("transient") is True
+                        and set(got["unavailable"]) == set(shards[victim])):
+                    raise AssertionError(f"while {victim} was down: {status} {got}")
+            report["failover"] = {"victim": victim, "statuses": statuses,
+                                  "seconds": time.perf_counter() - t0}
+            log("failover", json.dumps(report["failover"]))
+            if statuses[0] != 409 or statuses[-1] != 200 or got["data"] != want[144]:
+                raise AssertionError(f"failover: {report['failover']}")
+    finally:
+        for process in processes.values():
+            if process.poll() is None:
+                process.terminate()
+        for process in processes.values():
+            try:
+                process.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                process.kill()
+                process.wait(timeout=30)
+    return report
+
+
+def plane_phase(torch, fa, profile: bool, collection: str, device=None):
+    """Phase 14: the sweep (14a), resumed fits and builds (14b) and the
+    routed plane (14c), the module docstring's; on the card unless
+    ``device`` names another (a rehearsal)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = {}
+    t0 = time.perf_counter()
+    report["sweep"] = sweep_check(torch, fa, root, device)
+    report["sweep"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["routed"] = routed_check(torch, fa, collection, device)
+    report["routed"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["resume_fit"] = resume_fit_check(torch, fa, collection, device)
+    report["resume_build"] = resume_build_check(collection, device)
+    report["resume_build"]["phase_s"] = time.perf_counter() - t0
+    return report
+
+
 def wide_row(check):
     """A head_dim 64/128/256 check row as the ``kernels`` line reports it."""
     keys = ("case", "shape", "dtype", "ms", "ms_timer", "bound_ms", "bound_by", "plain_ms",
@@ -3758,6 +4274,7 @@ def main(argv=None) -> int:
         fleet_serve = timed("fleet_serve", fleet_serve_phase, args.profile, fleet["collection"])
         options = timed("build_options", build_options_phase, args.profile)
         lake_stream = timed("lake_stream", lake_stream_phase, args.profile, fleet["collection"])
+        plane = timed("plane", plane_phase, args.profile, fleet["collection"])
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -3777,6 +4294,10 @@ def main(argv=None) -> int:
              "remat_bf16": options["remat_bf16"]["kernel_launches"],
              "lake_build": lake_stream["lake_build"]["kernel_launches"],
              "stream": lake_stream["stream"]["kernel_launches"],
+             "sweep": plane["sweep"]["kernel_launches"],
+             "resume_fit": plane["resume_fit"]["kernel_launches"],
+             "resume_build": plane["resume_build"]["kernel_launches"],
+             "routed": plane["routed"]["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
     def entry(kernel, families, source, replaces, cases, rows):
@@ -3829,7 +4350,7 @@ def main(argv=None) -> int:
                  "default_pipeline": default_pipeline, "models": models,
                  "recurrent": recurrent, "project_build": project, "fleet_build": fleet,
                  "fleet_serve": fleet_serve, "build_options": options,
-                 "lake_stream": lake_stream,
+                 "lake_stream": lake_stream, "plane": plane,
                  **kernels},
                 fh,
                 indent=1,

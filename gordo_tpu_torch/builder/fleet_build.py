@@ -32,10 +32,16 @@ sliced, staged copies and the trainer's next epoch chunk's vector; the
 artifacts are the same bits at every depth, and ``telemetry_report.json``
 counts the build's transfers by plane and mode.
 
+``build(resume=True)`` reuses each machine whose artifact under the
+output directory loads and was built from its current model and dataset
+config, and builds the rest (:meth:`FleetModelBuilder._scan_resumable`);
+a machine the previous run's ``build_report.json`` names as a casualty
+is always rebuilt. ``n_resumed`` in the report counts the reused ones.
+
 Left out, because the TPU-era builder does them for XLA: the program
 and compile caches, AOT export of serving programs, the device mesh and
-fleet padding to it, and the multi-worker ledger, resume, warm starts
-and fault injection (ROADMAP.md queue 1 items 8 and 9).
+fleet padding to it, and the multi-worker ledger, warm starts and fault
+injection (ROADMAP.md queue 1 item 9).
 ``precision="bf16"``/``"auto"`` calibrates each bucket after its final
 fit (:meth:`FleetModelBuilder._calibrate_precision`).
 """
@@ -76,6 +82,8 @@ from gordo_tpu_torch.parallel.precision import (
     mae_parity,
     resolve_precision,
 )
+from gordo_tpu_torch.utils import atomic
+from gordo_tpu_torch.utils.utils import backoff_seconds
 
 logger = logging.getLogger(__name__)
 
@@ -83,12 +91,6 @@ logger = logging.getLogger(__name__)
 BUILD_REPORT_FILENAME = "build_report.json"
 #: the build's timings, by bucket
 TELEMETRY_REPORT_FILENAME = "telemetry_report.json"
-
-
-def backoff_seconds(attempt: int, cap: int = 300) -> float:
-    """Seconds before fetch retry ``attempt`` (1-based): 8, 16, 32, ...,
-    at most ``cap`` (the JAX client's policy, without jitter)."""
-    return min(2 ** (attempt + 2), cap)
 
 
 class MachineFetchError(RuntimeError):
@@ -198,6 +200,7 @@ class FleetModelBuilder:
         self.bucket_reports_: List[dict] = []
         self.build_report_: Optional[dict] = None
         self.telemetry_report_: Optional[dict] = None
+        self.n_resumed_ = 0
 
     # -- data ------------------------------------------------------------
     def _fetch_one(self, machine: Machine) -> dict:
@@ -320,26 +323,38 @@ class FleetModelBuilder:
 
     # -- build -----------------------------------------------------------
     def build(
-        self, output_dir_base: Optional[Union[str, Path]] = None
+        self, output_dir_base: Optional[Union[str, Path]] = None, resume: bool = False
     ) -> List[Tuple[Any, Machine]]:
         """
         (model, machine) of every machine that built, in the input order;
         with ``output_dir_base`` each artifact is written to
         ``<output_dir_base>/<machine name>`` as its bucket completes, then
         ``build_report.json`` and ``telemetry_report.json`` beside them.
+        ``resume`` (which needs ``output_dir_base``) reuses the machines
+        whose artifacts there are current and builds only the rest.
         """
+        if resume and output_dir_base is None:
+            raise ValueError("resume=True requires output_dir_base")
         base = Path(output_dir_base) if output_dir_base is not None else None
         build_start = time.perf_counter()
         started = str(datetime.now(timezone.utc).astimezone())
         self.build_failures_, self.quarantined_, self.bucket_reports_ = [], [], []
         self.precision_decisions_ = {}
-        self.plan_ = plans = self._policy.plan(self.machines)
+        results: Dict[str, Tuple[Any, Machine]] = {}
+        to_build = list(self.machines)
+        if resume:
+            reused, to_build = self._scan_resumable(to_build, base)
+            results.update(reused)
+            if reused:
+                logger.info("Resume: %d/%d machines already built under %s",
+                            len(reused), len(self.machines), base)
+        self.n_resumed_ = len(results)
+        self.plan_ = plans = self._policy.plan(to_build) if to_build else []
         transfers_before = dict(transfer.transfer_counts)
         logger.info(
             "Fleet build: %d machines in %d buckets (policy=%s)",
-            len(self.machines), len(plans), self.bucket_policy,
+            len(to_build), len(plans), self.bucket_policy,
         )
-        results: Dict[str, Tuple[Any, Machine]] = {}
         for plan in plans:
             results.update(self._build_bucket_entry(plan.machines, base))
         self.transfers_ = {
@@ -347,8 +362,80 @@ class FleetModelBuilder:
             for (plane, mode), n in sorted(transfer.transfer_counts.items())
             if n != transfers_before.get((plane, mode), 0)
         }
-        self._finish(base, started, time.perf_counter() - build_start, len(results), len(plans))
+        self._finish(base, started, time.perf_counter() - build_start,
+                     len(results) - self.n_resumed_, len(plans))
         return [results[m.name] for m in self.machines if m.name in results]
+
+    @staticmethod
+    def _prior_casualties(base: Path) -> Dict[str, str]:
+        """Machine -> status from an earlier run's ``build_report.json``
+        under ``base`` ({} when it is missing or unreadable)."""
+        try:
+            report = json.loads((base / BUILD_REPORT_FILENAME).read_text())
+        except (OSError, ValueError):
+            return {}
+        out: Dict[str, str] = {}
+        for record in report.get("failed") or []:
+            if record.get("machine"):
+                out[record["machine"]] = f"{record.get('phase', 'build')}-failed"
+        for record in report.get("quarantined") or []:
+            if record.get("machine"):
+                out[record["machine"]] = "quarantined"
+        return out
+
+    def _scan_resumable(
+        self, machines: List[Machine], base: Path
+    ) -> Tuple[Dict[str, Tuple[Any, Machine]], List[Machine]]:
+        """(reused (model, machine) by name, machines to build): a machine
+        is reused when its artifact under ``base`` loads and its stored
+        model and dataset configs equal its current ones. A casualty of
+        the previous run is rebuilt, never reused: a quarantined machine's
+        artifact holds frozen weights, and reusing it while this run
+        rewrites the report would serve them as healthy."""
+        prior = self._prior_casualties(base)
+        reused: Dict[str, Tuple[Any, Machine]] = {}
+        remaining: List[Machine] = []
+        for machine in machines:
+            art_dir = base / machine.name
+            if machine.name in prior:
+                logger.info("Resume: rebuilding %s (recorded as %s by the previous run)",
+                            machine.name, prior[machine.name])
+                remaining.append(machine)
+                continue
+            if not (art_dir / serializer.METADATA_FILENAME).is_file():
+                remaining.append(machine)
+                continue
+            try:
+                model = serializer.load(art_dir, self.device)
+                stored = serializer.load_metadata(art_dir)
+                current = machine.to_dict()
+                if (stored.get("model") != current.get("model")
+                        or stored.get("dataset") != current.get("dataset")):
+                    logger.warning("Artifact at %s was built from a different model/dataset "
+                                   "config; rebuilding %s", art_dir, machine.name)
+                    remaining.append(machine)
+                    continue
+                # the current request's user metadata and runtime on the
+                # stored build metadata
+                stored["metadata"]["user_defined"] = machine.metadata.user_defined
+                stored["runtime"] = machine.runtime
+                restored = Machine.unvalidated(**stored)
+            except Exception:  # a partial or damaged artifact: rebuild
+                logger.warning("Artifact at %s exists but does not load; rebuilding %s",
+                               art_dir, machine.name)
+                remaining.append(machine)
+                continue
+            reused[machine.name] = (model, restored)
+            est = _find_torch_estimator(model)
+            if self.precision != "float32" and est is not None:
+                # a reused artifact's decision rides its weights file
+                self.precision_decisions_[machine.name] = {
+                    "precision": getattr(est, "precision_", "float32"),
+                    "mae_delta": getattr(est, "precision_mae_delta_", None),
+                    "forced": False,
+                    "resumed": True,
+                }
+        return reused, remaining
 
     def _finish(self, base, started: str, wall: float, n_built: int, n_buckets: int) -> None:
         finished = str(datetime.now(timezone.utc).astimezone())
@@ -360,7 +447,7 @@ class FleetModelBuilder:
             "on_error": self.on_error,
             "n_machines": len(self.machines),
             "n_built": n_built,
-            "n_resumed": 0,
+            "n_resumed": self.n_resumed_,
             "n_failed": len(self.build_failures_),
             "n_quarantined": len(self.quarantined_),
             "failed": list(self.build_failures_),
@@ -378,6 +465,7 @@ class FleetModelBuilder:
             "wall_time_s": wall,
             "n_machines": len(self.machines),
             "n_built": n_built,
+            "n_resumed": self.n_resumed_,
             "n_buckets": n_buckets,
             "bucket_policy": self.bucket_policy,
             "precision": self.precision,
@@ -390,12 +478,10 @@ class FleetModelBuilder:
             "machines_quarantined": list(self.quarantined_),
         }
         if base is not None:
-            base.mkdir(parents=True, exist_ok=True)
             for name, report in ((BUILD_REPORT_FILENAME, self.build_report_),
                                  (TELEMETRY_REPORT_FILENAME, self.telemetry_report_)):
-                tmp = base / f".{name}.tmp"
-                tmp.write_text(json.dumps(report, indent=2, sort_keys=True, default=str))
-                tmp.replace(base / name)
+                atomic.atomic_write_json(base / name, report, indent=2, sort_keys=True,
+                                         default=str, trailing_newline=False)
 
     def _flush(self, pairs, base: Optional[Path]) -> None:
         if base is None:

@@ -12,7 +12,13 @@ The port's command line (the counterpart of ``gordo_tpu.cli``'s
         [--prefetch-depth N] [--model-parameter KEY,VALUE ...]
         [--print-cv-scores] [--exceptions-reporter-file FILE]
         [--exceptions-report-level EXIT_CODE|TYPE|MESSAGE|TRACEBACK]
-    python -m gordo_tpu_torch.cli run-server [--collection-dir DIR] [--device cpu] ...
+        [--resume | --no-resume]
+    python -m gordo_tpu_torch.cli sweep [MACHINE] --param NAME=V1,V2,... [--param ...]
+        [--epochs N] [--batch-size N] [--epoch-chunk K] [--device cpu]
+        [--exceptions-reporter-file FILE] [--exceptions-report-level ...]
+    python -m gordo_tpu_torch.cli run-server [--collection-dir DIR] [--device cpu]
+        [--shard-manifest FILE --replica-id ID] ...
+    python -m gordo_tpu_torch.cli run-router --collection-dir DIR --replica ID=URL ...
 
 ``build`` builds one machine (fetch and resample its dataset,
 cross-validate and derive the thresholds, fit) and writes the port's
@@ -40,9 +46,19 @@ OUTPUT_DIR from the argument or ``OUTPUT_DIR``. Exit codes and the
 ``FAILED <machine> (<phase>): ...`` and ``QUARANTINED <machine> at epoch
 <e> ...`` lines are the JAX command's. ``--prefetch-depth``
 (``GORDO_PREFETCH_DEPTH``, 0-8) pipelines each bucket's host-to-device
-transfers. Its options that the port does not have
-(``UNPORTED_FLEET_OPTIONS``) are usage errors naming their ROADMAP.md
-item or reason: none is ignored.
+transfers. ``--resume`` (``GORDO_FLEET_RESUME``) reuses the machines
+whose artifacts in OUTPUT_DIR are current and builds the rest. Its
+options that the port does not have (``UNPORTED_FLEET_OPTIONS``) are
+usage errors naming their ROADMAP.md item or reason: none is ignored.
+
+``sweep`` trains the optimizer-hyperparameter grid of ``--param`` entries
+on MACHINE's data as one fleet (``gordo_tpu_torch.parallel.sweep``),
+after fitting its prefix transformers, with the epochs and batch size
+its build would use, and prints each trial's final loss in Katib's
+``key=value`` form, best first, then the best hyperparameters.
+
+``run-router`` fronts ``run-server`` replicas that each serve a shard of
+one collection (``gordo_tpu_torch.router``); it needs no card.
 """
 
 import argparse
@@ -182,7 +198,6 @@ UNPORTED_FLEET_OPTIONS = (
     ("--lease-ttl", "GORDO_LEASE_TTL", None, "ROADMAP.md queue 1 item 9"),
     ("--max-attempts", "GORDO_MAX_ATTEMPTS", None, "ROADMAP.md queue 1 item 9"),
     ("--ledger-status", None, None, "ROADMAP.md queue 1 item 9"),
-    ("--resume", "GORDO_FLEET_RESUME", None, "ROADMAP.md queue 1 item 8"),
     ("--aot-cache", "GORDO_AOT_CACHE", None,
      "ROADMAP.md queue 1 item 9: programs/ stays out of the port"),
     # the flag only: a build pod's MODEL_REGISTER_DIR is meant for `build`
@@ -244,7 +259,7 @@ def build_fleet(args) -> int:
             prefetch_depth=args.prefetch_depth,
         )
         logger.info("Fleet-building %d machines, output at: %s", len(machines), args.output_dir)
-        for _, machine_out in builder.build(output_dir_base=args.output_dir):
+        for _, machine_out in builder.build(output_dir_base=args.output_dir, resume=args.resume):
             machine_out.report()
             if args.print_cv_scores:
                 for line in score_strings(machine_out):
@@ -258,6 +273,109 @@ def build_fleet(args) -> int:
 def _env_number(name: str, default, cast):
     value = os.environ.get(name)
     return default if value in (None, "") else cast(value)
+
+
+def _env_flag(name: str) -> bool:
+    """A boolean environment variable as click reads one (unset: False)."""
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "t", "yes", "y", "on")
+
+
+def parse_grid(entries: List[str]) -> dict:
+    """``name=v1,v2,...`` entries -> {name: [floats]}, every list as long
+    (the JAX command's rules; a bad entry is a ``ValueError``)."""
+    grid: dict = {}
+    length = None
+    for entry in entries:
+        name, _, values = entry.partition("=")
+        if not values:
+            raise ValueError(f"--param needs name=v1,v2,... got {entry!r}")
+        try:
+            parsed = [float(v) for v in values.split(",")]
+        except ValueError:
+            raise ValueError(f"--param values must be numbers, got {entry!r}") from None
+        if length is not None and len(parsed) != length:
+            raise ValueError("--param entries must list the same number of values "
+                             f"({length} vs {len(parsed)} in {entry!r})")
+        length = len(parsed)
+        grid[name.strip()] = parsed
+    return grid
+
+
+def sweep(args) -> int:
+    """The ``sweep`` command (module note)."""
+    import numpy as np
+
+    from gordo_tpu_torch.builder.fleet_build import _find_torch_estimator, _prefix_transformers
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.parallel.sweep import HyperparamSweep
+
+    try:
+        machine = Machine.from_config(
+            args.machine, project_name=args.machine.get("project_name", "sweep"))
+        model = serializer.from_definition(machine.model)
+        estimator = _find_torch_estimator(model)
+        if estimator is None:
+            raise ValueError("Sweeps need a port estimator in the model config")
+        X, y, _ = _get_dataset(machine.dataset.to_dict()).get_data()
+        X_t = np.asarray(X, dtype="float32")
+        for transformer in _prefix_transformers(model):
+            X_t = np.asarray(transformer.fit_transform(X_t), dtype="float32")
+        y_t = np.asarray(y, dtype="float32") if y is not None else X_t
+        estimator.kwargs.update({"n_features": X_t.shape[1], "n_features_out": y_t.shape[1]})
+        spec = estimator._build_spec()
+        kwargs = estimator.kwargs
+        result = HyperparamSweep(
+            spec, args.grid, lookahead=estimator.lookahead if spec.windowed else 0,
+            epoch_chunk=args.epoch_chunk or int(kwargs.get("epoch_chunk", 1)),
+            device=args.device,
+        ).fit(
+            X_t, y_t,
+            epochs=args.epochs if args.epochs is not None else int(kwargs.get("epochs", 1)),
+            batch_size=(args.batch_size if args.batch_size is not None
+                        else int(kwargs.get("batch_size", 32))),
+        )
+    except Exception:
+        return _report_failure(args)
+    for trial, (hyperparams, loss) in enumerate(result.ranking()):
+        hp = " ".join(f"{k}={v:g}" for k, v in hyperparams.items())
+        print(f"trial-{trial}: {hp} loss={loss}")
+    print("best: " + " ".join(f"{k}={v:g}" for k, v in result.best_hyperparams.items()))
+    return 0
+
+
+#: run-router options of the JAX command that wait for the port's
+#: telemetry (flag, environment variable)
+UNPORTED_ROUTER_OPTIONS = (
+    ("--rollup-interval", "GORDO_ROLLUP_INTERVAL_S"),
+    ("--rollup-retention", "GORDO_ROLLUP_RETENTION"),
+    ("--rollup-persist", "GORDO_ROLLUP_PERSIST"),
+)
+
+
+def run_router(parser: argparse.ArgumentParser, args) -> int:
+    """The ``run-router`` command: a usage error without replicas or a
+    collection, else serve until interrupted."""
+    from gordo_tpu_torch.router.app import parse_replica_entries, run_router as serve
+
+    for flag, env in UNPORTED_ROUTER_OPTIONS:
+        if getattr(args, _dest(flag)) is not None or os.environ.get(env):
+            parser.error(f"run-router {flag} is not ported yet (ROADMAP.md queue 1 item 9)")
+    try:
+        replicas = parse_replica_entries(args.replica or [os.environ.get("GORDO_ROUTER_REPLICAS", "")])
+    except ValueError as err:
+        parser.error(str(err))
+    if not replicas:
+        parser.error("At least one --replica id=url is required (or GORDO_ROUTER_REPLICAS)")
+    if not args.collection_dir:
+        parser.error("--collection-dir is required (or MODEL_COLLECTION_DIR): the router "
+                     "resolves every request's revision against it")
+    serve(args.host, args.port, {
+        "REPLICAS": replicas, "COLLECTION_DIR": args.collection_dir, "VNODES": args.vnodes,
+        "EJECT_AFTER": args.eject_after, "BACKOFF_SCALE": args.backoff_scale,
+        "PROBE_INTERVAL_S": args.probe_interval, "HEDGE_MS": args.hedge_ms,
+        "REPLICA_TIMEOUT_S": args.replica_timeout, "MAX_INFLIGHT": args.max_inflight,
+    })
+    return 0
 
 
 def _add_report_options(command: argparse.ArgumentParser) -> None:
@@ -346,33 +464,91 @@ def _parser() -> argparse.ArgumentParser:
     _add_report_options(fleet)
     for flag, _, _, item in UNPORTED_FLEET_OPTIONS:
         fleet.add_argument(flag, dest=_dest(flag), default=None, help=f"not ported ({item})")
-    for flag in ("--no-resume", "--no-aot-cache"):
-        # what the port does anyway: nothing to refuse
-        fleet.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    fleet.add_argument("--resume", action=argparse.BooleanOptionalAction,
+                       default=_env_flag("GORDO_FLEET_RESUME"),
+                       help="reuse the machines whose artifacts in OUTPUT_DIR are current and "
+                            "build the rest")
+    # what the port does anyway: nothing to refuse
+    fleet.add_argument("--no-aot-cache", action="store_true", help=argparse.SUPPRESS)
+    sweep_cmd = commands.add_parser(
+        "sweep", help="train an optimizer-hyperparameter grid as one fleet")
+    sweep_cmd.add_argument("machine", nargs="?", default=os.environ.get("MACHINE"),
+                           help="the machine's config as YAML or JSON (default: $MACHINE)")
+    sweep_cmd.add_argument("--param", action="append", default=[], required=True,
+                           help="name=v1,v2,... (repeatable, every list as long); optimizer "
+                                "arguments, 'lr' and 'decay' standing for learning_rate and "
+                                "weight_decay")
+    sweep_cmd.add_argument("--epochs", type=int, default=None, help="override the epochs")
+    sweep_cmd.add_argument("--batch-size", type=int, default=None,
+                           help="override the batch size")
+    sweep_cmd.add_argument("--epoch-chunk", type=int,
+                           default=_env_number("GORDO_EPOCH_CHUNK", None, int),
+                           help="epochs between the host's reads (default: the config's, else 1)")
+    sweep_cmd.add_argument("--device", default=None, help="cuda (default) or cpu")
+    sweep_cmd.add_argument(
+        "--exceptions-reporter-file", default=os.environ.get("EXCEPTIONS_REPORTER_FILE"),
+        help="write a failure's report here as JSON")
+    sweep_cmd.add_argument(
+        "--exceptions-report-level", type=str.upper, choices=ReportLevel.get_names(),
+        default=os.environ.get("EXCEPTIONS_REPORT_LEVEL", ReportLevel.MESSAGE.name).upper(),
+        help="detail of the failure report (default: MESSAGE)")
     server = commands.add_parser(
         "run-server", add_help=False, help="serve a collection (gordo_tpu_torch.server.runner)"
     )
     server.add_argument("server_args", nargs=argparse.REMAINDER)
+    router = commands.add_parser(
+        "run-router", help="front run-server shard replicas (gordo_tpu_torch.router)")
+    router.add_argument("--host", default=os.environ.get("GORDO_ROUTER_HOST", "0.0.0.0"))
+    router.add_argument("--port", type=int, default=_env_number("GORDO_ROUTER_PORT", 5556, int))
+    router.add_argument("--replica", action="append", default=[], metavar="ID=URL",
+                        help="one shard replica (repeatable; default: $GORDO_ROUTER_REPLICAS)")
+    router.add_argument("--collection-dir", default=os.environ.get("MODEL_COLLECTION_DIR"),
+                        help="the collection the replicas serve (default: $MODEL_COLLECTION_DIR)")
+    for flag, env, cast, default, text in (
+        ("--vnodes", "GORDO_ROUTER_VNODES", int, 64, "virtual nodes a replica on the ring"),
+        ("--eject-after", "GORDO_ROUTER_EJECT_AFTER", int, 3,
+         "consecutive failures that eject a replica"),
+        ("--backoff-scale", "GORDO_ROUTER_BACKOFF_SCALE", float, 0.25,
+         "scale on the 8/16/32 s ejection windows"),
+        ("--probe-interval", "GORDO_ROUTER_PROBE_INTERVAL_S", float, 1.0,
+         "seconds between /healthz probes of ejected replicas (0: none)"),
+        ("--hedge-ms", "GORDO_ROUTER_HEDGE_MS", float, 0.0,
+         "hedge a shard call silent this long (0: never)"),
+        ("--replica-timeout", "GORDO_ROUTER_REPLICA_TIMEOUT_S", float, 30.0,
+         "seconds a replica call may take"),
+        ("--max-inflight", "GORDO_ROUTER_MAX_INFLIGHT", int, 64,
+         "requests in flight before the router sheds with 503"),
+    ):
+        router.add_argument(flag, type=cast, default=_env_number(env, default, cast), help=text)
+    for flag, _ in UNPORTED_ROUTER_OPTIONS:
+        router.add_argument(flag, dest=_dest(flag), default=None,
+                            help="not ported (ROADMAP.md queue 1 item 9)")
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    parser = _parser()
-    args = parser.parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="[%(asctime)s] %(levelname)s [%(name)s.%(funcName)s:%(lineno)d] %(message)s",
     )
-    if args.command == "run-server":
+    if argv[:1] == ["run-server"]:
+        # the runner parses its own options (argparse's REMAINDER would
+        # refuse a first argument that is an option)
         from gordo_tpu_torch.server import runner
 
-        runner.main(args.server_args)
+        runner.main(argv[1:])
         return 0
+    parser = _parser()
+    args = parser.parse_args(argv)
     if args.command == "build-fleet":
         return _build_fleet_command(parser, args)
+    if args.command == "run-router":
+        return run_router(parser, args)
     if args.machine is None:
         parser.error(
-            "build needs MACHINE, as an argument or in the MACHINE environment variable"
+            f"{args.command} needs MACHINE, as an argument or in the MACHINE environment "
+            "variable"
         )
     try:
         args.machine = safe_load(args.machine)
@@ -380,6 +556,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.error(f"MACHINE must be the machine's config as YAML; it did not parse: {err}")
     if not isinstance(args.machine, dict):
         parser.error(f"MACHINE must be a YAML mapping, got {type(args.machine).__name__}")
+    if args.command == "sweep":
+        try:
+            args.grid = parse_grid(args.param)
+        except ValueError as err:
+            parser.error(str(err))
+        if args.epoch_chunk is not None and args.epoch_chunk < 1:
+            parser.error("--epoch-chunk must be >= 1")
+        return sweep(args)
     return build(args)
 
 

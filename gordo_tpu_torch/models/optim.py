@@ -42,8 +42,18 @@ and returns either. The learning rate is a number.
 The solo fit uses the same functions through :meth:`Optimizer.bind`, with
 no machine axis, so one implementation serves both paths and
 ``torch.optim`` is not used.
+
+:func:`inject_hyperparams` is ``optax.inject_hyperparams``: the numeric
+constructor arguments (:meth:`Optimizer.sweepable`) ride the state as
+float32 tensors, one per machine, under ``state["hyperparams"]``, so a
+fleet's machines may each step with their own learning rate or decay (a
+sweep, ``gordo_tpu_torch.parallel.sweep``). As in optax, the formulas
+then take float32 tensors where a plain optimizer takes Python numbers:
+``1 - b1`` is computed in float32 rather than rounded from a double.
 """
 
+import copy
+import inspect
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -80,8 +90,10 @@ def _dtype(name) -> Optional[torch.dtype]:
 def _times(scalar: float, t: torch.Tensor) -> torch.Tensor:
     """``scalar * t`` as JAX multiplies a weakly typed Python number into
     an array: the number is first rounded to t's type (which matters for
-    a bfloat16 or float16 state, ``mu_dtype``/``accumulator_dtype``)."""
-    if t.dtype in (torch.float32, torch.float64):
+    a bfloat16 or float16 state, ``mu_dtype``/``accumulator_dtype``). An
+    injected hyperparameter, a float32 tensor, promotes as a JAX array
+    does."""
+    if isinstance(scalar, torch.Tensor) or t.dtype in (torch.float32, torch.float64):
         return scalar * t
     return t * torch.tensor(scalar, dtype=t.dtype, device=t.device)
 
@@ -164,6 +176,8 @@ class Optimizer:
 
     #: the per-parameter state tensors, in optax's order
     slots: Tuple[str, ...] = ()
+    #: the hyperparameters that ride the state (:func:`inject_hyperparams`)
+    injected: Tuple[str, ...] = ()
 
     def __init__(self, learning_rate: float = 1e-3):
         if callable(learning_rate):
@@ -171,6 +185,28 @@ class Optimizer:
                 "a learning-rate schedule is not ported; give the learning rate as a number"
             )
         self.learning_rate = float(learning_rate)
+
+    def sweepable(self) -> Tuple[str, ...]:
+        """The constructor arguments whose values are numbers (not flags,
+        masks, types or None): what ``optax.inject_hyperparams`` moves
+        into the state, sorted."""
+        names = inspect.signature(type(self).__init__).parameters
+        return tuple(sorted(
+            name for name in names
+            if name != "self" and isinstance(getattr(self, name, None), (int, float))
+            and not isinstance(getattr(self, name), bool)
+        ))
+
+    def _hyperparams_like(self, hyperparams: Dict[str, torch.Tensor],
+                          p: torch.Tensor) -> "Optimizer":
+        """This optimizer with each injected hyperparameter as its state
+        tensor, shaped to broadcast over parameter ``p``."""
+        if not hyperparams:
+            return self
+        view = copy.copy(self)
+        for name, value in hyperparams.items():
+            setattr(view, name, _per_machine(value, p))
+        return view
 
     @property
     def leafwise(self) -> bool:
@@ -195,6 +231,12 @@ class Optimizer:
         state: dict = {"count": torch.zeros(shape, dtype=torch.int32, device=device)}
         for slot in self.slots:
             state[slot] = {name: self._slot_init(slot, p) for name, p in params.items()}
+        if self.injected:
+            state["hyperparams"] = {
+                name: torch.full(shape, float(getattr(self, name)), dtype=torch.float32,
+                                 device=device)
+                for name in self.injected
+            }
         return state
 
     # -- one step --------------------------------------------------------
@@ -230,14 +272,18 @@ class Optimizer:
         new_state: dict = {"count": count_inc}
         for slot in self.slots:
             new_state[slot] = {}
+        hyperparams = state.get("hyperparams") or {}
+        if hyperparams:
+            new_state["hyperparams"] = hyperparams
         mask = self.mask(params) if callable(self.mask) else self.mask
         for name, p in params.items():
             slots = {slot: state[slot][name] for slot in self.slots}
             decay = bool(mask.get(name, True) if isinstance(mask, dict) else
                          (True if mask is None else mask))
-            u, new_slots = self._direction(grads[name], p, slots, count_inc, stacked, decay)
-            u = u * -self.learning_rate
-            u, after = self._after_lr(u, slots)
+            opt = self._hyperparams_like(hyperparams, p)
+            u, new_slots = opt._direction(grads[name], p, slots, count_inc, stacked, decay)
+            u = u * -opt.learning_rate
+            u, after = opt._after_lr(u, slots)
             new_slots.update(after)
             new_params[name] = p + u
             for slot in self.slots:
@@ -251,7 +297,10 @@ class Optimizer:
     def _bias_correction(self, t: torch.Tensor, decay: float, count: torch.Tensor) -> torch.Tensor:
         """optax's ``t / (1 - decay**count)``, the correction computed in
         float32 (once a step for each decay and count) and divided in t's
-        type, per machine."""
+        type, per machine. An injected (tensor) decay is shaped like t."""
+        if isinstance(decay, torch.Tensor):
+            correction = 1 - torch.pow(decay, _per_machine(count, decay).to(torch.float32))
+            return t / correction.to(t.dtype)
         key = (decay, id(count))
         if key not in self._corrections:
             # the count rides along, so its id is not reused within the step
@@ -287,7 +336,8 @@ class _Adam(Optimizer):
             mu_hat = self._bias_correction(mu, b1, count)
         nu_hat = self._bias_correction(nu, b2, count)
         # sqrt(v + 0.0) is sqrt(v): the default eps_root costs no operation
-        root = torch.sqrt(nu_hat + self.eps_root) if self.eps_root else torch.sqrt(nu_hat)
+        injected = isinstance(self.eps_root, torch.Tensor)
+        root = torch.sqrt(nu_hat + self.eps_root) if injected or self.eps_root else torch.sqrt(nu_hat)
         u = mu_hat / (root + self.eps)
         if self.mu_dtype is not None:
             mu = mu.to(self.mu_dtype)
@@ -469,6 +519,25 @@ class _Lion(Optimizer):
         if decay:
             u = u + self.weight_decay * p
         return u, {"mu": mu}
+
+
+def inject_hyperparams(optimizer: Optimizer,
+                       names: Optional[Tuple[str, ...]] = None) -> Optimizer:
+    """A copy of ``optimizer`` whose hyperparameters ``names`` (default:
+    every sweepable one) ride its state, as ``optax.inject_hyperparams``
+    makes them (module note). A name that is not sweepable is a
+    ``ValueError`` naming those that are."""
+    sweepable = optimizer.sweepable()
+    names = sweepable if names is None else tuple(names)
+    unknown = sorted(set(names) - set(sweepable))
+    if unknown:
+        raise ValueError(
+            f"Optimizer {type(optimizer).__name__.lstrip('_').lower()!r} has no sweepable "
+            f"hyperparameter(s) {unknown}; sweepable: {sorted(sweepable)}"
+        )
+    injected = copy.copy(optimizer)
+    injected.injected = tuple(names)
+    return injected
 
 
 #: the JAX package's optimizer names (``gordo_tpu/models/specs.py``)

@@ -26,11 +26,25 @@ per-machine early stopping as gated epochs, the non-finite quarantine,
 and ``epoch_chunk`` as scheduling only (the host reads the losses once
 a chunk; the results are the same bits as with ``epoch_chunk=1``).
 
-Shuffles and dropout draws come from one ``torch.Generator`` on the
-training device, seeded with the trainer's ``seed``; dropout draws for
-every machine are made outside the vmapped function and handed to the
-module through a :class:`~gordo_tpu_torch.models.specs.DropoutFeed`.
-Neither gives JAX's random numbers.
+Shuffles and dropout draws come from a ``torch.Generator`` on the
+training device that each epoch seeds afresh from (the trainer's
+``seed``, the epoch), as the JAX trainer folds the epoch into its key:
+epoch k draws the same numbers whether the fit started at epoch 0 or
+resumed at k from a checkpoint, so a resumed fit is bitwise the unbroken
+one. Dropout draws for every machine are made outside the vmapped
+function and handed to the module through a
+:class:`~gordo_tpu_torch.models.specs.DropoutFeed`. Neither gives JAX's
+random numbers.
+
+``checkpointer`` (:class:`~gordo_tpu_torch.parallel.checkpoint.FleetCheckpointer`)
+saves (params, optimizer state, and the early-stopping and quarantine
+state) every ``checkpoint_every`` epochs, each save ending an epoch
+chunk; a fit whose checkpointer already holds a checkpoint resumes after
+its epoch. ``broadcast_data`` trains every machine of the fit on one
+shared dataset (a hyperparameter sweep, ``parallel/sweep.py``): one
+device copy of X and y, expanded over the machine axis, and one row of
+shuffle and dropout draws that every machine shares, so each machine
+draws what a one-machine fit with the same seed draws.
 
 ``prefetch_depth`` above 0 pipelines the host-to-device transfers
 (``gordo_tpu_torch.parallel.transfer``), as the JAX trainer does:
@@ -42,8 +56,7 @@ run. The values are the same bits at every depth.
 
 Left out, because they are XLA or TPU machinery the eager port has no
 use for: the program cache and its compile telemetry, buffer donation,
-the device mesh and fleet padding to it, scan unrolling,
-``broadcast_data`` sweeps, checkpoints and fault injection.
+the device mesh and fleet padding to it, scan unrolling and fault injection.
 """
 
 import dataclasses
@@ -204,6 +217,9 @@ class FleetTrainer:
     prefetch_depth
         Above 0, the next epoch chunk's vector is staged while the current
         chunk runs (module docstring); 0 copies as the trainer always did.
+    broadcast_data
+        Every machine trains on the fit's one-machine data (module
+        docstring); the fit's machines are its seeds or stacked params.
     """
 
     def __init__(
@@ -216,8 +232,10 @@ class FleetTrainer:
         device: DeviceLike = None,
         seed: int = 0,
         prefetch_depth: int = 0,
+        broadcast_data: bool = False,
     ):
         self.spec = spec
+        self.broadcast_data = bool(broadcast_data)
         self.prefetch_depth = transfer.clip_depth(prefetch_depth)
         self.lookahead = int(lookahead) if spec.windowed else 0
         self.epoch_chunk = max(1, int(epoch_chunk))
@@ -226,7 +244,7 @@ class FleetTrainer:
         self.optimizer = optimizer if optimizer is not None else spec.make_optimizer()
         self.module = spec.module.to(self.device)
         self.seed = int(seed)
-        self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self._generator = torch.Generator(device=self.device)
         self._dropout_shapes: Dict[Tuple[int, ...], List[Tuple[int, ...]]] = {}
         self._flat, self._shapes = False, {}
 
@@ -351,7 +369,9 @@ class FleetTrainer:
                 functional_call(self.module, one, (xb[0],), {"generator": feed})
             shapes = self._dropout_shapes[key] = feed.shapes
         m = xb.shape[0]
-        return [torch.rand((m, *shape), generator=self._generator, device=xb.device)
+        rows = 1 if self.broadcast_data else m
+        return [torch.rand((rows, *shape), generator=self._generator,
+                           device=xb.device).expand(m, *shape)
                 for shape in shapes]
 
     def _leaves(self, params: Tensors) -> Tensors:
@@ -362,12 +382,19 @@ class FleetTrainer:
             return unflatten(params["flat"], self._shapes, lead=1)
         return params
 
+    def _seed_epoch(self, epoch: int) -> None:
+        """Seed the generator for epoch ``epoch`` from (seed, epoch): the
+        epoch's draws do not depend on the epochs before it."""
+        state = np.random.SeedSequence([self.seed % 2**63, int(epoch)]).generate_state(2)
+        self._generator.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+
     def _shuffle_noise(self, m: int, n_samples: int, epoch: int) -> torch.Tensor:
         """(M, n_samples) uniform draws in [0, 1) whose order shuffles each
-        machine's real samples in epoch ``epoch``: from the trainer's
+        machine's real samples in epoch ``epoch``: from the epoch's
         generator (the JAX trainer draws them from each machine's key
-        folded with the epoch)."""
-        return torch.rand((m, n_samples), generator=self._generator, device=self.device)
+        folded with the epoch); one row for all under ``broadcast_data``."""
+        rows = 1 if self.broadcast_data else m
+        return torch.rand((rows, n_samples), generator=self._generator, device=self.device)
 
     def _epoch(self, params, opt_state, X, y, wb_all, fm, n_batches, batch_size, shuffle, epoch,
                real_samples, gates=None):
@@ -381,6 +408,7 @@ class FleetTrainer:
         m, n_samples = wb_all.shape
         device = wb_all.device
         real = wb_all > 0
+        self._seed_epoch(epoch)
         if shuffle:
             noise = self._shuffle_noise(m, n_samples, epoch).to(device)
             sort_key = torch.where(real, noise, 2.0 + noise)
@@ -473,6 +501,9 @@ class FleetTrainer:
         shuffle: Optional[bool] = None,
         params: Optional[Tensors] = None,
         extra_weight=None,
+        opt_state: Optional[dict] = None,
+        checkpointer=None,
+        checkpoint_every: int = 1,
         early_stopping_patience: Optional[int] = None,
         early_stopping_min_delta: float = 0.0,
         early_stopping_start_from_epoch: int = 0,
@@ -497,9 +528,15 @@ class FleetTrainer:
         ``validation_split`` holds out the last fraction of each machine's
         samples (``val_losses_``, (epochs, M), NaN for a machine with none)
         and, by default or with ``early_stopping_on_val``, early stopping
-        monitors it. After the fit: ``healthy_``, ``quarantine_epoch_``
-        (-1 for a healthy machine), ``healthy_history_``, ``history_`` (one
-        dict a machine) and ``fit_telemetry_``.
+        monitors it. ``opt_state`` is a stacked optimizer state to start
+        from (a sweep's, with its per-machine hyperparameters); None inits
+        one. ``checkpointer`` saves every ``checkpoint_every`` epochs and,
+        when it holds a checkpoint, the fit resumes after its epoch: the
+        losses, ``history_`` and ``val_losses_`` then cover the epochs run
+        here, and ``fit_telemetry_["resumed_from_epoch"]`` names the first.
+        After the fit: ``healthy_``, ``quarantine_epoch_`` (-1 for a healthy
+        machine), ``healthy_history_``, ``history_`` (one dict a machine)
+        and ``fit_telemetry_``.
         """
         fit_start = time.perf_counter()
         if shuffle is None:
@@ -514,6 +551,19 @@ class FleetTrainer:
         # step count work from it
         w_host = w.cpu().numpy().astype(np.float64)
         m = data.n_machines
+        if self.broadcast_data:
+            if data.n_machines != 1 or w.shape[0] != 1:
+                raise ValueError(
+                    "broadcast_data takes one machine's data and weights (shared by every "
+                    f"machine of the fit), got data of {data.n_machines} and weights of "
+                    f"shape {tuple(w.shape)}"
+                )
+            if params is not None:
+                m = next(iter(params.values())).shape[0]
+            elif seeds is not None:
+                m = len(seeds)
+            else:
+                raise ValueError("fit needs the initial params or each machine's seed")
 
         val_w, has_val, val_lo = None, None, 0
         self.val_losses_: Optional[np.ndarray] = None
@@ -537,11 +587,20 @@ class FleetTrainer:
         self._flat = not self.optimizer.leafwise
         if self._flat:
             params = {"flat": flatten(params, lead=1)}
-        opt_state = self.optimizer.init(params, n_machines=m)
+        if opt_state is None:
+            opt_state = self.optimizer.init(params, n_machines=m)
 
         real_samples = self._real_samples(w_host, data.n_timesteps)
         n_batches = self._n_batches(data.n_timesteps, batch_size, max(1, int(real_samples.max())))
         wb_all = self._sample_weights(w)
+        if self.broadcast_data:
+            # one device copy, viewed as m machines'
+            X, y = X.expand(m, *X.shape[1:]), y.expand(m, *y.shape[1:])
+            wb_all = wb_all.expand(m, -1)
+            real_samples = np.repeat(real_samples, m)
+            if val_w is not None:
+                val_w = val_w.expand(m, -1)
+                has_val = np.repeat(has_val, m)
         early_stopping = early_stopping_patience is not None
         track_best = early_stopping and restore_best_weights
         quarantine = self.quarantine_nonfinite
@@ -559,6 +618,12 @@ class FleetTrainer:
             has_val_dev = (torch.from_numpy(np.asarray(has_val, dtype=bool)).to(device)
                            if monitor_val else None)
         best_params, ever = None, torch.zeros((), dtype=torch.bool, device=device)
+        start_epoch = 0
+        if checkpointer is not None and checkpointer.latest_epoch() is not None:
+            params, opt_state, healthy, start_epoch = self._restore(
+                checkpointer, params, opt_state, healthy, es if early_stopping else None)
+        healthy_entry = healthy.cpu().numpy().copy()
+        every = max(1, int(checkpoint_every))
 
         rows: Dict[str, list] = {"loss": [], "val": [], "healthy": [], "active": []}
         n_host_syncs = 1
@@ -566,7 +631,11 @@ class FleetTrainer:
         step_time = 0.0
 
         def chunk_len(e0: int) -> int:
-            return min(self.epoch_chunk, epochs - e0) if early_stopping else epochs - e0
+            k = min(self.epoch_chunk, epochs - e0) if early_stopping else epochs - e0
+            if checkpointer is not None:
+                # a checkpoint ends a chunk: the save sees the epoch's state
+                k = min(k, ((e0 + every) // every) * every - e0)
+            return k
 
         # an epoch chunk's vector: its per-step machine gates, (k, steps, M)
         step_gates = (np.arange(n_batches)[:, None] * batch_size) < real_samples[None, :]
@@ -576,7 +645,7 @@ class FleetTrainer:
 
         # the next chunk's vector, staged while this chunk runs, by (epoch, length)
         staged: Dict[Tuple[int, int], transfer.Staged] = {}
-        epoch = 0
+        epoch = start_epoch
         while epoch < epochs:
             chunk = chunk_len(epoch)
             gates = None
@@ -650,6 +719,10 @@ class FleetTrainer:
             for key, value in fetched.items():
                 rows[key].append(value[:n_rep])
             epochs_run += n_rep
+            last = epoch + chunk - 1
+            if checkpointer is not None and (last + 1) % every == 0:
+                checkpointer.save(last, params, opt_state,
+                                  self._checkpoint_extra(healthy, es if early_stopping else None))
             if stopped:
                 logger.info("Fleet early stop: all %d machines stopped at epoch %d/%d",
                             m, epoch + n_rep - 1, epochs)
@@ -668,7 +741,7 @@ class FleetTrainer:
             self.val_losses_ = val
         self._finish_quarantine(
             np.concatenate(rows["healthy"]) if rows["healthy"] else np.ones((0, m), dtype=bool),
-            machine_names, m,
+            machine_names, m, healthy_entry, start_epoch,
         )
         self.history_ = []
         for i in range(m):
@@ -683,6 +756,7 @@ class FleetTrainer:
             "epoch_loop_s": step_time,
             "epochs_configured": epochs,
             "epochs_run": epochs_run,
+            "resumed_from_epoch": start_epoch if start_epoch else None,
             "n_machines": m,
             "steps_per_epoch": n_batches,
             "early_stopping": early_stopping,
@@ -692,23 +766,64 @@ class FleetTrainer:
         }
         return params, losses
 
-    def _finish_quarantine(self, hist: np.ndarray, machine_names, m: int) -> None:
+    def _finish_quarantine(self, hist: np.ndarray, machine_names, m: int,
+                           entry: np.ndarray, start_epoch: int) -> None:
         """``healthy_``, ``quarantine_epoch_`` and ``healthy_history_`` from
-        the per-epoch healthy rows; a warning a casualty."""
+        the per-epoch healthy rows of the epochs from ``start_epoch`` (the
+        machines healthy then: ``entry``); a warning a casualty."""
         self.healthy_history_ = hist
-        self.healthy_ = hist[-1].copy() if len(hist) else np.ones(m, dtype=bool)
+        self.healthy_ = hist[-1].copy() if len(hist) else entry.copy()
         quarantine_epoch = np.full(m, -1, dtype=np.int64)
-        prev = np.ones(m, dtype=bool)
+        prev = entry
         for j in range(len(hist)):
             for i in np.flatnonzero(prev & ~hist[j]):
-                quarantine_epoch[i] = j
+                quarantine_epoch[i] = start_epoch + j
                 name = machine_names[i] if machine_names and i < len(machine_names) else f"index {i}"
                 logger.warning(
                     "Fleet quarantine: machine %s went non-finite at epoch %d; params rolled "
-                    "back to last finite epoch and frozen", name, j,
+                    "back to last finite epoch and frozen", name, start_epoch + j,
                 )
             prev = hist[j]
         self.quarantine_epoch_ = quarantine_epoch
+
+    #: the early-stopping state a checkpoint carries, by the JAX trainer's
+    #: names: (name in the checkpoint, key of the trainer's state)
+    _ES_EXTRA = (("best", "best"), ("wait", "wait"), ("active", "active"), ("last_loss", "last"))
+
+    def _checkpoint_extra(self, healthy: torch.Tensor, es: Optional[dict]) -> Optional[dict]:
+        """The host arrays a checkpoint carries beside the weights: the
+        quarantine mask and the early-stopping state."""
+        extra = {}
+        if self.quarantine_nonfinite:
+            extra["healthy"] = healthy.cpu().numpy()
+        if es is not None:
+            extra.update({name: es[key].cpu().numpy() for name, key in self._ES_EXTRA})
+        return extra or None
+
+    def _restore(self, checkpointer, params, opt_state, healthy, es: Optional[dict]):
+        """(params, opt_state, healthy, first epoch to run) from the
+        checkpointer's newest restorable checkpoint; ``es`` is updated in
+        place. A checkpoint without early-stopping state resumes an
+        early-stopping fit with every machine active, with a warning."""
+        template = self._checkpoint_extra(healthy, es)
+        if template:
+            params, opt_state, done, extra = checkpointer.restore_with_extra(
+                params, opt_state, template, optional_extra_keys=("healthy",))
+            extra = dict(extra or {})
+            if self.quarantine_nonfinite and "healthy" in extra:
+                healthy = torch.from_numpy(extra.pop("healthy").astype(bool)).to(self.device)
+            if es is not None and "active" in extra:
+                for name, key in self._ES_EXTRA:
+                    es[key] = torch.from_numpy(extra[name]).to(self.device, es[key].dtype)
+            elif es is not None:
+                logger.warning(
+                    "Resuming an early-stopping fleet fit without saved early-stop state "
+                    "(older checkpoint?): stopped machines will briefly reactivate"
+                )
+        else:
+            params, opt_state, done = checkpointer.restore(params, opt_state)
+        logger.info("Resuming fleet fit at epoch %d", done + 1)
+        return params, opt_state, healthy, done + 1
 
     @torch.no_grad()
     def predict(self, params: Tensors, X, batch_size: int = DEFAULT_BATCH_SIZE,

@@ -56,6 +56,7 @@ from gordo_tpu_torch.models.models import (
 from gordo_tpu_torch.models.pipeline import FunctionTransformer, Pipeline
 from gordo_tpu_torch.models.preprocessing import SCALERS
 from gordo_tpu_torch.models.transformers import InfImputer
+from gordo_tpu_torch.utils.atomic import atomic_publish_dir
 
 DEFINITION_FILENAME = "definition.json"
 PARAMS_FILENAME = "params.npz"
@@ -194,9 +195,7 @@ def dump(model, dest_dir: PathLike, metadata: Dict[str, Any]) -> Path:
         np.savez(tmp_dir / PARAMS_FILENAME, **model.state_arrays())
         with open(tmp_dir / METADATA_FILENAME, "w") as fh:
             json.dump(_sanitize_nan(metadata), fh, default=str)
-        if dest_dir.exists():
-            shutil.rmtree(dest_dir)
-        os.replace(tmp_dir, dest_dir)
+        atomic_publish_dir(tmp_dir, dest_dir)
     except BaseException:
         shutil.rmtree(tmp_dir, ignore_errors=True)
         raise

@@ -3,7 +3,10 @@ The model server (the port of ``gordo_tpu.server.app``'s single-machine
 and fleet routes), a plain WSGI callable on the standard library and
 JSON:
 
-- ``GET  /healthcheck``
+- ``GET  /gordo/v0/specs.json`` (an OpenAPI 3.0.3 document of these
+  routes, written from the route table as the JAX server writes it from
+  its URL map)
+- ``GET  /healthcheck`` and ``GET /server-version``
 - ``GET  /healthz`` (readiness: 503 and ``Retry-After`` while a batcher
   is saturated or shedding, or a stream session's backlog is saturated)
 - ``GET  /gordo/v0/<project>/models``
@@ -42,6 +45,15 @@ Models load on first use onto the app's device and stay there, keyed by
 their real directory. Machines that the revision's ``build_report.json``
 records as failed or quarantined answer 409 on every prediction route,
 and ``/models`` lists them under ``unavailable``.
+
+A sharded replica (``shard_manifest``, ``GORDO_SHARD_MANIFEST``; its id
+``replica_id``, ``GORDO_REPLICA_ID``) serves the consistent-hash share of
+the collection that the ring gives it (``router/ring.py``): ``/models``
+lists its shard, its fleet scorers stack its shard's machines, and a
+prediction or stream route naming a machine of another shard answers a
+421 naming the owner, unless the request carries the router's
+``X-Gordo-Shard-Adopt`` header (failover, hedging). The router
+(``gordo_tpu_torch.router``) fronts such replicas.
 """
 
 import json
@@ -63,7 +75,7 @@ from gordo_tpu_torch.models.utils import make_base_dataframe
 from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 from gordo_tpu_torch.server import batching
 from gordo_tpu_torch.server import utils as server_utils
-from gordo_tpu_torch.server.catalog import ServingCatalog
+from gordo_tpu_torch.server.catalog import ADOPT_HEADER, ServingCatalog, ShardSpec
 from gordo_tpu_torch.server.utils import ApiError
 from gordo_tpu_torch.streaming import session as stream_session
 
@@ -79,6 +91,8 @@ SCORER_CACHE_SIZE = ("GORDO_SCORER_CACHE_SIZE", int, 16)
 STREAM_MAX_SESSIONS = ("GORDO_STREAM_MAX_SESSIONS", int, stream_session.DEFAULT_MAX_SESSIONS)
 STREAM_MAX_BACKLOG = ("GORDO_STREAM_MAX_BACKLOG", int, stream_session.DEFAULT_MAX_BACKLOG)
 STREAM_IDLE_S = ("GORDO_STREAM_IDLE_S", float, stream_session.DEFAULT_IDLE_AFTER_S)
+SHARD_MANIFEST = ("GORDO_SHARD_MANIFEST", str, "")
+REPLICA_ID = ("GORDO_REPLICA_ID", str, "")
 
 _STATUS_TEXT = {
     200: "OK",
@@ -88,32 +102,94 @@ _STATUS_TEXT = {
     405: "METHOD NOT ALLOWED",
     409: "CONFLICT",
     410: "GONE",
+    421: "MISDIRECTED REQUEST",
     422: "UNPROCESSABLE ENTITY",
     500: "INTERNAL SERVER ERROR",
     503: "SERVICE UNAVAILABLE",
 }
 
-_PROJECT = r"/gordo/v0/(?P<gordo_project>[^/]+)"
-_MACHINE = _PROJECT + r"/(?P<gordo_name>[^/]+)"
-#: (method, path pattern, view name)
+_PROJECT = "/gordo/v0/<gordo_project>"
+_MACHINE = _PROJECT + "/<gordo_name>"
+#: (method, path template, view name), in the JAX URL map's order; a
+#: ``<name>`` segment is a path argument
 _ROUTES = [
-    ("GET", r"/healthcheck", "healthcheck"),
-    ("GET", r"/healthz", "healthz"),
-    ("GET", _PROJECT + r"/models", "models"),
-    ("GET", _PROJECT + r"/revisions", "revisions"),
-    ("GET", _PROJECT + r"/expected-models", "expected_models"),
-    ("GET", _MACHINE + r"/metadata", "metadata"),
-    ("GET", _MACHINE + r"/healthcheck", "metadata"),
-    ("GET", _MACHINE + r"/download-model", "download_model"),
-    ("POST", _PROJECT + r"/prediction/fleet", "fleet_prediction"),
-    ("POST", _PROJECT + r"/anomaly/prediction/fleet", "fleet_anomaly_prediction"),
-    ("POST", _PROJECT + r"/stream/open", "stream_open"),
-    ("POST", _PROJECT + r"/stream/(?P<stream_id>[^/]+)/update", "stream_update"),
-    ("POST", _PROJECT + r"/stream/(?P<stream_id>[^/]+)/close", "stream_close"),
-    ("POST", _MACHINE + r"/prediction", "prediction"),
-    ("POST", _MACHINE + r"/anomaly/prediction", "anomaly_prediction"),
+    ("GET", "/gordo/v0/specs.json", "specs"),
+    ("GET", "/healthcheck", "healthcheck"),
+    ("GET", "/healthz", "healthz"),
+    ("GET", "/server-version", "server_version"),
+    ("GET", _PROJECT + "/models", "models"),
+    ("GET", _PROJECT + "/revisions", "revisions"),
+    ("GET", _PROJECT + "/expected-models", "expected_models"),
+    ("GET", _MACHINE + "/metadata", "metadata"),
+    ("GET", _MACHINE + "/healthcheck", "metadata"),
+    ("GET", _MACHINE + "/download-model", "download_model"),
+    ("POST", _MACHINE + "/prediction", "prediction"),
+    ("POST", _MACHINE + "/anomaly/prediction", "anomaly_prediction"),
+    ("POST", _PROJECT + "/prediction/fleet", "fleet_prediction"),
+    ("POST", _PROJECT + "/anomaly/prediction/fleet", "fleet_anomaly_prediction"),
+    ("POST", _PROJECT + "/stream/open", "stream_open"),
+    ("POST", _PROJECT + "/stream/<stream_id>/update", "stream_update"),
+    ("POST", _PROJECT + "/stream/<stream_id>/close", "stream_close"),
 ]
-_COMPILED_ROUTES = [(m, re.compile(p + r"/?$"), v) for m, p, v in _ROUTES]
+_SEGMENT = re.compile(r"<([^<>]+)>")
+
+
+def compile_routes(routes) -> list:
+    """(method, regex, view) of (method, template, view) routes: a
+    ``<name>`` segment matches one path segment as argument ``name``."""
+    return [(method, re.compile(_SEGMENT.sub(r"(?P<\1>[^/]+)", re.escape(template)) + "/?$"),
+             view)
+            for method, template, view in routes]
+
+
+_COMPILED_ROUTES = compile_routes(_ROUTES)
+
+#: view -> the operation summary of the OpenAPI document (the JAX
+#: server's words)
+SPEC_SUMMARIES = {
+    "specs": "OpenAPI description of this API",
+    "healthcheck": "Liveness check",
+    "healthz": "Readiness check (reflects batching-queue saturation)",
+    "server_version": "Server version",
+    "models": "List models in the served revision",
+    "revisions": "List available model revisions",
+    "expected_models": "List models the deployment expects",
+    "metadata": "Build metadata for one model",
+    "download_model": "Download the serialized model",
+    "prediction": "Run the model on posted data",
+    "anomaly_prediction": "Run anomaly scoring on posted data",
+    "fleet_prediction": "Batched multi-machine scoring (TPU extension)",
+    "fleet_anomaly_prediction": "Batched multi-machine anomaly scoring (TPU extension)",
+    "stream_open": "Open a streaming scoring session (TPU extension)",
+    "stream_update": (
+        "Push incremental sensor rows to a stream session; scores return inline"
+    ),
+    "stream_close": "Close a streaming scoring session",
+}
+
+
+def openapi_document(routes, title: str) -> dict:
+    """The OpenAPI 3.0.3 document of (method, template, view) routes as
+    the JAX server writes it from its URL map: ``<arg>`` becomes
+    ``{arg}``, an operation's id is its view with ``_2``, ``_3``, ... when
+    several routes share the view, and its path arguments are sorted."""
+    paths: Dict[str, dict] = {}
+    op_counts: Dict[str, int] = {}
+    for method, template, view in routes:
+        path = _SEGMENT.sub(r"{\1}", template)
+        n = op_counts.get(view, 0)
+        op_counts[view] = n + 1
+        paths.setdefault(path, {})[method.lower()] = {
+            "operationId": view if n == 0 else f"{view}_{n + 1}",
+            "summary": SPEC_SUMMARIES.get(view, view),
+            "parameters": [
+                {"name": arg, "in": "path", "required": True, "schema": {"type": "string"}}
+                for arg in sorted(_SEGMENT.findall(template))
+            ],
+            "responses": {"200": {"description": "Success"}},
+        }
+    return {"openapi": "3.0.3", "info": {"title": title, "version": __version__},
+            "paths": paths}
 
 
 class Response:
@@ -168,11 +244,14 @@ def _setting(value, setting):
 
 
 class Body:
-    """A request's body reader and its content type."""
+    """A request's body reader, its content type, and whether it carries
+    the router's adopt header."""
 
-    def __init__(self, read: Callable[[], bytes], content_type: Optional[str] = None):
+    def __init__(self, read: Callable[[], bytes], content_type: Optional[str] = None,
+                 adopt: bool = False):
         self._read = read
         self.content_type = content_type or ""
+        self.adopt = bool(adopt)
 
     def __call__(self) -> bytes:
         return self._read()
@@ -199,8 +278,16 @@ class GordoApp:
         stream_max_sessions: Optional[int] = None,
         stream_max_backlog: Optional[int] = None,
         stream_idle_s: Optional[float] = None,
+        shard_manifest: Optional[str] = None,
+        replica_id: Optional[str] = None,
     ):
         self.device = resolve_device(device)
+        shard_manifest = _setting(shard_manifest, SHARD_MANIFEST)
+        shard = None
+        if shard_manifest:
+            shard = ShardSpec.load(shard_manifest, _setting(replica_id, REPLICA_ID) or None)
+            logger.info("Serving shard %s of replica set %s", shard.replica_id,
+                        list(shard.ring.replicas))
         # a directory, or a symlink resolved on every request
         self.collection_dir = collection_dir or os.environ[MODEL_COLLECTION_DIR_ENV_VAR]
         # the real directory the symlink pointed at when last resolved
@@ -218,6 +305,7 @@ class GordoApp:
             stream_max_backlog=_setting(stream_max_backlog, STREAM_MAX_BACKLOG),
             stream_idle_after_s=_setting(stream_idle_s, STREAM_IDLE_S),
             device=self.device,
+            shard=shard,
         )
 
     # -- WSGI plumbing -----------------------------------------------------
@@ -229,6 +317,7 @@ class GordoApp:
             query_string=environ.get("QUERY_STRING", ""),
             revision=environ.get("HTTP_REVISION"),
             content_type=environ.get("CONTENT_TYPE"),
+            adopt=bool(environ.get("HTTP_" + ADOPT_HEADER.upper().replace("-", "_"))),
         )
         headers = [
             ("Content-Type", response.mimetype),
@@ -247,10 +336,12 @@ class GordoApp:
         query_string: str = "",
         revision: Optional[str] = None,
         content_type: Optional[str] = None,
+        adopt: bool = False,
     ) -> Response:
         """One request: ``revision`` is the ``revision`` header's value; a
-        ``revision`` in ``query_string`` takes precedence over it."""
-        read_body = Body(read_body, content_type)
+        ``revision`` in ``query_string`` takes precedence over it;
+        ``adopt`` whether the router's adopt header came with it."""
+        read_body = Body(read_body, content_type, adopt)
         view, url_args = self._match(method, path)
         served = current = self._current_revision()
         try:
@@ -301,7 +392,9 @@ class GordoApp:
                 {"error": "Something unexpected happened; check your input data"}, 500
             )
         if served.directory is not None:  # a 410 names no revision
-            if response.payload is not None:
+            # the OpenAPI document keeps its schema: the revision rides
+            # the header only
+            if response.payload is not None and view != "specs":
                 response.payload["revision"] = served.name
             response.headers["revision"] = served.name
         if response.payload is not None:
@@ -412,7 +505,12 @@ class GordoApp:
         X, y = server_utils.extract_X_y(self._json_body(read_body), tags, target_tags)
         return tags, target_tags, X, y
 
-    # -- casualties --------------------------------------------------------
+    # -- casualties and shards ---------------------------------------------
+    def _refuse_wrong_shard(self, read_body, names) -> None:
+        """421 for machines of another replica's shard, unless the
+        router's adopt header routed them here (a no-op unsharded)."""
+        self.catalog.refuse_wrong_shard(names, adopt=read_body.adopt)
+
     def _refuse_unavailable(self, served: Revision, names) -> None:
         """409 when a requested machine is a casualty of the revision's
         build (``build_report.json``), with the JAX server's body."""
@@ -429,8 +527,15 @@ class GordoApp:
             )
 
     # -- views -------------------------------------------------------------
+    def view_specs(self, served: Revision, read_body) -> Response:
+        """The OpenAPI 3.0.3 document of the routes this server serves."""
+        return _json_response(openapi_document(_ROUTES, "gordo-tpu model server"))
+
     def view_healthcheck(self, served: Revision, read_body) -> Response:
         return Response(b"", 200)
+
+    def view_server_version(self, served: Revision, read_body) -> Response:
+        return _json_response({"version": __version__})
 
     def view_healthz(self, served: Revision, read_body) -> Response:
         """Readiness, the JAX server's body: 200 while the server can take
@@ -466,12 +571,20 @@ class GordoApp:
         return response
 
     def view_models(self, served: Revision, read_body, gordo_project: str) -> Response:
-        """The revision's machines; casualties of its build are listed
-        under ``unavailable`` instead, with their reasons."""
-        unavailable = self.catalog.unavailable_machines(served.directory)
-        payload: Dict[str, Any] = {"models": list(self.catalog.servable_machines(served.directory))}
-        if unavailable:
-            payload["unavailable"] = unavailable
+        """The revision's machines (a sharded replica's: its shard's);
+        casualties of its build are listed under ``unavailable`` instead,
+        with their reasons, and a sharded replica names its shard."""
+        catalog = self.catalog
+        unavailable = catalog.unavailable_machines(served.directory)
+        payload: Dict[str, Any] = {"models": list(catalog.servable_machines(served.directory))}
+        # by ring ownership, not presence on disk: a casualty of the fetch
+        # has no artifact but belongs to one shard all the same
+        mine = {name: info for name, info in unavailable.items()
+                if catalog.shard is None or catalog.shard.owns(name)}
+        if mine:
+            payload["unavailable"] = mine
+        if catalog.shard is not None:
+            payload["shard"] = catalog.shard.to_dict()
         return _json_response(payload)
 
     def view_revisions(self, served: Revision, read_body, gordo_project: str) -> Response:
@@ -528,6 +641,7 @@ class GordoApp:
     ) -> Response:
         start = timeit.default_timer()
         self._refuse_unavailable(served, [gordo_name])
+        self._refuse_wrong_shard(read_body, [gordo_name])
         model = self._get_model(served, gordo_name)
         tags, target_tags, X, _ = self._extract(
             read_body, self._get_metadata(served, gordo_name)
@@ -560,6 +674,7 @@ class GordoApp:
     ) -> Response:
         start = timeit.default_timer()
         self._refuse_unavailable(served, [gordo_name])
+        self._refuse_wrong_shard(read_body, [gordo_name])
         model = self._get_model(served, gordo_name)
         metadata = self._get_metadata(served, gordo_name)
         _, _, X, y = self._extract(read_body, metadata)
@@ -613,14 +728,19 @@ class GordoApp:
         against its columns."""
         return server_utils.verify_dataframe(server_utils.dataframe_from_dict(raw), columns)
 
-    def _fleet_scorer(self, served: Revision) -> Tuple[tuple, tuple]:
-        """(the revision's servable machines, the (scorer, prefixes,
-        fallback) over all of them). One scorer a revision, whatever
-        machines a request names: each group's weights are stacked once,
-        a request for the whole group or a subset that rounds up to it
-        scatters into that stack, a smaller one gathers from it, and
-        requests for different machines coalesce in one batcher."""
+    def _fleet_scorer(self, served: Revision, names=()) -> Tuple[tuple, tuple]:
+        """(the machines scored, the (scorer, prefixes, fallback) over all
+        of them): the revision's servable machines (a sharded replica's
+        shard), with any of ``names`` it adopts. One scorer a revision,
+        whatever machines a request names: each group's weights are
+        stacked once, a request for the whole group or a subset that
+        rounds up to it scatters into that stack, a smaller one gathers
+        from it, and requests for different machines coalesce in one
+        batcher."""
         servable = self.catalog.servable_machines(served.directory)
+        adopted = sorted(set(names) - set(servable))
+        if adopted:
+            servable = tuple(sorted((*servable, *adopted)))
         return servable, self.catalog.fleet_scorer(
             served.directory, servable, lambda name: self._get_model(served, name)
         )
@@ -689,8 +809,9 @@ class GordoApp:
             )
         names = tuple(sorted(machines))
         self._refuse_unavailable(served, names)
+        self._refuse_wrong_shard(read_body, names)
         models = {name: self._get_model(served, name) for name in names}
-        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served)
+        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served, names)
         parsed = self._fleet_inputs(served, names, machines, prefixes, fallback, anomaly=False)
         if isinstance(parsed, Response):
             return parsed
@@ -739,6 +860,7 @@ class GordoApp:
             )
         names = tuple(sorted(machines))
         self._refuse_unavailable(served, names)
+        self._refuse_wrong_shard(read_body, names)
         models = {name: self._get_model(served, name) for name in names}
         non_anomaly = [n for n, m in models.items() if not isinstance(m, DiffBasedAnomalyDetector)]
         if non_anomaly:
@@ -749,7 +871,7 @@ class GordoApp:
                 },
                 422,
             )
-        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served)
+        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served, names)
         parsed = self._fleet_inputs(served, names, machines, prefixes, fallback, anomaly=True)
         if isinstance(parsed, Response):
             return parsed
@@ -832,8 +954,9 @@ class GordoApp:
             )
         names = tuple(sorted(spec))
         self._refuse_unavailable(served, names)
+        self._refuse_wrong_shard(read_body, names)
         models = {name: self._get_model(served, name) for name in names}
-        _, (scorer, prefixes, fallback) = self._fleet_scorer(served)
+        _, (scorer, prefixes, fallback) = self._fleet_scorer(served, names)
         unstackable = [n for n in names if scorer is None or n in fallback
                        or n not in scorer.names]
         if unstackable:
@@ -927,7 +1050,7 @@ class GordoApp:
                 )
         session.admit()  # StreamShed: 503
         try:
-            servable, (scorer, _, _) = self._fleet_scorer(served)
+            servable, (scorer, _, _) = self._fleet_scorer(served, session.names)
             try:
                 results = session.apply_update(
                     updates,
@@ -969,5 +1092,7 @@ def build_app(collection_dir: Optional[str] = None, device: DeviceLike = None,
     (else ``GORDO_BATCH_WAIT_MS``, ``GORDO_BATCH_QUEUE_LIMIT``,
     ``GORDO_SCORER_CACHE_SIZE``, ``GORDO_STREAM_MAX_SESSIONS``,
     ``GORDO_STREAM_MAX_BACKLOG``, ``GORDO_STREAM_IDLE_S``, else 0, 64, 16,
-    64, 8 and 30)."""
+    64, 8 and 30); ``shard_manifest`` and ``replica_id`` (else
+    ``GORDO_SHARD_MANIFEST`` and ``GORDO_REPLICA_ID``; unset: the whole
+    collection)."""
     return GordoApp(collection_dir, device, **settings)

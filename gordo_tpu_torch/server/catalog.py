@@ -1,10 +1,14 @@
 """
-The serving catalog (the port of ``gordo_tpu.server.catalog``'s build
-report, fleet-scorer and batcher parts): per-process serving state for
-any number of revision directories, shared by every request thread.
+The serving catalog (the port of ``gordo_tpu.server.catalog``): per-
+process serving state for any number of revision directories, shared by
+every request thread.
 
-- ``build_report.json`` of a revision, cached by its mtime, and the
-  machines it records as casualties (:meth:`ServingCatalog.unavailable_machines`);
+- :class:`CollectionView`, which holds no model and needs no card (the
+  router uses it alone): ``build_report.json`` of a revision, cached by
+  its mtime, the machines it records as casualties
+  (:meth:`CollectionView.unavailable_machines`), the revision's machines,
+  and the replica's shard (:class:`ShardSpec`): the machines it owns and
+  the structured 421 for those it does not (:meth:`CollectionView.refuse_wrong_shard`);
 - the fleet scorers, an LRU keyed by (real revision directory, machine
   names) and bounded by ``scorer_cache_size``; the server asks for one
   over a revision's servable machines, whatever subset a request names,
@@ -15,25 +19,88 @@ any number of revision directories, shared by every request thread.
 - the stream sessions (``streaming/session.py``), expired on such a roll
   (:meth:`ServingCatalog.expire_stale_streams`).
 
+A shard manifest (:func:`write_shard_manifest`) is three JSON keys,
+``replicas``, ``vnodes`` and optionally ``replica_id``: every process
+given the same one computes the same machine-to-replica map
+(``gordo_tpu_torch.router.ring``).
+
 Locks are held for dictionary reads and writes only, never while a scorer
-is built. Left out: shards and AOT program stores (ROADMAP.md queue 1
-items 8 and 9).
+is built. Left out: AOT program stores (ROADMAP.md queue 1 item 9).
 """
 
 import json
 import logging
 import os
 import threading
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from gordo_tpu_torch.device import DeviceLike
+from gordo_tpu_torch.router.ring import DEFAULT_VNODES, HashRing
 from gordo_tpu_torch.server import batching
+from gordo_tpu_torch.server.utils import ApiError
 from gordo_tpu_torch.streaming import session as stream_session
+from gordo_tpu_torch.utils.atomic import atomic_write_json
 
 logger = logging.getLogger(__name__)
 
 #: the casualty record the fleet builder writes next to the artifacts
 BUILD_REPORT_FILENAME = "build_report.json"
+#: the request header by which the router tells a sharded replica to serve
+#: machines outside its shard (failover, hedging): deliberate adoption
+ADOPT_HEADER = "X-Gordo-Shard-Adopt"
+
+
+class ShardSpec:
+    """This replica's place on the ring: ``(replica_id, replicas,
+    vnodes)``."""
+
+    def __init__(self, replica_id: str, replicas: Sequence[str], vnodes: int = DEFAULT_VNODES):
+        if replica_id not in replicas:
+            raise ValueError(
+                f"replica_id {replica_id!r} is not in the replica set {sorted(replicas)}"
+            )
+        self.replica_id = replica_id
+        self.ring = HashRing(replicas, vnodes)
+
+    @classmethod
+    def load(cls, path: str, replica_id: Optional[str] = None) -> "ShardSpec":
+        """A shard manifest's spec; ``replica_id`` (``--replica-id``,
+        ``GORDO_REPLICA_ID``) overrides the manifest's own, so one shared
+        manifest serves every replica."""
+        with open(path) as fh:
+            manifest = json.load(fh)
+        rid = replica_id or manifest.get("replica_id")
+        if not rid:
+            raise ValueError(
+                f"Shard manifest {path} names no replica_id and none was given "
+                "(--replica-id / GORDO_REPLICA_ID)"
+            )
+        replicas = manifest.get("replicas")
+        if not replicas or not isinstance(replicas, list):
+            raise ValueError(f"Shard manifest {path} must carry a non-empty 'replicas' list")
+        return cls(str(rid), [str(r) for r in replicas],
+                   int(manifest.get("vnodes") or DEFAULT_VNODES))
+
+    def owner(self, machine_name: str) -> str:
+        return self.ring.owner(machine_name)
+
+    def owns(self, machine_name: str) -> bool:
+        return self.ring.owner(machine_name) == self.replica_id
+
+    def to_dict(self) -> dict:
+        return {"replica_id": self.replica_id, "replicas": list(self.ring.replicas),
+                "vnodes": self.ring.vnodes}
+
+
+def write_shard_manifest(path: str, replicas: Sequence[str], vnodes: int = DEFAULT_VNODES,
+                         replica_id: Optional[str] = None) -> str:
+    """Write a shard manifest at ``path`` (atomically: every replica reads
+    it at startup)."""
+    manifest: Dict[str, Any] = {"replicas": list(replicas), "vnodes": int(vnodes)}
+    if replica_id is not None:
+        manifest["replica_id"] = replica_id
+    atomic_write_json(path, manifest, indent=2, sort_keys=True)
+    return path
 
 
 def _evict_lru(cache: Dict, size: int, on_evict: Optional[Callable] = None) -> None:
@@ -45,30 +112,43 @@ def _evict_lru(cache: Dict, size: int, on_evict: Optional[Callable] = None) -> N
             on_evict(value)
 
 
-class ServingCatalog:
-    def __init__(self, scorer_cache_size: int = 16, batch_wait_s: float = 0.0,
-                 batch_queue_limit: int = 64,
-                 stream_max_sessions: int = stream_session.DEFAULT_MAX_SESSIONS,
-                 stream_max_backlog: int = stream_session.DEFAULT_MAX_BACKLOG,
-                 stream_idle_after_s: float = stream_session.DEFAULT_IDLE_AFTER_S,
-                 device: DeviceLike = "cpu"):
-        self.scorer_cache_size = int(scorer_cache_size)
-        self.batch_wait_s = float(batch_wait_s)
-        self.batch_queue_limit = int(batch_queue_limit)
-        # stream windows live on the serving device, whose free memory
-        # governs how many sessions the table keeps
-        self.streams = stream_session.SessionManager(
-            max_sessions=stream_max_sessions, max_backlog=stream_max_backlog,
-            idle_after_s=stream_idle_after_s, device=device,
-        )
-        # (realpath(revision dir), names) -> (scorer, prefixes, fallback)
-        self._fleet_scorers: Dict[tuple, tuple] = {}
-        self._fleet_scorers_lock = threading.Lock()
-        self._batchers: Dict[tuple, batching.RequestBatcher] = {}
-        self._batchers_lock = threading.Lock()
+class CollectionView:
+    """What a process knows of a collection from its directory alone: the
+    build report's casualties, the machines, and this replica's shard
+    (None: the whole collection). It holds no model and no device."""
+
+    def __init__(self, shard: Optional[ShardSpec] = None):
+        self.shard = shard
         # realpath(report) -> (mtime, report)
         self._build_reports: Dict[str, tuple] = {}
         self._build_reports_lock = threading.Lock()
+
+    def owned_machines(self, collection_dir: str) -> Optional[List[str]]:
+        """The machines this replica's shard owns, or None unsharded."""
+        if self.shard is None:
+            return None
+        return [name for name in self.list_machines(collection_dir) if self.shard.owns(name)]
+
+    def refuse_wrong_shard(self, names: Iterable[str], adopt: bool) -> None:
+        """421 (Misdirected Request) naming each machine's owner when a
+        sharded replica is asked for machines the ring gives another,
+        unless ``adopt`` (the router's ``ADOPT_HEADER``) says it routed
+        them here on purpose."""
+        if self.shard is None or adopt:
+            return
+        not_mine = {name: {"owner": self.shard.owner(name)} for name in names
+                    if not self.shard.owns(name)}
+        if not_mine:
+            raise ApiError(
+                {
+                    "error": "Machine(s) not in this replica's shard: "
+                    + ", ".join(f"{name} (owner {info['owner']})"
+                                for name, info in sorted(not_mine.items())),
+                    "wrong_shard": not_mine,
+                    "replica_id": self.shard.replica_id,
+                },
+                421,
+            )
 
     # -- casualties ----------------------------------------------------------
     def build_report(self, collection_dir: str) -> dict:
@@ -128,9 +208,40 @@ class ServingCatalog:
             return []
 
     def servable_machines(self, collection_dir: str) -> Tuple[str, ...]:
-        """The revision's machines less its build's casualties."""
+        """The revision's machines (a sharded replica's: its shard's) less
+        its build's casualties."""
         unavailable = self.unavailable_machines(collection_dir)
-        return tuple(n for n in self.list_machines(collection_dir) if n not in unavailable)
+        owned = self.owned_machines(collection_dir)
+        machines = self.list_machines(collection_dir) if owned is None else owned
+        return tuple(n for n in machines if n not in unavailable)
+
+
+class ServingCatalog(CollectionView):
+    """The collection view with the device's serving state: fleet
+    scorers, batchers and stream sessions (module note), on ``device``
+    (the card unless ``"cpu"`` is asked for)."""
+
+    def __init__(self, scorer_cache_size: int = 16, batch_wait_s: float = 0.0,
+                 batch_queue_limit: int = 64,
+                 stream_max_sessions: int = stream_session.DEFAULT_MAX_SESSIONS,
+                 stream_max_backlog: int = stream_session.DEFAULT_MAX_BACKLOG,
+                 stream_idle_after_s: float = stream_session.DEFAULT_IDLE_AFTER_S,
+                 device: DeviceLike = None, shard: Optional[ShardSpec] = None):
+        super().__init__(shard)
+        self.scorer_cache_size = int(scorer_cache_size)
+        self.batch_wait_s = float(batch_wait_s)
+        self.batch_queue_limit = int(batch_queue_limit)
+        # stream windows live on the serving device, whose free memory
+        # governs how many sessions the table keeps
+        self.streams = stream_session.SessionManager(
+            max_sessions=stream_max_sessions, max_backlog=stream_max_backlog,
+            idle_after_s=stream_idle_after_s, device=device,
+        )
+        # (realpath(revision dir), names) -> (scorer, prefixes, fallback)
+        self._fleet_scorers: Dict[tuple, tuple] = {}
+        self._fleet_scorers_lock = threading.Lock()
+        self._batchers: Dict[tuple, batching.RequestBatcher] = {}
+        self._batchers_lock = threading.Lock()
 
     # -- fleet scorers -------------------------------------------------------
     def fleet_scorer(

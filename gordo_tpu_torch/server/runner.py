@@ -1,6 +1,7 @@
 """
 Runs the port's WSGI app on the standard library's HTTP server, one
-thread per request.
+thread per connection; connections are kept alive between requests
+(HTTP/1.1), so a router's calls to a replica reuse them.
 
     python -m gordo_tpu_torch.server.runner --collection-dir <dir> [--port 5555]
 
@@ -9,13 +10,16 @@ thread per request.
 the fleet routes' dynamic batching and scorer cache (defaults: the
 ``GORDO_BATCH_WAIT_MS``, ``GORDO_BATCH_QUEUE_LIMIT`` and
 ``GORDO_SCORER_CACHE_SIZE`` environment variables, else 0, 64 and 16;
-a wait of 0 turns batching off).
+a wait of 0 turns batching off). ``--shard-manifest`` and
+``--replica-id`` (``GORDO_SHARD_MANIFEST``, ``GORDO_REPLICA_ID``) serve
+one replica's shard of the collection (``server/app.py``).
 """
 
 import argparse
+import io
 import logging
 from socketserver import ThreadingMixIn
-from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
+from wsgiref.simple_server import ServerHandler, WSGIRequestHandler, WSGIServer, make_server
 
 from gordo_tpu_torch.server.app import build_app
 
@@ -26,8 +30,44 @@ class ThreadingWSGIServer(ThreadingMixIn, WSGIServer):
     daemon_threads = True
 
 
+class _Http11Handler(ServerHandler):
+    http_version = "1.1"
+
+
 class QuietHandler(WSGIRequestHandler):
-    """Request lines go to the debug log instead of stderr."""
+    """Keeps a connection open across requests (HTTP/1.1, unless the
+    client asks to close it); request lines go to the debug log instead
+    of stderr. A request's body is read whole before the app runs, so a
+    reply that leaves it unread does not desynchronise the connection
+    (the app's replies always carry their Content-Length)."""
+
+    protocol_version = "HTTP/1.1"
+    # a reply goes out as two writes (headers, body): with Nagle's algorithm
+    # the body would wait for the client's delayed ACK of the headers
+    disable_nagle_algorithm = True
+
+    def handle(self):
+        self.close_connection = True
+        self._handle_one()
+        while not self.close_connection:
+            self._handle_one()
+
+    def _handle_one(self):
+        self.raw_requestline = self.rfile.readline(65537)
+        if not self.raw_requestline or len(self.raw_requestline) > 65536:
+            self.close_connection = True
+            return
+        if not self.parse_request():
+            return
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            length = 0
+        body = io.BytesIO(self.rfile.read(length) if length > 0 else b"")
+        handler = _Http11Handler(body, self.wfile, self.get_stderr(), self.get_environ(),
+                                 multithread=True)
+        handler.request_handler = self
+        handler.run(self.server.get_app())
 
     def log_message(self, format, *args):
         logger.debug("%s - " + format, self.address_string(), *args)
@@ -54,11 +94,16 @@ def main(argv=None) -> None:
                         help="batch capacity and admission bound of each batcher")
     parser.add_argument("--scorer-cache-size", type=int, default=None,
                         help="fleet scorers (and batchers) kept")
+    parser.add_argument("--shard-manifest", default=None,
+                        help="serve only this replica's shard of the manifest's replica set")
+    parser.add_argument("--replica-id", default=None,
+                        help="this replica's id on the ring (overrides the manifest's)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     app = build_app(args.collection_dir, args.device, batch_wait_ms=args.batch_wait_ms,
                     batch_queue_limit=args.queue_limit,
-                    scorer_cache_size=args.scorer_cache_size)
+                    scorer_cache_size=args.scorer_cache_size,
+                    shard_manifest=args.shard_manifest, replica_id=args.replica_id)
     server = make_http_server(app, args.host, args.port)
     logger.info("Serving on %s:%d", args.host, server.server_port)
     try:

@@ -88,7 +88,7 @@ def min_headroom_fraction() -> float:
         return DEFAULT_MIN_HEADROOM
 
 
-def device_headroom(device: DeviceLike = "cpu") -> Optional[float]:
+def device_headroom(device: DeviceLike = None) -> Optional[float]:
     """The fraction of the card's memory that is free, or None for a
     device that reports none (the CPU)."""
     device = resolve_device(device)
@@ -292,7 +292,7 @@ class SessionManager:
 
     def __init__(self, max_sessions: int = DEFAULT_MAX_SESSIONS,
                  max_backlog: int = DEFAULT_MAX_BACKLOG,
-                 idle_after_s: float = DEFAULT_IDLE_AFTER_S, device: DeviceLike = "cpu"):
+                 idle_after_s: float = DEFAULT_IDLE_AFTER_S, device: DeviceLike = None):
         self.max_sessions = max(1, int(max_sessions))
         self.max_backlog = max(1, int(max_backlog))
         self.idle_after_s = float(idle_after_s)

@@ -176,7 +176,8 @@ def test_mid_batch_failure_poisons_only_the_culprit():
 
 
 def test_catalog_rebuilds_a_stale_batcher_and_stops_evicted_ones():
-    catalog = ServingCatalog(scorer_cache_size=2, batch_wait_s=0.01, batch_queue_limit=4)
+    catalog = ServingCatalog(scorer_cache_size=2, batch_wait_s=0.01, batch_queue_limit=4,
+                             device="cpu")
     first, other = StubScorer(), StubScorer()
     a = catalog.batcher(("rev", ("a",)), first)
     assert catalog.batcher(("rev", ("a",)), first) is a

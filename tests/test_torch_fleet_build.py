@@ -252,7 +252,7 @@ def test_on_error_raise_exits_with_the_failure(tmp_path, fleet_env):
 @pytest.mark.parametrize(
     "flag,value",
     [("--workers", "2"), ("--worker-id", "0"), ("--lease-ttl", "5"), ("--max-attempts", "2"),
-     ("--ledger-status", "x"), ("--resume", "1"), ("--aot-cache", "1"),
+     ("--ledger-status", "x"), ("--aot-cache", "1"),
      ("--model-register-dir", "x")],
 )
 def test_unported_options_name_their_roadmap_item(flag, value, capsys, fleet_env):
@@ -270,7 +270,7 @@ def test_options_that_ask_for_what_the_port_does_pass(fleet_env):
                               "--prefetch-depth", "0", "--workers", "1", "--no-resume",
                               "--no-aot-cache"])
     cli._refuse_unported(parser, args)
-    monkeypatch.setenv("GORDO_FLEET_RESUME", "1")
+    monkeypatch.setenv("GORDO_AOT_CACHE", "1")
     with pytest.raises(SystemExit):
         cli._refuse_unported(parser, parser.parse_args(["build-fleet", "[]", "/x"]))
 

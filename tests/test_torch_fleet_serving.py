@@ -434,7 +434,7 @@ def test_catalog_scorer_leaves_out_a_machine_that_does_not_load(feedforward_pair
             raise FileNotFoundError(name)
         return port_ests[name]
 
-    scorer, _, fallback = ServingCatalog().fleet_scorer(str(tmp_path), ("broken", *port_ests),
+    scorer, _, fallback = ServingCatalog(device="cpu").fleet_scorer(str(tmp_path), ("broken", *port_ests),
                                                         load)
     assert sorted(scorer.names) == sorted(port_ests) and fallback == {}
     assert "leaving out broken" in caplog.text

@@ -22,6 +22,7 @@ FORBIDDEN = [
     "pyarrow",
     "dateutil",
     "click",
+    "requests",
 ]
 
 
@@ -64,5 +65,11 @@ def test_port_imports_no_jax_and_no_missing_libraries():
         "gordo_tpu_torch.server.fleet_serving",
         "gordo_tpu_torch.server.batching",
         "gordo_tpu_torch.server.catalog",
+        "gordo_tpu_torch.utils.atomic",
+        "gordo_tpu_torch.parallel.checkpoint",
+        "gordo_tpu_torch.parallel.sweep",
+        "gordo_tpu_torch.router.ring",
+        "gordo_tpu_torch.router.health",
+        "gordo_tpu_torch.router.app",
     } <= set(names)
     assert loaded == []
