@@ -204,7 +204,31 @@ Phases, each raising on failure (no result line is printed then):
    subprocess (all eight machines reused, no launch) and again with one
    Transformer's artifact removed (only it rebuilt, 1 epoch as in phase
    10; the other artifacts untouched), seconds and launches of each run;
-15. one JSON line of per-kernel numbers, each time with the timer that
+15. lifecycle: a copy of phase 10's collection as ``models/<revision>``
+   plus a ``latest`` symlink, every tick over ``LIFECYCLE_WINDOW`` (the
+   span's last 28 days, 4032 rows a machine; widths as the config's):
+   (a) a dry tick (``--no-promote``, thresholds no machine passes) on the
+   card and on the CPU: each Transformer's ratio (card within 1e-4 of
+   CPU) and exceedance (within one row's share), the monitored list, and
+   flash forward launches only; (b) ``python -m gordo_tpu_torch.cli lifecycle tick`` in a
+   subprocess with ``GORDO_FAULT_INJECT`` shifting three of the four
+   Transformers, degrading the second's candidate and poisoning the
+   third's refit at epoch 0 (the thresholds the defaults, or, when (a)
+   found a clean machine over them, twice its largest ratio and halfway
+   from its largest exceedance to 1, printed): the three drifted, the
+   first promoted, the second rejected, the third quarantined; the
+   refit's launches (forward, dq and dk/dv) apart from the scan's and the
+   shadow gate's (forward only); a new revision whose retained artifacts
+   are hard links, and ``latest`` flipped; the port's server on ``latest``
+   (in this process), asked before and after: the promoted machine's
+   reply changed, the retained machines' bitwise the same, the
+   quarantined machine 409; (c) a ``promote:torn`` tick: ``latest``
+   untouched, the ``.promote-*`` directory left; (d) the first
+   Transformer streamed over the window through that server with the
+   event log on, then a tick fed by the log: that machine assessed from
+   the stream (``source: stream``) with no window fetch, its ratio within
+   1e-4 of a scan of the same rows and its exceedance within a row;
+16. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -3739,6 +3763,49 @@ REPLICA_DRIVER = (
 )
 
 
+# Phase 15: the lifecycle over a copy of phase 10's collection laid out as
+# models/<FLEET_COLLECTION> plus a `latest` symlink. Every tick scores and
+# refits over LIFECYCLE_WINDOW, the config span's last 28 days (4032 rows
+# a machine where phase 10's build read 21 744: the phase's time budget;
+# widths are the config's), and a refit trains its window's first three
+# quarters 1 epoch, as phase 10's build. LIFECYCLE_NEVER are thresholds no
+# machine passes: a tick under them scores every machine and refits none.
+LIFECYCLE_WINDOW = ("2019-05-04T00:00:00+00:00", "2019-06-01T00:00:00+00:00")
+LIFECYCLE_NEVER = {"ratio_threshold": 1e12, "exceedance_threshold": 2.0}
+LIFECYCLE_DEFAULTS = {"ratio_threshold": 1.0, "exceedance_threshold": 0.5}
+LIFECYCLE_RTOL = 1e-4  # card against CPU, the Transformer's tolerance
+# one scored row's share of a window's exceedance (3969 windows of 4032 rows)
+LIFECYCLE_ONE_ROW = 1.0 / 3900
+LIFECYCLE_SHIFTED = tuple(f"{MACHINE}-{i}" for i in (1, 2, 3))
+LIFECYCLE_STREAM_UPDATE = 1008
+# runs `python -m gordo_tpu_torch.cli lifecycle ...`'s main in a
+# subprocess and writes that process's flash launches, and those made
+# inside the tick's refit and inside its shadow gate, to the file named
+# first
+LIFECYCLE_DRIVER = (
+    "import json, sys\n"
+    "from gordo_tpu_torch.cli.cli import main\n"
+    "from gordo_tpu_torch.lifecycle.manager import LifecycleManager\n"
+    "from gordo_tpu_torch.ops import flash_attention as fa\n"
+    "phases = {'refit': {}, 'shadow': {}}\n"
+    "def counted(phase, method):\n"
+    "    def run(*args, **kwargs):\n"
+    "        before = dict(fa.kernel_launches)\n"
+    "        try:\n"
+    "            return method(*args, **kwargs)\n"
+    "        finally:\n"
+    "            for k, v in fa.kernel_launches.items():\n"
+    "                phases[phase][k] = phases[phase].get(k, 0) + v - before[k]\n"
+    "    return run\n"
+    "LifecycleManager._refit = counted('refit', LifecycleManager._refit)\n"
+    "LifecycleManager._shadow_one = counted('shadow', LifecycleManager._shadow_one)\n"
+    "code = main(sys.argv[2:])\n"
+    "with open(sys.argv[1], 'w') as fh:\n"
+    "    json.dump({'kernels': fa.kernel_launches, 'phases': phases}, fh)\n"
+    "sys.exit(code)\n"
+)
+
+
 def free_port() -> int:
     import socket
 
@@ -4185,6 +4252,267 @@ def plane_phase(torch, fa, profile: bool, collection: str, device=None):
     return report
 
 
+def lifecycle_windows(collection: str, names) -> dict:
+    """Each machine's ``LIFECYCLE_WINDOW`` rows: (X, row keys, tags)."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.data.base import to_datetimes
+
+    out = {}
+    for name in names:
+        dataset = dict(serializer.load_metadata(os.path.join(collection, name))["dataset"],
+                       train_start_date=LIFECYCLE_WINDOW[0], train_end_date=LIFECYCLE_WINDOW[1])
+        X, _, stamps = _get_dataset(dataset).get_data()
+        keys = [stamp.isoformat() for stamp in to_datetimes(stamps.astype(np.int64))]
+        out[name] = (np.asarray(X), keys, dataset["tag_list"])
+    return out
+
+
+def launches_apart(total: dict, *parts: dict) -> dict:
+    """``total`` less each of ``parts``, kernel by kernel."""
+    return {k: v - sum(part.get(k, 0) for part in parts) for k, v in total.items()}
+
+
+def lifecycle_phase(torch, fa, profile: bool, collection: str, device=None):
+    """Phase 15 (the module docstring's): (a) a dry tick on the card and
+    on the CPU, (b) ``lifecycle tick`` in a subprocess under drift,
+    degrade and NaN faults with the port's server answering from
+    ``latest`` around it, (c) a torn promotion, (d) a stream-fed tick;
+    on the card unless ``device`` names another (a rehearsal)."""
+    import shutil
+
+    from gordo_tpu_torch.lifecycle import DriftMonitor, LifecycleConfig, LifecycleManager
+    from gordo_tpu_torch.lifecycle import TornPromotion, read_promotion_report
+    from gordo_tpu_torch.robustness import faults
+    from gordo_tpu_torch.server.app import build_app
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    transformers = [f"{MACHINE}-{i}" for i in range(FLEET_TRANSFORMERS)]
+    quad = {kernel: f"{kernel}_quad" for kernel in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV)}
+    device_args = ["--device", device] if device else []
+    report = {"window": list(LIFECYCLE_WINDOW)}
+    workdir = tempfile.mkdtemp(prefix="lifecycle-")
+
+    def config(**overrides):
+        return LifecycleConfig(window_start=LIFECYCLE_WINDOW[0],
+                               window_end=LIFECYCLE_WINDOW[1], **overrides)
+
+    def backward(counts):
+        return counts[quad[fa.KERNEL_DQ]] + counts[quad[fa.KERNEL_DKV]]
+
+    try:
+        models = os.path.join(workdir, "models")
+        base = os.path.join(models, FLEET_COLLECTION)
+        shutil.copytree(collection, base)
+        pointer = os.path.join(models, "latest")
+        os.symlink(FLEET_COLLECTION, pointer)
+
+        # (a) the dry tick: every machine scored, none refitted, on the card
+        # and on the CPU, each with a monitor of its own
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = LifecycleManager(pointer, config(promote=False, **LIFECYCLE_NEVER),
+                                monitor=DriftMonitor(**LIFECYCLE_NEVER), device=device).tick()
+        report["dry_s"] = time.perf_counter() - t0
+        report["dry_launches"] = dict(fa.kernel_launches)
+        t0 = time.perf_counter()
+        cpu = LifecycleManager(pointer, config(promote=False, **LIFECYCLE_NEVER),
+                               monitor=DriftMonitor(**LIFECYCLE_NEVER), device="cpu").tick()
+        report["dry_cpu_s"] = time.perf_counter() - t0
+        if card.monitored != transformers or cpu.monitored != transformers or card.drifted:
+            raise AssertionError(f"dry tick: monitored {card.monitored}, drifted {card.drifted}")
+        stats = {}
+        for name in transformers:
+            got = card.report["decisions"][name]["drift"]
+            want = cpu.report["decisions"][name]["drift"]
+            stats[name] = {"ratio": got["ratio"], "exceedance": got["exceedance"],
+                           "cpu_ratio": want["ratio"], "cpu_exceedance": want["exceedance"]}
+            # the exceedance counts rows over 1: within one row's share
+            if not (abs(got["ratio"] - want["ratio"]) <= LIFECYCLE_RTOL * abs(want["ratio"])
+                    and abs(got["exceedance"] - want["exceedance"]) <= LIFECYCLE_ONE_ROW):
+                raise AssertionError(f"{name}: card {got} against CPU {want}")
+        report["dry_stats"] = stats
+        log("lifecycle dry tick monitored", card.monitored, "stats", json.dumps(stats))
+        log("lifecycle dry tick launches",
+            json.dumps({k: v for k, v in report["dry_launches"].items() if v}))
+        if report["dry_launches"][quad[fa.KERNEL]] <= 0 or backward(report["dry_launches"]):
+            raise AssertionError(f"dry tick launches: {report['dry_launches']}")
+        ratio = max(s["ratio"] for s in stats.values())
+        exceedance = max(s["exceedance"] for s in stats.values())
+        thresholds = dict(LIFECYCLE_DEFAULTS)
+        if (ratio > LIFECYCLE_DEFAULTS["ratio_threshold"]
+                or exceedance > LIFECYCLE_DEFAULTS["exceedance_threshold"]):
+            thresholds = {"ratio_threshold": 2.0 * ratio,
+                          "exceedance_threshold": (1.0 + exceedance) / 2.0}
+        report["thresholds"] = thresholds
+        log("lifecycle thresholds", json.dumps(thresholds), "(clean max ratio", ratio,
+            "exceedance", exceedance, ")")
+        threshold_args = ["--ratio-threshold", repr(thresholds["ratio_threshold"]),
+                          "--exceedance-threshold", repr(thresholds["exceedance_threshold"])]
+
+        # (b) the drifted tick in a subprocess, the server on latest around it
+        spec = ";".join([f"drift:shift:{name}" for name in LIFECYCLE_SHIFTED]
+                        + [f"refit:degrade:{MACHINE}-2", f"refit:nan:{MACHINE}-3@epoch:0"])
+        data = lifecycle_windows(base, transformers)
+        bodies = {}
+        for name, (X, keys, tags) in data.items():
+            frame = frame_of(X, keys, tags, slice(0, 144))
+            bodies[name] = {"X": frame, "y": frame}
+        app = build_app(pointer, device=device)
+        with http_server(pointer, None, app=app) as served:
+            before = {name: request_json(f"{served}/{name}/anomaly/prediction", bodies[name])
+                      for name in transformers}
+            if any(status != 200 for status, _, _ in before.values()):
+                raise AssertionError(f"base revision replies: {before}")
+            counts = os.path.join(workdir, "tick_launches.json")
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-c", LIFECYCLE_DRIVER, counts, "lifecycle", "tick",
+                 "--model-collection-dir", pointer, "--window-start", LIFECYCLE_WINDOW[0],
+                 "--window-end", LIFECYCLE_WINDOW[1], *threshold_args, *device_args],
+                cwd=root, env=dict(os.environ, GORDO_FAULT_INJECT=spec), capture_output=True,
+                text=True, timeout=600,
+            )
+            report["tick_s"] = time.perf_counter() - t0
+            if run.returncode != 0:
+                raise AssertionError(f"lifecycle tick exited {run.returncode}:\n"
+                                     f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+            summary = json.loads(run.stdout)
+            with open(counts) as fh:
+                launched = json.load(fh)
+            refit, shadow = launched["phases"]["refit"], launched["phases"]["shadow"]
+            report["tick"] = {key: summary[key] for key in (
+                "base_revision", "revision", "monitored", "drifted", "promoted", "rejected",
+                "quarantined", "wall_time_s")}
+            report["tick_launches"] = {"scan": launches_apart(launched["kernels"], refit, shadow),
+                                       "refit": refit, "shadow": shadow}
+            report["tick"]["decisions"] = summary["report"]["decisions"]
+            log("lifecycle tick", json.dumps({k: v for k, v in report["tick"].items()
+                                              if k != "decisions"}))
+            for name in transformers:
+                log("lifecycle decision", name, json.dumps(summary["report"]["decisions"][name]))
+            log("lifecycle tick launches", json.dumps(
+                {phase: {k: v for k, v in counts_.items() if v}
+                 for phase, counts_ in report["tick_launches"].items()}))
+            expected = (list(LIFECYCLE_SHIFTED), [f"{MACHINE}-1"], [f"{MACHINE}-2"],
+                        [f"{MACHINE}-3"])
+            got = tuple(summary[key] for key in ("drifted", "promoted", "rejected", "quarantined"))
+            if got != expected:
+                raise AssertionError(f"tick decisions {got}, expected {expected}")
+            revision = summary["revision"]
+            new = os.path.join(models, revision)
+            if os.readlink(pointer) != revision:
+                raise AssertionError(f"latest points at {os.readlink(pointer)}, not {revision}")
+            for name in os.listdir(base):
+                if os.path.isdir(os.path.join(base, name)) and name != f"{MACHINE}-1":
+                    for fname in os.listdir(os.path.join(base, name)):
+                        if not os.path.samefile(os.path.join(base, name, fname),
+                                                os.path.join(new, name, fname)):
+                            raise AssertionError(f"{name}/{fname} is not a hard link")
+            if read_promotion_report(new)["counts"].get("promoted") != 1:
+                raise AssertionError(f"promotion report: {read_promotion_report(new)}")
+            if not (backward(refit) > 0 and refit[quad[fa.KERNEL]] > 0
+                    and shadow[quad[fa.KERNEL]] > 0 and not backward(shadow)):
+                raise AssertionError(f"tick launches: {report['tick_launches']}")
+            after = {name: request_json(f"{served}/{name}/anomaly/prediction", bodies[name])
+                     for name in transformers}
+            report["served"] = {name: after[name][0] for name in transformers}
+            if after[f"{MACHINE}-3"][0] != 409:
+                raise AssertionError(f"the quarantined machine answered {after[f'{MACHINE}-3']}")
+            if after[f"{MACHINE}-1"][0] != 200 or after[f"{MACHINE}-1"][1]["data"] == (
+                    before[f"{MACHINE}-1"][1]["data"]):
+                raise AssertionError("the promoted machine's reply did not change")
+            for name in (f"{MACHINE}-0", f"{MACHINE}-2"):
+                if after[name][0] != 200 or after[name][1]["data"] != before[name][1]["data"]:
+                    raise AssertionError(f"the retained machine {name} answers differently")
+            log("lifecycle served after the tick", json.dumps(report["served"]))
+
+            # (c) a torn promotion: latest untouched, the staging directory left
+            published = sorted(n for n in os.listdir(models) if n.isdigit())
+            os.environ[faults.FAULT_INJECT_ENV_VAR] = f"drift:shift:{MACHINE}-0;promote:torn"
+            faults.reset()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                LifecycleManager(pointer, config(**thresholds), device=device).tick()
+                raise AssertionError("a torn promotion published")
+            except TornPromotion as exc:
+                staging = exc.staging_dir
+            finally:
+                del os.environ[faults.FAULT_INJECT_ENV_VAR]
+                faults.reset()
+            report["torn_s"] = time.perf_counter() - t0
+            report["torn_launches"] = dict(fa.kernel_launches)
+            if (os.readlink(pointer) != revision or not os.path.isdir(staging)
+                    or not os.path.basename(staging).startswith(".promote-")
+                    or sorted(n for n in os.listdir(models) if n.isdigit()) != published):
+                raise AssertionError(f"torn tick: latest {os.readlink(pointer)}, {staging}")
+            log("lifecycle torn tick left", os.path.basename(staging), "latest", revision)
+
+            # (d) a stream-fed tick: the streamed machine assessed from its
+            # events, with no window fetch of its own
+            streamed = f"{MACHINE}-0"
+            events = os.path.join(workdir, "serve-events.jsonl")
+            X = data[streamed][0]
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            os.environ["GORDO_TPU_EVENT_LOG"] = events
+            try:
+                status, opened, _ = request_json(f"{served}/stream/open", {"machines": [streamed]})
+                if status != 201 or not opened["machines"][streamed]["monitored"]:
+                    raise AssertionError(f"stream/open answered {status}: {opened}")
+                for start in range(0, len(X), LIFECYCLE_STREAM_UPDATE):
+                    rows = X[start:start + LIFECYCLE_STREAM_UPDATE].tolist()
+                    status, reply, _ = request_json(
+                        f"{served}/stream/{opened['session']}/update",
+                        {"updates": {streamed: {"rows": rows, "seq": start}}})
+                    if status != 200:
+                        raise AssertionError(f"stream update answered {status}: {reply}")
+            finally:
+                del os.environ["GORDO_TPU_EVENT_LOG"]
+            fetches = []
+            fetch = LifecycleManager._fetch_window
+
+            def counted_fetch(meta, start, end):
+                fetches.append(meta["name"])
+                return fetch(meta, start, end)
+
+            LifecycleManager._fetch_window = staticmethod(counted_fetch)
+            try:
+                fed = LifecycleManager(
+                    pointer, config(stream_observations=events, promote=False, **thresholds),
+                    monitor=DriftMonitor(**thresholds), device=device).tick()
+            finally:
+                LifecycleManager._fetch_window = staticmethod(fetch)
+            report["stream_s"] = time.perf_counter() - t0
+            report["stream_launches"] = dict(fa.kernel_launches)
+            record = fed.report["decisions"][streamed]
+            if record.get("source") != "stream" or streamed in fetches:
+                raise AssertionError(f"stream-fed tick: {record}, fetched {fetches}")
+            # the same statistic as a scan of the streamed rows
+            scan = LifecycleManager(pointer, config(**LIFECYCLE_NEVER),
+                                    monitor=DriftMonitor(**LIFECYCLE_NEVER), device=device)
+            live = os.path.realpath(pointer)
+            meta = scan._load_metadata(live, streamed)
+            window = scan._machine_window(meta)
+            scanned = scan._score_one(streamed, scan._load_monitorable(live, streamed),
+                                      scan._fetch_window(meta, window["start"], window["end"]),
+                                      revision, meta)
+            report["stream"] = {"streamed": record["drift"], "scanned": scanned.to_dict(),
+                                "fetched": fetches, "drifted": fed.drifted}
+            log("lifecycle stream-fed tick", json.dumps(report["stream"]))
+            if not (abs(record["drift"]["ratio"] - scanned.ratio)
+                    <= LIFECYCLE_RTOL * abs(scanned.ratio)
+                    and abs(record["drift"]["exceedance"] - scanned.exceedance)
+                    <= LIFECYCLE_ONE_ROW):
+                raise AssertionError(f"streamed {record['drift']} against scanned {scanned}")
+        return report
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def wide_row(check):
     """A head_dim 64/128/256 check row as the ``kernels`` line reports it."""
     keys = ("case", "shape", "dtype", "ms", "ms_timer", "bound_ms", "bound_by", "plain_ms",
@@ -4275,6 +4603,7 @@ def main(argv=None) -> int:
         options = timed("build_options", build_options_phase, args.profile)
         lake_stream = timed("lake_stream", lake_stream_phase, args.profile, fleet["collection"])
         plane = timed("plane", plane_phase, args.profile, fleet["collection"])
+        lifecycle = timed("lifecycle", lifecycle_phase, args.profile, fleet["collection"])
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -4298,6 +4627,12 @@ def main(argv=None) -> int:
              "resume_fit": plane["resume_fit"]["kernel_launches"],
              "resume_build": plane["resume_build"]["kernel_launches"],
              "routed": plane["routed"]["kernel_launches"],
+             "lifecycle_scan": lifecycle["dry_launches"],
+             "lifecycle_drift": lifecycle["tick_launches"]["scan"],
+             "lifecycle_refit": lifecycle["tick_launches"]["refit"],
+             "lifecycle_shadow": lifecycle["tick_launches"]["shadow"],
+             "lifecycle_torn": lifecycle["torn_launches"],
+             "lifecycle_stream": lifecycle["stream_launches"],
              **{label: models[label]["launches"] for label in models}}
 
     def entry(kernel, families, source, replaces, cases, rows):
@@ -4350,7 +4685,7 @@ def main(argv=None) -> int:
                  "default_pipeline": default_pipeline, "models": models,
                  "recurrent": recurrent, "project_build": project, "fleet_build": fleet,
                  "fleet_serve": fleet_serve, "build_options": options,
-                 "lake_stream": lake_stream, "plane": plane,
+                 "lake_stream": lake_stream, "plane": plane, "lifecycle": lifecycle,
                  **kernels},
                 fh,
                 indent=1,

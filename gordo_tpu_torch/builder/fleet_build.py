@@ -38,10 +38,17 @@ config, and builds the rest (:meth:`FleetModelBuilder._scan_resumable`);
 a machine the previous run's ``build_report.json`` names as a casualty
 is always rebuilt. ``n_resumed`` in the report counts the reused ones.
 
+``initial_params`` warm-starts a bucket from given weights (a lifecycle
+refit starts from the served revision's): every machine of the bucket
+needs an entry, else the bucket starts cold (:meth:`_stack_warm_params`).
+``fault_sites`` names the fault-injection sites whose ``nan`` specs
+poison this build's fits (``gordo_tpu_torch.robustness.faults``), and
+each machine's fetch passes the ``fetch`` seam.
+
 Left out, because the TPU-era builder does them for XLA: the program
 and compile caches, AOT export of serving programs, the device mesh and
-fleet padding to it, and the multi-worker ledger, warm starts and fault
-injection (ROADMAP.md queue 1 item 9).
+fleet padding to it, and the multi-worker ledger (ROADMAP.md queue 1
+item 9).
 ``precision="bf16"``/``"auto"`` calibrates each bucket after its final
 fit (:meth:`FleetModelBuilder._calibrate_precision`).
 """
@@ -56,6 +63,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from gordo_tpu_torch import __version__, serializer
 from gordo_tpu_torch.builder.build_model import ModelBuilder, _inject_seed
@@ -82,6 +90,7 @@ from gordo_tpu_torch.parallel.precision import (
     mae_parity,
     resolve_precision,
 )
+from gordo_tpu_torch.robustness import faults
 from gordo_tpu_torch.utils import atomic
 from gordo_tpu_torch.utils.utils import backoff_seconds
 
@@ -161,6 +170,15 @@ class FleetModelBuilder:
     prefetch_depth
         Host-to-device transfer pipelining depth (module note); 0, the
         default, copies as the builder always did.
+    initial_params
+        Warm start: machine name -> its weights by the module's parameter
+        names (host arrays, a served estimator's). A bucket
+        whose machines all have an entry trains its CV folds and its final
+        fit from them, so the refit's thresholds are calibrated along the
+        trajectory the candidate trains on; otherwise it starts cold.
+    fault_sites
+        The fault-injection sites whose ``nan`` specs poison this build's
+        fits: ``("train",)``, or ``("train", "refit")`` for a refit.
     """
 
     def __init__(
@@ -176,6 +194,8 @@ class FleetModelBuilder:
         precision: str = "float32",
         precision_tolerance: float = DEFAULT_PRECISION_TOLERANCE,
         prefetch_depth: int = 0,
+        initial_params: Optional[Dict[str, Dict[str, Any]]] = None,
+        fault_sites: Tuple[str, ...] = ("train",),
     ):
         if on_error not in ("raise", "skip"):
             raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
@@ -191,6 +211,8 @@ class FleetModelBuilder:
         self.precision = resolve_precision(precision)
         self.precision_tolerance = float(precision_tolerance)
         self.prefetch_depth = transfer.clip_depth(prefetch_depth)
+        self.initial_params = initial_params
+        self.fault_sites = tuple(fault_sites)
         #: per machine: {"precision", "mae_delta", "forced"}; empty for float32
         self.precision_decisions_: Dict[str, dict] = {}
         self.plan_ = None
@@ -204,6 +226,7 @@ class FleetModelBuilder:
 
     # -- data ------------------------------------------------------------
     def _fetch_one(self, machine: Machine) -> dict:
+        faults.inject("fetch", machine.name)
         dataset = _get_dataset(machine.dataset.to_dict())
         start = time.perf_counter()
         X, y, _ = dataset.get_data()
@@ -599,15 +622,18 @@ class FleetModelBuilder:
         epoch_chunk = max(1, int(self.epoch_chunk if config_chunk is None else config_chunk))
         trainer = FleetTrainer(
             spec, lookahead=lookahead, epoch_chunk=epoch_chunk, device=self.device,
-            seed=seeds[0], prefetch_depth=self.prefetch_depth,
+            seed=seeds[0], prefetch_depth=self.prefetch_depth, fault_sites=self.fault_sites,
         )
-        # each machine starts from its own solo init: the same weights
-        # whichever builder trains it
+        names = [item["machine"].name for item in fetched]
+        # each machine starts from its own solo init (the same weights
+        # whichever builder trains it), or from its warm-start weights
         init = trainer.stack_params([
             {name: value.detach().clone() for name, value in est._initial_state(spec, seed).items()}
             for est, seed in zip(estimators, seeds)
         ])
-        names = [item["machine"].name for item in fetched]
+        warm = self._warm_init(init, self._stack_warm_params(names, len(fetched)))
+        if warm is not None:
+            init = warm
 
         start = time.perf_counter()
         folds = self._run_cv_folds(
@@ -704,6 +730,8 @@ class FleetModelBuilder:
             "fit_duration_s": fit_duration,
             "bucket_wall_s": bucket_wall,
             "n_machines_quarantined": n_quarantined,
+            # False too for a refit that fell back to a cold start
+            "warm_start": warm is not None,
             "models_per_hour": len(bucket) / bucket_wall * 3600 if bucket_wall > 0 else None,
             "cv_fit": cv_telemetry,
             "fit": trainer.fit_telemetry_,
@@ -717,6 +745,51 @@ class FleetModelBuilder:
             trainer.fit_telemetry_["steps_per_epoch"],
         )
         return out
+
+    def _stack_warm_params(
+        self, machine_names: List[str], m_padded: int
+    ) -> Optional[Dict[str, np.ndarray]]:
+        """
+        The bucket's warm-start weights: each machine's
+        ``initial_params`` entry stacked along a leading machine axis,
+        padded to ``m_padded`` with the first machine's (a pad machine's
+        rows carry no weight, so its start is inert). None, a cold start,
+        when warm start is off, a machine has no entry, or the entries do
+        not stack (their names or shapes differ: a changed model config).
+        """
+        if not self.initial_params:
+            return None
+        trees = [self.initial_params.get(name) for name in machine_names]
+        missing = [n for n, t in zip(machine_names, trees) if t is None]
+        if missing:
+            logger.warning("Warm start: no initial params for %s; bucket falls back to cold init",
+                           missing)
+            return None
+        trees = trees + [trees[0]] * (m_padded - len(trees))
+        try:
+            keys = set(trees[0])
+            if any(set(tree) != keys for tree in trees):
+                raise ValueError("the machines' parameter names differ")
+            return {
+                key: np.stack([np.asarray(tree[key], dtype=np.float32) for tree in trees])
+                for key in trees[0]
+            }
+        except (ValueError, TypeError) as exc:
+            logger.warning("Warm start: param trees do not stack (%s); bucket falls back to "
+                           "cold init", exc)
+            return None
+
+    def _warm_init(self, cold: Dict[str, Any], warm: Optional[Dict[str, np.ndarray]]):
+        """``warm`` as the trainer's stacked init, or None when it does not
+        fit the bucket's module (other names or shapes than ``cold``)."""
+        if warm is None:
+            return None
+        if set(warm) != set(cold) or any(tuple(warm[k].shape) != tuple(cold[k].shape)
+                                         for k in cold):
+            logger.warning("Warm start: the initial params do not fit the bucket's model; "
+                           "bucket falls back to cold init")
+            return None
+        return {k: torch.from_numpy(warm[k]).to(cold[k].device) for k in cold}
 
     def _calibrate_precision(
         self,

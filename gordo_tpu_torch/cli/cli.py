@@ -19,6 +19,14 @@ The port's command line (the counterpart of ``gordo_tpu.cli``'s
     python -m gordo_tpu_torch.cli run-server [--collection-dir DIR] [--device cpu]
         [--shard-manifest FILE --replica-id ID] ...
     python -m gordo_tpu_torch.cli run-router --collection-dir DIR --replica ID=URL ...
+    python -m gordo_tpu_torch.cli lifecycle tick --model-collection-dir DIR [--device cpu]
+        [--window-start ISO --window-end ISO] [--holdout-fraction F]
+        [--shadow-tolerance F] [--ewma-alpha A] [--ratio-threshold R]
+        [--exceedance-threshold E] [--min-observations N] [--epoch-chunk K]
+        [--fetch-retries N] [--fetch-timeout S] [--stream-observations LOG]
+        [--promote | --no-promote] [--repoint | --no-repoint]
+    python -m gordo_tpu_torch.cli lifecycle watch ... [--interval-s S] [--max-cycles N]
+    python -m gordo_tpu_torch.cli lifecycle report REVISION_DIR
 
 ``build`` builds one machine (fetch and resample its dataset,
 cross-validate and derive the thresholds, fit) and writes the port's
@@ -59,13 +67,27 @@ its build would use, and prints each trial's final loss in Katib's
 
 ``run-router`` fronts ``run-server`` replicas that each serve a shard of
 one collection (``gordo_tpu_torch.router``); it needs no card.
+
+``lifecycle`` is the JAX command group of that name
+(``gordo_tpu_torch.lifecycle``), with its flags and its JSON: ``tick``
+runs one drift scan, warm-start refit of the drifted machines, shadow
+gate and promotion over the collection ``--model-collection-dir``
+(``MODEL_COLLECTION_DIR``) names, usually its ``latest`` symlink, and
+prints the tick's summary; ``watch`` runs ticks every ``--interval-s``
+(one JSON line a cycle; a failed cycle is logged and the loop goes on)
+and stops after ``--max-cycles``, or when a promoted revision was not
+adopted (a plain directory or ``--no-repoint``); ``report`` renders a
+promoted revision's decisions and exits 1 for a revision that has none.
+Scoring and refits run on the card unless ``--device cpu`` is given.
 """
 
 import argparse
+import json
 import logging
 import os
 import re
 import sys
+import time
 import traceback
 from typing import List, Optional
 
@@ -378,6 +400,170 @@ def run_router(parser: argparse.ArgumentParser, args) -> int:
     return 0
 
 
+def _lifecycle_config(args):
+    from gordo_tpu_torch.lifecycle import LifecycleConfig
+
+    return LifecycleConfig(
+        window_start=args.window_start,
+        window_end=args.window_end,
+        holdout_fraction=args.holdout_fraction,
+        shadow_tolerance=args.shadow_tolerance,
+        ewma_alpha=args.ewma_alpha,
+        ratio_threshold=args.ratio_threshold,
+        exceedance_threshold=args.exceedance_threshold,
+        min_observations=args.min_observations,
+        epoch_chunk=args.epoch_chunk,
+        fetch_retries=args.fetch_retries,
+        fetch_timeout=args.fetch_timeout,
+        stream_observations=args.stream_observations,
+        promote=args.promote,
+        repoint=args.repoint,
+    )
+
+
+def lifecycle_tick(args) -> int:
+    """One cycle; its summary as JSON."""
+    from gordo_tpu_torch.lifecycle import LifecycleManager
+
+    manager = LifecycleManager(args.model_collection_dir, config=_lifecycle_config(args),
+                               device=args.device)
+    result = manager.tick()
+    print(json.dumps(result.to_dict(), indent=2, sort_keys=True, default=str))
+    return 0
+
+
+def lifecycle_watch(args) -> int:
+    """Cycles on a schedule; a failed cycle is logged and the loop goes
+    on, and a promoted revision that the pointer does not adopt stops it
+    (the next cycle would start from the same stale base)."""
+    from gordo_tpu_torch.lifecycle import LifecycleManager
+
+    manager = LifecycleManager(args.model_collection_dir, config=_lifecycle_config(args),
+                               device=args.device)
+    cycle = 0
+    while True:
+        cycle += 1
+        started = time.monotonic()
+        try:
+            result = manager.tick()
+            print(json.dumps({"cycle": cycle, **result.to_dict()}, sort_keys=True, default=str),
+                  flush=True)
+            if result.revision is not None and os.path.realpath(
+                    args.model_collection_dir) != os.path.realpath(result.revision_dir):
+                logger.warning(
+                    "Revision %s was published but the collection pointer still serves %s "
+                    "(plain directory or --no-repoint); stopping watch: adopt the revision "
+                    "(re-deploy or flip the symlink) and restart",
+                    result.revision, result.base_revision,
+                )
+                return 0
+        except Exception:
+            logger.exception("Lifecycle cycle %d failed; continuing", cycle)
+        if args.max_cycles and cycle >= args.max_cycles:
+            return 0
+        delay = args.interval_s - (time.monotonic() - started)
+        if delay > 0:
+            time.sleep(delay)
+
+
+def lifecycle_report(args) -> int:
+    """A promoted revision's decisions, one machine a line."""
+    from gordo_tpu_torch.lifecycle import read_promotion_report
+
+    payload = read_promotion_report(args.revision_dir)
+    if payload is None:
+        print(f"No promotion_report.json under {args.revision_dir} — not a "
+              "lifecycle-promoted revision.", file=sys.stderr)
+        return 1
+    print(f"revision {payload.get('revision')} (from {payload.get('base_revision')})")
+    counts = payload.get("counts") or {}
+    print("  " + ", ".join(f"{k}: {v}" for k, v in sorted(counts.items())))
+    decisions = payload.get("decisions") or {}
+    width = max((len(n) for n in decisions), default=0)
+    for name in sorted(decisions):
+        record = decisions[name]
+        line = f"  {name:<{width}}  {record.get('decision'):<12}"
+        if record.get("reason"):
+            line += f" {record['reason']}"
+        shadow = record.get("shadow")
+        if shadow:
+            line += (f"  (live {shadow['live_score']:.5f} vs "
+                     f"candidate {shadow['candidate_score']:.5f})")
+        print(line)
+    return 0
+
+
+def _add_lifecycle_parser(commands) -> None:
+    lifecycle = commands.add_parser(
+        "lifecycle", help="drift detection, warm-start refit and blue/green promotion")
+    actions = lifecycle.add_subparsers(dest="lifecycle_command", required=True)
+    tick = actions.add_parser("tick", help="run one lifecycle cycle and print it as JSON")
+    watch = actions.add_parser("watch", help="run lifecycle cycles on a schedule")
+    for command in (tick, watch):
+        command.add_argument(
+            "--model-collection-dir", default=os.environ.get("MODEL_COLLECTION_DIR"),
+            help="the served revision directory, or the latest symlink a promotion re-points "
+                 "(default: $MODEL_COLLECTION_DIR)")
+        command.add_argument("--window-start", default=None,
+                             help="drift/refit window start (ISO); default: each machine's "
+                                  "own training window")
+        command.add_argument("--window-end", default=None, help="window end (ISO)")
+        command.add_argument("--holdout-fraction", type=float, default=0.25,
+                             help="window tail held out of the refit for shadow scoring")
+        command.add_argument("--shadow-tolerance", type=float, default=0.10,
+                             help="largest fractional holdout-error regression a candidate "
+                                  "may ship with")
+        command.add_argument("--ewma-alpha", type=float, default=0.3,
+                             help="newest observation's weight in the drift EWMAs")
+        command.add_argument("--ratio-threshold", type=float, default=1.0,
+                             help="drift when the EWMA of mean(anomaly/threshold) exceeds this")
+        command.add_argument("--exceedance-threshold", type=float, default=0.5,
+                             help="drift when the EWMA fraction of timesteps over threshold "
+                                  "exceeds this")
+        command.add_argument("--min-observations", type=int, default=1,
+                             help="observations before a machine may be declared drifted")
+        command.add_argument("--epoch-chunk", type=int,
+                             default=_env_number("GORDO_EPOCH_CHUNK", 1, int),
+                             help="the refit's epoch chunk")
+        command.add_argument("--fetch-retries", type=int,
+                             default=_env_number("GORDO_FETCH_RETRIES", 1, int),
+                             help="retries of a machine's refit data fetch")
+        command.add_argument("--fetch-timeout", type=float,
+                             default=_env_number("GORDO_FETCH_TIMEOUT", None, float),
+                             help="seconds a machine's scan or refit fetch may take "
+                                  "(default: no cap)")
+        command.add_argument("--stream-observations",
+                             default=os.environ.get("GORDO_TPU_EVENT_LOG"),
+                             help="JSONL event log whose stream_observation events assess "
+                                  "streamed machines without a window fetch (default: "
+                                  "$GORDO_TPU_EVENT_LOG)")
+        command.add_argument("--promote", action=argparse.BooleanOptionalAction, default=True,
+                             help="--no-promote stops after the shadow verdicts (a dry run)")
+        command.add_argument("--repoint", action=argparse.BooleanOptionalAction, default=True,
+                             help="re-point the latest symlink at the promoted revision")
+        command.add_argument("--device", default=None, help="cuda (default) or cpu")
+    watch.add_argument("--interval-s", type=float, default=300.0,
+                       help="seconds between cycle starts")
+    watch.add_argument("--max-cycles", type=int, default=0,
+                       help="stop after this many cycles (0: run forever)")
+    report = actions.add_parser("report", help="render a revision's promotion decisions")
+    report.add_argument("revision_dir", help="the revision directory")
+
+
+def _lifecycle_command(parser: argparse.ArgumentParser, args) -> int:
+    if args.lifecycle_command == "report":
+        if not os.path.exists(args.revision_dir):
+            parser.error(f"REVISION_DIR {args.revision_dir!r} does not exist")
+        return lifecycle_report(args)
+    if args.model_collection_dir is None:
+        parser.error("--model-collection-dir (or MODEL_COLLECTION_DIR) is required")
+    if not os.path.exists(args.model_collection_dir):
+        parser.error(f"--model-collection-dir {args.model_collection_dir!r} does not exist")
+    if args.lifecycle_command == "tick":
+        return lifecycle_tick(args)
+    return lifecycle_watch(args)
+
+
 def _add_report_options(command: argparse.ArgumentParser) -> None:
     """The options of both build commands' failure report and model
     template."""
@@ -523,6 +709,7 @@ def _parser() -> argparse.ArgumentParser:
     for flag, _ in UNPORTED_ROUTER_OPTIONS:
         router.add_argument(flag, dest=_dest(flag), default=None,
                             help="not ported (ROADMAP.md queue 1 item 9)")
+    _add_lifecycle_parser(commands)
     return parser
 
 
@@ -545,6 +732,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _build_fleet_command(parser, args)
     if args.command == "run-router":
         return run_router(parser, args)
+    if args.command == "lifecycle":
+        return _lifecycle_command(parser, args)
     if args.machine is None:
         parser.error(
             f"{args.command} needs MACHINE, as an argument or in the MACHINE environment "

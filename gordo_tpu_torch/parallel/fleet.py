@@ -54,9 +54,15 @@ chunk's per-step machine gates, which the optimizer takes when some
 machine's batch holds no real sample) while the current chunk's steps
 run. The values are the same bits at every depth.
 
+``fault_sites`` names the ``GORDO_FAULT_INJECT`` sites whose ``nan``
+specs poison this trainer's fits (``gordo_tpu_torch.robustness.faults``):
+a targeted machine's epoch loss goes NaN at the spec's epoch, which the
+quarantine guard then treats as a real divergence. Ordinary fits listen
+to ``train``; lifecycle refits to ``("train", "refit")``.
+
 Left out, because they are XLA or TPU machinery the eager port has no
 use for: the program cache and its compile telemetry, buffer donation,
-the device mesh and fleet padding to it, scan unrolling and fault injection.
+the device mesh and fleet padding to it, and scan unrolling.
 """
 
 import dataclasses
@@ -88,6 +94,7 @@ from gordo_tpu_torch.models.specs import (
 from gordo_tpu_torch.ops.windowing import DEFAULT_BATCH_SIZE, num_windows, windowed_predict
 from gordo_tpu_torch.parallel import transfer
 from gordo_tpu_torch.parallel.precision import cast_params
+from gordo_tpu_torch.robustness import faults
 
 logger = logging.getLogger(__name__)
 
@@ -220,6 +227,9 @@ class FleetTrainer:
     broadcast_data
         Every machine trains on the fit's one-machine data (module
         docstring); the fit's machines are its seeds or stacked params.
+    fault_sites
+        The fault-injection sites whose ``nan`` specs poison this
+        trainer's fits (module docstring).
     """
 
     def __init__(
@@ -233,8 +243,10 @@ class FleetTrainer:
         seed: int = 0,
         prefetch_depth: int = 0,
         broadcast_data: bool = False,
+        fault_sites: Tuple[str, ...] = ("train",),
     ):
         self.spec = spec
+        self.fault_sites = tuple(fault_sites)
         self.broadcast_data = bool(broadcast_data)
         self.prefetch_depth = transfer.clip_depth(prefetch_depth)
         self.lookahead = int(lookahead) if spec.windowed else 0
@@ -601,6 +613,10 @@ class FleetTrainer:
             if val_w is not None:
                 val_w = val_w.expand(m, -1)
                 has_val = np.repeat(has_val, m)
+        # the train:nan seam, resolved once a fit: None unless a spec
+        # targets this fleet
+        inj = faults.train_nan_injection(machine_names, m, sites=self.fault_sites)
+        inj_mask = None if inj is None else torch.from_numpy(inj[0]).to(self.device)
         early_stopping = early_stopping_patience is not None
         track_best = early_stopping and restore_best_weights
         quarantine = self.quarantine_nonfinite
@@ -663,6 +679,9 @@ class FleetTrainer:
                     real_samples, None if gates is None else gates[e - epoch],
                 )
                 step_time += time.perf_counter() - t0
+                if inj_mask is not None and e == inj[1]:
+                    # poison the epoch loss as a real divergence would
+                    loss = torch.where(inj_mask, torch.full_like(loss, float("nan")), loss)
                 keep = None
                 if early_stopping:
                     keep = es["active"]

@@ -1,0 +1,41 @@
+"""
+Per-machine fault domains (the port of ``gordo_tpu.robustness``): the
+fault-injection registry whose seams the fleet builder, the fleet
+trainer and the lifecycle read (:mod:`.faults`). The degradation paths
+themselves live where the work happens: the non-finite quarantine in
+``parallel.fleet``, isolated fetch and build failures in
+``builder.fleet_build``, and the per-machine fault domain of a
+lifecycle tick in ``lifecycle.manager``.
+"""
+
+from .faults import (
+    FAULT_INJECT_ENV_VAR,
+    FAULT_INJECT_FILE_ENV_VAR,
+    UNWIRED_SITES,
+    WIRED_SITES,
+    FaultSpec,
+    InjectedFault,
+    active_registry,
+    arm_file,
+    disarm_file,
+    inject,
+    parse_spec,
+    reset,
+    train_nan_injection,
+)
+
+__all__ = [
+    "FAULT_INJECT_ENV_VAR",
+    "FAULT_INJECT_FILE_ENV_VAR",
+    "UNWIRED_SITES",
+    "WIRED_SITES",
+    "FaultSpec",
+    "InjectedFault",
+    "active_registry",
+    "arm_file",
+    "disarm_file",
+    "inject",
+    "parse_spec",
+    "reset",
+    "train_nan_injection",
+]

@@ -22,11 +22,19 @@ session that a revision roll expired is told so (``revision_rolled``),
 where the JAX server, having dropped it from its table, answers
 ``unknown_session``.
 
+Each scored update feeds the lifecycle: for every monitorable machine
+(an anomaly detector with a calibrated threshold) it emits one
+``stream_observation`` event (``machine``, ``n``, ``ratio_mean``,
+``exceedance``, ``revision``, ``session``) from
+:meth:`MachineStream.anomaly_ratio` over the update's new output rows,
+against the update's ``y`` or, without one, its rows. The events are
+written after the session's lock is released; a lifecycle tick
+aggregates them into the statistic a drift scan computes
+(``gordo_tpu_torch.lifecycle.manager``).
+
 Left out until ROADMAP.md queue 1 item 9: the attribution ledger,
-tracing spans, events and metrics registry of the JAX sessions, their
-chaos sites, and the drift feed of each update's anomaly ratio
-(:meth:`MachineStream.anomaly_ratio` computes it; an update's ``y`` is
-checked, and feeds nothing yet). The session's own counters, which
+tracing spans, the other events and the metrics registry of the JAX
+sessions, and their chaos sites. The session's own counters, which
 :meth:`StreamSession.stats` and ``/healthz`` read, are kept.
 """
 
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 
 from gordo_tpu_torch.device import DeviceLike, resolve_device
+from gordo_tpu_torch.observability import emit_event
 from gordo_tpu_torch.parallel import transfer
 from gordo_tpu_torch.streaming.window import MachineWindow, SequenceGap, WindowUpdate
 
@@ -212,6 +221,7 @@ class StreamSession:
             self.last_active = time.monotonic()
             pending_commits = []
             inputs: Dict[str, WindowUpdate] = {}
+            raw_tails: Dict[str, np.ndarray] = {}
             results: Dict[str, dict] = {}
             transferred = resident = 0
             for name in sorted(updates):
@@ -231,6 +241,7 @@ class StreamSession:
                         f"({len(rows)}), got {len(np.asarray(payload['y']))}"
                     )
                 seq = int(payload.get("seq", stream.window.seq))
+                already = stream.window.seq - seq
                 transformed = stream.transform(rows)
                 try:
                     update, fresh = stream.window.begin(name, transformed, seq)
@@ -241,6 +252,12 @@ class StreamSession:
                     inputs[name] = update
                     transferred += update.n_new
                     resident += update.n_context
+                    # the new output rows' targets: the update's last
+                    # rows of y, or of its raw rows when it has no y
+                    y = payload.get("y")
+                    y_rows = (np.asarray(y, dtype="float64") if y is not None else rows)
+                    y_rows = y_rows[max(0, already):]
+                    raw_tails[name] = y_rows[len(y_rows) - stream.window.n_outputs(update):]
                 results[name] = {
                     "rows": [],
                     "seq": stream.window.seq + len(fresh),
@@ -257,12 +274,27 @@ class StreamSession:
             self.updates_total += 1
             self.last_transfer_rows = transferred
             self.last_resident_rows = resident
+            observations: List[dict] = []
             for name, out in outputs.items():
                 stream = self.machines[name]
                 out = np.asarray(out)
                 stream.window.n_scored += len(out)
                 self.rows_total += len(out)
+                ratios = stream.anomaly_ratio(out, raw_tails[name])
+                if ratios is not None and len(ratios):
+                    finite = ratios[np.isfinite(ratios)]
+                    if len(finite):
+                        observations.append({
+                            "machine": name,
+                            "n": int(len(finite)),
+                            "ratio_mean": float(finite.mean()),
+                            "exceedance": float((finite > 1.0).mean()),
+                        })
                 results[name]["rows"] = out.tolist()
+        # outside the session lock: the lifecycle's drift feed
+        for observation in observations:
+            emit_event("stream_observation", revision=self.revision, session=self.id,
+                       **observation)
         elapsed = time.perf_counter() - start
         self._ema_update_s = (elapsed if self._ema_update_s == 0.0
                               else 0.8 * self._ema_update_s + 0.2 * elapsed)

@@ -71,5 +71,11 @@ def test_port_imports_no_jax_and_no_missing_libraries():
         "gordo_tpu_torch.router.ring",
         "gordo_tpu_torch.router.health",
         "gordo_tpu_torch.router.app",
+        "gordo_tpu_torch.robustness.faults",
+        "gordo_tpu_torch.observability.events",
+        "gordo_tpu_torch.lifecycle.drift",
+        "gordo_tpu_torch.lifecycle.refit",
+        "gordo_tpu_torch.lifecycle.promote",
+        "gordo_tpu_torch.lifecycle.manager",
     } <= set(names)
     assert loaded == []
