@@ -83,9 +83,9 @@ Phases, each raising on failure (no result line is printed then):
    ``python -m gordo_tpu_torch.cli build`` in a subprocess on the card
    (16 414 rows at 10 minutes, as the JAX data layer gives; 1 epoch where
    bench.py trains 3), served over HTTP on the card with 144 rows
-   (medians of 5) and the LSTM once with its whole history (the other
-   whole-history requests were cut to keep the script within 600 s),
-   each reply within 1e-4 of the CPU's;
+   (medians of 5; the whole-history requests were cut, the last one when
+   phase 16 took the script past 800 s), each reply within 1e-4 of the
+   CPU's;
    build, CV and fit seconds, steps/s, one training step's ms, and its
    CUDA launches and the device's idle share over a torch.profiler window
    of 3 steps (20 with ``--profile``, which adds the kernel breakdown);
@@ -97,8 +97,8 @@ Phases, each raising on failure (no result line is printed then):
    ``FunctionTransformer(multiply_by)``, ``MinMaxScaler`` and an
    ``AutoEncoder``), built by the port's ``local_build`` on the card in
    this process, each artifact served over HTTP on the card with 144 rows
-   (medians of 5) and the whole history (once), each reply within 1e-4 (TCN) or
-   1e-5 of the CPU's; build, CV and fit seconds, the TCN's training step,
+   (medians of 5; the whole-history requests cut with phase 8's), each
+   reply within 1e-4 (TCN) or 1e-5 of the CPU's; build, CV and fit seconds, the TCN's training step,
    its launches and idle share over 3 profiled steps, its receptive
    field; no flash kernel launches on this path;
 10. fleet build: ``fleet_machines`` (four machines with the
@@ -228,7 +228,27 @@ Phases, each raising on failure (no result line is printed then):
    event log on, then a tick fed by the log: that machine assessed from
    the stream (``source: stream``) with no window fetch, its ratio within
    1e-4 of a scan of the same rows and its exceedance within a row;
-16. one JSON line of per-kernel numbers, each time with the timer that
+16. the client: phase 10's collection served in this process on the card
+   with ``/metrics`` on, and the port's ``Client``: (a) ``predict`` of the
+   four Transformers over ``CLIENT_SPAN`` (one day, ``CLIENT_BATCH`` rows
+   a POST: 2 chunks a machine), each frame within ``CLIENT_RTOL`` of
+   direct ``/anomaly/prediction`` POSTs of the same chunk rows, the
+   forward kernel launched 2 layers x chunks x machines, no dq or dk/dv;
+   (b) ``predict_fleet(group_size=4)``, within 1e-4 / 1e-5 of (a), the
+   forward 2 x chunks; (c) ``stream_machine`` of the first Transformer
+   over 8255 rows with its session closed by the server after
+   ``CLIENT_STREAM_CUT`` updates: one reconnect, the outputs bitwise a
+   direct session's, the forward 2 a scored update; (d) the command
+   line's ``client ... predict --output-dir`` and ``metadata`` in one
+   subprocess with no card (``CUDA_VISIBLE_DEVICES=""``), files as (a)'s;
+   (e) ``/metrics``: the request count the requests sent, the phase
+   ledger's server phases; (f) one traced prediction: the trace id
+   echoed, each ``server.request`` span under the client's
+   ``client.request``, ``trace export`` Chrome-trace JSON; (g) tracing's
+   and the ledger's cost (``measure_overhead``) and a 144-row request's
+   wall ms with the ledger on and off (``GORDO_PHASE_LEDGER=0``); (h) the
+   wall seconds of (a), (b) and the direct POSTs;
+17. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -380,13 +400,12 @@ RECURRENT_ROWS = 16414
 RECURRENT_COLLECTION = "1700000000003"
 # timed whole-history requests of the phase-8 machines, cut from REPEATS
 # each to 3, then to one request of the LSTM when phase 11 took the script
-# past 600 s: each takes 5.5-8.7 s of host JSON on an H100's host and its
-# CPU comparison 10-13 s, and the two machines' 3 with their CPU
-# comparisons took about 63 s of a 637 s run
-RECURRENT_HISTORY_REPEATS = {"lstm-plant-50": 1}
+# past 600 s, then to none when phase 16 took it past 800 s (982 s on a
+# slow host, where the LSTM's request and its CPU comparison took 27 s)
+RECURRENT_HISTORY_REPEATS: dict = {}
 # timed whole-history requests of phase 9's machines, cut from REPEATS for
-# the same reason (the TCN's take 7.5-8.6 s each)
-PROJECT_HISTORY_REPEATS = 1
+# the same reasons (the TCN's and its CPU comparison took 22 s there)
+PROJECT_HISTORY_REPEATS = 0
 # training batch of the 50-tag plant machines (phases 8 and 9)
 PLANT_BATCH = 512
 
@@ -4513,6 +4532,344 @@ def lifecycle_phase(torch, fa, profile: bool, collection: str, device=None):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# Phase 16: the port's client against phase 10's collection, served in this
+# process with /metrics on: one day of the config's span (the client moves
+# its start back by the model's offset and 5 resolutions), CLIENT_BATCH
+# rows a POST (each Transformer posts 2 chunks), one Transformer streamed
+# over phase 11's 8255 whole-history rows, its session closed by the
+# server after CLIENT_STREAM_CUT updates
+CLIENT_SPAN = ("2019-05-20T00:00:00+00:00", "2019-05-21T00:00:00+00:00")
+CLIENT_BATCH = 100
+CLIENT_STREAM_CUT = 20
+CLIENT_RTOL = 1e-6  # the client's frames against direct POSTs of the same chunks
+CLIENT_FLEET_RTOL, CLIENT_FLEET_ATOL = 1e-4, 1e-5  # fleet against solo, as phase 11
+CLIENT_LEDGER_REPEATS = 10  # 144-row requests a block, two blocks each way
+CLIENT_PROBE_PATHS = ("/healthcheck", "/healthz", "/metrics", "/telemetry/snapshot")
+# runs each argv of a JSON list through the port's command line in one
+# process and prints their exit codes
+CLIENT_CLI_DRIVER = (
+    "import json, sys\n"
+    "from gordo_tpu_torch.cli.cli import main\n"
+    "print(json.dumps([main(argv) for argv in json.loads(sys.argv[1])]))\n"
+)
+
+
+class CountedApp:
+    """A WSGI app that counts the requests it answers, probes aside (the
+    requests the server's request metrics count)."""
+
+    def __init__(self, app):
+        self.app = app
+        self.catalog = app.catalog
+        self.requests = 0
+        self._lock = threading.Lock()
+
+    def __call__(self, environ, start_response):
+        if environ.get("PATH_INFO") not in CLIENT_PROBE_PATHS:
+            with self._lock:
+                self.requests += 1
+        return self.app(environ, start_response)
+
+
+def numeric_blocks(frame) -> dict:
+    """A BlockFrame's number blocks, as float64 arrays."""
+    import numpy as np
+
+    return {top: np.asarray(values, dtype=np.float64)
+            for top, (_, values) in frame.blocks.items() if values.dtype != object}
+
+
+def frames_rel_diff(got, want, atol: float = 0.0) -> float:
+    """The largest |got - want| / (atol + |want|.max()) over the number
+    blocks of two frames of one index and blocks."""
+    import numpy as np
+
+    if [str(x) for x in got.index] != [str(x) for x in want.index]:
+        raise AssertionError(f"frames of other rows: {len(got.index)} and {len(want.index)}")
+    if list(got.blocks) != list(want.blocks):
+        raise AssertionError(f"frames of other blocks: {list(got.blocks)}, {list(want.blocks)}")
+    a, b = numeric_blocks(got), numeric_blocks(want)
+    return max(float(np.abs(a[k] - b[k]).max() / (atol + np.abs(b[k]).max())) for k in b)
+
+
+def read_csv_gz(path: str) -> dict:
+    """A ``client predict --output-dir`` file: {(top, sub): column} and
+    the row labels."""
+    import csv
+    import gzip
+
+    with gzip.open(path, "rt", newline="") as fh:
+        rows = list(csv.reader(fh))
+    tops, subs = rows[0][1:], rows[1][1:]
+    columns = {(t, s): [row[1 + j] for row in rows[2:]] for j, (t, s) in enumerate(zip(tops, subs))}
+    return {"index": [row[0] for row in rows[2:]], "columns": columns}
+
+
+def client_phase(torch, fa, profile: bool, collection: str, device=None):
+    """Phase 16 (the module docstring's): the port's client against the
+    port's server on the card (``device`` for a rehearsal elsewhere; on
+    the CPU the plain versions' calls stand in for launches)."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.client import Client
+    from gordo_tpu_torch.client.frames import concat_frames, frame_from_reply, frame_to_dict
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.data.providers import RandomDataProvider
+    from gordo_tpu_torch.observability import attribution, prom_text, tracing
+    from gordo_tpu_torch.server.app import build_app
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    transformers = [f"{MACHINE}-{i}" for i in range(FLEET_TRANSFORMERS)]
+    n_layers, lookback = BASE_ESTIMATOR["n_layers"], BASE_ESTIMATOR["lookback_window"]
+    start, end = (datetime.fromisoformat(t) for t in CLIENT_SPAN)
+    forward = [k for k in fa.kernel_launches if k.startswith(fa.KERNEL + "_")]
+    for var in (tracing.TRACE_LOG_ENV_VAR, attribution.LEDGER_ENV_VAR):
+        os.environ.pop(var, None)
+
+    def launches():
+        fwd = sum(fa.kernel_launches[k] for k in forward)
+        back = sum(fa.launch_counts[k] for k in (fa.KERNEL_DQ, fa.KERNEL_DKV))
+        if device == "cpu":
+            fwd += fa.plain_calls[fa.KERNEL]
+            back += fa.plain_calls[fa.KERNEL_DQ] + fa.plain_calls[fa.KERNEL_DKV]
+        return fwd, back
+
+    workdir = tempfile.mkdtemp(prefix="client-")
+    report = {"span": list(CLIENT_SPAN), "batch_size": CLIENT_BATCH}
+    app = CountedApp(build_app(collection, device=device, batch_wait_ms=0,
+                               enable_prometheus=True))
+    with http_server(collection, None, app=app) as base:
+        server_root = base.split("/gordo/")[0]
+        port = int(server_root.rsplit(":", 1)[1])
+        provider = RandomDataProvider(min_size=FLEET_SAMPLES, max_size=FLEET_SAMPLES)
+        client = Client(PROJECT, host="127.0.0.1", port=port, scheme="http",
+                        data_provider=provider, batch_size=CLIENT_BATCH, parallelism=4)
+        machines = client._get_machines(machine_names=transformers)
+        raw = {m.name: client._raw_data(m, start, end) for m in machines}
+        chunks = {m.name: client._row_chunks(len(raw[m.name][0].index), CLIENT_BATCH,
+                                             client._min_chunk_rows(m)) for m in machines}
+        report["chunks"] = {name: len(c) for name, c in chunks.items()}
+        if min(report["chunks"].values()) < 2:
+            raise AssertionError(f"each machine should post 2 chunks or more: {chunks}")
+
+        # (a) predict, then the same chunks posted directly
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        solo = {r.name: r for r in client.predict(start, end, targets=transformers)}
+        report["predict_s"] = time.perf_counter() - t0
+        solo_launches, (fwd, back) = dict(fa.kernel_launches), launches()
+        want = n_layers * sum(report["chunks"].values())
+        report["predict_launches"] = {"forward": fwd, "backward": back, "expected": want}
+        if fwd != want or back:
+            raise AssertionError(f"client predict launches: {report['predict_launches']}")
+        for name, result in solo.items():
+            if result.error_messages or not len(result.predictions.index):
+                raise AssertionError(f"{name}: {result.error_messages}")
+        t0 = time.perf_counter()
+        direct = {}
+        for name in transformers:
+            X, y = raw[name]
+            frames = []
+            for s, e in chunks[name]:
+                rows = slice(s, e)
+                status, reply, _ = request_json(f"{base}/{name}/anomaly/prediction", {
+                    "X": frame_to_dict(X, rows), "y": frame_to_dict(y, rows)})
+                if status != 200:
+                    raise AssertionError(f"{name} direct POST answered {status}: {reply}")
+                frames.append(frame_from_reply(reply["data"]))
+            direct[name] = concat_frames(frames)
+        report["direct_s"] = time.perf_counter() - t0
+        report["predict_vs_direct"] = {n: frames_rel_diff(solo[n].predictions, direct[n])
+                                       for n in transformers}
+        if max(report["predict_vs_direct"].values()) > CLIENT_RTOL:
+            raise AssertionError(f"client frames against direct POSTs: {report}")
+        report["rows"] = {n: len(solo[n].predictions.index) for n in transformers}
+
+        # (b) predict_fleet: one folded forward a layer for each group chunk
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        fleet = {r.name: r for r in client.predict_fleet(start, end, targets=transformers,
+                                                          group_size=4)}
+        report["fleet_s"] = time.perf_counter() - t0
+        fleet_launches, (fwd, back) = dict(fa.kernel_launches), launches()
+        want = n_layers * max(report["chunks"].values())
+        report["fleet_launches"] = {"forward": fwd, "backward": back, "expected": want}
+        if fwd != want or back:
+            raise AssertionError(f"client fleet launches: {report['fleet_launches']}")
+        report["fleet_vs_predict"] = {
+            n: frames_rel_diff(fleet[n].predictions, solo[n].predictions,
+                               atol=CLIENT_FLEET_ATOL / CLIENT_FLEET_RTOL)
+            for n in transformers}
+        for n in transformers:
+            got, ref = numeric_blocks(fleet[n].predictions), numeric_blocks(solo[n].predictions)
+            for top in ref:
+                if not np.allclose(got[top], ref[top], rtol=CLIENT_FLEET_RTOL,
+                                   atol=CLIENT_FLEET_ATOL):
+                    raise AssertionError(f"{n} {top}: fleet against solo {report}")
+
+        # (c) a stream with one server-side close, against a direct session
+        name = transformers[0]
+        metadata = serializer.load_metadata(os.path.join(collection, name))
+        rows = np.asarray(_get_dataset(metadata["dataset"]).get_data()[0],
+                          dtype=np.float64)[:SERVE_ROWS[1]]
+        updates = stream_chunks(len(rows))
+        fa.reset_launch_counts()
+        streamed = []
+        with client.stream_machine(name, backoff_scale=0.0) as stream:
+            for i, (s, k) in enumerate(updates):
+                if i == CLIENT_STREAM_CUT:
+                    status, _, _ = request_json(f"{base}/stream/{stream.session_id}/close")
+                    if status != 200:
+                        raise AssertionError(f"out-of-band close answered {status}")
+                streamed.append(stream.send(rows[s:s + k]))
+            reconnects = stream.reconnects
+        stream_launches, (fwd, back) = dict(fa.kernel_launches), launches()
+        scored = sum(1 for s, k in updates if s + k >= lookback)
+        report["stream"] = {"updates": len(updates), "scored": scored, "reconnects": reconnects,
+                            "forward": fwd, "backward": back, "expected": n_layers * scored}
+        if reconnects != 1 or fwd != n_layers * scored or back:
+            raise AssertionError(f"client stream: {report['stream']}")
+        status, opened, _ = request_json(f"{base}/stream/open", {"machines": [name]})
+        sid = opened["session"]
+        plain = []
+        for s, k in updates:
+            status, body, _ = request_json(f"{base}/stream/{sid}/update", {
+                "updates": {name: {"rows": rows[s:s + k].tolist(), "seq": s}}})
+            if status != 200:
+                raise AssertionError(f"direct stream update at {s} answered {status}")
+            plain.append(np.asarray(body["scores"][name]["rows"] or [], dtype=np.float32))
+        request_json(f"{base}/stream/{sid}/close")
+        got = np.concatenate([x.reshape(-1, rows.shape[1]) for x in streamed if len(x)])
+        want = np.concatenate([x.reshape(-1, rows.shape[1]) for x in plain if len(x)])
+        report["stream"]["outputs"] = int(len(got))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"the client's stream left the direct session's: {got.shape} "
+                                 f"{want.shape}")
+
+        # (d) the client command in a subprocess (no card there)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        env.pop(tracing.TRACE_LOG_ENV_VAR, None)
+        outdir = os.path.join(workdir, "predictions")
+        os.makedirs(outdir)
+        group = ["client", "--project", PROJECT, "--host", "127.0.0.1", "--port", str(port),
+                 "--scheme", "http", "--batch-size", str(CLIENT_BATCH)]
+        targets = [arg for n in transformers for arg in ("--target", n)]
+        provider_text = json.dumps({"type": "RandomDataProvider", "min_size": FLEET_SAMPLES,
+                                    "max_size": FLEET_SAMPLES})
+        meta_file = os.path.join(workdir, "metadata.json")
+        commands = [
+            [*group, "predict", CLIENT_SPAN[0], CLIENT_SPAN[1], "--data-provider",
+             provider_text, "--output-dir", outdir, *targets],
+            [*group, "metadata", "--output-file", meta_file, *targets],
+        ]
+        # both commands in one process (one start-up): the command's main,
+        # each exit code printed
+        t0 = time.perf_counter()
+        cli_run = subprocess.run(
+            [sys.executable, "-c", CLIENT_CLI_DRIVER, json.dumps(commands)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        report["cli_s"] = time.perf_counter() - t0
+        codes = cli_run.stdout.strip().splitlines()[-1:] or ["none"]
+        if cli_run.returncode or codes != ["[0, 0]"]:
+            raise AssertionError(f"client commands exited {cli_run.returncode} ({codes}):\n"
+                                 f"{cli_run.stdout[-2000:]}\n{cli_run.stderr[-2000:]}")
+        cli_diff = {}
+        for n in transformers:
+            table = read_csv_gz(os.path.join(outdir, f"{n}.csv.gz"))
+            frame = solo[n].predictions
+            if table["index"] != [str(x) for x in frame.index]:
+                raise AssertionError(f"{n}: the command's rows differ from (a)'s")
+            diff = 0.0
+            for top, values in numeric_blocks(frame).items():
+                for j, sub in enumerate(frame.labels(top)):
+                    column = np.asarray([float(x) if x else np.nan
+                                         for x in table["columns"][(top, sub)]])
+                    diff = max(diff, float(np.nanmax(np.abs(column - values[:, j]))
+                                           / np.abs(values).max()))
+            cli_diff[n] = diff
+        report["cli_vs_predict"] = cli_diff
+        if max(cli_diff.values()) > CLIENT_RTOL:
+            raise AssertionError(f"the command's files against (a): {cli_diff}")
+        with open(meta_file) as fh:
+            written = json.load(fh)
+        want_meta = json.loads(json.dumps({n: m.metadata.to_dict() for n, m in zip(
+            transformers, machines)}, default=str))
+        if written != want_meta:
+            raise AssertionError("the command's metadata file differs from the client's")
+
+        # (f) one traced prediction: the server's spans under the client's
+        spans = os.path.join(workdir, "spans", "spans.jsonl")
+        os.environ[tracing.TRACE_LOG_ENV_VAR] = spans
+        try:
+            traced = client.predict(start, end, targets=[name])
+            with tracing.start_span("chip_smoke.echo") as span:
+                reply = client.transport.request(
+                    "GET", f"{server_root}/gordo/v0/{PROJECT}/models",
+                    headers=tracing.propagation_headers(span), timeout=30)
+                echoed = reply.headers.get("x-gordo-trace-id") == span.trace_id
+        finally:
+            os.environ.pop(tracing.TRACE_LOG_ENV_VAR, None)
+        records = tracing.read_spans(spans)
+        requests_ = {r["span_id"]: r for r in records if r["name"] == "client.request"}
+        served = [r for r in records if r["name"] == "server.request"
+                  and r["parent_span_id"] in requests_
+                  and r["trace_id"] == requests_[r["parent_span_id"]]["trace_id"]]
+        chrome = os.path.join(workdir, "chrome.json")
+        from gordo_tpu_torch.cli import trace as trace_cli
+
+        exported = trace_cli.main(["export", os.path.dirname(spans), "-o", chrome])
+        with open(chrome) as fh:
+            events = json.load(fh)["traceEvents"]
+        complete = [e for e in events if e.get("ph") == "X"]
+        report["tracing"] = {"spans": len(records), "client_requests": len(requests_),
+                             "server_requests_under_client": len(served), "echoed": echoed,
+                             "chrome_events": len(complete),
+                             "errors": traced[0].error_messages}
+        if not (echoed and exported == 0 and len(served) == len(requests_)
+                == report["chunks"][name] and len(complete) == len(records)):
+            raise AssertionError(f"tracing: {report['tracing']}")
+
+        # (e) /metrics: the requests sent, the ledger's server phases
+        with urllib.request.urlopen(f"{server_root}/metrics", timeout=60) as reply:
+            samples = prom_text.parse_samples(reply.read().decode())
+        counted = sum(v for (n, _), v in samples.items() if n == "gordo_server_requests_total")
+        phases = sorted({dict(labels)["phase"] for (n, labels) in samples
+                         if n == "gordo_phase_seconds_count"
+                         and dict(labels).get("plane") == "server"})
+        report["metrics"] = {"requests_counted": counted, "requests_sent": app.requests,
+                             "server_phases": phases}
+        expected_phases = {"parse", "transform", "transfer", "device", "postprocess", "serialize"}
+        if counted != app.requests or not expected_phases <= set(phases) <= set(
+                attribution.PHASES):
+            raise AssertionError(f"/metrics: {report['metrics']}")
+
+        # (g) what tracing and the ledger cost
+        report["tracing_overhead"] = tracing.measure_overhead()
+        report["ledger_overhead"] = attribution.measure_overhead()
+        X, y = raw[name]
+        body = {"X": frame_to_dict(X, slice(0, SERVE_ROWS[0])),
+                "y": frame_to_dict(y, slice(0, SERVE_ROWS[0]))}
+        walls = {"on": [], "off": []}
+        for _ in range(2):
+            for mode in ("on", "off"):
+                if mode == "off":
+                    os.environ[attribution.LEDGER_ENV_VAR] = "0"
+                try:
+                    for _ in range(CLIENT_LEDGER_REPEATS):
+                        status, _, seconds = request_json(f"{base}/{name}/anomaly/prediction",
+                                                          body)
+                        walls[mode].append(1e3 * seconds)
+                finally:
+                    os.environ.pop(attribution.LEDGER_ENV_VAR, None)
+        report["ledger_request_ms"] = {mode: statistics.median(v) for mode, v in walls.items()}
+        client.transport.close()
+    report["kernel_launches"] = {"client_predict": solo_launches, "client_fleet": fleet_launches,
+                                 "client_stream": stream_launches}
+    log("client", json.dumps({k: v for k, v in report.items() if k != "kernel_launches"}))
+    return report
+
+
 def wide_row(check):
     """A head_dim 64/128/256 check row as the ``kernels`` line reports it."""
     keys = ("case", "shape", "dtype", "ms", "ms_timer", "bound_ms", "bound_by", "plain_ms",
@@ -4604,6 +4961,7 @@ def main(argv=None) -> int:
         lake_stream = timed("lake_stream", lake_stream_phase, args.profile, fleet["collection"])
         plane = timed("plane", plane_phase, args.profile, fleet["collection"])
         lifecycle = timed("lifecycle", lifecycle_phase, args.profile, fleet["collection"])
+        client = timed("client", client_phase, args.profile, fleet["collection"])
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -4633,6 +4991,7 @@ def main(argv=None) -> int:
              "lifecycle_shadow": lifecycle["tick_launches"]["shadow"],
              "lifecycle_torn": lifecycle["torn_launches"],
              "lifecycle_stream": lifecycle["stream_launches"],
+             **client["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
     def entry(kernel, families, source, replaces, cases, rows):
@@ -4686,7 +5045,7 @@ def main(argv=None) -> int:
                  "recurrent": recurrent, "project_build": project, "fleet_build": fleet,
                  "fleet_serve": fleet_serve, "build_options": options,
                  "lake_stream": lake_stream, "plane": plane, "lifecycle": lifecycle,
-                 **kernels},
+                 "client": client, **kernels},
                 fh,
                 indent=1,
                 default=str,

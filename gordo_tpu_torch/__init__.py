@@ -35,11 +35,24 @@ Layer map:
 - ``gordo_tpu_torch.serializer``  — the port's artifact format
 - ``gordo_tpu_torch.convert``     — carries Flax weights into a port artifact
 - ``gordo_tpu_torch.server``      — stdlib WSGI/JSON model server
+- ``gordo_tpu_torch.client``      — the client of the server (http.client)
+- ``gordo_tpu_torch.observability`` — events, metrics registry, tracing,
+  the phase ledger
 - ``gordo_tpu_torch.utils``       — frequency aliases, ``capture_args``
 
-The package imports torch, numpy and the standard library only.
+The package imports torch, numpy and the standard library only; the
+client's wire layer (``client/io.py``, ``utils.py``, ``streaming.py``,
+``forwarders.py``) and the observability core need no torch.
 """
 
-from gordo_tpu_torch.device import resolve_device  # noqa: F401
-
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # loaded on first use, so modules that need no torch (the client's
+    # wire layer, the observability core) import without it
+    if name == "resolve_device":
+        from gordo_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -27,6 +27,8 @@ The port's command line (the counterpart of ``gordo_tpu.cli``'s
         [--promote | --no-promote] [--repoint | --no-repoint]
     python -m gordo_tpu_torch.cli lifecycle watch ... [--interval-s S] [--max-cycles N]
     python -m gordo_tpu_torch.cli lifecycle report REVISION_DIR
+    python -m gordo_tpu_torch.cli client [...] predict|metadata|download-model ...
+    python -m gordo_tpu_torch.cli trace summarize|export PATH ...
 
 ``build`` builds one machine (fetch and resample its dataset,
 cross-validate and derive the thresholds, fit) and writes the port's
@@ -79,6 +81,11 @@ and stops after ``--max-cycles``, or when a promoted revision was not
 adopted (a plain directory or ``--no-repoint``); ``report`` renders a
 promoted revision's decisions and exits 1 for a revision that has none.
 Scoring and refits run on the card unless ``--device cpu`` is given.
+
+``client`` (``cli/client.py``) predicts, reads metadata and downloads
+models from a server or router with the port's client; ``trace``
+(``cli/trace.py``) summarizes and exports span logs. Both parse their own
+options, and neither touches the card.
 """
 
 import argparse
@@ -710,6 +717,10 @@ def _parser() -> argparse.ArgumentParser:
         router.add_argument(flag, dest=_dest(flag), default=None,
                             help="not ported (ROADMAP.md queue 1 item 9)")
     _add_lifecycle_parser(commands)
+    for name, text in (("client", "predict, read metadata, download models (cli/client.py)"),
+                       ("trace", "summarize or export span logs (cli/trace.py)")):
+        command = commands.add_parser(name, add_help=False, help=text)
+        command.add_argument("command_args", nargs=argparse.REMAINDER)
     return parser
 
 
@@ -726,6 +737,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         runner.main(argv[1:])
         return 0
+    if argv[:1] == ["client"]:
+        from gordo_tpu_torch.cli import client
+
+        return client.main(argv[1:])
+    if argv[:1] == ["trace"]:
+        from gordo_tpu_torch.cli import trace
+
+        return trace.main(argv[1:])
     parser = _parser()
     args = parser.parse_args(argv)
     if args.command == "build-fleet":

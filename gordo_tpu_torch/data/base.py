@@ -102,13 +102,35 @@ def _span_aligned(series: TagSeries, start: int, end: int) -> TagSeries:
 AGGREGATIONS = ("mean", "max", "min", "median", "sum", "count", "std", "first", "last")
 
 
+def _kahan_sums(bins: np.ndarray, values: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Each bin's sum in time order with Kahan's compensation, as pandas'
+    grouped sum and mean add (a plain running sum differs from theirs in
+    the last bit of about a third of the bins). Bins run in parallel, one
+    numpy step for each rank within a bin."""
+    sums = np.zeros(len(counts))
+    compensation = np.zeros(len(counts))
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(len(bins)) - starts[bins]
+    by_rank = np.argsort(rank, kind="stable")
+    edges = np.concatenate([[0], np.cumsum(np.bincount(rank))]) if len(rank) else [0]
+    for k in range(len(edges) - 1):
+        at = by_rank[edges[k]:edges[k + 1]]
+        lab = bins[at]
+        y = values[at] - compensation[lab]
+        total = sums[lab] + y
+        fix = total - sums[lab] - y
+        compensation[lab] = np.where(np.isnan(fix), 0.0, fix)
+        sums[lab] = total
+    return sums
+
+
 def _aggregate(method: str, bins: np.ndarray, values: np.ndarray, n_bins: int) -> np.ndarray:
     """One aggregation of each bin's values (NaN already dropped; bins
     non-decreasing, values in time order within a bin)."""
     counts = np.bincount(bins, minlength=n_bins)
     if method == "count":
         return counts.astype(np.float64)
-    sums = np.bincount(bins, weights=values, minlength=n_bins)
+    sums = _kahan_sums(bins, values, counts)
     if method == "sum":
         return sums
     out = np.full(n_bins, np.nan)

@@ -28,6 +28,7 @@ import copy
 import logging
 import math
 import threading
+import time
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -38,6 +39,7 @@ from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.optim import BoundOptimizer
 from gordo_tpu_torch.models.register import register_model_builder
 from gordo_tpu_torch.models.specs import ModelSpec, cast, flax_default_init_, per_sample_loss
+from gordo_tpu_torch.observability import attribution
 from gordo_tpu_torch.ops.windowing import gather_windows
 from gordo_tpu_torch.parallel.precision import cast_params
 
@@ -341,8 +343,16 @@ class BaseTorchEstimator:
         X = self._pad_active_input(as_2d(X))
         outs = []
         for start in range(0, len(X), PREDICT_CHUNK_ROWS):
+            # the phase ledger's seams, as the JAX row-wise forward's:
+            # the input's copy is ``transfer``, the forward to its
+            # output's copy to the host ``device``
+            t0 = time.perf_counter()
             xb = torch.from_numpy(np.ascontiguousarray(X[start : start + PREDICT_CHUNK_ROWS]))
-            outs.append(forward(xb.to(self.device_)).cpu().numpy())
+            xb = xb.to(self.device_)
+            t1 = time.perf_counter()
+            attribution.record_current("transfer", t1 - t0)
+            outs.append(forward(xb).cpu().numpy())
+            attribution.record_current("device", time.perf_counter() - t1)
         if not outs:
             return np.empty((0, self.n_features_out_), dtype=np.float32)
         return self._strip_pad_output(np.concatenate(outs))

@@ -13,10 +13,12 @@ so threads and processes sharing the file interleave whole lines.
 to ``<path>.1`` (one generation kept) and a fresh file starts; the
 lifecycle's byte cursor starts over when the log shrinks.
 
-The JAX emitter stamps each record with the active trace's ids
-(``trace_fields()``); the port has no tracing yet (ROADMAP.md queue 1
-item 9), so its records carry ``ts``, ``unix_ms``, ``event``, ``pid``
-and the event's own fields.
+A record carries ``ts``, ``unix_ms``, ``event``, ``pid`` and the
+event's own fields; one emitted inside a recording span also carries the
+span's ``trace_id`` and ``span_id`` (``tracing.trace_fields()``), so the
+event log joins the span log on the trace id, as the JAX emitter's does.
+Fields given explicitly win (a thread that hands a span to another
+passes ``**trace_fields(span)`` itself).
 """
 
 import json
@@ -26,6 +28,8 @@ import threading
 import time
 from datetime import datetime, timezone
 from typing import List, Optional
+
+from gordo_tpu_torch.observability.tracing import trace_fields
 
 logger = logging.getLogger(__name__)
 
@@ -70,6 +74,8 @@ class EventEmitter:
             "pid": os.getpid(),
         }
         record.update(fields)
+        for key, value in trace_fields().items():
+            record.setdefault(key, value)
         try:
             line = json.dumps(record, default=str) + "\n"
         except Exception:

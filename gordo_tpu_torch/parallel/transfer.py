@@ -24,10 +24,10 @@ On the CPU a put is the plain ``.to(device)``.
 
 Transfers are counted by (plane, mode) in :data:`transfer_counts`
 (``prefetched`` = issued ahead of the consuming work, ``direct`` = on the
-critical path), and a stream's copied rows in :data:`transfer_rows`: the
-counter the JAX package keeps in its metrics
-registry; the port has no registry yet (ROADMAP.md queue 1 item 9), so
-the fleet builder's telemetry report reads this one. The knob is
+critical path), and a stream's copied rows in :data:`transfer_rows`; the
+fleet builder's telemetry report reads these. The transfers are also
+counted in the process registry as the JAX package counts them,
+``gordo_transfer_chunks_total{plane,mode}`` (on ``/metrics``). The knob is
 ``--prefetch-depth`` / ``GORDO_PREFETCH_DEPTH``, at most
 :data:`MAX_PREFETCH_DEPTH`.
 """
@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from gordo_tpu_torch.device import DeviceLike, resolve_device
+from gordo_tpu_torch.observability.registry import get_registry
 
 #: the most transfers kept in flight: past a handful the queue only adds
 #: memory pressure, never overlap
@@ -76,6 +77,12 @@ def count_transfer(plane: str, mode: str, n: int = 1, rows: int = 0) -> None:
     ratio prefetched / total judges the ``prefetch_depth`` knob."""
     if n > 0:
         transfer_counts[(plane, mode)] = transfer_counts.get((plane, mode), 0) + n
+        get_registry().counter(
+            "gordo_transfer_chunks_total",
+            "Host->device transfers by plane and issue mode (prefetched "
+            "vs direct); overlap ratio = prefetched / total",
+            ("plane", "mode"),
+        ).inc(n, plane=plane, mode=mode)
     if rows > 0:
         transfer_rows[(plane, mode)] = transfer_rows.get((plane, mode), 0) + rows
 

@@ -29,17 +29,16 @@ serve a shard of one collection (``run-server --shard-manifest``).
 
 The router holds no model and needs no card: it reads the collection's
 directory and build report (``CollectionView``) and calls the replicas
-with ``http.client``, over keep-alive connections kept per replica. The
-JAX router's ``/metrics``, ``/status`` and ``/telemetry/snapshot``, its
+with ``utils/http.py``'s ``HttpTransport``, over keep-alive connections
+kept per replica. The JAX router's ``/metrics``, ``/status`` and
+``/telemetry/snapshot`` (the rollup of its replicas' registries), its
 ``replica:`` fault grammar, events and tracing spans are not ported
 (ROADMAP.md queue 1 item 9): the three routes answer 404 saying so.
 """
 
-import http.client
 import json
 import logging
 import os
-import socket
 import threading
 import time
 import timeit
@@ -49,7 +48,7 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeout
 from concurrent.futures import wait as futures_wait
 from typing import Dict, List, Optional, Sequence, Tuple
-from urllib.parse import parse_qs, urlencode, urlsplit
+from urllib.parse import parse_qs, urlencode
 
 from gordo_tpu_torch import __version__, serializer
 from gordo_tpu_torch.router.health import ReplicaHealthTracker
@@ -64,6 +63,7 @@ from gordo_tpu_torch.server.app import (
 )
 from gordo_tpu_torch.server.catalog import ADOPT_HEADER, CollectionView
 from gordo_tpu_torch.server.utils import ApiError
+from gordo_tpu_torch.utils.http import HttpTransport, Reply
 
 logger = logging.getLogger(__name__)
 
@@ -119,70 +119,6 @@ _ROUTES = [
     ("POST", _PROJECT + "/stream/<stream_id>/close", "stream_close"),
 ]
 _COMPILED_ROUTES = compile_routes(_ROUTES)
-
-
-class Reply:
-    """A replica's answer: status, headers (names lower-cased), body."""
-
-    def __init__(self, status: int, headers: Dict[str, str], body: bytes):
-        self.status = status
-        self.headers = headers
-        self.body = body
-
-    def json(self):
-        return json.loads(self.body or b"null")
-
-
-class HttpTransport:
-    """Calls replicas over ``http.client`` connections kept alive and
-    pooled per replica (a connection serves one call at a time). A call
-    on a pooled connection that the replica has since closed is sent
-    again, once, on a fresh one."""
-
-    def __init__(self):
-        self._idle: Dict[Tuple[str, int], List[http.client.HTTPConnection]] = {}
-        self._lock = threading.Lock()
-
-    def request(self, method: str, url: str, body: Optional[bytes] = None,
-                headers: Optional[Dict[str, str]] = None, timeout: float = 30.0) -> Reply:
-        parts = urlsplit(url)
-        key = (parts.hostname, parts.port or 80)
-        target = parts.path + (f"?{parts.query}" if parts.query else "")
-        for attempt in (0, 1):
-            with self._lock:
-                pool = self._idle.setdefault(key, [])
-                conn = pool.pop() if pool else None
-            reused = conn is not None
-            try:
-                if conn is None:
-                    conn = http.client.HTTPConnection(key[0], key[1], timeout=timeout)
-                    conn.connect()
-                    # http.client sends the headers and the body in two
-                    # writes: without this the body waits for the
-                    # replica's delayed ACK of the headers
-                    conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-                conn.request(method, target, body=body, headers=headers or {})
-                resp = conn.getresponse()
-                data = resp.read()
-            except (ConnectionError, http.client.HTTPException, OSError):
-                conn.close()
-                if reused and attempt == 0:
-                    continue  # the replica closed the idle connection
-                raise
-            if resp.will_close:
-                conn.close()
-            else:
-                with self._lock:
-                    self._idle.setdefault(key, []).append(conn)
-            return Reply(resp.status, {k.lower(): v for k, v in resp.getheaders()}, data)
-        raise ConnectionError(f"no connection to {url}")  # not reached
-
-    def close(self) -> None:
-        with self._lock:
-            pools, self._idle = self._idle, {}
-        for pool in pools.values():
-            for conn in pool:
-                conn.close()
 
 
 class Request:

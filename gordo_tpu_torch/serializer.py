@@ -250,6 +250,32 @@ def loads(data: bytes, device: DeviceLike = None):
                   device)
 
 
+def unpack(data: bytes, dest_dir: PathLike) -> Path:
+    """Write an archive from :func:`dumps` as the artifact at
+    ``dest_dir`` (its three files only, published whole)."""
+    dest_dir = Path(dest_dir)
+    files = {}
+    with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
+        for member in tar.getmembers():
+            if member.name in ARTIFACT_FILES and member.isfile():
+                files[member.name] = tar.extractfile(member).read()
+    missing = [name for name in ARTIFACT_FILES if name not in files]
+    if missing:
+        raise ValueError(f"Not a model archive: {missing} missing")
+    dest_dir.parent.mkdir(parents=True, exist_ok=True)
+    tmp_dir = dest_dir.parent / f".{dest_dir.name}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    tmp_dir.mkdir()
+    try:
+        for name, content in files.items():
+            (tmp_dir / name).write_bytes(content)
+        atomic_publish_dir(tmp_dir, dest_dir)
+    except BaseException:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise
+    return dest_dir
+
+
 def load_metadata(source_dir: PathLike) -> Dict[str, Any]:
     """The artifact's metadata dict."""
     path = Path(source_dir) / METADATA_FILENAME

@@ -46,6 +46,21 @@ their real directory. Machines that the revision's ``build_report.json``
 records as failed or quarantined answer 409 on every prediction route,
 and ``/models`` lists them under ``unavailable``.
 
+Observability, as the JAX server's: a request's ``traceparent`` header
+(W3C trace context) parents its ``server.request`` span when tracing is
+on (``GORDO_TPU_TRACE_LOG``), and every reply echoes the trace id in
+``X-Gordo-Trace-Id``, errors included; the probe paths (``/healthcheck``,
+``/healthz``, ``/metrics``, ``/telemetry/snapshot``) echo but record
+nothing. A request's phase ledger (``observability/attribution.py``;
+``GORDO_PHASE_LEDGER=0`` turns it off) times its seven phases into
+``gordo_phase_seconds{plane="server"}``, the span's attributes and the
+``Server-Timing`` header, beside the ``model_load``, ``predict`` and
+``queue`` entries. With ``enable_prometheus`` (``ENABLE_PROMETHEUS``)
+``GET /metrics`` writes the request metrics and the process registry in
+the Prometheus text format (``server/prometheus/metrics.py``); else it
+answers 404. ``GET /telemetry/snapshot`` is the registry's versioned
+snapshot with the ``/healthz`` status (``observability/rollup.py``).
+
 A sharded replica (``shard_manifest``, ``GORDO_SHARD_MANIFEST``; its id
 ``replica_id``, ``GORDO_REPLICA_ID``) serves the consistent-hash share of
 the collection that the ring gives it (``router/ring.py``): ``/models``
@@ -56,11 +71,13 @@ prediction or stream route naming a machine of another shard answers a
 (``gordo_tpu_torch.router``) fronts such replicas.
 """
 
+import contextlib
 import json
 import logging
 import os
 import re
 import threading
+import time
 import timeit
 import traceback
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -73,6 +90,8 @@ from gordo_tpu_torch.data.sensor_tag import tag_names
 from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.utils import make_base_dataframe
 from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
+from gordo_tpu_torch.observability import attribution, prom_text, rollup, tracing
+from gordo_tpu_torch.observability.registry import get_registry
 from gordo_tpu_torch.server import batching
 from gordo_tpu_torch.server import utils as server_utils
 from gordo_tpu_torch.server.catalog import ADOPT_HEADER, ServingCatalog, ShardSpec
@@ -93,6 +112,13 @@ STREAM_MAX_BACKLOG = ("GORDO_STREAM_MAX_BACKLOG", int, stream_session.DEFAULT_MA
 STREAM_IDLE_S = ("GORDO_STREAM_IDLE_S", float, stream_session.DEFAULT_IDLE_AFTER_S)
 SHARD_MANIFEST = ("GORDO_SHARD_MANIFEST", str, "")
 REPLICA_ID = ("GORDO_REPLICA_ID", str, "")
+
+
+def _env_bool(value: str) -> bool:
+    return str(value).strip().lower() in ("1", "true", "yes", "on")
+
+
+ENABLE_PROMETHEUS = ("ENABLE_PROMETHEUS", _env_bool, False)
 
 _STATUS_TEXT = {
     200: "OK",
@@ -117,6 +143,8 @@ _ROUTES = [
     ("GET", "/healthcheck", "healthcheck"),
     ("GET", "/healthz", "healthz"),
     ("GET", "/server-version", "server_version"),
+    ("GET", "/metrics", "metrics"),
+    ("GET", "/telemetry/snapshot", "telemetry_snapshot"),
     ("GET", _PROJECT + "/models", "models"),
     ("GET", _PROJECT + "/revisions", "revisions"),
     ("GET", _PROJECT + "/expected-models", "expected_models"),
@@ -151,6 +179,8 @@ SPEC_SUMMARIES = {
     "healthcheck": "Liveness check",
     "healthz": "Readiness check (reflects batching-queue saturation)",
     "server_version": "Server version",
+    "metrics": "Prometheus metrics exposition",
+    "telemetry_snapshot": "Versioned registry dump + process identity (plane rollup)",
     "models": "List models in the served revision",
     "revisions": "List available model revisions",
     "expected_models": "List models the deployment expects",
@@ -243,15 +273,38 @@ def _setting(value, setting):
     return kind(value)
 
 
+class RequestContext:
+    """A request's timing: its ``Server-Timing`` entries, its trace id
+    (the ``traceparent``'s, or the request span's) and its phase ledger."""
+
+    def __init__(self):
+        self.start_time = timeit.default_timer()
+        #: (phase name, seconds) pairs, the Server-Timing entries
+        self.timings: List[Tuple[str, float]] = []
+        self.trace_id = ""
+        self.ledger = attribution.ledger_for("server")
+
+    def record_phase(self, name: str, seconds: float) -> None:
+        """One phase: a Server-Timing entry, an observation of
+        ``gordo_server_phase_seconds`` and, with tracing on, a span
+        under the request's."""
+        self.timings.append((name, seconds))
+        get_registry().histogram(
+            "gordo_server_phase_seconds", "Server request phase durations", ("phase",)
+        ).observe(seconds, phase=name)
+        tracing.record_span(name, seconds)
+
+
 class Body:
-    """A request's body reader, its content type, and whether it carries
-    the router's adopt header."""
+    """A request's body reader, its content type, whether it carries the
+    router's adopt header, and its :class:`RequestContext`."""
 
     def __init__(self, read: Callable[[], bytes], content_type: Optional[str] = None,
-                 adopt: bool = False):
+                 adopt: bool = False, ctx: Optional[RequestContext] = None):
         self._read = read
         self.content_type = content_type or ""
         self.adopt = bool(adopt)
+        self.ctx = ctx if ctx is not None else RequestContext()
 
     def __call__(self) -> bytes:
         return self._read()
@@ -280,8 +333,16 @@ class GordoApp:
         stream_idle_s: Optional[float] = None,
         shard_manifest: Optional[str] = None,
         replica_id: Optional[str] = None,
+        enable_prometheus: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
+        #: process start, the uptime epoch of /telemetry/snapshot
+        self._started_at = time.time()
+        self.prometheus_metrics = None
+        if _setting(enable_prometheus, ENABLE_PROMETHEUS):
+            from gordo_tpu_torch.server.prometheus.metrics import GordoServerPrometheusMetrics
+
+            self.prometheus_metrics = GordoServerPrometheusMetrics()
         shard_manifest = _setting(shard_manifest, SHARD_MANIFEST)
         shard = None
         if shard_manifest:
@@ -318,6 +379,7 @@ class GordoApp:
             revision=environ.get("HTTP_REVISION"),
             content_type=environ.get("CONTENT_TYPE"),
             adopt=bool(environ.get("HTTP_" + ADOPT_HEADER.upper().replace("-", "_"))),
+            traceparent=environ.get("HTTP_TRACEPARENT"),
         )
         headers = [
             ("Content-Type", response.mimetype),
@@ -328,6 +390,14 @@ class GordoApp:
         start_response(status, headers)
         return [response.body]
 
+    #: probes: their spans would be noise (a liveness poll every few
+    #: seconds), and they are no traffic for the ledger or the request
+    #: metrics; a probe's traceparent is still echoed
+    _TRACE_EXEMPT_PATHS = frozenset({"/healthcheck", "/healthz", "/metrics",
+                                     "/telemetry/snapshot"})
+    #: views whose JSON keeps its schema: the revision rides the header only
+    _REVISION_BODY_EXEMPT = frozenset({"specs", "telemetry_snapshot"})
+
     def dispatch(
         self,
         method: str,
@@ -337,27 +407,54 @@ class GordoApp:
         revision: Optional[str] = None,
         content_type: Optional[str] = None,
         adopt: bool = False,
+        traceparent: Optional[str] = None,
     ) -> Response:
         """One request: ``revision`` is the ``revision`` header's value; a
         ``revision`` in ``query_string`` takes precedence over it;
-        ``adopt`` whether the router's adopt header came with it."""
-        read_body = Body(read_body, content_type, adopt)
-        view, url_args = self._match(method, path)
-        served = current = self._current_revision()
+        ``adopt`` whether the router's adopt header came with it;
+        ``traceparent`` the W3C trace-context header's value."""
+        ctx = RequestContext()
+        read_body = Body(read_body, content_type, adopt, ctx)
+        incoming = tracing.parse_traceparent(traceparent)
+        if path in self._TRACE_EXEMPT_PATHS:
+            ctx.trace_id = incoming.trace_id if incoming is not None else ""
+            ctx.ledger = attribution.NOOP_LEDGER
+            return self._dispatch_traced(method, path, read_body, query_string, revision,
+                                         tracing.NOOP_SPAN)
+        with tracing.start_span("server.request", parent=incoming, method=method,
+                                path=path) as span:
+            ctx.trace_id = span.trace_id or (incoming.trace_id if incoming is not None else "")
+            # the ledger is the thread's sink: the scorer and the
+            # estimators add transfer and device seconds to it
+            with ctx.ledger.activate():
+                return self._dispatch_traced(method, path, read_body, query_string, revision,
+                                             span)
+
+    def _dispatch_traced(self, method: str, path: str, read_body: Body, query_string: str,
+                         revision: Optional[str], span) -> Response:
+        ctx = read_body.ctx
+        view = url_args = None
+        served = None
         try:
+            # routing and revision resolution are the request's admission:
+            # ``parse`` time, as the body's decode
+            with ctx.ledger.phase("parse"):
+                view, url_args = self._match(method, path)
+                served = current = self._current_revision()
+                if view is not None:
+                    requested = (parse_qs(query_string).get("revision", [None])[0]
+                                 or revision)
+                    if requested:
+                        directory = resolve_sibling_revision(current.directory, requested)
+                        served = Revision(requested, directory)
             if view is None:
                 response = url_args  # the 404/405 reply
+            elif served.directory is None:
+                response = _json_response(
+                    {"error": f"Revision '{served.name}' not found."}, 410
+                )
             else:
-                requested = parse_qs(query_string).get("revision", [None])[0] or revision
-                if requested:
-                    directory = resolve_sibling_revision(current.directory, requested)
-                    served = Revision(requested, directory)
-                if served.directory is None:
-                    response = _json_response(
-                        {"error": f"Revision '{requested}' not found."}, 410
-                    )
-                else:
-                    response = getattr(self, f"view_{view}")(served, read_body, **url_args)
+                response = getattr(self, f"view_{view}")(served, read_body, **url_args)
         except ApiError as exc:
             response = _json_response(exc.payload, exc.status)
         except batching.BatchQueueFull as exc:
@@ -391,14 +488,50 @@ class GordoApp:
             response = _json_response(
                 {"error": "Something unexpected happened; check your input data"}, 500
             )
-        if served.directory is not None:  # a 410 names no revision
-            # the OpenAPI document keeps its schema: the revision rides
-            # the header only
-            if response.payload is not None and view != "specs":
+        span.set_attribute("endpoint", view or "unmatched")
+        span.set_attribute("status_code", response.status)
+        if response.status >= 500:
+            span.set_status("error")
+        return self._finalize(method, path, ctx, served, view, response)
+
+    def _finalize(self, method: str, path: str, ctx: RequestContext,
+                  served: Optional[Revision], view: Optional[str],
+                  response: Response) -> Response:
+        """Stamp the revision, encode the JSON body, close the ledger and
+        write ``Server-Timing``, the pid and the trace id."""
+        stamped = served is not None and served.directory is not None  # a 410 names none
+        if stamped:
+            if response.payload is not None and view not in self._REVISION_BODY_EXEMPT:
                 response.payload["revision"] = served.name
             response.headers["revision"] = served.name
         if response.payload is not None:
-            response.body = json.dumps(response.payload, default=str).encode()
+            # ``serialize`` as the JAX server's: the stamped JSON of a
+            # matched route (its 404, 410 and exempt bodies are not timed)
+            timed = stamped and view is not None and view not in self._REVISION_BODY_EXEMPT
+            with ctx.ledger.phase("serialize") if timed else contextlib.nullcontext():
+                response.body = json.dumps(response.payload, default=str).encode()
+        runtime_s = timeit.default_timer() - ctx.start_time
+        # the ledger's phases that the coarse entries do not carry join
+        # Server-Timing (``queue`` rides its own entry)
+        already_timed = {name for name, _ in ctx.timings}
+        summary = ctx.ledger.finish(span=tracing.current_span(), wall_s=runtime_s)
+        for name, seconds in (summary.get("phases") or {}).items():
+            if name not in already_timed:
+                ctx.record_phase(name, seconds)
+        # dur in milliseconds, as the header's spec says; the legacy
+        # ``request_walltime_s`` keeps its seconds
+        entries = [f"{name};dur={seconds * 1000.0:.2f}" for name, seconds in ctx.timings]
+        entries.append(f"total;dur={runtime_s * 1000.0:.2f}")
+        entries.append(f"request_walltime_s;dur={runtime_s}")
+        response.headers["Server-Timing"] = ", ".join(entries)
+        response.headers["X-Gordo-Server-Pid"] = str(os.getpid())
+        if ctx.trace_id:
+            # on every reply, errors too: a casualty the client reports
+            # can be found in this server's span and event logs
+            response.headers[tracing.TRACE_ID_RESPONSE_HEADER] = ctx.trace_id
+        if self.prometheus_metrics is not None and path not in self._TRACE_EXEMPT_PATHS:
+            self.prometheus_metrics.observe(method, path, view or "unmatched", response.status,
+                                            runtime_s)
         return response
 
     def _current_revision(self) -> Revision:
@@ -430,6 +563,10 @@ class GordoApp:
             return  # the first request of the process: nothing rolled
         n_stopped = self.catalog.stop_stale_batchers(latest_real)
         n_streams = self.catalog.expire_stale_streams(latest_real)
+        get_registry().counter(
+            "gordo_server_revision_rolls_total",
+            "Hot promotions observed by this server (latest symlink flips)",
+        ).inc()
         logger.info(
             "Revision rolled: now serving %s as latest (was %s); %d stale batcher(s) stopped, "
             "%d stream session(s) expired", latest_real, previous, n_stopped, n_streams,
@@ -459,7 +596,11 @@ class GordoApp:
     def _model_missing(served: Revision, name: str) -> ApiError:
         return ApiError({"error": f"Model '{name}' not found in revision {served.name}"}, 404)
 
-    def _get_model(self, served: Revision, name: str):
+    def _get_model(self, served: Revision, name: str, ctx: Optional[RequestContext] = None):
+        """The machine's model, loaded once onto the app's device; with a
+        request's ``ctx``, its ``model_load`` phase (the cache lookup once
+        loaded), as the JAX server times every load."""
+        start = timeit.default_timer()
         key = (os.path.realpath(served.directory), name)
         with self._lock:
             model = self._models.get(key)
@@ -469,6 +610,8 @@ class GordoApp:
                 except FileNotFoundError:
                     raise self._model_missing(served, name) from None
                 self._models[key] = model
+        if ctx is not None:
+            ctx.record_phase("model_load", timeit.default_timer() - start)
         return model
 
     def _get_metadata(self, served: Revision, name: str) -> dict:
@@ -502,7 +645,8 @@ class GordoApp:
 
     def _extract(self, read_body, metadata: dict):
         tags, target_tags = self._tags(metadata)
-        X, y = server_utils.extract_X_y(self._json_body(read_body), tags, target_tags)
+        with read_body.ctx.ledger.phase("parse"):
+            X, y = server_utils.extract_X_y(self._json_body(read_body), tags, target_tags)
         return tags, target_tags, X, y
 
     # -- casualties and shards ---------------------------------------------
@@ -537,10 +681,42 @@ class GordoApp:
     def view_server_version(self, served: Revision, read_body) -> Response:
         return _json_response({"version": __version__})
 
+    def view_metrics(self, served: Revision, read_body) -> Response:
+        """The request metrics and the process registry in the Prometheus
+        text format; 404 unless the app was built with them."""
+        if self.prometheus_metrics is None:
+            return _json_response({"error": "Prometheus metrics are not enabled"}, 404)
+        return Response(self.prometheus_metrics.exposition(), 200,
+                        mimetype=prom_text.CONTENT_TYPE)
+
+    def view_telemetry_snapshot(self, served: Revision, read_body) -> Response:
+        """This replica's registry and identity, versioned
+        (``rollup.snapshot_payload``), with the ``/healthz`` status."""
+        status, _ = self._readiness()
+        shard = self.catalog.shard
+        return _json_response(rollup.snapshot_payload(
+            role="replica",
+            replica_id=shard.replica_id if shard is not None else None,
+            revision=served.name,
+            status=status,
+            registry=get_registry(),
+            started_at=self._started_at,
+        ))
+
     def view_healthz(self, served: Revision, read_body) -> Response:
         """Readiness, the JAX server's body: 200 while the server can take
         work; 503 with ``Retry-After`` while a batcher is saturated or has
         just shed, or a stream session's backlog is saturated."""
+        payload, retry_after = self._readiness()
+        if retry_after is None:
+            return _json_response(payload)
+        response = _json_response(payload, 503)
+        response.headers["Retry-After"] = str(retry_after)
+        return response
+
+    def _readiness(self) -> Tuple[dict, Optional[float]]:
+        """The ``/healthz`` body and its Retry-After (None while the
+        server takes work)."""
         stats = self.catalog.batcher_stats()
         overloaded = [s for s in stats if s["saturated"] or s["shedding"]]
         streams = self.catalog.stream_stats()
@@ -565,10 +741,8 @@ class GordoApp:
             },
         }
         if not overloaded:
-            return _json_response(payload)
-        response = _json_response(payload, 503)
-        response.headers["Retry-After"] = str(max(s["retry_after_s"] for s in overloaded))
-        return response
+            return payload, None
+        return payload, max(s["retry_after_s"] for s in overloaded)
 
     def view_models(self, served: Revision, read_body, gordo_project: str) -> Response:
         """The revision's machines (a sharded replica's: its shard's);
@@ -636,16 +810,25 @@ class GordoApp:
         response.headers["Content-Disposition"] = "attachment; filename=model.tar.gz"
         return response
 
+    @staticmethod
+    def _inner_seconds(ctx: RequestContext) -> float:
+        """The transfer and device seconds the request's ledger holds."""
+        return ctx.ledger.phases.get("transfer", 0.0) + ctx.ledger.phases.get("device", 0.0)
+
     def view_prediction(
         self, served: Revision, read_body, gordo_project: str, gordo_name: str
     ) -> Response:
-        start = timeit.default_timer()
+        ctx = read_body.ctx
         self._refuse_unavailable(served, [gordo_name])
         self._refuse_wrong_shard(read_body, [gordo_name])
-        model = self._get_model(served, gordo_name)
+        model = self._get_model(served, gordo_name, ctx)
         tags, target_tags, X, _ = self._extract(
             read_body, self._get_metadata(served, gordo_name)
         )
+        start = timeit.default_timer()
+        # ``transform`` is the predict's host remainder: its time less
+        # the transfer and device seconds the estimator recorded
+        inner_before = self._inner_seconds(ctx)
         try:
             output = model.predict(X)
         except ValueError as err:
@@ -655,27 +838,34 @@ class GordoApp:
             return _json_response(
                 {"error": "Something unexpected happened; check your input data"}, 400
             )
-        data = make_base_dataframe(
-            tags=tags,
-            model_input=X.values,
-            model_output=output,
-            target_tag_list=target_tags,
-            index=X.index,
-        )
+        elapsed = timeit.default_timer() - start
+        ctx.record_phase("predict", elapsed)
+        ctx.ledger.add("transform",
+                       max(0.0, elapsed - (self._inner_seconds(ctx) - inner_before)))
+        with ctx.ledger.phase("postprocess"):
+            data = make_base_dataframe(
+                tags=tags,
+                model_input=X.values,
+                model_output=output,
+                target_tag_list=target_tags,
+                index=X.index,
+            )
+        with ctx.ledger.phase("serialize"):
+            data = server_utils.dataframe_to_dict(data)
         return _json_response(
             {
-                "data": server_utils.dataframe_to_dict(data),
-                "time-seconds": f"{timeit.default_timer() - start:.4f}",
+                "data": data,
+                "time-seconds": f"{timeit.default_timer() - ctx.start_time:.4f}",
             }
         )
 
     def view_anomaly_prediction(
         self, served: Revision, read_body, gordo_project: str, gordo_name: str
     ) -> Response:
-        start = timeit.default_timer()
+        ctx = read_body.ctx
         self._refuse_unavailable(served, [gordo_name])
         self._refuse_wrong_shard(read_body, [gordo_name])
-        model = self._get_model(served, gordo_name)
+        model = self._get_model(served, gordo_name, ctx)
         metadata = self._get_metadata(served, gordo_name)
         _, _, X, y = self._extract(read_body, metadata)
         if y is None:
@@ -686,6 +876,10 @@ class GordoApp:
         frequency = server_utils.resolution_to_timedelta(
             metadata["dataset"].get("resolution", "10min")
         )
+        start = timeit.default_timer()
+        # the anomaly call's host remainder (transforms, statistic,
+        # thresholds) is ``postprocess``
+        inner_before = self._inner_seconds(ctx)
         try:
             anomaly = model.anomaly(X, y, frequency=frequency)
         except AttributeError:
@@ -698,13 +892,18 @@ class GordoApp:
             )
         except ValueError as err:
             return _json_response({"error": f"ValueError: {err}"}, 400)
+        elapsed = timeit.default_timer() - start
+        ctx.record_phase("predict", elapsed)
+        ctx.ledger.add("postprocess",
+                       max(0.0, elapsed - (self._inner_seconds(ctx) - inner_before)))
+        with ctx.ledger.phase("serialize"):
+            data = server_utils.dataframe_to_dict(anomaly)
         return _json_response(
             {
-                "data": server_utils.dataframe_to_dict(anomaly),
-                "time-seconds": f"{timeit.default_timer() - start:.4f}",
+                "data": data,
+                "time-seconds": f"{timeit.default_timer() - ctx.start_time:.4f}",
             }
         )
-
 
     # -- fleet routes --------------------------------------------------------
     @staticmethod
@@ -728,7 +927,8 @@ class GordoApp:
         against its columns."""
         return server_utils.verify_dataframe(server_utils.dataframe_from_dict(raw), columns)
 
-    def _fleet_scorer(self, served: Revision, names=()) -> Tuple[tuple, tuple]:
+    def _fleet_scorer(self, served: Revision, names=(), ctx: Optional[RequestContext] = None
+                      ) -> Tuple[tuple, tuple]:
         """(the machines scored, the (scorer, prefixes, fallback) over all
         of them): the revision's servable machines (a sharded replica's
         shard), with any of ``names`` it adopts. One scorer a revision,
@@ -742,25 +942,52 @@ class GordoApp:
         if adopted:
             servable = tuple(sorted((*servable, *adopted)))
         return servable, self.catalog.fleet_scorer(
-            served.directory, servable, lambda name: self._get_model(served, name)
+            served.directory, servable, lambda name: self._get_model(served, name, ctx)
         )
 
-    def _fleet_predict(self, served: Revision, servable, scorer, inputs: dict) -> dict:
+    def _fleet_predict(self, served: Revision, servable, scorer, inputs: dict,
+                       ctx: RequestContext) -> dict:
         """One stacked scoring of ``inputs``: straight through the scorer
         with batching off (no batcher is ever built), else through the
         revision's batcher, whose drainer may coalesce it with concurrent
-        requests."""
+        requests. A batched request's ``queue`` phase is its whole wait
+        less the dispatch's own phases, which the batcher hands back to
+        its ledger."""
         if self.catalog.batch_wait_s <= 0:
             return scorer.predict(inputs)
         key = (os.path.realpath(served.directory), servable)
+        submitted = timeit.default_timer()
         for _ in range(8):
             try:
-                return self.catalog.batcher(key, scorer).submit(inputs).outputs
+                pending = self.catalog.batcher(key, scorer).submit(inputs, ctx.trace_id)
+                break
             except batching.BatcherStopped:
                 continue  # the batcher was replaced between lookup and submit
-        raise RuntimeError(f"The batcher of revision {served.name!r} kept stopping")
+        else:
+            raise RuntimeError(f"The batcher of revision {served.name!r} kept stopping")
+        shared_s = sum(pending.phase_seconds.values())
+        queue_s = max(0.0, timeit.default_timer() - submitted - shared_s)
+        ctx.record_phase("queue", queue_s)
+        attribution.record_current("queue", queue_s)
+        for phase, seconds in pending.phase_seconds.items():
+            attribution.record_current(phase, seconds)
+        span = tracing.current_span()
+        if span is not None:
+            span.set_attribute("queue_wait_ms", round(pending.queue_wait_s * 1000.0, 3))
+            if pending.batch_span_id:
+                span.set_attribute("batch_trace_id", pending.batch_trace_id)
+                span.set_attribute("batch_span_id", pending.batch_span_id)
+                span.set_attribute("batch_n_requests", pending.n_coalesced)
+        return pending.outputs
 
-    def _fleet_inputs(self, served: Revision, names, machines, prefixes, fallback, anomaly):
+    @staticmethod
+    def _record_predict_phase(ctx: RequestContext, elapsed: float) -> None:
+        """``predict``, net of the batching ``queue`` entry already timed."""
+        queued = sum(seconds for name, seconds in ctx.timings if name == "queue")
+        ctx.record_phase("predict", max(0.0, elapsed - queued))
+
+    def _fleet_inputs(self, served: Revision, names, machines, prefixes, fallback, anomaly,
+                      ctx: RequestContext):
         """(X frames, y frames, scorer inputs, metadata) of a fleet body,
         or the 400 reply of its first bad entry."""
         frames, targets, inputs, meta = {}, {}, {}, {}
@@ -782,27 +1009,30 @@ class GordoApp:
                         400,
                     )
             try:
-                if anomaly:
-                    frames[name] = self._parse_fleet_frame(raw["X"], tags)
-                    targets[name] = self._parse_fleet_frame(raw["y"], target_tags)
-                else:
-                    frames[name] = self._parse_fleet_frame(raw, tags)
+                with ctx.ledger.phase("parse"):
+                    if anomaly:
+                        frames[name] = self._parse_fleet_frame(raw["X"], tags)
+                        targets[name] = self._parse_fleet_frame(raw["y"], target_tags)
+                    else:
+                        frames[name] = self._parse_fleet_frame(raw, tags)
             except (ValueError, ApiError) as err:
                 return _json_response({"error": f"Bad input for machine {name!r}: {err}"}, 400)
             if name in fallback:
                 continue  # scored by its own predict
-            transformed = frames[name].values
-            for step in prefixes.get(name, []):
-                transformed = step.transform(transformed)
-            inputs[name] = np.asarray(transformed, dtype=np.float32)
+            with ctx.ledger.phase("transform"):
+                transformed = frames[name].values
+                for step in prefixes.get(name, []):
+                    transformed = step.transform(transformed)
+                inputs[name] = np.asarray(transformed, dtype=np.float32)
         return frames, targets, inputs, meta
 
     def view_fleet_prediction(self, served: Revision, read_body, gordo_project: str) -> Response:
         """Base predictions of several machines, each architecture group
         scored by one stacked forward: ``{"machines": {name: X}}`` ->
         ``{"data": {name: frame}}``."""
-        start = timeit.default_timer()
-        machines = self._fleet_request_machines(read_body)
+        ctx = read_body.ctx
+        with ctx.ledger.phase("parse"):
+            machines = self._fleet_request_machines(read_body)
         if machines is None:
             return _json_response(
                 {"error": "Body must contain a non-empty 'machines' mapping."}, 400
@@ -810,17 +1040,18 @@ class GordoApp:
         names = tuple(sorted(machines))
         self._refuse_unavailable(served, names)
         self._refuse_wrong_shard(read_body, names)
-        models = {name: self._get_model(served, name) for name in names}
-        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served, names)
-        parsed = self._fleet_inputs(served, names, machines, prefixes, fallback, anomaly=False)
+        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served, names, ctx)
+        parsed = self._fleet_inputs(served, names, machines, prefixes, fallback, False, ctx)
         if isinstance(parsed, Response):
             return parsed
         frames, _, inputs, meta = parsed
+        start = timeit.default_timer()
         try:
-            outputs = self._fleet_predict(served, servable, scorer, inputs) if inputs else {}
+            outputs = (self._fleet_predict(served, servable, scorer, inputs, ctx)
+                       if inputs else {})
             for name in names:
                 if name not in outputs:  # no port estimator: its own predict
-                    outputs[name] = models[name].predict(frames[name])
+                    outputs[name] = self._get_model(served, name).predict(frames[name])
         except batching.BatchQueueFull:
             raise
         except ValueError as err:
@@ -830,19 +1061,22 @@ class GordoApp:
             return _json_response(
                 {"error": "Something unexpected happened; check your input data"}, 400
             )
+        self._record_predict_phase(ctx, timeit.default_timer() - start)
         data = {}
         for name in names:
             tags, target_tags = self._tags(meta[name])
-            frame = make_base_dataframe(
-                tags=tags,
-                model_input=frames[name].values,
-                model_output=outputs[name],
-                target_tag_list=target_tags,
-                index=frames[name].index,
-            )
-            data[name] = server_utils.dataframe_to_dict(frame)
+            with ctx.ledger.phase("postprocess"):
+                frame = make_base_dataframe(
+                    tags=tags,
+                    model_input=frames[name].values,
+                    model_output=outputs[name],
+                    target_tag_list=target_tags,
+                    index=frames[name].index,
+                )
+            with ctx.ledger.phase("serialize"):
+                data[name] = server_utils.dataframe_to_dict(frame)
         return _json_response(
-            {"data": data, "time-seconds": f"{timeit.default_timer() - start:.4f}"}
+            {"data": data, "time-seconds": f"{timeit.default_timer() - ctx.start_time:.4f}"}
         )
 
     def view_fleet_anomaly_prediction(
@@ -852,8 +1086,9 @@ class GordoApp:
         frame, "y": frame}}}``; the base estimators' outputs come from one
         stacked forward a group and feed each detector's ``anomaly``. 422
         when a requested model is not an anomaly detector."""
-        start = timeit.default_timer()
-        machines = self._fleet_request_machines(read_body)
+        ctx = read_body.ctx
+        with ctx.ledger.phase("parse"):
+            machines = self._fleet_request_machines(read_body)
         if machines is None:
             return _json_response(
                 {"error": "Body must contain a non-empty 'machines' mapping."}, 400
@@ -861,7 +1096,7 @@ class GordoApp:
         names = tuple(sorted(machines))
         self._refuse_unavailable(served, names)
         self._refuse_wrong_shard(read_body, names)
-        models = {name: self._get_model(served, name) for name in names}
+        models = {name: self._get_model(served, name, ctx) for name in names}
         non_anomaly = [n for n, m in models.items() if not isinstance(m, DiffBasedAnomalyDetector)]
         if non_anomaly:
             return _json_response(
@@ -871,24 +1106,28 @@ class GordoApp:
                 },
                 422,
             )
-        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served, names)
-        parsed = self._fleet_inputs(served, names, machines, prefixes, fallback, anomaly=True)
+        servable, (scorer, prefixes, fallback) = self._fleet_scorer(served, names, ctx)
+        parsed = self._fleet_inputs(served, names, machines, prefixes, fallback, True, ctx)
         if isinstance(parsed, Response):
             return parsed
         frames, targets, inputs, meta = parsed
         data = {}
+        start = timeit.default_timer()
         try:
-            outputs = self._fleet_predict(served, servable, scorer, inputs) if inputs else {}
+            outputs = (self._fleet_predict(served, servable, scorer, inputs, ctx)
+                       if inputs else {})
             for name in names:
                 frequency = server_utils.resolution_to_timedelta(
                     meta[name]["dataset"].get("resolution", "10min")
                 )
                 # machines the scorer lacks run their own predict inside
                 kwargs = {"model_output": outputs[name]} if name in outputs else {}
-                frame = models[name].anomaly(
-                    frames[name], targets[name], frequency=frequency, **kwargs
-                )
-                data[name] = server_utils.dataframe_to_dict(frame)
+                with ctx.ledger.phase("postprocess"):
+                    frame = models[name].anomaly(
+                        frames[name], targets[name], frequency=frequency, **kwargs
+                    )
+                with ctx.ledger.phase("serialize"):
+                    data[name] = server_utils.dataframe_to_dict(frame)
         except batching.BatchQueueFull:
             raise
         except ValueError as err:
@@ -898,8 +1137,9 @@ class GordoApp:
             return _json_response(
                 {"error": "Something unexpected happened; check your input data"}, 400
             )
+        self._record_predict_phase(ctx, timeit.default_timer() - start)
         return _json_response(
-            {"data": data, "time-seconds": f"{timeit.default_timer() - start:.4f}"}
+            {"data": data, "time-seconds": f"{timeit.default_timer() - ctx.start_time:.4f}"}
         )
 
     # -- streaming sessions --------------------------------------------------
@@ -955,8 +1195,8 @@ class GordoApp:
         names = tuple(sorted(spec))
         self._refuse_unavailable(served, names)
         self._refuse_wrong_shard(read_body, names)
-        models = {name: self._get_model(served, name) for name in names}
-        _, (scorer, prefixes, fallback) = self._fleet_scorer(served, names)
+        models = {name: self._get_model(served, name, read_body.ctx) for name in names}
+        _, (scorer, prefixes, fallback) = self._fleet_scorer(served, names, read_body.ctx)
         unstackable = [n for n in names if scorer is None or n in fallback
                        or n not in scorer.names]
         if unstackable:
@@ -1050,11 +1290,12 @@ class GordoApp:
                 )
         session.admit()  # StreamShed: 503
         try:
-            servable, (scorer, _, _) = self._fleet_scorer(served, session.names)
+            servable, (scorer, _, _) = self._fleet_scorer(served, session.names, read_body.ctx)
             try:
                 results = session.apply_update(
                     updates,
-                    dispatch=lambda inputs: self._fleet_predict(served, servable, scorer, inputs),
+                    dispatch=lambda inputs: self._fleet_predict(served, servable, scorer, inputs,
+                                                                read_body.ctx),
                 )
             except (KeyError, ValueError) as err:
                 return _json_response({"error": str(err)}, 400)
@@ -1094,5 +1335,6 @@ def build_app(collection_dir: Optional[str] = None, device: DeviceLike = None,
     ``GORDO_STREAM_MAX_BACKLOG``, ``GORDO_STREAM_IDLE_S``, else 0, 64, 16,
     64, 8 and 30); ``shard_manifest`` and ``replica_id`` (else
     ``GORDO_SHARD_MANIFEST`` and ``GORDO_REPLICA_ID``; unset: the whole
-    collection)."""
+    collection); ``enable_prometheus`` (else ``ENABLE_PROMETHEUS``, else
+    off)."""
     return GordoApp(collection_dir, device, **settings)

@@ -20,8 +20,15 @@ A batch is not a fault domain: when a coalesced call raises, each of its
 requests is run again alone, so only the failing requests' futures
 carry an error.
 
-Left out: the metrics registry, tracing spans and fault injection of the
-JAX batcher (ROADMAP.md queue 1 item 9).
+The JAX batcher's series are recorded in the process registry under its
+names (``gordo_serve_batch_queue_depth``, ``_requests``,
+``_queue_wait_seconds``, ``_dispatch_seconds``, ``_shed_total``,
+``_fallbacks_total``). A coalesced dispatch is one ``server.batch`` span
+naming its requests' trace ids, whose ids ride back on each request;
+its ``transform``, ``transfer`` and ``device`` seconds ride back too,
+for each request's phase ledger. Left out: fault injection (the
+``batch:`` site) and the ``request_shed`` event (ROADMAP.md queue 1
+item 9).
 """
 
 import collections
@@ -30,6 +37,9 @@ import math
 import threading
 import time
 from typing import Any, Deque, Dict, List, Optional
+
+from gordo_tpu_torch.observability import attribution, tracing
+from gordo_tpu_torch.observability.registry import get_registry
 
 logger = logging.getLogger(__name__)
 
@@ -58,12 +68,15 @@ class BatchQueueFull(Exception):
 
 
 class Pending:
-    """One enqueued request: the future its handler thread waits on."""
+    """One enqueued request: the future its handler thread waits on, and
+    what the dispatch hands back (its phase seconds, the batch span's
+    ids)."""
 
     __slots__ = ("inputs", "event", "outputs", "error", "enqueued_perf", "queue_wait_s",
-                 "n_coalesced")
+                 "n_coalesced", "phase_seconds", "trace_id", "batch_trace_id",
+                 "batch_span_id")
 
-    def __init__(self, inputs: Dict[str, Any]):
+    def __init__(self, inputs: Dict[str, Any], trace_id: str = ""):
         self.inputs = inputs
         self.event = threading.Event()
         self.outputs: Optional[Dict[str, Any]] = None
@@ -71,6 +84,57 @@ class Pending:
         self.enqueued_perf = time.perf_counter()
         self.queue_wait_s = 0.0
         self.n_coalesced = 1
+        self.phase_seconds: Dict[str, float] = {}
+        self.trace_id = trace_id
+        self.batch_trace_id = ""
+        self.batch_span_id = ""
+
+
+#: the queue-depth gauge is one process-wide series, and several batchers
+#: may be live: each adds its own queue to this total
+_depth_lock = threading.Lock()
+_depth_total = 0
+
+
+def _adjust_depth(delta: int) -> None:
+    global _depth_total
+    with _depth_lock:
+        _depth_total += delta
+        total = _depth_total
+    _metrics()["depth"].set(total)
+
+
+def _metrics() -> Dict[str, Any]:
+    """The batching series of the process registry (the JAX names)."""
+    reg = get_registry()
+    return {
+        "depth": reg.gauge(
+            "gordo_serve_batch_queue_depth",
+            "Requests waiting in the dynamic-batching queue",
+        ),
+        "requests": reg.histogram(
+            "gordo_serve_batch_requests",
+            "Requests coalesced per stacked dispatch",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+        ),
+        "queue_wait": reg.histogram(
+            "gordo_serve_batch_queue_wait_seconds",
+            "Enqueue to dispatch-start wait per batched request",
+        ),
+        "dispatch": reg.histogram(
+            "gordo_serve_batch_dispatch_seconds",
+            "One coalesced batch dispatch (device + scatter)",
+        ),
+        "shed": reg.counter(
+            "gordo_serve_batch_shed_total",
+            "Requests shed by batching admission control (503 + Retry-After)",
+        ),
+        "fallback": reg.counter(
+            "gordo_serve_batch_fallbacks_total",
+            "Coalesced dispatches that failed and were re-run per request "
+            "(fault isolation, no poisoned batch)",
+        ),
+    }
 
 
 class RequestBatcher:
@@ -101,24 +165,32 @@ class RequestBatcher:
         self._drainer.start()
 
     # -- handler side ------------------------------------------------------
-    def submit(self, inputs: Dict[str, Any]) -> Pending:
+    def submit(self, inputs: Dict[str, Any], trace_id: str = "") -> Pending:
         """
         Enqueue one request's inputs (prefix transformers applied) and
         block until the drainer has scored them: the finished
-        :class:`Pending` (``outputs``, ``queue_wait_s``, ``n_coalesced``),
-        or the request's own error raised. :class:`BatchQueueFull` without
-        enqueueing when the queue is at ``queue_limit``.
+        :class:`Pending` (``outputs``, ``queue_wait_s``, ``n_coalesced``,
+        ``phase_seconds``, the batch span's ids), or the request's own
+        error raised. :class:`BatchQueueFull` without enqueueing when the
+        queue is at ``queue_limit``. ``trace_id`` is the request's, named
+        on the batch span.
         """
+        shed = None
         with self._lock:
             if self._stopped:
                 raise BatcherStopped("Batcher stopped (scorer rebuilt or evicted)")
             if len(self._pending) >= self.queue_limit:
                 self._sheds_total += 1
                 self._last_shed_monotonic = time.monotonic()
-                raise BatchQueueFull(self.retry_after_s(), len(self._pending), self.queue_limit)
-            pending = Pending(inputs)
-            self._pending.append(pending)
-            self._arrived.notify_all()
+                shed = BatchQueueFull(self.retry_after_s(), len(self._pending), self.queue_limit)
+            else:
+                pending = Pending(inputs, trace_id)
+                self._pending.append(pending)
+                _adjust_depth(1)
+                self._arrived.notify_all()
+        if shed is not None:
+            _metrics()["shed"].inc()
+            raise shed
         # the drainer sets every future it pops, so this loops only if the
         # drainer thread itself died
         while not pending.event.wait(timeout=60.0):
@@ -144,36 +216,69 @@ class RequestBatcher:
                     self._arrived.wait(timeout=remaining)
                 batch = list(self._pending)
                 self._pending.clear()
+            _adjust_depth(-len(batch))
             self._dispatch(batch)
 
     def _dispatch(self, batch: List[Pending]) -> None:
+        metrics = _metrics()
         start = time.perf_counter()
         for pending in batch:
             pending.queue_wait_s = start - pending.enqueued_perf
             pending.n_coalesced = len(batch)
-        try:
-            self._dispatch_batch(batch)
-        except BaseException as exc:  # noqa: BLE001 - to the futures, not the thread
-            for pending in batch:
-                if pending.error is None and pending.outputs is None:
-                    pending.error = exc
-        finally:
-            elapsed = time.perf_counter() - start
-            with self._lock:
-                self._dispatches_total += 1
-                self._requests_total += len(batch)
-                self._ema_dispatch_s = (
-                    elapsed if self._ema_dispatch_s == 0.0
-                    else 0.8 * self._ema_dispatch_s + 0.2 * elapsed
-                )
-            for pending in batch:
-                pending.event.set()
+            metrics["queue_wait"].observe(pending.queue_wait_s)
+        metrics["requests"].observe(len(batch))
+        # one span for the coalesced dispatch; a span has one parent, so
+        # the member requests' traces are named by attribute and each
+        # request span carries the batch's ids back
+        with tracing.start_span(
+            "server.batch", parent=None, n_requests=len(batch),
+            n_machines=sum(len(p.inputs) for p in batch),
+        ) as span:
+            if span.recording:
+                span.set_attribute("request_trace_ids",
+                                   sorted({p.trace_id for p in batch if p.trace_id}))
+                for pending in batch:
+                    pending.batch_trace_id = span.trace_id
+                    pending.batch_span_id = span.span_id
+            try:
+                self._dispatch_batch(batch, metrics)
+            except BaseException as exc:  # noqa: BLE001 - to the futures, not the thread
+                span.set_status("error")
+                for pending in batch:
+                    if pending.error is None and pending.outputs is None:
+                        pending.error = exc
+            finally:
+                self._finish(batch, start, metrics)
 
-    def _dispatch_batch(self, batch: List[Pending]) -> None:
+    def _finish(self, batch: List[Pending], start: float, metrics: Dict[str, Any]) -> None:
+        elapsed = time.perf_counter() - start
+        metrics["dispatch"].observe(elapsed)
+        with self._lock:
+            self._dispatches_total += 1
+            self._requests_total += len(batch)
+            self._ema_dispatch_s = (
+                elapsed if self._ema_dispatch_s == 0.0
+                else 0.8 * self._ema_dispatch_s + 0.2 * elapsed
+            )
+        for pending in batch:
+            pending.event.set()
+
+    def _dispatch_batch(self, batch: List[Pending], metrics: Dict[str, Any]) -> None:
+        # the drainer has no request ledger: a collector takes the
+        # dispatch's transfer and device seconds (and the host remainder
+        # as transform) and hands them to each request's
+        collector = attribution.ledger_for("server")
         try:
-            results = self.scorer.predict_requests([p.inputs for p in batch])
+            t0 = time.perf_counter()
+            with collector.activate():
+                results = self.scorer.predict_requests([p.inputs for p in batch])
+            inner = collector.phases.get("transfer", 0.0) + collector.phases.get("device", 0.0)
+            collector.add("transform", max(0.0, time.perf_counter() - t0 - inner))
+            for pending in batch:
+                pending.phase_seconds = dict(collector.phases)
         except BaseException:  # noqa: BLE001 - isolate the culprit
             # one bad request must not fail its batch-mates: each runs alone
+            metrics["fallback"].inc()
             logger.warning("A coalesced batch of %d failed; scoring each alone", len(batch))
             results = []
             for pending in batch:

@@ -27,12 +27,17 @@ A stream's update (``streaming/window.py``) is an entry like a one-shot
 request's array: its context stays on the device and only its new rows
 are copied, so a batch holding one is assembled on the device.
 
+A dispatch gives its request's phase ledger (``observability/
+attribution.py``) its ``transfer`` (assembly and the copy to the device)
+and ``device`` (the forward, to the outputs' copy to the host) seconds.
+
 Left out, because the TPU-era scorer does them for XLA: AOT executables
 and their program store and buffer donation (ROADMAP.md queue 1 item 9),
-and the metrics registry.
+and the scorer's registry series (``gordo_serve_group_*``).
 """
 
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,6 +48,7 @@ from torch.func import functional_call, vmap
 
 from gordo_tpu_torch.models.core import BaseTorchEstimator, first_output
 from gordo_tpu_torch.models.specs import cast
+from gordo_tpu_torch.observability import attribution
 from gordo_tpu_torch.parallel.precision import cast_params
 
 #: floor on the entries of one forward when requests are coalesced; a
@@ -329,6 +335,7 @@ class FleetScorer:
         of one group; outputs in entry order. A batch with stream entries
         is cut on the device, so each entry's copy to the host is its own
         outputs, not the padded batch."""
+        t_assemble = time.perf_counter()
         names, batch, n_rows, on_device = self._prepare(group, entries)
         with group["lock"]:
             params, rows, m = self._select(group, names)
@@ -339,13 +346,20 @@ class FleetScorer:
                 full = np.zeros((m,) + batch.shape[1:], dtype=np.float32)
                 full[rows] = batch
                 full = torch.from_numpy(full).to(group["device"])
+            t_dispatch = time.perf_counter()
+            attribution.record_current("transfer", t_dispatch - t_assemble)
             outputs = self._forward(group, params, full)
         cuts = [(row, n_rows[i], group["out_cols"][name])
                 for i, (row, name) in enumerate(zip(rows, names))]
         if on_device:
-            return [outputs[row, :n, :cols].cpu().numpy() for row, n, cols in cuts]
-        outputs = outputs.cpu().numpy()
-        return [outputs[row, :n, :cols] for row, n, cols in cuts]
+            result = [outputs[row, :n, :cols].cpu().numpy() for row, n, cols in cuts]
+        else:
+            outputs = outputs.cpu().numpy()
+            result = [outputs[row, :n, :cols] for row, n, cols in cuts]
+        # the forward ends at the outputs' copy to the host, a sync the
+        # reply needs anyway
+        attribution.record_current("device", time.perf_counter() - t_dispatch)
+        return result
 
     @staticmethod
     @torch.inference_mode()

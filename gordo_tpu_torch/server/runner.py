@@ -13,6 +13,7 @@ the fleet routes' dynamic batching and scorer cache (defaults: the
 a wait of 0 turns batching off). ``--shard-manifest`` and
 ``--replica-id`` (``GORDO_SHARD_MANIFEST``, ``GORDO_REPLICA_ID``) serve
 one replica's shard of the collection (``server/app.py``).
+``--with-prometheus`` (``ENABLE_PROMETHEUS``) serves ``/metrics``.
 """
 
 import argparse
@@ -98,12 +99,15 @@ def main(argv=None) -> None:
                         help="serve only this replica's shard of the manifest's replica set")
     parser.add_argument("--replica-id", default=None,
                         help="this replica's id on the ring (overrides the manifest's)")
+    parser.add_argument("--with-prometheus", action="store_true", default=None,
+                        help="serve /metrics (default: $ENABLE_PROMETHEUS)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     app = build_app(args.collection_dir, args.device, batch_wait_ms=args.batch_wait_ms,
                     batch_queue_limit=args.queue_limit,
                     scorer_cache_size=args.scorer_cache_size,
-                    shard_manifest=args.shard_manifest, replica_id=args.replica_id)
+                    shard_manifest=args.shard_manifest, replica_id=args.replica_id,
+                    enable_prometheus=args.with_prometheus)
     server = make_http_server(app, args.host, args.port)
     logger.info("Serving on %s:%d", args.host, server.server_port)
     try:

@@ -313,7 +313,7 @@ def test_batched_replies_bitwise_equal_unbatched(batching_app, port_collection, 
 
 
 def test_queue_full_is_a_structured_503_with_retry_after(batching_app, monkeypatch):
-    def shed(self, inputs):
+    def shed(self, inputs, trace_id=""):
         raise BatchQueueFull(3, 2, 2)
 
     monkeypatch.setattr(RequestBatcher, "submit", shed)

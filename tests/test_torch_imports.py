@@ -1,6 +1,7 @@
 """
 The port stands alone: importing any of its modules loads neither JAX
-nor the JAX package, nor any library the card's machine lacks.
+nor the JAX package, nor any library the card's machine lacks. The
+client's wire layer and the observability core load no torch either.
 """
 
 import json
@@ -23,6 +24,23 @@ FORBIDDEN = [
     "dateutil",
     "click",
     "requests",
+    "prometheus_client",
+    "influxdb",
+]
+
+#: modules that need no torch: importing them alone loads none
+TORCH_FREE = [
+    "gordo_tpu_torch.client.io",
+    "gordo_tpu_torch.client.utils",
+    "gordo_tpu_torch.client.streaming",
+    "gordo_tpu_torch.client.forwarders",
+    "gordo_tpu_torch.observability.registry",
+    "gordo_tpu_torch.observability.tracing",
+    "gordo_tpu_torch.observability.attribution",
+    "gordo_tpu_torch.observability.prom_text",
+    "gordo_tpu_torch.observability.rollup",
+    "gordo_tpu_torch.utils.http",
+    "gordo_tpu_torch.cli.trace",
 ]
 
 
@@ -77,5 +95,26 @@ def test_port_imports_no_jax_and_no_missing_libraries():
         "gordo_tpu_torch.lifecycle.refit",
         "gordo_tpu_torch.lifecycle.promote",
         "gordo_tpu_torch.lifecycle.manager",
+        "gordo_tpu_torch.client.client",
+        "gordo_tpu_torch.client.frames",
+        "gordo_tpu_torch.cli.client",
+        "gordo_tpu_torch.server.prometheus.metrics",
+        *TORCH_FREE,
     } <= set(names)
     assert loaded == []
+
+
+def test_the_client_wire_layer_and_observability_load_no_torch():
+    script = (
+        "import importlib, json, sys\n"
+        f"for name in {TORCH_FREE!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"print(json.dumps([m for m in ['torch', *{FORBIDDEN!r}] if m in sys.modules]))\n"
+    )
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT, capture_output=True,
+                            text=True, timeout=120, check=True)
+    assert json.loads(result.stdout.strip().splitlines()[-1]) == []
+    # and no module of the client imports torch itself
+    for path in (REPO_ROOT / "gordo_tpu_torch" / "client").glob("*.py"):
+        text = path.read_text()
+        assert "import torch" not in text and "from torch" not in text, path.name

@@ -3,7 +3,7 @@
 server against the JAX server's: the OpenAPI documents agree path for
 path on every route the port serves (operation ids, summaries, path
 parameters, responses), the port lists no route the JAX server lacks,
-and the JAX routes the port leaves out are the ones ROADMAP.md names.
+and it leaves none out.
 """
 
 import json
@@ -16,8 +16,9 @@ from gordo_tpu.server import utils as jax_server_utils
 from gordo_tpu_torch import __version__
 from gordo_tpu_torch.server.app import build_app
 
-#: the JAX routes the port does not serve yet (ROADMAP.md queue 1 item 9)
-NOT_PORTED = {"/metrics", "/telemetry/snapshot"}
+#: the JAX routes the port does not serve (none since ``/metrics`` and
+#: ``/telemetry/snapshot`` were ported)
+NOT_PORTED = set()
 
 
 @pytest.fixture(scope="module")
