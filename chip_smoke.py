@@ -272,7 +272,41 @@ Phases, each raising on failure (no result line is printed then):
    ``train.dispatch``, read back by ``trace summarize``; (f) the two-worker
    build's wall seconds beside phase 10's one-process wall (nothing
    asserted on them);
-18. one JSON line of per-kernel numbers, each time with the timer that
+18. tuning and the plane, over phase 10's collection and list: (a)
+   ``PLANE_REPLICAS`` ``run-server`` replicas over one shard manifest and
+   ``run-router --rollup-interval 1 --rollup-persist``, each a
+   subprocess; phase 11's 144-row fleet request through the router
+   ``TUNING_REQUESTS`` times, ``TUNING_REQUEST_GAP`` s apart, each reply
+   bitwise one unsharded server's,
+   each replica's forward launches phase 14c's for each request (one a
+   layer for a shard with Transformers) and no backward; after two more
+   polls the router's ``/status``, ``/metrics`` and ``/telemetry/snapshot``
+   answer 200, the merged predict count equals the sum of the replicas'
+   own, the router's ok count the requests sent, and the persisted rollup
+   holds stamped merges; (b) ``slo check`` of ``TUNING_SLO`` (p99 latency,
+   error rate) over the router's URL and over the rollup file, both
+   passing, ``top --once --as-json`` and ``rollup --once`` over the
+   replicas; (c) ``tune calibrate`` with ``TUNING_CALIBRATE`` on the card
+   (in this process, as (b) and (d)): the chunk rows' losses bitwise the
+   smallest chunk's, both batch-wait arms answered; (d) ``tune plan --as-json`` and
+   ``tune fit`` over phase 10's collection, the rollup file and (c)'s
+   directory into a fresh directory, each recommendation printed with its
+   source and evidence, none of a knob the port lacks, ``tune plan
+   --check`` passing; (e) ``build-fleet`` of phase 10's four Transformers
+   (its Transformer unit only) into that directory on the card, in this
+   process, launches counted from its start: one
+   ``tuning_profile_loaded`` event naming the profile's builder and ledger
+   recommendations, the forward, dq and dk/dv kernels launched phase 10's
+   counts, every ``params.npz`` bitwise phase 10's when only scheduling
+   knobs applied (else the largest difference and the knobs; phase 10
+   keeps a copy of its Transformers' params, which phase 14b rebuilds);
+   (f) ``run-server`` on that directory, and another with
+   ``GORDO_BATCH_WAIT_MS`` set, both subprocesses on the card started
+   during (e): each
+   reply bitwise a server's with no profile, the first's event naming
+   the profile's server recommendations, the second's leaving
+   ``batch_wait_ms`` to the environment;
+19. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -2588,6 +2622,17 @@ def fleet_build_phase(torch, fa, profile: bool, workdir: Optional[str] = None):
             served[name] = serve_built(torch, collection, metadata, X, stamps, routes, 1e-4,
                                        history_repeats=0)
         report["served"] = served
+        if workdir:
+            # later phases rebuild machines in place (phase 14b): phase 18
+            # holds its tuned build to these
+            import shutil
+
+            kept = os.path.join(tmp, "phase10-params")
+            os.makedirs(kept)
+            for name in (f"{MACHINE}-{i}" for i in range(FLEET_TRANSFORMERS)):
+                shutil.copy(os.path.join(collection, name, "params.npz"),
+                            os.path.join(kept, f"{name}.npz"))
+            report["transformer_params"] = kept
         Xs = [np.asarray(_get_dataset(m["dataset"]).get_data()[0], dtype=np.float32)
               for m in machines[:FLEET_TRANSFORMERS]]
     report["vmapped_flash"] = fleet_flash_check(torch, fa)
@@ -5129,6 +5174,476 @@ def client_phase(torch, fa, profile: bool, collection: str, device=None):
     return report
 
 
+# Phase 18, "tuning and the plane", over phase 10's collection and list:
+# (a) PLANE_REPLICAS `run-server` replicas over one shard manifest and a
+# `run-router --rollup-interval TUNING_ROLLUP_INTERVAL --rollup-persist`,
+# phase 11's 144-row fleet request through the router TUNING_REQUESTS
+# times; (b) `slo check` of TUNING_SLO over the router's URL and over the
+# persisted rollup, `top --once --as-json`, `rollup --once`; (c) `tune
+# calibrate` with TUNING_CALIBRATE's arms on the card; (d) `tune plan` and
+# `tune fit` over phase 10's collection, the rollup and (c)'s directory,
+# the profile written into a fresh directory; (e) `build-fleet` of phase
+# 10's four Transformers (its Transformer unit only) into that directory;
+# (f) `run-server` on it, with and without TUNING_ENV_WAIT_MS in the
+# environment
+TUNING_REQUESTS = 20
+#: seconds between the routed requests: their polls' windows then hold
+#: the first request's cold forward (module load, first launches) alone
+#: among several warm ones, as steady traffic would
+TUNING_REQUEST_GAP = 0.15
+TUNING_ROLLUP_INTERVAL = 1.0
+TUNING_POLL_TIMEOUT = 60.0
+TUNING_SLO = {"name": "smoke", "objectives": [
+    {"name": "predict-latency", "signal": "predict_p99_ms", "threshold": 250.0,
+     "window_s": 3600, "budget": 0.5},
+    {"name": "errors", "signal": "unstructured_error_rate", "threshold": 0.01,
+     "window_s": 3600, "budget": 0.01},
+]}
+TUNING_CALIBRATE = ["--epoch-chunks", "1,4", "--epochs", "4", "--batch-wait-sweep", "0,2",
+                    "--duration", "1"]
+TUNING_ENV_WAIT_MS = 7.0
+#: the variables phase 18's in-process build and calibration run without:
+#: a machines list, a worker id, a tuning profile override, the tuned
+#: options' own variables
+FLEET_ENV_DROP = ("MACHINES", "GORDO_WORKER_ID", "GORDO_TUNING", "GORDO_EPOCH_CHUNK",
+                  "GORDO_BUCKET_POLICY", "GORDO_BUILD_WORKERS", "GORDO_LEASE_TTL",
+                  "GORDO_PRECISION", "GORDO_PREFETCH_DEPTH", "GORDO_BATCH")
+#: the knobs whose values only schedule work: a build that applied no
+#: other knob writes phase 10's artifacts bit for bit
+TUNING_SCHEDULING_KNOBS = ("epoch_chunk", "prefetch_depth")
+
+
+def fleet_request_body(collection: str, n_rows: int, start: int = 0) -> dict:
+    """Phase 11's fleet request: ``n_rows`` rows from ``start`` of each
+    of phase 10's four Transformers, as X and y."""
+    import numpy as np
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.data.base import to_datetimes
+
+    machines = {}
+    for name in (f"{MACHINE}-{i}" for i in range(FLEET_TRANSFORMERS)):
+        metadata = serializer.load_metadata(os.path.join(collection, name))
+        X, _, stamps = _get_dataset(metadata["dataset"]).get_data()
+        keys = [stamp.isoformat() for stamp in to_datetimes(stamps.astype(np.int64))]
+        frame = frame_of(np.asarray(X), keys, metadata["dataset"]["tag_list"],
+                         slice(start, start + n_rows))
+        machines[name] = {"X": frame, "y": frame}
+    return {"machines": machines}
+
+
+def get_json(url: str):
+    with urllib.request.urlopen(url, timeout=60) as reply:
+        return json.loads(reply.read())
+
+
+def prom_values(text: str, name: str) -> dict:
+    """``{label text: value}`` of the samples of ``name`` in Prometheus
+    text."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name) and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            if key == name or key.startswith(name + "{"):
+                out[key[len(name):]] = float(value)
+    return out
+
+
+def stop_processes(processes) -> None:
+    for process in processes:
+        if process.poll() is None:
+            process.terminate()
+    for process in processes:
+        try:
+            process.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            process.kill()
+            process.wait(timeout=30)
+
+
+@contextlib.contextmanager
+def scoped_environ(drop=(), **values):
+    """The process environment with ``values`` set and the variables in
+    ``drop`` (or starting with one of them) unset, for the ``with`` block."""
+    saved = dict(os.environ)
+    for name in list(os.environ):
+        if name.startswith(tuple(drop)):
+            del os.environ[name]
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def rollup_plane_check(fa, collection: str, workdir: str, device=None) -> dict:
+    """Phase 18 (a) and (b)."""
+    from gordo_tpu_torch.router.ring import HashRing
+    from gordo_tpu_torch.server.app import build_app
+    from gordo_tpu_torch.server.catalog import write_shard_manifest
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_layers = BASE_ESTIMATOR["n_layers"]
+    shards = HashRing(PLANE_REPLICAS).partition(
+        [f"{MACHINE}-{i}" for i in range(FLEET_TRANSFORMERS)])
+    persist = os.path.join(workdir, "rollup.jsonl")
+    manifest = write_shard_manifest(os.path.join(workdir, "manifest.json"), PLANE_REPLICAS)
+    ports = {rid: free_port() for rid in PLANE_REPLICAS}
+    router_port = free_port()
+    counts = {rid: os.path.join(workdir, f"{rid}.json") for rid in PLANE_REPLICAS}
+    payload = json.dumps(fleet_request_body(collection, 144)).encode()
+    report = {"shards": shards}
+    processes = {}
+    try:
+        t0 = time.perf_counter()
+        for rid in PLANE_REPLICAS:
+            processes[rid] = subprocess.Popen(
+                [sys.executable, "-c", REPLICA_DRIVER, counts[rid], "run-server",
+                 "--collection-dir", collection, "--host", "127.0.0.1", "--port",
+                 str(ports[rid]), "--batch-wait-ms", "0", "--shard-manifest", manifest,
+                 "--replica-id", rid, *(["--device", device] if device else [])],
+                cwd=root, stdout=subprocess.DEVNULL,
+                stderr=open(os.path.join(workdir, f"{rid}.log"), "w"))
+        processes["router"] = subprocess.Popen(
+            [sys.executable, "-m", "gordo_tpu_torch.cli", "run-router", "--host", "127.0.0.1",
+             "--port", str(router_port), "--collection-dir", collection,
+             "--rollup-interval", str(TUNING_ROLLUP_INTERVAL), "--rollup-persist", persist,
+             *[arg for rid in PLANE_REPLICAS
+               for arg in ("--replica", f"{rid}=http://127.0.0.1:{ports[rid]}")]],
+            cwd=root, stdout=subprocess.DEVNULL,
+            stderr=open(os.path.join(workdir, "router.log"), "w"))
+        # the direct reply while the plane starts
+        single = build_app(collection, device=device, batch_wait_ms=0)
+        with http_server(collection, None, app=single) as direct:
+            want = post(f"{direct}/anomaly/prediction/fleet", payload)[0]["data"]
+        for rid in PLANE_REPLICAS:
+            wait_ready(f"http://127.0.0.1:{ports[rid]}/healthz", processes[rid])
+        router = f"http://127.0.0.1:{router_port}"
+        wait_ready(f"{router}/healthz", processes["router"])
+        report["start_s"] = time.perf_counter() - t0
+        routed = f"{router}/gordo/v0/{PROJECT}/anomaly/prediction/fleet"
+        # the replicas' launches from 0 for the first request, then the rest
+        before = {rid: replica_counts(processes[rid], counts[rid])["kernels"]
+                  for rid in PLANE_REPLICAS}
+        seconds = []
+        for i in range(TUNING_REQUESTS):
+            got, took = post(routed, payload)
+            seconds.append(took)
+            if got["data"] != want:
+                raise AssertionError(f"routed request {i} differs from the direct server's")
+            if i == 0:
+                first = {rid: replica_counts(processes[rid], counts[rid])["kernels"]
+                         for rid in PLANE_REPLICAS}
+            time.sleep(TUNING_REQUEST_GAP)
+        after = {rid: replica_counts(processes[rid], counts[rid])["kernels"]
+                 for rid in PLANE_REPLICAS}
+        launches, per_request = {}, {}
+        for rid in PLANE_REPLICAS:
+            launches[rid] = {k: after[rid][k] - before[rid][k] for k in before[rid]}
+            per_request[rid] = {k: first[rid][k] - before[rid][k] for k in before[rid]}
+            forward = sum(v for k, v in per_request[rid].items()
+                          if k.startswith(fa.KERNEL + "_"))
+            backward = launches[rid][f"{fa.KERNEL_DQ}_quad"] + launches[rid][
+                f"{fa.KERNEL_DKV}_quad"]
+            # phase 14c's: one stacked forward a layer for a request its
+            # shard's Transformers are in, none for a shard without them
+            if (forward != (n_layers if rid in shards else 0) or backward
+                    or any(launches[rid][k] != TUNING_REQUESTS * per_request[rid][k]
+                           for k in launches[rid])):
+                raise AssertionError(f"replica {rid}: {launches[rid]} launches for "
+                                     f"{TUNING_REQUESTS} requests, {per_request[rid]} the first")
+        report["replica_launches"] = launches
+        report["kernel_launches"] = {k: sum(launches[rid][k] for rid in PLANE_REPLICAS)
+                                     for k in launches[PLANE_REPLICAS[0]]}
+        report["request_s"] = {"median": statistics.median(seconds), "max": max(seconds)}
+        log("tuning plane: routed", TUNING_REQUESTS, "requests bitwise the direct server's;",
+            json.dumps(report["request_s"]), "launches",
+            json.dumps({rid: {k: v for k, v in by_kernel.items() if v}
+                        for rid, by_kernel in launches.items()}))
+
+        # two polls after the traffic: the merge then holds every request
+        polls = get_json(f"{router}/status")["poll"]["n_polls"]
+        t0 = time.perf_counter()
+        while get_json(f"{router}/status")["poll"]["n_polls"] < polls + 2:
+            if time.perf_counter() - t0 > TUNING_POLL_TIMEOUT:
+                raise AssertionError("the router's rollup did not poll twice in "
+                                     f"{TUNING_POLL_TIMEOUT} s")
+            time.sleep(0.2)
+        status = get_json(f"{router}/status")
+        with urllib.request.urlopen(f"{router}/metrics", timeout=60) as reply:
+            metrics_status, metrics = reply.status, reply.read().decode()
+        own = get_json(f"{router}/telemetry/snapshot")
+        replica_counts_sum = 0
+        for rid in PLANE_REPLICAS:
+            snap = get_json(f"http://127.0.0.1:{ports[rid]}/telemetry/snapshot")
+            series = (snap["metrics"].get("gordo_server_phase_seconds") or {}).get("series", [])
+            replica_counts_sum += sum(s["count"] for s in series
+                                      if s["labels"] == {"phase": "predict"})
+        merged_predict = prom_values(metrics, "gordo_server_phase_seconds_count").get(
+            '{phase="predict"}')
+        merged_ok = prom_values(metrics, "gordo_router_requests_total").get('{outcome="ok"}')
+        report["rollup"] = {
+            "n_polls": status["poll"]["n_polls"], "member_errors": status["poll"]["member_errors"],
+            "merged_predict_count": merged_predict, "replicas_predict_count": replica_counts_sum,
+            "merged_router_ok": merged_ok, "signals": status["signals"],
+            "merge_errors": status["merge_errors"], "router_role": own["role"],
+        }
+        log("tuning plane: rollup", json.dumps(report["rollup"]))
+        if (metrics_status != 200 or own["role"] != "router" or status["merge_errors"]
+                or status["poll"]["member_errors"] or merged_ok != TUNING_REQUESTS
+                or merged_predict != replica_counts_sum or replica_counts_sum < TUNING_REQUESTS
+                or sorted(status["replicas"]) != sorted(PLANE_REPLICAS)):
+            raise AssertionError(f"the router's plane view: {report['rollup']}")
+        with open(persist) as fh:
+            lines = [json.loads(line) for line in fh if line.strip()]
+        report["rollup"]["persisted_lines"] = len(lines)
+        if len(lines) < 2 or not all(line.get("unix_ms") and line.get("role") == "plane"
+                                     and "signals" in line for line in lines):
+            raise AssertionError(f"{persist}: {len(lines)} lines")
+
+        # (b) the plane's commands
+        spec = os.path.join(workdir, "slo.json")
+        with open(spec, "w") as fh:
+            json.dump(TUNING_SLO, fh)
+        report["slo"] = {}
+        for label, target in (("url", f"{router}/status"), ("rollup", persist)):
+            out = cli_output(["slo", "check", spec, target, "--as-json"])
+            verdict = json.loads(out)
+            report["slo"][label] = {o["name"]: {"last": o["last_value"], "n": o["n_samples"]}
+                                    for o in verdict["objectives"]}
+            if not verdict["ok"]:
+                raise AssertionError(f"slo check {label}: {verdict}")
+        top = json.loads(cli_output(["top", router, "--once", "--as-json"]))
+        merged = json.loads(cli_output(
+            ["rollup", *[arg for rid in PLANE_REPLICAS
+                         for arg in ("--member", f"{rid}=http://127.0.0.1:{ports[rid]}")],
+             "--once"]))
+        report["top"] = {"role": top["role"], "replicas": sorted(top["replicas"]),
+                         "signals": top["signals"]}
+        report["rollup_once"] = {"members": sorted(merged["members"]),
+                                 "merge_errors": merged["merge_errors"]}
+        log("tuning plane: slo", json.dumps(report["slo"]), "top", json.dumps(report["top"]),
+            "rollup --once", json.dumps(report["rollup_once"]))
+        if (top["role"] != "plane" or sorted(top["replicas"]) != sorted(PLANE_REPLICAS)
+                or report["rollup_once"]["members"] != sorted(PLANE_REPLICAS)
+                or merged["merge_errors"]):
+            raise AssertionError(f"top / rollup: {report['top']} {report['rollup_once']}")
+        report["persist"] = persist
+        return report
+    finally:
+        stop_processes(processes.values())
+
+
+def start_tuned_servers(tuned: str, workdir: str, device=None) -> dict:
+    """Phase 18 (f)'s two `run-server` subprocesses on the tuned
+    directory, started while (e) builds into it: one as it is, one with
+    ``GORDO_BATCH_WAIT_MS`` set. {label: (process, port, event log)}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    servers = {}
+    for label, extra in (("profile", {}), ("env", {"GORDO_BATCH_WAIT_MS":
+                                                   str(TUNING_ENV_WAIT_MS)})):
+        port, log_path = free_port(), os.path.join(workdir, f"serve-{label}-events.jsonl")
+        env = {k: v for k, v in os.environ.items() if not k.startswith("GORDO_BATCH")}
+        env.update(extra, GORDO_TPU_EVENT_LOG=log_path)
+        process = subprocess.Popen(
+            [sys.executable, "-m", "gordo_tpu_torch.cli", "run-server", "--collection-dir",
+             tuned, "--host", "127.0.0.1", "--port", str(port),
+             *(["--device", device] if device else [])],
+            cwd=root, env=env, stdout=subprocess.DEVNULL,
+            stderr=open(os.path.join(workdir, f"serve-{label}.log"), "w"))
+        servers[label] = (process, port, log_path)
+    return servers
+
+
+def tuned_server_check(collection: str, tuned: str, profile: dict, servers: dict,
+                       device=None) -> dict:
+    """Phase 18 (f): each of ``servers`` (``start_tuned_servers``) asked
+    for phase 11's request once the tuned build is in place."""
+    from gordo_tpu_torch.observability import read_events
+    from gordo_tpu_torch.server.app import SERVER_TUNED_OPTIONS, build_app
+
+    casts = {option.knob: option.cast for option in SERVER_TUNED_OPTIONS}
+    server_recs = {name: casts[name](rec["value"])
+                   for name, rec in profile["recommendations"].items() if name in casts}
+    payload = json.dumps(fleet_request_body(collection, 144)).encode()
+    for process, port, _ in servers.values():
+        wait_ready(f"http://127.0.0.1:{port}/healthz", process)
+    # a server with no profile: every tuned setting given
+    plain = build_app(tuned, device=device, batch_wait_ms=0, batch_queue_limit=64,
+                      scorer_cache_size=16)
+    with http_server(tuned, None, app=plain) as direct:
+        want = post(f"{direct}/anomaly/prediction/fleet", payload)[0]["data"]
+    report = {"recommended": server_recs}
+    for label, (_, port, log_path) in servers.items():
+        base = f"http://127.0.0.1:{port}"
+        got = post(f"{base}/gordo/v0/{PROJECT}/anomaly/prediction/fleet", payload)[0]["data"]
+        # a server that applied nothing emitted nothing: no log file
+        events = [e for e in (read_events(log_path) if os.path.exists(log_path) else [])
+                  if e["event"] == "tuning_profile_loaded"]
+        batching = get_json(f"{base}/healthz")["batching"]
+        report[label] = {"bitwise": got == want, "applied": [e["applied"] for e in events],
+                         "batch_wait_ms": batching["batch_wait_ms"],
+                         "queue_limit": batching["queue_limit"]}
+    log("tuning plane: tuned servers", json.dumps(report))
+    expected = {"profile": dict(server_recs),
+                "env": {k: v for k, v in server_recs.items() if k != "batch_wait_ms"}}
+    for label, applied in expected.items():
+        if not report[label]["bitwise"]:
+            raise AssertionError(f"the {label} server's reply differs from no profile's")
+        if report[label]["applied"] != ([applied] if applied else []):
+            raise AssertionError(f"the {label} server applied {report[label]['applied']}, "
+                                 f"the profile recommends {server_recs}")
+    if report["env"]["batch_wait_ms"] != TUNING_ENV_WAIT_MS or (
+            "batch_wait_ms" in server_recs
+            and report["profile"]["batch_wait_ms"] != float(server_recs["batch_wait_ms"])):
+        raise AssertionError(f"the servers' batch waits: {report}")
+    return report
+
+
+def tuning_phase(torch, fa, profile: bool, fleet: dict, device=None):
+    """Phase 18 (the module docstring's): on the card unless ``device``
+    names another (a rehearsal)."""
+    from gordo_tpu_torch.tuning.knobs import KNOBS_BY_NAME
+    from gordo_tpu_torch.tuning.profile import TUNING_PROFILE_FILENAME
+
+    collection = fleet["collection"]
+    workdir = tempfile.mkdtemp(prefix="tuning-", dir=os.path.dirname(collection))
+    device_args = ["--device", device] if device else []
+    report = {}
+
+    t0 = time.perf_counter()
+    report["plane"] = rollup_plane_check(fa, collection, workdir, device)
+    report["plane_s"] = time.perf_counter() - t0
+
+    # (c) a calibration corpus, on the card, in this process (a process's
+    # start-up would cost more than the sweep; its serving arms reset the
+    # process registry, which no later phase reads)
+    calibration = os.path.join(workdir, "calibration")
+    t0 = time.perf_counter()
+    with scoped_environ(drop=FLEET_ENV_DROP):
+        cli_output(["tune", "calibrate", calibration, *TUNING_CALIBRATE, *device_args])
+    report["calibrate_s"] = time.perf_counter() - t0
+    with open(os.path.join(calibration, "results_calibration.json")) as fh:
+        sweep = json.load(fh)
+    report["calibration"] = {
+        "epoch_chunk_sweep": [{k: row[k] for k in ("epoch_chunk", "steady_state_epoch_s",
+                                                   "steady_state_sensor_timesteps_per_s",
+                                                   "losses_bitequal_vs_smallest_chunk")}
+                              for row in sweep["epoch_chunk_sweep"]],
+        "batch_wait_sweep": [{k: arm.get(k) for k in ("batch_wait_ms", "requests", "errors",
+                                                      "p50_ms", "p99_ms", "achieved_rps")}
+                             for arm in sweep["batch_wait_sweep"]],
+    }
+    log("tuning plane: calibration", report["calibrate_s"], "s",
+        json.dumps(report["calibration"]))
+    if (not all(row["losses_bitequal_vs_smallest_chunk"] for row in sweep["epoch_chunk_sweep"])
+            or [row["epoch_chunk"] for row in sweep["epoch_chunk_sweep"]] != [1, 4]
+            or [arm["batch_wait_ms"] for arm in sweep["batch_wait_sweep"]] != [0.0, 2.0]
+            or any(arm["errors"] or not arm["requests"] for arm in sweep["batch_wait_sweep"])):
+        raise AssertionError(f"tune calibrate: {report['calibration']}")
+
+    # (d) the plan and the profile, in a fresh directory
+    corpus = [collection, report["plane"]["persist"], calibration]
+    tuned = os.path.join(workdir, "tuned")
+    os.makedirs(tuned)
+    t0 = time.perf_counter()
+    plan = json.loads(cli_output(["tune", "plan", "--as-json", *corpus]))
+    fitted = cli_output(["tune", "fit", *corpus, "--out", tuned])
+    checked = cli_output(["tune", "plan", "--check", tuned])
+    report["fit_s"] = time.perf_counter() - t0
+    with open(os.path.join(tuned, TUNING_PROFILE_FILENAME)) as fh:
+        profile_json = json.load(fh)
+    recs = profile_json["recommendations"]
+    report["corpus"] = {k: plan["corpus"][k] for k in ("n_files", "n_observations")}
+    report["recommendations"] = {
+        name: {"value": rec["value"], "source": rec["source"], "signal": rec["signal"],
+               "predicted": rec["predicted"], "predicted_default": rec["predicted_default"],
+               "evidence": [(arm["value"], arm["mean"], arm["n"]) for arm in rec["evidence"]]}
+        for name, rec in recs.items()}
+    log("tuning plane: tune fit\n" + fitted.rstrip() + "\n" + checked.rstrip())
+    if (plan["recommendations"] != recs or not recs
+            or any(KNOBS_BY_NAME[name].unported for name in recs)
+            or "ok (" not in checked):
+        raise AssertionError(f"tune plan / fit / check: {report['recommendations']}")
+
+    # (f)'s servers start while (e) builds into their directory
+    servers = start_tuned_servers(tuned, workdir, device)
+    try:
+        report.update(tuned_build_and_serve(fa, fleet, recs, profile_json, tuned, workdir,
+                                            device_args, servers, device))
+    finally:
+        stop_processes([process for process, _, _ in servers.values()])
+    return report
+
+
+def tuned_build_and_serve(fa, fleet: dict, recs: dict, profile_json: dict, tuned: str,
+                          workdir: str, device_args, servers: dict, device=None) -> dict:
+    """Phase 18 (e), then (f) over ``servers``."""
+    import numpy as np
+
+    from gordo_tpu_torch.cli.cli import FLEET_TUNED_OPTIONS
+    from gordo_tpu_torch.observability import read_events
+    from gordo_tpu_torch.tuning.knobs import KNOBS_BY_NAME
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    collection = fleet["collection"]
+    report = {}
+    builder_recs = {name: rec["value"] for name, rec in recs.items()
+                    if KNOBS_BY_NAME[name].subsystem in ("builder", "ledger")}
+    listing = os.path.join(workdir, "transformers.yaml")
+    with open(listing, "w") as fh:
+        fh.write(yaml_text(fleet_machines(root)[:FLEET_TRANSFORMERS]) + "\n")
+    events = os.path.join(workdir, "tuned-build-events.jsonl")
+    # in this process (a process's start-up is a fifth of the build), its
+    # launches counted from here
+    before = dict(fa.kernel_launches)
+    t0 = time.perf_counter()
+    with scoped_environ(drop=FLEET_ENV_DROP, OUTPUT_DIR=tuned, GORDO_TPU_EVENT_LOG=events):
+        built = cli_output(["build-fleet", "--machines-from", listing, *device_args])
+    report["build_s"] = time.perf_counter() - t0
+    report["build_launches"] = {k: v - before[k] for k, v in fa.kernel_launches.items()}
+    if "FAILED" in built or "QUARANTINED" in built:
+        raise AssertionError(f"tuned build-fleet:\n{built[-2000:]}")
+    applied = [e["applied"] for e in read_events(events) if e["event"] == "tuning_profile_loaded"]
+    report["build_applied"] = applied
+    worst, differing = 0.0, []
+    for name in (f"{MACHINE}-{i}" for i in range(FLEET_TRANSFORMERS)):
+        got = npz_arrays(os.path.join(tuned, name, "params.npz"))
+        want = npz_arrays(os.path.join(fleet["transformer_params"], f"{name}.npz"))
+        for key in want:
+            if got[key].tobytes() != want[key].tobytes():
+                differing.append(f"{name}/{key}")
+                worst = max(worst, float(np.abs(got[key].astype(np.float64)
+                                                - want[key].astype(np.float64)).max()))
+    report["params_bitwise"] = not differing
+    report["params_max_abs_diff"] = worst
+    report["params_differing_knobs"] = sorted(set(builder_recs) - set(TUNING_SCHEDULING_KNOBS))
+    log("tuning plane: tuned build", report["build_s"], "s, applied", json.dumps(applied),
+        "launches", json.dumps({k: v for k, v in report["build_launches"].items() if v}),
+        "params bitwise phase 10's", report["params_bitwise"], "largest difference", worst,
+        "non-scheduling knobs applied", report["params_differing_knobs"])
+    casts = {option.knob: option.cast for option in FLEET_TUNED_OPTIONS}
+    expected = {name: casts[name](value) for name, value in builder_recs.items()}
+    if applied != ([expected] if expected else []):
+        raise AssertionError(f"the tuned build applied {applied}, the profile {builder_recs}")
+    for kernel in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV):
+        name = f"{kernel}_quad"
+        if report["build_launches"][name] != fleet["kernel_launches"][name]:
+            raise AssertionError(f"the tuned build launched {name} "
+                                 f"{report['build_launches'][name]} times, phase 10's "
+                                 f"{fleet['kernel_launches'][name]}")
+    if not report["params_differing_knobs"] and differing:
+        raise AssertionError(f"scheduling knobs only, yet params differ by {worst}: {differing}")
+
+    # (f) the tuned servers, and the environment over the profile
+    t0 = time.perf_counter()
+    report["servers"] = tuned_server_check(collection, tuned, profile_json, servers, device)
+    report["servers_s"] = time.perf_counter() - t0
+    return report
+
+
 def wide_row(check):
     """A head_dim 64/128/256 check row as the ``kernels`` line reports it."""
     keys = ("case", "shape", "dtype", "ms", "ms_timer", "bound_ms", "bound_by", "plain_ms",
@@ -5222,6 +5737,7 @@ def main(argv=None) -> int:
         plane = timed("plane", plane_phase, args.profile, fleet["collection"])
         lifecycle = timed("lifecycle", lifecycle_phase, args.profile, fleet["collection"])
         client = timed("client", client_phase, args.profile, fleet["collection"])
+        tuning = timed("tuning", tuning_phase, args.profile, fleet)
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -5252,6 +5768,8 @@ def main(argv=None) -> int:
              "lifecycle_shadow": lifecycle["tick_launches"]["shadow"],
              "lifecycle_torn": lifecycle["torn_launches"],
              "lifecycle_stream": lifecycle["stream_launches"],
+             "rollup_routed": tuning["plane"]["kernel_launches"],
+             "tuned_build": tuning["build_launches"],
              **client["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
@@ -5306,7 +5824,7 @@ def main(argv=None) -> int:
                  "recurrent": recurrent, "project_build": project, "fleet_build": fleet,
                  "fleet_serve": fleet_serve, "build_options": options,
                  "lake_stream": lake_stream, "plane": plane, "lifecycle": lifecycle,
-                 "client": client, "build_plane": build_plane, **kernels},
+                 "client": client, "build_plane": build_plane, "tuning": tuning, **kernels},
                 fh,
                 indent=1,
                 default=str,

@@ -603,7 +603,6 @@ class FleetModelBuilder:
             "n_buckets": n_buckets,
             "bucket_policy": self.bucket_policy,
             "precision": self.precision,
-            "prefetch_depth": self.prefetch_depth,
             "transfers": dict(self.transfers_),
             "models_per_hour": rate,
             "device_memory": memory_watermarks(),
@@ -787,7 +786,6 @@ class FleetModelBuilder:
                 es_kwargs=es_kwargs, machine_names=names,
             )
         cv_duration = time.perf_counter() - start
-        cv_telemetry = trainer.fit_telemetry_
 
         # a `worker:die:train` spec ends the process here: CV done, the
         # final fit not started, nothing written
@@ -892,7 +890,6 @@ class FleetModelBuilder:
             # False too for a refit that fell back to a cold start
             "warm_start": warm is not None,
             "models_per_hour": len(bucket) / bucket_wall * 3600 if bucket_wall > 0 else None,
-            "cv_fit": cv_telemetry,
             "fit": trainer.fit_telemetry_,
             "device_memory": bucket_memory,
             "device": str(self.device),

@@ -33,6 +33,10 @@ The port's command line (the counterpart of ``gordo_tpu.cli``'s
     python -m gordo_tpu_torch.cli lifecycle report REVISION_DIR
     python -m gordo_tpu_torch.cli client [...] predict|metadata|download-model ...
     python -m gordo_tpu_torch.cli trace summarize|export PATH ...
+    python -m gordo_tpu_torch.cli tune plan|fit|calibrate ...
+    python -m gordo_tpu_torch.cli slo check SPEC SNAPSHOT_OR_URL [--as-json]
+    python -m gordo_tpu_torch.cli top STATUS_URL [--interval S] [--once] [--as-json]
+    python -m gordo_tpu_torch.cli rollup --member ID=URL ... [--once] ...
 
 ``build`` builds one machine (fetch and resample its dataset,
 cross-validate and derive the thresholds, fit) and writes the port's
@@ -74,11 +78,15 @@ command's options, ``--device`` among them, and the FAILED and
 QUARANTINED lines come from the merged report. ``--ledger-status DIR``
 prints the ledger's units and workers and exits. Its options that the
 port does not have (``UNPORTED_FLEET_OPTIONS``) are usage errors naming
-their ROADMAP.md item or reason: none is ignored. The JAX command also
-fills knobs left at their defaults from a collection's tuning profile;
-the port has no tuning profiles (``tuning/`` is ROADMAP.md queue 1 item
-9), so every value is the command line's, its environment variable's or
-the default.
+their ROADMAP.md item or reason: none is ignored. The tunable options
+(``FLEET_TUNED_OPTIONS``: ``--epoch-chunk``, ``--bucket-policy``,
+``--workers``, ``--lease-ttl``, ``--precision``, ``--prefetch-depth``)
+take the flag, else the environment variable, else OUTPUT_DIR's
+``tuning_profile.json`` (``tuning/profile.py``; one
+``tuning_profile_loaded`` event names what it applied), else the
+default. An orchestrator resolves them once and hands its workers
+explicit flags; a profile that recommends a knob the port lacks is a
+usage error naming it.
 
 ``buckets plan`` (``cli/buckets.py``) prints how ``--bucket-policy``
 groups a machines list, as ``build-fleet`` and its ledger would;
@@ -94,7 +102,12 @@ its build would use, and prints each trial's final loss in Katib's
 ``key=value`` form, best first, then the best hyperparameters.
 
 ``run-router`` fronts ``run-server`` replicas that each serve a shard of
-one collection (``gordo_tpu_torch.router``); it needs no card.
+one collection (``gordo_tpu_torch.router``); it needs no card. With
+``--rollup-interval S`` (``GORDO_ROLLUP_INTERVAL_S``) it polls its
+replicas' snapshots every S seconds into its ``/status`` and
+``/metrics``, and with ``--rollup-persist FILE`` (``GORDO_ROLLUP_PERSIST``)
+appends each merge to FILE, keeping ``--rollup-retention``
+(``GORDO_ROLLUP_RETENTION``, 500) lines.
 
 ``lifecycle`` is the JAX command group of that name
 (``gordo_tpu_torch.lifecycle``), with its flags and its JSON: ``tick``
@@ -110,8 +123,11 @@ Scoring and refits run on the card unless ``--device cpu`` is given.
 
 ``client`` (``cli/client.py``) predicts, reads metadata and downloads
 models from a server or router with the port's client; ``trace``
-(``cli/trace.py``) summarizes and exports span logs. Both parse their own
-options, and neither touches the card.
+(``cli/trace.py``) summarizes and exports span logs; ``slo``, ``top`` and
+``rollup`` (``cli/plane.py``) read a serving plane's merged telemetry;
+``tune`` (``cli/tune.py``) fits a collection's tuning profile from its
+telemetry and measures a corpus with ``tune calibrate``. They parse
+their own options; only ``tune calibrate`` touches the card.
 """
 
 import argparse
@@ -134,6 +150,7 @@ from gordo_tpu_torch.data.providers import NoSuitableDataProviderError
 from gordo_tpu_torch.machine import Machine, ReporterException
 from gordo_tpu_torch.parallel import transfer
 from gordo_tpu_torch.robustness.faults import WORKER_ID_ENV_VAR
+from gordo_tpu_torch.tuning.profile import TunedOption, UnportedKnobError, resolve_tuned_options
 from gordo_tpu_torch.workflow.yaml_reader import safe_load
 
 logger = logging.getLogger(__name__)
@@ -256,6 +273,24 @@ UNPORTED_FLEET_OPTIONS = (
     ("--model-register-dir", None, None,
      "ROADMAP.md queue 1 item 7: the JAX fleet builder takes it and caches nothing, "
      "so the port refuses it rather than ignore it"),
+)
+
+
+BUCKET_POLICIES = ("exact", "padded")
+PRECISIONS = ("float32", "bf16", "auto")
+
+
+#: build-fleet's options a tuning profile may default (the JAX command's
+#: tunable builder and ledger knobs): knob, attribute, variable, type,
+#: built-in default
+FLEET_TUNED_OPTIONS = (
+    TunedOption("epoch_chunk", "epoch_chunk", "GORDO_EPOCH_CHUNK", int, 1),
+    TunedOption("bucket_policy", "bucket_policy", "GORDO_BUCKET_POLICY", str, "exact"),
+    TunedOption("build_workers", "workers", fleet_ledger.WORKERS_ENV_VAR, str, "1"),
+    TunedOption("lease_ttl", "lease_ttl", fleet_ledger.LEASE_TTL_ENV_VAR, float,
+                fleet_ledger.DEFAULT_LEASE_TTL_S),
+    TunedOption("precision", "precision", "GORDO_PRECISION", str, "float32"),
+    TunedOption("prefetch_depth", "prefetch_depth", "GORDO_PREFETCH_DEPTH", int, 0),
 )
 
 
@@ -513,23 +548,13 @@ def sweep(args) -> int:
     return 0
 
 
-#: run-router options of the JAX command that wait for the port's
-#: telemetry (flag, environment variable)
-UNPORTED_ROUTER_OPTIONS = (
-    ("--rollup-interval", "GORDO_ROLLUP_INTERVAL_S"),
-    ("--rollup-retention", "GORDO_ROLLUP_RETENTION"),
-    ("--rollup-persist", "GORDO_ROLLUP_PERSIST"),
-)
-
-
 def run_router(parser: argparse.ArgumentParser, args) -> int:
     """The ``run-router`` command: a usage error without replicas or a
     collection, else serve until interrupted."""
     from gordo_tpu_torch.router.app import parse_replica_entries, run_router as serve
 
-    for flag, env in UNPORTED_ROUTER_OPTIONS:
-        if getattr(args, _dest(flag)) is not None or os.environ.get(env):
-            parser.error(f"run-router {flag} is not ported yet (ROADMAP.md queue 1 item 9)")
+    if args.rollup_interval < 0 or args.rollup_retention < 1:
+        parser.error("--rollup-interval must be >= 0 and --rollup-retention >= 1")
     try:
         replicas = parse_replica_entries(args.replica or [os.environ.get("GORDO_ROUTER_REPLICAS", "")])
     except ValueError as err:
@@ -544,6 +569,8 @@ def run_router(parser: argparse.ArgumentParser, args) -> int:
         "EJECT_AFTER": args.eject_after, "BACKOFF_SCALE": args.backoff_scale,
         "PROBE_INTERVAL_S": args.probe_interval, "HEDGE_MS": args.hedge_ms,
         "REPLICA_TIMEOUT_S": args.replica_timeout, "MAX_INFLIGHT": args.max_inflight,
+        "ROLLUP_INTERVAL_S": args.rollup_interval, "ROLLUP_RETENTION": args.rollup_retention,
+        "ROLLUP_PERSIST_PATH": args.rollup_persist,
     })
     return 0
 
@@ -757,10 +784,10 @@ def _parser() -> argparse.ArgumentParser:
     fleet = commands.add_parser(
         "build-fleet", help="build a YAML list of machines, a bucket at a time",
         description="Build a YAML list of machines, a bucket at a time, in one process or in "
-                    "--workers processes sharing a crash-tolerant work ledger. The JAX "
-                    "command's tuning profiles (a collection's recommended knobs) are not "
-                    "ported (tuning/ is ROADMAP.md queue 1 item 9): every value comes from "
-                    "the command line, its environment variable or the default.",
+                    "--workers processes sharing a crash-tolerant work ledger. The tuned "
+                    "options (--epoch-chunk, --bucket-policy, --workers, --lease-ttl, "
+                    "--precision, --prefetch-depth) take the flag, else their environment "
+                    "variable, else OUTPUT_DIR's tuning_profile.json, else the default.",
     )
     fleet.add_argument(
         "machines_config", nargs="?", default=os.environ.get("MACHINES"),
@@ -773,31 +800,34 @@ def _parser() -> argparse.ArgumentParser:
     fleet.add_argument("--machines-from", default=None,
                        help="read the machines' YAML list from this file")
     fleet.add_argument("--device", default=None, help="cuda (default) or cpu")
-    fleet.add_argument("--epoch-chunk", type=int,
-                       default=_env_number("GORDO_EPOCH_CHUNK", 1, int),
-                       help="epochs between the host's reads of an early-stopping fit's losses")
+    # the tuned options parse to None when not given: the flag, then the
+    # variable, then the collection's profile, then the default decide
+    # (FLEET_TUNED_OPTIONS)
+    fleet.add_argument("--epoch-chunk", type=int, default=None,
+                       help="epochs between the host's reads of an early-stopping fit's losses "
+                            "(default: $GORDO_EPOCH_CHUNK, the profile's, else 1)")
     fleet.add_argument("--on-error", choices=("raise", "skip"),
                        default=os.environ.get("GORDO_ON_ERROR", "raise"),
                        help="a failing machine aborts the build (raise) or is recorded (skip)")
-    fleet.add_argument("--bucket-policy", choices=("exact", "padded"),
-                       default=os.environ.get("GORDO_BUCKET_POLICY", "exact"),
-                       help="how machines are grouped into buckets")
+    fleet.add_argument("--bucket-policy", choices=BUCKET_POLICIES, default=None,
+                       help="how machines are grouped into buckets (default: "
+                            "$GORDO_BUCKET_POLICY, the profile's, else exact)")
     fleet.add_argument("--fetch-retries", type=int,
                        default=_env_number("GORDO_FETCH_RETRIES", 2, int),
                        help="retries of a machine's data fetch")
     fleet.add_argument("--fetch-timeout", type=float,
                        default=_env_number("GORDO_FETCH_TIMEOUT", None, float),
                        help="seconds a machine's data fetch may take")
-    fleet.add_argument("--precision", choices=("float32", "bf16", "auto"),
-                       default=os.environ.get("GORDO_PRECISION", "float32"),
+    fleet.add_argument("--precision", choices=PRECISIONS, default=None,
                        help="inference precision: float32 (no calibration), auto (bf16 where a "
-                            "machine's MAE delta is within --precision-tolerance) or bf16")
+                            "machine's MAE delta is within --precision-tolerance) or bf16 "
+                            "(default: $GORDO_PRECISION, the profile's, else float32)")
     fleet.add_argument("--precision-tolerance", type=float,
                        default=_env_number("GORDO_PRECISION_TOLERANCE", 0.25, float),
                        help="relative MAE tolerance of the bf16 calibration")
-    fleet.add_argument("--prefetch-depth", type=int,
-                       default=_env_number("GORDO_PREFETCH_DEPTH", 0, int),
-                       help="host-to-device transfer pipelining depth, 0-8 (0: one plain copy)")
+    fleet.add_argument("--prefetch-depth", type=int, default=None,
+                       help="host-to-device transfer pipelining depth, 0-8 (0: one plain copy; "
+                            "default: $GORDO_PREFETCH_DEPTH, the profile's, else 0)")
     fleet.add_argument("--print-cv-scores", action="store_true",
                        help="print each machine's CV scores as '<machine>: metric_fold=value'")
     _add_report_options(fleet)
@@ -807,18 +837,18 @@ def _parser() -> argparse.ArgumentParser:
                        default=_env_flag("GORDO_FLEET_RESUME"),
                        help="reuse the machines whose artifacts in OUTPUT_DIR are current and "
                             "build the rest")
-    fleet.add_argument("--workers", default=os.environ.get(fleet_ledger.WORKERS_ENV_VAR, "1"),
+    fleet.add_argument("--workers", default=None,
                        help="worker processes sharing the buckets through the work ledger "
                             "under OUTPUT_DIR ('auto': half the cores, at most 4; 1: one "
-                            "process, no ledger)")
+                            "process, no ledger; default: $GORDO_BUILD_WORKERS, the "
+                            "profile's, else 1)")
     fleet.add_argument("--worker-id", type=int, default=os.environ.get(WORKER_ID_ENV_VAR),
                        help="run as one worker of a ledger build (set by the orchestrator; "
                             "set it yourself to run workers on hosts sharing OUTPUT_DIR)")
-    fleet.add_argument("--lease-ttl", type=float,
-                       default=_env_number(fleet_ledger.LEASE_TTL_ENV_VAR,
-                                           fleet_ledger.DEFAULT_LEASE_TTL_S, float),
+    fleet.add_argument("--lease-ttl", type=float, default=None,
                        help="seconds a unit's lease may go without a heartbeat before a live "
-                            "worker steals it (default 60)")
+                            "worker steals it (default: $GORDO_LEASE_TTL, the profile's, "
+                            "else 60)")
     fleet.add_argument("--max-attempts", type=int,
                        default=_env_number(fleet_ledger.MAX_ATTEMPTS_ENV_VAR,
                                            fleet_ledger.DEFAULT_MAX_ATTEMPTS, int),
@@ -877,11 +907,16 @@ def _parser() -> argparse.ArgumentParser:
          "seconds a replica call may take"),
         ("--max-inflight", "GORDO_ROUTER_MAX_INFLIGHT", int, 64,
          "requests in flight before the router sheds with 503"),
+        ("--rollup-interval", "GORDO_ROLLUP_INTERVAL_S", float, 0.0,
+         "seconds between polls of every replica's /telemetry/snapshot, merged into the "
+         "router's /status and /metrics (0: no poller thread; /status polls on demand)"),
+        ("--rollup-retention", "GORDO_ROLLUP_RETENTION", int, 500,
+         "merged snapshots kept in the persisted rollup JSONL (oldest trimmed)"),
     ):
         router.add_argument(flag, type=cast, default=_env_number(env, default, cast), help=text)
-    for flag, _ in UNPORTED_ROUTER_OPTIONS:
-        router.add_argument(flag, dest=_dest(flag), default=None,
-                            help="not ported (ROADMAP.md queue 1 item 9)")
+    router.add_argument("--rollup-persist", default=os.environ.get("GORDO_ROLLUP_PERSIST") or None,
+                        help="JSONL path the merged snapshots persist to (`tune` reads them as "
+                             "observations); unset: not persisted")
     _add_lifecycle_parser(commands)
     telemetry = commands.add_parser("telemetry",
                                     help="inspect fleet telemetry: build reports and event logs")
@@ -893,7 +928,12 @@ def _parser() -> argparse.ArgumentParser:
                            help="print the versioned JSON payload instead of the summary")
     for name, text in (("client", "predict, read metadata, download models (cli/client.py)"),
                        ("trace", "summarize or export span logs (cli/trace.py)"),
-                       ("buckets", "preview a bucketing plan (cli/buckets.py)")):
+                       ("buckets", "preview a bucketing plan (cli/buckets.py)"),
+                       ("tune", "fit measured knob defaults from telemetry (cli/tune.py)"),
+                       ("slo", "check SLO specs against merged plane snapshots (cli/plane.py)"),
+                       ("top", "live view of a plane's /status (cli/plane.py)"),
+                       ("rollup", "poll, merge and serve plane members' snapshots "
+                                  "(cli/plane.py)")):
         command = commands.add_parser(name, add_help=False, help=text)
         command.add_argument("command_args", nargs=argparse.REMAINDER)
     return parser
@@ -924,6 +964,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         from gordo_tpu_torch.cli import buckets
 
         return buckets.main(argv[1:])
+    if argv[:1] == ["tune"]:
+        from gordo_tpu_torch.cli import tune
+
+        return tune.main(argv[1:])
+    if argv[:1] in (["slo"], ["top"], ["rollup"]):
+        from gordo_tpu_torch.cli import plane
+
+        return plane.main(argv)
     parser = _parser()
     args = parser.parse_args(argv)
     if args.command == "build-fleet":
@@ -971,6 +1019,17 @@ def telemetry_summarize(parser: argparse.ArgumentParser, args) -> int:
 
 def _build_fleet_command(parser: argparse.ArgumentParser, args) -> int:
     _refuse_unported(parser, args)
+    try:
+        # the ledger's status reads no profile
+        resolve_tuned_options(vars(args), None if args.ledger_status is not None
+                              else args.output_dir, FLEET_TUNED_OPTIONS, subsystem="builder")
+    except UnportedKnobError as err:
+        parser.error(str(err))
+    except ValueError as err:
+        parser.error(f"a tuned build-fleet option did not parse: {err}")
+    if args.bucket_policy not in BUCKET_POLICIES or args.precision not in PRECISIONS:
+        parser.error(f"--bucket-policy must be one of {BUCKET_POLICIES} and --precision one "
+                     f"of {PRECISIONS}, got {args.bucket_policy!r} and {args.precision!r}")
     if args.lease_ttl <= 0 or args.max_attempts < 1:
         parser.error("--lease-ttl must be > 0 and --max-attempts >= 1")
     if args.ledger_status is not None:

@@ -13,6 +13,7 @@ the estimator after it runs on the device it is fitted on. Fitted state
 is plain arrays (``state_arrays``), so an artifact holds no pickle.
 """
 
+import inspect
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -94,9 +95,11 @@ class Pipeline:
     """
     ``sklearn.pipeline.Pipeline``: ``steps`` is a list of (name,
     transformer) pairs ending in the estimator. ``fit`` fits each
-    transformer on the output of the ones before it, then the estimator
-    on ``device``; ``predict``, ``transform`` and ``score`` pass X through
-    the fitted transformers first.
+    transformer on the output of the ones before it, then the final step,
+    on ``device`` when its ``fit`` takes one (an estimator); a final step
+    that is a host transformer (a scaler) is fitted as scikit-learn's
+    ``Pipeline`` fits it, without. ``predict``, ``transform`` and
+    ``score`` pass X through the fitted transformers first.
     """
 
     def __init__(self, steps: List[Tuple[str, Any]]):
@@ -117,7 +120,10 @@ class Pipeline:
     def fit(self, X, y, *, device: DeviceLike = None) -> "Pipeline":
         for _, step in self.steps[:-1]:
             X = step.fit_transform(X, y)
-        self._final.fit(X, y, device=device)
+        if "device" in inspect.signature(self._final.fit).parameters:
+            self._final.fit(X, y, device=device)
+        else:
+            self._final.fit(X, y)
         return self
 
     def predict(self, X) -> np.ndarray:

@@ -5,10 +5,13 @@ the structured JSONL event log (:mod:`.events`), the metrics registry
 (:mod:`.tracing`), the phase ledger's server and train planes
 (:mod:`.attribution`), the card's memory watermarks
 (:mod:`.device_memory`), the fleet build's telemetry reports and
-``telemetry summarize`` (:mod:`.report`), and the ``/telemetry/snapshot``
-payload (:mod:`.rollup`). None of them imports torch at import time. The
-JAX package's plane rollup, SLOs, sampling profiler and ``profiler.py``
-wait for ROADMAP.md queue 1 item 9.
+``telemetry summarize`` (:mod:`.report`), the serving plane's rollup
+(:mod:`.rollup`: the ``/telemetry/snapshot`` payload, the merge, the
+control signals and the poller) and SLOs as error budgets
+(:mod:`.slo`). None of them imports torch at import time. The names are
+the JAX package's, less those of what the port lacks: the sampling
+profiler, ``profiler.py`` and the attribution block of a span (ROADMAP.md
+queue 1 item 9).
 """
 
 from .attribution import (
@@ -31,7 +34,18 @@ from .events import (
     emit_event,
     read_events,
 )
-from .registry import get_registry
+from .registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    HistogramMergeError,
+    MetricsRegistry,
+    get_registry,
+    histogram_quantile,
+    histogram_stat,
+    histogram_state,
+    merge_histogram_states,
+)
 from .report import (
     TELEMETRY_REPORT_FILENAME,
     load_reports,
@@ -39,9 +53,101 @@ from .report import (
     summary_payload,
     write_telemetry_report,
 )
-from .tracing import TRACE_LOG_ENV_VAR, current_context, start_span, trace_fields
+from .rollup import (
+    SNAPSHOT_VERSION,
+    RollupPoller,
+    compute_signals,
+    merge_snapshots,
+    plane_status,
+    render_prometheus_text,
+    snapshot_payload,
+)
+from .slo import (
+    SloObjective,
+    SloReport,
+    SloSpec,
+    evaluate,
+    evaluate_values,
+    load_slo_spec,
+    parse_slo_spec,
+)
+from .tracing import (
+    TRACE_ID_RESPONSE_HEADER,
+    TRACE_LOG_ENV_VAR,
+    TRACE_SAMPLE_ENV_VAR,
+    TRACEPARENT_HEADER,
+    SpanContext,
+    current_context,
+    current_span,
+    current_traceparent,
+    format_traceparent,
+    parse_traceparent,
+    propagation_headers,
+    read_spans,
+    record_span,
+    spans_to_chrome_trace,
+    start_span,
+    summarize_spans,
+    trace_fields,
+    tracing_enabled,
+)
 
 __all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "get_registry",
+    "EVENT_LOG_ENV_VAR",
+    "EventEmitter",
+    "emit_event",
+    "read_events",
+    "TRACE_ID_RESPONSE_HEADER",
+    "TRACE_LOG_ENV_VAR",
+    "TRACE_SAMPLE_ENV_VAR",
+    "TRACEPARENT_HEADER",
+    "SpanContext",
+    "current_context",
+    "current_span",
+    "current_traceparent",
+    "format_traceparent",
+    "parse_traceparent",
+    "propagation_headers",
+    "read_spans",
+    "record_span",
+    "spans_to_chrome_trace",
+    "start_span",
+    "summarize_spans",
+    "trace_fields",
+    "tracing_enabled",
+    "device_memory_stats",
+    "memory_watermarks",
+    "save_device_memory_profile",
+    "TELEMETRY_REPORT_FILENAME",
+    "write_telemetry_report",
+    "load_reports",
+    "summarize_directory",
+    "summary_payload",
+    "EVENT_LOG_MAX_MB_ENV_VAR",
+    "HistogramMergeError",
+    "histogram_quantile",
+    "histogram_stat",
+    "histogram_state",
+    "merge_histogram_states",
+    "SNAPSHOT_VERSION",
+    "RollupPoller",
+    "compute_signals",
+    "merge_snapshots",
+    "plane_status",
+    "render_prometheus_text",
+    "snapshot_payload",
+    "SloObjective",
+    "SloReport",
+    "SloSpec",
+    "evaluate",
+    "evaluate_values",
+    "load_slo_spec",
+    "parse_slo_spec",
     "DEVICE_PHASES",
     "HOST_PHASES",
     "LEDGER_ENV_VAR",
@@ -52,22 +158,4 @@ __all__ = [
     "ledger_for",
     "phase_totals",
     "record_current",
-    "device_memory_stats",
-    "memory_watermarks",
-    "save_device_memory_profile",
-    "EVENT_LOG_ENV_VAR",
-    "EVENT_LOG_MAX_MB_ENV_VAR",
-    "EventEmitter",
-    "emit_event",
-    "read_events",
-    "get_registry",
-    "TELEMETRY_REPORT_FILENAME",
-    "load_reports",
-    "summarize_directory",
-    "summary_payload",
-    "write_telemetry_report",
-    "TRACE_LOG_ENV_VAR",
-    "current_context",
-    "start_span",
-    "trace_fields",
 ]

@@ -6,11 +6,11 @@ JSONL event log under a directory (models built, models/hour, casualties,
 peak device memory, the ledger's units and steals, events by subsystem
 and any crash context), as text or as JAX's versioned JSON payload
 (``SUMMARY_SCHEMA_VERSION``). The ``rollup`` and ``phases`` sections read
-persisted rollup snapshot files (JSONL lines with ``snapshot_version``
-and ``metrics``); the port's serving processes answer
-``/telemetry/snapshot`` but persist none yet (the rollup's poller is
-ROADMAP.md queue 1 item 9), so both sections are empty unless such a
-file is there, as JAX's are. Stdlib only: no torch.
+the persisted rollup files under the directory (JSONL lines with
+``snapshot_version`` and ``metrics``, as ``run-router --rollup-persist``
+and ``rollup --persist`` write them): each file's members and last
+signals, and the phase ledger's host and device seconds. Stdlib only: no
+torch.
 """
 
 import json

@@ -27,13 +27,24 @@ serve a shard of one collection (``run-server --shard-manifest``).
 - A pinned revision (``?revision=`` or the ``revision`` header) is
   forwarded to the replicas as a query parameter.
 
+- The plane's telemetry (``observability/rollup.py``):
+  ``/telemetry/snapshot`` is this router's own registry and identity;
+  ``/status`` and ``/metrics`` are the merge of its replicas' snapshots
+  and its own (counters summed, gauges labelled by replica, histograms
+  bucket-wise), with the control signals. With ``ROLLUP_INTERVAL_S``
+  above 0 a poller thread keeps the merge warm and, with
+  ``ROLLUP_PERSIST_PATH``, appends each merge to a JSONL file trimmed to
+  ``ROLLUP_RETENTION`` lines; with 0 no thread runs and no replica is
+  asked for a snapshot until ``/status`` or ``/metrics`` is, which polls
+  once per request. The router counts its requests by outcome
+  (``gordo_router_requests_total``), its sheds, failovers and hedges.
+
 The router holds no model and needs no card: it reads the collection's
 directory and build report (``CollectionView``) and calls the replicas
 with ``utils/http.py``'s ``HttpTransport``, over keep-alive connections
-kept per replica. The JAX router's ``/metrics``, ``/status`` and
-``/telemetry/snapshot`` (the rollup of its replicas' registries), its
+kept per replica (the rollup's snapshot fetches too). The JAX router's
 ``replica:`` fault grammar, events and tracing spans are not ported
-(ROADMAP.md queue 1 item 9): the three routes answer 404 saying so.
+(ROADMAP.md queue 1 item 9).
 """
 
 import json
@@ -51,6 +62,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from urllib.parse import parse_qs, urlencode
 
 from gordo_tpu_torch import __version__, serializer
+from gordo_tpu_torch.observability import rollup as rollup_mod
+from gordo_tpu_torch.observability.registry import get_registry
 from gordo_tpu_torch.router.health import ReplicaHealthTracker
 from gordo_tpu_torch.router.ring import DEFAULT_VNODES, HashRing
 from gordo_tpu_torch.server.app import (
@@ -89,9 +102,13 @@ DEFAULTS = {
     "COLLECTION_DIR": None,
     #: how replicas are called (``HttpTransport``), replaceable in tests
     "TRANSPORT": None,
+    #: seconds between rollup polls; 0: no poller thread
+    "ROLLUP_INTERVAL_S": 0.0,
+    #: merged snapshots kept in the persisted JSONL
+    "ROLLUP_RETENTION": 500,
+    #: where each merge is appended; None: not persisted
+    "ROLLUP_PERSIST_PATH": None,
 }
-#: the JAX router's routes that wait for the port's telemetry
-UNPORTED_ROUTES = ("/metrics", "/status", "/telemetry/snapshot")
 #: bounds on the router's table of held streams: opens purge proxies idle
 #: past the window, and the table never outgrows the count
 STREAM_PROXY_BOUND = 4096
@@ -103,6 +120,9 @@ _ROUTES = [
     ("GET", "/healthcheck", "healthcheck"),
     ("GET", "/healthz", "healthz"),
     ("GET", "/server-version", "server_version"),
+    ("GET", "/telemetry/snapshot", "telemetry_snapshot"),
+    ("GET", "/status", "status"),
+    ("GET", "/metrics", "metrics"),
     ("GET", "/router/replicas", "replicas"),
     ("POST", "/router/replicas", "set_replicas"),
     ("GET", _PROJECT + "/models", "models"),
@@ -235,6 +255,15 @@ class RouterApp:
             self._prober = threading.Thread(target=self._probe_loop, args=(probe_interval,),
                                             name="gordo-router-prober", daemon=True)
             self._prober.start()
+        # the plane rollup: a poller thread only with an interval; without
+        # one nothing runs until /status or /metrics is asked for
+        self._started_at = time.time()
+        self._rollup_lock = threading.Lock()
+        self._rollup: Optional[rollup_mod.RollupPoller] = None
+        rollup_interval = float(self.config["ROLLUP_INTERVAL_S"] or 0.0)
+        if rollup_interval > 0:
+            self._rollup = self._build_rollup(rollup_interval)
+            self._rollup.start()
 
     # -- membership ------------------------------------------------------
     def routing_view(self) -> Tuple[Dict[str, str], HashRing]:
@@ -270,8 +299,60 @@ class RouterApp:
         if self._prober is not None:
             self._prober.join(timeout=5.0)
             self._prober = None
+        with self._rollup_lock:
+            rollup, self._rollup = self._rollup, None
+        if rollup is not None:
+            rollup.stop()
         if hasattr(self.transport, "close"):
             self.transport.close()
+
+    # -- the plane rollup ----------------------------------------------------
+    def _build_rollup(self, interval_s: float) -> rollup_mod.RollupPoller:
+        def members() -> Dict[str, str]:
+            return dict(self.routing_view()[0])
+
+        def fetch(url: str) -> dict:
+            return rollup_mod.fetch_json(url.rstrip("/") + "/telemetry/snapshot",
+                                         timeout=self.replica_timeout_s,
+                                         transport=self.transport)
+
+        return rollup_mod.RollupPoller(
+            members=members, interval_s=interval_s, fetch=fetch,
+            local_members={"__router__": self._self_snapshot},
+            persist_path=self.config["ROLLUP_PERSIST_PATH"] or None,
+            retention=int(self.config["ROLLUP_RETENTION"] or 500),
+            name="router-rollup",
+        )
+
+    def _rollup_poller(self) -> rollup_mod.RollupPoller:
+        """The poller; without an interval, a threadless one made on the
+        first ``/status`` or ``/metrics``."""
+        with self._rollup_lock:
+            if self._rollup is None:
+                self._rollup = self._build_rollup(0.0)
+            return self._rollup
+
+    def _self_snapshot(self) -> dict:
+        """This router's own ``/telemetry/snapshot``, also its member of
+        the merge."""
+        replicas, _ = self.routing_view()
+        routable = [r for r in replicas if self.health.routable(r)]
+        return rollup_mod.snapshot_payload(
+            role="router",
+            status={"status": "ok" if routable else "no_replicas",
+                    "replicas": self.health.snapshot(), "routable": len(routable),
+                    "max_inflight": self.max_inflight},
+            registry=get_registry(),
+            started_at=self._started_at,
+        )
+
+    def _merged_snapshot(self) -> dict:
+        """The latest merge: the poller thread's, or one polled now."""
+        poller = self._rollup_poller()
+        merged = poller.merged()
+        if merged is None or poller.interval_s <= 0:
+            merged = poller.poll_once()
+        return merged
 
     # -- health probing --------------------------------------------------
     def _probe_loop(self, interval: float) -> None:
@@ -339,9 +420,6 @@ class RouterApp:
 
     @staticmethod
     def _match(method: str, path: str):
-        if path.rstrip("/") in UNPORTED_ROUTES:
-            return None, _json_response(
-                {"error": f"{path} is not ported yet (ROADMAP.md queue 1 item 9)"}, 404)
         allowed = False
         for route_method, pattern, view in _COMPILED_ROUTES:
             match = pattern.match(path)
@@ -409,6 +487,8 @@ class RouterApp:
     # -- admission control -------------------------------------------------
     def _admit(self) -> None:
         if not self._inflight.acquire(blocking=False):
+            get_registry().counter("gordo_router_sheds_total",
+                                   "Requests shed at the router's own admission door").inc()
             raise ApiError(
                 {
                     "error": "Router at max in-flight requests; retry later",
@@ -423,6 +503,19 @@ class RouterApp:
         elapsed = timeit.default_timer() - started
         with self._ema_lock:
             self._ema_request_s += 0.2 * (elapsed - self._ema_request_s)
+
+    @staticmethod
+    def _count_request(outcome: str) -> None:
+        get_registry().counter(
+            "gordo_router_requests_total",
+            "Routed prediction requests by outcome (ok/partial/shed/refused/error)",
+            ("outcome",),
+        ).inc(outcome=outcome)
+
+    @staticmethod
+    def _note_failover() -> None:
+        get_registry().counter("gordo_router_failovers_total",
+                               "Shard calls re-routed off their ring owner").inc()
 
     def _admitted(self, call, *args):
         self._admit()
@@ -513,6 +606,23 @@ class RouterApp:
 
     def view_server_version(self, ctx, request) -> Response:
         return _json_response({"version": __version__, "role": "router"})
+
+    def view_telemetry_snapshot(self, ctx, request) -> Response:
+        """This router's own registry and identity (the plane's merge is
+        ``/status`` and ``/metrics``: a rollup polling a router must not
+        merge a merge again)."""
+        return _json_response(self._self_snapshot())
+
+    def view_status(self, ctx, request) -> Response:
+        """The plane's status: each replica's health, load and breaker,
+        the control signals, the merge's errors (what ``top`` shows)."""
+        return _json_response(rollup_mod.plane_status(self._merged_snapshot()))
+
+    def view_metrics(self, ctx, request) -> Response:
+        """The merged registries in the Prometheus text format."""
+        merged = self._merged_snapshot()
+        return Response(rollup_mod.render_prometheus_text(merged.get("metrics") or {}).encode(),
+                        200, "text/plain")
 
     def view_replicas(self, ctx, request) -> Response:
         replicas, ring = self.routing_view()
@@ -617,12 +727,14 @@ class RouterApp:
         replicas, ring = self.routing_view()
         candidates, owner = self._candidates(gordo_name, ring, replicas)
         if not candidates:
+            self._count_request("partial")
             raise ApiError(self._transient_unavailable_payload(
                 {gordo_name: owner}, "every candidate replica is ejected"), 409)
         rid = candidates[0]
         headers = {"Content-Type": request.content_type} if request.content_type else {}
         if rid != owner:
             headers[ADOPT_HEADER] = "failover"
+            self._note_failover()
         params = ctx.forward_params(request)
         try:
             reply = self._replica_call(rid, replicas[rid], "POST", request.path, params=params,
@@ -634,10 +746,13 @@ class RouterApp:
                                            params=params, body=request.body,
                                            headers={**headers, ADOPT_HEADER: "failover"})
         except Exception as exc:
+            self._count_request("partial")
             raise ApiError(self._transient_unavailable_payload(
                 {gordo_name: owner}, f"routed replica {rid} failed ({exc})"), 409)
         # a replica's 503 passes through: its shed load is not sprayed on
         # its peers
+        self._count_request("ok" if reply.status < 400 else
+                            "shed" if reply.status == 503 else "refused")
         return self._passthrough(reply)
 
     # -- views: the fleet fan-out ------------------------------------------
@@ -675,6 +790,7 @@ class RouterApp:
         shards, owners, dead = self._route(machines, replicas, ring)
         if dead:
             # before any call: the client may post the rest again at once
+            self._count_request("partial")
             raise ApiError(self._transient_unavailable_payload(
                 dead, "every candidate replica is ejected"), 409)
         params = ctx.forward_params(request)
@@ -706,6 +822,8 @@ class RouterApp:
             return self._classify_shard_response(replica, reply)
 
         adopted = any(owners[m] != rid for m in group)
+        if adopted:
+            self._note_failover()
         backup = next((r for r in ring.preference(group[0])
                        if r in replicas and r != rid and self.health.routable(r)),
                       None) if self.hedge_s > 0 else None
@@ -735,6 +853,8 @@ class RouterApp:
                 return first.result(timeout=self.hedge_s)
             except FutureTimeout:
                 pass
+            get_registry().counter("gordo_router_hedges_total",
+                                   "Hedge requests fired for straggling shard calls").inc()
             pending = {first, pool.submit(attempt, backup, True)}
             last_exc, last_result = None, None
             while pending:
@@ -793,10 +913,12 @@ class RouterApp:
                 503,
             )
             response.headers["Retry-After"] = str(retry_after)
+            self._count_request("shed")
             return response
         refused = [r for r in results if r.kind == "refused"]
         if refused:
             first = sorted(refused, key=lambda r: r.replica)[0]
+            self._count_request("refused")
             return _json_response(first.payload, first.status)
         data: dict = {}
         casualties: Dict[str, dict] = {}
@@ -820,7 +942,9 @@ class RouterApp:
                 payload["transient"] = True
                 payload["retry_after_s"] = max(info.get("retry_after_s", 1.0)
                                                for info in casualties.values())
+            self._count_request("partial")
             raise ApiError(payload, 409)
+        self._count_request("ok")
         return _json_response({"data": data,
                                "time-seconds": f"{timeit.default_timer() - ctx.start:.4f}"})
 
@@ -861,6 +985,7 @@ class RouterApp:
         replicas, ring = self.routing_view()
         shards, owners, dead = self._route(names, replicas, ring)
         if dead:
+            self._count_request("partial")
             raise self._stream_resume_error("every candidate replica is ejected", dead,
                                             dead.values())
         params = ctx.forward_params(request)
@@ -880,6 +1005,7 @@ class RouterApp:
                 if reply.status == 503 or refused:
                     # a shed, or a refusal that would repeat: as it is
                     self._close_subs(subs, project, params)
+                    self._count_request("shed" if reply.status == 503 else "refused")
                     return self._passthrough(reply)
                 if reply.status >= 300:
                     raise IOError(f"replica {rid} refused stream open ({reply.status}): "
@@ -890,6 +1016,7 @@ class RouterApp:
                 merged.update(payload.get("machines") or {})
         except Exception as exc:
             self._close_subs(subs, project, params)
+            self._count_request("partial")
             raise self._stream_resume_error(f"stream open failed ({exc})", names, shards.keys())
         proxy = _StreamProxy(uuid.uuid4().hex[:16], list(names), subs, project, params)
         evicted: List[_StreamProxy] = []
@@ -904,6 +1031,7 @@ class RouterApp:
             self._streams[proxy.sid] = proxy
         for old in evicted:
             self._close_subs(old.subs, old.project, old.params)
+        self._count_request("ok")
         return _json_response({"session": proxy.sid, "machines": merged}, 201)
 
     def _close_subs(self, subs: List[dict], project: str, params) -> None:
@@ -961,6 +1089,7 @@ class RouterApp:
             # a replica died mid-stream: the breaker has the failure; this
             # session answers the resume contract
             proxy.stale = True
+            self._count_request("partial")
             raise self._stream_resume_error(f"replica failed mid-stream ({exc})", proxy.machines,
                                             [sub["rid"] for sub, _ in jobs])
         # every outcome is classified first: a sub that answered 200 has
@@ -985,15 +1114,19 @@ class RouterApp:
         if refused:
             if ok or lost:
                 proxy.stale = True
+            self._count_request("refused")
             return self._passthrough(sorted(refused, key=lambda pair: pair[0]["rid"])[0][1])
         if shed and not ok and not lost:
+            self._count_request("shed")
             return self._passthrough(shed[0][1])  # nothing committed: retry is exact
         if lost or shed:
             proxy.stale = True
+            self._count_request("partial")
             raise self._stream_resume_error(
                 "; ".join([f"replica {sub['rid']} {why}" for sub, why in lost]
                           + [f"replica {sub['rid']} shed mid-update" for sub, _ in shed]),
                 proxy.machines, [sub["rid"] for sub, _ in lost + shed])
+        self._count_request("ok")
         return _json_response({"session": proxy.sid, "scores": scores})
 
     def view_stream_close(self, ctx, request, gordo_project: str, stream_id: str) -> Response:
@@ -1030,6 +1163,9 @@ ENV_SETTINGS = {
     "HEDGE_MS": ("GORDO_ROUTER_HEDGE_MS", float),
     "REPLICA_TIMEOUT_S": ("GORDO_ROUTER_REPLICA_TIMEOUT_S", float),
     "MAX_INFLIGHT": ("GORDO_ROUTER_MAX_INFLIGHT", int),
+    "ROLLUP_INTERVAL_S": ("GORDO_ROLLUP_INTERVAL_S", float),
+    "ROLLUP_RETENTION": ("GORDO_ROLLUP_RETENTION", int),
+    "ROLLUP_PERSIST_PATH": ("GORDO_ROLLUP_PERSIST", str),
 }
 
 

@@ -14,8 +14,10 @@ of ``gordo_tpu.router.health``).
 
 Request outcomes drive it; the router's prober only shortens the
 ejected-to-probation leg, so the tracker works the same without one.
-The JAX tracker's Prometheus gauge and events are not ported
-(ROADMAP.md queue 1 item 9).
+``gordo_router_replica_healthy{replica}`` is 1 while a replica is
+routable and 0 while it is ejected, as the JAX tracker's gauge; a
+forgotten replica's series is removed. The JAX tracker's events are not
+ported (ROADMAP.md queue 1 item 9).
 """
 
 import random
@@ -23,6 +25,7 @@ import threading
 import time
 from typing import Callable, Dict, Iterable, Optional
 
+from gordo_tpu_torch.observability.registry import get_registry
 from gordo_tpu_torch.utils.utils import backoff_seconds
 
 HEALTHY = "healthy"
@@ -30,6 +33,15 @@ EJECTED = "ejected"
 PROBATION = "probation"
 #: the jitter fraction of the ejection windows
 RETRY_JITTER = 0.25
+
+
+def _healthy_gauge():
+    return get_registry().gauge(
+        "gordo_router_replica_healthy",
+        "1 while the router considers the replica routable "
+        "(healthy/probation), 0 while ejected",
+        ("replica",),
+    )
 
 
 class _ReplicaState:
@@ -61,19 +73,26 @@ class ReplicaHealthTracker:
         self._rng = rng if rng is not None else random.Random()
         self._lock = threading.Lock()
         self._states: Dict[str, _ReplicaState] = {r: _ReplicaState() for r in replicas}
+        gauge = _healthy_gauge()
+        for replica in self._states:
+            gauge.set(1, replica=replica)
 
     # -- membership ------------------------------------------------------
     def ensure(self, replicas: Iterable[str]) -> None:
         """Track new replica ids; known ones keep their state (re-adding a
         live replica must not close an open breaker)."""
         with self._lock:
-            for replica in replicas:
-                self._states.setdefault(replica, _ReplicaState())
+            fresh = [r for r in replicas if r not in self._states]
+            for replica in fresh:
+                self._states[replica] = _ReplicaState()
+        for replica in fresh:
+            _healthy_gauge().set(1, replica=replica)
 
     def forget(self, replica: str) -> None:
         """Drop a replica taken out of the membership."""
         with self._lock:
             self._states.pop(replica, None)
+        _healthy_gauge().remove(replica=replica)
 
     # -- queries ---------------------------------------------------------
     def state(self, replica: str) -> str:
@@ -81,8 +100,11 @@ class ReplicaHealthTracker:
             entry = self._states.get(replica)
             if entry is None:
                 return EJECTED
-            self._maybe_expire(entry)
-            return entry.state
+            flipped = self._maybe_expire(entry)
+            state = entry.state
+        if flipped:
+            _healthy_gauge().set(1, replica=replica)
+        return state
 
     def routable(self, replica: str) -> bool:
         """Healthy or on probation: the router may send it traffic."""
@@ -98,9 +120,11 @@ class ReplicaHealthTracker:
     def snapshot(self) -> Dict[str, dict]:
         """Each replica's state, for ``/healthz`` and ``/router/replicas``."""
         out: Dict[str, dict] = {}
+        flipped = []
         with self._lock:
             for replica, entry in self._states.items():
-                self._maybe_expire(entry)
+                if self._maybe_expire(entry):
+                    flipped.append(replica)
                 out[replica] = {
                     "state": entry.state,
                     "consecutive_failures": entry.consecutive_failures,
@@ -108,6 +132,8 @@ class ReplicaHealthTracker:
                     "retry_in_s": (round(max(0.0, entry.eject_until - self._now()), 3)
                                    if entry.state == EJECTED else 0.0),
                 }
+        for replica in flipped:
+            _healthy_gauge().set(1, replica=replica)
         return out
 
     def retry_after_s(self, replica: str) -> float:
@@ -126,11 +152,14 @@ class ReplicaHealthTracker:
                 return
             self._maybe_expire(entry)
             entry.consecutive_failures = 0
-            if entry.state in (PROBATION, EJECTED):
+            recovered = entry.state in (PROBATION, EJECTED)
+            if recovered:
                 # a success on an ejected replica (a probe racing its
                 # window, a hedge that landed) closes the breaker too
                 entry.state = HEALTHY
                 entry.ejections = 0
+        if recovered:
+            _healthy_gauge().set(1, replica=replica)
 
     def record_failure(self, replica: str) -> bool:
         """One failed call or probe; True when it ejected the replica."""
@@ -147,7 +176,8 @@ class ReplicaHealthTracker:
             entry.ejections += 1
             backoff = backoff_seconds(entry.ejections, jitter=RETRY_JITTER, rng=self._rng)
             entry.eject_until = self._now() + backoff * self.backoff_scale
-            return True
+        _healthy_gauge().set(0, replica=replica)
+        return True
 
     def note_probe(self, replica: str, ok: bool) -> None:
         """An active ``/healthz`` probe's outcome: a success moves an
@@ -160,10 +190,16 @@ class ReplicaHealthTracker:
             if entry is not None and entry.state == EJECTED and self._now() >= entry.eject_until:
                 entry.state = PROBATION
                 entry.consecutive_failures = 0
+        # probation is routable
+        if self.state(replica) == PROBATION:
+            _healthy_gauge().set(1, replica=replica)
 
-    def _maybe_expire(self, entry: _ReplicaState) -> None:
+    def _maybe_expire(self, entry: _ReplicaState) -> bool:
         """Ejected -> probation once the window passed, without a prober
-        (the caller holds the lock)."""
+        (the caller holds the lock); True when it flipped, so the caller
+        sets the gauge outside the lock."""
         if self.lazy_half_open and entry.state == EJECTED and self._now() >= entry.eject_until:
             entry.state = PROBATION
             entry.consecutive_failures = 0
+            return True
+        return False

@@ -95,18 +95,25 @@ from gordo_tpu_torch.observability.registry import get_registry
 from gordo_tpu_torch.server import batching
 from gordo_tpu_torch.server import utils as server_utils
 from gordo_tpu_torch.server.catalog import ADOPT_HEADER, ServingCatalog, ShardSpec
+from gordo_tpu_torch.server.model_io import get_model_output
 from gordo_tpu_torch.server.utils import ApiError
 from gordo_tpu_torch.streaming import session as stream_session
+from gordo_tpu_torch.tuning.profile import TunedOption, resolve_tuned_options
 
 logger = logging.getLogger(__name__)
 
 MODEL_COLLECTION_DIR_ENV_VAR = "MODEL_COLLECTION_DIR"
 EXPECTED_MODELS_ENV_VAR = "EXPECTED_MODELS"
-#: serving settings: (environment variable, type, default); an explicit
-#: argument of the app wins over the variable
-BATCH_WAIT_MS = ("GORDO_BATCH_WAIT_MS", float, 0.0)
-BATCH_QUEUE_LIMIT = ("GORDO_BATCH_QUEUE_LIMIT", int, 64)
-SCORER_CACHE_SIZE = ("GORDO_SCORER_CACHE_SIZE", int, 16)
+#: the serving settings a collection's tuning profile may default (the
+#: JAX server's): an explicit argument of the app, else the variable,
+#: else the profile, else the default
+SERVER_TUNED_OPTIONS = (
+    TunedOption("batch_wait_ms", "batch_wait_ms", "GORDO_BATCH_WAIT_MS", float, 0.0),
+    TunedOption("batch_queue_limit", "batch_queue_limit", "GORDO_BATCH_QUEUE_LIMIT", int, 64),
+    TunedOption("scorer_cache_size", "scorer_cache_size", "GORDO_SCORER_CACHE_SIZE", int, 16),
+)
+#: the other serving settings: (environment variable, type, default); an
+#: explicit argument of the app wins over the variable
 STREAM_MAX_SESSIONS = ("GORDO_STREAM_MAX_SESSIONS", int, stream_session.DEFAULT_MAX_SESSIONS)
 STREAM_MAX_BACKLOG = ("GORDO_STREAM_MAX_BACKLOG", int, stream_session.DEFAULT_MAX_BACKLOG)
 STREAM_IDLE_S = ("GORDO_STREAM_IDLE_S", float, stream_session.DEFAULT_IDLE_AFTER_S)
@@ -358,10 +365,15 @@ class GordoApp:
         self._models: Dict[Tuple[str, str], Any] = {}
         self._metadata: Dict[Tuple[str, str], dict] = {}
         self._lock = threading.Lock()
+        tuned = {"batch_wait_ms": batch_wait_ms, "batch_queue_limit": batch_queue_limit,
+                 "scorer_cache_size": scorer_cache_size}
+        #: the tuned settings the collection's profile gave: {knob: value}
+        self.tuning_applied = resolve_tuned_options(tuned, self.collection_dir,
+                                                    SERVER_TUNED_OPTIONS, subsystem="server")
         self.catalog = ServingCatalog(
-            scorer_cache_size=_setting(scorer_cache_size, SCORER_CACHE_SIZE),
-            batch_wait_s=_setting(batch_wait_ms, BATCH_WAIT_MS) / 1000.0,
-            batch_queue_limit=_setting(batch_queue_limit, BATCH_QUEUE_LIMIT),
+            scorer_cache_size=tuned["scorer_cache_size"],
+            batch_wait_s=tuned["batch_wait_ms"] / 1000.0,
+            batch_queue_limit=tuned["batch_queue_limit"],
             stream_max_sessions=_setting(stream_max_sessions, STREAM_MAX_SESSIONS),
             stream_max_backlog=_setting(stream_max_backlog, STREAM_MAX_BACKLOG),
             stream_idle_after_s=_setting(stream_idle_s, STREAM_IDLE_S),
@@ -830,7 +842,7 @@ class GordoApp:
         # the transfer and device seconds the estimator recorded
         inner_before = self._inner_seconds(ctx)
         try:
-            output = model.predict(X)
+            output = get_model_output(model, X)
         except ValueError as err:
             return _json_response({"error": f"ValueError: {err}"}, 400)
         except Exception:
@@ -1051,7 +1063,7 @@ class GordoApp:
                        if inputs else {})
             for name in names:
                 if name not in outputs:  # no port estimator: its own predict
-                    outputs[name] = self._get_model(served, name).predict(frames[name])
+                    outputs[name] = get_model_output(self._get_model(served, name), frames[name])
         except batching.BatchQueueFull:
             raise
         except ValueError as err:
@@ -1333,8 +1345,9 @@ def build_app(collection_dir: Optional[str] = None, device: DeviceLike = None,
     (else ``GORDO_BATCH_WAIT_MS``, ``GORDO_BATCH_QUEUE_LIMIT``,
     ``GORDO_SCORER_CACHE_SIZE``, ``GORDO_STREAM_MAX_SESSIONS``,
     ``GORDO_STREAM_MAX_BACKLOG``, ``GORDO_STREAM_IDLE_S``, else 0, 64, 16,
-    64, 8 and 30); ``shard_manifest`` and ``replica_id`` (else
-    ``GORDO_SHARD_MANIFEST`` and ``GORDO_REPLICA_ID``; unset: the whole
-    collection); ``enable_prometheus`` (else ``ENABLE_PROMETHEUS``, else
-    off)."""
+    64, 8 and 30; the first three take the collection's
+    ``tuning_profile.json`` before their default, ``tuning/profile.py``);
+    ``shard_manifest`` and ``replica_id`` (else ``GORDO_SHARD_MANIFEST``
+    and ``GORDO_REPLICA_ID``; unset: the whole collection);
+    ``enable_prometheus`` (else ``ENABLE_PROMETHEUS``, else off)."""
     return GordoApp(collection_dir, device, **settings)

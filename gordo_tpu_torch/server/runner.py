@@ -9,7 +9,8 @@ thread per connection; connections are kept alive between requests
 ``--batch-wait-ms``, ``--queue-limit`` and ``--scorer-cache-size`` set
 the fleet routes' dynamic batching and scorer cache (defaults: the
 ``GORDO_BATCH_WAIT_MS``, ``GORDO_BATCH_QUEUE_LIMIT`` and
-``GORDO_SCORER_CACHE_SIZE`` environment variables, else 0, 64 and 16;
+``GORDO_SCORER_CACHE_SIZE`` environment variables, else the collection's
+``tuning_profile.json``, else 0, 64 and 16;
 a wait of 0 turns batching off). ``--shard-manifest`` and
 ``--replica-id`` (``GORDO_SHARD_MANIFEST``, ``GORDO_REPLICA_ID``) serve
 one replica's shard of the collection (``server/app.py``).

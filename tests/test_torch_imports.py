@@ -1,7 +1,9 @@
 """
 The port stands alone: importing any of its modules loads neither JAX
-nor the JAX package, nor any library the card's machine lacks. The
-client's wire layer and the observability core load no torch either.
+nor the JAX package, nor anything under ``benchmarks/``, nor any library
+the card's machine lacks; neither does ``chip_smoke.py``. The client's
+wire layer, the observability core, the tuner and the plane's commands
+load no torch either.
 """
 
 import json
@@ -26,6 +28,7 @@ FORBIDDEN = [
     "requests",
     "prometheus_client",
     "influxdb",
+    "benchmarks",
 ]
 
 #: modules that need no torch: importing them alone loads none
@@ -44,6 +47,15 @@ TORCH_FREE = [
     "gordo_tpu_torch.robustness.faults",
     "gordo_tpu_torch.utils.http",
     "gordo_tpu_torch.cli.trace",
+    "gordo_tpu_torch.observability.slo",
+    "gordo_tpu_torch.tuning",
+    "gordo_tpu_torch.tuning.knobs",
+    "gordo_tpu_torch.tuning.corpus",
+    "gordo_tpu_torch.tuning.model",
+    "gordo_tpu_torch.tuning.profile",
+    "gordo_tpu_torch.tuning.calibrate",
+    "gordo_tpu_torch.cli.plane",
+    "gordo_tpu_torch.cli.tune",
 ]
 
 
@@ -104,6 +116,7 @@ def test_port_imports_no_jax_and_no_missing_libraries():
         "gordo_tpu_torch.server.prometheus.metrics",
         "gordo_tpu_torch.builder.ledger",
         "gordo_tpu_torch.cli.buckets",
+        "gordo_tpu_torch.server.model_io",
         *TORCH_FREE,
     } <= set(names)
     assert loaded == []
@@ -123,3 +136,22 @@ def test_the_client_wire_layer_and_observability_load_no_torch():
     for path in (REPO_ROOT / "gordo_tpu_torch" / "client").glob("*.py"):
         text = path.read_text()
         assert "import torch" not in text and "from torch" not in text, path.name
+
+
+def test_chip_smoke_imports_no_jax_no_jax_package_and_no_benchmarks():
+    """The smoke script, imported as a module (its main does not run),
+    loads none of them; nor does any line of it name them."""
+    script = (
+        "import importlib.util, json, sys\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"print(json.dumps([m for m in {FORBIDDEN!r} if m in sys.modules]))\n"
+    )
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT, capture_output=True,
+                            text=True, timeout=120, check=True)
+    assert json.loads(result.stdout.strip().splitlines()[-1]) == []
+    for line in (REPO_ROOT / "chip_smoke.py").read_text().splitlines():
+        stripped = line.strip()
+        if stripped.startswith(("import ", "from ")):
+            module = stripped.split()[1].split(".")[0]
+            assert module not in ("jax", "gordo_tpu", "benchmarks"), line

@@ -207,9 +207,13 @@ def test_models_metadata_and_download_through_the_router(plane, single, jax_plan
         "revision"]
     reply = p.router.dispatch("GET", f"/gordo/v0/{PROJECT}/{PUMPS[0]}/download-model")
     assert reply.status == 200 and reply.mimetype == "application/octet-stream"
-    for path in ("/metrics", "/status", "/telemetry/snapshot"):
+    # the plane's telemetry routes, ported since (tests/test_torch_rollup.py
+    # holds them to the JAX router's)
+    metrics = p.router.dispatch("GET", "/metrics")
+    assert metrics.status == 200 and b"gordo_router_replica_healthy" in metrics.body
+    for path, role in (("/status", "plane"), ("/telemetry/snapshot", "router")):
         status, got, _ = p.call("GET", path)
-        assert status == 404 and "ROADMAP.md queue 1 item 9" in got["error"]
+        assert status == 200 and got["role"] == role, path
 
 
 # -- failures ----------------------------------------------------------------
@@ -507,7 +511,9 @@ def test_run_router_usage_errors(monkeypatch, capsys):
                           (["--replica", "r0=http://h:1"], "--collection-dir is required"),
                           (["--replica", "r0"], "must be id=url"),
                           (["--replica", "r0=http://h:1", "--collection-dir", "/x",
-                            "--rollup-interval", "5"], "not ported yet")):
+                            "--rollup-interval", "-1"], "--rollup-interval must be >= 0"),
+                          (["--replica", "r0=http://h:1", "--collection-dir", "/x",
+                            "--rollup-retention", "0"], "--rollup-retention >= 1")):
         with pytest.raises(SystemExit) as exit_info:
             cli.main(["run-router", *args])
         assert exit_info.value.code == 2

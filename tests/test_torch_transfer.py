@@ -150,7 +150,10 @@ def test_build_fleet_prefetch_depth_2_is_taken_and_changes_no_bits(tmp_path, fle
                          "--prefetch-depth", depth])
         assert code == 0
     report = json.loads((tmp_path / "2" / "telemetry_report.json").read_text())
-    assert report["prefetch_depth"] == 2
+    # the depth shows in the transfer counts; the report states no
+    # prefetch_depth, as JAX's states none (the tuning corpus reads a
+    # stated knob as an arm)
+    assert "prefetch_depth" not in report
     assert report["transfers"] == {"build/prefetched": 9, "train/direct": 4}
     assert json.loads((tmp_path / "0" / "telemetry_report.json").read_text())["transfers"] == {}
     for name in ("transfer-pump-0", "transfer-pump-1", "transfer-pump-2"):
