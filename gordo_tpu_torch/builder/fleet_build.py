@@ -79,7 +79,7 @@ from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from datetime import datetime, timezone
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -174,7 +174,7 @@ class FleetModelBuilder:
     on_error
         ``"raise"`` or ``"skip"`` (see the module note).
     fetch_retries
-        Retries of a machine's fetch, with :func:`backoff_seconds` between.
+        Retries of a machine's fetch, with ``fetch_backoff`` between.
     fetch_timeout
         Seconds a machine's fetch (all attempts) may run; None waits.
     bucket_policy
@@ -191,6 +191,10 @@ class FleetModelBuilder:
         (``gordo_tpu_torch.parallel.precision``).
     precision_tolerance
         The calibration's relative MAE tolerance.
+    fetch_backoff
+        Seconds to sleep before retry ``attempt`` (1-based); None (the
+        default) is :func:`backoff_seconds`, the client's exponential
+        policy (a game day's throwaway fleet passes ``lambda attempt: 0.0``).
     prefetch_depth
         Host-to-device transfer pipelining depth (module note); 0, the
         default, copies as the builder always did.
@@ -213,6 +217,7 @@ class FleetModelBuilder:
         on_error: str = "raise",
         fetch_retries: int = 2,
         fetch_timeout: Optional[float] = None,
+        fetch_backoff: Optional[Callable[[int], float]] = None,
         bucket_policy: Any = "exact",
         device: DeviceLike = None,
         precision: str = "float32",
@@ -229,6 +234,7 @@ class FleetModelBuilder:
         self.on_error = on_error
         self.fetch_retries = max(0, int(fetch_retries))
         self.fetch_timeout = fetch_timeout
+        self.fetch_backoff = fetch_backoff if fetch_backoff is not None else backoff_seconds
         self._policy = get_policy(bucket_policy)
         self.bucket_policy = self._policy.name
         self.device = resolve_device(device)
@@ -272,7 +278,7 @@ class FleetModelBuilder:
             except Exception as exc:
                 if attempt >= attempts:
                     raise MachineFetchError(machine.name, attempt, exc) from exc
-                delay = backoff_seconds(attempt)
+                delay = self.fetch_backoff(attempt)
                 logger.warning(
                     "Data fetch for machine %s failed (attempt %d of %d): %r; retrying in %.1fs",
                     machine.name, attempt, attempts, exc, delay,

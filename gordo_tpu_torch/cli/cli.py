@@ -37,6 +37,7 @@ The port's command line (the counterpart of ``gordo_tpu.cli``'s
     python -m gordo_tpu_torch.cli slo check SPEC SNAPSHOT_OR_URL [--as-json]
     python -m gordo_tpu_torch.cli top STATUS_URL [--interval S] [--once] [--as-json]
     python -m gordo_tpu_torch.cli rollup --member ID=URL ... [--once] ...
+    python -m gordo_tpu_torch.cli gameday list|run [NAMES...] ... [--device cpu]
 
 ``build`` builds one machine (fetch and resample its dataset,
 cross-validate and derive the thresholds, fit) and writes the port's
@@ -126,8 +127,10 @@ models from a server or router with the port's client; ``trace``
 (``cli/trace.py``) summarizes and exports span logs; ``slo``, ``top`` and
 ``rollup`` (``cli/plane.py``) read a serving plane's merged telemetry;
 ``tune`` (``cli/tune.py``) fits a collection's tuning profile from its
-telemetry and measures a corpus with ``tune calibrate``. They parse
-their own options; only ``tune calibrate`` touches the card.
+telemetry and measures a corpus with ``tune calibrate``; ``gameday``
+(``cli/gameday.py``) runs fault timelines against an in-process plane.
+They parse their own options; only ``tune calibrate`` and ``gameday run``
+touch the card.
 """
 
 import argparse
@@ -933,7 +936,9 @@ def _parser() -> argparse.ArgumentParser:
                        ("slo", "check SLO specs against merged plane snapshots (cli/plane.py)"),
                        ("top", "live view of a plane's /status (cli/plane.py)"),
                        ("rollup", "poll, merge and serve plane members' snapshots "
-                                  "(cli/plane.py)")):
+                                  "(cli/plane.py)"),
+                       ("gameday", "run fault timelines against an in-process plane "
+                                   "(cli/gameday.py)")):
         command = commands.add_parser(name, add_help=False, help=text)
         command.add_argument("command_args", nargs=argparse.REMAINDER)
     return parser
@@ -968,6 +973,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         from gordo_tpu_torch.cli import tune
 
         return tune.main(argv[1:])
+    if argv[:1] == ["gameday"]:
+        from gordo_tpu_torch.cli import gameday
+
+        return gameday.main(argv[1:])
     if argv[:1] in (["slo"], ["top"], ["rollup"]):
         from gordo_tpu_torch.cli import plane
 

@@ -20,9 +20,14 @@ manager's entry points run on the card unless ``device="cpu"`` is given.
 
 Its events (``machine_drifted``, ``refit_rejected``,
 ``revision_promoted``, ``lifecycle_tick_finished``) are written to the
-event log. The JAX tick's tracing spans and its registry metrics wait for
-ROADMAP.md queue 1 item 9, and ``.lifecycle/last_tick.json`` carries an
-empty ``metrics`` block until then.
+event log, and its spans as the JAX tick's: ``lifecycle.tick`` over
+``lifecycle.drift``, ``lifecycle.refit``, ``lifecycle.shadow`` and
+``lifecycle.promote``. The registry carries
+``gordo_lifecycle_tick_seconds``, ``gordo_lifecycle_machines_total
+{outcome}`` (each drifted machine's decision) and
+``gordo_lifecycle_drifted_machines``; ``.lifecycle/last_tick.json`` is
+the tick's ``/telemetry/snapshot`` with the process registry in its
+``metrics`` block.
 """
 
 import dataclasses
@@ -56,7 +61,7 @@ from gordo_tpu_torch.lifecycle.refit import (
 from gordo_tpu_torch.machine import Machine
 from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
 from gordo_tpu_torch.models.utils import Frame
-from gordo_tpu_torch.observability import emit_event
+from gordo_tpu_torch.observability import emit_event, get_registry, tracing
 from gordo_tpu_torch.observability.events import EVENT_LOG_ENV_VAR
 from gordo_tpu_torch.robustness import faults
 from gordo_tpu_torch.server.utils import resolution_to_timedelta
@@ -67,10 +72,6 @@ logger = logging.getLogger(__name__)
 #: lifecycle state lives in a dot directory beside the revisions, never
 #: listed or selected as one
 STATE_DIRNAME = ".lifecycle"
-#: the version of the ``last_tick.json`` snapshot (the JAX plane's
-#: ``/telemetry/snapshot`` shape)
-SNAPSHOT_VERSION = 1
-_PROCESS_STARTED_AT = time.time()
 
 
 def parse_timestamp(text: str) -> datetime:
@@ -203,7 +204,8 @@ class LifecycleManager:
     # -- the cycle -----------------------------------------------------------
     def tick(self) -> TickResult:
         """One whole cycle (the module docstring)."""
-        result = self._tick()
+        with tracing.start_span("lifecycle.tick", pointer=self.pointer):
+            result = self._tick()
         self._persist_last_tick(result)
         return result
 
@@ -211,19 +213,12 @@ class LifecycleManager:
         """``.lifecycle/last_tick.json``, the tick's snapshot in the JAX
         plane's ``/telemetry/snapshot`` shape (``drift_scan_staleness_s``
         is read from it); a failed write never fails the tick."""
-        now = time.time()
-        payload = {
-            "snapshot_version": SNAPSHOT_VERSION,
-            "role": "lifecycle",
-            "replica_id": None,
-            "revision": result.revision or result.base_revision,
-            "pid": os.getpid(),
-            "uptime_s": max(0.0, now - _PROCESS_STARTED_AT),
-            "ts": time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(now)) + "Z",
-            "unix_ms": int(now * 1000),
-            # the metrics registry waits for ROADMAP.md queue 1 item 9
-            "metrics": {},
-            "status": {
+        from gordo_tpu_torch.observability import rollup
+
+        payload = rollup.snapshot_payload(
+            role="lifecycle",
+            revision=result.revision or result.base_revision,
+            status={
                 "last_tick_unix_ms": int(time.time() * 1000),
                 "base_revision": result.base_revision,
                 "revision": result.revision,
@@ -234,7 +229,7 @@ class LifecycleManager:
                 "n_quarantined": len(result.quarantined),
                 "wall_time_s": round(result.wall_time_s, 4),
             },
-        }
+        )
         try:
             atomic_write_json(os.path.join(self.state_dir, "last_tick.json"), payload,
                               default=str, trailing_newline=False)
@@ -263,70 +258,75 @@ class LifecycleManager:
         # cover this revision is assessed from them and skips the scan
         streamed_stats = self._consume_stream_observations(base_revision)
         streamed: Set[str] = set()
-        for name in sorted(streamed_stats):
-            if name not in names:
-                continue
-            stats = streamed_stats[name]
-            try:
-                assessment = self.monitor.observe_stats(
-                    name, ratio=stats["ratio"], exceedance=stats["exceedance"],
-                    revision=base_revision,
-                )
-            except ValueError as exc:
-                logger.warning("Lifecycle: stream observations for %s unusable (%s); machine "
-                               "falls back to the scan", name, exc)
-                continue
-            streamed.add(name)
-            monitored.append(name)
-            decisions[name] = {"decision": "retained", "reason": "no_drift", "source": "stream",
-                               "drift": assessment.to_dict()}
+        with tracing.start_span("lifecycle.drift", n_machines=len(names)):
+            for name in sorted(streamed_stats):
+                if name not in names:
+                    continue
+                stats = streamed_stats[name]
+                try:
+                    assessment = self.monitor.observe_stats(
+                        name, ratio=stats["ratio"], exceedance=stats["exceedance"],
+                        revision=base_revision,
+                    )
+                except ValueError as exc:
+                    logger.warning("Lifecycle: stream observations for %s unusable (%s); machine "
+                                   "falls back to the scan", name, exc)
+                    continue
+                streamed.add(name)
+                monitored.append(name)
+                decisions[name] = {"decision": "retained", "reason": "no_drift", "source": "stream",
+                                   "drift": assessment.to_dict()}
 
-        # metadata first (local, cheap), then the windows fetched in pooled
-        # chunks, each machine scored as its window lands: a model and its
-        # frames stay resident only while the machine is drifted. One
-        # machine's failure is recorded on it and the scan goes on.
-        scan_windows: Dict[str, dict] = {}
-        scan_failures: Dict[str, str] = {}
-        for name in names:
-            if name in streamed:
-                continue
-            meta = self._load_metadata(live_dir, name)
-            # loaded and dropped: a second local load is cheaper than the
-            # window fetch of a machine that cannot be monitored
-            if meta is None or self._load_monitorable(live_dir, name) is None:
-                decisions[name] = {"decision": "retained", "reason": "not_monitored"}
-                continue
-            machines_meta[name] = meta
-            try:
-                scan_windows[name] = self._machine_window(meta)
-            except Exception as exc:  # noqa: BLE001 - fault domain
-                scan_failures[name] = str(exc)
-        for name, data in self._iter_windows(scan_windows, machines_meta, scan_failures):
-            model = self._load_monitorable(live_dir, name)
-            if model is None:
-                scan_failures[name] = "artifact became unloadable during the scan"
-                continue
-            try:
-                assessment = self._score_one(name, model, data, base_revision,
-                                             machines_meta[name])
-            except Exception as exc:  # noqa: BLE001 - fault domain
-                scan_failures[name] = str(exc)
-                continue
-            monitored.append(name)
-            decisions[name] = {"decision": "retained", "reason": "no_drift",
-                               "drift": assessment.to_dict()}
-            if assessment.drifted:
-                live_models[name] = model
-                fetched[name] = data
-        for name in sorted(scan_failures):
-            logger.warning("Lifecycle: drift scan failed for %s (%s); machine retained this tick",
-                           name, scan_failures[name])
-            decisions[name] = {"decision": "retained", "reason": "drift_scan_failed",
-                               "error": scan_failures[name]}
+            # metadata first (local, cheap), then the windows fetched in pooled
+            # chunks, each machine scored as its window lands: a model and its
+            # frames stay resident only while the machine is drifted. One
+            # machine's failure is recorded on it and the scan goes on.
+            scan_windows: Dict[str, dict] = {}
+            scan_failures: Dict[str, str] = {}
+            for name in names:
+                if name in streamed:
+                    continue
+                meta = self._load_metadata(live_dir, name)
+                # loaded and dropped: a second local load is cheaper than the
+                # window fetch of a machine that cannot be monitored
+                if meta is None or self._load_monitorable(live_dir, name) is None:
+                    decisions[name] = {"decision": "retained", "reason": "not_monitored"}
+                    continue
+                machines_meta[name] = meta
+                try:
+                    scan_windows[name] = self._machine_window(meta)
+                except Exception as exc:  # noqa: BLE001 - fault domain
+                    scan_failures[name] = str(exc)
+            for name, data in self._iter_windows(scan_windows, machines_meta, scan_failures):
+                model = self._load_monitorable(live_dir, name)
+                if model is None:
+                    scan_failures[name] = "artifact became unloadable during the scan"
+                    continue
+                try:
+                    assessment = self._score_one(name, model, data, base_revision,
+                                                 machines_meta[name])
+                except Exception as exc:  # noqa: BLE001 - fault domain
+                    scan_failures[name] = str(exc)
+                    continue
+                monitored.append(name)
+                decisions[name] = {"decision": "retained", "reason": "no_drift",
+                                   "drift": assessment.to_dict()}
+                if assessment.drifted:
+                    live_models[name] = model
+                    fetched[name] = data
+            for name in sorted(scan_failures):
+                logger.warning("Lifecycle: drift scan failed for %s (%s); machine retained "
+                               "this tick", name, scan_failures[name])
+                decisions[name] = {"decision": "retained", "reason": "drift_scan_failed",
+                                   "error": scan_failures[name]}
         monitored.sort()
         self.monitor.save()
         self._commit_stream_cursor()
         drifted = [n for n in monitored if self.monitor.state(n).drifted]
+        get_registry().gauge(
+            "gordo_lifecycle_drifted_machines",
+            "Machines currently past a drift criterion (last tick)",
+        ).set(len(drifted))
 
         if not drifted:
             return self._finish(start, base_revision, names, monitored, drifted,
@@ -368,45 +368,49 @@ class LifecycleManager:
                                 revision_dir=None)
 
         window = {name: scan_windows[name] for name in drifted}
-        candidates, quarantine_records, refit_failures = self._refit(
-            drifted, machines_meta, window, live_models)
+        with tracing.start_span("lifecycle.refit", n_machines=len(drifted)):
+            candidates, quarantine_records, refit_failures = self._refit(
+                drifted, machines_meta, window, live_models)
 
         promoted: List[str] = []
         rejected: List[str] = []
         quarantined: List[str] = []
-        for name in drifted:
-            record = decisions[name]
-            record["drift"] = record.get("drift") or {}
-            if name in quarantine_records:
-                quarantined.append(name)
-                record.update(decision="quarantined", reason="refit_nonfinite",
-                              quarantine=quarantine_records[name])
-                continue
-            if name not in candidates:
-                record.update(decision="retained", reason="refit_failed",
-                              error=refit_failures.get(name))
-                continue
-            verdict = self._shadow_one(name, live_models[name], candidates[name][0],
-                                       fetched[name], window[name])
-            record["shadow"] = verdict.to_dict()
-            if verdict.promote:
-                promoted.append(name)
-                record.update(decision="promoted", reason="drifted_passed_shadow")
-            else:
-                rejected.append(name)
-                record.update(decision="retained", reason="shadow_rejected")
-                emit_event("refit_rejected", machine=name, live_score=verdict.live_score,
-                           candidate_score=verdict.candidate_score, tolerance=verdict.tolerance)
+        with tracing.start_span("lifecycle.shadow", n_machines=len(drifted)):
+            for name in drifted:
+                record = decisions[name]
+                record["drift"] = record.get("drift") or {}
+                if name in quarantine_records:
+                    quarantined.append(name)
+                    record.update(decision="quarantined", reason="refit_nonfinite",
+                                  quarantine=quarantine_records[name])
+                    continue
+                if name not in candidates:
+                    record.update(decision="retained", reason="refit_failed",
+                                  error=refit_failures.get(name))
+                    continue
+                verdict = self._shadow_one(name, live_models[name], candidates[name][0],
+                                           fetched[name], window[name])
+                record["shadow"] = verdict.to_dict()
+                if verdict.promote:
+                    promoted.append(name)
+                    record.update(decision="promoted", reason="drifted_passed_shadow")
+                else:
+                    rejected.append(name)
+                    record.update(decision="retained", reason="shadow_rejected")
+                    emit_event("refit_rejected", machine=name, live_score=verdict.live_score,
+                               candidate_score=verdict.candidate_score, tolerance=verdict.tolerance)
 
         revision_dir: Optional[str] = None
         if self.config.promote and (promoted or quarantined):
-            revision_dir = str(self._promote(live_dir, base_revision, decisions, candidates,
-                                             quarantine_records))
-            if self.config.repoint and os.path.islink(self.pointer):
-                promote_mod.repoint_latest(self.pointer, revision_dir)
-            # the new revision gives every machine a fresh baseline
-            self.monitor.reset()
-            self.monitor.save()
+            with tracing.start_span("lifecycle.promote", n_promoted=len(promoted),
+                                    n_quarantined=len(quarantined)):
+                revision_dir = str(self._promote(live_dir, base_revision, decisions,
+                                                 candidates, quarantine_records))
+                if self.config.repoint and os.path.islink(self.pointer):
+                    promote_mod.repoint_latest(self.pointer, revision_dir)
+                # the new revision gives every machine a fresh baseline
+                self.monitor.reset()
+                self.monitor.save()
 
         return self._finish(start, base_revision, names, monitored, drifted,
                             decisions=decisions, promoted=promoted, rejected=rejected,
@@ -606,6 +610,14 @@ class LifecycleManager:
     ) -> TickResult:
         wall = time.perf_counter() - start
         revision = os.path.basename(revision_dir) if revision_dir is not None else None
+        reg = get_registry()
+        reg.histogram("gordo_lifecycle_tick_seconds", "One whole lifecycle cycle").observe(wall)
+        counter = reg.counter("gordo_lifecycle_machines_total", "Lifecycle decisions by outcome",
+                              ("outcome",))
+        for name in drifted:
+            outcome = ("promoted" if name in promoted else "quarantined" if name in quarantined
+                       else "rejected" if name in rejected else "retained")
+            counter.inc(outcome=outcome)
         report = {
             "base_revision": base_revision,
             "revision": revision,

@@ -2,8 +2,8 @@
 Telemetry of the port (the counterpart of ``gordo_tpu.observability``):
 the structured JSONL event log (:mod:`.events`), the metrics registry
 (:mod:`.registry`) and its Prometheus text (:mod:`.prom_text`), tracing
-(:mod:`.tracing`), the phase ledger's server and train planes
-(:mod:`.attribution`), the card's memory watermarks
+(:mod:`.tracing`), the phase ledger's server, stream, train and router
+planes (:mod:`.attribution`), the card's memory watermarks
 (:mod:`.device_memory`), the fleet build's telemetry reports and
 ``telemetry summarize`` (:mod:`.report`), the serving plane's rollup
 (:mod:`.rollup`: the ``/telemetry/snapshot`` payload, the merge, the

@@ -30,9 +30,12 @@ accounts itself with :func:`record` on the ``train`` plane (``device``:
 the epoch's steps queued on the card; ``transfer``: the next epoch
 chunk's staged copy), as the JAX trainer records its dispatches.
 :func:`phase_totals` reads the accounting back from a registry
-snapshot (``telemetry summarize``'s ``phases`` section). The ``stream`` plane and the JAX package's sampling
-profiler hook (``GORDO_PROFILE_HZ``) are not ported (ROADMAP.md queue 1
-item 9); the ``plane`` label keeps the JAX vocabulary.
+snapshot (``telemetry summarize``'s ``phases`` section). A stream update
+has a ledger of its own on the ``stream`` plane
+(``streaming/session.py``), and a routed request one on the ``router``
+plane (``router/app.py``: the replicas' wait as ``queue``, the reply's
+re-stamp as ``serialize``). The JAX package's sampling profiler hook
+(``GORDO_PROFILE_HZ``) is not ported (ROADMAP.md queue 1 item 9).
 """
 
 import os

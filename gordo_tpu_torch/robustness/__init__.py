@@ -1,7 +1,8 @@
 """
 Per-machine fault domains (the port of ``gordo_tpu.robustness``): the
 fault-injection registry whose seams the fleet builder, the fleet
-trainer, checkpoints, the multi-worker ledger and the lifecycle read
+trainer, checkpoints, the multi-worker ledger, the server, the batcher,
+the router, the streams and the lifecycle read
 (:mod:`.faults`). The degradation paths
 themselves live where the work happens: the non-finite quarantine in
 ``parallel.fleet``, isolated fetch and build failures in
@@ -24,7 +25,9 @@ from .faults import (
     lease_stall,
     parse_spec,
     precision_degrade,
+    replica_fault_action,
     reset,
+    stream_fault_action,
     tear_checkpoint_files,
     train_nan_injection,
     worker_die,
@@ -45,7 +48,9 @@ __all__ = [
     "lease_stall",
     "parse_spec",
     "precision_degrade",
+    "replica_fault_action",
     "reset",
+    "stream_fault_action",
     "tear_checkpoint_files",
     "train_nan_injection",
     "worker_die",

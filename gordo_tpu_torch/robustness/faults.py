@@ -10,19 +10,24 @@ One spec is ``site:mode[:target][@key:value ...]``, the JAX grammar:
 
 - ``site``: where the seam lives. The port wires ``fetch`` (a machine's
   dataset fetch in the fleet builder), ``train`` (the fleet trainer's
-  epoch loss), ``ckpt`` (a fleet checkpoint's write), the lifecycle's
-  ``drift`` (the drift scan's fetched window), ``refit`` (the warm-start
-  refit) and ``promote`` (revision assembly), the multi-worker ledger's
-  ``worker`` (``worker:die:<stage>``: the worker process exits on the
-  spot at ``fetch``, ``train`` or ``commit``, scoped by ``@worker:<id>``
-  against ``GORDO_WORKER_ID``) and ``lease`` (``lease:stall:<worker-id>``:
-  the worker stops heartbeating without dying, so its lease is stolen
-  while it builds), and ``precision`` (``precision:degrade:<machine>``:
-  the machine's bf16 calibration is forced to fail, so it stays
-  float32). The JAX package's other sites (``serve``, ``batch``,
-  ``program``, ``replica``, ``stream``) have no seam in the port yet: a
-  spec naming one raises ``ValueError`` when it is parsed (ROADMAP.md
-  queue 1 item 9), so a chaos run never injects nothing in silence.
+  epoch loss), ``ckpt`` (a fleet checkpoint's write), ``serve`` (the
+  server's prediction routes: an injected fault answers 503), ``batch``
+  (the batcher's drainer: the request naming the machine fails alone,
+  its batch-mates are scored), the lifecycle's ``drift`` (the drift
+  scan's fetched window), ``refit`` (the warm-start refit) and
+  ``promote`` (revision assembly), the multi-worker ledger's ``worker``
+  (``worker:die:<stage>``: the worker process exits on the spot at
+  ``fetch``, ``train`` or ``commit``, scoped by ``@worker:<id>`` against
+  ``GORDO_WORKER_ID``) and ``lease`` (``lease:stall:<worker-id>``: the
+  worker stops heartbeating without dying, so its lease is stolen while
+  it builds), ``precision`` (``precision:degrade:<machine>``: the
+  machine's bf16 calibration is forced to fail, so it stays float32),
+  ``replica`` (the router's call to a replica, :func:`replica_fault_action`)
+  and ``stream`` (the top of a stream update, :func:`stream_fault_action`).
+  The JAX grammar's ``program`` site (the AOT executable store) stays out
+  of the port with ``programs/``: a spec naming it raises ``ValueError``
+  when it is parsed (ROADMAP.md queue 1 item 9), so a chaos run never
+  injects nothing in silence.
 - ``mode``: ``raise`` (the seam raises :class:`InjectedFault`), ``nan``
   (train/refit: the named machine's epoch loss goes NaN at
   ``@epoch:<e>``, which drives the trainer's quarantine guard),
@@ -32,12 +37,15 @@ One spec is ``site:mode[:target][@key:value ...]``, the JAX grammar:
   before shadow scoring; precision: the calibration fails), ``torn``
   (promote: revision assembly dies mid-copy and leaves its dot-prefixed
   staging directory; ckpt: the largest file of the checkpoint just
-  written is cut to half its size), ``die`` (worker) and ``stall``
-  (lease).
+  written is cut to half its size), ``die`` (worker, replica),
+  ``stall`` (lease, stream), ``slow`` and ``flap`` (replica), ``drop``
+  and ``burst`` (stream).
 - ``target``: a machine name (or a bare fleet index when the seam has no
   names); omitted means any machine at that site.
-- ``@key:value``: ``@epoch:E``, ``@scale:S``, and ``@attempts:N`` (fail
-  only the first N firings, then pass: the retry path).
+- ``@key:value``: ``@epoch:E``, ``@scale:S``, ``@ms:M`` (replica
+  ``slow``, stream ``stall``), ``@burst:K`` (replica ``flap``),
+  ``@rate:R`` (stream ``burst``), and ``@attempts:N`` (fail only the
+  first N firings, then pass: the retry path).
 
 Every firing emits a ``fault_injected`` event
 (:mod:`gordo_tpu_torch.observability.events`) and adds one to the
@@ -77,10 +85,12 @@ WORKER_ID_ENV_VAR = "GORDO_WORKER_ID"
 
 #: the sites whose seams the port has
 WIRED_SITES = frozenset(
-    {"fetch", "train", "ckpt", "drift", "refit", "promote", "worker", "lease", "precision"}
+    {"fetch", "train", "ckpt", "serve", "batch", "drift", "refit", "promote", "worker",
+     "lease", "precision", "replica", "stream"}
 )
-#: the JAX grammar's other sites: parsed only to be refused
-UNWIRED_SITES = frozenset({"serve", "batch", "program", "replica", "stream"})
+#: the JAX grammar's other site: parsed only to be refused (the AOT
+#: executable store stays out of the port with ``programs/``)
+UNWIRED_SITES = frozenset({"program"})
 
 
 class InjectedFault(RuntimeError):
@@ -135,9 +145,9 @@ def parse_spec(spec_string: str) -> List[FaultSpec]:
         site, mode = fields[0].strip(), fields[1].strip()
         if site in UNWIRED_SITES:
             raise ValueError(
-                f"Bad fault spec {raw!r}: site {site!r} has no seam in gordo_tpu_torch yet "
-                "(ROADMAP.md queue 1 item 9); the port wires "
-                f"{sorted(WIRED_SITES)}"
+                f"Bad fault spec {raw!r}: site {site!r} has no seam in gordo_tpu_torch: the "
+                "AOT program store (programs/) stays out of the port (ROADMAP.md queue 1 "
+                f"item 9); the port wires {sorted(WIRED_SITES)}"
             )
         if site not in WIRED_SITES:
             raise ValueError(
@@ -178,12 +188,18 @@ class FaultRegistry:
         with self._lock:
             spec.fires += 1
             count = spec.fires
-        get_registry().counter(
-            "gordo_fault_fired_total", "Chaos fault firings by injection site", ("site",),
-        ).inc(site=spec.site)
+        _count_fired(spec.site)
         emit_event("fault_injected", site=spec.site, mode=spec.mode, target=spec.target,
                    fire_count=count, **fields)
         return count
+
+
+def _count_fired(site: str) -> None:
+    """One more ``gordo_fault_fired_total{site}``: the event's twin in the
+    registry, which a game day reads as deltas."""
+    get_registry().counter(
+        "gordo_fault_fired_total", "Chaos fault firings by injection site", ("site",),
+    ).inc(site=site)
 
 
 #: spec string -> registry (the fire counts live on its specs)
@@ -435,6 +451,104 @@ def lease_stall(worker_id: Union[str, int]) -> bool:
     if spec.fires == 0:
         registry.fire(spec, worker=str(worker_id))
     return True
+
+
+def _param_float(spec: FaultSpec, key: str, default: float) -> float:
+    try:
+        return float(spec.params.get(key, default))
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"Fault spec parameter @{key} must be a number, got {spec.params.get(key)!r}"
+        )
+
+
+def replica_fault_action(replica_id: str) -> Optional[Tuple[str, float]]:
+    """
+    The routing seam (site ``replica``), asked by the router just before
+    each call to a replica (and each ``/healthz`` probe). What the call
+    suffers, or None:
+
+    - ``replica:die:<id>``: ``("die", 0)``, a refused connection as the
+      router sees a killed process; ``@attempts:N`` bounds it to the first
+      N calls (then the replica is back).
+    - ``replica:slow:<id>@ms:<m>``: ``("slow", seconds)``, the router
+      sleeps that long before the send (default 1000 ms); ``@attempts:N``
+      bounds it.
+    - ``replica:flap:<id>[@burst:<k>]``: ``("die", 0)`` for ``k``
+      consecutive calls, then None for ``k``, over and over (default 3,
+      the ejection threshold): ejection and recovery again and again.
+
+    Each suffered call fires a ``fault_injected`` event (a flap's failing
+    calls only; every call advances its cadence).
+    """
+    registry = active_registry()
+    if registry is None:
+        return None
+    for mode in ("die", "slow", "flap"):
+        spec = registry.find("replica", str(replica_id), mode)
+        if spec is None:
+            continue
+        if mode == "flap":
+            burst = max(1, spec.param_int("burst", 3))
+            with registry._lock:
+                spec.fires += 1
+                count = spec.fires
+            if ((count - 1) // burst) % 2 == 1:
+                return None
+            _count_fired("replica")
+            emit_event("fault_injected", site="replica", mode="flap", target=spec.target,
+                       fire_count=count, replica=replica_id)
+            return ("die", 0.0)
+        if spec.exhausted():
+            continue
+        if mode == "slow":
+            ms = _param_float(spec, "ms", 1000.0)
+            registry.fire(spec, replica=replica_id, ms=ms)
+            return ("slow", ms / 1000.0)
+        registry.fire(spec, replica=replica_id)
+        return ("die", 0.0)
+    return None
+
+
+def stream_fault_action(machine_names) -> Optional[Tuple[str, float]]:
+    """
+    The streaming seam (site ``stream``), asked by the server at the top
+    of each stream update, matched against the session's machines (a spec
+    with no target matches every session). What the update suffers, or
+    None:
+
+    - ``stream:drop:<machine>``: ``("drop", 0)``, the server forgets the
+      session first, so the update answers the resume 409 and the client
+      replays its window tail; ``@attempts:N`` bounds it.
+    - ``stream:stall:<machine>@ms:<m>``: ``("stall", seconds)``, the
+      update sleeps that long before it is scored (default 250 ms).
+    - ``stream:burst:<machine>@rate:<r>``: ``("burst", r)``, the update
+      counts as ``r`` arrivals against the session's backlog bound
+      (default 8), which drives the shed (503 with ``Retry-After``).
+
+    Each suffered update fires a ``fault_injected`` event.
+    """
+    registry = active_registry()
+    if registry is None:
+        return None
+    names = list(machine_names)
+    for mode, default in (("drop", 0.0), ("stall", 250.0), ("burst", 8.0)):
+        spec = next((s for s in registry.specs
+                     if s.site == "stream" and s.mode == mode
+                     and (s.target is None or s.target in names)), None)
+        if spec is None or spec.exhausted():
+            continue
+        if mode == "stall":
+            value = _param_float(spec, "ms", default) / 1000.0
+            registry.fire(spec, machines=names, ms=value * 1000.0)
+        elif mode == "burst":
+            value = _param_float(spec, "rate", default)
+            registry.fire(spec, machines=names, rate=value)
+        else:
+            value = 0.0
+            registry.fire(spec, machines=names)
+        return (mode, value)
+    return None
 
 
 def tear_checkpoint_files(step_dir: Union[str, os.PathLike]) -> bool:

@@ -42,9 +42,22 @@ serve a shard of one collection (``run-server --shard-manifest``).
 The router holds no model and needs no card: it reads the collection's
 directory and build report (``CollectionView``) and calls the replicas
 with ``utils/http.py``'s ``HttpTransport``, over keep-alive connections
-kept per replica (the rollup's snapshot fetches too). The JAX router's
-``replica:`` fault grammar, events and tracing spans are not ported
-(ROADMAP.md queue 1 item 9).
+kept per replica (the rollup's snapshot fetches too).
+
+- Observability, as the JAX router's: each request but the probe paths
+  runs under a ``router.request`` span parented on its ``traceparent``,
+  each replica call under a ``router.fanout`` span (``router.failover``
+  off an ejected owner; a hedge's copy carries ``hedge``), whose context
+  rides the call's ``traceparent``; every reply echoes the trace id in
+  ``X-Gordo-Trace-Id``. The router plane of the phase ledger times the
+  replicas' wait as ``queue`` and the reply's re-stamp as ``serialize``
+  (``gordo_phase_seconds{plane="router"}``). A membership swap writes a
+  ``router_membership_changed`` event, each shard routed off its owner a
+  ``shard_failover`` one, and the breaker ``replica_ejected`` and
+  ``replica_recovered``.
+- The ``replica`` fault site (``robustness/faults.py``) is asked before
+  each replica call and probe: ``die`` fails the call as a refused
+  connection does, ``slow`` sleeps before the send.
 """
 
 import json
@@ -62,8 +75,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from urllib.parse import parse_qs, urlencode
 
 from gordo_tpu_torch import __version__, serializer
+from gordo_tpu_torch.observability import attribution, emit_event, tracing
 from gordo_tpu_torch.observability import rollup as rollup_mod
 from gordo_tpu_torch.observability.registry import get_registry
+from gordo_tpu_torch.robustness import faults
 from gordo_tpu_torch.router.health import ReplicaHealthTracker
 from gordo_tpu_torch.router.ring import DEFAULT_VNODES, HashRing
 from gordo_tpu_torch.server.app import (
@@ -167,8 +182,9 @@ def _json_response(payload: dict, status: int = 200) -> Response:
 
 
 class _Ctx:
-    """A request's revision: the served directory, its name, and the
-    revision the caller pinned (forwarded to every replica call)."""
+    """A request's revision (the served directory, its name, and the
+    revision the caller pinned, forwarded to every replica call), its
+    trace id and its router-plane phase ledger."""
 
     def __init__(self):
         self.start = timeit.default_timer()
@@ -176,6 +192,8 @@ class _Ctx:
         self.current_revision = ""
         self.revision = ""
         self.requested_revision = ""
+        self.trace_id = ""
+        self.ledger = attribution.ledger_for("router")
 
     def forward_params(self, request: Request) -> dict:
         params = dict(request.args)
@@ -287,11 +305,17 @@ class RouterApp:
             previous = set(self._replicas)
             self._replicas = dict(replicas)
             self._ring = ring
-        for rid in sorted(previous - set(replicas)):
+        removed = sorted(previous - set(replicas))
+        for rid in removed:
             self.health.forget(rid)
+        n_streams = 0
         with self._streams_lock:
             for proxy in self._streams.values():
-                proxy.stale = True
+                if not proxy.stale:
+                    proxy.stale = True
+                    n_streams += 1
+        emit_event("router_membership_changed", added=sorted(set(replicas) - previous),
+                   removed=removed, n_replicas=len(replicas), n_streams_drained=n_streams)
         logger.info("Router membership: %s", sorted(replicas))
 
     def close(self) -> None:
@@ -365,9 +389,12 @@ class RouterApp:
         replicas, _ = self.routing_view()
         for rid, base_url in replicas.items():
             if self.health.probe_due(rid):
-                self.health.note_probe(rid, self._probe_replica(base_url))
+                self.health.note_probe(rid, self._probe_replica(rid, base_url))
 
-    def _probe_replica(self, base_url: str) -> bool:
+    def _probe_replica(self, rid: str, base_url: str) -> bool:
+        action = faults.replica_fault_action(rid)
+        if action is not None and action[0] == "die":
+            return False
         try:
             reply = self.transport.request("GET", f"{base_url}/healthz",
                                            timeout=min(3.0, self.replica_timeout_s))
@@ -396,12 +423,30 @@ class RouterApp:
                                 *response.headers.items()])
         return [response.body]
 
+    #: probes and telemetry: no span, no ledger (a trace id is still echoed)
+    _TRACE_EXEMPT_PATHS = frozenset({"/healthcheck", "/healthz", "/metrics", "/status",
+                                     "/telemetry/snapshot"})
+
     def dispatch(self, method: str, path: str, body: bytes = b"", query_string: str = "",
                  headers: Optional[Dict[str, str]] = None) -> Response:
         request = Request(method, path, body, query_string, headers)
         ctx = _Ctx()
+        incoming = tracing.parse_traceparent(request.headers.get(tracing.TRACEPARENT_HEADER))
+        if path in self._TRACE_EXEMPT_PATHS:
+            ctx.trace_id = incoming.trace_id if incoming is not None else ""
+            ctx.ledger = attribution.NOOP_LEDGER
+            return self._dispatch_traced(ctx, request, tracing.NOOP_SPAN)
+        with tracing.start_span("router.request", parent=incoming, method=method,
+                                path=path) as span:
+            ctx.trace_id = span.trace_id or (incoming.trace_id if incoming is not None else "")
+            # the replica calls on this thread record their wait here
+            with ctx.ledger.activate():
+                return self._dispatch_traced(ctx, request, span)
+
+    def _dispatch_traced(self, ctx: _Ctx, request: Request, span) -> Response:
+        view = None
         try:
-            view, url_args = self._match(method, path)
+            view, url_args = self._match(request.method, request.path)
             if view is None:
                 response = url_args
             else:
@@ -416,6 +461,10 @@ class RouterApp:
             logger.error("Unhandled router error:\n%s", traceback.format_exc())
             response = _json_response({"error": "Something unexpected happened in the router"},
                                       500)
+        span.set_attribute("endpoint", view or "unmatched")
+        span.set_attribute("status_code", response.status)
+        if response.status >= 500:
+            span.set_status("error")
         return self._finalize(ctx, response)
 
     @staticmethod
@@ -459,29 +508,35 @@ class RouterApp:
 
     @staticmethod
     def _finalize(ctx: _Ctx, response: Response) -> Response:
-        """The server's revision stamp on the body and header, and the
-        router's own Server-Timing entry after the replica's. A replica's
-        JSON reply that carries the ``revision`` header has the stamp in
-        its body too (the server sets both), so only one without is read
-        again."""
-        if ctx.revision and response.payload is not None:
-            response.payload.setdefault("revision", ctx.revision)
-        elif (ctx.revision and response.mimetype == "application/json"
-              and "revision" not in response.headers):
-            try:
-                data = json.loads(response.body or b"null")
-                if isinstance(data, dict) and "revision" not in data:
-                    data["revision"] = ctx.revision
-                    response.body = json.dumps(data).encode()
-            except ValueError:
-                pass
+        """The server's revision stamp on the body and header (timed as
+        the ledger's ``serialize``), the router's own Server-Timing entry
+        after the replica's, and the trace id. A replica's JSON reply that
+        carries the ``revision`` header has the stamp in its body too (the
+        server sets both), so only one without is read again."""
+        if ctx.revision:
+            with ctx.ledger.phase("serialize"):
+                if response.payload is not None:
+                    response.payload.setdefault("revision", ctx.revision)
+                elif (response.mimetype == "application/json"
+                      and "revision" not in response.headers):
+                    try:
+                        data = json.loads(response.body or b"null")
+                        if isinstance(data, dict) and "revision" not in data:
+                            data["revision"] = ctx.revision
+                            response.body = json.dumps(data).encode()
+                    except ValueError:
+                        pass
         if response.payload is not None:
             response.body = json.dumps(response.payload, default=str).encode()
         if ctx.revision:
             response.headers.setdefault("revision", ctx.revision)
-        entry = f"router_total;dur={(timeit.default_timer() - ctx.start) * 1000.0:.2f}"
+        runtime_s = timeit.default_timer() - ctx.start
+        ctx.ledger.finish(span=tracing.current_span(), wall_s=runtime_s)
+        entry = f"router_total;dur={runtime_s * 1000.0:.2f}"
         existing = response.headers.get("Server-Timing")
         response.headers["Server-Timing"] = f"{existing}, {entry}" if existing else entry
+        if ctx.trace_id:
+            response.headers[tracing.TRACE_ID_RESPONSE_HEADER] = ctx.trace_id
         return response
 
     # -- admission control -------------------------------------------------
@@ -513,9 +568,11 @@ class RouterApp:
         ).inc(outcome=outcome)
 
     @staticmethod
-    def _note_failover() -> None:
+    def _note_failover(from_replica: str, to_target: str, n_machines: int) -> None:
         get_registry().counter("gordo_router_failovers_total",
                                "Shard calls re-routed off their ring owner").inc()
+        emit_event("shard_failover", from_replica=from_replica, target=to_target,
+                   n_machines=n_machines)
 
     def _admitted(self, call, *args):
         self._admit()
@@ -550,22 +607,42 @@ class RouterApp:
             )
 
     def _replica_call(self, rid: str, base_url: str, method: str, path: str, params=None,
-                      body: Optional[bytes] = None, headers=None) -> Reply:
-        """One call to a replica, its outcome recorded in the breaker: a
-        transport error (raised) and a 5xx other than 503 count against
-        it."""
-        url = f"{base_url}{path}" + (f"?{urlencode(params)}" if params else "")
-        try:
-            reply = self.transport.request(method, url, body=body, headers=dict(headers or {}),
-                                           timeout=self.replica_timeout_s)
-        except Exception:
-            self.health.record_failure(rid)
-            raise
-        if reply.status >= 500 and reply.status != 503:
-            self.health.record_failure(rid)
-        else:
-            self.health.record_success(rid)
-        return reply
+                      body: Optional[bytes] = None, headers=None,
+                      span_name: str = "router.fanout", span_attrs: Optional[dict] = None,
+                      parent_ctx=None) -> Reply:
+        """One call to a replica under its span, through the ``replica``
+        fault site, its outcome recorded in the breaker: a transport error
+        (raised) and a 5xx other than 503 count against it. Its wait is
+        the request ledger's ``queue`` (a no-op on a fan-out worker, whose
+        caller times the whole fan-out)."""
+        with tracing.start_span(span_name, parent=parent_ctx, replica=rid,
+                                **(span_attrs or {})) as span:
+            action = faults.replica_fault_action(rid)
+            if action is not None:
+                if action[0] == "die":
+                    self.health.record_failure(rid)
+                    span.set_status("error")
+                    raise ConnectionRefusedError(f"injected replica death: {rid}")
+                time.sleep(action[1])  # slow
+            url = f"{base_url}{path}" + (f"?{urlencode(params)}" if params else "")
+            send_headers = dict(headers or {})
+            send_headers.update(tracing.propagation_headers(span))
+            t_wait = time.perf_counter()
+            try:
+                reply = self.transport.request(method, url, body=body, headers=send_headers,
+                                               timeout=self.replica_timeout_s)
+            except Exception:
+                self.health.record_failure(rid)
+                span.set_status("error")
+                raise
+            finally:
+                attribution.record_current("queue", time.perf_counter() - t_wait)
+            if reply.status >= 500 and reply.status != 503:
+                self.health.record_failure(rid)
+            else:
+                self.health.record_success(rid)
+            span.set_attribute("status_code", reply.status)
+            return reply
 
     @staticmethod
     def _passthrough(reply: Reply) -> Response:
@@ -706,10 +783,17 @@ class RouterApp:
                 503,
             )
         rid = candidates[0]
+        adopted = rid != owner
+        if adopted:
+            self._note_failover(owner, gordo_name, 1)
         try:
-            reply = self._replica_call(rid, replicas[rid], "GET", request.path,
-                                       params=ctx.forward_params(request),
-                                       headers={ADOPT_HEADER: "failover"} if rid != owner else None)
+            reply = self._replica_call(
+                rid, replicas[rid], "GET", request.path, params=ctx.forward_params(request),
+                headers={ADOPT_HEADER: "failover"} if adopted else None,
+                span_name="router.failover" if adopted else "router.fanout",
+                span_attrs=({"from_replica": owner, "machine": gordo_name} if adopted
+                            else {"machine": gordo_name}),
+                parent_ctx=tracing.current_context())
         except Exception as exc:
             raise ApiError(
                 {"error": f"Replica {rid} failed for machine '{gordo_name}': {exc}",
@@ -731,20 +815,27 @@ class RouterApp:
             raise ApiError(self._transient_unavailable_payload(
                 {gordo_name: owner}, "every candidate replica is ejected"), 409)
         rid = candidates[0]
+        adopted = rid != owner
         headers = {"Content-Type": request.content_type} if request.content_type else {}
-        if rid != owner:
+        if adopted:
             headers[ADOPT_HEADER] = "failover"
-            self._note_failover()
+            self._note_failover(owner, gordo_name, 1)
         params = ctx.forward_params(request)
         try:
-            reply = self._replica_call(rid, replicas[rid], "POST", request.path, params=params,
-                                       body=request.body, headers=headers)
+            reply = self._replica_call(
+                rid, replicas[rid], "POST", request.path, params=params, body=request.body,
+                headers=headers, span_name="router.failover" if adopted else "router.fanout",
+                span_attrs=({"from_replica": owner, "machine": gordo_name} if adopted
+                            else {"machine": gordo_name}),
+                parent_ctx=tracing.current_context())
             if reply.status == 421:
                 # the replica's manifest and the router's differ (a
                 # membership change one side has not seen): adopt once
-                reply = self._replica_call(rid, replicas[rid], "POST", request.path,
-                                           params=params, body=request.body,
-                                           headers={**headers, ADOPT_HEADER: "failover"})
+                reply = self._replica_call(
+                    rid, replicas[rid], "POST", request.path, params=params,
+                    body=request.body, headers={**headers, ADOPT_HEADER: "failover"},
+                    span_attrs={"machine": gordo_name, "adopt_retry": True},
+                    parent_ctx=tracing.current_context())
         except Exception as exc:
             self._count_request("partial")
             raise ApiError(self._transient_unavailable_payload(
@@ -793,37 +884,57 @@ class RouterApp:
             self._count_request("partial")
             raise ApiError(self._transient_unavailable_payload(
                 dead, "every candidate replica is ejected"), 409)
+        # routing off an ejected owner is the failover, recorded for each
+        # true owner whose machines a successor took
+        for rid, group in sorted(shards.items()):
+            moved: Dict[str, int] = {}
+            for name in group:
+                if owners[name] != rid:
+                    moved[owners[name]] = moved.get(owners[name], 0) + 1
+            for owner, n_moved in sorted(moved.items()):
+                self._note_failover(owner, rid, n_moved)
         params = ctx.forward_params(request)
         ordered = sorted(shards.items())
-        args = (owners, machines, request, params, replicas, ring)
+        args = (owners, machines, request, params, replicas, ring, tracing.current_context())
         if len(ordered) == 1:
             results = [self._call_shard(*ordered[0], *args)]
         else:
+            # the whole fan-out's wait is this thread's ``queue``
+            t_wait = time.perf_counter()
             with ThreadPoolExecutor(max_workers=len(ordered)) as pool:
                 futures = [pool.submit(self._call_shard, rid, group, *args)
                            for rid, group in ordered]
                 results = [f.result() for f in futures]
+            attribution.record_current("queue", time.perf_counter() - t_wait)
         return self._join_fleet_results(ctx, ordered, owners, results)
 
     def _call_shard(self, rid: str, group: List[str], owners, machines, request, params,
-                    replicas, ring) -> _ShardResult:
+                    replicas, ring, parent_ctx=None) -> _ShardResult:
         """One shard's call to its routed replica (hedged when
         ``HEDGE_MS`` is set). A transport failure is not retried elsewhere
         within the request: it feeds the breaker and the shard's machines
         come back as named transient casualties."""
         body = json.dumps({"machines": {name: machines[name] for name in group}}).encode()
+        failover_from = next((owners[m] for m in group if owners[m] != rid), None)
 
-        def attempt(replica: str, adopted: bool) -> _ShardResult:
+        def attempt(replica: str, adopted: bool, hedge: bool = False) -> _ShardResult:
             headers = {"Content-Type": "application/json"}
             if adopted:
                 headers[ADOPT_HEADER] = "failover"
-            reply = self._replica_call(replica, replicas[replica], "POST", request.path,
-                                       params=params, body=body, headers=headers)
+            from_owner = failover_from if replica == rid else rid
+            attrs: dict = {"n_machines": len(group)}
+            if adopted and not hedge and from_owner:
+                attrs["from_replica"] = from_owner
+            if hedge:
+                attrs["hedge"] = True
+            reply = self._replica_call(
+                replica, replicas[replica], "POST", request.path, params=params, body=body,
+                headers=headers,
+                span_name="router.failover" if adopted and not hedge else "router.fanout",
+                span_attrs=attrs, parent_ctx=parent_ctx)
             return self._classify_shard_response(replica, reply)
 
-        adopted = any(owners[m] != rid for m in group)
-        if adopted:
-            self._note_failover()
+        adopted = failover_from is not None
         backup = next((r for r in ring.preference(group[0])
                        if r in replicas and r != rid and self.health.routable(r)),
                       None) if self.hedge_s > 0 else None
@@ -847,6 +958,8 @@ class RouterApp:
         first ok answer wins (predictions are idempotent), the other is
         left to finish in the background."""
         pool = ThreadPoolExecutor(max_workers=2)
+        # both copies run on the pool: the wait is this thread's ``queue``
+        t_wait = time.perf_counter()
         try:
             first = pool.submit(attempt, primary, adopted)
             try:
@@ -855,7 +968,7 @@ class RouterApp:
                 pass
             get_registry().counter("gordo_router_hedges_total",
                                    "Hedge requests fired for straggling shard calls").inc()
-            pending = {first, pool.submit(attempt, backup, True)}
+            pending = {first, pool.submit(attempt, backup, True, True)}
             last_exc, last_result = None, None
             while pending:
                 done, pending = futures_wait(pending, return_when=FIRST_COMPLETED)
@@ -871,6 +984,7 @@ class RouterApp:
                 return last_result
             raise last_exc
         finally:
+            attribution.record_current("queue", time.perf_counter() - t_wait)
             pool.shutdown(wait=False)
 
     @staticmethod
@@ -989,17 +1103,22 @@ class RouterApp:
             raise self._stream_resume_error("every candidate replica is ejected", dead,
                                             dead.values())
         params = ctx.forward_params(request)
+        parent_ctx = tracing.current_context()
         subs: List[dict] = []
         merged: dict = {}
         try:
             for rid, group in sorted(shards.items()):
                 headers = {"Content-Type": "application/json"}
-                if any(owners[m] != rid for m in group):
+                adopted = any(owners[m] != rid for m in group)
+                if adopted:
                     headers[ADOPT_HEADER] = "failover"
+                for owner in sorted({owners[m] for m in group if owners[m] != rid}):
+                    self._note_failover(owner, rid, sum(1 for m in group if owners[m] == owner))
                 reply = self._replica_call(
                     rid, replicas[rid], "POST", f"/gordo/v0/{project}/stream/open", params=params,
                     body=json.dumps({"machines": {m: spec[m] for m in group}}).encode(),
-                    headers=headers)
+                    headers=headers, span_name="router.failover" if adopted else "router.fanout",
+                    span_attrs={"n_machines": len(group), "stream": True}, parent_ctx=parent_ctx)
                 refused = reply.status in (400, 404, 410, 422) or (
                     reply.status == 409 and not (self._body_of(reply) or {}).get("transient"))
                 if reply.status == 503 or refused:
@@ -1040,7 +1159,7 @@ class RouterApp:
             try:
                 self._replica_call(sub["rid"], sub["url"], "POST",
                                    f"/gordo/v0/{project}/stream/{sub['sid']}/close",
-                                   params=params)
+                                   params=params, span_attrs={"stream": True})
             except Exception:  # cleanup only
                 pass
 
@@ -1068,6 +1187,7 @@ class RouterApp:
     def _stream_fanout(self, ctx, request, project: str, proxy: _StreamProxy, updates: dict
                        ) -> Response:
         params = ctx.forward_params(request)
+        parent_ctx = tracing.current_context()
         jobs = [(sub, {m: updates[m] for m in sub["machines"] if m in updates})
                 for sub in proxy.subs]
         jobs = [(sub, payload) for sub, payload in jobs if payload]
@@ -1076,15 +1196,18 @@ class RouterApp:
             return self._replica_call(
                 sub["rid"], sub["url"], "POST", f"/gordo/v0/{project}/stream/{sub['sid']}/update",
                 params=params, body=json.dumps({"updates": payload}).encode(),
-                headers={"Content-Type": "application/json"})
+                headers={"Content-Type": "application/json"},
+                span_attrs={"n_machines": len(payload), "stream": True}, parent_ctx=parent_ctx)
 
         try:
             if len(jobs) == 1:
                 results = [(jobs[0][0], call(*jobs[0]))]
             else:
+                t_wait = time.perf_counter()
                 with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
                     futures = [(sub, pool.submit(call, sub, payload)) for sub, payload in jobs]
                     results = [(sub, f.result()) for sub, f in futures]
+                attribution.record_current("queue", time.perf_counter() - t_wait)
         except Exception as exc:
             # a replica died mid-stream: the breaker has the failure; this
             # session answers the resume contract

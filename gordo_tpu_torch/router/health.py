@@ -16,8 +16,11 @@ Request outcomes drive it; the router's prober only shortens the
 ejected-to-probation leg, so the tracker works the same without one.
 ``gordo_router_replica_healthy{replica}`` is 1 while a replica is
 routable and 0 while it is ejected, as the JAX tracker's gauge; a
-forgotten replica's series is removed. The JAX tracker's events are not
-ported (ROADMAP.md queue 1 item 9).
+forgotten replica's series is removed. An ejection writes a
+``replica_ejected`` event (``via`` a request or a probe, the consecutive
+failures, the window's seconds), and the success that closes the breaker
+a ``replica_recovered`` one; a probe's success only moves the replica to
+probation, so the recovery waits for real traffic.
 """
 
 import random
@@ -25,6 +28,7 @@ import threading
 import time
 from typing import Callable, Dict, Iterable, Optional
 
+from gordo_tpu_torch.observability.events import emit_event
 from gordo_tpu_torch.observability.registry import get_registry
 from gordo_tpu_torch.utils.utils import backoff_seconds
 
@@ -145,7 +149,7 @@ class ReplicaHealthTracker:
             return max(0.0, entry.eject_until - self._now())
 
     # -- transitions -----------------------------------------------------
-    def record_success(self, replica: str) -> None:
+    def record_success(self, replica: str, via: str = "request") -> None:
         with self._lock:
             entry = self._states.get(replica)
             if entry is None:
@@ -160,8 +164,9 @@ class ReplicaHealthTracker:
                 entry.ejections = 0
         if recovered:
             _healthy_gauge().set(1, replica=replica)
+            emit_event("replica_recovered", replica=replica, via=via)
 
-    def record_failure(self, replica: str) -> bool:
+    def record_failure(self, replica: str, via: str = "request") -> bool:
         """One failed call or probe; True when it ejected the replica."""
         with self._lock:
             entry = self._states.get(replica)
@@ -174,16 +179,20 @@ class ReplicaHealthTracker:
                 return False
             entry.state = EJECTED
             entry.ejections += 1
-            backoff = backoff_seconds(entry.ejections, jitter=RETRY_JITTER, rng=self._rng)
-            entry.eject_until = self._now() + backoff * self.backoff_scale
+            failures = entry.consecutive_failures
+            backoff = backoff_seconds(entry.ejections, jitter=RETRY_JITTER,
+                                      rng=self._rng) * self.backoff_scale
+            entry.eject_until = self._now() + backoff
         _healthy_gauge().set(0, replica=replica)
+        emit_event("replica_ejected", replica=replica, via=via, consecutive_failures=failures,
+                   backoff_s=round(backoff, 3))
         return True
 
     def note_probe(self, replica: str, ok: bool) -> None:
         """An active ``/healthz`` probe's outcome: a success moves an
         expired ejection to probation (real traffic has the last word)."""
         if not ok:
-            self.record_failure(replica)
+            self.record_failure(replica, via="probe")
             return
         with self._lock:
             entry = self._states.get(replica)

@@ -59,7 +59,16 @@ nothing. A request's phase ledger (``observability/attribution.py``;
 ``GET /metrics`` writes the request metrics and the process registry in
 the Prometheus text format (``server/prometheus/metrics.py``); else it
 answers 404. ``GET /telemetry/snapshot`` is the registry's versioned
-snapshot with the ``/healthz`` status (``observability/rollup.py``).
+snapshot with the ``/healthz`` status (``observability/rollup.py``). The
+``serve`` fault site (``robustness/faults.py``) is asked on every
+prediction route for each machine named, and a firing answers 503 with
+``Fault injection: ...``, as a ``batch`` firing in the batcher does; the
+``stream`` site at the top of each update (``drop``: the session is
+forgotten and the update answers the resume 409; ``stall``: the update
+sleeps; ``burst``: the update weighs as several against the backlog).
+Streams write ``stream_opened``, ``stream_resumed``, ``stream_closed``
+and ``stream_update_shed`` events and run under ``stream.session`` and
+``stream.update`` spans; a ``latest`` roll writes ``revision_rolled``.
 
 A sharded replica (``shard_manifest``, ``GORDO_SHARD_MANIFEST``; its id
 ``replica_id``, ``GORDO_REPLICA_ID``) serves the consistent-hash share of
@@ -90,8 +99,9 @@ from gordo_tpu_torch.data.sensor_tag import tag_names
 from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.utils import make_base_dataframe
 from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
-from gordo_tpu_torch.observability import attribution, prom_text, rollup, tracing
+from gordo_tpu_torch.observability import attribution, emit_event, prom_text, rollup, tracing
 from gordo_tpu_torch.observability.registry import get_registry
+from gordo_tpu_torch.robustness import faults
 from gordo_tpu_torch.server import batching
 from gordo_tpu_torch.server import utils as server_utils
 from gordo_tpu_torch.server.catalog import ADOPT_HEADER, ServingCatalog, ShardSpec
@@ -481,11 +491,14 @@ class GordoApp:
             )
             response.headers["Retry-After"] = str(exc.retry_after_s)
         except stream_session.StreamShed as exc:
+            stream_session.count_update("shed")
+            emit_event("stream_update_shed", retry_after_s=exc.retry_after_s)
             response = _json_response({"error": str(exc), "retry_after_s": exc.retry_after_s},
                                       503)
             response.headers["Retry-After"] = str(exc.retry_after_s)
         except stream_session.StreamGone as exc:
             # the reconnect contract: the client replays its window tail
+            stream_session.count_update("resume_required")
             response = _json_response(
                 {
                     "error": str(exc),
@@ -495,6 +508,10 @@ class GordoApp:
                 },
                 409,
             )
+        except faults.InjectedFault as exc:
+            # the ``serve`` and ``batch`` fault sites: a 503 that a chaos
+            # run tells apart from a real server error
+            response = _json_response({"error": f"Fault injection: {exc}"}, 503)
         except Exception:
             logger.error("Unhandled server error:\n%s", traceback.format_exc())
             response = _json_response(
@@ -579,6 +596,9 @@ class GordoApp:
             "gordo_server_revision_rolls_total",
             "Hot promotions observed by this server (latest symlink flips)",
         ).inc()
+        emit_event("revision_rolled", previous=os.path.basename(previous),
+                   current=os.path.basename(latest_real), n_batchers_stopped=n_stopped,
+                   n_streams_expired=n_streams)
         logger.info(
             "Revision rolled: now serving %s as latest (was %s); %d stale batcher(s) stopped, "
             "%d stream session(s) expired", latest_real, previous, n_stopped, n_streams,
@@ -833,6 +853,7 @@ class GordoApp:
         ctx = read_body.ctx
         self._refuse_unavailable(served, [gordo_name])
         self._refuse_wrong_shard(read_body, [gordo_name])
+        faults.inject("serve", gordo_name)
         model = self._get_model(served, gordo_name, ctx)
         tags, target_tags, X, _ = self._extract(
             read_body, self._get_metadata(served, gordo_name)
@@ -877,6 +898,7 @@ class GordoApp:
         ctx = read_body.ctx
         self._refuse_unavailable(served, [gordo_name])
         self._refuse_wrong_shard(read_body, [gordo_name])
+        faults.inject("serve", gordo_name)
         model = self._get_model(served, gordo_name, ctx)
         metadata = self._get_metadata(served, gordo_name)
         _, _, X, y = self._extract(read_body, metadata)
@@ -1052,6 +1074,8 @@ class GordoApp:
         names = tuple(sorted(machines))
         self._refuse_unavailable(served, names)
         self._refuse_wrong_shard(read_body, names)
+        for name in names:
+            faults.inject("serve", name)
         servable, (scorer, prefixes, fallback) = self._fleet_scorer(served, names, ctx)
         parsed = self._fleet_inputs(served, names, machines, prefixes, fallback, False, ctx)
         if isinstance(parsed, Response):
@@ -1064,8 +1088,8 @@ class GordoApp:
             for name in names:
                 if name not in outputs:  # no port estimator: its own predict
                     outputs[name] = get_model_output(self._get_model(served, name), frames[name])
-        except batching.BatchQueueFull:
-            raise
+        except (batching.BatchQueueFull, faults.InjectedFault):
+            raise  # structured 503s, not input errors
         except ValueError as err:
             return _json_response({"error": f"ValueError: {err}"}, 400)
         except Exception:
@@ -1108,6 +1132,8 @@ class GordoApp:
         names = tuple(sorted(machines))
         self._refuse_unavailable(served, names)
         self._refuse_wrong_shard(read_body, names)
+        for name in names:
+            faults.inject("serve", name)
         models = {name: self._get_model(served, name, ctx) for name in names}
         non_anomaly = [n for n, m in models.items() if not isinstance(m, DiffBasedAnomalyDetector)]
         if non_anomaly:
@@ -1140,8 +1166,8 @@ class GordoApp:
                     )
                 with ctx.ledger.phase("serialize"):
                     data[name] = server_utils.dataframe_to_dict(frame)
-        except batching.BatchQueueFull:
-            raise
+        except (batching.BatchQueueFull, faults.InjectedFault):
+            raise  # structured 503s, not input errors
         except ValueError as err:
             return _json_response({"error": f"ValueError: {err}"}, 400)
         except Exception:
@@ -1219,44 +1245,56 @@ class GordoApp:
                 },
                 422,
             )
-        streams: Dict[str, stream_session.MachineStream] = {}
-        for name in names:
-            geometry = scorer.machine_geometry(name)
-            transform = self._stream_transform(prefixes.get(name, []))
-            stream = stream_session.MachineStream(
-                name,
-                lookback=geometry["lookback"],
-                lookahead=geometry["lookahead"],
-                n_features=geometry["n_features"],
-                transform=transform,
-                scaler=getattr(models[name], "scaler", None),
-                threshold=getattr(models[name], "aggregate_threshold_", None),
-                device=self.device,
-            )
-            resume = spec[name].get("resume")
-            if resume:
-                rows = np.asarray(resume.get("rows") or [], dtype="float64")
-                if len(rows) and rows.shape[-1] != geometry["n_features"]:
-                    return _json_response(
-                        {
-                            "error": f"Machine {name!r} resume rows carry {rows.shape[-1]} "
-                            f"feature column(s), expected {geometry['n_features']}"
-                        },
-                        400,
-                    )
-                stream.window.resume(
-                    transform(rows) if len(rows) else rows.reshape(0, geometry["n_features"]),
-                    int(resume.get("seq", 0)),
+        with tracing.start_span("stream.session", n_machines=len(names)) as span:
+            streams: Dict[str, stream_session.MachineStream] = {}
+            resumed = []
+            for name in names:
+                geometry = scorer.machine_geometry(name)
+                transform = self._stream_transform(prefixes.get(name, []))
+                stream = stream_session.MachineStream(
+                    name,
+                    lookback=geometry["lookback"],
+                    lookahead=geometry["lookahead"],
+                    n_features=geometry["n_features"],
+                    transform=transform,
+                    scaler=getattr(models[name], "scaler", None),
+                    threshold=getattr(models[name], "aggregate_threshold_", None),
+                    device=self.device,
                 )
-            streams[name] = stream
-        session = stream_session.StreamSession(
-            stream_session.StreamSession.new_id(),
-            os.path.realpath(served.directory),
-            served.name,
-            streams,
-            max_backlog=self.catalog.streams.max_backlog,
-        )
-        self.catalog.streams.open(session)  # StreamShed: 503
+                resume = spec[name].get("resume")
+                if resume:
+                    rows = np.asarray(resume.get("rows") or [], dtype="float64")
+                    if len(rows) and rows.shape[-1] != geometry["n_features"]:
+                        return _json_response(
+                            {
+                                "error": f"Machine {name!r} resume rows carry "
+                                f"{rows.shape[-1]} feature column(s), expected "
+                                f"{geometry['n_features']}"
+                            },
+                            400,
+                        )
+                    stream.window.resume(
+                        transform(rows) if len(rows)
+                        else rows.reshape(0, geometry["n_features"]),
+                        int(resume.get("seq", 0)),
+                    )
+                    resumed.append(name)
+                streams[name] = stream
+            session = stream_session.StreamSession(
+                stream_session.StreamSession.new_id(),
+                os.path.realpath(served.directory),
+                served.name,
+                streams,
+                max_backlog=self.catalog.streams.max_backlog,
+            )
+            self.catalog.streams.open(session)  # StreamShed: 503
+            span.set_attribute("session", session.id)
+            span.set_attribute("resumed", bool(resumed))
+        emit_event("stream_opened", session=session.id, machines=list(names),
+                   revision=served.name, resumed=bool(resumed))
+        if resumed:
+            emit_event("stream_resumed", session=session.id, machines=resumed,
+                       revision=served.name)
         return _json_response(
             {
                 "session": session.id,
@@ -1290,6 +1328,18 @@ class GordoApp:
             # the served revision moved: never score old windows with new weights
             self.catalog.streams.close(stream_id)
             raise stream_session.StreamGone("revision_rolled", session.names)
+        burst_weight = 1
+        action = faults.stream_fault_action(session.names)
+        if action is not None:
+            mode, value = action
+            if mode == "drop":
+                self.catalog.streams.close(stream_id)
+                stream_session.emit_closed(session, "chaos_drop")
+                raise stream_session.StreamGone("dropped", session.names)
+            if mode == "stall":
+                time.sleep(value)
+            elif mode == "burst":
+                burst_weight = max(1, int(value))
         body = self._json_body(read_body)
         updates = body.get("updates") if isinstance(body, dict) else None
         if not isinstance(updates, dict) or not updates:
@@ -1300,24 +1350,29 @@ class GordoApp:
                 return _json_response(
                     {"error": f"Update for machine {name!r} must carry 'rows'."}, 400
                 )
-        session.admit()  # StreamShed: 503
+        session.admit(burst_weight)  # StreamShed: 503
         try:
             servable, (scorer, _, _) = self._fleet_scorer(served, session.names, read_body.ctx)
-            try:
-                results = session.apply_update(
-                    updates,
-                    dispatch=lambda inputs: self._fleet_predict(served, servable, scorer, inputs,
-                                                                read_body.ctx),
-                )
-            except (KeyError, ValueError) as err:
-                return _json_response({"error": str(err)}, 400)
-            except stream_session.StreamGone:
-                # a gap ends this session: drop it now, so it neither holds
-                # its windows nor sheds the reconnect that replaces it
-                self.catalog.streams.close(stream_id)
-                raise
+            with tracing.start_span("stream.update", session=stream_id,
+                                    n_machines=len(updates)) as span:
+                try:
+                    results = session.apply_update(
+                        updates,
+                        dispatch=lambda inputs: self._fleet_predict(
+                            served, servable, scorer, inputs, read_body.ctx),
+                    )
+                except (KeyError, ValueError) as err:
+                    return _json_response({"error": str(err)}, 400)
+                except stream_session.StreamGone:
+                    # a gap ends this session: drop it now, so it neither
+                    # holds its windows nor sheds the reconnect that
+                    # replaces it
+                    self.catalog.streams.close(stream_id)
+                    raise
+                span.set_attribute("transferred_rows", session.last_transfer_rows)
+                span.set_attribute("resident_rows", session.last_resident_rows)
         finally:
-            session.release()
+            session.release(burst_weight)
         return _json_response({"session": session.id, "scores": results})
 
     def view_stream_close(
@@ -1325,6 +1380,8 @@ class GordoApp:
     ) -> Response:
         """Close a session; closing an unknown or expired one succeeds too."""
         session = self.catalog.streams.close(stream_id)
+        if session is not None:
+            stream_session.emit_closed(session, "client")
         return _json_response({"session": stream_id, "closed": session is not None})
 
 

@@ -18,7 +18,9 @@ take the queue past ``queue_limit`` is shed at once with
 
 A batch is not a fault domain: when a coalesced call raises, each of its
 requests is run again alone, so only the failing requests' futures
-carry an error.
+carry an error. The ``batch`` fault site (``batch:raise:<machine>``,
+``robustness/faults.py``) is asked for each request's machines before
+the coalesced call forms: a firing fails that request's future alone.
 
 The JAX batcher's series are recorded in the process registry under its
 names (``gordo_serve_batch_queue_depth``, ``_requests``,
@@ -26,9 +28,8 @@ names (``gordo_serve_batch_queue_depth``, ``_requests``,
 ``_fallbacks_total``). A coalesced dispatch is one ``server.batch`` span
 naming its requests' trace ids, whose ids ride back on each request;
 its ``transform``, ``transfer`` and ``device`` seconds ride back too,
-for each request's phase ledger. Left out: fault injection (the
-``batch:`` site) and the ``request_shed`` event (ROADMAP.md queue 1
-item 9).
+for each request's phase ledger. A shed writes a ``request_shed`` event
+(queue depth, limit, ``Retry-After``) outside the lock.
 """
 
 import collections
@@ -38,8 +39,9 @@ import threading
 import time
 from typing import Any, Deque, Dict, List, Optional
 
-from gordo_tpu_torch.observability import attribution, tracing
+from gordo_tpu_torch.observability import attribution, emit_event, tracing
 from gordo_tpu_torch.observability.registry import get_registry
+from gordo_tpu_torch.robustness import faults
 
 logger = logging.getLogger(__name__)
 
@@ -189,7 +191,11 @@ class RequestBatcher:
                 _adjust_depth(1)
                 self._arrived.notify_all()
         if shed is not None:
+            # the metric and the event outside the lock: a shed storm must
+            # not queue the drainer behind an event-log write
             _metrics()["shed"].inc()
+            emit_event("request_shed", queue_depth=shed.queue_depth,
+                       queue_limit=shed.queue_limit, retry_after_s=shed.retry_after_s)
             raise shed
         # the drainer sets every future it pops, so this loops only if the
         # drainer thread itself died
@@ -264,6 +270,19 @@ class RequestBatcher:
             pending.event.set()
 
     def _dispatch_batch(self, batch: List[Pending], metrics: Dict[str, Any]) -> None:
+        # the per-request fault seam: a firing fails that future alone,
+        # before the coalesced call forms
+        live: List[Pending] = []
+        for pending in batch:
+            try:
+                for name in pending.inputs:
+                    faults.inject("batch", name)
+                live.append(pending)
+            except BaseException as exc:  # noqa: BLE001 - to its future
+                pending.error = exc
+        if not live:
+            return
+        batch = live
         # the drainer has no request ledger: a collector takes the
         # dispatch's transfer and device seconds (and the host remainder
         # as transform) and hands them to each request's

@@ -23,17 +23,25 @@ forward. Windowed models get raw rows and gather their windows on the
 device. Host prefix transformers (scalers) run per machine before this,
 in the server.
 
-A stream's update (``streaming/window.py``) is an entry like a one-shot
-request's array: its context stays on the device and only its new rows
+A row-wise (unwindowed) group pads its rows to at least
+``MIN_ROWWISE_ROWS``, so a stream's few rows and a whole window's score
+bitwise alike. A stream's update (``streaming/window.py``) is an entry
+like a one-shot request's array: its context stays on the device and only its new rows
 are copied, so a batch holding one is assembled on the device.
 
 A dispatch gives its request's phase ledger (``observability/
 attribution.py``) its ``transfer`` (assembly and the copy to the device)
 and ``device`` (the forward, to the outputs' copy to the host) seconds.
 
+Each forward is observed in the JAX scorer's series:
+``gordo_serve_group_latency_seconds{windowed}`` (its wall time, host to
+device to host), ``gordo_serve_group_batch_size{windowed}`` (entries on
+its machine axis) and ``gordo_serve_machines_scored_total{windowed}``.
+
 Left out, because the TPU-era scorer does them for XLA: AOT executables
-and their program store and buffer donation (ROADMAP.md queue 1 item 9),
-and the scorer's registry series (``gordo_serve_group_*``).
+and their program store (with the ``program.compile`` span and the
+``program_cache_export`` event), and buffer donation (ROADMAP.md queue 1
+item 9).
 """
 
 import threading
@@ -49,6 +57,7 @@ from torch.func import functional_call, vmap
 from gordo_tpu_torch.models.core import BaseTorchEstimator, first_output
 from gordo_tpu_torch.models.specs import cast
 from gordo_tpu_torch.observability import attribution
+from gordo_tpu_torch.observability.registry import get_registry
 from gordo_tpu_torch.parallel.precision import cast_params
 
 #: floor on the entries of one forward when requests are coalesced; a
@@ -56,8 +65,31 @@ from gordo_tpu_torch.parallel.precision import cast_params
 MIN_DISPATCH_ENTRIES = 64
 #: the repeated single-machine weight copies a group keeps
 REPEAT_CACHE_SIZE = 128
+#: floor on the row bucket of a row-wise (unwindowed) group: a stream's
+#: few rows must score bitwise as the same rows inside a whole-window
+#: request, and on the CPU ATen computes a batched product of under 400
+#: multiply-adds a matrix in a loop of its own, whose sums round apart
+#: from the BLAS path that larger requests take
+MIN_ROWWISE_ROWS = 512
 
 Tensors = Dict[str, torch.Tensor]
+
+
+def _observe_dispatch(seconds: float, n_entries: int, windowed: str) -> None:
+    """One forward in the JAX scorer's three series."""
+    reg = get_registry()
+    reg.histogram(
+        "gordo_serve_group_latency_seconds",
+        "One vmapped fleet-scoring dispatch (host->device->host)", ("windowed",),
+    ).observe(seconds, windowed=windowed)
+    reg.histogram(
+        "gordo_serve_group_batch_size", "Machines scored per fleet dispatch", ("windowed",),
+        buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
+    ).observe(n_entries, windowed=windowed)
+    reg.counter(
+        "gordo_serve_machines_scored_total", "Machines scored through the fleet path",
+        ("windowed",),
+    ).inc(n_entries, windowed=windowed)
 
 
 def pow2_bucket(n: int) -> int:
@@ -234,10 +266,15 @@ class FleetScorer:
                 if name in inputs
             ]
             chunk = max(MIN_DISPATCH_ENTRIES, len(group["names"]))
+            windowed = "true" if group["windowed"] else "false"
             for start in range(0, len(entries), chunk):
                 sub = entries[start : start + chunk]
-                for (ridx, name, _), value in zip(sub, self._predict_entries(group, sub)):
+                began = time.perf_counter()
+                results = self._predict_entries(group, sub)
+                elapsed = time.perf_counter() - began
+                for (ridx, name, _), value in zip(sub, results):
                     out[ridx][name] = value
+                _observe_dispatch(elapsed, len(sub), windowed)
         return out
 
     def _prepare(self, group: dict, entries):
@@ -290,6 +327,8 @@ class FleetScorer:
         else:
             n_rows = [len(x) for x in prepared]
         max_rows = pow2_bucket(max(len(x) for x in prepared))
+        if not group["windowed"]:
+            max_rows = max(max_rows, MIN_ROWWISE_ROWS)
         if on_device:
             batch = torch.stack([F.pad(x, (0, 0, 0, max_rows - len(x))) for x in prepared])
         else:

@@ -32,10 +32,17 @@ written after the session's lock is released; a lifecycle tick
 aggregates them into the statistic a drift scan computes
 (``gordo_tpu_torch.lifecycle.manager``).
 
-Left out until ROADMAP.md queue 1 item 9: the attribution ledger,
-tracing spans, the other events and the metrics registry of the JAX
-sessions, and their chaos sites. The session's own counters, which
-:meth:`StreamSession.stats` and ``/healthz`` read, are kept.
+The JAX sessions' telemetry: an update runs under a ``stream``-plane
+phase ledger (``parse``, ``transform``, the dispatch's ``queue``,
+``transfer`` and ``device``, ``postprocess``, ``serialize``), whose phases
+go into ``gordo_phase_seconds{plane="stream"}``, onto the ``stream.update``
+span as child spans, and back into the request's server ledger; the
+registry carries ``gordo_stream_sessions``, ``gordo_stream_updates_total
+{outcome}``, ``gordo_stream_update_seconds`` and ``gordo_stream_update_rows
+{kind}``; a session leaving the table writes ``stream_closed`` with its
+reason (``client``, ``evicted``, ``revision_rolled``, ``chaos_drop``).
+The session's own counters, which :meth:`StreamSession.stats` and
+``/healthz`` read, are kept beside them.
 """
 
 import logging
@@ -50,7 +57,8 @@ import numpy as np
 import torch
 
 from gordo_tpu_torch.device import DeviceLike, resolve_device
-from gordo_tpu_torch.observability import emit_event
+from gordo_tpu_torch.observability import attribution, emit_event, tracing
+from gordo_tpu_torch.observability.registry import get_registry
 from gordo_tpu_torch.parallel import transfer
 from gordo_tpu_torch.streaming.window import MachineWindow, SequenceGap, WindowUpdate
 
@@ -107,15 +115,51 @@ def device_headroom(device: DeviceLike = None) -> Optional[float]:
     return free / total if total else None
 
 
-def evict_lru(cache: Dict, bound: int, headroom: Callable[[], Optional[float]]) -> None:
+def evict_lru(cache: Dict, bound: int, headroom: Callable[[], Optional[float]]) -> List[tuple]:
     """Drop the oldest entries of an insertion-ordered dict: none while
     the device reports headroom above the floor, else down to ``bound``
-    (at least one entry stays)."""
+    (at least one entry stays). The dropped (key, value) pairs."""
     free = headroom()
     if free is not None and free >= min_headroom_fraction():
-        return
+        return []
+    evicted = []
     while len(cache) > max(1, bound):
-        cache.pop(next(iter(cache)))
+        key = next(iter(cache))
+        evicted.append((key, cache.pop(key)))
+    return evicted
+
+
+def _metrics() -> dict:
+    """The streams' series of the process registry (the JAX names)."""
+    reg = get_registry()
+    return {
+        "sessions": reg.gauge("gordo_stream_sessions",
+                              "Live streaming sessions (device-resident windows)"),
+        "updates": reg.counter(
+            "gordo_stream_updates_total",
+            "Stream updates by outcome (ok/warming/shed/resume_required/error)", ("outcome",)),
+        "update_seconds": reg.histogram(
+            "gordo_stream_update_seconds",
+            "One stream update end to end (parse + dispatch + feed)"),
+        "update_rows": reg.histogram(
+            "gordo_stream_update_rows",
+            "Rows per stream update by kind: transferred = rows shipped host->device this "
+            "update; resident = rows already on device",
+            ("kind",), buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
+    }
+
+
+def count_update(outcome: str) -> None:
+    """Count one update's outcome (the routes count sheds and resumes
+    before a session method runs)."""
+    _metrics()["updates"].inc(outcome=outcome)
+
+
+def emit_closed(session: "StreamSession", reason: str) -> None:
+    """The ``stream_closed`` event of a session leaving the table."""
+    emit_event("stream_closed", session=session.id, machines=list(session.names),
+               reason=reason, updates_total=session.updates_total,
+               rows_total=session.rows_total)
 
 
 class MachineStream:
@@ -217,7 +261,11 @@ class StreamSession:
         if unknown:
             raise KeyError(f"Machine(s) not in stream session {self.id}: {unknown}")
         start = time.perf_counter()
-        with self.lock:
+        metrics = _metrics()
+        # the stream plane's ledger, innermost on this thread: the
+        # dispatch's queue, transfer and device seconds land in it
+        led = attribution.ledger_for("stream")
+        with self.lock, led.activate():
             self.last_active = time.monotonic()
             pending_commits = []
             inputs: Dict[str, WindowUpdate] = {}
@@ -229,20 +277,23 @@ class StreamSession:
                 payload = updates[name]
                 # float64 until the prefix transform, float32 after: the
                 # one-shot route's walk, so both carry the same bits
-                rows = np.asarray(payload["rows"], dtype="float64")
-                if rows.ndim != 2:
-                    raise ValueError(
-                        f"Machine {name!r}: update rows must be 2-D "
-                        f"(rows, features), got shape {rows.shape}"
-                    )
-                if payload.get("y") is not None and len(np.asarray(payload["y"])) != len(rows):
-                    raise ValueError(
-                        f"Machine {name!r}: 'y' must carry one target row per input row "
-                        f"({len(rows)}), got {len(np.asarray(payload['y']))}"
-                    )
+                with led.phase("parse"):
+                    rows = np.asarray(payload["rows"], dtype="float64")
+                    if rows.ndim != 2:
+                        raise ValueError(
+                            f"Machine {name!r}: update rows must be 2-D "
+                            f"(rows, features), got shape {rows.shape}"
+                        )
+                    if (payload.get("y") is not None
+                            and len(np.asarray(payload["y"])) != len(rows)):
+                        raise ValueError(
+                            f"Machine {name!r}: 'y' must carry one target row per input "
+                            f"row ({len(rows)}), got {len(np.asarray(payload['y']))}"
+                        )
                 seq = int(payload.get("seq", stream.window.seq))
                 already = stream.window.seq - seq
-                transformed = stream.transform(rows)
+                with led.phase("transform"):
+                    transformed = stream.transform(rows)
                 try:
                     update, fresh = stream.window.begin(name, transformed, seq)
                 except SequenceGap as gap:
@@ -266,9 +317,14 @@ class StreamSession:
             outputs: Dict[str, np.ndarray] = {}
             if inputs:
                 if transfer.env_prefetch_depth() > 0:
-                    for update in inputs.values():
-                        update.prefetch()
-                outputs = dispatch(inputs)  # raises: windows untouched, the retry is exact
+                    with led.phase("transfer"):
+                        for update in inputs.values():
+                            update.prefetch()
+                try:
+                    outputs = dispatch(inputs)
+                except Exception:
+                    metrics["updates"].inc(outcome="error")
+                    raise  # windows untouched: the retry is exact
             for stream, update, fresh in pending_commits:
                 stream.window.commit(update, fresh)
             self.updates_total += 1
@@ -277,25 +333,37 @@ class StreamSession:
             observations: List[dict] = []
             for name, out in outputs.items():
                 stream = self.machines[name]
-                out = np.asarray(out)
-                stream.window.n_scored += len(out)
-                self.rows_total += len(out)
-                ratios = stream.anomaly_ratio(out, raw_tails[name])
-                if ratios is not None and len(ratios):
-                    finite = ratios[np.isfinite(ratios)]
-                    if len(finite):
-                        observations.append({
-                            "machine": name,
-                            "n": int(len(finite)),
-                            "ratio_mean": float(finite.mean()),
-                            "exceedance": float((finite > 1.0).mean()),
-                        })
-                results[name]["rows"] = out.tolist()
-        # outside the session lock: the lifecycle's drift feed
+                with led.phase("postprocess"):
+                    out = np.asarray(out)
+                    stream.window.n_scored += len(out)
+                    self.rows_total += len(out)
+                    ratios = stream.anomaly_ratio(out, raw_tails[name])
+                    if ratios is not None and len(ratios):
+                        finite = ratios[np.isfinite(ratios)]
+                        if len(finite):
+                            observations.append({
+                                "machine": name,
+                                "n": int(len(finite)),
+                                "ratio_mean": float(finite.mean()),
+                                "exceedance": float((finite > 1.0).mean()),
+                            })
+                with led.phase("serialize"):
+                    results[name]["rows"] = out.tolist()
+        # outside the session lock: the lifecycle's drift feed and telemetry
         for observation in observations:
             emit_event("stream_observation", revision=self.revision, session=self.id,
                        **observation)
+        if transferred:
+            metrics["update_rows"].observe(transferred, kind="transferred")
+            metrics["update_rows"].observe(resident, kind="resident")
         elapsed = time.perf_counter() - start
+        # the stream ledger's phases also go back to the request's server
+        # ledger, so the request's coverage still accounts for the update
+        summary = led.finish(span=tracing.current_span(), wall_s=elapsed, record_spans=True)
+        for phase_name, phase_s in (summary.get("phases") or {}).items():
+            attribution.record_current(phase_name, phase_s)
+        metrics["update_seconds"].observe(elapsed)
+        metrics["updates"].inc(outcome="ok" if inputs else "warming")
         self._ema_update_s = (elapsed if self._ema_update_s == 0.0
                               else 0.8 * self._ema_update_s + 0.2 * elapsed)
         return results
@@ -352,8 +420,14 @@ class SessionManager:
                             max(1, victim.retry_after_s()),
                         )
             self._sessions[session.id] = session
-            evict_lru(self._sessions, self.max_sessions, self.headroom)
+            evicted = evict_lru(self._sessions, self.max_sessions, self.headroom)
+            self._gauge()
+        for _, old in evicted:
+            emit_closed(old, "evicted")
         return session
+
+    def _gauge(self) -> None:
+        _metrics()["sessions"].set(len(self._sessions))
 
     def get(self, session_id: str) -> Optional[StreamSession]:
         with self._lock:
@@ -365,7 +439,9 @@ class SessionManager:
     def close(self, session_id: str) -> Optional[StreamSession]:
         with self._lock:
             self._rolled.pop(session_id, None)
-            return self._sessions.pop(session_id, None)
+            session = self._sessions.pop(session_id, None)
+            self._gauge()
+        return session
 
     def require(self, session_id: str) -> StreamSession:
         """The live session, or :class:`StreamGone`: ``revision_rolled``
@@ -390,6 +466,9 @@ class SessionManager:
                 self._rolled[session.id] = session.names
             while len(self._rolled) > EXPIRED_MEMORY:
                 self._rolled.pop(next(iter(self._rolled)))
+            self._gauge()
+        for session in expired:
+            emit_closed(session, "revision_rolled")
         return len(expired)
 
     def stats(self) -> List[dict]:

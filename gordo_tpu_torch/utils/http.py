@@ -14,7 +14,14 @@ A call's ``timeout`` is set on its socket for that call, whichever call
 opened the connection: a float bounds the connect and every read, a
 ``(connect, read)`` pair bounds them apart, and a read bound of None
 waits as long as the peer takes.
+
+:class:`WsgiTransport` has the same ``request``/``close`` interface and
+calls WSGI apps in this process, mounted by host: a game day's plane
+(``scenario/plane.py``) runs its replicas, router and client without a
+socket. A host marked dead refuses, as a killed process's port does.
 """
+
+import io
 
 import http.client
 import json
@@ -36,6 +43,68 @@ class Reply:
 
     def json(self):
         return json.loads(self.body or b"null")
+
+
+class WsgiTransport:
+    """In-process calls into WSGI apps mounted by ``host[:port]``; calls to
+    one app are serialized (an app sees one request at a time, as one
+    worker would). A call to a host in ``dead`` raises
+    ``ConnectionRefusedError``, as a call to a killed process does."""
+
+    def __init__(self):
+        self.apps: Dict[str, object] = {}
+        self.dead: set = set()
+        self._locks: Dict[str, threading.Lock] = {}
+
+    def mount(self, host: str, app) -> None:
+        """Serve ``host`` with ``app`` (a fresh app replaces the old one,
+        as a restarted process does)."""
+        self.apps[host] = app
+        self._locks.setdefault(host, threading.Lock())
+
+    def request(self, method: str, url: str, body: Optional[bytes] = None,
+                headers: Optional[Dict[str, str]] = None, timeout: Timeout = 30.0) -> Reply:
+        parts = urlsplit(url)
+        host = parts.netloc
+        if host in self.dead or host not in self.apps:
+            raise ConnectionRefusedError(f"{host} refuses connections")
+        body = body or b""
+        environ = {
+            "REQUEST_METHOD": method,
+            "PATH_INFO": parts.path or "/",
+            "QUERY_STRING": parts.query,
+            "SERVER_NAME": parts.hostname or "localhost",
+            "SERVER_PORT": str(parts.port or 80),
+            "SERVER_PROTOCOL": "HTTP/1.1",
+            "CONTENT_LENGTH": str(len(body)),
+            "wsgi.input": io.BytesIO(body),
+            "wsgi.url_scheme": parts.scheme or "http",
+            "wsgi.errors": io.StringIO(),
+        }
+        for name, value in (headers or {}).items():
+            key = name.upper().replace("-", "_")
+            if key == "CONTENT_TYPE":
+                environ["CONTENT_TYPE"] = value
+            else:
+                environ[f"HTTP_{key}"] = value
+        status_headers: List[tuple] = []
+
+        def start_response(status, response_headers, exc_info=None):
+            status_headers[:] = [status, response_headers]
+
+        with self._locks[host]:
+            chunks = self.apps[host](environ, start_response)
+            try:
+                data = b"".join(chunks)
+            finally:
+                if hasattr(chunks, "close"):
+                    chunks.close()
+        status, response_headers = status_headers
+        return Reply(int(str(status).split(" ", 1)[0]),
+                     {k.lower(): v for k, v in response_headers}, data)
+
+    def close(self) -> None:
+        pass
 
 
 def _split_timeout(timeout: Timeout) -> Tuple[Optional[float], Optional[float]]:

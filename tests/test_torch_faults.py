@@ -1,9 +1,10 @@
 """
 The port's fault-injection registry (``gordo_tpu_torch.robustness.faults``)
 against the JAX package's: the spec grammar, ``@attempts`` budgets and
-``reset()``, the file channel, the seams the port wires, and the loud
-refusal of the sites it does not wire yet. With no fault variable set,
-no seam touches the file system.
+``reset()``, the file channel, the seams the port wires (the router's
+``replica`` and the streams' ``stream`` actions call by call), and the
+loud refusal of ``program``, the one site it does not wire. With no
+fault variable set, no seam touches the file system.
 """
 
 import builtins
@@ -67,13 +68,21 @@ def test_sites_partition_the_jax_grammar():
     assert not faults.WIRED_SITES & faults.UNWIRED_SITES
 
 
-#: the JAX grammar's sites that the port refused before it wired the
-#: ledger's, the checkpoint's and the calibration's seams
-REFUSED_BEFORE_THE_BUILD_PLANE = sorted(
-    faults.UNWIRED_SITES | {"ckpt", "worker", "lease", "precision"})
+#: the JAX grammar's sites that the port once refused: the build
+#: plane's, the checkpoint's and the calibration's, then the serving
+#: plane's; ``program`` is refused still
+REFUSED_BEFORE_THEIR_SEAMS = sorted(
+    faults.UNWIRED_SITES | {"ckpt", "worker", "lease", "precision", "serve", "batch", "replica",
+                            "stream"})
 
 
-@pytest.mark.parametrize("site", REFUSED_BEFORE_THE_BUILD_PLANE)
+def test_only_program_stays_unwired():
+    assert faults.UNWIRED_SITES == {"program"}
+    with pytest.raises(ValueError, match="programs/"):
+        faults.parse_spec("program:corrupt")
+
+
+@pytest.mark.parametrize("site", REFUSED_BEFORE_THEIR_SEAMS)
 def test_unwired_site_fails_loudly(site, monkeypatch, tmp_path):
     """A site of the JAX grammar with no seam in the port raises at
     parse time, naming the ROADMAP item, from the parser, the env
@@ -115,6 +124,8 @@ def test_unset_seams_touch_no_file_system(monkeypatch):
     assert faults.drift_shift_scale("m") is None
     assert faults.refit_degrade_scale("m") is None
     assert faults.inject_promotion_tear(3) is None
+    assert faults.replica_fault_action("r0") is None
+    assert faults.stream_fault_action(["m"]) is None
 
 
 def _raises(fn, *args):
@@ -225,3 +236,82 @@ def test_firings_emit_fault_injected_events(tmp_path, monkeypatch):
         ("fault_injected", "drift", 1), ("fault_injected", "fetch", 1)]
     assert records[0]["scale"] == 2.0 and records[0]["machine"] == "m-1"
     assert json.loads(log.read_text().splitlines()[1])["mode"] == "raise"
+
+
+def _actions(pkg, call, args, n):
+    """``n`` calls of a seam: the actions, then the spec's fire counts."""
+    out = []
+    for _ in range(n):
+        try:
+            out.append(call(pkg)(*args))
+        except Exception as exc:  # noqa: BLE001 - the outcome is compared
+            out.append(type(exc).__name__)
+    registry = pkg.active_registry()
+    return out, [spec.fires for spec in registry.specs]
+
+
+@pytest.mark.parametrize("spec,args", [
+    ("replica:die:r1", ("r1",)),
+    ("replica:die:r1@attempts:2", ("r1",)),
+    ("replica:die:r1@attempts:2", ("r0",)),
+    ("replica:die", ("r0",)),
+    ("replica:slow:r0@ms:40", ("r0",)),
+    ("replica:slow:r0@attempts:1", ("r0",)),
+    ("replica:slow:r0@ms:soon", ("r0",)),
+    ("replica:flap:r1@burst:3", ("r1",)),
+    ("replica:flap:r1", ("r1",)),
+    ("replica:flap:r1@burst:2;replica:die:r1@attempts:1", ("r1",)),
+    ("replica:slow:r0@ms:5;replica:flap:r0@burst:1", ("r0",)),
+])
+def test_replica_fault_actions_match_jax(monkeypatch, spec, args):
+    """The router's seam: the same spec gives the same action call by
+    call, and the same fire counts, in both packages."""
+    _set_spec(monkeypatch, spec)
+    got = _actions(faults, lambda pkg: pkg.replica_fault_action, args, 8)
+    want = _actions(jax_faults, lambda pkg: pkg.replica_fault_action, args, 8)
+    assert got == want
+
+
+@pytest.mark.parametrize("spec,names", [
+    ("stream:drop:m-1", ["m-1", "m-2"]),
+    ("stream:drop:m-1@attempts:1", ["m-1"]),
+    ("stream:drop:m-1", ["m-3"]),
+    ("stream:drop", ["m-3"]),
+    ("stream:stall:m-1@ms:30@attempts:2", ["m-1"]),
+    ("stream:stall:m-1", ["m-1"]),
+    ("stream:burst:m-1@rate:12@attempts:2", ["m-1"]),
+    ("stream:burst:m-1", ["m-1"]),
+    ("stream:burst:m-1@rate:lots", ["m-1"]),
+    ("stream:drop:m-1@attempts:1;stream:burst:m-1@rate:3@attempts:2", ["m-1"]),
+])
+def test_stream_fault_actions_match_jax(monkeypatch, spec, names):
+    """The streams' seam, matched against a session's machines."""
+    _set_spec(monkeypatch, spec)
+    got = _actions(faults, lambda pkg: pkg.stream_fault_action, (names,), 5)
+    want = _actions(jax_faults, lambda pkg: pkg.stream_fault_action, (names,), 5)
+    assert got == want
+
+
+def test_replica_and_stream_firings_count_by_site(tmp_path, monkeypatch):
+    """A flap's failing calls and each suffered update fire
+    ``fault_injected`` events and ``gordo_fault_fired_total{site}``."""
+    from gordo_tpu_torch.observability.registry import get_registry
+
+    def fired(site):
+        dump = get_registry().snapshot().get("gordo_fault_fired_total") or {}
+        return sum(s["value"] for s in dump.get("series", []) if s["labels"]["site"] == site)
+
+    log = tmp_path / "events.jsonl"
+    monkeypatch.setenv("GORDO_TPU_EVENT_LOG", str(log))
+    _set_spec(monkeypatch, "replica:flap:r1@burst:2;stream:burst:m-1@rate:4@attempts:1")
+    before = fired("replica"), fired("stream")
+    actions = [faults.replica_fault_action("r1") for _ in range(6)]
+    assert actions == [("die", 0.0), ("die", 0.0), None, None, ("die", 0.0), ("die", 0.0)]
+    assert faults.stream_fault_action(["m-1"]) == ("burst", 4.0)
+    assert faults.stream_fault_action(["m-1"]) is None
+    assert (fired("replica") - before[0], fired("stream") - before[1]) == (4, 1)
+    records = read_events(str(log))
+    assert [(r["site"], r["mode"], r["fire_count"]) for r in records] == [
+        ("replica", "flap", 1), ("replica", "flap", 2), ("replica", "flap", 5),
+        ("replica", "flap", 6), ("stream", "burst", 1)]
+    assert records[0]["replica"] == "r1" and records[-1]["machines"] == ["m-1"]

@@ -407,6 +407,33 @@ def test_fetch_retries_and_timeout_record_casualties(monkeypatch):
     ]
 
 
+@pytest.mark.parametrize("fetch_backoff,delays", [
+    (None, [8, 16, 32]),  # the default: the client's policy, as JAX's builder
+    (lambda attempt: 0.0, [0.0, 0.0, 0.0]),  # a game day's throwaway fleet
+    (lambda attempt: 0.25 * attempt, [0.25, 0.5, 0.75]),
+])
+def test_fetch_backoff_sets_the_retry_delays(monkeypatch, fetch_backoff, delays):
+    """``fetch_backoff(attempt)`` is the sleep before each retry of a
+    failing fetch, as the JAX builder's parameter of the same name."""
+    from gordo_tpu_torch.builder import fleet_build
+
+    slept = []
+    monkeypatch.setattr(fleet_build.time, "sleep", slept.append)
+
+    def down(self, machine):
+        raise ConnectionError("down")
+
+    monkeypatch.setattr(FleetModelBuilder, "_fetch_one", down)
+    machines = _port_machines(_fleet_configs())[:1]
+    builder = FleetModelBuilder(machines, on_error="skip", fetch_retries=3, device="cpu",
+                                fetch_backoff=fetch_backoff)
+    _, failures = builder.fetch_data(machines)
+    assert slept == delays and failures[0]["attempts"] == 4
+    jax_builder = JaxFleetModelBuilder([], fetch_backoff=fetch_backoff) if fetch_backoff else None
+    if jax_builder is not None:
+        assert [jax_builder.fetch_backoff(a) for a in (1, 2, 3)] == delays
+
+
 def test_short_windowed_machine_is_refused_before_training():
     """A windowed machine with fewer rows than one window: a casualty
     under ``on_error="skip"`` (the others build), an InsufficientDataError

@@ -227,7 +227,15 @@ def test_e2e_drift_refit_shadow_promote_matches_jax(pair, thresholds, monkeypatc
     jax_snapshot = json.loads((jax_models / ".lifecycle" / "last_tick.json").read_text())
     assert set(snapshot) == set(jax_snapshot) and set(snapshot["status"]) == set(
         jax_snapshot["status"])
-    assert snapshot["role"] == "lifecycle" and snapshot["metrics"] == {}
+    assert snapshot["role"] == "lifecycle"
+    # the metrics block is the process registry, the tick's series in it as in JAX's
+    lifecycle_series = {"gordo_lifecycle_tick_seconds", "gordo_lifecycle_machines_total",
+                        "gordo_lifecycle_drifted_machines"}
+    assert lifecycle_series <= set(snapshot["metrics"]) and lifecycle_series <= set(
+        jax_snapshot["metrics"])
+    for name in lifecycle_series:
+        assert (snapshot["metrics"][name]["labelnames"]
+                == jax_snapshot["metrics"][name]["labelnames"]), name
 
     # serving rolls to the new revision through latest
     client = Client(build_app(str(port_models / "latest"), device="cpu"))
