@@ -41,13 +41,15 @@ Phases, each raising on failure (no result line is printed then):
 5. training: the same machine, read from ``examples/config.yaml`` through
    the port's config layer (``get_dict_from_yaml``, ``NormalizedConfig``)
    with ``attention_impl: flash``, built by the port's ``ModelBuilder`` on the
-   card from its dataset span (2019-01-01 to 2019-06-01 at 10 minutes,
-   21 744 rows of seeded daily sinusoids plus noise) with the evaluation
+   card from the first 76 days of its dataset span (2019-01-01 to
+   2019-06-01 at 10 minutes: 10 944 rows of seeded daily sinusoids plus
+   noise, cut from the span's 21 744) with the evaluation
    defaults (TimeSeriesSplit(3) cross-validation with the four metrics,
    its three folds trained at once as one fleet fit, thresholds, then the
    fit), 2 epochs where the config has 10 (the build's eager steps are
    host-bound: on a slow host 10 epochs took 265 s, over the phase's
-   3-minute budget, and 5 took 108 s of a 639 s script); launch counts reset just before and read just after
+   3-minute budget, and 5 took 108 s of a 639 s script; the phase holds
+   the loss to fall, so 1 epoch would not do); launch counts reset just before and read just after
    (each backward kernel exactly ``n_layers`` times per optimizer step, a
    CV step launching once for all three folds); the artifact it writes served
    over HTTP; one full-width training step on the card against the same
@@ -82,8 +84,8 @@ Phases, each raising on failure (no result line is printed then):
    fused, batch 512) and a 50-tag ``GRUForecast(gru_hourglass)`` with its
    unfused cells, each a ``DiffBasedAnomalyDetector`` built by
    ``python -m gordo_tpu_torch.cli build`` in a subprocess on the card
-   (16 414 rows at 10 minutes, as the JAX data layer gives; 1 epoch where
-   bench.py trains 3), served over HTTP on the card with 144 rows
+   (8206 rows at 10 minutes, as the port's data layer gives: the first
+   57 of 114 days; 1 epoch where bench.py trains 3), served over HTTP on the card with 144 rows
    (medians of 5; the whole-history requests were cut, the last one when
    phase 16 took the script past 800 s), each reply within 1e-4 of the
    CPU's;
@@ -129,7 +131,7 @@ Phases, each raising on failure (no result line is printed then):
    and a 1-of-4 subset (a gathered copy), each within 1e-4 of the
    CPU's; the path's launch counts take the fleet requests only; ``SERVE_CLIENTS`` concurrent clients coalesced by a batcher
    (``BATCH_WAIT_MS``), each reply within 1e-6 of the unbatched one;
-   then ``build-fleet --precision auto`` of ``BF16_MACHINES`` (4032 rows,
+   then ``build-fleet --precision auto`` of ``BF16_MACHINES`` (2012 and 2017 rows,
    1 epoch; the second computing in bfloat16) in a subprocess, each
    served group taking the report's decision, replies within 2e-2 of the
    CPU's, each group's flash forward counted by kernel and input type,
@@ -181,8 +183,9 @@ Phases, each raising on failure (no result line is printed then):
    symlink re-pointed mid-stream (the next update answers 409
    ``revision_rolled``);
 14. plane: (a) ``sweep`` of four learning rates (``PLANE_LRS``) on
-   phase 10's first Transformer (full width, flash, its 21 744 rows, 1
-   epoch where the config has 10) in this process: each trial's loss,
+   phase 10's first Transformer (full width, flash, its first
+   ``PLANE_SWEEP_DAYS`` days, 1 epoch where the config has 10) in this
+   process: each trial's loss,
    the three kernels' launches and step ms, and a one-machine fit at the
    first rate on the card within 1e-4 of its trial; (c) two ``run-server``
    replicas over one shard manifest and a ``run-router``, each a
@@ -249,7 +252,8 @@ Phases, each raising on failure (no result line is printed then):
    and the ledger's cost (``measure_overhead``) and a 144-row request's
    wall ms with the ledger on and off (``GORDO_PHASE_LEDGER=0``); (h) the
    wall seconds of (a), (b) and the direct POSTs;
-17. the build plane, run right after phase 10 over its machine list (three
+17. the build plane, run beside phase 12 (after phase 11) over phase 10's
+   machine list (three
    exact buckets: three ledger units): (a) ``buckets plan`` under
    ``exact`` and ``padded`` in a subprocess with no card, the exact plan's
    buckets the units the ledger publishes; (b) ``build-fleet --workers 2
@@ -329,7 +333,26 @@ Phases, each raising on failure (no result line is printed then):
    unstructured error, its expectations, its streams bitwise its
    one-shots) and ``rolling-upgrade`` skipped; ``gameday run
    rolling-upgrade`` exits 2 naming ``programs/``;
-20. one JSON line of per-kernel numbers, each time with the timer that
+20. the profilers and the multi-chip paths: (a) ``python -m
+   gordo_tpu_torch.cli build`` of the config's Transformer with
+   ``GORDO_TPU_PROFILE_DIR`` in a subprocess on the card: its
+   ``torch.profiler`` Chrome trace names the forward, dq and dk/dv quad
+   kernels (their device ms read from the trace's kernel events) and the
+   ``data-fetch``, ``cross-validation``, ``fit`` and ``train-dispatch``
+   ranges; meanwhile two ``run-server`` subprocesses over phase 10's
+   collection, one with ``GORDO_PROFILE_HZ``, answer the same 144-row
+   fleet request in turn (each one's median printed), and the sampled one,
+   stopped with SIGTERM, exits 0 having written its dump, which ``profile
+   report`` and ``profile flame`` render (exit 0, server-plane phases,
+   samples above 0; the server's forward launches are the
+   ``sampled_server`` path); (b) ``distributed.initialize`` with an
+   explicit coordinator, one process, rank 0, on NCCL: data-parallel
+   steps of the turbine Transformer (flash) with ``zero1`` off and on
+   (equal; forward, dq and dk/dv launched: the ``data_parallel`` paths)
+   held to the same steps on the CPU within 1e-4, then long-context steps
+   with ring and with Ulysses attention (remat) on windows of 8192, the
+   first loss equal to the local dense twin's, with peak allocated memory;
+21. one JSON line of per-kernel numbers, each time with the timer that
    took it (``"profiler"``: device time; ``"events"``: CUDA events around
    the calls, host gaps included, taken when three traces came back
    incomplete): the quad and wide kernels under each entry point's name,
@@ -389,9 +412,9 @@ CHUNK_WINDOWS = 8192
 # timed requests per (route, size); the first includes the model's load
 REPEATS = 5
 PROJECT = "plant-a-anomaly"
-# the machine's dataset span, 2019-01-01 to 2019-06-01 at 10 minutes
+# the machine's dataset span starts here (2019-01-01; it ends 2019-06-01), 10 minutes a row
 TRAIN_START = datetime(2019, 1, 1, tzinfo=timezone.utc)
-TRAIN_ROWS = 151 * 144
+TRAIN_ROWS = 76 * 144
 BATCH_SIZE = 32  # the fit's default
 # the evaluation's default metrics
 METRIC_NAMES = ("explained_variance_score", "r2_score", "mean_squared_error",
@@ -420,17 +443,19 @@ DEFAULT_COLLECTION = "1700000000002"
 # 128/64, decoder 64/128, tanh, fused, the `layer` schedule bench.py runs
 # on the chip, batch 512, float32) as a DiffBasedAnomalyDetector machine,
 # and a GRU forecaster (gru_hourglass with its defaults: unfused cells,
-# dims 42/33/25/25/33/42) at the same lookback and batch. The data: 114
-# days at 10 minutes (16 414 rows) of a RandomDataProvider's seeded
-# samples, 16 400 a tag. A RandomDataset's provider draws 100-300 samples
-# a tag, which leaves no row with all 50 tags at this span. Epochs: 1, cut
-# from bench.py's 3 (on an H100 at 3 epochs the two builds took 47 and 69 s,
-# most of the phase's budget of about 2 minutes); widths, span and batch
-# are not cut.
+# dims 42/33/25/25/33/42) at the same lookback and batch. The data: 57
+# days at 10 minutes (8206 rows) of a RandomDataProvider's seeded samples,
+# 8200 a tag, cut from 114 days (16 414 rows; the LSTM's and GRU's builds
+# took 32.6 and 42.2 s at once on an H100 whose host ran 1.4x slow, with phase 19 in the
+# script). A RandomDataset's provider draws 100-300 samples a tag, which
+# leaves no row with all 50 tags at this span. Epochs: 1, cut from
+# bench.py's 3 (on an H100 at 3 epochs the two builds took 47 and 69 s,
+# most of the phase's budget of about 2 minutes); widths and batch are
+# not cut.
 PLANT_TAGS = [f"GRA-TAG {i}" for i in range(1, 51)]
 _PLANT_DATASET = json.loads(r"""{"train_start_date": "2019-01-01T00:00:00+00:00",
- "train_end_date": "2019-04-25T00:00:00+00:00", "data_provider": {"type": "RandomDataProvider",
- "min_size": 16400, "max_size": 16400}, "resolution": "10T", "row_filter": "",
+ "train_end_date": "2019-02-27T00:00:00+00:00", "data_provider": {"type": "RandomDataProvider",
+ "min_size": 8200, "max_size": 8200}, "resolution": "10T", "row_filter": "",
  "aggregation_methods": "mean", "row_filter_buffer_size": 0, "asset": null,
  "default_asset": null, "n_samples_threshold": 0, "low_threshold": -1000,
  "high_threshold": 50000, "interpolation_method": "linear_interpolation",
@@ -477,8 +502,9 @@ RECURRENT_MACHINES = {
     }
     for name, estimator in _RECURRENT_ESTIMATORS.items()
 }
-# rows the JAX data layer gives each (tests/test_torch_cli.py)
-RECURRENT_ROWS = 16414
+# rows the data layer gives each (the JAX data layer gives 16 414 at the whole
+# span, tests/test_torch_cli.py)
+RECURRENT_ROWS = 8206
 #: a windowed net's timed training steps, synchronised and back to back
 #: (phases 8 and 9; 10 of each before the cuts for phase 19)
 WINDOW_TIMED_STEPS = 5
@@ -497,7 +523,7 @@ PLANT_BATCH = 512
 # Phase 9's project, built in one process by the port's local_build:
 # - tcn-plant-50: a DiffBasedAnomalyDetector(TCNAutoEncoder) at the
 #   factory's full width (channels 64/64/64, kernel 3, dilations 1/2/4,
-#   dropout 0.1, relu) over phase 8's 50-tag plant data (16 414 rows at 10
+#   dropout 0.1, relu) over phase 8's 50-tag plant data (8206 rows at 10
 #   minutes) at lookback 64 and batch 512; 1 epoch, the cut phase 8 makes;
 # - raw-regressor: a RawModelRegressor with tests/test_models.py's spec
 #   (Dense 8 tanh, Dense 1) from the conftest dataset's 4 tags onto one;
@@ -515,10 +541,10 @@ machines:
   - name: tcn-plant-50
     dataset:
       type: TimeSeriesDataset
-      data_provider: {{type: RandomDataProvider, min_size: 16400, max_size: 16400}}
+      data_provider: {{type: RandomDataProvider, min_size: 8200, max_size: 8200}}
       tags: [{", ".join(PLANT_TAGS)}]
       train_start_date: '2019-01-01T00:00:00+00:00'
-      train_end_date: '2019-04-25T00:00:00+00:00'
+      train_end_date: '2019-02-27T00:00:00+00:00'
     model:
       gordo_tpu.models.anomaly.DiffBasedAnomalyDetector:
         base_estimator:
@@ -634,8 +660,9 @@ FLEET_DRIVER = (
 # machines, a 3-of-4 and a 1-of-4 subset, SERVE_CLIENTS concurrent clients
 # batched (BATCH_WAIT_MS) and not; then `build-fleet --precision auto` of
 # BF16_MACHINES over BF16_DAYS days at 10 minutes (a random provider of
-# 4032 samples a tag, which the data layer makes 4030 and 4032 rows: a
-# tag's empty first buckets drop out; cut from the config's 151 days; 1
+# 2016 samples a tag, which the data layer makes 2012 and 2017 rows: a
+# tag's empty first buckets drop out; cut from the config's 151 days, and
+# from 28 once phase 20 came in; 1
 # epoch where the config has 10, as phase 10 cuts): the config's model
 # (float32 layers) and the same model computing in bfloat16 (`dtype:
 # bfloat16`), one bucket each, served from the card
@@ -649,8 +676,8 @@ SERVE_ROUNDS = 3
 WHOLE_HISTORY_REPEATS = 2
 BATCH_WAIT_MS = 5.0
 BF16_COLLECTION = "1700000000006"
-BF16_DAYS = 28
-BF16_ROWS = (4024, 4033)  # the least and most rows a machine may have
+BF16_DAYS = 14
+BF16_ROWS = (2008, 2017)  # the least and most rows a machine may have
 BF16_MACHINES = (f"{MACHINE}-bf16-0", f"{MACHINE}-bf16-1")
 # the quad forward at phase 11's folded fleet-serve shapes: four machines'
 # windows in one batch, 144 rows padded to 256 (193 windows each) and 8255
@@ -660,14 +687,18 @@ FLEET_SERVE_CASES = (("fleet-serve-144", (4 * 193, 64, 4, 16)),
 
 # Phase 12: the build options of a machine config. The Transformer
 # machine reads OPTIONS_SAMPLES_A_DAY samples a day of seeded daily
-# sinusoids plus noise a tag over the config's span (2019-01-01 to
-# 2019-06-01), written as CSV files in the file-system provider's layout
+# sinusoids plus noise a tag over the first OPTIONS_DAYS days of the
+# config's span (2019-01-01 to 2019-06-01; its 151 days took the
+# Transformer's build 44.5 s on an H100 whose host ran 1.4x slow), written as CSV files in the
+# file-system provider's layout
 # (<lake>/gra/<tag>/<tag>_2019.csv), with a spike planted every
 # OPTIONS_SPIKE_EVERY samples for the period filter to find, and builds 1
 # epoch where the config has 10 (each build of phase 12 cross-validates
 # with three folds trained one after another, KFold's training rows not
-# being one run); widths and span are the config's.
+# being one run); widths are the config's.
 OPTIONS_COLLECTION = "1700000000007"
+OPTIONS_DAYS = 76
+OPTIONS_END = "2019-03-18T00:00:00+00:00"  # OPTIONS_PROJECT's train_end_date
 OPTIONS_SAMPLES_A_DAY = 288
 OPTIONS_SPIKE_EVERY = 4001
 OPTIONS_EPOCHS = 1
@@ -681,7 +712,7 @@ machines:
       data_provider: {{type: FileSystemProvider, base_dir: "{lake}"}}
       tags: [{tags}]
       train_start_date: '2019-01-01T00:00:00+00:00'
-      train_end_date: '2019-06-01T00:00:00+00:00'
+      train_end_date: '2019-03-18T00:00:00+00:00'
       asset: gra
       aggregation_methods: max
       row_filter: "`GRA-TURB-SPEED 1` > -2.0 & `GRA-TURB-LOAD 3` < 0.45"
@@ -721,7 +752,7 @@ REMAT_TIMED_STEPS = 5
 # Phase 13a builds turbine-9900-transformer (full width, flash, 1 epoch
 # where the config has 10, as phase 12 cuts) from a lake: a long-format
 # CSV lake of day partitions holding two of its three tags (5-minute
-# samples over the config's span, phase 12's spikes), with LAKE_DUPLICATES
+# samples over LAKE_DAYS days of the config's span, phase 12's spikes), with LAKE_DUPLICATES
 # samples restated: the day's first file holds them off by LAKE_OFFSET and
 # a later file of the same day the true value (the last row wins), and a
 # partition dated LAKE_STRAY_DAY (outside the window and its day of slop)
@@ -733,7 +764,12 @@ REMAT_TIMED_STEPS = 5
 LAKE_COLLECTION = "1700000000008"
 LAKE_DUPLICATES = 500
 LAKE_OFFSET = 500.0
-LAKE_STRAY_DAY = datetime(2019, 6, 10, tzinfo=timezone.utc)
+LAKE_STRAY_DAY = datetime(2019, 3, 27, tzinfo=timezone.utc)
+# the lake's days from the span's start (2019-01-01), cut from the config's
+# 151 (the build read 21 092 rows in 49.6 s on an H100 whose host ran 1.4x slow); the window
+# ends at LAKE_END
+LAKE_DAYS = 76
+LAKE_END = "2019-03-18T00:00:00+00:00"
 LAKE_PROJECT = """
 machines:
   - name: {name}
@@ -748,7 +784,7 @@ machines:
             base_dir: "{long}"
       tags: [{tags}]
       train_start_date: '2019-01-01T00:00:00+00:00'
-      train_end_date: '2019-06-01T00:00:00+00:00'
+      train_end_date: '{end}'
       asset: gra
       filter_periods:
         filter_method: all
@@ -789,6 +825,45 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+class _ThreadStdout:
+    """``sys.stdout`` for a smoke whose phases run in threads: a thread's
+    writes go to the stream it captures into (:func:`captured_stdout`),
+    any other thread's to the real standard output. ``redirect_stdout``
+    swaps ``sys.stdout`` for the whole process, so a capture in one
+    thread would take another thread's lines."""
+
+    def __init__(self, real):
+        self.real = real
+        self.local = threading.local()
+
+    def _stream(self):
+        return getattr(self.local, "stream", None) or self.real
+
+    def write(self, text):
+        return self._stream().write(text)
+
+    def flush(self):
+        self._stream().flush()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+@contextlib.contextmanager
+def captured_stdout(stream):
+    """This thread's standard output into ``stream``; other threads'
+    writes go on to the real standard output."""
+    if not isinstance(sys.stdout, _ThreadStdout):
+        sys.stdout = _ThreadStdout(sys.stdout)
+    local = sys.stdout.local
+    previous = getattr(local, "stream", None)
+    local.stream = stream
+    try:
+        yield stream
+    finally:
+        local.stream = previous
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -819,16 +894,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3, tries: int = 3):
+def device_ms(fn, reps: int = 20, warmup: int = 3, tries: int = 1):
     """(milliseconds per call of ``fn``, the timer that measured them).
     With ``"profiler"``: the device time of every kernel its ``reps``
     calls launched (torch.profiler), over ``reps``; unlike CUDA events
     around a call, the host's gaps between launches do not count, so a
-    small kernel's own time shows. Now and then a trace misses some or all
-    of its kernels (a kernel's count is then not a multiple of ``reps``);
-    it is taken again, up to ``tries`` times, and then the time is
-    ``time_ms``'s, named ``"events"``: it counts those gaps too, so it is
-    not a device time."""
+    small kernel's own time shows. A trace often misses some or all of
+    its kernels (a kernel's count is then not a multiple of ``reps``); it
+    is taken again, up to ``tries`` times (one by default: with three, most
+    of the kernel checks' timings missed on every try, and each try costs
+    a profiler session),
+    and then the time is ``time_ms``'s, named ``"events"``: it counts those
+    gaps too, so it is not a device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2703,7 +2780,7 @@ def cli_output(argv) -> str:
     from gordo_tpu_torch.cli.cli import main
 
     buffer = io.StringIO()
-    with contextlib.redirect_stdout(buffer):
+    with captured_stdout(buffer):
         code = main(argv)
     if code != 0:
         raise AssertionError(f"{argv[:2]} exited {code}:\n{buffer.getvalue()[-2000:]}")
@@ -3433,7 +3510,7 @@ def write_options_lake(lake: str) -> dict:
     samples at half its 10-minute step), a spike of +40 on the second tag
     every ``OPTIONS_SPIKE_EVERY`` samples; in the file-system layout, one
     file a tag and year. Returns {tag: samples}."""
-    rows = 151 * OPTIONS_SAMPLES_A_DAY
+    rows = OPTIONS_DAYS * OPTIONS_SAMPLES_A_DAY
     X, _ = sensor_rows(rows, SEED + 12)
     X[::OPTIONS_SPIKE_EVERY, 1] += 40.0
     step = timedelta(days=1) / OPTIONS_SAMPLES_A_DAY
@@ -3464,7 +3541,7 @@ def options_machines(lake: str):
         "name": "pump-options-feedforward", "project_name": PROJECT,
         "dataset": {"type": "TimeSeriesDataset", "tags": list(TAGS), "asset": "gra",
                     "train_start_date": "2019-01-01T00:00:00+00:00",
-                    "train_end_date": "2019-06-01T00:00:00+00:00",
+                    "train_end_date": OPTIONS_END,
                     "aggregation_methods": ["mean", "max"],
                     "data_provider": {"type": "FileSystemProvider", "base_dir": lake}},
         "model": OPTIONS_TEMPLATE,
@@ -3763,7 +3840,7 @@ def write_lake(root: str) -> dict:
 
     from gordo_tpu_torch.data.base import to_ns
 
-    rows = 151 * OPTIONS_SAMPLES_A_DAY
+    rows = LAKE_DAYS * OPTIONS_SAMPLES_A_DAY
     X, _ = sensor_rows(rows, SEED + 13)
     X[::OPTIONS_SPIKE_EVERY, 1] += 40.0
     step = timedelta(days=1) / OPTIONS_SAMPLES_A_DAY
@@ -3771,7 +3848,7 @@ def write_lake(root: str) -> dict:
     restated = set(np.random.default_rng(SEED + 13).choice(rows, LAKE_DUPLICATES, replace=False)
                    .tolist())
     long_dir, fs_dir = os.path.join(root, "long"), os.path.join(root, "fs")
-    for day in range(151):
+    for day in range(LAKE_DAYS):
         date = TRAIN_START + timedelta(days=day)
         folder = os.path.join(long_dir, f"{date.year:04d}", f"{date.month:02d}",
                               f"{date.day:02d}")
@@ -3829,10 +3906,10 @@ def lake_build_check(root: str, workdir: str, device_args=()) -> dict:
     db = os.path.join(workdir, "machines.db")
     text = LAKE_PROJECT.format(name=f"{MACHINE}-lake", fs=lake["fs"], long=lake["long"],
                                tags=", ".join(f'"{tag}"' for tag in TAGS), epochs=OPTIONS_EPOCHS,
-                               db=db)
+                               db=db, end=LAKE_END)
     (machine,) = NormalizedConfig(safe_load(text), project_name=PROJECT).machines
     machine = json.loads(json.dumps(machine.to_dict(), default=str))
-    end = TRAIN_START + timedelta(days=151)
+    end = TRAIN_START + timedelta(days=LAKE_DAYS)
     fetched = {}
     t0 = time.perf_counter()
     for provider, tags in ((LongFormatProvider(lake["long"]), TAGS[:2]),
@@ -4108,7 +4185,7 @@ def lake_stream_phase(torch, fa, profile: bool, collection: str):
 
 # Phase 14, "plane": the sweep, resumed fits and builds, and the routed
 # plane, over phase 10's collection and data at full width. (a) `sweep`
-# of PLANE_LRS on turbine-9900-transformer-0 (phase 10's 21 744 rows),
+# of PLANE_LRS on turbine-9900-transformer-0 (PLANE_SWEEP_DAYS days of it),
 # PLANE_SWEEP_EPOCHS epoch where the config has 10; (b) FleetTrainer on
 # the four Transformers cut to their first PLANE_RESUME_ROWS rows (the
 # phase's time budget: 4 epochs in all), 2 epochs where the config has
@@ -4120,6 +4197,10 @@ def lake_stream_phase(torch, fa, profile: bool, collection: str):
 # a phase 13 stream cut to PLANE_STREAM_ROWS rows
 PLANE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
 PLANE_SWEEP_EPOCHS = 1
+# the sweep's and its solo fit's data: phase 10's first Transformer over the
+# span's first PLANE_SWEEP_DAYS days (a random provider of 144 samples a
+# day), cut from its 151: both fits ran over 21 744 rows
+PLANE_SWEEP_DAYS = 28
 PLANE_SWEEP_RTOL = 1e-4
 PLANE_RESUME_ROWS = 4096
 PLANE_DROPOUT = 0.1
@@ -4254,6 +4335,11 @@ def sweep_check(torch, fa, root: str, device=None) -> dict:
     from gordo_tpu_torch.parallel.fleet import FleetTrainer, StackedData
 
     machine = fleet_machines(root)[0]
+    machine["dataset"] = dict(
+        machine["dataset"],
+        train_end_date=(TRAIN_START + timedelta(days=PLANE_SWEEP_DAYS)).isoformat(),
+        data_provider={"type": "RandomDataProvider", "min_size": 144 * PLANE_SWEEP_DAYS,
+                       "max_size": 144 * PLANE_SWEEP_DAYS})
     telemetry = []
     fit = sweep_module.HyperparamSweep.fit
 
@@ -4267,7 +4353,7 @@ def sweep_check(torch, fa, root: str, device=None) -> dict:
     fa.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out):
+        with captured_stdout(out):
             code = cli.main(["sweep", json.dumps(machine), "--param",
                              "lr=" + ",".join(str(lr) for lr in PLANE_LRS),
                              "--epochs", str(PLANE_SWEEP_EPOCHS), *device_args])
@@ -6172,6 +6258,312 @@ def kernel_entry(kernel, source, replaces, check, launches_by_path, wide_checks)
     }
 
 
+# Phase 20, the profilers and the multi-chip paths. (a) `python -m
+# gordo_tpu_torch.cli build` of the config's turbine-9900-transformer at
+# full width with GORDO_TPU_PROFILE_DIR, over PROFILE_BUILD_DAYS days (a
+# random provider of 144 samples a day) and 1 epoch, where the config has
+# 151 days and 10 epochs: a trace of the whole build (CV's three fold fits
+# and the final fit) would hold millions of events; the trace must name
+# PROFILE_KERNELS and PROFILE_RANGES. Then two `run-server` processes over
+# phase 10's collection, one with GORDO_PROFILE_HZ, the same 144-row fleet
+# request to each PROFILE_REQUESTS times, the sampled one stopped with
+# SIGTERM: its dump rendered by `profile report` and `profile flame`.
+# (b) one NCCL rank: DP_STEPS data-parallel steps of the turbine
+# Transformer (flash) on DP_BATCH windows, with zero1 off and on, held to
+# the same steps on the CPU (a gloo rank before the NCCL one); LONG_STEPS long-context steps (ring, then
+# Ulysses; remat) on LONG_WINDOW windows, 128 times the config's 64.
+PROFILE_BUILD_DAYS = 5
+PROFILE_HZ = 97.0
+PROFILE_REQUESTS = 10
+PROFILE_KERNELS = {"flash_attention_fwd": "flash_fwd_quad_kernel",
+                   "flash_attention_bwd_dq": "flash_bwd_dq_quad_kernel",
+                   "flash_attention_bwd_dkv": "flash_bwd_dkv_quad_kernel"}
+PROFILE_RANGES = ("data-fetch", "cross-validation", "fit", "train-dispatch")
+DP_BATCH = 64
+DP_STEPS = 3
+LONG_WINDOW = (2, 8192, 3)
+LONG_STEPS = 2
+#: the parity of a data-parallel step, card against CPU (losses, and the
+#: parameters but the keys' biases, whose gradient is 0 in exact
+#: arithmetic: Adam moves them by rounding only, at most its learning
+#: rate a step)
+DP_TOLERANCE = 1e-4
+
+
+def profiled_build_check(root: str, workdir: str, device=None) -> dict:
+    """Phase 20a: the profiled build in a subprocess on the card (unless
+    ``device`` names another: a rehearsal); the trace's kernels (device ms
+    from its kernel events) and ranges."""
+    import glob
+
+    days = PROFILE_BUILD_DAYS
+    base = dict(BASE_ESTIMATOR, epochs=1)
+    definition = {"gordo_tpu.models.anomaly.DiffBasedAnomalyDetector": {
+        "base_estimator": {"gordo_tpu.models.TransformerAutoEncoder": base}}}
+    machine = example_machines(
+        root, {MACHINE: {"model": definition, "evaluation": {"seed": SEED}}})[MACHINE].to_dict()
+    machine["dataset"] = dict(
+        machine["dataset"], train_end_date=(TRAIN_START + timedelta(days=days)).isoformat(),
+        data_provider={"type": "RandomDataProvider", "min_size": 144 * days,
+                       "max_size": 144 * days})
+    traces = os.path.join(workdir, "traces")
+    counts = os.path.join(workdir, "build-launches.json")
+    env = dict(os.environ, MACHINE=yaml_text(machine), OUTPUT_DIR=os.path.join(workdir, MACHINE),
+               GORDO_TPU_PROFILE_DIR=traces)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", FLEET_DRIVER, counts, "build",
+                          *(["--device", device] if device else [])], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0 or f"model parameters on {device or 'cuda'}" not in run.stderr:
+        raise AssertionError(f"profiled build exited {run.returncode}:\n{run.stderr[-4000:]}")
+    with open(counts) as fh:
+        launches = json.load(fh)["kernels"]
+    found = glob.glob(os.path.join(traces, f"build-{MACHINE}-*", "trace.json"))
+    if len(found) != 1:
+        raise AssertionError(f"profiled build wrote {found} under {traces}")
+    with open(found[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = {}
+    for entry, symbol in PROFILE_KERNELS.items():
+        hits = [e for e in events if e.get("cat") == "kernel" and symbol in e.get("name", "")]
+        kernels[entry] = {"trace_launches": len(hits),
+                          "device_ms": sum(e.get("dur", 0.0) for e in hits) / 1000.0,
+                          "counted_launches": launches.get(f"{entry}_quad", 0)}
+    ranges = {name: sum(1 for e in events if e.get("name") == name
+                        and e.get("cat") in ("user_annotation", "gpu_user_annotation"))
+              for name in PROFILE_RANGES}
+    report = {"seconds": seconds, "trace": os.path.relpath(found[0], workdir),
+              "trace_mb": os.path.getsize(found[0]) / 2**20, "events": len(events),
+              "kernels": kernels, "ranges": ranges, "kernel_launches": launches}
+    log("profiled build", json.dumps(report))
+    if not all(k["trace_launches"] > 0 and k["counted_launches"] > 0 for k in kernels.values()):
+        raise AssertionError(f"the trace does not name every flash kernel: {kernels}")
+    if not all(ranges.values()):
+        raise AssertionError(f"the trace lacks a range: {ranges}")
+    return report
+
+
+def sampled_server_check(root: str, collection: str, workdir: str, device=None) -> dict:
+    """Phase 20a: ``run-server`` with and without the sampling profiler,
+    the same fleet request to each in turn; the sampled one stopped with
+    SIGTERM, its dump rendered by both ``profile`` commands."""
+    import signal
+
+    import numpy as np
+
+    from gordo_tpu_torch.observability.sampling import PROFILE_HZ_ENV_VAR, PROFILE_OUT_ENV_VAR
+
+    dump = os.path.join(workdir, "gordo_profile.json")
+    processes, ports = {}, {}
+    for label in ("off", "on"):
+        env = {k: v for k, v in os.environ.items()
+               if k not in (PROFILE_HZ_ENV_VAR, PROFILE_OUT_ENV_VAR)}
+        if label == "on":
+            env.update({PROFILE_HZ_ENV_VAR: str(PROFILE_HZ), PROFILE_OUT_ENV_VAR: dump})
+        ports[label] = free_port()
+        processes[label] = subprocess.Popen(
+            [sys.executable, "-c", REPLICA_DRIVER, os.path.join(workdir, f"{label}.json"),
+             "run-server", "--collection-dir", collection, "--host", "127.0.0.1", "--port",
+             str(ports[label]), *(["--device", device] if device else [])],
+            cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    report = {}
+    try:
+        for label, process in processes.items():
+            wait_ready(f"http://127.0.0.1:{ports[label]}/healthz", process)
+        rng = np.random.default_rng(SEED)
+        keys = [(datetime(2019, 6, 1, tzinfo=timezone.utc) + timedelta(minutes=10 * i)).isoformat()
+                for i in range(SERVE_ROWS[0])]
+        body = {}
+        for i in range(FLEET_TRANSFORMERS):
+            tags = [f"{tag.rsplit(' ', 1)[0]} {3 * i + j + 1}" for j, tag in enumerate(TAGS)]
+            body[f"{MACHINE}-{i}"] = frame_of(rng.normal(size=(len(keys), 3)), keys, tags,
+                                              slice(None))
+        payload = json.dumps({"machines": body}).encode()
+        seconds = {"off": [], "on": []}
+        for rep in range(PROFILE_REQUESTS + 1):
+            for label in ("off", "on") if rep % 2 else ("on", "off"):
+                url = f"http://127.0.0.1:{ports[label]}/gordo/v0/{PROJECT}/prediction/fleet"
+                reply, s = post(url, payload)
+                if rep:  # the first of each loads the models
+                    seconds[label].append(s)
+        counts = replica_counts(processes["on"], os.path.join(workdir, "on.json"))
+        report["forward_launches"] = sum(v for k, v in counts["kernels"].items()
+                                         if k.startswith("flash_attention_fwd"))
+        report["kernel_launches"] = counts["kernels"]
+        report["median_ms"] = {label: 1000 * float(np.median(s)) for label, s in seconds.items()}
+        processes["on"].send_signal(signal.SIGTERM)
+        report["exit_on_sigterm"] = processes["on"].wait(timeout=60)
+    finally:
+        stop_processes(processes.values())
+    if report["exit_on_sigterm"] != 0 or not os.path.exists(dump):
+        raise AssertionError(f"the sampled server wrote no dump on SIGTERM: {report}")
+    with open(dump) as fh:
+        payload = json.load(fh)
+    flame = os.path.join(workdir, "flame.txt")
+    commands = {"report": ["profile", "report", dump], "flame": ["profile", "flame", dump,
+                                                                 "-o", flame]}
+    rendered = {name: subprocess.run([sys.executable, "-m", "gordo_tpu_torch.cli", *argv],
+                                     cwd=root, capture_output=True, text=True, timeout=120)
+                for name, argv in commands.items()}
+    server_phases = sorted(k for k in payload["phase_seconds"] if k.startswith("server/"))
+    report.update(
+        n_samples=payload["n_samples"], duration_s=payload["duration_s"],
+        server_phases=server_phases,
+        sampled_server_phases={k: v for k, v in payload["per_phase"].items()
+                               if k.startswith("server/")},
+        exits={name: run.returncode for name, run in rendered.items()},
+        flame_lines=len(open(flame).read().splitlines()) if os.path.exists(flame) else 0)
+    log("sampled server", json.dumps(report))
+    log("profile report:\n" + rendered["report"].stdout.strip())
+    # the host phases' brackets are a few ms a request: at PROFILE_HZ a
+    # sample may land in none of them (the ledger's device phase is no
+    # bracket: a thread waiting on the card samples unattributed, as in JAX)
+    if (any(report["exits"].values()) or payload["n_samples"] <= 0 or not server_phases
+            or report["flame_lines"] <= 0 or report["forward_launches"] <= 0):
+        raise AssertionError(f"the sampled server's dump: {report}\n"
+                             f"{rendered['report'].stderr[-2000:]}")
+    return report
+
+
+def multi_chip_check(torch, fa, device=None) -> dict:
+    """Phase 20b: one NCCL rank from an explicit coordinator (a gloo rank
+    when ``device`` is ``"cpu"``: a rehearsal); the data-parallel and
+    long-context trainers on it. The data-parallel trainer's CPU reference
+    runs first, on a gloo rank of its own: its collectives take CPU
+    tensors, which NCCL does not."""
+    import numpy as np
+    from torch.func import functional_call
+
+    from gordo_tpu_torch.models.factories.transformer import transformer_model
+    from gordo_tpu_torch.models.specs import per_sample_loss
+    from gordo_tpu_torch.parallel import distributed
+    from gordo_tpu_torch.parallel.data_parallel import DataParallelTrainer
+    from gordo_tpu_torch.parallel.long_context import LongContextTrainer
+    from gordo_tpu_torch.parallel.mesh import DATA_AXIS, get_device_mesh
+    from gordo_tpu_torch.parallel.sequence import SEQ_AXIS
+
+    widths = {k: BASE_ESTIMATOR[k] for k in ("lookback_window", "d_model", "n_heads",
+                                             "n_layers", "attention_impl")}
+    report = {}
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((DP_BATCH, widths["lookback_window"], 3)).astype(np.float32)
+    y = rng.standard_normal((DP_BATCH, 3)).astype(np.float32)
+    runs = {}
+
+    def data_parallel_run(label, zero1, where):
+        mesh = get_device_mesh(axis_names=(DATA_AXIS,))
+        trainer = DataParallelTrainer(
+            transformer_model(n_features=3, dropout=0.0, **widths), mesh, zero1=zero1,
+            device=where)
+        params, opt_state = trainer.init(seed=SEED)
+        start = {k: v.detach().cpu().numpy() for k, v in params.items()}
+        xb, yb = trainer.shard_batch(x), trainer.shard_batch(y)
+        fa.reset_launch_counts()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(DP_STEPS):
+            params, opt_state, loss = trainer.train_step(params, opt_state, xb, yb)
+            losses.append(float(loss))
+        runs[label] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                       "kernel_launches": dict(fa.kernel_launches),
+                       "params": {k: v.detach().cpu().numpy() for k, v in params.items()},
+                       "start": start}
+
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cpu")
+    try:
+        data_parallel_run("cpu", False, "cpu")
+    finally:
+        distributed.shutdown()
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        report["backend"] = torch.distributed.get_backend()
+        report["process_info"] = distributed.process_info()
+        data_parallel_run("card", False, device)
+        data_parallel_run("card_zero1", True, device)
+        card, cpu = runs["card"], runs["cpu"]
+        worst = {"zero1": 0.0, "cpu": 0.0}
+        for name, value in card["params"].items():
+            worst["zero1"] = max(worst["zero1"],
+                                 float(np.abs(runs["card_zero1"]["params"][name] - value).max()))
+            if name.endswith("attn.key.bias"):
+                if max(np.abs(value - card["start"][name]).max(),
+                       np.abs(cpu["params"][name] - cpu["start"][name]).max()) > \
+                        DP_STEPS * 1e-3 * (1 + 1e-3):
+                    raise AssertionError(f"{name} moved past Adam's steps")
+                continue
+            scale = np.maximum(np.abs(cpu["params"][name]), 1.0)
+            worst["cpu"] = max(worst["cpu"],
+                               float((np.abs(value - cpu["params"][name]) / scale).max()))
+        report["data_parallel"] = {
+            label: {k: v for k, v in run.items() if k not in ("params", "start")}
+            for label, run in runs.items()}
+        report["data_parallel"]["worst"] = worst
+        log("data parallel", json.dumps(report["data_parallel"]))
+        launched = card["kernel_launches"]
+        if not all(launched.get(f"{k}_quad", 0) > 0 for k in PROFILE_KERNELS):
+            raise AssertionError(f"the data-parallel step launched no flash kernel: {launched}")
+        loss_gap = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(card["losses"], cpu["losses"]))
+        if worst["zero1"] > 1e-6 or worst["cpu"] > DP_TOLERANCE or loss_gap > DP_TOLERANCE:
+            raise AssertionError(f"data parallel: zero1, card against CPU: {worst}, {loss_gap}")
+
+        seq_mesh = get_device_mesh(axis_names=(SEQ_AXIS,))
+        windows = rng.standard_normal(LONG_WINDOW).astype(np.float32)
+        targets = rng.standard_normal((LONG_WINDOW[0], 3)).astype(np.float32)
+        report["long_context"] = {}
+        for impl in ("ring", "ulysses"):
+            trainer = LongContextTrainer(3, seq_mesh, attention_impl=impl, remat=True,
+                                         d_model=widths["d_model"], n_heads=widths["n_heads"],
+                                         n_layers=widths["n_layers"], device=device)
+            params, opt_state = trainer.init(seed=SEED)
+            with torch.no_grad():
+                out = functional_call(trainer.local_module, params,
+                                      (torch.as_tensor(windows, device=trainer.device),))
+                local = float(per_sample_loss("mse", out, torch.as_tensor(
+                    targets, device=trainer.device)).mean())
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            losses = []
+            t0 = time.perf_counter()
+            for _ in range(LONG_STEPS):
+                params, opt_state, loss = trainer.train_step(params, opt_state, windows, targets)
+                losses.append(float(loss))
+            row = {"losses": losses, "local_twin_loss": local,
+                   "seconds": time.perf_counter() - t0,
+                   "peak_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                         if torch.cuda.is_available() else None),
+                   "flash_launches": sum(fa.kernel_launches.values())}
+            report["long_context"][impl] = row
+            log("long context", impl, json.dumps(row))
+            if abs(losses[0] - local) > 1e-5 * max(abs(local), 1.0) or not np.isfinite(losses).all():
+                raise AssertionError(f"long context {impl}: {row}")
+    finally:
+        distributed.shutdown()
+    return report
+
+
+def profilers_phase(torch, fa, profile: bool, collection: str, device=None) -> dict:
+    """Phase 20: the profilers (a) and the multi-chip paths at one NCCL
+    rank (b), the module docstring's; on the card unless ``device`` names
+    another (a rehearsal)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="profilers-") as workdir:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            # the build runs beside the servers: one process each
+            building = pool.submit(profiled_build_check, root, workdir, device)
+            report["sampled_server"] = sampled_server_check(root, collection, workdir, device)
+            report["profiled_build"] = building.result()
+        report["profilers_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["multi_chip"] = multi_chip_check(torch, fa, device)
+        report["multi_chip_s"] = time.perf_counter() - t0
+    return report
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of gordo_tpu_torch on one card")
     parser.add_argument("--out", default=None, help="also write the numbers to this JSON file")
@@ -6234,15 +6626,20 @@ def main(argv=None) -> int:
     models = timed("models", model_phase)
     with tempfile.TemporaryDirectory() as fleet_dir:
         fleet = timed("fleet_build", fleet_build_phase, args.profile, fleet_dir)
-        build_plane = timed("build_plane", build_plane_phase, args.profile, fleet)
         fleet_serve = timed("fleet_serve", fleet_serve_phase, args.profile, fleet["collection"])
-        options = timed("build_options", build_options_phase, args.profile)
+        # phase 17's ledger workers (subprocesses, their own launch counts)
+        # build beside phase 12, whose checks read no time of theirs
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            planing = pool.submit(timed, "build_plane", build_plane_phase, args.profile, fleet)
+            options = timed("build_options", build_options_phase, args.profile)
+            build_plane = planing.result()
         lake_stream = timed("lake_stream", lake_stream_phase, args.profile, fleet["collection"])
         plane = timed("plane", plane_phase, args.profile, fleet["collection"])
         lifecycle = timed("lifecycle", lifecycle_phase, args.profile, fleet["collection"])
         client = timed("client", client_phase, args.profile, fleet["collection"])
         tuning = timed("tuning", tuning_phase, args.profile, fleet)
         gamedays = timed("gameday", gameday_phase, args.profile, fleet["collection"])
+        profilers = timed("profilers", profilers_phase, args.profile, fleet["collection"])
 
     def check(kernel, case, rows):
         return next(r for r in rows if r.get("kernel", fa.KERNEL) == kernel and r["case"] == case)
@@ -6276,6 +6673,11 @@ def main(argv=None) -> int:
              "rollup_routed": tuning["plane"]["kernel_launches"],
              "tuned_build": tuning["build_launches"],
              "fault_plane": gamedays["fault_plane"]["kernel_launches"],
+             "profiled_build": profilers["profiled_build"]["kernel_launches"],
+             "sampled_server": profilers["sampled_server"]["kernel_launches"],
+             "data_parallel": profilers["multi_chip"]["data_parallel"]["card"]["kernel_launches"],
+             "data_parallel_zero1":
+                 profilers["multi_chip"]["data_parallel"]["card_zero1"]["kernel_launches"],
              **client["kernel_launches"],
              **{label: models[label]["launches"] for label in models}}
 
@@ -6331,7 +6733,7 @@ def main(argv=None) -> int:
                  "fleet_serve": fleet_serve, "build_options": options,
                  "lake_stream": lake_stream, "plane": plane, "lifecycle": lifecycle,
                  "client": client, "build_plane": build_plane, "tuning": tuning,
-                 "gameday": gamedays, **kernels},
+                 "gameday": gamedays, "profilers": profilers, **kernels},
                 fh,
                 indent=1,
                 default=str,

@@ -38,6 +38,12 @@ port's own package name and version (``cache_key``), so a register shared
 with JAX builds never hands one package the other's artifact. A hit loads
 the stored artifact and its metadata, with this request's user metadata
 and runtime, and trains nothing.
+
+With ``GORDO_TPU_PROFILE_DIR`` set, each build is traced by
+``torch.profiler`` into ``<dir>/build-<machine>-<unix_ms>/trace.json``,
+with ``data-fetch``, ``cross-validation`` and ``fit`` ranges (and the
+fleet trainer's ``train-dispatch`` ranges of a detector's fold fits)
+over the kernels they launch (``observability/profiler.py``).
 """
 
 import functools
@@ -73,6 +79,7 @@ from gordo_tpu_torch.models.utils import (
     metric_wrapper,
     splitter_from_definition,
 )
+from gordo_tpu_torch.observability.profiler import annotate, maybe_trace
 from gordo_tpu_torch.utils import disk_registry
 
 logger = logging.getLogger(__name__)
@@ -211,6 +218,13 @@ class ModelBuilder:
         return None
 
     def _build(self, X, y, index, device) -> Tuple[Any, Machine]:
+        """The build itself, traced by ``torch.profiler`` when
+        ``GORDO_TPU_PROFILE_DIR`` is set (``observability/profiler.py``),
+        with ``data-fetch``, ``cross-validation`` and ``fit`` ranges."""
+        with maybe_trace(f"build-{self.machine.name}"):
+            return self._build_traced(X, y, index, device)
+
+    def _build_traced(self, X, y, index, device) -> Tuple[Any, Machine]:
         seed = int(self.machine.evaluation.get("seed", 0))
         np.random.seed(seed)
         random.seed(seed)
@@ -219,7 +233,8 @@ class ModelBuilder:
         if X is None:
             dataset = _get_dataset(self.machine.dataset.to_dict())
             start = time.perf_counter()
-            X, y, stamps = dataset.get_data()
+            with annotate("data-fetch"):
+                X, y, stamps = dataset.get_data()
             # one column a tag and aggregation method: the JAX frame's names
             targets = dataset.target_columns
             dataset_build.query_duration_sec = time.perf_counter() - start
@@ -247,7 +262,8 @@ class ModelBuilder:
             return model, machine
 
         start = time.perf_counter()
-        model.fit(X, y, device=device)
+        with annotate("fit"):
+            model.fit(X, y, device=device)
         fit_secs = time.perf_counter() - start
         module = fitted_estimator(model).spec_.module
         logger.info(
@@ -291,7 +307,8 @@ class ModelBuilder:
         splitter = splitter_from_definition(evaluation.get("cv", DEFAULT_CV))
         run = getattr(model, "cross_validate", None) or functools.partial(cross_validate, model)
         start = time.perf_counter()
-        cv = run(X=X, y=y, cv=splitter, scoring=scorers, device=device)
+        with annotate("cross-validation"):
+            cv = run(X=X, y=y, cv=splitter, scoring=scorers, device=device)
         cv_secs = time.perf_counter() - start
         logger.info(
             "Cross-validated in %.3f s; fold fits %s s",

@@ -65,11 +65,16 @@ and ``build_crashed``; the registry's ``gordo_build_*`` series; and
 the build's peak device memory among them
 (``gordo_tpu_torch.observability.device_memory``).
 
+``mesh`` (``parallel.mesh.auto_device_mesh()`` gives the process
+group's own when it holds more than one rank) shards each bucket's fits
+over ``torch.distributed`` ranks, as the JAX builder shards them
+over devices: the bucket is padded to a multiple of the ranks with
+zero-weight machines (``n_machines_padded`` in the telemetry report),
+each rank trains its slice, and every rank gets the whole bucket back.
+
 Left out, because the TPU-era builder does them for XLA: the program
 and compile caches (so no ``gordo_build_programs_compiled_total`` or
-``gordo_compile_cache_dir_bytes``), AOT export of serving programs, and
-the device mesh and fleet padding to it (``n_machines_padded`` is the
-bucket's machine count).
+``gordo_compile_cache_dir_bytes``) and AOT export of serving programs.
 """
 
 import json
@@ -207,6 +212,9 @@ class FleetModelBuilder:
     fault_sites
         The fault-injection sites whose ``nan`` specs poison this build's
         fits: ``("train",)``, or ``("train", "refit")`` for a refit.
+    mesh
+        A ``DeviceMesh`` with a ``fleet`` axis to shard each bucket over
+        (module docstring); None trains here.
     """
 
     def __init__(
@@ -225,10 +233,12 @@ class FleetModelBuilder:
         prefetch_depth: int = 0,
         initial_params: Optional[Dict[str, Dict[str, Any]]] = None,
         fault_sites: Tuple[str, ...] = ("train",),
+        mesh=None,
     ):
         if on_error not in ("raise", "skip"):
             raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
         self.machines = machines
+        self.mesh = mesh
         self.data_threads = data_threads
         self.epoch_chunk = max(1, int(epoch_chunk))
         self.on_error = on_error
@@ -760,9 +770,11 @@ class FleetModelBuilder:
                     return {}
 
         n_grid = timestep_bucket(max(len(X) for X in Xs))
+        # a mesh splits the bucket evenly: pad it with zero-weight machines
+        m_padded = FleetTrainer.pad_fleet_size(len(bucket), self.mesh)
         data = StackedData.from_ragged(
-            Xs, ys, n_timesteps=n_grid, n_features=f_prog, n_features_out=f_out_prog,
-            device=self.device, prefetch_depth=self.prefetch_depth,
+            Xs, ys, n_machines_padded=m_padded, n_timesteps=n_grid, n_features=f_prog,
+            n_features_out=f_out_prog, device=self.device, prefetch_depth=self.prefetch_depth,
         )
         fit_args = proto.extract_supported_fit_args(proto.kwargs)
         epochs = int(fit_args.get("epochs", 1))
@@ -773,15 +785,18 @@ class FleetModelBuilder:
         trainer = FleetTrainer(
             spec, lookahead=lookahead, epoch_chunk=epoch_chunk, device=self.device,
             seed=seeds[0], prefetch_depth=self.prefetch_depth, fault_sites=self.fault_sites,
+            mesh=self.mesh,
         )
         names = [item["machine"].name for item in fetched]
         # each machine starts from its own solo init (the same weights
         # whichever builder trains it), or from its warm-start weights
-        init = trainer.stack_params([
+        starts = [
             {name: value.detach().clone() for name, value in est._initial_state(spec, seed).items()}
             for est, seed in zip(estimators, seeds)
-        ])
-        warm = self._warm_init(init, self._stack_warm_params(names, len(fetched)))
+        ]
+        # a pad machine starts as the first one: it carries no weight
+        init = trainer.stack_params(starts + [starts[0]] * (m_padded - len(starts)))
+        warm = self._warm_init(init, self._stack_warm_params(names, m_padded))
         if warm is not None:
             init = warm
 
@@ -878,7 +893,7 @@ class FleetModelBuilder:
         self.bucket_reports_.append({
             "machines": names,
             "n_machines": len(bucket),
-            "n_machines_padded": len(bucket),
+            "n_machines_padded": int(m_padded),
             "n_timesteps_grid": int(n_grid),
             "n_features": int(f_prog),
             "n_features_out": int(f_out_prog),

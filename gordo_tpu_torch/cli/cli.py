@@ -38,6 +38,7 @@ The port's command line (the counterpart of ``gordo_tpu.cli``'s
     python -m gordo_tpu_torch.cli top STATUS_URL [--interval S] [--once] [--as-json]
     python -m gordo_tpu_torch.cli rollup --member ID=URL ... [--once] ...
     python -m gordo_tpu_torch.cli gameday list|run [NAMES...] ... [--device cpu]
+    python -m gordo_tpu_torch.cli profile report|flame PATH ...
 
 ``build`` builds one machine (fetch and resample its dataset,
 cross-validate and derive the thresholds, fit) and writes the port's
@@ -100,7 +101,11 @@ JAX command's versioned payload.
 on MACHINE's data as one fleet (``gordo_tpu_torch.parallel.sweep``),
 after fitting its prefix transformers, with the epochs and batch size
 its build would use, and prints each trial's final loss in Katib's
-``key=value`` form, best first, then the best hyperparameters.
+``key=value`` form, best first, then the best hyperparameters. Started
+by torchrun on more than one rank, it starts the process group
+(``parallel.distributed.initialize``) and shards the variants over the
+ranks (``parallel.mesh.auto_device_mesh``); in one process nothing
+changes.
 
 ``run-router`` fronts ``run-server`` replicas that each serve a shard of
 one collection (``gordo_tpu_torch.router``); it needs no card. With
@@ -128,9 +133,10 @@ models from a server or router with the port's client; ``trace``
 ``rollup`` (``cli/plane.py``) read a serving plane's merged telemetry;
 ``tune`` (``cli/tune.py``) fits a collection's tuning profile from its
 telemetry and measures a corpus with ``tune calibrate``; ``gameday``
-(``cli/gameday.py``) runs fault timelines against an in-process plane.
-They parse their own options; only ``tune calibrate`` and ``gameday run``
-touch the card.
+(``cli/gameday.py``) runs fault timelines against an in-process plane;
+``profile`` (``cli/profile.py``) renders a wall-profiler dump
+(``GORDO_PROFILE_HZ``). They parse their own options; only ``tune
+calibrate`` and ``gameday run`` touch the card.
 """
 
 import argparse
@@ -515,9 +521,12 @@ def sweep(args) -> int:
 
     from gordo_tpu_torch.builder.fleet_build import _find_torch_estimator, _prefix_transformers
     from gordo_tpu_torch.data import _get_dataset
+    from gordo_tpu_torch.parallel import distributed
+    from gordo_tpu_torch.parallel.mesh import auto_device_mesh
     from gordo_tpu_torch.parallel.sweep import HyperparamSweep
 
     try:
+        distributed.initialize(device=args.device)
         machine = Machine.from_config(
             args.machine, project_name=args.machine.get("project_name", "sweep"))
         model = serializer.from_definition(machine.model)
@@ -535,7 +544,7 @@ def sweep(args) -> int:
         result = HyperparamSweep(
             spec, args.grid, lookahead=estimator.lookahead if spec.windowed else 0,
             epoch_chunk=args.epoch_chunk or int(kwargs.get("epoch_chunk", 1)),
-            device=args.device,
+            device=args.device, mesh=auto_device_mesh(),
         ).fit(
             X_t, y_t,
             epochs=args.epochs if args.epochs is not None else int(kwargs.get("epochs", 1)),
@@ -938,7 +947,9 @@ def _parser() -> argparse.ArgumentParser:
                        ("rollup", "poll, merge and serve plane members' snapshots "
                                   "(cli/plane.py)"),
                        ("gameday", "run fault timelines against an in-process plane "
-                                   "(cli/gameday.py)")):
+                                   "(cli/gameday.py)"),
+                       ("profile", "the cost-seam report of a wall-profiler dump "
+                                   "(cli/profile.py)")):
         command = commands.add_parser(name, add_help=False, help=text)
         command.add_argument("command_args", nargs=argparse.REMAINDER)
     return parser
@@ -977,6 +988,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         from gordo_tpu_torch.cli import gameday
 
         return gameday.main(argv[1:])
+    if argv[:1] == ["profile"]:
+        from gordo_tpu_torch.cli import profile
+
+        return profile.main(argv[1:])
     if argv[:1] in (["slo"], ["top"], ["rollup"]):
         from gordo_tpu_torch.cli import plane
 

@@ -28,7 +28,10 @@ Weight mapping, Flax -> torch:
   {"LayerNorm_0", "MultiHeadSelfAttention_0": {"query", "key", "value",
   "out"}, "LayerNorm_1", "Dense_0", "Dense_1"}, "LayerNorm_0", "head"}}``
   maps onto ``TransformerNet``'s ``embed``, ``blocks.<i>.{norm1, attn.*,
-  norm2, ff1, ff2}``, ``norm`` and ``head``;
+  norm2, ff1, ff2}``, ``norm`` and ``head``, whether or not the net is
+  sequence-sharded or rematerialised (the long-context twins share one
+  tree: ``LongContextTrainer.init(params=...)``, and so does
+  ``DataParallelTrainer.init(params=...)`` for the net of its spec);
 - a feedforward tree ``{"params": {"Dense_<i>"}}`` maps onto
   ``FeedForwardNet``'s ``layers.<i>``;
 - a recurrent tree (``LSTMNet``, LSTM or GRU) maps its head ``Dense_0``

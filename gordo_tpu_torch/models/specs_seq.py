@@ -32,12 +32,25 @@ the same dropout masks as the forward: the block's generator (a
 ``torch.Generator`` or a ``DropoutFeed``) is set back to its state at
 the block's entry for the recompute and restored after it, as JAX's
 ``nn.remat`` replays its key (checkpoint's own RNG preservation covers
-only the global generators, which the port never draws from). No factory
-sets the flag; the JAX package reaches it only from long-context
-sequence sharding (ROADMAP.md queue 1 item 10).
+only the global generators, which the port never draws from). The
+block's parameters go into the checkpoint as its inputs and the
+recompute calls the block functionally with them, so a net run under
+``torch.func.functional_call`` recomputes with the parameters its forward
+used, not the module's own, which ``functional_call`` has put back by the
+time the backward runs. No factory sets the flag; the long-context trainer sets it on its sharded twin
+(``gordo_tpu_torch.parallel.long_context``).
 
-Not ported yet: sequence sharding (``seq_axis``, ROADMAP.md queue 1 item
-10).
+``seq_axis`` shards the window's timesteps over a mesh axis of
+``torch.distributed`` ranks, as the JAX net's does inside ``shard_map``:
+the module then runs inside ``parallel.sequence.mesh_context(mesh)`` on
+this rank's shard of the timesteps, the positions are offset by the
+rank's index times the local length, the attention core is ring or
+Ulysses attention (``attention_impl`` ``"ring"`` or ``"ulysses"``,
+``parallel/sequence.py``), and the final timestep, which lives on the
+last rank, reaches every rank by JAX's psum-select: masked to the last
+rank, then summed over the axis. The parameter names do not change, so
+one state dict (and one Flax tree, through ``convert.py``) loads a
+sharded twin and its local one.
 """
 
 import math
@@ -46,6 +59,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from gordo_tpu_torch.models.specs import Dense, DropoutFeed, cast, dropout
@@ -58,9 +72,12 @@ ATTENTION_IMPLS = ("dense", "flash")
 LAYER_NORM_EPS = 1e-6
 
 
-def sinusoidal_positions(seq_len: int, d_model: int, device=None) -> torch.Tensor:
-    """Fixed sinusoidal positional encoding, (seq_len, d_model) float32."""
-    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+def sinusoidal_positions(seq_len: int, d_model: int, offset=0, device=None) -> torch.Tensor:
+    """Fixed sinusoidal positional encoding, (seq_len, d_model) float32.
+    ``offset`` shifts the positions: under sequence sharding each rank
+    passes its index times the local length, so shards see global
+    positions."""
+    pos = (torch.arange(seq_len, dtype=torch.float32, device=device) + offset)[:, None]
     dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / 10000.0 ** (dim / d_model)
     enc = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
@@ -106,7 +123,9 @@ class LayerNorm(nn.LayerNorm):
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """QKV projection + pluggable attention core + output projection."""
+    """QKV projection + pluggable attention core + output projection.
+    With ``seq_axis`` the core is the ring or Ulysses attention that
+    ``attention_impl`` names, over that mesh axis (module docstring)."""
 
     def __init__(
         self,
@@ -115,17 +134,27 @@ class MultiHeadSelfAttention(nn.Module):
         causal: bool = False,
         attention_impl: str = "dense",
         dtype=torch.float32,
+        seq_axis: Optional[str] = None,
     ):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model={d_model} not divisible by n_heads={n_heads}")
-        if attention_impl not in ATTENTION_IMPLS:
+        if seq_axis is not None:
+            from gordo_tpu_torch.parallel.sequence import SEQUENCE_IMPLS
+
+            if attention_impl not in SEQUENCE_IMPLS:
+                raise ValueError(
+                    f"attention_impl {attention_impl!r} invalid with seq_axis; available: "
+                    f"{sorted(SEQUENCE_IMPLS)}"
+                )
+        elif attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
                 f"Unknown attention_impl {attention_impl!r}; available: {ATTENTION_IMPLS}"
             )
         self.n_heads = n_heads
         self.causal = causal
         self.attention_impl = attention_impl
+        self.seq_axis = seq_axis
         self.query = Dense(d_model, d_model, dtype)
         self.key = Dense(d_model, d_model, dtype)
         self.value = Dense(d_model, d_model, dtype)
@@ -140,8 +169,15 @@ class MultiHeadSelfAttention(nn.Module):
             return layer(x).view(batch, seq, self.n_heads, head_dim)
 
         q, k, v = proj(self.query), proj(self.key), proj(self.value)
-        attend = flash_attention if self.attention_impl == "flash" else dense_attention
-        out = attend(q, k, v, causal=self.causal)
+        if self.seq_axis is not None:
+            from gordo_tpu_torch.parallel.sequence import SEQUENCE_IMPLS
+
+            out = SEQUENCE_IMPLS[self.attention_impl](
+                q, k, v, axis_name=self.seq_axis, causal=self.causal
+            )
+        else:
+            attend = flash_attention if self.attention_impl == "flash" else dense_attention
+            out = attend(q, k, v, causal=self.causal)
         return self.out(out.reshape(batch, seq, d_model))
 
 
@@ -158,11 +194,13 @@ class TransformerBlock(nn.Module):
         ff_func: str = "gelu",
         dtype=torch.float32,
         dropout: float = 0.0,
+        seq_axis: Optional[str] = None,
     ):
         super().__init__()
         self.dropout = dropout
         self.norm1 = LayerNorm(d_model)
-        self.attn = MultiHeadSelfAttention(d_model, n_heads, causal, attention_impl, dtype)
+        self.attn = MultiHeadSelfAttention(d_model, n_heads, causal, attention_impl, dtype,
+                                           seq_axis=seq_axis)
         self.norm2 = LayerNorm(d_model)
         self.ff1 = Dense(d_model, ff_dim, dtype)
         self.ff2 = Dense(ff_dim, d_model, dtype)
@@ -194,23 +232,28 @@ def _set_rng_state(generator, state) -> None:
 
 def rematerialised(block: nn.Module, h: torch.Tensor, generator) -> torch.Tensor:
     """``block(h, generator)`` under non-reentrant activation checkpointing,
-    its recompute replaying the dropout draws of the forward (module
-    docstring)."""
+    its recompute replaying the dropout draws of the forward and using the
+    parameters the forward used (module docstring)."""
     entry = _rng_state(generator)
     calls = [0]
+    # the block's tensors as the forward sees them: under functional_call,
+    # the substituted ones
+    state = {**dict(block.named_parameters()), **dict(block.named_buffers())}
+    names = list(state)
 
-    def run(x):
+    def run(x, *tensors):
         calls[0] += 1
+        tensors = dict(zip(names, tensors))
         if calls[0] == 1 or entry is None:
-            return block(x, generator)
+            return functional_call(block, tensors, (x, generator))
         after = _rng_state(generator)
         _set_rng_state(generator, entry)
         try:
-            return block(x, generator)
+            return functional_call(block, tensors, (x, generator))
         finally:
             _set_rng_state(generator, after)
 
-    return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
+    return checkpoint(run, h, *state.values(), use_reentrant=False, preserve_rng_state=False)
 
 
 class TransformerNet(nn.Module):
@@ -220,7 +263,8 @@ class TransformerNet(nn.Module):
     final timestep through a Linear head. Input (batch, time, features),
     output (batch, out_dim) float32. ``generator`` draws the dropout
     masks in training mode. ``remat`` recomputes each block's internals
-    in the backward pass (module docstring).
+    in the backward pass, and ``seq_axis`` shards the timesteps over a
+    mesh axis (module docstring).
     """
 
     def __init__(
@@ -237,15 +281,18 @@ class TransformerNet(nn.Module):
         dtype=torch.float32,
         dropout: float = 0.0,
         remat: bool = False,
+        seq_axis: Optional[str] = None,
     ):
         super().__init__()
         self.d_model = d_model
         self.dropout = dropout
         self.remat = remat
+        self.seq_axis = seq_axis
         self.embed = Dense(n_features, d_model, dtype)
         self.blocks = nn.ModuleList(
             TransformerBlock(
-                d_model, n_heads, ff_dim, causal, attention_impl, dtype=dtype, dropout=dropout
+                d_model, n_heads, ff_dim, causal, attention_impl, dtype=dtype, dropout=dropout,
+                seq_axis=seq_axis,
             )
             for _ in range(n_layers)
         )
@@ -256,8 +303,16 @@ class TransformerNet(nn.Module):
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
+        seq = x.shape[1]
+        offset, axis = 0, None
+        if self.seq_axis is not None:
+            from gordo_tpu_torch.parallel.sequence import bound_axis
+
+            # x is this rank's shard: the offset recovers its global positions
+            axis = bound_axis(self.seq_axis)
+            offset = axis[1] * seq
         h = self.embed(x)
-        h = h + cast(sinusoidal_positions(x.shape[1], self.d_model, device=h.device), h.dtype)
+        h = h + cast(sinusoidal_positions(seq, self.d_model, offset, device=h.device), h.dtype)
         h = dropout(h, self.dropout, self.training, generator)
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
@@ -265,6 +320,13 @@ class TransformerNet(nn.Module):
             else:
                 h = block(h, generator)
         h = self.norm(h)[:, -1, :]
+        if axis is not None:
+            from gordo_tpu_torch.parallel.sequence import psum
+
+            # the true final timestep lives on the last rank: mask, then sum
+            # over the axis, so every rank holds it
+            _, index, size = axis
+            h = psum(h * float(index == size - 1), self.seq_axis)
         return cast(self.out_func(self.head(h)), torch.float32)
 
 

@@ -8,10 +8,10 @@ planes (:mod:`.attribution`), the card's memory watermarks
 ``telemetry summarize`` (:mod:`.report`), the serving plane's rollup
 (:mod:`.rollup`: the ``/telemetry/snapshot`` payload, the merge, the
 control signals and the poller) and SLOs as error budgets
-(:mod:`.slo`). None of them imports torch at import time. The names are
-the JAX package's, less those of what the port lacks: the sampling
-profiler, ``profiler.py`` and the attribution block of a span (ROADMAP.md
-queue 1 item 9).
+(:mod:`.slo`), the sampling wall profiler (:mod:`.sampling`,
+``GORDO_PROFILE_HZ``) and the ``torch.profiler`` trace hooks
+(:mod:`.profiler`, ``GORDO_TPU_PROFILE_DIR``). None of them imports torch
+at import time. The names are the JAX package's.
 """
 
 from .attribution import (
@@ -33,6 +33,16 @@ from .events import (
     EventEmitter,
     emit_event,
     read_events,
+)
+from .profiler import PROFILE_DIR_ENV_VAR, annotate, maybe_trace, profile_dir
+from .sampling import (
+    PROFILE_HZ_ENV_VAR,
+    PROFILE_OUT_ENV_VAR,
+    WallSampler,
+    active_sampler,
+    folded_lines,
+    maybe_start_from_env,
+    profiler_active,
 )
 from .registry import (
     Counter,
@@ -158,4 +168,15 @@ __all__ = [
     "ledger_for",
     "phase_totals",
     "record_current",
+    "PROFILE_DIR_ENV_VAR",
+    "annotate",
+    "maybe_trace",
+    "profile_dir",
+    "PROFILE_HZ_ENV_VAR",
+    "PROFILE_OUT_ENV_VAR",
+    "WallSampler",
+    "active_sampler",
+    "folded_lines",
+    "maybe_start_from_env",
+    "profiler_active",
 ]

@@ -34,8 +34,9 @@ snapshot (``telemetry summarize``'s ``phases`` section). A stream update
 has a ledger of its own on the ``stream`` plane
 (``streaming/session.py``), and a routed request one on the ``router``
 plane (``router/app.py``: the replicas' wait as ``queue``, the reply's
-re-stamp as ``serialize``). The JAX package's sampling profiler hook
-(``GORDO_PROFILE_HZ``) is not ported (ROADMAP.md queue 1 item 9).
+re-stamp as ``serialize``). Each bracket also tells the sampling
+profiler (:mod:`.sampling`, ``GORDO_PROFILE_HZ``) which phase its thread
+is in; with the sampler off that hook is one module-global read.
 """
 
 import os
@@ -43,6 +44,7 @@ import threading
 import time
 import typing
 
+from gordo_tpu_torch.observability import sampling
 from gordo_tpu_torch.observability.registry import get_registry
 
 LEDGER_ENV_VAR = "GORDO_PHASE_LEDGER"
@@ -138,20 +140,29 @@ NOOP_LEDGER = _NoopLedger()
 
 class _PhaseBracket:
     """One ``with ledger.phase(name):`` bracket: two ``perf_counter``
-    calls and one dict add."""
+    calls, one dict add, and one module-global read for the sampling
+    profiler's hook (its phase map is touched only while a sampler
+    runs)."""
 
-    __slots__ = ("_ledger", "_name", "_start")
+    __slots__ = ("_ledger", "_name", "_start", "_prev_phase")
 
     def __init__(self, ledger: "PhaseLedger", name: str):
         self._ledger = ledger
         self._name = name
 
     def __enter__(self):
+        if sampling._ACTIVE:
+            self._prev_phase = sampling.current_phase()
+            sampling.set_phase(self._ledger.plane, self._name)
+        else:
+            self._prev_phase = None
         self._start = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         self._ledger.add(self._name, time.perf_counter() - self._start)
+        if sampling._ACTIVE:
+            sampling.clear_phase(self._prev_phase)
         return False
 
 

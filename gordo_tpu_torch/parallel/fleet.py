@@ -73,9 +73,25 @@ timesteps, epochs per sync), all labelled ``path="fleet"``.
 ``gordo_train_compile_seconds`` is not registered: an eager fit compiles
 no program, so there is no compile time to split from its first epoch.
 
+Each epoch's dispatch is also a ``train-dispatch`` range of a
+``torch.profiler`` trace when one is active
+(``observability/profiler.py``, ``GORDO_TPU_PROFILE_DIR``).
+
+``mesh`` (a ``DeviceMesh`` with a ``fleet`` axis, ``parallel/mesh.py``)
+shards the fleet over ``torch.distributed`` ranks, as the JAX trainer
+shards it over devices: the machine count must divide over the ranks
+(:meth:`FleetTrainer.pad_fleet_size` pads it, the pad machines carrying no
+weight), each rank trains its slice of the stack, and the host's reads
+(the losses, the early-stopping and quarantine rows) are all-gathered
+(:func:`host_fetch`), so every rank takes the same decisions and returns
+the whole fleet's losses and stacked parameters. Shuffles and dropout
+draws are drawn for the whole fleet and sliced, so a machine trains to
+the same weights on whichever rank it lands. A sharded fit takes no
+checkpointer.
+
 Left out, because they are XLA or TPU machinery the eager port has no
 use for: the program cache and its compile telemetry, buffer donation,
-the device mesh and fleet padding to it, and scan unrolling.
+and scan unrolling.
 """
 
 import dataclasses
@@ -86,10 +102,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call, vmap
 
 from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.observability import attribution, emit_event, get_registry, tracing
+from gordo_tpu_torch.observability.profiler import annotate
 from gordo_tpu_torch.models.optim import (
     Optimizer,
     flatten,
@@ -107,6 +125,7 @@ from gordo_tpu_torch.models.specs import (
 )
 from gordo_tpu_torch.ops.windowing import DEFAULT_BATCH_SIZE, num_windows, windowed_predict
 from gordo_tpu_torch.parallel import transfer
+from gordo_tpu_torch.parallel.mesh import FLEET_AXIS, axis_index, axis_size, pad_to_multiple
 from gordo_tpu_torch.parallel.precision import cast_params
 from gordo_tpu_torch.robustness import faults
 
@@ -192,6 +211,53 @@ class StackedData:
         return self.X.shape[1]
 
 
+def _mesh_gather(t: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` of the mesh's fleet axis, concatenated along
+    ``dim`` in rank order (on the device the process group takes)."""
+    n = axis_size(mesh, FLEET_AXIS)
+    group = mesh.get_group(FLEET_AXIS)
+    if dist.get_backend(group) == "nccl" and t.device.type != "cuda":
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def host_fetch(x, mesh=None, axis: int = 0) -> np.ndarray:
+    """
+    A per-machine read to the host: with a ``mesh``, every rank's slice of
+    the fleet all-gathered along ``axis`` (the machine axis), so every rank
+    receives the whole fleet's values, as the JAX function's
+    ``process_allgather`` gives every host the global array.
+    """
+    t = x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    if mesh is not None:
+        is_bool = t.dtype == torch.bool
+        t = _mesh_gather(t.to(torch.uint8) if is_bool else t, mesh, axis)
+        t = t.bool() if is_bool else t
+    return t.cpu().numpy()
+
+
+def _map_tree(fn, tree):
+    """``fn`` on every tensor of a (nested) dict."""
+    if isinstance(tree, dict):
+        return {key: _map_tree(fn, value) for key, value in tree.items()}
+    return fn(tree)
+
+
+@dataclasses.dataclass
+class _Shard:
+    """This rank's slice [lo, hi) of a sharded fit's ``total`` machines."""
+
+    lo: int
+    hi: int
+    total: int
+
+    def own(self, draw: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole-fleet tensor."""
+        return draw[self.lo:self.hi]
+
+
 def _tensor(value) -> torch.Tensor:
     """A tensor (as it is) or an array (copied) as a tensor on the CPU."""
     if isinstance(value, torch.Tensor):
@@ -244,6 +310,9 @@ class FleetTrainer:
     fault_sites
         The fault-injection sites whose ``nan`` specs poison this
         trainer's fits (module docstring).
+    mesh
+        A ``DeviceMesh`` with a ``fleet`` axis: each rank trains its slice
+        of the fleet (module docstring); None trains it all here.
     """
 
     def __init__(
@@ -258,8 +327,10 @@ class FleetTrainer:
         prefetch_depth: int = 0,
         broadcast_data: bool = False,
         fault_sites: Tuple[str, ...] = ("train",),
+        mesh=None,
     ):
         self.spec = spec
+        self.mesh = mesh
         self.fault_sites = tuple(fault_sites)
         self.broadcast_data = bool(broadcast_data)
         self.prefetch_depth = transfer.clip_depth(prefetch_depth)
@@ -275,6 +346,56 @@ class FleetTrainer:
         self._flat, self._shapes = False, {}
 
     # -- setup -----------------------------------------------------------
+    @staticmethod
+    def pad_fleet_size(n_machines: int, mesh) -> int:
+        """The machine count a fleet is padded to for ``mesh``: a multiple
+        of its ranks (unchanged without a mesh)."""
+        if mesh is None:
+            return n_machines
+        return pad_to_multiple(n_machines, axis_size(mesh, FLEET_AXIS))
+
+    def _mesh_range(self, total: int) -> Tuple[int, int]:
+        """This rank's slice [lo, hi) of a fleet of ``total`` machines."""
+        n = axis_size(self.mesh, FLEET_AXIS)
+        if total % n:
+            raise ValueError(
+                f"{total} machines do not divide over the mesh's {n} ranks: pad the fleet to "
+                "FleetTrainer.pad_fleet_size(n, mesh)"
+            )
+        per = total // n
+        index = axis_index(self.mesh, FLEET_AXIS)
+        return index * per, (index + 1) * per
+
+    def _take_shard(self, data: StackedData, seeds, params, extra_weight, opt_state):
+        """This rank's slice of a sharded fit's inputs, and the slice."""
+        if not self.broadcast_data:
+            total = data.n_machines
+        elif params is not None:
+            total = next(iter(params.values())).shape[0]
+        elif seeds is not None:
+            total = len(seeds)
+        else:
+            raise ValueError("fit needs the initial params or each machine's seed")
+        shard = _Shard(*self._mesh_range(total), total)
+        own = shard.own
+        if not self.broadcast_data:
+            data = StackedData(own(data.X), own(data.y), own(data.sample_weight),
+                               None if data.feature_out_weight is None
+                               else own(data.feature_out_weight))
+        return (
+            data,
+            None if seeds is None else list(seeds)[shard.lo:shard.hi],
+            None if params is None else _map_tree(own, params),
+            None if extra_weight is None else np.asarray(extra_weight)[shard.lo:shard.hi],
+            None if opt_state is None else _map_tree(own, opt_state),
+            shard,
+        )
+
+    def _host_rows(self, rows: np.ndarray, shard: Optional[_Shard], axis: int = 0) -> np.ndarray:
+        """A host read of per-machine rows: this rank's, or in a sharded
+        fit the whole fleet's (:func:`host_fetch`)."""
+        return rows if shard is None else host_fetch(rows, self.mesh, axis)
+
     def init_params(self, seeds: Sequence[int]) -> Tensors:
         """Stacked initial weights, machine i's as a solo fit with seed
         ``seeds[i]`` draws them (Flax's default initialisation on the CPU)."""
@@ -382,10 +503,12 @@ class FleetTrainer:
 
         return loss
 
-    def _draws(self, xb: torch.Tensor, params: Tensors) -> List[torch.Tensor]:
+    def _draws(self, xb: torch.Tensor, params: Tensors,
+               shard: Optional[_Shard] = None) -> List[torch.Tensor]:
         """This step's dropout draws, (M, *site shape) each, from the
         trainer's generator; the sites' shapes come from one recording
-        forward of machine 0 per batch shape."""
+        forward of machine 0 per batch shape. A sharded fit draws the
+        whole fleet's and keeps its own rows."""
         key = tuple(xb.shape[1:])
         shapes = self._dropout_shapes.get(key)
         if shapes is None:
@@ -395,9 +518,15 @@ class FleetTrainer:
                 functional_call(self.module, one, (xb[0],), {"generator": feed})
             shapes = self._dropout_shapes[key] = feed.shapes
         m = xb.shape[0]
-        rows = 1 if self.broadcast_data else m
-        return [torch.rand((rows, *shape), generator=self._generator,
-                           device=xb.device).expand(m, *shape)
+        if self.broadcast_data:
+            return [torch.rand((1, *shape), generator=self._generator,
+                               device=xb.device).expand(m, *shape)
+                    for shape in shapes]
+        if shard is None:
+            return [torch.rand((m, *shape), generator=self._generator, device=xb.device)
+                    for shape in shapes]
+        return [shard.own(torch.rand((shard.total, *shape), generator=self._generator,
+                                     device=xb.device))
                 for shape in shapes]
 
     def _leaves(self, params: Tensors) -> Tensors:
@@ -423,20 +552,26 @@ class FleetTrainer:
         return torch.rand((rows, n_samples), generator=self._generator, device=self.device)
 
     def _epoch(self, params, opt_state, X, y, wb_all, fm, n_batches, batch_size, shuffle, epoch,
-               real_samples, gates=None):
+               real_samples, gates=None, shard: Optional[_Shard] = None):
         """One epoch for every machine: (params, opt state, epoch loss (M,)).
         ``real_samples`` (host, (M,)) says which machines' batches hold a
         real sample: real samples come first, so batch s of machine m does
         when ``s * batch_size < real_samples[m]``, and only the steps where
         some machine's does not pay for the optimizer's gate, copied to the
         device at the step, or taken from ``gates`` ((n_batches, M) on the
-        device, staged ahead) when it is given."""
+        device, staged ahead) when it is given. In a sharded fit the
+        shuffles and dropout are the whole fleet's draws, sliced to
+        ``shard``."""
         m, n_samples = wb_all.shape
         device = wb_all.device
         real = wb_all > 0
         self._seed_epoch(epoch)
         if shuffle:
-            noise = self._shuffle_noise(m, n_samples, epoch).to(device)
+            if shard is None or self.broadcast_data:
+                noise = self._shuffle_noise(m, n_samples, epoch)
+            else:
+                noise = shard.own(self._shuffle_noise(shard.total, n_samples, epoch))
+            noise = noise.to(device)
             sort_key = torch.where(real, noise, 2.0 + noise)
         else:
             ar = torch.arange(n_samples, device=device)
@@ -461,7 +596,7 @@ class FleetTrainer:
             wb = wb_all.gather(1, sel) * pad_mask[step]
             inputs = {name: params[name].detach().requires_grad_(True) for name in names}
             leaves = self._leaves(inputs)
-            draws = self._draws(xb, leaves)
+            draws = self._draws(xb, leaves, shard)
             losses, loss_sum = grad_fn(leaves, xb, yb, wb, fm, draws)
             grads = torch.autograd.grad(losses.sum(), [inputs[n] for n in names],
                                         allow_unused=True)
@@ -562,9 +697,20 @@ class FleetTrainer:
         here, and ``fit_telemetry_["resumed_from_epoch"]`` names the first.
         After the fit: ``healthy_``, ``quarantine_epoch_`` (-1 for a healthy
         machine), ``healthy_history_``, ``history_`` (one dict a machine)
-        and ``fit_telemetry_``.
+        and ``fit_telemetry_``. With a mesh each rank trains its slice of
+        the machines and every rank returns the whole fleet's results
+        (module docstring).
         """
         fit_start = time.perf_counter()
+        # a mesh: this rank's slice of the machines, their names, and the slice
+        own_names, shard = machine_names, None
+        if self.mesh is not None:
+            if checkpointer is not None:
+                raise ValueError("A fleet fit sharded over a mesh takes no checkpointer")
+            data, seeds, params, extra_weight, opt_state, shard = self._take_shard(
+                data, seeds, params, extra_weight, opt_state)
+            if machine_names is not None:
+                own_names = list(machine_names)[shard.lo:shard.hi]
         if shuffle is None:
             shuffle = not self.spec.windowed
         if not 0.0 <= float(validation_split) < 1.0:
@@ -629,7 +775,7 @@ class FleetTrainer:
                 has_val = np.repeat(has_val, m)
         # the train:nan seam, resolved once a fit: None unless a spec
         # targets this fleet
-        inj = faults.train_nan_injection(machine_names, m, sites=self.fault_sites)
+        inj = faults.train_nan_injection(own_names, m, sites=self.fault_sites)
         inj_mask = None if inj is None else torch.from_numpy(inj[0]).to(self.device)
         early_stopping = early_stopping_patience is not None
         track_best = early_stopping and restore_best_weights
@@ -653,7 +799,7 @@ class FleetTrainer:
             params, opt_state, healthy, start_epoch = self._restore(
                 checkpointer, params, opt_state, healthy, es if early_stopping else None)
             emit_event("fit_resume", path="fleet", start_epoch=start_epoch, epochs=epochs)
-        healthy_entry = healthy.cpu().numpy().copy()
+        healthy_entry = self._host_rows(healthy.cpu().numpy().copy(), shard)
         every = max(1, int(checkpoint_every))
 
         rows: Dict[str, list] = {"loss": [], "val": [], "healthy": [], "active": [],
@@ -667,6 +813,9 @@ class FleetTrainer:
         rows_per_machine = (w_host > 0).sum(axis=1).astype(np.int64)
         if self.broadcast_data:
             rows_per_machine = np.repeat(rows_per_machine, m)
+        rows_per_machine = self._host_rows(rows_per_machine, shard)
+        # the whole fleet's machines: every host read below is the fleet's
+        m_all = m if shard is None else shard.total
         timesteps_trained = 0
         early_stop_epoch = None
 
@@ -697,11 +846,12 @@ class FleetTrainer:
                 gates = pending.wait()
             chunk_rows: Dict[str, list] = {key: [] for key in rows}
             for e in range(epoch, epoch + chunk):
-                with tracing.start_span("train.dispatch", epoch=e, n_epochs=1):
+                with tracing.start_span("train.dispatch", epoch=e, n_epochs=1), \
+                        annotate("train-dispatch"):
                     t0 = time.perf_counter()
                     new_params, new_opt, loss = self._epoch(
                         params, opt_state, X, y, wb_all, fm, n_batches, batch_size, shuffle, e,
-                        real_samples, None if gates is None else gates[e - epoch],
+                        real_samples, None if gates is None else gates[e - epoch], shard,
                     )
                     seconds = time.perf_counter() - t0
                     attribution.record("train", "device", seconds)
@@ -758,8 +908,8 @@ class FleetTrainer:
                 transfer.count_transfer("train", "prefetched")
             # the host reads the chunk's rows at once: once a chunk with
             # early stopping, once a fit without
-            fetched = {key: torch.stack(value).cpu().numpy() for key, value in chunk_rows.items()
-                       if value}
+            fetched = {key: self._host_rows(torch.stack(value).cpu().numpy(), shard, axis=1)
+                       for key, value in chunk_rows.items() if value}
             n_host_syncs += 1
             n_rep = chunk
             stopped = early_stopping and not fetched["active"][-1].any()
@@ -785,8 +935,9 @@ class FleetTrainer:
             if stopped:
                 early_stop_epoch = epoch + n_rep - 1
                 logger.info("Fleet early stop: all %d machines stopped at epoch %d/%d",
-                            m, early_stop_epoch, epochs)
-                emit_event("early_stop", path="fleet", epoch=early_stop_epoch, n_machines=m)
+                            m_all, early_stop_epoch, epochs)
+                emit_event("early_stop", path="fleet", epoch=early_stop_epoch,
+                           n_machines=m_all)
                 break
             epoch += chunk
         if track_best and best_params is not None and bool(ever):
@@ -794,18 +945,21 @@ class FleetTrainer:
         params = {n: t.contiguous() for n, t in self._leaves(params).items()}
 
         losses = (np.concatenate(rows["loss"]).astype(np.float64) if rows["loss"]
-                  else np.zeros((0, m)))
+                  else np.zeros((0, m_all)))
         if rows["val"]:
             val = np.concatenate(rows["val"]).astype(np.float64)
-            if has_val is not None and not has_val.all():
-                val[:, ~has_val] = np.nan
+            if has_val is not None:
+                has_val = self._host_rows(np.asarray(has_val, dtype=bool), shard)
+                if not has_val.all():
+                    val[:, ~has_val] = np.nan
             self.val_losses_ = val
         self._finish_quarantine(
-            np.concatenate(rows["healthy"]) if rows["healthy"] else np.ones((0, m), dtype=bool),
-            machine_names, m, healthy_entry, start_epoch,
+            np.concatenate(rows["healthy"]) if rows["healthy"]
+            else np.ones((0, m_all), dtype=bool),
+            machine_names, m_all, healthy_entry, start_epoch,
         )
         self.history_ = []
-        for i in range(m):
+        for i in range(m_all):
             history = {"loss": [float(v) for v in losses[:, i]]}
             if self.val_losses_ is not None and not np.isnan(self.val_losses_[:, i]).any():
                 history["val_loss"] = [float(v) for v in self.val_losses_[:, i]]
@@ -814,11 +968,13 @@ class FleetTrainer:
         self._record_fit_telemetry(
             wall_time_s=time.perf_counter() - fit_start, loop_time_s=step_time,
             epochs_configured=epochs, epochs_run=epochs_run, start_epoch=start_epoch,
-            n_machines=m, steps_per_epoch=n_batches, early_stopping=early_stopping,
+            n_machines=m_all, steps_per_epoch=n_batches, early_stopping=early_stopping,
             early_stop_epoch=early_stop_epoch, n_stopped=n_stopped,
             n_host_syncs=n_host_syncs, dispatch_times=dispatch_times,
             timesteps_trained=timesteps_trained,
         )
+        if shard is not None:
+            params = {name: _mesh_gather(value, self.mesh) for name, value in params.items()}
         return params, losses
 
     def _record_fit_telemetry(self, *, wall_time_s: float, loop_time_s: float,
@@ -975,6 +1131,16 @@ class FleetTrainer:
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         X = torch.as_tensor(X).to(self.device)
+        if self.mesh is not None:
+            # each rank forwards its slice of the machines
+            lo, hi = self._mesh_range(X.shape[0])
+            out = self._predict({name: value[lo:hi] for name, value in params.items()},
+                                X[lo:hi], batch_size, precision)
+            return host_fetch(out, self.mesh)
+        return self._predict(params, X, batch_size, precision).cpu().numpy()
+
+    def _predict(self, params: Tensors, X: torch.Tensor, batch_size: int,
+                 precision: str) -> torch.Tensor:
         if precision == "bf16":
             params = cast_params(params, torch.bfloat16)
             X = X.to(torch.bfloat16)
@@ -995,7 +1161,7 @@ class FleetTrainer:
             else:
                 xb = X[:, ids]
             outs.append(fn(params, xb))
-        return torch.cat(outs, dim=1).cpu().numpy()
+        return torch.cat(outs, dim=1)
 
     @staticmethod
     def unstack_params(params: Tensors, index: int) -> Dict[str, np.ndarray]:

@@ -11,6 +11,10 @@ moves them into the optimizer state, one float32 per machine, and one
 the data (a Transformer's flash kernels take the variants as their
 machine axis, folded into their batch).
 
+With a ``mesh`` the sweep shards its variants over the ranks like any
+fleet: the variant axis is padded to a multiple of the ranks with copies
+of the last grid point, which the result leaves out.
+
 Every variant starts from the weights a one-machine fit with the same
 seed starts from, and draws that fit's shuffles and dropout, so trial i
 is a plain fit at grid point i up to the rounding of its hyperparameters
@@ -46,12 +50,13 @@ class HyperparamSweep:
         number of variants); names are the optimizer's sweepable
         arguments, ``lr`` and ``decay`` standing for ``learning_rate`` and
         ``weight_decay`` as in ``optimizer_kwargs``.
-    lookahead, epoch_chunk, device
-        Passed to the FleetTrainer (the card unless ``device="cpu"``).
+    lookahead, epoch_chunk, device, mesh
+        Passed to the FleetTrainer (the card unless ``device="cpu"``; a
+        mesh shards the variants over its ranks, module docstring).
     """
 
     def __init__(self, spec: ModelSpec, grid: Dict[str, Sequence[float]], lookahead: int = 0,
-                 epoch_chunk: int = 1, device: DeviceLike = None):
+                 epoch_chunk: int = 1, device: DeviceLike = None, mesh=None):
         if not grid:
             raise ValueError("grid must name at least one hyperparameter")
         lengths = {len(v) for v in grid.values()}
@@ -62,19 +67,24 @@ class HyperparamSweep:
             raise ValueError("grid value lists are empty")
         self.grid = {_OPT_KWARG_ALIASES.get(k, k): [float(x) for x in v] for k, v in grid.items()}
         self.spec = spec
+        # an even split needs the variant axis padded to the mesh; the pad
+        # variants repeat the last grid point and are left out of the result
+        self.n_padded = FleetTrainer.pad_fleet_size(self.n_variants, mesh)
         ctor, kwargs = resolve_optimizer(spec.optimizer, spec.optimizer_kwargs)
         optimizer = ctor(**kwargs)
         # raises, naming the sweepable ones, for a name that is not
         optimizer = inject_hyperparams(optimizer, tuple(sorted(self.grid)))
         self.trainer = FleetTrainer(spec, lookahead=lookahead, optimizer=optimizer,
                                     epoch_chunk=epoch_chunk, device=device,
-                                    broadcast_data=True)
+                                    broadcast_data=True, mesh=mesh)
 
     def _inject(self, opt_state: dict) -> dict:
-        """The stacked state with the grid's values as its hyperparameters."""
+        """The stacked state with the (padded) grid's values as its
+        hyperparameters."""
         hyperparams = dict(opt_state["hyperparams"])
         for name, values in self.grid.items():
-            hyperparams[name] = hyperparams[name].new_tensor(values)
+            padded = list(values) + [values[-1]] * (self.n_padded - len(values))
+            hyperparams[name] = hyperparams[name].new_tensor(padded)
         return dict(opt_state, hyperparams=hyperparams)
 
     def fit(self, X: np.ndarray, y=None, epochs: int = 10, batch_size: int = 128,
@@ -85,13 +95,13 @@ class HyperparamSweep:
         trainer = self.trainer
         data = StackedData.from_ragged([np.asarray(X)], [np.asarray(y)], device=trainer.device)
         trainer.seed = int(seed)
-        params = trainer.init_params([seed] * self.n_variants)
+        params = trainer.init_params([seed] * self.n_padded)
         # the optimizer's view of the parameters, as fit makes it
         view = params if trainer.optimizer.leafwise else {"flat": flatten(params, lead=1)}
-        opt_state = self._inject(trainer.optimizer.init(view, n_machines=self.n_variants))
+        opt_state = self._inject(trainer.optimizer.init(view, n_machines=self.n_padded))
         params, losses = trainer.fit(data, epochs=epochs, batch_size=batch_size, params=params,
                                      opt_state=opt_state)
-        return SweepResult(grid=self.grid, params=params, losses=losses)
+        return SweepResult(grid=self.grid, params=params, losses=losses[:, : self.n_variants])
 
 
 class SweepResult:

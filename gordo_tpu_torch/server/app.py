@@ -99,7 +99,14 @@ from gordo_tpu_torch.data.sensor_tag import tag_names
 from gordo_tpu_torch.device import DeviceLike, resolve_device
 from gordo_tpu_torch.models.utils import make_base_dataframe
 from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector
-from gordo_tpu_torch.observability import attribution, emit_event, prom_text, rollup, tracing
+from gordo_tpu_torch.observability import (
+    attribution,
+    emit_event,
+    prom_text,
+    rollup,
+    sampling,
+    tracing,
+)
 from gordo_tpu_torch.observability.registry import get_registry
 from gordo_tpu_torch.robustness import faults
 from gordo_tpu_torch.server import batching
@@ -1406,5 +1413,8 @@ def build_app(collection_dir: Optional[str] = None, device: DeviceLike = None,
     ``tuning_profile.json`` before their default, ``tuning/profile.py``);
     ``shard_manifest`` and ``replica_id`` (else ``GORDO_SHARD_MANIFEST``
     and ``GORDO_REPLICA_ID``; unset: the whole collection);
-    ``enable_prometheus`` (else ``ENABLE_PROMETHEUS``, else off)."""
+    ``enable_prometheus`` (else ``ENABLE_PROMETHEUS``, else off).
+    ``GORDO_PROFILE_HZ`` starts the sampling wall profiler here
+    (``observability/sampling.py``; one environment lookup when unset)."""
+    sampling.maybe_start_from_env()
     return GordoApp(collection_dir, device, **settings)

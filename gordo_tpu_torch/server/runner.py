@@ -15,11 +15,17 @@ a wait of 0 turns batching off). ``--shard-manifest`` and
 ``--replica-id`` (``GORDO_SHARD_MANIFEST``, ``GORDO_REPLICA_ID``) serve
 one replica's shard of the collection (``server/app.py``).
 ``--with-prometheus`` (``ENABLE_PROMETHEUS``) serves ``/metrics``.
+
+SIGTERM and SIGINT stop the server cleanly (exit code 0): the process
+runs its exit handlers, so the sampling profiler started by
+``GORDO_PROFILE_HZ`` writes its dump (``observability/sampling.py``).
 """
 
 import argparse
 import io
 import logging
+import signal
+import threading
 from socketserver import ThreadingMixIn
 from wsgiref.simple_server import ServerHandler, WSGIRequestHandler, WSGIServer, make_server
 
@@ -84,6 +90,13 @@ def make_http_server(app, host: str = "127.0.0.1", port: int = 5555) -> WSGIServ
     )
 
 
+def _stop(signum, frame) -> None:
+    """A stop signal unwinds ``serve_forever`` as a normal exit, so the
+    process's exit handlers run (a killed process would run none)."""
+    logger.info("Stopping on signal %d", signum)
+    raise SystemExit(0)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--collection-dir", default=None)
@@ -110,6 +123,9 @@ def main(argv=None) -> None:
                     shard_manifest=args.shard_manifest, replica_id=args.replica_id,
                     enable_prometheus=args.with_prometheus)
     server = make_http_server(app, args.host, args.port)
+    if threading.current_thread() is threading.main_thread():
+        for signum in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(signum, _stop)
     logger.info("Serving on %s:%d", args.host, server.server_port)
     try:
         server.serve_forever()

@@ -405,10 +405,10 @@ def test_servers_metadata_alike(clients):
 PLANT_TAGS = [f"GRA-TAG {i}" for i in range(1, 51)]
 PLANT_DATASET = f"""
       type: TimeSeriesDataset
-      data_provider: {{type: RandomDataProvider, min_size: 16400, max_size: 16400}}
+      data_provider: {{type: RandomDataProvider, min_size: 8200, max_size: 8200}}
       tags: {json.dumps(PLANT_TAGS)}
       train_start_date: '2019-01-01T00:00:00+00:00'
-      train_end_date: '2019-04-25T00:00:00+00:00'"""
+      train_end_date: '2019-02-27T00:00:00+00:00'"""
 RECURRENT_CONFIG = f"""
 machines:
   - name: lstm-plant-50

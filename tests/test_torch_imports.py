@@ -56,6 +56,11 @@ TORCH_FREE = [
     "gordo_tpu_torch.tuning.calibrate",
     "gordo_tpu_torch.cli.plane",
     "gordo_tpu_torch.cli.tune",
+    "gordo_tpu_torch.observability.sampling",
+    "gordo_tpu_torch.observability.profiler",
+    "gordo_tpu_torch.utils.tracing",
+    "gordo_tpu_torch.cli.profile",
+    "gordo_tpu_torch.parallel.mesh",
 ]
 
 
@@ -117,6 +122,10 @@ def test_port_imports_no_jax_and_no_missing_libraries():
         "gordo_tpu_torch.builder.ledger",
         "gordo_tpu_torch.cli.buckets",
         "gordo_tpu_torch.server.model_io",
+        "gordo_tpu_torch.parallel.distributed",
+        "gordo_tpu_torch.parallel.data_parallel",
+        "gordo_tpu_torch.parallel.sequence",
+        "gordo_tpu_torch.parallel.long_context",
         *TORCH_FREE,
     } <= set(names)
     assert loaded == []
